@@ -1,0 +1,689 @@
+"""Continuous batching over a paged KV cache, ported from
+``tpu_dra/workloads/continuous.py`` (``kv_layout="paged"``, plain
+admissions).
+
+A fixed pool of ``slots`` sequences decodes together, every slot at its
+own position; between chunks of ``chunk`` tokens the batcher thread
+admits queued requests into free slots and retires finished ones, so a
+short request submitted after a long one finishes first.
+
+Admission is page-gated and FIFO: the head request waits until the pool
+has its worst-case pages (prompt + steps), and later requests never
+overtake it.  Admissions of the same prompt bucket are prefilled
+together in power-of-two groups.  Retirement sentinels the slot's table
+row before its pages return to the pool, so in-flight appends for the
+slot drop.
+
+Sampling: greedy at temperature 0; above it, a Gumbel-max draw from the
+temperature-scaled (and engine-global top-k/top-p filtered) logits, with
+the noise drawn from one ``torch.Generator`` per request seeded from its
+``seed``.  Outputs are reproducible per (prompt, steps, seed,
+temperature), but they are not ``jax.random``'s stream.
+
+Left for later slices (they raise ``ValueError``): the slab layout,
+speculative drafts, shared prefixes, logit bias, stop sequences and KV
+handoff.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+
+from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.workloads.decode import _filter_topk_topp
+from tpu_dra_torch.workloads.paged_kv import (
+    PagePool,
+    _paged_step,
+    init_paged_cache,
+    paged_attention,
+    prefill_pages,
+)
+from tpu_dra_torch.workloads.train import ModelConfig
+
+_PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+# the error string a deadline-expired request fails with
+DEADLINE_ERROR = "deadline exceeded"
+
+_LATER = "not ported yet; it comes with a later slice of the PyTorch port"
+
+
+@dataclass
+class _Request:
+    prompt: list[int]
+    steps: int
+    eos_id: Optional[int]
+    temperature: float
+    seed: int
+    # set by cancel(): the batcher retires the slot at the next pass
+    # boundary, or drops the request from the queue before admission
+    cancelled: bool = False
+    # absolute deadline (perf_counter clock): expired queued requests
+    # fail without admitting, expired in-flight ones abort at the next
+    # pass boundary and free their pages
+    deadline: Optional[float] = None
+    tokens: list[int] = field(default_factory=list)
+    done: threading.Event = field(default_factory=threading.Event)
+    submitted: float = field(default_factory=time.perf_counter)
+    admitted_at: float = 0.0
+    first_token_at: float = 0.0
+    finished: float = 0.0
+    error: Optional[str] = None
+
+    @property
+    def latency_s(self) -> float:
+        return self.finished - self.submitted
+
+
+def gumbel_noise(n: int, generator: torch.Generator) -> torch.Tensor:
+    """``n`` standard Gumbel draws from ``generator`` (on its device)."""
+    u = torch.rand(n, generator=generator, device=generator.device)
+    tiny = torch.finfo(u.dtype).tiny
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def select_tokens(logits, temps, noise, top_k: int = 0,
+                  top_p: float = 0.0):
+    """Per-row token choice: argmax at temperature 0, else the Gumbel-max
+    draw ``argmax(filter(logits / T) + noise)`` — a sample from the
+    softmax of the filtered, temperature-scaled logits.  ``noise``
+    [B, V] is ignored on greedy rows."""
+    greedy = torch.argmax(logits, dim=-1)
+    filt = _filter_topk_topp(
+        logits / torch.clamp(temps, min=1e-6)[:, None], top_k, top_p)
+    sampled = torch.argmax(filt + noise, dim=-1)
+    return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+class ContinuousEngine:
+    """Slot-based continuously-batched decoder over one model, with a
+    paged KV cache.
+
+    ``submit()`` blocks until the request's tokens are complete;
+    concurrent submitters are batched dynamically.  ``slots`` bounds the
+    in-flight sequences (excess requests queue FIFO); ``chunk`` is how
+    many tokens each pass advances — joins and leaves happen at chunk
+    boundaries.  Runs on ``device`` (default: the card; ``RuntimeError``
+    without CUDA unless ``device="cpu"``)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 32,
+                 max_len: Optional[int] = None, cache_dtype: str = "bf16",
+                 chunk: int = 4, top_k: int = 0, top_p: float = 0.0,
+                 logit_bias: Optional[dict[int, float]] = None,
+                 latency_window: int = 1024, draft=None,
+                 kv_layout: str = "paged", page_size: int = 64,
+                 total_pages: Optional[int] = None, device=None):
+        self.device = resolve_device(device)
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if kv_layout != "paged":
+            raise ValueError(f"kv_layout {kv_layout!r}: only 'paged' is "
+                             f"ported; the slab layout is {_LATER}")
+        if draft is not None:
+            raise ValueError(f"speculative drafts are {_LATER}")
+        if logit_bias:
+            raise ValueError(f"logit_bias is {_LATER}")
+        self.kv_layout = kv_layout
+        self.cfg = cfg
+        self.params = _to_device(params, self.device)
+        self.slots = slots
+        self.chunk = chunk
+        self.max_len = max_len or cfg.max_seq
+        if cfg.pos_emb == "learned" and self.max_len > cfg.max_seq:
+            raise ValueError(
+                f"max_len {self.max_len} exceeds the learned-position "
+                f"table (max_seq={cfg.max_seq})")
+        self.top_k = top_k
+        self.top_p = top_p
+        ps = page_size
+        # a power-of-two page and max_len a page multiple keep every
+        # clamped prompt bucket's page padding inside max_len
+        if ps < 1 or ps & (ps - 1):
+            raise ValueError(f"page_size must be a power of two, got {ps}")
+        if ps > self.max_len or self.max_len % ps:
+            raise ValueError(
+                f"max_len {self.max_len} must be a multiple of "
+                f"page_size {ps} (and at least one page)")
+        self._mp = self.max_len // ps              # pages per slot, max
+        cap = total_pages if total_pages is not None else slots * self._mp
+        self.pool = PagePool(cap, ps)
+        dev = self.device
+        self._cache = init_paged_cache(cfg, cap, ps, cache_dtype,
+                                       device=dev)
+        self._table = torch.full((slots, self._mp), -1, dtype=torch.int32,
+                                 device=dev)
+        self._page_ids: list[Optional[list[int]]] = [None] * slots
+        # device state: fixed shapes for the engine's lifetime
+        self._token = torch.zeros(slots, dtype=torch.int32, device=dev)
+        self._pos = torch.zeros(slots, dtype=torch.int32, device=dev)
+        self._temp = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self._eos = torch.full((slots,), -1, dtype=torch.int32,
+                               device=dev)        # -1: never matches
+        self._done = torch.ones(slots, dtype=torch.bool,
+                                device=dev)       # free ⇒ done
+        # per-request sampling streams, by slot
+        self._gens: list[Optional[torch.Generator]] = [None] * slots
+        # host state
+        self._requests: list[Optional[_Request]] = [None] * slots
+        self._emitted: list[int] = [0] * slots
+        self._pending: deque[_Request] = deque()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._draining = False
+        # decode-loop heartbeat for /healthz; _failed records a batcher
+        # death verbatim
+        self.last_beat = time.perf_counter()
+        self._failed: Optional[str] = None
+        self.completed = 0
+        self.cancelled = 0
+        self.tokens_out = 0
+        self.decode_steps = 0             # _paged_step calls (all slots)
+        self.expired_queued = 0
+        self.expired_active = 0
+        # slot-seconds by outcome: answers somebody received vs answers
+        # nobody waited for
+        self.goodput_slot_s = 0.0
+        self.badput_slot_s: dict[str, float] = {
+            "deadline_expired": 0.0, "cancelled": 0.0}
+        self.latencies_s: deque[float] = deque(maxlen=latency_window)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="continuous-batcher")
+        self._thread.start()
+
+    # -- public surface ------------------------------------------------------
+
+    def submit(self, prompt: list[int], steps: int,
+               eos_id: Optional[int] = None, temperature: float = 0.0,
+               seed: int = 0, timeout: Optional[float] = None,
+               **later) -> list[int]:
+        """Generate ``steps`` tokens after ``prompt`` (stops early at
+        ``eos_id``); blocks until complete.  Thread-safe."""
+        req = self.submit_async(prompt, steps, eos_id=eos_id,
+                                temperature=temperature, seed=seed,
+                                **later)
+        if not req.done.wait(timeout):
+            raise TimeoutError(f"request not done within {timeout}s")
+        if req.error:
+            raise RuntimeError(req.error)
+        return req.tokens
+
+    def submit_async(self, prompt: list[int], steps: int,
+                     eos_id: Optional[int] = None,
+                     temperature: float = 0.0, seed: int = 0,
+                     deadline: Optional[float] = None,
+                     prefix_id: Optional[str] = None,
+                     stop=None) -> _Request:
+        """Enqueue without blocking; the returned request's ``done``
+        event fires when ``tokens`` is complete (check ``error`` first).
+        ``deadline`` (absolute, ``time.perf_counter`` clock): past it the
+        engine stops working on the request and its ``error`` is
+        :data:`DEADLINE_ERROR`."""
+        cfg = self.cfg
+        if prefix_id is not None:
+            raise ValueError(f"shared prefixes (prefix_id) are {_LATER}")
+        if stop is not None:
+            raise ValueError(f"stop sequences are {_LATER}")
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        if any(t < 0 or t >= cfg.vocab for t in prompt):
+            raise ValueError(f"token ids must be in [0, {cfg.vocab})")
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        if eos_id is not None and not 0 <= eos_id < cfg.vocab:
+            raise ValueError(f"eos_id must be in [0, {cfg.vocab})")
+        need = self.pool.pages_for(len(prompt) + steps)
+        if need > self.pool.total_pages:
+            # an unservable request must fail here: the FIFO gate would
+            # otherwise wait on it forever and starve everything behind
+            raise ValueError(
+                f"request needs {need} KV pages (prompt {len(prompt)} + "
+                f"steps {steps} @ page_size {self.pool.page_size}) but "
+                f"the pool only has {self.pool.total_pages}")
+        if len(prompt) + steps > self.max_len:
+            raise ValueError(
+                f"prompt {len(prompt)} + steps {steps} exceeds the "
+                f"engine's max_len {self.max_len}")
+        if len(prompt) > _PROMPT_BUCKETS[-1]:
+            raise ValueError(f"prompt exceeds the largest bucket "
+                             f"{_PROMPT_BUCKETS[-1]}")
+        req = _Request(prompt=list(prompt), steps=steps, eos_id=eos_id,
+                       temperature=float(temperature), seed=seed,
+                       deadline=deadline)
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("engine is shut down")
+            if self._draining:
+                raise RuntimeError("engine is draining (rolling "
+                                   "restart); retry against the new "
+                                   "instance")
+            self._pending.append(req)
+            self._cv.notify_all()
+        return req
+
+    def submit_handoff(self, *_args, **_kwargs):
+        raise ValueError(f"KV handoff is {_LATER}")
+
+    def warmup(self, buckets: Optional[list[int]] = None,
+               burst: Optional[int] = None) -> int:
+        """Run every prompt bucket once before real traffic — a 1-token
+        admission, then a ``burst``-wide concurrent one (default
+        ``min(slots, 4)``) — so the kernel build and first-use costs
+        never land on a client.  Stats reset afterwards.  Returns the
+        number of buckets warmed."""
+        want = buckets or [b for b in _PROMPT_BUCKETS if b < self.max_len]
+        if not buckets and self.max_len > (want[-1] if want else 0):
+            want.append(self.max_len)     # the clamped top bucket
+        k = min(self.slots, 4) if burst is None else burst
+        warmed = 0
+        for b in want:
+            # steps=2 so the chunk step runs too (a steps=1 request
+            # finishes at admission without ever stepping)
+            n = min(b, self.max_len - 2)
+            if n < 1:
+                continue
+            need = self.pool.pages_for(n + 2)
+            if need > self.pool.total_pages:
+                continue                  # bucket unservable at this pool
+            if k > 1 and need * k > self.pool.total_pages:
+                k = max(1, self.pool.total_pages // need)
+            self.submit([1] * n, 2, timeout=600)
+            if k > 1:
+                group = [self.submit_async([1] * n, 2) for _ in range(k)]
+                for req in group:
+                    if not req.done.wait(600):
+                        raise TimeoutError(
+                            "warmup burst not done within 600s")
+                    if req.error:
+                        raise RuntimeError(req.error)
+            warmed += 1
+        self.reset_stats()
+        return warmed
+
+    def cancel(self, req: _Request) -> None:
+        """Abort a request from ``submit_async``: a queued request never
+        admits, an in-flight one retires at the next pass boundary (its
+        slot and pages free then).  Its ``done`` fires with ``error ==
+        "cancelled"``; finished requests are left untouched."""
+        with self._cv:
+            if req.done.is_set():
+                return
+            req.cancelled = True
+            self._cv.notify_all()
+
+    def reset_stats(self) -> None:
+        """Zero the counters and the latency window."""
+        self.completed = 0
+        self.cancelled = 0
+        self.tokens_out = 0
+        self.decode_steps = 0
+        self.expired_queued = 0
+        self.expired_active = 0
+        self.goodput_slot_s = 0.0
+        self.badput_slot_s = {"deadline_expired": 0.0, "cancelled": 0.0}
+        self.latencies_s.clear()
+
+    def stats(self) -> dict:
+        lat = sorted(self.latencies_s)
+        out = {"completed": self.completed,
+               "cancelled": self.cancelled,
+               "tokens_out": self.tokens_out,
+               "decode_steps": self.decode_steps,
+               "queued": len(self._pending),
+               "active": sum(r is not None for r in self._requests),
+               "slots": self.slots,
+               "draining": self._draining,
+               "expired_queued": self.expired_queued,
+               "expired_active": self.expired_active,
+               "goodput_slot_s": round(self.goodput_slot_s, 4),
+               "badput_slot_s": {k: round(v, 4)
+                                 for k, v in self.badput_slot_s.items()},
+               "kv_pages_total": self.pool.total_pages,
+               "kv_pages_free": self.pool.free_pages,
+               "kv_page_size": self.pool.page_size,
+               "device": str(self.device),
+               # process-wide count of paged-attention kernel launches
+               # (stays 0 on the CPU, where the plain version runs)
+               "paged_attention_launches": paged_attention.launches}
+        if lat:
+            out["latency_p50_ms"] = round(1e3 * lat[len(lat) // 2], 3)
+            out["latency_p95_ms"] = round(
+                1e3 * lat[min(len(lat) - 1, int(0.95 * len(lat)))], 3)
+        return out
+
+    def healthy(self, stale_after: float = 120.0) -> tuple[bool, str]:
+        """Decode-loop liveness for /healthz: False when the batcher died,
+        its thread is gone, or its heartbeat went stale."""
+        with self._cv:
+            failed, stopped = self._failed, self._stop
+        if failed:
+            return False, failed
+        if stopped or not self._thread.is_alive():
+            return False, "engine batcher is not running"
+        age = time.perf_counter() - self.last_beat
+        if age > stale_after:
+            return False, (f"decode loop wedged: no heartbeat for "
+                           f"{age:.0f}s (limit {stale_after:.0f}s)")
+        return True, "ok"
+
+    @property
+    def draining(self) -> bool:
+        with self._cv:
+            return self._draining
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Reject new submissions, let queued and in-flight requests
+        finish, and return True once the engine is empty (False on
+        timeout).  The batcher keeps running; ``shutdown()`` stops it."""
+        with self._cv:
+            self._draining = True
+        deadline = None if timeout is None else \
+            time.perf_counter() + timeout
+        with self._cv:
+            while True:
+                if not self._pending and all(r is None
+                                             for r in self._requests):
+                    return True
+                remaining = None if deadline is None else \
+                    deadline - time.perf_counter()
+                if remaining is not None and remaining <= 0:
+                    return False
+                self._cv.wait(0.02 if remaining is None
+                              else min(0.02, remaining))
+
+    def shutdown(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30)
+        for req in list(self._pending) + self._requests:
+            if req is not None and not req.done.is_set():
+                req.error = "engine shut down"
+                req.done.set()
+
+    # -- scheduler -----------------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        for b in _PROMPT_BUCKETS:
+            if n <= b:
+                # never pad past the cache (submit guarantees n + steps
+                # <= max_len, so the clamped bucket covers the prompt)
+                return min(b, self.max_len)
+        raise ValueError(n)
+
+    def _admit(self) -> None:
+        """Fill free slots from the FIFO queue behind the page gate, then
+        prefill each prompt bucket's admissions together in power-of-two
+        groups."""
+        self._expire_queued()
+        assigned: list[tuple[int, _Request]] = []
+        for slot in range(self.slots):
+            if self._requests[slot] is not None:
+                continue
+            with self._cv:
+                # cancelled-while-queued requests drop at the head
+                while self._pending and self._pending[0].cancelled:
+                    bad = self._pending.popleft()
+                    self.cancelled += 1
+                    bad.error = "cancelled"
+                    bad.done.set()
+                if not self._pending:
+                    break
+                req = self._pending[0]
+                # FIFO-preserving page gate: if the head cannot get its
+                # worst-case pages, stop admitting — later, smaller
+                # requests must not starve it
+                need = self.pool.pages_for(len(req.prompt) + req.steps)
+                if need > self.pool.free_pages:
+                    break
+                self._pending.popleft()
+            own = self.pool.alloc(need)
+            self._page_ids[slot] = own
+            self._table[slot] = torch.from_numpy(
+                self.pool.table_row(own, self._mp)).to(self.device)
+            # attached before the prefill: if admission raises, the
+            # request is visible to _fail_all instead of orphaned
+            self._requests[slot] = req
+            assigned.append((slot, req))
+        groups: dict[int, list[tuple[int, _Request]]] = {}
+        for slot, req in assigned:
+            groups.setdefault(self._bucket(len(req.prompt)),
+                              []).append((slot, req))
+        for Sb, group in groups.items():
+            while group:
+                take = 1 << (len(group).bit_length() - 1)
+                self._admit_plain(Sb, group[:take])
+                group = group[take:]
+
+    def _expire_queued(self) -> None:
+        """Fail every queued request whose deadline has passed (a shed:
+        no device time was spent on it)."""
+        now = time.perf_counter()
+        with self._cv:
+            if not any(r.deadline is not None and now > r.deadline
+                       and not r.cancelled for r in self._pending):
+                return
+            keep: deque[_Request] = deque()
+            expired = []
+            for req in self._pending:
+                if req.deadline is not None and now > req.deadline \
+                        and not req.cancelled:
+                    expired.append(req)
+                else:
+                    keep.append(req)
+            self._pending = keep
+        for req in expired:
+            self.expired_queued += 1
+            req.error = DEADLINE_ERROR
+            req.finished = time.perf_counter()
+            req.done.set()
+
+    def _release_slot_pages(self, slot: int) -> None:
+        """Sentinel the slot's table row, then return its pages."""
+        self._table[slot] = -1
+        if self._page_ids[slot]:
+            self.pool.free(self._page_ids[slot])
+        self._page_ids[slot] = None
+
+    def _noise(self, gens: list[Optional[torch.Generator]], V: int):
+        """Gumbel noise rows for the sampled slots (zeros elsewhere)."""
+        noise = torch.zeros((len(gens), V), dtype=torch.float32,
+                            device=self.device)
+        for i, g in enumerate(gens):
+            if g is not None:
+                noise[i] = gumbel_noise(V, g)
+        return noise
+
+    def _admit_plain(self, Sb: int,
+                     group: list[tuple[int, _Request]]) -> None:
+        """One batched prefill for a same-bucket admission group, then
+        each request's first token."""
+        dev = self.device
+        prompts = torch.tensor(
+            [req.prompt + [0] * (Sb - len(req.prompt)) for _, req in group],
+            dtype=torch.int64, device=dev)                 # [k, Sb]
+        lengths = torch.tensor([len(req.prompt) for _, req in group],
+                               dtype=torch.int32, device=dev)
+        slots = torch.tensor([slot for slot, _ in group], device=dev)
+        logits = prefill_pages(self.cfg, self.params, self._cache, prompts,
+                               lengths, self._table[slots])
+        gens = []
+        for _, req in group:
+            g = None
+            if req.temperature > 0:
+                g = torch.Generator(device=dev)
+                g.manual_seed(req.seed)
+            gens.append(g)
+        temps = torch.tensor([req.temperature for _, req in group],
+                             dtype=torch.float32, device=dev)
+        first = select_tokens(logits, temps, self._noise(gens, self.cfg.vocab),
+                              self.top_k, self.top_p)
+        # one readback per admission group: the clients need these tokens
+        for (slot, req), g, tok in zip(group, gens, first.tolist()):
+            self._finish_admission(slot, req, tok, g)
+
+    def _finish_admission(self, slot: int, req: _Request, first: int,
+                          gen: Optional[torch.Generator]) -> None:
+        self._token[slot] = first
+        self._pos[slot] = len(req.prompt)
+        self._temp[slot] = req.temperature
+        self._eos[slot] = -1 if req.eos_id is None else req.eos_id
+        self._gens[slot] = gen
+        req.admitted_at = req.admitted_at or time.perf_counter()
+        req.first_token_at = time.perf_counter()
+        req.tokens.append(first)
+        self._emitted[slot] = 1
+        if (req.eos_id is not None and first == req.eos_id) \
+                or req.steps == 1:
+            self._retire(slot, req)
+            self._requests[slot] = None
+        else:
+            self._done[slot] = False
+            self._requests[slot] = req
+
+    def _retire(self, slot: int, req: _Request) -> None:
+        if self._page_ids[slot] is not None:
+            # -1 row first: the slot's appends must drop before its pages
+            # go back to the pool
+            self._release_slot_pages(slot)
+        self._gens[slot] = None
+        req.finished = time.perf_counter()
+        if req.admitted_at:
+            self.goodput_slot_s += req.finished - req.admitted_at
+        self.completed += 1
+        self.tokens_out += len(req.tokens)
+        self.latencies_s.append(req.latency_s)
+        req.done.set()
+
+    def _abort_slot(self, slot: int, req: _Request, error: str,
+                    badput_reason: str) -> None:
+        """Cancel/deadline retirement: free the slot and its pages
+        without counting a completion; the residency is badput."""
+        if self._page_ids[slot] is not None:
+            self._release_slot_pages(slot)
+        self._gens[slot] = None
+        req.error = error
+        req.finished = time.perf_counter()
+        if req.admitted_at:
+            self.badput_slot_s[badput_reason] = (
+                self.badput_slot_s.get(badput_reason, 0.0)
+                + req.finished - req.admitted_at)
+        req.done.set()
+        self._requests[slot] = None
+        self._done[slot] = True
+
+    def _chunk_step(self):
+        """Advance every slot ``chunk`` tokens.  Free and finished slots
+        compute too (their writes drop on -1 table rows, their tokens are
+        never emitted); a frozen slot holds its token and position.
+        Returns the ``[slots, chunk]`` tokens on the host — the loop's one
+        designed readback per chunk."""
+        cfg = self.cfg
+        sampled = any(r is not None and r.temperature > 0
+                      for r in self._requests)
+        toks = []
+        token, pos, done = self._token, self._pos, self._done
+        for _ in range(self.chunk):
+            _, logits, _ = _paged_step(cfg, self.params, self._cache, token,
+                                       pos, self._table)
+            self.decode_steps += 1
+            if sampled:
+                noise = self._noise(
+                    [g if r is not None else None
+                     for g, r in zip(self._gens, self._requests)],
+                    cfg.vocab)
+                nxt = select_tokens(logits, self._temp, noise, self.top_k,
+                                    self.top_p)
+            else:
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(done, token, nxt)            # frozen slots hold
+            pos = pos + (~done).to(torch.int32)
+            done = done | (nxt == self._eos)
+            token = nxt
+            toks.append(nxt)
+        self._token, self._pos, self._done = token, pos, done
+        return torch.stack(toks, dim=1).cpu()
+
+    def _fail_all(self, exc: BaseException) -> None:
+        """A dead batcher must never strand a waiter: every in-flight and
+        pending request gets the error and its done event."""
+        msg = f"continuous batcher died: {exc!r}"[:500]
+        with self._cv:
+            self._stop = True
+            self._failed = msg
+            victims = [r for r in self._requests if r is not None]
+            victims += list(self._pending)
+            self._pending.clear()
+            self._requests = [None] * self.slots
+        for req in victims:
+            req.error = msg
+            req.done.set()
+
+    def _loop(self) -> None:
+        try:
+            with torch.no_grad():
+                self._loop_inner()
+        except BaseException as exc:  # noqa: BLE001 — see _fail_all
+            self._fail_all(exc)
+
+    def _loop_inner(self) -> None:
+        while True:
+            with self._cv:
+                while (not self._stop and not self._pending
+                       and all(r is None for r in self._requests)):
+                    self.last_beat = time.perf_counter()
+                    self._cv.wait(timeout=0.5)
+                if self._stop:
+                    return
+            self.last_beat = time.perf_counter()
+            self._admit()
+            if all(r is None for r in self._requests):
+                with self._cv:
+                    self._cv.notify_all()     # wake drain() waiters
+                continue
+            toks = self._chunk_step().tolist()
+            now = time.perf_counter()
+            for slot, req in enumerate(self._requests):
+                if req is None:
+                    continue
+                if req.cancelled:
+                    # this pass's tokens are dropped — the client is gone
+                    self.cancelled += 1
+                    self._abort_slot(slot, req, "cancelled", "cancelled")
+                    continue
+                if req.deadline is not None and now > req.deadline:
+                    self.expired_active += 1
+                    self._abort_slot(slot, req, DEADLINE_ERROR,
+                                     "deadline_expired")
+                    continue
+                for tok in toks[slot]:
+                    if self._emitted[slot] >= req.steps:
+                        break
+                    if not req.first_token_at:
+                        req.first_token_at = time.perf_counter()
+                    req.tokens.append(tok)
+                    self._emitted[slot] += 1
+                    if req.eos_id is not None and tok == req.eos_id:
+                        break
+                hit_eos = (req.eos_id is not None and req.tokens
+                           and req.tokens[-1] == req.eos_id)
+                if self._emitted[slot] >= req.steps or hit_eos:
+                    self._retire(slot, req)
+                    self._requests[slot] = None
+                    self._done[slot] = True
+            with self._cv:
+                self._cv.notify_all()         # wake drain() waiters
+
+
+def _to_device(tree, device):
+    """Every tensor leaf of a nested dict moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if torch.is_tensor(tree) else tree

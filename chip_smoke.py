@@ -8,13 +8,14 @@ answers against the port's own per-request decoder.
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
 Phases (each prints as it goes; any failed check exits non-zero):
-  1. build the kernels (one nvcc per source, in parallel); print the build
-     time and the card's name and power limit (nvidia-smi);
+  1. build the kernel (nvcc); print the build time and the card's name
+     and power limit (nvidia-smi);
   2. paged attention: kernel vs plain version at the serving path's shapes
      (B=32, H=8, Hkv=2, Dh=128, ps=64, MP=16), scrambled pages, -1 tails,
      lengths 0, 1, a page boundary, mid-page and the full MP*ps; bf16 pages
      within rtol/atol 0.05, int8 pages within 0.08 (the reference's own
-     kernel-vs-oracle tolerances, tests/test_paged_kv.py);
+     kernel-vs-oracle tolerances, tests/test_paged_kv.py), and every slot
+     within paged_kv.SLOT_REL_TOL relative L2 error;
   3. time the kernel, the plain version and a library yardstick with CUDA
      events at one decode step of a full 160-page pool;
   4. serve: start serve() on port 0 with the full-width model (vocab
@@ -121,10 +122,16 @@ def attention_case(gen, lengths, *, H=8, Hkv=2, Dh=128, P=160, ps=64,
 
 
 def check_kernel(gen) -> float:
+    """The kernel against its plain version on the same inputs, twice
+    over: elementwise within the reference's rtol/atol, and each slot
+    within SLOT_REL_TOL relative L2 error on its own scale (the outputs of
+    a long slot are too small for the elementwise bound to bind)."""
     import torch
 
-    from tpu_dra_torch.workloads.paged_kv import (paged_attention,
-                                                  paged_attention_ref)
+    from tpu_dra_torch.workloads.paged_kv import (SLOT_REL_TOL,
+                                                  paged_attention,
+                                                  paged_attention_ref,
+                                                  slot_rel_err)
     ps, MP = 64, 16
     specials = [0, 1, ps, ps + 1, 100, MP * ps, 2 * ps - 1, 7 * ps + 33]
     rand = torch.randint(1, MP * ps + 1, (32 - len(specials),),
@@ -139,16 +146,23 @@ def check_kernel(gen) -> float:
         gf, wf = got.float(), want.float()
         err = float((gf - wf).abs().max())
         ok = bool(torch.all((gf - wf).abs() <= tol + tol * wf.abs()))
+        rel = slot_rel_err(got, want)
+        b = int(rel.argmax())
+        rel_ok = float(rel.max()) <= SLOT_REL_TOL
         if not torch.isfinite(gf).all():
             fail("paged attention kernel produced non-finite values")
         if not bool((gf[0] == 0).all()):
             fail("zero-length slot did not give zeros")
         kind = "int8" if quantized else "bf16"
         log(f"[kernel] paged_attention {kind} pages: max |kernel - plain| "
-            f"= {err:.5f} (rtol/atol {tol}) -> {'ok' if ok else 'FAIL'}")
-        if not ok:
+            f"= {err:.5f} (rtol/atol {tol}) -> {'ok' if ok else 'FAIL'}; "
+            f"worst slot relative L2 error {float(rel.max()):.5f} (slot "
+            f"{b}, length {lengths[b]}; median {float(rel.median()):.5f}; "
+            f"tolerance {SLOT_REL_TOL}) -> {'ok' if rel_ok else 'FAIL'}")
+        if not (ok and rel_ok):
             fail(f"paged attention kernel disagrees with its plain version "
-                 f"({kind} pages, max abs err {err})")
+                 f"({kind} pages, max abs err {err}, worst slot relative "
+                 f"error {float(rel.max())})")
         worst = max(worst, err)
     return worst
 
@@ -230,9 +244,10 @@ def time_kernel(gen, n_layers: int) -> dict:
          "plain_ms": cuda_time_ms(plain, 40),
          "library_ms": cuda_time_ms(library_call, 200)}
     live = int(lengths.sum())
+    pages_read = int(((lengths + ps - 1) // ps).sum())
     nbytes = (2 * live * Hkv * Dh * 2          # live K and V rows, bf16
               + 2 * B * H * Dh * 2             # q in, out
-              + B * MP * 4 + B * 4)            # table, lengths
+              + pages_read * 4 + B * 4)        # live table entries, lengths
     flops = 4 * H * Dh * live                  # q.k and p.v per token
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
@@ -429,16 +444,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    built = build()
-    log(f"[build] {len(built)} kernel libraries in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, b in built.items():
-        regs = [ln.strip() for ln in b.log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: nvcc {b.seconds:.1f} s -> {b.path.name}")
-        for ln in regs:
-            log(f"[build]   {ln}")
+    b = build("paged_attention")
+    log(f"[build] paged_attention: nvcc {b.seconds:.1f} s -> {b.path.name}")
+    for ln in b.log.splitlines():
+        if "registers" in ln or "spill" in ln:
+            log(f"[build]   {ln.strip()}")
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")

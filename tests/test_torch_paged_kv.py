@@ -222,7 +222,7 @@ def test_scatter_prefill_then_append_matches_reference(cache_dtype):
     jc = jpk.append_token(jc, jnp.asarray(k1, jnp.bfloat16),
                           -jnp.asarray(k1, jnp.bfloat16), jnp.asarray(table),
                           jnp.asarray(lengths))
-    tc = tpk.init_paged_cache(tcfg, P, ps, cache_dtype)
+    tc = tpk.init_paged_cache(tcfg, P, ps, cache_dtype, device="cpu")
     bf = torch.bfloat16
     out = tpk.scatter_prefill(tc, torch.from_numpy(ks).to(bf),
                               -torch.from_numpy(ks).to(bf),
@@ -249,7 +249,7 @@ def test_retired_row_never_writes_last_page(cache_dtype):
     _, tcfg = cfg_pair(**CFG_KW)
     L, hkv, d = tcfg.n_layers, tcfg.kv_heads, tcfg.d_head
     ps, P, B, S = 4, 6, 2, 8
-    cache = tpk.init_paged_cache(tcfg, P, ps, cache_dtype)
+    cache = tpk.init_paged_cache(tcfg, P, ps, cache_dtype, device="cpu")
     ks = torch.ones((L, B, hkv, S, d), dtype=torch.bfloat16)
     table = torch.tensor([[0, 1], [-1, -1]], dtype=torch.int32)
     tpk.scatter_prefill(cache, ks, 2 * ks, table)

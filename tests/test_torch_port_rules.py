@@ -84,18 +84,18 @@ def test_params_cross_from_numpy_and_through_npz(tmp_path):
     bf = r.standard_normal((3, 4)).astype(ml_dtypes.bfloat16)
     tree = {"embed": r.standard_normal((5, 4)).astype(np.float32),
             "blocks": {"wqkv": bf, "ln1": np.ones((2, 4), np.float32)}}
-    got = params_from_numpy(tree)
+    got = params_from_numpy(tree, "cpu")
     assert got["blocks"]["wqkv"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         got["blocks"]["wqkv"].float().numpy(), bf.astype(np.float32))
     np.testing.assert_array_equal(got["embed"].numpy(), tree["embed"])
     path = tmp_path / "w.npz"
     save_npz(path, tree)
-    back = load_npz(path)
+    back = load_npz(path, "cpu")
     assert sorted(back) == ["blocks", "embed"]
     for name in ("wqkv", "ln1"):
         assert torch.equal(back["blocks"][name], got["blocks"][name])
     # a tree of tensors (bf16 included) writes the same file layout
     save_npz(tmp_path / "t.npz", got)
-    again = load_npz(tmp_path / "t.npz")
+    again = load_npz(tmp_path / "t.npz", "cpu")
     assert torch.equal(again["blocks"]["wqkv"], got["blocks"]["wqkv"])

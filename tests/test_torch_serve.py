@@ -90,8 +90,7 @@ def test_only_the_paged_continuous_mode_is_served():
     with pytest.raises(ValueError, match="later slices"):
         serve(TCFG, PARAMS, port=0, continuous=False, device="cpu")
     with pytest.raises(SystemExit):
-        main(["--kv-layout", "paged", "--init-seed", "0", "--device",
-              "cpu"])
+        main(["--kv-layout", "paged", "--init-seed", "0"])
 
 
 def test_healthz_ands_the_external_verdict():

@@ -137,7 +137,8 @@ def port_forced_logits(tcfg, tparams, prompt, lengths, table, forced, *,
     """The port's step logits ``[steps, B, V]`` when fed ``forced``
     [B, steps] (step i's logits follow tokens < i)."""
     from tpu_dra_torch.workloads import paged_kv as tpk
-    cache = tpk.init_paged_cache(tcfg, total_pages, page_size, cache_dtype)
+    cache = tpk.init_paged_cache(tcfg, total_pages, page_size, cache_dtype,
+                                 device=CPU)
     tab = torch.from_numpy(table)
     lens = torch.from_numpy(lengths)
     logits = tpk.prefill_pages(tcfg, tparams, cache,

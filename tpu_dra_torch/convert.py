@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_dra_torch.device import resolve_device
+
 _BF16_TAG = "bf16:"
 
 
@@ -24,21 +26,23 @@ def _is_bf16(a: np.ndarray) -> bool:
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    """One numpy leaf → tensor (bf16 via its 16-bit pattern)."""
+    """One numpy leaf → tensor on ``device`` (default: the card; see
+    :func:`resolve_device`), bf16 via its 16-bit pattern."""
     a = np.array(a)                 # a writable, contiguous copy
     if _is_bf16(a):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t if device is None else t.to(device)
+    return t.to(resolve_device(device))
 
 
 def params_from_numpy(tree, device=None):
     """Nested dict of numpy arrays (the JAX parameter tree) → nested dict
-    of tensors on ``device`` (default: the CPU)."""
+    of tensors on ``device`` (default: the card)."""
+    dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return tensor_from_numpy(tree, device)
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return tensor_from_numpy(tree, dev)
 
 
 def _flatten(tree, prefix=""):
@@ -73,7 +77,8 @@ def save_npz(path, tree) -> None:
 
 def load_npz(path, device=None) -> dict:
     """Read a tree written by :func:`save_npz` into tensors on
-    ``device``."""
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
     tree: dict = {}
     with np.load(path) as data:
         for name in data.files:
@@ -87,5 +92,5 @@ def load_npz(path, device=None) -> dict:
             *parents, leaf = key.split("/")
             for p in parents:
                 node = node.setdefault(p, {})
-            node[leaf] = t.to(device) if device is not None else t
+            node[leaf] = t.to(dev)
     return tree

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled on first
 use with ``nvcc`` for ``sm_90a`` into ``tpu_dra_torch/_build/`` (a
 directory git ignores) and loaded with ``ctypes``; the library's file name
 carries a hash of the source and the flags, so an edited source never
-loads a stale build.  Sources build in parallel, one ``nvcc`` each.
+loads a stale build.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines without ``nvcc``.
@@ -82,50 +82,31 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
     return lib
 
 
-def build(names=None) -> dict[str, Built]:
-    """Compile (if needed) and load every named kernel library, all
-    ``nvcc`` processes started together; raise with the compiler output
-    if any build fails."""
-    names = list(SIGNATURES if names is None else names)
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` (unless this exact source is built
+    already) and load it; raise with the compiler output if nvcc fails."""
     with _lock:
-        todo = [n for n in names if n not in _loaded]
-        if not todo:
-            return {n: _loaded[n] for n in names}
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for n in todo:
-            out = _target(n)
-            if out.exists():
-                continue
+        if name in _loaded:
+            return _loaded[name]
+        out = _target(name)
+        secs, log = 0.0, ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out, time.perf_counter())
-        failed = []
-        results = {}
-        for n, (proc, tmp, out, t0) in procs.items():
-            log, _ = proc.communicate()
-            secs = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            secs, log = time.perf_counter() - t0, proc.stdout
             if proc.returncode != 0:
-                failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
-                continue
+                raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc "
+                                   f"exit {proc.returncode}\n{log}")
             tmp.replace(out)          # atomic: a half-written .so never loads
-            results[n] = (secs, log)
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n"
-                               + "\n".join(failed))
-        for n in todo:
-            secs, log = results.get(n, (0.0, ""))
-            path = _target(n)
-            _loaded[n] = Built(_bind(n, path), path, secs, log)
-        return {n: _loaded[n] for n in names}
+        _loaded[name] = Built(_bind(name, out), out, secs, log)
+        return _loaded[name]
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built on first use."""
-    built = _loaded.get(name)
-    if built is None:
-        built = build([name])[name]
-    return built.lib
+    return build(name).lib

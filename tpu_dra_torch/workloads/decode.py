@@ -7,9 +7,7 @@ from __future__ import annotations
 import torch
 
 from tpu_dra_torch.workloads.quant import matmul_any
-# the head split and the fused-projection split are shared with the
-# training trunk, which defines them (train cannot import this module)
-from tpu_dra_torch.workloads.train import (  # noqa: F401  (re-exported)
+from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _rmsnorm,
     _split_heads,

@@ -199,11 +199,11 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
 
 
 def load_params(cfg: ModelConfig, *, params_npz: str = "",
-                init_seed: int | None = None, device=None) -> dict:
-    """Serving weights in bf16 on ``device``: from an npz written by
+                init_seed: int | None = None) -> dict:
+    """Serving weights in bf16 on the card: from an npz written by
     ``tpu_dra_torch.convert.save_npz``, else random from ``init_seed``."""
     from tpu_dra_torch.workloads.quant import cast_params_bf16
-    dev = resolve_device(device)
+    dev = resolve_device()
     if params_npz:
         from tpu_dra_torch.convert import load_npz
         params = load_npz(params_npz, device=dev)
@@ -230,9 +230,6 @@ def main(argv=None) -> int:
                          "save_npz (see README: from a JAX checkpoint)")
     ap.add_argument("--init-seed", type=int, default=None,
                     help="random weights from this seed (no --params-npz)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda:0; 'cpu' runs the "
-                         "plain PyTorch path)")
     ap.add_argument("--port", type=int, default=8477)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--vocab", type=int, default=32768)
@@ -271,14 +268,13 @@ def main(argv=None) -> int:
                       max_seq=args.max_seq, pos_emb=args.pos_emb)
     try:
         params = load_params(cfg, params_npz=args.params_npz,
-                             init_seed=args.init_seed, device=args.device)
+                             init_seed=args.init_seed)
     except ValueError as exc:
         ap.error(str(exc))
     srv = serve(cfg, params, host=args.host, port=args.port,
                 cache_dtype=args.cache_dtype, continuous=True,
                 slots=args.slots, chunk=args.chunk, kv_layout="paged",
-                page_size=args.page_size, total_pages=args.total_pages,
-                device=args.device)
+                page_size=args.page_size, total_pages=args.total_pages)
     if args.warmup:
         print(f"warmed {srv.engine.warmup()} prompt buckets", flush=True)
     stop = threading.Event()

@@ -73,21 +73,18 @@ def weak_scalar(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> dict[str, Any]:
+def init_params(cfg: ModelConfig,
+                generator: torch.Generator) -> dict[str, Any]:
     """Stacked-by-layer fp32 params with the reference's shapes and scale
     (normal · d_model^-0.5, norm gains at 1), drawn from ``generator`` on
-    its own device and then moved to ``device`` (default: the
-    generator's).  The numbers differ from ``jax.random``'s; tests carry
+    its own device.  The numbers differ from ``jax.random``'s; tests carry
     JAX weights across with :mod:`tpu_dra_torch.convert` instead."""
-    gen_dev = generator.device
-    dev = gen_dev if device is None else torch.device(device)
+    dev = generator.device
     scale = cfg.d_model ** -0.5
     L = cfg.n_layers
 
     def norm(shape):
-        return (torch.randn(shape, generator=generator, device=gen_dev)
-                * scale).to(dev)
+        return torch.randn(shape, generator=generator, device=dev) * scale
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)

@@ -1,39 +1,62 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tpu_dra_torch``) on one NVIDIA
 GPU: builds its CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version, times it, then serves the
-full-width headline model through the port's HTTP server and checks the
-answers against the port's own per-request decoder.
+each kernel against its plain PyTorch version, times it, then drives the
+port's two paths at full width: it serves the headline model through the
+port's HTTP server, and trains the flagship model through ``fit``.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
 Phases (each prints as it goes; any failed check exits non-zero):
-  1. build the kernel (nvcc); print the build time and the card's name
-     and power limit (nvidia-smi);
+  1. build every kernel (one nvcc per source, all at once); print the
+     build times, the ptxas register/spill lines and the card's name and
+     power limit (nvidia-smi);
   2. paged attention: kernel vs plain version at the serving path's shapes
      (B=32, H=8, Hkv=2, Dh=128, ps=64, MP=16), scrambled pages, -1 tails,
      lengths 0, 1, a page boundary, mid-page and the full MP*ps; bf16 pages
      within rtol/atol 0.05, int8 pages within 0.08 (the reference's own
      kernel-vs-oracle tolerances, tests/test_paged_kv.py), and every slot
      within paged_kv.SLOT_REL_TOL relative L2 error;
-  3. time the kernel, the plain version and a library yardstick with CUDA
-     events at one decode step of a full 160-page pool;
+  3. time the paged kernel, the plain version and a library yardstick with
+     CUDA events at one decode step of a full 160-page pool;
   4. serve: start serve() on port 0 with the full-width model (vocab
      32768, d_model 1024, 8 heads over 2 kv heads, 8 layers, d_ff 4096,
      rope, bf16 weights from a seed), slots 32, chunk 8, page size 64, 160
      pages; POST 8 concurrent greedy /generate requests and check each
      answer against the port's paged_greedy_decode on the card, and that
-     the decode went through the kernel (launch counts).
+     the decode went through the kernel (launch counts);
+  5. flash attention: the forward, dQ and dK/dV kernels vs their plain
+     versions at the training path's shapes ([256, 1024, 128] causal, and
+     the GQA run's [64 over 16, 1024, 128]) and at S 1, 63, 64, 65, 1000,
+     causal and not, g 1 and 4, D 64 and 128; out, l2, dq, dk and dv each
+     held elementwise and per head-row (relative L2 over the row's
+     [S, D]), tolerances flash.ELEM_TOL and flash.ROW_TOL;
+  6. time the three flash kernels, their wrappers and plain versions, and
+     the library yardstick (scaled_dot_product_attention forward, and its
+     backward for the dQ + dK/dV pair) with CUDA events at the path's
+     shapes;
+  7. train the flagship at full width (vocab 32768, d_model 2048, 16
+     heads, 8 layers, d_ff 8192, max_seq 1024, learned positions; ~539 M
+     fp32 parameters from a seed) on a synthetic token file: first one
+     step's loss and gradients with the flash kernels against the same
+     step with plain dense attention, then fit() for 10 steps at batch 16
+     with finite, falling losses and n_layers x steps launches of each
+     flash kernel; then (informational) the same fit with dense attention
+     and one step under torch.profiler;
+  8. a short GQA training run (8 heads over 2 kv heads, d_head 128, rope,
+     2 layers), so the grouped forward and backward run inside training.
 The second-to-last line is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -50,7 +73,23 @@ BF16_FLOPS_PER_S = 989e12
 MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
              n_layers=8, d_ff=4096, max_seq=1024, pos_emb="rope")
 ENGINE = dict(slots=32, chunk=8, page_size=64, total_pages=160)
+# full-width flagship training model (bench.py section_train) and its run
+TRAIN_MODEL = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
+                   d_ff=8192, max_seq=1024, pos_emb="learned")
+TRAIN_RUN = dict(steps=10, batch=16)
+# the serving model's attention shape inside a short training run
+GQA_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
+                 n_layers=2, d_ff=4096, max_seq=1024, pos_emb="rope")
+GQA_RUN = dict(steps=3, batch=8)
+TOKENS = 2_200_000              # synthetic training tokens (uint16)
 SEED = 0
+# one full-width train step, flash kernels vs plain dense attention (the
+# dense path rounds its scores to bf16 before the softmax, flash keeps
+# them in fp32): the first run on an H100 80GB HBM3 at 700 W gave a loss
+# gap of 2.9e-5 (flagship)
+# and 3.7e-4 (GQA) and worst leaves of 0.0072 and 0.0065 relative L2
+STEP_LOSS_ATOL = 5e-3
+STEP_LEAF_REL = 3e-2
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -424,6 +463,453 @@ def serve_phase(gen) -> dict:
             "p50_latency_ms": 1e3 * statistics.median(lat.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: flash kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def hold(label: str, name: str, got, want, row_tol: float) -> tuple:
+    """Fail unless ``got`` is finite and within ``flash.ELEM_TOL``
+    elementwise and ``row_tol`` per head-row of ``want``; returns (max abs
+    error, worst elementwise error as a share of its tolerance, worst
+    head-row error)."""
+    import torch
+
+    from tpu_dra_torch.workloads.flash import ELEM_TOL, row_rel_err
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        fail(f"flash {label} {name}: shape {tuple(got.shape)} vs "
+             f"{tuple(want.shape)} or non-finite values")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ratio = float((diff / (ELEM_TOL + ELEM_TOL * want.float().abs())).max())
+    rows = row_rel_err(got, want)
+    worst = float(rows.max())
+    if ratio > 1 or worst > row_tol:
+        fail(f"flash {label} {name}: max abs err {err:.3g} (elementwise "
+             f"{ratio:.3g} of the tolerance), worst head-row relative "
+             f"error {worst:.3g} (row {int(rows.argmax())}, tolerance "
+             f"{row_tol})")
+    return err, ratio, worst
+
+
+def flash_inputs(gen, bh: int, bhkv: int, s: int, d: int):
+    import torch
+    dev = gen.device
+
+    def draw(n):
+        return torch.randn((n, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+    return draw(bh), draw(bhkv), draw(bhkv), draw(bh)
+
+
+def check_flash_case(gen, bh, bhkv, s, d, causal) -> tuple:
+    """Each flash kernel against its plain version on one input; the
+    backward kernels get the plain forward's out and l2, so each kernel
+    is held alone.  Returns {kernel: (max abs err, elementwise ratio,
+    worst head-row error)} and the max abs error of l2."""
+    import torch
+
+    from tpu_dra_torch.workloads import flash as F
+    label = f"[{bh} over {bhkv}, {s}, {d}] {'causal' if causal else 'full'}"
+    q, k, v, do = flash_inputs(gen, bh, bhkv, s, d)
+    out, l2 = F.flash_attn_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_l2 = F.flash_attn_fwd_ref(q, k, v, causal)
+    res = {"flash_fwd": hold(label, "out", out, ref_out, F.ROW_TOL["out"])}
+    l2_err = float((l2 - ref_l2).abs().max())
+    if not l2_err <= F.L2_ATOL:
+        fail(f"flash {label} l2: max abs err {l2_err} > {F.L2_ATOL}")
+    qs = F._prescale(q).contiguous()
+    dd = (do.float() * ref_out.float()).sum(dim=-1, keepdim=True)
+    dq = F.flash_bwd_dq(qs, k, v, do, ref_l2, dd, causal)
+    dk, dv = F.flash_bwd_dkdv(qs, k, v, do, ref_l2, dd, causal)
+    torch.cuda.synchronize()
+    res["flash_bwd_dq"] = hold(label, "dq", dq,
+                               F.flash_bwd_dq_ref(qs, k, v, do, ref_l2, dd,
+                                                  causal), F.ROW_TOL["dq"])
+    rk, rv = F.flash_bwd_dkdv_ref(qs, k, v, do, ref_l2, dd, causal)
+    ek = hold(label, "dk", dk, rk, F.ROW_TOL["dk"])
+    ev = hold(label, "dv", dv, rv, F.ROW_TOL["dv"])
+    res["flash_bwd_dkdv"] = tuple(max(a, b) for a, b in zip(ek, ev))
+    return res, l2_err
+
+
+def check_flash(gen) -> dict:
+    """The path's shapes, then the edge cases; returns the max abs error
+    of each kernel at the flagship path's shape."""
+    path, l2_worst = check_flash_case(gen, 256, 256, 1024, 128, True)
+    gqa, l2_err = check_flash_case(gen, 64, 16, 1024, 128, True)
+    l2_worst = max(l2_worst, l2_err)
+    for name in path:
+        log(f"[flash] {name} at the path's shapes: max abs err "
+            f"{path[name][0]:.4g} (elementwise {path[name][1]:.3f} of "
+            f"the tolerance), worst head-row {path[name][2]:.3g}; GQA run "
+            f"shape {gqa[name][0]:.4g} / {gqa[name][2]:.3g}")
+    worst = {name: [0.0, 0.0, 0.0] for name in path}
+    n = 0
+    for s in (1, 63, 64, 65, 1000):
+        for causal in (True, False):
+            for g in (1, 4):
+                for d in (64, 128):
+                    res, l2_err = check_flash_case(gen, 8, 8 // g, s, d,
+                                                   causal)
+                    l2_worst = max(l2_worst, l2_err)
+                    n += 1
+                    for name, vals in res.items():
+                        worst[name] = [max(a, b) for a, b in
+                                       zip(worst[name], vals)]
+    for name, (err, ratio, row) in worst.items():
+        log(f"[flash] {name} over {n} edge cases: max abs err {err:.4g} "
+            f"(elementwise {ratio:.3f} of the tolerance), worst head-row "
+            f"{row:.3g} -> ok")
+    from tpu_dra_torch.workloads.flash import ELEM_TOL, L2_ATOL, ROW_TOL
+    log(f"[flash] l2 over all cases: max abs err {l2_worst:.3g}")
+    log(f"[flash] tolerances: elementwise rtol = atol = {ELEM_TOL}; per "
+        f"head-row {ROW_TOL}; l2 atol {L2_ATOL}")
+    return {name: vals[0] for name, vals in path.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: flash timing at the training path's shapes
+# ---------------------------------------------------------------------------
+
+def flash_bound(nbytes: int, flops: int) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
+               D: int = 128) -> dict:
+    """Kernel alone (its C entry, arguments prepared once), wrapper, plain
+    version and library yardstick for each flash kernel at one training
+    path's attention, causal: the flagship's [B·H, S, D] = [256, 1024,
+    128] bf16 (each operand 67 MB, more than the 50 MB L2 cache holds, so
+    every call reads device memory) or the GQA run's 64 q heads over 16
+    kv heads."""
+    import torch
+    import torch.nn.functional as TF
+
+    from tpu_dra_torch.kernels.build import library
+    from tpu_dra_torch.workloads import flash as F
+    from tpu_dra_torch.workloads.train import weak_scalar
+    BH, BHkv = B * H, B * Hkv
+    q, k, v, do = flash_inputs(gen, BH, BHkv, S, D)
+    out, l2 = F.flash_attn_fwd(q, k, v, True)
+    qs = F._prescale(q).contiguous()
+    dd = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))   # per q head
+    lf, lb = library("flash_fwd"), library("flash_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    qscale = weak_scalar(D ** -0.5 * F._LOG2E, torch.bfloat16)
+    P = lambda t: t.data_ptr()      # noqa: E731
+
+    def checked(rc):
+        if rc:
+            fail(f"flash kernel launch failed with CUDA error {rc}")
+
+    kernels = {
+        "flash_fwd": lambda: checked(lf.tpu_dra_flash_fwd(
+            P(q), P(k), P(v), P(out), P(l2), BH, BHkv, S, S, D, 1, qscale,
+            stream)),
+        "flash_bwd_dq": lambda: checked(lb.tpu_dra_flash_bwd_dq(
+            P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dq), BH, BHkv, S, S,
+            D, 1, D ** -0.5, stream)),
+        "flash_bwd_dkdv": lambda: checked(lb.tpu_dra_flash_bwd_dkdv(
+            P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv), BH, BHkv,
+            S, S, D, 1, stream)),
+    }
+    wrappers = {
+        "flash_fwd": lambda: F.flash_attn_fwd(q, k, v, True),
+        "flash_bwd_dq": lambda: F.flash_bwd_dq(qs, k, v, do, l2, dd, True),
+        "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv(qs, k, v, do, l2, dd,
+                                                   True),
+    }
+    plains = {
+        "flash_fwd": lambda: F.flash_attn_fwd_ref(q, k, v, True),
+        "flash_bwd_dq": lambda: F.flash_bwd_dq_ref(qs, k, v, do, l2, dd,
+                                                   True),
+        "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv_ref(qs, k, v, do, l2,
+                                                       dd, True),
+    }
+    # library yardstick: one PyTorch call each way (never called by the
+    # port); its backward computes dq, dk and dv together
+    q4 = q.reshape(B, H, S, D).detach().requires_grad_()
+    k4, v4 = (t.reshape(B, Hkv, S, D).detach().requires_grad_()
+              for t in (k, v))
+    do4 = do.reshape(B, H, S, D)
+    gqa = Hkv != H
+    o4 = TF.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                         enable_gqa=gqa)
+    sdpa_fwd = cuda_time_ms(lambda: TF.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=gqa), 50)
+    sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True), 20)
+    library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+                  "flash_bwd_dkdv": sdpa_bwd}
+
+    # bounds from these inputs: each operand read once, each output written
+    # once; the products count only the S(S+1)/2 (row, key) pairs the
+    # causal mask keeps, 2 flops per multiply-add
+    tile = BH * S * D * 2                   # one bf16 [BH, S, D] operand
+    kv = BHkv * S * D * 2                   # k or v
+    stat = BH * S * 4                       # one fp32 [BH, S] row vector
+    mac = BH * D * S * (S + 1) // 2         # multiply-adds of one product
+    sizes = {"flash_fwd": (2 * tile + 2 * kv + stat, 2 * 2 * mac),
+             "flash_bwd_dq": (3 * tile + 2 * kv + 2 * stat, 3 * 2 * mac),
+             # dk, dv are written per q head
+             "flash_bwd_dkdv": (4 * tile + 2 * kv + 2 * stat, 4 * 2 * mac)}
+    t = {}
+    for name in kernels:
+        t[name] = {"ms": cuda_time_ms(kernels[name], 20),
+                   "wrapper_ms": cuda_time_ms(wrappers[name], 20),
+                   "plain_ms": cuda_time_ms(plains[name], 5, warmup=1),
+                   "library_ms": library_ms[name], **flash_bound(*sizes[name])}
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: training through fit
+# ---------------------------------------------------------------------------
+
+def write_tokens(path: Path, vocab: int) -> str:
+    """A learnable synthetic stream from SEED: a random 64-token motif
+    repeated, 5% of the tokens replaced by noise."""
+    import numpy as np
+
+    from tpu_dra_torch.workloads.data import TokenDataset
+    rng = np.random.default_rng(SEED)
+    toks = np.resize(rng.integers(0, vocab, 64), TOKENS)
+    noise = rng.random(TOKENS) < 0.05
+    toks[noise] = rng.integers(0, vocab, int(noise.sum()))
+    TokenDataset.write(str(path), toks)
+    return str(path)
+
+
+def leaf_errors(got: dict, want: dict, prefix: str = "") -> dict:
+    """Relative L2 error of each gradient leaf."""
+    out = {}
+    for name, w in want.items():
+        if isinstance(w, dict):
+            out.update(leaf_errors(got[name], w, prefix + name + "/"))
+        else:
+            g = got[name].float()
+            out[prefix + name] = float((g - w.float()).norm()
+                                       / w.float().norm())
+    return out
+
+
+def compare_step(gen, cfg, data_path: str, batch: int, label: str) -> int:
+    """One train step's loss and gradients with the flash kernels against
+    the same step with plain dense attention, same params and batch.
+    Returns the model's parameter count."""
+    import torch
+
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    from tpu_dra_torch.workloads.train import (grads_fn, init_params,
+                                               tree_leaves)
+    params = init_params(cfg, gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    toks = torch.from_numpy(next(batches(TokenDataset(data_path),
+                                         batch=batch, seq=cfg.max_seq)))
+    toks = toks.to(gen.device)
+    loss_f, g_f = grads_fn(cfg, params, toks, attn_impl="flash")
+    loss_d, g_d = grads_fn(cfg, params, toks, attn_impl="dense")
+    errs = leaf_errors(g_f, g_d)
+    worst = max(errs, key=errs.get)
+    dl = abs(float(loss_f) - float(loss_d))
+    log(f"[train] {label}: one step, flash kernels vs plain dense "
+        f"attention: loss {float(loss_f):.5f} vs {float(loss_d):.5f} (|d| "
+        f"{dl:.2e}, tolerance {STEP_LOSS_ATOL}); worst gradient leaf "
+        f"{worst} relative L2 {errs[worst]:.3e} (tolerance "
+        f"{STEP_LEAF_REL}); median leaf "
+        f"{statistics.median(errs.values()):.3e}")
+    if not (dl <= STEP_LOSS_ATOL and errs[worst] <= STEP_LEAF_REL):
+        fail(f"{label}: the flash train step departs from the dense one "
+             f"(loss |d| {dl}, leaf {worst} {errs[worst]})")
+    del params, g_f, g_d
+    torch.cuda.empty_cache()
+    return n_params
+
+
+def fit_phase(cfg, data_path: str, steps: int, batch: int, label: str,
+              n_params: int) -> dict:
+    """fit() with attn_impl="flash"; the flash launch counts are zeroed
+    just before and read just after.  Fails unless every logged loss is
+    finite, the last is below the first, and each kernel launched
+    n_layers x steps times."""
+    import math
+
+    import torch
+
+    from tpu_dra_torch.workloads import flash as F
+    from tpu_dra_torch.workloads.fit import fit
+    stamps = []
+
+    def record(line: str) -> None:
+        stamps.append(time.perf_counter())
+        log(f"[train]   {label} {line}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"flash_fwd": F.flash_attn_fwd, "flash_bwd_dq":
+                F.flash_bwd_dq, "flash_bwd_dkdv": F.flash_bwd_dkdv}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = fit(cfg, data_path, steps=steps, batch=batch, attn_impl="flash",
+              log_every=1, log_fn=record)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in res.losses) or \
+            len(res.losses) != steps:
+        fail(f"{label}: losses {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        fail(f"{label}: loss did not fall: {res.losses}")
+    want = cfg.n_layers * steps
+    if any(n != want for n in launches.values()):
+        fail(f"{label}: flash launches {launches}, expected {want} each "
+             f"(n_layers {cfg.n_layers} x steps {steps})")
+    times = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    step_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    tok_step = batch * cfg.max_seq
+    log(f"[train] {label}: {n_params / 1e6:.1f} M params, loss "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f} over {steps} steps; "
+        f"step time {1e3 * step_s:.1f} ms (median of steps 2-{steps}; "
+        f"first step {1e3 * times[0]:.1f} ms), tokens/s from the start "
+        f"{res.tokens_per_s:.0f}, steady {tok_step / step_s:.0f}; "
+        f"6·N·tokens/time/989e12 = "
+        f"{6 * n_params * tok_step / step_s / BF16_FLOPS_PER_S:.3f}; "
+        f"peak memory {peak_gb:.1f} GB; flash launches {launches} "
+        f"(informational)")
+    return {"launches": launches, "losses": res.losses, "step_ms":
+            1e3 * step_s, "tokens_per_s": res.tokens_per_s, "peak_gb":
+            peak_gb, "n_params": n_params}
+
+
+def dense_curve(cfg, data_path: str, flash_losses: list) -> None:
+    """The same fit (seed, batches, optimizer) with plain dense attention,
+    its losses printed beside the flash run's (informational: the two
+    differ by bf16 noise from the first step on, and AdamW carries that
+    into the curves)."""
+    import torch
+
+    from tpu_dra_torch.workloads.fit import fit
+    torch.cuda.empty_cache()
+    res = fit(cfg, data_path, steps=len(flash_losses),
+              batch=TRAIN_RUN["batch"], attn_impl="dense", log_every=1,
+              log_fn=lambda line: None)
+    pairs = ", ".join(f"{a:.4f}/{b:.4f}" for a, b in
+                      zip(flash_losses, res.losses))
+    log(f"[train] flagship losses, flash/dense attention by step: {pairs} "
+        f"(informational)")
+
+
+def busy_us(spans) -> float:
+    """Length of the union of ``(start, end)`` spans."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def kernel_kind(name: str) -> str:
+    if "flash_" in name:
+        return "flash kernels"
+    if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmuls (cuBLAS)"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_step(cfg, data_path: str, batch: int) -> None:
+    """One flagship train step (after two warm-up steps) under
+    torch.profiler: device time by kernel kind and the device's idle
+    share of the step (informational; the profiler's own overhead
+    lengthens the traced step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    from tpu_dra_torch.workloads.optim import default_optimizer
+    from tpu_dra_torch.workloads.train import init_params, make_train_step
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen)
+    step, init_opt = make_train_step(cfg, default_optimizer(),
+                                     attn_impl="flash")
+    state = init_opt(params)
+    it = batches(TokenDataset(data_path), batch=batch, seq=cfg.max_seq)
+    toks = [torch.from_numpy(next(it)).to("cuda") for _ in range(3)]
+    for t in toks[:2]:
+        params, state, _ = step(params, state, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, toks[2])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("[profile] torch.profiler saw no device activity: device time "
+            "by kernel not measured")
+        return
+    by_kind: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_kind[kernel_kind(e.name)] = by_kind.get(kernel_kind(e.name),
+                                                   0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    log(f"[profile] flagship train step under torch.profiler: wall "
+        f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+        f"(idle share {1 - busy / wall_us:.3f}), {len(kernels)} device "
+        f"activities (informational)")
+    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {kind}: {us / 1e3:.1f} ms "
+            f"({us / busy:.3f} of device time)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms {name[:110]}")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def train_phase(gen, tmp: Path) -> dict:
+    from tpu_dra_torch.workloads.train import ModelConfig
+    cfg = ModelConfig(**TRAIN_MODEL)
+    data_path = write_tokens(tmp / "tokens.bin", cfg.vocab)
+    log(f"[train] synthetic corpus: {TOKENS} uint16 tokens (64-token motif, "
+        f"5% noise, seed {SEED})")
+    n = compare_step(gen, cfg, data_path, TRAIN_RUN["batch"], "flagship")
+    run = fit_phase(cfg, data_path, TRAIN_RUN["steps"], TRAIN_RUN["batch"],
+                    "flagship", n)
+    dense_curve(cfg, data_path, run["losses"])
+    profile_step(cfg, data_path, TRAIN_RUN["batch"])
+    gcfg = ModelConfig(**GQA_MODEL)
+    n = compare_step(gen, gcfg, data_path, GQA_RUN["batch"], "GQA")
+    fit_phase(gcfg, data_path, GQA_RUN["steps"], GQA_RUN["batch"], "GQA", n)
+    return run
+
+
+def log_flash_times(shape: str, times: dict, card: str) -> None:
+    for name, t in times.items():
+        lib = ("forward" if name == "flash_fwd"
+               else "backward: dq, dk, dv together")
+        log(f"[time] {name} at the {shape}: kernel {t['ms'] * 1e3:.1f} us "
+            f"(through the Python wrapper {t['wrapper_ms'] * 1e3:.1f} us), "
+            f"plain version {t['plain_ms'] * 1e3:.1f} us, library "
+            f"yardstick {t['library_ms'] * 1e3:.1f} us "
+            f"(scaled_dot_product_attention {lib}); bound "
+            f"{t['bound_ms'] * 1e3:.1f} us by {t['bound_by']} "
+            f"({t['bytes']} B at 3.35 TB/s, {t['flops']} FLOP at 989 "
+            f"TF/s), {t['bound_ms'] / t['ms']:.3f} of it reached, on {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -439,16 +925,20 @@ def main() -> int:
               f"run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    from tpu_dra_torch.kernels.build import build
+    from tpu_dra_torch.kernels.build import build_all
     # fp32 matmuls in full precision (the plain versions compare in fp32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    b = build("paged_attention")
-    log(f"[build] paged_attention: nvcc {b.seconds:.1f} s -> {b.path.name}")
-    for ln in b.log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"[build]   {ln.strip()}")
+    t0 = time.perf_counter()
+    built = build_all()
+    log(f"[build] {len(built)} sources, one nvcc each in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, b in built.items():
+        log(f"[build] {name}: nvcc {b.seconds:.1f} s -> {b.path.name}")
+        for ln in b.log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"[build]   {ln.strip()}")
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")
@@ -470,6 +960,16 @@ def main() -> int:
     log(f"[time] paged_attention launches per decoded token: "
         f"{served['launches'] / max(1, served['decode_steps']):.2f}")
 
+    with torch.no_grad():
+        flash_err = check_flash(gen)
+    flash_t = time_flash(gen, B=16, H=16, Hkv=16)
+    log_flash_times("flagship [256, 1024, 128]", flash_t, card)
+    log_flash_times("GQA run [64 over 16, 1024, 128]",
+                    time_flash(gen, B=8, H=8, Hkv=2), card)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        trained = train_phase(gen, Path(tmp))
+
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "tpu_dra_torch/csrc/paged_attention.cu",
@@ -478,6 +978,21 @@ def main() -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]
+    flash_src = {"flash_fwd": ("tpu_dra_torch/csrc/flash_fwd.cu",
+                               "tpu_dra/workloads/pallas_kernels.py:151 and "
+                               "tpu_dra/workloads/pallas_kernels.py:221"),
+                 "flash_bwd_dq": ("tpu_dra_torch/csrc/flash_bwd.cu",
+                                  "tpu_dra/workloads/pallas_kernels.py:367"),
+                 "flash_bwd_dkdv": ("tpu_dra_torch/csrc/flash_bwd.cu",
+                                    "tpu_dra/workloads/pallas_kernels.py:453")}
+    for name, (source, replaces) in flash_src.items():
+        t = flash_t[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": trained["launches"][name],
+            "max_abs_err": flash_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

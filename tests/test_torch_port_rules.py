@@ -1,5 +1,5 @@
 """Rules of the PyTorch port that hold for every module: it imports
-neither JAX nor the JAX package, entry points default to the card and
+neither JAX, optax nor the JAX package, entry points default to the card and
 refuse to run without CUDA unless the caller asks for the CPU, and
 parameter trees cross between the two packages intact."""
 
@@ -22,7 +22,7 @@ from tpu_dra_torch.device import resolve_device
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_dra_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "tpu_dra")
+FORBIDDEN = ("jax", "jaxlib", "optax", "tpu_dra")
 
 
 def imported_modules(path: Path):

@@ -21,6 +21,13 @@ from tpu_dra_torch.workloads import train as ttrain
 # the port's tests run on the CPU: the plain PyTorch path
 CPU = "cpu"
 
+# The suite runs in several worker processes, and each imports this
+# module.  torch's default of one thread per core in every worker
+# oversubscribes the machine: on 8 cores with 4 workers the port's tests
+# took 98 s and 712 CPU-seconds that way, 31 s and 114 with one thread
+# each, and leave the cores to the timing-sensitive tests beside them.
+torch.set_num_threads(1)
+
 
 def cfg_pair(**kw):
     """(reference ModelConfig, port ModelConfig) with the same fields."""

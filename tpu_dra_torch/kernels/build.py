@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled on first
 use with ``nvcc`` for ``sm_90a`` into ``tpu_dra_torch/_build/`` (a
 directory git ignores) and loaded with ``ctypes``; the library's file name
-carries a hash of the source and the flags, so an edited source never
-loads a stale build.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source never loads a stale build.  ``build_all``
+starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines without ``nvcc``.
@@ -30,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_ERR = (ctypes.c_char_p, [_I])
 # name → {C function: (restype, argtypes)}
 SIGNATURES = {
     "paged_attention": {
@@ -37,7 +40,25 @@ SIGNATURES = {
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,   # q k v k_s v_s tab len out
                  _I, _I, _I, _I, _I, _I, _I, _I,   # B H Hkv P ps Dh MP quant
                  _P]),                             # stream
-        "tpu_dra_cuda_error_string": (ctypes.c_char_p, [_I]),
+        "tpu_dra_cuda_error_string": _ERR,
+    },
+    "flash_fwd": {
+        "tpu_dra_flash_fwd": (
+            _I, [_P, _P, _P, _P, _P,               # q k v out l2
+                 _I, _I, _I, _I, _I, _I,           # BH BHkv S Sk D causal
+                 _F, _P]),                         # qscale stream
+        "tpu_dra_cuda_error_string": _ERR,
+    },
+    "flash_bwd": {
+        "tpu_dra_flash_bwd_dq": (
+            _I, [_P, _P, _P, _P, _P, _P, _P,       # qs k v dout l2 dd dq
+                 _I, _I, _I, _I, _I, _I,           # BH BHkv S Sk D causal
+                 _F, _P]),                         # scale stream
+        "tpu_dra_flash_bwd_dkdv": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,   # qs k v dout l2 dd dk dv
+                 _I, _I, _I, _I, _I, _I,           # BH BHkv S Sk D causal
+                 _P]),                             # stream
+        "tpu_dra_cuda_error_string": _ERR,
     },
 }
 
@@ -67,10 +88,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
@@ -82,31 +104,43 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
     return lib
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` (unless this exact source is built
-    already) and load it; raise with the compiler output if nvcc fails."""
+def build_all(names=None) -> dict[str, Built]:
+    """Compile every ``csrc/<name>.cu`` in ``names`` (default: all of
+    ``SIGNATURES``) that is not built already, one ``nvcc`` per source,
+    all started together, and load them; raise with the compiler output
+    if any nvcc fails."""
+    names = list(SIGNATURES) if names is None else list(names)
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        out = _target(name)
-        secs, log = 0.0, ""
-        if not out.exists():
+        todo = [n for n in names if n not in _loaded]
+        procs = {}
+        for name in todo:
+            out = _target(name)
+            if out.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
+            procs[name] = (out, tmp, time.perf_counter(), subprocess.Popen(
                 [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                  str(CSRC_DIR / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            secs, log = time.perf_counter() - t0, proc.stdout
-            if proc.returncode != 0:
-                raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc "
-                                   f"exit {proc.returncode}\n{log}")
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        built = {}
+        for name, (out, tmp, t0, proc) in procs.items():
+            log = proc.communicate()[0]
+            built[name] = (time.perf_counter() - t0, log, proc.returncode)
+        failed = [n for n, (_, _, rc) in built.items() if rc != 0]
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: " + "; ".join(
+                f"{n}: nvcc exit {built[n][2]}\n{built[n][1]}"
+                for n in failed))
+        for name, (out, tmp, _, _) in procs.items():
             tmp.replace(out)          # atomic: a half-written .so never loads
-        _loaded[name] = Built(_bind(name, out), out, secs, log)
-        return _loaded[name]
+        for name in todo:
+            secs, log, _ = built.get(name, (0.0, "", 0))
+            out = _target(name)
+            _loaded[name] = Built(_bind(name, out), out, secs, log)
+        return {n: _loaded[n] for n in names}
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built on first use."""
-    return build(name).lib
+    return build_all([name])[name].lib

@@ -4,8 +4,15 @@
 Same parameter layout as the reference: stacked ``[L, ...]`` block
 weights, fp32 master copies (bf16 after ``quant.cast_params_bf16`` for
 serving), bf16 activations.  The layer loop is a Python loop over the
-stacked leading axis where the reference runs ``lax.scan``; remat and the
-fused-collective branches of the reference trunk are not ported.
+stacked leading axis where the reference runs ``lax.scan``.
+
+The training half: ``loss_fn`` over the dense or chunked NLL head (label
+smoothing, z-loss), ``grads_fn`` with gradient accumulation,
+``sgd_train_step`` and ``make_train_step`` (the optimizer is
+``optim.py``).  ``attn_impl="flash"`` runs attention through the flash
+kernels (``flash.py``).  Not ported: selective remat (it changes memory,
+not results), packed sequences (``packed_loss_fn``), sharding, ZeRO-1
+and the fused-collective and fused-norm branches of the reference trunk.
 
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
@@ -16,7 +23,7 @@ fp32 before casting back.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -165,7 +172,8 @@ def _split_qkv(cfg: ModelConfig, qkv):
     return torch.split(qkv, [cfg.d_model, cfg.d_kv, cfg.d_kv], dim=-1)
 
 
-def _attn_sublayer(cfg: ModelConfig, x, layer, positions=None):
+def _attn_sublayer(cfg: ModelConfig, x, layer,
+                   attn_fn=_causal_dense_attention, positions=None):
     """Pre-norm attention residual sublayer, GQA-aware.  With
     ``pos_emb="rope"`` q/k rotate by ``positions`` (default 0..S-1)."""
     B, S, D = x.shape
@@ -179,7 +187,7 @@ def _attn_sublayer(cfg: ModelConfig, x, layer, positions=None):
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
         q = apply_rope(q, positions, cfg.rope_base)
         k = apply_rope(k, positions, cfg.rope_base)
-    out = _causal_dense_attention(q, k, v)
+    out = attn_fn(q, k, v)
     out = out.transpose(1, 2).reshape(B, S, D)
     return x + matmul_any(out, layer["wo"], x.dtype)
 
@@ -192,9 +200,30 @@ def _mlp(x, layer):
     return x + matmul_any(h, layer["w2"], x.dtype)
 
 
-def _block(cfg: ModelConfig, x, layer, positions=None):
+def _block(cfg: ModelConfig, x, layer, attn_fn=_causal_dense_attention,
+           positions=None):
     """One decoder block (attention then MLP sublayer)."""
-    return _mlp(_attn_sublayer(cfg, x, layer, positions), layer)
+    return _mlp(_attn_sublayer(cfg, x, layer, attn_fn, positions), layer)
+
+
+def _flash_attention_fn(q, k, v):
+    """Flash attention (``flash.flash_attention``, causal) as a drop-in
+    for :func:`_causal_dense_attention`.  The reference pads S up to its
+    TPU tile here; the port's kernels mask the ragged tail themselves."""
+    from tpu_dra_torch.workloads.flash import flash_attention
+    return flash_attention(q, k, v, causal=True)
+
+
+_ATTN_IMPLS: dict[str, Callable] = {"dense": _causal_dense_attention,
+                                    "flash": _flash_attention_fn}
+
+
+def attn_impl_fn(attn_impl: str) -> Callable:
+    """The attention function named by ``attn_impl``."""
+    if attn_impl not in _ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one "
+                         f"of {sorted(_ATTN_IMPLS)}")
+    return _ATTN_IMPLS[attn_impl]
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
@@ -209,11 +238,12 @@ def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
     return x
 
 
-def _trunk(cfg: ModelConfig, params, tokens):
+def _trunk(cfg: ModelConfig, params, tokens,
+           attn_fn=_causal_dense_attention):
     """Embed + decoder stack; returns pre-final-norm activations."""
     x = embed_tokens(cfg, params, tokens)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(params["blocks"], i))
+        x = _block(cfg, x, layer_params(params["blocks"], i), attn_fn)
     return x
 
 
@@ -231,6 +261,226 @@ def head_logits(params, x):
     return matmul_any(x, params["unembed"], torch.bfloat16).float()
 
 
-def forward(cfg: ModelConfig, params, tokens):
+def forward(cfg: ModelConfig, params, tokens, attn_impl: str = "dense"):
     """Logits ``[B, S, vocab]`` for a ``[B, S]`` integer token batch."""
-    return head_logits(params, _trunk(cfg, params, tokens))
+    return head_logits(params, _trunk(cfg, params, tokens,
+                                      attn_impl_fn(attn_impl)))
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+_HEAD_IMPLS = ("dense", "chunked")
+
+
+def head_nll(params, x, targets, head_impl: str = "dense",
+             n_chunks: int = 16, label_smoothing: float = 0.0,
+             z_loss: float = 0.0):
+    """Per-token NLL ``[B, S, 1]`` through the final head (ln_f →
+    unembed → log_softmax → target gather); ``targets`` int64 ``[B, S]``.
+
+    ``head_impl="chunked"`` streams the vocab in ``n_chunks`` pieces (the
+    largest divisor of V not above it) with an online logsumexp, so the
+    ``[B, S, V]`` fp32 logits never exist at once; its backward recomputes
+    each chunk's logits from the saved lse.  ``label_smoothing`` ε gives
+    ``(1−ε)·nll + ε·(lse − mean(logits))`` and ``z_loss`` adds
+    ``z_loss·lse²``; both need the dense head."""
+    if head_impl not in _HEAD_IMPLS:
+        raise ValueError(f"unknown head_impl {head_impl!r}; expected one "
+                         f"of {_HEAD_IMPLS}")
+    if label_smoothing or z_loss:
+        if head_impl == "chunked":
+            raise NotImplementedError(
+                "label_smoothing/z_loss need the dense head (the chunked "
+                "backward doesn't carry mean-logit/lse stats)")
+        logits = head_logits(params, x)
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        nll = lse - logits.gather(-1, targets[..., None])
+        if label_smoothing:
+            uniform_nll = lse - logits.mean(dim=-1, keepdim=True)
+            nll = (1.0 - label_smoothing) * nll \
+                + label_smoothing * uniform_nll
+        if z_loss:
+            nll = nll + z_loss * lse.square()
+        return nll
+    if head_impl == "chunked":
+        B, S, D = x.shape
+        w_full = (params["embed"].T if "unembed" not in params
+                  else params["unembed"])
+        V = w_full.shape[1]
+        n = min(n_chunks, V)
+        while V % n:
+            n -= 1
+        h = _rmsnorm(x, params["ln_f"]).reshape(B * S, D)
+        nll = _ChunkedNLL.apply(h.to(torch.bfloat16),
+                                w_full.to(torch.bfloat16),
+                                targets.reshape(B * S), n)
+        return nll.reshape(B, S, 1)
+    logp = torch.log_softmax(head_logits(params, x), dim=-1)
+    return -logp.gather(-1, targets[..., None])
+
+
+def _dot_f32(a, b):
+    """bf16 ``a @ b`` accumulated and returned in fp32 (the reference's
+    ``preferred_element_type=float32``): bf16 values are exact in fp32,
+    so an fp32 product of the upcast operands is the same sum."""
+    return a.float() @ b.float()
+
+
+def _chunked_logits_stats(x, w, targets, n_chunks: int):
+    """Online logsumexp and target logit over vocab chunks: x ``[N, D]``
+    bf16, w ``[D, V]`` bf16, targets ``[N]``; returns ``(lse, t_logit)``
+    fp32 ``[N]``."""
+    N, V = x.shape[0], w.shape[1]
+    C = V // n_chunks
+    m = torch.full((N,), torch.finfo(torch.float32).min,
+                   dtype=torch.float32, device=x.device)
+    l = torch.zeros(N, dtype=torch.float32, device=x.device)
+    t = torch.zeros(N, dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        logits = _dot_f32(x, w[:, c * C:(c + 1) * C])
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[:, None]).sum(dim=-1)
+        off = targets - c * C
+        hit = (off >= 0) & (off < C)
+        picked = logits.gather(1, off.clamp(0, C - 1)[:, None])[:, 0]
+        t = t + torch.where(hit, picked, torch.zeros_like(picked))
+        m = m_new
+    return m + torch.log(l), t
+
+
+class _ChunkedNLL(torch.autograd.Function):
+    """Streamed-vocab NLL ``lse − target_logit`` ``[N]``; the counterpart
+    of the reference's ``_chunked_nll`` custom VJP (``train.py:556-597``).
+    Forward keeps only the lse; backward recomputes each chunk's logits,
+    ``d nll/d logits = softmax − onehot(target)``."""
+
+    @staticmethod
+    def forward(ctx, x, w, targets, n_chunks: int):
+        lse, t = _chunked_logits_stats(x, w, targets, n_chunks)
+        ctx.save_for_backward(x, w, targets, lse)
+        ctx.n_chunks = n_chunks
+        return lse - t
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, targets, lse = ctx.saved_tensors
+        n_chunks = ctx.n_chunks
+        V = w.shape[1]
+        C = V // n_chunks
+        gf = g.float()
+        cols = torch.arange(C, device=x.device)
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dw = torch.empty((x.shape[1], V), dtype=torch.float32,
+                         device=x.device)
+        for c in range(n_chunks):
+            wc = w[:, c * C:(c + 1) * C]
+            p = torch.exp(_dot_f32(x, wc) - lse[:, None])
+            onehot = ((targets - c * C)[:, None] == cols[None, :]).float()
+            ds = ((p - onehot) * gf[:, None]).to(torch.bfloat16)   # [N, C]
+            dx = dx + _dot_f32(ds, wc.T)
+            dw[:, c * C:(c + 1) * C] = _dot_f32(x.T, ds)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
+            head_impl: str = "dense", label_smoothing: float = 0.0,
+            z_loss: float = 0.0):
+    """Mean next-token NLL of a ``[B, S+1]`` window batch: the trunk reads
+    ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``."""
+    trunk = _trunk(cfg, params, tokens[:, :-1], attn_impl_fn(attn_impl))
+    return head_nll(params, trunk, tokens[:, 1:].long(), head_impl,
+                    label_smoothing=label_smoothing, z_loss=z_loss).mean()
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested parameter dict, in insertion order."""
+    out = []
+    for v in tree.values():
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """A nested dict shaped like ``like`` holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in node.items()}
+    return build(like)
+
+
+def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
+             head_impl: str = "dense", accum_steps: int = 1,
+             label_smoothing: float = 0.0, z_loss: float = 0.0):
+    """``(mean loss, grads)`` for a ``[B, S+1]`` batch; grads is a dict
+    shaped like ``params``.  ``accum_steps > 1`` runs that many equal
+    microbatches one after another and averages, so activations live for
+    one microbatch at a time; equal microbatches make the mean of means
+    the full-batch mean."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    B = tokens.shape[0]
+    if B % accum_steps:
+        raise ValueError(f"batch {B} must be divisible by accum_steps "
+                         f"{accum_steps}")
+    leaves = [p.detach() for p in tree_leaves(params)]
+
+    def value_and_grad(batch):
+        live = [p.requires_grad_() for p in (t.detach() for t in leaves)]
+        loss = loss_fn(cfg, tree_unflatten(params, live), batch, attn_impl,
+                       head_impl, label_smoothing, z_loss)
+        return loss.detach(), torch.autograd.grad(loss, live)
+
+    if accum_steps == 1:
+        loss, grads = value_and_grad(tokens)
+        return loss, tree_unflatten(params, grads)
+    micro = tokens.reshape(accum_steps, B // accum_steps, tokens.shape[1])
+    loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    g_sum = [torch.zeros_like(p) for p in leaves]
+    for batch in micro:
+        loss, grads = value_and_grad(batch)
+        loss_sum = loss_sum + loss
+        g_sum = [a + g for a, g in zip(g_sum, grads)]
+    inv = 1.0 / accum_steps
+    return loss_sum * inv, tree_unflatten(params, [g * inv for g in g_sum])
+
+
+def sgd_train_step(cfg: ModelConfig, lr: float, params, tokens,
+                   attn_impl: str = "dense", head_impl: str = "dense",
+                   accum_steps: int = 1):
+    """One plain-SGD step: ``(new params, loss)``."""
+    loss, grads = grads_fn(cfg, params, tokens, attn_impl=attn_impl,
+                           head_impl=head_impl, accum_steps=accum_steps)
+    new = [p.detach() - lr * g for p, g in zip(tree_leaves(params),
+                                               tree_leaves(grads))]
+    return tree_unflatten(params, new), loss
+
+
+def make_train_step(cfg: ModelConfig, optimizer=None,
+                    attn_impl: str = "dense", head_impl: str = "dense",
+                    accum_steps: int = 1, label_smoothing: float = 0.0,
+                    z_loss: float = 0.0):
+    """The counterpart of the reference's ``make_optax_train_step`` on one
+    device: ``(step, init_opt_state)`` where ``step(params, opt_state,
+    tokens) -> (params, opt_state, loss)``.  The optimizer (default:
+    :func:`optim.default_optimizer`, AdamW after global-norm clipping)
+    updates ``params`` in place and returns the same dict."""
+    from tpu_dra_torch.workloads.optim import default_optimizer
+    if optimizer is None:
+        optimizer = default_optimizer()
+
+    def step(params, opt_state, tokens):
+        loss, grads = grads_fn(cfg, params, tokens, attn_impl=attn_impl,
+                               head_impl=head_impl,
+                               accum_steps=accum_steps,
+                               label_smoothing=label_smoothing,
+                               z_loss=z_loss)
+        opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return step, optimizer.init

@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (``tpu_dra_torch``) on one NVIDIA
 GPU: builds its CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version, times it, then drives the
-port's two paths at full width: it serves the headline model through the
-port's HTTP server, and trains the flagship model through ``fit``.
+port's paths at full width: it serves the headline model through the
+port's HTTP server, runs the tiled matmul's bench section, and trains the
+flagship model through ``fit`` and through the fused training step.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -25,17 +26,25 @@ Phases (each prints as it goes; any failed check exits non-zero):
      pages; POST 8 concurrent greedy /generate requests and check each
      answer against the port's paged_greedy_decode on the card, and that
      the decode went through the kernel (launch counts);
-  5. flash attention: the forward, dQ and dK/dV kernels vs their plain
-     versions at the training path's shapes ([256, 1024, 128] causal, and
-     the GQA run's [64 over 16, 1024, 128]) and at S 1, 63, 64, 65, 1000,
-     causal and not, g 1 and 4, D 64 and 128; out, l2, dq, dk and dv each
-     held elementwise and per head-row (relative L2 over the row's
-     [S, D]), tolerances flash.ELEM_TOL and flash.ROW_TOL;
-  6. time the three flash kernels, their wrappers and plain versions, and
+  5. flash attention: the forward, dQ, dK/dV and fused-backward kernels
+     vs their plain versions at the training path's shapes ([256, 1024,
+     128] causal, and the GQA run's [64 over 16, 1024, 128]) and at S 1,
+     63, 64, 65, 1000, causal and not, g 1 and 4, D 64 and 128; out, l2,
+     dq, dk and dv each held elementwise and per head-row (relative L2
+     over the row's [S, D]), tolerances flash.ELEM_TOL and flash.ROW_TOL;
+  6. time the four flash kernels, their wrappers and plain versions, and
      the library yardstick (scaled_dot_product_attention forward, and its
-     backward for the dQ + dK/dV pair) with CUDA events at the path's
-     shapes;
-  7. train the flagship at full width (vocab 32768, d_model 2048, 16
+     backward for the backward kernels) with CUDA events at the path's
+     shapes; the fused backward beside the split pair;
+  7. matmul kernels: the tiled matmul at 4096^3, k 512, a rectangle and
+     ragged tiles, the fused RMSNorm-matmul at the flagship's ln1 -> wqkv
+     and ln2 -> w1 ([16384, 2048] @ [2048, 6144] and @ [2048, 8192]), m <
+     256, K 64 and K 1024, each held elementwise and per output row
+     (matmul.ELEM_TOL, matmul.ROW_TOL); their times beside bound, plain
+     version and library yardstick (torch.matmul; for the fused kernel the
+     unfused pair, two calls); then tpu_dra_torch.bench's
+     section_pallas_matmul, the tiled matmul's path (launch counts);
+  8. train the flagship at full width (vocab 32768, d_model 2048, 16
      heads, 8 layers, d_ff 8192, max_seq 1024, learned positions; ~539 M
      fp32 parameters from a seed) on a synthetic token file: first one
      step's loss and gradients with the flash kernels against the same
@@ -43,7 +52,13 @@ Phases (each prints as it goes; any failed check exits non-zero):
      with finite, falling losses and n_layers x steps launches of each
      flash kernel; then (informational) the same fit with dense attention
      and one step under torch.profiler;
-  8. a short GQA training run (8 heads over 2 kv heads, d_head 128, rope,
+  9. the fused training path (norm_impl="fused", and the fused flash
+     backward selected through flash.TUNE_FILE): one step against the
+     split/plain-pair step of phase 8, then 10 make_train_step steps on
+     [16, 1025] windows with finite, falling losses, exactly 2 x n_layers
+     norm-matmul and n_layers fused-backward launches a step and no split
+     launch; its step time beside phase 8's, and one profiled step;
+ 10. a short GQA training run (8 heads over 2 kv heads, d_head 128, rope,
      2 layers), so the grouped forward and backward run inside training.
 The second-to-last line is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -51,6 +66,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -90,6 +106,16 @@ SEED = 0
 # and 3.7e-4 (GQA) and worst leaves of 0.0072 and 0.0065 relative L2
 STEP_LOSS_ATOL = 5e-3
 STEP_LEAF_REL = 3e-2
+# the tune table that selects the fused flash backward at the flagship's
+# attention shape (the counterpart of bench_cache/flash_tune.json)
+FUSED_TUNE = {"entries": {"1024x128": {"bwd_impl": "fused"}}}
+# (m, k, n) of the tiled matmul: the bench's 4096^3, k = 512, a rectangle
+# and ragged tiles; of the fused RMSNorm-matmul: the flagship's ln1 -> wqkv
+# and ln2 -> w1 at B·S = 16384, m < 256, K = 64 and K = 1024
+MATMUL_CASES = [(4096, 4096, 4096), (1024, 512, 2048), (2048, 1024, 3072),
+                (200, 512, 264)]
+RMSNORM_CASES = [(16384, 2048, 6144), (16384, 2048, 8192), (100, 2048, 2048),
+                 (512, 64, 256), (1024, 1024, 1024)]
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -467,26 +493,29 @@ def serve_phase(gen) -> dict:
 # phase 5: flash kernels vs plain versions
 # ---------------------------------------------------------------------------
 
-def hold(label: str, name: str, got, want, row_tol: float) -> tuple:
-    """Fail unless ``got`` is finite and within ``flash.ELEM_TOL``
-    elementwise and ``row_tol`` per head-row of ``want``; returns (max abs
-    error, worst elementwise error as a share of its tolerance, worst
-    head-row error)."""
+def hold(label: str, name: str, got, want, row_tol: float,
+         elem_tol: float | None = None) -> tuple:
+    """Fail unless ``got`` is finite and within ``elem_tol`` (default
+    ``flash.ELEM_TOL``) elementwise and ``row_tol`` per row (each leading
+    index, ``flash.row_rel_err``) of ``want``; returns (max abs error,
+    worst elementwise error as a share of its tolerance, worst row
+    error)."""
     import torch
 
     from tpu_dra_torch.workloads.flash import ELEM_TOL, row_rel_err
+    elem_tol = ELEM_TOL if elem_tol is None else elem_tol
     if got.shape != want.shape or not torch.isfinite(got.float()).all():
-        fail(f"flash {label} {name}: shape {tuple(got.shape)} vs "
+        fail(f"{label} {name}: shape {tuple(got.shape)} vs "
              f"{tuple(want.shape)} or non-finite values")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    ratio = float((diff / (ELEM_TOL + ELEM_TOL * want.float().abs())).max())
+    ratio = float((diff / (elem_tol + elem_tol * want.float().abs())).max())
     rows = row_rel_err(got, want)
     worst = float(rows.max())
     if ratio > 1 or worst > row_tol:
-        fail(f"flash {label} {name}: max abs err {err:.3g} (elementwise "
-             f"{ratio:.3g} of the tolerance), worst head-row relative "
-             f"error {worst:.3g} (row {int(rows.argmax())}, tolerance "
+        fail(f"{label} {name}: max abs err {err:.3g} (elementwise "
+             f"{ratio:.3g} of the tolerance), worst row relative error "
+             f"{worst:.3g} (row {int(rows.argmax())}, tolerance "
              f"{row_tol})")
     return err, ratio, worst
 
@@ -509,7 +538,8 @@ def check_flash_case(gen, bh, bhkv, s, d, causal) -> tuple:
     import torch
 
     from tpu_dra_torch.workloads import flash as F
-    label = f"[{bh} over {bhkv}, {s}, {d}] {'causal' if causal else 'full'}"
+    label = (f"flash [{bh} over {bhkv}, {s}, {d}] "
+             f"{'causal' if causal else 'full'}")
     q, k, v, do = flash_inputs(gen, bh, bhkv, s, d)
     out, l2 = F.flash_attn_fwd(q, k, v, causal)
     torch.cuda.synchronize()
@@ -530,6 +560,13 @@ def check_flash_case(gen, bh, bhkv, s, d, causal) -> tuple:
     ek = hold(label, "dk", dk, rk, F.ROW_TOL["dk"])
     ev = hold(label, "dv", dv, rv, F.ROW_TOL["dv"])
     res["flash_bwd_dkdv"] = tuple(max(a, b) for a, b in zip(ek, ev))
+    fused = F.flash_bwd_fused(qs, k, v, do, ref_l2, dd, causal)
+    torch.cuda.synchronize()
+    want = F.flash_bwd_fused_ref(qs, k, v, do, ref_l2, dd, causal)
+    errs = [hold(label, f"fused {name}", g, w, F.ROW_TOL[name])
+            for name, g, w in zip(("dq", "dk", "dv"), fused, want)]
+    res["flash_bwd_fused"] = tuple(max(e) for e in zip(*errs))
+    res["flash_bwd_fused (dq alone)"] = errs[0]
     return res, l2_err
 
 
@@ -599,6 +636,8 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
     qs = F._prescale(q).contiguous()
     dd = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))   # per q head
+    dqacc = torch.zeros((1, BH, S, D), dtype=torch.float32,
+                        device=q.device)     # the fused kernel's dq sums
     lf, lb = library("flash_fwd"), library("flash_bwd")
     stream = torch.cuda.current_stream().cuda_stream
     qscale = weak_scalar(D ** -0.5 * F._LOG2E, torch.bfloat16)
@@ -618,12 +657,18 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
         "flash_bwd_dkdv": lambda: checked(lb.tpu_dra_flash_bwd_dkdv(
             P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv), BH, BHkv,
             S, S, D, 1, stream)),
+        "flash_bwd_fused": lambda: checked(lb.tpu_dra_flash_bwd_fused(
+            P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv),
+            P(dqacc), P(dq), BH, BHkv, S, S, D, 1, F.KV_BLOCK, D ** -0.5,
+            stream)),
     }
     wrappers = {
         "flash_fwd": lambda: F.flash_attn_fwd(q, k, v, True),
         "flash_bwd_dq": lambda: F.flash_bwd_dq(qs, k, v, do, l2, dd, True),
         "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv(qs, k, v, do, l2, dd,
                                                    True),
+        "flash_bwd_fused": lambda: F.flash_bwd_fused(qs, k, v, do, l2, dd,
+                                                     True),
     }
     plains = {
         "flash_fwd": lambda: F.flash_attn_fwd_ref(q, k, v, True),
@@ -631,6 +676,8 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
                                                    True),
         "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv_ref(qs, k, v, do, l2,
                                                        dd, True),
+        "flash_bwd_fused": lambda: F.flash_bwd_fused_ref(qs, k, v, do, l2,
+                                                         dd, True),
     }
     # library yardstick: one PyTorch call each way (never called by the
     # port); its backward computes dq, dk and dv together
@@ -646,7 +693,7 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
     sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         o4, (q4, k4, v4), do4, retain_graph=True), 20)
     library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
-                  "flash_bwd_dkdv": sdpa_bwd}
+                  "flash_bwd_dkdv": sdpa_bwd, "flash_bwd_fused": sdpa_bwd}
 
     # bounds from these inputs: each operand read once, each output written
     # once; the products count only the S(S+1)/2 (row, key) pairs the
@@ -658,7 +705,10 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
     sizes = {"flash_fwd": (2 * tile + 2 * kv + stat, 2 * 2 * mac),
              "flash_bwd_dq": (3 * tile + 2 * kv + 2 * stat, 3 * 2 * mac),
              # dk, dv are written per q head
-             "flash_bwd_dkdv": (4 * tile + 2 * kv + 2 * stat, 4 * 2 * mac)}
+             "flash_bwd_dkdv": (4 * tile + 2 * kv + 2 * stat, 4 * 2 * mac),
+             # the dkdv kernel's work, dq written once more, one product more
+             "flash_bwd_fused": (5 * tile + 2 * kv + 2 * stat,
+                                 5 * 2 * mac)}
     t = {}
     for name in kernels:
         t[name] = {"ms": cuda_time_ms(kernels[name], 20),
@@ -669,7 +719,7 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: training through fit
+# phases 8-10: training through fit and the fused step
 # ---------------------------------------------------------------------------
 
 def write_tokens(path: Path, vocab: int) -> str:
@@ -715,21 +765,27 @@ def compare_step(gen, cfg, data_path: str, batch: int, label: str) -> int:
     toks = toks.to(gen.device)
     loss_f, g_f = grads_fn(cfg, params, toks, attn_impl="flash")
     loss_d, g_d = grads_fn(cfg, params, toks, attn_impl="dense")
-    errs = leaf_errors(g_f, g_d)
-    worst = max(errs, key=errs.get)
-    dl = abs(float(loss_f) - float(loss_d))
-    log(f"[train] {label}: one step, flash kernels vs plain dense "
-        f"attention: loss {float(loss_f):.5f} vs {float(loss_d):.5f} (|d| "
-        f"{dl:.2e}, tolerance {STEP_LOSS_ATOL}); worst gradient leaf "
-        f"{worst} relative L2 {errs[worst]:.3e} (tolerance "
-        f"{STEP_LEAF_REL}); median leaf "
-        f"{statistics.median(errs.values()):.3e}")
-    if not (dl <= STEP_LOSS_ATOL and errs[worst] <= STEP_LEAF_REL):
-        fail(f"{label}: the flash train step departs from the dense one "
-             f"(loss |d| {dl}, leaf {worst} {errs[worst]})")
+    hold_step(label, "flash kernels vs plain dense attention", loss_f, g_f,
+              loss_d, g_d)
     del params, g_f, g_d
     torch.cuda.empty_cache()
     return n_params
+
+
+def hold_step(label: str, what: str, loss_a, g_a, loss_b, g_b) -> None:
+    """Fail unless two train steps' losses are within STEP_LOSS_ATOL and
+    every gradient leaf within STEP_LEAF_REL relative L2."""
+    errs = leaf_errors(g_a, g_b)
+    worst = max(errs, key=errs.get)
+    dl = abs(float(loss_a) - float(loss_b))
+    log(f"[train] {label}: one step, {what}: loss {float(loss_a):.5f} vs "
+        f"{float(loss_b):.5f} (|d| {dl:.2e}, tolerance {STEP_LOSS_ATOL}); "
+        f"worst gradient leaf {worst} relative L2 {errs[worst]:.3e} "
+        f"(tolerance {STEP_LEAF_REL}); median leaf "
+        f"{statistics.median(errs.values()):.3e}")
+    if not (dl <= STEP_LOSS_ATOL and errs[worst] <= STEP_LEAF_REL):
+        fail(f"{label}: {what}: the steps depart (loss |d| {dl}, leaf "
+             f"{worst} {errs[worst]})")
 
 
 def fit_phase(cfg, data_path: str, steps: int, batch: int, label: str,
@@ -819,16 +875,19 @@ def busy_us(spans) -> float:
 def kernel_kind(name: str) -> str:
     if "flash_" in name:
         return "flash kernels"
+    if "gemm_kernel" in name:
+        return "matmul kernels (csrc/matmul.cu)"
     if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmuls (cuBLAS)"
     return "other (elementwise, reductions, copies)"
 
 
-def profile_step(cfg, data_path: str, batch: int) -> None:
-    """One flagship train step (after two warm-up steps) under
-    torch.profiler: device time by kernel kind and the device's idle
-    share of the step (informational; the profiler's own overhead
-    lengthens the traced step)."""
+def profile_step(cfg, data_path: str, batch: int, label: str = "flagship",
+                 norm_impl: str = "dense") -> None:
+    """One train step (after two warm-up steps) under torch.profiler:
+    device time by kernel kind and the device's idle share of the step
+    (informational; the profiler's own overhead lengthens the traced
+    step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -840,7 +899,7 @@ def profile_step(cfg, data_path: str, batch: int) -> None:
     gen.manual_seed(SEED)
     params = init_params(cfg, gen)
     step, init_opt = make_train_step(cfg, default_optimizer(),
-                                     attn_impl="flash")
+                                     attn_impl="flash", norm_impl=norm_impl)
     state = init_opt(params)
     it = batches(TokenDataset(data_path), batch=batch, seq=cfg.max_seq)
     toks = [torch.from_numpy(next(it)).to("cuda") for _ in range(3)]
@@ -866,7 +925,7 @@ def profile_step(cfg, data_path: str, batch: int) -> None:
                                                    0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
-    log(f"[profile] flagship train step under torch.profiler: wall "
+    log(f"[profile] {label} train step under torch.profiler: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"(idle share {1 - busy / wall_us:.3f}), {len(kernels)} device "
         f"activities (informational)")
@@ -879,7 +938,118 @@ def profile_step(cfg, data_path: str, batch: int) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(gen, tmp: Path) -> dict:
+@contextlib.contextmanager
+def fused_backward(tune_path: Path):
+    """Point ``flash.TUNE_FILE`` at the table that selects the fused flash
+    backward for the duration."""
+    from tpu_dra_torch.workloads import flash as F
+    default = F.TUNE_FILE
+    F.TUNE_FILE = tune_path
+    try:
+        yield
+    finally:
+        F.TUNE_FILE = default
+
+
+def fused_compare_step(gen, cfg, data_path: str, batch: int,
+                       tune_path: Path) -> None:
+    """One flagship step with norm_impl="fused" and the fused flash
+    backward against the same step (params, [B, S + 1] batch) with the
+    plain rmsnorm -> matmul pair and the split backward."""
+    import torch
+
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    from tpu_dra_torch.workloads.train import grads_fn, init_params
+    params = init_params(cfg, gen)
+    toks = torch.from_numpy(next(batches(TokenDataset(data_path),
+                                         batch=batch, seq=cfg.max_seq)))
+    toks = toks.to(gen.device)
+    with fused_backward(tune_path):
+        loss_f, g_f = grads_fn(cfg, params, toks, attn_impl="flash",
+                               norm_impl="fused")
+    loss_s, g_s = grads_fn(cfg, params, toks, attn_impl="flash")
+    hold_step("flagship", "fused norm-matmul and fused flash backward vs "
+              "the plain pair and the split backward", loss_f, g_f, loss_s,
+              g_s)
+    del params, g_f, g_s
+    torch.cuda.empty_cache()
+
+
+def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
+                      batch: int, n_params: int, split_step_ms: float
+                      ) -> dict:
+    """``make_train_step(norm_impl="fused")`` with the fused flash backward
+    for ``steps`` steps on ``data.batches`` windows [batch, S + 1]; the
+    kernels' launch counts are zeroed just before and read just after.
+    Fails unless every loss is finite, the last is below the first, each
+    layer ran the norm-matmul kernel twice and the fused backward once a
+    step, and neither split backward kernel ran."""
+    import math
+
+    import torch
+
+    from tpu_dra_torch.workloads import flash as F
+    from tpu_dra_torch.workloads import matmul as M
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    from tpu_dra_torch.workloads.optim import default_optimizer
+    from tpu_dra_torch.workloads.train import init_params, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen)
+    step, init_opt = make_train_step(cfg, default_optimizer(),
+                                     attn_impl="flash", norm_impl="fused")
+    state = init_opt(params)
+    it = batches(TokenDataset(data_path), batch=batch, seq=cfg.max_seq)
+    counters = {"rmsnorm_matmul": M.fused_rmsnorm_matmul,
+                "flash_bwd_fused": F.flash_bwd_fused,
+                "flash_fwd": F.flash_attn_fwd, "flash_bwd_dq": F.flash_bwd_dq,
+                "flash_bwd_dkdv": F.flash_bwd_dkdv}
+    losses, stamps = [], []
+    with fused_backward(tune_path):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            toks = torch.from_numpy(next(it)).to("cuda")
+            params, state, loss = step(params, state, toks)
+            losses.append(float(loss))
+            stamps.append(time.perf_counter())
+        launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] fused path losses by step (full precision, to compare "
+        f"calls bit for bit): {', '.join(repr(x) for x in losses)}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        fail(f"fused path: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"fused path: loss did not fall: {losses}")
+    want = {"rmsnorm_matmul": 2 * cfg.n_layers * steps,
+            "flash_bwd_fused": cfg.n_layers * steps,
+            "flash_fwd": cfg.n_layers * steps, "flash_bwd_dq": 0,
+            "flash_bwd_dkdv": 0}
+    if launches != want:
+        fail(f"fused path: launches {launches}, expected {want}")
+    times = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    step_s = statistics.median(times[1:])
+    tok_step = batch * cfg.max_seq
+    log(f"[train] fused path (norm_impl=\"fused\", fused flash backward): "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; "
+        f"step time {1e3 * step_s:.1f} ms (median of steps 2-{steps}; first "
+        f"step {1e3 * times[0]:.1f} ms) against {split_step_ms:.1f} ms for "
+        f"the split path's fit step in this run; steady "
+        f"{tok_step / step_s:.0f} tokens/s; 6·N·tokens/time/989e12 = "
+        f"{6 * n_params * tok_step / step_s / BF16_FLOPS_PER_S:.3f}; peak "
+        f"memory {peak_gb:.1f} GB; launches {launches} (informational "
+        f"times)")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_ms": 1e3 * step_s,
+            "peak_gb": peak_gb}
+
+
+def train_phase(gen, tmp: Path) -> tuple:
     from tpu_dra_torch.workloads.train import ModelConfig
     cfg = ModelConfig(**TRAIN_MODEL)
     data_path = write_tokens(tmp / "tokens.bin", cfg.vocab)
@@ -890,10 +1060,154 @@ def train_phase(gen, tmp: Path) -> dict:
                     "flagship", n)
     dense_curve(cfg, data_path, run["losses"])
     profile_step(cfg, data_path, TRAIN_RUN["batch"])
+    tune_path = tmp / "flash_tune.json"
+    tune_path.write_text(json.dumps(FUSED_TUNE))
+    fused_compare_step(gen, cfg, data_path, TRAIN_RUN["batch"], tune_path)
+    fused = fused_train_phase(cfg, data_path, tune_path, TRAIN_RUN["steps"],
+                              TRAIN_RUN["batch"], n, run["step_ms"])
+    with fused_backward(tune_path):
+        profile_step(cfg, data_path, TRAIN_RUN["batch"], "fused-path",
+                     norm_impl="fused")
     gcfg = ModelConfig(**GQA_MODEL)
     n = compare_step(gen, gcfg, data_path, GQA_RUN["batch"], "GQA")
     fit_phase(gcfg, data_path, GQA_RUN["steps"], GQA_RUN["batch"], "GQA", n)
-    return run
+    return run, fused
+
+
+# ---------------------------------------------------------------------------
+# phase 7: matmul kernels vs plain versions, timing, the bench section
+# ---------------------------------------------------------------------------
+
+def matmul_inputs(gen, m: int, k: int, n: int, norm: bool):
+    """bf16 x ~ N(0, 1) and w; for the norm kernel rows of mixed scale, w
+    at the init scale k^-0.5 and a gain 1 + 0.1·N(0, 1)."""
+    import torch
+    dev = gen.device
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev)
+    if not norm:
+        return x.to(torch.bfloat16), w.to(torch.bfloat16)
+    scale = torch.rand((m, 1), generator=gen, device=dev) * 4 + 0.05
+    g = 1 + 0.1 * torch.randn((k,), generator=gen, device=dev)
+    return ((x * scale).to(torch.bfloat16), g,
+            (w * k ** -0.5).to(torch.bfloat16))
+
+
+def check_matmul(gen) -> dict:
+    """Each matmul kernel against its plain version at every case; returns
+    the max abs error at the path's shape (4096^3; the wqkv shape)."""
+    import torch
+
+    from tpu_dra_torch.workloads import matmul as M
+    path = {}
+    for name, cases in (("matmul", MATMUL_CASES),
+                        ("rmsnorm_matmul", RMSNORM_CASES)):
+        worst = [0.0, 0.0, 0.0]
+        for m, k, n in cases:
+            args = matmul_inputs(gen, m, k, n, name == "rmsnorm_matmul")
+            kernel, plain = ((M.matmul, M.matmul_ref) if name == "matmul"
+                             else (M.fused_rmsnorm_matmul,
+                                   M.fused_rmsnorm_matmul_ref))
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            res = hold(f"{name} [{m}, {k}] @ [{k}, {n}]", "out", got,
+                       plain(*args), M.ROW_TOL, M.ELEM_TOL)
+            log(f"[matmul] {name} [{m}, {k}] @ [{k}, {n}]: max abs err "
+                f"{res[0]:.4g} (elementwise {res[1]:.3f} of the "
+                f"tolerance), worst row {res[2]:.3g} -> ok")
+            path.setdefault(name, res[0])
+            worst = [max(a, b) for a, b in zip(worst, res)]
+            del args, got
+        log(f"[matmul] {name} over {len(cases)} cases: elementwise "
+            f"{worst[1]:.3f} of the tolerance, worst row {worst[2]:.3g}")
+    log(f"[matmul] tolerances: elementwise rtol = atol = {M.ELEM_TOL}; per "
+        f"row {M.ROW_TOL}")
+    return path
+
+
+def time_matmul(gen) -> dict:
+    """Kernel alone (its C entry, arguments prepared once), wrapper, plain
+    version and library yardstick of each matmul kernel at its path's
+    shapes: the bench's 4096^3 for matmul, the flagship's ln1 -> wqkv and
+    ln2 -> w1 for rmsnorm_matmul.  Bounds count each operand read once,
+    the output written once and 2 FLOP per multiply-add of the product
+    (the norm's ~3 FLOP per x element are left out)."""
+    import torch
+
+    from tpu_dra_torch.kernels.build import library
+    from tpu_dra_torch.workloads import matmul as M
+    from tpu_dra_torch.workloads.train import _rmsnorm
+    lib = library("matmul")
+    stream = torch.cuda.current_stream().cuda_stream
+    P = lambda t: t.data_ptr()      # noqa: E731
+
+    def checked(rc):
+        if rc:
+            fail(f"matmul kernel launch failed with CUDA error {rc}")
+    times = {}
+    x, y = matmul_inputs(gen, 4096, 4096, 4096, False)
+    out = torch.empty((4096, 4096), dtype=torch.bfloat16, device=x.device)
+    times["matmul 4096^3"] = {
+        "ms": cuda_time_ms(lambda: checked(lib.tpu_dra_matmul(
+            P(x), P(y), P(out), 4096, 4096, 4096, stream)), 50),
+        "wrapper_ms": cuda_time_ms(lambda: M.matmul(x, y), 50),
+        "plain_ms": cuda_time_ms(lambda: M.matmul_ref(x, y), 5, warmup=1),
+        "library_ms": cuda_time_ms(lambda: torch.matmul(x, y), 50),
+        "library": "torch.matmul, bf16",
+        **flash_bound(3 * 4096 * 4096 * 2, 2 * 4096 ** 3)}
+    del x, y, out
+    for label, (m, k, n) in (("rmsnorm_matmul ln1 -> wqkv",
+                              RMSNORM_CASES[0]),
+                             ("rmsnorm_matmul ln2 -> w1", RMSNORM_CASES[1])):
+        x, g, w = matmul_inputs(gen, m, k, n, True)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        r = torch.empty(m, dtype=torch.float32, device=x.device)
+        log(f"[time] {label}: the plain tiled matmul kernel alone at the "
+            f"same shape takes "
+            f"{cuda_time_ms(lambda: M.matmul(x, w), 30) * 1e3:.1f} us "
+            f"(informational: the norm's share is the difference)")
+        times[f"{label} [{m}, {k}] @ [{k}, {n}]"] = {
+            "ms": cuda_time_ms(lambda: checked(lib.tpu_dra_rmsnorm_matmul(
+                P(x), P(g), P(w), P(r), P(out), m, n, k, M.EPS, stream)),
+                30),
+            "wrapper_ms": cuda_time_ms(
+                lambda: M.fused_rmsnorm_matmul(x, g, w), 30),
+            "plain_ms": cuda_time_ms(
+                lambda: M.fused_rmsnorm_matmul_ref(x, g, w), 3, warmup=1),
+            # two calls: the train trunk's unfused pair
+            "library_ms": cuda_time_ms(
+                lambda: torch.matmul(_rmsnorm(x, g), w), 30),
+            "library": "two calls: train._rmsnorm, then torch.matmul",
+            **flash_bound(m * k * 2 + k * 4 + k * n * 2 + m * n * 2,
+                          2 * m * k * n)}
+        del x, g, w, out
+    return times
+
+
+def log_times(times: dict, card: str) -> None:
+    for label, t in times.items():
+        log(f"[time] {label}: kernel {t['ms'] * 1e3:.1f} us (through the "
+            f"Python wrapper {t['wrapper_ms'] * 1e3:.1f} us), plain version "
+            f"{t['plain_ms'] * 1e3:.1f} us, library yardstick "
+            f"{t['library_ms'] * 1e3:.1f} us ({t['library']}); bound "
+            f"{t['bound_ms'] * 1e3:.1f} us by {t['bound_by']} "
+            f"({t['bytes']} B at 3.35 TB/s, {t['flops']} FLOP at 989 TF/s), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it reached, on {card}")
+
+
+def bench_phase() -> dict:
+    """``tpu_dra_torch.bench.section_pallas_matmul()``, the matmul kernel's
+    path: its launch count is zeroed just before and read just after."""
+    from tpu_dra_torch.bench import section_pallas_matmul
+    from tpu_dra_torch.workloads.matmul import matmul
+    matmul.launches = 0
+    res = section_pallas_matmul()
+    launches = matmul.launches
+    log(f"[bench] section_pallas_matmul: {json.dumps(res)}; matmul kernel "
+        f"launches {launches}")
+    if launches < 200 or not res["pallas_matmul_tflops"] > 0:
+        fail(f"section_pallas_matmul: {res}, {launches} launches")
+    return {"launches": launches, **res}
 
 
 def log_flash_times(shape: str, times: dict, card: str) -> None:
@@ -964,11 +1278,22 @@ def main() -> int:
         flash_err = check_flash(gen)
     flash_t = time_flash(gen, B=16, H=16, Hkv=16)
     log_flash_times("flagship [256, 1024, 128]", flash_t, card)
+    split = flash_t["flash_bwd_dq"]["ms"] + flash_t["flash_bwd_dkdv"]["ms"]
+    log(f"[time] flash_bwd_fused at the flagship shape: "
+        f"{flash_t['flash_bwd_fused']['ms'] * 1e3:.1f} us against "
+        f"{split * 1e3:.1f} us for the split pair (flash_bwd_dq + "
+        f"flash_bwd_dkdv) in this run")
     log_flash_times("GQA run [64 over 16, 1024, 128]",
                     time_flash(gen, B=8, H=8, Hkv=2), card)
 
+    with torch.no_grad():
+        mm_err = check_matmul(gen)
+        mm_t = time_matmul(gen)
+    log_times(mm_t, card)
+    benched = bench_phase()
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
-        trained = train_phase(gen, Path(tmp))
+        trained, fused = train_phase(gen, Path(tmp))
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -993,6 +1318,28 @@ def main() -> int:
             "max_abs_err": flash_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    wqkv = next(k for k in mm_t if "wqkv" in k)
+    later = {  # name: (source, replaces, launches, max abs err, times)
+        "matmul": ("tpu_dra_torch/csrc/matmul.cu",
+                   "tpu_dra/workloads/pallas_kernels.py:57",
+                   benched["launches"], mm_err["matmul"],
+                   mm_t["matmul 4096^3"]),
+        "rmsnorm_matmul": ("tpu_dra_torch/csrc/matmul.cu",
+                           "tpu_dra/workloads/pallas_kernels.py:863",
+                           fused["launches"]["rmsnorm_matmul"],
+                           mm_err["rmsnorm_matmul"], mm_t[wqkv]),
+        "flash_bwd_fused": ("tpu_dra_torch/csrc/flash_bwd.cu",
+                            "tpu_dra/workloads/pallas_kernels.py:494",
+                            fused["launches"]["flash_bwd_fused"],
+                            flash_err["flash_bwd_fused"],
+                            flash_t["flash_bwd_fused"])}
+    for name, (source, replaces, launches, err, t) in later.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -187,3 +187,134 @@ def test_cpu_wrappers_take_the_plain_versions_without_launching():
         assert torch.equal(g, w)
     assert (tf.flash_attn_fwd.launches, tf.flash_bwd_dq.launches,
             tf.flash_bwd_dkdv.launches) == before
+
+
+# --------------------------------------------------------------------------
+# The fused backward (bwd_impl="fused") and its selection
+# --------------------------------------------------------------------------
+
+# (B, H, Hkv, S, D) of the reference's fused-backward tests
+# (tests/test_pallas.py): MHA, and GQA 4 q heads over 2 kv heads
+FUSED_SHAPES = {"mha": (1, 2, 2, 256, 64), "gqa4over2": (1, 4, 2, 256, 64)}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", sorted(FUSED_SHAPES))
+def test_fused_bwd_ref_matches_interpret_kernel(shape, causal):
+    """The plain fused backward with the reference's 64-key dQ partials
+    against ``jax.vjp`` of ``flash_attention(..., bq=64, bk=64,
+    bwd_impl="fused", interpret=True)``: both round dS, each partial and
+    the scaled sum at the same points, so two bf16 ulps hold."""
+    b, h, hkv, s, d = FUSED_SHAPES[shape]
+    q, k, v, do = case(b * h, b * hkv, s, d, seed=6)
+    q4, k4, v4, do4 = (x.reshape(b, -1, s, d) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: pk.flash_attention(
+        q, k, v, causal=causal, bq=64, bk=64, interpret=True,
+        bwd_impl="fused"), jx(q4), jx(k4), jx(v4))
+    want = [f32(g).reshape(-1, s, d) for g in vjp(jx(do4))]
+    out, l2 = tf.flash_attn_fwd_ref(th(q), th(k), th(v), causal)
+    got = tf.flash_attn_bwd_ref(th(q), th(k), th(v), out, l2, th(do),
+                                causal, bwd_impl="fused", bk=64)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        np.testing.assert_allclose(f32(g), w, err_msg=name, **ULP2)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_fused_front_door_matches_reference_at_one_kv_block(causal):
+    """The port's front door with ``bwd_impl="fused"`` (dQ partials of
+    KV_BLOCK = 1024 keys: one at S = 256) against the reference with
+    ``bk=256`` (its partials are then one block too); GQA 4 over 2."""
+    b, h, hkv, s, d = 1, 4, 2, 256, 64
+    q, k, v, do = case(b * h, b * hkv, s, d, seed=7)
+    q4, k4, v4, do4 = (x.reshape(b, -1, s, d) for x in (q, k, v, do))
+    out_j, vjp = jax.vjp(lambda q, k, v: pk.flash_attention(
+        q, k, v, causal=causal, bq=64, bk=256, interpret=True,
+        bwd_impl="fused"), jx(q4), jx(k4), jx(v4))
+    tq, tk, tv = (th(x).requires_grad_() for x in (q4, k4, v4))
+    out = tf.flash_attention(tq, tk, tv, causal=causal, bwd_impl="fused")
+    grads = torch.autograd.grad(out, (tq, tk, tv), th(do4))
+    np.testing.assert_allclose(f32(out), f32(out_j), **ULP2)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, vjp(jx(do4))):
+        np.testing.assert_allclose(f32(g), f32(w), err_msg=name, **ULP2)
+
+
+@pytest.fixture
+def tune_file(tmp_path, monkeypatch):
+    """A tune table at a fresh path, as tests/test_pallas.py points the
+    reference's at one."""
+    import json
+    path = tmp_path / "flash_tune.json"
+    path.write_text(json.dumps({"entries": {
+        "256x64": {"bq": 128, "bk": 128, "bwd_impl": "fused",
+                   "bwd_blocks": [128, 128, 128, 128]},
+        "128x64": {"bwd_impl": "split"}}}))
+    monkeypatch.setattr(tf, "TUNE_FILE", path)
+    return path
+
+
+def test_bwd_impl_resolves_through_the_tune_table(tune_file):
+    assert tf.resolve_bwd_impl(256, 64) == "fused"
+    assert tf.resolve_bwd_impl(128, 64) == "split"
+    # explicit arguments win; unknown shapes take the split default
+    assert tf.resolve_bwd_impl(256, 64, "split") == "split"
+    assert tf.resolve_bwd_impl(512, 64) == "split"
+    assert tf.resolve_bwd_impl(256, 128) == "split"
+
+
+def test_without_a_tune_file_every_shape_takes_split(tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setattr(tf, "TUNE_FILE", tmp_path / "absent.json")
+    assert tf.resolve_bwd_impl(1024, 128) == "split"
+    (tmp_path / "bad.json").write_text("{not json")
+    monkeypatch.setattr(tf, "TUNE_FILE", tmp_path / "bad.json")
+    assert tf.resolve_bwd_impl(1024, 128) == "split"
+
+
+def test_front_door_takes_the_tuned_backward(tune_file, monkeypatch):
+    """``flash_attention`` with ``bwd_impl=None`` runs the fused step where
+    the table says so, and the split pair where it does not."""
+    calls = []
+    real = tf.flash_bwd_fused_ref
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+    monkeypatch.setattr(tf, "flash_bwd_fused_ref", spy)
+    for s in (256, 128):                 # "fused", then "split"
+        q, k, v, do = case(2, 2, s, 64, seed=8)
+        tq, tk, tv = (th(x)[None].requires_grad_() for x in (q, k, v))
+        out = tf.flash_attention(tq, tk, tv)
+        torch.autograd.grad(out, (tq, tk, tv), th(do)[None])
+    assert calls == [(2, 256, 64)]
+
+
+def test_unknown_bwd_impl_raises():
+    q = th(case(1, 1, 16, 64)[0])[None]
+    with pytest.raises(ValueError, match="bwd_impl"):
+        tf.flash_attention(q, q, q, bwd_impl="Fused")
+    with pytest.raises(ValueError, match="bwd_impl"):
+        tf.resolve_bwd_impl(16, 64, "ring")
+    out, l2 = tf.flash_attn_fwd_ref(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="bwd_impl"):
+        tf.flash_attn_bwd(q[0], q[0], q[0], out, l2, q[0],
+                          bwd_impl="Fused")
+
+
+def test_cpu_fused_wrapper_takes_the_plain_version_without_launching():
+    q, k, v, do = (th(x) for x in case(4, 2, 80, 64, seed=9))
+    out, l2 = tf.flash_attn_fwd_ref(q, k, v)
+    qs = tf._prescale(q)
+    dd = (do.float() * out.float()).sum(-1, keepdim=True)
+    before = tf.flash_bwd_fused.launches
+    for g, w in zip(tf.flash_bwd_fused(qs, k, v, do, l2, dd, True),
+                    tf.flash_bwd_fused_ref(qs, k, v, do, l2, dd, True)):
+        assert torch.equal(g, w)
+    assert tf.flash_bwd_fused.launches == before
+    # dk/dv of the fused step equal the split pair's; dq differs only by
+    # the rounding of its one partial before the scale
+    split = tf.flash_attn_bwd_ref(q, k, v, out, l2, do)
+    fused = tf.flash_attn_bwd_ref(q, k, v, out, l2, do, bwd_impl="fused")
+    assert torch.equal(fused[1], split[1]) and torch.equal(fused[2],
+                                                          split[2])
+    np.testing.assert_allclose(f32(fused[0]), f32(split[0]), **ULP2)

@@ -253,3 +253,77 @@ def test_three_adamw_steps_match_make_optax_train_step(attn):
         assert tp2 is tp                     # updated in place
         assert abs(float(tl) - float(jl)) < 1e-2, (i, float(tl), float(jl))
     assert ts.count == 3
+
+
+# the reference's fused-norm train-step config (tests/test_pallas.py):
+# windows [2, 16], so m = 2·15 = 30 rows, admitted as its own block
+FUSED_CFG = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+                 max_seq=32)
+
+
+def spy_fused(monkeypatch):
+    """Record each call of the fused norm-matmul wrapper."""
+    from tpu_dra_torch.workloads import matmul as tm
+    calls = []
+    real = tm.fused_rmsnorm_matmul
+
+    def spy(*args, **kw):
+        calls.append(tuple(args[2].shape))
+        return real(*args, **kw)
+    monkeypatch.setattr(tm, "fused_rmsnorm_matmul", spy)
+    return calls
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_fused_norm_grads_match_reference(attn, monkeypatch):
+    """``grads_fn(norm_impl="fused")`` against the reference's on the same
+    weights and tokens (its Pallas kernel in interpret mode off the TPU):
+    loss within LOSS_ATOL, every leaf within LEAF_REL; each layer's
+    ln1→wqkv and ln2→w1 go through the fused kernel."""
+    jcfg, tcfg = cfg_pair(**FUSED_CFG)
+    params = jax_params(jcfg)
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 16)) \
+        .astype(np.int32)
+    want_loss, want = jt.grads_fn(jcfg, params, jnp.asarray(toks),
+                                  attn_impl=attn, norm_impl="fused")
+    calls = spy_fused(monkeypatch)
+    got_loss, got = tt.grads_fn(tcfg, to_torch(params),
+                                torch.from_numpy(toks), attn_impl=attn,
+                                norm_impl="fused")
+    assert calls == [(64, 192), (64, 128)] * jcfg.n_layers
+    assert abs(float(got_loss) - float(want_loss)) < LOSS_ATOL
+    want, got = flat(want), flat(got)
+    assert sorted(got) == sorted(want)
+    for leaf in want:
+        assert got[leaf].dtype == np.float32, leaf
+        rel = np.linalg.norm(got[leaf] - want[leaf]) / np.linalg.norm(
+            want[leaf])
+        assert rel < LEAF_REL, (leaf, rel)
+
+
+def test_fused_norm_sgd_step_matches_reference(monkeypatch):
+    """``sgd_train_step(norm_impl="fused")`` (the reference test's step)
+    against the reference's, and ``make_train_step`` threads
+    ``norm_impl`` through to the kernel."""
+    jcfg, tcfg = cfg_pair(**FUSED_CFG)
+    params = jax_params(jcfg)
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab, (2, 16)) \
+        .astype(np.int32)
+    want, want_loss = jt.sgd_train_step(jcfg, 1e-2, params,
+                                        jnp.asarray(toks),
+                                        norm_impl="fused")
+    calls = spy_fused(monkeypatch)
+    got, got_loss = tt.sgd_train_step(tcfg, 1e-2, to_torch(params),
+                                      torch.from_numpy(toks),
+                                      norm_impl="fused")
+    assert len(calls) == 2 * jcfg.n_layers
+    assert abs(float(got_loss) - float(want_loss)) < LOSS_ATOL
+    for leaf, w in flat(want).items():
+        np.testing.assert_allclose(flat(got)[leaf], w, rtol=1e-3,
+                                   atol=1e-3, err_msg=leaf)
+    calls.clear()
+    step, init = tt.make_train_step(tcfg, optim.AdamW(1e-3),
+                                    norm_impl="fused")
+    tp = to_torch(params)
+    step(tp, init(tp), torch.from_numpy(toks))
+    assert len(calls) == 2 * jcfg.n_layers

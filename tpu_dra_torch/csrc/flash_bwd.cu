@@ -1,9 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a): the split pair.
+// Flash-attention backward for Hopper (sm_90a): the split pair and the
+// single-pass (fused) kernel.
 //
-// Replaces two TPU kernels of tpu_dra/workloads/pallas_kernels.py, both
-// reached through _flash_attn_bwd (:543) with bwd_impl="split":
+// Replaces three TPU kernels of tpu_dra/workloads/pallas_kernels.py, all
+// reached through _flash_attn_bwd (:543):
 //   * _flash_bwd_dq_kernel (:367), called at :661  -> flash_bwd_dq_kernel
-//   * _flash_bwd_dkdv_kernel (:453), called at :682 -> flash_bwd_dkdv_kernel
+//   * _flash_bwd_dkdv_kernel (:453), called at :682 -> flash_bwd_kv_kernel
+//     with FUSED = false                      (both bwd_impl="split")
+//   * _flash_bwd_fused_kernel (:494), called at :633 -> flash_bwd_kv_kernel
+//     with FUSED = true                       (bwd_impl="fused")
 // Each recomputes its score tiles from the saved base-2 logsumexp instead
 // of keeping an S x S probability matrix.
 //
@@ -21,8 +25,21 @@
 //   dk = (dS^T . qs) * (1 / log2 e)     per q head-row, on the fp32 sum
 // For GQA (g > 1) dk/dv come out per q head-row [BH, Sk, D], rounded to
 // bf16, and the caller sums each group in fp32, as the reference does.
-// No block writes what another block writes: dq is summed in registers
-// over the block's own k tiles, dk/dv over its own q tiles; no atomics.
+// In the split pair no block writes what another block writes: dq is summed
+// in registers over the block's own k tiles, dk/dv over its own q tiles.
+//
+// The fused kernel is the dK/dV kernel plus dq from the same recompute:
+//   dqacc[j] += bf16(dS) . k    fp32 [n_j, BH, S, D], zeroed by the caller,
+// where j = key / kv_block is the reference's k block (its dq partials are
+// [BH, n_j, S, D], one per block of bk_kv = 1024 keys at the training
+// path's shapes).  A second kernel (finish_dq_kernel, launched from the same
+// C entry) then forms dq = bf16(sum_j f32(bf16(dqacc[j])) * scale), the
+// reference's rounding points (:450, :658), in one pass.  The TPU kernel
+// writes each (j, i) step's partial to its own slot because its grid runs j
+// outside i; here the blocks of one j run in parallel, so they add their
+// [32, D] contributions with fp32 atomics.  The order of those additions
+// varies from run to run, so the fused path is not bit-reproducible (the
+// split pair is).
 //
 // What bounds them at the training path's shapes ([256, 1024, 128] causal):
 //   dq:   qs, k, v, dout, dq (+ l2, dd)  ~337 MB, 101 us at 3.35 TB/s;
@@ -45,8 +62,13 @@
 //     starts at the q tile that holds its first key); both accumulators
 //     stay in registers.
 //   * all products are mma.sync m16n8k16 bf16 with fp32 accumulation.
-// Left for later: the single-pass kernel that shares one recompute between
-// dq and dk/dv (TPU row #5), wgmma/TMA, ldmatrix fragment loads.
+// Fused at the same shape: dk, dv and dq from one recompute, five
+// products, 172 GFLOP, 174 us at 989 TF/s; ~470 MB (dq written once in
+// bf16), 140 us: operations.  Per 32-row q tile the block stages bf16(dS)
+// in shared memory as [query][key] and each warp multiplies it by the
+// resident k tile for D / 4 of dq's columns, then adds the [32, D / 4]
+// result into dqacc with float2 atomics.
+// Left for later: wgmma/TMA, ldmatrix fragment loads.
 //
 // Rounding points, pinned here (no output check sees all of them): qs is
 // rounded by the caller; bf16(P) feeds dv while dS uses the fp32 P; dS is
@@ -70,9 +92,12 @@ constexpr int dq_smem_bytes() {
   return (2 * kBQ + 2 * kBK) * Tile<D>::kStride * 2;
 }
 
-template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (2 * kBK + 2 * kBQ2) * Tile<D>::kStride * 2 + 2 * kBQ2 * 4;
+constexpr int kDSS = kBK + 8;  // fused: smem row stride of the dS tile
+
+template <int D, bool FUSED>
+constexpr int kv_smem_bytes() {
+  return (2 * kBK + 2 * kBQ2) * Tile<D>::kStride * 2 + 2 * kBQ2 * 4 +
+         (FUSED ? kBQ2 * kDSS * 2 : 0);
 }
 
 template <int D, bool CAUSAL>
@@ -187,17 +212,18 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qs,
   }
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ l2,
-                      const float* __restrict__ dd,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int Sk,
-                      int group) {
+flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qs,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ l2,
+                    const float* __restrict__ dd,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv,
+                    float* __restrict__ dqacc, int S, int Sk, int group,
+                    int kv_block) {
   using T = Tile<D>;
   constexpr int kDK = D / 16;
   constexpr int kDT = D / 8;
@@ -209,6 +235,7 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
   uint16_t* sO = sQ + kBQ2 * T::kStride;     // dout tile
   float* sL2 = reinterpret_cast<float*>(sO + kBQ2 * T::kStride);
   float* sDD = sL2 + kBQ2;
+  uint16_t* sDS = reinterpret_cast<uint16_t*>(sDD + kBQ2);  // fused: [q][key]
 
   const int k0 = blockIdx.x * kBK;
   const int bh = blockIdx.y;
@@ -217,6 +244,10 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
   const int key_a = k0 + warp * 16 + (lane >> 2);    // keys g and g + 8
   const int col_t = 2 * (lane & 3);
   const size_t qoff = static_cast<size_t>(bh) * S;
+  // fused: this block's slice of dqacc, the reference's k block k0 / kv_block
+  float* dqb = FUSED ? dqacc + (static_cast<size_t>(k0 / kv_block) *
+                                    gridDim.y + bh) * S * D
+                     : nullptr;
 
   load_tile<D, false>(sK, k + static_cast<size_t>(kvh) * Sk * D, k0, Sk, kBK);
   load_tile<D, false>(sV, v + static_cast<size_t>(kvh) * Sk * D, k0, Sk, kBK);
@@ -257,7 +288,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
       for (int e = 0; e < 4; ++e) {
         const int qi = nt * 8 + col_t + (e & 1);      // query within tile
         const int key = key_a + 8 * (e >> 1);
-        const bool keep = q0 + qi < S && (!CAUSAL || q0 + qi >= key);
+        const bool keep = q0 + qi < S && (!CAUSAL || q0 + qi >= key) &&
+                          (!FUSED || key < Sk);
         p[nt][e] = keep ? exp2f(p[nt][e] - sL2[qi]) : 0.f;
       }
     }
@@ -299,6 +331,22 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
     // dK += bf16(dS^T) . qs
     uint32_t da[kBQ2 / 16][4];
     c_to_a<kBQ2 / 16>(da, ds);
+    if constexpr (FUSED) {
+      // bf16(dS) into shared memory as [query][key]: register kk of da
+      // holds (key g, queries 16kk + 2t, +1), (key g + 8, same queries),
+      // (key g, queries + 8), (key g + 8, queries + 8)
+      const int key_l = warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int kk = 0; kk < kBQ2 / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qrow = kk * 16 + col_t + 8 * (e >> 1);
+          const int key = key_l + 8 * (e & 1);
+          sDS[qrow * kDSS + key] = static_cast<uint16_t>(da[kk][e] & 0xffffu);
+          sDS[(qrow + 1) * kDSS + key] = static_cast<uint16_t>(da[kk][e] >> 16);
+        }
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < kBQ2 / 16; ++kk) {
 #pragma unroll
@@ -306,6 +354,42 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
         uint32_t b0, b1;
         load_b_kn(b0, b1, sQ, T::kStride, kk * 16, dt * 8, lane);
         mma(dka[dt], da[kk], b0, b1);
+      }
+    }
+
+    if constexpr (FUSED) {
+      // dqacc[q0 .. q0 + 32) += bf16(dS) . k over this block's 64 keys; warp
+      // w takes dq columns [w * D / 4, (w + 1) * D / 4)
+      constexpr int kQT = D / 32;      // 8-wide dq column tiles per warp
+      const int c0 = warp * (D / 4);
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < kBQ2 / 16; ++mt) {
+        float acc[kQT][4];
+#pragma unroll
+        for (int nt = 0; nt < kQT; ++nt)
+          acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          uint32_t a[4];
+          load_a(a, sDS, kDSS, mt * 16, kk * 16, lane);
+#pragma unroll
+          for (int nt = 0; nt < kQT; ++nt) {
+            uint32_t b0, b1;
+            load_b_kn(b0, b1, sK, T::kStride, kk * 16, c0 + nt * 8, lane);
+            mma(acc[nt], a, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + mt * 16 + (lane >> 2) + 8 * r;
+          if (row >= S) continue;
+          float* dst = dqb + static_cast<size_t>(row) * D + c0 + col_t;
+#pragma unroll
+          for (int nt = 0; nt < kQT; ++nt)
+            atomicAdd(reinterpret_cast<float2*>(dst + nt * 8),
+                      make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]));
+        }
       }
     }
   }
@@ -343,13 +427,13 @@ cudaError_t launch_dq(const void* qs, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D, bool CAUSAL>
-cudaError_t launch_dkdv(const void* qs, const void* k, const void* v,
-                        const void* dout, const void* l2, const void* dd,
-                        void* dk, void* dv, int BH, int S, int Sk, int group,
-                        cudaStream_t stream) {
-  auto kernel = flash_bwd_dkdv_kernel<D, CAUSAL>;
-  constexpr int bytes = dkdv_smem_bytes<D>();
+template <int D, bool CAUSAL, bool FUSED>
+cudaError_t launch_kv(const void* qs, const void* k, const void* v,
+                      const void* dout, const void* l2, const void* dd,
+                      void* dk, void* dv, void* dqacc, int BH, int S, int Sk,
+                      int group, int kv_block, cudaStream_t stream) {
+  auto kernel = flash_bwd_kv_kernel<D, CAUSAL, FUSED>;
+  constexpr int bytes = kv_smem_bytes<D, FUSED>();
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sk + kBK - 1) / kBK, BH);
@@ -357,9 +441,32 @@ cudaError_t launch_dkdv(const void* qs, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(qs), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(l2), static_cast<const float*>(dd),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Sk,
-      group);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<float*>(dqacc), S, Sk, group, kv_block);
   return cudaGetLastError();
+}
+
+// dq = bf16(sum_j f32(bf16(dqacc[j])) * scale) over n = BH * S * D
+// elements, four per thread (n is a multiple of 64)
+__global__ void __launch_bounds__(256)
+finish_dq_kernel(const float* __restrict__ dqacc,
+                 __nv_bfloat16* __restrict__ dq, size_t n, int n_j,
+                 float scale) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x) * 4;
+  if (i >= n) return;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < n_j; ++j) {
+    const float4 a = *reinterpret_cast<const float4*>(dqacc + j * n + i);
+    s[0] += __bfloat162float(__float2bfloat16_rn(a.x));
+    s[1] += __bfloat162float(__float2bfloat16_rn(a.y));
+    s[2] += __bfloat162float(__float2bfloat16_rn(a.z));
+    s[3] += __bfloat162float(__float2bfloat16_rn(a.w));
+  }
+  uint2 out;
+  out.x = pack_bf16(s[0] * scale, s[1] * scale);
+  out.y = pack_bf16(s[2] * scale, s[3] * scale);
+  *reinterpret_cast<uint2*>(dq + i) = out;
 }
 
 bool bad_shape(int BH, int BHkv, int S, int Sk, int causal) {
@@ -404,14 +511,46 @@ extern "C" int tpu_dra_flash_bwd_dkdv(const void* qs, const void* k,
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch_dkdv<64, true>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st)
-                 : launch_dkdv<64, false>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st);
+    err = causal ? launch_kv<64, true, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st)
+                 : launch_kv<64, false, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st);
   else if (D == 128)
-    err = causal ? launch_dkdv<128, true>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st)
-                 : launch_dkdv<128, false>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st);
+    err = causal ? launch_kv<128, true, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st)
+                 : launch_kv<128, false, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The fused kernel: dk, dv as tpu_dra_flash_bwd_dkdv, and dq's unscaled fp32
+// sums added into dqacc [ceil(Sk / kv_block), BH, S, D] (scratch zeroed by
+// the caller), then dq [BH, S, D] bf16 from them with `scale` = D^-0.5;
+// kv_block is a positive multiple of 64.
+extern "C" int tpu_dra_flash_bwd_fused(const void* qs, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* l2, const void* dd,
+                                       void* dk, void* dv, void* dqacc,
+                                       void* dq, int BH, int BHkv, int S,
+                                       int Sk, int D, int causal, int kv_block,
+                                       float scale, void* stream) {
+  if (bad_shape(BH, BHkv, S, Sk, causal) || kv_block <= 0 || kv_block % kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int g = BH / BHkv;
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 64)
+    err = causal ? launch_kv<64, true, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st)
+                 : launch_kv<64, false, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st);
+  else if (D == 128)
+    err = causal ? launch_kv<128, true, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st)
+                 : launch_kv<128, false, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t n = static_cast<size_t>(BH) * S * D;
+  finish_dq_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dqacc), static_cast<__nv_bfloat16*>(dq), n,
+      (Sk + kv_block - 1) / kv_block, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* tpu_dra_cuda_error_string(int code) {

@@ -58,6 +58,23 @@ SIGNATURES = {
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,   # qs k v dout l2 dd dk dv
                  _I, _I, _I, _I, _I, _I,           # BH BHkv S Sk D causal
                  _P]),                             # stream
+        "tpu_dra_flash_bwd_fused": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P,   # qs k v dout l2 dd dk dv
+                 _P, _P,                           # dqacc dq
+                 _I, _I, _I, _I, _I, _I,           # BH BHkv S Sk D causal
+                 _I,                               # kv_block
+                 _F, _P]),                         # scale stream
+        "tpu_dra_cuda_error_string": _ERR,
+    },
+    "matmul": {
+        "tpu_dra_matmul": (
+            _I, [_P, _P, _P,                       # x w out
+                 _I, _I, _I,                       # M N K
+                 _P]),                             # stream
+        "tpu_dra_rmsnorm_matmul": (
+            _I, [_P, _P, _P, _P, _P,               # x gamma w r out
+                 _I, _I, _I, _F,                   # M N K eps
+                 _P]),                             # stream
         "tpu_dra_cuda_error_string": _ERR,
     },
 }
@@ -144,3 +161,19 @@ def build_all(names=None) -> dict[str, Built]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built on first use."""
     return build_all([name])[name].lib
+
+
+def require_cuda(t, what: str) -> None:
+    """Raise unless tensor ``t`` lies on a CUDA device (a kernel wrapper
+    takes the CPU or the card, nothing else)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, got {t.device}")
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise with CUDA's message unless a C entry point of ``lib``
+    returned 0 (its launch was enqueued)."""
+    if rc != 0:
+        msg = lib.tpu_dra_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")

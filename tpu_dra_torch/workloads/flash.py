@@ -7,12 +7,15 @@ What maps to what:
   (315-364) with its kernels ``_flash_attn_kernel`` (151-200) and, for
   GQA, ``_flash_attn_fwd_gqa`` / ``_flash_attn_gqa_kernel`` (221-312);
 - ``flash_attn_bwd_ref`` / ``flash_attn_bwd`` ↔ ``_flash_attn_bwd``
-  (543-703) with ``bwd_impl="split"``: the dQ kernel
-  ``_flash_bwd_dq_kernel`` (367-417), the dK/dV kernel
-  ``_flash_bwd_dkdv_kernel`` (453-491) and the GQA group sum
-  ``_group_sum_kv`` (706-714);
+  (543-703): with ``bwd_impl="split"`` the dQ kernel
+  ``_flash_bwd_dq_kernel`` (367-417) and the dK/dV kernel
+  ``_flash_bwd_dkdv_kernel`` (453-491); with ``bwd_impl="fused"`` the
+  single-pass kernel ``_flash_bwd_fused_kernel`` (494-540) and the sum of
+  its dQ partials (658); either way the GQA group sum ``_group_sum_kv``
+  (706-714);
 - ``FlashAttention`` ↔ the ``custom_vjp`` ``_flash_attn`` (730-752);
-- ``flash_attention`` ↔ the front door ``flash_attention`` (821) and
+- ``flash_attention`` ↔ the front door ``flash_attention`` (821),
+  ``_resolve_flash_config`` (34-54) for ``bwd_impl`` and
   ``_validate_and_fold`` (782-796).
 
 Layouts are the reference's: ``[BH, S, D]`` bf16 q against
@@ -22,9 +25,11 @@ Layouts are the reference's: ``[BH, S, D]`` bf16 q against
 CPU tensors take the plain versions.  CUDA tensors launch the
 hand-written kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) or
 raise; each launch adds one to the launching wrapper's ``launches``.
-The port reads no ``flash_tune.json``: block sizes are the kernels' own,
-and the kernels mask a ragged sequence tail themselves, so the TPU's
-tile padding in ``train._flash_attention_fn`` is not needed.
+Block sizes are the kernels' own, and the kernels mask a ragged sequence
+tail themselves, so the TPU's tile padding in
+``train._flash_attention_fn`` is not needed.  Of the reference's tune
+table (``bench_cache/flash_tune.json``) the port reads only ``bwd_impl``,
+from :data:`TUNE_FILE`: the one way training reaches the fused backward.
 
 Rounding points of the reference, kept by the plain versions and the
 kernels alike: q is pre-scaled by ``D^-0.5·log2e`` (the scalar rounded to
@@ -39,8 +44,13 @@ and then group-summed in fp32.
 
 from __future__ import annotations
 
+import functools
+import json
+from pathlib import Path
+
 import torch
 
+from tpu_dra_torch.kernels.build import check_launch, library, require_cuda
 from tpu_dra_torch.workloads.train import weak_scalar
 
 _LOG2E = 1.4426950408889634
@@ -58,6 +68,44 @@ HEAD_DIMS = (64, 128)
 ELEM_TOL = 2 ** -6
 ROW_TOL = {"out": 0.01, "dq": 0.003, "dk": 0.003, "dv": 0.003}
 L2_ATOL = 1e-4
+
+BWD_IMPLS = ("split", "fused")
+# Keys per dQ partial of the fused backward: the reference's bk_kv =
+# _cap_block(Sk, 1024), with S padded to a multiple of 1024 by
+# train._flash_attention_fn from S = 1024 up (and one block below), so in
+# training its partials are 1024-key blocks, the last one ragged here.
+KV_BLOCK = 1024
+# The counterpart of bench_cache/flash_tune.json, read for "bwd_impl" only
+# ({"entries": {"<S>x<D>": {"bwd_impl": "fused"}}}); not committed, and
+# where it is absent every shape takes the split backward.
+TUNE_FILE = Path(__file__).resolve().parent.parent / "flash_tune.json"
+
+
+def _tuned_entries() -> dict:
+    """The entries of :data:`TUNE_FILE` ({} where the file is absent or
+    unreadable, as the reference's loader does)."""
+    try:
+        with open(TUNE_FILE, encoding="utf-8") as f:
+            return json.load(f).get("entries", {})
+    except (OSError, ValueError):
+        return {}
+
+
+def _check_bwd_impl(bwd_impl) -> None:
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl must be 'split' or 'fused', got "
+                         f"{bwd_impl!r}")
+
+
+def resolve_bwd_impl(s: int, d: int, bwd_impl=None) -> str:
+    """``bwd_impl`` for an ``[.., S, D]`` attention: an explicit value
+    wins; ``None`` takes the tune table's entry ``"{S}x{D}"``, else
+    ``"split"``.  Raises ``ValueError`` on any other name."""
+    if bwd_impl is None:
+        bwd_impl = _tuned_entries().get(f"{s}x{d}", {}).get("bwd_impl",
+                                                             "split")
+    _check_bwd_impl(bwd_impl)
+    return bwd_impl
 
 
 def row_rel_err(got, want, atol: float = ELEM_TOL):
@@ -166,26 +214,68 @@ def flash_bwd_dkdv_ref(qs, k, v, dout, l2, dd, causal: bool = True):
             dv.to(v.dtype).reshape(bh, sk, d))
 
 
-def _split_bwd(q, k, v, out, l2, dout, causal: bool, dq_fn, dkdv_fn):
-    """``_flash_attn_bwd`` with ``bwd_impl="split"``: ``qs`` and ``dd =
-    rowsum(dO∘O)`` once, then the dQ and dK/dV computations, then the
-    GQA group sum of the per-q-head dk/dv."""
+def flash_bwd_fused_ref(qs, k, v, dout, l2, dd, causal: bool = True,
+                        bk: int = KV_BLOCK):
+    """Plain version of the fused kernel: ``(dq [BH, S, D], dk, dv [BH,
+    Sk, D])`` bf16, dk/dv per q head as the dK/dV kernel gives them.  dQ
+    follows the reference's partials: for each block of ``bk`` keys,
+    ``bf16(dS·K)`` summed in fp32; then the partials summed in fp32,
+    times ``D^-0.5``, rounded to bf16 (:func:`_finish_dq`)."""
+    bh, s, d, bhkv, sk, g = _shapes(qs, k, v, causal)
+    p = _bwd_probs(qs, k, l2, causal)
+    do = dout.float().reshape(bhkv, g, s, d)
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ do
+    ds = _bwd_ds(p, v, dout, dd)
+    dk = (ds.transpose(-1, -2) @ qs.float().reshape(bhkv, g, s, d)) \
+        * (1.0 / _LOG2E)
+    kf = k.float()[:, None]
+    parts = torch.stack([
+        (ds[..., j:j + bk] @ kf[:, :, j:j + bk]).to(torch.bfloat16).float()
+        for j in range(0, sk, bk)])
+    return (_finish_dq(parts, d).reshape(bh, s, d),
+            dk.to(k.dtype).reshape(bh, sk, d),
+            dv.to(v.dtype).reshape(bh, sk, d))
+
+
+def _finish_dq(parts, d: int):
+    """dQ from its per-k-block partials ``[n_j, ...]`` (bf16 values in
+    fp32 storage): ``bf16(Σ_j parts · D^-0.5)``, the sum in fp32
+    (``_flash_attn_bwd`` :658)."""
+    return (parts.sum(dim=0) * d ** -0.5).to(torch.bfloat16)
+
+
+def _split(dq_fn, dkdv_fn):
+    """The split pair as one ``(qs, k, v, dout, l2, dd, causal) -> (dq,
+    dk, dv)`` step."""
+    def grads(qs, k, v, dout, l2, dd, causal):
+        return (dq_fn(qs, k, v, dout, l2, dd, causal),
+                *dkdv_fn(qs, k, v, dout, l2, dd, causal))
+    return grads
+
+
+def _bwd(q, k, v, out, l2, dout, causal: bool, grads):
+    """``_flash_attn_bwd``: ``qs`` and ``dd = rowsum(dO∘O)`` once, then
+    ``grads`` (the split pair or the fused kernel), then the GQA group sum
+    of the per-q-head dk/dv."""
     bh, s, d, bhkv, sk, g = _shapes(q, k, v, causal)
     qs = _prescale(q).contiguous()
     dd = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
-    dq = dq_fn(qs, k, v, dout, l2, dd, causal)
-    dk, dv = dkdv_fn(qs, k, v, dout, l2, dd, causal)
+    dq, dk, dv = grads(qs, k, v, dout, l2, dd, causal)
     if g > 1:
         dk = _group_sum(dk.reshape(bhkv, g, sk, d))
         dv = _group_sum(dv.reshape(bhkv, g, sk, d))
     return dq, dk, dv
 
 
-def flash_attn_bwd_ref(q, k, v, out, l2, dout, causal: bool = True):
-    """Plain version of the split backward: ``(dq, dk, dv)`` bf16 with
-    dk/dv at the kv heads' resolution."""
-    return _split_bwd(q, k, v, out, l2, dout, causal, flash_bwd_dq_ref,
-                      flash_bwd_dkdv_ref)
+def flash_attn_bwd_ref(q, k, v, out, l2, dout, causal: bool = True,
+                       bwd_impl: str = "split", bk: int = KV_BLOCK):
+    """Plain version of the backward: ``(dq, dk, dv)`` bf16 with dk/dv at
+    the kv heads' resolution; ``bk`` is the fused path's dQ partition."""
+    _check_bwd_impl(bwd_impl)
+    grads = (functools.partial(flash_bwd_fused_ref, bk=bk)
+             if bwd_impl == "fused"
+             else _split(flash_bwd_dq_ref, flash_bwd_dkdv_ref))
+    return _bwd(q, k, v, out, l2, dout, causal, grads)
 
 
 def _group_sum(t):
@@ -222,18 +312,6 @@ def _check_bf16(*tensors):
                              f"{t.dtype}")
 
 
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        msg = lib.tpu_dra_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
-
-
-def _on_cuda(t, what: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda, got {t.device}")
-
-
 def flash_attn_fwd(q, k, v, causal: bool = True):
     """Forward: ``(out [BH, S, D] bf16, l2 [BH, S, 1] fp32)``.
 
@@ -243,11 +321,10 @@ def flash_attn_fwd(q, k, v, causal: bool = True):
     ``flash_attn_fwd.launches``."""
     if q.device.type == "cpu":
         return flash_attn_fwd_ref(q, k, v, causal)
-    _on_cuda(q, "flash_attn_fwd")
+    require_cuda(q, "flash_attn_fwd")
     bh, s, d, bhkv, sk, _ = _shapes(q, k, v, causal)
     _check_bf16(q, k, v)
     _check_kernel_args(q, k, v, d=d)
-    from tpu_dra_torch.kernels.build import library
     lib = library("flash_fwd")
     out = torch.empty_like(q)
     l2 = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
@@ -256,7 +333,7 @@ def flash_attn_fwd(q, k, v, causal: bool = True):
         l2.data_ptr(), bh, bhkv, s, sk, d, int(causal),
         weak_scalar(d ** -0.5 * _LOG2E, q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, rc, "flash_fwd")
+    check_launch(lib, rc, "flash_fwd")
     flash_attn_fwd.launches += 1
     return out, l2
 
@@ -271,10 +348,9 @@ def flash_bwd_dq(qs, k, v, dout, l2, dd, causal: bool):
     adds one to ``flash_bwd_dq.launches``."""
     if qs.device.type == "cpu":
         return flash_bwd_dq_ref(qs, k, v, dout, l2, dd, causal)
-    _on_cuda(qs, "flash_bwd_dq")
+    require_cuda(qs, "flash_bwd_dq")
     bh, s, d, bhkv, sk, _ = _shapes(qs, k, v, causal)
     _check_bwd_args(qs, k, v, dout, l2, dd, bh, s, d)
-    from tpu_dra_torch.kernels.build import library
     lib = library("flash_bwd")
     dq = torch.empty_like(qs)
     rc = lib.tpu_dra_flash_bwd_dq(
@@ -282,7 +358,7 @@ def flash_bwd_dq(qs, k, v, dout, l2, dd, causal: bool):
         l2.data_ptr(), dd.data_ptr(), dq.data_ptr(), bh, bhkv, s, sk, d,
         int(causal), d ** -0.5,
         torch.cuda.current_stream(qs.device).cuda_stream)
-    _raise_on(lib, rc, "flash_bwd_dq")
+    check_launch(lib, rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
 
@@ -298,10 +374,9 @@ def flash_bwd_dkdv(qs, k, v, dout, l2, dd, causal: bool):
     ``flash_bwd_dkdv.launches``."""
     if qs.device.type == "cpu":
         return flash_bwd_dkdv_ref(qs, k, v, dout, l2, dd, causal)
-    _on_cuda(qs, "flash_bwd_dkdv")
+    require_cuda(qs, "flash_bwd_dkdv")
     bh, s, d, bhkv, sk, _ = _shapes(qs, k, v, causal)
     _check_bwd_args(qs, k, v, dout, l2, dd, bh, s, d)
-    from tpu_dra_torch.kernels.build import library
     lib = library("flash_bwd")
     dk = torch.empty((bh, sk, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
@@ -310,7 +385,7 @@ def flash_bwd_dkdv(qs, k, v, dout, l2, dd, causal: bool):
         l2.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
         bhkv, s, sk, d, int(causal),
         torch.cuda.current_stream(qs.device).cuda_stream)
-    _raise_on(lib, rc, "flash_bwd_dkdv")
+    check_launch(lib, rc, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
     return dk, dv
 
@@ -332,34 +407,72 @@ def _check_bwd_args(qs, k, v, dout, l2, dd, bh: int, s: int, d: int):
     _check_kernel_args(qs, k, v, dout, l2, dd, d=d)
 
 
-def flash_attn_bwd(q, k, v, out, l2, dout, causal: bool = True):
-    """Split backward: ``(dq, dk, dv)`` bf16, dk/dv at the kv heads'
-    resolution.  The dQ and dK/dV steps go through their wrappers
-    (kernels for CUDA tensors, plain versions for CPU tensors); ``qs``,
-    ``dd = rowsum(dO∘O)`` and the GQA group sum are plain PyTorch, as
-    they are plain XLA in the reference."""
-    return _split_bwd(q, k, v, out, l2, dout, causal, flash_bwd_dq,
-                      flash_bwd_dkdv)
+def flash_bwd_fused(qs, k, v, dout, l2, dd, causal: bool):
+    """Fused backward step: ``(dq, dk, dv)`` bf16 with dk/dv per q head
+    (the caller group-sums them for GQA).  CPU tensors take
+    :func:`flash_bwd_fused_ref`; CUDA tensors launch the fused kernel of
+    ``csrc/flash_bwd.cu`` (row #5) or raise, and each launch adds one to
+    ``flash_bwd_fused.launches``.  The kernel adds dQ's unscaled fp32 sums
+    into one zeroed buffer per block of :data:`KV_BLOCK` keys, and a second
+    pass forms dq from them as :func:`_finish_dq` does."""
+    if qs.device.type == "cpu":
+        return flash_bwd_fused_ref(qs, k, v, dout, l2, dd, causal)
+    require_cuda(qs, "flash_bwd_fused")
+    bh, s, d, bhkv, sk, _ = _shapes(qs, k, v, causal)
+    _check_bwd_args(qs, k, v, dout, l2, dd, bh, s, d)
+    bk = KV_BLOCK
+    lib = library("flash_bwd")
+    dq = torch.empty_like(qs)
+    dk = torch.empty((bh, sk, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    dqacc = torch.zeros((-(-sk // bk), bh, s, d), dtype=torch.float32,
+                        device=qs.device)
+    rc = lib.tpu_dra_flash_bwd_fused(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        l2.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dqacc.data_ptr(), dq.data_ptr(), bh, bhkv, s, sk, d, int(causal), bk,
+        d ** -0.5, torch.cuda.current_stream(qs.device).cuda_stream)
+    check_launch(lib, rc, "flash_bwd_fused")
+    flash_bwd_fused.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_fused.launches = 0
+
+
+def flash_attn_bwd(q, k, v, out, l2, dout, causal: bool = True,
+                   bwd_impl: str = "split"):
+    """The flash backward: ``(dq, dk, dv)`` bf16, dk/dv at the kv heads'
+    resolution, through the split pair (:func:`flash_bwd_dq`,
+    :func:`flash_bwd_dkdv`) or the fused step (:func:`flash_bwd_fused`):
+    kernels for CUDA tensors, plain versions for CPU tensors.  ``qs``,
+    ``dd = rowsum(dO∘O)``, dQ's partial sum and the GQA group sum are
+    plain PyTorch, as they are plain XLA in the reference."""
+    _check_bwd_impl(bwd_impl)
+    grads = (flash_bwd_fused if bwd_impl == "fused"
+             else _split(flash_bwd_dq, flash_bwd_dkdv))
+    return _bwd(q, k, v, out, l2, dout, causal, grads)
 
 
 class FlashAttention(torch.autograd.Function):
-    """``[BH, S, D]`` flash attention with the split flash backward; the
-    counterpart of the reference's ``_flash_attn`` custom VJP.  Forward
-    saves ``(q, k, v, out, l2)``."""
+    """``[BH, S, D]`` flash attention with the flash backward named by
+    ``bwd_impl``; the counterpart of the reference's ``_flash_attn`` custom
+    VJP.  Forward saves ``(q, k, v, out, l2)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, bwd_impl: str = "split"):
         out, l2 = flash_attn_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, l2)
         ctx.causal = causal
+        ctx.bwd_impl = bwd_impl
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, l2 = ctx.saved_tensors
         dq, dk, dv = flash_attn_bwd(q, k, v, out, l2, dout.contiguous(),
-                                    ctx.causal)
-        return dq, dk, dv, None
+                                    ctx.causal, ctx.bwd_impl)
+        return dq, dk, dv, None, None
 
 
 def _validate_and_fold(q, k, v, causal: bool):
@@ -378,10 +491,13 @@ def _validate_and_fold(q, k, v, causal: bool):
     return fold(q), fold(k), fold(v)
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, bwd_impl=None):
     """Memory-efficient attention for ``[B, H, S, D]`` q against
     ``[B, Hkv, Sk, D]`` k/v (Hkv divides H), differentiable through the
-    flash backward."""
+    flash backward.  ``bwd_impl`` ``None`` resolves through the tune table
+    for this (S, D) (:func:`resolve_bwd_impl`); an explicit value wins."""
     b, h, s, d = q.shape
+    bwd_impl = resolve_bwd_impl(s, d, bwd_impl)
     qf, kf, vf = _validate_and_fold(q, k, v, causal)
-    return FlashAttention.apply(qf, kf, vf, causal).reshape(b, h, s, d)
+    return FlashAttention.apply(qf, kf, vf, causal, bwd_impl).reshape(
+        b, h, s, d)

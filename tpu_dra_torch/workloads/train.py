@@ -10,9 +10,11 @@ The training half: ``loss_fn`` over the dense or chunked NLL head (label
 smoothing, z-loss), ``grads_fn`` with gradient accumulation,
 ``sgd_train_step`` and ``make_train_step`` (the optimizer is
 ``optim.py``).  ``attn_impl="flash"`` runs attention through the flash
-kernels (``flash.py``).  Not ported: selective remat (it changes memory,
-not results), packed sequences (``packed_loss_fn``), sharding, ZeRO-1
-and the fused-collective and fused-norm branches of the reference trunk.
+kernels (``flash.py``); ``norm_impl="fused"`` runs each sublayer's
+rmsnorm→matmul pair through the fused kernel (``matmul.py``) where the
+reference would.  Not ported: selective remat (it changes memory, not
+results), packed sequences (``packed_loss_fn``), sharding, ZeRO-1 and the
+fused-collective branch of the reference trunk.
 
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
@@ -172,12 +174,32 @@ def _split_qkv(cfg: ModelConfig, qkv):
     return torch.split(qkv, [cfg.d_model, cfg.d_kv, cfg.d_kv], dim=-1)
 
 
+def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense"):
+    """The rmsnorm→matmul pair each sublayer opens with
+    (``train._norm_matmul``).  ``norm_impl="fused"`` sends a plain-tensor
+    weight through :class:`matmul.RmsnormMatmul` when the flattened shapes
+    pass the reference's admission rule (``m % min(256, m) == 0`` and
+    ``n % min(256, n) == 0`` with ``m = B·S``); the weight is cast to x's
+    dtype outside it, so its gradient reaches the fp32 master rounded to
+    bf16.  Anything else (dict leaves, shapes the rule refuses, the
+    default) takes the plain pair."""
+    if norm_impl == "fused" and torch.is_tensor(w):
+        B, S, D = x.shape
+        m, n = B * S, w.shape[1]
+        if m % min(256, m) == 0 and n % min(256, n) == 0:
+            from tpu_dra_torch.workloads.matmul import RmsnormMatmul
+            out = RmsnormMatmul.apply(x.reshape(m, D), gamma, w.to(x.dtype))
+            return out.reshape(B, S, n).to(dtype)
+    return matmul_any(_rmsnorm(x, gamma), w, dtype)
+
+
 def _attn_sublayer(cfg: ModelConfig, x, layer,
-                   attn_fn=_causal_dense_attention, positions=None):
+                   attn_fn=_causal_dense_attention, positions=None,
+                   norm_impl: str = "dense"):
     """Pre-norm attention residual sublayer, GQA-aware.  With
     ``pos_emb="rope"`` q/k rotate by ``positions`` (default 0..S-1)."""
     B, S, D = x.shape
-    qkv = matmul_any(_rmsnorm(x, layer["ln1"]), layer["wqkv"], x.dtype)
+    qkv = _norm_matmul(x, layer["ln1"], layer["wqkv"], x.dtype, norm_impl)
     q, k, v = _split_qkv(cfg, qkv)
     q = _split_heads(cfg, q)
     k = _split_heads(cfg, k, cfg.kv_heads)
@@ -192,18 +214,19 @@ def _attn_sublayer(cfg: ModelConfig, x, layer,
     return x + matmul_any(out, layer["wo"], x.dtype)
 
 
-def _mlp(x, layer):
+def _mlp(x, layer, norm_impl: str = "dense"):
     """Pre-norm gelu MLP residual.  ``jax.nn.gelu`` defaults to the tanh
     approximation, so the port asks for it explicitly."""
-    h = matmul_any(_rmsnorm(x, layer["ln2"]), layer["w1"], x.dtype)
+    h = _norm_matmul(x, layer["ln2"], layer["w1"], x.dtype, norm_impl)
     h = F.gelu(h, approximate="tanh")
     return x + matmul_any(h, layer["w2"], x.dtype)
 
 
 def _block(cfg: ModelConfig, x, layer, attn_fn=_causal_dense_attention,
-           positions=None):
+           positions=None, norm_impl: str = "dense"):
     """One decoder block (attention then MLP sublayer)."""
-    return _mlp(_attn_sublayer(cfg, x, layer, attn_fn, positions), layer)
+    return _mlp(_attn_sublayer(cfg, x, layer, attn_fn, positions,
+                               norm_impl), layer, norm_impl)
 
 
 def _flash_attention_fn(q, k, v):
@@ -239,11 +262,12 @@ def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
 
 
 def _trunk(cfg: ModelConfig, params, tokens,
-           attn_fn=_causal_dense_attention):
+           attn_fn=_causal_dense_attention, norm_impl: str = "dense"):
     """Embed + decoder stack; returns pre-final-norm activations."""
     x = embed_tokens(cfg, params, tokens)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(params["blocks"], i), attn_fn)
+        x = _block(cfg, x, layer_params(params["blocks"], i), attn_fn,
+                   norm_impl=norm_impl)
     return x
 
 
@@ -261,10 +285,11 @@ def head_logits(params, x):
     return matmul_any(x, params["unembed"], torch.bfloat16).float()
 
 
-def forward(cfg: ModelConfig, params, tokens, attn_impl: str = "dense"):
+def forward(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
+            norm_impl: str = "dense"):
     """Logits ``[B, S, vocab]`` for a ``[B, S]`` integer token batch."""
     return head_logits(params, _trunk(cfg, params, tokens,
-                                      attn_impl_fn(attn_impl)))
+                                      attn_impl_fn(attn_impl), norm_impl))
 
 
 # --------------------------------------------------------------------------
@@ -321,10 +346,13 @@ def head_nll(params, x, targets, head_impl: str = "dense",
     return -logp.gather(-1, targets[..., None])
 
 
-def _dot_f32(a, b):
-    """bf16 ``a @ b`` accumulated and returned in fp32 (the reference's
-    ``preferred_element_type=float32``): bf16 values are exact in fp32,
-    so an fp32 product of the upcast operands is the same sum."""
+def dot_f32(a, b):
+    """2-D bf16 ``a @ b`` accumulated and returned in fp32 (the
+    reference's ``preferred_element_type=float32``).  On the card one
+    cuBLAS call with an fp32 output; on the CPU an fp32 product of the
+    upcast operands, the same sum since bf16 values are exact in fp32."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
 
@@ -339,7 +367,7 @@ def _chunked_logits_stats(x, w, targets, n_chunks: int):
     l = torch.zeros(N, dtype=torch.float32, device=x.device)
     t = torch.zeros(N, dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
-        logits = _dot_f32(x, w[:, c * C:(c + 1) * C])
+        logits = dot_f32(x, w[:, c * C:(c + 1) * C])
         m_new = torch.maximum(m, logits.amax(dim=-1))
         l = l * torch.exp(m - m_new) + torch.exp(
             logits - m_new[:, None]).sum(dim=-1)
@@ -377,20 +405,21 @@ class _ChunkedNLL(torch.autograd.Function):
                          device=x.device)
         for c in range(n_chunks):
             wc = w[:, c * C:(c + 1) * C]
-            p = torch.exp(_dot_f32(x, wc) - lse[:, None])
+            p = torch.exp(dot_f32(x, wc) - lse[:, None])
             onehot = ((targets - c * C)[:, None] == cols[None, :]).float()
             ds = ((p - onehot) * gf[:, None]).to(torch.bfloat16)   # [N, C]
-            dx = dx + _dot_f32(ds, wc.T)
-            dw[:, c * C:(c + 1) * C] = _dot_f32(x.T, ds)
+            dx = dx + dot_f32(ds, wc.T)
+            dw[:, c * C:(c + 1) * C] = dot_f32(x.T, ds)
         return dx.to(x.dtype), dw.to(w.dtype), None, None
 
 
 def loss_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
             head_impl: str = "dense", label_smoothing: float = 0.0,
-            z_loss: float = 0.0):
+            z_loss: float = 0.0, norm_impl: str = "dense"):
     """Mean next-token NLL of a ``[B, S+1]`` window batch: the trunk reads
     ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``."""
-    trunk = _trunk(cfg, params, tokens[:, :-1], attn_impl_fn(attn_impl))
+    trunk = _trunk(cfg, params, tokens[:, :-1], attn_impl_fn(attn_impl),
+                   norm_impl)
     return head_nll(params, trunk, tokens[:, 1:].long(), head_impl,
                     label_smoothing=label_smoothing, z_loss=z_loss).mean()
 
@@ -416,7 +445,8 @@ def tree_unflatten(like, leaves) -> dict:
 
 def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
              head_impl: str = "dense", accum_steps: int = 1,
-             label_smoothing: float = 0.0, z_loss: float = 0.0):
+             label_smoothing: float = 0.0, z_loss: float = 0.0,
+             norm_impl: str = "dense"):
     """``(mean loss, grads)`` for a ``[B, S+1]`` batch; grads is a dict
     shaped like ``params``.  ``accum_steps > 1`` runs that many equal
     microbatches one after another and averages, so activations live for
@@ -433,7 +463,7 @@ def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
     def value_and_grad(batch):
         live = [p.requires_grad_() for p in (t.detach() for t in leaves)]
         loss = loss_fn(cfg, tree_unflatten(params, live), batch, attn_impl,
-                       head_impl, label_smoothing, z_loss)
+                       head_impl, label_smoothing, z_loss, norm_impl)
         return loss.detach(), torch.autograd.grad(loss, live)
 
     if accum_steps == 1:
@@ -452,10 +482,11 @@ def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
 
 def sgd_train_step(cfg: ModelConfig, lr: float, params, tokens,
                    attn_impl: str = "dense", head_impl: str = "dense",
-                   accum_steps: int = 1):
+                   accum_steps: int = 1, norm_impl: str = "dense"):
     """One plain-SGD step: ``(new params, loss)``."""
     loss, grads = grads_fn(cfg, params, tokens, attn_impl=attn_impl,
-                           head_impl=head_impl, accum_steps=accum_steps)
+                           head_impl=head_impl, accum_steps=accum_steps,
+                           norm_impl=norm_impl)
     new = [p.detach() - lr * g for p, g in zip(tree_leaves(params),
                                                tree_leaves(grads))]
     return tree_unflatten(params, new), loss
@@ -464,7 +495,7 @@ def sgd_train_step(cfg: ModelConfig, lr: float, params, tokens,
 def make_train_step(cfg: ModelConfig, optimizer=None,
                     attn_impl: str = "dense", head_impl: str = "dense",
                     accum_steps: int = 1, label_smoothing: float = 0.0,
-                    z_loss: float = 0.0):
+                    z_loss: float = 0.0, norm_impl: str = "dense"):
     """The counterpart of the reference's ``make_optax_train_step`` on one
     device: ``(step, init_opt_state)`` where ``step(params, opt_state,
     tokens) -> (params, opt_state, loss)``.  The optimizer (default:
@@ -479,7 +510,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None,
                                head_impl=head_impl,
                                accum_steps=accum_steps,
                                label_smoothing=label_smoothing,
-                               z_loss=z_loss)
+                               z_loss=z_loss, norm_impl=norm_impl)
         opt_state = optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 

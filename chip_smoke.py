@@ -3,8 +3,10 @@
 GPU: builds its CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version, times it, then drives the
 port's paths at full width: it serves the headline model through the
-port's HTTP server, runs the tiled matmul's bench section, and trains the
-flagship model through ``fit`` and through the fused training step.
+port's HTTP server, runs the tiled matmul's bench section, trains the
+flagship model through ``fit`` and through the fused training step, and
+trains it sharded over a virtual mesh of 4 ranks on the card (DP×TP with
+the fused-collective ring kernels, DP×SP with ring flash attention).
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -59,9 +61,27 @@ Phases (each prints as it goes; any failed check exits non-zero):
      norm-matmul and n_layers fused-backward launches a step and no split
      launch; its step time beside phase 8's, and one profiled step;
  10. a short GQA training run (8 heads over 2 kv heads, d_head 128, rope,
-     2 layers), so the grouped forward and backward run inside training.
-The second-to-last line is a JSON object describing every kernel; the
-last line is {"ok": true, "device": {...}}.
+     2 layers), so the grouped forward and backward run inside training;
+ 11. the ring kernels (csrc/ring.cu) against their plain versions on a
+     virtual ring of 4 ranks at the flagship's tp-4 shapes (all-gather-
+     matmul at x [4096, 2048] per rank against the wqkv and w1 shards,
+     matmul-reduce-scatter at [16384, 512] @ wo and [16384, 2048] @ w2,
+     the shift at k/v blocks [16, 16, 256, 128]), then n 1 and 2, odd m,
+     a ragged K and two groups: y elementwise and per row
+     (collective_matmul.ELEM_TOL, ROW_TOL), the gathered operand and the
+     shift byte-equal, the VJPs against autograd through the plain
+     versions;
+ 12. their times beside bound, plain version and library yardstick;
+ 13. DP×TP on Mesh({"dp": 1, "tp": 4}): the flagship's
+     make_sharded_train_step(attn_impl="flash",
+     matmul_impl="fused_collective") step against the dense sharded step,
+     then 10 SGD steps with exact ring launch counts, its step time beside
+     the dense step's, and one profiled step;
+ 14. DP×SP on Mesh({"dp": 1, "sp": 4}): make_ring_train_step(ring_impl=
+     "flash", hop_impl="pallas") bit-equal to hop_impl="xla", held to the
+     one-device flash step, then 10 steps with an exact shift count.
+The second-to-last line is a JSON object describing every kernel (ten);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -116,6 +136,17 @@ MATMUL_CASES = [(4096, 4096, 4096), (1024, 512, 2048), (2048, 1024, 3072),
                 (200, 512, 264)]
 RMSNORM_CASES = [(16384, 2048, 6144), (16384, 2048, 8192), (100, 2048, 2048),
                  (512, 64, 256), (1024, 1024, 1024)]
+# phases 13-14: plain SGD at the reference's learning rate
+# (make_sharded_train_step's default) on [16, 1025] windows of the phase-8
+# corpus, over a virtual mesh of 4 ranks on the one card
+SGD_LR = 1e-2
+SHARDED_RUN = dict(steps=10, batch=16)
+# a ring VJP against autograd through the plain versions: the Functions
+# round each fp32 sum to bf16 once, autograd through the plain version
+# rounds each rank's share before it sums the ranks (0.0026 relative L2
+# for the gather's dx at phase 11's VJP shapes in a CPU run of the plain
+# paths)
+VJP_REL = 1e-2
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -875,6 +906,8 @@ def busy_us(spans) -> float:
 def kernel_kind(name: str) -> str:
     if "flash_" in name:
         return "flash kernels"
+    if "ring_" in name:
+        return "ring kernels (csrc/ring.cu)"
     if "gemm_kernel" in name:
         return "matmul kernels (csrc/matmul.cu)"
     if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -889,8 +922,6 @@ def profile_step(cfg, data_path: str, batch: int, label: str = "flagship",
     (informational; the profiler's own overhead lengthens the traced
     step)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from tpu_dra_torch.workloads.data import TokenDataset, batches
     from tpu_dra_torch.workloads.optim import default_optimizer
@@ -905,11 +936,24 @@ def profile_step(cfg, data_path: str, batch: int, label: str = "flagship",
     toks = [torch.from_numpy(next(it)).to("cuda") for _ in range(3)]
     for t in toks[:2]:
         params, state, _ = step(params, state, t)
+    profile_call(f"{label} train step",
+                 lambda: step(params, state, toks[2]))
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def profile_call(label: str, fn) -> None:
+    """``fn()`` once (warmed up by the caller) under torch.profiler: wall
+    time, device busy time and idle share, device time by kernel kind and
+    the top kernels (informational)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, state, toks[2])
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -925,7 +969,7 @@ def profile_step(cfg, data_path: str, batch: int, label: str = "flagship",
                                                    0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
-    log(f"[profile] {label} train step under torch.profiler: wall "
+    log(f"[profile] {label} under torch.profiler: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"(idle share {1 - busy / wall_us:.3f}), {len(kernels)} device "
         f"activities (informational)")
@@ -934,8 +978,6 @@ def profile_step(cfg, data_path: str, batch: int, label: str = "flagship",
             f"({us / busy:.3f} of device time)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   top: {us / 1e3:.2f} ms {name[:110]}")
-    del params, state
-    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1224,6 +1266,429 @@ def log_flash_times(shape: str, times: dict, card: str) -> None:
             f"TF/s), {t['bound_ms'] / t['ms']:.3f} of it reached, on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: the ring kernels against their plain versions, and timed
+# ---------------------------------------------------------------------------
+
+def ring_inputs(gen, G: int, n: int, rows: int, k: int, n_out: int):
+    """bf16 x ~ N(0, 1) [G, n, rows, K] and per-rank w at the init scale
+    K^-0.5 [n, K, N], shared by the G groups (an expanded view)."""
+    import torch
+    dev = gen.device
+    x = torch.randn((G, n, rows, k), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((1, n, k, n_out), generator=gen, device=dev)
+         * k ** -0.5).to(torch.bfloat16)
+    return x, w.expand(G, -1, -1, -1)
+
+
+def hold_ring(label: str, got, want) -> tuple:
+    """A ring matmul's y against its plain version, elementwise and per
+    output row (collective_matmul.ELEM_TOL, ROW_TOL)."""
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    return hold(label, "y", got.flatten(0, -2), want.flatten(0, -2),
+                cm.ROW_TOL, cm.ELEM_TOL)
+
+
+def check_ring(gen) -> dict:
+    """Phase 11: each ring kernel against its plain version at the
+    training paths' shapes (tp 4: the gather at x [4096, 2048] per rank
+    against the wqkv and w1 shards, the reduce-scatter at [16384, 512] @
+    wo and [16384, 2048] @ w2, the shift at k/v blocks [16, 16, 256, 128]),
+    then n 1 and 2, odd m (the unidirectional gather), a ragged K and two
+    groups; the gathered operand and the shift byte-equal; then the VJPs
+    against autograd through the plain versions.  Returns the max abs
+    error of each kernel at its path's first shape."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    cases = [  # (label, G, n, m, K, N)
+        ("path: wqkv", 1, 4, 4096, 2048, 1536),
+        ("path: w1", 1, 4, 4096, 2048, 2048),
+        ("n 1", 1, 1, 512, 256, 256), ("n 2", 1, 2, 1024, 512, 384),
+        ("odd m (unidirectional)", 1, 4, 1001, 256, 512),
+        ("ragged K", 1, 4, 512, 200, 136), ("dp 2", 2, 4, 256, 512, 256)]
+    errs = {}
+    for label, G, n, m, k, n_out in cases:
+        x, w = ring_inputs(gen, G, n, m, k, n_out)
+        y, a = cm.all_gather_matmul(x, w)
+        torch.cuda.synchronize()
+        want_y, want_a = cm.all_gather_matmul_ref(x, w)
+        if not torch.equal(a, want_a):
+            fail(f"all_gather_matmul {label}: gathered operand not "
+                 f"byte-equal")
+        err, ratio, row = hold_ring(f"all_gather_matmul {label}", y, want_y)
+        errs.setdefault("all_gather_matmul", err)
+        log(f"[ring] all_gather_matmul {label} [G {G}, n {n}, m {m}, K {k}, "
+            f"N {n_out}]: max abs err {err:.4g} (elementwise {ratio:.3f} of "
+            f"the tolerance), worst row {row:.3g}; gathered operand "
+            f"byte-equal -> ok")
+        del x, w, y, a, want_y, want_a
+    cases = [("path: w2", 1, 4, 4096, 2048, 2048),
+             ("path: wo", 1, 4, 4096, 512, 2048),
+             ("n 1", 1, 1, 512, 256, 256), ("n 2", 1, 2, 1024, 512, 384),
+             ("odd m", 1, 4, 1001, 256, 512), ("ragged K", 1, 4, 512, 200, 136),
+             ("dp 2", 2, 4, 256, 512, 256)]
+    for label, G, n, m, k, n_out in cases:
+        x, w = ring_inputs(gen, G, n, n * m, k, n_out)
+        y = cm.matmul_reduce_scatter(x, w)
+        torch.cuda.synchronize()
+        err, ratio, row = hold_ring(f"matmul_reduce_scatter {label}", y,
+                                    cm.matmul_reduce_scatter_ref(x, w))
+        errs.setdefault("matmul_reduce_scatter", err)
+        log(f"[ring] matmul_reduce_scatter {label} [G {G}, n {n}, n·m "
+            f"{n * m}, K {k}, N {n_out}]: max abs err {err:.4g} (elementwise "
+            f"{ratio:.3f} of the tolerance), worst row {row:.3g} -> ok")
+        del x, w, y
+    for label, shape, dtype in (
+            ("path: k/v blocks", (1, 4, 16, 16, 256, 128), torch.bfloat16),
+            ("n 2, fp32", (1, 2, 1000, 3), torch.float32),
+            ("dp 2, ragged bytes", (2, 4, 33), torch.bfloat16)):
+        x = torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+        for reverse in (False, True):
+            if not torch.equal(cm.ring_shift(x, reverse),
+                               cm.ring_shift_ref(x, reverse)):
+                fail(f"ring_shift {label}: not the plain shift")
+        log(f"[ring] ring_shift {label} {list(shape)}: byte-equal both "
+            f"ways -> ok")
+    errs["ring_shift"] = 0.0
+    # the VJPs: each backward is the other kernel
+    for name, fn, ref, rows in (
+            ("AllGatherMatmul", cm.AllGatherMatmul, cm.all_gather_matmul_ref,
+             1024), ("MatmulReduceScatter", cm.MatmulReduceScatter,
+                     cm.matmul_reduce_scatter_ref, 4096)):
+        x, w = ring_inputs(gen, 2, 4, rows, 512, 256)
+        w0 = w[:1].detach().clone()
+        xs, ws = x.clone().requires_grad_(), w0.clone().requires_grad_()
+        out = fn.apply(xs, ws.expand(2, -1, -1, -1))
+        g = torch.randn(out.shape, generator=gen, device=gen.device).to(
+            torch.bfloat16)
+        got = torch.autograd.grad(out, (xs, ws), g)
+        xr, wr = x.clone().requires_grad_(), w0.clone().requires_grad_()
+        plain = ref(xr, wr.expand(2, -1, -1, -1))
+        plain = plain[0] if isinstance(plain, tuple) else plain
+        want = torch.autograd.grad(plain, (xr, wr), g)
+        for part, a, b in zip(("dx", "dw"), got, want):
+            err = float((a.float() - b.float()).norm() / b.float().norm())
+            log(f"[ring] {name} {part} against autograd through the plain "
+                f"version: relative L2 {err:.3g} (tolerance {VJP_REL})")
+            if not err <= VJP_REL:
+                fail(f"{name} {part}: relative L2 {err} > {VJP_REL}")
+    x = torch.randn((1, 4, 8, 1024), generator=gen, device=gen.device).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn_like(x)
+    (d,) = torch.autograd.grad(cm.RingShift.apply(x, False), x, g)
+    if not torch.equal(d, cm.ring_shift_ref(g, True)):
+        fail("RingShift: the cotangent did not shift back")
+    log("[ring] RingShift: the cotangent shifts the other way, byte-equal "
+        "-> ok")
+    log(f"[ring] tolerances: y elementwise rtol = atol = {cm.ELEM_TOL}, per "
+        f"row {cm.ROW_TOL}; gathered operand and shift byte-equal; VJPs "
+        f"{VJP_REL} relative L2")
+    return errs
+
+
+def time_ring(gen) -> dict:
+    """Phase 12: each ring kernel alone (its C entries with prepared
+    arguments, n launches for a matmul), through its wrapper, its plain
+    version and a library yardstick, with CUDA events, at the path's
+    shapes.  Bounds: operands read once; outputs written once; the n − 1
+    ring copies read once more (the gathered slots at the next step, the
+    reduce-scatter's fp32 partials written and read); 2 FLOP per
+    multiply-add."""
+    import torch
+
+    from tpu_dra_torch.kernels.build import library
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    lib = library("ring")
+    stream = torch.cuda.current_stream().cuda_stream
+    P = lambda t: t.data_ptr()      # noqa: E731
+
+    def checked(rc):
+        if rc:
+            fail(f"ring kernel launch failed with CUDA error {rc}")
+    times = {}
+    for label, m, k, n_out in (("wqkv", 4096, 2048, 1536),
+                               ("w1", 4096, 2048, 2048)):
+        n = 4
+        x, w = ring_inputs(gen, 1, n, m, k, n_out)
+        y = torch.empty((1, n, n * m, n_out), dtype=torch.bfloat16,
+                        device=x.device)
+        a = torch.empty((1, n, n, m, k), dtype=torch.bfloat16, device=x.device)
+
+        def kernel():
+            for step in range(n):
+                checked(lib.tpu_dra_ring_ag_matmul(
+                    P(x), P(w), P(y), P(a), 1, n, m, k, n_out, m * k,
+                    n * m * k, w.stride(1), 0, step, 1, stream))
+        gathered = x.reshape(1, n * m, k)
+        wl = w[0]
+        times[f"all_gather_matmul {label}"] = {
+            "ms": cuda_time_ms(kernel, 20),
+            "wrapper_ms": cuda_time_ms(lambda: cm.all_gather_matmul(x, w), 20),
+            "plain_ms": cuda_time_ms(lambda: cm.all_gather_matmul_ref(x, w), 3,
+                                     warmup=1),
+            "library_ms": cuda_time_ms(lambda: torch.matmul(gathered, wl), 20),
+            "library": "one batched torch.matmul of the gathered x against "
+                       "the stacked w",
+            **flash_bound(
+                2 * (n * m * k + n * k * n_out + n * n * m * n_out
+                     + n * n * m * k + (n - 1) * n * m * k),
+                2 * n * (n * m) * k * n_out)}
+        del x, w, y, a, gathered
+    for label, m, k, n_out in (("w2", 4096, 2048, 2048),
+                               ("wo", 4096, 512, 2048)):
+        n = 4
+        x, w = ring_inputs(gen, 1, n, n * m, k, n_out)
+        y = torch.empty((1, n, m, n_out), dtype=torch.bfloat16,
+                        device=x.device)
+        comm = torch.empty((1, n, 2, m, n_out), dtype=torch.float32,
+                           device=x.device)
+
+        def kernel():
+            for step in range(n):
+                checked(lib.tpu_dra_ring_matmul_rs(
+                    P(x), P(w), P(comm), P(y), 1, n, m, k, n_out, n * m * k,
+                    n * n * m * k, w.stride(1), 0, step, stream))
+        xl, wl = x[0], w[0]
+        times[f"matmul_reduce_scatter {label}"] = {
+            "ms": cuda_time_ms(kernel, 20),
+            "wrapper_ms": cuda_time_ms(
+                lambda: cm.matmul_reduce_scatter(x, w), 20),
+            "plain_ms": cuda_time_ms(
+                lambda: cm.matmul_reduce_scatter_ref(x, w), 3, warmup=1),
+            "library_ms": cuda_time_ms(lambda: torch.matmul(xl, wl).reshape(
+                n, n, m, n_out).sum(0), 20),
+            "library": "two calls: torch.matmul, then the sum over ranks",
+            **flash_bound(
+                2 * (n * n * m * k + n * k * n_out + n * m * n_out)
+                + 2 * 4 * (n - 1) * n * m * n_out,
+                2 * n * (n * m) * k * n_out)}
+        del x, w, y, comm
+    x = torch.randn((1, 4, 16, 16, 256, 128), generator=gen,
+                    device=gen.device).to(torch.bfloat16)
+    out = torch.empty_like(x)
+    per_rank = x[0, 0].numel() * 2
+    times["ring_shift k/v block"] = {
+        "ms": cuda_time_ms(lambda: checked(lib.tpu_dra_ring_shift(
+            P(x), P(out), 1, 4, per_rank, 1, stream)), 50),
+        "wrapper_ms": cuda_time_ms(lambda: cm.ring_shift(x), 50),
+        "plain_ms": cuda_time_ms(lambda: cm.ring_shift_ref(x), 20),
+        "library_ms": cuda_time_ms(lambda: torch.roll(x, 1, dims=1), 50),
+        "library": "torch.roll",
+        **flash_bound(2 * x.numel() * 2, 0)}
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: DP×TP fused collective and DP×SP ring flash training
+# ---------------------------------------------------------------------------
+
+def leaf_updates(old: dict, new: dict, scale: float) -> dict:
+    """``(old − new) / scale`` per leaf of two parameter trees (the
+    gradient an SGD step applied, for scale = lr)."""
+    return {k: (leaf_updates(v, new[k], scale) if isinstance(v, dict)
+                else (v - new[k]) / scale) for k, v in old.items()}
+
+
+def window_batches(data_path: str, batch: int, seq: int, count: int):
+    import torch
+
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    it = batches(TokenDataset(data_path), batch=batch, seq=seq)
+    return [torch.from_numpy(next(it)).to("cuda") for _ in range(count)]
+
+
+def train_loop(label: str, step, params, windows, counters: dict,
+               must_fall: bool = True) -> dict:
+    """``step(params, window)`` over ``windows`` with the kernels' launch
+    counts zeroed just before and read just after; fails unless every loss
+    is finite and (``must_fall``) the last below the first."""
+    import math
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, stamps = [], []
+    t0 = time.perf_counter()
+    for win in windows:
+        params, loss = step(params, win)
+        losses.append(float(loss))
+        stamps.append(time.perf_counter())
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {label} losses by step: "
+        f"{', '.join(repr(x) for x in losses)}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: losses {losses}")
+    if must_fall and not losses[-1] < losses[0]:
+        fail(f"{label}: loss did not fall: {losses}")
+    times = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    step_s = statistics.median(times[1:])
+    return {"launches": launches, "losses": losses, "step_ms": 1e3 * step_s,
+            "first_ms": 1e3 * times[0], "peak_gb": peak_gb,
+            "params": params}
+
+
+def sharded_phase(gen, data_path: str) -> dict:
+    """Phase 13: ``make_sharded_train_step`` on Mesh({"dp": 1, "tp": 4})
+    with flash attention and matmul_impl="fused_collective": one step
+    against the same mesh's dense step (loss within STEP_LOSS_ATOL, every
+    gradient leaf, read off an SGD step at lr 1 as p − p', within
+    STEP_LEAF_REL), then SHARDED_RUN steps at SGD_LR on [16, 1025]
+    windows with finite, falling losses and exactly 4·L·n gather and
+    4·L·n reduce-scatter launches a step (4·L calls of each: the forward's
+    two, and each one's backward through the other; n = 4 launches a
+    call; no remat), then the dense sharded step's time beside it and one
+    profiled step."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads import flash as F
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.train import (ModelConfig, init_params,
+                                               make_sharded_train_step,
+                                               tree_leaves)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    mesh = Mesh({"dp": 1, "tp": 4})
+    n, L, batch = 4, cfg.n_layers, SHARDED_RUN["batch"]
+    windows = window_batches(data_path, batch, cfg.max_seq,
+                             SHARDED_RUN["steps"] + 1)
+    params = init_params(cfg, gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    grads = {}
+    for impl in ("fused_collective", "dense"):
+        step, _, _ = make_sharded_train_step(
+            cfg, mesh, lr=1.0, attn_impl="flash", matmul_impl=impl)
+        new, loss = step(params, windows[0])
+        grads[impl] = (loss, leaf_updates(params, new, 1.0))
+        del new
+    hold_step("DP×TP tp 4", "fused-collective step vs the dense sharded "
+              "step", *grads["fused_collective"], *grads["dense"])
+    del grads
+    counters = {"all_gather_matmul": cm.all_gather_matmul,
+                "matmul_reduce_scatter": cm.matmul_reduce_scatter,
+                "flash_fwd": F.flash_attn_fwd, "flash_bwd_dq": F.flash_bwd_dq,
+                "flash_bwd_dkdv": F.flash_bwd_dkdv}
+    step, _, _ = make_sharded_train_step(cfg, mesh, lr=SGD_LR,
+                                         attn_impl="flash",
+                                         matmul_impl="fused_collective")
+    steps = SHARDED_RUN["steps"]
+    run = train_loop("DP×TP fused collective", step, params,
+                     windows[1:], counters)
+    want = {"all_gather_matmul": 4 * L * n * steps,
+            "matmul_reduce_scatter": 4 * L * n * steps,
+            "flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkdv": L * steps}
+    if run["launches"] != want:
+        fail(f"DP×TP fused collective: launches {run['launches']}, "
+             f"expected {want}")
+    dense_step, _, _ = make_sharded_train_step(cfg, mesh, lr=SGD_LR,
+                                               attn_impl="flash")
+    dense = train_loop("DP×TP dense (plain collectives, informational)",
+                       dense_step, params, windows[1:], {}, must_fall=False)
+    tok_step = batch * cfg.max_seq
+    for label, r in (("fused collective", run), ("dense", dense)):
+        log(f"[train] DP×TP {label}, tp 4 on one card: step "
+            f"{r['step_ms']:.1f} ms (median of steps 2-{len(r['losses'])}; "
+            f"first {r['first_ms']:.1f} ms), steady "
+            f"{tok_step / r['step_ms'] * 1e3:.0f} tokens/s, "
+            f"6·N·tokens/time/989e12 = "
+            f"{6 * n_params * tok_step / r['step_ms'] * 1e3 / BF16_FLOPS_PER_S:.3f}"
+            f", peak memory {r['peak_gb']:.1f} GB (informational)")
+    log(f"[train] DP×TP fused collective: launches over {steps} steps "
+        f"{run['launches']} (exact: 4·L·n per matmul kernel, L per flash "
+        f"kernel a step)")
+    state = {"p": run["params"]}
+
+    def one():
+        state["p"], _ = step(state["p"], windows[-1])
+    profile_call("DP×TP fused-collective train step", one)
+    del run["params"], dense["params"], params, state
+    torch.cuda.empty_cache()
+    return {**run, "dense_step_ms": dense["step_ms"]}
+
+
+def ring_phase(gen, data_path: str) -> dict:
+    """Phase 14: ``make_ring_train_step`` on Mesh({"dp": 1, "sp": 4}) with
+    ring_impl="flash": one step with hop_impl="pallas" (the shift kernel)
+    bit-equal to hop_impl="xla" (torch.roll), loss and updated parameters;
+    the same step against the one-device flash step on the same window
+    (loss within STEP_LOSS_ATOL; gradients, the update over lr·n_ranks as
+    the reference's summed replica gradients carry the rank count, within
+    STEP_LEAF_REL); then SHARDED_RUN steps with finite, falling losses and
+    exactly 4·(n − 1)·L shift launches a step (2·(n − 1)·L forward, as
+    many backward, no remat), and one profiled step."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads import flash as F
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
+    from tpu_dra_torch.workloads.train import (ModelConfig, grads_fn,
+                                               init_params, tree_leaves)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    n, L, batch = 4, cfg.n_layers, SHARDED_RUN["batch"]
+    mesh = Mesh({"dp": 1, "sp": n})
+    windows = window_batches(data_path, batch, cfg.max_seq,
+                             SHARDED_RUN["steps"] + 1)
+    params = init_params(cfg, gen)
+    win = windows[0]
+    res = {}
+    for hop in ("pallas", "xla"):
+        step, _ = make_ring_train_step(cfg, mesh, lr=1.0, ring_impl="flash",
+                                       hop_impl=hop)
+        res[hop] = step(params, win[:, :-1], win[:, 1:])
+    (pp, lp), (px, lx) = res["pallas"], res["xla"]
+    same = float(lp) == float(lx) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(pp), tree_leaves(px)))
+    log(f"[train] DP×SP ring flash, sp {n}: hop_impl=\"pallas\" vs \"xla\": "
+        f"loss {float(lp)!r} vs {float(lx)!r}; loss and every updated "
+        f"parameter bit-equal: {same}")
+    if not same:
+        fail("DP×SP: the shift kernel's step is not bit-equal to torch.roll's")
+    del px, res
+    loss1, g1 = grads_fn(cfg, params, win, attn_impl="flash")
+    hold_step(f"DP×SP sp {n}", "ring flash step (update / (lr·n)) vs the "
+              "one-device flash step", lp, leaf_updates(params, pp, n),
+              loss1, g1)
+    del pp, g1
+    step, _ = make_ring_train_step(cfg, mesh, lr=SGD_LR, ring_impl="flash",
+                                   hop_impl="pallas")
+    counters = {"ring_shift": cm.ring_shift, "flash_fwd": F.flash_attn_fwd,
+                "flash_bwd_dq": F.flash_bwd_dq,
+                "flash_bwd_dkdv": F.flash_bwd_dkdv}
+    steps = SHARDED_RUN["steps"]
+    run = train_loop("DP×SP ring flash", lambda p, w: step(p, w[:, :-1],
+                                                           w[:, 1:]),
+                     params, windows[1:], counters)
+    want = {"ring_shift": 4 * (n - 1) * L * steps,
+            "flash_fwd": n * L * steps, "flash_bwd_dq": n * L * steps,
+            "flash_bwd_dkdv": n * L * steps}
+    if run["launches"] != want:
+        fail(f"DP×SP ring flash: launches {run['launches']}, expected {want}")
+    tok_step = batch * cfg.max_seq
+    log(f"[train] DP×SP ring flash, sp {n} on one card: step "
+        f"{run['step_ms']:.1f} ms (median of steps 2-{steps}; first "
+        f"{run['first_ms']:.1f} ms), steady "
+        f"{tok_step / run['step_ms'] * 1e3:.0f} tokens/s, peak memory "
+        f"{run['peak_gb']:.1f} GB; launches {run['launches']} (exact: "
+        f"4·(n−1)·L shifts, n·L of each flash kernel a step; informational "
+        f"times)")
+    state = {"p": run["params"]}
+
+    def one():
+        state["p"], _ = step(state["p"], windows[-1][:, :-1],
+                             windows[-1][:, 1:])
+    profile_call("DP×SP ring-flash train step", one)
+    del run["params"], params, state
+    torch.cuda.empty_cache()
+    return run
+
+
 def main() -> int:
     try:
         import torch
@@ -1292,8 +1757,15 @@ def main() -> int:
     log_times(mm_t, card)
     benched = bench_phase()
 
+    ring_err = check_ring(gen)
+    with torch.no_grad():
+        ring_t = time_ring(gen)
+    log_times(ring_t, card)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         trained, fused = train_phase(gen, Path(tmp))
+        sharded = sharded_phase(gen, str(Path(tmp) / "tokens.bin"))
+        ringed = ring_phase(gen, str(Path(tmp) / "tokens.bin"))
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -1333,6 +1805,21 @@ def main() -> int:
                             fused["launches"]["flash_bwd_fused"],
                             flash_err["flash_bwd_fused"],
                             flash_t["flash_bwd_fused"])}
+    later.update({
+        "all_gather_matmul": ("tpu_dra_torch/csrc/ring.cu",
+                              "tpu_dra/workloads/pallas_kernels.py:1058",
+                              sharded["launches"]["all_gather_matmul"],
+                              ring_err["all_gather_matmul"],
+                              ring_t["all_gather_matmul wqkv"]),
+        "matmul_reduce_scatter": ("tpu_dra_torch/csrc/ring.cu",
+                                  "tpu_dra/workloads/pallas_kernels.py:1165",
+                                  sharded["launches"]["matmul_reduce_scatter"],
+                                  ring_err["matmul_reduce_scatter"],
+                                  ring_t["matmul_reduce_scatter w2"]),
+        "ring_shift": ("tpu_dra_torch/csrc/ring.cu",
+                       "tpu_dra/workloads/pallas_kernels.py:1313",
+                       ringed["launches"]["ring_shift"], ring_err["ring_shift"],
+                       ring_t["ring_shift k/v block"])})
     for name, (source, replaces, launches, err, t) in later.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source,

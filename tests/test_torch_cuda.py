@@ -372,3 +372,158 @@ def test_matmul_wrappers_raise_on_what_the_kernels_do_not_take():
         tm.matmul(x, x.T)
     with pytest.raises(ValueError, match="on cuda"):
         tm.fused_rmsnorm_matmul(x, torch.ones(64), x.T.contiguous().cpu())
+
+
+# --------------------------------------------------------------------------
+# ring kernels: all-gather-matmul, matmul-reduce-scatter, shift
+# (workloads/collective_matmul.py)
+# --------------------------------------------------------------------------
+
+def _ring_close(got, want):
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.flash import row_rel_err
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=cm.ELEM_TOL,
+                               atol=cm.ELEM_TOL)
+    assert float(row_rel_err(got.flatten(0, -2), want.flatten(0, -2))
+                 .max()) <= cm.ROW_TOL
+
+
+def _ring_operands(gen, G, n, rows, K, N, shared_w=False):
+    dev = gen.device
+    x = torch.randn((G, n, rows, K), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((1 if shared_w else G, n, K, N), generator=gen,
+                     device=dev) * K ** -0.5).to(torch.bfloat16)
+    return x, (w.expand(G, -1, -1, -1) if shared_w else w)
+
+
+# (G, n, m, K, N): n 2, 3, 4 and 8; m even (bidirectional from n 3) and
+# odd (unidirectional); K and N not multiples of the tiles; two groups
+# sharing one weight (dp 2)
+RING_CASES = [(1, 2, 64, 128, 64), (1, 3, 130, 96, 136), (1, 4, 200, 256, 72),
+              (1, 4, 77, 64, 128), (2, 4, 64, 520, 200), (1, 8, 16, 64, 64),
+              (2, 2, 33, 40, 16)]
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=str)
+def test_all_gather_matmul_kernel_matches_plain(case):
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    G, n, m, K, N = case
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(case))
+    x, w = _ring_operands(gen, G, n, m, K, N, shared_w=G > 1)
+    before = cm.all_gather_matmul.launches
+    y, a = cm.all_gather_matmul(x, w)
+    torch.cuda.synchronize()
+    assert cm.all_gather_matmul.launches == before + n
+    want_y, want_a = cm.all_gather_matmul_ref(x, w)
+    assert torch.equal(a, want_a)
+    _ring_close(y, want_y)
+
+
+@pytest.mark.parametrize("n,m", [(3, 64), (4, 130), (8, 32)])
+def test_bidirectional_and_unidirectional_rings_agree_bit_for_bit(n, m):
+    """The same even-m inputs through both schedules (the C entry takes
+    the direction as a flag): every row's product is the same sum."""
+    from tpu_dra_torch.kernels.build import library
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n * m)
+    x, w = _ring_operands(gen, 1, n, m, 64, 96)
+    lib = library("ring")
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for bidir in (1, 0):
+        y = torch.empty((1, n, n * m, 96), dtype=torch.bfloat16, device=dev)
+        a = torch.empty((1, n, n, m, 64), dtype=torch.bfloat16, device=dev)
+        for step in range(n):
+            assert lib.tpu_dra_ring_ag_matmul(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(), 1, n,
+                m, 64, 96, m * 64, n * m * 64, w.stride(1), 0, step, bidir,
+                stream) == 0
+        outs.append((y, a))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=str)
+def test_matmul_reduce_scatter_kernel_matches_plain(case):
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    G, n, m, K, N = case
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(case) + 1)
+    x, w = _ring_operands(gen, G, n, n * m, K, N, shared_w=G > 1)
+    before = cm.matmul_reduce_scatter.launches
+    y = cm.matmul_reduce_scatter(x, w)
+    torch.cuda.synchronize()
+    assert cm.matmul_reduce_scatter.launches == before + n
+    _ring_close(y, cm.matmul_reduce_scatter_ref(x, w))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 4, 16, 16, 64, 128), torch.bfloat16),   # vector copies
+    ((1, 3, 5, 7), torch.float32),
+    ((2, 2, 33), torch.bfloat16)],               # 66-byte blocks: bytes
+    ids=["kv-blocks", "fp32-odd", "ragged-bytes"])
+def test_ring_shift_kernel_is_the_plain_shift(shape, dtype, reverse):
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    before = cm.ring_shift.launches
+    y = cm.ring_shift(x, reverse)
+    torch.cuda.synchronize()
+    assert cm.ring_shift.launches == before + 1
+    assert torch.equal(y, cm.ring_shift_ref(x, reverse))
+
+
+def test_ring_vjps_on_the_card_match_the_plain_vjps():
+    """AllGatherMatmul and MatmulReduceScatter (each backward the other
+    kernel) and RingShift against autograd through the plain versions."""
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    x, w = _ring_operands(gen, 2, 4, 64, 128, 96, shared_w=True)
+    w0 = w[:1].detach().clone()
+    for fn, ref, rows in ((cm.AllGatherMatmul, cm.all_gather_matmul_ref, 64),
+                          (cm.MatmulReduceScatter,
+                           cm.matmul_reduce_scatter_ref, 256)):
+        xi = torch.randn((2, 4, rows, 128), generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        wi = w0.clone().requires_grad_()
+        out = fn.apply(xi, wi.expand(2, -1, -1, -1))
+        g = torch.randn(out.shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+        got = torch.autograd.grad(out, (xi, wi), g)
+        xr, wr = xi.detach().requires_grad_(), w0.clone().requires_grad_()
+        plain = ref(xr, wr.expand(2, -1, -1, -1))
+        plain = plain[0] if isinstance(plain, tuple) else plain
+        want = torch.autograd.grad(plain, (xr, wr), g)
+        for a, b in zip(got, want):
+            err = float((a.float() - b.float()).norm() / b.float().norm())
+            assert err < 1e-2, (fn.__name__, err)
+    xs = torch.randn((2, 4, 8, 64), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn_like(xs)
+    (d,) = torch.autograd.grad(cm.RingShift.apply(xs, False), xs, g)
+    assert torch.equal(d, cm.ring_shift_ref(g, True))
+
+
+def test_ring_wrappers_raise_on_what_the_kernels_do_not_take():
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    dev = card()
+    x = torch.zeros((1, 4, 64, 36), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((1, 4, 36, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cm.all_gather_matmul(x, w)
+    with pytest.raises(ValueError, match="bf16"):
+        cm.matmul_reduce_scatter(x[..., :32].float(), w[:, :, :32].float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cm.all_gather_matmul(x[..., :32], w[:, :, :32].contiguous())

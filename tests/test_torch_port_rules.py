@@ -72,6 +72,12 @@ def test_without_cuda_entry_points_refuse_unless_asked_for_cpu(
     params = init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousEngine(cfg, params, slots=1, page_size=8)
+    # the sharded steps run on a mesh's device: the card unless asked
+    from tpu_dra_torch.workloads.mesh import Mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mesh({"dp": 1, "tp": 2})
+    assert Mesh({"dp": 1, "sp": 2}, device="cpu").device == \
+        torch.device("cpu")
     eng = ContinuousEngine(cfg, params, slots=1, page_size=8, device="cpu")
     try:
         assert len(eng.submit([1, 2], 2, timeout=60)) == 2

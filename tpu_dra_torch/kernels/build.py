@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _ERR = (ctypes.c_char_p, [_I])
 # name → {C function: (restype, argtypes)}
 SIGNATURES = {
@@ -74,6 +75,22 @@ SIGNATURES = {
         "tpu_dra_rmsnorm_matmul": (
             _I, [_P, _P, _P, _P, _P,               # x gamma w r out
                  _I, _I, _I, _F,                   # M N K eps
+                 _P]),                             # stream
+        "tpu_dra_cuda_error_string": _ERR,
+    },
+    "ring": {
+        "tpu_dra_ring_ag_matmul": (
+            _I, [_P, _P, _P, _P,                   # x w y a
+                 _I, _I, _I, _I, _I,               # G n m K N
+                 _L, _L, _L, _L,                   # x/w rank, group strides
+                 _I, _I, _P]),                     # step bidir stream
+        "tpu_dra_ring_matmul_rs": (
+            _I, [_P, _P, _P, _P,                   # x w comm y
+                 _I, _I, _I, _I, _I,               # G n m K N
+                 _L, _L, _L, _L,                   # x/w rank, group strides
+                 _I, _P]),                         # step stream
+        "tpu_dra_ring_shift": (
+            _I, [_P, _P, _I, _I, _L, _I,           # x out G n bytes dir
                  _P]),                             # stream
         "tpu_dra_cuda_error_string": _ERR,
     },

@@ -13,8 +13,11 @@ What maps to what:
   single-pass kernel ``_flash_bwd_fused_kernel`` (494-540) and the sum of
   its dQ partials (658); either way the GQA group sum ``_group_sum_kv``
   (706-714);
-- ``FlashAttention`` ↔ the ``custom_vjp`` ``_flash_attn`` (730-752);
-- ``flash_attention`` ↔ the front door ``flash_attention`` (821),
+- ``FlashAttention`` ↔ the ``custom_vjp`` ``_flash_attn`` (730-752), and
+  ``FlashAttentionLse`` ↔ ``_flash_attn_lse`` (755-779), whose l2
+  cotangent folds into dd (602-607);
+- ``flash_attention`` ↔ the front door ``flash_attention`` (821), and
+  ``flash_attention_with_lse`` ↔ ``flash_attention_with_lse`` (802),
   ``_resolve_flash_config`` (34-54) for ``bwd_impl`` and
   ``_validate_and_fold`` (782-796).
 
@@ -253,13 +256,16 @@ def _split(dq_fn, dkdv_fn):
     return grads
 
 
-def _bwd(q, k, v, out, l2, dout, causal: bool, grads):
-    """``_flash_attn_bwd``: ``qs`` and ``dd = rowsum(dO∘O)`` once, then
-    ``grads`` (the split pair or the fused kernel), then the GQA group sum
-    of the per-q-head dk/dv."""
+def _bwd(q, k, v, out, l2, dout, causal: bool, grads, g_l2=None):
+    """``_flash_attn_bwd``: ``qs`` and ``dd = rowsum(dO∘O)`` once (with an
+    l2 cotangent ``g_l2`` folded in as ``dd − log2e·g_l2``, 602-607: the
+    kernels do not change), then ``grads`` (the split pair or the fused
+    kernel), then the GQA group sum of the per-q-head dk/dv."""
     bh, s, d, bhkv, sk, g = _shapes(q, k, v, causal)
     qs = _prescale(q).contiguous()
     dd = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    if g_l2 is not None:
+        dd = dd - _LOG2E * g_l2.float().reshape(bh, s, 1)
     dq, dk, dv = grads(qs, k, v, dout, l2, dd, causal)
     if g > 1:
         dk = _group_sum(dk.reshape(bhkv, g, sk, d))
@@ -268,14 +274,16 @@ def _bwd(q, k, v, out, l2, dout, causal: bool, grads):
 
 
 def flash_attn_bwd_ref(q, k, v, out, l2, dout, causal: bool = True,
-                       bwd_impl: str = "split", bk: int = KV_BLOCK):
+                       bwd_impl: str = "split", bk: int = KV_BLOCK,
+                       g_l2=None):
     """Plain version of the backward: ``(dq, dk, dv)`` bf16 with dk/dv at
-    the kv heads' resolution; ``bk`` is the fused path's dQ partition."""
+    the kv heads' resolution; ``bk`` is the fused path's dQ partition and
+    ``g_l2`` an optional cotangent of l2."""
     _check_bwd_impl(bwd_impl)
     grads = (functools.partial(flash_bwd_fused_ref, bk=bk)
              if bwd_impl == "fused"
              else _split(flash_bwd_dq_ref, flash_bwd_dkdv_ref))
-    return _bwd(q, k, v, out, l2, dout, causal, grads)
+    return _bwd(q, k, v, out, l2, dout, causal, grads, g_l2)
 
 
 def _group_sum(t):
@@ -441,17 +449,18 @@ flash_bwd_fused.launches = 0
 
 
 def flash_attn_bwd(q, k, v, out, l2, dout, causal: bool = True,
-                   bwd_impl: str = "split"):
+                   bwd_impl: str = "split", g_l2=None):
     """The flash backward: ``(dq, dk, dv)`` bf16, dk/dv at the kv heads'
     resolution, through the split pair (:func:`flash_bwd_dq`,
     :func:`flash_bwd_dkdv`) or the fused step (:func:`flash_bwd_fused`):
     kernels for CUDA tensors, plain versions for CPU tensors.  ``qs``,
     ``dd = rowsum(dO∘O)``, dQ's partial sum and the GQA group sum are
-    plain PyTorch, as they are plain XLA in the reference."""
+    plain PyTorch, as they are plain XLA in the reference.  ``g_l2``, an
+    optional cotangent of l2 ``[BH, S]``, shifts the dd operand."""
     _check_bwd_impl(bwd_impl)
     grads = (flash_bwd_fused if bwd_impl == "fused"
              else _split(flash_bwd_dq, flash_bwd_dkdv))
-    return _bwd(q, k, v, out, l2, dout, causal, grads)
+    return _bwd(q, k, v, out, l2, dout, causal, grads, g_l2)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -472,6 +481,29 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, l2 = ctx.saved_tensors
         dq, dk, dv = flash_attn_bwd(q, k, v, out, l2, dout.contiguous(),
                                     ctx.causal, ctx.bwd_impl)
+        return dq, dk, dv, None, None
+
+
+class FlashAttentionLse(torch.autograd.Function):
+    """``[BH, S, D]`` flash attention that also returns the base-2
+    logsumexp ``l2 [BH, S]`` fp32; the counterpart of the reference's
+    ``_flash_attn_lse`` custom VJP (755-779).  Both outputs are
+    differentiable: the l2 cotangent folds into the dd operand of the same
+    backward kernels.  Forward saves ``(q, k, v, out, l2)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, bwd_impl: str = "split"):
+        out, l2 = flash_attn_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, l2)
+        ctx.causal = causal
+        ctx.bwd_impl = bwd_impl
+        return out, l2[..., 0].clone()
+
+    @staticmethod
+    def backward(ctx, dout, g_l2):
+        q, k, v, out, l2 = ctx.saved_tensors
+        dq, dk, dv = flash_attn_bwd(q, k, v, out, l2, dout.contiguous(),
+                                    ctx.causal, ctx.bwd_impl, g_l2)
         return dq, dk, dv, None, None
 
 
@@ -501,3 +533,16 @@ def flash_attention(q, k, v, causal: bool = True, bwd_impl=None):
     qf, kf, vf = _validate_and_fold(q, k, v, causal)
     return FlashAttention.apply(qf, kf, vf, causal, bwd_impl).reshape(
         b, h, s, d)
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = True, bwd_impl=None):
+    """:func:`flash_attention` that also returns the per-row base-2
+    logsumexp ``[B, H, S]`` fp32, the statistic that merges normalized
+    partial attentions over disjoint key sets (the ring engine's
+    ``_merge_partials``); the front door of the reference at 799-818.
+    Both outputs are differentiable."""
+    b, h, s, d = q.shape
+    bwd_impl = resolve_bwd_impl(s, d, bwd_impl)
+    qf, kf, vf = _validate_and_fold(q, k, v, causal)
+    out, l2 = FlashAttentionLse.apply(qf, kf, vf, causal, bwd_impl)
+    return out.reshape(b, h, s, d), l2.reshape(b, h, s)

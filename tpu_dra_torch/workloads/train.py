@@ -12,9 +12,13 @@ smoothing, z-loss), ``grads_fn`` with gradient accumulation,
 ``optim.py``).  ``attn_impl="flash"`` runs attention through the flash
 kernels (``flash.py``); ``norm_impl="fused"`` runs each sublayer's
 rmsnorm→matmul pair through the fused kernel (``matmul.py``) where the
-reference would.  Not ported: selective remat (it changes memory, not
-results), packed sequences (``packed_loss_fn``), sharding, ZeRO-1 and the
-fused-collective branch of the reference trunk.
+reference would.  The sharded half: ``param_shardings``,
+``batch_sharding`` and ``make_sharded_train_step`` over a virtual mesh
+(``mesh.py``), with ``matmul_impl="fused_collective"`` running each
+sublayer's entry and exit matmul through the ring kernels
+(``collective_matmul.py``).  Not ported: selective remat (it changes
+memory, not results), packed sequences (``packed_loss_fn``), ZeRO-1 and
+the optax-optimizer sharded step (``make_optax_train_step`` on a mesh).
 
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
@@ -174,15 +178,105 @@ def _split_qkv(cfg: ModelConfig, qkv):
     return torch.split(qkv, [cfg.d_model, cfg.d_kv, cfg.d_kv], dim=-1)
 
 
-def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense"):
+# --------------------------------------------------------------------------
+# The fused-collective trunk (matmul_impl="fused_collective")
+# --------------------------------------------------------------------------
+
+MATMUL_IMPLS = ("dense", "fused_collective")
+
+
+def _fc_batch_axes(mesh):
+    """The batch's mesh axes for the fused-collective specs (``dcn``,
+    ``dp``; ``None`` where the mesh has neither), as in
+    ``train._fc_batch_axes``."""
+    return tuple(a for a in ("dcn", "dp") if a in mesh.axes) or None
+
+
+def _fc_active(x, w, mesh, matmul_impl: str, contract_sharded: bool) -> bool:
+    """Whether this matmul takes the ring kernels (``train._fc_active``,
+    177-193): ``matmul_impl="fused_collective"`` on a mesh with a > 1-way
+    "tp" axis, a plain-tensor weight (dict leaves keep the plain path), a
+    3-D x whose sequence splits over tp, and a weight whose sharded axis
+    (its rows where the contraction is sharded, else its columns) does.
+    The fallback is the reference's semantics: it changes which rank
+    computes what, never the math."""
+    if matmul_impl != "fused_collective" or mesh is None:
+        return False
+    if not torch.is_tensor(w) or x.dim() != 3:
+        return False
+    tp = mesh.axis_size("tp")
+    if tp <= 1 or x.shape[1] % tp:
+        return False
+    shard_dim = w.shape[0] if contract_sharded else w.shape[1]
+    return shard_dim % tp == 0
+
+
+def _fc_ag_norm_matmul(x, gamma, w, mesh, dtype):
+    """The sublayer entry of the Megatron-SP layout
+    (``train._fc_ag_norm_matmul``, 204-230): x ``[B, S, D]`` cut
+    ``(batch, "tp", None)`` (sequence-sharded), rmsnorm on each rank's
+    rows, then the all-gather-matmul ring kernel against each rank's
+    column shard of w; the result ``[B, S, N]`` comes back whole from
+    the ``(batch, None, "tp")`` column shards.  Rows fold sequence-major
+    (``[B, S/tp, D] → [S/tp·B, D]``), so the gathered row blocks are the
+    sequence blocks."""
+    from tpu_dra_torch.workloads.collective_matmul import AllGatherMatmul
+    G, tp = mesh.ring_groups("tp")
+    batch = _fc_batch_axes(mesh)
+    D = x.shape[-1]
+    xs = mesh.shard(x, (batch, "tp", None))          # [*mesh, bl, sl, D]
+    bl, sl = xs.shape[-3], xs.shape[-2]
+    normed = _rmsnorm(xs, gamma)
+    xf = normed.transpose(-3, -2).reshape(G, tp, sl * bl, D)
+    wl = mesh.shard(w.to(x.dtype), (None, "tp"))
+    y = AllGatherMatmul.apply(xf, wl.reshape(G, tp, *wl.shape[-2:]))
+    y = y.reshape(*mesh.shape, tp * sl, bl, y.shape[-1]).transpose(-3, -2)
+    return mesh.unshard(y, (batch, None, "tp")).to(dtype)
+
+
+def _fc_matmul_rs(x, w, mesh, dtype):
+    """The matching sublayer exit (``train._fc_matmul_rs``, 233-255): the
+    contraction axis of x ``[B, S, K]`` is cut over tp
+    (``(batch, None, "tp")``) and w's rows with it, so each rank holds a
+    partial product; the matmul-reduce-scatter ring kernel sums it while
+    it scatters the rows back to the sequence-sharded ``(batch, "tp",
+    None)`` layout."""
+    from tpu_dra_torch.workloads.collective_matmul import MatmulReduceScatter
+    G, tp = mesh.ring_groups("tp")
+    batch = _fc_batch_axes(mesh)
+    xs = mesh.shard(x, (batch, None, "tp"))          # [*mesh, bl, S, K/tp]
+    bl, S, kl = xs.shape[-3:]
+    xf = xs.transpose(-3, -2).reshape(G, tp, S * bl, kl)
+    wl = mesh.shard(w.to(x.dtype), ("tp", None))
+    y = MatmulReduceScatter.apply(xf, wl.reshape(G, tp, *wl.shape[-2:]))
+    y = y.reshape(*mesh.shape, S // tp, bl, y.shape[-1]).transpose(-3, -2)
+    return mesh.unshard(y, (batch, "tp", None)).to(dtype)
+
+
+def _out_matmul(x, w, dtype, matmul_impl: str = "dense", mesh=None):
+    """The sublayer-closing projection (wo, w2; ``train._out_matmul``):
+    the matmul-reduce-scatter ring kernel where :func:`_fc_active` admits
+    it, else the plain matmul."""
+    if _fc_active(x, w, mesh, matmul_impl, contract_sharded=True):
+        return _fc_matmul_rs(x, w, mesh, dtype)
+    return matmul_any(x, w, dtype)
+
+
+def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense",
+                 matmul_impl: str = "dense", mesh=None):
     """The rmsnorm→matmul pair each sublayer opens with
-    (``train._norm_matmul``).  ``norm_impl="fused"`` sends a plain-tensor
-    weight through :class:`matmul.RmsnormMatmul` when the flattened shapes
-    pass the reference's admission rule (``m % min(256, m) == 0`` and
-    ``n % min(256, n) == 0`` with ``m = B·S``); the weight is cast to x's
-    dtype outside it, so its gradient reaches the fp32 master rounded to
-    bf16.  Anything else (dict leaves, shapes the rule refuses, the
-    default) takes the plain pair."""
+    (``train._norm_matmul``).  ``matmul_impl="fused_collective"`` on a
+    mesh with a > 1-way "tp" axis sends it through the all-gather-matmul
+    ring kernel where :func:`_fc_active` admits it (that branch comes
+    first, as in the reference).  ``norm_impl="fused"`` sends a
+    plain-tensor weight through :class:`matmul.RmsnormMatmul` when the
+    flattened shapes pass the reference's admission rule (``m % min(256,
+    m) == 0`` and ``n % min(256, n) == 0`` with ``m = B·S``); the weight is
+    cast to x's dtype outside it, so its gradient reaches the fp32 master
+    rounded to bf16.  Anything else (dict leaves, shapes the rules
+    refuse, the default) takes the plain pair."""
+    if _fc_active(x, w, mesh, matmul_impl, contract_sharded=False):
+        return _fc_ag_norm_matmul(x, gamma, w, mesh, dtype)
     if norm_impl == "fused" and torch.is_tensor(w):
         B, S, D = x.shape
         m, n = B * S, w.shape[1]
@@ -195,11 +289,14 @@ def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense"):
 
 def _attn_sublayer(cfg: ModelConfig, x, layer,
                    attn_fn=_causal_dense_attention, positions=None,
-                   norm_impl: str = "dense"):
+                   norm_impl: str = "dense", matmul_impl: str = "dense",
+                   mesh=None):
     """Pre-norm attention residual sublayer, GQA-aware.  With
-    ``pos_emb="rope"`` q/k rotate by ``positions`` (default 0..S-1)."""
+    ``pos_emb="rope"`` q/k rotate by ``positions`` (default 0..S-1;
+    ``[S]`` or per-row ``[B, S]``)."""
     B, S, D = x.shape
-    qkv = _norm_matmul(x, layer["ln1"], layer["wqkv"], x.dtype, norm_impl)
+    qkv = _norm_matmul(x, layer["ln1"], layer["wqkv"], x.dtype, norm_impl,
+                       matmul_impl, mesh)
     q, k, v = _split_qkv(cfg, qkv)
     q = _split_heads(cfg, q)
     k = _split_heads(cfg, k, cfg.kv_heads)
@@ -211,22 +308,26 @@ def _attn_sublayer(cfg: ModelConfig, x, layer,
         k = apply_rope(k, positions, cfg.rope_base)
     out = attn_fn(q, k, v)
     out = out.transpose(1, 2).reshape(B, S, D)
-    return x + matmul_any(out, layer["wo"], x.dtype)
+    return x + _out_matmul(out, layer["wo"], x.dtype, matmul_impl, mesh)
 
 
-def _mlp(x, layer, norm_impl: str = "dense"):
+def _mlp(x, layer, norm_impl: str = "dense", matmul_impl: str = "dense",
+         mesh=None):
     """Pre-norm gelu MLP residual.  ``jax.nn.gelu`` defaults to the tanh
     approximation, so the port asks for it explicitly."""
-    h = _norm_matmul(x, layer["ln2"], layer["w1"], x.dtype, norm_impl)
+    h = _norm_matmul(x, layer["ln2"], layer["w1"], x.dtype, norm_impl,
+                     matmul_impl, mesh)
     h = F.gelu(h, approximate="tanh")
-    return x + matmul_any(h, layer["w2"], x.dtype)
+    return x + _out_matmul(h, layer["w2"], x.dtype, matmul_impl, mesh)
 
 
 def _block(cfg: ModelConfig, x, layer, attn_fn=_causal_dense_attention,
-           positions=None, norm_impl: str = "dense"):
+           positions=None, norm_impl: str = "dense",
+           matmul_impl: str = "dense", mesh=None):
     """One decoder block (attention then MLP sublayer)."""
-    return _mlp(_attn_sublayer(cfg, x, layer, attn_fn, positions,
-                               norm_impl), layer, norm_impl)
+    x = _attn_sublayer(cfg, x, layer, attn_fn, positions, norm_impl,
+                       matmul_impl, mesh)
+    return _mlp(x, layer, norm_impl, matmul_impl, mesh)
 
 
 def _flash_attention_fn(q, k, v):
@@ -249,11 +350,26 @@ def attn_impl_fn(attn_impl: str) -> Callable:
     return _ATTN_IMPLS[attn_impl]
 
 
+def embed_rows(embed, tokens):
+    """bf16 rows of the embedding table at ``tokens``, gathered in the
+    table's dtype and then cast.  The forward is the reference's
+    cast-then-gather bit for bit; in the backward the rows' gradients are
+    scatter-added into the fp32 table, where the reference's order adds
+    them into a bf16 one.  A token that recurs r times then gets its fp32
+    sum rather than a sum rounded to bf16 as it grows, which was 1.4-2.2%
+    off (relative L2) for a repetitive window and depended on the token
+    layout: with it the flagship's embed gradient differed by 4.8% between
+    the one-device and the sequence-sharded steps on one [16, 1025]
+    window of chip_smoke.py's corpus (an H100 80GB HBM3 at 700 W), and a
+    narrower model's by 3.2% on the CPU, 0.07% with fp32 sums."""
+    return embed[tokens].to(torch.bfloat16)
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
     """bf16 token embeddings (stored in the parameter dtype, cast on
-    use), plus the learned position rows at ``positions`` (default
-    0..S-1) for ``pos_emb="learned"``."""
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    use, :func:`embed_rows`), plus the learned position rows at
+    ``positions`` (default 0..S-1) for ``pos_emb="learned"``."""
+    x = embed_rows(params["embed"], tokens)
     if cfg.pos_emb == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=x.device)
@@ -262,13 +378,33 @@ def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
 
 
 def _trunk(cfg: ModelConfig, params, tokens,
-           attn_fn=_causal_dense_attention, norm_impl: str = "dense"):
-    """Embed + decoder stack; returns pre-final-norm activations."""
+           attn_fn=_causal_dense_attention, norm_impl: str = "dense",
+           matmul_impl: str = "dense", mesh=None):
+    """Embed + decoder stack; returns pre-final-norm activations.
+
+    ``matmul_impl="fused_collective"`` with a mesh whose "tp" axis is > 1
+    (``train._trunk``, 388-409): every sublayer's entry and exit matmul
+    rides the ring kernels, sequence-sharded over tp between them.  The
+    sequence must split over tp, so the token tail is zero-padded up to a
+    multiple of tp (causal attention keeps the padded columns out of every
+    real row, norms and residuals are row-local, and the padded rows are
+    sliced off); where that padding would run past a learned-position
+    table the shape keeps the plain path, as in the reference."""
+    fc = (matmul_impl == "fused_collective" and mesh is not None
+          and mesh.axis_size("tp") > 1)
+    S = tokens.shape[1]
+    pad = 0
+    if fc:
+        pad = (-S) % mesh.axis_size("tp")
+        if pad and cfg.pos_emb == "learned" and S + pad > cfg.max_seq:
+            pad = 0
+        if pad:
+            tokens = F.pad(tokens, (0, pad))
     x = embed_tokens(cfg, params, tokens)
     for i in range(cfg.n_layers):
         x = _block(cfg, x, layer_params(params["blocks"], i), attn_fn,
-                   norm_impl=norm_impl)
-    return x
+                   norm_impl=norm_impl, matmul_impl=matmul_impl, mesh=mesh)
+    return x[:, :S] if pad else x
 
 
 def head_logits(params, x):
@@ -286,10 +422,12 @@ def head_logits(params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
-            norm_impl: str = "dense"):
+            norm_impl: str = "dense", matmul_impl: str = "dense",
+            mesh=None):
     """Logits ``[B, S, vocab]`` for a ``[B, S]`` integer token batch."""
     return head_logits(params, _trunk(cfg, params, tokens,
-                                      attn_impl_fn(attn_impl), norm_impl))
+                                      attn_impl_fn(attn_impl), norm_impl,
+                                      matmul_impl, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -415,11 +553,12 @@ class _ChunkedNLL(torch.autograd.Function):
 
 def loss_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
             head_impl: str = "dense", label_smoothing: float = 0.0,
-            z_loss: float = 0.0, norm_impl: str = "dense"):
+            z_loss: float = 0.0, norm_impl: str = "dense",
+            matmul_impl: str = "dense", mesh=None):
     """Mean next-token NLL of a ``[B, S+1]`` window batch: the trunk reads
     ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``."""
     trunk = _trunk(cfg, params, tokens[:, :-1], attn_impl_fn(attn_impl),
-                   norm_impl)
+                   norm_impl, matmul_impl, mesh)
     return head_nll(params, trunk, tokens[:, 1:].long(), head_impl,
                     label_smoothing=label_smoothing, z_loss=z_loss).mean()
 
@@ -446,7 +585,8 @@ def tree_unflatten(like, leaves) -> dict:
 def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
              head_impl: str = "dense", accum_steps: int = 1,
              label_smoothing: float = 0.0, z_loss: float = 0.0,
-             norm_impl: str = "dense"):
+             norm_impl: str = "dense", matmul_impl: str = "dense",
+             mesh=None):
     """``(mean loss, grads)`` for a ``[B, S+1]`` batch; grads is a dict
     shaped like ``params``.  ``accum_steps > 1`` runs that many equal
     microbatches one after another and averages, so activations live for
@@ -463,7 +603,8 @@ def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
     def value_and_grad(batch):
         live = [p.requires_grad_() for p in (t.detach() for t in leaves)]
         loss = loss_fn(cfg, tree_unflatten(params, live), batch, attn_impl,
-                       head_impl, label_smoothing, z_loss, norm_impl)
+                       head_impl, label_smoothing, z_loss, norm_impl,
+                       matmul_impl, mesh)
         return loss.detach(), torch.autograd.grad(loss, live)
 
     if accum_steps == 1:
@@ -482,11 +623,13 @@ def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
 
 def sgd_train_step(cfg: ModelConfig, lr: float, params, tokens,
                    attn_impl: str = "dense", head_impl: str = "dense",
-                   accum_steps: int = 1, norm_impl: str = "dense"):
+                   accum_steps: int = 1, norm_impl: str = "dense",
+                   matmul_impl: str = "dense", mesh=None):
     """One plain-SGD step: ``(new params, loss)``."""
     loss, grads = grads_fn(cfg, params, tokens, attn_impl=attn_impl,
                            head_impl=head_impl, accum_steps=accum_steps,
-                           norm_impl=norm_impl)
+                           norm_impl=norm_impl, matmul_impl=matmul_impl,
+                           mesh=mesh)
     new = [p.detach() - lr * g for p, g in zip(tree_leaves(params),
                                                tree_leaves(grads))]
     return tree_unflatten(params, new), loss
@@ -515,3 +658,72 @@ def make_train_step(cfg: ModelConfig, optimizer=None,
         return params, opt_state, loss
 
     return step, optimizer.init
+
+
+# --------------------------------------------------------------------------
+# Sharding over a virtual mesh (mesh.Mesh)
+# --------------------------------------------------------------------------
+
+
+def param_shardings(cfg: ModelConfig, mesh) -> dict[str, Any]:
+    """How each parameter leaf splits over the mesh (``train.
+    param_shardings``, 692-714), as one spec per leaf (``Mesh.shard``'s
+    form): the big matmuls' feature axes over "tp", norms, embeddings'
+    rows and the rest replicated.  The sharded steps take the whole tree;
+    this says how it is cut into per-rank shards."""
+    out: dict[str, Any] = {
+        "embed": (None, "tp"),
+        "blocks": {
+            "wqkv": (None, None, "tp"),
+            "wo": (None, "tp", None),
+            "w1": (None, None, "tp"),
+            "w2": (None, "tp", None),
+            "ln1": (None, None),
+            "ln2": (None, None),
+        },
+        "ln_f": (None,),
+    }
+    if not cfg.tied_embeddings:
+        out["unembed"] = (None, "tp")
+    if cfg.pos_emb == "learned":
+        out["pos"] = (None, "tp")
+    return out
+
+
+def batch_sharding(mesh) -> tuple:
+    """The token batch's spec (``train.batch_sharding``, 717-723): rows
+    over ``("dcn", "dp")`` on a multislice mesh, else over "dp"."""
+    if "dcn" in mesh.axes:
+        return (("dcn", "dp"), None)
+    return ("dp", None)
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
+                            attn_impl: str = "dense",
+                            head_impl: str = "dense", accum_steps: int = 1,
+                            norm_impl: str = "dense",
+                            matmul_impl: str = "dense"):
+    """The DP×TP SGD step over ``mesh`` (axes "dp", "tp"; the counterpart
+    of ``train.make_sharded_train_step``, 726-753): ``(step, p_shard,
+    b_shard)`` with ``step(params, tokens) -> (params, loss)`` on the
+    mesh's device.
+
+    ``matmul_impl="dense"`` computes what the one-device step computes:
+    GSPMD's collectives are plain there, and the step is
+    :func:`sgd_train_step` over the whole tree.  ``"fused_collective"``
+    runs each sublayer's entry and exit matmul through the ring kernels on
+    the mesh (see :func:`_trunk`; no-op on a 1-way "tp" axis).  Anything
+    else raises ``ValueError``."""
+    if matmul_impl not in MATMUL_IMPLS:
+        raise ValueError(f"unknown matmul_impl {matmul_impl!r}; expected "
+                         f"'dense' or 'fused_collective'")
+    p_shard = param_shardings(cfg, mesh)
+    b_shard = batch_sharding(mesh)
+
+    def step(params, tokens):
+        return sgd_train_step(cfg, lr, params, tokens, attn_impl=attn_impl,
+                              head_impl=head_impl, accum_steps=accum_steps,
+                              norm_impl=norm_impl, matmul_impl=matmul_impl,
+                              mesh=mesh)
+
+    return step, p_shard, b_shard

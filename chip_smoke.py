@@ -64,9 +64,11 @@ Phases (each prints as it goes; any failed check exits non-zero):
      2 layers), so the grouped forward and backward run inside training;
  11. the ring kernels (csrc/ring.cu) against their plain versions on a
      virtual ring of 4 ranks at the flagship's tp-4 shapes (all-gather-
-     matmul at x [4096, 2048] per rank against the wqkv and w1 shards,
-     matmul-reduce-scatter at [16384, 512] @ wo and [16384, 2048] @ w2,
-     the shift at k/v blocks [16, 16, 256, 128]), then n 1 and 2, odd m,
+     matmul at x [4096, 2048] per rank against the wqkv, w1 and wo^T
+     shards, matmul-reduce-scatter at [16384, 512] @ wo, [16384, 2048] @
+     w2 and [16384, 1536] @ wqkv^T: every shape of the DP×TP step's
+     forward and backward; the shift at k/v blocks [16, 16, 256, 128]),
+     then n 1 and 2, odd m,
      a ragged K and two groups: y elementwise and per row
      (collective_matmul.ELEM_TOL, ROW_TOL), the gathered operand and the
      shift byte-equal, the VJPs against autograd through the plain
@@ -1291,10 +1293,12 @@ def hold_ring(label: str, got, want) -> tuple:
 
 
 def check_ring(gen) -> dict:
-    """Phase 11: each ring kernel against its plain version at the
-    training paths' shapes (tp 4: the gather at x [4096, 2048] per rank
-    against the wqkv and w1 shards, the reduce-scatter at [16384, 512] @
-    wo and [16384, 2048] @ w2, the shift at k/v blocks [16, 16, 256, 128]),
+    """Phase 11: each ring kernel against its plain version at every shape
+    the training paths launch it at (tp 4: the gather at x [4096, 2048]
+    per rank against the wqkv and w1 shards, and against wo^T for wo's
+    dx; the reduce-scatter at [16384, 512] @ wo and [16384, 2048] @ w2,
+    and [16384, 1536] @ wqkv^T for wqkv's dx; w1's and w2's dx run the
+    w2 and w1 shapes; the shift at k/v blocks [16, 16, 256, 128]),
     then n 1 and 2, odd m (the unidirectional gather), a ragged K and two
     groups; the gathered operand and the shift byte-equal; then the VJPs
     against autograd through the plain versions.  Returns the max abs
@@ -1305,6 +1309,7 @@ def check_ring(gen) -> dict:
     cases = [  # (label, G, n, m, K, N)
         ("path: wqkv", 1, 4, 4096, 2048, 1536),
         ("path: w1", 1, 4, 4096, 2048, 2048),
+        ("bwd: wo^T", 1, 4, 4096, 2048, 512),
         ("n 1", 1, 1, 512, 256, 256), ("n 2", 1, 2, 1024, 512, 384),
         ("odd m (unidirectional)", 1, 4, 1001, 256, 512),
         ("ragged K", 1, 4, 512, 200, 136), ("dp 2", 2, 4, 256, 512, 256)]
@@ -1326,6 +1331,7 @@ def check_ring(gen) -> dict:
         del x, w, y, a, want_y, want_a
     cases = [("path: w2", 1, 4, 4096, 2048, 2048),
              ("path: wo", 1, 4, 4096, 512, 2048),
+             ("bwd: wqkv^T", 1, 4, 4096, 1536, 2048),
              ("n 1", 1, 1, 512, 256, 256), ("n 2", 1, 2, 1024, 512, 384),
              ("odd m", 1, 4, 1001, 256, 512), ("ragged K", 1, 4, 512, 200, 136),
              ("dp 2", 2, 4, 256, 512, 256)]

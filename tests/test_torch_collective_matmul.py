@@ -33,7 +33,8 @@ from tpu_dra.workloads.pallas_kernels import (_ag_matmul_call,
 from tpu_dra.workloads.ring_attention import shard_map
 from tpu_dra_torch.workloads import collective_matmul as cm
 from tpu_dra_torch.workloads import mesh as tmesh
-from tpu_dra_torch.workloads.train import ModelConfig, param_shardings
+from tpu_dra_torch.workloads.train import (ModelConfig, batch_sharding,
+                                           param_shardings)
 
 TOL = cm.ELEM_TOL
 
@@ -242,6 +243,18 @@ def test_mesh_refuses_what_it_cannot_cut(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tmesh.Mesh({"tp": 4})
+
+
+@pytest.mark.parametrize("axes,want", [
+    ({"dp": 2, "tp": 4}, "dp"), ({"dcn": 2, "dp": 2, "tp": 2}, ("dcn", "dp")),
+    ({"sp": 4}, None)], ids=["dp", "dcn-dp", "none"])
+def test_mesh_batch_axes_are_the_reference_batch_spec(axes, want):
+    """One rule for the axes that carry the batch, read by
+    ``batch_sharding``, the fused-collective specs and the ring entry
+    points: "dcn" and "dp" where the mesh has them."""
+    mesh = tmesh.Mesh(axes, device=CPU)
+    assert mesh.batch_axes() == want
+    assert batch_sharding(mesh) == (want, None)
 
 
 def test_cpu_wrappers_take_the_plain_versions_without_launching():

@@ -153,7 +153,7 @@ def _flash_kernels_match_plain(bh, bhkv, s, d, causal, sk=None):
 
 
 def test_flash_attention_autograd_on_the_card_matches_plain():
-    """The front door through FlashAttention: GQA grads group-summed."""
+    """The front door through FlashAttentionLse: GQA grads group-summed."""
     from tpu_dra_torch.workloads import flash as tf
     dev = card()
     gen = torch.Generator(device=dev)

@@ -124,6 +124,46 @@ def test_flash_attention_with_lse_matches_the_reference():
         close(g, w)
 
 
+def test_an_unused_output_leaves_the_flash_backward_as_it_is():
+    """``FlashAttentionLse`` serves both front doors: with only ``out``
+    used (``flash_attention``) the gradients are the flash backward's with
+    no l2 cotangent, bit for bit, and with only ``l2`` used they are its
+    backward with a zero dO."""
+    B, H, S, D = 1, 2, 32, 16
+    q, k, v = (tt_(bf16(s, (B, H, S, D))) for s in (10, 11, 12))
+    g_out, g_l2 = tt_(bf16(13, (B, H, S, D))), torch.tensor(bf16(14, (B, H,
+                                                                        S)))
+    fold = [t.reshape(B * H, S, D) for t in (q, k, v)]
+    out, l2 = tf.flash_attn_fwd(*fold, True)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(tf.flash_attention(*ins, bwd_impl="split"),
+                              ins, g_out)
+    want = tf.flash_attn_bwd(*fold, out, l2, g_out.reshape(B * H, S, D))
+    for a, b in zip(got, want):
+        assert torch.equal(a.reshape(b.shape), b)
+    _, l2_only = tf.flash_attention_with_lse(*ins, bwd_impl="split")
+    got = torch.autograd.grad(l2_only, ins, g_l2)
+    want = tf.flash_attn_bwd(*fold, out, l2, torch.zeros_like(out),
+                             g_l2=g_l2.reshape(B * H, S))
+    for a, b in zip(got, want):
+        assert torch.equal(a.reshape(b.shape), b)
+
+
+def test_ring_entry_points_refuse_inputs_off_the_mesh_device():
+    """A mesh's functions run on its device: CPU inputs to a mesh on
+    another device raise rather than run where they lie."""
+    mesh = Mesh({"dp": 1, "sp": 2}, device="meta")
+    z = torch.zeros((1, 2, 8, 4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="runs on meta"):
+        tra.make_ring_attention_flash(mesh)(z, z, z)
+    cfg = tt.ModelConfig(**RING_CFG)
+    params = to_torch(jax_params(jt.ModelConfig(**RING_CFG)))
+    step, _ = tra.make_ring_train_step(cfg, mesh)
+    toks = torch.zeros((2, 8), dtype=torch.long)
+    with pytest.raises(ValueError, match="runs on meta"):
+        step(params, toks, toks)
+
+
 def test_ring_flash_folds_only_past_blocks_and_hops_exactly(monkeypatch):
     """At sp = 4 the flash engine runs the diagonal for every rank, then
     at step t the ranks t..3 only: n flash launches' worth of calls, and
@@ -186,7 +226,7 @@ def test_ring_train_step_matches_the_reference(ring, hop):
     step, spec = tra.make_ring_train_step(
         tcfg, Mesh({"dp": 2, "sp": 2}, device=CPU), lr=1.0, ring_impl=ring,
         hop_impl=hop)
-    assert spec == (("dp",), "sp")
+    assert spec == ("dp", "sp")
     got, got_loss = step(to_torch(params), torch.from_numpy(toks),
                          torch.from_numpy(tgts))
     assert abs(float(got_loss) - float(want_loss)) < LOSS_ATOL

@@ -119,6 +119,22 @@ def test_fused_step_falls_back_where_padding_would_pass_the_table(
         assert torch.equal(a, b)
 
 
+def test_sharded_step_refuses_inputs_off_the_mesh_device():
+    """The step runs on the mesh's device: CPU parameters and tokens given
+    to a step on a mesh elsewhere raise rather than train on the CPU."""
+    cfg = jt.ModelConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
+                         d_ff=64, max_seq=16)
+    _, tcfg = cfg_pair(vocab=64, d_model=32, n_heads=4, n_layers=1, d_ff=64,
+                       max_seq=16)
+    params = to_torch(jax_params(cfg))
+    toks = torch.zeros((2, 17), dtype=torch.long)
+    for impl in ("dense", "fused_collective"):
+        step, _, _ = tt.make_sharded_train_step(
+            tcfg, Mesh({"dp": 1, "tp": 2}, device="meta"), matmul_impl=impl)
+        with pytest.raises(ValueError, match="runs on meta"):
+            step(params, toks)
+
+
 def test_make_sharded_train_step_rejects_unknown_matmul_impl():
     mesh = Mesh({"dp": 1, "tp": 2}, device=CPU)
     with pytest.raises(ValueError, match="matmul_impl"):

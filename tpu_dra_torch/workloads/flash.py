@@ -13,9 +13,9 @@ What maps to what:
   single-pass kernel ``_flash_bwd_fused_kernel`` (494-540) and the sum of
   its dQ partials (658); either way the GQA group sum ``_group_sum_kv``
   (706-714);
-- ``FlashAttention`` ↔ the ``custom_vjp`` ``_flash_attn`` (730-752), and
-  ``FlashAttentionLse`` ↔ ``_flash_attn_lse`` (755-779), whose l2
-  cotangent folds into dd (602-607);
+- ``FlashAttentionLse`` ↔ the ``custom_vjp``s ``_flash_attn`` (730-752)
+  and ``_flash_attn_lse`` (755-779), whose l2 cotangent folds into dd
+  (602-607): one Function serves both front doors;
 - ``flash_attention`` ↔ the front door ``flash_attention`` (821), and
   ``flash_attention_with_lse`` ↔ ``flash_attention_with_lse`` (802),
   ``_resolve_flash_config`` (34-54) for ``bwd_impl`` and
@@ -463,38 +463,21 @@ def flash_attn_bwd(q, k, v, out, l2, dout, causal: bool = True,
     return _bwd(q, k, v, out, l2, dout, causal, grads, g_l2)
 
 
-class FlashAttention(torch.autograd.Function):
-    """``[BH, S, D]`` flash attention with the flash backward named by
-    ``bwd_impl``; the counterpart of the reference's ``_flash_attn`` custom
-    VJP.  Forward saves ``(q, k, v, out, l2)``."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, bwd_impl: str = "split"):
-        out, l2 = flash_attn_fwd(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out, l2)
-        ctx.causal = causal
-        ctx.bwd_impl = bwd_impl
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, l2 = ctx.saved_tensors
-        dq, dk, dv = flash_attn_bwd(q, k, v, out, l2, dout.contiguous(),
-                                    ctx.causal, ctx.bwd_impl)
-        return dq, dk, dv, None, None
-
-
 class FlashAttentionLse(torch.autograd.Function):
     """``[BH, S, D]`` flash attention that also returns the base-2
-    logsumexp ``l2 [BH, S]`` fp32; the counterpart of the reference's
-    ``_flash_attn_lse`` custom VJP (755-779).  Both outputs are
+    logsumexp ``l2 [BH, S]`` fp32, with the flash backward named by
+    ``bwd_impl``; the counterpart of the reference's ``_flash_attn`` and
+    ``_flash_attn_lse`` custom VJPs (730-779).  Both outputs are
     differentiable: the l2 cotangent folds into the dd operand of the same
-    backward kernels.  Forward saves ``(q, k, v, out, l2)``."""
+    backward kernels, and an l2 no one used arrives as ``None`` (grads are
+    not materialized), so :func:`flash_attention` runs the backward of
+    ``_flash_attn`` bit for bit.  Forward saves ``(q, k, v, out, l2)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, bwd_impl: str = "split"):
         out, l2 = flash_attn_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, l2)
+        ctx.set_materialize_grads(False)
         ctx.causal = causal
         ctx.bwd_impl = bwd_impl
         return out, l2[..., 0].clone()
@@ -502,8 +485,9 @@ class FlashAttentionLse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, g_l2):
         q, k, v, out, l2 = ctx.saved_tensors
-        dq, dk, dv = flash_attn_bwd(q, k, v, out, l2, dout.contiguous(),
-                                    ctx.causal, ctx.bwd_impl, g_l2)
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        dq, dk, dv = flash_attn_bwd(q, k, v, out, l2, dout, ctx.causal,
+                                    ctx.bwd_impl, g_l2)
         return dq, dk, dv, None, None
 
 
@@ -531,8 +515,8 @@ def flash_attention(q, k, v, causal: bool = True, bwd_impl=None):
     b, h, s, d = q.shape
     bwd_impl = resolve_bwd_impl(s, d, bwd_impl)
     qf, kf, vf = _validate_and_fold(q, k, v, causal)
-    return FlashAttention.apply(qf, kf, vf, causal, bwd_impl).reshape(
-        b, h, s, d)
+    out, _ = FlashAttentionLse.apply(qf, kf, vf, causal, bwd_impl)
+    return out.reshape(b, h, s, d)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = True, bwd_impl=None):

@@ -35,7 +35,7 @@ import torch
 from tpu_dra_torch.device import resolve_device
 
 
-def _axes_of(entry) -> tuple:
+def axes_of(entry) -> tuple:
     """The mesh axes a spec entry names (``()`` for ``None``)."""
     if entry is None:
         return ()
@@ -46,7 +46,9 @@ class Mesh:
     """Named axes of ranks on one device: ``Mesh({"dp": 1, "tp": 4})``.
 
     ``device`` defaults to the card (``resolve_device``: ``cuda:0``, or
-    ``RuntimeError`` without CUDA); the tests pass ``device="cpu"``."""
+    ``RuntimeError`` without CUDA); the tests pass ``device="cpu"``.  The
+    steps and attention functions built on a mesh run on its device, and
+    :meth:`check_device` refuses inputs that lie anywhere else."""
 
     def __init__(self, axes: dict, device=None):
         self.axes = {str(k): int(v) for k, v in dict(axes).items()}
@@ -71,6 +73,22 @@ class Mesh:
         the reference's ``_mesh_axis_sizes(...).get(name, 1)``)."""
         return self.axes.get(name, 1)
 
+    def batch_axes(self):
+        """The spec entry of the batch dimension: the mesh's "dcn" and
+        "dp" axes where it has them, as ``("dcn", "dp")``, one name, or
+        ``None`` (the reference's ``batch_sharding`` and
+        ``_fc_batch_axes``)."""
+        axes = tuple(a for a in ("dcn", "dp") if a in self.axes)
+        return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def check_device(self, *tensors) -> None:
+        """Raise ``ValueError`` unless every tensor lies on the mesh's
+        device."""
+        for t in tensors:
+            if t.device != self.device:
+                raise ValueError(f"the mesh runs on {self.device}; got an "
+                                 f"input on {t.device}")
+
     def ring_groups(self, axis: str) -> tuple:
         """``(G, n)`` of a ring over ``axis``, which must be the mesh's
         last axis: a stacked tensor then reshapes to ``[G, n, ...]``, the
@@ -87,7 +105,7 @@ class Mesh:
         if len(spec) != ndim:
             raise ValueError(f"spec {spec} has more entries than the "
                              f"tensor's {ndim} dimensions")
-        used = [a for e in spec for a in _axes_of(e)]
+        used = [a for e in spec for a in axes_of(e)]
         for a in used:
             if a not in self.axes:
                 raise ValueError(f"spec names axis {a!r}, not in mesh "
@@ -104,7 +122,7 @@ class Mesh:
         spec = self._spec(spec, x.dim())
         shape, pos = [], {}
         for size, entry in zip(x.shape, spec):
-            axes = _axes_of(entry)
+            axes = axes_of(entry)
             parts = math.prod(self.axes[a] for a in axes)
             if size % parts:
                 raise ValueError(f"dimension of size {size} does not split "
@@ -131,14 +149,14 @@ class Mesh:
             raise ValueError(f"stacked tensor {tuple(t.shape)} does not "
                              f"lead with the mesh shape {self.shape}")
         spec = self._spec(spec, t.dim() - n_mesh)
-        named = {a for e in spec for a in _axes_of(e)}
+        named = {a for e in spec for a in axes_of(e)}
         for i in reversed(range(n_mesh)):
             if self.axis_names[i] not in named:
                 t = t.select(i, 0)
         kept = [a for a in self.axes if a in named]
         perm, shape = [], []
         for d, entry in enumerate(spec):
-            axes = _axes_of(entry)
+            axes = axes_of(entry)
             perm += [kept.index(a) for a in axes] + [len(kept) + d]
             shape.append(t.shape[len(kept) + d]
                          * math.prod(self.axes[a] for a in axes))

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_dra_torch.workloads.mesh import ppermute, psum
+from tpu_dra_torch.workloads.mesh import axes_of, ppermute, psum
 
 HOP_IMPLS = ("xla", "pallas")
 RING_IMPLS = ("xla", "flash")
@@ -159,17 +159,14 @@ def ring_attention_flash(q, k, v, causal: bool = True,
     return out.to(q.dtype)
 
 
-def _ring_spec(mesh, axis_name: str):
-    batch = "dp" if "dp" in mesh.axes else None
-    return (batch, None, axis_name, None)
-
-
 def _make(engine, mesh, axis_name: str, causal: bool, hop_impl: str):
     _check_hop_impl(hop_impl)
     G, n = mesh.ring_groups(axis_name)
-    spec = _ring_spec(mesh, axis_name)
+    spec = (mesh.batch_axes(), None, axis_name, None)
 
     def attend(q, k, v):
+        mesh.check_device(q, k, v)
+
         def ring(t):
             s = mesh.shard(t, spec)
             return s.reshape(G, n, *s.shape[len(mesh.axes):])
@@ -181,9 +178,12 @@ def _make(engine, mesh, axis_name: str, causal: bool, hop_impl: str):
 
 def make_ring_attention(mesh, *, axis_name: str = "sp", causal: bool = True,
                         hop_impl: str = "xla"):
-    """:func:`ring_attention` over global ``[B, H, S, D]`` q/k/v whose S
-    axis is cut over ``axis_name`` (the mesh's last axis; the batch over
-    "dp" where the mesh has it), as the reference's ``shard_map`` wrapper."""
+    """:func:`ring_attention` over global ``[B, H, S, D]`` q/k/v on the
+    mesh's device whose S axis is cut over ``axis_name`` (the mesh's last
+    axis; the batch over :meth:`Mesh.batch_axes`), as the reference's
+    ``shard_map`` wrapper.  The reference cuts the batch over "dp" alone;
+    on a mesh with a "dcn" axis too that changes which ranks compute
+    which rows, not the result."""
     return _make(ring_attention, mesh, axis_name, causal, hop_impl)
 
 
@@ -255,9 +255,10 @@ def make_ring_train_step(cfg, mesh, lr: float = 1e-2, axis_name: str = "sp",
     """The DP×SP SGD step (``ring_attention.make_ring_train_step``,
     446-503): ``(step, token_spec)`` with ``step(params, tokens, targets)
     -> (params, loss)``; tokens and targets ``[B, S]`` on the mesh's
-    device, cut ``(("dcn", "dp"), axis_name)``, the parameters whole.  The
-    caller shifts the targets globally, so the next-token pairs across
-    shard boundaries stay right.
+    device (inputs anywhere else raise ``ValueError``), cut ``(("dcn",
+    "dp"), axis_name)``, the parameters whole.  The caller shifts the
+    targets globally, so the next-token pairs across shard boundaries stay
+    right.
 
     The loss is the global mean: each rank's summed NLL over the psum of
     the token counts.  As in the reference, every rank differentiates its
@@ -268,8 +269,8 @@ def make_ring_train_step(cfg, mesh, lr: float = 1e-2, axis_name: str = "sp",
     does the port's, which holds to it in the tests."""
     from tpu_dra_torch.workloads.train import (head_nll, tree_leaves,
                                                tree_unflatten)
-    batch_axes = tuple(a for a in ("dcn", "dp") if a in mesh.axes)
-    extra = set(mesh.axes) - set(batch_axes) - {axis_name}
+    batch = mesh.batch_axes()
+    extra = set(mesh.axes) - set(axes_of(batch)) - {axis_name}
     if extra:
         raise ValueError(f"the ring step's mesh holds batch axes and "
                          f"{axis_name!r} only, got {mesh.axes}")
@@ -278,13 +279,14 @@ def make_ring_train_step(cfg, mesh, lr: float = 1e-2, axis_name: str = "sp",
                          f"or 'flash'")
     _check_hop_impl(hop_impl)
     G, n = mesh.ring_groups(axis_name)
-    tok_spec = (batch_axes or None, axis_name)
+    tok_spec = (batch, axis_name)
 
     def ring(t):
         s = mesh.shard(t, tok_spec)
         return s.reshape(G, n, *s.shape[len(mesh.axes):])
 
     def step(params, tokens, targets):
+        mesh.check_device(tokens, targets, *tree_leaves(params))
         tok, tgt = ring(tokens), ring(targets)
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         live = tree_unflatten(params, leaves)

@@ -23,7 +23,9 @@ the optax-optimizer sharded step (``make_optax_train_step`` on a mesh).
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
 matmuls of bf16 operands return bf16, and norms and softmax compute in
-fp32 before casting back.
+fp32 before casting back.  One departure is deliberate: the embedding
+gradient sums in fp32 where the reference's adds into a bf16 table
+(:func:`embed_rows`).
 """
 
 from __future__ import annotations
@@ -185,13 +187,6 @@ def _split_qkv(cfg: ModelConfig, qkv):
 MATMUL_IMPLS = ("dense", "fused_collective")
 
 
-def _fc_batch_axes(mesh):
-    """The batch's mesh axes for the fused-collective specs (``dcn``,
-    ``dp``; ``None`` where the mesh has neither), as in
-    ``train._fc_batch_axes``."""
-    return tuple(a for a in ("dcn", "dp") if a in mesh.axes) or None
-
-
 def _fc_active(x, w, mesh, matmul_impl: str, contract_sharded: bool) -> bool:
     """Whether this matmul takes the ring kernels (``train._fc_active``,
     177-193): ``matmul_impl="fused_collective"`` on a mesh with a > 1-way
@@ -222,7 +217,7 @@ def _fc_ag_norm_matmul(x, gamma, w, mesh, dtype):
     sequence blocks."""
     from tpu_dra_torch.workloads.collective_matmul import AllGatherMatmul
     G, tp = mesh.ring_groups("tp")
-    batch = _fc_batch_axes(mesh)
+    batch = mesh.batch_axes()
     D = x.shape[-1]
     xs = mesh.shard(x, (batch, "tp", None))          # [*mesh, bl, sl, D]
     bl, sl = xs.shape[-3], xs.shape[-2]
@@ -243,7 +238,7 @@ def _fc_matmul_rs(x, w, mesh, dtype):
     None)`` layout."""
     from tpu_dra_torch.workloads.collective_matmul import MatmulReduceScatter
     G, tp = mesh.ring_groups("tp")
-    batch = _fc_batch_axes(mesh)
+    batch = mesh.batch_axes()
     xs = mesh.shard(x, (batch, None, "tp"))          # [*mesh, bl, S, K/tp]
     bl, S, kl = xs.shape[-3:]
     xf = xs.transpose(-3, -2).reshape(G, tp, S * bl, kl)
@@ -353,15 +348,17 @@ def attn_impl_fn(attn_impl: str) -> Callable:
 def embed_rows(embed, tokens):
     """bf16 rows of the embedding table at ``tokens``, gathered in the
     table's dtype and then cast.  The forward is the reference's
-    cast-then-gather bit for bit; in the backward the rows' gradients are
-    scatter-added into the fp32 table, where the reference's order adds
-    them into a bf16 one.  A token that recurs r times then gets its fp32
-    sum rather than a sum rounded to bf16 as it grows, which was 1.4-2.2%
-    off (relative L2) for a repetitive window and depended on the token
-    layout: with it the flagship's embed gradient differed by 4.8% between
-    the one-device and the sequence-sharded steps on one [16, 1025]
-    window of chip_smoke.py's corpus (an H100 80GB HBM3 at 700 W), and a
-    narrower model's by 3.2% on the CPU, 0.07% with fp32 sums."""
+    cast-then-gather bit for bit.  The backward departs from it on
+    purpose: the rows' gradients are scatter-added into the fp32 table,
+    where the reference adds them into a bf16 one.  A token that recurs r
+    times gets its fp32 sum, not a bf16 running sum whose rounding grows
+    with r and depends on the order the tokens come in, so the one-device
+    and the sequence-sharded steps agree (the bf16 sum had put the
+    flagship's embed gradients of the two 4.8% apart, relative L2, on one
+    [16, 1025] window of chip_smoke.py's corpus on an H100 80GB HBM3 at
+    700 W).  The cost is a gap to the reference that grows with r:
+    ``test_embed_grad_of_a_repetitive_window_stays_near_the_reference``
+    reads 1.1% at 130 recurrences and 1.8% at 260 on the CPU."""
     return embed[tokens].to(torch.bfloat16)
 
 
@@ -692,10 +689,9 @@ def param_shardings(cfg: ModelConfig, mesh) -> dict[str, Any]:
 
 def batch_sharding(mesh) -> tuple:
     """The token batch's spec (``train.batch_sharding``, 717-723): rows
-    over ``("dcn", "dp")`` on a multislice mesh, else over "dp"."""
-    if "dcn" in mesh.axes:
-        return (("dcn", "dp"), None)
-    return ("dp", None)
+    over ``("dcn", "dp")`` on a multislice mesh, else over "dp"
+    (:meth:`Mesh.batch_axes`)."""
+    return (mesh.batch_axes(), None)
 
 
 def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
@@ -706,7 +702,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
     """The DP×TP SGD step over ``mesh`` (axes "dp", "tp"; the counterpart
     of ``train.make_sharded_train_step``, 726-753): ``(step, p_shard,
     b_shard)`` with ``step(params, tokens) -> (params, loss)`` on the
-    mesh's device.
+    mesh's device (inputs anywhere else raise ``ValueError``).
 
     ``matmul_impl="dense"`` computes what the one-device step computes:
     GSPMD's collectives are plain there, and the step is
@@ -721,6 +717,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
     b_shard = batch_sharding(mesh)
 
     def step(params, tokens):
+        mesh.check_device(tokens, *tree_leaves(params))
         return sgd_train_step(cfg, lr, params, tokens, attn_impl=attn_impl,
                               head_impl=head_impl, accum_steps=accum_steps,
                               norm_impl=norm_impl, matmul_impl=matmul_impl,

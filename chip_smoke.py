@@ -13,7 +13,8 @@ the fused-collective ring kernels, DP×SP with ring flash attention).
 Phases (each prints as it goes; any failed check exits non-zero):
   1. build every kernel (one nvcc per source, all at once); print the
      build times, the ptxas register/spill lines and the card's name and
-     power limit (nvidia-smi);
+     power limit (nvidia-smi); fail if ptxas reports spill bytes for the
+     flash forward kernel;
   2. paged attention: kernel vs plain version at the serving path's shapes
      (B=32, H=8, Hkv=2, Dh=128, ps=64, MP=16), scrambled pages, -1 tails,
      lengths 0, 1, a page boundary, mid-page and the full MP*ps; bf16 pages
@@ -37,7 +38,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
   6. time the four flash kernels, their wrappers and plain versions, and
      the library yardstick (scaled_dot_product_attention forward, and its
      backward for the backward kernels) with CUDA events at the path's
-     shapes; the fused backward beside the split pair;
+     shapes; the fused backward beside the split pair; for the forward,
+     its share of the bound, its ratio to the SDPA forward and its time
+     before the TMA/wgmma redesign;
   7. matmul kernels: the tiled matmul at 4096^3, k 512, a rectangle and
      ragged tiles, the fused RMSNorm-matmul at the flagship's ln1 -> wqkv
      and ln2 -> w1 ([16384, 2048] @ [2048, 6144] and @ [2048, 8192]), m <
@@ -91,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +153,11 @@ SHARDED_RUN = dict(steps=10, batch=16)
 # for the gather's dx at phase 11's VJP shapes in a CPU run of the plain
 # paths)
 VJP_REL = 1e-2
+# the flash forward's card time before its TMA/wgmma redesign (the first
+# version: mma.sync, 64-row blocks, one synchronous K/V stage), phase 6 on
+# an H100 80GB HBM3 at 700 W (PERF.md §6)
+FWD_BEFORE_US = {"flagship [256, 1024, 128]": "598.1-603.2",
+                 "GQA run [64 over 16, 1024, 128]": "177.8-179.9"}
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -1254,6 +1263,29 @@ def bench_phase() -> dict:
     return {"launches": launches, **res}
 
 
+def check_spills(built) -> None:
+    """Fail if ptxas reported spill bytes for a kernel of ``built`` (a
+    fresh build's log; a reused library has none to read)."""
+    if not built.log:
+        log(f"[build] {built.path.name} was reused: no ptxas lines to check")
+        return
+    spills = [ln.strip() for ln in built.log.splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    if spills:
+        fail(f"ptxas spills in {built.path.name}: {spills}")
+    log(f"[build] {built.path.name}: no spills")
+
+
+def log_fwd_summary(shape: str, t: dict, card: str) -> None:
+    """The forward's share of its bound, its ratio to the SDPA forward and
+    its time before the redesign."""
+    log(f"[time] flash_fwd at the {shape}: {t['ms'] * 1e3:.1f} us, "
+        f"{t['bound_ms'] / t['ms']:.3f} of its {t['bound_ms'] * 1e3:.1f} us "
+        f"bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x the SDPA "
+        f"forward's {t['library_ms'] * 1e3:.1f} us; before the TMA/wgmma "
+        f"redesign {FWD_BEFORE_US[shape]} us; on {card}")
+
+
 def log_flash_times(shape: str, times: dict, card: str) -> None:
     for name, t in times.items():
         lib = ("forward" if name == "flash_fwd"
@@ -1722,8 +1754,9 @@ def main() -> int:
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.1f} s -> {b.path.name}")
         for ln in b.log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "wgmma" in ln:
                 log(f"[build]   {ln.strip()}")
+    check_spills(built["flash_fwd"])
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")
@@ -1749,13 +1782,16 @@ def main() -> int:
         flash_err = check_flash(gen)
     flash_t = time_flash(gen, B=16, H=16, Hkv=16)
     log_flash_times("flagship [256, 1024, 128]", flash_t, card)
+    log_fwd_summary("flagship [256, 1024, 128]", flash_t["flash_fwd"], card)
     split = flash_t["flash_bwd_dq"]["ms"] + flash_t["flash_bwd_dkdv"]["ms"]
     log(f"[time] flash_bwd_fused at the flagship shape: "
         f"{flash_t['flash_bwd_fused']['ms'] * 1e3:.1f} us against "
         f"{split * 1e3:.1f} us for the split pair (flash_bwd_dq + "
         f"flash_bwd_dkdv) in this run")
-    log_flash_times("GQA run [64 over 16, 1024, 128]",
-                    time_flash(gen, B=8, H=8, Hkv=2), card)
+    gqa_t = time_flash(gen, B=8, H=8, Hkv=2)
+    log_flash_times("GQA run [64 over 16, 1024, 128]", gqa_t, card)
+    log_fwd_summary("GQA run [64 over 16, 1024, 128]", gqa_t["flash_fwd"],
+                    card)
 
     with torch.no_grad():
         mm_err = check_matmul(gen)

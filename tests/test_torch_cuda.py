@@ -152,6 +152,63 @@ def _flash_kernels_match_plain(bh, bhkv, s, d, causal, sk=None):
             tf.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
 
 
+def _flash_fwd_matches_plain(bh, bhkv, s, d, causal, sk=None):
+    """The forward kernel alone against flash_attn_fwd_ref; returns its
+    outputs."""
+    from tpu_dra_torch.workloads import flash as tf
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bh * 11 + s * 5 + (sk or 0) + d + int(causal))
+    sk = sk or s
+    q = torch.randn((bh, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((bhkv, sk, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    before = tf.flash_attn_fwd.launches
+    out, l2 = tf.flash_attn_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tf.flash_attn_fwd.launches == before + 1
+    want_out, want_l2 = tf.flash_attn_fwd_ref(q, k, v, causal)
+    _flash_close(out, want_out, tf.ROW_TOL["out"])
+    assert float((l2 - want_l2).abs().max()) <= tf.L2_ATOL
+    return (q, k, v), (out, l2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s", [127, 128, 129, 255, 257])
+def test_flash_fwd_matches_plain_around_its_tiles(s, causal, g, d):
+    """Lengths around the forward's 128-row q blocks (two 64-row halves)
+    and 128-key tiles: one short of a tile, a tile, one over, and so on
+    at two tiles."""
+    _flash_fwd_matches_plain(8, 8 // g, s, d, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_fwd_matches_plain_at_the_ring_block(causal):
+    """The DP×SP step's per-rank block: [1024, 256, 128] (4 ranks × 16
+    sequences × 16 heads of 256 rows), causal on the diagonal, full off
+    it."""
+    _flash_fwd_matches_plain(1024, 1024, 256, 128, causal)
+
+
+@pytest.mark.parametrize("s,sk", [(256, 200), (130, 333), (64, 129)])
+def test_flash_fwd_matches_plain_with_a_ragged_key_tile(s, sk):
+    """Non-causal Sk not a multiple of the 128-key tile: the zero-filled
+    keys past Sk score 0 and must be masked."""
+    _flash_fwd_matches_plain(8, 2, s, 128, False, sk)
+
+
+def test_flash_fwd_is_deterministic():
+    """The forward has no atomics: two launches on the same inputs are
+    bit-equal."""
+    from tpu_dra_torch.workloads import flash as tf
+    (q, k, v), (out, l2) = _flash_fwd_matches_plain(64, 16, 1024, 128, True)
+    again, l2_again = tf.flash_attn_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(l2, l2_again)
+
+
 def test_flash_attention_autograd_on_the_card_matches_plain():
     """The front door through FlashAttentionLse: GQA grads group-summed."""
     from tpu_dra_torch.workloads import flash as tf

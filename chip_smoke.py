@@ -14,7 +14,7 @@ Phases (each prints as it goes; any failed check exits non-zero):
   1. build every kernel (one nvcc per source, all at once); print the
      build times, the ptxas register/spill lines and the card's name and
      power limit (nvidia-smi); fail if ptxas reports spill bytes for the
-     flash forward kernel;
+     flash forward kernel or the ring kernels;
   2. paged attention: kernel vs plain version at the serving path's shapes
      (B=32, H=8, Hkv=2, Dh=128, ps=64, MP=16), scrambled pages, -1 tails,
      lengths 0, 1, a page boundary, mid-page and the full MP*ps; bf16 pages
@@ -35,6 +35,7 @@ Phases (each prints as it goes; any failed check exits non-zero):
      63, 64, 65, 1000, causal and not, g 1 and 4, D 64 and 128; out, l2,
      dq, dk and dv each held elementwise and per head-row (relative L2
      over the row's [S, D]), tolerances flash.ELEM_TOL and flash.ROW_TOL;
+     a second call of the fused backward must give bit-equal dq, dk, dv;
   6. time the four flash kernels, their wrappers and plain versions, and
      the library yardstick (scaled_dot_product_attention forward, and its
      backward for the backward kernels) with CUDA events at the path's
@@ -62,7 +63,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
      split/plain-pair step of phase 8, then 10 make_train_step steps on
      [16, 1025] windows with finite, falling losses, exactly 2 x n_layers
      norm-matmul and n_layers fused-backward launches a step and no split
-     launch; its step time beside phase 8's, and one profiled step;
+     launch; two steps from the seed run again must give bit-equal losses;
+     its step time beside phase 8's, and one profiled step;
  10. a short GQA training run (8 heads over 2 kv heads, d_head 128, rope,
      2 layers), so the grouped forward and backward run inside training;
  11. the ring kernels (csrc/ring.cu) against their plain versions on a
@@ -76,12 +78,15 @@ Phases (each prints as it goes; any failed check exits non-zero):
      (collective_matmul.ELEM_TOL, ROW_TOL), the gathered operand and the
      shift byte-equal, the VJPs against autograd through the plain
      versions;
- 12. their times beside bound, plain version and library yardstick;
+ 12. their times beside bound, plain version and library yardstick; each
+     ring matmul's share of its bound, its ratio to the library call and
+     its time before the wgmma redesign;
  13. DP×TP on Mesh({"dp": 1, "tp": 4}): the flagship's
      make_sharded_train_step(attn_impl="flash",
      matmul_impl="fused_collective") step against the dense sharded step,
      then 10 SGD steps with exact ring launch counts, its step time beside
-     the dense step's, and one profiled step;
+     the dense step's, and one profiled step (the ring kernels' device
+     time and the step's idle share);
  14. DP×SP on Mesh({"dp": 1, "sp": 4}): make_ring_train_step(ring_impl=
      "flash", hop_impl="pallas") bit-equal to hop_impl="xla", held to the
      one-device flash step, then 10 steps with an exact shift count.
@@ -158,6 +163,13 @@ VJP_REL = 1e-2
 # an H100 80GB HBM3 at 700 W (PERF.md §6)
 FWD_BEFORE_US = {"flagship [256, 1024, 128]": "598.1-603.2",
                  "GQA run [64 over 16, 1024, 128]": "177.8-179.9"}
+# the ring matmuls' card time before their wgmma redesign (the first
+# version: the mma.sync mainloop of csrc/gemm_common.cuh), phase 12 on an
+# H100 80GB HBM3 at 700 W (PERF.md §6)
+RING_BEFORE_US = {"all_gather_matmul wqkv": "1707.9-1717.1",
+                  "all_gather_matmul w1": "2243.7-2414.7",
+                  "matmul_reduce_scatter w2": "2435.4-2546.7",
+                  "matmul_reduce_scatter wo": "975.8-1015.6"}
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -607,6 +619,9 @@ def check_flash_case(gen, bh, bhkv, s, d, causal) -> tuple:
     want = F.flash_bwd_fused_ref(qs, k, v, do, ref_l2, dd, causal)
     errs = [hold(label, f"fused {name}", g, w, F.ROW_TOL[name])
             for name, g, w in zip(("dq", "dk", "dv"), fused, want)]
+    again = F.flash_bwd_fused(qs, k, v, do, ref_l2, dd, causal)
+    if not all(torch.equal(a, b) for a, b in zip(fused, again)):
+        fail(f"{label}: two calls of the fused backward differ")
     res["flash_bwd_fused"] = tuple(max(e) for e in zip(*errs))
     res["flash_bwd_fused (dq alone)"] = errs[0]
     return res, l2_err
@@ -678,8 +693,9 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
     qs = F._prescale(q).contiguous()
     dd = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))   # per q head
-    dqacc = torch.zeros((1, BH, S, D), dtype=torch.float32,
-                        device=q.device)     # the fused kernel's dq sums
+    dqacc = torch.empty((F.dq_slot_rows(S, S, True), BH, D),
+                        dtype=torch.float32,
+                        device=q.device)     # the fused kernel's dq slots
     lf, lb = library("flash_fwd"), library("flash_bwd")
     stream = torch.cuda.current_stream().cuda_stream
     qscale = weak_scalar(D ** -0.5 * F._LOG2E, torch.bfloat16)
@@ -953,10 +969,12 @@ def profile_step(cfg, data_path: str, batch: int, label: str = "flagship",
     torch.cuda.empty_cache()
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn) -> dict:
     """``fn()`` once (warmed up by the caller) under torch.profiler: wall
     time, device busy time and idle share, device time by kernel kind and
-    the top kernels (informational)."""
+    the top kernels (informational); returns the device time by kind in
+    µs with ``wall`` and ``busy`` ({} where the profiler saw no device
+    activity)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -971,7 +989,7 @@ def profile_call(label: str, fn) -> None:
     if not kernels:
         log("[profile] torch.profiler saw no device activity: device time "
             "by kernel not measured")
-        return
+        return {}
     by_kind: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in kernels:
@@ -989,6 +1007,7 @@ def profile_call(label: str, fn) -> None:
             f"({us / busy:.3f} of device time)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   top: {us / 1e3:.2f} ms {name[:110]}")
+    return {**by_kind, "wall": wall_us, "busy": busy}
 
 
 @contextlib.contextmanager
@@ -1036,7 +1055,8 @@ def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
     kernels' launch counts are zeroed just before and read just after.
     Fails unless every loss is finite, the last is below the first, each
     layer ran the norm-matmul kernel twice and the fused backward once a
-    step, and neither split backward kernel ran."""
+    step, neither split backward kernel ran, and the first two steps, run
+    again from the seed, give bit-equal losses."""
     import math
 
     import torch
@@ -1060,18 +1080,36 @@ def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
                 "flash_bwd_fused": F.flash_bwd_fused,
                 "flash_fwd": F.flash_attn_fwd, "flash_bwd_dq": F.flash_bwd_dq,
                 "flash_bwd_dkdv": F.flash_bwd_dkdv}
-    losses, stamps = [], []
+    losses, stamps, first = [], [], []
     with fused_backward(tune_path):
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
         for _ in range(steps):
             toks = torch.from_numpy(next(it)).to("cuda")
+            if len(first) < 2:
+                first.append(toks)
             params, state, loss = step(params, state, toks)
             losses.append(float(loss))
             stamps.append(time.perf_counter())
         launches = {name: fn.launches for name, fn in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the same two steps again from the seed: the second loss carries
+        # the first step's fused backward, so it must repeat bit for bit
+        del params, state
+        gen.manual_seed(SEED)
+        params = init_params(cfg, gen)
+        state = init_opt(params)
+        again = []
+        for toks in first:
+            params, state, loss = step(params, state, toks)
+            again.append(float(loss))
+    log(f"[train] fused path, two steps from the seed run again: losses "
+        f"{', '.join(repr(x) for x in again)} against "
+        f"{', '.join(repr(x) for x in losses[:2])}")
+    if again != losses[:2]:
+        fail(f"fused path: two steps from one seed gave losses {again}, "
+             f"then {losses[:2]}")
     log(f"[train] fused path losses by step (full precision, to compare "
         f"calls bit for bit): {', '.join(repr(x) for x in losses)}")
     if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
@@ -1284,6 +1322,18 @@ def log_fwd_summary(shape: str, t: dict, card: str) -> None:
         f"bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x the SDPA "
         f"forward's {t['library_ms'] * 1e3:.1f} us; before the TMA/wgmma "
         f"redesign {FWD_BEFORE_US[shape]} us; on {card}")
+
+
+def log_ring_summary(times: dict, card: str) -> None:
+    """Each ring matmul's share of its bound, its ratio to the library
+    call and its time before the wgmma redesign."""
+    for name, before in RING_BEFORE_US.items():
+        t = times[name]
+        log(f"[time] {name}: {t['ms'] * 1e3:.1f} us, "
+            f"{t['bound_ms'] / t['ms']:.3f} of its {t['bound_ms'] * 1e3:.1f} "
+            f"us bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x "
+            f"the library call's {t['library_ms'] * 1e3:.1f} us; before the "
+            f"wgmma redesign {before} us; on {card}")
 
 
 def log_flash_times(shape: str, times: dict, card: str) -> None:
@@ -1644,7 +1694,15 @@ def sharded_phase(gen, data_path: str) -> dict:
 
     def one():
         state["p"], _ = step(state["p"], windows[-1])
-    profile_call("DP×TP fused-collective train step", one)
+    prof = profile_call("DP×TP fused-collective train step", one)
+    if prof:
+        ring_us = prof.get(kernel_kind("ring_"), 0.0)
+        log(f"[train] DP×TP fused collective, one traced step: ring kernels "
+            f"{ring_us / 1e3:.1f} ms of {prof['busy'] / 1e3:.1f} ms device "
+            f"busy ({ring_us / prof['busy']:.3f}), wall "
+            f"{prof['wall'] / 1e3:.1f} ms, idle share "
+            f"{1 - prof['busy'] / prof['wall']:.3f} (before the wgmma "
+            f"redesign: ~114 ms of 272.9 ms busy, idle share 0.019)")
     del run["params"], dense["params"], params, state
     torch.cuda.empty_cache()
     return {**run, "dense_step_ms": dense["step_ms"]}
@@ -1757,6 +1815,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "wgmma" in ln:
                 log(f"[build]   {ln.strip()}")
     check_spills(built["flash_fwd"])
+    check_spills(built["ring"])
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")
@@ -1803,6 +1862,7 @@ def main() -> int:
     with torch.no_grad():
         ring_t = time_ring(gen)
     log_times(ring_t, card)
+    log_ring_summary(ring_t, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         trained, fused = train_phase(gen, Path(tmp))

@@ -295,6 +295,29 @@ def test_flash_fused_kernel_matches_plain(shape):
         _flash_close(g, w, tf.ROW_TOL[name])
 
 
+def test_flash_fused_backward_is_deterministic():
+    """Two calls on the same inputs give bit-equal dq, dk and dv: every
+    64-key tile stores its dq sums into a slot of its own and the second
+    pass adds the slots in key order (no atomics), at a causal shape of two
+    KV_BLOCKs and a non-causal GQA one."""
+    from tpu_dra_torch.workloads import flash as tf
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    for bh, bhkv, s, causal in ((4, 4, 2048, True), (8, 2, 1000, False)):
+        q, k, v, do = (torch.randn((n, s, 128), generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in (bh, bhkv, bhkv, bh))
+        _, l2 = tf.flash_attn_fwd_ref(q, k, v, causal)
+        out = tf.flash_attn_fwd_ref(q, k, v, causal)[0]
+        qs = tf._prescale(q).contiguous()
+        dd = (do.float() * out.float()).sum(-1, keepdim=True)
+        first = tf.flash_bwd_fused(qs, k, v, do, l2, dd, causal)
+        second = tf.flash_bwd_fused(qs, k, v, do, l2, dd, causal)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), (bh, s, causal, name)
+
+
 def test_flash_fused_front_door_on_the_card():
     """``flash_attention(bwd_impl="fused")`` launches the fused kernel and
     neither split kernel, and its GQA gradients match the plain fused
@@ -457,10 +480,14 @@ def _ring_operands(gen, G, n, rows, K, N, shared_w=False):
 
 # (G, n, m, K, N): n 2, 3, 4 and 8; m even (bidirectional from n 3) and
 # odd (unidirectional); K and N not multiples of the tiles; two groups
-# sharing one weight (dp 2)
+# sharing one weight (dp 2); then around the wgmma mainloop's tiles (128
+# rows, 256 columns, 64-deep K stages): K 72 (a whole stage and 8 of the
+# next), N 264 (a second column tile of 8 columns) at odd m, N 512 (wo^T's
+# width) over a full K, and two groups sharing a weight at ragged tiles
 RING_CASES = [(1, 2, 64, 128, 64), (1, 3, 130, 96, 136), (1, 4, 200, 256, 72),
               (1, 4, 77, 64, 128), (2, 4, 64, 520, 200), (1, 8, 16, 64, 64),
-              (2, 2, 33, 40, 16)]
+              (2, 2, 33, 40, 16), (1, 4, 301, 72, 264), (1, 4, 256, 2048, 512),
+              (2, 4, 130, 136, 520)]
 
 
 @pytest.mark.parametrize("case", RING_CASES, ids=str)
@@ -519,6 +546,37 @@ def test_matmul_reduce_scatter_kernel_matches_plain(case):
     torch.cuda.synchronize()
     assert cm.matmul_reduce_scatter.launches == before + n
     _ring_close(y, cm.matmul_reduce_scatter_ref(x, w))
+
+
+@pytest.mark.parametrize("m,K,N", [(100, 72, 264), (256, 512, 512)])
+def test_ring_matmul_kernels_at_one_rank(m, K, N):
+    """The C entries at n 1 (the wrappers take the plain product there
+    and launch nothing): the gather's one step is x·w with a = x, the
+    reduce-scatter's one step rounds x·w into y."""
+    from tpu_dra_torch.kernels.build import library
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + K + N)
+    x, w = _ring_operands(gen, 1, 1, m, K, N)
+    lib = library("ring")
+    stream = torch.cuda.current_stream().cuda_stream
+    y = torch.empty((1, 1, m, N), dtype=torch.bfloat16, device=dev)
+    a = torch.empty((1, 1, 1, m, K), dtype=torch.bfloat16, device=dev)
+    assert lib.tpu_dra_ring_ag_matmul(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(), 1, 1, m, K,
+        N, m * K, m * K, K * N, 0, 0, 0, stream) == 0
+    torch.cuda.synchronize()
+    want_y, want_a = cm.all_gather_matmul_ref(x, w)
+    assert torch.equal(a, want_a)
+    _ring_close(y, want_y)
+    comm = torch.empty((1, 1, 2, m, N), dtype=torch.float32, device=dev)
+    y2 = torch.empty_like(y)
+    assert lib.tpu_dra_ring_matmul_rs(
+        x.data_ptr(), w.data_ptr(), comm.data_ptr(), y2.data_ptr(), 1, 1, m,
+        K, N, m * K, m * K, K * N, 0, 0, stream) == 0
+    torch.cuda.synchronize()
+    _ring_close(y2, cm.matmul_reduce_scatter_ref(x, w))
 
 
 @pytest.mark.parametrize("reverse", [False, True])

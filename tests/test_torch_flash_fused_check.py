@@ -10,10 +10,14 @@ first key down to S; the D-sums k·qsᵀ and V·dOᵀ are taken in 16-wide
 k-steps as its mma instructions take them; P = exp2(k·qsᵀ − l2) in fp32,
 masked where a query precedes its key; dS = P∘(V·dOᵀ − dd) is rounded to
 bf16, and the tile's dS·K (summed over the block's 64 keys in fp32) is
-added into one fp32 buffer per reference k block (KV_BLOCK keys: one at
-S = 1024).  dq is then formed as the wrapper forms it:
-bf16(Σ bf16(buffer) · D^-0.5).  That replay must pass the check; the same
-replay with a structural fault must not.
+stored into the tile's own slot of one flat fp32 scratch, laid out as the
+kernel lays it out (slot t holds rows [64·t, S), ``flash.dq_slot_rows``
+rows a head-row in all).  The second pass sums, for each reference k
+block (KV_BLOCK keys: one at S = 1024), its tiles' slots in key order in
+fp32, and dq is then formed as the wrapper forms it:
+bf16(Σ bf16(partial) · D^-0.5).  No two tiles write one element and the
+sum runs in one order, so dq is the same from run to run.  That replay
+must pass the check; the same replay with a structural fault must not.
 """
 
 from __future__ import annotations
@@ -56,6 +60,12 @@ def ksteps(a, b):
     return acc
 
 
+def slot_base(t: int) -> int:
+    """Where tile t's slot starts in the scratch (``slot_base`` of
+    csrc/flash_bwd.cu under the causal mask), in elements."""
+    return (t * S - 32 * t * (t - 1)) * BH * D
+
+
 def dq_replay(qs, k, v, do, l2, dd, fault=None):
     """The fused kernel's dQ arithmetic and the wrapper's finish,
     optionally with a planted ``fault``:
@@ -63,18 +73,27 @@ def dq_replay(qs, k, v, do, l2, dd, fault=None):
     - ``skip-tile``: q tile 30 (rows 960-991) is dropped by every block;
     - ``unmasked-diagonal``: the causal mask is not applied on the tiles
       that straddle the diagonal, so dS reaches keys after the query;
-    - ``no-scale``: dq is rounded without the D^-0.5 factor.
+    - ``no-scale``: dq is rounded without the D^-0.5 factor;
+    - ``overlapping-slots``: the slots start 64 rows too close together
+      (32·t² for 32·t·(t − 1)), so each tile overwrites its neighbour's
+      first rows.
     """
-    n_j = -(-S // tf.KV_BLOCK)
-    acc = torch.zeros((n_j, BH, S, D))
+    scratch = torch.full((tf.dq_slot_rows(S, S, True) * BH * D,),
+                         float("nan"))
     qsf, dof = qs.float(), do.float()
     l2r, ddr = l2[..., 0], dd[..., 0]
+
+    def slot(t):
+        base = slot_base(t)
+        if fault == "overlapping-slots":
+            base = (t * S - 32 * t * t) * BH * D
+        return scratch[base:base + BH * (S - BK * t) * D].view(
+            BH, S - BK * t, D)
     for k0 in range(0, S, BK):
         kb, vb = k[:, k0:k0 + BK].float(), v[:, k0:k0 + BK].float()
         keys = torch.arange(k0, k0 + BK)[:, None]
+        mine = slot(k0 // BK)
         for q0 in range(k0, S, BQ2):
-            if fault == "skip-tile" and q0 == 30 * BQ2:
-                continue
             qt, dot = qsf[:, q0:q0 + BQ2], dof[:, q0:q0 + BQ2]
             rows = torch.arange(q0, q0 + BQ2)[None, :]
             keep = rows >= keys
@@ -84,9 +103,19 @@ def dq_replay(qs, k, v, do, l2, dd, fault=None):
                 ksteps(kb, qt) - l2r[:, None, q0:q0 + BQ2]), 0.0)
             ds = (p * (ksteps(vb, dot) - ddr[:, None, q0:q0 + BQ2])) \
                 .bfloat16().float()                       # [BH, keys, q]
-            acc[k0 // tf.KV_BLOCK, :, q0:q0 + BQ2] += \
-                ds.transpose(1, 2) @ kb
-    parts = acc.bfloat16().float()
+            out = ds.transpose(1, 2) @ kb
+            if fault == "skip-tile" and q0 == 30 * BQ2:
+                out = torch.zeros_like(out)
+            mine[:, q0 - k0:q0 - k0 + BQ2] = out
+    per_j = tf.KV_BLOCK // BK
+    n_t = S // BK
+    parts = []
+    for t0 in range(0, n_t, per_j):
+        acc = torch.zeros((BH, S, D))
+        for t in range(t0, min(t0 + per_j, n_t)):
+            acc[:, BK * t:] += slot(t)
+        parts.append(acc)
+    parts = torch.stack(parts).bfloat16().float()
     if fault == "no-scale":
         return parts.sum(0).bfloat16()
     return tf._finish_dq(parts, D)
@@ -109,7 +138,7 @@ def test_clean_replay_passes_the_check():
 
 
 @pytest.mark.parametrize("fault", ["skip-tile", "unmasked-diagonal",
-                                   "no-scale"])
+                                   "no-scale", "overlapping-slots"])
 def test_planted_fault_fails_the_check(fault):
     args, want = case()
     ratio, row = verdict(dq_replay(*args, fault=fault), want)

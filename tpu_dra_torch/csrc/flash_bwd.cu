@@ -29,17 +29,20 @@
 // in registers over the block's own k tiles, dk/dv over its own q tiles.
 //
 // The fused kernel is the dK/dV kernel plus dq from the same recompute:
-//   dqacc[j] += bf16(dS) . k    fp32 [n_j, BH, S, D], zeroed by the caller,
-// where j = key / kv_block is the reference's k block (its dq partials are
-// [BH, n_j, S, D], one per block of bk_kv = 1024 keys at the training
-// path's shapes).  A second kernel (finish_dq_kernel, launched from the same
-// C entry) then forms dq = bf16(sum_j f32(bf16(dqacc[j])) * scale), the
-// reference's rounding points (:450, :658), in one pass.  The TPU kernel
-// writes each (j, i) step's partial to its own slot because its grid runs j
-// outside i; here the blocks of one j run in parallel, so they add their
-// [32, D] contributions with fp32 atomics.  The order of those additions
-// varies from run to run, so the fused path is not bit-reproducible (the
-// split pair is).
+//   slot[t] = bf16(dS) . k      fp32, one slot per 64-key tile t (block),
+// stored, not added: no two blocks write one element.  Under the causal
+// mask tile t's queries start at row 64 t, so its slot holds only rows
+// [64 t, S) (slot_base); the slots of the training path's [256, 1024, 128]
+// take 1.14 GB where 16 full slots would take 2.15 GB.  A second kernel
+// (finish_dq_kernel, launched from the same C entry) then sums, for each
+// reference k block j (key / kv_block; its dq partials are [BH, n_j, S, D],
+// one per block of bk_kv = 1024 keys at the training path's shapes), the
+// slots of j's tiles in key order in fp32, and forms
+// dq = bf16(sum_j f32(bf16(partial_j)) * scale), the reference's rounding
+// points (:450, :658), in one pass.  The TPU kernel writes each (j, i)
+// step's partial to its own slot because its grid runs j outside i; here
+// every tile keeps its own slot and the sum runs in a fixed order, so the
+// fused path is bit-reproducible from run to run, as the split pair is.
 //
 // What bounds them at the training path's shapes ([256, 1024, 128] causal):
 //   dq:   qs, k, v, dout, dq (+ l2, dd)  ~337 MB, 101 us at 3.35 TB/s;
@@ -66,8 +69,8 @@
 // products, 172 GFLOP, 174 us at 989 TF/s; ~470 MB (dq written once in
 // bf16), 140 us: operations.  Per 32-row q tile the block stages bf16(dS)
 // in shared memory as [query][key] and each warp multiplies it by the
-// resident k tile for D / 4 of dq's columns, then adds the [32, D / 4]
-// result into dqacc with float2 atomics.
+// resident k tile for D / 4 of dq's columns, then stores the [32, D / 4]
+// result into the tile's slot.
 // Left for later: wgmma/TMA, ldmatrix fragment loads.
 //
 // Rounding points, pinned here (no output check sees all of them): qs is
@@ -93,6 +96,21 @@ constexpr int dq_smem_bytes() {
 }
 
 constexpr int kDSS = kBK + 8;  // fused: smem row stride of the dS tile
+
+// fused: where the dq slot of 64-key tile t starts in the scratch, and its
+// first row (slot t holds rows [lo, S) of every q head-row)
+template <bool CAUSAL>
+__device__ __forceinline__ size_t slot_base(int t, int BH, int S, int D) {
+  const long long rows_before =
+      CAUSAL ? static_cast<long long>(t) * S - 32LL * t * (t - 1)
+             : static_cast<long long>(t) * S;
+  return static_cast<size_t>(rows_before) * BH * D;
+}
+
+template <bool CAUSAL>
+__device__ __forceinline__ int slot_lo(int t) {
+  return CAUSAL ? t * kBK : 0;
+}
 
 template <int D, bool FUSED>
 constexpr int kv_smem_bytes() {
@@ -222,8 +240,7 @@ flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qs,
                     const float* __restrict__ dd,
                     __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv,
-                    float* __restrict__ dqacc, int S, int Sk, int group,
-                    int kv_block) {
+                    float* __restrict__ dqacc, int S, int Sk, int group) {
   using T = Tile<D>;
   constexpr int kDK = D / 16;
   constexpr int kDT = D / 8;
@@ -244,9 +261,10 @@ flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qs,
   const int key_a = k0 + warp * 16 + (lane >> 2);    // keys g and g + 8
   const int col_t = 2 * (lane & 3);
   const size_t qoff = static_cast<size_t>(bh) * S;
-  // fused: this block's slice of dqacc, the reference's k block k0 / kv_block
-  float* dqb = FUSED ? dqacc + (static_cast<size_t>(k0 / kv_block) *
-                                    gridDim.y + bh) * S * D
+  // fused: this block's own dq slot, at its head-row's first row
+  const int lo = slot_lo<CAUSAL>(blockIdx.x);
+  float* dqb = FUSED ? dqacc + slot_base<CAUSAL>(blockIdx.x, gridDim.y, S, D) +
+                           static_cast<size_t>(bh) * (S - lo) * D
                      : nullptr;
 
   load_tile<D, false>(sK, k + static_cast<size_t>(kvh) * Sk * D, k0, Sk, kBK);
@@ -358,8 +376,8 @@ flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qs,
     }
 
     if constexpr (FUSED) {
-      // dqacc[q0 .. q0 + 32) += bf16(dS) . k over this block's 64 keys; warp
-      // w takes dq columns [w * D / 4, (w + 1) * D / 4)
+      // slot rows [q0, q0 + 32) = bf16(dS) . k over this block's 64 keys;
+      // warp w takes dq columns [w * D / 4, (w + 1) * D / 4)
       constexpr int kQT = D / 32;      // 8-wide dq column tiles per warp
       const int c0 = warp * (D / 4);
       __syncthreads();
@@ -384,11 +402,11 @@ flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qs,
         for (int r = 0; r < 2; ++r) {
           const int row = q0 + mt * 16 + (lane >> 2) + 8 * r;
           if (row >= S) continue;
-          float* dst = dqb + static_cast<size_t>(row) * D + c0 + col_t;
+          float* dst = dqb + static_cast<size_t>(row - lo) * D + c0 + col_t;
 #pragma unroll
           for (int nt = 0; nt < kQT; ++nt)
-            atomicAdd(reinterpret_cast<float2*>(dst + nt * 8),
-                      make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]));
+            *reinterpret_cast<float2*>(dst + nt * 8) =
+                make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
         }
       }
     }
@@ -431,7 +449,7 @@ template <int D, bool CAUSAL, bool FUSED>
 cudaError_t launch_kv(const void* qs, const void* k, const void* v,
                       const void* dout, const void* l2, const void* dd,
                       void* dk, void* dv, void* dqacc, int BH, int S, int Sk,
-                      int group, int kv_block, cudaStream_t stream) {
+                      int group, cudaStream_t stream) {
   auto kernel = flash_bwd_kv_kernel<D, CAUSAL, FUSED>;
   constexpr int bytes = kv_smem_bytes<D, FUSED>();
   cudaError_t err = allow_smem(kernel, bytes);
@@ -442,26 +460,41 @@ cudaError_t launch_kv(const void* qs, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(l2), static_cast<const float*>(dd),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<float*>(dqacc), S, Sk, group, kv_block);
+      static_cast<float*>(dqacc), S, Sk, group);
   return cudaGetLastError();
 }
 
-// dq = bf16(sum_j f32(bf16(dqacc[j])) * scale) over n = BH * S * D
-// elements, four per thread (n is a multiple of 64)
+// dq = bf16(sum_j f32(bf16(partial_j)) * scale) over BH * S * D elements,
+// four per thread (D is 64 or 128), where partial_j sums the slots of k
+// block j's tiles (`per_j` of them, n_t in all) in key order in fp32
+template <bool CAUSAL>
 __global__ void __launch_bounds__(256)
-finish_dq_kernel(const float* __restrict__ dqacc,
-                 __nv_bfloat16* __restrict__ dq, size_t n, int n_j,
-                 float scale) {
+finish_dq_kernel(const float* __restrict__ slots,
+                 __nv_bfloat16* __restrict__ dq, int BH, int S, int D,
+                 int n_t, int per_j, float scale) {
   const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x) * 4;
-  if (i >= n) return;
+  if (i >= static_cast<size_t>(BH) * S * D) return;
+  const int bh = static_cast<int>(i / (static_cast<size_t>(S) * D));
+  const int row = static_cast<int>(i / D % S), col = static_cast<int>(i % D);
+  // under the mask, tiles past the row's own hold nothing of it
+  const int last = CAUSAL ? min(n_t, row / kBK + 1) : n_t;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j = 0; j < n_j; ++j) {
-    const float4 a = *reinterpret_cast<const float4*>(dqacc + j * n + i);
-    s[0] += __bfloat162float(__float2bfloat16_rn(a.x));
-    s[1] += __bfloat162float(__float2bfloat16_rn(a.y));
-    s[2] += __bfloat162float(__float2bfloat16_rn(a.z));
-    s[3] += __bfloat162float(__float2bfloat16_rn(a.w));
+  for (int t0 = 0; t0 < n_t; t0 += per_j) {
+    float p[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = t0; t < min(t0 + per_j, last); ++t) {
+      const int lo = slot_lo<CAUSAL>(t);
+      const float4 a = *reinterpret_cast<const float4*>(
+          slots + slot_base<CAUSAL>(t, BH, S, D) +
+          (static_cast<size_t>(bh) * (S - lo) + row - lo) * D + col);
+      p[0] += a.x;
+      p[1] += a.y;
+      p[2] += a.z;
+      p[3] += a.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[e] += __bfloat162float(__float2bfloat16_rn(p[e]));
   }
   uint2 out;
   out.x = pack_bf16(s[0] * scale, s[1] * scale);
@@ -511,20 +544,21 @@ extern "C" int tpu_dra_flash_bwd_dkdv(const void* qs, const void* k,
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch_kv<64, true, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st)
-                 : launch_kv<64, false, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st);
+    err = causal ? launch_kv<64, true, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, st)
+                 : launch_kv<64, false, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, st);
   else if (D == 128)
-    err = causal ? launch_kv<128, true, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st)
-                 : launch_kv<128, false, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, kBK, st);
+    err = causal ? launch_kv<128, true, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, st)
+                 : launch_kv<128, false, false>(qs, k, v, dout, l2, dd, dk, dv, nullptr, BH, S, Sk, g, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
 // The fused kernel: dk, dv as tpu_dra_flash_bwd_dkdv, and dq's unscaled fp32
-// sums added into dqacc [ceil(Sk / kv_block), BH, S, D] (scratch zeroed by
-// the caller), then dq [BH, S, D] bf16 from them with `scale` = D^-0.5;
-// kv_block is a positive multiple of 64.
+// sums per 64-key tile stored into dqacc (scratch of ceil(Sk / 64) slots,
+// slot t [BH, S - lo, D] with lo = 64 t under the causal mask, else 0;
+// the caller allocates it, uninitialised), then dq [BH, S, D] bf16 from
+// them with `scale` = D^-0.5; kv_block is a positive multiple of 64.
 extern "C" int tpu_dra_flash_bwd_fused(const void* qs, const void* k,
                                        const void* v, const void* dout,
                                        const void* l2, const void* dd,
@@ -538,18 +572,25 @@ extern "C" int tpu_dra_flash_bwd_fused(const void* qs, const void* k,
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch_kv<64, true, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st)
-                 : launch_kv<64, false, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st);
+    err = causal ? launch_kv<64, true, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, st)
+                 : launch_kv<64, false, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, st);
   else if (D == 128)
-    err = causal ? launch_kv<128, true, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st)
-                 : launch_kv<128, false, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, kv_block, st);
+    err = causal ? launch_kv<128, true, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, st)
+                 : launch_kv<128, false, true>(qs, k, v, dout, l2, dd, dk, dv, dqacc, BH, S, Sk, g, st);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(BH) * S * D;
-  finish_dq_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(dqacc), static_cast<__nv_bfloat16*>(dq), n,
-      (Sk + kv_block - 1) / kv_block, scale);
+  const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
+  const int n_t = (Sk + kBK - 1) / kBK, per_j = kv_block / kBK;
+  const auto* slots = static_cast<const float*>(dqacc);
+  auto* out = static_cast<__nv_bfloat16*>(dq);
+  if (causal)
+    finish_dq_kernel<true><<<blocks, 256, 0, st>>>(slots, out, BH, S, D, n_t,
+                                                  per_j, scale);
+  else
+    finish_dq_kernel<false><<<blocks, 256, 0, st>>>(slots, out, BH, S, D, n_t,
+                                                   per_j, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

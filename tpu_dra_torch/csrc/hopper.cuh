@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor
-// maps and bulk tensor copies, mbarriers, wgmma shared-memory descriptors
-// and products, the fences between them, named barriers and register
-// reallocation between warpgroups.
+// maps and bulk tensor copies (multicast to a cluster's blocks included),
+// mbarriers (local and a cluster peer's), wgmma shared-memory descriptors
+// and products, the fences between them, named barriers, cluster barriers
+// and register reallocation between warpgroups.
 //
 // Layout convention.  Every operand tile in shared memory is what TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B for a box 64 bf16 wide: rows of
@@ -135,8 +136,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// generic-proxy writes to shared memory become visible to the async proxy
-// (wgmma operand reads, TMA stores)
+// generic-proxy accesses to shared memory are ordered before later
+// async-proxy ones: writes become visible to wgmma operand reads and TMA
+// stores, and reads complete before a TMA load overwrites the buffer
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -149,6 +151,51 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// --------------------------------------------------------------------------
+// device: thread block clusters
+// --------------------------------------------------------------------------
+
+// this block's rank in its cluster, the cluster's index in the grid and
+// the grid's number of clusters (along x)
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of every block of the cluster: what each wrote before is
+// visible to the others after (a block's barriers initialised before a
+// peer arrives on them; no block exits while a peer still writes to it)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival on the barrier at the same shared-memory offset in block
+// `cta` of the cluster (this block's own included).  The arrival releases
+// at CTA scope, as a local one does: it orders this thread's reads of the
+// stage, not its global stores, which a cluster-scope release would wait
+// for
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, int cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(smem_u32(bar)), "r"(cta) : "memory");
 }
 
 template <int N>
@@ -190,6 +237,44 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       " [%0, {%2, %3, %4}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
          "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for 5-D maps: box at (c0 columns, c1 rows, c2, c3, c4)
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// tma_load_5d into the same shared-memory offset of every block of the
+// cluster in `mask`, each completing on its own barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_5d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, uint16_t mask, int c0,
+    int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5, %6, %7}], [%2], "
+      "%8;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+         "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -249,6 +334,23 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define HOPPER_D64(d) HOPPER_D32(d), HOPPER_D8(d, 32), HOPPER_D8(d, 40),    \
                       HOPPER_D8(d, 48), HOPPER_D8(d, 56)
 
+#define HOPPER_D64_AT(d, i)                                                 \
+  HOPPER_D8(d, i), HOPPER_D8(d, i + 8), HOPPER_D8(d, i + 16),               \
+      HOPPER_D8(d, i + 24), HOPPER_D8(d, i + 32), HOPPER_D8(d, i + 40),     \
+      HOPPER_D8(d, i + 48), HOPPER_D8(d, i + 56)
+
+#define HOPPER_R128                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+
 #define HOPPER_R32                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -271,6 +373,18 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
       ", %64, %65, p, 1, 1, 0, %67;\n}\n"
       : HOPPER_D64(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 256) = A·B (+ d when `accumulate`), as wgmma_ss_n128
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_R128
+      ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : HOPPER_D64_AT(d, 0), HOPPER_D64_AT(d, 64)
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
@@ -303,6 +417,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 #undef HOPPER_D8
 #undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_D64_AT
+#undef HOPPER_R128
 #undef HOPPER_R32
 #undef HOPPER_R64
 

@@ -1,14 +1,16 @@
-"""Time variants of the flash forward kernel on the card, to show what each
-part of its design buys.
+"""Time variants of the flash forward kernel and of the ring matmuls on the
+card, to show what each part of their designs buys.
 
-A variant is ``csrc/flash_fwd.cu`` with named text substitutions (the
-source as it stands is the first).  Each is built with the port's nvcc
-flags into ``tpu_dra_torch/_build/variants/``, held to the plain version
-(max abs error) and timed through its C entry with CUDA events at the
-training path's shapes, each in a process of its own under a time limit,
-so a variant that hangs costs only its limit.  Needs one CUDA card:
+A variant is a source (``csrc/flash_fwd.cu`` or ``csrc/ring.cu``) with
+named text substitutions (the source as it stands is the first).  Each is
+built with the port's nvcc flags into ``tpu_dra_torch/_build/variants/``,
+held to the plain version (max abs error) and timed through its C entry
+with CUDA events at the training paths' shapes, each in a process of its
+own under a time limit, so a variant that hangs costs only its limit.
+Needs one CUDA card:
 
-    python -m tpu_dra_torch.kernels.variants
+    python -m tpu_dra_torch.kernels.variants            # both kernels
+    python -m tpu_dra_torch.kernels.variants ring       # or one of them
 """
 
 from __future__ import annotations
@@ -21,101 +23,175 @@ from pathlib import Path
 from tpu_dra_torch.kernels import build
 
 OUT_DIR = build.BUILD_DIR / "variants"
-# name → [(text in csrc/flash_fwd.cu, replacement)]
+_RING_CONFIG = "using RingConfig = Config<256, 4, 2>;"
+# source → name → [(text in csrc/<source>.cu, replacement)]
 VARIANTS = {
-    "as built": [],
-    "plain grid (one block per work item)": [
-        ("*blocks = items < sms ? items : sms;", "*blocks = items;")],
-    "no issue turns between the consumers": [
-        ("  named_sync(kTurn + c, 2 * kWarpgroup);", ""),
-        ("  named_arrive(kTurn + 1 - c, 2 * kWarpgroup);", "")],
-    "exp2f in place of ex2.approx.ftz": [
-        ("exp2_ftz(s[i] - safe[r])", "exp2f(s[i] - safe[r])")],
+    "flash_fwd": {
+        "as built": [],
+        "plain grid (one block per work item)": [
+            ("*blocks = items < sms ? items : sms;", "*blocks = items;")],
+        "no issue turns between the consumers": [
+            ("  named_sync(kTurn + c, 2 * kWarpgroup);", ""),
+            ("  named_arrive(kTurn + 1 - c, 2 * kWarpgroup);", "")],
+        "exp2f in place of ex2.approx.ftz": [
+            ("exp2_ftz(s[i] - safe[r])", "exp2f(s[i] - safe[r])")],
+    },
+    "ring": {
+        "as built": [],
+        "clusters of 1 (no multicast of the w tile)": [
+            (_RING_CONFIG, "using RingConfig = Config<256, 4, 1>;")],
+        "tile 128x128, 6 stages": [
+            (_RING_CONFIG, "using RingConfig = Config<128, 6, 2>;")],
+        "3 stages (three copy threads)": [
+            (_RING_CONFIG, "using RingConfig = Config<256, 3, 2>;"),
+            ("constexpr int kCopiers = 2;", "constexpr int kCopiers = 3;")],
+        "plain grid (one cluster per work item)": [
+            ("  cudaError_t err = grid_blocks<C>(items, blocks);",
+             "  *blocks = static_cast<int>(items) * C::kCluster;\n"
+             "  cudaError_t err = cudaSuccess;")],
+        "ranks interleaved in the walk (rank innermost)": [
+            ("  const int rank = w / (nseg * rt * ct);\n"
+             "  w %= nseg * rt * ct;",
+             "  const int rank = w % ranks;\n  w /= ranks;")],
+        "one copy thread (not two taking the stages in turn)": [
+            ("constexpr int kCopiers = 2;", "constexpr int kCopiers = 1;")],
+        "no copy of the gathered operand (y only; a is left unwritten)": [
+            ("const bool copy = t.n0 == 0;", "const bool copy = false;")],
+        "RS without its fp32 partials' traffic (timing only; y is wrong)": [
+            ("          if (t > 0)                         // the partial "
+             "from the left", "          if (false)"),
+            ("""            if (t < n - 1)
+              tma_store_5d(&p.out, half, c0, c1, (t + 1) % 2, (u.r + 1) % n,
+                           u.g);
+            else
+              tma_store_5d""", """            if (t == n - 1)
+              tma_store_5d""")],
+        "RS outgoing partial by the consumers' own stores (not TMA)": [
+            ("""              if (t < n - 1)             // the outgoing partial, in place
+                *piece_at(stage + b * C::kABytes, f.row0 + 8 * h,
+                          f.col0 + 8 * j) = v;""", """              if (t < n - 1) {
+                const int row = u.m0 + f.row0 + 8 * h;
+                const int col = u.n0 + f.col0 + 8 * jj;
+                if (row < m && col < N)
+                  *reinterpret_cast<float2*>(
+                      comm + ((static_cast<size_t>(u.g) * n + (u.r + 1) % n)
+                              * 2 + (t + 1) % 2) * m * N +
+                      static_cast<size_t>(row) * N + col) = v;
+              }"""),
+            ("""            if (t < n - 1)
+              tma_store_5d(&p.out, half, c0, c1, (t + 1) % 2, (u.r + 1) % n,
+                           u.g);
+            else
+              tma_store_5d""", """            if (t == n - 1)
+              tma_store_5d""")],
+    },
 }
-# (BH, BHkv, S, causal) at D 128: the flagship's and the GQA run's
-# attention, and the flagship's without the mask
-SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
-          (256, 256, 1024, False)]
+# flash_fwd: (BH, BHkv, S, causal) at D 128: the flagship's and the GQA
+# run's attention, and the flagship's without the mask
+FLASH_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
+                (256, 256, 1024, False)]
+# ring: (kernel, label, m, K, N) at tp 4 on the flagship (chip_smoke.py
+# phase 12)
+RING_SHAPES = [("ag", "wqkv", 4096, 2048, 1536), ("ag", "w1", 4096, 2048, 2048),
+               ("rs", "w2", 4096, 2048, 2048), ("rs", "wo", 4096, 512, 2048)]
 TIME_LIMIT_S = 120
 
 
-def _source(name: str) -> Path:
-    src = (build.CSRC_DIR / "flash_fwd.cu").read_text()
-    for old, new in VARIANTS[name]:
+def _source(kernel: str, name: str) -> Path:
+    src = (build.CSRC_DIR / f"{kernel}.cu").read_text()
+    for old, new in VARIANTS[kernel][name]:
         if old not in src:
             raise ValueError(f"variant {name!r}: {old!r} not in the source")
         src = src.replace(old, new)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     for header in build.CSRC_DIR.glob("*.cuh"):
         (OUT_DIR / header.name).write_text(header.read_text())
-    path = OUT_DIR / f"v{list(VARIANTS).index(name)}.cu"
+    path = OUT_DIR / f"{kernel}-v{list(VARIANTS[kernel]).index(name)}.cu"
     path.write_text(src)
     return path
 
 
-def build_variants() -> dict[str, Path]:
+def build_variants(kernels) -> dict[tuple[str, str], Path]:
     """Every variant's library (one nvcc each, all at once); prints each
     build's ptxas spill lines."""
     procs = {}
-    for name in VARIANTS:
-        src = _source(name)
-        lib = src.with_suffix(".so")
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for kernel in kernels:
+        for name in VARIANTS[kernel]:
+            src = _source(kernel, name)
+            lib = src.with_suffix(".so")
+            procs[kernel, name] = (lib, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+                 str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (lib, proc) in procs.items():
+    for (kernel, name), (lib, proc) in procs.items():
         log = proc.communicate()[0]
         spills = sorted({ln.strip() for ln in log.splitlines()
                          if "spill" in ln})
-        print(f"[variants] {name}: nvcc exit {proc.returncode}; {spills}",
-              flush=True)
-        if proc.returncode == 0:
-            libs[name] = lib
+        print(f"[variants] {kernel} / {name}: nvcc exit {proc.returncode}; "
+              f"{spills}", flush=True)
+        if proc.returncode:
+            print(log[-2000:], flush=True)
+        else:
+            libs[kernel, name] = lib
     return libs
 
 
-def time_variant(lib: Path) -> str:
+def _event_us(call, iters: int = 20) -> float:
+    import torch
+    for _ in range(3):
+        call()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters * 1e3
+
+
+def _bind(lib: Path, kernel: str):
+    cdll = ctypes.CDLL(str(lib))
+    for fn, (restype, argtypes) in build.SIGNATURES[kernel].items():
+        f = getattr(cdll, fn)
+        f.restype, f.argtypes = restype, argtypes
+    return cdll
+
+
+def _checked(rc):
+    if rc:
+        raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+
+def time_flash(lib: Path) -> str:
     """One line: each shape's time, TF/s of the products the mask keeps
     and max abs error against ``flash_attn_fwd_ref``."""
     import torch
 
     from tpu_dra_torch.workloads import flash as F
     from tpu_dra_torch.workloads.train import weak_scalar
-    cdll = ctypes.CDLL(str(lib))
-    fn = cdll.tpu_dra_flash_fwd
-    fn.restype, fn.argtypes = build.SIGNATURES["flash_fwd"]["tpu_dra_flash_fwd"]
+    fn = _bind(lib, "flash_fwd").tpu_dra_flash_fwd
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     qscale = weak_scalar(128 ** -0.5 * F._LOG2E, torch.bfloat16)
     parts = []
-    for bh, bhkv, s, causal in SHAPES:
+    for bh, bhkv, s, causal in FLASH_SHAPES:
         q, k, v = (torch.randn((n, s, 128), generator=gen, device="cuda")
                    .to(torch.bfloat16) for n in (bh, bhkv, bhkv))
         out = torch.empty_like(q)
         l2 = torch.empty((bh, s, 1), device="cuda")
 
         def call():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    l2.data_ptr(), bh, bhkv, s, s, 128, int(causal), qscale,
-                    stream)
-            if rc:
-                raise RuntimeError(f"launch failed: CUDA error {rc}")
+            _checked(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), l2.data_ptr(), bh, bhkv, s, s, 128,
+                        int(causal), qscale, stream))
         call()
         torch.cuda.synchronize()
         err = float((out.float() - F.flash_attn_fwd_ref(q, k, v, causal)[0]
                      .float()).abs().max())
-        for _ in range(3):
-            call()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            call()
-        end.record()
-        torch.cuda.synchronize()
-        us = start.elapsed_time(end) / 20 * 1e3
+        us = _event_us(call)
         kept = s * (s + 1) // 2 if causal else s * s
         parts.append(f"[{bh} over {bhkv}, {s}, 128] "
                      f"{'causal' if causal else 'full'} {us:.1f} us "
@@ -124,27 +200,88 @@ def time_variant(lib: Path) -> str:
     return "; ".join(parts)
 
 
-def main() -> int:
-    libs = build_variants()
-    for name, lib in libs.items():
+def time_ring(lib: Path) -> str:
+    """One line: each ring matmul shape's time for its n = 4 step
+    launches, TF/s, and max abs error of y against the plain version
+    (and whether the gathered operand is byte-equal)."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    cdll = _bind(lib, "ring")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    P = lambda t: t.data_ptr()      # noqa: E731
+    n, parts = 4, []
+    for kind, label, m, k, n_out in RING_SHAPES:
+        rows = m if kind == "ag" else n * m
+        x = torch.randn((1, n, rows, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((1, n, k, n_out), generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        if kind == "ag":
+            y = torch.empty((1, n, n * m, n_out), dtype=torch.bfloat16,
+                            device="cuda")
+            a = torch.empty((1, n, n, m, k), dtype=torch.bfloat16,
+                            device="cuda")
+
+            def call():
+                for step in range(n):
+                    _checked(cdll.tpu_dra_ring_ag_matmul(
+                        P(x), P(w), P(y), P(a), 1, n, m, k, n_out, m * k,
+                        n * m * k, k * n_out, 0, step, 1, stream))
+            call()
+            torch.cuda.synchronize()
+            want_y, want_a = cm.all_gather_matmul_ref(x, w)
+            extra = f", a byte-equal {torch.equal(a, want_a)}"
+        else:
+            y = torch.empty((1, n, m, n_out), dtype=torch.bfloat16,
+                            device="cuda")
+            comm = torch.empty((1, n, 2, m, n_out), dtype=torch.float32,
+                               device="cuda")
+
+            def call():
+                for step in range(n):
+                    _checked(cdll.tpu_dra_ring_matmul_rs(
+                        P(x), P(w), P(comm), P(y), 1, n, m, k, n_out,
+                        n * m * k, n * n * m * k, k * n_out, 0, step,
+                        stream))
+            call()
+            torch.cuda.synchronize()
+            want_y, extra = cm.matmul_reduce_scatter_ref(x, w), ""
+        err = float((y.float() - want_y.float()).abs().max())
+        us = _event_us(call)
+        flops = 2 * n * (n * m) * k * n_out
+        parts.append(f"{kind} {label} {us:.1f} us ({flops / us / 1e6:.0f} "
+                     f"TF/s, max abs err {err:.3g}{extra})")
+        del x, w, y
+    return "; ".join(parts)
+
+
+TIMERS = {"flash_fwd": time_flash, "ring": time_ring}
+
+
+def main(kernels) -> int:
+    libs = build_variants(kernels)
+    for (kernel, name), lib in libs.items():
         try:
             res = subprocess.run(
                 [sys.executable, "-m", "tpu_dra_torch.kernels.variants",
-                 "--time", str(lib)], capture_output=True, text=True,
+                 "--time", kernel, str(lib)], capture_output=True, text=True,
                 timeout=TIME_LIMIT_S)
             line = res.stdout.strip() or f"failed: {res.stderr[-600:]}"
         except subprocess.TimeoutExpired:
             line = f"no result within {TIME_LIMIT_S} s"
-        print(f"[variants] {name}: {line}", flush=True)
+        print(f"[variants] {kernel} / {name}: {line}", flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), flush=True)
-    return 0 if len(libs) == len(VARIANTS) else 1
+    return 0 if len(libs) == sum(len(VARIANTS[k]) for k in kernels) else 1
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
-        print(time_variant(Path(sys.argv[2])), flush=True)
+        print(TIMERS[sys.argv[2]](Path(sys.argv[3])), flush=True)
         sys.exit(0)
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:] or list(VARIANTS)))

@@ -415,14 +415,24 @@ def _check_bwd_args(qs, k, v, dout, l2, dd, bh: int, s: int, d: int):
     _check_kernel_args(qs, k, v, dout, l2, dd, d=d)
 
 
+def dq_slot_rows(s: int, sk: int, causal: bool) -> int:
+    """Rows of the fused kernel's dQ scratch per q head-row: one slot per
+    64-key tile, tile t's holding rows ``[64·t, s)`` under the causal mask
+    (no earlier query sees its keys) and all ``s`` rows otherwise."""
+    n_t = -(-sk // 64)
+    return n_t * s - 32 * n_t * (n_t - 1) if causal else n_t * s
+
+
 def flash_bwd_fused(qs, k, v, dout, l2, dd, causal: bool):
     """Fused backward step: ``(dq, dk, dv)`` bf16 with dk/dv per q head
     (the caller group-sums them for GQA).  CPU tensors take
     :func:`flash_bwd_fused_ref`; CUDA tensors launch the fused kernel of
     ``csrc/flash_bwd.cu`` (row #5) or raise, and each launch adds one to
-    ``flash_bwd_fused.launches``.  The kernel adds dQ's unscaled fp32 sums
-    into one zeroed buffer per block of :data:`KV_BLOCK` keys, and a second
-    pass forms dq from them as :func:`_finish_dq` does."""
+    ``flash_bwd_fused.launches``.  The kernel stores dQ's unscaled fp32
+    sums into one slot per 64-key tile (:func:`dq_slot_rows`), and a
+    second pass sums each block of :data:`KV_BLOCK` keys' slots in key
+    order and forms dq from those partials as :func:`_finish_dq` does, so
+    dq is the same from run to run."""
     if qs.device.type == "cpu":
         return flash_bwd_fused_ref(qs, k, v, dout, l2, dd, causal)
     require_cuda(qs, "flash_bwd_fused")
@@ -433,8 +443,8 @@ def flash_bwd_fused(qs, k, v, dout, l2, dd, causal: bool):
     dq = torch.empty_like(qs)
     dk = torch.empty((bh, sk, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    dqacc = torch.zeros((-(-sk // bk), bh, s, d), dtype=torch.float32,
-                        device=qs.device)
+    dqacc = torch.empty((dq_slot_rows(s, sk, causal), bh, d),
+                        dtype=torch.float32, device=qs.device)
     rc = lib.tpu_dra_flash_bwd_fused(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         l2.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),

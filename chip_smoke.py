@@ -39,9 +39,10 @@ Phases (each prints as it goes; any failed check exits non-zero):
   6. time the four flash kernels, their wrappers and plain versions, and
      the library yardstick (scaled_dot_product_attention forward, and its
      backward for the backward kernels) with CUDA events at the path's
-     shapes; the fused backward beside the split pair; for the forward,
-     its share of the bound, its ratio to the SDPA forward and its time
-     before the TMA/wgmma redesign;
+     shapes; for the forward and the fused backward, each one's share of
+     its bound, its ratio to the SDPA call and its time before the
+     TMA/wgmma redesign, and the fused backward's scratch bytes beside the
+     split pair's time;
   7. matmul kernels: the tiled matmul at 4096^3, k 512, a rectangle and
      ragged tiles, the fused RMSNorm-matmul at the flagship's ln1 -> wqkv
      and ln2 -> w1 ([16384, 2048] @ [2048, 6144] and @ [2048, 8192]), m <
@@ -49,7 +50,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
      (matmul.ELEM_TOL, matmul.ROW_TOL); their times beside bound, plain
      version and library yardstick (torch.matmul; for the fused kernel the
      unfused pair, two calls); then tpu_dra_torch.bench's
-     section_pallas_matmul, the tiled matmul's path (launch counts);
+     section_pallas_matmul, the tiled matmul's path (launch counts), and
+     the matmul's share of its bound, its ratio to torch.matmul and its
+     time before the wgmma redesign;
   8. train the flagship at full width (vocab 32768, d_model 2048, 16
      heads, 8 layers, d_ff 8192, max_seq 1024, learned positions; ~539 M
      fp32 parameters from a seed) on a synthetic token file: first one
@@ -90,7 +93,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
  14. DP×SP on Mesh({"dp": 1, "sp": 4}): make_ring_train_step(ring_impl=
      "flash", hop_impl="pallas") bit-equal to hop_impl="xla", held to the
      one-device flash step, then 10 steps with an exact shift count.
-The second-to-last line is a JSON object describing every kernel (ten);
+The second-to-last line is a JSON object describing every kernel (eleven
+entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -163,6 +167,14 @@ VJP_REL = 1e-2
 # an H100 80GB HBM3 at 700 W (PERF.md §6)
 FWD_BEFORE_US = {"flagship [256, 1024, 128]": "598.1-603.2",
                  "GQA run [64 over 16, 1024, 128]": "177.8-179.9"}
+# the fused flash backward's and the plain matmul's card times before their
+# TMA/wgmma redesign (the fused backward: per-tile dq slots on the mma.sync
+# dK/dV kernel; the matmul: the mma.sync mainloop of
+# csrc/gemm_common.cuh), phases 6 and 7 on an H100 80GB HBM3 at 700 W
+# (PERF.md §6)
+FUSED_BEFORE_US = {"flagship [256, 1024, 128]": "1897.4",
+                   "GQA run [64 over 16, 1024, 128]": "539.7"}
+MATMUL_BEFORE_US = "481.2-492.7"
 # the ring matmuls' card time before their wgmma redesign (the first
 # version: the mma.sync mainloop of csrc/gemm_common.cuh), phase 12 on an
 # H100 80GB HBM3 at 700 W (PERF.md §6)
@@ -659,7 +671,8 @@ def check_flash(gen) -> dict:
     log(f"[flash] l2 over all cases: max abs err {l2_worst:.3g}")
     log(f"[flash] tolerances: elementwise rtol = atol = {ELEM_TOL}; per "
         f"head-row {ROW_TOL}; l2 atol {L2_ATOL}")
-    return {name: vals[0] for name, vals in path.items()}
+    return {**{name: vals[0] for name, vals in path.items()},
+            "flash_fwd_gqa": gqa["flash_fwd"][0]}
 
 
 # ---------------------------------------------------------------------------
@@ -693,9 +706,9 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
     qs = F._prescale(q).contiguous()
     dd = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))   # per q head
-    dqacc = torch.empty((F.dq_slot_rows(S, S, True), BH, D),
-                        dtype=torch.float32,
-                        device=q.device)     # the fused kernel's dq slots
+    # the fused kernel's scratch: dq's fp32 accumulator and its flags
+    scratch = torch.empty(-(-F.fused_scratch_bytes(BH, S, S, D) // 4),
+                          dtype=torch.float32, device=q.device)
     lf, lb = library("flash_fwd"), library("flash_bwd")
     stream = torch.cuda.current_stream().cuda_stream
     qscale = weak_scalar(D ** -0.5 * F._LOG2E, torch.bfloat16)
@@ -717,7 +730,7 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
             S, S, D, 1, stream)),
         "flash_bwd_fused": lambda: checked(lb.tpu_dra_flash_bwd_fused(
             P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv),
-            P(dqacc), P(dq), BH, BHkv, S, S, D, 1, F.KV_BLOCK, D ** -0.5,
+            P(scratch), P(dq), BH, BHkv, S, S, D, 1, F.KV_BLOCK, D ** -0.5,
             stream)),
     }
     wrappers = {
@@ -773,6 +786,7 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
                    "wrapper_ms": cuda_time_ms(wrappers[name], 20),
                    "plain_ms": cuda_time_ms(plains[name], 5, warmup=1),
                    "library_ms": library_ms[name], **flash_bound(*sizes[name])}
+    t["flash_bwd_fused"]["scratch_bytes"] = F.fused_scratch_bytes(BH, S, S, D)
     return t
 
 
@@ -1161,8 +1175,9 @@ def train_phase(gen, tmp: Path) -> tuple:
                      norm_impl="fused")
     gcfg = ModelConfig(**GQA_MODEL)
     n = compare_step(gen, gcfg, data_path, GQA_RUN["batch"], "GQA")
-    fit_phase(gcfg, data_path, GQA_RUN["steps"], GQA_RUN["batch"], "GQA", n)
-    return run, fused
+    gqa_run = fit_phase(gcfg, data_path, GQA_RUN["steps"], GQA_RUN["batch"],
+                        "GQA", n)
+    return run, fused, gqa_run
 
 
 # ---------------------------------------------------------------------------
@@ -1322,6 +1337,32 @@ def log_fwd_summary(shape: str, t: dict, card: str) -> None:
         f"bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x the SDPA "
         f"forward's {t['library_ms'] * 1e3:.1f} us; before the TMA/wgmma "
         f"redesign {FWD_BEFORE_US[shape]} us; on {card}")
+
+
+def log_fused_summary(shape: str, times: dict, card: str) -> None:
+    """The fused backward's time, the SDPA backward's, its share of the
+    bound, its scratch and the split pair's time in the same run."""
+    t = times["flash_bwd_fused"]
+    split = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkdv"]["ms"]
+    log(f"[time] flash_bwd_fused at the {shape}: {t['ms'] * 1e3:.1f} us, "
+        f"{t['bound_ms'] / t['ms']:.3f} of its {t['bound_ms'] * 1e3:.1f} us "
+        f"bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x the SDPA "
+        f"backward's {t['library_ms'] * 1e3:.1f} us; scratch "
+        f"{t['scratch_bytes']} B ({t['scratch_bytes'] / 1e9:.3f} GB); the "
+        f"split pair (flash_bwd_dq + flash_bwd_dkdv) {split * 1e3:.1f} us; "
+        f"before the TMA/wgmma redesign {FUSED_BEFORE_US[shape]} us; on "
+        f"{card}")
+
+
+def log_matmul_summary(t: dict, benched: dict, card: str) -> None:
+    """The plain matmul's share of its bound and its ratio to
+    torch.matmul at 4096^3, and the bench section's rate."""
+    log(f"[time] matmul 4096^3: {t['ms'] * 1e3:.1f} us, "
+        f"{t['bound_ms'] / t['ms']:.3f} of its {t['bound_ms'] * 1e3:.1f} us "
+        f"bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x "
+        f"torch.matmul's {t['library_ms'] * 1e3:.1f} us; "
+        f"pallas_matmul_tflops {benched['pallas_matmul_tflops']}; before "
+        f"the wgmma redesign {MATMUL_BEFORE_US} us; on {card}")
 
 
 def log_ring_summary(times: dict, card: str) -> None:
@@ -1842,21 +1883,19 @@ def main() -> int:
     flash_t = time_flash(gen, B=16, H=16, Hkv=16)
     log_flash_times("flagship [256, 1024, 128]", flash_t, card)
     log_fwd_summary("flagship [256, 1024, 128]", flash_t["flash_fwd"], card)
-    split = flash_t["flash_bwd_dq"]["ms"] + flash_t["flash_bwd_dkdv"]["ms"]
-    log(f"[time] flash_bwd_fused at the flagship shape: "
-        f"{flash_t['flash_bwd_fused']['ms'] * 1e3:.1f} us against "
-        f"{split * 1e3:.1f} us for the split pair (flash_bwd_dq + "
-        f"flash_bwd_dkdv) in this run")
+    log_fused_summary("flagship [256, 1024, 128]", flash_t, card)
     gqa_t = time_flash(gen, B=8, H=8, Hkv=2)
     log_flash_times("GQA run [64 over 16, 1024, 128]", gqa_t, card)
     log_fwd_summary("GQA run [64 over 16, 1024, 128]", gqa_t["flash_fwd"],
                     card)
+    log_fused_summary("GQA run [64 over 16, 1024, 128]", gqa_t, card)
 
     with torch.no_grad():
         mm_err = check_matmul(gen)
         mm_t = time_matmul(gen)
     log_times(mm_t, card)
     benched = bench_phase()
+    log_matmul_summary(mm_t["matmul 4096^3"], benched, card)
 
     ring_err = check_ring(gen)
     with torch.no_grad():
@@ -1865,7 +1904,7 @@ def main() -> int:
     log_ring_summary(ring_t, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
-        trained, fused = train_phase(gen, Path(tmp))
+        trained, fused, gqa_run = train_phase(gen, Path(tmp))
         sharded = sharded_phase(gen, str(Path(tmp) / "tokens.bin"))
         ringed = ring_phase(gen, str(Path(tmp) / "tokens.bin"))
 
@@ -1878,8 +1917,7 @@ def main() -> int:
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]
     flash_src = {"flash_fwd": ("tpu_dra_torch/csrc/flash_fwd.cu",
-                               "tpu_dra/workloads/pallas_kernels.py:151 and "
-                               "tpu_dra/workloads/pallas_kernels.py:221"),
+                               "tpu_dra/workloads/pallas_kernels.py:151"),
                  "flash_bwd_dq": ("tpu_dra_torch/csrc/flash_bwd.cu",
                                   "tpu_dra/workloads/pallas_kernels.py:367"),
                  "flash_bwd_dkdv": ("tpu_dra_torch/csrc/flash_bwd.cu",
@@ -1892,6 +1930,16 @@ def main() -> int:
             "max_abs_err": flash_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # row #4: the same kernel at g = 4, timed and launched in the GQA run
+    t = gqa_t["flash_fwd"]
+    kernels.append({
+        "name": "flash_fwd_gqa", "route": "cuda",
+        "source": "tpu_dra_torch/csrc/flash_fwd.cu",
+        "replaces": "tpu_dra/workloads/pallas_kernels.py:221",
+        "launches": gqa_run["launches"]["flash_fwd"],
+        "max_abs_err": flash_err["flash_fwd_gqa"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     wqkv = next(k for k in mm_t if "wqkv" in k)
     later = {  # name: (source, replaces, launches, max abs err, times)
         "matmul": ("tpu_dra_torch/csrc/matmul.cu",

@@ -263,13 +263,16 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("shape", [
     (8, 8, 300, 128, True, None), (8, 2, 200, 64, True, None),
     (8, 2, 100, 128, False, 300), (4, 4, 2048, 128, True, None),
-    (4, 1, 2500, 64, False, None), (8, 2, 1000, 128, False, None)],
+    (4, 1, 2500, 64, False, None), (8, 2, 1000, 128, False, None),
+    (8, 8, 129, 128, True, None), (4, 4, 1000, 128, True, None)],
     ids=["mha-300", "gqa4-d64-200", "cross-100x300", "two-blocks-2048",
-         "mqa-three-blocks-2500", "gqa4-full-1000"])
+         "mqa-three-blocks-2500", "gqa4-full-1000", "causal-129",
+         "causal-1000"])
 def test_flash_fused_kernel_matches_plain(shape):
     """dq (from the kernel's fp32 sums per KV_BLOCK keys: one to three
     blocks here, the last ragged), and per-q-head dk, dv, against
-    flash_bwd_fused_ref."""
+    flash_bwd_fused_ref; S 129 and 1000 are not multiples of the kernel's
+    128-key item."""
     from tpu_dra_torch.workloads import flash as tf
     bh, bhkv, s, d, causal, sk = shape
     dev = card()
@@ -296,10 +299,10 @@ def test_flash_fused_kernel_matches_plain(shape):
 
 
 def test_flash_fused_backward_is_deterministic():
-    """Two calls on the same inputs give bit-equal dq, dk and dv: every
-    64-key tile stores its dq sums into a slot of its own and the second
-    pass adds the slots in key order (no atomics), at a causal shape of two
-    KV_BLOCKs and a non-causal GQA one."""
+    """Two calls on the same inputs give bit-equal dq, dk and dv: the
+    128-key items add their dq sums into each block's accumulator in key
+    order, behind flags (no atomics), at a causal shape of two KV_BLOCKs
+    and a non-causal GQA one."""
     from tpu_dra_torch.workloads import flash as tf
     dev = card()
     gen = torch.Generator(device=dev)
@@ -316,6 +319,26 @@ def test_flash_fused_backward_is_deterministic():
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dk", "dv"), first, second):
             assert torch.equal(a, b), (bh, s, causal, name)
+
+
+def test_flash_fused_scratch_stays_under_a_third_of_a_gigabyte():
+    """At the training path's [256, 1024, 128] causal the wrapper's scratch
+    is one fp32 dQ accumulator and its flags: under 0.3 GB (the per-tile
+    slots it replaces took 1.14 GB), as allocated on the card."""
+    from tpu_dra_torch.workloads import flash as tf
+    dev = card()
+    q = torch.zeros((256, 1024, 128), dtype=torch.bfloat16, device=dev)
+    l2 = torch.zeros((256, 1024, 1), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tf.flash_bwd_fused(q, q, q, q, l2, l2, True)
+    torch.cuda.synchronize()
+    outputs = 3 * q.numel() * 2                      # dq, dk, dv
+    scratch = torch.cuda.max_memory_allocated() - base - outputs
+    # the allocator rounds each block up to 512 bytes
+    assert 0 <= scratch - tf.fused_scratch_bytes(256, 1024, 1024, 128) < 512
+    assert scratch < 0.3e9, scratch
 
 
 def test_flash_fused_front_door_on_the_card():
@@ -372,10 +395,13 @@ def _mm_close(got, want):
 
 @pytest.mark.parametrize("mkn", [(256, 256, 256), (200, 512, 264),
                                  (1000, 64, 72), (128, 40, 8),
-                                 (2048, 1024, 640)])
+                                 (2048, 1024, 640), (1, 256, 256),
+                                 (300, 512, 512), (256, 256, 136),
+                                 (512, 72, 256)])
 def test_matmul_kernel_matches_plain(mkn):
-    """Ragged tiles in every dimension: m 200 and 1000, k 40 (one partial
-    32-deep tile), n 264, 72 and 8."""
+    """Ragged tiles in every dimension: m 1, 200, 300 and 1000 (a lone
+    block of a cluster's row-tile pair past M), k 40 and 72 (partial
+    64-deep stages), n 264, 136, 72 and 8 (partial 256-wide tiles)."""
     from tpu_dra_torch.workloads import matmul as tm
     m, k, n = mkn
     dev = card()

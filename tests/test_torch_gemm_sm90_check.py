@@ -1,6 +1,6 @@
-"""The addressing of the wgmma GEMM mainloop (``csrc/gemm_sm90.cuh``) and
-of the ring kernels' persistent walk (``csrc/ring.cu``), replayed on the
-CPU.
+"""The addressing of the wgmma GEMM mainloop (``csrc/gemm_sm90.cuh``), of
+the ring kernels' persistent walk (``csrc/ring.cu``) and of the plain
+matmul's (``csrc/matmul.cu``), replayed on the CPU.
 
 The kernels cannot run here, so what the hardware does with their
 addresses is modelled in PyTorch with the constants and expressions read
@@ -23,7 +23,11 @@ equals ``x @ w`` exactly (small integers: every sum is exact in fp32), at
 ragged M, N and K.  It then walks a launch's work items as the persistent
 grid does and checks each (rank, segment, row tile, column tile) is taken
 exactly once and that only column tile 0 writes the gathered operand,
-covering every element of each segment once.
+covering every element of each segment once.  The plain matmul's walk
+(one rank, one segment: row-tile pairs outermost, each block of a cluster
+one row tile of the pair) must cover every output tile once, and its
+tiles, read through its tensor-map coordinates and stored with its masks,
+must give ``x @ w`` exactly at a ragged shape.
 
 Each planted fault must fail: a wrong LBO, a missing box jump (LBO 0), a
 swizzle phase off by one row, and a work item skipped.  The copy threads'
@@ -44,6 +48,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "tpu_dra_torch" / "csrc"
 HEADER = (CSRC / "gemm_sm90.cuh").read_text()
 RING = (CSRC / "ring.cu").read_text()
+MATMUL = (CSRC / "matmul.cu").read_text()
 
 
 def constant(name: str, text: str = HEADER) -> int:
@@ -407,3 +412,87 @@ def test_planted_copier_fault_fails(stages, copiers, waits_all):
                               if it % copiers != me})
                  for me in range(copiers))
     assert not copier_is_safe(stages, copiers, waits_all) or shared
+
+
+# --------------------------------------------------------------------------
+# the plain matmul's walk (matmul.cu matmul_sm90_kernel)
+# --------------------------------------------------------------------------
+
+def test_the_matmul_replay_reads_its_source():
+    """The plain matmul runs the ring kernels' mainloop configuration, one
+    rank and one segment: 5-D maps whose outer axes have size 1, read at
+    coordinate 0, and the walk below."""
+    assert tuple(map(int, re.search(
+        r"using MatmulConfig = Config<(\d+), (\d+), (\d+)>;",
+        MATMUL).groups())) == (BN, STAGES, CLUSTER)
+    for line in (
+            "map_bf16_5d(&tm_x, x, {K, M, 1, 1, 1}, {K, 0, 0, 0}, kBM)",
+            "map_bf16_5d(&tm_w, w, {N, K, 1, 1, 1}, {N, 0, 0, 0}, kBK)",
+            "produce_tile(ring, it, nk, Operand{&tm_x, 0, 0, 0},",
+            "Operand{&tm_w, 0, 0, 0}, m0_of(w), n0_of(w));",
+            "auto m0_of = [&](int w) { return (w / ct * C::kCluster + "
+            "ring.crank) * kBM; };",
+            "auto n0_of = [&](int w) { return w % ct * C::kBN; };",
+            "const int rt = ((M + kBM - 1) / kBM + C::kCluster - 1) / "
+            "C::kCluster;",
+            "if (col >= N) continue;",
+            "if (row < M)"):
+        assert line in MATMUL, line
+
+
+def matmul_walk(M: int, N: int, fault=None):
+    """Every block's (m0, n0), in order, on the persistent grid: clusters
+    of CLUSTER blocks on 132 SMs walk the rt·ct items round robin, block
+    crank of a cluster taking row tile crank of the item's pair.
+    ``no-crank``: both blocks of a cluster take the pair's first row
+    tile."""
+    rt = -(-(-(-M // BM)) // CLUSTER)
+    ct = -(-N // BN)
+    items = rt * ct
+    clusters = min(items, SMS // CLUSTER)
+    taken = []
+    for c in range(clusters):
+        for w in range(c, items, clusters):
+            for crank in range(CLUSTER):
+                r = 0 if fault == "no-crank" else crank
+                taken.append(((w // ct * CLUSTER + r) * BM, w % ct * BN))
+    return taken
+
+
+def covers_once(taken, M: int, N: int) -> bool:
+    """The masked stores (rows < M, columns < N) of the taken tiles cover
+    each output tile exactly once; tiles wholly past M store nothing."""
+    count = torch.zeros((-(-M // BM), -(-N // BN)), dtype=torch.int64)
+    for m0, n0 in taken:
+        if m0 < M and n0 < N:
+            count[m0 // BM, n0 // BN] += 1
+    return bool((count == 1).all())
+
+
+# (M, K, N): the bench's 4096^3, and M, K and N off the tiles (an odd
+# number of row tiles, K 264 a ragged stage, N 136 a partial tile)
+MATMUL_SHAPES = [(4096, 4096, 4096), (300, 264, 136)]
+
+
+@pytest.mark.parametrize("mkn", MATMUL_SHAPES, ids=str)
+def test_matmul_walk_covers_every_tile_once(mkn):
+    M, _, N = mkn
+    assert covers_once(matmul_walk(M, N), M, N)
+
+
+def test_matmul_tiles_give_the_product_at_a_ragged_shape():
+    """Each tile of the ragged walk through TMA's boxes at its coordinates
+    and the consumers' descriptors, stored with the kernel's masks."""
+    M, K, N = MATMUL_SHAPES[1]
+    x, w = small_ints((M, K), 5), small_ints((K, N), 6)
+    out = torch.full((M, N), float("nan"))
+    for m0, n0 in matmul_walk(M, N):
+        acc = tile_product(x, w, m0, n0)
+        rows, cols = min(BM, max(0, M - m0)), min(BN, N - n0)
+        out[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+    assert torch.equal(out, x @ w)
+
+
+def test_planted_matmul_walk_fault_fails():
+    M, _, N = MATMUL_SHAPES[1]
+    assert not covers_once(matmul_walk(M, N, fault="no-crank"), M, N)

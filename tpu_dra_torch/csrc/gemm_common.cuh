@@ -1,5 +1,6 @@
-// The tiled bf16 GEMM mainloop for Hopper (sm_90a) shared by the matmul
-// kernels (matmul.cu) and the ring kernels (ring.cu): one block of 8 warps
+// The tiled bf16 GEMM mainloop of the RMSNorm-matmul (matmul.cu
+// tpu_dra_rmsnorm_matmul; the plain matmul and the ring kernels run on
+// gemm_sm90.cuh): one block of 8 warps
 // per 128 x 128 output tile, the warps 2 (M) x 4 (N), each warp 64 x 32;
 // K streams in 32-deep tiles through two shared buffers, the next tile's
 // loads in flight (in registers) while the current one is multiplied;
@@ -94,9 +95,8 @@ __device__ __forceinline__ void load_w(uint4 v[kBV],
   }
 }
 
-// Staged x vectors into shared memory; with NORM each element becomes
+// Staged x vectors into shared memory, each element becoming
 // bf16((x * r[row]) * gamma[k]) in fp32 first (the reference's normed)
-template <bool NORM>
 __device__ __forceinline__ void store_x(uint16_t* s, uint4 v[kAV],
                                         const float* sR,
                                         const float* __restrict__ gamma,
@@ -105,21 +105,18 @@ __device__ __forceinline__ void store_x(uint16_t* s, uint4 v[kAV],
   for (int i = 0; i < kAV; ++i) {
     const int r = x_row(i), c = x_col(i);
     uint4 val = v[i];
-    if constexpr (NORM) {
-      if (m0 + r < M && k0 + c < K) {
-        const float rr = sR[r];
-        const float4 g0 = *reinterpret_cast<const float4*>(gamma + k0 + c);
-        const float4 g1 =
-            *reinterpret_cast<const float4*>(gamma + k0 + c + 4);
-        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+    if (m0 + r < M && k0 + c < K) {
+      const float rr = sR[r];
+      const float4 g0 = *reinterpret_cast<const float4*>(gamma + k0 + c);
+      const float4 g1 = *reinterpret_cast<const float4*>(gamma + k0 + c + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          h[e] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(f.x, rr), g[2 * e]),
-                                       __fmul_rn(__fmul_rn(f.y, rr),
-                                                 g[2 * e + 1]));
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        h[e] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(f.x, rr), g[2 * e]),
+                                     __fmul_rn(__fmul_rn(f.y, rr),
+                                               g[2 * e + 1]));
       }
     }
     *reinterpret_cast<uint4*>(s + r * kAS + c) = val;
@@ -170,24 +167,15 @@ struct alignas(16) Smem {
   uint16_t w[2][kBK * kBS];
 };
 
-// A hook that sees each x tile as it arrives in registers (before NORM
-// scales it), called once per K tile with the tile's k0; the default does
-// nothing
-struct NoTap {
-  __device__ __forceinline__ void operator()(const uint4 (&)[kAV], int) const {}
-};
-
 // The block's 128 x 128 tile of x . w at (m0, n0), into acc (zeroed
-// here).  With NORM, sR holds the block's 128 row norms and gamma [K] the
-// gains.  tap(v, k0) sees every staged x tile.
-template <bool NORM, typename Tap = NoTap>
+// here), x normalised on its way in: sR holds the block's 128 row norms
+// and gamma [K] the gains.
 __device__ __forceinline__ void mainloop(float acc[4][4][4], Smem& sm,
                                          const __nv_bfloat16* __restrict__ x,
                                          const __nv_bfloat16* __restrict__ w,
                                          const float* __restrict__ gamma,
                                          const float* sR, int m0, int n0,
-                                         int M, int N, int K,
-                                         Tap tap = Tap()) {
+                                         int M, int N, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
 #pragma unroll
@@ -200,9 +188,8 @@ __device__ __forceinline__ void mainloop(float acc[4][4][4], Smem& sm,
   uint4 vx[kAV], vw[kBV];
   const int nk = (K + kBK - 1) / kBK;
   load_x(vx, x, m0, 0, M, K);
-  tap(vx, 0);
   load_w(vw, w, n0, 0, N, K);
-  store_x<NORM>(sm.x[0], vx, sR, gamma, m0, 0, M, K);
+  store_x(sm.x[0], vx, sR, gamma, m0, 0, M, K);
   store_w(sm.w[0], vw);
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
@@ -210,12 +197,11 @@ __device__ __forceinline__ void mainloop(float acc[4][4][4], Smem& sm,
     const int k1 = (kt + 1) * kBK;
     if (kt + 1 < nk) {                  // next tile's loads in flight
       load_x(vx, x, m0, k1, M, K);
-      tap(vx, k1);
       load_w(vw, w, n0, k1, N, K);
     }
     multiply(acc, sm.x[buf], sm.w[buf], wm, wn, lane);
     if (kt + 1 < nk) {
-      store_x<NORM>(sm.x[buf ^ 1], vx, sR, gamma, m0, k1, M, K);
+      store_x(sm.x[buf ^ 1], vx, sR, gamma, m0, k1, M, K);
       store_w(sm.w[buf ^ 1], vw);
     }
     __syncthreads();

@@ -1,5 +1,6 @@
 // A TMA-fed, warp-specialized wgmma GEMM mainloop for Hopper (sm_90a), on
-// the building blocks of hopper.cuh; the ring kernels (ring.cu) run on it.
+// the building blocks of hopper.cuh; the ring kernels (ring.cu) and the
+// plain matmul (matmul.cu) run on it.
 //
 // One block (CTA) is three warpgroups, and blocks pair up in clusters of 2
 // that share each w tile.  Warpgroup 0 is the producer: its

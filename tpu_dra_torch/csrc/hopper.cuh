@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor
-// maps and bulk tensor copies (multicast to a cluster's blocks included),
-// mbarriers (local and a cluster peer's), wgmma shared-memory descriptors
-// and products, the fences between them, named barriers, cluster barriers
-// and register reallocation between warpgroups.
+// maps and bulk tensor copies (multicast to a cluster's blocks included,
+// and the fp32 reduce-add into global memory), mbarriers (local and a
+// cluster peer's), wgmma shared-memory descriptors and products, the
+// fences between them, acquire / release flags in global memory, named
+// barriers, cluster barriers and register reallocation between warpgroups.
 //
 // Layout convention.  Every operand tile in shared memory is what TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B for a box 64 bf16 wide: rows of
@@ -90,6 +91,27 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The same for a contiguous fp32 tensor [n, rows, cols] in boxes of 32
+// columns (128 bytes) x `box_rows` rows, 128B swizzled
+inline cudaError_t tensor_map_f32(CUtensorMap* map, const void* base, int n,
+                                  int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4,
+                                 static_cast<cuuint64_t>(rows) * cols * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // --------------------------------------------------------------------------
 // device: addresses, barriers, fences
 // --------------------------------------------------------------------------
@@ -141,6 +163,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // stores, and reads complete before a TMA load overwrites the buffer
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the same between the generic and the async proxy for global memory: a
+// flag released after a TMA write completed, or acquired before a TMA
+// access, orders it
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // barrier `id` (1..15; 0 is __syncthreads) over `threads` threads: wait
@@ -196,6 +225,21 @@ __device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, int cta) {
       "mapa.shared::cluster.u32 remote, %0, %1;\n"
       "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
       :: "r"(smem_u32(bar)), "r"(cta) : "memory");
+}
+
+// a flag in global memory read with acquire and written with release
+// semantics at GPU scope: what the writer stored before the release is
+// visible to a reader after its acquire
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
 }
 
 template <int N>
@@ -278,6 +322,19 @@ __device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
       : "memory");
 }
 
+// the box at (c0, c1, c2) += the shared-memory tile at `src`, element by
+// element in fp32, by TMA (a bulk-group operation, as a store)
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
+                                               const void* src, int c0,
+                                               int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // close the group of stores issued so far
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -286,6 +343,11 @@ __device__ __forceinline__ void tma_store_commit() {
 // wait until every committed store has read its shared-memory source
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wait until every committed store has completed its writes
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // --------------------------------------------------------------------------
@@ -362,6 +424,21 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 64) = A·B (+ d when `accumulate`), A and B from shared memory by
+// descriptor, bf16 in, fp32 out; TRANS_A = 1 reads A MN-major (the M dim
+// contiguous, as a transposed score tile is stored), TRANS_B = 1 reads B
+// MN-major
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HOPPER_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
 
 // d (64 x 128) = A·B (+ d when `accumulate`), A and B from shared memory
 // by descriptor, bf16 in, fp32 out; TRANS_B = 1 reads B MN-major

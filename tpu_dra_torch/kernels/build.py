@@ -61,7 +61,7 @@ SIGNATURES = {
                  _P]),                             # stream
         "tpu_dra_flash_bwd_fused": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,   # qs k v dout l2 dd dk dv
-                 _P, _P,                           # dqacc dq
+                 _P, _P,                           # scratch dq
                  _I, _I, _I, _I, _I, _I,           # BH BHkv S Sk D causal
                  _I,                               # kv_block
                  _F, _P]),                         # scale stream

@@ -1,7 +1,9 @@
-"""Time variants of the flash forward kernel and of the ring matmuls on the
-card, to show what each part of their designs buys.
+"""Time variants of the redesigned kernels on the card (the flash forward,
+the fused flash backward, the plain matmul and the ring matmuls), to show
+what each part of their designs buys.
 
-A variant is a source (``csrc/flash_fwd.cu`` or ``csrc/ring.cu``) with
+A variant is a source (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
+``csrc/matmul.cu`` or ``csrc/ring.cu``) with
 named text substitutions (the source as it stands is the first).  Each is
 built with the port's nvcc flags into ``tpu_dra_torch/_build/variants/``,
 held to the plain version (max abs error) and timed through its C entry
@@ -9,8 +11,8 @@ with CUDA events at the training paths' shapes, each in a process of its
 own under a time limit, so a variant that hangs costs only its limit.
 Needs one CUDA card:
 
-    python -m tpu_dra_torch.kernels.variants            # both kernels
-    python -m tpu_dra_torch.kernels.variants ring       # or one of them
+    python -m tpu_dra_torch.kernels.variants            # every set
+    python -m tpu_dra_torch.kernels.variants flash_bwd  # or some of them
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ from tpu_dra_torch.kernels import build
 
 OUT_DIR = build.BUILD_DIR / "variants"
 _RING_CONFIG = "using RingConfig = Config<256, 4, 2>;"
+_MATMUL_CONFIG = "using MatmulConfig = Config<256, 4, 2>;"
+_BWD_WALK = """const int g0 = w / (kGroup * p.n_kt) * kGroup, gs = min(kGroup, p.BH - g0);
+  const int bh = g0 + (w - g0 * p.n_kt) % gs, kt = (w - g0 * p.n_kt) / gs;"""
+_BWD_SPIN = """            for (int spin = 0; ld_acquire_gpu(flag) != pos; ++spin)
+              if (spin > (1 << 24)) __trap();"""
 # source → name → [(text in csrc/<source>.cu, replacement)]
 VARIANTS = {
     "flash_fwd": {
@@ -35,6 +42,43 @@ VARIANTS = {
             ("  named_arrive(kTurn + 1 - c, 2 * kWarpgroup);", "")],
         "exp2f in place of ex2.approx.ftz": [
             ("exp2_ftz(s[i] - safe[r])", "exp2f(s[i] - safe[r])")],
+    },
+    "flash_bwd": {
+        "as built": [],
+        "finish pass at n_j = 1 too (dq not formed by the last add)": [
+            ("const int direct = lay.n_j == 1;", "const int direct = 0;")],
+        "1 ring stage": [
+            ("constexpr int kStages = 2;        // buffers in the q-tile ring",
+             "constexpr int kStages = 1;")],
+        "static round robin walk (no item counter)": [
+            ("const int w = atomicAdd(p.next, 1);",
+             "const int w = blockIdx.x + n * gridDim.x;")],
+        "head-row outermost (a head-row's items side by side)": [
+            (_BWD_WALK, "const int bh = w / p.n_kt, kt = w % p.n_kt;")],
+        "ex2.approx.ftz in place of exp2f": [
+            ("s[x] = keep ? exp2f(s[x] - sl2[qi]) : 0.f;",
+             "float e2;\n"
+             "          asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(e2) : "
+             "\"f\"(s[x] - sl2[qi]));\n"
+             "          s[x] = keep ? e2 : 0.f;")],
+        "key tile outermost (a head-row's items apart)": [
+            (_BWD_WALK, "const int bh = w % p.BH, kt = w / p.BH;")],
+        "registers 40 / 232": [
+            ("constexpr int kProducerRegs = 24;",
+             "constexpr int kProducerRegs = 40;"),
+            ("constexpr int kConsumerRegs = 240;",
+             "constexpr int kConsumerRegs = 232;")],
+        "dq adds not ordered (timing only; dq races, wrong)": [
+            (_BWD_SPIN, "")],
+    },
+    "matmul": {
+        "as built": [],
+        "clusters of 1 (no multicast of the w tile)": [
+            (_MATMUL_CONFIG, "using MatmulConfig = Config<256, 4, 1>;")],
+        "tile 128x128, 6 stages": [
+            (_MATMUL_CONFIG, "using MatmulConfig = Config<128, 6, 2>;")],
+        "tile 128x128, 6 stages, clusters of 1": [
+            (_MATMUL_CONFIG, "using MatmulConfig = Config<128, 6, 1>;")],
     },
     "ring": {
         "as built": [],
@@ -90,6 +134,11 @@ VARIANTS = {
 # run's attention, and the flagship's without the mask
 FLASH_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
                 (256, 256, 1024, False)]
+# flash_bwd: (BH, BHkv, S, causal) at D 128, the flagship's and the GQA
+# run's attention
+BWD_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True)]
+# matmul: (m, k, n), the bench's 4096^3
+MATMUL_SHAPES = [(4096, 4096, 4096)]
 # ring: (kernel, label, m, K, N) at tp 4 on the flagship (chip_smoke.py
 # phase 12)
 RING_SHAPES = [("ag", "wqkv", 4096, 2048, 1536), ("ag", "w1", 4096, 2048, 2048),
@@ -200,6 +249,89 @@ def time_flash(lib: Path) -> str:
     return "; ".join(parts)
 
 
+def time_flash_bwd(lib: Path) -> str:
+    """One line: each shape's time, TF/s of the five products the mask
+    keeps and max abs error of dq, dk, dv against
+    ``flash_bwd_fused_ref``, beside the SDPA backward's time in the same
+    process."""
+    import torch
+    import torch.nn.functional as TF
+
+    from tpu_dra_torch.workloads import flash as F
+    fn = _bind(lib, "flash_bwd").tpu_dra_flash_bwd_fused
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    P = lambda t: t.data_ptr()      # noqa: E731
+    parts = []
+    for bh, bhkv, s, causal in BWD_SHAPES:
+        q, k, v, do = (torch.randn((n, s, 128), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for n in (bh, bhkv, bhkv, bh))
+        out, l2 = F.flash_attn_fwd_ref(q, k, v, causal)
+        qs = F._prescale(q).contiguous()
+        dd = (do.float() * out.float()).sum(-1, keepdim=True)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        scratch = torch.empty(
+            -(-F.fused_scratch_bytes(bh, s, s, 128) // 4), device="cuda")
+
+        def call():
+            _checked(fn(P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv),
+                        P(scratch), P(dq), bh, bhkv, s, s, 128, int(causal),
+                        F.KV_BLOCK, 128 ** -0.5, stream))
+        call()
+        torch.cuda.synchronize()
+        want = F.flash_bwd_fused_ref(qs, k, v, do, l2, dd, causal)
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip((dq, dk, dv), want)]
+        del want
+        us = _event_us(call)
+        q4 = q.reshape(1, bh, s, 128).detach().requires_grad_()
+        k4, v4 = (t.reshape(1, bhkv, s, 128).detach().requires_grad_()
+                  for t in (k, v))
+        o4 = TF.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                             enable_gqa=bh != bhkv)
+        sdpa = _event_us(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do.reshape(1, bh, s, 128), retain_graph=True))
+        kept = s * (s + 1) // 2 if causal else s * s
+        parts.append(f"[{bh} over {bhkv}, {s}, 128] "
+                     f"{'causal' if causal else 'full'} {us:.1f} us "
+                     f"({10 * bh * kept * 128 / us / 1e6:.0f} TF/s; SDPA "
+                     f"backward {sdpa:.1f} us; max abs err dq, dk, dv "
+                     f"{', '.join(f'{e:.3g}' for e in errs)})")
+        del q, k, v, do, out, qs, dd, dq, dk, dv, scratch, q4, k4, v4, o4
+    return "; ".join(parts)
+
+
+def time_matmul(lib: Path) -> str:
+    """One line: each shape's time, TF/s and max abs error against
+    ``matmul_ref``, beside ``torch.matmul`` in the same process."""
+    import torch
+
+    from tpu_dra_torch.workloads import matmul as M
+    fn = _bind(lib, "matmul").tpu_dra_matmul
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = []
+    for m, k, n in MATMUL_SHAPES:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+
+        def call():
+            _checked(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                        stream))
+        call()
+        torch.cuda.synchronize()
+        err = float((out.float() - M.matmul_ref(x, w).float()).abs().max())
+        us = _event_us(call, 50)
+        lib_us = _event_us(lambda: torch.matmul(x, w), 50)
+        parts.append(f"[{m}, {k}] @ [{k}, {n}] {us:.1f} us "
+                     f"({2 * m * k * n / us / 1e6:.0f} TF/s; torch.matmul "
+                     f"{lib_us:.1f} us; max abs err {err:.3g})")
+    return "; ".join(parts)
+
+
 def time_ring(lib: Path) -> str:
     """One line: each ring matmul shape's time for its n = 4 step
     launches, TF/s, and max abs error of y against the plain version
@@ -258,7 +390,8 @@ def time_ring(lib: Path) -> str:
     return "; ".join(parts)
 
 
-TIMERS = {"flash_fwd": time_flash, "ring": time_ring}
+TIMERS = {"flash_fwd": time_flash, "flash_bwd": time_flash_bwd,
+          "matmul": time_matmul, "ring": time_ring}
 
 
 def main(kernels) -> int:

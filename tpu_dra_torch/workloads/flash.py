@@ -415,12 +415,19 @@ def _check_bwd_args(qs, k, v, dout, l2, dd, bh: int, s: int, d: int):
     _check_kernel_args(qs, k, v, dout, l2, dd, d=d)
 
 
-def dq_slot_rows(s: int, sk: int, causal: bool) -> int:
-    """Rows of the fused kernel's dQ scratch per q head-row: one slot per
-    64-key tile, tile t's holding rows ``[64·t, s)`` under the causal mask
-    (no earlier query sees its keys) and all ``s`` rows otherwise."""
-    n_t = -(-sk // 64)
-    return n_t * s - 32 * n_t * (n_t - 1) if causal else n_t * s
+# The fused kernel's q tiles: 64 rows, one flag per 64 dq columns each
+FUSED_Q_ROWS = 64
+
+
+def fused_scratch_bytes(bh: int, s: int, sk: int, d: int,
+                        bk: int = KV_BLOCK) -> int:
+    """Bytes of the fused kernel's scratch: one fp32 dQ accumulator per
+    block of ``bk`` keys, ``[n_j, BH, S, D]``, then an int32 flag per
+    (block, head-row, 64-row q tile, 64-column half) and the item counter
+    (``csrc/flash_bwd.cu``, ``tpu_dra_flash_bwd_fused``)."""
+    n_j = -(-sk // bk)
+    n_qt = -(-s // FUSED_Q_ROWS)
+    return n_j * bh * s * d * 4 + (n_j * bh * n_qt * 2 + 1) * 4
 
 
 def flash_bwd_fused(qs, k, v, dout, l2, dd, causal: bool):
@@ -428,11 +435,11 @@ def flash_bwd_fused(qs, k, v, dout, l2, dd, causal: bool):
     (the caller group-sums them for GQA).  CPU tensors take
     :func:`flash_bwd_fused_ref`; CUDA tensors launch the fused kernel of
     ``csrc/flash_bwd.cu`` (row #5) or raise, and each launch adds one to
-    ``flash_bwd_fused.launches``.  The kernel stores dQ's unscaled fp32
-    sums into one slot per 64-key tile (:func:`dq_slot_rows`), and a
-    second pass sums each block of :data:`KV_BLOCK` keys' slots in key
-    order and forms dq from those partials as :func:`_finish_dq` does, so
-    dq is the same from run to run."""
+    ``flash_bwd_fused.launches``.  The kernel adds dQ's unscaled fp32
+    sums of its 128-key items into one accumulator per block of
+    :data:`KV_BLOCK` keys in key order (:func:`fused_scratch_bytes`), and
+    forms dq from those partials as :func:`_finish_dq` does, so dq is the
+    same from run to run."""
     if qs.device.type == "cpu":
         return flash_bwd_fused_ref(qs, k, v, dout, l2, dd, causal)
     require_cuda(qs, "flash_bwd_fused")
@@ -443,12 +450,12 @@ def flash_bwd_fused(qs, k, v, dout, l2, dd, causal: bool):
     dq = torch.empty_like(qs)
     dk = torch.empty((bh, sk, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    dqacc = torch.empty((dq_slot_rows(s, sk, causal), bh, d),
-                        dtype=torch.float32, device=qs.device)
+    scratch = torch.empty(-(-fused_scratch_bytes(bh, s, sk, d, bk) // 4),
+                          dtype=torch.float32, device=qs.device)
     rc = lib.tpu_dra_flash_bwd_fused(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         l2.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dqacc.data_ptr(), dq.data_ptr(), bh, bhkv, s, sk, d, int(causal), bk,
+        scratch.data_ptr(), dq.data_ptr(), bh, bhkv, s, sk, d, int(causal), bk,
         d ** -0.5, torch.cuda.current_stream(qs.device).cuda_stream)
     check_launch(lib, rc, "flash_bwd_fused")
     flash_bwd_fused.launches += 1

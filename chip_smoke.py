@@ -14,7 +14,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
   1. build every kernel (one nvcc per source, all at once); print the
      build times, the ptxas register/spill lines and the card's name and
      power limit (nvidia-smi); fail if ptxas reports spill bytes for the
-     flash forward kernel or the ring kernels;
+     flash forward kernel, the ring kernels or the split flash backward's
+     two kernels (or serializes wgmma in the last);
   2. paged attention: kernel vs plain version at the serving path's shapes
      (B=32, H=8, Hkv=2, Dh=128, ps=64, MP=16), scrambled pages, -1 tails,
      lengths 0, 1, a page boundary, mid-page and the full MP*ps; bf16 pages
@@ -35,14 +36,16 @@ Phases (each prints as it goes; any failed check exits non-zero):
      63, 64, 65, 1000, causal and not, g 1 and 4, D 64 and 128; out, l2,
      dq, dk and dv each held elementwise and per head-row (relative L2
      over the row's [S, D]), tolerances flash.ELEM_TOL and flash.ROW_TOL;
-     a second call of the fused backward must give bit-equal dq, dk, dv;
+     a second call of the fused backward, and of the split pair (dQ, dK/dV),
+     must give bit-equal dq, dk, dv;
   6. time the four flash kernels, their wrappers and plain versions, and
      the library yardstick (scaled_dot_product_attention forward, and its
      backward for the backward kernels) with CUDA events at the path's
-     shapes; for the forward and the fused backward, each one's share of
-     its bound, its ratio to the SDPA call and its time before the
-     TMA/wgmma redesign, and the fused backward's scratch bytes beside the
-     split pair's time;
+     shapes and at one rank's block of the DP×SP step ([256, 256, 128],
+     causal and full); for the forward, the fused backward and the split
+     pair, each one's share of its bound, its ratio to the SDPA call and
+     its time before the TMA/wgmma redesign, and the fused backward's
+     scratch bytes;
   7. matmul kernels: the tiled matmul at 4096^3, k 512, a rectangle and
      ragged tiles, the fused RMSNorm-matmul at the flagship's ln1 -> wqkv
      and ln2 -> w1 ([16384, 2048] @ [2048, 6144] and @ [2048, 8192]), m <
@@ -175,6 +178,14 @@ FWD_BEFORE_US = {"flagship [256, 1024, 128]": "598.1-603.2",
 FUSED_BEFORE_US = {"flagship [256, 1024, 128]": "1897.4",
                    "GQA run [64 over 16, 1024, 128]": "539.7"}
 MATMUL_BEFORE_US = "481.2-492.7"
+# the split flash backward's card times before its TMA/wgmma redesign (the
+# first version: mma.sync, 64-row dq blocks, 64-key dK/dV blocks over
+# 32-row q tiles, synchronous tile loads), phase 6 on an H100 80GB HBM3 at
+# 700 W (PERF.md §6)
+SPLIT_BEFORE_US = {
+    "flagship [256, 1024, 128]": "dq 669.0-677.6 us, dK/dV 1065.9-1080.6 us",
+    "GQA run [64 over 16, 1024, 128]": "dq 202.0-207.6 us, dK/dV "
+                                       "311.4-321.0 us"}
 # the ring matmuls' card time before their wgmma redesign (the first
 # version: the mma.sync mainloop of csrc/gemm_common.cuh), phase 12 on an
 # H100 80GB HBM3 at 700 W (PERF.md §6)
@@ -626,6 +637,10 @@ def check_flash_case(gen, bh, bhkv, s, d, causal) -> tuple:
     ek = hold(label, "dk", dk, rk, F.ROW_TOL["dk"])
     ev = hold(label, "dv", dv, rv, F.ROW_TOL["dv"])
     res["flash_bwd_dkdv"] = tuple(max(a, b) for a, b in zip(ek, ev))
+    again = (F.flash_bwd_dq(qs, k, v, do, ref_l2, dd, causal),
+             *F.flash_bwd_dkdv(qs, k, v, do, ref_l2, dd, causal))
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        fail(f"{label}: two calls of the split backward differ")
     fused = F.flash_bwd_fused(qs, k, v, do, ref_l2, dd, causal)
     torch.cuda.synchronize()
     want = F.flash_bwd_fused_ref(qs, k, v, do, ref_l2, dd, causal)
@@ -687,13 +702,14 @@ def flash_bound(nbytes: int, flops: int) -> dict:
 
 
 def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
-               D: int = 128) -> dict:
+               D: int = 128, causal: bool = True) -> dict:
     """Kernel alone (its C entry, arguments prepared once), wrapper, plain
     version and library yardstick for each flash kernel at one training
-    path's attention, causal: the flagship's [B·H, S, D] = [256, 1024,
-    128] bf16 (each operand 67 MB, more than the 50 MB L2 cache holds, so
-    every call reads device memory) or the GQA run's 64 q heads over 16
-    kv heads."""
+    path's attention: the flagship's [B·H, S, D] = [256, 1024, 128] bf16
+    causal (each operand 67 MB, more than the 50 MB L2 cache holds, so
+    every call reads device memory), the GQA run's 64 q heads over 16 kv
+    heads, or one rank's block of the DP×SP step, [256, 256, 128], causal
+    on the diagonal and full on the other hops."""
     import torch
     import torch.nn.functional as TF
 
@@ -702,7 +718,7 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
     from tpu_dra_torch.workloads.train import weak_scalar
     BH, BHkv = B * H, B * Hkv
     q, k, v, do = flash_inputs(gen, BH, BHkv, S, D)
-    out, l2 = F.flash_attn_fwd(q, k, v, True)
+    out, l2 = F.flash_attn_fwd(q, k, v, causal)
     qs = F._prescale(q).contiguous()
     dd = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))   # per q head
@@ -720,35 +736,31 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
 
     kernels = {
         "flash_fwd": lambda: checked(lf.tpu_dra_flash_fwd(
-            P(q), P(k), P(v), P(out), P(l2), BH, BHkv, S, S, D, 1, qscale,
-            stream)),
+            P(q), P(k), P(v), P(out), P(l2), BH, BHkv, S, S, D, int(causal),
+            qscale, stream)),
         "flash_bwd_dq": lambda: checked(lb.tpu_dra_flash_bwd_dq(
             P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dq), BH, BHkv, S, S,
-            D, 1, D ** -0.5, stream)),
+            D, int(causal), D ** -0.5, stream)),
         "flash_bwd_dkdv": lambda: checked(lb.tpu_dra_flash_bwd_dkdv(
             P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv), BH, BHkv,
-            S, S, D, 1, stream)),
+            S, S, D, int(causal), stream)),
         "flash_bwd_fused": lambda: checked(lb.tpu_dra_flash_bwd_fused(
             P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv),
-            P(scratch), P(dq), BH, BHkv, S, S, D, 1, F.KV_BLOCK, D ** -0.5,
-            stream)),
+            P(scratch), P(dq), BH, BHkv, S, S, D, int(causal), F.KV_BLOCK,
+            D ** -0.5, stream)),
     }
+    args = (qs, k, v, do, l2, dd, causal)
     wrappers = {
-        "flash_fwd": lambda: F.flash_attn_fwd(q, k, v, True),
-        "flash_bwd_dq": lambda: F.flash_bwd_dq(qs, k, v, do, l2, dd, True),
-        "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv(qs, k, v, do, l2, dd,
-                                                   True),
-        "flash_bwd_fused": lambda: F.flash_bwd_fused(qs, k, v, do, l2, dd,
-                                                     True),
+        "flash_fwd": lambda: F.flash_attn_fwd(q, k, v, causal),
+        "flash_bwd_dq": lambda: F.flash_bwd_dq(*args),
+        "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv(*args),
+        "flash_bwd_fused": lambda: F.flash_bwd_fused(*args),
     }
     plains = {
-        "flash_fwd": lambda: F.flash_attn_fwd_ref(q, k, v, True),
-        "flash_bwd_dq": lambda: F.flash_bwd_dq_ref(qs, k, v, do, l2, dd,
-                                                   True),
-        "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv_ref(qs, k, v, do, l2,
-                                                       dd, True),
-        "flash_bwd_fused": lambda: F.flash_bwd_fused_ref(qs, k, v, do, l2,
-                                                         dd, True),
+        "flash_fwd": lambda: F.flash_attn_fwd_ref(q, k, v, causal),
+        "flash_bwd_dq": lambda: F.flash_bwd_dq_ref(*args),
+        "flash_bwd_dkdv": lambda: F.flash_bwd_dkdv_ref(*args),
+        "flash_bwd_fused": lambda: F.flash_bwd_fused_ref(*args),
     }
     # library yardstick: one PyTorch call each way (never called by the
     # port); its backward computes dq, dk and dv together
@@ -757,22 +769,22 @@ def time_flash(gen, B: int, H: int, Hkv: int, S: int = 1024,
               for t in (k, v))
     do4 = do.reshape(B, H, S, D)
     gqa = Hkv != H
-    o4 = TF.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+    o4 = TF.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
                                          enable_gqa=gqa)
     sdpa_fwd = cuda_time_ms(lambda: TF.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=gqa), 50)
+        q4, k4, v4, is_causal=causal, enable_gqa=gqa), 50)
     sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         o4, (q4, k4, v4), do4, retain_graph=True), 20)
     library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
                   "flash_bwd_dkdv": sdpa_bwd, "flash_bwd_fused": sdpa_bwd}
 
     # bounds from these inputs: each operand read once, each output written
-    # once; the products count only the S(S+1)/2 (row, key) pairs the
-    # causal mask keeps, 2 flops per multiply-add
+    # once; the products count only the (row, key) pairs the mask keeps
+    # (S(S+1)/2 under the causal mask), 2 flops per multiply-add
     tile = BH * S * D * 2                   # one bf16 [BH, S, D] operand
     kv = BHkv * S * D * 2                   # k or v
     stat = BH * S * 4                       # one fp32 [BH, S] row vector
-    mac = BH * D * S * (S + 1) // 2         # multiply-adds of one product
+    mac = BH * D * (S * (S + 1) // 2 if causal else S * S)   # one product
     sizes = {"flash_fwd": (2 * tile + 2 * kv + stat, 2 * 2 * mac),
              "flash_bwd_dq": (3 * tile + 2 * kv + 2 * stat, 3 * 2 * mac),
              # dk, dv are written per q head
@@ -1316,17 +1328,30 @@ def bench_phase() -> dict:
     return {"launches": launches, **res}
 
 
-def check_spills(built) -> None:
-    """Fail if ptxas reported spill bytes for a kernel of ``built`` (a
-    fresh build's log; a reused library has none to read)."""
+def check_spills(built, pattern: str = "") -> None:
+    """Fail if ptxas reported spill bytes, or wgmma serialized for want of
+    registers (C7512), for a kernel of ``built`` whose mangled name
+    matches ``pattern`` (every kernel where it is empty), from a fresh
+    build's log (a reused library has none to read)."""
     if not built.log:
         log(f"[build] {built.path.name} was reused: no ptxas lines to check")
         return
-    spills = [ln.strip() for ln in built.log.splitlines()
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
-    if spills:
-        fail(f"ptxas spills in {built.path.name}: {spills}")
-    log(f"[build] {built.path.name}: no spills")
+    faults, name = [], ""
+    for ln in built.log.splitlines():
+        found = re.search(r"Function properties for (\S+)", ln)
+        if found:
+            name = found.group(1)
+        elif re.search(r"[1-9]\d* bytes spill (stores|loads)", ln):
+            if re.search(pattern, name):
+                faults.append(f"{name}: {ln.strip()}")
+        elif "C7512" in ln and any(re.search(pattern, f) for f in
+                                   re.findall(r"'(\w+)'", ln)):
+            faults.append(ln.strip())
+    if faults:
+        fail(f"ptxas spills or serialized wgmma in {built.path.name}: "
+             f"{faults}")
+    log(f"[build] {built.path.name}: no spills"
+        + (f" in the kernels matching {pattern!r}" if pattern else ""))
 
 
 def log_fwd_summary(shape: str, t: dict, card: str) -> None:
@@ -1352,6 +1377,21 @@ def log_fused_summary(shape: str, times: dict, card: str) -> None:
         f"split pair (flash_bwd_dq + flash_bwd_dkdv) {split * 1e3:.1f} us; "
         f"before the TMA/wgmma redesign {FUSED_BEFORE_US[shape]} us; on "
         f"{card}")
+
+
+def log_split_summary(shape: str, times: dict, card: str) -> None:
+    """The split pair's times and shares of their bounds, the pair against
+    the SDPA backward (which computes dq, dk and dv together) in the same
+    run, and the pair's times before its TMA/wgmma redesign."""
+    dq, kv = times["flash_bwd_dq"], times["flash_bwd_dkdv"]
+    pair = dq["ms"] + kv["ms"]
+    parts = [f"{name} {t['ms'] * 1e3:.1f} us ({t['bound_ms'] / t['ms']:.3f} "
+             f"of its {t['bound_ms'] * 1e3:.1f} us bound by {t['bound_by']})"
+             for name, t in (("flash_bwd_dq", dq), ("flash_bwd_dkdv", kv))]
+    log(f"[time] split backward at the {shape}: {', '.join(parts)}; the "
+        f"pair {pair * 1e3:.1f} us, {pair / dq['library_ms']:.2f}x the SDPA "
+        f"backward's {dq['library_ms'] * 1e3:.1f} us; before the TMA/wgmma "
+        f"redesign {SPLIT_BEFORE_US.get(shape, 'not measured')}; on {card}")
 
 
 def log_matmul_summary(t: dict, benched: dict, card: str) -> None:
@@ -1857,6 +1897,9 @@ def main() -> int:
                 log(f"[build]   {ln.strip()}")
     check_spills(built["flash_fwd"])
     check_spills(built["ring"])
+    # the split backward: the dQ kernel and the fused kernel with DQ = false
+    check_spills(built["flash_bwd"], r"flash_bwd_dq_kernel|"
+                 r"flash_bwd_fused_kernelILi\d+ELb[01]ELb0E")
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")
@@ -1889,6 +1932,14 @@ def main() -> int:
     log_fwd_summary("GQA run [64 over 16, 1024, 128]", gqa_t["flash_fwd"],
                     card)
     log_fused_summary("GQA run [64 over 16, 1024, 128]", gqa_t, card)
+    log_split_summary("flagship [256, 1024, 128]", flash_t, card)
+    log_split_summary("GQA run [64 over 16, 1024, 128]", gqa_t, card)
+    for causal in (True, False):
+        shape = (f"DP×SP block [256, 256, 128] "
+                 f"{'causal' if causal else 'full'}")
+        block_t = time_flash(gen, B=16, H=16, Hkv=16, S=256, causal=causal)
+        log_flash_times(shape, block_t, card)
+        log_split_summary(shape, block_t, card)
 
     with torch.no_grad():
         mm_err = check_matmul(gen)

@@ -209,6 +209,79 @@ def test_flash_fwd_is_deterministic():
     assert torch.equal(out, again) and torch.equal(l2, l2_again)
 
 
+def _split_bwd_matches_plain(bh, bhkv, s, d, causal, sk=None):
+    """The dQ and dK/dV kernels alone against their plain versions, on the
+    plain forward's out and l2; each launches once.  Returns the kernels'
+    inputs and outputs."""
+    from tpu_dra_torch.workloads import flash as tf
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bh * 13 + s * 7 + (sk or 0) + d + int(causal))
+    sk = sk or s
+
+    def draw(n, length):
+        return torch.randn((n, length, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v, do = draw(bh, s), draw(bhkv, sk), draw(bhkv, sk), draw(bh, s)
+    out, l2 = tf.flash_attn_fwd_ref(q, k, v, causal)
+    qs = tf._prescale(q).contiguous()
+    dd = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (qs, k, v, do, l2, dd, causal)
+    before = (tf.flash_bwd_dq.launches, tf.flash_bwd_dkdv.launches)
+    dq = tf.flash_bwd_dq(*args)
+    dk, dv = tf.flash_bwd_dkdv(*args)
+    torch.cuda.synchronize()
+    assert (tf.flash_bwd_dq.launches, tf.flash_bwd_dkdv.launches) == (
+        before[0] + 1, before[1] + 1)
+    _flash_close(dq, tf.flash_bwd_dq_ref(*args), tf.ROW_TOL["dq"])
+    rk, rv = tf.flash_bwd_dkdv_ref(*args)
+    _flash_close(dk, rk, tf.ROW_TOL["dk"])
+    _flash_close(dv, rv, tf.ROW_TOL["dv"])
+    return args, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("g,d", [(1, 128), (4, 64)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s", [127, 129, 192, 255, 257])
+def test_split_backward_matches_plain_around_its_tiles(s, causal, g, d):
+    """Lengths around the dQ kernel's 128-row q tiles (two 64-row halves)
+    and 64-key K/V tiles, and the dK/dV kernel's 128-key items and 64-row
+    q tiles: one short of a tile, one over, three halves, and so on at
+    two tiles; MHA at D 128 and GQA g = 4 at D 64."""
+    _split_bwd_matches_plain(8, 8 // g, s, d, causal)
+
+
+@pytest.mark.parametrize("s,sk", [(128, 200), (200, 128), (65, 1000),
+                                  (1000, 65)])
+def test_split_backward_matches_plain_across_lengths(s, sk):
+    """Non-causal S ≠ Sk at g = 4: a ragged key tail in the dQ kernel's
+    last K/V tile and the dK/dV kernel's last item, and a ragged q tail
+    in both."""
+    _split_bwd_matches_plain(8, 2, s, 128, False, sk)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_split_backward_matches_plain_at_the_ring_block(causal):
+    """The DP×SP step's blocks of 256 rows: [1024, 256, 128] causal on the
+    diagonal (4 ranks × 16 sequences × 16 heads), [768, 256, 128] full on
+    the first hop."""
+    _split_bwd_matches_plain(1024 if causal else 768,
+                             1024 if causal else 768, 256, 128, causal)
+
+
+def test_split_backward_is_deterministic():
+    """Neither kernel sums across blocks: two launches on the same inputs
+    give bit-equal dq, dk and dv, at the GQA run's causal shape and a
+    ragged non-causal one."""
+    from tpu_dra_torch.workloads import flash as tf
+    for shape in ((64, 16, 1024, 128, True), (8, 2, 1000, 64, False)):
+        args, first = _split_bwd_matches_plain(*shape)
+        second = (tf.flash_bwd_dq(*args), *tf.flash_bwd_dkdv(*args))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), (shape, name)
+
+
 def test_flash_attention_autograd_on_the_card_matches_plain():
     """The front door through FlashAttentionLse: GQA grads group-summed."""
     from tpu_dra_torch.workloads import flash as tf

@@ -1,13 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a): the split pair and the
-// single-pass (fused) kernel.
+// Flash-attention backward for Hopper (sm_90a): the split pair (the dQ
+// kernel and the dK/dV kernel) and the single-pass (fused) kernel, all on
+// TMA-fed wgmma (hopper.cuh).
 //
 // Replaces three TPU kernels of tpu_dra/workloads/pallas_kernels.py, all
 // reached through _flash_attn_bwd (:543):
 //   * _flash_bwd_dq_kernel (:367), called at :661  -> flash_bwd_dq_kernel
-//   * _flash_bwd_dkdv_kernel (:453), called at :682 -> flash_bwd_kv_kernel
-//                                            (both bwd_impl="split")
+//   * _flash_bwd_dkdv_kernel (:453), called at :682 -> flash_bwd_fused_kernel
+//                                <D, CAUSAL, false>  (both bwd_impl="split")
 //   * _flash_bwd_fused_kernel (:494), called at :633 -> flash_bwd_fused_kernel
-//                                            (bwd_impl="fused")
+//                                <D, CAUSAL, true>   (bwd_impl="fused")
 // Each recomputes its score tiles from the saved base-2 logsumexp instead
 // of keeping an S x S probability matrix.
 //
@@ -34,27 +35,53 @@
 //          products, 137 GFLOP, 139 us: bound ~139 us, operations.
 //   fused: dk, dv and dq from one recompute, five products, 172 GFLOP,
 //          174 us; ~470 MB (dq written once in bf16), 140 us: operations.
-// So every score tile stays in registers and every product runs on the
-// tensor cores.
+// So every score tile stays in registers and every product runs on wgmma.
 //
-// The split pair, first version (shared with flash_common.cuh):
-//   * dq: one block of 4 warps per (q head-row, 64-row q tile), 16 q rows
-//     per warp; the qs and dout tiles stay in shared memory, 64-key tiles
-//     of K and V stream through it; the accumulator stays in registers.
-//     Under the mask a block walks k tiles j while j*64 < (i+1)*64.
-//   * dkdv: one block of 4 warps per (q head-row, 64-key tile), 16 keys per
-//     warp, computing in the transposed orientation (P^T from k . qs^T, as
-//     the TPU kernel does); 32-row tiles of qs, dout, l2 and dd stream
-//     through shared memory from the diagonal down (under the mask a block
-//     starts at the q tile that holds its first key); both accumulators
-//     stay in registers.
-//   * all products are mma.sync m16n8k16 bf16 with fp32 accumulation.
-//   In the split pair no block writes what another block writes: dq is
-//   summed in registers over the block's own k tiles, dk/dv over its own
-//   q tiles.  Left for later: wgmma/TMA (the fused kernel's mainloop below
-//   can run the dK/dV half with its dq product switched off, DQ = false).
+// The dQ kernel (flash_bwd_dq_kernel), on the forward's skeleton
+// (flash_fwd.cu), dq-major:
+//   * a persistent grid of one block per SM, three warpgroups, walking work
+//     items of one q head-row each: a pair of 128-row q tiles, the longest
+//     and the shortest left under the causal mask, so every item costs
+//     about as many k tiles and a static round robin balances the card;
+//     items go head by head, so the blocks in flight share K/V in L2.
+//     Thread 0 of warpgroup 0 issues every TMA copy: each q tile's qs and
+//     dout once, into one of kQBufs buffers (the next tile's land while
+//     this one runs), and 64-key tiles of K and V through a ring of
+//     kStages buffers (full / empty mbarriers).  The producer warpgroup
+//     gives its registers up (setmaxnreg) to warpgroups 1 and 2, the
+//     consumers, which own 64 q rows of the tile each.
+//   * per k tile j a consumer computes S = qs·Kᵀ and dP = dout·Vᵀ (wgmma
+//     m64n64k16, both operands K-major in shared memory), P = exp2(S − l2)
+//     masked (ex2.approx on the special-function unit, as the forward),
+//     dS = bf16(P∘(dP − dd)) as the next product's A fragments (the
+//     accumulator's columns 16 kk.. are k-step kk's A fragment,
+//     hopper.cuh), and dq += dS·K (m64nDk16, A from registers, the K tile
+//     MN-major as V is in the forward's P·V).  It issues dq_{j-1} ahead of
+//     S_j and dP_j, so the tensor cores run the last tile's dq while the
+//     exponentials of this one wait for S_j.  l2 and dd are per-row values
+//     in the accumulator's own threads: read once per q tile.
+//   * dq stays in fp32 registers over every key of the q tile, in key order,
+//     and is scaled by D^-0.5 and rounded to bf16 once, then stored from
+//     registers.  Under the mask a consumer walks k tiles j while 64 j is at
+//     most its last row, so consumer 0 of a diagonal q tile stops one tile
+//     before consumer 1: it waits for that tile and releases it unused.
+//     TMA zero-fills rows past S and keys past Sk; P is masked past Sk.
+//   * no block writes what another writes and nothing is summed across
+//     blocks: no scratch, no flags, and dq is the same from run to run.
+//     (The fused kernel's dq, summed per 1024-key block through bf16, is
+//     a different function of its inputs past Sk = 1024.)
 //
-// The fused kernel (flash_bwd_fused_kernel), on hopper.cuh:
+// The dK/dV kernel is flash_bwd_fused_kernel<D, CAUSAL, false>: the fused
+// kernel's mainloop (below) with its dS copy, its dq product, its writer
+// warps, its named barrier and its flags switched off, so it computes its
+// four products alone (and its P takes ex2.approx where the fused kernel
+// keeps exp2f).  An item's K/V buffer is then free once its last dP^T is
+// in, and its smem has room for a second K/V item buffer, so an item's K and V land while the item before
+// runs its last q tiles; and its items come from a static walk: pairs of
+// one head-row's 128-key items, the longest and the shortest left under
+// the causal mask, round robin over the blocks (no counter, no scratch).
+//
+// The fused kernel (flash_bwd_fused_kernel<D, CAUSAL, true>):
 //   * a persistent grid of one block per SM, three warpgroups.  A work item
 //     is one (q head-row, 128-key tile); its K and V tiles come in once by
 //     TMA.  Warpgroup 0 is the producer: thread 0 takes the next item from
@@ -109,320 +136,367 @@
 // rounded by the caller; bf16(P) feeds dv while dS uses the fp32 P; dS is
 // rounded to bf16 once, and those bf16 values feed both dK and dq; dq's
 // scale and dk's 1/log2 e multiply the fp32 sums before the single
-// rounding to bf16 at the store (dq's per-block partial rounded to bf16
-// first, as the reference does).
+// rounding to bf16 at the store (the fused kernel's per-block dq partial
+// rounded to bf16 first, as the reference does).
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using namespace flash;
+constexpr float kInvLog2e = static_cast<float>(1.0 / flash::kLog2e);
 
-constexpr int kBQ = 64;       // dq: q rows per block (16 per warp)
-constexpr int kBK = 64;       // dq: keys per tile; dkdv: keys per block
-constexpr int kBQ2 = 32;      // dkdv: q rows per streamed tile
-constexpr float kInvLog2e = static_cast<float>(1.0 / kLog2e);
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * kBQ + 2 * kBK) * Tile<D>::kStride * 2;
-}
-
-template <int D>
-constexpr int kv_smem_bytes() {
-  return (2 * kBK + 2 * kBQ2) * Tile<D>::kStride * 2 + 2 * kBQ2 * 4;
-}
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qs,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ l2, const float* __restrict__ dd,
-                    __nv_bfloat16* __restrict__ dq, int S, int Sk, int group,
-                    float scale) {
-  using T = Tile<D>;
-  constexpr int kDK = D / 16;
-  constexpr int kDT = D / 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;
-  uint16_t* sO = sQ + kBQ * T::kStride;      // dout tile
-  uint16_t* sK = sO + kBQ * T::kStride;
-  uint16_t* sV = sK + kBK * T::kStride;
-
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBQ;
-  const int bh = blockIdx.y;
-  const int kvh = bh / group;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_a = q0 + warp * 16 + (lane >> 2);
-  const int col_t = 2 * (lane & 3);
-  const size_t qoff = static_cast<size_t>(bh) * S;
-
-  load_tile<D, false>(sQ, qs + qoff * D, q0, S, kBQ);
-  load_tile<D, false>(sO, dout + qoff * D, q0, S, kBQ);
-  float l2r[2], ddr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    l2r[r] = row < S ? l2[qoff + row] : 0.f;
-    ddr[r] = row < S ? dd[qoff + row] : 0.f;
-  }
-  const __nv_bfloat16* kb = k + static_cast<size_t>(kvh) * Sk * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(kvh) * Sk * D;
-
-  float acc[kDT][4];
-#pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  const int kv_end = CAUSAL ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();
-    load_tile<D, false>(sK, kb, k0, Sk, kBK);
-    load_tile<D, false>(sV, vb, k0, Sk, kBK);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t a[4], o[4];
-      load_a(a, sQ, T::kStride, warp * 16, kk * 16, lane);
-      load_a(o, sO, T::kStride, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sK, T::kStride, nt * 8, kk * 16, lane);
-        mma(s[nt], a, b0, b1);              // qs . K^T
-        load_b_nk(b0, b1, sV, T::kStride, nt * 8, kk * 16, lane);
-        mma(dp[nt], o, b0, b1);             // dout . V^T
-      }
-    }
-
-    const bool masked = k0 + kBK > Sk || (CAUSAL && k0 + kBK - 1 > q0);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        bool keep = true;
-        if (masked) {
-          const int col = k0 + nt * 8 + col_t + (e & 1);
-          keep = col < Sk && (!CAUSAL || col <= row_a + 8 * r);
-        }
-        const float p = keep ? exp2f(s[nt][e] - l2r[r]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - ddr[r]);     // dS, fp32
-      }
-    }
-    // dS rounded to bf16 here, before dS . K
-    uint32_t da[4][4];
-    c_to_a<4>(da, s);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        uint32_t b0, b1;
-        load_b_kn(b0, b1, sK, T::kStride, kk * 16, dt * 8, lane);
-        mma(acc[dt], da[kk], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= S) continue;
-    __nv_bfloat16* o = dq + (qoff + row) * D + col_t;
-#pragma unroll
-    for (int dt = 0; dt < kDT; ++dt)
-      *reinterpret_cast<uint32_t*>(o + dt * 8) =
-          pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
-  }
-}
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qs,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ l2,
-                    const float* __restrict__ dd,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int S, int Sk,
-                    int group) {
-  using T = Tile<D>;
-  constexpr int kDK = D / 16;
-  constexpr int kDT = D / 8;
-  constexpr int kNT = kBQ2 / 8;     // 8-wide query tiles per streamed tile
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sK = smem;
-  uint16_t* sV = sK + kBK * T::kStride;
-  uint16_t* sQ = sV + kBK * T::kStride;
-  uint16_t* sO = sQ + kBQ2 * T::kStride;     // dout tile
-  float* sL2 = reinterpret_cast<float*>(sO + kBQ2 * T::kStride);
-  float* sDD = sL2 + kBQ2;
-
-  const int k0 = blockIdx.x * kBK;
-  const int bh = blockIdx.y;
-  const int kvh = bh / group;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int key_a = k0 + warp * 16 + (lane >> 2);    // keys g and g + 8
-  const int col_t = 2 * (lane & 3);
-  const size_t qoff = static_cast<size_t>(bh) * S;
-
-  load_tile<D, false>(sK, k + static_cast<size_t>(kvh) * Sk * D, k0, Sk, kBK);
-  load_tile<D, false>(sV, v + static_cast<size_t>(kvh) * Sk * D, k0, Sk, kBK);
-
-  float dka[kDT][4], dva[kDT][4];
-#pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-
-  // under the mask, q rows before k0 see none of this block's keys
-  for (int q0 = CAUSAL ? k0 : 0; q0 < S; q0 += kBQ2) {
-    __syncthreads();
-    load_tile<D, false>(sQ, qs + qoff * D, q0, S, kBQ2);
-    load_tile<D, false>(sO, dout + qoff * D, q0, S, kBQ2);
-    load_vec(sL2, l2 + qoff, q0, S, kBQ2);
-    load_vec(sDD, dd + qoff, q0, S, kBQ2);
-    __syncthreads();
-
-    // P^T = exp2(k . qs^T - l2), 16 keys x 32 queries per warp
-    float p[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t a[4];
-      load_a(a, sK, T::kStride, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sQ, T::kStride, nt * 8, kk * 16, lane);
-        mma(p[nt], a, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + col_t + (e & 1);      // query within tile
-        const int key = key_a + 8 * (e >> 1);
-        const bool keep = q0 + qi < S && (!CAUSAL || q0 + qi >= key);
-        p[nt][e] = keep ? exp2f(p[nt][e] - sL2[qi]) : 0.f;
-      }
-    }
-
-    // dV += bf16(P^T) . dout
-    uint32_t pa[kBQ2 / 16][4];
-    c_to_a<kBQ2 / 16>(pa, p);
-#pragma unroll
-    for (int kk = 0; kk < kBQ2 / 16; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        uint32_t b0, b1;
-        load_b_kn(b0, b1, sO, T::kStride, kk * 16, dt * 8, lane);
-        mma(dva[dt], pa[kk], b0, b1);
-      }
-    }
-
-    // dS^T = P^T * (v . dout^T - dd), with the fp32 P^T
-    float ds[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) ds[nt][0] = ds[nt][1] = ds[nt][2] = ds[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t a[4];
-      load_a(a, sV, T::kStride, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sO, T::kStride, nt * 8, kk * 16, lane);
-        mma(ds[nt], a, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - sDD[nt * 8 + col_t + (e & 1)]);
-
-    // dK += bf16(dS^T) . qs
-    uint32_t da[kBQ2 / 16][4];
-    c_to_a<kBQ2 / 16>(da, ds);
-#pragma unroll
-    for (int kk = 0; kk < kBQ2 / 16; ++kk) {
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        uint32_t b0, b1;
-        load_b_kn(b0, b1, sQ, T::kStride, kk * 16, dt * 8, lane);
-        mma(dka[dt], da[kk], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_a + 8 * r;
-    if (key >= Sk) continue;
-    const size_t off = (static_cast<size_t>(bh) * Sk + key) * D + col_t;
-#pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8) = pack_bf16(
-          dka[dt][2 * r] * kInvLog2e, dka[dt][2 * r + 1] * kInvLog2e);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8) =
-          pack_bf16(dva[dt][2 * r], dva[dt][2 * r + 1]);
-    }
-  }
-}
-
-template <int D, bool CAUSAL>
-cudaError_t launch_dq(const void* qs, const void* k, const void* v,
-                      const void* dout, const void* l2, const void* dd,
-                      void* dq, int BH, int S, int Sk, int group, float scale,
-                      cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<D, CAUSAL>;
-  constexpr int bytes = dq_smem_bytes<D>();
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(qs), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(l2), static_cast<const float*>(dd),
-      static_cast<__nv_bfloat16*>(dq), S, Sk, group, scale);
-  return cudaGetLastError();
-}
-
-template <int D, bool CAUSAL>
-cudaError_t launch_kv(const void* qs, const void* k, const void* v,
-                      const void* dout, const void* l2, const void* dd,
-                      void* dk, void* dv, int BH, int S, int Sk, int group,
-                      cudaStream_t stream) {
-  auto kernel = flash_bwd_kv_kernel<D, CAUSAL>;
-  constexpr int bytes = kv_smem_bytes<D>();
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kBK - 1) / kBK, BH);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(qs), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(l2), static_cast<const float*>(dd),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S,
-      Sk, group);
-  return cudaGetLastError();
+// blocks of a persistent grid: one per SM, or one per work item where
+// there are fewer
+inline cudaError_t grid_blocks(int items, int* blocks) {
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = items < sms ? items : sms;
+  return err;
 }
 
 // ---------------------------------------------------------------------------
-// The fused kernel on TMA and wgmma (see the header)
+// The dQ kernel (see the header)
+// ---------------------------------------------------------------------------
+
+namespace dqk {
+
+using flash::for_each_tile;
+using namespace hopper;
+
+constexpr int kBQ = 128;          // q rows per tile, 64 per consumer
+constexpr int kBK = 64;           // keys per K/V tile (S and dP are m64n64)
+constexpr int kStages = 3;        // buffers in the K/V ring
+constexpr int kQBufs = 2;         // qs/dout tile buffers
+constexpr int kWarpgroup = 128;
+constexpr int kThreadsDq = 3 * kWarpgroup;
+constexpr int kConsumerWarps = 8;
+// 40 · 128 + 232 · 256 = 64,512, the 168 · 384 registers the block starts
+// with (setmaxnreg.inc only takes what the block's warps gave back)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kRowBytes = 128;    // one swizzled row of a 64-column box
+
+// Shared memory, from a 1024-byte aligned base: kQBufs buffers of a q
+// tile's qs and dout, the K/V ring (each stage K, then V), the barriers.
+template <int D>
+struct Smem {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBox = kBQ * kRowBytes;          // one 64-column box
+  static constexpr int kKVBox = kBK * kRowBytes;
+  static constexpr int kQTile = kBoxes * kQBox;          // qs or dout
+  static constexpr int kQBuf = 2 * kQTile;               // qs, then dout
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQ + kQBufs * kQBuf;
+  static constexpr int kStage = 2 * kBoxes * kKVBox;     // K, then V
+  static constexpr int kBar = kKV + kStages * kStage;
+  static constexpr int kBars = 2 * kQBufs + 2 * kStages;
+  static constexpr int kBytes = kBar + kBars * 8 + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "shared memory over the 227 KB a block has");
+};
+
+// q tile `tile` uses buffer tile % kQBufs, k tile `ik` (the block's running
+// count) stage ik % kStages
+struct Barriers {
+  uint64_t* q_full;     // [kQBufs] qs and dout have landed
+  uint64_t* q_empty;    // [kQBufs] the tile's last S and dP are done
+  uint64_t* kv_full;    // [kStages] K and V have landed
+  uint64_t* kv_empty;   // [kStages] the tile's dq product (K's last reader)
+                        // is done
+};
+
+struct Params {
+  const float* l2;
+  const float* dd;
+  __nv_bfloat16* dq;
+  int BH, S, Sk, group;
+  float scale;
+};
+
+// k tiles that rows before `row_end` need: under the mask while kBK * j is
+// at most the last row, else all of Sk
+template <bool CAUSAL>
+__device__ __forceinline__ int key_tiles(int row_end, int Sk) {
+  const int kv_end = CAUSAL ? min(Sk, row_end) : Sk;
+  return (kv_end + kBK - 1) / kBK;
+}
+
+// d (64 x N) = A·B with both operands K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss_kmajor(float (&d)[N / 2],
+                                                uint64_t da, uint64_t db,
+                                                int accumulate) {
+  if constexpr (N == 64)
+    wgmma_ss_n64<0, 0>(d, da, db, accumulate);
+  else
+    wgmma_ss_n128<0>(d, da, db, accumulate);
+}
+
+// d = A·Bᵀ over D for one consumer: A its 64 rows at a_addr of a q tile
+// (boxes kQBox apart), B the kBK rows of a K or V tile at b_addr (boxes
+// kKVBox apart); issued and committed, not waited for
+template <int D>
+__device__ __forceinline__ void issue_nt(float (&d)[kBK / 2], uint32_t a_addr,
+                                         uint32_t b_addr) {
+  using L = Smem<D>;
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_kmajor<kBK>(
+        d, desc_sw128(a_addr + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+        desc_sw128(b_addr + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024),
+        kk > 0);
+  wgmma_commit();
+  fence_regs(d);
+}
+
+// dq += dS·K: A the bf16 dS fragments, B the K tile at k_addr MN-major
+// (issued and committed, not waited for)
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&dq)[D / 2],
+                                         const uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t k_addr) {
+  using L = Smem<D>;
+  fence_regs(dq);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_rs<D, 1>(dq, pa[kk],
+                   desc_sw128(k_addr + kk * 16 * kRowBytes, L::kKVBox, 1024));
+  wgmma_commit();
+  fence_regs(dq);
+}
+
+// Where a consumer thread sits: its warpgroup's 64 rows of the tile and
+// its two rows and columns in the wgmma fragments.
+struct Consumer {
+  int c;        // consumer 0 or 1: rows 64 c .. 64 c + 63 of a q tile
+  int lane;
+  int row_l;    // its rows in the warpgroup's 64: row_l and row_l + 8
+  int col_t;    // its first column in each 8-column block
+};
+
+// One q tile (q head-row bh, rows q0 ..) for one consumer warpgroup; `it`
+// is the block's running count of k tiles, `tile` of q tiles.
+template <int D, bool CAUSAL>
+__device__ __forceinline__ void consume_tile(uint8_t* base,
+                                             const Barriers& bar,
+                                             const Params& p,
+                                             const Consumer& me, int tile,
+                                             int it, int q0, int bh) {
+  using L = Smem<D>;
+  const int q_first = q0 + 64 * me.c;                // this consumer's rows
+  const int row0 = q_first + me.row_l;
+  const int qb = tile % kQBufs;
+  const uint32_t q_addr =
+      smem_u32(base + L::kQ + qb * L::kQBuf) + me.c * 64 * kRowBytes;
+  const uint32_t do_addr = q_addr + L::kQTile;
+  const uint32_t kv_ring = smem_u32(base + L::kKV);
+  auto k_at = [&](int j) { return kv_ring + ((it + j) % kStages) * L::kStage; };
+  const int n_all = key_tiles<CAUSAL>(q0 + kBQ, p.Sk);   // the producer's
+  const int n_mine = key_tiles<CAUSAL>(q_first + 64, p.Sk);
+
+  const size_t off = static_cast<size_t>(bh) * p.S;
+  float l2r[2], ddr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    l2r[h] = row < p.S ? p.l2[off + row] : 0.f;
+    ddr[h] = row < p.S ? p.dd[off + row] : 0.f;
+  }
+  mbar_wait(&bar.q_full[qb], (tile / kQBufs) & 1);
+
+  float dq[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+  float s[kBK / 2], dp[kBK / 2];
+  uint32_t pa[kBK / 16][4];
+  for (int j = 0; j < n_mine; ++j) {
+    const int ik = it + j;
+    const uint32_t k_addr = k_at(j);
+    mbar_wait(&bar.kv_full[ik % kStages], (ik / kStages) & 1);
+    if (j > 0) issue_dq<D>(dq, pa, k_at(j - 1));   // dq += dS_{j-1}·K_{j-1}
+    issue_nt<D>(s, q_addr, k_addr);                  // S_j = qs·K_jᵀ
+    issue_nt<D>(dp, do_addr, k_addr + L::kBoxes * L::kKVBox);  // dout·V_jᵀ
+    wgmma_wait<1>();               // dq_{j-1} and S_j are in; dP_j runs on
+    fence_regs(dq);
+    fence_regs(s);
+    if (j > 0 && me.lane == 0)
+      mbar_arrive(&bar.kv_empty[(ik - 1) % kStages]);
+
+    // P = exp2(S − l2), fp32; element x is (row row0 + 8 h, key k0 + 8
+    // (x >> 2) + col_t + (x & 1)) with h = (x >> 1) & 1
+    const int k0 = j * kBK;
+    const bool masked = k0 + kBK > p.Sk || (CAUSAL && k0 + kBK - 1 > q_first);
+#pragma unroll
+    for (int x = 0; x < kBK / 2; ++x) {
+      const int h = (x >> 1) & 1;
+      bool keep = true;
+      if (masked) {
+        const int key = k0 + 8 * (x >> 2) + me.col_t + (x & 1);
+        keep = CAUSAL ? key <= row0 + 8 * h : key < p.Sk;
+      }
+      s[x] = keep ? flash::exp2_ftz(s[x] - l2r[h]) : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    if (j == n_mine - 1 && me.lane == 0) mbar_arrive(&bar.q_empty[qb]);
+    // dS = P∘(dP − dd) with the fp32 P, rounded to bf16 here, once:
+    // register pa[kk][e] holds columns 16 kk + 8 (e >> 1) + col_t, +1 of
+    // row row0 + 8 (e & 1)
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 8 * kk + 2 * e;
+        pa[kk][e] = flash::pack_bf16(s[x] * (dp[x] - ddr[e & 1]),
+                                     s[x + 1] * (dp[x + 1] - ddr[e & 1]));
+      }
+  }
+  issue_dq<D>(dq, pa, k_at(n_mine - 1));
+  wgmma_wait<0>();
+  fence_regs(dq);
+  if (me.lane == 0) {
+    mbar_arrive(&bar.kv_empty[(it + n_mine - 1) % kStages]);
+    // tiles the other consumer's rows need and these do not: wait for
+    // each (its stage's last phase is then complete) and release it
+    for (int j = n_mine; j < n_all; ++j) {
+      const int ik = it + j;
+      mbar_wait(&bar.kv_full[ik % kStages], (ik / kStages) & 1);
+      mbar_arrive(&bar.kv_empty[ik % kStages]);
+    }
+  }
+  __syncwarp();
+
+  // dq = bf16(acc · D^-0.5), once; element 4 jj + 2 h + e is (row row0 + 8
+  // h, column 8 jj + col_t + e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= p.S) continue;
+    __nv_bfloat16* o = p.dq + (off + row) * D + me.col_t;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(o + 8 * jj) = flash::pack_bf16(
+          dq[4 * jj + 2 * h] * p.scale, dq[4 * jj + 2 * h + 1] * p.scale);
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreadsDq, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const Params p) {
+  using L = Smem<D>;
+  extern __shared__ __align__(16) uint8_t raw[];
+  uint8_t* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBar);
+  const Barriers bar{bars, bars + kQBufs, bars + 2 * kQBufs,
+                     bars + 2 * kQBufs + kStages};
+  const int n_qt = (p.S + kBQ - 1) / kBQ;
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < kQBufs; ++qb) {
+      mbar_init(&bar.q_full[qb], 1);
+      mbar_init(&bar.q_empty[qb], kConsumerWarps);
+    }
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&bar.kv_full[st], 1);
+      mbar_init(&bar.kv_empty[st], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  int tile = 0, it = 0;       // q tiles and k tiles this block has walked
+  if (threadIdx.x < kWarpgroup) {
+    // producer: per q tile, qs and dout once their buffer's last tile is
+    // done with them, then its k tiles' K and V in key order
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      prefetch_map(&tm_do);
+      for_each_tile(n_qt, p.BH, [&](int bh, int qt) {
+        const int kvh = bh / p.group;
+        const int n_k = key_tiles<CAUSAL>(qt * kBQ + kBQ, p.Sk);
+        const int qb = tile % kQBufs;
+        uint8_t* qbuf = base + L::kQ + qb * L::kQBuf;
+        mbar_wait(&bar.q_empty[qb], ((tile / kQBufs) & 1) ^ 1);
+        mbar_expect_tx(&bar.q_full[qb], L::kQBuf);
+        for (int b = 0; b < L::kBoxes; ++b) {
+          tma_load(qbuf + b * L::kQBox, &tm_q, &bar.q_full[qb], b * 64,
+                   qt * kBQ, bh);
+          tma_load(qbuf + L::kQTile + b * L::kQBox, &tm_do, &bar.q_full[qb],
+                   b * 64, qt * kBQ, bh);
+        }
+        for (int j = 0; j < n_k; ++j) {
+          const int ik = it + j, st = ik % kStages;
+          uint8_t* stage = base + L::kKV + st * L::kStage;
+          mbar_wait(&bar.kv_empty[st], ((ik / kStages) & 1) ^ 1);
+          mbar_expect_tx(&bar.kv_full[st], L::kStage);
+          for (int b = 0; b < L::kBoxes; ++b) {
+            tma_load(stage + b * L::kKVBox, &tm_k, &bar.kv_full[st], b * 64,
+                     j * kBK, kvh);
+            tma_load(stage + (L::kBoxes + b) * L::kKVBox, &tm_v,
+                     &bar.kv_full[st], b * 64, j * kBK, kvh);
+          }
+        }
+        it += n_k;
+        ++tile;
+      });
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWarpgroup, lane = tid % 32;
+    const Consumer me{static_cast<int>(threadIdx.x) / kWarpgroup - 1, lane,
+                      16 * (tid / 32) + (lane >> 2), 2 * (lane & 3)};
+    for_each_tile(n_qt, p.BH, [&](int bh, int qt) {
+      consume_tile<D, CAUSAL>(base, bar, p, me, tile, it, qt * kBQ, bh);
+      it += key_tiles<CAUSAL>(qt * kBQ + kBQ, p.Sk);
+      ++tile;
+    });
+  }
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(const void* qs, const void* k, const void* v,
+                   const void* dout, const void* l2, const void* dd,
+                   void* dq, int BH, int BHkv, int S, int Sk, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = tensor_map_bf16(&tm_q, qs, BH, S, D, kBQ)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_do, dout, BH, S, D, kBQ)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_k, k, BHkv, Sk, D, kBK)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_v, v, BHkv, Sk, D, kBK)) != cudaSuccess)
+    return err;
+  auto kernel = flash_bwd_dq_kernel<D, CAUSAL>;
+  constexpr int bytes = Smem<D>::kBytes;
+  static const cudaError_t attr = flash::allow_smem(kernel, bytes);
+  if (attr != cudaSuccess) return attr;
+  int blocks;
+  if ((err = grid_blocks(BH * ((S + 2 * kBQ - 1) / (2 * kBQ)), &blocks)) !=
+      cudaSuccess)
+    return err;
+  const Params p{static_cast<const float*>(l2), static_cast<const float*>(dd),
+                 static_cast<__nv_bfloat16*>(dq), BH, S, Sk, BH / BHkv,
+                 scale};
+  kernel<<<blocks, kThreadsDq, bytes, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  return cudaGetLastError();
+}
+
+}  // namespace dqk
+
+// ---------------------------------------------------------------------------
+// The fused kernel on TMA and wgmma, and with DQ = false the dK/dV kernel
+// (see the header)
 // ---------------------------------------------------------------------------
 
 namespace fused {
@@ -445,34 +519,44 @@ constexpr int kPieceBytes = 64 * kRowBytes;   // [64 rows][32 fp32], swizzled
 constexpr int kDsReady = 1;       // named barrier: both halves of dS stored
 constexpr int kGroup = 64;        // head-rows whose items the walk interleaves
 
-// Shared memory, from a 1024-byte aligned base: the item's K and V tiles,
-// the q-tile ring (qs, then dout), two dS^T tiles, the staged dq half
-// tiles, each stage's l2 and dd, the barriers and the item index.
-template <int D>
+// K/V item buffers: one with dq (its dS and dq tiles take the room),
+// two without, so an item's K and V land while the one before runs
+__host__ __device__ constexpr int kv_bufs(bool dq) { return dq ? 1 : 2; }
+
+// Shared memory, from a 1024-byte aligned base: the items' K and V tiles
+// (kKVBufs buffers, each K then V), the q-tile ring (qs, then dout), with
+// DQ two dS^T tiles and the staged dq half tiles, each stage's l2 and dd,
+// the barriers and the item indices.
+template <int D, bool DQ>
 struct Smem {
   static constexpr int kBoxes = D / 64;                  // also dq halves
   static constexpr int kKVBox = kItemKeys * kRowBytes;   // 16 KB
   static constexpr int kQBox = kQRows * kRowBytes;       // 8 KB
+  static constexpr int kKVBufs = kv_bufs(DQ);
+  static constexpr int kKVBytes = 2 * kBoxes * kKVBox;   // one item's K, V
   static constexpr int kK = 0;
   static constexpr int kV = kK + kBoxes * kKVBox;
-  static constexpr int kRing = kV + kBoxes * kKVBox;
+  static constexpr int kRing = kKVBufs * kKVBytes;
   static constexpr int kStageBytes = 2 * kBoxes * kQBox;
   static constexpr int kDS = kRing + kStages * kStageBytes;
-  static constexpr int kDSBytes = kItemKeys * kRowBytes;   // [128 keys][64 q]
+  // [128 keys][64 q], and one dq half tile
+  static constexpr int kDSBytes = DQ ? kItemKeys * kRowBytes : 0;
   static constexpr int kDq = kDS + 2 * kDSBytes;
-  static constexpr int kDqBytes = 2 * kPieceBytes;       // one half tile
+  static constexpr int kDqBytes = DQ ? 2 * kPieceBytes : 0;
   static constexpr int kStat = kDq + kBoxes * kDqBytes;
   static constexpr int kBar = kStat + kStages * 2 * kQRows * 4;
-  static constexpr int kBars = 2 + 2 * kStages + 6;
+  static constexpr int kBars = 2 * kKVBufs + 2 * kStages + 6;
   static constexpr int kItem = kBar + kBars * 8;
-  static constexpr int kBytes = kItem + 16 + 1024;       // + alignment slack
+  static constexpr int kBytes = kItem + 4 * kKVBufs + 16 + 1024;  // + slack
   static_assert(kBytes <= 232448, "shared memory over the 227 KB a block has");
 };
 
+// item n of a block uses K/V buffer b = n % kKVBufs, phase (n / kKVBufs) & 1
 struct Barriers {
-  uint64_t* kv_full;    // the item's K, V (and its index) have landed
-  uint64_t* kv_empty;   // the item's last product that reads K/V is done,
-                        // and its writers have read its index
+  uint64_t* kv_full;    // [kKVBufs] the item's K, V (and its index) have
+                        // landed
+  uint64_t* kv_empty;   // [kKVBufs] the item's last product that reads K/V
+                        // is done, and its writers have read its index
   uint64_t* q_full;     // [kStages] qs, dout (TMA) and l2, dd (warp 1)
   uint64_t* q_empty;    // [kStages] every product of the tile is done
   uint64_t* dq_full;    // [2] a consumer's dq half tile is staged
@@ -511,26 +595,37 @@ __device__ __forceinline__ Item item_at(int w, const Params& p) {
   return {bh, kt, CAUSAL ? kt * kItemKeys / kQRows : 0};
 }
 
+// item w of the dK/dV kernel (DQ = false): the key tile outer and the
+// head-row inner, so in index order the longest items under the causal
+// mask (the first key tiles) come first
+template <bool CAUSAL>
+__device__ __forceinline__ Item kv_item_at(int w, const Params& p) {
+  const int bh = w % p.BH, kt = w / p.BH;
+  return {bh, kt, CAUSAL ? kt * kItemKeys / kQRows : 0};
+}
+
 // The block's items in order, as thread 0 of the producer publishes them:
-// f(item) for each, until the counter runs out.  A dq writer lags a q
-// tile behind the consumers, a whole item where the item has one q tile,
-// so it also holds the next item back (`hold`: its warp's arrival on
+// f(item, K/V buffer) for each, until the walk runs out.  A dq writer lags
+// a q tile behind the consumers, a whole item where the item has one q
+// tile, so it also holds the next item back (`hold`: its warp's arrival on
 // kv_empty once it has read the index), and the index and kv_full's phase
 // never run two items ahead of it.
-template <bool CAUSAL, typename F>
+template <bool CAUSAL, bool DQ, typename F>
 __device__ __forceinline__ void for_each_item(const Barriers& bar,
                                               const volatile int* s_item,
                                               const Params& p, bool hold,
                                               F&& f) {
+  constexpr int kBufs = kv_bufs(DQ);
   for (int n = 0;; ++n) {
-    mbar_wait(bar.kv_full, n & 1);
-    const int w = *s_item;
+    const int b = n % kBufs;
+    mbar_wait(&bar.kv_full[b], (n / kBufs) & 1);
+    const int w = s_item[b];
     if (w < 0) return;
     if (hold) {
       __syncwarp();
-      if (threadIdx.x % 32 == 0) mbar_arrive(bar.kv_empty);
+      if (threadIdx.x % 32 == 0) mbar_arrive(&bar.kv_empty[b]);
     }
-    f(item_at<CAUSAL>(w, p));
+    f(DQ ? item_at<CAUSAL>(w, p) : kv_item_at<CAUSAL>(w, p), b);
   }
 }
 
@@ -549,20 +644,23 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_do,
                        const __grid_constant__ CUtensorMap tm_acc,
                        const Params p) {
-  using L = Smem<D>;
+  using L = Smem<D, DQ>;
+  constexpr int B = L::kKVBufs;
   extern __shared__ __align__(16) uint8_t raw[];
   uint8_t* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBar);
-  const Barriers bar{bars, bars + 1, bars + 2, bars + 2 + kStages,
-                     bars + 2 + 2 * kStages, bars + 4 + 2 * kStages,
-                     bars + 6 + 2 * kStages};
+  const Barriers bar{bars, bars + B, bars + 2 * B, bars + 2 * B + kStages,
+                     bars + 2 * B + 2 * kStages, bars + 2 * B + 2 * kStages + 2,
+                     bars + 2 * B + 2 * kStages + 4};
   volatile int* s_item = reinterpret_cast<volatile int*>(base + L::kItem);
   const int items = p.BH * p.n_kt;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar.kv_full, 1);
-    // the consumer warps at the item's end, the dq writers at its start
-    mbar_init(bar.kv_empty, kConsumerWarps + (DQ ? L::kBoxes : 0));
+    for (int b = 0; b < B; ++b) {
+      mbar_init(&bar.kv_full[b], 1);
+      // the consumer warps at the item's end, the dq writers at its start
+      mbar_init(&bar.kv_empty[b], kConsumerWarps + (DQ ? L::kBoxes : 0));
+    }
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&bar.q_full[st], 2);
       mbar_init(&bar.q_empty[st], kConsumerWarps);
@@ -581,46 +679,74 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
     reg_dealloc<kProducerRegs>();
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (threadIdx.x == 0) {
-      // the next item once the K/V buffer is free, then its K and V, then
-      // its q tiles from the last down
       prefetch_map(&tm_q);
       prefetch_map(&tm_k);
       prefetch_map(&tm_v);
       prefetch_map(&tm_do);
-      for (int n = 0;; ++n) {
-        mbar_wait(bar.kv_empty, (n & 1) ^ 1);
-        const int w = atomicAdd(p.next, 1);
-        if (w >= items) {
-          *s_item = -1;
-          mbar_arrive(bar.kv_full);
-          break;
+      // item n takes K/V buffer n % B once the item before in it is done;
+      // then its index (-1: no more), its K and V, its q tiles from the
+      // last down
+      auto claim = [&](int n) {
+        mbar_wait(&bar.kv_empty[n % B], ((n / B) & 1) ^ 1);
+      };
+      auto produce = [&](int n, int w) {
+        const int b = n % B;
+        s_item[b] = w;
+        if (w < 0) {
+          mbar_arrive(&bar.kv_full[b]);
+          return;
         }
-        *s_item = w;
-        const Item it = item_at<CAUSAL>(w, p);
+        const Item it = DQ ? item_at<CAUSAL>(w, p) : kv_item_at<CAUSAL>(w, p);
         const int kvh = it.bh / p.group;
-        mbar_expect_tx(bar.kv_full, 2 * L::kBoxes * L::kKVBox);
-        for (int b = 0; b < L::kBoxes; ++b) {
-          tma_load(base + L::kK + b * L::kKVBox, &tm_k, bar.kv_full, b * 64,
-                   it.kt * kItemKeys, kvh);
-          tma_load(base + L::kV + b * L::kKVBox, &tm_v, bar.kv_full, b * 64,
-                   it.kt * kItemKeys, kvh);
+        uint8_t* kv = base + b * L::kKVBytes;
+        mbar_expect_tx(&bar.kv_full[b], L::kKVBytes);
+        for (int bx = 0; bx < L::kBoxes; ++bx) {
+          tma_load(kv + L::kK + bx * L::kKVBox, &tm_k, &bar.kv_full[b],
+                   bx * 64, it.kt * kItemKeys, kvh);
+          tma_load(kv + L::kV + bx * L::kKVBox, &tm_v, &bar.kv_full[b],
+                   bx * 64, it.kt * kItemKeys, kvh);
         }
         for (int i = p.n_qt - 1; i >= it.first; --i, ++t) {
           const int st = t % kStages;
           uint8_t* stage = base + L::kRing + st * L::kStageBytes;
           mbar_wait(&bar.q_empty[st], ((t / kStages) & 1) ^ 1);
           mbar_expect_tx(&bar.q_full[st], L::kStageBytes);
-          for (int b = 0; b < L::kBoxes; ++b) {
-            tma_load(stage + b * L::kQBox, &tm_q, &bar.q_full[st], b * 64,
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            tma_load(stage + bx * L::kQBox, &tm_q, &bar.q_full[st], bx * 64,
                      i * kQRows, it.bh);
-            tma_load(stage + (L::kBoxes + b) * L::kQBox, &tm_do,
-                     &bar.q_full[st], b * 64, i * kQRows, it.bh);
+            tma_load(stage + (L::kBoxes + bx) * L::kQBox, &tm_do,
+                     &bar.q_full[st], bx * 64, i * kQRows, it.bh);
           }
         }
+      };
+      if constexpr (DQ) {
+        // the next item from the counter, once its buffer is free
+        for (int n = 0;; ++n) {
+          claim(n);
+          const int w = atomicAdd(p.next, 1);
+          produce(n, w < items ? w : -1);
+          if (w >= items) break;
+        }
+      } else {
+        // pairs of one head-row's items, the longest and the shortest left
+        // under the causal mask, round robin over the blocks
+        const int n_pairs = (p.n_kt + 1) / 2;
+        int n = 0;
+        for (int pw = blockIdx.x; pw < p.BH * n_pairs; pw += gridDim.x) {
+          const int bh = pw / n_pairs, pr = pw % n_pairs;
+          claim(n);
+          produce(n++, pr * p.BH + bh);
+          if (pr != p.n_kt - 1 - pr) {
+            claim(n);
+            produce(n++, (p.n_kt - 1 - pr) * p.BH + bh);
+          }
+        }
+        claim(n);
+        produce(n, -1);
       }
     } else if (warp == 1) {
       // each q tile's l2 and dd into its stage (0 past S)
-      for_each_item<CAUSAL>(bar, s_item, p, false, [&](const Item& it) {
+      for_each_item<CAUSAL, DQ>(bar, s_item, p, false, [&](const Item& it, int) {
         for (int i = p.n_qt - 1; i >= it.first; --i, ++t) {
           const int st = t % kStages;
           float* stat = reinterpret_cast<float*>(base + L::kStat) +
@@ -644,7 +770,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int c = warp - 2;
       uint8_t* sq = base + L::kDq + c * L::kDqBytes;
       int formed = 0;
-      for_each_item<CAUSAL>(bar, s_item, p, true, [&](const Item& it) {
+      for_each_item<CAUSAL, DQ>(bar, s_item, p, true, [&](const Item& it, int) {
         const int j = it.kt / p.per_j, pos = it.kt - j * p.per_j;
         const int j_last = min((j + 1) * p.per_j, p.n_kt) - 1;
         for (int i = p.n_qt - 1; i >= it.first; --i, ++t) {
@@ -715,12 +841,12 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tid = threadIdx.x % kWarpgroup, warp = tid / 32, lane = tid % 32;
     const int row_l = 16 * warp + (lane >> 2);   // +8: the fragment's 2nd row
     const int col_t = 2 * (lane & 3);
-    const uint32_t k_addr = smem_u32(base + L::kK);
-    const uint32_t v_addr = smem_u32(base + L::kV);
     const bool dq_mine = DQ && c < L::kBoxes;
     float dk[D / 2], dv[D / 2];
-    for_each_item<CAUSAL>(bar, s_item, p, false, [&](const Item& it) {
+    for_each_item<CAUSAL, DQ>(bar, s_item, p, false, [&](const Item& it, int b) {
       const int kc = it.kt * kItemKeys + 64 * c;     // this consumer's keys
+      const uint32_t k_addr = smem_u32(base + b * L::kKVBytes + L::kK);
+      const uint32_t v_addr = smem_u32(base + b * L::kKVBytes + L::kV);
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
       for (int i = p.n_qt - 1; i >= it.first; --i, ++t) {
@@ -773,7 +899,10 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int key = kc + row_l + 8 * ((x >> 1) & 1);
             keep = q0 + qi < p.S && key < p.Sk && (!CAUSAL || q0 + qi >= key);
           }
-          s[x] = keep ? exp2f(s[x] - sl2[qi]) : 0.f;
+          // exp2f in the fused kernel, the SFU's ex2.approx in the dK/dV
+          // kernel (as in the dQ kernel and the forward)
+          const float e = s[x] - sl2[qi];
+          s[x] = keep ? (DQ ? exp2f(e) : flash::exp2_ftz(e)) : 0.f;
         }
         // bf16(P^T) as dV's A fragments: columns 16 kk .. 16 kk + 15
         uint32_t pa[4][4];
@@ -784,6 +913,8 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
             pa[kk][e] = flash::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
         wgmma_wait<0>();
         fence_regs(dp);
+        // without dq, K and V are read by S^T and dP^T alone
+        if (!DQ && i == it.first && lane == 0) mbar_arrive(&bar.kv_empty[b]);
 
         // dV += bf16(P^T) · dout (dout MN-major)
         fence_regs(dv);
@@ -865,7 +996,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (DQ) fence_regs(dq);
         if (lane == 0) {
           mbar_arrive(&bar.q_empty[st]);
-          if (i == it.first) mbar_arrive(bar.kv_empty);
+          if (DQ && i == it.first) mbar_arrive(&bar.kv_empty[b]);
         }
         if (dq_mine) {
           // stage the fp32 half tile for the writer, once it has read the
@@ -877,10 +1008,10 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int x = 0; x < 32; x += 2) {
             const int row = row_l + 8 * ((x >> 1) & 1);
             const int col = 8 * (x >> 2) + col_t;
-            const int b = (col % kPieceCols) * 4;
+            const int bb = (col % kPieceCols) * 4;
             *reinterpret_cast<float2*>(
                 sq + (col / kPieceCols) * kPieceBytes + row * kRowBytes +
-                (((b >> 4) ^ (row & 7)) << 4) + (b & 15)) =
+                (((bb >> 4) ^ (row & 7)) << 4) + (bb & 15)) =
                 make_float2(dq[x], dq[x + 1]);
           }
           fence_proxy_async();
@@ -970,34 +1101,62 @@ cudaError_t launch(const void* qs, const void* k, const void* v,
                              stream)) != cudaSuccess)
     return err;
   auto kernel = flash_bwd_fused_kernel<D, CAUSAL, true>;
-  constexpr int bytes = Smem<D>::kBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  constexpr int bytes = Smem<D, true>::kBytes;
+  static const cudaError_t attr = flash::allow_smem(kernel, bytes);
   if (attr != cudaSuccess) return attr;
-  int dev, sms;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
   const int items = BH * lay.n_kt;
+  int blocks;
+  if ((err = grid_blocks(items, &blocks)) != cudaSuccess) return err;
   const Params p{static_cast<const float*>(l2), static_cast<const float*>(dd),
                  static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
                  acc, flags, flags + flag_ints, static_cast<__nv_bfloat16*>(dq),
                  BH, S, Sk, BH / BHkv, lay.n_kt, lay.n_qt, lay.per_j, direct,
                  scale};
-  kernel<<<items < sms ? items : sms, kThreadsFused, bytes, stream>>>(
+  kernel<<<blocks, kThreadsFused, bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_acc, p);
   if ((err = cudaGetLastError()) != cudaSuccess || direct) return err;
   const size_t n = static_cast<size_t>(BH) * S * D;
-  const unsigned blocks = static_cast<unsigned>((n / 4 + 255) / 256);
+  const unsigned fin = static_cast<unsigned>((n / 4 + 255) / 256);
   if (CAUSAL)
-    finish_dq_kernel<true><<<blocks, 256, 0, stream>>>(
+    finish_dq_kernel<true><<<fin, 256, 0, stream>>>(
         acc, static_cast<__nv_bfloat16*>(dq), BH, S, D, lay.n_j, kv_block,
         scale);
   else
-    finish_dq_kernel<false><<<blocks, 256, 0, stream>>>(
+    finish_dq_kernel<false><<<fin, 256, 0, stream>>>(
         acc, static_cast<__nv_bfloat16*>(dq), BH, S, D, lay.n_j, kv_block,
         scale);
+  return cudaGetLastError();
+}
+
+// The dK/dV kernel: the fused kernel without dq (no scratch: its tm_acc is
+// never read, and the walk is static)
+template <int D, bool CAUSAL>
+cudaError_t launch_dkdv(const void* qs, const void* k, const void* v,
+                      const void* dout, const void* l2, const void* dd,
+                      void* dk, void* dv, int BH, int BHkv, int S, int Sk,
+                      cudaStream_t stream) {
+  const int n_kt = (Sk + kItemKeys - 1) / kItemKeys;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err;
+  if ((err = tensor_map_bf16(&tm_q, qs, BH, S, D, kQRows)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_do, dout, BH, S, D, kQRows)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_k, k, BHkv, Sk, D, kItemKeys)) != cudaSuccess ||
+      (err = tensor_map_bf16(&tm_v, v, BHkv, Sk, D, kItemKeys)) != cudaSuccess)
+    return err;
+  auto kernel = flash_bwd_fused_kernel<D, CAUSAL, false>;
+  constexpr int bytes = Smem<D, false>::kBytes;
+  static const cudaError_t attr = flash::allow_smem(kernel, bytes);
+  if (attr != cudaSuccess) return attr;
+  int blocks;
+  if ((err = grid_blocks(BH * ((n_kt + 1) / 2), &blocks)) != cudaSuccess)
+    return err;
+  const Params p{static_cast<const float*>(l2), static_cast<const float*>(dd),
+                 static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+                 nullptr, nullptr, nullptr, nullptr,
+                 BH, S, Sk, BH / BHkv, n_kt, (S + kQRows - 1) / kQRows, 0, 0,
+                 0.f};
+  kernel<<<blocks, kThreadsFused, bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_q, p);
   return cudaGetLastError();
 }
 
@@ -1011,7 +1170,8 @@ bool bad_shape(int BH, int BHkv, int S, int Sk, int causal) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each returns the cudaError_t
-// of its launch; 0 means the kernel was enqueued on `stream`.
+// of its tensor-map encodes and launch; 0 means the kernel was enqueued on
+// `stream`.
 extern "C" int tpu_dra_flash_bwd_dq(const void* qs, const void* k,
                                     const void* v, const void* dout,
                                     const void* l2, const void* dd, void* dq,
@@ -1019,15 +1179,14 @@ extern "C" int tpu_dra_flash_bwd_dq(const void* qs, const void* k,
                                     int causal, float scale, void* stream) {
   if (bad_shape(BH, BHkv, S, Sk, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int g = BH / BHkv;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch_dq<64, true>(qs, k, v, dout, l2, dd, dq, BH, S, Sk, g, scale, st)
-                 : launch_dq<64, false>(qs, k, v, dout, l2, dd, dq, BH, S, Sk, g, scale, st);
+    err = causal ? dqk::launch<64, true>(qs, k, v, dout, l2, dd, dq, BH, BHkv, S, Sk, scale, st)
+                 : dqk::launch<64, false>(qs, k, v, dout, l2, dd, dq, BH, BHkv, S, Sk, scale, st);
   else if (D == 128)
-    err = causal ? launch_dq<128, true>(qs, k, v, dout, l2, dd, dq, BH, S, Sk, g, scale, st)
-                 : launch_dq<128, false>(qs, k, v, dout, l2, dd, dq, BH, S, Sk, g, scale, st);
+    err = causal ? dqk::launch<128, true>(qs, k, v, dout, l2, dd, dq, BH, BHkv, S, Sk, scale, st)
+                 : dqk::launch<128, false>(qs, k, v, dout, l2, dd, dq, BH, BHkv, S, Sk, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -1041,15 +1200,14 @@ extern "C" int tpu_dra_flash_bwd_dkdv(const void* qs, const void* k,
                                       void* stream) {
   if (bad_shape(BH, BHkv, S, Sk, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int g = BH / BHkv;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64)
-    err = causal ? launch_kv<64, true>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st)
-                 : launch_kv<64, false>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st);
+    err = causal ? fused::launch_dkdv<64, true>(qs, k, v, dout, l2, dd, dk, dv, BH, BHkv, S, Sk, st)
+                 : fused::launch_dkdv<64, false>(qs, k, v, dout, l2, dd, dk, dv, BH, BHkv, S, Sk, st);
   else if (D == 128)
-    err = causal ? launch_kv<128, true>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st)
-                 : launch_kv<128, false>(qs, k, v, dout, l2, dd, dk, dv, BH, S, Sk, g, st);
+    err = causal ? fused::launch_dkdv<128, true>(qs, k, v, dout, l2, dd, dk, dv, BH, BHkv, S, Sk, st)
+                 : fused::launch_dkdv<128, false>(qs, k, v, dout, l2, dd, dk, dv, BH, BHkv, S, Sk, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -77,6 +77,8 @@
 
 namespace {
 
+using flash::exp2_ftz;
+using flash::for_each_tile;
 using flash::kNeg;
 using flash::pack_bf16;
 using flash::quad_max;
@@ -125,18 +127,6 @@ struct Barriers {
   uint64_t* k_empty;
   uint64_t* v_empty;
 };
-
-// The q tiles of this block, in order: f(bh, qt) for the tiles of each of
-// its work items (the round robin over [BH, ceil(n_qt / 2)] items).
-template <typename F>
-__device__ __forceinline__ void for_each_tile(int n_qt, int BH, F&& f) {
-  const int n_pairs = (n_qt + 1) / 2;
-  for (int w = blockIdx.x; w < BH * n_pairs; w += gridDim.x) {
-    const int bh = w / n_pairs, p = w % n_pairs;
-    f(bh, n_qt - 1 - p);
-    if (p != n_qt - 1 - p) f(bh, p);
-  }
-}
 
 // key tile j of kv row kvh into ring slot `it` (the block's running count
 // of k tiles)
@@ -190,15 +180,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                    desc_sw128(v_addr + kk * 16 * kRowBytes, L::kKVBox, 1024));
   wgmma_commit();
   fence_regs(o);
-}
-
-// 2^x on the special-function unit (ex2.approx.ftz: 2 ulp, subnormal
-// results flushed to 0); a masked score, -FLT_MAX minus a finite max,
-// gives exactly 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online-softmax step of one score tile, in place: s becomes the

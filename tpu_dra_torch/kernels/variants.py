@@ -1,6 +1,6 @@
 """Time variants of the redesigned kernels on the card (the flash forward,
-the fused flash backward, the plain matmul and the ring matmuls), to show
-what each part of their designs buys.
+the flash backward: the fused kernel and the split pair, the plain matmul
+and the ring matmuls), to show what each part of their designs buys.
 
 A variant is a source (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
 ``csrc/matmul.cu`` or ``csrc/ring.cu``) with
@@ -31,6 +31,23 @@ _BWD_WALK = """const int g0 = w / (kGroup * p.n_kt) * kGroup, gs = min(kGroup, p
   const int bh = g0 + (w - g0 * p.n_kt) % gs, kt = (w - g0 * p.n_kt) / gs;"""
 _BWD_SPIN = """            for (int spin = 0; ld_acquire_gpu(flag) != pos; ++spin)
               if (spin > (1 << 24)) __trap();"""
+_Q_STAGES = "constexpr int kStages = 2;        // buffers in the q-tile ring"
+_DQ_BK = "constexpr int kBK = 64;           // keys per K/V tile (S and dP are m64n64)"
+_DQ_STAGES = "constexpr int kStages = 3;        // buffers in the K/V ring"
+_DQ_QBUFS = "constexpr int kQBufs = 2;         // qs/dout tile buffers"
+_KV_PAIRS = """        const int n_pairs = (p.n_kt + 1) / 2;
+        int n = 0;
+        for (int pw = blockIdx.x; pw < p.BH * n_pairs; pw += gridDim.x) {
+          const int bh = pw / n_pairs, pr = pw % n_pairs;
+          claim(n);
+          produce(n++, pr * p.BH + bh);
+          if (pr != p.n_kt - 1 - pr) {
+            claim(n);
+            produce(n++, (p.n_kt - 1 - pr) * p.BH + bh);
+          }
+        }"""
+_KV_GRID = "grid_blocks(BH * ((n_kt + 1) / 2), &blocks)"
+_BWD_EXP = "(DQ ? exp2f(e) : flash::exp2_ftz(e))"
 # source → name → [(text in csrc/<source>.cu, replacement)]
 VARIANTS = {
     "flash_fwd": {
@@ -47,29 +64,79 @@ VARIANTS = {
         "as built": [],
         "finish pass at n_j = 1 too (dq not formed by the last add)": [
             ("const int direct = lay.n_j == 1;", "const int direct = 0;")],
-        "1 ring stage": [
-            ("constexpr int kStages = 2;        // buffers in the q-tile ring",
-             "constexpr int kStages = 1;")],
+        "1 q-tile ring stage (fused and dK/dV)": [
+            (_Q_STAGES, "constexpr int kStages = 1;")],
+        "3 q-tile ring stages (fused and dK/dV)": [
+            (_Q_STAGES, "constexpr int kStages = 3;")],
         "static round robin walk (no item counter)": [
             ("const int w = atomicAdd(p.next, 1);",
              "const int w = blockIdx.x + n * gridDim.x;")],
         "head-row outermost (a head-row's items side by side)": [
             (_BWD_WALK, "const int bh = w / p.n_kt, kt = w % p.n_kt;")],
-        "ex2.approx.ftz in place of exp2f": [
-            ("s[x] = keep ? exp2f(s[x] - sl2[qi]) : 0.f;",
-             "float e2;\n"
-             "          asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(e2) : "
-             "\"f\"(s[x] - sl2[qi]));\n"
-             "          s[x] = keep ? e2 : 0.f;")],
+        "fused: ex2.approx.ftz in place of exp2f": [
+            (_BWD_EXP, "flash::exp2_ftz(e)")],
         "key tile outermost (a head-row's items apart)": [
             (_BWD_WALK, "const int bh = w % p.BH, kt = w / p.BH;")],
-        "registers 40 / 232": [
+        "registers 40 / 232 (fused and dK/dV)": [
             ("constexpr int kProducerRegs = 24;",
              "constexpr int kProducerRegs = 40;"),
             ("constexpr int kConsumerRegs = 240;",
              "constexpr int kConsumerRegs = 232;")],
         "dq adds not ordered (timing only; dq races, wrong)": [
             (_BWD_SPIN, "")],
+        "dQ: 128-key K/V tiles, one qs/dout buffer, 2 K/V stages": [
+            (_DQ_BK, "constexpr int kBK = 128;"),
+            (_DQ_QBUFS, "constexpr int kQBufs = 1;"),
+            (_DQ_STAGES, "constexpr int kStages = 2;")],
+        "dQ: 2 K/V ring stages": [(_DQ_STAGES, "constexpr int kStages = 2;")],
+        "dQ: one qs/dout buffer, 4 K/V ring stages": [
+            (_DQ_QBUFS, "constexpr int kQBufs = 1;"),
+            (_DQ_STAGES, "constexpr int kStages = 4;")],
+        "dQ: q tiles one by one (no longest/shortest pairs)": [
+            ("      for_each_tile(n_qt, p.BH, [&](int bh, int qt) {",
+             "      one_by_one(n_qt, p.BH, [&](int bh, int qt) {"),
+            ("    for_each_tile(n_qt, p.BH, [&](int bh, int qt) {",
+             "    one_by_one(n_qt, p.BH, [&](int bh, int qt) {"),
+            ("using flash::for_each_tile;",
+             "template <typename F>\n"
+             "__device__ void one_by_one(int n_qt, int BH, F&& f) {\n"
+             "  for (int w = blockIdx.x; w < BH * n_qt; w += gridDim.x)\n"
+             "    f(w / n_qt, n_qt - 1 - w % n_qt);\n"
+             "}")],
+        "dQ: exp2f in place of ex2.approx.ftz": [
+            ("s[x] = keep ? flash::exp2_ftz(s[x] - l2r[h]) : 0.f;",
+             "s[x] = keep ? exp2f(s[x] - l2r[h]) : 0.f;")],
+        "dK/dV: exp2f in place of ex2.approx.ftz": [
+            (_BWD_EXP, "exp2f(e)")],
+        "dK/dV: one K/V item buffer": [
+            ("constexpr int kv_bufs(bool dq) { return dq ? 1 : 2; }",
+             "constexpr int kv_bufs(bool dq) { return 1; }")],
+        "dK/dV: items from a counter, longest first": [
+            ("      if constexpr (DQ) {\n"
+             "        // the next item from the counter",
+             "      if constexpr (true) {\n"
+             "        // the next item from the counter"),
+            ("  auto kernel = flash_bwd_fused_kernel<D, CAUSAL, false>;",
+             "  static int* counter = [] {\n"
+             "    void* c = nullptr;\n"
+             "    cudaMalloc(&c, sizeof(int));\n"
+             "    return static_cast<int*>(c);\n"
+             "  }();\n"
+             "  if ((err = cudaMemsetAsync(counter, 0, sizeof(int), stream)) "
+             "!= cudaSuccess)\n"
+             "    return err;\n"
+             "  auto kernel = flash_bwd_fused_kernel<D, CAUSAL, false>;"),
+            ("                 nullptr, nullptr, nullptr, nullptr,",
+             "                 nullptr, nullptr, counter, nullptr,"),
+            (_KV_GRID, "grid_blocks(BH * n_kt, &blocks)")],
+        "dK/dV: static round robin, longest first (no pairs)": [
+            (_KV_PAIRS, "        int n = 0;\n"
+                        "        for (int w = blockIdx.x; w < items; w += "
+                        "gridDim.x) {\n"
+                        "          claim(n);\n"
+                        "          produce(n++, w);\n"
+                        "        }"),
+            (_KV_GRID, "grid_blocks(BH * n_kt, &blocks)")],
     },
     "matmul": {
         "as built": [],
@@ -135,8 +202,9 @@ VARIANTS = {
 FLASH_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
                 (256, 256, 1024, False)]
 # flash_bwd: (BH, BHkv, S, causal) at D 128, the flagship's and the GQA
-# run's attention
-BWD_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True)]
+# run's attention, and one rank's causal block of the DP×SP step
+BWD_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
+              (256, 256, 256, True)]
 # matmul: (m, k, n), the bench's 4096^3
 MATMUL_SHAPES = [(4096, 4096, 4096)]
 # ring: (kernel, label, m, K, N) at tp 4 on the flagship (chip_smoke.py
@@ -250,15 +318,15 @@ def time_flash(lib: Path) -> str:
 
 
 def time_flash_bwd(lib: Path) -> str:
-    """One line: each shape's time, TF/s of the five products the mask
-    keeps and max abs error of dq, dk, dv against
-    ``flash_bwd_fused_ref``, beside the SDPA backward's time in the same
-    process."""
+    """One line: at each shape the times of the fused kernel, the dQ kernel
+    and the dK/dV kernel, the TF/s of the products the mask keeps (five,
+    three and four), the SDPA backward's time in the same process, and the
+    max abs error of each output against its plain version."""
     import torch
     import torch.nn.functional as TF
 
     from tpu_dra_torch.workloads import flash as F
-    fn = _bind(lib, "flash_bwd").tpu_dra_flash_bwd_fused
+    cdll = _bind(lib, "flash_bwd")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -270,21 +338,31 @@ def time_flash_bwd(lib: Path) -> str:
         out, l2 = F.flash_attn_fwd_ref(q, k, v, causal)
         qs = F._prescale(q).contiguous()
         dd = (do.float() * out.float()).sum(-1, keepdim=True)
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        args = (qs, k, v, do, l2, dd, causal)
+        got = [torch.empty_like(q) for _ in range(6)]  # fused, then split
         scratch = torch.empty(
             -(-F.fused_scratch_bytes(bh, s, s, 128) // 4), device="cuda")
-
-        def call():
-            _checked(fn(P(qs), P(k), P(v), P(do), P(l2), P(dd), P(dk), P(dv),
-                        P(scratch), P(dq), bh, bhkv, s, s, 128, int(causal),
-                        F.KV_BLOCK, 128 ** -0.5, stream))
-        call()
+        ptrs = (P(qs), P(k), P(v), P(do), P(l2), P(dd))
+        calls = {
+            "fused": lambda: _checked(cdll.tpu_dra_flash_bwd_fused(
+                *ptrs, P(got[1]), P(got[2]), P(scratch), P(got[0]), bh,
+                bhkv, s, s, 128, int(causal), F.KV_BLOCK, 128 ** -0.5,
+                stream)),
+            "dq": lambda: _checked(cdll.tpu_dra_flash_bwd_dq(
+                *ptrs, P(got[3]), bh, bhkv, s, s, 128, int(causal),
+                128 ** -0.5, stream)),
+            "dK/dV": lambda: _checked(cdll.tpu_dra_flash_bwd_dkdv(
+                *ptrs, P(got[4]), P(got[5]), bh, bhkv, s, s, 128,
+                int(causal), stream))}
+        for call in calls.values():
+            call()
         torch.cuda.synchronize()
-        want = F.flash_bwd_fused_ref(qs, k, v, do, l2, dd, causal)
+        want = [*F.flash_bwd_fused_ref(*args), F.flash_bwd_dq_ref(*args),
+                *F.flash_bwd_dkdv_ref(*args)]
         errs = [float((a.float() - b.float()).abs().max())
-                for a, b in zip((dq, dk, dv), want)]
+                for a, b in zip(got, want)]
         del want
-        us = _event_us(call)
+        us = {name: _event_us(call) for name, call in calls.items()}
         q4 = q.reshape(1, bh, s, 128).detach().requires_grad_()
         k4, v4 = (t.reshape(1, bhkv, s, 128).detach().requires_grad_()
                   for t in (k, v))
@@ -293,12 +371,17 @@ def time_flash_bwd(lib: Path) -> str:
         sdpa = _event_us(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), do.reshape(1, bh, s, 128), retain_graph=True))
         kept = s * (s + 1) // 2 if causal else s * s
-        parts.append(f"[{bh} over {bhkv}, {s}, 128] "
-                     f"{'causal' if causal else 'full'} {us:.1f} us "
-                     f"({10 * bh * kept * 128 / us / 1e6:.0f} TF/s; SDPA "
-                     f"backward {sdpa:.1f} us; max abs err dq, dk, dv "
-                     f"{', '.join(f'{e:.3g}' for e in errs)})")
-        del q, k, v, do, out, qs, dd, dq, dk, dv, scratch, q4, k4, v4, o4
+        rate = {name: n * 2 * bh * kept * 128 / us[name] / 1e6
+                for name, n in (("fused", 5), ("dq", 3), ("dK/dV", 4))}
+        parts.append(
+            f"[{bh} over {bhkv}, {s}, 128] {'causal' if causal else 'full'}: "
+            + ", ".join(f"{name} {us[name]:.1f} us ({rate[name]:.0f} TF/s)"
+                        for name in calls)
+            + f", pair {us['dq'] + us['dK/dV']:.1f} us; SDPA backward "
+            f"{sdpa:.1f} us; max abs err fused dq, dk, dv "
+            f"{', '.join(f'{e:.3g}' for e in errs[:3])}, split "
+            f"{', '.join(f'{e:.3g}' for e in errs[3:])}")
+        del q, k, v, do, out, qs, dd, got, scratch, q4, k4, v4, o4
     return "; ".join(parts)
 
 

@@ -14,16 +14,22 @@ Phases (each prints as it goes; any failed check exits non-zero):
   1. build every kernel (one nvcc per source, all at once); print the
      build times, the ptxas register/spill lines and the card's name and
      power limit (nvidia-smi); fail if ptxas reports spill bytes for the
-     flash forward kernel, the ring kernels or the split flash backward's
-     two kernels (or serializes wgmma in the last);
+     flash forward kernel, the ring kernels, the split flash backward's
+     two kernels, the RMSNorm-matmul's kernel or the paged attention's
+     kernels (or serializes wgmma in any of them but the last);
   2. paged attention: kernel vs plain version at the serving path's shapes
      (B=32, H=8, Hkv=2, Dh=128, ps=64, MP=16), scrambled pages, -1 tails,
-     lengths 0, 1, a page boundary, mid-page and the full MP*ps; bf16 pages
-     within rtol/atol 0.05, int8 pages within 0.08 (the reference's own
-     kernel-vs-oracle tolerances, tests/test_paged_kv.py), and every slot
-     within paged_kv.SLOT_REL_TOL relative L2 error;
+     lengths 0, 1, a page boundary, mid-page and the full MP*ps, and 4
+     slots at the full MP*ps; bf16 pages within rtol/atol 0.05, int8 pages
+     within 0.08 (the reference's own kernel-vs-oracle tolerances,
+     tests/test_paged_kv.py), and every slot within paged_kv.SLOT_REL_TOL
+     relative L2 error; a second call must give the same bits;
   3. time the paged kernel, the plain version and a library yardstick with
-     CUDA events at one decode step of a full 160-page pool;
+     CUDA events at one decode step of a full 160-page pool, and at 4 slots
+     of 1024 tokens (the kernel and the library call from CUDA graphs, so
+     the host's launch cost drops out); at both, the kernel's share of its
+     bound, its ratio to the library call and its time before the
+     split-page redesign;
   4. serve: start serve() on port 0 with the full-width model (vocab
      32768, d_model 1024, 8 heads over 2 kv heads, 8 layers, d_ff 4096,
      rope, bf16 weights from a seed), slots 32, chunk 8, page size 64, 160
@@ -55,7 +61,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
      unfused pair, two calls); then tpu_dra_torch.bench's
      section_pallas_matmul, the tiled matmul's path (launch counts), and
      the matmul's share of its bound, its ratio to torch.matmul and its
-     time before the wgmma redesign;
+     time before the wgmma redesign; the RMSNorm-matmul's share of its
+     bound, its ratio to the unfused pair and its time before its wgmma
+     redesign;
   8. train the flagship at full width (vocab 32768, d_model 2048, 16
      heads, 8 layers, d_ff 8192, max_seq 1024, learned positions; ~539 M
      fp32 parameters from a seed) on a synthetic token file: first one
@@ -172,9 +180,9 @@ FWD_BEFORE_US = {"flagship [256, 1024, 128]": "598.1-603.2",
                  "GQA run [64 over 16, 1024, 128]": "177.8-179.9"}
 # the fused flash backward's and the plain matmul's card times before their
 # TMA/wgmma redesign (the fused backward: per-tile dq slots on the mma.sync
-# dK/dV kernel; the matmul: the mma.sync mainloop of
-# csrc/gemm_common.cuh), phases 6 and 7 on an H100 80GB HBM3 at 700 W
-# (PERF.md §6)
+# dK/dV kernel; the matmul: the first version, an mma.sync m16n8k16
+# mainloop fed by ldmatrix, since deleted), phases 6 and 7 on an H100 80GB
+# HBM3 at 700 W (PERF.md §6)
 FUSED_BEFORE_US = {"flagship [256, 1024, 128]": "1897.4",
                    "GQA run [64 over 16, 1024, 128]": "539.7"}
 MATMUL_BEFORE_US = "481.2-492.7"
@@ -187,12 +195,27 @@ SPLIT_BEFORE_US = {
     "GQA run [64 over 16, 1024, 128]": "dq 202.0-207.6 us, dK/dV "
                                        "311.4-321.0 us"}
 # the ring matmuls' card time before their wgmma redesign (the first
-# version: the mma.sync mainloop of csrc/gemm_common.cuh), phase 12 on an
+# version: the mma.sync m16n8k16 mainloop, since deleted), phase 12 on an
 # H100 80GB HBM3 at 700 W (PERF.md §6)
 RING_BEFORE_US = {"all_gather_matmul wqkv": "1707.9-1717.1",
                   "all_gather_matmul w1": "2243.7-2414.7",
                   "matmul_reduce_scatter w2": "2435.4-2546.7",
                   "matmul_reduce_scatter wo": "975.8-1015.6"}
+# the RMSNorm-matmul's card time before its wgmma redesign (the first
+# version: the same mma.sync mainloop, 128 x 128 tiles, x normalised on its
+# way through registers into shared memory), phase 7 on an H100 80GB HBM3
+# at 700 W (PERF.md §6)
+NORM_BEFORE_US = {"rmsnorm_matmul ln1 -> wqkv": "2189.2-2321.7",
+                  "rmsnorm_matmul ln2 -> w1": "2883.9-3101.1"}
+# the paged attention's card time before its split-page redesign (the
+# first version: one block per (slot, kv head), 8 warps over 8-token tiles,
+# no copies in flight) on an H100 80GB HBM3 at 700 W (PERF.md §6): phase 3
+# timed it by a loop of launches, which the host's launch rate bounds;
+# `python -m tpu_dra_torch.kernels.variants paged --before` with the first
+# version's source timed it from a CUDA graph, as phase 3 now does
+PAGED_BEFORE_US = {"serving decode step [32 slots, lengths 257-320]":
+                   "20.5-21.9 (a loop of launches), 19.0-19.1 (a CUDA graph)",
+                   "4 slots at 1024 tokens": "47.6-47.8 (a CUDA graph)"}
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -231,6 +254,34 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn, iters: int = 200, reps: int = 5) -> float:
+    """Mean device time of ``fn()`` from a CUDA graph of ``iters`` calls
+    replayed ``reps`` times: the host's launch cost, which a loop of
+    launches measures for a kernel of a few microseconds, drops out.
+    ``fn`` must launch its work on the current stream."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel vs plain version
 # ---------------------------------------------------------------------------
@@ -264,10 +315,12 @@ def attention_case(gen, lengths, *, H=8, Hkv=2, Dh=128, P=160, ps=64,
 
 
 def check_kernel(gen) -> float:
-    """The kernel against its plain version on the same inputs, twice
-    over: elementwise within the reference's rtol/atol, and each slot
+    """The kernel against its plain version on the same inputs, at the
+    serving path's 32 slots and at 4 slots of the full context, bf16 and
+    int8 pages: elementwise within the reference's rtol/atol, each slot
     within SLOT_REL_TOL relative L2 error on its own scale (the outputs of
-    a long slot are too small for the elementwise bound to bind)."""
+    a long slot are too small for the elementwise bound to bind), and a
+    second call bit-equal to the first."""
     import torch
 
     from tpu_dra_torch.workloads.paged_kv import (SLOT_REL_TOL,
@@ -278,34 +331,43 @@ def check_kernel(gen) -> float:
     specials = [0, 1, ps, ps + 1, 100, MP * ps, 2 * ps - 1, 7 * ps + 33]
     rand = torch.randint(1, MP * ps + 1, (32 - len(specials),),
                          generator=gen, device=gen.device).tolist()
-    lengths = specials + rand
+    cases = {"32 slots": specials + rand,
+             "4 slots at the full context": [MP * ps] * 4}
     worst = 0.0
-    for quantized, tol in ((False, 0.05), (True, 0.08)):
-        args, extra = attention_case(gen, lengths, quantized=quantized)
-        got = paged_attention(*args, **extra)
-        torch.cuda.synchronize()
-        want = paged_attention_ref(*args, **extra)
-        gf, wf = got.float(), want.float()
-        err = float((gf - wf).abs().max())
-        ok = bool(torch.all((gf - wf).abs() <= tol + tol * wf.abs()))
-        rel = slot_rel_err(got, want)
-        b = int(rel.argmax())
-        rel_ok = float(rel.max()) <= SLOT_REL_TOL
-        if not torch.isfinite(gf).all():
-            fail("paged attention kernel produced non-finite values")
-        if not bool((gf[0] == 0).all()):
-            fail("zero-length slot did not give zeros")
-        kind = "int8" if quantized else "bf16"
-        log(f"[kernel] paged_attention {kind} pages: max |kernel - plain| "
-            f"= {err:.5f} (rtol/atol {tol}) -> {'ok' if ok else 'FAIL'}; "
-            f"worst slot relative L2 error {float(rel.max()):.5f} (slot "
-            f"{b}, length {lengths[b]}; median {float(rel.median()):.5f}; "
-            f"tolerance {SLOT_REL_TOL}) -> {'ok' if rel_ok else 'FAIL'}")
-        if not (ok and rel_ok):
-            fail(f"paged attention kernel disagrees with its plain version "
-                 f"({kind} pages, max abs err {err}, worst slot relative "
-                 f"error {float(rel.max())})")
-        worst = max(worst, err)
+    for label, lengths in cases.items():
+        for quantized, tol in ((False, 0.05), (True, 0.08)):
+            args, extra = attention_case(gen, lengths, quantized=quantized)
+            got = paged_attention(*args, **extra)
+            again = paged_attention(*args, **extra)
+            torch.cuda.synchronize()
+            want = paged_attention_ref(*args, **extra)
+            gf, wf = got.float(), want.float()
+            err = float((gf - wf).abs().max())
+            ok = bool(torch.all((gf - wf).abs() <= tol + tol * wf.abs()))
+            rel = slot_rel_err(got, want)
+            b = int(rel.argmax())
+            rel_ok = float(rel.max()) <= SLOT_REL_TOL
+            same = torch.equal(got, again)
+            if not torch.isfinite(gf).all():
+                fail("paged attention kernel produced non-finite values")
+            if 0 in lengths and not bool((gf[lengths.index(0)] == 0).all()):
+                fail("zero-length slot did not give zeros")
+            kind = "int8" if quantized else "bf16"
+            log(f"[kernel] paged_attention {label}, {kind} pages: max "
+                f"|kernel - plain| = {err:.5f} (rtol/atol {tol}) -> "
+                f"{'ok' if ok else 'FAIL'}; worst slot relative L2 error "
+                f"{float(rel.max()):.5f} (slot {b}, length {lengths[b]}; "
+                f"median {float(rel.median()):.5f}; tolerance "
+                f"{SLOT_REL_TOL}) -> {'ok' if rel_ok else 'FAIL'}; a second "
+                f"call bit-equal: {same}")
+            if not (ok and rel_ok):
+                fail(f"paged attention kernel disagrees with its plain "
+                     f"version ({label}, {kind} pages, max abs err {err}, "
+                     f"worst slot relative error {float(rel.max())})")
+            if not same:
+                fail(f"paged attention kernel: two calls differ ({label}, "
+                     f"{kind} pages)")
+            worst = max(worst, err)
     return worst
 
 
@@ -313,25 +375,34 @@ def check_kernel(gen) -> float:
 # phase 3: timing at one decode step of a full pool
 # ---------------------------------------------------------------------------
 
-def time_kernel(gen, n_layers: int) -> dict:
+# phase 3's shapes: (label, slots, shortest and longest length)
+PAGED_SHAPES = [("serving decode step [32 slots, lengths 257-320]", 32, 257,
+                 320),
+                ("4 slots at 1024 tokens", 4, 1024, 1024)]
+
+
+def time_kernel(gen, n_layers: int, B: int, lo: int, hi: int) -> dict:
     """Kernel, plain version and library yardstick at one decode step of
-    the served model: 32 slots sharing the full 160-page pool (5 pages
-    each, lengths in (256, 320]).  The kernel cycles through ``n_layers``
-    distinct layer pools, as one decode step does, so its pages come from
-    device memory rather than the 50 MB L2 cache."""
+    the served model: B slots with lengths in [lo, hi], each its pages
+    from a permutation of the 160-page pool (5 pages each at the serving
+    step's 32 slots; 16 at 4 slots of 1024 tokens).  The kernel cycles
+    through ``n_layers`` distinct layer pools, as one decode step does, so
+    its pages come from device memory rather than the 50 MB L2 cache."""
     import torch
     import torch.nn.functional as F
 
     from tpu_dra_torch.kernels.build import library
     from tpu_dra_torch.workloads.paged_kv import (_LOG2E, paged_attention,
-                                                  paged_attention_ref)
+                                                  paged_attention_ref,
+                                                  workspace_floats)
     dev = gen.device
-    B, H, Hkv, Dh, P, ps, MP = 32, 8, 2, 128, 160, 64, 16
-    lengths = torch.randint(4 * ps + 1, 5 * ps + 1, (B,), generator=gen,
-                            device=dev, dtype=torch.int32)
+    H, Hkv, Dh, P, ps, MP = 8, 2, 128, 160, 64, 16
+    npg = -(-hi // ps)                          # pages a slot
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
     perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
     table = torch.full((B, MP), -1, dtype=torch.int32, device=dev)
-    table[:, :5] = perm.reshape(B, 5)
+    table[:, :npg] = perm[:B * npg].reshape(B, npg)
     q = torch.randn((B, H, Dh), generator=gen, device=dev).to(torch.bfloat16)
     k_all = torch.randn((n_layers, Hkv, P, ps, Dh), generator=gen,
                         device=dev).to(torch.bfloat16)
@@ -343,7 +414,7 @@ def time_kernel(gen, n_layers: int) -> dict:
     qs = (q * float(torch.tensor(Dh ** -0.5 * _LOG2E,
                                  dtype=torch.bfloat16))).contiguous()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream().cuda_stream
+    ws = torch.empty(workspace_floats(B, H, Hkv, Dh, MP, ps), device=dev)
     layer = [0]
 
     def kernel():
@@ -351,7 +422,8 @@ def time_kernel(gen, n_layers: int) -> dict:
         rc = lib.tpu_dra_paged_attention(
             qs.data_ptr(), k_all[i].data_ptr(), v_all[i].data_ptr(), None,
             None, table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, Hkv, P, ps, Dh, MP, 0, stream)
+            ws.data_ptr(), B, H, Hkv, P, ps, Dh, MP, 0,
+            torch.cuda.current_stream().cuda_stream)
         if rc:
             fail(f"kernel launch failed with CUDA error {rc}")
 
@@ -366,8 +438,8 @@ def time_kernel(gen, n_layers: int) -> dict:
     # library yardstick: one PyTorch attention call over K/V already
     # gathered into contiguous [B, Hkv, S, Dh] — it leaves the page gather
     # out, so it is cheaper work than the kernel's; the port never calls it
-    S = 5 * ps
-    tab = table[:, :5].long()
+    S = npg * ps
+    tab = table[:, :npg].long()
     kg = [k_all[i][:, tab].permute(1, 0, 2, 3, 4).reshape(B, Hkv, S, Dh)
           .contiguous() for i in range(n_layers)]
     vg = [v_all[i][:, tab].permute(1, 0, 2, 3, 4).reshape(B, Hkv, S, Dh)
@@ -381,10 +453,15 @@ def time_kernel(gen, n_layers: int) -> dict:
         F.scaled_dot_product_attention(q4, kg[i], vg[i], attn_mask=mask,
                                        enable_gqa=True)
 
-    t = {"ms": cuda_time_ms(kernel, 400),
+    # the kernel and the library call from CUDA graphs (device time: at a
+    # few microseconds a call, a loop of launches measures the host's
+    # launch rate, given as loop_ms); the wrapper and the plain version
+    # as the path calls them
+    t = {"ms": cuda_graph_ms(kernel),
+         "loop_ms": cuda_time_ms(kernel, 400),
          "wrapper_ms": cuda_time_ms(wrapper, 200),
          "plain_ms": cuda_time_ms(plain, 40),
-         "library_ms": cuda_time_ms(library_call, 200)}
+         "library_ms": cuda_graph_ms(library_call)}
     live = int(lengths.sum())
     pages_read = int(((lengths + ps - 1) // ps).sum())
     nbytes = (2 * live * Hkv * Dh * 2          # live K and V rows, bf16
@@ -961,7 +1038,8 @@ def kernel_kind(name: str) -> str:
         return "flash kernels"
     if "ring_" in name:
         return "ring kernels (csrc/ring.cu)"
-    if "gemm_kernel" in name:
+    if any(k in name for k in ("rownorm_kernel", "matmul_sm90_kernel",
+                               "norm_sm90_kernel")):
         return "matmul kernels (csrc/matmul.cu)"
     if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmuls (cuBLAS)"
@@ -1280,14 +1358,15 @@ def time_matmul(gen) -> dict:
         x, g, w = matmul_inputs(gen, m, k, n, True)
         out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
         r = torch.empty(m, dtype=torch.float32, device=x.device)
+        xn = torch.empty_like(x)
         log(f"[time] {label}: the plain tiled matmul kernel alone at the "
             f"same shape takes "
             f"{cuda_time_ms(lambda: M.matmul(x, w), 30) * 1e3:.1f} us "
             f"(informational: the norm's share is the difference)")
         times[f"{label} [{m}, {k}] @ [{k}, {n}]"] = {
             "ms": cuda_time_ms(lambda: checked(lib.tpu_dra_rmsnorm_matmul(
-                P(x), P(g), P(w), P(r), P(out), m, n, k, M.EPS, stream)),
-                30),
+                P(x), P(g), P(w), P(r), P(xn), P(out), m, n, k, M.EPS,
+                stream)), 30),
             "wrapper_ms": cuda_time_ms(
                 lambda: M.fused_rmsnorm_matmul(x, g, w), 30),
             "plain_ms": cuda_time_ms(
@@ -1298,7 +1377,7 @@ def time_matmul(gen) -> dict:
             "library": "two calls: train._rmsnorm, then torch.matmul",
             **flash_bound(m * k * 2 + k * 4 + k * n * 2 + m * n * 2,
                           2 * m * k * n)}
-        del x, g, w, out
+        del x, g, w, out, xn
     return times
 
 
@@ -1403,6 +1482,18 @@ def log_matmul_summary(t: dict, benched: dict, card: str) -> None:
         f"torch.matmul's {t['library_ms'] * 1e3:.1f} us; "
         f"pallas_matmul_tflops {benched['pallas_matmul_tflops']}; before "
         f"the wgmma redesign {MATMUL_BEFORE_US} us; on {card}")
+
+
+def log_norm_summary(times: dict, card: str) -> None:
+    """The RMSNorm-matmul's share of its bound, its ratio to the unfused
+    pair and its time before the wgmma redesign, at both path shapes."""
+    for name, before in NORM_BEFORE_US.items():
+        t = next(v for k, v in times.items() if k.startswith(name))
+        log(f"[time] {name}: {t['ms'] * 1e3:.1f} us, "
+            f"{t['bound_ms'] / t['ms']:.3f} of its {t['bound_ms'] * 1e3:.1f} "
+            f"us bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x "
+            f"the unfused pair's {t['library_ms'] * 1e3:.1f} us; before the "
+            f"wgmma redesign {before} us; on {card}")
 
 
 def log_ring_summary(times: dict, card: str) -> None:
@@ -1900,6 +1991,8 @@ def main() -> int:
     # the split backward: the dQ kernel and the fused kernel with DQ = false
     check_spills(built["flash_bwd"], r"flash_bwd_dq_kernel|"
                  r"flash_bwd_fused_kernelILi\d+ELb[01]ELb0E")
+    check_spills(built["matmul"], r"norm_sm90_kernel")
+    check_spills(built["paged_attention"])
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")
@@ -1909,14 +2002,21 @@ def main() -> int:
     gen.manual_seed(SEED)
     with torch.no_grad():
         max_err = check_kernel(gen)
-        timing = time_kernel(gen, MODEL["n_layers"])
-    log(f"[time] paged_attention kernel {timing['ms'] * 1e3:.2f} us "
-        f"(through the Python wrapper {timing['wrapper_ms'] * 1e3:.2f} us), "
-        f"plain version {timing['plain_ms'] * 1e3:.2f} us, library "
-        f"yardstick (SDPA over pre-gathered K/V, gather excluded) "
-        f"{timing['library_ms'] * 1e3:.2f} us; bound "
-        f"{timing['bound_ms'] * 1e3:.2f} us by {timing['bound_by']} "
-        f"({timing['bytes']} B at 3.35 TB/s) on {card}")
+        paged_t = {label: time_kernel(gen, MODEL["n_layers"], B, lo, hi)
+                   for label, B, lo, hi in PAGED_SHAPES}
+    for label, t in paged_t.items():
+        log(f"[time] paged_attention at the {label}: kernel "
+            f"{t['ms'] * 1e3:.2f} us from a CUDA graph (a loop of launches "
+            f"{t['loop_ms'] * 1e3:.2f} us; through the Python wrapper "
+            f"{t['wrapper_ms'] * 1e3:.2f} us), plain version "
+            f"{t['plain_ms'] * 1e3:.2f} us, library yardstick (SDPA over "
+            f"pre-gathered K/V, gather excluded, from a CUDA graph) "
+            f"{t['library_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bytes']} B at 3.35 TB/s), {t['bound_ms'] / t['ms']:.3f} of "
+            f"it reached, {t['ms'] / t['library_ms']:.2f}x the library call; "
+            f"before the split-page redesign {PAGED_BEFORE_US[label]} us; on "
+            f"{card}")
+    timing = paged_t[PAGED_SHAPES[0][0]]
     served = serve_phase(gen)
     log(f"[time] paged_attention launches per decoded token: "
         f"{served['launches'] / max(1, served['decode_steps']):.2f}")
@@ -1947,6 +2047,7 @@ def main() -> int:
     log_times(mm_t, card)
     benched = bench_phase()
     log_matmul_summary(mm_t["matmul 4096^3"], benched, card)
+    log_norm_summary(mm_t, card)
 
     ring_err = check_ring(gen)
     with torch.no_grad():

@@ -71,6 +71,58 @@ def test_paged_attention_kernel_matches_plain(g, dh, quantized):
     assert bool((got[0] == 0).all())
 
 
+def _paged_case(dev, gen, lengths, g, dh, quantized, hkv=2, P=40, ps=64,
+                MP=16):
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    B = lengths.numel()
+    q = torch.randn((B, g * hkv, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((hkv, P, ps, dh), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    used = (lengths + ps - 1) // ps
+    pages = torch.randint(0, P, (B, MP), generator=gen, device=dev,
+                          dtype=torch.int32)
+    table = torch.where(torch.arange(MP, device=dev)[None] < used[:, None],
+                        pages, torch.full_like(pages, -1)).contiguous()
+    extra = {}
+    if quantized:
+        k, k_s = quantize_kv(k)
+        v, v_s = quantize_kv(v)
+        extra = dict(k_s=k_s, v_s=v_s)
+    return (q, k, v, table, lengths), extra
+
+
+def test_paged_attention_kernel_around_its_spans():
+    """The split-page kernel where its work items end: spans that end on a
+    page edge (lengths 64, 128, 256: one, two and four whole pages), one
+    slot of the full 1024 tokens, every slot at length 0, and int8 pages
+    at g 1 and 8; every case also called twice, bit-equal."""
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(91)
+    edge = [64, 128, 256, 127, 129, 192, 1, 0]
+    cases = [(edge, 4, 128, False), ([1024], 4, 128, False),
+             ([0] * 6, 4, 128, False), (edge, 1, 128, True),
+             (edge + [1024, 513], 8, 64, True), ([1024, 700], 1, 64, True)]
+    for lengths, g, dh, quantized in cases:
+        args, extra = _paged_case(dev, gen, lengths, g, dh, quantized)
+        before = tpk.paged_attention.launches
+        got = tpk.paged_attention(*args, **extra)
+        again = tpk.paged_attention(*args, **extra)
+        torch.cuda.synchronize()
+        assert tpk.paged_attention.launches == before + 2
+        assert torch.equal(got, again), (lengths, g, dh, quantized)
+        want = tpk.paged_attention_ref(*args, **extra)
+        tol = TOL[quantized]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        rel = tpk.slot_rel_err(got, want)
+        assert float(rel.max()) <= tpk.SLOT_REL_TOL, (lengths, rel)
+        for b, n in enumerate(lengths):
+            if n == 0:
+                assert bool((got[b] == 0).all())
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
     dev = card()
     q = torch.zeros((2, 4, 32), dtype=torch.bfloat16, device=dev)
@@ -510,6 +562,31 @@ def test_rmsnorm_matmul_kernel_matches_plain(mkn):
     torch.cuda.synchronize()
     assert tm.fused_rmsnorm_matmul.launches == before + 1
     _mm_close(got, tm.fused_rmsnorm_matmul_ref(x, g, w))
+
+
+def test_rmsnorm_matmul_kernel_around_the_wgmma_tiles():
+    """The norm kernel off its 128 x 256 tiles and 64-deep stages (within
+    the reference's tiling contract, so m and n below 256): m not a
+    multiple of 128 (a cluster's second row tile partly or wholly past M),
+    n not a multiple of 256, K 64 (one stage) and K 1032 (a last stage of 8
+    columns, whose gamma box is zero past K); each called twice, bit-equal."""
+    from tpu_dra_torch.workloads import matmul as tm
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1032)
+    for m, k, n in [(200, 64, 136), (130, 1032, 248), (77, 1032, 200),
+                    (256, 64, 256)]:
+        scale = torch.rand((m, 1), generator=gen, device=dev) * 8 + 0.01
+        x = (torch.randn((m, k), generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+        g = 1 + 0.2 * torch.randn((k,), generator=gen, device=dev)
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(
+            torch.bfloat16)
+        got = tm.fused_rmsnorm_matmul(x, g, w)
+        again = tm.fused_rmsnorm_matmul(x, g, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (m, k, n)
+        _mm_close(got, tm.fused_rmsnorm_matmul_ref(x, g, w))
 
 
 def test_rmsnorm_matmul_function_on_the_card_matches_the_plain_pair():

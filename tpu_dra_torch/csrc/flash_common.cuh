@@ -1,5 +1,5 @@
 // Small helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu) and the mma.sync GEMM mainloop of gemm_common.cuh: the
+// flash_bwd.cu) and the paged decode attention (paged_attention.cu): the
 // masked-score value, 2^x on the special-function unit, bf16 packing, the
 // row reductions of a wgmma / mma accumulator fragment, one mma.sync
 // product, the persistent walk of q-tile pairs, and the shared-memory

@@ -39,6 +39,7 @@ SIGNATURES = {
     "paged_attention": {
         "tpu_dra_paged_attention": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P,   # q k v k_s v_s tab len out
+                 _P,                               # ws
                  _I, _I, _I, _I, _I, _I, _I, _I,   # B H Hkv P ps Dh MP quant
                  _P]),                             # stream
         "tpu_dra_cuda_error_string": _ERR,
@@ -73,7 +74,7 @@ SIGNATURES = {
                  _I, _I, _I,                       # M N K
                  _P]),                             # stream
         "tpu_dra_rmsnorm_matmul": (
-            _I, [_P, _P, _P, _P, _P,               # x gamma w r out
+            _I, [_P, _P, _P, _P, _P, _P,           # x gamma w r xn out
                  _I, _I, _I, _F,                   # M N K eps
                  _P]),                             # stream
         "tpu_dra_cuda_error_string": _ERR,

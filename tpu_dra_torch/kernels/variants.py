@@ -1,18 +1,25 @@
 """Time variants of the redesigned kernels on the card (the flash forward,
 the flash backward: the fused kernel and the split pair, the plain matmul
-and the ring matmuls), to show what each part of their designs buys.
+and the RMSNorm-matmul, the ring matmuls, the paged decode attention), to
+show what each part of their designs buys.
 
 A variant is a source (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-``csrc/matmul.cu`` or ``csrc/ring.cu``) with
+``csrc/matmul.cu``, ``csrc/ring.cu`` or ``csrc/paged_attention.cu``) with
 named text substitutions (the source as it stands is the first).  Each is
 built with the port's nvcc flags into ``tpu_dra_torch/_build/variants/``,
 held to the plain version (max abs error) and timed through its C entry
-with CUDA events at the training paths' shapes, each in a process of its
-own under a time limit, so a variant that hangs costs only its limit.
-Needs one CUDA card:
+with CUDA events at the paths' shapes, each in a process of its own under
+a time limit, so a variant that hangs costs only its limit.  Needs one
+CUDA card:
 
     python -m tpu_dra_torch.kernels.variants            # every set
     python -m tpu_dra_torch.kernels.variants flash_bwd  # or some of them
+    python -m tpu_dra_torch.kernels.variants paged --before OLD.cu
+
+``--before`` adds another paged-attention source with the C entry of the
+kernel's first version (no workspace argument), timed beside the variants
+in the same run: the source of an earlier commit, unpacked with ``git
+archive``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,15 @@ from tpu_dra_torch.kernels import build
 OUT_DIR = build.BUILD_DIR / "variants"
 _RING_CONFIG = "using RingConfig = Config<256, 4, 2>;"
 _MATMUL_CONFIG = "using MatmulConfig = Config<256, 4, 2>;"
+_NORM_CONFIG = "using NormConfig = Config<256, 4, 2, 256>;"
+_PAGED_SPAN = "constexpr int kSpanTokens = 128;"
+_NORM_DESIGN = "constexpr Norm kNorm = Norm::kUnfused;"
+_NORM_MATH = """      a[kk][0] = norm_pair(a[kk][0], r0, g0);
+      a[kk][1] = norm_pair(a[kk][1], r1, g0);
+      a[kk][2] = norm_pair(a[kk][2], r0, g1);
+      a[kk][3] = norm_pair(a[kk][3], r1, g1);
+"""
+_PAGED_STAGES = "constexpr int kStages = 3;"
 _BWD_WALK = """const int g0 = w / (kGroup * p.n_kt) * kGroup, gs = min(kGroup, p.BH - g0);
   const int bh = g0 + (w - g0 * p.n_kt) % gs, kt = (w - g0 * p.n_kt) / gs;"""
 _BWD_SPIN = """            for (int spin = 0; ld_acquire_gpu(flag) != pos; ++spin)
@@ -146,6 +162,16 @@ VARIANTS = {
             (_MATMUL_CONFIG, "using MatmulConfig = Config<128, 6, 2>;")],
         "tile 128x128, 6 stages, clusters of 1": [
             (_MATMUL_CONFIG, "using MatmulConfig = Config<128, 6, 1>;")],
+        "norm (a): fused, the norm in the consumers' registers": [
+            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRegisters;")],
+        "norm (a), tile 128x128, 6 stages": [
+            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRegisters;"),
+            (_NORM_CONFIG, "using NormConfig = Config<128, 6, 2, 256>;")],
+        "norm (a) without the norm's arithmetic (timing only; wrong)": [
+            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRegisters;"),
+            (_NORM_MATH, "")],
+        "norm (b): fused, producer warps 1-3 rewrite each x box in place": [
+            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRewrite;")],
     },
     "ring": {
         "as built": [],
@@ -196,6 +222,22 @@ VARIANTS = {
               tma_store_5d""", """            if (t == n - 1)
               tma_store_5d""")],
     },
+    "paged": {
+        "as built": [],
+        "spans of 1 page (64 tokens)": [
+            (_PAGED_SPAN, "constexpr int kSpanTokens = 64;")],
+        "spans of 4 pages (256 tokens)": [
+            (_PAGED_SPAN, "constexpr int kSpanTokens = 256;")],
+        "2 copy stages": [(_PAGED_STAGES, "constexpr int kStages = 2;")],
+        "tiles of 32 tokens": [
+            ("constexpr int kTile = 64;", "constexpr int kTile = 32;")],
+        "scores on the CUDA cores (not mma.sync)": [
+            ("constexpr bool kMmaScores = true;",
+             "constexpr bool kMmaScores = false;")],
+        "the merge launched after the spans (no programmatic launch)": [
+            ("constexpr bool kEarlyMerge = true;",
+             "constexpr bool kEarlyMerge = false;")],
+    },
 }
 # flash_fwd: (BH, BHkv, S, causal) at D 128: the flagship's and the GQA
 # run's attention, and the flagship's without the mask
@@ -205,17 +247,32 @@ FLASH_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
 # run's attention, and one rank's causal block of the DP×SP step
 BWD_SHAPES = [(256, 256, 1024, True), (64, 16, 1024, True),
               (256, 256, 256, True)]
-# matmul: (m, k, n), the bench's 4096^3
+# matmul: (m, k, n), the bench's 4096^3; the RMSNorm-matmul at the
+# flagship's ln1 -> wqkv and ln2 -> w1
 MATMUL_SHAPES = [(4096, 4096, 4096)]
+NORM_SHAPES = [(16384, 2048, 6144), (16384, 2048, 8192)]
 # ring: (kernel, label, m, K, N) at tp 4 on the flagship (chip_smoke.py
 # phase 12)
 RING_SHAPES = [("ag", "wqkv", 4096, 2048, 1536), ("ag", "w1", 4096, 2048, 2048),
                ("rs", "w2", 4096, 2048, 2048), ("rs", "wo", 4096, 512, 2048)]
+# paged: (B, shortest, longest length) at H 8 over Hkv 2, Dh 128, 64-token
+# pages, 16 table columns, a 160-page pool a layer: the serving path's
+# decode step, and 4 slots at the full 1024 tokens (chip_smoke.py phase 3)
+PAGED_SHAPES = [(32, 257, 320), (4, 1024, 1024)]
+PAGED_LAYERS = 8
+# the largest workspace any variant takes (spans of 64 tokens)
+PAGED_MIN_SPAN = 64
 TIME_LIMIT_S = 120
 
 
+# the source of each set of variants
+SOURCES = {"paged": "paged_attention"}
+# the name of the first version's source given with --before
+BEFORE = "first version (--before)"
+
+
 def _source(kernel: str, name: str) -> Path:
-    src = (build.CSRC_DIR / f"{kernel}.cu").read_text()
+    src = (build.CSRC_DIR / f"{SOURCES.get(kernel, kernel)}.cu").read_text()
     for old, new in VARIANTS[kernel][name]:
         if old not in src:
             raise ValueError(f"variant {name!r}: {old!r} not in the source")
@@ -228,13 +285,17 @@ def _source(kernel: str, name: str) -> Path:
     return path
 
 
-def build_variants(kernels) -> dict[tuple[str, str], Path]:
-    """Every variant's library (one nvcc each, all at once); prints each
-    build's ptxas spill lines."""
+def build_variants(kernels, before=None) -> dict[tuple[str, str], Path]:
+    """Every variant's library (one nvcc each, all at once), and the
+    ``before`` source's; prints each build's ptxas spill lines."""
     procs = {}
     for kernel in kernels:
         for name in VARIANTS[kernel]:
-            src = _source(kernel, name)
+            if name == BEFORE:
+                src = OUT_DIR / "paged-before.cu"
+                src.write_text(Path(before).read_text())
+            else:
+                src = _source(kernel, name)
             lib = src.with_suffix(".so")
             procs[kernel, name] = (lib, subprocess.Popen(
                 [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -268,9 +329,38 @@ def _event_us(call, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters * 1e3
 
 
+def _graph_us(call, iters: int = 200, reps: int = 5) -> float:
+    """Device time per call of ``call`` from a CUDA graph of ``iters``
+    calls replayed ``reps`` times: the host's launch cost drops out, which
+    a loop of launches would measure for a kernel of a few microseconds.
+    ``call`` must launch on the current stream."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps) * 1e3
+
+
 def _bind(lib: Path, kernel: str):
     cdll = ctypes.CDLL(str(lib))
-    for fn, (restype, argtypes) in build.SIGNATURES[kernel].items():
+    for fn, (restype, argtypes) in build.SIGNATURES[
+            SOURCES.get(kernel, kernel)].items():
         f = getattr(cdll, fn)
         f.restype, f.argtypes = restype, argtypes
     return cdll
@@ -387,11 +477,16 @@ def time_flash_bwd(lib: Path) -> str:
 
 def time_matmul(lib: Path) -> str:
     """One line: each shape's time, TF/s and max abs error against
-    ``matmul_ref``, beside ``torch.matmul`` in the same process."""
+    ``matmul_ref``, beside ``torch.matmul`` in the same process; then at
+    the RMSNorm-matmul's shapes its C entry (the design this source builds,
+    the row-norm pass included), beside the unfused pair of PyTorch
+    calls."""
     import torch
 
     from tpu_dra_torch.workloads import matmul as M
-    fn = _bind(lib, "matmul").tpu_dra_matmul
+    from tpu_dra_torch.workloads.train import _rmsnorm
+    cdll = _bind(lib, "matmul")
+    fn = cdll.tpu_dra_matmul
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -412,6 +507,112 @@ def time_matmul(lib: Path) -> str:
         parts.append(f"[{m}, {k}] @ [{k}, {n}] {us:.1f} us "
                      f"({2 * m * k * n / us / 1e6:.0f} TF/s; torch.matmul "
                      f"{lib_us:.1f} us; max abs err {err:.3g})")
+        del x, w, out
+    P = lambda t: t.data_ptr()      # noqa: E731
+    for m, k, n in NORM_SHAPES:
+        x = (torch.randn((m, k), generator=gen, device="cuda")
+             * (torch.rand((m, 1), generator=gen, device="cuda") * 4 + 0.05)
+             ).to(torch.bfloat16)
+        g = 1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        r = torch.empty(m, device="cuda")
+        xn = torch.empty_like(x)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+
+        def call():
+            _checked(cdll.tpu_dra_rmsnorm_matmul(
+                P(x), P(g), P(w), P(r), P(xn), P(out), m, n, k, M.EPS,
+                stream))
+        call()
+        torch.cuda.synchronize()
+        err = float((out.float() - M.fused_rmsnorm_matmul_ref(x, g, w)
+                     .float()).abs().max())
+        us = _event_us(call)
+        pair = _event_us(lambda: torch.matmul(_rmsnorm(x, g), w))
+        parts.append(
+            f"rmsnorm [{m}, {k}] @ [{k}, {n}] {us:.1f} us "
+            f"({2 * m * k * n / us / 1e6:.0f} TF/s, max abs err {err:.3g}; "
+            f"the unfused pair _rmsnorm, torch.matmul {pair:.1f} us)")
+        del x, w, xn, out
+    return "; ".join(parts)
+
+
+def paged_case(gen, B: int, lo: int, hi: int, layers: int):
+    """One decode step's inputs on the card: lengths in [lo, hi], each slot
+    its pages from a permutation of the pool, -1 past them, and ``layers``
+    pools of K and V pages, so that timing cycles through them and reads
+    its pages from device memory rather than the 50 MB L2 cache."""
+    import torch
+    Hkv, H, Dh, P, ps, MP = 2, 8, 128, 160, 64, 16
+    lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    need = (lengths + ps - 1) // ps
+    perm = torch.randperm(P, generator=gen, device="cuda").to(torch.int32)
+    table = torch.full((B, MP), -1, dtype=torch.int32, device="cuda")
+    first = 0
+    for b, n in enumerate(need.tolist()):
+        table[b, :n] = perm[first:first + n]
+        first += n
+    q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv = [torch.randn((layers, Hkv, P, ps, Dh), generator=gen,
+                      device="cuda").to(torch.bfloat16) for _ in range(2)]
+    return q, kv, table, lengths
+
+
+def time_paged(lib: Path, before: bool = False) -> str:
+    """One line: at each of PAGED_SHAPES the C entry's device time (the
+    spans and their merge) from a CUDA graph of its calls, cycling through
+    PAGED_LAYERS layers' pools, its share of the bytes bound, the time of
+    a loop of the same calls (the host's launch rate bounds it), and the
+    max abs error and worst slot error against ``paged_attention_ref``;
+    ``before``: a first-version source, whose C entry takes no
+    workspace."""
+    import torch
+
+    from tpu_dra_torch.workloads import paged_kv as pk
+    fn = _bind(lib, "paged").tpu_dra_paged_attention
+    if before:
+        fn.argtypes = fn.argtypes[:8] + fn.argtypes[9:]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    parts = []
+    for B, lo, hi in PAGED_SHAPES:
+        q, (k, v), table, lengths = paged_case(gen, B, lo, hi, PAGED_LAYERS)
+        qs = (q * pk.weak_scalar(128 ** -0.5 * pk._LOG2E, q.dtype)
+              ).contiguous()
+        out = torch.empty_like(q)
+        ws = torch.empty(B * 2 * -(-16 * 64 // PAGED_MIN_SPAN) * 4 * 130,
+                         device="cuda")
+        layer = [0]
+
+        def call():
+            i = layer[0] = (layer[0] + 1) % PAGED_LAYERS
+            args = [qs.data_ptr(), k[i].data_ptr(), v[i].data_ptr(), None,
+                    None, table.data_ptr(), lengths.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), B, 8, 2, 160, 64, 128, 16,
+                    0, torch.cuda.current_stream().cuda_stream]
+            if before:
+                del args[8]
+            _checked(fn(*args))
+        layer[0] = -1
+        call()
+        torch.cuda.synchronize()
+        want = pk.paged_attention_ref(q, k[0], v[0], table, lengths)
+        err = float((out.float() - want.float()).abs().max())
+        rel = float(pk.slot_rel_err(out, want).max())
+        us = _graph_us(call)
+        loop = _event_us(call, 400)
+        live = int(lengths.sum())
+        nbytes = (2 * live * 2 * 128 * 2 + 2 * B * 8 * 128 * 2
+                  + int(((lengths + 63) // 64).sum()) * 4 + B * 4)
+        bound = nbytes / 3.35e12 * 1e6
+        parts.append(f"B {B}, lengths {lo}-{hi}: {us:.2f} us ({bound / us:.3f} "
+                     f"of the {bound:.2f} us bound; a loop of launches "
+                     f"{loop:.2f} us; max abs err {err:.3g}, worst slot "
+                     f"{rel:.4f})")
+        del q, k, v, ws
     return "; ".join(parts)
 
 
@@ -474,16 +675,20 @@ def time_ring(lib: Path) -> str:
 
 
 TIMERS = {"flash_fwd": time_flash, "flash_bwd": time_flash_bwd,
-          "matmul": time_matmul, "ring": time_ring}
+          "matmul": time_matmul, "ring": time_ring, "paged": time_paged,
+          BEFORE: lambda lib: time_paged(lib, before=True)}
 
 
-def main(kernels) -> int:
-    libs = build_variants(kernels)
+def main(kernels, before=None) -> int:
+    if before is not None:
+        VARIANTS["paged"][BEFORE] = []
+    libs = build_variants(kernels, before)
     for (kernel, name), lib in libs.items():
+        timer = BEFORE if name == BEFORE else kernel
         try:
             res = subprocess.run(
                 [sys.executable, "-m", "tpu_dra_torch.kernels.variants",
-                 "--time", kernel, str(lib)], capture_output=True, text=True,
+                 "--time", timer, str(lib)], capture_output=True, text=True,
                 timeout=TIME_LIMIT_S)
             line = res.stdout.strip() or f"failed: {res.stderr[-600:]}"
         except subprocess.TimeoutExpired:
@@ -500,4 +705,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
         print(TIMERS[sys.argv[2]](Path(sys.argv[3])), flush=True)
         sys.exit(0)
-    sys.exit(main(sys.argv[1:] or list(VARIANTS)))
+    args = sys.argv[1:]
+    old = None
+    if "--before" in args:
+        i = args.index("--before")
+        old = args[i + 1]
+        del args[i:i + 2]
+    sys.exit(main(args or list(VARIANTS), old))

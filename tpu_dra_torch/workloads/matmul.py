@@ -133,9 +133,10 @@ def fused_rmsnorm_matmul(x, gamma, w, *, bm: int = 256, bn: int = 256,
     tile evenly by ``bm`` and ``bn``, each capped at its dimension.
 
     CPU tensors take :func:`fused_rmsnorm_matmul_ref`.  CUDA tensors
-    launch the norm kernel of ``csrc/matmul.cu`` (row #8: a row-norm pass,
-    then the GEMM that normalises x on its way in) or raise; each launch
-    adds one to ``fused_rmsnorm_matmul.launches``."""
+    launch the norm kernels of ``csrc/matmul.cu`` (row #8: a row-norm pass
+    that writes normed x to a scratch the size of x, then the tiled
+    matmul on it) or raise; each call adds one to
+    ``fused_rmsnorm_matmul.launches``."""
     m, k, n = _dims(x, w)
     if gamma.shape != (k,):
         raise ValueError(f"gamma must be [{k}], got {tuple(gamma.shape)}")
@@ -148,9 +149,10 @@ def fused_rmsnorm_matmul(x, gamma, w, *, bm: int = 256, bn: int = 256,
     lib = library("matmul")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     r = torch.empty(m, dtype=torch.float32, device=x.device)   # row norms
+    xn = torch.empty_like(x)                                   # normed x
     rc = lib.tpu_dra_rmsnorm_matmul(
         x.data_ptr(), g32.data_ptr(), w.data_ptr(), r.data_ptr(),
-        out.data_ptr(), m, n, k, eps,
+        xn.data_ptr(), out.data_ptr(), m, n, k, eps,
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(lib, rc, "rmsnorm_matmul")
     fused_rmsnorm_matmul.launches += 1

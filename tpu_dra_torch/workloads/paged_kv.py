@@ -289,6 +289,21 @@ def paged_attention_ref(q, k_pages, v_pages, table, lengths, k_s=None,
     return out.reshape(B, qh, d).to(torch.bfloat16)
 
 
+# Tokens of one work item of the CUDA kernel (``kSpanTokens`` in
+# ``csrc/paged_attention.cu``): each (slot, kv head) is cut into
+# ``ceil(MP * ps / SPAN_TOKENS)`` spans whose fp32 partials go through a
+# workspace that the wrapper allocates.
+SPAN_TOKENS = 128
+
+
+def workspace_floats(B: int, H: int, Hkv: int, Dh: int, MP: int,
+                     ps: int) -> int:
+    """fp32 elements of the kernel's workspace: per (slot, kv head, span)
+    the g = H / Hkv rows' partial output [g, Dh], running max and sum."""
+    spans = -(-MP * ps // SPAN_TOKENS)
+    return B * Hkv * spans * (H // Hkv) * (Dh + 2)
+
+
 # How the CUDA kernel is held to ``paged_attention_ref``.  The two round
 # at different points (the kernel's bf16 pre-scaled q above all), so a
 # slot's outputs differ by about 1% of their norm.  A long slot's outputs
@@ -367,8 +382,9 @@ def paged_attention(q, k_pages, v_pages, table, lengths, k_s=None,
     Returns [B, H, Dh] bf16; a zero-length slot gives zeros.
 
     CPU tensors take the plain version.  CUDA tensors launch the
-    hand-written kernel (``csrc/paged_attention.cu``) or raise; each
-    launch adds one to ``paged_attention.launches``."""
+    hand-written kernels (``csrc/paged_attention.cu``: the spans of each
+    slot, then their merge) or raise; each call adds one to
+    ``paged_attention.launches``."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, table, lengths,
                                    k_s, v_s)
@@ -384,13 +400,16 @@ def paged_attention(q, k_pages, v_pages, table, lengths, k_s=None,
     # reference's wrapper does (its scalar is bf16-rounded by weak typing)
     qs = (q * weak_scalar(d ** -0.5 * _LOG2E, q.dtype)).contiguous()
     out = torch.empty((B, qh, d), dtype=torch.bfloat16, device=q.device)
+    MP = table.shape[1]
+    ws = torch.empty(workspace_floats(B, qh, hkv, d, MP, ps),
+                     dtype=torch.float32, device=q.device)
     quantized = k_s is not None
     rc = lib.tpu_dra_paged_attention(
         qs.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_s.data_ptr() if quantized else None,
         v_s.data_ptr() if quantized else None,
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, qh, hkv, P, ps, d, table.shape[1], int(quantized),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        B, qh, hkv, P, ps, d, MP, int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         msg = lib.tpu_dra_cuda_error_string(rc).decode()

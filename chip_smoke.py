@@ -26,10 +26,10 @@ Phases (each prints as it goes; any failed check exits non-zero):
      relative L2 error; a second call must give the same bits;
   3. time the paged kernel, the plain version and a library yardstick with
      CUDA events at one decode step of a full 160-page pool, and at 4 slots
-     of 1024 tokens (the kernel and the library call from CUDA graphs, so
-     the host's launch cost drops out); at both, the kernel's share of its
-     bound, its ratio to the library call and its time before the
-     split-page redesign;
+     of 1024 tokens, by a loop of launches (the kernel and the library
+     call also from CUDA graphs, where the host's launch cost drops out);
+     at both, the kernel's share of its bound, its ratio to the library
+     call and its time before the split-page redesign;
   4. serve: start serve() on port 0 with the full-width model (vocab
      32768, d_model 1024, 8 heads over 2 kv heads, 8 layers, d_ff 4096,
      rope, bf16 weights from a seed), slots 32, chunk 8, page size 64, 160
@@ -209,13 +209,14 @@ NORM_BEFORE_US = {"rmsnorm_matmul ln1 -> wqkv": "2189.2-2321.7",
                   "rmsnorm_matmul ln2 -> w1": "2883.9-3101.1"}
 # the paged attention's card time before its split-page redesign (the
 # first version: one block per (slot, kv head), 8 warps over 8-token tiles,
-# no copies in flight) on an H100 80GB HBM3 at 700 W (PERF.md §6): phase 3
-# timed it by a loop of launches, which the host's launch rate bounds;
+# no copies in flight) on an H100 80GB HBM3 at 700 W (PERF.md §6): at the
+# serving step phase 3's loop of launches; at 4 slots of 1024 tokens
 # `python -m tpu_dra_torch.kernels.variants paged --before` with the first
-# version's source timed it from a CUDA graph, as phase 3 now does
+# version's source (a loop of launches, then a CUDA graph)
 PAGED_BEFORE_US = {"serving decode step [32 slots, lengths 257-320]":
                    "20.5-21.9 (a loop of launches), 19.0-19.1 (a CUDA graph)",
-                   "4 slots at 1024 tokens": "47.6-47.8 (a CUDA graph)"}
+                   "4 slots at 1024 tokens":
+                   "48.7-49.4 (a loop of launches), 47.5-48.1 (a CUDA graph)"}
 # (prompt length, steps) of the served requests
 REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
             (100, 77), (128, 128)]
@@ -314,13 +315,14 @@ def attention_case(gen, lengths, *, H=8, Hkv=2, Dh=128, P=160, ps=64,
     return (q, k, v, table.contiguous(), lengths), extra
 
 
-def check_kernel(gen) -> float:
+def check_kernel(gen, full_gen) -> float:
     """The kernel against its plain version on the same inputs, at the
-    serving path's 32 slots and at 4 slots of the full context, bf16 and
-    int8 pages: elementwise within the reference's rtol/atol, each slot
-    within SLOT_REL_TOL relative L2 error on its own scale (the outputs of
-    a long slot are too small for the elementwise bound to bind), and a
-    second call bit-equal to the first."""
+    serving path's 32 slots (inputs from ``gen``) and at 4 slots of the
+    full context (from ``full_gen``), bf16 and int8 pages: elementwise
+    within the reference's rtol/atol, each slot within SLOT_REL_TOL
+    relative L2 error on its own scale (the outputs of a long slot are too
+    small for the elementwise bound to bind), and a second call bit-equal
+    to the first."""
     import torch
 
     from tpu_dra_torch.workloads.paged_kv import (SLOT_REL_TOL,
@@ -331,12 +333,12 @@ def check_kernel(gen) -> float:
     specials = [0, 1, ps, ps + 1, 100, MP * ps, 2 * ps - 1, 7 * ps + 33]
     rand = torch.randint(1, MP * ps + 1, (32 - len(specials),),
                          generator=gen, device=gen.device).tolist()
-    cases = {"32 slots": specials + rand,
-             "4 slots at the full context": [MP * ps] * 4}
+    cases = {"32 slots": (gen, specials + rand),
+             "4 slots at the full context": (full_gen, [MP * ps] * 4)}
     worst = 0.0
-    for label, lengths in cases.items():
+    for label, (g, lengths) in cases.items():
         for quantized, tol in ((False, 0.05), (True, 0.08)):
-            args, extra = attention_case(gen, lengths, quantized=quantized)
+            args, extra = attention_case(g, lengths, quantized=quantized)
             got = paged_attention(*args, **extra)
             again = paged_attention(*args, **extra)
             torch.cuda.synchronize()
@@ -415,15 +417,15 @@ def time_kernel(gen, n_layers: int, B: int, lo: int, hi: int) -> dict:
                                  dtype=torch.bfloat16))).contiguous()
     out = torch.empty_like(q)
     ws = torch.empty(workspace_floats(B, H, Hkv, Dh, MP, ps), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
     layer = [0]
 
-    def kernel():
+    def kernel(stream=stream):
         i = layer[0] = (layer[0] + 1) % n_layers
         rc = lib.tpu_dra_paged_attention(
             qs.data_ptr(), k_all[i].data_ptr(), v_all[i].data_ptr(), None,
             None, table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), B, H, Hkv, P, ps, Dh, MP, 0,
-            torch.cuda.current_stream().cuda_stream)
+            ws.data_ptr(), B, H, Hkv, P, ps, Dh, MP, 0, stream)
         if rc:
             fail(f"kernel launch failed with CUDA error {rc}")
 
@@ -453,15 +455,17 @@ def time_kernel(gen, n_layers: int, B: int, lo: int, hi: int) -> dict:
         F.scaled_dot_product_attention(q4, kg[i], vg[i], attn_mask=mask,
                                        enable_gqa=True)
 
-    # the kernel and the library call from CUDA graphs (device time: at a
-    # few microseconds a call, a loop of launches measures the host's
-    # launch rate, given as loop_ms); the wrapper and the plain version
-    # as the path calls them
-    t = {"ms": cuda_graph_ms(kernel),
-         "loop_ms": cuda_time_ms(kernel, 400),
+    # every call as a loop of launches, the way the served step launches
+    # them (at a few microseconds a call the host's launch rate may bound
+    # it); the kernel and the library call also from CUDA graphs, where
+    # the host's launch cost drops out (graph_ms, library_graph_ms)
+    t = {"ms": cuda_time_ms(kernel, 400),
          "wrapper_ms": cuda_time_ms(wrapper, 200),
          "plain_ms": cuda_time_ms(plain, 40),
-         "library_ms": cuda_graph_ms(library_call)}
+         "library_ms": cuda_time_ms(library_call, 200),
+         "graph_ms": cuda_graph_ms(
+             lambda: kernel(torch.cuda.current_stream().cuda_stream)),
+         "library_graph_ms": cuda_graph_ms(library_call)}
     live = int(lengths.sum())
     pages_read = int(((lengths + ps - 1) // ps).sum())
     nbytes = (2 * live * Hkv * Dh * 2          # live K and V rows, bf16
@@ -1991,7 +1995,7 @@ def main() -> int:
     # the split backward: the dQ kernel and the fused kernel with DQ = false
     check_spills(built["flash_bwd"], r"flash_bwd_dq_kernel|"
                  r"flash_bwd_fused_kernelILi\d+ELb[01]ELb0E")
-    check_spills(built["matmul"], r"norm_sm90_kernel")
+    check_spills(built["matmul"])
     check_spills(built["paged_attention"])
     card = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
@@ -2001,21 +2005,28 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     with torch.no_grad():
-        max_err = check_kernel(gen)
-        paged_t = {label: time_kernel(gen, MODEL["n_layers"], B, lo, hi)
+        # the full-context cases draw from a generator of their own, so
+        # that every other phase's inputs come from `gen` as before
+        full_gen = torch.Generator(device="cuda")
+        full_gen.manual_seed(SEED + 1)
+        max_err = check_kernel(gen, full_gen)
+        paged_t = {label: time_kernel(gen if B == 32 else full_gen,
+                                      MODEL["n_layers"], B, lo, hi)
                    for label, B, lo, hi in PAGED_SHAPES}
     for label, t in paged_t.items():
-        log(f"[time] paged_attention at the {label}: kernel "
-            f"{t['ms'] * 1e3:.2f} us from a CUDA graph (a loop of launches "
-            f"{t['loop_ms'] * 1e3:.2f} us; through the Python wrapper "
-            f"{t['wrapper_ms'] * 1e3:.2f} us), plain version "
-            f"{t['plain_ms'] * 1e3:.2f} us, library yardstick (SDPA over "
-            f"pre-gathered K/V, gather excluded, from a CUDA graph) "
-            f"{t['library_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
-            f"({t['bytes']} B at 3.35 TB/s), {t['bound_ms'] / t['ms']:.3f} of "
-            f"it reached, {t['ms'] / t['library_ms']:.2f}x the library call; "
-            f"before the split-page redesign {PAGED_BEFORE_US[label]} us; on "
-            f"{card}")
+        log(f"[time] paged_attention at the {label}: a loop of launches "
+            f"{t['ms'] * 1e3:.2f} us ({t['bound_ms'] / t['ms']:.3f} of the "
+            f"bound, {t['ms'] / t['library_ms']:.2f}x the library call's "
+            f"{t['library_ms'] * 1e3:.2f} us); from a CUDA graph "
+            f"{t['graph_ms'] * 1e3:.2f} us ({t['bound_ms'] / t['graph_ms']:.3f}"
+            f" of the bound, {t['graph_ms'] / t['library_graph_ms']:.2f}x the "
+            f"library call's {t['library_graph_ms'] * 1e3:.2f} us); through "
+            f"the Python wrapper {t['wrapper_ms'] * 1e3:.2f} us; plain version "
+            f"{t['plain_ms'] * 1e3:.2f} us; library call: SDPA over "
+            f"pre-gathered K/V, gather excluded; bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} ({t['bytes']} B "
+            f"at 3.35 TB/s); before the split-page redesign "
+            f"{PAGED_BEFORE_US[label]} us; on {card}")
     timing = paged_t[PAGED_SHAPES[0][0]]
     served = serve_phase(gen)
     log(f"[time] paged_attention launches per decoded token: "

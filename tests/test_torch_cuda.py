@@ -565,11 +565,12 @@ def test_rmsnorm_matmul_kernel_matches_plain(mkn):
 
 
 def test_rmsnorm_matmul_kernel_around_the_wgmma_tiles():
-    """The norm kernel off its 128 x 256 tiles and 64-deep stages (within
-    the reference's tiling contract, so m and n below 256): m not a
-    multiple of 128 (a cluster's second row tile partly or wholly past M),
-    n not a multiple of 256, K 64 (one stage) and K 1032 (a last stage of 8
-    columns, whose gamma box is zero past K); each called twice, bit-equal."""
+    """The RMSNorm-matmul off the matmul's 128 x 256 tiles and 64-deep
+    stages (within the reference's tiling contract, so m and n below 256):
+    m not a multiple of 128 (a cluster's second row tile partly or wholly
+    past M), n not a multiple of 256, K 64 (one stage) and K 1032 (a last
+    stage of 8 columns of normed x, zero-filled past K); each called
+    twice, bit-equal."""
     from tpu_dra_torch.workloads import matmul as tm
     dev = card()
     gen = torch.Generator(device=dev)

@@ -50,7 +50,6 @@ def test_the_replay_reads_the_kernel_it_models():
             "if (t0 >= len) return;                           // a dead span",
             "const int t1 = min(t0 + kSpanTokens, len);",
             "page = page < 0 ? 0 : page;",
-            "sS[r * kTile + i] = tok0 + i < t1 ? s : -INFINITY;",
             "sS[gq * kTile + i0] = tok0 + i0 < t1 ? c[0] : -INFINITY;",
             "const float corr = exp2f(m_run[jr] - m_new);",
             "l_run[jr] = l_run[jr] * corr + warp_sum(psum);",

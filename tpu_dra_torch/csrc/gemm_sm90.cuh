@@ -1,6 +1,6 @@
 // A TMA-fed, warp-specialized wgmma GEMM mainloop for Hopper (sm_90a), on
-// the building blocks of hopper.cuh; the ring kernels (ring.cu), the
-// plain matmul and the RMSNorm-matmul (matmul.cu) run on it.
+// the building blocks of hopper.cuh; the ring kernels (ring.cu) and the
+// plain matmul (matmul.cu) run on it.
 //
 // One block (CTA) is three warpgroups, and blocks pair up in clusters of 2
 // that share each w tile.  Warpgroup 0 is the producer: its
@@ -18,11 +18,7 @@
 // kStages stages ahead of the consumers, so one tile's epilogue runs under
 // the next tile's loads.  A stage may also carry up to three boxes of an
 // epilogue input (produce_boxes): the reduce-scatter's fp32 partials come
-// through the same ring.  A configuration may give each stage a side box
-// too (the RMSNorm-matmul's 64 gamma values), in a region of its own after
-// the stages, that the stage's full barrier also counts; and a third
-// barrier a stage (ready) serves a pass that rewrites a landed stage
-// before the consumers read it.
+// through the same ring.
 //
 // Operands (row-major bf16, K and N multiples of 8 so every row is 16-byte
 // aligned, as TMA requires):
@@ -65,12 +61,11 @@ constexpr int kRowBytes = 128;    // one swizzled row of a 64-column box
 
 // Tile width, stages, and blocks a cluster (1, or 2 that share each w
 // tile: each block loads half of its boxes and multicasts them to both,
-// so a block reads 16 + 16 KB a stage from L2 instead of 16 + 32), and
-// the bytes of a stage's side box (0: none).  One block an SM.
-// Registers: setmaxnreg.inc only takes what the block's own warps gave
-// back, so producer · 128 + consumer · 256 must not exceed the 168 · 384
-// the block starts with.
-template <int BN, int STAGES, int CLUSTER, int SIDE = 0>
+// so a block reads 16 + 16 KB a stage from L2 instead of 16 + 32).  One
+// block an SM.  Registers: setmaxnreg.inc only takes what the block's own
+// warps gave back, so producer · 128 + consumer · 256 must not exceed the
+// 168 · 384 the block starts with.
+template <int BN, int STAGES, int CLUSTER>
 struct Config {
   static_assert(BN == 128 || BN == 256, "tile width 128 or 256");
   static_assert(CLUSTER == 1 || CLUSTER == 2, "clusters of 1 or 2 blocks");
@@ -81,10 +76,8 @@ struct Config {
   static constexpr int kABytes = kBM * kRowBytes;          // 16 KB
   static constexpr int kBBox = kBK * kRowBytes;            // 8 KB
   static constexpr int kStageBytes = kABytes + kBoxesB * kBBox;
-  static constexpr int kSideBytes = SIDE;
-  static constexpr int kSide = STAGES * kStageBytes;       // side boxes
-  static constexpr int kBar = kSide + STAGES * SIDE;
-  static constexpr int kSmemBytes = kBar + 3 * STAGES * 8 + 1024;  // + slack
+  static constexpr int kBar = STAGES * kStageBytes;
+  static constexpr int kSmemBytes = kBar + 2 * STAGES * 8 + 1024;  // + slack
   static constexpr int kProducerRegs = 56;
   static constexpr int kConsumerRegs = 224;
   static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 168 * kThreads,
@@ -182,14 +175,13 @@ struct Operand {
 };
 
 // The block's shared memory from a 1024-byte aligned base: the stages,
-// their side boxes, then the full, the empty and the ready barriers; and
-// the block's rank in its cluster
+// then the full and the empty barriers; and the block's rank in its
+// cluster
 template <class C>
 struct Ring {
   uint8_t* base;
   uint64_t* full;
   uint64_t* empty;
-  uint64_t* ready;
   int crank;
 
   __device__ __forceinline__ uint8_t* a_tile(int st) const {
@@ -198,16 +190,13 @@ struct Ring {
   __device__ __forceinline__ uint8_t* b_tile(int st) const {
     return base + st * C::kStageBytes + C::kABytes;
   }
-  __device__ __forceinline__ uint8_t* side(int st) const {
-    return base + C::kSide + st * C::kSideBytes;
-  }
 };
 
 template <class C>
 __device__ __forceinline__ Ring<C> ring_at(uint8_t* raw) {
   uint8_t* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::kBar);
-  return {base, bars, bars + C::kStages, bars + 2 * C::kStages,
+  return {base, bars, bars + C::kStages,
           C::kCluster > 1 ? cluster_rank() : 0};
 }
 
@@ -262,25 +251,20 @@ __device__ __forceinline__ void for_each_item(int items, F&& f) {
 
 // Producer: the nk stages of one tile (rows m0 of a, columns n0 of b);
 // `it` is the block's running count of stages.  In a cluster of 2 each
-// block loads half of the w boxes into both blocks.  With side boxes,
-// stage kt also carries the box of `side` at column kt · kBK.
+// block loads half of the w boxes into both blocks.
 template <class C>
 __device__ __forceinline__ void produce_tile(const Ring<C>& ring, int& it,
                                              int nk, const Operand& a,
                                              const Operand& b, int m0,
-                                             int n0,
-                                             const Operand& side = {}) {
+                                             int n0) {
   constexpr int kMine = C::kBoxesB / C::kCluster;
   const int first = ring.crank * kMine;
   for (int kt = 0; kt < nk; ++kt, ++it) {
     const int st = it % C::kStages;
     mbar_wait(&ring.empty[st], ((it / C::kStages) & 1) ^ 1);
-    mbar_expect_tx(&ring.full[st], C::kStageBytes + C::kSideBytes);
+    mbar_expect_tx(&ring.full[st], C::kStageBytes);
     tma_load_5d(ring.a_tile(st), a.map, &ring.full[st], kt * kBK, m0, a.c2,
                 a.c3, a.c4);
-    if constexpr (C::kSideBytes > 0)
-      tma_load_5d(ring.side(st), side.map, &ring.full[st], kt * kBK, 0,
-                  side.c2, side.c3, side.c4);
 #pragma unroll
     for (int i = 0; i < kMine; ++i) {
       const int bx = first + i;
@@ -342,12 +326,6 @@ __device__ __forceinline__ void wait_full(const Ring<C>& ring, int it) {
   mbar_wait(&ring.full[it % C::kStages], (it / C::kStages) & 1);
 }
 
-// stage `it` rewritten in place and visible to wgmma (the ready barrier)
-template <class C>
-__device__ __forceinline__ void wait_ready(const Ring<C>& ring, int it) {
-  mbar_wait(&ring.ready[it % C::kStages], (it / C::kStages) & 1);
-}
-
 __device__ __forceinline__ uint64_t a_desc(uint32_t a_tile, int c, int kk) {
   return desc_sw128(a_tile + c * 64 * kRowBytes + kk * 32, 16, 1024);
 }
@@ -360,19 +338,15 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t b_tile, int kk) {
 // Consumer c: acc (its 64 rows x kBN, the wgmma D fragment of hopper.cuh)
 // = the tile's product over nk stages.  Stage kt's products are issued
 // before stage kt − 1's are waited for; each warp releases a stage once
-// its products have read it.  READY: each stage is read once its ready
-// barrier (not its full one) has completed.
-template <class C, bool READY = false>
+// its products have read it.
+template <class C>
 __device__ __forceinline__ void consume_tile(const Ring<C>& ring,
                                              float (&acc)[C::kBN / 2],
                                              int& it, int nk, int c,
                                              int lane) {
   for (int kt = 0; kt < nk; ++kt, ++it) {
     const int st = it % C::kStages;
-    if constexpr (READY)
-      wait_ready(ring, it);
-    else
-      wait_full(ring, it);
+    wait_full(ring, it);
     const uint32_t at = smem_u32(ring.a_tile(st));
     const uint32_t bt = smem_u32(ring.b_tile(st));
     fence_regs(acc);
@@ -417,28 +391,6 @@ struct Frag {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A consumer's accumulators of the tile at (m0, n0) rounded to bf16 and
-// stored into out [M, N] (row-major), masked at M and N
-template <int BN>
-__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
-                                           const Frag& f,
-                                           __nv_bfloat16* __restrict__ out,
-                                           int m0, int n0, int M, int N) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + f.col0 + 8 * j;
-    if (col >= N) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + f.row0 + 8 * h;
-      if (row < M)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * N +
-                                     col) =
-            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
 }
 
 }  // namespace gemm90

@@ -386,18 +386,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// the same for register fragments (an A operand of wgmma_rs): they stay
-// in their registers until here, past the wait of the product that reads
-// them
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-  }
-}
-
 // four 8 x 8 bf16 matrices from shared memory: lane l gives the address
 // of row l % 8 of matrix l / 8, and register i receives matrix i (lane l
 // holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1), the mma.sync /
@@ -491,39 +479,29 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// d (64 x N) = A·B (+ d when `accumulate`) with A (64 x 16 bf16) from
-// registers in the fragment layout above and B from shared memory by
-// descriptor
+// d (64 x N) += A·B with A (64 x 16 bf16) from registers in the fragment
+// layout above and B from shared memory by descriptor
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate = 1) {
-  static_assert(N == 64 || N == 128 || N == 256,
-                "wgmma_rs takes N 64, 128 or 256");
-  if constexpr (N == 256) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_R128
-        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
-        : HOPPER_D64_AT(d, 0), HOPPER_D64_AT(d, 64)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate), "n"(TRANS_B));
-  } else if constexpr (N == 128) {
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs takes N 64 or 128");
+  if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64
         ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : HOPPER_D64(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TRANS_B));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32
         ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : HOPPER_D32(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate), "n"(TRANS_B));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TRANS_B));
   }
 }
 

@@ -7,9 +7,8 @@
 //       -> matmul_sm90_kernel, C entry tpu_dra_matmul
 //   * _fused_rmsnorm_matmul_kernel (:863), called at :947 by
 //     fused_rmsnorm_matmul (:933), the forward of rmsnorm_matmul_train (:887)
-//       -> rownorm_kernel, then matmul_sm90_kernel on the normed x it wrote
-//          (or norm_sm90_kernel: the fused designs), C entry
-//          tpu_dra_rmsnorm_matmul
+//       -> rownorm_kernel, then matmul_sm90_kernel on the normed x it wrote,
+//          C entry tpu_dra_rmsnorm_matmul
 //
 // Contract (the reference's):
 //   x [M, K] bf16 and w [K, N] bf16, both row-major; out [M, N] bf16;
@@ -18,8 +17,8 @@
 //     a = bf16((x_f32 * r[m]) * gamma[k])           (rmsnorm_matmul)
 //     r[m] = rsqrt(sum_k x_f32[m, k]^2 / K + eps),   gamma fp32 [K].
 //   normed is rounded to bf16 before the product, as the reference rounds
-//   it at :878; the norm is applied to each staged x element in that
-//   order, so that rounding point is kept exactly.  K and N are multiples
+//   it at :878; the norm is applied to each x element in that order, so
+//   that rounding point is kept exactly.  K and N are multiples
 //   of 8 (16-byte rows); M is any; ragged tile edges are zero-filled on
 //   load and masked on store.
 //
@@ -42,35 +41,17 @@
 //
 // rmsnorm_matmul needs each row's r before the row's first product, where
 // the TPU kernel holds a whole [bm, K] row block in VMEM (512 KB at K =
-// 2048, more than the 227 KB of shared memory a block can have).  A first
-// kernel (rownorm_kernel, one warp per row, an fp32 pass over K) reads x
-// and writes r [M] to a scratch vector.  Three designs of the rest, chosen
-// by kNorm and timed by `python -m tpu_dra_torch.kernels.variants matmul`
-// at ln1 -> wqkv and ln2 -> w1 (PERF.md §6):
-//   (c) kUnfused, as built: the first kernel also writes normed x, bf16
-//       [M, K], to a second scratch, and the plain matmul multiplies it by
-//       w.  That moves 2 · M · K · 2 bytes more (~40 us at wqkv), but
-//       normalises each x element once; the fused designs normalise it
-//       once per 256-wide column tile (24 times at wqkv), and that
-//       arithmetic on the consumers' SMs cost more than the bytes: (c) is
-//       the fastest of the three on an H100.
-//   (a) kRegisters: norm_sm90_kernel, the same mainloop and walk
-//       (NormConfig), the norm between an x box's arrival and its product
-//       on the consumers.  Each stage also carries the 64 gamma values of
-//       its K columns, a side box that TMA zero-fills past K (the x
-//       columns past K that TMA zero-fills meet gamma 0, never an unset
-//       value: 0 · NaN).  For each 16-deep k-step a consumer ldmatrixes
-//       its 64 x 16 A fragment from the 128B-swizzled x box (the layout
-//       a_desc describes), widens it to fp32, multiplies by its two rows'
-//       r, then by the fragment's columns' gamma, rounds to bf16 and
-//       issues wgmma m64n256k16 with A from registers (w stays in shared
-//       memory).  Two stages' fragments live in separate registers, so one
-//       stage is normalised while the previous stage's products are in
-//       flight.
-//   (b) kRewrite: norm_sm90_kernel with the producer warpgroup's warps 1-3
-//       rewriting each landed x box in place, fencing it for wgmma and
-//       arriving on the stage's ready barrier; the consumers run the plain
-//       shared-memory mainloop behind it.
+// 2048, more than the 227 KB of shared memory a block can have).  So it is
+// two kernels: rownorm_kernel (one warp per row, an fp32 pass over K)
+// reads x, writes r [M] to a scratch vector and normed x, bf16 [M, K], to
+// a second scratch, and the plain matmul multiplies the normed x by w.
+// That moves 2 · M · K · 2 bytes more than a fused kernel (~40 us at
+// wqkv), but normalises each x element once, where a kernel fusing the
+// norm into the wgmma mainloop normalises it once per 256-wide column
+// tile (24 times at wqkv).  Two such fused designs, the norm in the
+// consumers' registers ahead of wgmma with A from registers and producer
+// warps rewriting each landed x box in place, were slower than this one
+// on an H100 (PERF.md §6).
 
 #include "gemm_sm90.cuh"
 
@@ -120,7 +101,20 @@ matmul_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
     float acc[C::kBN / 2];
     for_each_item<C>(rt * ct, [&](int w) {
       consume_tile(ring, acc, it, nk, f.c, f.lane);
-      store_tile<C::kBN>(acc, f, out, m0_of(w), n0_of(w), M, N);
+      const int m0 = m0_of(w), n0 = n0_of(w);
+#pragma unroll
+      for (int j = 0; j < C::kBN / 8; ++j) {
+        const int col = n0 + f.col0 + 8 * j;
+        if (col >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + f.row0 + 8 * h;
+          if (row < M)
+            *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * N +
+                                         col) =
+                pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
     });
   }
   finish_ring<C>();
@@ -153,11 +147,8 @@ cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
 }  // namespace plain
 
 // --------------------------------------------------------------------------
-// the row norms: r [M], and (for design (c)) normed x
+// the row norms r [M] and normed x
 // --------------------------------------------------------------------------
-
-enum class Norm { kUnfused, kRegisters, kRewrite };
-constexpr Norm kNorm = Norm::kUnfused;
 
 constexpr int kNormRows = 8;                   // rows (warps) a block
 constexpr int kNormThreads = kNormRows * 32;
@@ -176,9 +167,8 @@ __device__ __forceinline__ uint32_t norm_pair(uint32_t pair, float r,
   return pack_bf16((v.x * r) * g.x, (v.y * r) * g.y);
 }
 
-// r[m] = rsqrt(sum_k x[m, k]^2 / K + eps) in fp32, one warp per row; with
-// APPLY also xn[m, :] = bf16((x[m, :] · r[m]) · gamma)
-template <bool APPLY>
+// r[m] = rsqrt(sum_k x[m, k]^2 / K + eps) in fp32 and xn[m, :] =
+// bf16((x[m, :] · r[m]) · gamma), one warp per row
 __global__ void __launch_bounds__(kNormThreads)
 rownorm_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ gamma, float* __restrict__ r,
@@ -201,220 +191,19 @@ rownorm_kernel(const __nv_bfloat16* __restrict__ x,
   ss = warp_sum(ss);
   const float rr = rsqrtf(ss / static_cast<float>(K) + eps);
   if (lane == 0) r[row] = rr;
-  if constexpr (APPLY) {
-    for (int c = lane * 8; c < K; c += 32 * 8) {
-      uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-      uint32_t* h = reinterpret_cast<uint32_t*>(&v);
+  for (int c = lane * 8; c < K; c += 32 * 8) {
+    uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    uint32_t* h = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h[e] = norm_pair(h[e], rr, *reinterpret_cast<const float2*>(
-                                       gamma + c + 2 * e));
-      *reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * K + c) = v;
-    }
+    for (int e = 0; e < 4; ++e)
+      h[e] = norm_pair(h[e], rr, *reinterpret_cast<const float2*>(
+                                     gamma + c + 2 * e));
+    *reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * K + c) = v;
   }
 }
-
-// --------------------------------------------------------------------------
-// rmsnorm_matmul on the wgmma mainloop
-// --------------------------------------------------------------------------
-
-namespace norm {
-
-using NormConfig = Config<256, 4, 2, 256>;   // + a 64-float gamma box a stage
-using C = NormConfig;
-constexpr bool kNormInRegisters = kNorm == Norm::kRegisters;   // else (b)
-constexpr int kRewriteWarps = 3;
-
-// Consumer f.c of the norm kernel: acc = the tile's product, with x
-// normalised on its way into the A fragments; r0 and r1 are the r of the
-// thread's fragment rows f.row0 and f.row0 + 8.  ldmatrix lane l names row
-// l % 16 of its warp's 16 rows and 16-byte chunk 2 kk + l / 16 of the
-// box, so register i holds (row g + 8 (i % 2), columns 2t + 8 (i / 2)) of
-// k-step kk, g = l / 4 and t = l % 4: wgmma's A fragment (hopper.cuh).
-// Each k-step's product is issued as soon as its fragment is normalised.
-// Stage kt's fragments are written while stage kt − 1's products are in
-// flight, into the other of two sets; a set is fenced after the wait that
-// retires its products, so it is not rewritten before.
-__device__ __forceinline__ void consume_norm_tile(const Ring<C>& ring,
-                                                  float (&acc)[C::kBN / 2],
-                                                  int& it, int nk,
-                                                  const Frag& f, float r0,
-                                                  float r1) {
-  const int lrow = 64 * f.c + 16 * (threadIdx.x % kWarpgroup / 32) +
-                   (f.lane & 15);
-  const int half = f.lane >> 4, t = f.lane & 3;
-  uint32_t fa[kBK / 16][4] = {}, fb[kBK / 16][4] = {};
-  auto stage = [&](uint32_t (&a)[kBK / 16][4], uint32_t (&held)[kBK / 16][4],
-                   int kt) {
-    const int st = it % C::kStages;
-    wait_full(ring, it);
-    const uint32_t at = smem_u32(ring.a_tile(st)) + lrow * kRowBytes;
-    const uint32_t bt = smem_u32(ring.b_tile(st));
-    const float2* gam = reinterpret_cast<const float2*>(ring.side(st));
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      ldsm_x4(a[kk], at + (((2 * kk + half) ^ (lrow & 7)) << 4));
-      const float2 g0 = gam[8 * kk + t], g1 = gam[8 * kk + t + 4];
-      a[kk][0] = norm_pair(a[kk][0], r0, g0);
-      a[kk][1] = norm_pair(a[kk][1], r1, g0);
-      a[kk][2] = norm_pair(a[kk][2], r0, g1);
-      a[kk][3] = norm_pair(a[kk][3], r1, g1);
-      if (kk == 0) fence_regs(acc);
-      wgmma_fence();
-      wgmma_rs<C::kBN, 1>(acc, a[kk], b_desc<C>(bt, kk), kt > 0 || kk > 0);
-    }
-    wgmma_commit();
-    fence_regs(acc);
-    if (kt > 0) {
-      wgmma_wait<1>();
-      fence_regs(acc);
-      fence_regs(held);
-      release(ring, it - 1, f.lane);
-    }
-    ++it;
-  };
-  for (int kt = 0; kt < nk; kt += 2) {
-    stage(fa, fb, kt);
-    if (kt + 1 < nk) stage(fb, fa, kt + 1);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  fence_regs(fa);
-  fence_regs(fb);
-  release(ring, it - 1, f.lane);
-}
-
-// Producer warps 1-3 (the other design): each landed x box of the tile at
-// rows m0 normalised in place, then fenced for wgmma and announced on the
-// stage's ready barrier
-__device__ __forceinline__ void rewrite_tile(const Ring<C>& ring, int& it,
-                                             int nk, const float* r, int m0,
-                                             int M) {
-  const int lane = threadIdx.x % 32;
-  for (int kt = 0; kt < nk; ++kt, ++it) {
-    const int st = it % C::kStages;
-    wait_full(ring, it);
-    uint4* box = reinterpret_cast<uint4*>(ring.a_tile(st));
-    const float* gam = reinterpret_cast<const float*>(ring.side(st));
-    for (int q = threadIdx.x - 32; q < kBM * 8; q += 32 * kRewriteWarps) {
-      const int row = q / 8, col = 8 * ((q % 8) ^ (row % 8));
-      const float rr = m0 + row < M ? r[m0 + row] : 0.f;
-      uint4 v = box[q];
-      uint32_t* h = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h[e] = norm_pair(h[e], rr,
-                         make_float2(gam[col + 2 * e], gam[col + 2 * e + 1]));
-      box[q] = v;
-    }
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&ring.ready[st]);
-  }
-}
-
-// Work items as the plain matmul's; r [M] from rownorm_kernel
-__global__ void __cluster_dims__(C::kCluster, 1, 1)
-__launch_bounds__(kThreads, 1)
-norm_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
-                 const __grid_constant__ CUtensorMap tm_w,
-                 const __grid_constant__ CUtensorMap tm_g,
-                 const float* __restrict__ r,
-                 __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(16) uint8_t raw[];
-  const Ring<C> ring = ring_at<C>(raw);
-  if (!kNormInRegisters && threadIdx.x == 0)
-    for (int st = 0; st < C::kStages; ++st)
-      mbar_init(&ring.ready[st], kRewriteWarps);
-  init_ring(ring, releases<C>(0));
-  const int rt = ((M + kBM - 1) / kBM + C::kCluster - 1) / C::kCluster;
-  const int ct = (N + C::kBN - 1) / C::kBN;
-  const int nk = (K + kBK - 1) / kBK;
-  int it = 0;                                   // stages walked
-  auto m0_of = [&](int w) { return (w / ct * C::kCluster + ring.crank) * kBM; };
-  auto n0_of = [&](int w) { return w % ct * C::kBN; };
-
-  if (threadIdx.x < kWarpgroup) {
-    reg_dealloc<C::kProducerRegs>();
-    if (threadIdx.x == 0) {
-      prefetch_map(&tm_x);
-      prefetch_map(&tm_w);
-      prefetch_map(&tm_g);
-      for_each_item<C>(rt * ct, [&](int w) {
-        produce_tile(ring, it, nk, Operand{&tm_x, 0, 0, 0},
-                     Operand{&tm_w, 0, 0, 0}, m0_of(w), n0_of(w),
-                     Operand{&tm_g, 0, 0, 0});
-      });
-    } else if (!kNormInRegisters && threadIdx.x >= 32) {
-      for_each_item<C>(rt * ct, [&](int w) {
-        rewrite_tile(ring, it, nk, r, m0_of(w), M);
-      });
-    }
-  } else {
-    reg_alloc<C::kConsumerRegs>();
-    const Frag f = Frag::mine();
-    float acc[C::kBN / 2];
-    for_each_item<C>(rt * ct, [&](int w) {
-      const int m0 = m0_of(w), n0 = n0_of(w);
-      if (kNormInRegisters) {
-        const int row = m0 + f.row0;
-        const float r0 = row < M ? r[row] : 0.f;
-        const float r1 = row + 8 < M ? r[row + 8] : 0.f;
-        consume_norm_tile(ring, acc, it, nk, f, r0, r1);
-      } else {
-        consume_tile<C, true>(ring, acc, it, nk, f.c, f.lane);
-      }
-      store_tile<C::kBN>(acc, f, out, m0, n0, M, N);
-    });
-  }
-  finish_ring<C>();
-}
-
-cudaError_t launch(const void* x, const void* gamma, const void* w,
-                   const void* r, void* out, int M, int N, int K,
-                   cudaStream_t stream) {
-  CUtensorMap tm_x, tm_w, tm_g;
-  cudaError_t err;
-  if ((err = map_bf16_5d(&tm_x, x, {K, M, 1, 1, 1}, {K, 0, 0, 0}, kBM)) !=
-          cudaSuccess ||
-      (err = map_bf16_5d(&tm_w, w, {N, K, 1, 1, 1}, {N, 0, 0, 0}, kBK)) !=
-          cudaSuccess ||
-      (err = map_5d(&tm_g, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, gamma,
-                    {K, 1, 1, 1, 1}, {K, 0, 0, 0}, 1, kBK,
-                    CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
-    return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      norm_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmemBytes);
-  if (attr != cudaSuccess) return attr;
-  const long long rt =
-      ((M + kBM - 1) / kBM + C::kCluster - 1) / C::kCluster;
-  int blocks;
-  if ((err = grid_blocks<C>(rt * ((N + C::kBN - 1) / C::kBN), &blocks)) !=
-      cudaSuccess)
-    return err;
-  norm_sm90_kernel<<<blocks, kThreads, C::kSmemBytes, stream>>>(
-      tm_x, tm_w, tm_g, static_cast<const float*>(r),
-      static_cast<__nv_bfloat16*>(out), M, N, K);
-  return cudaGetLastError();
-}
-
-}  // namespace norm
 
 bool bad_shape(int M, int N, int K) {
   return M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8;
-}
-
-// rownorm_kernel's launch: r [M], and with (c) xn [M, K]
-cudaError_t launch_rownorm(const void* x, const void* gamma, void* r,
-                           void* xn, int M, int K, float eps,
-                           cudaStream_t stream) {
-  rownorm_kernel<kNorm == Norm::kUnfused>
-      <<<(M + kNormRows - 1) / kNormRows, kNormThreads, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const float*>(gamma), static_cast<float*>(r),
-          static_cast<__nv_bfloat16*>(xn), M, K, eps);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -429,19 +218,20 @@ extern "C" int tpu_dra_matmul(const void* x, const void* w, void* out, int M,
 }
 
 // r is fp32 scratch [M] and xn bf16 scratch [M, K] that the caller
-// allocates; afterwards r holds each row's rsqrt(mean(x^2) + eps) and,
-// with design (c), xn the normed x
+// allocates; afterwards r holds each row's rsqrt(mean(x^2) + eps) and xn
+// the normed x
 extern "C" int tpu_dra_rmsnorm_matmul(const void* x, const void* gamma,
                                       const void* w, void* r, void* xn,
                                       void* out, int M, int N, int K,
                                       float eps, void* stream) {
   if (bad_shape(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_rownorm(x, gamma, r, xn, M, K, eps, st);
+  rownorm_kernel<<<(M + kNormRows - 1) / kNormRows, kNormThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+      static_cast<float*>(r), static_cast<__nv_bfloat16*>(xn), M, K, eps);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (kNorm == Norm::kUnfused)
-    return static_cast<int>(plain::launch(xn, w, out, M, N, K, st));
-  return static_cast<int>(norm::launch(x, gamma, w, r, out, M, N, K, st));
+  return static_cast<int>(plain::launch(xn, w, out, M, N, K, st));
 }
 
 extern "C" const char* tpu_dra_cuda_error_string(int code) {

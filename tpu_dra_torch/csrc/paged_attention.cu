@@ -40,8 +40,7 @@
 //   * scores without a shuffle tree: mma.sync m16n8k16 with the group's g
 //     query rows padded to 16, each warp a quarter of the tile's tokens
 //     in n-tiles of 8, the K fragments by ldmatrix (bf16 pages) or
-//     dequantised from int8 (kMmaScores = false: each thread whole (row,
-//     token) dot products on the CUDA cores);
+//     dequantised from int8;
 //   * softmax: a warp per query row, each lane kTile / 32 tokens; P·V on
 //     the CUDA cores, each thread 8 dims of one row over a share of the
 //     tile's tokens, the shares summed in a fixed order at the span's end;
@@ -49,10 +48,10 @@
 //     kernel of the same call merges each (slot, head)'s live spans in
 //     span order, so the result does not depend on which block ran first
 //     and two calls give the same bits.  The merge is a programmatic
-//     dependent launch (kEarlyMerge): its blocks are scheduled while the
-//     spans run and wait in griddepcontrol.wait until the span grid has
-//     finished and its writes are visible, so its launch latency hides
-//     under the spans.
+//     dependent launch: its blocks are scheduled while the spans run and
+//     wait in griddepcontrol.wait until the span grid has finished and
+//     its writes are visible, so its launch latency hides under the
+//     spans.
 //
 // Rounding points follow the reference: scores accumulate in fp32 from
 // bf16 operands; p is rounded to bf16 before the P.V product while l sums
@@ -74,8 +73,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;             // tokens a tile
 constexpr int kSpanTokens = 128;      // tokens a work item (2 pages of 64)
 constexpr int kStages = 3;            // tile buffers in the cp.async ring
-constexpr bool kMmaScores = true;     // scores by mma.sync (else CUDA cores)
-constexpr bool kEarlyMerge = true;    // the merge launched programmatically
 static_assert(kSpanTokens % kTile == 0, "a span is whole tiles");
 static_assert(kTile % (8 * kWarps) == 0 && kTile % 32 == 0,
               "a tile is whole 8-token n-tiles a warp and whole warps");
@@ -301,65 +298,41 @@ paged_span_kernel(const __nv_bfloat16* __restrict__ q,
     if (j + kStages - 1 < n_tiles) load_tile(j + kStages - 1);
     cp_async_commit();
     const uint8_t* st = smem + (j % kStages) * S::kStage;
-    const T* kt = reinterpret_cast<const T*>(st + S::kK);
     const T* vt = reinterpret_cast<const T*>(st + S::kV);
     const float* ks = reinterpret_cast<const float*>(st + S::kKs);
     const float* vs = reinterpret_cast<const float*>(st + S::kVs);
     const int tok0 = t0 + j * kTile;
 
     // scores [G][kTile], -inf past the length
-    if constexpr (kMmaScores) {
 #pragma unroll
-      for (int nt = 0; nt < kWarpTokens / 8; ++nt) {
-        const int n0 = warp * kWarpTokens + 8 * nt;   // the n-tile's tokens
-        const int i = n0 + gq;                        // this lane's B token
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        if constexpr (QUANT) {
-          const float sc = ks[i];
-          const int8_t* kr = reinterpret_cast<const int8_t*>(st + S::kK);
+    for (int nt = 0; nt < kWarpTokens / 8; ++nt) {
+      const int n0 = warp * kWarpTokens + 8 * nt;   // the n-tile's tokens
+      const int i = n0 + gq;                        // this lane's B token
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (QUANT) {
+        const float sc = ks[i];
+        const int8_t* kr = reinterpret_cast<const int8_t*>(st + S::kK);
 #pragma unroll
-          for (int kk = 0; kk < DH / 16; ++kk)
-            mma(c, qa[kk], load2(kr + L::at(i, 16 * kk + 2 * tq), sc),
-                load2(kr + L::at(i, 16 * kk + 2 * tq + 8), sc));
-        } else {
-          // ldmatrix: lane l names token n0 + l % 8, chunk 4 p + l / 8;
-          // registers: b0, b1 of k-step 2p, then of 2p + 1
-          const uint32_t kb = smem_u32(st + S::kK);
-          const int li = n0 + (lane & 7);
+        for (int kk = 0; kk < DH / 16; ++kk)
+          mma(c, qa[kk], load2(kr + L::at(i, 16 * kk + 2 * tq), sc),
+              load2(kr + L::at(i, 16 * kk + 2 * tq + 8), sc));
+      } else {
+        // ldmatrix: lane l names token n0 + l % 8, chunk 4 p + l / 8;
+        // registers: b0, b1 of k-step 2p, then of 2p + 1
+        const uint32_t kb = smem_u32(st + S::kK);
+        const int li = n0 + (lane & 7);
 #pragma unroll
-          for (int p = 0; p < DH / 32; ++p) {
-            uint32_t bf[4];
-            ldsm_x4(bf, kb + L::at(li, 8 * (4 * p + (lane >> 3))));
-            mma(c, qa[2 * p], bf[0], bf[1]);
-            mma(c, qa[2 * p + 1], bf[2], bf[3]);
-          }
-        }
-        if (gq < G) {
-          const int i0 = n0 + 2 * tq;
-          sS[gq * kTile + i0] = tok0 + i0 < t1 ? c[0] : -INFINITY;
-          sS[gq * kTile + i0 + 1] = tok0 + i0 + 1 < t1 ? c[1] : -INFINITY;
+        for (int p = 0; p < DH / 32; ++p) {
+          uint32_t bf[4];
+          ldsm_x4(bf, kb + L::at(li, 8 * (4 * p + (lane >> 3))));
+          mma(c, qa[2 * p], bf[0], bf[1]);
+          mma(c, qa[2 * p + 1], bf[2], bf[3]);
         }
       }
-    } else {
-#pragma unroll
-      for (int r = warp; r < G; r += kWarps) {
-#pragma unroll
-        for (int jt = 0; jt < kLaneTokens; ++jt) {
-          const int i = lane + 32 * jt;
-          const float sc = QUANT ? ks[i] : 1.f;
-          float s = 0.f;
-#pragma unroll
-          for (int c = 0; c < DH / 8; ++c) {
-            float kv[8];
-            load8(reinterpret_cast<const T*>(
-                      reinterpret_cast<const uint8_t*>(kt) + L::at(i, 8 * c)),
-                  sc, kv);
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              s = fmaf(qf[r * DH + 8 * c + e], kv[e], s);
-          }
-          sS[r * kTile + i] = tok0 + i < t1 ? s : -INFINITY;
-        }
+      if (gq < G) {
+        const int i0 = n0 + 2 * tq;
+        sS[gq * kTile + i0] = tok0 + i0 < t1 ? c[0] : -INFINITY;
+        sS[gq * kTile + i0 + 1] = tok0 + i0 + 1 < t1 ? c[1] : -INFINITY;
       }
     }
     __syncthreads();
@@ -501,7 +474,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   early.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &early;
-  cfg.numAttrs = kEarlyMerge ? 1 : 0;
+  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, paged_combine_kernel<DH, G>,
                             static_cast<const float*>(wp), lp,
                             static_cast<__nv_bfloat16*>(out), H, Hkv, ps, MP,

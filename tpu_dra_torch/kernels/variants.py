@@ -34,14 +34,7 @@ from tpu_dra_torch.kernels import build
 OUT_DIR = build.BUILD_DIR / "variants"
 _RING_CONFIG = "using RingConfig = Config<256, 4, 2>;"
 _MATMUL_CONFIG = "using MatmulConfig = Config<256, 4, 2>;"
-_NORM_CONFIG = "using NormConfig = Config<256, 4, 2, 256>;"
 _PAGED_SPAN = "constexpr int kSpanTokens = 128;"
-_NORM_DESIGN = "constexpr Norm kNorm = Norm::kUnfused;"
-_NORM_MATH = """      a[kk][0] = norm_pair(a[kk][0], r0, g0);
-      a[kk][1] = norm_pair(a[kk][1], r1, g0);
-      a[kk][2] = norm_pair(a[kk][2], r0, g1);
-      a[kk][3] = norm_pair(a[kk][3], r1, g1);
-"""
 _PAGED_STAGES = "constexpr int kStages = 3;"
 _BWD_WALK = """const int g0 = w / (kGroup * p.n_kt) * kGroup, gs = min(kGroup, p.BH - g0);
   const int bh = g0 + (w - g0 * p.n_kt) % gs, kt = (w - g0 * p.n_kt) / gs;"""
@@ -162,16 +155,6 @@ VARIANTS = {
             (_MATMUL_CONFIG, "using MatmulConfig = Config<128, 6, 2>;")],
         "tile 128x128, 6 stages, clusters of 1": [
             (_MATMUL_CONFIG, "using MatmulConfig = Config<128, 6, 1>;")],
-        "norm (a): fused, the norm in the consumers' registers": [
-            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRegisters;")],
-        "norm (a), tile 128x128, 6 stages": [
-            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRegisters;"),
-            (_NORM_CONFIG, "using NormConfig = Config<128, 6, 2, 256>;")],
-        "norm (a) without the norm's arithmetic (timing only; wrong)": [
-            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRegisters;"),
-            (_NORM_MATH, "")],
-        "norm (b): fused, producer warps 1-3 rewrite each x box in place": [
-            (_NORM_DESIGN, "constexpr Norm kNorm = Norm::kRewrite;")],
     },
     "ring": {
         "as built": [],
@@ -231,12 +214,6 @@ VARIANTS = {
         "2 copy stages": [(_PAGED_STAGES, "constexpr int kStages = 2;")],
         "tiles of 32 tokens": [
             ("constexpr int kTile = 64;", "constexpr int kTile = 32;")],
-        "scores on the CUDA cores (not mma.sync)": [
-            ("constexpr bool kMmaScores = true;",
-             "constexpr bool kMmaScores = false;")],
-        "the merge launched after the spans (no programmatic launch)": [
-            ("constexpr bool kEarlyMerge = true;",
-             "constexpr bool kEarlyMerge = false;")],
     },
 }
 # flash_fwd: (BH, BHkv, S, causal) at D 128: the flagship's and the GQA
@@ -478,9 +455,8 @@ def time_flash_bwd(lib: Path) -> str:
 def time_matmul(lib: Path) -> str:
     """One line: each shape's time, TF/s and max abs error against
     ``matmul_ref``, beside ``torch.matmul`` in the same process; then at
-    the RMSNorm-matmul's shapes its C entry (the design this source builds,
-    the row-norm pass included), beside the unfused pair of PyTorch
-    calls."""
+    the RMSNorm-matmul's shapes its C entry (the row-norm pass, then the
+    matmul on its normed x), beside the unfused pair of PyTorch calls."""
     import torch
 
     from tpu_dra_torch.workloads import matmul as M

@@ -3,7 +3,8 @@
 GPU: builds its CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version, times it, then drives the
 port's paths at full width: it serves the headline model through the
-port's HTTP server, runs the tiled matmul's bench section, trains the
+port's HTTP server (bf16 weights over pages; int8 weights over the slab
+and over pages), runs the tiled matmul's bench section, trains the
 flagship model through ``fit`` and through the fused training step, and
 trains it sharded over a virtual mesh of 4 ranks on the card (DP×TP with
 the fused-collective ring kernels, DP×SP with ring flash attention).
@@ -32,10 +33,11 @@ Phases (each prints as it goes; any failed check exits non-zero):
      call and its time before the split-page redesign;
   4. serve: start serve() on port 0 with the full-width model (vocab
      32768, d_model 1024, 8 heads over 2 kv heads, 8 layers, d_ff 4096,
-     rope, bf16 weights from a seed), slots 32, chunk 8, page size 64, 160
-     pages; POST 8 concurrent greedy /generate requests and check each
-     answer against the port's paged_greedy_decode on the card, and that
-     the decode went through the kernel (launch counts);
+     rope, bf16 weights from a seed), the paged layout, slots 32, chunk
+     8, page size 64, 160 pages; POST 8 concurrent greedy /generate
+     requests and check each answer against the port's
+     paged_greedy_decode on the card, and that the decode went through
+     the kernel (launch counts);
   5. flash attention: the forward, dQ, dK/dV and fused-backward kernels
      vs their plain versions at the training path's shapes ([256, 1024,
      128] causal, and the GQA run's [64 over 16, 1024, 128]) and at S 1,
@@ -103,7 +105,25 @@ Phases (each prints as it goes; any failed check exits non-zero):
      time and the step's idle share);
  14. DP×SP on Mesh({"dp": 1, "sp": 4}): make_ring_train_step(ring_impl=
      "flash", hop_impl="pallas") bit-equal to hop_impl="xla", held to the
-     one-device flash step, then 10 steps with an exact shift count.
+     one-device flash step, then 10 steps with an exact shift count;
+ 15. the quantized weight forms (quant.py) at the serving model's matmul
+     shapes (K x N of wqkv, wo, w1, w2 and unembed; 8, 32 and 256 rows):
+     the int8 product through torch._int_mm bit-equal to its plain int32
+     version (with the weight column-major, as quantize_int8 stores it,
+     and row-major), and the whole int8_matmul bit-equal to the plain
+     version on the CPU; int4 (bf16 operands, fp32 accumulation) within
+     INT4_CARD_REL of the fp32 plain version; the STE backward and LoRA
+     over an int8 base within one bf16 rounding; their times beside
+     torch.matmul of the bf16 weights (informational);
+ 16. serve the headline configuration (phase 4's model and requests) with
+     int8 weights from the seed through serve(), on the slab (32 slots,
+     chunk 8) and on pages (64-token pages, 160 pages): every answer held
+     to the port's greedy_decode on the card under argmax_tol, an int8
+     product on every matmul (counts), the paged run launching the paged
+     attention kernel n_layers times a decode step and the slab run never;
+     one decode step of each layout at 32 slots under torch.profiler, and
+     tpu_dra_torch.bench.section_decode (bf16, int8 and int4 decode
+     tokens/s; both informational).
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -134,7 +154,8 @@ BF16_FLOPS_PER_S = 989e12
 # full-width headline serving model (bench.py section_paged) and engine
 MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
              n_layers=8, d_ff=4096, max_seq=1024, pos_emb="rope")
-ENGINE = dict(slots=32, chunk=8, page_size=64, total_pages=160)
+ENGINE = dict(slots=32, chunk=8, page_size=64, total_pages=160,
+              kv_layout="paged")
 # full-width flagship training model (bench.py section_train) and its run
 TRAIN_MODEL = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
                    d_ff=8192, max_seq=1024, pos_emb="learned")
@@ -541,13 +562,110 @@ def argmax_tol(top: float) -> float:
     return 2 * max(2 ** -4, 2 ** -6 * abs(top))
 
 
-def serve_phase(gen) -> dict:
+def serve_requests(label: str, cfg, params, engine: dict,
+                   prompts: list) -> dict:
+    """Start serve() on port 0 with ``engine``, POST one request first
+    (first-use costs), then the REQUESTS at once, one client thread
+    each; fail on any error or a wrong count.  Counts the paged-attention
+    launches and the int8 products of the concurrent part."""
+    from tpu_dra_torch.workloads.paged_kv import paged_attention
+    from tpu_dra_torch.workloads.quant import int8_product
+    from tpu_dra_torch.workloads.serve import serve
+    srv = serve(cfg, params, port=0, **engine)
+    try:
+        port = srv.server_address[1]
+        post(port, {"tokens": [[1, 2, 3]], "steps": 2})   # first-use costs
+        srv.engine.reset_stats()
+        results: dict[int, object] = {}
+        lat: dict[int, float] = {}
+
+        def client(i):
+            t = time.perf_counter()
+            try:
+                results[i] = post(port, {"tokens": [prompts[i]],
+                                         "steps": REQUESTS[i][1]})
+            except Exception as exc:  # noqa: BLE001 — reported below
+                results[i] = exc
+            lat[i] = time.perf_counter() - t
+
+        paged_attention.launches = 0
+        int8_product.calls = 0
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(REQUESTS))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        launches, int8_calls = paged_attention.launches, int8_product.calls
+        stats = srv.engine.stats()
+    finally:
+        srv.shutdown()
+    answers = []
+    for i, (n, steps) in enumerate(REQUESTS):
+        res = results.get(i)
+        if not isinstance(res, dict):
+            fail(f"{label}: request {i} failed: {res!r}")
+        toks = res["tokens"][0]
+        if len(toks) != steps or not all(0 <= t < cfg.vocab for t in toks):
+            fail(f"{label}: request {i}: {len(toks)} tokens for {steps} "
+                 f"steps")
+        answers.append(toks)
+    n_tok = sum(len(a) for a in answers)
+    log(f"[{label}] {len(REQUESTS)} concurrent requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s, p50 latency "
+        f"{1e3 * statistics.median(lat.values()):.1f} ms (informational)")
+    return {"answers": answers, "launches": launches,
+            "int8_calls": int8_calls, "decode_steps": stats["decode_steps"],
+            "tokens_per_s": n_tok / wall,
+            "p50_latency_ms": 1e3 * statistics.median(lat.values())}
+
+
+def hold_answers(label: str, answers: list, want_fn, logits_at) -> int:
+    """Each served answer against the oracle ``want_fn(i)`` on the card:
+    equal, or departing only where the oracle's top-2 margin at the first
+    difference (``logits_at(i, want, step)``) is within argmax_tol.
+    Returns the number of tokens compared equal."""
+    import torch
+    compared = 0
+    with torch.no_grad():
+        for i, ((n, steps), toks) in enumerate(zip(REQUESTS, answers)):
+            want = want_fn(i)
+            diff = next((j for j, (a, b) in enumerate(zip(toks, want))
+                         if a != b), None)
+            if diff is None:
+                compared += steps
+                log(f"[{label}] request {i} (prompt {n}, steps {steps}): "
+                    f"equals the oracle")
+                continue
+            lg = logits_at(i, want, diff)
+            top2 = torch.topk(lg, 2).values.tolist()
+            margin, tol = top2[0] - top2[1], argmax_tol(top2[0])
+            compared += diff
+            log(f"[{label}] request {i} (prompt {n}, steps {steps}): equals "
+                f"the oracle for {diff} tokens; at step {diff} the oracle's "
+                f"top-2 margin is {margin:.4f} (tolerance {tol:.4f})")
+            if margin > tol:
+                fail(f"{label}: request {i} departs from the oracle at step "
+                     f"{diff} where the oracle's margin {margin:.4f} > "
+                     f"{tol:.4f}")
+    n_tok = sum(len(a) for a in answers)
+    log(f"[{label}] {compared} of {n_tok} served tokens compared equal to "
+        f"the oracle before any near-tie")
+    return compared
+
+
+def request_prompts(vocab: int) -> list:
     import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n).tolist() for n, _ in REQUESTS]
+
+
+def serve_phase(gen) -> dict:
     import torch
 
-    from tpu_dra_torch.workloads.paged_kv import paged_attention
     from tpu_dra_torch.workloads.quant import cast_params_bf16
-    from tpu_dra_torch.workloads.serve import serve
     from tpu_dra_torch.workloads.train import (ModelConfig, forward,
                                                init_params)
     cfg = ModelConfig(**MODEL)
@@ -563,53 +681,9 @@ def serve_phase(gen) -> dict:
         fail(f"forward at full width gave {tuple(probe.shape)} / "
              f"non-finite logits")
 
-    srv = serve(cfg, params, port=0, **ENGINE)
-    try:
-        port = srv.server_address[1]
-        post(port, {"tokens": [[1, 2, 3]], "steps": 2})   # first-use costs
-        srv.engine.reset_stats()
-        rng = np.random.default_rng(SEED)
-        prompts = [rng.integers(0, cfg.vocab, n).tolist()
-                   for n, _ in REQUESTS]
-        results: dict[int, object] = {}
-        lat: dict[int, float] = {}
-
-        def client(i):
-            t = time.perf_counter()
-            try:
-                results[i] = post(port, {"tokens": [prompts[i]],
-                                         "steps": REQUESTS[i][1]})
-            except Exception as exc:  # noqa: BLE001 — reported below
-                results[i] = exc
-            lat[i] = time.perf_counter() - t
-
-        paged_attention.launches = 0
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(REQUESTS))]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        wall = time.perf_counter() - t0
-        launches = paged_attention.launches
-        stats = srv.engine.stats()
-    finally:
-        srv.shutdown()
-    answers = []
-    for i, (n, steps) in enumerate(REQUESTS):
-        res = results.get(i)
-        if not isinstance(res, dict):
-            fail(f"request {i} failed: {res!r}")
-        toks = res["tokens"][0]
-        if len(toks) != steps or not all(0 <= t < cfg.vocab for t in toks):
-            fail(f"request {i}: {len(toks)} tokens for {steps} steps")
-        answers.append(toks)
-    n_tok = sum(len(a) for a in answers)
-    decode_steps = stats["decode_steps"]
-    log(f"[serve] {len(REQUESTS)} concurrent requests, {n_tok} tokens in "
-        f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s, p50 latency "
-        f"{1e3 * statistics.median(lat.values()):.1f} ms (informational)")
+    prompts = request_prompts(cfg.vocab)
+    run = serve_requests("serve", cfg, params, ENGINE, prompts)
+    launches, decode_steps = run["launches"], run["decode_steps"]
     log(f"[serve] kernel launches {launches} over {decode_steps} decode "
         f"steps: {launches / max(1, decode_steps):.2f} per decoded token "
         f"(n_layers = {cfg.n_layers})")
@@ -619,32 +693,12 @@ def serve_phase(gen) -> dict:
              f"{decode_steps} decode steps of {cfg.n_layers} layers")
 
     # each answer against the port's per-request decoder on the card
-    compared = 0
-    with torch.no_grad():
-        for i, ((n, steps), toks) in enumerate(zip(REQUESTS, answers)):
-            want = oracle(cfg, params, prompts[i], steps)
-            diff = next((j for j, (a, b) in enumerate(zip(toks, want))
-                         if a != b), None)
-            if diff is None:
-                compared += steps
-                log(f"[serve] request {i} (prompt {n}, steps {steps}): "
-                    f"equals the oracle")
-                continue
-            lg = oracle_logits_at(cfg, params, prompts[i], want, diff)
-            top2 = torch.topk(lg, 2).values.tolist()
-            margin, tol = top2[0] - top2[1], argmax_tol(top2[0])
-            compared += diff
-            log(f"[serve] request {i} (prompt {n}, steps {steps}): equals "
-                f"the oracle for {diff} tokens; at step {diff} the oracle's "
-                f"top-2 margin is {margin:.4f} (tolerance {tol:.4f})")
-            if margin > tol:
-                fail(f"request {i} departs from the oracle at step {diff} "
-                     f"where the oracle's margin {margin:.4f} > {tol:.4f}")
-    log(f"[serve] {compared} of {n_tok} served tokens compared equal to "
-        f"the oracle before any near-tie")
-    return {"launches": launches, "decode_steps": decode_steps,
-            "tokens_per_s": n_tok / wall,
-            "p50_latency_ms": 1e3 * statistics.median(lat.values())}
+    hold_answers(
+        "serve", run["answers"],
+        lambda i: oracle(cfg, params, prompts[i], REQUESTS[i][1]),
+        lambda i, want, step: oracle_logits_at(cfg, params, prompts[i],
+                                               want, step))
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1961,6 +2015,233 @@ def ring_phase(gen, data_path: str) -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the quantized products on the card
+# ---------------------------------------------------------------------------
+
+# (K, N) of the serving model's matmuls (wqkv, wo, w1, w2, unembed) and the
+# rows they see: a decode step at 8 requests, the engine's 32 slots, and a
+# prefill of 256 tokens
+QUANT_SHAPES = [(1024, 1536), (1024, 1024), (1024, 4096), (4096, 1024),
+                (1024, 32768)]
+QUANT_ROWS = (8, 32, 256)
+# int4 on the card takes bf16 operands with fp32 accumulation, the plain
+# version fp32 operands: with bf16 activations every product is exact in
+# both, so they part only by the order and rounding of the fp32 sums
+# (within 1e-4 of the output's largest magnitude); the STE backward and
+# a LoRA adapter over an int8 base round their result to bf16 once
+INT4_CARD_REL = 1e-4
+BF16_REL = 2 ** -7
+
+
+def quant_phase(gen) -> dict:
+    """Each quantized product on the card against its plain version on
+    the CPU (the same inputs): the int8 product through torch._int_mm
+    bit-equal (the int32 product alone, and the whole int8_matmul), the
+    STE backward, int4 at bf16 operands, LoRA over an int8 base; times
+    beside torch.matmul of the bf16 weights, for information."""
+    import torch
+
+    from tpu_dra_torch.workloads.quant import (int4_matmul, int8_matmul,
+                                               int8_product,
+                                               int8_product_ref, matmul_any,
+                                               quantize_int4, quantize_int8)
+
+    def cpu(tree):
+        return {k: v.cpu() for k, v in tree.items()}
+
+    times = {}
+    for K, N in QUANT_SHAPES:
+        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        q8, q4 = quantize_int8(w), quantize_int4(w)
+        row_major = q8["q8"].contiguous()          # the layout q8 is not
+        wb = w.to(torch.bfloat16)
+        for M in QUANT_ROWS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            xq = torch.randint(-127, 128, (M, K), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            exact = int8_product_ref(xq, q8["q8"])
+            if not (torch.equal(int8_product(xq, q8["q8"]), exact) and
+                    torch.equal(int8_product(xq, row_major), exact)):
+                fail(f"int8 product [{M}, {K}] @ [{K}, {N}] differs from "
+                     f"its plain version")
+            got = int8_matmul(x, q8["q8"], q8["s"])
+            want = int8_matmul(x.cpu(), *cpu(q8).values())
+            if not torch.equal(got.cpu(), want):
+                fail(f"int8_matmul [{M}, {K}] @ [{K}, {N}] is not "
+                     f"bit-equal to its plain version")
+            got4 = int4_matmul(x, q4["q4"], q4["s4"]).cpu()
+            want4 = int4_matmul(x.cpu(), *cpu(q4).values())
+            err4 = float((got4 - want4).abs().max())
+            if err4 > INT4_CARD_REL * float(want4.abs().max()):
+                fail(f"int4_matmul [{M}, {K}] @ [{K}, {N}]: max error "
+                     f"{err4:.3g} over {INT4_CARD_REL} of the output")
+            times[(M, K, N)] = {
+                "int8_matmul": cuda_time_ms(
+                    lambda: int8_matmul(x, q8["q8"], q8["s"]), 20),
+                "int8_product": cuda_time_ms(
+                    lambda: int8_product(xq, q8["q8"]), 20),
+                "int8_product_row_major": cuda_time_ms(
+                    lambda: int8_product(xq, row_major), 20),
+                "int4_matmul": cuda_time_ms(
+                    lambda: int4_matmul(x, q4["q4"], q4["s4"]), 20),
+                "bf16_matmul": cuda_time_ms(lambda: x @ wb, 20)}
+    # the STE backward and LoRA over an int8 base, at wqkv's shape
+    K, N = QUANT_SHAPES[0]
+    w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    q8 = quantize_int8(w)
+    x = torch.randn((32, K), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((32, N), generator=gen, device="cuda")
+    xg = x.clone().requires_grad_(True)
+    (int8_matmul(xg, q8["q8"], q8["s"]) * g).sum().backward()
+    want = ((g.cpu().double() * q8["s"].cpu().double())
+            @ q8["q8"].cpu().double().T)
+    err = float((xg.grad.cpu().double() - want).abs().max())
+    if err > BF16_REL * float(want.abs().max()):
+        fail(f"int8_matmul STE backward: max error {err:.3g}")
+    leaf = {"base": q8,
+            "a": (torch.randn((K, 16), generator=gen, device="cuda")
+                  * K ** -0.5).to(torch.bfloat16),
+            "b": (torch.randn((16, N), generator=gen, device="cuda")
+                  * 0.25).to(torch.bfloat16),
+            "scale": torch.tensor(2.0, device="cuda")}
+    got = matmul_any(x, leaf).float().cpu()
+    want = matmul_any(x.cpu(), {k: cpu(v) if isinstance(v, dict)
+                                else v.cpu() for k, v in leaf.items()})
+    err_lora = float((got - want.float()).abs().max())
+    if err_lora > BF16_REL * float(want.float().abs().max()):
+        fail(f"LoRA over int8: max error {err_lora:.3g}")
+    log(f"[quant] the int8 product through torch._int_mm is bit-equal to "
+        f"its plain version at every shape ({len(QUANT_SHAPES)} weights x "
+        f"rows {QUANT_ROWS}); int4 within {INT4_CARD_REL} of each output; "
+        f"STE backward max error {err:.3g}, LoRA over int8 {err_lora:.3g}")
+    return times
+
+
+def log_quant_times(times: dict, card: str) -> None:
+    for (M, K, N), t in times.items():
+        log(f"[time] [{M}, {K}] @ [{K}, {N}]: int8_matmul "
+            f"{t['int8_matmul'] * 1e3:.2f} us (its int32 product "
+            f"{t['int8_product'] * 1e3:.2f} us; with a row-major weight "
+            f"{t['int8_product_row_major'] * 1e3:.2f} us), int4_matmul "
+            f"{t['int4_matmul'] * 1e3:.2f} us, torch.matmul of the bf16 "
+            f"weights {t['bf16_matmul'] * 1e3:.2f} us (informational); on "
+            f"{card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: serve the headline configuration with int8 weights
+# ---------------------------------------------------------------------------
+
+def slab_oracle(cfg, params, prompt, steps):
+    """The port's greedy_decode (the slab decoder) for one request."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import greedy_decode
+    return greedy_decode(cfg, params, torch.tensor([prompt], device="cuda"),
+                         steps=steps)[0].tolist()
+
+
+def slab_oracle_logits_at(cfg, params, prompt, tokens, step):
+    """greedy_decode's logits at ``step`` when fed its own ``tokens``."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import (_token_logits, init_kv_cache,
+                                                prefill)
+    cache = init_kv_cache(cfg, 1, cfg.max_seq)
+    cache, logits = prefill(cfg, params, cache,
+                            torch.tensor([prompt], device="cuda"))
+    for i in range(step):
+        logits, cache = _token_logits(
+            cfg, params, cache, len(prompt) + i,
+            torch.tensor([tokens[i]], dtype=torch.int32, device="cuda"))
+    return logits[0].float()
+
+
+def quant_serve_phase(gen) -> dict:
+    """The headline configuration (section_paged's model, int8 weights
+    from the seed) served through serve() on the slab and on pages; every
+    answer held to greedy_decode on the card; the paged run must launch
+    the paged-attention kernel n_layers times a decode step, the slab run
+    never; both must take the int8 product on every matmul."""
+    import torch
+
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**MODEL)
+    params = quantize_params_int8(init_params(cfg, gen))
+    prompts = request_prompts(cfg.vocab)
+    wants: dict[int, list] = {}
+
+    def want(i):
+        if i not in wants:
+            wants[i] = slab_oracle(cfg, params, prompts[i], REQUESTS[i][1])
+        return wants[i]
+
+    runs = {}
+    for layout, engine in (("slab", dict(slots=32, chunk=8,
+                                         kv_layout="slab")),
+                           ("paged", ENGINE)):
+        label = f"serve int8 {layout}"
+        run = serve_requests(label, cfg, params, engine, prompts)
+        steps = run["decode_steps"]
+        # 4 matmuls a layer and the head a step, plus the prefills
+        if run["int8_calls"] < (4 * cfg.n_layers + 1) * steps:
+            fail(f"{label}: {run['int8_calls']} int8 products over {steps} "
+                 f"decode steps")
+        paged_ok = (run["launches"] >= cfg.n_layers * steps
+                    if layout == "paged" else run["launches"] == 0)
+        if not paged_ok:
+            fail(f"{label}: paged attention launched {run['launches']} "
+                 f"times over {steps} decode steps")
+        log(f"[{label}] {run['int8_calls']} int8 products and "
+            f"{run['launches']} paged-attention launches over {steps} "
+            f"decode steps")
+        hold_answers(label, run["answers"], want,
+                     lambda i, w, step: slab_oracle_logits_at(
+                         cfg, params, prompts[i], w, step))
+        runs[layout] = run
+    with torch.no_grad():
+        runs["profile"] = profile_decode_steps(cfg, params, gen)
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def profile_decode_steps(cfg, params, gen) -> dict:
+    """One decode step of each layout at the engine's 32 slots, every
+    slot at 256 tokens of context, under torch.profiler (after two
+    warm-up steps): device busy time and idle share (informational)."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import _token_logits, init_kv_cache
+    from tpu_dra_torch.workloads.paged_kv import (_paged_step,
+                                                  init_paged_cache)
+    B, ctx, ps = ENGINE["slots"], 256, ENGINE["page_size"]
+    token = torch.randint(0, cfg.vocab, (B,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    pos = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    slab = init_kv_cache(cfg, B, cfg.max_seq)
+    per_slot = -(-(ctx + 1) // ps)
+    pages = init_paged_cache(cfg, B * per_slot, ps, device="cuda")
+    table = torch.full((B, cfg.max_seq // ps), -1, dtype=torch.int32,
+                       device="cuda")
+    table[:, :per_slot] = torch.arange(B * per_slot, dtype=torch.int32,
+                                       device="cuda").reshape(B, per_slot)
+    steps = {"slab": lambda: _token_logits(cfg, params, slab, pos, token),
+             "paged": lambda: _paged_step(cfg, params, pages, token, pos,
+                                          table)}
+    out = {}
+    for layout, step in steps.items():
+        for _ in range(2):
+            step()
+        out[layout] = profile_call(
+            f"{layout} decode step (int8 weights, {B} slots at {ctx} "
+            f"tokens)", step)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2070,6 +2351,18 @@ def main() -> int:
         trained, fused, gqa_run = train_phase(gen, Path(tmp))
         sharded = sharded_phase(gen, str(Path(tmp) / "tokens.bin"))
         ringed = ring_phase(gen, str(Path(tmp) / "tokens.bin"))
+
+    quant_t = quant_phase(gen)
+    log_quant_times(quant_t, card)
+    quant_served = quant_serve_phase(gen)
+    from tpu_dra_torch.bench import section_decode
+    decoded = section_decode()
+    log(f"[bench] section_decode (greedy slab decode, batch 8, prompt 128, "
+        f"256 steps; informational): {json.dumps(decoded)}")
+    slab_tps = quant_served["slab"]["tokens_per_s"]
+    log(f"[serve] int8 weights: slab {slab_tps:.1f} tokens/s, paged "
+        f"{quant_served['paged']['tokens_per_s']:.1f} tokens/s for the 8 "
+        f"requests (informational); on {card}")
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

@@ -1,8 +1,10 @@
-"""Continuous paged engine of the PyTorch port
-(tpu_dra_torch/workloads/continuous.py) on the CPU: its greedy tokens
-against the port's own per-request decoder and the JAX engine, the
-scheduling contracts (no head-of-line blocking, FIFO page gate, pages
-back to the pool), sampling, and the features left for later slices.
+"""Continuous engine of the PyTorch port
+(tpu_dra_torch/workloads/continuous.py) on the CPU, in both KV layouts:
+its greedy tokens against the port's own per-request decoders and the
+JAX engine (bf16 and int8 weights on the slab), the scheduling contracts
+(no head-of-line blocking, FIFO page gate, pages back to the pool, slab
+writes past the end dropped), sampling, and the features left for later
+slices.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from torch_parity import (
     to_torch,
 )
 
+from tpu_dra.workloads import decode as jd
+from tpu_dra.workloads import quant as jq
 from tpu_dra.workloads.continuous import ContinuousEngine as JaxEngine
+from tpu_dra_torch.workloads import decode as td
 from tpu_dra_torch.workloads import paged_kv as tpk
 from tpu_dra_torch.workloads.continuous import (
     DEADLINE_ERROR,
@@ -40,7 +45,8 @@ JCFG, TCFG = cfg_pair(**CFG_KW)
 # noise, as tests/test_continuous_paged.py does for the reference engine
 JPARAMS = jax_params(JCFG, seed=0, embed_scale=4.0)
 PARAMS = to_torch(JPARAMS)
-ENGINE_KW = dict(slots=4, chunk=2, max_len=40, page_size=8, device="cpu")
+ENGINE_KW = dict(slots=4, chunk=2, max_len=40, page_size=8, device="cpu",
+                 kv_layout="paged")
 WAIT = 120
 
 
@@ -113,6 +119,104 @@ def test_greedy_equals_jax_engine():
     assert sum(agreed) >= len(reqs) * steps // 2   # the check has teeth
 
 
+# -------------------------------------------------------------------------
+# The slab layout
+# -------------------------------------------------------------------------
+
+SLAB_KW = dict(ENGINE_KW, kv_layout="slab")
+WEIGHTS = {"bf16": jq.cast_params_bf16, "int8": jq.quantize_params_int8}
+
+
+def port_slab_logits(params, prompt, tokens, cache_dtype="bf16"):
+    """The port's ``greedy_decode`` logits ``[steps, V]`` for one prompt
+    when fed ``tokens`` (step i's logits follow tokens < i)."""
+    cache = td.init_kv_cache(TCFG, 1, 40, cache_dtype, device="cpu")
+    cache, logits = td.prefill(TCFG, params, cache, torch.tensor([prompt]))
+    outs = [logits[0].float().numpy()]
+    for i, tok in enumerate(tokens[:-1]):
+        logits, cache = td._token_logits(
+            TCFG, params, cache, len(prompt) + i,
+            torch.tensor([tok], dtype=torch.int32))
+        outs.append(logits[0].float().numpy())
+    return np.stack(outs)
+
+
+def jax_slab_logits(jparams, prompt, tokens):
+    """The same for the reference's decoder."""
+    cache = jd.init_kv_cache(JCFG, 1, 40)
+    cache, logits = jd.prefill(JCFG, jparams, cache, np.asarray([prompt]))
+    outs = [np.asarray(logits[0])]
+    for i, tok in enumerate(tokens[:-1]):
+        logits, cache = jd._token_logits(JCFG, jparams, cache,
+                                         len(prompt) + i,
+                                         np.asarray([tok], np.int32))
+        outs.append(np.asarray(logits[0]))
+    return np.stack(outs)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("weights", WEIGHTS)
+def test_slab_greedy_equals_port_greedy_decode(weights, cache_dtype):
+    """On the slab, every request's tokens equal the port's own
+    per-request ``decode.greedy_decode``, up to a bf16 near-tie."""
+    params = to_torch(WEIGHTS[weights](JPARAMS))
+    eng = ContinuousEngine(TCFG, params, cache_dtype=cache_dtype, **SLAB_KW)
+    try:
+        got = submit_all(eng, REQS)
+    finally:
+        eng.shutdown()
+    for (prompt, steps), toks in zip(REQS, got):
+        want = td.greedy_decode(TCFG, params, torch.tensor([prompt]),
+                                steps=steps, max_len=40,
+                                cache_dtype=cache_dtype)[0].tolist()
+        assert len(toks) == steps
+        assert_greedy_agrees(want, port_slab_logits(params, prompt, want,
+                                                    cache_dtype), toks)
+
+
+@pytest.mark.parametrize("weights", WEIGHTS)
+def test_slab_greedy_equals_jax_engine(weights):
+    """Same serving tree, same requests: the port's slab engine follows
+    the JAX slab engine's greedy tokens, up to a reference near-tie."""
+    jparams = WEIGHTS[weights](JPARAMS)
+    steps = 6
+    reqs = [(p, steps) for p, _ in REQS]
+    jeng = JaxEngine(JCFG, jparams, slots=4, chunk=2, max_len=40)
+    try:
+        want = [jeng.submit(p, s, timeout=WAIT) for p, s in reqs]
+    finally:
+        jeng.shutdown()
+    eng = ContinuousEngine(TCFG, to_torch(jparams), **SLAB_KW)
+    try:
+        got = submit_all(eng, reqs)
+    finally:
+        eng.shutdown()
+    agreed = sum(assert_greedy_agrees(w, jax_slab_logits(jparams, p, w), g)
+                 for (p, _), w, g in zip(reqs, want, got))
+    assert agreed >= len(reqs) * steps // 2       # the check has teeth
+
+
+def test_slab_drops_writes_past_the_end_of_a_slot():
+    """A request that fills its slot to max_len runs its last chunk past
+    the end (9 decode steps in chunks of 4): those writes drop, and the
+    next request in the same slot is served right."""
+    params = to_torch(jq.quantize_params_int8(JPARAMS))
+    eng = ContinuousEngine(TCFG, params, **dict(SLAB_KW, slots=1, chunk=4))
+    reqs = [([5] * 30, 10), ([7, 8, 9], 6)]
+    try:
+        got = [eng.submit(p, s, timeout=WAIT) for p, s in reqs]
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    assert st["kv_layout"] == "slab" and "kv_pages_total" not in st
+    assert st["completed"] == 2
+    for (prompt, steps), toks in zip(reqs, got):
+        want = td.greedy_decode(TCFG, params, torch.tensor([prompt]),
+                                steps=steps, max_len=40)[0].tolist()
+        assert_greedy_agrees(want, port_slab_logits(params, prompt, want),
+                             toks)
+
+
 def test_short_request_after_long_finishes_first(engine):
     order = []
     long_req = engine.submit_async([1, 2, 3], steps=30)
@@ -131,7 +235,8 @@ def test_short_request_after_long_finishes_first(engine):
 
 def test_pages_return_after_retirement_and_cancel():
     eng = ContinuousEngine(TCFG, PARAMS, slots=1, chunk=2, max_len=40,
-                           page_size=8, total_pages=8, device="cpu")
+                           page_size=8, total_pages=8, device="cpu",
+                           kv_layout="paged")
     try:
         assert eng.submit([1, 2], 3, timeout=WAIT)
         assert eng.stats()["kv_pages_free"] == 8
@@ -159,7 +264,8 @@ def test_page_gate_is_fifo():
     """The head request waits for its pages; a smaller one behind it
     never overtakes it."""
     eng = ContinuousEngine(TCFG, PARAMS, slots=3, chunk=2, max_len=40,
-                           page_size=8, total_pages=5, device="cpu")
+                           page_size=8, total_pages=5, device="cpu",
+                           kv_layout="paged")
     try:
         first = eng.submit_async([1] * 8, 24)     # 4 pages
         big = eng.submit_async([2] * 8, 24)       # 4 pages: must wait
@@ -244,7 +350,7 @@ def test_select_tokens_samples_the_softmax():
 # -------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="slab"),
+@pytest.mark.parametrize("kw", [dict(kv_layout="slab", draft=(TCFG, PARAMS)),
                                 dict(draft=(TCFG, PARAMS)),
                                 dict(logit_bias={1: -1e9})],
                          ids=["slab", "draft", "logit_bias"])

@@ -819,3 +819,103 @@ def test_ring_wrappers_raise_on_what_the_kernels_do_not_take():
         cm.matmul_reduce_scatter(x[..., :32].float(), w[:, :, :32].float())
     with pytest.raises(ValueError, match="contiguous"):
         cm.all_gather_matmul(x[..., :32], w[:, :, :32].contiguous())
+
+
+# the quantized weight forms (quant.py): library products on the card,
+# held to the plain versions on the CPU (chip_smoke.py phase 15 holds them
+# at the serving model's shapes)
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 40])
+@pytest.mark.parametrize("layout", ["column", "row"])
+def test_int8_product_on_the_card_is_exact(rows, layout):
+    """torch._int_mm takes the product at any row count (rows up to 16
+    padded) and either weight layout, bit-equal to the plain version."""
+    from tpu_dra_torch.workloads.quant import (column_major, int8_product,
+                                               int8_product_ref)
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rows)
+    xq = torch.randint(-127, 128, (rows, 256), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (256, 96), generator=gen, device=dev,
+                       dtype=torch.int8)
+    if layout == "column":
+        wq = column_major(wq)
+    got = int8_product(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (rows, 96)
+    assert torch.equal(got, int8_product_ref(xq, wq))
+
+
+def test_int8_matmul_and_its_backward_on_the_card():
+    from tpu_dra_torch.workloads.quant import int8_matmul, quantize_int8
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q = quantize_int8(torch.randn((128, 64), generator=gen, device=dev))
+    x = torch.randn((2, 5, 128), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    y = int8_matmul(x, q["q8"], q["s"])
+    xc = x.detach().cpu().requires_grad_()
+    yc = int8_matmul(xc, q["q8"].cpu(), q["s"].cpu())
+    assert torch.equal(y.detach().cpu(), yc.detach())
+    g = torch.randn(y.shape, generator=gen, device=dev)
+    (y * g).sum().backward()
+    (yc * g.cpu()).sum().backward()
+    torch.testing.assert_close(x.grad.cpu().float(), xc.grad.float(),
+                               rtol=2 ** -7, atol=1e-3)
+
+
+def test_int8_product_refuses_what_int_mm_does_not_take():
+    from tpu_dra_torch.workloads.quant import int8_product
+    dev = card()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_product(torch.zeros((32, 12), dtype=torch.int8, device=dev),
+                     torch.zeros((12, 16), dtype=torch.int8, device=dev))
+
+
+@pytest.mark.parametrize("group", [32, 128])
+def test_int4_matmul_on_the_card_within_fp32_sums(group):
+    from tpu_dra_torch.workloads.quant import int4_matmul, quantize_int4
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(group)
+    q = quantize_int4(torch.randn((256, 96), generator=gen, device=dev),
+                      group)
+    x = torch.randn((3, 7, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = int4_matmul(x, q["q4"], q["s4"]).cpu()
+    want = int4_matmul(x.cpu(), q["q4"].cpu(), q["s4"].cpu())
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_slab_decode_on_the_card_follows_the_cpu():
+    """The slab decoder over int8 weights and an int8 cache on a small
+    model: the card's prefill and decode-step logits within bf16
+    tolerance of the CPU's (plain versions), and its decode runs."""
+    from tpu_dra_torch.workloads.continuous import _to_device
+    from tpu_dra_torch.workloads.decode import (_token_logits, greedy_decode,
+                                                init_kv_cache, prefill)
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    dev = card()
+    cfg = ModelConfig(vocab=256, d_model=128, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=256, max_seq=64, pos_emb="rope")
+    gen = torch.Generator().manual_seed(0)
+    params = quantize_params_int8(init_params(cfg, gen))
+    prompt = torch.randint(0, 256, (3, 9), generator=gen)
+    logits = {}
+    for where in ("cpu", dev):
+        p = _to_device(params, where)
+        cache = init_kv_cache(cfg, 3, 16, "int8", device=where)
+        cache, first = prefill(cfg, p, cache, prompt.to(where))
+        step, cache = _token_logits(
+            cfg, p, cache, 9, torch.tensor([5, 6, 7], dtype=torch.int32,
+                                           device=where))
+        logits[str(where)] = (first.cpu(), step.cpu())
+        toks = greedy_decode(cfg, p, prompt.to(where), steps=6,
+                             cache_dtype="int8")
+        assert toks.shape == (3, 6) and toks.device.type == \
+            torch.device(where).type
+    for got, want in zip(logits[str(dev)], logits["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2 ** -5, atol=2 ** -4)

@@ -184,16 +184,17 @@ def test_norm_matmul_admits_what_the_reference_admits(case, monkeypatch):
 
 def test_norm_matmul_sends_dict_leaves_to_the_plain_pair(monkeypatch):
     """A dict (quantized or LoRA) leaf never reaches the fused kernel: it
-    takes ``matmul_any``, which does not take such leaves yet."""
+    takes the plain pair, rmsnorm then ``matmul_any``."""
+    from tpu_dra_torch.workloads.quant import matmul_any, quantize_int8
     calls = []
     monkeypatch.setattr(tm, "fused_rmsnorm_matmul",
                         lambda *a, **kw: calls.append(a))
-    x = torch.zeros((2, 256, 64), dtype=torch.bfloat16)
-    leaf = {"q": torch.zeros((64, 128), dtype=torch.int8),
-            "scale": torch.ones(128)}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tt._norm_matmul(x, torch.ones(64), leaf, torch.bfloat16, "fused")
-    assert calls == []
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 256, 64), generator=gen).to(torch.bfloat16)
+    leaf = quantize_int8(torch.randn((64, 128), generator=gen))
+    got = tt._norm_matmul(x, torch.ones(64), leaf, torch.bfloat16, "fused")
+    want = matmul_any(tt._rmsnorm(x, torch.ones(64)), leaf, torch.bfloat16)
+    assert calls == [] and torch.equal(got, want)
 
 
 def test_bench_section_measures_the_card_only(monkeypatch):

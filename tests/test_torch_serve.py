@@ -1,18 +1,30 @@
 """HTTP front end of the PyTorch port (tpu_dra_torch/workloads/serve.py)
-on the CPU: /healthz, /stats and /generate over the continuous paged
-engine."""
+on the CPU: /healthz, /stats and /generate over the continuous engine in
+both KV layouts, the serving weight forms, and the command line serving
+an int8 npz."""
 
 from __future__ import annotations
 
 import json
+import re
+import subprocess
+import sys
 import urllib.error
 import urllib.request
+from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
-from torch_parity import cfg_pair, jax_params, to_torch
+from torch_parity import assert_greedy_agrees, cfg_pair, jax_params, to_torch
 
-from tpu_dra_torch.workloads.serve import main, serve
+from tpu_dra_torch.convert import save_npz
+from tpu_dra_torch.workloads import decode as td
+from tpu_dra_torch.workloads.quant import quantize_params_int8
+from tpu_dra_torch.workloads.serve import load_params, main, serve
+
+ROOT = Path(__file__).resolve().parent.parent
 
 JCFG, TCFG = cfg_pair(vocab=96, d_model=64, n_heads=4, n_kv_heads=2,
                    n_layers=2, d_ff=128, max_seq=64, pos_emb="rope")
@@ -22,7 +34,7 @@ PARAMS = to_torch(jax_params(JCFG, seed=3))
 @pytest.fixture(scope="module")
 def server():
     srv = serve(TCFG, PARAMS, port=0, slots=4, chunk=2, page_size=8,
-                device="cpu")
+                device="cpu", kv_layout="paged")
     yield srv
     srv.shutdown()
 
@@ -103,3 +115,95 @@ def test_healthz_ands_the_external_verdict():
         assert exc.value.read() == b"chip reports unhealthy"
     finally:
         srv.shutdown()
+
+
+def oracle_agrees(params, prompt, steps, got):
+    """``got`` follows the port's ``greedy_decode`` up to a near-tie."""
+    want = td.greedy_decode(TCFG, params, torch.tensor([prompt]),
+                            steps=steps, max_len=64)[0].tolist()
+    cache = td.init_kv_cache(TCFG, 1, 64, device="cpu")
+    cache, logits = td.prefill(TCFG, params, cache, torch.tensor([prompt]))
+    lg = [logits[0].float().numpy()]
+    for i, tok in enumerate(want[:-1]):
+        logits, cache = td._token_logits(
+            TCFG, params, cache, len(prompt) + i,
+            torch.tensor([tok], dtype=torch.int32))
+        lg.append(logits[0].float().numpy())
+    return assert_greedy_agrees(want, np.stack(lg), got)
+
+
+def test_slab_server_with_int8_weights():
+    """The default layout (the slab) over int8 weights: each row follows
+    the port's greedy_decode, and equals the same request through the
+    engine."""
+    params = quantize_params_int8(PARAMS)
+    srv = serve(TCFG, params, port=0, slots=4, chunk=2, device="cpu")
+    try:
+        rows = [[5, 6, 7], [1, 2, 3, 4, 5, 6, 7, 8, 9], [42]]
+        code, out = post(srv, "/generate", {"tokens": rows, "steps": 6})
+        assert code == 200
+        st = srv.engine.stats()
+        assert st["kv_layout"] == "slab" and "kv_pages_total" not in st
+        for r, toks in zip(rows, out["tokens"]):
+            assert len(toks) == 6
+            oracle_agrees(params, r, 6, toks)
+            assert srv.engine.submit(r, 6, timeout=120) == toks
+    finally:
+        srv.shutdown()
+
+
+def test_load_params_forms_and_a_quantized_npz(tmp_path):
+    path = tmp_path / "w.npz"
+    save_npz(path, PARAMS)
+    for form, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        p = load_params(TCFG, params_npz=str(path), weights=form,
+                        device="cpu")
+        assert p["blocks"]["wqkv"].dtype == dtype
+    p4 = load_params(TCFG, params_npz=str(path), weights="int4",
+                     device="cpu")
+    assert sorted(p4["blocks"]["w1"]) == ["q4", "s4"]
+    q = quantize_params_int8(PARAMS)
+    save_npz(tmp_path / "q.npz", q)
+    served = load_params(TCFG, params_npz=str(tmp_path / "q.npz"),
+                         weights="int8", device="cpu")
+    assert torch.equal(served["unembed"]["q8"], q["unembed"]["q8"])
+    assert served["unembed"]["s"].dtype == torch.float32  # not re-cast
+    with pytest.raises(ValueError, match="holds int8"):
+        load_params(TCFG, params_npz=str(tmp_path / "q.npz"),
+                    weights="bf16", device="cpu")
+    with pytest.raises(ValueError, match="weights must be"):
+        load_params(TCFG, init_seed=0, weights="int2", device="cpu")
+
+
+def test_cli_serves_an_int8_npz_on_the_cpu(tmp_path):
+    """``python -m tpu_dra_torch.workloads.serve --continuous --params-npz
+    w.npz --weights int8 --device cpu``: the served tokens follow the
+    port's greedy_decode over the same int8 weights; SIGTERM drains and
+    exits 0."""
+    path = tmp_path / "w.npz"
+    save_npz(path, PARAMS)
+    cmd = [sys.executable, "-m", "tpu_dra_torch.workloads.serve",
+           "--continuous", "--params-npz", str(path), "--weights", "int8",
+           "--device", "cpu", "--port", "0", "--host", "127.0.0.1",
+           "--vocab", "96", "--d-model", "64", "--n-heads", "4",
+           "--n-kv-heads", "2", "--n-layers", "2", "--d-ff", "128",
+           "--max-seq", "64", "--slots", "2", "--chunk", "2"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        line = ""
+        while "serving on" not in line:
+            line = proc.stdout.readline()
+            assert line, "the server exited before serving"
+        port = int(re.search(r", (\d+)\)", line).group(1))
+        body = json.dumps({"tokens": [[3, 1, 4, 1, 5]], "steps": 5}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            toks = json.loads(resp.read())["tokens"][0]
+    finally:
+        proc.terminate()
+        rc = proc.wait(timeout=60)
+    assert rc == 0
+    oracle_agrees(quantize_params_int8(PARAMS), [3, 1, 4, 1, 5], 5, toks)

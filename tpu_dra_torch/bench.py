@@ -1,21 +1,64 @@
 """Benchmark sections of the port, the counterparts of ``bench.py``'s.
 
-So far one: :func:`section_pallas_matmul`, the tiled-matmul kernel's
-throughput (``bench.py`` ``section_pallas_matmul``).  The other sections
-wait for the bench slice of the port.  A section measures the card: it
-raises where CUDA is absent instead of timing the CPU.
+- :func:`section_pallas_matmul`: the tiled-matmul kernel's throughput;
+- :func:`section_decode`, :func:`section_decode_long`: greedy slab decode
+  tokens/s of the serving model over bf16, int8 and int4 weights, GQA,
+  an int8 KV cache and a 256-slot window;
+- :func:`section_continuous`, :func:`section_paged`: the continuous
+  engine under a mixed-length load of concurrent requests (slab, and
+  paged with a pool a third of the slab's size), int8 weights: tokens/s
+  and p50/p95 request latency.  The reference's speculative ceilings
+  wait for draft models in the port.
 
-    python -m tpu_dra_torch.bench       # prints one JSON line
+A section measures the card: it raises where CUDA is absent instead of
+timing the CPU, and records the card's name and power limit (as
+``nvidia-smi`` prints them) beside its numbers.
+
+    python -m tpu_dra_torch.bench [SECTION ...]   # prints one JSON line
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import subprocess
+import sys
+import time
 
 import torch
 
+from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.workloads.quant import (
+    cast_params_bf16,
+    quantize_params_int4,
+    quantize_params_int8,
+)
+from tpu_dra_torch.workloads.train import ModelConfig, init_params
+
 # NVIDIA's data-sheet dense bf16 peak of one H100 SXM
 H100_BF16_FLOPS = 989e12
+
+# the decode sections' model (bench.py _decode_env on a TPU): learned
+# positions, full attention heads; and their batch, prompt and steps
+DECODE_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8,
+                    d_ff=4096, max_seq=1024)
+DECODE_RUN = dict(B=8, S=128, steps=256)
+# the headline serving model of the engine sections: GQA, rope
+SERVING_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
+                     n_layers=8, d_ff=4096, max_seq=1024, pos_emb="rope")
+# their request mix: prompt lengths and steps cycle over the requests
+LOAD = dict(lengths=[16, 32, 64, 128], steps=[32, 64, 96, 128])
+
+
+def card_info(dev: torch.device) -> dict:
+    """The card's name, and its name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={dev.index or 0}"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return {"device": torch.cuda.get_device_name(dev),
+            "nvidia_smi": smi.stdout.strip()}
 
 
 def section_pallas_matmul() -> dict:
@@ -25,7 +68,6 @@ def section_pallas_matmul() -> dict:
     after a warm-up.  Returns ``pallas_matmul_tflops`` (2n³ per op) and
     its share of the card's 989 TF/s bf16 peak as
     ``pallas_matmul_mfu_pct``, with the card's name."""
-    from tpu_dra_torch.device import resolve_device
     from tpu_dra_torch.workloads.matmul import matmul
     n, iters = 4096, 200
     dev = resolve_device()
@@ -58,8 +100,173 @@ def section_pallas_matmul() -> dict:
             "device": torch.cuda.get_device_name(dev)}
 
 
-def main() -> None:
-    print(json.dumps(section_pallas_matmul()))
+def decode_seconds(cfg: ModelConfig, *, quant=cast_params_bf16,
+                   cache_dtype: str = "bf16", B: int, S: int, steps: int,
+                   window: int | None = None, device, reps: int = 3) -> float:
+    """Best wall time of ``reps`` greedy decodes of ``steps`` tokens after
+    a ``[B, S]`` prompt (one warm-up first), each ended by a readback of
+    its last token: weights ``quant(init_params(seed 0))``, prompt from
+    seed 1, the cache sized to the live sequence (or ``window`` slots)."""
+    from tpu_dra_torch.workloads.decode import make_decoder
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = quant(init_params(cfg, gen))
+    gen.manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    dec = make_decoder(cfg, steps=steps,
+                       max_len=None if window else S + steps,
+                       cache_dtype=cache_dtype, window=window, device=device)
+
+    def run():
+        int(dec(params, prompt)[0, -1])
+
+    run()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _rates(out: dict, key: str, secs: float, B: int, steps: int) -> None:
+    out[f"{key}_tokens_per_s"] = round(B * steps / secs, 1)
+    out[f"{key}_ms_per_token"] = round(secs / steps * 1e3, 3)
+
+
+def section_decode() -> dict:
+    """Greedy slab decode of the serving model at batch 8, prompt 128,
+    256 steps (host clock, best of 3): bf16, int8 and int4 weights, each
+    with full heads and with GQA (kv heads = heads / 4), and int8 + GQA at
+    batch 32."""
+    dev = resolve_device()
+    cfg = ModelConfig(**DECODE_MODEL)
+    gqa = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads // 4)
+    B, S, steps = DECODE_RUN["B"], DECODE_RUN["S"], DECODE_RUN["steps"]
+    out: dict = {"decode_steps": steps, "decode_batch": B}
+    forms = {"": cast_params_bf16, "_int8": quantize_params_int8,
+             "_int4": quantize_params_int4}
+    for model, tag in ((cfg, ""), (gqa, "_gqa")):
+        for form, quant in forms.items():
+            secs = decode_seconds(model, quant=quant, B=B, S=S, steps=steps,
+                                  device=dev)
+            _rates(out, f"decode{form}{tag}", secs, B, steps)
+    secs = decode_seconds(gqa, quant=quantize_params_int8, B=32, S=S,
+                          steps=steps, device=dev)
+    _rates(out, "decode_int8_gqa_b32", secs, 32, steps)
+    out.update(card_info(dev))
+    return out
+
+
+def section_decode_long() -> dict:
+    """Long-context decode: a 1024-token prompt at batch 8, 256 steps,
+    where the cache read dominates: bf16 weights and cache; int8 weights
+    and int8 cache; int8 weights and cache over a 256-slot window (rope).
+    ``max_seq`` grows to hold the decoded positions."""
+    dev = resolve_device()
+    cfg = ModelConfig(**DECODE_MODEL)
+    B, steps, SL = DECODE_RUN["B"], DECODE_RUN["steps"], 1024
+    long_cfg = dataclasses.replace(cfg, max_seq=SL + steps)
+    rope_cfg = dataclasses.replace(cfg, pos_emb="rope", max_seq=SL)
+    out: dict = {}
+    runs = {"decode_long": (long_cfg, cast_params_bf16, "bf16", None),
+            "decode_long_full_int8": (long_cfg, quantize_params_int8, "int8",
+                                      None),
+            "decode_long_window256_int8": (rope_cfg, quantize_params_int8,
+                                           "int8", 256)}
+    for key, (model, quant, cache_dtype, window) in runs.items():
+        secs = decode_seconds(model, quant=quant, cache_dtype=cache_dtype,
+                              B=B, S=SL, steps=steps, window=window,
+                              device=dev)
+        _rates(out, key, secs, B, steps)
+    out.update(card_info(dev))
+    return out
+
+
+def serve_load(eng, *, n_req: int, lengths: list[int], steps: list[int],
+               timeout: float = 600) -> dict:
+    """Warm every prompt bucket of ``eng``, then submit ``n_req`` requests
+    at once (prompt ``[7 + i % 100] * lengths[i % ...]``, ``steps[i %
+    ...]`` tokens) and wait for all: tokens/s over the wall time, the
+    engine's p50/p95 request latency, and the first error if any."""
+    for n in lengths:
+        eng.submit([1] * n, steps=eng.chunk, timeout=timeout)
+    eng.reset_stats()
+    reqs = [([7 + i % 100] * lengths[i % len(lengths)],
+             steps[i % len(steps)]) for i in range(n_req)]
+    t0 = time.perf_counter()
+    handles = [eng.submit_async(p, s) for p, s in reqs]
+    errs = []
+    for h in handles:
+        if not h.done.wait(timeout):
+            errs.append(f"timeout: request not done within {timeout}s")
+        elif h.error:
+            errs.append(h.error)
+    secs = time.perf_counter() - t0
+    stats = eng.stats()
+    out = {"tokens_per_s": round(sum(len(h.tokens) for h in handles) / secs,
+                                 1),
+           "req_p50_ms": stats.get("latency_p50_ms"),
+           "req_p95_ms": stats.get("latency_p95_ms")}
+    if errs:
+        out["errors"] = errs[0][:200]
+    return out
+
+
+def _engine_section(prefix: str, n_req: int, **engine_kw) -> dict:
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    dev = resolve_device()
+    cfg = ModelConfig(**SERVING_MODEL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = quantize_params_int8(init_params(cfg, gen))
+    eng = ContinuousEngine(cfg, params, slots=32, chunk=8, device=dev,
+                           **engine_kw)
+    try:
+        load = serve_load(eng, n_req=n_req, **LOAD)
+        out = {f"{prefix}_{k}": v for k, v in load.items()}
+        if eng.pool is not None:
+            out[f"{prefix}_pool_pages"] = eng.pool.total_pages
+            out[f"{prefix}_page_size"] = eng.pool.page_size
+            out[f"{prefix}_pool_vs_slab_pct"] = round(
+                100.0 * eng.pool.total_pages / (eng.slots * eng._mp), 1)
+    finally:
+        eng.shutdown()
+    out[f"{prefix}_slots"] = 32
+    out[f"{prefix}_requests"] = n_req
+    out.update(card_info(dev))
+    return out
+
+
+def section_continuous() -> dict:
+    """The continuous engine on the slab: the headline serving model with
+    int8 weights, 32 slots, chunk 8, 96 mixed-length requests at once."""
+    return _engine_section("continuous", 96, kv_layout="slab")
+
+
+def section_paged() -> dict:
+    """The same load over pages: 64 requests, 64-token pages, a pool of
+    160 pages (the worst live need is 128; the slab would hold 512)."""
+    return _engine_section("paged", 64, kv_layout="paged", page_size=64,
+                           total_pages=160)
+
+
+SECTIONS = {"pallas_matmul": section_pallas_matmul,
+            "decode": section_decode, "decode_long": section_decode_long,
+            "continuous": section_continuous, "paged": section_paged}
+
+
+def main(argv=None) -> None:
+    names = (sys.argv[1:] if argv is None else argv) or list(SECTIONS)
+    unknown = [n for n in names if n not in SECTIONS]
+    if unknown:
+        raise SystemExit(f"unknown sections {unknown}; choose from "
+                         f"{sorted(SECTIONS)}")
+    out: dict = {}
+    for name in names:
+        out.update(SECTIONS[name]())
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -1,18 +1,27 @@
-"""Continuous batching over a paged KV cache, ported from
-``tpu_dra/workloads/continuous.py`` (``kv_layout="paged"``, plain
-admissions).
+"""Continuous batching, ported from ``tpu_dra/workloads/continuous.py``
+(both KV layouts, plain admissions).
 
 A fixed pool of ``slots`` sequences decodes together, every slot at its
 own position; between chunks of ``chunk`` tokens the batcher thread
 admits queued requests into free slots and retires finished ones, so a
 short request submitted after a long one finishes first.
 
-Admission is page-gated and FIFO: the head request waits until the pool
-has its worst-case pages (prompt + steps), and later requests never
-overtake it.  Admissions of the same prompt bucket are prefilled
-together in power-of-two groups.  Retirement sentinels the slot's table
-row before its pages return to the pool, so in-flight appends for the
-slot drop.
+KV layouts:
+
+- ``"slab"`` (the default, as in the reference): one ``max_len`` row of a
+  slab cache per slot (``decode.init_kv_cache``).  An admission group
+  prefills a ``[k, Sb]`` cache of its own and copies it into its slots'
+  rows; a step is ``decode._token_logits`` over all slots, whose writes
+  past ``max_len`` (finished slots running out a chunk) are dropped.
+- ``"paged"``: KV pages from a shared pool (``paged_kv.py``), the decode
+  step's attention in the paged-attention kernel.  Admission is
+  page-gated and FIFO: the head request waits until the pool has its
+  worst-case pages (prompt + steps), and later requests never overtake
+  it.  Retirement sentinels the slot's table row before its pages return
+  to the pool, so in-flight appends for the slot drop.
+
+Admissions of the same prompt bucket are prefilled together in
+power-of-two groups.
 
 Sampling: greedy at temperature 0; above it, a Gumbel-max draw from the
 temperature-scaled (and engine-global top-k/top-p filtered) logits, with
@@ -20,9 +29,8 @@ the noise drawn from one ``torch.Generator`` per request seeded from its
 ``seed``.  Outputs are reproducible per (prompt, steps, seed,
 temperature), but they are not ``jax.random``'s stream.
 
-Left for later slices (they raise ``ValueError``): the slab layout,
-speculative drafts, shared prefixes, logit bias, stop sequences and KV
-handoff.
+Left for later slices (they raise ``ValueError``): speculative drafts,
+shared prefixes, logit bias, stop sequences and KV handoff.
 """
 
 from __future__ import annotations
@@ -36,7 +44,13 @@ from typing import Optional
 import torch
 
 from tpu_dra_torch.device import resolve_device
-from tpu_dra_torch.workloads.decode import _filter_topk_topp
+from tpu_dra_torch.workloads.decode import (
+    _filter_topk_topp,
+    _token_logits,
+    gumbel_noise,
+    init_kv_cache,
+    prefill_ragged,
+)
 from tpu_dra_torch.workloads.paged_kv import (
     PagePool,
     _paged_step,
@@ -81,13 +95,6 @@ class _Request:
         return self.finished - self.submitted
 
 
-def gumbel_noise(n: int, generator: torch.Generator) -> torch.Tensor:
-    """``n`` standard Gumbel draws from ``generator`` (on its device)."""
-    u = torch.rand(n, generator=generator, device=generator.device)
-    tiny = torch.finfo(u.dtype).tiny
-    return -torch.log(-torch.log(u.clamp_min(tiny)))
-
-
 def select_tokens(logits, temps, noise, top_k: int = 0,
                   top_p: float = 0.0):
     """Per-row token choice: argmax at temperature 0, else the Gumbel-max
@@ -103,7 +110,7 @@ def select_tokens(logits, temps, noise, top_k: int = 0,
 
 class ContinuousEngine:
     """Slot-based continuously-batched decoder over one model, with a
-    paged KV cache.
+    slab or a paged KV cache (``kv_layout``).
 
     ``submit()`` blocks until the request's tokens are complete;
     concurrent submitters are batched dynamically.  ``slots`` bounds the
@@ -117,16 +124,16 @@ class ContinuousEngine:
                  chunk: int = 4, top_k: int = 0, top_p: float = 0.0,
                  logit_bias: Optional[dict[int, float]] = None,
                  latency_window: int = 1024, draft=None,
-                 kv_layout: str = "paged", page_size: int = 64,
+                 kv_layout: str = "slab", page_size: int = 64,
                  total_pages: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if kv_layout != "paged":
-            raise ValueError(f"kv_layout {kv_layout!r}: only 'paged' is "
-                             f"ported; the slab layout is {_LATER}")
+        if kv_layout not in ("slab", "paged"):
+            raise ValueError(f"kv_layout must be 'slab' or 'paged', "
+                             f"got {kv_layout!r}")
         if draft is not None:
             raise ValueError(f"speculative drafts are {_LATER}")
         if logit_bias:
@@ -143,24 +150,32 @@ class ContinuousEngine:
                 f"table (max_seq={cfg.max_seq})")
         self.top_k = top_k
         self.top_p = top_p
-        ps = page_size
-        # a power-of-two page and max_len a page multiple keep every
-        # clamped prompt bucket's page padding inside max_len
-        if ps < 1 or ps & (ps - 1):
-            raise ValueError(f"page_size must be a power of two, got {ps}")
-        if ps > self.max_len or self.max_len % ps:
-            raise ValueError(
-                f"max_len {self.max_len} must be a multiple of "
-                f"page_size {ps} (and at least one page)")
-        self._mp = self.max_len // ps              # pages per slot, max
-        cap = total_pages if total_pages is not None else slots * self._mp
-        self.pool = PagePool(cap, ps)
+        self.cache_dtype = cache_dtype
         dev = self.device
-        self._cache = init_paged_cache(cfg, cap, ps, cache_dtype,
-                                       device=dev)
-        self._table = torch.full((slots, self._mp), -1, dtype=torch.int32,
-                                 device=dev)
+        self.pool: Optional[PagePool] = None
         self._page_ids: list[Optional[list[int]]] = [None] * slots
+        if kv_layout == "slab":
+            self._cache = init_kv_cache(cfg, slots, self.max_len,
+                                        cache_dtype, device=dev)
+        else:
+            ps = page_size
+            # a power-of-two page and max_len a page multiple keep every
+            # clamped prompt bucket's page padding inside max_len
+            if ps < 1 or ps & (ps - 1):
+                raise ValueError(f"page_size must be a power of two, got "
+                                 f"{ps}")
+            if ps > self.max_len or self.max_len % ps:
+                raise ValueError(
+                    f"max_len {self.max_len} must be a multiple of "
+                    f"page_size {ps} (and at least one page)")
+            self._mp = self.max_len // ps          # pages per slot, max
+            cap = total_pages if total_pages is not None \
+                else slots * self._mp
+            self.pool = PagePool(cap, ps)
+            self._cache = init_paged_cache(cfg, cap, ps, cache_dtype,
+                                           device=dev)
+            self._table = torch.full((slots, self._mp), -1,
+                                     dtype=torch.int32, device=dev)
         # device state: fixed shapes for the engine's lifetime
         self._token = torch.zeros(slots, dtype=torch.int32, device=dev)
         self._pos = torch.zeros(slots, dtype=torch.int32, device=dev)
@@ -185,7 +200,7 @@ class ContinuousEngine:
         self.completed = 0
         self.cancelled = 0
         self.tokens_out = 0
-        self.decode_steps = 0             # _paged_step calls (all slots)
+        self.decode_steps = 0             # decode steps (all slots)
         self.expired_queued = 0
         self.expired_active = 0
         # slot-seconds by outcome: answers somebody received vs answers
@@ -239,14 +254,15 @@ class ContinuousEngine:
             raise ValueError(f"steps must be >= 1, got {steps}")
         if eos_id is not None and not 0 <= eos_id < cfg.vocab:
             raise ValueError(f"eos_id must be in [0, {cfg.vocab})")
-        need = self.pool.pages_for(len(prompt) + steps)
-        if need > self.pool.total_pages:
+        if self.pool is not None and self.pool.pages_for(
+                len(prompt) + steps) > self.pool.total_pages:
             # an unservable request must fail here: the FIFO gate would
             # otherwise wait on it forever and starve everything behind
             raise ValueError(
-                f"request needs {need} KV pages (prompt {len(prompt)} + "
-                f"steps {steps} @ page_size {self.pool.page_size}) but "
-                f"the pool only has {self.pool.total_pages}")
+                f"request needs {self.pool.pages_for(len(prompt) + steps)} "
+                f"KV pages (prompt {len(prompt)} + steps {steps} @ "
+                f"page_size {self.pool.page_size}) but the pool only has "
+                f"{self.pool.total_pages}")
         if len(prompt) + steps > self.max_len:
             raise ValueError(
                 f"prompt {len(prompt)} + steps {steps} exceeds the "
@@ -289,11 +305,12 @@ class ContinuousEngine:
             n = min(b, self.max_len - 2)
             if n < 1:
                 continue
-            need = self.pool.pages_for(n + 2)
-            if need > self.pool.total_pages:
-                continue                  # bucket unservable at this pool
-            if k > 1 and need * k > self.pool.total_pages:
-                k = max(1, self.pool.total_pages // need)
+            if self.pool is not None:
+                need = self.pool.pages_for(n + 2)
+                if need > self.pool.total_pages:
+                    continue              # bucket unservable at this pool
+                if k > 1 and need * k > self.pool.total_pages:
+                    k = max(1, self.pool.total_pages // need)
             self.submit([1] * n, 2, timeout=600)
             if k > 1:
                 group = [self.submit_async([1] * n, 2) for _ in range(k)]
@@ -345,13 +362,15 @@ class ContinuousEngine:
                "goodput_slot_s": round(self.goodput_slot_s, 4),
                "badput_slot_s": {k: round(v, 4)
                                  for k, v in self.badput_slot_s.items()},
-               "kv_pages_total": self.pool.total_pages,
-               "kv_pages_free": self.pool.free_pages,
-               "kv_page_size": self.pool.page_size,
+               "kv_layout": self.kv_layout,
                "device": str(self.device),
                # process-wide count of paged-attention kernel launches
                # (stays 0 on the CPU, where the plain version runs)
                "paged_attention_launches": paged_attention.launches}
+        if self.pool is not None:
+            out["kv_pages_total"] = self.pool.total_pages
+            out["kv_pages_free"] = self.pool.free_pages
+            out["kv_page_size"] = self.pool.page_size
         if lat:
             out["latency_p50_ms"] = round(1e3 * lat[len(lat) // 2], 3)
             out["latency_p95_ms"] = round(
@@ -419,9 +438,9 @@ class ContinuousEngine:
         raise ValueError(n)
 
     def _admit(self) -> None:
-        """Fill free slots from the FIFO queue behind the page gate, then
-        prefill each prompt bucket's admissions together in power-of-two
-        groups."""
+        """Fill free slots from the FIFO queue (behind the page gate on
+        pages), then prefill each prompt bucket's admissions together in
+        power-of-two groups."""
         self._expire_queued()
         assigned: list[tuple[int, _Request]] = []
         for slot in range(self.slots):
@@ -440,14 +459,16 @@ class ContinuousEngine:
                 # FIFO-preserving page gate: if the head cannot get its
                 # worst-case pages, stop admitting — later, smaller
                 # requests must not starve it
-                need = self.pool.pages_for(len(req.prompt) + req.steps)
-                if need > self.pool.free_pages:
-                    break
+                if self.pool is not None:
+                    need = self.pool.pages_for(len(req.prompt) + req.steps)
+                    if need > self.pool.free_pages:
+                        break
                 self._pending.popleft()
-            own = self.pool.alloc(need)
-            self._page_ids[slot] = own
-            self._table[slot] = torch.from_numpy(
-                self.pool.table_row(own, self._mp)).to(self.device)
+            if self.pool is not None:
+                own = self.pool.alloc(need)
+                self._page_ids[slot] = own
+                self._table[slot] = torch.from_numpy(
+                    self.pool.table_row(own, self._mp)).to(self.device)
             # attached before the prefill: if admission raises, the
             # request is visible to _fail_all instead of orphaned
             self._requests[slot] = req
@@ -512,8 +533,11 @@ class ContinuousEngine:
         lengths = torch.tensor([len(req.prompt) for _, req in group],
                                dtype=torch.int32, device=dev)
         slots = torch.tensor([slot for slot, _ in group], device=dev)
-        logits = prefill_pages(self.cfg, self.params, self._cache, prompts,
-                               lengths, self._table[slots])
+        if self.pool is not None:
+            logits = prefill_pages(self.cfg, self.params, self._cache,
+                                   prompts, lengths, self._table[slots])
+        else:
+            logits = self._prefill_slab(prompts, lengths, slots)
         gens = []
         for _, req in group:
             g = None
@@ -528,6 +552,20 @@ class ContinuousEngine:
         # one readback per admission group: the clients need these tokens
         for (slot, req), g, tok in zip(group, gens, first.tolist()):
             self._finish_admission(slot, req, tok, g)
+
+    def _prefill_slab(self, prompts, lengths, slots):
+        """Prefill ``[k, Sb]`` right-padded prompts into a cache of their
+        own, copy it into the slots' rows (pad positions land there too,
+        masked until decode overwrites them), and return the logits at
+        each prompt's last real token."""
+        k, Sb = prompts.shape
+        small = init_kv_cache(self.cfg, k, Sb, self.cache_dtype,
+                              device=self.device)
+        small, logits = prefill_ragged(self.cfg, self.params, small, prompts,
+                                       lengths)
+        for name, buf in self._cache.items():
+            buf[:, slots, :, :Sb] = small[name]
+        return logits
 
     def _finish_admission(self, slot: int, req: _Request, first: int,
                           gen: Optional[torch.Generator]) -> None:
@@ -581,8 +619,9 @@ class ContinuousEngine:
 
     def _chunk_step(self):
         """Advance every slot ``chunk`` tokens.  Free and finished slots
-        compute too (their writes drop on -1 table rows, their tokens are
-        never emitted); a frozen slot holds its token and position.
+        compute too (their writes drop on -1 table rows or past the slab's
+        end, their tokens are never emitted); a frozen slot holds its
+        token and position.
         Returns the ``[slots, chunk]`` tokens on the host — the loop's one
         designed readback per chunk."""
         cfg = self.cfg
@@ -591,8 +630,12 @@ class ContinuousEngine:
         toks = []
         token, pos, done = self._token, self._pos, self._done
         for _ in range(self.chunk):
-            _, logits, _ = _paged_step(cfg, self.params, self._cache, token,
-                                       pos, self._table)
+            if self.pool is not None:
+                _, logits, _ = _paged_step(cfg, self.params, self._cache,
+                                           token, pos, self._table)
+            else:
+                logits, _ = _token_logits(cfg, self.params, self._cache, pos,
+                                          token)
             self.decode_steps += 1
             if sampled:
                 noise = self._noise(

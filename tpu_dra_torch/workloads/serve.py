@@ -1,6 +1,6 @@
-"""HTTP inference server over the continuous paged engine, ported from
-``tpu_dra/workloads/serve.py`` (its ``--continuous --kv-layout paged``
-mode).  stdlib HTTP server, one engine per process.
+"""HTTP inference server over the continuous engine, ported from
+``tpu_dra/workloads/serve.py`` (its ``--continuous`` mode, slab or paged
+KV layout).  stdlib HTTP server, one engine per process.
 
 POST /generate  {"tokens": [[...]], "steps": N, "temperature": 0.0,
                  "seed": 0, "eos_id": null}
@@ -15,7 +15,10 @@ come with later slices of the port.
 
 Weights: ``--params-npz`` (a file written by
 ``tpu_dra_torch.convert.save_npz``) or ``--init-seed`` (random weights
-drawn on the device from that seed), cast to bf16 for serving.
+drawn on the device from that seed), served in the form ``--weights``
+names (``quant.py``: fp32, bf16, int8 or int4).  An npz that already
+holds a quantized tree is served as it is, and ``--weights`` must name
+its form.
 """
 
 from __future__ import annotations
@@ -162,19 +165,19 @@ def make_handler(engine: ContinuousEngine, health=None,
 def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
           port: int = 8477, cache_dtype: str = "bf16",
           continuous: bool = True, slots: int = 32, chunk: int = 4,
-          kv_layout: str = "paged", page_size: int = 64,
+          kv_layout: str = "slab", page_size: int = 64,
           total_pages: int | None = None, health=None,
           health_stale_after: float = 600.0,
           device=None) -> ThreadingHTTPServer:
     """Start the server on a daemon thread and return it (``.shutdown()``
     stops the server and the engine).  ``port`` 0 picks a free port
     (``server.server_address``).  ``/generate`` runs over a
-    ContinuousEngine with ``slots`` in-flight sequences and a paged KV
-    pool, on ``device`` (default: the card)."""
-    if not continuous or kv_layout != "paged":
-        raise ValueError("only --continuous --kv-layout paged is ported; "
-                         "the bucketed pool and the slab layout come with "
-                         "later slices of the PyTorch port")
+    ContinuousEngine with ``slots`` in-flight sequences and a ``kv_layout``
+    ("slab" or "paged") KV cache, on ``device`` (default: the card)."""
+    if not continuous:
+        raise ValueError("only --continuous is ported; the bucketed "
+                         "DecoderPool comes with later slices of the "
+                         "PyTorch port")
     engine = ContinuousEngine(cfg, params, slots=slots, chunk=chunk,
                               cache_dtype=cache_dtype, kv_layout=kv_layout,
                               page_size=page_size, total_pages=total_pages,
@@ -198,12 +201,32 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
     return srv
 
 
+WEIGHT_FORMS = ("fp32", "bf16", "int8", "int4")
+
+
+def serving_form(params: dict) -> str | None:
+    """"int8" or "int4" for a tree that already holds quantized leaves,
+    else None."""
+    leaves = [params.get("unembed"), *params["blocks"].values()]
+    for form, key in (("int8", "q8"), ("int4", "q4")):
+        if any(isinstance(w, dict) and key in w for w in leaves):
+            return form
+    return None
+
+
 def load_params(cfg: ModelConfig, *, params_npz: str = "",
-                init_seed: int | None = None) -> dict:
-    """Serving weights in bf16 on the card: from an npz written by
-    ``tpu_dra_torch.convert.save_npz``, else random from ``init_seed``."""
-    from tpu_dra_torch.workloads.quant import cast_params_bf16
-    dev = resolve_device()
+                init_seed: int | None = None, weights: str = "bf16",
+                device=None) -> dict:
+    """Serving weights in the form ``weights`` (one of
+    :data:`WEIGHT_FORMS`) on ``device`` (default: the card): from an npz
+    written by ``tpu_dra_torch.convert.save_npz``, else random from
+    ``init_seed``.  A tree that is already quantized is returned as it
+    is, and ``weights`` must name its form."""
+    from tpu_dra_torch.workloads import quant
+    if weights not in WEIGHT_FORMS:
+        raise ValueError(f"weights must be one of {WEIGHT_FORMS}, got "
+                         f"{weights!r}")
+    dev = resolve_device(device)
     if params_npz:
         from tpu_dra_torch.convert import load_npz
         params = load_npz(params_npz, device=dev)
@@ -214,12 +237,21 @@ def load_params(cfg: ModelConfig, *, params_npz: str = "",
         params = init_params(cfg, gen)
     else:
         raise ValueError("give --params-npz or --init-seed")
-    return cast_params_bf16(params)
+    held = serving_form(params)
+    if held is not None:
+        if held != weights:
+            raise ValueError(f"--params-npz {params_npz} holds {held} "
+                             f"weights but --weights {weights} was asked "
+                             f"for")
+        return params
+    return {"fp32": lambda p: p, "bf16": quant.cast_params_bf16,
+            "int8": quant.quantize_params_int8,
+            "int4": quant.quantize_params_int4}[weights](params)
 
 
 def main(argv=None) -> int:
     """Serve the model: ``python -m tpu_dra_torch.workloads.serve
-    --continuous --kv-layout paged --params-npz w.npz --vocab 32768 ...``
+    --continuous --weights int8 --params-npz w.npz --vocab 32768 ...``
     (the flags must describe the model the weights belong to)."""
     import argparse
     import signal
@@ -240,6 +272,15 @@ def main(argv=None) -> int:
     ap.add_argument("--d-ff", type=int, default=2048)
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--pos-emb", default="rope")
+    ap.add_argument("--weights", default="bf16", choices=WEIGHT_FORMS,
+                    help="serving weight form (quant.py): fp32 serves the "
+                         "weights as loaded; bf16 halves the fp32 weight "
+                         "bytes, int8 quarters them, int4 (group-scaled, "
+                         "one value per byte) quarters them too.  Default "
+                         "bf16: the port has no --weights-cache to record "
+                         "a form in, so it takes the reference's serving "
+                         "baseline.  An npz that holds quantized weights "
+                         "is served as it is and must be named by its form")
     ap.add_argument("--cache-dtype", default="bf16",
                     choices=("bf16", "int8"))
     ap.add_argument("--continuous", action="store_true",
@@ -247,7 +288,9 @@ def main(argv=None) -> int:
                          "only mode ported)")
     ap.add_argument("--kv-layout", default="slab",
                     choices=("slab", "paged"),
-                    help="KV memory layout ('paged' is the one ported)")
+                    help="KV memory: 'slab' preallocates max_len per slot; "
+                         "'paged' allocates block-table pages per request "
+                         "(prompt + steps) from a shared pool")
     ap.add_argument("--slots", type=int, default=32,
                     help="concurrent in-flight sequences")
     ap.add_argument("--chunk", type=int, default=4,
@@ -259,22 +302,27 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", action="store_true",
                     help="run every prompt bucket once before accepting "
                          "traffic")
+    ap.add_argument("--device", default=None,
+                    help="torch device to serve on (default: the card; "
+                         "'cpu' runs the plain versions of the kernels)")
     args = ap.parse_args(argv)
-    if not args.continuous or args.kv_layout != "paged":
-        ap.error("only --continuous --kv-layout paged is ported")
+    if not args.continuous:
+        ap.error("only --continuous is ported")
     cfg = ModelConfig(vocab=args.vocab, d_model=args.d_model,
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
                       n_layers=args.n_layers, d_ff=args.d_ff,
                       max_seq=args.max_seq, pos_emb=args.pos_emb)
     try:
         params = load_params(cfg, params_npz=args.params_npz,
-                             init_seed=args.init_seed)
+                             init_seed=args.init_seed, weights=args.weights,
+                             device=args.device)
     except ValueError as exc:
         ap.error(str(exc))
     srv = serve(cfg, params, host=args.host, port=args.port,
                 cache_dtype=args.cache_dtype, continuous=True,
-                slots=args.slots, chunk=args.chunk, kv_layout="paged",
-                page_size=args.page_size, total_pages=args.total_pages)
+                slots=args.slots, chunk=args.chunk,
+                kv_layout=args.kv_layout, page_size=args.page_size,
+                total_pages=args.total_pages, device=args.device)
     if args.warmup:
         print(f"warmed {srv.engine.warmup()} prompt buckets", flush=True)
     stop = threading.Event()

@@ -124,8 +124,10 @@ def init_params(cfg: ModelConfig,
 
 
 def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i`` of the stacked block weights (the scan slice)."""
-    return {name: leaf[i] for name, leaf in blocks.items()}
+    """Layer ``i`` of the stacked block weights (the scan slice), into
+    dict leaves too (quantized and LoRA-wrapped weights)."""
+    return {name: layer_params(leaf, i) if isinstance(leaf, dict)
+            else leaf[i] for name, leaf in blocks.items()}
 
 
 def _rmsnorm(x, g):

@@ -4,10 +4,11 @@ GPU: builds its CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version, times it, then drives the
 port's paths at full width: it serves the headline model through the
 port's HTTP server (bf16 weights over pages; int8 weights over the slab
-and over pages), runs the tiled matmul's bench section, trains the
-flagship model through ``fit`` and through the fused training step, and
-trains it sharded over a virtual mesh of 4 ranks on the card (DP×TP with
-the fused-collective ring kernels, DP×SP with ring flash attention).
+and over pages, plainly and speculatively with a distilled draft), runs
+the tiled matmul's bench section, trains the flagship model through
+``fit`` and through the fused training step, and trains it sharded over
+a virtual mesh of 4 ranks on the card (DP×TP with the fused-collective
+ring kernels, DP×SP with ring flash attention).
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -123,7 +124,20 @@ Phases (each prints as it goes; any failed check exits non-zero):
      attention kernel n_layers times a decode step and the slab run never;
      one decode step of each layout at 32 slots under torch.profiler, and
      tpu_dra_torch.bench.section_decode (bf16, int8 and int4 decode
-     tokens/s; both informational).
+     tokens/s; both informational);
+ 17. speculative serving at full width: phase 16's model, int8, with a
+     draft made by spec_draft.make_draft (2 layers distilled 150 steps at
+     batch 16, seq 256 from the fp32 tree, then int8), served through
+     serve(draft=..., speculative_engine=True) at 16 slots, chunk 8, on
+     the slab and on pages (64-token pages, 320 pages), 32 requests with
+     prompts of 16-128 tokens and 32-128 steps: every answer held to the
+     plain engine's of its layout under argmax_tol, the paged-attention
+     kernel launched exactly draft layers x chunk times a pass on pages
+     and never on the slab, a sampled batch of 8 in range; draft ==
+     target accepting every proposal on the slab (on pages
+     informational); plain and speculative tokens/s, accept rate, tokens
+     per pass, the distillation's seconds and one pass of each layout
+     under torch.profiler (informational).
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -563,11 +577,15 @@ def argmax_tol(top: float) -> float:
 
 
 def serve_requests(label: str, cfg, params, engine: dict,
-                   prompts: list) -> dict:
+                   prompts: list, requests: list = REQUESTS,
+                   sampled: int = 0) -> dict:
     """Start serve() on port 0 with ``engine``, POST one request first
-    (first-use costs), then the REQUESTS at once, one client thread
+    (first-use costs), then the ``requests`` at once, one client thread
     each; fail on any error or a wrong count.  Counts the paged-attention
-    launches and the int8 products of the concurrent part."""
+    launches and the int8 products of the concurrent part, and returns
+    the engine's stats after it.  ``sampled``: then one /generate of that
+    many of the prompts at temperature 0.8, every answer of its length
+    and every token in range."""
     from tpu_dra_torch.workloads.paged_kv import paged_attention
     from tpu_dra_torch.workloads.quant import int8_product
     from tpu_dra_torch.workloads.serve import serve
@@ -583,7 +601,7 @@ def serve_requests(label: str, cfg, params, engine: dict,
             t = time.perf_counter()
             try:
                 results[i] = post(port, {"tokens": [prompts[i]],
-                                         "steps": REQUESTS[i][1]})
+                                         "steps": requests[i][1]})
             except Exception as exc:  # noqa: BLE001 — reported below
                 results[i] = exc
             lat[i] = time.perf_counter() - t
@@ -591,7 +609,7 @@ def serve_requests(label: str, cfg, params, engine: dict,
         paged_attention.launches = 0
         int8_product.calls = 0
         threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(REQUESTS))]
+                   for i in range(len(requests))]
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -600,10 +618,19 @@ def serve_requests(label: str, cfg, params, engine: dict,
         wall = time.perf_counter() - t0
         launches, int8_calls = paged_attention.launches, int8_product.calls
         stats = srv.engine.stats()
+        if sampled:
+            rows = post(port, {"tokens": prompts[:sampled], "steps": 32,
+                               "temperature": 0.8, "seed": 7})["tokens"]
+            if len(rows) != sampled or not all(
+                    len(r) == 32 and all(0 <= t < cfg.vocab for t in r)
+                    for r in rows):
+                fail(f"{label}: the sampled batch gave {rows!r:.300}")
+            log(f"[{label}] a sampled batch of {sampled} requests at "
+                f"temperature 0.8: 32 tokens each, all in range")
     finally:
         srv.shutdown()
     answers = []
-    for i, (n, steps) in enumerate(REQUESTS):
+    for i, (n, steps) in enumerate(requests):
         res = results.get(i)
         if not isinstance(res, dict):
             fail(f"{label}: request {i} failed: {res!r}")
@@ -613,16 +640,17 @@ def serve_requests(label: str, cfg, params, engine: dict,
                  f"steps")
         answers.append(toks)
     n_tok = sum(len(a) for a in answers)
-    log(f"[{label}] {len(REQUESTS)} concurrent requests, {n_tok} tokens in "
+    log(f"[{label}] {len(requests)} concurrent requests, {n_tok} tokens in "
         f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s, p50 latency "
         f"{1e3 * statistics.median(lat.values()):.1f} ms (informational)")
     return {"answers": answers, "launches": launches,
             "int8_calls": int8_calls, "decode_steps": stats["decode_steps"],
-            "tokens_per_s": n_tok / wall,
+            "stats": stats, "tokens_per_s": n_tok / wall,
             "p50_latency_ms": 1e3 * statistics.median(lat.values())}
 
 
-def hold_answers(label: str, answers: list, want_fn, logits_at) -> int:
+def hold_answers(label: str, answers: list, want_fn, logits_at,
+                 requests: list = REQUESTS) -> int:
     """Each served answer against the oracle ``want_fn(i)`` on the card:
     equal, or departing only where the oracle's top-2 margin at the first
     difference (``logits_at(i, want, step)``) is within argmax_tol.
@@ -630,7 +658,7 @@ def hold_answers(label: str, answers: list, want_fn, logits_at) -> int:
     import torch
     compared = 0
     with torch.no_grad():
-        for i, ((n, steps), toks) in enumerate(zip(REQUESTS, answers)):
+        for i, ((n, steps), toks) in enumerate(zip(requests, answers)):
             want = want_fn(i)
             diff = next((j for j, (a, b) in enumerate(zip(toks, want))
                          if a != b), None)
@@ -2242,6 +2270,145 @@ def profile_decode_steps(cfg, params, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: speculative serving at full width
+# ---------------------------------------------------------------------------
+
+def spec_serve_phase(gen, card: str) -> dict:
+    """The int8 serving model with a real draft (tpu_dra_torch.bench's
+    section_spec_real settings: 2 layers distilled 150 steps at batch 16,
+    seq 256 from the fp32 tree, then int8) served through serve() with
+    --speculative-continuous's engine on the slab and on pages, beside
+    the plain engine, 32 mixed-length requests at 16 slots, chunk 8.
+    Every speculative answer held to the plain engine's of its layout by
+    the near-tie rule; on pages the draft's steps must launch the paged
+    attention kernel exactly draft layers x chunk times a pass, on the
+    slab never; a sampled batch; the draft == target ceiling must accept
+    every proposal; one pass of each layout under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from tpu_dra_torch.bench import LOAD, SPEC_DISTILL, SPEC_ENGINE, SPEC_PAGES
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.spec_draft import (_distill_loss,
+                                                    make_draft,
+                                                    truncate_draft)
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**MODEL)
+    fparams = init_params(cfg, gen)
+    t0 = time.perf_counter()
+    dcfg, dfloat = make_draft(cfg, fparams, **SPEC_DISTILL)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    held = torch.randint(0, cfg.vocab, (8, SPEC_DISTILL["seq"]),
+                         generator=gen, device="cuda")
+    with torch.no_grad():
+        kl = [float(_distill_loss(dcfg, cfg, fparams, d, held))
+              for d in (truncate_draft(cfg, fparams, dcfg.n_layers)[1],
+                        dfloat)]
+    log(f"[spec] draft: {dcfg.n_layers} of {cfg.n_layers} layers distilled "
+        f"{SPEC_DISTILL['distill_steps']} steps at batch "
+        f"{SPEC_DISTILL['batch']}, seq {SPEC_DISTILL['seq']} in "
+        f"{distill_s:.1f} s; KL(target || draft) on a held-out batch "
+        f"{kl[0]:.4f} truncated, {kl[1]:.4f} distilled (informational)")
+    params = quantize_params_int8(fparams)
+    dparams = quantize_params_int8(dfloat)
+    del fparams, dfloat
+    n = len(LOAD["lengths"])
+    reqs = [(LOAD["lengths"][i % n], LOAD["steps"][i % n])
+            for i in range(32)]
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [rng.integers(0, cfg.vocab, ln).tolist() for ln, _ in reqs]
+    chunk = SPEC_ENGINE["chunk"]
+    logits_at = {"slab": slab_oracle_logits_at, "paged": oracle_logits_at}
+    out: dict = {"distill_s": distill_s, "kl": kl}
+    for layout, kw in (("slab", {}), ("paged", SPEC_PAGES)):
+        engine = dict(kv_layout=layout, **SPEC_ENGINE, **kw)
+        plain = serve_requests(f"spec {layout} plain", cfg, params, engine,
+                               prompts, reqs)
+        spec = serve_requests(
+            f"spec {layout}", cfg, params,
+            dict(engine, draft=(dcfg, dparams), speculative_engine=True),
+            prompts, reqs, sampled=8)
+        st = spec["stats"]
+        passes = st["spec_target_passes"]
+        want = dcfg.n_layers * chunk * passes if layout == "paged" else 0
+        if spec["launches"] != want:
+            fail(f"spec {layout}: paged attention launched "
+                 f"{spec['launches']} times over {passes} speculative "
+                 f"passes ({want} wanted)")
+        log(f"[spec {layout}] {passes} target passes, accept rate "
+            f"{st['spec_accept_rate']}, {st['spec_tokens_per_pass']} tokens "
+            f"per slot-pass, paged attention launches {spec['launches']}; "
+            f"{spec['tokens_per_s']:.1f} tokens/s against the plain "
+            f"engine's {plain['tokens_per_s']:.1f} (informational); on "
+            f"{card}")
+        hold_answers(f"spec {layout}", spec["answers"],
+                     lambda i, a=plain["answers"]: a[i],
+                     lambda i, w, step, f=logits_at[layout]: f(
+                         cfg, params, prompts[i], w, step), requests=reqs)
+        out[layout] = {"plain": plain, "spec": spec}
+    # the ceiling: draft == target accepts every proposal on the slab,
+    # where the draft's step and the verify chunk round alike; on pages
+    # the draft's step attends through the kernel (fp32 scores) and the
+    # verify through the chunk path (bf16 scores), so near-ties reject
+    # there (informational)
+    for layout, kw in (("slab", {}), ("paged", SPEC_PAGES)):
+        ceiling = serve_requests(
+            f"spec ceiling {layout}", cfg, params,
+            dict(kv_layout=layout, **SPEC_ENGINE, **kw, draft=(cfg, params),
+                 speculative_engine=True), prompts[:8], reqs[:8])
+        rate = ceiling["stats"]["spec_accept_rate"]
+        log(f"[spec ceiling {layout}] draft == target: accept rate {rate}, "
+            f"{ceiling['stats']['spec_tokens_per_pass']} tokens per "
+            f"slot-pass, {ceiling['tokens_per_s']:.1f} tokens/s "
+            f"(informational)")
+        if layout == "slab" and rate != 1.0:
+            fail(f"draft == target accepted {rate} of its proposals, not "
+                 f"all")
+        out[f"ceiling {layout}"] = ceiling
+    with torch.no_grad():
+        out["profile"] = profile_spec_pass(cfg, params, dcfg, dparams)
+    del params, dparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_spec_pass(cfg, params, dcfg, dparams) -> dict:
+    """One speculative pass of each layout at 16 slots, every slot at 256
+    tokens of context, under torch.profiler after two warm-up passes
+    (informational)."""
+    import torch
+
+    from tpu_dra_torch.bench import SPEC_ENGINE, SPEC_PAGES
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    ctx = 256
+    out = {}
+    for layout, kw in (("slab", {}), ("paged", SPEC_PAGES)):
+        eng = ContinuousEngine(cfg, params, draft=(dcfg, dparams),
+                               kv_layout=layout, **SPEC_ENGINE, **kw)
+        try:
+            if eng.pool is not None:
+                need = eng.pool.pages_for(ctx + 3 * eng.chunk)
+                for slot in range(eng.slots):
+                    eng._table[slot] = torch.from_numpy(eng.pool.table_row(
+                        eng.pool.alloc(need), eng._mp)).to(eng.device)
+
+            def one_pass():
+                eng._pos.fill_(ctx)
+                eng._done.fill_(False)
+                eng._spec_chunk()
+            for _ in range(2):
+                one_pass()
+            out[layout] = profile_call(
+                f"speculative pass on the {layout} (int8 weights, "
+                f"{eng.slots} slots at {ctx} tokens, chunk {eng.chunk})",
+                one_pass)
+        finally:
+            eng.shutdown()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2363,12 +2530,14 @@ def main() -> int:
     log(f"[serve] int8 weights: slab {slab_tps:.1f} tokens/s, paged "
         f"{quant_served['paged']['tokens_per_s']:.1f} tokens/s for the 8 "
         f"requests (informational); on {card}")
+    spec = spec_serve_phase(gen, card)
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "tpu_dra_torch/csrc/paged_attention.cu",
         "replaces": "tpu_dra/workloads/paged_kv.py:248",
-        "launches": served["launches"], "max_abs_err": max_err,
+        "launches": served["launches"] + spec["paged"]["spec"]["launches"],
+        "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]

@@ -350,12 +350,16 @@ def test_select_tokens_samples_the_softmax():
 # -------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="slab", draft=(TCFG, PARAMS)),
-                                dict(draft=(TCFG, PARAMS)),
-                                dict(logit_bias={1: -1e9})],
-                         ids=["slab", "draft", "logit_bias"])
-def test_later_engine_features_raise(kw):
-    with pytest.raises(ValueError, match="later slice"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_layout="slab", draft=(TCFG, PARAMS), chunk=1), "chunk >= 2"),
+    (dict(draft=(TCFG, PARAMS), chunk=1), "chunk >= 2"),
+    (dict(logit_bias={128: -1e9}), "logit_bias token ids")],
+    ids=["slab", "draft", "logit_bias"])
+def test_later_engine_features_raise(kw, match):
+    """Drafts (both layouts) and logit bias are served since the
+    speculative slice (tests/test_torch_spec.py); what the reference
+    refuses of them, the port refuses."""
+    with pytest.raises(ValueError, match=match):
         ContinuousEngine(TCFG, PARAMS, **dict(ENGINE_KW, **kw))
 
 

@@ -92,6 +92,41 @@ def _paged_case(dev, gen, lengths, g, dh, quantized, hkv=2, P=40, ps=64,
     return (q, k, v, table, lengths), extra
 
 
+def test_speculative_paged_engine_launches_the_kernel_per_draft_step():
+    """One speculative paged batch on the card: the draft's steps launch
+    the paged-attention kernel exactly draft layers x chunk times a pass
+    (the target's chunk verify is plain PyTorch), and every answer has
+    its length and equals the plain paged engine's up to a near-tie (here
+    only held for its length; chip_smoke.py holds it at full width)."""
+    dev = card()
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    from tpu_dra_torch.workloads.spec_draft import truncate_draft
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(vocab=256, d_model=256, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=512, max_seq=256, pos_emb="rope")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    dcfg, dparams = truncate_draft(cfg, params, 1)
+    eng = ContinuousEngine(cfg, params, slots=4, chunk=4, kv_layout="paged",
+                           page_size=16, device=dev, draft=(dcfg, dparams))
+    try:
+        assert len(eng.submit([1, 2, 3], 2, timeout=300)) == 2
+        eng.reset_stats()
+        before = tpk.paged_attention.launches
+        handles = [eng.submit_async([5 + i] * (3 + 5 * i), 10)
+                   for i in range(4)]
+        for h in handles:
+            assert h.done.wait(300) and h.error is None, h.error
+        launches = tpk.paged_attention.launches - before
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    assert st["spec_target_passes"] >= 3
+    assert launches == dcfg.n_layers * 4 * st["spec_target_passes"]
+    assert all(len(h.tokens) == 10 for h in handles)
+
+
 def test_paged_attention_kernel_around_its_spans():
     """The split-page kernel where its work items end: spans that end on a
     page edge (lengths 64, 128, 256: one, two and four whole pages), one

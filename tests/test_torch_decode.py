@@ -474,11 +474,19 @@ def test_learned_positions_refuse_a_window_and_positions_past_the_table():
         td.decode(tcfg, tp, prompt, steps=30, max_len=64)
 
 
-@pytest.mark.parametrize("fn", [td.speculative_decode, td.beam_decode],
-                         ids=["speculative", "beam"])
-def test_speculative_and_beam_decode_name_their_later_slice(fn):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        fn(TCFG, {}, torch.zeros(1, 2, dtype=torch.long), steps=2)
+@pytest.mark.parametrize("name", ["speculative", "beam"])
+def test_speculative_and_beam_decode_name_their_later_slice(name):
+    """beam_decode names the ROADMAP item that holds it; speculative_decode,
+    ported since (tests/test_torch_spec.py), refuses what the reference
+    asserts against: fewer than 2 tokens a pass."""
+    prompt = torch.zeros(1, 2, dtype=torch.long)
+    if name == "beam":
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            td.beam_decode(TCFG, {}, prompt, steps=2)
+    else:
+        _, tp = serving("bf16")
+        with pytest.raises(ValueError, match="k must be >= 2"):
+            td.speculative_decode(TCFG, tp, TCFG, tp, prompt, steps=2, k=1)
 
 
 def test_make_decoder_defaults_to_the_card():

@@ -7,8 +7,14 @@
 - :func:`section_continuous`, :func:`section_paged`: the continuous
   engine under a mixed-length load of concurrent requests (slab, and
   paged with a pool a third of the slab's size), int8 weights: tokens/s
-  and p50/p95 request latency.  The reference's speculative ceilings
-  wait for draft models in the port.
+  and p50/p95 request latency; then the speculative engine's ceiling
+  (draft == target, every proposal accepted) under a third of the load:
+  tokens/s and tokens per pass (``*_spec_ceiling_*``,
+  ``*_spec_tokens_per_pass``, the reference's keys);
+- :func:`section_spec_real`: a real draft (the serving model truncated
+  to 2 layers and distilled 150 steps) served speculatively on the slab
+  and on pages beside the plain engine: tokens/s, accept rate, tokens
+  per pass.
 
 A section measures the card: it raises where CUDA is absent instead of
 timing the CPU, and records the card's name and power limit (as
@@ -48,6 +54,11 @@ SERVING_MODEL = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
                      n_layers=8, d_ff=4096, max_seq=1024, pos_emb="rope")
 # their request mix: prompt lengths and steps cycle over the requests
 LOAD = dict(lengths=[16, 32, 64, 128], steps=[32, 64, 96, 128])
+# the real draft of section_spec_real (bench.py:778): quarter depth,
+# distilled at batch 16 on 256-token sequences; and its engine
+SPEC_DISTILL = dict(n_layers=2, distill_steps=150, batch=16, seq=256)
+SPEC_ENGINE = dict(slots=16, chunk=8)
+SPEC_PAGES = dict(page_size=64, total_pages=320)
 
 
 def card_info(dev: torch.device) -> dict:
@@ -214,7 +225,21 @@ def serve_load(eng, *, n_req: int, lengths: list[int], steps: list[int],
     return out
 
 
-def _engine_section(prefix: str, n_req: int, **engine_kw) -> dict:
+def spec_load(eng, **load) -> dict:
+    """:func:`serve_load` of a speculative engine, with its accept rate
+    and committed tokens per slot-pass."""
+    out = serve_load(eng, **load)
+    st = eng.stats()
+    out["accept_rate"] = st.get("spec_accept_rate")
+    out["tokens_per_pass"] = st.get("spec_tokens_per_pass")
+    return out
+
+
+def _engine_section(prefix: str, n_req: int, spec_pages: int | None = None,
+                    **engine_kw) -> dict:
+    """The mixed load on a plain engine, then the speculative engine's
+    ceiling (draft == target) on a third of it (``spec_pages``: the
+    doubled pool a paged engine gets for it, as the reference's)."""
     from tpu_dra_torch.workloads.continuous import ContinuousEngine
     dev = resolve_device()
     cfg = ModelConfig(**SERVING_MODEL)
@@ -233,6 +258,18 @@ def _engine_section(prefix: str, n_req: int, **engine_kw) -> dict:
                 100.0 * eng.pool.total_pages / (eng.slots * eng._mp), 1)
     finally:
         eng.shutdown()
+    if spec_pages is not None:
+        engine_kw = dict(engine_kw, total_pages=spec_pages)
+    eng = ContinuousEngine(cfg, params, slots=32, chunk=8, device=dev,
+                           draft=(cfg, params), **engine_kw)
+    try:
+        spec = spec_load(eng, n_req=max(4, n_req // 3), **LOAD)
+    finally:
+        eng.shutdown()
+    out[f"{prefix}_spec_ceiling_tokens_per_s"] = spec["tokens_per_s"]
+    out[f"{prefix}_spec_tokens_per_pass"] = spec["tokens_per_pass"]
+    if "errors" in spec:
+        out[f"{prefix}_spec_errors"] = spec["errors"]
     out[f"{prefix}_slots"] = 32
     out[f"{prefix}_requests"] = n_req
     out.update(card_info(dev))
@@ -248,13 +285,64 @@ def section_continuous() -> dict:
 def section_paged() -> dict:
     """The same load over pages: 64 requests, 64-token pages, a pool of
     160 pages (the worst live need is 128; the slab would hold 512)."""
-    return _engine_section("paged", 64, kv_layout="paged", page_size=64,
-                           total_pages=160)
+    return _engine_section("paged", 64, spec_pages=320, kv_layout="paged",
+                           page_size=64, total_pages=160)
+
+
+def section_spec_real() -> dict:
+    """A real draft, as the reference's ``section_spec_real``: the
+    serving model (fp32 from seed 0) truncated to 2 layers and distilled
+    150 steps at batch 16, seq 256 (host clock), then both models int8;
+    32 mixed-length requests at 16 slots, chunk 8, through the plain
+    engine and the speculative engine on the slab, and the speculative
+    engine on 64-token pages (320 pages): tokens/s, accept rate, tokens
+    per pass.  The random-init teacher's argmax is a max-entropy
+    function, so the accept rate is a floor on a trained model's."""
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    from tpu_dra_torch.workloads.spec_draft import make_draft
+    dev = resolve_device()
+    cfg = ModelConfig(**SERVING_MODEL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    fparams = init_params(cfg, gen)
+    t0 = time.perf_counter()
+    dcfg, dfloat = make_draft(cfg, fparams, **SPEC_DISTILL)
+    torch.cuda.synchronize(dev)
+    out = {"spec_real_draft_layers": dcfg.n_layers,
+           "spec_real_target_layers": cfg.n_layers,
+           "spec_real_distill_steps": SPEC_DISTILL["distill_steps"],
+           "spec_real_distill_secs": round(time.perf_counter() - t0, 1)}
+    params = quantize_params_int8(fparams)
+    dparams = quantize_params_int8(dfloat)
+    del fparams, dfloat
+    load = dict(n_req=32, **LOAD)
+    runs = {"spec_real_plain": dict(),
+            "spec_real": dict(draft=(dcfg, dparams)),
+            "paged_spec_real": dict(draft=(dcfg, dparams), kv_layout="paged",
+                                    **SPEC_PAGES)}
+    for key, kw in runs.items():
+        eng = ContinuousEngine(cfg, params, device=dev, **SPEC_ENGINE, **kw)
+        try:
+            res = spec_load(eng, **load)
+        finally:
+            eng.shutdown()
+        out[f"{key}_tokens_per_s"] = res["tokens_per_s"]
+        if "draft" in kw:
+            out[f"{key}_accept_rate"] = res["accept_rate"]
+            out[f"{key}_tokens_per_pass"] = res["tokens_per_pass"]
+        if "errors" in res:
+            out[f"{key}_errors"] = res["errors"]
+    out["spec_real_speedup_pct"] = round(
+        100.0 * (out["spec_real_tokens_per_s"]
+                 / out["spec_real_plain_tokens_per_s"] - 1), 1)
+    out.update(card_info(dev))
+    return out
 
 
 SECTIONS = {"pallas_matmul": section_pallas_matmul,
             "decode": section_decode, "decode_long": section_decode_long,
-            "continuous": section_continuous, "paged": section_paged}
+            "continuous": section_continuous, "paged": section_paged,
+            "spec_real": section_spec_real}
 
 
 def main(argv=None) -> None:

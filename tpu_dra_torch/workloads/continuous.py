@@ -1,5 +1,5 @@
 """Continuous batching, ported from ``tpu_dra/workloads/continuous.py``
-(both KV layouts, plain admissions).
+(both KV layouts, plain and speculative).
 
 A fixed pool of ``slots`` sequences decodes together, every slot at its
 own position; between chunks of ``chunk`` tokens the batcher thread
@@ -27,10 +27,26 @@ Sampling: greedy at temperature 0; above it, a Gumbel-max draw from the
 temperature-scaled (and engine-global top-k/top-p filtered) logits, with
 the noise drawn from one ``torch.Generator`` per request seeded from its
 ``seed``.  Outputs are reproducible per (prompt, steps, seed,
-temperature), but they are not ``jax.random``'s stream.
+temperature), but they are not ``jax.random``'s stream.  An engine-global
+``logit_bias`` is added wherever logits are consumed (greedy argmax,
+sampling, the speculative p and q).
 
-Left for later slices (they raise ``ValueError``): speculative drafts,
-shared prefixes, logit bias, stop sequences and KV handoff.
+Speculative mode (``draft=(draft_cfg, draft_params)``): each pass is one
+draft-propose / target-verify iteration.  The draft runs ``chunk`` steps
+from each slot's committed token (on its own slab, or on its own page
+pool under the target's block tables and page ids), the target verifies
+``[token, d1 .. d_{chunk-1}]`` in one chunk forward (on pages through
+``paged_kv.paged_chunk_logits``), and each slot commits its own count:
+greedy requests the longest argmax-matching prefix plus the target's
+next token, so their tokens are the plain engine's up to the rounding of
+the chunk forward; sampled requests the rejection scheme of
+``spec_sample.commit_sampled``, whose draws come from the request's
+generator.  A request reserves ``chunk`` positions past its last token
+for the pass that overshoots it.
+
+Left for later slices (they raise ``ValueError``; ROADMAP queue 1 item 7
+holds prefixes, with the speculative join paths, and stop sequences;
+item 8 the KV handoff): shared prefixes, stop sequences and KV handoff.
 """
 
 from __future__ import annotations
@@ -45,27 +61,31 @@ import torch
 
 from tpu_dra_torch.device import resolve_device
 from tpu_dra_torch.workloads.decode import (
+    _chunk_logits,
     _filter_topk_topp,
+    _prefill_trunk,
     _token_logits,
     gumbel_noise,
     init_kv_cache,
-    prefill_ragged,
 )
 from tpu_dra_torch.workloads.paged_kv import (
     PagePool,
     _paged_step,
     init_paged_cache,
     paged_attention,
-    prefill_pages,
+    paged_chunk_logits,
+    prefill_pages_hidden,
 )
-from tpu_dra_torch.workloads.train import ModelConfig
+from tpu_dra_torch.workloads.spec_sample import commit_greedy, commit_sampled
+from tpu_dra_torch.workloads.train import ModelConfig, head_logits
 
 _PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 # the error string a deadline-expired request fails with
 DEADLINE_ERROR = "deadline exceeded"
 
-_LATER = "not ported yet; it comes with a later slice of the PyTorch port"
+_LATER = ("not ported yet; it comes with a later slice of the PyTorch port "
+          "(ROADMAP queue 1 item 7; the KV handoff item 8)")
 
 
 @dataclass
@@ -117,7 +137,14 @@ class ContinuousEngine:
     in-flight sequences (excess requests queue FIFO); ``chunk`` is how
     many tokens each pass advances — joins and leaves happen at chunk
     boundaries.  Runs on ``device`` (default: the card; ``RuntimeError``
-    without CUDA unless ``device="cpu"``)."""
+    without CUDA unless ``device="cpu"``).
+
+    ``draft=(draft_cfg, draft_params)`` makes each pass one speculative
+    iteration (module docstring): the draft proposes ``chunk - 1``
+    tokens, the target verifies them in one chunk forward, and a slot
+    with an agreeing draft commits ``chunk`` tokens for one target pass.
+    ``logit_bias`` ``{token id: value}`` is added to the logits in every
+    mode (``-1e9`` bans a token)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 32,
                  max_len: Optional[int] = None, cache_dtype: str = "bf16",
@@ -135,9 +162,22 @@ class ContinuousEngine:
             raise ValueError(f"kv_layout must be 'slab' or 'paged', "
                              f"got {kv_layout!r}")
         if draft is not None:
-            raise ValueError(f"speculative drafts are {_LATER}")
+            if draft[0].vocab != cfg.vocab:
+                raise ValueError(f"draft vocab {draft[0].vocab} != target "
+                                 f"vocab {cfg.vocab}")
+            if chunk < 2:
+                raise ValueError("speculative engine needs chunk >= 2 "
+                                 "(chunk-1 drafted + 1 bonus per pass)")
+        self._bias = None
         if logit_bias:
-            raise ValueError(f"logit_bias is {_LATER}")
+            bad = [t for t in logit_bias if not 0 <= t < cfg.vocab]
+            if bad:
+                raise ValueError(f"logit_bias token ids out of "
+                                 f"[0, {cfg.vocab}): {bad[:5]}")
+            self._bias = torch.zeros(cfg.vocab, dtype=torch.float32,
+                                     device=self.device)
+            for t, v in logit_bias.items():
+                self._bias[t] = v
         self.kv_layout = kv_layout
         self.cfg = cfg
         self.params = _to_device(params, self.device)
@@ -152,11 +192,19 @@ class ContinuousEngine:
         self.top_p = top_p
         self.cache_dtype = cache_dtype
         dev = self.device
+        self.draft = None if draft is None else (
+            draft[0], _to_device(draft[1], dev))
+        # a speculative pass writes up to `chunk` positions past a slot's
+        # committed stream: each request reserves them
+        self._slack = chunk if draft is not None else 0
         self.pool: Optional[PagePool] = None
         self._page_ids: list[Optional[list[int]]] = [None] * slots
         if kv_layout == "slab":
             self._cache = init_kv_cache(cfg, slots, self.max_len,
                                         cache_dtype, device=dev)
+            if draft is not None:
+                self._dcache = init_kv_cache(draft[0], slots, self.max_len,
+                                             cache_dtype, device=dev)
         else:
             ps = page_size
             # a power-of-two page and max_len a page multiple keep every
@@ -174,6 +222,11 @@ class ContinuousEngine:
             self.pool = PagePool(cap, ps)
             self._cache = init_paged_cache(cfg, cap, ps, cache_dtype,
                                            device=dev)
+            if draft is not None:
+                # the draft's own pool under the target's block tables:
+                # one allocation places both models' KV
+                self._dcache = init_paged_cache(draft[0], cap, ps,
+                                                cache_dtype, device=dev)
             self._table = torch.full((slots, self._mp), -1,
                                      dtype=torch.int32, device=dev)
         # device state: fixed shapes for the engine's lifetime
@@ -201,6 +254,13 @@ class ContinuousEngine:
         self.cancelled = 0
         self.tokens_out = 0
         self.decode_steps = 0             # decode steps (all slots)
+        # speculative passes: committed tokens vs live slot-passes, and
+        # drafted tokens proposed vs accepted
+        self.target_passes = 0
+        self.spec_committed = 0
+        self.spec_slot_passes = 0
+        self.spec_drafted_proposed = 0
+        self.spec_drafted_accepted = 0
         self.expired_queued = 0
         self.expired_active = 0
         # slot-seconds by outcome: answers somebody received vs answers
@@ -254,19 +314,21 @@ class ContinuousEngine:
             raise ValueError(f"steps must be >= 1, got {steps}")
         if eos_id is not None and not 0 <= eos_id < cfg.vocab:
             raise ValueError(f"eos_id must be in [0, {cfg.vocab})")
-        if self.pool is not None and self.pool.pages_for(
-                len(prompt) + steps) > self.pool.total_pages:
+        if self.pool is not None and self._pages_needed(
+                len(prompt), steps) > self.pool.total_pages:
             # an unservable request must fail here: the FIFO gate would
             # otherwise wait on it forever and starve everything behind
             raise ValueError(
-                f"request needs {self.pool.pages_for(len(prompt) + steps)} "
+                f"request needs {self._pages_needed(len(prompt), steps)} "
                 f"KV pages (prompt {len(prompt)} + steps {steps} @ "
                 f"page_size {self.pool.page_size}) but the pool only has "
                 f"{self.pool.total_pages}")
-        if len(prompt) + steps > self.max_len:
+        slack = self._slack
+        if len(prompt) + steps + slack > self.max_len:
             raise ValueError(
-                f"prompt {len(prompt)} + steps {steps} exceeds the "
-                f"engine's max_len {self.max_len}")
+                f"prompt {len(prompt)} + steps {steps} "
+                f"{f'+ speculative overshoot {slack} ' if slack else ''}"
+                f"exceeds the engine's max_len {self.max_len}")
         if len(prompt) > _PROMPT_BUCKETS[-1]:
             raise ValueError(f"prompt exceeds the largest bucket "
                              f"{_PROMPT_BUCKETS[-1]}")
@@ -302,11 +364,11 @@ class ContinuousEngine:
         for b in want:
             # steps=2 so the chunk step runs too (a steps=1 request
             # finishes at admission without ever stepping)
-            n = min(b, self.max_len - 2)
+            n = min(b, self.max_len - 2 - self._slack)
             if n < 1:
                 continue
             if self.pool is not None:
-                need = self.pool.pages_for(n + 2)
+                need = self._pages_needed(n, 2)
                 if need > self.pool.total_pages:
                     continue              # bucket unservable at this pool
                 if k > 1 and need * k > self.pool.total_pages:
@@ -341,6 +403,11 @@ class ContinuousEngine:
         self.cancelled = 0
         self.tokens_out = 0
         self.decode_steps = 0
+        self.target_passes = 0
+        self.spec_committed = 0
+        self.spec_slot_passes = 0
+        self.spec_drafted_proposed = 0
+        self.spec_drafted_accepted = 0
         self.expired_queued = 0
         self.expired_active = 0
         self.goodput_slot_s = 0.0
@@ -367,6 +434,17 @@ class ContinuousEngine:
                # process-wide count of paged-attention kernel launches
                # (stays 0 on the CPU, where the plain version runs)
                "paged_attention_launches": paged_attention.launches}
+        if self.draft is not None and self.target_passes:
+            # committed tokens per live slot per target pass: 1.0 is the
+            # plain engine's, chunk the full-accept ceiling
+            out["spec_target_passes"] = self.target_passes
+            out["spec_tokens_per_pass"] = round(
+                self.spec_committed / max(1, self.spec_slot_passes), 3)
+            # the share of drafted tokens the target accepted: whether
+            # the draft earns its chunk-1 extra forwards
+            out["spec_accept_rate"] = round(
+                self.spec_drafted_accepted
+                / max(1, self.spec_drafted_proposed), 4)
         if self.pool is not None:
             out["kv_pages_total"] = self.pool.total_pages
             out["kv_pages_free"] = self.pool.free_pages
@@ -460,7 +538,7 @@ class ContinuousEngine:
                 # worst-case pages, stop admitting — later, smaller
                 # requests must not starve it
                 if self.pool is not None:
-                    need = self.pool.pages_for(len(req.prompt) + req.steps)
+                    need = self._pages_needed(len(req.prompt), req.steps)
                     if need > self.pool.free_pages:
                         break
                 self._pending.popleft()
@@ -506,6 +584,11 @@ class ContinuousEngine:
             req.finished = time.perf_counter()
             req.done.set()
 
+    def _pages_needed(self, prompt_len: int, steps: int) -> int:
+        """A request's worst-case pages: prompt, steps and the speculative
+        overshoot, whose writes must land in real pages."""
+        return self.pool.pages_for(prompt_len + steps + self._slack)
+
     def _release_slot_pages(self, slot: int) -> None:
         """Sentinel the slot's table row, then return its pages."""
         self._table[slot] = -1
@@ -533,11 +616,11 @@ class ContinuousEngine:
         lengths = torch.tensor([len(req.prompt) for _, req in group],
                                dtype=torch.int32, device=dev)
         slots = torch.tensor([slot for slot, _ in group], device=dev)
-        if self.pool is not None:
-            logits = prefill_pages(self.cfg, self.params, self._cache,
-                                   prompts, lengths, self._table[slots])
-        else:
-            logits = self._prefill_slab(prompts, lengths, slots)
+        x = self._prefill(self.cfg, self.params, self._cache, prompts, slots)
+        last = x[torch.arange(len(group), device=dev), lengths.long() - 1]
+        logits = head_logits(self.params, last[:, None])[:, 0]
+        if self.draft is not None:
+            self._prefill(*self.draft, self._dcache, prompts, slots)
         gens = []
         for _, req in group:
             g = None
@@ -547,25 +630,29 @@ class ContinuousEngine:
             gens.append(g)
         temps = torch.tensor([req.temperature for _, req in group],
                              dtype=torch.float32, device=dev)
-        first = select_tokens(logits, temps, self._noise(gens, self.cfg.vocab),
-                              self.top_k, self.top_p)
+        first = select_tokens(self._biased(logits), temps,
+                              self._noise(gens, self.cfg.vocab), self.top_k,
+                              self.top_p)
         # one readback per admission group: the clients need these tokens
         for (slot, req), g, tok in zip(group, gens, first.tolist()):
             self._finish_admission(slot, req, tok, g)
 
-    def _prefill_slab(self, prompts, lengths, slots):
-        """Prefill ``[k, Sb]`` right-padded prompts into a cache of their
-        own, copy it into the slots' rows (pad positions land there too,
-        masked until decode overwrites them), and return the logits at
-        each prompt's last real token."""
+    def _prefill(self, cfg, params, cache, prompts, slots):
+        """Prefill ``[k, Sb]`` right-padded prompts of one model into the
+        slots' KV and return the trunk activations ``[k, Sb', D]``.  On
+        pages: into the slots' pages.  On the slab: into a cache of their
+        own, copied into the slots' rows (pad positions land there too,
+        masked until decode overwrites them)."""
+        if self.pool is not None:
+            return prefill_pages_hidden(cfg, params, cache, prompts,
+                                        self._table[slots])
         k, Sb = prompts.shape
-        small = init_kv_cache(self.cfg, k, Sb, self.cache_dtype,
+        small = init_kv_cache(cfg, k, Sb, self.cache_dtype,
                               device=self.device)
-        small, logits = prefill_ragged(self.cfg, self.params, small, prompts,
-                                       lengths)
-        for name, buf in self._cache.items():
+        small, x = _prefill_trunk(cfg, params, small, prompts)
+        for name, buf in cache.items():
             buf[:, slots, :, :Sb] = small[name]
-        return logits
+        return x
 
     def _finish_admission(self, slot: int, req: _Request, first: int,
                           gen: Optional[torch.Generator]) -> None:
@@ -625,8 +712,7 @@ class ContinuousEngine:
         Returns the ``[slots, chunk]`` tokens on the host — the loop's one
         designed readback per chunk."""
         cfg = self.cfg
-        sampled = any(r is not None and r.temperature > 0
-                      for r in self._requests)
+        gens = self._sampling_gens()
         toks = []
         token, pos, done = self._token, self._pos, self._done
         for _ in range(self.chunk):
@@ -637,15 +723,13 @@ class ContinuousEngine:
                 logits, _ = _token_logits(cfg, self.params, self._cache, pos,
                                           token)
             self.decode_steps += 1
-            if sampled:
-                noise = self._noise(
-                    [g if r is not None else None
-                     for g, r in zip(self._gens, self._requests)],
-                    cfg.vocab)
-                nxt = select_tokens(logits, self._temp, noise, self.top_k,
-                                    self.top_p)
+            if gens is not None:
+                noise = self._noise(gens, cfg.vocab)
+                nxt = select_tokens(self._biased(logits), self._temp, noise,
+                                    self.top_k, self.top_p)
             else:
-                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                nxt = torch.argmax(self._biased(logits),
+                                   dim=-1).to(torch.int32)
             nxt = torch.where(done, token, nxt)            # frozen slots hold
             pos = pos + (~done).to(torch.int32)
             done = done | (nxt == self._eos)
@@ -653,6 +737,130 @@ class ContinuousEngine:
             toks.append(nxt)
         self._token, self._pos, self._done = token, pos, done
         return torch.stack(toks, dim=1).cpu()
+
+    def _sampling_gens(self) -> Optional[list]:
+        """The live requests' generators by slot when any of them samples
+        (None elsewhere), else None: an all-greedy pass draws nothing."""
+        if not any(r is not None and r.temperature > 0
+                   for r in self._requests):
+            return None
+        return [g if r is not None else None
+                for g, r in zip(self._gens, self._requests)]
+
+    def _biased(self, logits):
+        """The engine-global logit bias, added in fp32 (a -1e9 ban
+        survives) wherever logits are consumed."""
+        if self._bias is None:
+            return logits
+        return logits.float() + self._bias
+
+    def _filtered_logits(self, logits, temps):
+        """FINAL sampling logits: bias, temperature and the engine-global
+        top-k/top-p — the one definition of the sampling distribution,
+        which the draft's proposals are drawn from and the rejection
+        commit scores both models by."""
+        return _filter_topk_topp(
+            self._biased(logits) / torch.clamp(temps, min=1e-6)[:, None],
+            self.top_k, self.top_p)
+
+    def _draft_propose(self, token, pos, done, gens):
+        """``chunk`` draft steps from each slot's committed token, so the
+        draft's cache covers every position a pass accepted whole commits
+        (the last proposal is discarded).  Greedy rows propose the argmax;
+        with ``gens`` (some slot samples) sampled rows draw from the
+        draft's :meth:`_filtered_logits`.  Frozen rows hold.  Returns
+        ``(drafts [slots, chunk-1], q_filt [slots, chunk-1, V] or
+        None)``."""
+        dcfg, dparams = self.draft
+        k = self.chunk
+        tok, proposals, q_filt = token, [], []
+        for j in range(k):
+            if self.pool is not None:
+                _, lg, _ = _paged_step(dcfg, dparams, self._dcache, tok,
+                                       pos + j, self._table)
+            else:
+                lg, _ = _token_logits(dcfg, dparams, self._dcache, pos + j,
+                                      tok)
+            nxt = torch.argmax(self._biased(lg), dim=-1).to(torch.int32)
+            if gens is not None:
+                filt = self._filtered_logits(lg, self._temp)
+                drawn = torch.argmax(filt + self._noise(gens, dcfg.vocab),
+                                     dim=-1).to(torch.int32)
+                nxt = torch.where(self._temp > 0, drawn, nxt)
+                q_filt.append(filt)
+            tok = torch.where(done, tok, nxt)
+            proposals.append(tok)
+        return (torch.stack(proposals[:k - 1], dim=1),
+                None if gens is None else torch.stack(q_filt[:k - 1], dim=1))
+
+    def _spec_commit(self, token, pos, done, drafts, t_lg):
+        """The greedy commit, shared by both layouts: the longest draft
+        prefix equal to the target's biased argmax, then the target's
+        next token."""
+        preds = torch.argmax(self._biased(t_lg), dim=-1).to(torch.int32)
+        return commit_greedy(token, pos, self._eos, done, drafts, preds)
+
+    def _spec_commit_mixed(self, token, pos, done, drafts, t_lg, q_filt,
+                           gens):
+        """Each slot's commit by its temperature: greedy slots by
+        :meth:`_spec_commit`, sampled slots by the rejection scheme, its
+        target distribution from :meth:`_filtered_logits` and its draws
+        (k-1 uniforms, Gumbel noise for the resample and the bonus) from
+        the request's generator."""
+        greedy = self._spec_commit(token, pos, done, drafts, t_lg)
+        slots, k, V = t_lg.shape
+        t_filt = self._filtered_logits(
+            t_lg.reshape(slots * k, V),
+            self._temp.repeat_interleave(k)).reshape(slots, k, V)
+        uniforms = torch.zeros((slots, k - 1), dtype=torch.float32,
+                               device=self.device)
+        for i, g in enumerate(gens):
+            if g is not None:
+                uniforms[i] = torch.rand(k - 1, generator=g, device=g.device)
+        sampled = commit_sampled(token, pos, self._eos, done, drafts, t_filt,
+                                 q_filt, uniforms, self._noise(gens, V),
+                                 self._noise(gens, V))
+        pick = self._temp > 0
+        return tuple(torch.where(pick.reshape(-1, *[1] * (a.dim() - 1)), a,
+                                 b)
+                     for a, b in zip(sampled, greedy))
+
+    def _spec_chunk(self):
+        """One speculative pass for every slot: the draft proposes, the
+        target verifies ``[token, d1 .. d_{chunk-1}]`` in one chunk
+        forward (free and frozen slots compute too; their writes drop or
+        stay masked), and each slot commits its count (0 when frozen).
+        Returns the ``[slots, chunk]`` emitted tokens and the ``[slots]``
+        counts on the host: the pass's one designed readback."""
+        k = self.chunk
+        token, pos, done = self._token, self._pos, self._done
+        gens = self._sampling_gens()
+        drafts, q_filt = self._draft_propose(token, pos, done, gens)
+        chunk = torch.cat([token[:, None], drafts], dim=1)     # [slots, k]
+        if self.pool is not None:
+            t_lg, _ = paged_chunk_logits(self.cfg, self.params, self._cache,
+                                         chunk, pos, self._table)
+        else:
+            t_lg, _ = _chunk_logits(self.cfg, self.params, self._cache, pos,
+                                    chunk)
+        if gens is None:
+            out = self._spec_commit(token, pos, done, drafts, t_lg)
+        else:
+            out = self._spec_commit_mixed(token, pos, done, drafts, t_lg,
+                                          q_filt, gens)
+        self._token, self._pos, self._done, emit, counts = out
+        host = torch.cat([emit, counts[:, None]], dim=1).cpu().tolist()
+        toks, counts = [r[:k] for r in host], [r[k] for r in host]
+        self.target_passes += 1
+        live = [c for c, r in zip(counts, self._requests) if r is not None]
+        self.spec_committed += sum(live)
+        self.spec_slot_passes += len(live)
+        # each live slot-pass proposes chunk-1 tokens and accepts count-1
+        # of them (the +1 is the target's own token)
+        active = [c for c in live if c > 0]
+        self.spec_drafted_proposed += (k - 1) * len(active)
+        self.spec_drafted_accepted += sum(c - 1 for c in active)
+        return toks, counts
 
     def _fail_all(self, exc: BaseException) -> None:
         """A dead batcher must never strand a waiter: every in-flight and
@@ -691,7 +899,11 @@ class ContinuousEngine:
                 with self._cv:
                     self._cv.notify_all()     # wake drain() waiters
                 continue
-            toks = self._chunk_step().tolist()
+            if self.draft is not None:
+                toks, counts = self._spec_chunk()
+            else:
+                toks = self._chunk_step().tolist()
+                counts = [self.chunk] * self.slots
             now = time.perf_counter()
             for slot, req in enumerate(self._requests):
                 if req is None:
@@ -706,7 +918,7 @@ class ContinuousEngine:
                     self._abort_slot(slot, req, DEADLINE_ERROR,
                                      "deadline_expired")
                     continue
-                for tok in toks[slot]:
+                for tok in toks[slot][:counts[slot]]:
                     if self._emitted[slot] >= req.steps:
                         break
                     if not req.first_token_at:

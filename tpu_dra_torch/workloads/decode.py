@@ -22,8 +22,9 @@ outside ``[0, S_max)`` writes nothing.
 Sampling draws its noise from an explicit ``torch.Generator`` (a
 Gumbel-max draw from the filtered, temperature-scaled logits), so a
 sampled stream is reproducible per generator seed but is not
-``jax.random``'s.  Not ported yet: ``speculative_decode`` and
-``beam_decode`` (they raise).
+``jax.random``'s.  ``speculative_decode`` verifies a draft model's
+proposals in one cached chunk forward of the target.  Not ported yet:
+``beam_decode`` (it raises).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from tpu_dra_torch.device import resolve_device
 from tpu_dra_torch.workloads.quant import matmul_any, quantize_kv
+from tpu_dra_torch.workloads.spec_sample import commit_greedy, commit_sampled
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _block,
@@ -47,8 +49,8 @@ from tpu_dra_torch.workloads.train import (
     weak_scalar,
 )
 
-_LATER = ("not ported yet: it comes with the speculative-serving slice "
-          "of the PyTorch port (ROADMAP queue 1 item 7)")
+_LATER = ("not ported yet: it comes with the remaining serving modes of "
+          "the PyTorch port (ROADMAP queue 1 item 7)")
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -481,9 +483,156 @@ def decode_ragged(cfg: ModelConfig, params, prompts, lengths, *, steps: int,
                   eos_id=eos_id, repetition_penalty=repetition_penalty)
 
 
-def speculative_decode(*_args, **_kwargs):
-    """Draft-and-verify decoding (reference ``decode.speculative_decode``)."""
-    raise NotImplementedError(f"speculative_decode is {_LATER}")
+def _snapshot_rows(caches: list, rows) -> list:
+    """Copies of batch rows ``rows`` of every leaf of each cache (int8
+    scale buffers included)."""
+    return [{name: buf[:, rows].clone() for name, buf in c.items()}
+            for c in caches]
+
+
+def _restore_rows(caches: list, rows, saved: list) -> None:
+    for c, s in zip(caches, saved):
+        for name, buf in c.items():
+            buf[:, rows] = s[name]
+
+
+@torch.no_grad()
+def speculative_decode(cfg: ModelConfig, params, draft_cfg: ModelConfig,
+                       draft_params, prompt, *, steps: int, k: int = 4,
+                       max_len: int | None = None,
+                       attn_impl: str = "dense",
+                       return_stats: bool = False,
+                       cache_dtype: str = "bf16",
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 0.0, generator=None):
+    """Speculative decoding: the draft model proposes ``k-1`` tokens one
+    step at a time, the target verifies them in ONE cached ``k``-token
+    chunk forward, and up to ``k`` tokens commit per target pass.
+
+    ``temperature == 0``: greedy acceptance (the longest prefix of
+    proposals equal to the target's argmax, then the target's own next
+    token), so the output is ``greedy_decode(target)`` for any draft, up
+    to the rounding of the chunk forward.  ``temperature > 0`` (needs
+    ``generator``): proposals are drawn from the draft's filtered,
+    temperature-scaled distribution and committed by the rejection
+    scheme (``spec_sample.commit_sampled``), so the stream is distributed
+    as target-only sampling.  A row that has its tokens is frozen: its
+    caches (every leaf, int8 scales included) keep their state.  Rejected
+    proposals leave stale cache entries past the committed position,
+    masked until overwritten.
+
+    Both models must share the vocab.  Returns ``[B, steps]`` int32
+    tokens, and ``{"target_passes": n}`` too with ``return_stats``."""
+    if k < 2:
+        raise ValueError(f"k must be >= 2 (k-1 drafted tokens and one "
+                         f"bonus per pass), got {k}")
+    if cfg.vocab != draft_cfg.vocab:
+        raise ValueError(f"draft vocab {draft_cfg.vocab} != target vocab "
+                         f"{cfg.vocab}")
+    sampling = temperature > 0
+    if sampling and generator is None:
+        raise ValueError("temperature > 0 needs a generator")
+    B, S = prompt.shape
+    dev = prompt.device
+    max_len = max_len or cfg.max_seq
+    # every pass commits >= 1 token and writes <= k cache positions past
+    # the committed stream; frozen rows stop advancing
+    if S + steps + k > max_len:
+        raise ValueError(f"S + steps + k = {S + steps + k} exceeds max_len "
+                         f"{max_len}")
+    if cfg.pos_emb == "learned" and S + steps + k > cfg.max_seq:
+        raise ValueError(
+            f"S + steps + k = {S + steps + k} exceeds the learned-position "
+            f"table (max_seq={cfg.max_seq}); grow max_seq or use rope")
+    t_cache = init_kv_cache(cfg, B, max_len, cache_dtype, device=dev)
+    t_cache, t_logits = prefill(cfg, params, t_cache, prompt, attn_impl)
+    d_cache = init_kv_cache(draft_cfg, B, max_len, cache_dtype, device=dev)
+    d_cache, _ = _prefill_trunk(draft_cfg, draft_params, d_cache, prompt,
+                                attn_impl)
+
+    def draw(logits):
+        """A draw from the filtered, temperature-scaled logits, and those
+        logits (the distribution the commit scores it against)."""
+        filt = _filter_topk_topp(logits / temperature, top_k, top_p)
+        noise = gumbel_noise(filt.numel(), generator).reshape(filt.shape)
+        return torch.argmax(filt + noise, dim=-1).to(torch.int32), filt
+
+    last = (draw(t_logits)[0] if sampling
+            else torch.argmax(t_logits, dim=-1).to(torch.int32))
+    width = steps + k                            # room for the overshoot
+    out = torch.zeros((B, width + 1), dtype=torch.int32, device=dev)
+    out[:, 0] = last                             # column `width`: dropped
+    count = torch.ones(B, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    no_eos = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    j = torch.arange(k, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+    caches = [t_cache, d_cache]
+    passes = 0
+    # steps - 1 passes at worst: count starts at 1, each pass commits >= 1
+    while passes < steps:
+        done_host = [c >= steps for c in count.tolist()]
+        if all(done_host):
+            break
+        done = torch.tensor(done_host, device=dev)
+        frozen = torch.nonzero(done)[:, 0]
+        saved = _snapshot_rows(caches, frozen) if len(frozen) else None
+
+        # 1. the draft runs k steps from `last` (its cache then covers
+        #    every position a pass accepted whole commits); the k-th
+        #    proposal is discarded
+        tok, proposals, q_filt = last, [], []
+        for i in range(k):
+            lg, d_cache = _token_logits(draft_cfg, draft_params, d_cache,
+                                        pos + i, tok)
+            if sampling:
+                tok, filt = draw(lg)
+                q_filt.append(filt)
+            else:
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            proposals.append(tok)
+        drafts = torch.stack(proposals[:k - 1], dim=1)        # [B, k-1]
+
+        # 2. the target verifies [last, d1 .. d_{k-1}] in one chunk
+        chunk = torch.cat([last[:, None], drafts], dim=1)     # [B, k]
+        t_lg, t_cache = _chunk_logits(cfg, params, t_cache, pos, chunk)
+
+        # 3. commit
+        if sampling:
+            V = t_lg.shape[-1]
+            t_filt = _filter_topk_topp(
+                (t_lg / temperature).reshape(B * k, V), top_k,
+                top_p).reshape(t_lg.shape)
+            uniforms = torch.rand((B, k - 1), generator=generator,
+                                  device=generator.device).to(dev)
+            g_res = gumbel_noise(B * V, generator).reshape(B, V).to(dev)
+            g_bonus = gumbel_noise(B * V, generator).reshape(B, V).to(dev)
+            last2, _, _, emit, counts = commit_sampled(
+                last, pos, no_eos, done, drafts, t_filt,
+                torch.stack(q_filt[:k - 1], dim=1), uniforms, g_res,
+                g_bonus)
+        else:
+            last2, _, _, emit, counts = commit_greedy(
+                last, pos, no_eos, done, drafts,
+                torch.argmax(t_lg, dim=-1).to(torch.int32))
+        n = torch.clamp(counts - 1, min=0)
+
+        # 4. write d1..dn and the final token; frozen rows write nothing
+        dest = torch.where((j <= n[:, None]) & ~done[:, None],
+                           count[:, None] + j, width)
+        out[rows, dest.long()] = emit.to(torch.int32)
+        if saved is not None:
+            _restore_rows(caches, frozen, saved)
+        adv = (n + 1).to(torch.int32)
+        pos = torch.where(done, pos, pos + adv)
+        count = torch.where(done, count, count + adv)
+        last = last2
+        passes += 1
+    toks = out[:, :steps]
+    if return_stats:
+        # passes == target verify passes: the speedup observable
+        return toks, {"target_passes": passes}
+    return toks
 
 
 def beam_decode(*_args, **_kwargs):

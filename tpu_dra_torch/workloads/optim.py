@@ -18,8 +18,11 @@ rounds where optax's does:
 - the learning rate is a schedule of optax's 0-based update count: the
   first update reads ``schedule(0)``.
 
-Where optax returns new arrays, :meth:`AdamW.update` writes the
-parameters and moments in place, so a step holds one copy of them.
+:class:`Adam` is ``optax.adam`` alone (no clipping, no decay), the
+optimizer ``spec_draft.distill_draft`` trains a draft with.
+
+Where optax returns new arrays, ``update`` writes the parameters and
+moments in place, so a step holds one copy of them.
 """
 
 from __future__ import annotations
@@ -145,6 +148,31 @@ class AdamW:
             nu.mul_(B2).add_((1 - B2) * g.square())
             u = (mu / bc1) / ((nu / bc2).sqrt() + EPS)
             p.add_((u + WEIGHT_DECAY * p) * step_size)
+        return AdamWState(count, state.mu, state.nu)
+
+
+class Adam:
+    """``optax.adam(learning_rate)``: B1, B2, EPS, bias-corrected
+    moments, no clipping and no weight decay, each operation rounding
+    where optax's does."""
+
+    def __init__(self, learning_rate: float = 1e-3):
+        self.learning_rate = learning_rate
+
+    init = AdamW.init
+
+    def update(self, params, grads, state: AdamWState) -> AdamWState:
+        """One update of ``params`` (in place) from ``grads``; returns the
+        next state (its moment tensors updated in place too)."""
+        count = state.count + 1
+        bc1 = _bias_correction(B1, count)
+        bc2 = _bias_correction(B2, count)
+        for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
+                                tree_leaves(state.mu), tree_leaves(state.nu)):
+            mu.mul_(B1).add_((1 - B1) * g)
+            nu.mul_(B2).add_((1 - B2) * g.square())
+            p.add_(((mu / bc1) / ((nu / bc2).sqrt() + EPS))
+                   * -self.learning_rate)
         return AdamWState(count, state.mu, state.nu)
 
 

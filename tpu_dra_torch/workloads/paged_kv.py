@@ -10,17 +10,22 @@ Layouts match the reference:
 
 Where the reference donates the pool to a jitted function and gets a new
 one back, the port writes the pool in place: ``scatter_prefill``,
-``append_token`` and ``_paged_step`` mutate the tensors of the ``cache``
-dict and return the same dict.
+``append_chunk``/``append_token``, ``_paged_step`` and the chunk paths
+(``paged_chunk_logits``, ``paged_chunked_prefill``) mutate the tensors of
+the ``cache`` dict and return the same dict.
 
 -1 entries: torch indexing wraps -1 to the LAST page (as numpy does), and
 ``index_put_`` has no drop mode — an index past the end raises instead of
 dropping.  So every page write selects its valid rows with an explicit
-mask first; a retired slot's all-(-1) table row writes nothing.
+mask first (one device→host sync a write set, shared by every layer of
+a step or chunk); a retired slot's all-(-1) table row writes nothing.
 
 ``paged_attention`` is the one kernel of the serving path: a CUDA kernel
 (``csrc/paged_attention.cu``) for tensors on the card, its plain version
-``paged_attention_ref`` for tensors on the CPU.
+``paged_attention_ref`` for tensors on the CPU.  An m-token chunk (the
+speculative verify, chunked prefill) attends through
+``paged_attention_chunk_ref``, plain PyTorch on every device as the
+reference's is XLA.
 """
 
 from __future__ import annotations
@@ -206,29 +211,44 @@ def scatter_prefill(cache: dict, ks, vs, table) -> dict:
     return scatter_pages_raw(cache, _kv_cols(cache, ks, vs), table)
 
 
-def _append_targets(table, lengths, page_size: int, total_pages: int):
-    """Where each sequence's next token lands: ``(rows, page ids,
-    offsets)`` for the rows whose position ``lengths`` falls in a real
-    page of their table row — past the row's width or on a -1 entry, the
-    write drops (the reference's ``mode="drop"``).  Selecting the rows
-    costs one device→host sync; a decode step computes it once and reuses
-    it for every layer."""
+def _append_targets(table, lengths, page_size: int, total_pages: int,
+                    m: int = 1):
+    """Where tokens ``lengths .. lengths+m-1`` of each sequence land:
+    ``(rows, chunk columns, page ids, offsets)`` for the ``[B, m]``
+    entries whose position falls in a real page of their table row —
+    before 0, past the row's width or on a -1 entry, the write drops (the
+    reference's ``mode="drop"``).  Selecting the entries costs one
+    device→host sync; a decode step or a chunk pass computes it once and
+    reuses it for every layer."""
     MP = table.shape[1]
-    lengths = lengths.long()
-    pidx = lengths // page_size
-    ids = table.long().gather(1, pidx.clamp(max=MP - 1)[:, None])[:, 0]
-    ok = (pidx < MP) & (ids >= 0) & (ids < total_pages)
-    rows = torch.nonzero(ok, as_tuple=True)[0]
-    return rows, ids[rows], (lengths % page_size)[rows]
+    posn = lengths.long().reshape(-1, 1) + torch.arange(
+        m, device=table.device)[None, :]                  # [B, m]
+    pidx = posn // page_size
+    ids = table.long().gather(1, pidx.clamp(0, MP - 1))
+    ok = (posn >= 0) & (pidx < MP) & (ids >= 0) & (ids < total_pages)
+    rows, cols = torch.nonzero(ok, as_tuple=True)
+    return rows, cols, ids[rows, cols], (posn % page_size)[rows, cols]
 
 
 def _append_at(cache: dict, cols: dict, targets) -> None:
-    """Write ``cols[name]`` ``[L, B, Hkv, last]`` at ``targets`` in
+    """Write ``cols[name]`` ``[L, B, Hkv, m, last]`` at ``targets`` in
     place."""
-    rows, ids, off = targets
+    rows, js, ids, off = targets
     for name, buf in cache.items():
-        buf[:, :, ids, off] = cols[name][:, rows].transpose(1, 2).to(
-            buf.dtype)
+        # [N, L, Hkv, last] → [L, Hkv, N, last]
+        buf[:, :, ids, off] = cols[name][:, rows, :, js].permute(
+            1, 2, 0, 3).to(buf.dtype)
+
+
+def append_chunk(cache: dict, k_new, v_new, table, lengths, m: int) -> dict:
+    """Write an m-token chunk's KV ``[L, B, Hkv, m, Dh]`` bf16 at
+    positions ``lengths .. lengths+m-1`` of every sequence, in place: a
+    token may cross a page boundary, each one routes through the table
+    on its own; quantizes at write for int8 pools."""
+    targets = _append_targets(table, lengths, cache["k"].shape[3],
+                              cache["k"].shape[2], m)
+    _append_at(cache, _kv_cols(cache, k_new, v_new), targets)
+    return cache
 
 
 def append_token(cache: dict, k_new, v_new, table, lengths) -> dict:
@@ -236,10 +256,8 @@ def append_token(cache: dict, k_new, v_new, table, lengths) -> dict:
     ``lengths`` (0-based next index) of every sequence, in place: page
     ``lengths // ps`` via the table, offset ``lengths % ps``; quantizes at
     write for int8 pools."""
-    targets = _append_targets(table, lengths, cache["k"].shape[3],
-                              cache["k"].shape[2])
-    _append_at(cache, _kv_cols(cache, k_new, v_new), targets)
-    return cache
+    return append_chunk(cache, k_new[:, :, :, None], v_new[:, :, :, None],
+                        table, lengths, 1)
 
 
 # --------------------------------------------------------------------------
@@ -247,14 +265,18 @@ def append_token(cache: dict, k_new, v_new, table, lengths) -> dict:
 # --------------------------------------------------------------------------
 
 
-def paged_attention_ref(q, k_pages, v_pages, table, lengths, k_s=None,
-                        v_s=None):
-    """Plain PyTorch paged decode attention — the reference's
-    ``paged_attention_ref`` (the chunk oracle at m=1, row limit
-    ``lengths - 1``).  Gathers each slot's whole table into a contiguous
-    copy, folds int8 scales outside the contractions, and takes a masked
-    softmax; a zero-length slot gives zeros."""
-    B, qh, d = q.shape
+def paged_attention_chunk_ref(q, k_pages, v_pages, table, pos, m: int,
+                              k_s=None, v_s=None):
+    """Plain PyTorch m-token chunk attention against pages (the
+    speculative verify's shape) — the reference's
+    ``paged_attention_chunk_ref``: ``q`` [B, H, m, Dh], row j attends
+    columns ``<= pos + j`` (its own just-appended position included).
+    Gathers each slot's whole table into a contiguous ``[B, Hkv, MP·ps,
+    Dh]`` copy once for the m rows, rounds the QKᵀ scores to bf16 before
+    taking them to fp32 (as the reference's einsum does), folds int8
+    scales outside the contractions and casts P to bf16 before P·V; a
+    row whose limit is below 0 gives zeros."""
+    B, qh, _, d = q.shape
     hkv, P, ps, _ = k_pages.shape
     MP = table.shape[1]
     g = qh // hkv
@@ -272,21 +294,34 @@ def paged_attention_ref(q, k_pages, v_pages, table, lengths, k_s=None,
         vs_row = gather(v_s, 1)[..., 0]
         k = k.to(torch.bfloat16)
         v = v.to(torch.bfloat16)
-    qg = q.reshape(B, hkv, g, d)
-    scores = torch.einsum("bkgd,bksd->bkgs", qg, k).float()
+    qg = q.reshape(B, hkv, g, m, d)
+    scores = torch.einsum("bkgmd,bksd->bkgms", qg, k).float()
     scores = scores * (d ** -0.5)
     if quantized:
-        scores = scores * ks_row[:, :, None, :]
+        scores = scores * ks_row[:, :, None, None, :]
     col = torch.arange(MP * ps, device=q.device)
-    valid = col[None, :] <= (lengths.long() - 1)[:, None]  # [B, S]
-    valid = valid[:, None, None]
+    limit = pos.long().reshape(-1, 1) + torch.arange(
+        m, device=q.device)[None, :]                       # [B, m]
+    valid = (col[None, None, :] <= limit[:, :, None])[:, None, None]
     scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
     attn = torch.softmax(scores, dim=-1).masked_fill(~valid, 0.0)
     if quantized:
-        attn = attn * vs_row[:, :, None, :]
+        attn = attn * vs_row[:, :, None, None, :]
     attn = attn.to(torch.bfloat16)
-    out = torch.einsum("bkgs,bksd->bkgd", attn, v)
-    return out.reshape(B, qh, d).to(torch.bfloat16)
+    out = torch.einsum("bkgms,bksd->bkgmd", attn, v)
+    return out.reshape(B, qh, m, d).to(torch.bfloat16)
+
+
+def paged_attention_ref(q, k_pages, v_pages, table, lengths, k_s=None,
+                        v_s=None):
+    """Plain PyTorch paged decode attention — the reference's
+    ``paged_attention_ref``: the chunk version at m=1 with row limit
+    ``lengths - 1`` (a zero-length slot's limit is -1: every column
+    masks and the output is zeros)."""
+    out = paged_attention_chunk_ref(q[:, :, None], k_pages, v_pages, table,
+                                    lengths.to(torch.int32) - 1, 1,
+                                    k_s=k_s, v_s=v_s)
+    return out[:, :, 0]
 
 
 # Tokens of one work item of the CUDA kernel (``kSpanTokens`` in
@@ -442,71 +477,144 @@ def _prefill_kv(cfg: ModelConfig, params, prompt):
     return torch.stack(ks), torch.stack(vs), x
 
 
-def _paged_step(cfg: ModelConfig, params, cache, token, lengths, table):
-    """One decode step for every slot: embed → per layer (project,
-    append to pages, paged attention, mlp) → logits.  ``lengths`` is the
-    context size BEFORE this token.  Writes the pool in place; returns
-    ``(cache, logits [B, vocab] fp32, lengths + 1)``."""
-    B = token.shape[0]
-    pos = lengths.to(torch.int32)                          # [B]
-    x = embed_tokens(cfg, params, token[:, None], pos[:, None])
+def _paged_chunk_hidden(cfg: ModelConfig, params, cache, tokens, pos,
+                        table):
+    """Cached trunk forward of an m-token chunk against pages: ``tokens``
+    ``[B, m]``, row j at absolute position ``pos + j`` (``pos`` ``[B]``,
+    the context size before the chunk).  Per layer: project, append the
+    chunk's KV to its pages, attend, mlp; causality within the chunk
+    falls out of the per-row column limit.  Writes the pool in place and
+    returns ``(pre-head activations [B, m, D], cache)``.
+
+    A one-token chunk (the decode step) attends through the
+    paged-attention kernel; a longer one (the speculative verify, chunked
+    prefill) through :func:`paged_attention_chunk_ref`, plain PyTorch in
+    the reference too.  The append targets are computed once for all
+    layers."""
+    B, m = tokens.shape
+    pos = pos.to(torch.int32)
+    positions = _chunk_positions(pos, m)                   # [B, m]
+    x = embed_tokens(cfg, params, tokens, positions)
     quantized = "k_s" in cache
     targets = _append_targets(table, pos, cache["k"].shape[3],
-                              cache["k"].shape[2])
-    attn_len = pos + 1
-    positions = _chunk_positions(pos, 1)                   # [B, 1]
+                              cache["k"].shape[2], m)
     for i in range(cfg.n_layers):
         layer = layer_params(params["blocks"], i)
         lc = {name: buf[i:i + 1] for name, buf in cache.items()}
         qkv = matmul_any(_rmsnorm(x, layer["ln1"]), layer["wqkv"], x.dtype)
         q, k, v = _split_qkv(cfg, qkv)
-        q = _split_heads(cfg, q)                           # [B, H, 1, Dh]
+        q = _split_heads(cfg, q)                           # [B, H, m, Dh]
         k = _split_heads(cfg, k, cfg.kv_heads)
         v = _split_heads(cfg, v, cfg.kv_heads)
         if cfg.pos_emb == "rope":
             q = apply_rope(q, positions, cfg.rope_base)
             k = apply_rope(k, positions, cfg.rope_base)
-        _append_at(lc, _kv_cols(lc, k[:, :, 0][None], v[:, :, 0][None]),
-                   targets)
+        _append_at(lc, _kv_cols(lc, k[None], v[None]), targets)
         scales = ({"k_s": lc["k_s"][0], "v_s": lc["v_s"][0]}
                   if quantized else {})
-        out = paged_attention(q[:, :, 0].to(torch.bfloat16).contiguous(),
-                              lc["k"][0], lc["v"][0], table, attn_len,
-                              **scales)
-        out = out.reshape(B, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
+        if m == 1:
+            out = paged_attention(q[:, :, 0].to(torch.bfloat16).contiguous(),
+                                  lc["k"][0], lc["v"][0], table, pos + 1,
+                                  **scales)[:, :, None]
+        else:
+            out = paged_attention_chunk_ref(q.to(torch.bfloat16), lc["k"][0],
+                                            lc["v"][0], table, pos, m,
+                                            **scales)
+        out = out.transpose(1, 2).reshape(
+            B, m, cfg.n_heads * cfg.d_head).to(x.dtype)
         x = x + matmul_any(out, layer["wo"], x.dtype)
         x = _mlp(x, layer)
-    logits = head_logits(params, x)[:, 0]
-    return cache, logits, pos + 1
+    return x, cache
+
+
+def paged_chunk_logits(cfg: ModelConfig, params, cache, tokens, pos,
+                       table):
+    """m-token chunk forward against pages: appends every token's KV and
+    returns ``([B, m, vocab] fp32 logits, cache)`` — the paged analog of
+    ``decode._chunk_logits``, the speculative verify pass."""
+    x, cache = _paged_chunk_hidden(cfg, params, cache, tokens, pos, table)
+    return head_logits(params, x), cache
+
+
+def _paged_step(cfg: ModelConfig, params, cache, token, lengths, table):
+    """One decode step for every slot: embed → per layer (project,
+    append to pages, paged attention, mlp) → logits.  ``lengths`` is the
+    context size BEFORE this token.  Writes the pool in place; returns
+    ``(cache, logits [B, vocab] fp32, lengths + 1)``."""
+    x, cache = _paged_chunk_hidden(cfg, params, cache, token[:, None],
+                                   lengths, table)
+    return cache, head_logits(params, x)[:, 0], lengths.to(torch.int32) + 1
+
+
+def _pad_to(prompt, multiple: int):
+    """Right-pad ``[B, S]`` with token 0 to a multiple of ``multiple``."""
+    pad = (-prompt.shape[1]) % multiple
+    return torch.nn.functional.pad(prompt, (0, pad)) if pad else prompt
+
+
+def prefill_pages_hidden(cfg: ModelConfig, params, cache, prompt, table):
+    """Prefill right-padded prompts ``[B, S]`` into their pages (S padded
+    to a page multiple: causally dead, masked by the lengths), scattering
+    the KV in place; returns the trunk activations ``[B, S_pad, D]``."""
+    ks, vs, x = _prefill_kv(cfg, params,
+                            _pad_to(prompt, cache["k"].shape[3]))
+    scatter_prefill(cache, ks, vs, table)
+    return x
 
 
 def prefill_pages(cfg: ModelConfig, params, cache, prompt, lengths,
                   table):
-    """Prefill right-padded prompts ``[B, S]`` into their pages: pad S
-    to a page multiple (causally dead, masked by ``lengths``), run the
-    prefill trunk, scatter the KV in place, and return the
-    last-real-position logits ``[B, vocab]``."""
-    B, S = prompt.shape
-    ps = cache["k"].shape[3]
-    pad = (-S) % ps
-    if pad:
-        prompt = torch.nn.functional.pad(prompt, (0, pad))
-    ks, vs, x = _prefill_kv(cfg, params, prompt)
-    scatter_prefill(cache, ks, vs, table)
-    last = x[torch.arange(B, device=x.device), lengths.long() - 1]
+    """Prefill right-padded prompts ``[B, S]`` into their pages and
+    return the last-real-position logits ``[B, vocab]``."""
+    x = prefill_pages_hidden(cfg, params, cache, prompt, table)
+    last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]
     return head_logits(params, last[:, None])[:, 0]
 
 
+def paged_chunked_prefill(cfg: ModelConfig, params, cache, prompt,
+                          lengths, table, chunk: int):
+    """Prefill a ``[B, S]`` right-padded prompt (S a multiple of
+    ``chunk``) into pages ``chunk`` tokens at a time through the cached
+    chunk forward: activations stay O(chunk·D) instead of O(S·D).  Each
+    row's hidden state is harvested from the piece where its last real
+    position falls, and the vocab head runs once at the end.  Returns
+    ``(cache, last-real-position logits [B, vocab])``.  Pad positions
+    append KV that decode overwrites before it is ever attended."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    B, S = prompt.shape
+    if S % chunk:
+        raise ValueError(f"prompt width {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    dev = prompt.device
+    last = lengths.to(device=dev, dtype=torch.int64) - 1
+    rows = torch.arange(B, device=dev)
+    last_x = torch.zeros((B, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    for base in range(0, S, chunk):
+        x, cache = _paged_chunk_hidden(
+            cfg, params, cache, prompt[:, base:base + chunk],
+            torch.full((B,), base, dtype=torch.int32, device=dev), table)
+        row = x[rows, (last - base).clamp(0, chunk - 1)]
+        inside = (last >= base) & (last < base + chunk)
+        last_x = torch.where(inside[:, None], row.to(last_x.dtype), last_x)
+    return cache, head_logits(params, last_x[:, None])[:, 0]
+
+
+@torch.no_grad()
 def paged_greedy_decode(cfg: ModelConfig, params, prompt, table, *,
                         steps: int, total_pages: int, page_size: int,
-                        lengths=None, cache_dtype: str = "bf16"):
+                        lengths=None, cache_dtype: str = "bf16",
+                        prefill_chunk: int | None = None):
     """Greedy decode ``steps`` tokens with all KV in pages, on the device
     of ``prompt``.
 
     ``prompt`` [B, S] int, right-padded; ``lengths`` [B] true prompt
     lengths (default: full S); ``table`` [B, MP] int32 page ids with
-    capacity for ``lengths + steps``.  Returns [B, steps] int32 — the
-    per-request oracle of the continuous engine."""
+    capacity for ``lengths + steps``.  ``prefill_chunk``: prefill through
+    :func:`paged_chunked_prefill` in pieces of that many tokens (the
+    prompt padded to a page, then a chunk multiple) instead of the dense
+    prefill trunk.  Returns [B, steps] int32 — the per-request oracle of
+    the continuous engine."""
     dev = prompt.device
     B, S = prompt.shape
     if lengths is None:
@@ -515,7 +623,12 @@ def paged_greedy_decode(cfg: ModelConfig, params, prompt, table, *,
     table = table.to(device=dev, dtype=torch.int32)
     cache = init_paged_cache(cfg, total_pages, page_size, cache_dtype,
                              device=dev)
-    logits = prefill_pages(cfg, params, cache, prompt, lengths, table)
+    if prefill_chunk:
+        prompt = _pad_to(_pad_to(prompt, page_size), prefill_chunk)
+        cache, logits = paged_chunked_prefill(cfg, params, cache, prompt,
+                                              lengths, table, prefill_chunk)
+    else:
+        logits = prefill_pages(cfg, params, cache, prompt, lengths, table)
     token = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [token]
     lens = lengths
@@ -525,3 +638,24 @@ def paged_greedy_decode(cfg: ModelConfig, params, prompt, table, *,
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(token)
     return torch.stack(out, dim=1)                         # [B, steps]
+
+
+def make_paged_decoder(cfg: ModelConfig, *, steps: int, total_pages: int,
+                       page_size: int, cache_dtype: str = "bf16",
+                       prefill_chunk: int | None = None, device=None):
+    """``(params, prompt [B, S], table [B, MP][, lengths]) -> [B, steps]``
+    greedy decoder over a paged cache on ``device`` (default: the card);
+    prompt, table and lengths are moved there, the params must already
+    live there.  A plain closure over :func:`paged_greedy_decode` (the
+    reference jit-compiles it; the table is a plain operand either
+    way, so one decoder serves any allocation pattern)."""
+    dev = resolve_device(device)
+
+    def run(params, prompt, table, lengths=None):
+        return paged_greedy_decode(
+            cfg, params, torch.as_tensor(prompt).to(dev),
+            torch.as_tensor(table).to(dev), steps=steps,
+            total_pages=total_pages, page_size=page_size,
+            lengths=None if lengths is None else torch.as_tensor(lengths),
+            cache_dtype=cache_dtype, prefill_chunk=prefill_chunk)
+    return run

@@ -13,6 +13,12 @@ GET  /stats   → the engine's ``stats()`` as JSON
 Admission control, SLO tracking, /metrics, /prefill and /decode_handoff
 come with later slices of the port.
 
+Speculative serving: ``--speculative-continuous`` with a draft makes every
+engine pass draft-and-verify (``continuous.py``).  ``--auto-draft`` builds
+the draft from the serving weights (:func:`build_auto_draft`);
+``--draft-params-npz`` loads one whose dimensions the ``--draft-*`` flags
+give.  ``--logit-bias 'id:val,...'`` biases the logits in every mode.
+
 Weights: ``--params-npz`` (a file written by
 ``tpu_dra_torch.convert.save_npz``) or ``--init-seed`` (random weights
 drawn on the device from that seed), served in the form ``--weights``
@@ -166,21 +172,32 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
           port: int = 8477, cache_dtype: str = "bf16",
           continuous: bool = True, slots: int = 32, chunk: int = 4,
           kv_layout: str = "slab", page_size: int = 64,
-          total_pages: int | None = None, health=None,
+          total_pages: int | None = None, draft: tuple | None = None,
+          speculative_engine: bool = False,
+          logit_bias: dict[int, float] | None = None, health=None,
           health_stale_after: float = 600.0,
           device=None) -> ThreadingHTTPServer:
     """Start the server on a daemon thread and return it (``.shutdown()``
     stops the server and the engine).  ``port`` 0 picks a free port
     (``server.server_address``).  ``/generate`` runs over a
     ContinuousEngine with ``slots`` in-flight sequences and a ``kv_layout``
-    ("slab" or "paged") KV cache, on ``device`` (default: the card)."""
+    ("slab" or "paged") KV cache, on ``device`` (default: the card).
+    ``speculative_engine`` (needs ``draft=(draft_cfg, draft_params)``)
+    makes each engine pass one draft-and-verify iteration;
+    ``logit_bias`` is the engine-global bias."""
     if not continuous:
         raise ValueError("only --continuous is ported; the bucketed "
                          "DecoderPool comes with later slices of the "
                          "PyTorch port")
+    if speculative_engine != (draft is not None):
+        raise ValueError("speculative_engine needs a draft model, and a "
+                         "draft serves only in the speculative engine (the "
+                         "bucketed /speculative path comes with later "
+                         "slices of the PyTorch port)")
     engine = ContinuousEngine(cfg, params, slots=slots, chunk=chunk,
                               cache_dtype=cache_dtype, kv_layout=kv_layout,
                               page_size=page_size, total_pages=total_pages,
+                              draft=draft, logit_bias=logit_bias,
                               device=device)
     try:
         srv = ThreadingHTTPServer(
@@ -222,7 +239,6 @@ def load_params(cfg: ModelConfig, *, params_npz: str = "",
     written by ``tpu_dra_torch.convert.save_npz``, else random from
     ``init_seed``.  A tree that is already quantized is returned as it
     is, and ``weights`` must name its form."""
-    from tpu_dra_torch.workloads import quant
     if weights not in WEIGHT_FORMS:
         raise ValueError(f"weights must be one of {WEIGHT_FORMS}, got "
                          f"{weights!r}")
@@ -244,9 +260,33 @@ def load_params(cfg: ModelConfig, *, params_npz: str = "",
                              f"weights but --weights {weights} was asked "
                              f"for")
         return params
+    return to_form(params, weights)
+
+
+def to_form(params: dict, form: str) -> dict:
+    """An fp32 tree in the serving weight ``form`` (``quant.py``)."""
+    from tpu_dra_torch.workloads import quant
     return {"fp32": lambda p: p, "bf16": quant.cast_params_bf16,
             "int8": quant.quantize_params_int8,
-            "int4": quant.quantize_params_int4}[weights](params)
+            "int4": quant.quantize_params_int4}[form](params)
+
+
+def build_auto_draft(cfg: ModelConfig, fp32_params, *, form: str = "fp32",
+                     n_layers: int | None = None, steps: int = 200,
+                     batch: int = 8):
+    """A draft built from the serving model: quarter-depth truncation
+    and distillation (``spec_draft.make_draft``) from the fp32 tree
+    (quantized leaves have no gradients), then the serving weight
+    ``form``, so the draft's per-token read shrinks with the target's."""
+    from tpu_dra_torch.workloads.spec_draft import make_draft
+    dcfg, dparams = make_draft(cfg, fp32_params, n_layers=n_layers,
+                               distill_steps=steps, batch=batch)
+    return dcfg, to_form(dparams, form)
+
+
+# the flags that need checkpointing.py, not ported yet
+_NEEDS_CHECKPOINTING = ("needs checkpointing.py, which comes with a later "
+                        "slice of the PyTorch port (ROADMAP queue 1 item 5)")
 
 
 def main(argv=None) -> int:
@@ -305,24 +345,104 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card; "
                          "'cpu' runs the plain versions of the kernels)")
+    ap.add_argument("--logit-bias", default="",
+                    help="engine-global logit bias 'id:val,id:val': ban "
+                         "(-1e9) or nudge tokens in every mode (greedy, "
+                         "sampled, the speculative p and q)")
+    ap.add_argument("--speculative-continuous", action="store_true",
+                    help="with a draft: the engine drafts and verifies "
+                         "each pass (per-slot accept counts; greedy "
+                         "requests keep the plain engine's tokens, sampled "
+                         "ones commit by the rejection scheme)")
+    ap.add_argument("--auto-draft", action="store_true",
+                    help="build the draft from the serving weights: "
+                         "quarter-depth truncation and distillation "
+                         "(workloads/spec_draft.py) from the fp32 tree, "
+                         "then the --weights form")
+    ap.add_argument("--auto-draft-layers", type=int, default=None,
+                    help="auto-draft depth (default n_layers//4, min 1)")
+    ap.add_argument("--auto-draft-steps", type=int, default=200,
+                    help="distillation steps at startup (0 = truncation "
+                         "only)")
+    ap.add_argument("--auto-draft-cache", default="",
+                    help="directory caching the distilled draft "
+                         "(not ported yet: " + _NEEDS_CHECKPOINTING + ")")
+    ap.add_argument("--draft-checkpoint-dir", default="",
+                    help="a draft model's training checkpoint (not ported "
+                         "yet: " + _NEEDS_CHECKPOINTING + ")")
+    ap.add_argument("--draft-params-npz", default="",
+                    help="a draft model's weights written by "
+                         "tpu_dra_torch.convert.save_npz, its dimensions "
+                         "given by --draft-*; served in the --weights form")
+    ap.add_argument("--draft-d-model", type=int, default=128)
+    ap.add_argument("--draft-n-heads", type=int, default=4)
+    ap.add_argument("--draft-n-kv-heads", type=int, default=None)
+    ap.add_argument("--draft-n-layers", type=int, default=2)
+    ap.add_argument("--draft-d-ff", type=int, default=512)
     args = ap.parse_args(argv)
     if not args.continuous:
         ap.error("only --continuous is ported")
+    for flag in ("auto_draft_cache", "draft_checkpoint_dir"):
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} {_NEEDS_CHECKPOINTING}; "
+                     f"serve with --auto-draft or --draft-params-npz")
+    if args.auto_draft and args.draft_params_npz:
+        ap.error("--auto-draft conflicts with --draft-params-npz (pick one "
+                 "draft source)")
+    has_draft = args.auto_draft or bool(args.draft_params_npz)
+    if args.speculative_continuous != has_draft:
+        ap.error("--speculative-continuous needs a draft (--auto-draft or "
+                 "--draft-params-npz), and a draft serves only with "
+                 "--speculative-continuous")
+    logit_bias = None
+    if args.logit_bias:
+        try:
+            logit_bias = {int(p.split(":")[0]): float(p.split(":")[1])
+                          for p in args.logit_bias.split(",") if p}
+        except (ValueError, IndexError):
+            ap.error(f"--logit-bias must be 'id:val,id:val', got "
+                     f"{args.logit_bias!r}")
     cfg = ModelConfig(vocab=args.vocab, d_model=args.d_model,
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
                       n_layers=args.n_layers, d_ff=args.d_ff,
                       max_seq=args.max_seq, pos_emb=args.pos_emb)
+    draft = None
     try:
-        params = load_params(cfg, params_npz=args.params_npz,
-                             init_seed=args.init_seed, weights=args.weights,
-                             device=args.device)
+        if args.auto_draft:
+            # distillation needs the fp32 tree: load it, then take the
+            # serving form of both models from it
+            fp32 = load_params(cfg, params_npz=args.params_npz,
+                               init_seed=args.init_seed, weights="fp32",
+                               device=args.device)
+            draft = build_auto_draft(cfg, fp32, form=args.weights,
+                                     n_layers=args.auto_draft_layers,
+                                     steps=args.auto_draft_steps)
+            params = to_form(fp32, args.weights)
+            del fp32
+        else:
+            params = load_params(cfg, params_npz=args.params_npz,
+                                 init_seed=args.init_seed,
+                                 weights=args.weights, device=args.device)
+        if args.draft_params_npz:
+            dcfg = ModelConfig(
+                vocab=args.vocab, d_model=args.draft_d_model,
+                n_heads=args.draft_n_heads,
+                n_kv_heads=args.draft_n_kv_heads,
+                n_layers=args.draft_n_layers, d_ff=args.draft_d_ff,
+                max_seq=args.max_seq, pos_emb=args.pos_emb)
+            draft = (dcfg, load_params(dcfg,
+                                       params_npz=args.draft_params_npz,
+                                       weights=args.weights,
+                                       device=args.device))
     except ValueError as exc:
         ap.error(str(exc))
     srv = serve(cfg, params, host=args.host, port=args.port,
                 cache_dtype=args.cache_dtype, continuous=True,
                 slots=args.slots, chunk=args.chunk,
                 kv_layout=args.kv_layout, page_size=args.page_size,
-                total_pages=args.total_pages, device=args.device)
+                total_pages=args.total_pages, draft=draft,
+                speculative_engine=args.speculative_continuous,
+                logit_bias=logit_bias, device=args.device)
     if args.warmup:
         print(f"warmed {srv.engine.warmup()} prompt buckets", flush=True)
     stop = threading.Event()

@@ -4,7 +4,9 @@ GPU: builds its CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version, times it, then drives the
 port's paths at full width: it serves the headline model through the
 port's HTTP server (bf16 weights over pages; int8 weights over the slab
-and over pages, plainly and speculatively with a distilled draft), runs
+and over pages, plainly and speculatively with a distilled draft, and
+behind the front end with a shared prefix, admission, deadlines and a
+drain), runs
 the tiled matmul's bench section, trains the flagship model through
 ``fit`` and through the fused training step, and trains it sharded over
 a virtual mesh of 4 ranks on the card (DP×TP with the fused-collective
@@ -137,7 +139,32 @@ Phases (each prints as it goes; any failed check exits non-zero):
      target accepting every proposal on the slab (on pages
      informational); plain and speculative tokens/s, accept rate, tokens
      per pass, the distillation's seconds and one pass of each layout
-     under torch.profiler (informational).
+     under torch.profiler (informational);
+ 18. the front end at full width: phase 17's int8 model and draft behind
+     serve() with admission on (admission_max_cost 8192), a 200-token
+     system prompt through POST /prefix (3 full 64-token pages and an
+     8-token tail) and 32 concurrent /generate requests naming it
+     (suffixes 16-128 tokens, 32-128 steps) on pages (32 slots, chunk 8,
+     160 pages) and on the slab (32 slots): every answer held to the
+     port's greedy decode of prefix + suffix in the engine's layout
+     (decode_ragged, or paged_greedy_decode, each over the 32 full
+     prompts in one batch) under argmax_tol; on pages the paged
+     attention kernel launched exactly n_layers times a decode step,
+     more slots active at once than unshared pages admit (20), pages in
+     use at the peak equal to the 3 shared pages and the joiners' own,
+     the pool back to total - 3 after the load and to total once the
+     prefix is evicted; eight prefix requests through the speculative
+     engine in both layouts held to the plain engine's answers (#1
+     launched exactly draft layers x chunk times a pass on pages);
+     /stream equal to its final tokens and to /generate; a stop trimmed
+     at its first occurrence; X-Deadline-Ms 200 under the slow-decode
+     failpoint answering 504 deadline_expired with the pages back and
+     badput counted; a request over the admission bound and a burst
+     over it answering 503 with Retry-After; /metrics parsing, its
+     /generate counts by code equal to what was sent; the reference's
+     keys in /debug/slo and /debug/overload; drain() finishing the
+     in-flight request and answering new ones 503; TTFT p50/p95 and
+     tokens/s with the prefix against full prompts (informational).
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -155,6 +182,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -2369,8 +2397,8 @@ def spec_serve_phase(gen, card: str) -> dict:
         out[f"ceiling {layout}"] = ceiling
     with torch.no_grad():
         out["profile"] = profile_spec_pass(cfg, params, dcfg, dparams)
-    del params, dparams
-    torch.cuda.empty_cache()
+    # phase 18 serves the same models
+    out["models"] = (cfg, params, dcfg, dparams)
     return out
 
 
@@ -2407,6 +2435,455 @@ def profile_spec_pass(cfg, params, dcfg, dparams) -> dict:
         finally:
             eng.shutdown()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the front end at full width over a shared prefix
+# ---------------------------------------------------------------------------
+
+# the system prompt: 3 full 64-token pages and an 8-token tail
+PREFIX_LEN = 200
+# the admission bound of phase 18's servers: the 32 requests' cost (their
+# suffixes and steps, 4480) fits under the one-tenant burst line
+# (0.7 x 8192)
+ADMISSION_MAX_COST = 8192
+# the keys of the reference server's /debug/overload and /debug/slo
+# (tpu_dra/workloads/serve.py :770-796, tpu_dra/workloads/slo.py :165-193)
+OVERLOAD_KEYS = {"state", "role", "admission", "engine"}
+OVERLOAD_ENGINE_KEYS = {"queued", "active", "slots", "batch_occupancy",
+                        "kv_pages_free", "kv_pages_total", "expired_queued",
+                        "expired_active", "goodput_slot_s", "badput_slot_s"}
+SLO_OBJECTIVE_KEYS = {"target", "description", "lifetime", "windows"}
+METRIC_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$')
+
+
+def call(port: int, path: str, body=None, headers=None,
+         timeout: float = 600) -> tuple:
+    """(status, decoded body or text, headers) of a GET (``body`` None)
+    or a JSON POST; HTTP errors are answers too."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, raw, hdrs = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as exc:
+        code, raw, hdrs = exc.code, exc.read(), exc.headers
+    text = raw.decode()
+    try:
+        return code, json.loads(text), hdrs
+    except ValueError:
+        return code, text, hdrs
+
+
+def prefix_load(cfg) -> tuple:
+    """The system prompt and 32 requests of the bench's LOAD mix
+    (suffixes of 16-128 tokens, 32-128 steps), random ids from the
+    seed."""
+    import numpy as np
+
+    from tpu_dra_torch.bench import LOAD
+    rng = np.random.default_rng(SEED + 18)
+    n = len(LOAD["lengths"])
+    reqs = [(LOAD["lengths"][i % n], LOAD["steps"][i % n])
+            for i in range(32)]
+    prefix = rng.integers(0, cfg.vocab, PREFIX_LEN).tolist()
+    return prefix, reqs, [rng.integers(0, cfg.vocab, ln).tolist()
+                          for ln, _ in reqs]
+
+
+def ragged_oracle(cfg, params, prompts: list, steps: int,
+                  layout: str) -> list:
+    """The port's greedy decode of every full prompt in one ragged batch
+    on the card, in the engine's layout: ``decode.decode_ragged`` for the
+    slab, ``paged_kv.paged_greedy_decode`` over pages of its own for
+    pages (the slab rounds its attention scores to bf16, the paged
+    kernel keeps them in fp32, as in the reference)."""
+    import numpy as np
+    import torch
+
+    from tpu_dra_torch.workloads.decode import decode_ragged
+    from tpu_dra_torch.workloads.paged_kv import PagePool, paged_greedy_decode
+    S = max(len(p) for p in prompts)
+    batch = torch.tensor([p + [0] * (S - len(p)) for p in prompts],
+                         device="cuda")
+    lengths = torch.tensor([len(p) for p in prompts], device="cuda")
+    with torch.no_grad():
+        if layout == "slab":
+            return decode_ragged(cfg, params, batch, lengths,
+                                 steps=steps).tolist()
+        ps = ENGINE["page_size"]
+        pool = PagePool(len(prompts) * (cfg.max_seq // ps), ps)
+        table = torch.from_numpy(np.stack([pool.table_row(
+            pool.alloc(pool.pages_for(len(p) + steps)), cfg.max_seq // ps)
+            for p in prompts])).to("cuda")
+        return paged_greedy_decode(
+            cfg, params, batch, table, steps=steps,
+            total_pages=pool.total_pages, page_size=ps,
+            lengths=lengths).tolist()
+
+
+def serve_prefix_load(label: str, srv, pid: str, suffixes: list,
+                      reqs: list, card: str) -> dict:
+    """The 32 /generate requests naming ``pid``, one client thread each,
+    after the counts are set to 0: answers, launches, engine stats."""
+    from tpu_dra_torch.workloads.paged_kv import paged_attention
+    port = srv.server_address[1]
+    results: dict[int, object] = {}
+    srv.engine.reset_stats()
+
+    def client(i):
+        try:
+            code, body, _ = call(port, "/generate", {
+                "tokens": [suffixes[i]], "steps": reqs[i][1],
+                "prefix_id": pid})
+            results[i] = body["tokens"][0] if code == 200 else (code, body)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            results[i] = exc
+    paged_attention.launches = 0
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    launches = paged_attention.launches
+    answers = []
+    for i, (_, steps) in enumerate(reqs):
+        toks = results.get(i)
+        if not isinstance(toks, list) or len(toks) != steps:
+            fail(f"{label}: request {i} gave {toks!r:.300}")
+        answers.append(toks)
+    stats = srv.engine.stats()
+    n_tok = sum(len(a) for a in answers)
+    log(f"[{label}] {len(reqs)} concurrent /generate requests naming the "
+        f"{PREFIX_LEN}-token prefix: {n_tok} tokens in {wall:.3f} s, "
+        f"{n_tok / wall:.1f} tokens/s, peak active slots "
+        f"{stats['peak_active']}"
+        + (f", peak pages in use {stats['kv_pages_peak_used']} of "
+           f"{stats['kv_pages_total']} ({stats['kv_pages_own_at_peak']} "
+           f"the joiners' own)" if "kv_pages_total" in stats else "")
+        + f" (informational); on {card}")
+    return {"answers": answers, "launches": launches, "stats": stats,
+            "tokens_per_s": n_tok / wall}
+
+
+def ttft_compare(eng, pid: str, prefix: list, suffixes: list,
+                 reqs: list, card: str) -> None:
+    """Informational: TTFT p50/p95 and tokens/s of the 32 requests with
+    the prefix against the same requests sent as full prompts, through
+    the engine of the paged server."""
+    out = {}
+    for how in ("prefix", "full prompts"):
+        t0 = time.perf_counter()
+        handles = [eng.submit_async(
+            sfx if how == "prefix" else prefix + sfx, steps,
+            prefix_id=pid if how == "prefix" else None)
+            for sfx, (_, steps) in zip(suffixes, reqs)]
+        for h in handles:
+            if not h.done.wait(900) or h.error:
+                fail(f"prefix TTFT ({how}): {h.error}")
+        wall = time.perf_counter() - t0
+        ttft = sorted(1e3 * (h.first_token_at - h.submitted)
+                      for h in handles)
+        n_tok = sum(len(h.tokens) for h in handles)
+        out[how] = ttft
+        log(f"[prefix] {how}: TTFT p50 {ttft[len(ttft) // 2]:.1f} ms, p95 "
+            f"{ttft[int(0.95 * (len(ttft) - 1))]:.1f} ms, {n_tok / wall:.1f} "
+            f"tokens/s, peak active slots {eng.stats()['peak_active']} "
+            f"(informational); on {card}")
+        eng.reset_stats()
+
+
+def prefix_phase(models: tuple, card: str) -> dict:
+    """The int8 headline model (phase 17's, with its distilled draft)
+    behind serve() with admission on: a 200-token system prompt through
+    /prefix, 32 concurrent /generate requests naming it on pages (32
+    slots, chunk 8, 160 64-token pages: the 3 shared pages let all 32 in,
+    where unshared pages fit 20) and on the slab, each answer held to the
+    port's greedy decode of prefix + suffix in the engine's layout on the
+    card by the near-tie rule; kernel #1 launched n_layers times a decode step; pages in use
+    equal to the 3 shared pages and the joiners' own; the pool back to
+    total - 3, then to total once the prefix is evicted; eight prefix
+    requests through the speculative engine in both layouts held to the
+    plain engine's answers; /stream, a stop, a deadline, admission
+    sheds, /metrics, /debug/slo, /debug/overload and the drain."""
+    import torch
+
+    from tpu_dra_torch.bench import SPEC_ENGINE, SPEC_PAGES
+    from tpu_dra_torch.resilience import failpoint
+    from tpu_dra_torch.workloads.paged_kv import paged_attention
+    from tpu_dra_torch.workloads.serve import serve
+    cfg, params, dcfg, dparams = models
+    prefix, reqs, suffixes = prefix_load(cfg)
+    wants, logits_at = {}, {}
+    for layout, at in (("slab", slab_oracle_logits_at),
+                       ("paged", oracle_logits_at)):
+        t0 = time.perf_counter()
+        full = ragged_oracle(cfg, params, [prefix + s for s in suffixes],
+                             max(st for _, st in reqs), layout)
+        wants[layout] = [o[:st] for o, (_, st) in zip(full, reqs)]
+        logits_at[layout] = lambda i, want, step, at=at: at(
+            cfg, params, prefix + suffixes[i], want, step)
+        log(f"[prefix] the {layout} oracle: the 32 full prompts "
+            f"({PREFIX_LEN} + 16-128 tokens, 128 steps) in one ragged "
+            f"batch in {time.perf_counter() - t0:.1f} s")
+    out: dict = {}
+    ps = ENGINE["page_size"]
+    n_shared = PREFIX_LEN // ps
+    for layout, engine in (("paged", ENGINE),
+                           ("slab", dict(slots=32, chunk=8,
+                                         kv_layout="slab"))):
+        label = f"prefix {layout}"
+        srv = serve(cfg, params, port=0,
+                    admission_max_cost=ADMISSION_MAX_COST, **engine)
+        try:
+            port = srv.server_address[1]
+            sent: dict[int, int] = {}
+            sent_mu = threading.Lock()
+
+            def generate(body, headers=None):
+                code, got, hdrs = call(port, "/generate", body, headers)
+                with sent_mu:
+                    sent[code] = sent.get(code, 0) + 1
+                return code, got, hdrs
+            t_reg = time.perf_counter()
+            code, reg, _ = call(port, "/prefix", {"tokens": prefix})
+            torch.cuda.synchronize()
+            reg_s = time.perf_counter() - t_reg
+            if code != 200:
+                fail(f"{label}: /prefix answered {code}: {reg}")
+            pid = reg["prefix_id"]
+            # first use of the join path, outside the counted run
+            if generate({"tokens": [suffixes[0]], "steps": 2,
+                         "prefix_id": pid})[0] != 200:
+                fail(f"{label}: the first prefix request failed")
+            run = serve_prefix_load(label, srv, pid, suffixes, reqs, card)
+            st = run["stats"]
+            sent[200] += len(reqs)
+            if layout == "paged":
+                steps = st["decode_steps"]
+                if run["launches"] != cfg.n_layers * steps or steps == 0:
+                    fail(f"{label}: paged attention launched "
+                         f"{run['launches']} times over {steps} decode "
+                         f"steps of {cfg.n_layers} layers")
+                if st["kv_pages_peak_used"] != \
+                        n_shared + st["kv_pages_own_at_peak"]:
+                    fail(f"{label}: {st['kv_pages_peak_used']} pages in use "
+                         f"at the peak, not the {n_shared} shared and the "
+                         f"joiners' own {st['kv_pages_own_at_peak']}")
+                if st["peak_active"] <= 20:
+                    fail(f"{label}: only {st['peak_active']} slots active "
+                         f"at once; unshared pages fit 20")
+                if st["kv_pages_free"] != st["kv_pages_total"] - n_shared:
+                    fail(f"{label}: {st['kv_pages_free']} pages free after "
+                         f"the load, not total - {n_shared}")
+                log(f"[{label}] kernel #1: {run['launches']} launches over "
+                    f"{steps} decode steps ({cfg.n_layers} a step), over "
+                    f"the {n_shared} shared prefix pages; the prefix's "
+                    f"registration took {reg_s:.3f} s, so sharing it "
+                    f"saves ~{(len(reqs) - 1) * reg_s:.2f} s of prefill "
+                    f"over the 32 requests (informational); on {card}")
+            hold_answers(label, run["answers"],
+                         lambda i, w=wants[layout]: w[i], logits_at[layout],
+                         requests=reqs)
+            out[layout] = run
+            if layout == "slab":
+                continue
+            front_end_checks(srv, port, pid, prefix, suffixes, reqs,
+                             generate, sent, n_shared, card)
+            ttft_compare(srv.engine, pid, prefix, suffixes, reqs, card)
+            # evicted by eight newer prefixes (max_prefixes 8): back to
+            # every page
+            for k in range(8):
+                call(port, "/prefix", {"tokens": [k + 1] * 16})
+            st = srv.engine.stats()
+            if st["kv_pages_free"] != st["kv_pages_total"]:
+                fail(f"{label}: {st['kv_pages_free']} of "
+                     f"{st['kv_pages_total']} pages free after the prefix "
+                     f"was evicted")
+            log(f"[{label}] after the load {st['kv_pages_total'] - n_shared}"
+                f" pages free (the prefix's {n_shared} resident); after "
+                f"its eviction all {st['kv_pages_free']}")
+            drain_check(srv, port, prefix + suffixes[3])
+        finally:
+            failpoint.reset()
+            srv.shutdown()
+    # eight prefix requests through the speculative engine, both layouts
+    paged_attention.launches = 0
+    spec_launches = 0
+    for layout, kw in (("slab", {}), ("paged", SPEC_PAGES)):
+        label = f"prefix spec {layout}"
+        srv = serve(cfg, params, port=0, kv_layout=layout, **SPEC_ENGINE,
+                    **kw, draft=(dcfg, dparams), speculative_engine=True)
+        try:
+            port = srv.server_address[1]
+            pid = call(port, "/prefix", {"tokens": prefix})[1]["prefix_id"]
+            call(port, "/generate", {"tokens": [suffixes[0]], "steps": 2,
+                                     "prefix_id": pid})
+            run = serve_prefix_load(label, srv, pid, suffixes[:8], reqs[:8],
+                                    card)
+        finally:
+            srv.shutdown()
+        passes = run["stats"]["spec_target_passes"]
+        want_launches = dcfg.n_layers * SPEC_ENGINE["chunk"] * passes \
+            if layout == "paged" else 0
+        if run["launches"] != want_launches:
+            fail(f"{label}: paged attention launched {run['launches']} "
+                 f"times over {passes} passes ({want_launches} wanted)")
+        spec_launches += run["launches"]
+        log(f"[{label}] accept rate {run['stats']['spec_accept_rate']}, "
+            f"{passes} passes, paged attention launches {run['launches']} "
+            f"(informational)")
+        hold_answers(label, run["answers"],
+                     lambda i, a=out[layout]["answers"]: a[i],
+                     logits_at[layout], requests=reqs[:8])
+    out["launches"] = out["paged"]["launches"] + spec_launches
+    return out
+
+
+def front_end_checks(srv, port: int, pid: str, prefix: list,
+                     suffixes: list, reqs: list, generate, sent: dict,
+                     n_shared: int, card: str) -> None:
+    """/stream, a stop, a deadline under the slow-decode failpoint, the
+    admission sheds, /metrics, /debug/slo and /debug/overload."""
+    import http.client
+
+    from tpu_dra_torch.resilience import failpoint
+    # /stream: its ids equal its final tokens and a /generate's
+    body = {"tokens": [suffixes[1]], "steps": reqs[1][1], "prefix_id": pid}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/stream", body=json.dumps(body).encode())
+    resp = conn.getresponse()
+    lines = [json.loads(ln) for ln in resp.read().decode().splitlines()
+             if ln.strip()]
+    conn.close()
+    streamed = [ln["token"] for ln in lines if "token" in ln]
+    _, gen, _ = generate(body)
+    if resp.status != 200 or lines[-1] != {"done": True, "tokens": streamed} \
+            or gen["tokens"] != [streamed]:
+        fail(f"/stream gave {lines[-1]!r:.200} over {len(streamed)} lines "
+             f"against /generate's {gen!r:.200}")
+    log(f"[front end] /stream: {len(streamed)} token lines, equal to its "
+        f"final tokens and to /generate of the same request")
+    # a stop from a greedy answer: trimmed at its first occurrence
+    ref = gen["tokens"][0]
+    stop = ref[5:7]
+    _, got, _ = generate(dict(body, stop=[stop]))
+    cut = next(j for j in range(2, len(ref) + 1) if ref[j - 2:j] == stop)
+    if got["tokens"] != [ref[:cut - 2]]:
+        fail(f"stop {stop}: {got!r:.200} against {ref[:cut - 2]!r:.200}")
+    log(f"[front end] stop {stop}: {len(ref)} tokens trimmed to "
+        f"{cut - 2}")
+    # a deadline under the slow-decode failpoint: 504, pages back, badput
+    failpoint.activate("serve.engine.slow_decode=sleep(300)")
+    try:
+        code, dl, _ = generate(dict(body, steps=128),
+                               {"X-Deadline-Ms": "200"})
+    finally:
+        failpoint.reset()
+    if code != 504 or dl.get("reason") != "deadline_expired":
+        fail(f"X-Deadline-Ms 200 answered {code}: {dl}")
+    t_end = time.perf_counter() + 30
+    while time.perf_counter() < t_end:
+        st = srv.engine.stats()
+        if st["active"] == 0:
+            break
+        time.sleep(0.05)
+    if st["kv_pages_free"] != st["kv_pages_total"] - n_shared or \
+            not st["badput_slot_s"]["deadline_expired"] > 0:
+        fail(f"after the deadline: {st['kv_pages_free']} pages free, badput "
+             f"{st['badput_slot_s']}")
+    log(f"[front end] X-Deadline-Ms 200 under a 300 ms/pass failpoint: 504 "
+        f"deadline_expired, pages back, badput "
+        f"{st['badput_slot_s']['deadline_expired']} slot-s")
+    # admission: one request over the bound, then a burst over it
+    code, shed, hdrs = generate({"tokens": [[1] * 128] * 40, "steps": 128})
+    if code != 503 or shed.get("reason") != "cost_too_large" or \
+            int(hdrs.get("Retry-After", "0")) < 1:
+        fail(f"an over-cost request answered {code} {shed}")
+    failpoint.activate("serve.engine.slow_decode=sleep(300)")
+    burst: list = []
+    try:
+        rows = [prefix[:190]] * 14            # cost 14 x 192 = 2688 each
+        threads = [threading.Thread(target=lambda: burst.append(generate(
+            {"tokens": rows, "steps": 2}))) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        failpoint.reset()
+    codes = sorted(c for c, _, _ in burst)
+    sheds = [(b, h) for c, b, h in burst if c == 503]
+    if not sheds or any(c not in (200, 503) for c in codes) or any(
+            b.get("reason") not in ("queue_full", "tenant_quota")
+            or int(h.get("Retry-After", "0")) < 1 for b, h in sheds):
+        fail(f"a burst over the admission bound answered {codes}: "
+             f"{[b for _, b, _ in burst]!r:.300}")
+    log(f"[front end] over the admission bound: cost_too_large 503 with "
+        f"Retry-After; a burst of 4 x 2688 against {ADMISSION_MAX_COST} "
+        f"answered {codes}")
+    # /metrics: every line parses; /generate counts by code as sent
+    code, text, _ = call(port, "/metrics")
+    bad = [ln for ln in text.splitlines()
+           if ln and not ln.startswith("#") and not METRIC_LINE.match(ln)]
+    counted: dict[int, float] = {}
+    for ln in text.splitlines():
+        m = re.match(r'tpu_serve_requests_total\{path="/generate",'
+                     r'code="(\d+)",tenant="[^"]*"\} (\S+)$', ln)
+        if m:
+            counted[int(m.group(1))] = counted.get(int(m.group(1)), 0.0) + \
+                float(m.group(2))
+    if code != 200 or bad or counted != {c: float(n) for c, n in
+                                         sent.items()}:
+        fail(f"/metrics: {code}, unparsed {bad[:3]}, /generate by code "
+             f"{counted} against sent {sent}")
+    log(f"[front end] /metrics parses; /generate by code {counted} as sent")
+    code, over, _ = call(port, "/debug/overload")
+    code2, slo, _ = call(port, "/debug/slo")
+    if set(over) != OVERLOAD_KEYS or \
+            set(over["engine"]) != OVERLOAD_ENGINE_KEYS or \
+            set(slo["objectives"]) != {"availability", "latency"} or any(
+                set(o) != SLO_OBJECTIVE_KEYS
+                for o in slo["objectives"].values()):
+        fail(f"/debug/overload or /debug/slo keys: {sorted(over)}, "
+             f"{sorted(slo)}")
+    log(f"[front end] /debug/overload: {json.dumps(over)[:300]}")
+    log(f"[front end] /debug/slo availability lifetime: "
+        f"{slo['objectives']['availability']['lifetime']}")
+
+
+def drain_check(srv, port: int, prompt: list) -> None:
+    """drain(): an in-flight request finishes, a new one sheds 503."""
+    result: dict = {}
+    t = threading.Thread(target=lambda: result.update(r=call(
+        port, "/generate", {"tokens": [prompt], "steps": 128})))
+    t.start()
+    t_end = time.perf_counter() + 60
+    while time.perf_counter() < t_end and \
+            srv.engine.stats()["active"] == 0:
+        time.sleep(0.005)
+    drained: dict = {}
+    dt = threading.Thread(target=lambda: drained.update(ok=srv.drain(120)))
+    dt.start()
+    time.sleep(0.05)
+    code, body, hdrs = call(port, "/generate", {"tokens": [[1, 2]],
+                                                "steps": 2})
+    health = call(port, "/healthz")[0]
+    dt.join(300)
+    t.join(300)
+    r = result.get("r")
+    if not drained.get("ok") or code != 503 or \
+            body.get("reason") != "draining" or health != 503 or \
+            r is None or r[0] != 200 or len(r[1]["tokens"][0]) != 128:
+        fail(f"drain: ok {drained}, new request {code} {body}, /healthz "
+             f"{health}, in-flight {r!r:.200}")
+    log("[front end] drain(): the in-flight request finished with its 128 "
+        "tokens, a new one answered 503 draining, /healthz 503")
 
 
 def main() -> int:
@@ -2531,12 +3008,15 @@ def main() -> int:
         f"{quant_served['paged']['tokens_per_s']:.1f} tokens/s for the 8 "
         f"requests (informational); on {card}")
     spec = spec_serve_phase(gen, card)
+    prefixed = prefix_phase(spec.pop("models"), card)
+    torch.cuda.empty_cache()
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "tpu_dra_torch/csrc/paged_attention.cu",
         "replaces": "tpu_dra/workloads/paged_kv.py:248",
-        "launches": served["launches"] + spec["paged"]["spec"]["launches"],
+        "launches": served["launches"] + spec["paged"]["spec"]["launches"]
+        + prefixed["launches"],
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

@@ -364,10 +364,14 @@ def test_later_engine_features_raise(kw, match):
 
 
 def test_later_request_features_raise(engine):
-    with pytest.raises(ValueError, match="later slice"):
+    """Prefixes and stop sequences are served since the prefix slice
+    (tests/test_torch_prefix.py): an unknown prefix id and an invalid
+    stop raise the reference's errors; the KV handoff is still a later
+    slice's."""
+    with pytest.raises(ValueError, match="unknown prefix_id"):
         engine.submit_async([1, 2], 3, prefix_id="p")
-    with pytest.raises(ValueError, match="later slice"):
-        engine.submit_async([1, 2], 3, stop=[[5]])
+    with pytest.raises(ValueError, match="stop must be 1..8"):
+        engine.submit_async([1, 2], 3, stop=[[5]] * 9)
     with pytest.raises(ValueError, match="later slice"):
         engine.submit_handoff(object(), 3)
     with pytest.raises(ValueError, match="max_len"):

@@ -127,6 +127,46 @@ def test_speculative_paged_engine_launches_the_kernel_per_draft_step():
     assert all(len(h.tokens) == 10 for h in handles)
 
 
+def test_prefix_batch_on_pages_shares_pages_and_launches_the_kernel():
+    """A batch of prefix joins on pages on the card: every decode step
+    launches the paged-attention kernel once a layer over the shared
+    prefix pages, the pages in use stay within the prefix's shared pages
+    and the joiners' own, every reference comes back, and each answer
+    has its length."""
+    dev = card()
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(vocab=256, d_model=256, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=512, max_seq=256, pos_emb="rope")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    eng = ContinuousEngine(cfg, params, slots=4, chunk=4, kv_layout="paged",
+                           page_size=16, total_pages=24, device=dev)
+    try:
+        pid = eng.register_prefix(list(range(40, 80)))   # 2 pages + 8
+        pages = list(eng._prefixes[pid].pages)
+        assert len(pages) == 2
+        assert len(eng.submit([1, 2, 3], 2, prefix_id=pid,
+                              timeout=300)) == 2
+        eng.reset_stats()
+        before = tpk.paged_attention.launches
+        handles = [eng.submit_async([5 + i] * (3 + 5 * i), 12,
+                                    prefix_id=pid) for i in range(4)]
+        for h in handles:
+            assert h.done.wait(300) and h.error is None, h.error
+        launches = tpk.paged_attention.launches - before
+        st = eng.stats()
+        refs = [eng.pool._refs.get(p, 0) for p in pages]
+    finally:
+        eng.shutdown()
+    assert launches == cfg.n_layers * st["decode_steps"] > 0
+    assert st["peak_active"] == 4
+    assert st["kv_pages_peak_used"] == 2 + st["kv_pages_own_at_peak"]
+    assert st["kv_pages_free"] == st["kv_pages_total"] - 2 and refs == [1, 1]
+    assert all(len(h.tokens) == 12 for h in handles)
+
+
 def test_paged_attention_kernel_around_its_spans():
     """The split-page kernel where its work items end: spans that end on a
     page edge (lengths 64, 128, 256: one, two and four whole pages), one

@@ -84,7 +84,7 @@ def test_generate_shape_and_equals_engine(server):
     {"tokens": [[1, 2]], "steps": 0},
     {"tokens": [[1, 2]], "steps": 3, "top_k": 5},
     {"tokens": [[1, 2]], "steps": 3, "prefix_id": "p"},
-    {"tokens": [[1, 2]], "steps": 3, "stop": [[4]]},
+    {"tokens": [[1, 2]], "steps": 3, "stop": [[4] * 17]},
     {"steps": 3},
 ], ids=["empty", "steps0", "top_k", "prefix", "stop", "no-tokens"])
 def test_bad_requests_are_400(server, body):

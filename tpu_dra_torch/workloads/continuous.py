@@ -44,13 +44,26 @@ the chunk forward; sampled requests the rejection scheme of
 generator.  A request reserves ``chunk`` positions past its last token
 for the pass that overshoots it.
 
-Left for later slices (they raise ``ValueError``; ROADMAP queue 1 item 7
-holds prefixes, with the speculative join paths, and stop sequences;
-item 8 the KV handoff): shared prefixes, stop sequences and KV handoff.
+Shared prefixes (``register_prefix``): a system prompt's KV is computed
+once, on the caller's thread, and every request that names its id
+prefills only its suffix, at positions ``[plen, plen + Sb)`` of a scratch
+seeded with the prefix KV (``decode._chunk_hidden``).  On the slab the
+scratch is copied into the slot's row; on pages the prefix's full pages
+are allocated once at registration and shared by every joiner's block
+table (``PagePool.ref``), their content written once by the first
+joiner on the batcher thread, and only the prefix's tail partial page
+and the suffix go to the joiner's own pages.  A speculative join seeds
+the draft's cache the same way (``_Prefix.dkv``; on pages under the same
+page ids).  Stop sequences are matched on the host after every emitted
+token, and the matched sequence is trimmed from the output.
+
+Left for a later slice: KV handoff (``submit_handoff`` raises
+``ValueError``; ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
 from collections import deque
@@ -60,7 +73,9 @@ from typing import Optional
 import torch
 
 from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.resilience import failpoint
 from tpu_dra_torch.workloads.decode import (
+    _chunk_hidden,
     _chunk_logits,
     _filter_topk_topp,
     _prefill_trunk,
@@ -75,6 +90,7 @@ from tpu_dra_torch.workloads.paged_kv import (
     paged_attention,
     paged_chunk_logits,
     prefill_pages_hidden,
+    scatter_pages_raw,
 )
 from tpu_dra_torch.workloads.spec_sample import commit_greedy, commit_sampled
 from tpu_dra_torch.workloads.train import ModelConfig, head_logits
@@ -85,7 +101,12 @@ _PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 DEADLINE_ERROR = "deadline exceeded"
 
 _LATER = ("not ported yet; it comes with a later slice of the PyTorch port "
-          "(ROADMAP queue 1 item 7; the KV handoff item 8)")
+          "(ROADMAP queue 1 item 8)")
+
+failpoint.register("serve.engine.slow_decode",
+                   "once per batcher pass with live slots: sleep() here "
+                   "makes the engine deterministically slow, so overload "
+                   "tests saturate at low load")
 
 
 @dataclass
@@ -95,6 +116,15 @@ class _Request:
     eos_id: Optional[int]
     temperature: float
     seed: int
+    prefix_id: Optional[str] = None   # a registered shared prefix
+    # stop sequences over the generated tokens: matched on the host after
+    # every emitted token, the match trimmed and the request retired
+    stop: Optional[list[list[int]]] = None
+    # pages: the _Prefix the admission gate priced and took references
+    # on; the join refuses any other object under the same id (an
+    # evict and re-register in between swaps the registry entry while
+    # the slot's table holds the old page ids)
+    gate_prefix: Optional["_Prefix"] = None
     # set by cancel(): the batcher retires the slot at the next pass
     # boundary, or drops the request from the queue before admission
     cancelled: bool = False
@@ -113,6 +143,28 @@ class _Request:
     @property
     def latency_s(self) -> float:
         return self.finished - self.submitted
+
+
+@dataclass
+class _Prefix:
+    """A registered shared prompt prefix: its KV computed once
+    (``[L, 1, Hkv, Pb, Dh or 1]`` in the engine's cache dtype, Pb its
+    bucket) and seeded into every join's scratch, so a request prefills
+    only its suffix."""
+    tokens: list[int]
+    kv: dict
+    length: int
+    bucket: int
+    # pages: the prefix's full pages (length // page_size of them),
+    # shared zero-copy by every joiner's table; their content is written
+    # by the first joiner, on the batcher thread.  None: no full page (a
+    # short prefix, or the pool was exhausted at registration), and each
+    # join carries the whole prefix in its own pages
+    pages: Optional[list[int]] = None
+    pages_written: bool = False
+    # speculative engines: the draft's prefix KV (same bucket), so a
+    # join seeds the draft's cache too
+    dkv: Optional[dict] = None
 
 
 def select_tokens(logits, temps, noise, top_k: int = 0,
@@ -144,14 +196,15 @@ class ContinuousEngine:
     tokens, the target verifies them in one chunk forward, and a slot
     with an agreeing draft commits ``chunk`` tokens for one target pass.
     ``logit_bias`` ``{token id: value}`` is added to the logits in every
-    mode (``-1e9`` bans a token)."""
+    mode (``-1e9`` bans a token).  ``max_prefixes`` bounds the shared
+    prefix registry (LRU)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 32,
                  max_len: Optional[int] = None, cache_dtype: str = "bf16",
                  chunk: int = 4, top_k: int = 0, top_p: float = 0.0,
                  logit_bias: Optional[dict[int, float]] = None,
-                 latency_window: int = 1024, draft=None,
-                 kv_layout: str = "slab", page_size: int = 64,
+                 latency_window: int = 1024, max_prefixes: int = 8,
+                 draft=None, kv_layout: str = "slab", page_size: int = 64,
                  total_pages: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         if slots < 1:
@@ -199,6 +252,12 @@ class ContinuousEngine:
         self._slack = chunk if draft is not None else 0
         self.pool: Optional[PagePool] = None
         self._page_ids: list[Optional[list[int]]] = [None] * slots
+        # zero-copy prefix pages each slot's table references
+        self._shared_ids: list[list[int]] = [[] for _ in range(slots)]
+        # the pool is changed by the batcher (admit, retire) and by the
+        # caller's thread (register_prefix's allocation and eviction);
+        # when both are held, _cv is taken first
+        self._pool_mu = threading.Lock()
         if kv_layout == "slab":
             self._cache = init_kv_cache(cfg, slots, self.max_len,
                                         cache_dtype, device=dev)
@@ -269,6 +328,15 @@ class ContinuousEngine:
         self.badput_slot_s: dict[str, float] = {
             "deadline_expired": 0.0, "cancelled": 0.0}
         self.latencies_s: deque[float] = deque(maxlen=latency_window)
+        # peaks at admission boundaries: live slots, and on pages the
+        # pages in use and the slots' own pages at that same moment (in
+        # use = own + the registry's resident prefix pages)
+        self.peak_active = 0
+        self.peak_pages_used = 0
+        self.pages_own_at_peak = 0
+        # the shared-prefix registry (LRU, content-addressed)
+        self.max_prefixes = max_prefixes
+        self._prefixes: dict[str, _Prefix] = {}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="continuous-batcher")
         self._thread.start()
@@ -278,12 +346,16 @@ class ContinuousEngine:
     def submit(self, prompt: list[int], steps: int,
                eos_id: Optional[int] = None, temperature: float = 0.0,
                seed: int = 0, timeout: Optional[float] = None,
-               **later) -> list[int]:
+               prefix_id: Optional[str] = None,
+               stop: Optional[list[list[int]]] = None) -> list[int]:
         """Generate ``steps`` tokens after ``prompt`` (stops early at
-        ``eos_id``); blocks until complete.  Thread-safe."""
+        ``eos_id``, or when a ``stop`` sequence completes: the sequence is
+        trimmed from the output); blocks until complete.  With
+        ``prefix_id`` the context is the registered prefix + ``prompt``,
+        and only ``prompt`` is prefilled.  Thread-safe."""
         req = self.submit_async(prompt, steps, eos_id=eos_id,
                                 temperature=temperature, seed=seed,
-                                **later)
+                                prefix_id=prefix_id, stop=stop)
         if not req.done.wait(timeout):
             raise TimeoutError(f"request not done within {timeout}s")
         if req.error:
@@ -293,19 +365,15 @@ class ContinuousEngine:
     def submit_async(self, prompt: list[int], steps: int,
                      eos_id: Optional[int] = None,
                      temperature: float = 0.0, seed: int = 0,
-                     deadline: Optional[float] = None,
                      prefix_id: Optional[str] = None,
-                     stop=None) -> _Request:
+                     stop: Optional[list[list[int]]] = None,
+                     deadline: Optional[float] = None) -> _Request:
         """Enqueue without blocking; the returned request's ``done``
         event fires when ``tokens`` is complete (check ``error`` first).
         ``deadline`` (absolute, ``time.perf_counter`` clock): past it the
         engine stops working on the request and its ``error`` is
-        :data:`DEADLINE_ERROR`."""
+        :data:`DEADLINE_ERROR`.  ``stop``: 1-8 sequences of 1-16 ids."""
         cfg = self.cfg
-        if prefix_id is not None:
-            raise ValueError(f"shared prefixes (prefix_id) are {_LATER}")
-        if stop is not None:
-            raise ValueError(f"stop sequences are {_LATER}")
         if not prompt:
             raise ValueError("prompt must be non-empty")
         if any(t < 0 or t >= cfg.vocab for t in prompt):
@@ -314,27 +382,50 @@ class ContinuousEngine:
             raise ValueError(f"steps must be >= 1, got {steps}")
         if eos_id is not None and not 0 <= eos_id < cfg.vocab:
             raise ValueError(f"eos_id must be in [0, {cfg.vocab})")
-        if self.pool is not None and self._pages_needed(
-                len(prompt), steps) > self.pool.total_pages:
-            # an unservable request must fail here: the FIFO gate would
-            # otherwise wait on it forever and starve everything behind
-            raise ValueError(
-                f"request needs {self._pages_needed(len(prompt), steps)} "
-                f"KV pages (prompt {len(prompt)} + steps {steps} @ "
-                f"page_size {self.pool.page_size}) but the pool only has "
-                f"{self.pool.total_pages}")
+        if self.pool is not None:
+            _, need, _ = self._paged_requirements(len(prompt), steps,
+                                                  prefix_id)
+            if need > self.pool.total_pages:
+                # an unservable request must fail here: the FIFO gate
+                # would otherwise wait on it forever and starve everything
+                # behind it
+                raise ValueError(
+                    f"request needs {need} KV pages (prompt {len(prompt)} "
+                    f"+ steps {steps} @ page_size {self.pool.page_size}) "
+                    f"but the pool only has {self.pool.total_pages}")
+        plen = 0
+        if prefix_id is not None:
+            with self._cv:
+                pref = self._prefixes.get(prefix_id)
+                if pref is None:
+                    raise ValueError(f"unknown prefix_id {prefix_id!r} "
+                                     f"(evicted or never registered)")
+                self._prefixes[prefix_id] = self._prefixes.pop(prefix_id)
+            plen = pref.length
         slack = self._slack
-        if len(prompt) + steps + slack > self.max_len:
+        if plen + len(prompt) + steps + slack > self.max_len:
             raise ValueError(
-                f"prompt {len(prompt)} + steps {steps} "
+                f"{f'prefix {plen} + ' if plen else ''}prompt {len(prompt)} "
+                f"+ steps {steps} "
                 f"{f'+ speculative overshoot {slack} ' if slack else ''}"
                 f"exceeds the engine's max_len {self.max_len}")
         if len(prompt) > _PROMPT_BUCKETS[-1]:
             raise ValueError(f"prompt exceeds the largest bucket "
                              f"{_PROMPT_BUCKETS[-1]}")
+        if stop is not None:
+            if not stop or len(stop) > 8:
+                raise ValueError("stop must be 1..8 token sequences")
+            for seq in stop:
+                if not seq or len(seq) > 16:
+                    raise ValueError(
+                        "each stop sequence must be 1..16 tokens")
+                if any(t < 0 or t >= cfg.vocab for t in seq):
+                    raise ValueError(
+                        f"stop token ids must be in [0, {cfg.vocab})")
+            stop = [list(seq) for seq in stop]
         req = _Request(prompt=list(prompt), steps=steps, eos_id=eos_id,
                        temperature=float(temperature), seed=seed,
-                       deadline=deadline)
+                       prefix_id=prefix_id, stop=stop, deadline=deadline)
         with self._cv:
             if self._stop:
                 raise RuntimeError("engine is shut down")
@@ -345,6 +436,79 @@ class ContinuousEngine:
             self._pending.append(req)
             self._cv.notify_all()
         return req
+
+    def register_prefix(self, tokens: list[int]) -> str:
+        """Register a shared prompt prefix (a system prompt); returns its
+        content-addressed id (sha256 of the ids, 16 hex digits) for
+        ``submit(prefix_id=...)``.  Its KV is computed once, here on the
+        caller's thread; on pages its full pages are allocated here too
+        (their content is written by the first join, on the batcher
+        thread).  Idempotent; LRU-bounded at ``max_prefixes``."""
+        cfg = self.cfg
+        if not tokens:
+            raise ValueError("prefix must be non-empty")
+        if any(t < 0 or t >= cfg.vocab for t in tokens):
+            raise ValueError(f"token ids must be in [0, {cfg.vocab})")
+        if len(tokens) >= self.max_len:
+            raise ValueError(f"prefix length {len(tokens)} must leave "
+                             f"room under max_len {self.max_len}")
+        pid = hashlib.sha256(
+            ",".join(map(str, tokens)).encode()).hexdigest()[:16]
+        with self._cv:
+            if pid in self._prefixes:
+                self._prefixes[pid] = self._prefixes.pop(pid)   # LRU
+                return pid
+        Pb = self._bucket(len(tokens))
+        prompt = torch.tensor([list(tokens) + [0] * (Pb - len(tokens))],
+                              dtype=torch.int64, device=self.device)
+        # grad mode is per thread: the batcher's no_grad does not cover
+        # the caller's thread
+        with torch.no_grad():
+            kv = self._prefix_kv(self.cfg, self.params, prompt)
+            dkv = (None if self.draft is None
+                   else self._prefix_kv(*self.draft, prompt))
+        pages = None
+        if self.pool is not None:
+            # the full pages are shared; a prefix under one page, or a
+            # pool without room, gives joins unshared pages (still right)
+            full = len(tokens) // self.pool.page_size
+            if full:
+                with self._pool_mu:
+                    if full <= self.pool.free_pages:
+                        pages = self.pool.alloc(full)
+        with self._cv:
+            if pid in self._prefixes:
+                # registered concurrently by another caller: give our
+                # pages back instead of leaking them
+                if pages:
+                    with self._pool_mu:
+                        self.pool.free(pages)
+                self._prefixes[pid] = self._prefixes.pop(pid)
+                return pid
+            while len(self._prefixes) >= self.max_prefixes:
+                self._evict_prefix_pages(
+                    self._prefixes.pop(next(iter(self._prefixes))))
+            self._prefixes[pid] = _Prefix(list(tokens), kv, len(tokens),
+                                          Pb, pages=pages, dkv=dkv)
+        return pid
+
+    def _prefix_kv(self, cfg, params, prompt) -> dict:
+        """A prefix's KV ``[L, 1, Hkv, Pb, ...]`` in the engine's cache
+        dtype (quantized at write for int8), from a ``[1, Pb]``
+        right-padded prefill; pad columns stay masked until a join's
+        suffix or decode overwrites them."""
+        small = init_kv_cache(cfg, 1, prompt.shape[1], self.cache_dtype,
+                              device=self.device)
+        small, _ = _prefill_trunk(cfg, params, small, prompt)
+        return small
+
+    def _evict_prefix_pages(self, pref: _Prefix) -> None:
+        """Release the registry's reference on an evicted prefix's pages
+        (joiners in flight keep them live by their own references)."""
+        if pref.pages:
+            with self._pool_mu:
+                self.pool.free(pref.pages)
+            pref.pages = None
 
     def submit_handoff(self, *_args, **_kwargs):
         raise ValueError(f"KV handoff is {_LATER}")
@@ -368,7 +532,7 @@ class ContinuousEngine:
             if n < 1:
                 continue
             if self.pool is not None:
-                need = self._pages_needed(n, 2)
+                _, need, _ = self._paged_requirements(n, 2, None)
                 if need > self.pool.total_pages:
                     continue              # bucket unservable at this pool
                 if k > 1 and need * k > self.pool.total_pages:
@@ -413,6 +577,9 @@ class ContinuousEngine:
         self.goodput_slot_s = 0.0
         self.badput_slot_s = {"deadline_expired": 0.0, "cancelled": 0.0}
         self.latencies_s.clear()
+        self.peak_active = 0
+        self.peak_pages_used = 0
+        self.pages_own_at_peak = 0
 
     def stats(self) -> dict:
         lat = sorted(self.latencies_s)
@@ -429,6 +596,7 @@ class ContinuousEngine:
                "goodput_slot_s": round(self.goodput_slot_s, 4),
                "badput_slot_s": {k: round(v, 4)
                                  for k, v in self.badput_slot_s.items()},
+               "peak_active": self.peak_active,
                "kv_layout": self.kv_layout,
                "device": str(self.device),
                # process-wide count of paged-attention kernel launches
@@ -449,6 +617,8 @@ class ContinuousEngine:
             out["kv_pages_total"] = self.pool.total_pages
             out["kv_pages_free"] = self.pool.free_pages
             out["kv_page_size"] = self.pool.page_size
+            out["kv_pages_peak_used"] = self.peak_pages_used
+            out["kv_pages_own_at_peak"] = self.pages_own_at_peak
         if lat:
             out["latency_p50_ms"] = round(1e3 * lat[len(lat) // 2], 3)
             out["latency_p95_ms"] = round(
@@ -517,8 +687,8 @@ class ContinuousEngine:
 
     def _admit(self) -> None:
         """Fill free slots from the FIFO queue (behind the page gate on
-        pages), then prefill each prompt bucket's admissions together in
-        power-of-two groups."""
+        pages); prefix joins are admitted one by one, the rest prefilled
+        by prompt bucket in power-of-two groups."""
         self._expire_queued()
         assigned: list[tuple[int, _Request]] = []
         for slot in range(self.slots):
@@ -534,32 +704,76 @@ class ContinuousEngine:
                 if not self._pending:
                     break
                 req = self._pending[0]
-                # FIFO-preserving page gate: if the head cannot get its
-                # worst-case pages, stop admitting — later, smaller
-                # requests must not starve it
                 if self.pool is not None:
-                    need = self._pages_needed(len(req.prompt), req.steps)
-                    if need > self.pool.free_pages:
+                    # FIFO-preserving page gate: if the head cannot get
+                    # its worst-case own pages, stop admitting — later,
+                    # smaller requests must not starve it
+                    shared, need, gate_pref = self._paged_requirements(
+                        len(req.prompt), req.steps, req.prefix_id,
+                        take_refs=True)
+                    # pages resident for prefixes free only by eviction
+                    # (the joined prefix's own shared pages among them):
+                    # a head that needs more than the rest can never be
+                    # admitted, and must fail now rather than stall
+                    ceiling = (self.pool.total_pages
+                               - self._resident_prefix_pages())
+                    if need > ceiling:
+                        with self._pool_mu:
+                            if shared:
+                                self.pool.free(shared)
+                        bad = self._pending.popleft()
+                        bad.error = (
+                            f"request needs {need} own KV pages but "
+                            f"resident prefixes leave at most {ceiling} "
+                            f"allocatable; evict prefixes or shrink the "
+                            f"request")
+                        bad.finished = time.perf_counter()
+                        bad.done.set()
+                        continue
+                    with self._pool_mu:
+                        own = (self.pool.alloc(need)
+                               if need <= self.pool.free_pages else None)
+                        if own is None and shared:
+                            self.pool.free(shared)  # the gate's refs
+                    if own is None:
                         break
+                    req.gate_prefix = gate_pref
                 self._pending.popleft()
             if self.pool is not None:
-                own = self.pool.alloc(need)
                 self._page_ids[slot] = own
-                self._table[slot] = torch.from_numpy(
-                    self.pool.table_row(own, self._mp)).to(self.device)
+                self._shared_ids[slot] = list(shared)
+                self._table[slot] = torch.from_numpy(self.pool.table_row(
+                    shared + own, self._mp)).to(self.device)
             # attached before the prefill: if admission raises, the
             # request is visible to _fail_all instead of orphaned
             self._requests[slot] = req
             assigned.append((slot, req))
+        self._note_peaks()
         groups: dict[int, list[tuple[int, _Request]]] = {}
         for slot, req in assigned:
-            groups.setdefault(self._bucket(len(req.prompt)),
-                              []).append((slot, req))
+            if req.prefix_id is not None:
+                self._admit_prefix(slot, req)
+            else:
+                groups.setdefault(self._bucket(len(req.prompt)),
+                                  []).append((slot, req))
         for Sb, group in groups.items():
             while group:
                 take = 1 << (len(group).bit_length() - 1)
                 self._admit_plain(Sb, group[:take])
                 group = group[take:]
+
+    def _note_peaks(self) -> None:
+        """Record the peak of live slots and, on pages, the peak of pages
+        in use with the slots' own pages at that moment."""
+        self.peak_active = max(self.peak_active, sum(
+            r is not None for r in self._requests))
+        if self.pool is not None:
+            with self._pool_mu:
+                used = self.pool.total_pages - self.pool.free_pages
+            if used > self.peak_pages_used:
+                self.peak_pages_used = used
+                self.pages_own_at_peak = sum(
+                    len(p) for p in self._page_ids if p)
 
     def _expire_queued(self) -> None:
         """Fail every queued request whose deadline has passed (a shed:
@@ -584,17 +798,51 @@ class ContinuousEngine:
             req.finished = time.perf_counter()
             req.done.set()
 
-    def _pages_needed(self, prompt_len: int, steps: int) -> int:
-        """A request's worst-case pages: prompt, steps and the speculative
-        overshoot, whose writes must land in real pages."""
-        return self.pool.pages_for(prompt_len + steps + self._slack)
+    def _paged_requirements(self, prompt_len: int, steps: int,
+                            prefix_id, *, take_refs: bool = False):
+        """(shared prefix pages, own pages needed, prefix snapshot) of
+        one request: its worst case (prefix, prompt, steps and the
+        speculative overshoot, whose writes must land in real pages)
+        less the prefix's shared pages.
+
+        ``take_refs`` (the admission gate) takes the references on the
+        shared pages under ``_cv`` together with reading them, so an
+        eviction can neither free them first nor hand them out; the
+        caller releases them on every path that does not admit.  The
+        snapshot pins which registry object the gate priced."""
+        shared: list[int] = []
+        plen = 0
+        pref = None
+        with self._cv:
+            if prefix_id is not None:
+                pref = self._prefixes.get(prefix_id)
+                if pref is not None:
+                    plen = pref.length
+                    shared = list(pref.pages or ())
+            if take_refs and shared:
+                with self._pool_mu:
+                    self.pool.ref(shared)
+        need = self.pool.pages_for(plen + prompt_len + steps
+                                   + self._slack) - len(shared)
+        return shared, need, pref
+
+    def _resident_prefix_pages(self) -> int:
+        """Pages the prefix registry keeps resident."""
+        with self._cv:
+            return sum(len(p.pages or ()) for p in self._prefixes.values())
 
     def _release_slot_pages(self, slot: int) -> None:
-        """Sentinel the slot's table row, then return its pages."""
+        """Sentinel the slot's table row, then release one reference per
+        page: its own pages return to the pool, shared prefix pages only
+        when nobody else holds them."""
         self._table[slot] = -1
-        if self._page_ids[slot]:
-            self.pool.free(self._page_ids[slot])
+        with self._pool_mu:
+            if self._page_ids[slot]:
+                self.pool.free(self._page_ids[slot])
+            if self._shared_ids[slot]:
+                self.pool.free(self._shared_ids[slot])
         self._page_ids[slot] = None
+        self._shared_ids[slot] = []
 
     def _noise(self, gens: list[Optional[torch.Generator]], V: int):
         """Gumbel noise rows for the sampled slots (zeros elsewhere)."""
@@ -621,21 +869,30 @@ class ContinuousEngine:
         logits = head_logits(self.params, last[:, None])[:, 0]
         if self.draft is not None:
             self._prefill(*self.draft, self._dcache, prompts, slots)
+        reqs = [req for _, req in group]
+        firsts, gens = self._first_tokens(logits, reqs)
+        for (slot, req), g, tok in zip(group, gens, firsts):
+            self._finish_admission(slot, req, tok, g, len(req.prompt))
+
+    def _first_tokens(self, logits, reqs: list[_Request]):
+        """Each admitted request's first token from its ``[k, V]``
+        logits, greedy or drawn from a generator seeded by the request's
+        ``seed`` (which goes on to draw its later tokens): ``(tokens,
+        generators)``, one readback for the group."""
+        dev = self.device
         gens = []
-        for _, req in group:
+        for req in reqs:
             g = None
             if req.temperature > 0:
                 g = torch.Generator(device=dev)
                 g.manual_seed(req.seed)
             gens.append(g)
-        temps = torch.tensor([req.temperature for _, req in group],
+        temps = torch.tensor([req.temperature for req in reqs],
                              dtype=torch.float32, device=dev)
         first = select_tokens(self._biased(logits), temps,
                               self._noise(gens, self.cfg.vocab), self.top_k,
                               self.top_p)
-        # one readback per admission group: the clients need these tokens
-        for (slot, req), g, tok in zip(group, gens, first.tolist()):
-            self._finish_admission(slot, req, tok, g)
+        return first.tolist(), gens
 
     def _prefill(self, cfg, params, cache, prompts, slots):
         """Prefill ``[k, Sb]`` right-padded prompts of one model into the
@@ -654,10 +911,120 @@ class ContinuousEngine:
             buf[:, slots, :, :Sb] = small[name]
         return x
 
+    def _admit_prefix(self, slot: int, req: _Request) -> None:
+        """A shared-prefix join: the prefix KV seeds a scratch, only the
+        suffix runs (at positions ``[plen, plen + Sb)``), and the scratch
+        lands in the slot's row (slab) or in the slot's own pages from
+        the prefix's tail page on (pages).  A prefix evicted since
+        submit fails the request; it never decodes without its
+        context."""
+        write_pages: Optional[list[int]] = None
+        with self._cv:
+            pref = self._prefixes.get(req.prefix_id)
+            if pref is not None and self.pool is not None:
+                if (pref is not req.gate_prefix
+                        or list(pref.pages or ()) != self._shared_ids[slot]):
+                    # evicted and re-registered since the gate: the new
+                    # object's pages are not the ones the slot's table
+                    # holds, and a join would write one and read the other
+                    pref = None
+                elif pref.pages and not pref.pages_written:
+                    # claim the one-time content write while _cv pins the
+                    # entry; the slot's references keep the ids valid
+                    pref.pages_written = True
+                    write_pages = list(pref.pages)
+        if pref is None:
+            if self.pool is not None:
+                self._release_slot_pages(slot)     # undo the gate's pages
+            self._requests[slot] = None
+            req.error = (f"prefix {req.prefix_id!r} evicted before "
+                         f"admission; re-register and resubmit")
+            req.finished = time.perf_counter()
+            req.done.set()
+            return
+        dev = self.device
+        Sb = self._bucket(len(req.prompt))
+        suffix = torch.tensor([req.prompt + [0] * (Sb - len(req.prompt))],
+                              dtype=torch.int64, device=dev)
+        if self.pool is None:
+            def write(cache, small, width):
+                for name, buf in cache.items():
+                    buf[:, slot, :, :width] = small[name][:, 0]
+        else:
+            if write_pages is not None:
+                # the first join writes the shared pages' content, here on
+                # the batcher thread; pref.kv is already in the cache
+                # dtype (an int8 engine registered it quantized), so the
+                # columns go in raw with their scales
+                rows = torch.tensor([write_pages], dtype=torch.int32,
+                                    device=dev)
+                cols = len(write_pages) * self.pool.page_size
+                scatter_pages_raw(self._cache, {
+                    n: b[:, :, :, :cols] for n, b in pref.kv.items()}, rows)
+                if self.draft is not None:
+                    # both pools share page ids
+                    scatter_pages_raw(self._dcache, {
+                        n: b[:, :, :, :cols] for n, b in pref.dkv.items()},
+                        rows)
+            start_page = len(self._shared_ids[slot])
+            row = self._table[slot]
+
+            def write(cache, small, width):
+                self._scatter_join_cols(cache, small, width, start_page, row)
+        x = self._join_cache(self.cfg, self.params, self._cache, pref.kv,
+                             suffix, pref.length, write)
+        if self.draft is not None:
+            self._join_cache(*self.draft, self._dcache, pref.dkv, suffix,
+                             pref.length, write)
+        last = x[:, len(req.prompt) - 1]
+        logits = head_logits(self.params, last[:, None])[:, 0]
+        (first,), (gen,) = self._first_tokens(logits, [req])
+        self._finish_admission(slot, req, first, gen,
+                               pref.length + len(req.prompt))
+
+    def _join_cache(self, cfg, params, cache, pkv, suffix, plen: int,
+                    write):
+        """One model's half of a join: a scratch of the prefix bucket +
+        the suffix bucket (capped at ``max_len``; a short system prompt
+        must not pay an O(max_len) copy) seeded with the prefix KV, the
+        suffix's chunk forward at positions ``[plen, plen + Sb)``, and
+        ``write(cache, scratch, width)`` into the engine's cache.
+        Returns the suffix's activations ``[1, Sb, D]``.  Columns past
+        the scratch keep the slot's stale rows, masked until decode
+        overwrites them."""
+        Pb, Sb = pkv["k"].shape[3], suffix.shape[1]
+        width = min(Pb + Sb, self.max_len)
+        small = init_kv_cache(cfg, 1, width, self.cache_dtype,
+                              device=self.device)
+        for name, buf in small.items():
+            buf[:, :, :, :Pb] = pkv[name]
+        x, small = _chunk_hidden(cfg, params, small, plen, suffix)
+        write(cache, small, width)
+        return x
+
+    def _scatter_join_cols(self, cache, small, width: int, start_page: int,
+                           row) -> None:
+        """Scatter a join scratch's owned columns — the prefix's tail
+        partial page and the suffix, ``[start_page·ps, width)`` — into the
+        slot's pages (one implementation for both pools).  Columns
+        [0, start_page·ps) are the prefix's full pages: shared, never
+        rewritten.  Table entries past the slot's pages are -1 and
+        drop."""
+        ps = self.pool.page_size
+        start_col = start_page * ps
+        n_write = -(-(width - start_col) // ps)
+        pad = start_col + n_write * ps - width
+        cols = {name: torch.nn.functional.pad(
+            buf[:, :, :, start_col:width], (0, 0, 0, pad))
+            for name, buf in small.items()}
+        scatter_pages_raw(cache, cols,
+                          row[None, start_page:start_page + n_write])
+
     def _finish_admission(self, slot: int, req: _Request, first: int,
-                          gen: Optional[torch.Generator]) -> None:
+                          gen: Optional[torch.Generator],
+                          start_pos: int) -> None:
         self._token[slot] = first
-        self._pos[slot] = len(req.prompt)
+        self._pos[slot] = start_pos
         self._temp[slot] = req.temperature
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         self._gens[slot] = gen
@@ -665,13 +1032,29 @@ class ContinuousEngine:
         req.first_token_at = time.perf_counter()
         req.tokens.append(first)
         self._emitted[slot] = 1
+        hit_stop = bool(req.stop) and first != req.eos_id \
+            and self._match_stop(req)
         if (req.eos_id is not None and first == req.eos_id) \
-                or req.steps == 1:
+                or req.steps == 1 or hit_stop:
             self._retire(slot, req)
             self._requests[slot] = None
         else:
             self._done[slot] = False
             self._requests[slot] = req
+
+    @staticmethod
+    def _match_stop(req: _Request) -> bool:
+        """Suffix-match the request's stop sequences against its
+        generated tokens; on a match, trim the sequence from the output
+        (OpenAI ``stop`` semantics) and return True.  At most 8 × 16
+        comparisons a token."""
+        toks = req.tokens
+        for seq in req.stop:
+            n = len(seq)
+            if len(toks) >= n and toks[-n:] == seq:
+                del toks[-n:]
+                return True
+        return False
 
     def _retire(self, slot: int, req: _Request) -> None:
         if self._page_ids[slot] is not None:
@@ -904,6 +1287,7 @@ class ContinuousEngine:
             else:
                 toks = self._chunk_step().tolist()
                 counts = [self.chunk] * self.slots
+            failpoint.hit("serve.engine.slow_decode")
             now = time.perf_counter()
             for slot, req in enumerate(self._requests):
                 if req is None:
@@ -918,6 +1302,7 @@ class ContinuousEngine:
                     self._abort_slot(slot, req, DEADLINE_ERROR,
                                      "deadline_expired")
                     continue
+                hit_stop = False
                 for tok in toks[slot][:counts[slot]]:
                     if self._emitted[slot] >= req.steps:
                         break
@@ -927,9 +1312,15 @@ class ContinuousEngine:
                     self._emitted[slot] += 1
                     if req.eos_id is not None and tok == req.eos_id:
                         break
+                    # after every committed token (a speculative pass
+                    # commits several): the trim and the retire point
+                    # are the plain engine's
+                    if req.stop and self._match_stop(req):
+                        hit_stop = True
+                        break
                 hit_eos = (req.eos_id is not None and req.tokens
                            and req.tokens[-1] == req.eos_id)
-                if self._emitted[slot] >= req.steps or hit_eos:
+                if self._emitted[slot] >= req.steps or hit_eos or hit_stop:
                     self._retire(slot, req)
                     self._requests[slot] = None
                     self._done[slot] = True

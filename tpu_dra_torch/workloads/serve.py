@@ -3,15 +3,46 @@
 KV layout).  stdlib HTTP server, one engine per process.
 
 POST /generate  {"tokens": [[...]], "steps": N, "temperature": 0.0,
-                 "seed": 0, "eos_id": null}
+                 "seed": 0, "eos_id": null, "prefix_id": null,
+                 "stop": [[ids...], ...]}
              → {"tokens": [[...]]}      (the generated ids per row; every
-                 row is its own engine request, fanned in concurrently)
+                 row is its own engine request, fanned in concurrently;
+                 a completed stop sequence retires the row and is
+                 trimmed from its tokens)
+POST /prefix    {"tokens": [...]} → {"prefix_id": id}: registers a shared
+             prompt prefix (a system prompt) whose KV is computed once;
+             /generate and /stream requests naming it prefill only their
+             suffix (on pages the prefix's full pages are shared)
+POST /stream    (one row) chunked NDJSON: a {"token": id} line per
+             generated token as it lands, then {"done": true, "tokens":
+             [...]} (authoritative after a stop trim); a client that
+             disconnects cancels the request and frees its slot
 GET  /healthz → 200 "ok" while the engine's decode loop is live (ANDed
-             with an optional external verdict); 503 + reason otherwise
+             with an optional external verdict); 503 + reason otherwise,
+             and from the moment a drain begins
 GET  /stats   → the engine's ``stats()`` as JSON
+GET  /metrics → Prometheus text: request counts by path, code and
+             tenant (the ``X-Tenant`` header), generated tokens, request
+             latency, TTFT and inter-token histograms, shed counts by
+             reason, and the ``tpu_serve_engine_*`` gauges (the
+             reference's names, labels and buckets)
+GET  /debug/slo → multi-window error-budget burn rates (availability and
+             latency objectives)
+GET  /debug/overload → drain state, admission backlog, shed counts and
+             the engine's saturation signals
 
-Admission control, SLO tracking, /metrics, /prefill and /decode_handoff
-come with later slices of the port.
+Overload protection (``--admission-max-cost``): /generate and /stream
+pass an admission gate first; excess load sheds with an immediate typed
+503 + ``Retry-After``.  ``X-Deadline-Ms`` propagates into the engine, so
+an expired request aborts, frees its slot and pages and answers 504
+(``reason: deadline_expired``).  SIGTERM drains: new requests shed 503,
+/healthz goes not-ready, in-flight ones finish, then the process exits.
+
+Not ported yet, each answered 404 with its ROADMAP item: /beam and
+/speculative (the bucketed ``DecoderPool``, queue 1 item 7), /prefill
+and /decode_handoff (``kv_handoff.py``, item 8), /debug/traces and
+/debug/jax-trace (spans and a profiler capture, item 7); OpenMetrics
+exemplars wait for the spans.
 
 Speculative serving: ``--speculative-continuous`` with a draft makes every
 engine pass draft-and-verify (``continuous.py``).  ``--auto-draft`` builds
@@ -31,29 +62,230 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
 from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.util.metrics import (
+    Registry,
+    bounded_label,
+    negotiate_exposition,
+)
+from tpu_dra_torch.workloads.admission import (
+    REASON_DEADLINE,
+    REASON_DRAINING,
+    AdmissionController,
+    DeadlineExceeded,
+    ShedError,
+    parse_deadline_ms,
+    request_cost,
+)
 from tpu_dra_torch.workloads.continuous import (
     DEADLINE_ERROR,
     ContinuousEngine,
+)
+from tpu_dra_torch.workloads.slo import (
+    Objective,
+    SloTracker,
+    counter_good_total,
+    histogram_under,
 )
 from tpu_dra_torch.workloads.train import ModelConfig
 
 # upper bound on one request's wall time (first-use kernel build included)
 ENGINE_REQUEST_TIMEOUT_S = 600
 
+# the reference's endpoint surface: paths outside it still get their 404
+# but collapse into one "other" label, so cycling request paths cannot
+# mint unbounded tpu_serve_* series
+_SERVE_PATHS = frozenset((
+    "/healthz", "/metrics", "/debug/slo", "/debug/overload",
+    "/debug/traces", "/debug/jax-trace", "/stream", "/prefix", "/beam",
+    "/speculative", "/prefill", "/decode_handoff", "/generate"))
+
+# endpoints of the reference not ported yet, and the ROADMAP item of each
+_NOT_PORTED = {
+    "/beam": "the bucketed DecoderPool's beam search (ROADMAP queue 1 "
+             "item 7)",
+    "/speculative": "the bucketed DecoderPool's speculative decode "
+                    "(ROADMAP queue 1 item 7; the engine speculates with "
+                    "--speculative-continuous)",
+    "/prefill": "the KV handoff, kv_handoff.py (ROADMAP queue 1 item 8)",
+    "/decode_handoff": "the KV handoff, kv_handoff.py (ROADMAP queue 1 "
+                       "item 8)",
+    "/debug/traces": "spans and their Chrome trace (ROADMAP queue 1 "
+                     "item 7)",
+    "/debug/jax-trace": "a device trace capture (ROADMAP queue 1 item 7)",
+}
+
+
+def _count_leaf_tokens(tokens) -> int:
+    """Generated-token count of a /generate response's [rows][steps]."""
+    if not isinstance(tokens, list):
+        return 0
+    if all(isinstance(t, int) for t in tokens):
+        return len(tokens)
+    return sum(_count_leaf_tokens(t) for t in tokens)
+
+
+class ServeMetrics:
+    """Prometheus series of the inference endpoint, with the reference's
+    names, labels and buckets.
+
+    Every request series carries a ``tenant`` label (the ``X-Tenant``
+    header; ``default`` when absent).  The header is untrusted input
+    becoming a label, so the first :data:`MAX_TENANTS` distinct values
+    keep their own series and later ones collapse into
+    :data:`OVERFLOW_TENANT` (values length-clamped)."""
+
+    MAX_TENANTS = 64
+    # the "~" is stripped from client input, so no header value can
+    # claim this series
+    OVERFLOW_TENANT = "~overflow~"
+
+    def __init__(self) -> None:
+        self.registry = Registry()
+        self._tenants: set[str] = set()        # guarded by _tenant_mu
+        self._tenant_mu = threading.Lock()
+        self.requests = self.registry.counter(
+            "tpu_serve_requests_total", "HTTP requests",
+            ("path", "code", "tenant"))
+        self.tokens = self.registry.counter(
+            "tpu_serve_generated_tokens_total", "tokens generated")
+        self.latency = self.registry.histogram(
+            "tpu_serve_request_seconds", "request wall time",
+            # cold requests include kernel builds and the engine timeout
+            # is 600 s: the default buckets would collapse them into +Inf
+            buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5,
+                     5, 10, 30, 60, 120, 300, 600),
+            labels=("path", "tenant"))
+        self.ttft = self.registry.histogram(
+            "tpu_serve_ttft_seconds",
+            "time to first generated token (continuous engine requests)",
+            buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5,
+                     5, 10, 30, 60),
+            labels=("tenant",))
+        self.itl = self.registry.histogram(
+            "tpu_serve_inter_token_seconds",
+            "mean gap between generated tokens, one observation per "
+            "continuous-engine request of 2+ tokens",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1, 2.5),
+            labels=("tenant",))
+        # every shed decision, by typed reason: server-refused work
+        # (503) burns the availability budget, deadline_expired (504) is
+        # the client giving up and is attributed distinctly
+        self.shed = self.registry.counter(
+            "tpu_serve_shed_total",
+            "requests shed instead of served, by typed reason",
+            ("reason",))
+
+    def tenant_label(self, raw: str) -> str:
+        """The untrusted ``X-Tenant`` header as a bounded label value."""
+        return bounded_label(
+            raw, seen=self._tenants, cap=self.MAX_TENANTS,
+            lock=self._tenant_mu, overflow=self.OVERFLOW_TENANT)
+
+    def observe(self, path: str, code: int, secs: float,
+                tokens: int = 0, tenant: str = "default") -> None:
+        self.requests.inc(path, str(code), tenant)
+        self.latency.observe(secs, path, tenant)
+        if tokens:
+            self.tokens.inc(by=tokens)
+
+    def observe_engine_timing(self, tenant: str, handle) -> None:
+        """TTFT and the mean inter-token gap from a finished engine
+        request's timestamps."""
+        if not handle.first_token_at:
+            return
+        self.ttft.observe(handle.first_token_at - handle.submitted,
+                          tenant)
+        n = len(handle.tokens)
+        end = handle.finished or handle.first_token_at
+        if n >= 2 and end > handle.first_token_at:
+            self.itl.observe((end - handle.first_token_at) / (n - 1),
+                             tenant)
+
+    def scrape_engine(self, engine) -> None:
+        """Refresh the ``tpu_serve_engine_*`` gauges at scrape time."""
+        stats = engine.stats()
+        slots = stats.get("slots") or 0
+        gauges = {
+            "tpu_serve_engine_completed": ("requests completed",
+                                           stats.get("completed")),
+            "tpu_serve_engine_tokens_out": ("tokens generated",
+                                            stats.get("tokens_out")),
+            "tpu_serve_engine_queued": ("requests waiting for a slot",
+                                        stats.get("queued")),
+            "tpu_serve_engine_active": ("requests decoding in a slot",
+                                        stats.get("active")),
+            "tpu_serve_engine_slots": ("concurrent sequence capacity",
+                                       slots or None),
+            "tpu_serve_engine_batch_occupancy": (
+                "live slots over slot capacity (1.0 = decode batch "
+                "full; admission pressure follows)",
+                (stats.get("active", 0) / slots) if slots else None),
+            "tpu_serve_engine_kv_pages_free": (
+                "paged-KV pool pages currently free",
+                stats.get("kv_pages_free")),
+            "tpu_serve_engine_kv_pages_total": (
+                "paged-KV pool capacity in pages",
+                stats.get("kv_pages_total")),
+            "tpu_serve_engine_goodput_slot_seconds": (
+                "cumulative slot residency of requests that completed "
+                "(the serving goodput segment)",
+                stats.get("goodput_slot_s")),
+            "tpu_serve_engine_spec_target_passes": (
+                "speculative mode: target verify passes",
+                stats.get("spec_target_passes")),
+            "tpu_serve_engine_spec_tokens_per_pass": (
+                "speculative mode: committed tokens per live slot per "
+                "target pass (1.0 parity, chunk ceiling)",
+                stats.get("spec_tokens_per_pass")),
+            "tpu_serve_engine_spec_accept_rate": (
+                "speculative mode: accepted drafted tokens / proposed "
+                "(1.0 ceiling; ~1/vocab random draft)",
+                stats.get("spec_accept_rate")),
+        }
+        for name, (help_, value) in gauges.items():
+            if value is not None:
+                self.registry.gauge(name, help_).set(float(value))
+        badput = stats.get("badput_slot_s") or {}
+        if badput:
+            g = self.registry.gauge(
+                "tpu_serve_engine_badput_slot_seconds",
+                "cumulative slot residency of aborted requests (chip "
+                "time nobody waited for), by reason", ("reason",))
+            for reason, secs in badput.items():
+                g.set(float(secs), reason)
+
 
 def make_handler(engine: ContinuousEngine, health=None,
-                 health_stale_after: float = 600.0):
+                 health_stale_after: float = 600.0, *, metrics=None,
+                 slo=None, admission=None,
+                 default_deadline_s: float | None = None):
     """Request handler class over ``engine``.  ``health``: optional
     external /healthz verdict — a callable returning bool or
-    ``(bool, detail)`` — ANDed with the engine's decode-loop liveness."""
+    ``(bool, detail)`` — ANDed with the engine's decode-loop liveness.
+    ``metrics`` (a :class:`ServeMetrics`) arms /metrics, ``slo`` (a
+    ``SloTracker``) /debug/slo; ``admission`` (an
+    ``AdmissionController``) gates /generate and /stream;
+    ``default_deadline_s`` applies to requests without an
+    ``X-Deadline-Ms`` header."""
+
+    def _draining_shed(detail: str) -> ShedError:
+        retry = int(admission.drain_grace_s) if admission is not None \
+            else 5
+        return ShedError(REASON_DRAINING, max(1, retry), detail)
+
+    def draining() -> bool:
+        return (admission is not None and admission.draining) or \
+            engine.draining
 
     def healthz_verdict() -> tuple[bool, str]:
-        if engine.draining:
+        if draining():
             return False, "draining: shutting down after in-flight " \
                           "requests complete"
         ok, detail = engine.healthy(stale_after=health_stale_after)
@@ -65,31 +297,48 @@ def make_handler(engine: ContinuousEngine, health=None,
                 ok, detail = False, "health monitor reports unhealthy"
         return ok, detail
 
-    def generate(req: dict) -> dict:
-        rows = req["tokens"]
-        if not isinstance(rows, list) or not rows or not all(
-                isinstance(r, list) and r for r in rows):
-            raise ValueError("tokens must be a non-empty list of "
-                             "non-empty rows")
+    def reject_engine_knobs(req: dict) -> None:
         for knob, noop in (("top_k", 0.0), ("top_p", 0.0),
                            ("repetition_penalty", 1.0)):
             val = req.get(knob)
             if val is not None and float(val) != noop:
                 raise ValueError(f"{knob} is engine-global in continuous "
                                  f"mode")
-        rows = [[int(t) for t in r] for r in rows]
+
+    def stop_of(req: dict):
+        stop = req.get("stop")
+        return None if stop is None else [[int(t) for t in seq]
+                                          for seq in stop]
+
+    def submit(row, req: dict, deadline):
         eos = req.get("eos_id")
+        try:
+            return engine.submit_async(
+                [int(t) for t in row], int(req.get("steps", 16)),
+                eos_id=None if eos is None else int(eos),
+                temperature=float(req.get("temperature", 0.0)),
+                seed=int(req.get("seed", 0)),
+                prefix_id=req.get("prefix_id"), stop=stop_of(req),
+                deadline=deadline)
+        except RuntimeError as exc:
+            if "draining" in str(exc):
+                # admission won the race against the drain, the engine
+                # had already closed: still a typed, retryable shed
+                raise _draining_shed(str(exc)) from None
+            raise
+
+    def generate(req: dict, tenant: str, deadline) -> dict:
+        rows = req["tokens"]
+        if not isinstance(rows, list) or not rows or not all(
+                isinstance(r, list) and r for r in rows):
+            raise ValueError("tokens must be a non-empty list of "
+                             "non-empty rows")
+        reject_engine_knobs(req)
         handles = []
         try:
             for r in rows:
-                handles.append(engine.submit_async(
-                    r, int(req.get("steps", 16)),
-                    eos_id=None if eos is None else int(eos),
-                    temperature=float(req.get("temperature", 0.0)),
-                    seed=int(req.get("seed", 0)),
-                    prefix_id=req.get("prefix_id"),
-                    stop=req.get("stop")))
-        except (ValueError, RuntimeError):
+                handles.append(submit(r, req, deadline))
+        except (ValueError, TypeError, RuntimeError, ShedError):
             for h in handles:     # don't strand already-submitted rows
                 engine.cancel(h)
             raise
@@ -101,71 +350,377 @@ def make_handler(engine: ContinuousEngine, health=None,
                 raise RuntimeError(f"request not done within "
                                    f"{ENGINE_REQUEST_TIMEOUT_S}s")
             if h.error:
+                for h2 in handles:
+                    engine.cancel(h2)
+                if h.error == DEADLINE_ERROR:
+                    # aborted or refused for the client's deadline; its
+                    # pages are already back in the pool
+                    raise DeadlineExceeded(h.error)
                 raise RuntimeError(h.error)
+            if metrics is not None:
+                metrics.observe_engine_timing(tenant, h)
             out.append(h.tokens)
         return {"tokens": out}
 
+    def register_prefix(req: dict, tenant: str, deadline) -> dict:
+        return {"prefix_id": engine.register_prefix(req["tokens"])}
+
     class Handler(BaseHTTPRequestHandler):
+        # chunked transfer (/stream) is an HTTP/1.1 construct
         protocol_version = "HTTP/1.1"
 
         def log_message(self, *a):             # quiet by default
             pass
 
-        def _send(self, code: int, body: bytes,
-                  ctype: str = "application/json"):
-            self.send_response(code)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+        def _path_label(self) -> str:
+            return bounded_label(self.path, allowed=_SERVE_PATHS)
 
-        def _read_body(self) -> bytes | None:
-            """The request body, or None after answering 400 (with the
-            connection closed: an unknown length leaves the stream
-            unparseable)."""
+        def _content_length(self) -> int:
+            """The body's length; a missing one is 0, an unparsable or
+            negative one raises ``ValueError`` and closes the connection
+            after the answer (the stream cannot be parsed past it)."""
             try:
                 n = int(self.headers.get("Content-Length", 0))
             except ValueError:
                 n = -1
             if n < 0:
                 self.close_connection = True
-                self._send(400, json.dumps(
-                    {"error": "bad Content-Length"}).encode())
-                return None
-            return self.rfile.read(n)
+                raise ValueError("bad Content-Length")
+            return n
+
+        def _drain_body(self) -> None:
+            """Consume the body before an early answer: on a keep-alive
+            connection unread bytes would parse as the next request."""
+            try:
+                n = self._content_length()
+            except ValueError:
+                return
+            if n:
+                self.rfile.read(n)
+
+        def _send(self, code: int, body: bytes,
+                  ctype: str = "application/json", headers=None):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _count_shed(self, reason: str) -> None:
+            """One accounting point for every shed: the counter and
+            /debug/overload's snapshot must never diverge."""
+            if metrics is not None:
+                metrics.shed.inc(reason)
+            if admission is not None:
+                admission.record_shed(reason)
+
+        @staticmethod
+        def _shed_payload(shed: ShedError) -> tuple[bytes, dict]:
+            """The typed 503's body and ``Retry-After`` header."""
+            return (json.dumps(
+                {"error": str(shed)[:300], "reason": shed.reason,
+                 "retry_after_s": shed.retry_after_s}).encode(),
+                {"Retry-After": str(shed.retry_after_s)})
+
+        def _observe(self, code: int, t0: float, tokens: int,
+                     tenant: str) -> None:
+            if metrics is not None:
+                metrics.observe(self._path_label(), code,
+                                time.perf_counter() - t0, tokens, tenant)
+
+        def _deadline(self) -> float | None:
+            """Absolute deadline (perf_counter clock) from the
+            ``X-Deadline-Ms`` budget, else the server's default."""
+            budget = parse_deadline_ms(self.headers.get("X-Deadline-Ms"))
+            if budget is None:
+                budget = default_deadline_s
+            return None if budget is None else time.perf_counter() + budget
+
+        def _tenant(self) -> str:
+            raw = self.headers.get("X-Tenant", "") or "default"
+            return metrics.tenant_label(raw) if metrics is not None \
+                else raw
 
         def do_GET(self):
-            if self.path == "/healthz":
+            path = self.path.split("?", 1)[0]
+            if path == "/healthz":
                 ok, detail = healthz_verdict()
                 self._send(200 if ok else 503, (detail or "ok").encode(),
                            "text/plain")
-            elif self.path == "/stats":
+            elif path == "/stats":
                 self._send(200, json.dumps(engine.stats()).encode())
+            elif path == "/metrics" and metrics is not None:
+                metrics.scrape_engine(engine)
+                text, ctype = negotiate_exposition(
+                    self.headers.get("Accept", ""), metrics.registry)
+                self._send(200, text.encode(), ctype)
+            elif path == "/debug/slo" and slo is not None:
+                self._send(200, json.dumps(slo.burn_rates()).encode())
+            elif path == "/debug/overload":
+                self._send(200, json.dumps(self._overload()).encode())
+            elif path in _NOT_PORTED:
+                self._send(404, f"{path} is not ported yet: it comes with "
+                                f"{_NOT_PORTED[path]}".encode(),
+                           "text/plain")
             else:
                 self._send(404, b"not found", "text/plain")
 
-        def do_POST(self):
-            raw = self._read_body()
-            if raw is None:
-                return
-            if self.path != "/generate":
-                self._send(404, b"not found", "text/plain")
-                return
+        @staticmethod
+        def _overload() -> dict:
+            """Drain state, admission backlog and sheds, and the engine's
+            saturation signals (the reference's keys; the pool role is
+            "any" until the KV handoff is ported)."""
+            stats = engine.stats()
+            slots = stats.get("slots") or 0
+            return {
+                "state": "draining" if draining() else "running",
+                "role": "any",
+                "admission": (admission.snapshot()
+                              if admission is not None else None),
+                "engine": {
+                    "queued": stats.get("queued"),
+                    "active": stats.get("active"),
+                    "slots": slots,
+                    "batch_occupancy": round(
+                        stats.get("active", 0) / slots, 3)
+                    if slots else None,
+                    "kv_pages_free": stats.get("kv_pages_free"),
+                    "kv_pages_total": stats.get("kv_pages_total"),
+                    "expired_queued": stats.get("expired_queued"),
+                    "expired_active": stats.get("expired_active"),
+                    "goodput_slot_s": stats.get("goodput_slot_s"),
+                    "badput_slot_s": stats.get("badput_slot_s"),
+                },
+            }
+
+        def _json_post(self, handle, admit: bool = False):
+            """Parse the JSON body, call ``handle(req, tenant, deadline)
+            -> response dict``, and map failures to codes: a shed 503
+            with ``Retry-After``, an expired deadline 504, bad input 400,
+            an engine failure 500.  With ``admit`` the request passes the
+            admission gate first.  Every request lands in /metrics
+            before its answer is sent, so a client that has its reply
+            finds it on the next scrape."""
+            t0 = time.perf_counter()
+            code, toks, headers = 200, 0, None
+            tenant = self._tenant()
+            ticket = None
             try:
-                result = generate(json.loads(raw))
-                code, body = 200, json.dumps(result).encode()
+                try:
+                    req = json.loads(self.rfile.read(self._content_length()))
+                    if not isinstance(req, dict):
+                        raise ValueError("the body must be a JSON object")
+                    deadline = self._deadline()
+                    if admit and admission is not None:
+                        ticket = admission.acquire(tenant, request_cost(
+                            req.get("tokens") or [], req.get("steps", 16)))
+                    if deadline is not None and \
+                            time.perf_counter() > deadline:
+                        raise DeadlineExceeded(
+                            "deadline expired before admission")
+                    result = handle(req, tenant, deadline)
+                    toks = _count_leaf_tokens(result.get("tokens"))
+                    body = json.dumps(result).encode()
+                except ShedError as exc:
+                    code = 503
+                    body, headers = self._shed_payload(exc)
+                    self._count_shed(exc.reason)
+                except DeadlineExceeded as exc:
+                    code = 504
+                    body = json.dumps({"error": str(exc)[:300],
+                                       "reason": REASON_DEADLINE}).encode()
+                    self._count_shed(REASON_DEADLINE)
+                except (KeyError, ValueError, TypeError,
+                        json.JSONDecodeError) as exc:
+                    code = 400
+                    body = json.dumps({"error": str(exc)[:300]}).encode()
+                except RuntimeError as exc:      # engine, not input
+                    code = 500
+                    body = json.dumps({"error": str(exc)[:300]}).encode()
+                self._observe(code, t0, toks, tenant)
+                self._send(code, body, headers=headers)
+            finally:
+                # released after the response is written: the drain's
+                # wait_idle must not return while a client still waits
+                if ticket is not None:
+                    admission.release(ticket, completed=code == 200)
+
+        def _stream(self):
+            """POST /stream (one row): chunked NDJSON, a {"token": id}
+            line per generated token as the engine emits it, then
+            {"done": true, "tokens": [...]}.  With "stop", lines may
+            carry tokens of a stop sequence the engine trims on its
+            match: the final tokens are authoritative."""
+            t0 = time.perf_counter()
+            tenant = self._tenant()
+            ticket = None
+            try:
+                raw = self.rfile.read(self._content_length())
+                req = json.loads(raw)
+                rows = req.get("tokens") if isinstance(req, dict) else None
+                if not isinstance(rows, list) or len(rows) != 1 or \
+                        not isinstance(rows[0], list) or not rows[0]:
+                    raise ValueError("/stream takes exactly one non-empty "
+                                     "row in tokens; fan /generate for "
+                                     "batches")
+                reject_engine_knobs(req)
+                deadline = self._deadline()
+                if admission is not None:
+                    ticket = admission.acquire(
+                        tenant, request_cost(rows, req.get("steps", 16)))
+                handle = submit(rows[0], req, deadline)
+            except ShedError as exc:
+                if ticket is not None:
+                    admission.release(ticket, completed=False)
+                self._count_shed(exc.reason)
+                self._observe(503, t0, 0, tenant)
+                body, headers = self._shed_payload(exc)
+                self._send(503, body, headers=headers)
+                return
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as exc:
-                code, body = 400, json.dumps(
-                    {"error": str(exc)[:300]}).encode()
-            except RuntimeError as exc:      # engine, not input
-                msg = str(exc)
-                code = 504 if msg == DEADLINE_ERROR else (
-                    503 if "draining" in msg else 500)
-                body = json.dumps({"error": msg[:300]}).encode()
-            self._send(code, body)
+                if ticket is not None:
+                    admission.release(ticket, completed=False)
+                self._observe(400, t0, 0, tenant)
+                self._send(400, json.dumps(
+                    {"error": str(exc)[:300]}).encode())
+                return
+            except RuntimeError as exc:    # engine shut down
+                if ticket is not None:
+                    admission.release(ticket, completed=False)
+                self._observe(500, t0, 0, tenant)
+                self._send(500, json.dumps(
+                    {"error": str(exc)[:300]}).encode())
+                return
+            try:
+                if self.request_version != "HTTP/1.1":
+                    code = self._stream_buffered(handle, tenant, t0)
+                    completed = code == 200
+                else:
+                    code, completed = self._stream_chunked(handle, tenant,
+                                                           t0)
+                if ticket is not None:
+                    admission.release(ticket, completed=completed)
+            finally:
+                # backstop for a raise mid-stream (a broken pipe on the
+                # header write): never leak the slot or the ticket;
+                # cancel is a no-op once done, release is idempotent
+                try:
+                    engine.cancel(handle)
+                finally:
+                    if ticket is not None:
+                        admission.release(ticket, completed=False)
+
+        def _stream_buffered(self, handle, tenant: str, t0: float) -> int:
+            """An HTTP/1.0 client cannot parse chunked framing: it gets
+            the whole answer as one JSON body."""
+            if not handle.done.wait(ENGINE_REQUEST_TIMEOUT_S):
+                engine.cancel(handle)
+                code, body = 500, {"error": f"request not done within "
+                                            f"{ENGINE_REQUEST_TIMEOUT_S}s"}
+            elif handle.error == DEADLINE_ERROR:
+                code, body = 504, {"error": handle.error,
+                                   "reason": REASON_DEADLINE}
+                self._count_shed(REASON_DEADLINE)
+            elif handle.error:
+                code, body = 500, {"error": handle.error[:300]}
+            else:
+                code, body = 200, {"done": True, "tokens": handle.tokens}
+            if metrics is not None:
+                metrics.observe_engine_timing(tenant, handle)
+            self._observe(code, t0, len(handle.tokens), tenant)
+            self._send(code, json.dumps(body).encode())
+            return code
+
+        def _stream_chunked(self, handle, tenant: str,
+                            t0: float) -> tuple[int, bool]:
+            """Push each token as it lands; a client gone (a failed
+            write) or the time limit cancels the request so its slot and
+            pages free.  Returns (code for the metrics, completed)."""
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def chunk(obj) -> bool:
+                data = (json.dumps(obj) + "\n").encode()
+                try:
+                    self.wfile.write(f"{len(data):x}\r\n".encode())
+                    self.wfile.write(data + b"\r\n")
+                    self.wfile.flush()
+                    return True
+                except OSError:
+                    return False           # the client went away
+            sent, alive, timed_out = 0, True, False
+            limit = t0 + ENGINE_REQUEST_TIMEOUT_S
+            while True:
+                finished = handle.done.wait(0.05)
+                current = list(handle.tokens)           # snapshot
+                for tok in current[sent:]:
+                    alive = alive and chunk({"token": tok})
+                sent = len(current)
+                if finished or not alive:
+                    break
+                if time.perf_counter() > limit:
+                    timed_out = True
+                    break
+            if not alive or timed_out:
+                engine.cancel(handle)
+            code = 200
+            if timed_out:
+                code = 500
+                alive = alive and chunk(
+                    {"error": f"request not done within "
+                              f"{ENGINE_REQUEST_TIMEOUT_S}s"})
+            elif handle.error == DEADLINE_ERROR:
+                # the status line already said 200: the error line is
+                # the in-band signal, 504 in the metrics
+                code = 504
+                alive = alive and chunk({"error": handle.error,
+                                         "reason": REASON_DEADLINE})
+                self._count_shed(REASON_DEADLINE)
+            elif handle.error:
+                code = 500
+                alive = alive and chunk({"error": handle.error[:300]})
+            else:
+                alive = alive and chunk({"done": True,
+                                         "tokens": handle.tokens})
+            try:
+                self.wfile.write(b"0\r\n\r\n")      # chunked terminator
+            except OSError:
+                alive = False
+            if metrics is not None:
+                metrics.observe_engine_timing(tenant, handle)
+            self._observe(code, t0, sent, tenant)
+            return code, code == 200 and alive and not timed_out
+
+        def do_POST(self):
+            path = self.path
+            if path == "/stream":
+                self._stream()
+            elif path == "/prefix":
+                self._json_post(register_prefix)
+            elif path == "/generate":
+                self._json_post(generate, admit=True)
+            elif path in _NOT_PORTED:
+                self._drain_body()
+                self._send(404, json.dumps(
+                    {"error": f"{path} is not ported yet: it comes with "
+                              f"{_NOT_PORTED[path]}"}).encode())
+            else:
+                self._drain_body()
+                self._send(404, b"not found", "text/plain")
 
     return Handler
+
+
+class _Server(ThreadingHTTPServer):
+    # a burst of clients connecting at once (a router's fan-out, a load
+    # test) must queue in the listen backlog, not be reset past
+    # socketserver's default of 5
+    request_queue_size = 128
 
 
 def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
@@ -176,15 +731,28 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
           speculative_engine: bool = False,
           logit_bias: dict[int, float] | None = None, health=None,
           health_stale_after: float = 600.0,
+          slo_latency_threshold: float = 1.0,
+          slo_latency_target: float = 0.99,
+          slo_availability_target: float = 0.999,
+          admission_max_cost: int | None = None,
+          admission_burst_fraction: float = 0.7,
+          default_deadline_s: float | None = None,
+          drain_grace_s: float = 25.0,
           device=None) -> ThreadingHTTPServer:
     """Start the server on a daemon thread and return it (``.shutdown()``
-    stops the server and the engine).  ``port`` 0 picks a free port
+    stops the server, the SLO sampler and the engine; ``.drain()`` runs
+    the graceful drain first).  ``port`` 0 picks a free port
     (``server.server_address``).  ``/generate`` runs over a
     ContinuousEngine with ``slots`` in-flight sequences and a ``kv_layout``
     ("slab" or "paged") KV cache, on ``device`` (default: the card).
     ``speculative_engine`` (needs ``draft=(draft_cfg, draft_params)``)
     makes each engine pass one draft-and-verify iteration;
-    ``logit_bias`` is the engine-global bias."""
+    ``logit_bias`` is the engine-global bias.  ``admission_max_cost``
+    arms overload protection (None: open admission): outstanding token
+    cost (prompt + max new tokens) is bounded and excess sheds 503 with
+    ``Retry-After``.  /debug/slo holds availability (non-5xx, 504 client
+    deadlines excluded) to ``slo_availability_target`` and latency under
+    ``slo_latency_threshold`` seconds to ``slo_latency_target``."""
     if not continuous:
         raise ValueError("only --continuous is ported; the bucketed "
                          "DecoderPool comes with later slices of the "
@@ -199,18 +767,66 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
                               page_size=page_size, total_pages=total_pages,
                               draft=draft, logit_bias=logit_bias,
                               device=device)
+    metrics = ServeMetrics()
+    # shed 503s burn the availability budget (the server refused work);
+    # 504s do not (the client's deadline passed) and are attributed in
+    # tpu_serve_shed_total instead
+    slo = SloTracker([
+        Objective("availability", slo_availability_target,
+                  counter_good_total(
+                      metrics.requests,
+                      is_bad=lambda lv: lv[1].startswith("5")
+                      and lv[1] != "504"),
+                  description="non-5xx responses over all responses "
+                              "(504 client-deadline expiries excluded; "
+                              "see tpu_serve_shed_total)"),
+        Objective("latency", slo_latency_target,
+                  histogram_under(metrics.latency, slo_latency_threshold),
+                  description=f"requests faster than "
+                              f"{slo_latency_threshold}s"),
+    ]).start()
+    admission = None
+    if admission_max_cost is not None:
+        admission = AdmissionController(
+            admission_max_cost, burst_fraction=admission_burst_fraction,
+            drain_grace_s=drain_grace_s)
     try:
-        srv = ThreadingHTTPServer(
-            (host, port), make_handler(engine, health, health_stale_after))
+        srv = _Server((host, port), make_handler(
+            engine, health, health_stale_after, metrics=metrics, slo=slo,
+            admission=admission, default_deadline_s=default_deadline_s))
     except OSError:
+        slo.stop()
         engine.shutdown()
         raise
     srv.engine = engine
+    srv.metrics = metrics
+    srv.slo = slo
+    srv.admission = admission
+
+    def drain(timeout: float | None = None) -> bool:
+        """Graceful drain: admission closes (typed 503) and /healthz
+        goes not-ready at once, in-flight requests run to completion,
+        and the call returns True once every admitted request has its
+        answer (False past ``timeout``, default the drain grace).  The
+        caller then calls ``shutdown()``."""
+        budget = drain_grace_s if timeout is None else timeout
+        deadline = time.perf_counter() + budget
+        if admission is not None:
+            admission.begin_drain()
+        ok = engine.drain(timeout=max(0.0, deadline - time.perf_counter()))
+        if admission is not None:
+            # an empty engine is not an answered client: wait for the
+            # handler threads to write every admitted response
+            ok = admission.wait_idle(
+                max(0.0, deadline - time.perf_counter())) and ok
+        return ok
+    srv.drain = drain
     orig_shutdown = srv.shutdown
 
     def shutdown():
         orig_shutdown()
         srv.server_close()
+        slo.stop()
         engine.shutdown()
     srv.shutdown = shutdown
     threading.Thread(target=srv.serve_forever, daemon=True,
@@ -342,6 +958,40 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", action="store_true",
                     help="run every prompt bucket once before accepting "
                          "traffic")
+    ap.add_argument("--health-stale-after", type=float, default=600.0,
+                    help="seconds without a decode-loop heartbeat before "
+                         "/healthz reports 503; must exceed the first "
+                         "kernel build")
+    ap.add_argument("--slo-latency-threshold", type=float, default=1.0,
+                    help="latency SLO threshold in seconds (rounded down "
+                         "to a tpu_serve_request_seconds bucket boundary "
+                         "for /debug/slo)")
+    ap.add_argument("--slo-latency-target", type=float, default=0.99,
+                    help="fraction of requests that must beat the "
+                         "latency threshold")
+    ap.add_argument("--slo-availability-target", type=float,
+                    default=0.999,
+                    help="fraction of requests that must not 5xx")
+    ap.add_argument("--admission-max-cost", type=int, default=None,
+                    help="arm overload protection: bound the outstanding "
+                         "token cost (prompt + max new tokens of the "
+                         "admitted requests); excess sheds 503 with "
+                         "Retry-After from the live drain rate.  Unset: "
+                         "open admission")
+    ap.add_argument("--admission-burst-fraction", type=float, default=0.7,
+                    help="share of the admission capacity one tenant may "
+                         "hold past its fair share when no other tenant "
+                         "wants it")
+    ap.add_argument("--default-deadline-ms", type=float, default=None,
+                    help="deadline of requests without an X-Deadline-Ms "
+                         "header; past it the engine aborts the request "
+                         "and frees its slot (504).  Unset: none")
+    ap.add_argument("--drain-grace", type=float, default=25.0,
+                    help="SIGTERM drain budget in seconds: admission "
+                         "closes and /healthz goes not-ready at once, "
+                         "in-flight requests get this long to finish; "
+                         "keep it below the pod's "
+                         "terminationGracePeriodSeconds")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card; "
                          "'cpu' runs the plain versions of the kernels)")
@@ -442,17 +1092,34 @@ def main(argv=None) -> int:
                 kv_layout=args.kv_layout, page_size=args.page_size,
                 total_pages=args.total_pages, draft=draft,
                 speculative_engine=args.speculative_continuous,
-                logit_bias=logit_bias, device=args.device)
+                logit_bias=logit_bias,
+                health_stale_after=args.health_stale_after,
+                slo_latency_threshold=args.slo_latency_threshold,
+                slo_latency_target=args.slo_latency_target,
+                slo_availability_target=args.slo_availability_target,
+                admission_max_cost=args.admission_max_cost,
+                admission_burst_fraction=args.admission_burst_fraction,
+                default_deadline_s=(None if args.default_deadline_ms is None
+                                    else args.default_deadline_ms / 1e3),
+                drain_grace_s=args.drain_grace, device=args.device)
     if args.warmup:
         print(f"warmed {srv.engine.warmup()} prompt buckets", flush=True)
     stop = threading.Event()
+    # installed before the ready line: a supervisor that signals as soon
+    # as it reads the line must not meet the default handler
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     print(f"serving on {srv.server_address}", flush=True)
     try:
         stop.wait()
     except KeyboardInterrupt:
         pass
-    srv.engine.drain(25.0)
+    # the rolling-restart drain: new requests shed 503 and /healthz goes
+    # not-ready at once, in-flight ones finish inside the grace
+    drained = srv.drain(args.drain_grace)
+    print(f"drain before shutdown: complete={drained}", flush=True)
+    # linger: a connection that raced into the listen backlog as the
+    # drain finished still gets its typed 503 rather than a reset
+    time.sleep(min(1.5, max(0.0, args.drain_grace)))
     srv.shutdown()
     return 0
 

@@ -6,11 +6,13 @@ port's paths at full width: it serves the headline model through the
 port's HTTP server (bf16 weights over pages; int8 weights over the slab
 and over pages, plainly and speculatively with a distilled draft, and
 behind the front end with a shared prefix, admission, deadlines and a
-drain), runs
+drain; and from a checkpoint through a weights cache), runs
 the tiled matmul's bench section, trains the flagship model through
 ``fit`` and through the fused training step, and trains it sharded over
 a virtual mesh of 4 ranks on the card (DP×TP with the fused-collective
-ring kernels, DP×SP with ring flash attention).
+ring kernels, DP×SP with ring flash attention); last it checkpoints,
+preempts and resumes the flagship, fine-tunes the serving model with
+LoRA and trains the MoE model.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -164,7 +166,37 @@ Phases (each prints as it goes; any failed check exits non-zero):
      /generate counts by code equal to what was sent; the reference's
      keys in /debug/slo and /debug/overload; drain() finishing the
      in-flight request and answering new ones 503; TTFT p50/p95 and
-     tokens/s with the prefix against full prompts (informational).
+     tokens/s with the prefix against full prompts (informational);
+ 19. the lifecycle: (a) the flagship through fit, 6 steps at batch 16
+     saving at steps 3 and 6 (checkpointing.py), step 6's commit marker
+     removed as a preemption mid-save leaves it, then fit(resume=True)
+     for 3 steps: it must start at step 3, sweep the unmarked step, and
+     give losses 4-6 and step 6's parameters and AdamW moments bit-equal
+     to the uninterrupted run's, each flash kernel launched n_layers x
+     steps times; save and restore seconds and bytes printed; (b) the
+     fit command line trains phase 4's serving model 20 steps (flash,
+     batch 8) and saves it; the server command line serves that
+     checkpoint as int8 through --weights-cache (a miss: quantized and
+     saved), then from the cache alone (a hit: restored, no
+     quantization), 8 greedy requests one after another each time: every
+     answer held to paged_greedy_decode of the restored-then-quantized
+     tree under argmax_tol, the hit's answers bit-identical to the
+     miss's, #1 launched exactly n_layers times a decode step (from
+     /stats); --weights int4 against the int8 cache refused; two starts
+     with --auto-draft --auto-draft-cache (the first distills and saves,
+     the second restores with 0 s of distillation), answers equal, #1
+     launched draft layers x chunk times a pass; (c) LoRA at r = 8 on
+     that checkpoint with flash (GQA #4, #6, #7), 10 steps: losses
+     finite and falling, the base bit-equal; the wrapped forward's logits
+     within argmax_tol of the merged tree's; merged, int8, served through
+     serve() on pages, answers held to paged_greedy_decode; (d) the MoE
+     model at the flagship's widths (8 experts, capacity factor 1.25),
+     top-1 and top-2: one step with flash against dense attention within
+     STEP_LOSS_ATOL and STEP_LEAF_REL with the flash pass's routing
+     replayed (the unpinned gap printed), then fit 5 steps at batch 8,
+     losses finite and falling, the flash forward launched 2 x n_layers a
+     step (the block's remat) and each backward kernel n_layers; peak
+     memory and step time (informational).
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -176,6 +208,7 @@ import contextlib
 import gc
 import json
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -2886,6 +2919,562 @@ def drain_check(srv, port: int, prompt: list) -> None:
         "tokens, a new one answered 503 draining, /healthz 503")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: checkpoints and exact resume, serving a checkpoint and a weights
+# cache, LoRA, the MoE model
+# ---------------------------------------------------------------------------
+
+# 19a: the flagship through fit, saving every 3 steps; the resume runs the
+# last 3 again from step 3
+RESUME_RUN = dict(steps=6, every=3, batch=16)
+# 19b: the headline serving model trained by the fit CLI, then served from
+# its checkpoint by the server CLI; the auto-draft's distillation steps
+SERVE_TRAIN = dict(steps=20, batch=8)
+AUTO_DRAFT_STEPS = 50
+# 19c: LoRA on 19b's checkpoint
+LORA_RUN = dict(steps=10, rank=8, batch=8)
+# 19d: the MoE model at the flagship's widths
+MOE_MODEL = dict(TRAIN_MODEL, n_experts=8, capacity_factor=1.25)
+MOE_RUN = dict(steps=5, batch=8)
+
+
+def flash_counters() -> dict:
+    from tpu_dra_torch.workloads import flash as F
+    return {"flash_fwd": F.flash_attn_fwd, "flash_bwd_dq": F.flash_bwd_dq,
+            "flash_bwd_dkdv": F.flash_bwd_dkdv}
+
+
+def zero_counts(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def state_leaves(state: dict) -> list:
+    """Parameters and both AdamW moment trees of a restored train state."""
+    from tpu_dra_torch.workloads.train import tree_leaves
+    opt = state["extra"]["opt_state"]
+    return (tree_leaves(state["params"]) + tree_leaves(opt["mu"])
+            + tree_leaves(opt["nu"]))
+
+
+def timed_lines(lines: list, pattern: str) -> list:
+    """The seconds of every ``fit`` log line matching ``pattern`` (a
+    regular expression with one group, the seconds)."""
+    return [float(m.group(1)) for ln in lines
+            for m in [re.search(pattern, ln)] if m]
+
+
+def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
+    """19a: fit runs the flagship 6 steps saving at 3 and 6; step 6's
+    commit marker is removed (a preemption mid-save); fit(resume=True)
+    for 3 steps must start at 3, sweep the unmarked step 6, and give
+    losses 4-6 and step 6's parameters and moments bit-equal to the
+    uninterrupted run's; each run launches each flash kernel n_layers x
+    steps times."""
+    import shutil
+
+    import torch
+
+    from tpu_dra_torch.workloads.checkpointing import (_COMMIT_MARKER,
+                                                       latest_step,
+                                                       restore_train_state)
+    from tpu_dra_torch.workloads.fit import fit
+    from tpu_dra_torch.workloads.train import ModelConfig
+    cfg = ModelConfig(**TRAIN_MODEL)
+    ck = tmp / "resume"
+    steps, every, batch = (RESUME_RUN[k] for k in ("steps", "every",
+                                                   "batch"))
+    counters = flash_counters()
+    lines: list[str] = []
+
+    def record(line: str) -> None:
+        lines.append(line)
+        log(f"[resume]   {line}")
+
+    def run(n: int, resume: bool) -> tuple:
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(counters)
+        res = fit(cfg, data_path, steps=n, batch=batch, attn_impl="flash",
+                  log_every=1, checkpoint_dir=str(ck),
+                  checkpoint_every=every, resume=resume, log_fn=record)
+        launches = read_counts(counters)
+        want = cfg.n_layers * n
+        if any(v != want for v in launches.values()):
+            fail(f"resume: flash launches {launches} over {n} steps, "
+                 f"expected {want} each")
+        return res, launches
+
+    log(f"[resume] disk free under {tmp}: "
+        f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+    full, first = run(steps, False)
+    if latest_step(str(ck)) != steps or sorted(
+            p.name for p in ck.iterdir()) != [str(every), str(steps)]:
+        fail(f"resume: checkpoints {sorted(p.name for p in ck.iterdir())}")
+    nbytes = dir_bytes(ck / str(steps))
+    t0 = time.perf_counter()
+    want = restore_train_state(str(ck), device="cpu")
+    restore_host_s = time.perf_counter() - t0
+    (ck / str(steps) / _COMMIT_MARKER).unlink()
+    if latest_step(str(ck)) != every:
+        fail(f"resume: latest_step {latest_step(str(ck))} with step "
+             f"{steps} unmarked")
+    first_lines = len(lines)
+    res, second = run(steps - every, True)
+    head = lines[first_lines:first_lines + 1]
+    if not head or not head[0].startswith(f"resumed from step {every}"):
+        fail(f"resume: the resumed run logged {head}")
+    if latest_step(str(ck)) != steps:
+        fail("resume: the resumed run's save did not replace the swept step")
+    if res.losses != full.losses[every:]:
+        fail(f"resume: losses {res.losses} vs the uninterrupted run's "
+             f"{full.losses[every:]}")
+    got = restore_train_state(str(ck), device="cpu")
+    if int(got["extra"]["opt_state"]["count"]) != steps:
+        fail(f"resume: optimizer count {got['extra']['opt_state']['count']}")
+    bad = sum(not torch.equal(a, b)
+              for a, b in zip(state_leaves(want), state_leaves(got)))
+    n_leaves = len(state_leaves(want))
+    if bad:
+        fail(f"resume: {bad} of {n_leaves} parameter and moment leaves "
+             f"differ from the uninterrupted run's")
+    saves = timed_lines(lines, r"saved in ([\d.]+) s")
+    restores = timed_lines(lines, r"restored in ([\d.]+) s")
+    log(f"[resume] flagship ({cfg.n_layers} layers, batch {batch}): losses "
+        f"of steps {every + 1}-{steps} {res.losses} bit-equal to the "
+        f"uninterrupted run's, all {n_leaves} parameter and moment leaves "
+        f"of step {steps} bit-equal; flash launches {first} then {second}; "
+        f"a step on disk {nbytes} bytes; save {saves} s, restore to the "
+        f"card {restores} s, restore to the host {restore_host_s:.2f} s; "
+        f"on {card}")
+    del want, got
+    shutil.rmtree(ck)
+    return {"launches": {k: first[k] + second[k] for k in first},
+            "bytes": nbytes, "save_s": saves, "restore_s": restores,
+            "restore_host_s": restore_host_s}
+
+
+def model_flags(cfg) -> list:
+    return ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+            "--n-heads", str(cfg.n_heads), "--n-kv-heads",
+            str(cfg.n_kv_heads), "--n-layers", str(cfg.n_layers),
+            "--d-ff", str(cfg.d_ff), "--max-seq", str(cfg.max_seq),
+            "--pos-emb", cfg.pos_emb]
+
+
+def fit_cli(cfg, data_path: str, ck: Path) -> None:
+    """The fit command line in its own process: the serving model, flash
+    attention, a checkpoint at the last step."""
+    cmd = [sys.executable, "-m", "tpu_dra_torch.workloads.fit", "--data",
+           data_path, "--steps", str(SERVE_TRAIN["steps"]), "--batch",
+           str(SERVE_TRAIN["batch"]), "--attn-impl", "flash",
+           "--checkpoint-dir", str(ck), "--checkpoint-every",
+           str(SERVE_TRAIN["steps"]), *model_flags(cfg)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    for ln in out.stdout.splitlines():
+        log(f"[ckpt-serve]   fit: {ln}")
+    if out.returncode != 0:
+        fail(f"the fit command line exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    losses = [float(x) for x in re.findall(r"step \d+: loss ([\d.]+)",
+                                           out.stdout)]
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        fail(f"the fit command line's losses {losses}")
+    log(f"[ckpt-serve] the fit command line trained {SERVE_TRAIN['steps']} "
+        f"steps at batch {SERVE_TRAIN['batch']} (losses {losses}) and saved "
+        f"step {SERVE_TRAIN['steps']} in {time.perf_counter() - t0:.1f} s "
+        f"(process included)")
+
+
+def serve_cli(label: str, cfg, flags: list, prompts: list) -> dict:
+    """The server command line in its own process on the card (paged, 32
+    slots, chunk 8, 160 64-token pages), the requests of REQUESTS sent one
+    after another (so that two starts see the same batches, and can be
+    held to each other bit for bit); the paged-attention launches and
+    decode steps from /stats around them; SIGTERM must drain and exit 0.
+    Returns the answers, the lines printed before the ready line, and the
+    stats' deltas."""
+    cmd = [sys.executable, "-m", "tpu_dra_torch.workloads.serve",
+           "--continuous", "--kv-layout", "paged", "--port", "0", "--host",
+           "127.0.0.1", "--slots", str(ENGINE["slots"]), "--chunk",
+           str(ENGINE["chunk"]), "--page-size", str(ENGINE["page_size"]),
+           "--total-pages", str(ENGINE["total_pages"]), *model_flags(cfg),
+           *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: list[str] = []
+    try:
+        while not lines or "serving on" not in lines[-1]:
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"{label}: the server exited before serving: "
+                     f"{''.join(lines)[-3000:]}")
+            lines.append(line.rstrip("\n"))
+        start_s = time.perf_counter() - t0
+        port = int(re.search(r", (\d+)\)", lines[-1]).group(1))
+        post(port, {"tokens": [[1, 2, 3]], "steps": 2})   # first-use costs
+        before = call(port, "/stats")[1]
+        answers = []
+        t1 = time.perf_counter()
+        for prompt, (_, steps) in zip(prompts, REQUESTS):
+            answers.append(post(port, {"tokens": [prompt],
+                                       "steps": steps})["tokens"][0])
+        wall = time.perf_counter() - t1
+        after = call(port, "/stats")[1]
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    if proc.returncode != 0:
+        fail(f"{label}: the server exited {proc.returncode} after SIGTERM: "
+             f"{rest[-2000:]}")
+    for ln in lines[:-1]:
+        log(f"[{label}]   {ln}")
+    delta = {k: after[k] - before[k] for k in ("decode_steps",
+                                               "paged_attention_launches")}
+    if "spec_target_passes" in after:
+        delta["spec_target_passes"] = (after["spec_target_passes"]
+                                       - before.get("spec_target_passes", 0))
+    n_tok = sum(len(a) for a in answers)
+    log(f"[{label}] ready {start_s:.1f} s after the start; {len(answers)} "
+        f"requests one after another, {n_tok} tokens in {wall:.2f} s; "
+        f"/stats deltas {delta}")
+    return {"answers": answers, "lines": lines[:-1], "delta": delta}
+
+
+def serve_cli_refused(label: str, cfg, flags: list, want: str) -> None:
+    """The server command line must exit non-zero, printing ``want``."""
+    cmd = [sys.executable, "-m", "tpu_dra_torch.workloads.serve",
+           "--continuous", "--kv-layout", "paged", "--port", "0",
+           *model_flags(cfg), *flags]
+    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode == 0 or want not in out.stderr:
+        fail(f"{label}: exit {out.returncode}, stderr "
+             f"{out.stderr[-1000:]!r} (wanted {want!r})")
+    log(f"[{label}] refused (exit {out.returncode}): "
+        f"{out.stderr.strip().splitlines()[-1]}")
+
+
+def draft_report(label: str, lines: list) -> dict:
+    line = next((ln for ln in lines if ln.startswith("auto-draft: ")), None)
+    if line is None:
+        fail(f"{label}: no auto-draft line in {lines}")
+    return json.loads(line[len("auto-draft: "):])
+
+
+def checkpoint_serve_phase(tmp: Path, data_path: str, card: str) -> dict:
+    """19b: the fit command line trains the headline serving model and
+    saves it; the server command line serves that checkpoint as int8
+    through a weights cache (a miss: quantized, saved), then from the
+    cache alone (a hit: restored, no quantization) with bit-identical
+    answers; int4 against the int8 cache is refused; an auto-draft
+    distilled into a draft cache, then restored from it; every answer
+    held to paged_greedy_decode of the restored-then-quantized tree, and
+    kernel #1 launched exactly n_layers times a decode step (draft
+    layers x chunk a speculative pass)."""
+    import torch
+
+    from tpu_dra_torch.workloads.checkpointing import (restore_train_state,
+                                                       serving_meta)
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import ModelConfig
+    cfg = ModelConfig(**MODEL)
+    ck, wc, dc = tmp / "serve-ck", tmp / "weights-cache", tmp / "draft-cache"
+    fit_cli(cfg, data_path, ck)
+    params = quantize_params_int8(restore_train_state(str(ck))["params"])
+    prompts = request_prompts(cfg.vocab)
+    rows = ragged_oracle(cfg, params, prompts, max(s for _, s in REQUESTS),
+                         "paged")
+
+    def hold_run(label: str, run: dict, spec_layers: int = 0) -> int:
+        d = run["delta"]
+        want = (spec_layers * ENGINE["chunk"] * d["spec_target_passes"]
+                if spec_layers else cfg.n_layers * d["decode_steps"])
+        if d["paged_attention_launches"] != want or want == 0:
+            fail(f"{label}: kernel #1 launched "
+                 f"{d['paged_attention_launches']} times, {want} wanted "
+                 f"({d})")
+        hold_answers(label, run["answers"],
+                     lambda i: rows[i][:REQUESTS[i][1]],
+                     lambda i, w, step: oracle_logits_at(
+                         cfg, params, prompts[i], w, step),
+                     requests=REQUESTS)
+        return d["paged_attention_launches"]
+
+    launches = 0
+    miss = serve_cli("ckpt-serve miss", cfg, [
+        "--checkpoint-dir", str(ck), "--weights", "int8", "--weights-cache",
+        str(wc)], prompts)
+    if not any("int8 from --checkpoint-dir" in ln for ln in miss["lines"]) \
+            or not any("cached in" in ln for ln in miss["lines"]):
+        fail(f"ckpt-serve miss: {miss['lines']}")
+    if (serving_meta(str(wc)) or {}).get("form") != "int8":
+        fail(f"ckpt-serve: the cache's meta {serving_meta(str(wc))}")
+    launches += hold_run("ckpt-serve miss", miss)
+    hit = serve_cli("ckpt-serve hit", cfg, ["--weights-cache", str(wc)],
+                    prompts)
+    if not any("restored from the cache" in ln for ln in hit["lines"]) or \
+            any("from --checkpoint-dir" in ln for ln in hit["lines"]):
+        fail(f"ckpt-serve hit: quantized again or not restored: "
+             f"{hit['lines']}")
+    if hit["answers"] != miss["answers"]:
+        fail("ckpt-serve: the cache hit's answers differ from the miss's")
+    launches += hold_run("ckpt-serve hit", hit)
+    log(f"[ckpt-serve] the cache hit's {sum(map(len, hit['answers']))} "
+        f"tokens are bit-identical to the miss's")
+    serve_cli_refused("ckpt-serve int4", cfg, [
+        "--weights-cache", str(wc), "--weights", "int4"],
+        "holds form='int8' but --weights 'int4' was requested")
+
+    spec_flags = ["--checkpoint-dir", str(ck), "--weights", "int8",
+                  "--speculative-continuous", "--auto-draft",
+                  "--auto-draft-cache", str(dc), "--auto-draft-steps",
+                  str(AUTO_DRAFT_STEPS)]
+    drafted = serve_cli("auto-draft miss", cfg, spec_flags, prompts)
+    d1 = draft_report("auto-draft miss", drafted["lines"])
+    cached = serve_cli("auto-draft hit", cfg, spec_flags, prompts)
+    d2 = draft_report("auto-draft hit", cached["lines"])
+    if d1["source"] != "distilled" or not d2["source"].startswith("cache") \
+            or d2["distill_s"] != 0.0 or d1["layers"] != d2["layers"]:
+        fail(f"auto-draft: {d1} then {d2}")
+    if cached["answers"] != drafted["answers"]:
+        fail("auto-draft: the cached draft's answers differ from the "
+             "distilled one's")
+    for label, run in (("auto-draft miss", drafted),
+                       ("auto-draft hit", cached)):
+        launches += hold_run(label, run, spec_layers=d1["layers"])
+    log(f"[ckpt-serve] auto-draft: distilled {AUTO_DRAFT_STEPS} steps in "
+        f"{d1['distill_s']:.1f} s on the first start, restored from the "
+        f"cache on the second ({d2['distill_s']} s), answers equal; on "
+        f"{card}")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "checkpoint": ck, "prompts": prompts}
+
+
+def lora_phase(ck: Path, data_path: str, prompts: list, card: str) -> dict:
+    """19c: LoRA at r = 8 on 19b's checkpoint with flash (the GQA forward
+    #4, #6, #7), 10 steps: losses finite and falling, the base bit-equal
+    after; the wrapped forward's logits against the merged tree's within
+    argmax_tol; the merged tree quantized to int8 and served through
+    serve() on pages, answers held to paged_greedy_decode of it."""
+    import numpy as np
+    import torch
+
+    from tpu_dra_torch.workloads.checkpointing import restore_train_state
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    from tpu_dra_torch.workloads.lora import (LoRAConfig, init_lora,
+                                              make_lora_train_step,
+                                              merge_lora, wrap_lora)
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import (ModelConfig, forward,
+                                               tree_leaves)
+    cfg = ModelConfig(**MODEL)
+    base = restore_train_state(str(ck))["params"]
+    before = [t.clone() for t in tree_leaves(base)]
+    step, init_opt, lcfg = make_lora_train_step(
+        cfg, lcfg=LoRAConfig(rank=LORA_RUN["rank"]), attn_impl="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    lora = init_lora(base, lcfg, gen)
+    opt = init_opt(lora)
+    it = batches(TokenDataset(data_path), batch=LORA_RUN["batch"],
+                 seq=cfg.max_seq)
+    counters = flash_counters()
+    zero_counts(counters)
+    losses, t0 = [], time.perf_counter()
+    for _ in range(LORA_RUN["steps"]):
+        toks = torch.from_numpy(next(it)).to("cuda")
+        lora, opt, loss = step(base, lora, opt, toks)
+        losses.append(float(loss))
+    step_s = (time.perf_counter() - t0) / LORA_RUN["steps"]
+    launches = read_counts(counters)
+    want = cfg.n_layers * LORA_RUN["steps"]
+    if any(v != want for v in launches.values()):
+        fail(f"lora: flash launches {launches}, expected {want} each")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"lora: losses {losses}")
+    if not all(torch.equal(a, b) for a, b in zip(before, tree_leaves(base))):
+        fail("lora: the frozen base changed")
+    n_adapter = sum(t.numel() for t in tree_leaves(lora))
+    log(f"[lora] r = {lcfg.rank}, {n_adapter / 1e6:.2f} M adapter "
+        f"parameters, {LORA_RUN['steps']} steps at batch {LORA_RUN['batch']}: "
+        f"losses {losses}; {1e3 * step_s:.1f} ms a step (first included); "
+        f"the base bit-equal; flash launches {launches}; on {card}")
+    merged = merge_lora(base, lora, lcfg)
+    probe = torch.tensor([prompts[-1]], device="cuda")
+    with torch.no_grad():
+        wrapped_lg = forward(cfg, wrap_lora(base, lora, lcfg), probe)[0]
+        merged_lg = forward(cfg, merged, probe)[0]
+    top = merged_lg.max(-1).values
+    tol = torch.clamp(2 ** -6 * top.abs(), min=2 ** -4) * 2
+    worst = float(((wrapped_lg - merged_lg).abs().max(-1).values
+                   / tol).max())
+    log(f"[lora] wrapped vs merged logits over {probe.shape[1]} positions: "
+        f"worst row max |d| at {worst:.3f} of argmax_tol")
+    if worst > 1:
+        fail(f"lora: wrapped and merged logits part by {worst:.3f} x "
+             f"argmax_tol")
+    del base, before, lora, opt
+    served = quantize_params_int8(merged)
+    del merged
+    run = serve_requests("lora serve", cfg, served, ENGINE, prompts,
+                         requests=REQUESTS)
+    steps = run["decode_steps"]
+    if run["launches"] != cfg.n_layers * steps or steps == 0:
+        fail(f"lora serve: kernel #1 launched {run['launches']} times over "
+             f"{steps} decode steps")
+    rows = ragged_oracle(cfg, served, prompts, max(s for _, s in REQUESTS),
+                         "paged")
+    hold_answers("lora serve", run["answers"],
+                 lambda i: rows[i][:REQUESTS[i][1]],
+                 lambda i, w, s: oracle_logits_at(cfg, served, prompts[i],
+                                                  w, s), requests=REQUESTS)
+    del served
+    torch.cuda.empty_cache()
+    return {"launches": launches, "paged_launches": run["launches"]}
+
+
+def moe_phase(data_path: str, card: str) -> dict:
+    """19d: the MoE model at the flagship's widths (8 experts, capacity
+    factor 1.25), top-1 and top-2: one step with flash against the same
+    step with dense attention within STEP_LOSS_ATOL and STEP_LEAF_REL,
+    the flash pass's expert choices replayed in the dense pass
+    (moe.PinnedChoices: unpinned, near-tie tokens may take other experts;
+    that gap is printed for information), then fit for 5 steps at batch 8 with finite, falling losses and the
+    flash forward launched 2 x n_layers a step (each block's forward runs
+    again in its backward), the backward kernels n_layers a step; peak
+    memory and step time for information."""
+    import math
+
+    import torch
+
+    from tpu_dra_torch.workloads.data import TokenDataset, batches
+    from tpu_dra_torch.workloads.fit import fit
+    from tpu_dra_torch.workloads.moe import (MoEConfig, PinnedChoices,
+                                             init_moe_params, moe_loss_fn)
+    from tpu_dra_torch.workloads.train import tree_leaves, value_and_grad
+    out = {}
+    counters = flash_counters()
+    for top_k in (1, 2):
+        cfg = MoEConfig(**MOE_MODEL, router_top_k=top_k)
+        label = f"MoE top-{top_k}"
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 20 + top_k)
+        params = init_moe_params(cfg, gen)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        toks = torch.from_numpy(next(batches(
+            TokenDataset(data_path), batch=MOE_RUN["batch"],
+            seq=cfg.max_seq))).to("cuda")
+        def grads(attn_impl: str) -> tuple:
+            return value_and_grad(
+                lambda p, t: moe_loss_fn(cfg, p, t, attn_impl), params,
+                toks)
+        with PinnedChoices() as pin:
+            loss_f, g_f = grads("flash")
+            pin.replay()
+            loss_d, g_d = grads("dense")
+        if pin.replayed != len(pin.recorded):
+            fail(f"{label}: the dense pass called the router "
+                 f"{pin.replayed} times, the flash pass "
+                 f"{len(pin.recorded)}")
+        hold_step(label, "flash kernels vs plain dense attention, the "
+                  "flash pass's routing replayed", loss_f, g_f, loss_d, g_d)
+        del g_d
+        with PinnedChoices() as own:
+            loss_u, g_u = grads("dense")
+        errs = leaf_errors(g_f, g_u)
+        L = cfg.n_layers
+        moved = sum(int((a != b).any(-1).sum())
+                    for a, b in zip(pin.recorded[:L], own.recorded[:L]))
+        log(f"[moe] {label}: the same steps unpinned (the dense pass "
+            f"routing by its own scores): {moved} of "
+            f"{L * toks[:, :-1].numel()} "
+            f"token-layer routes differ, loss |d| "
+            f"{abs(float(loss_f) - float(loss_u)):.2e}, gradient leaves "
+            f"relative L2 median {statistics.median(errs.values()):.3e}, "
+            f"worst {max(errs.values()):.3e} (informational)")
+        del params, g_f, g_u
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        stamps: list[float] = []
+        t0 = time.perf_counter()
+        res = fit(cfg, data_path, steps=MOE_RUN["steps"],
+                  batch=MOE_RUN["batch"], attn_impl="flash", log_every=1,
+                  log_fn=lambda ln: (stamps.append(time.perf_counter()),
+                                     log(f"[moe]   {label} {ln}")))
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = cfg.n_layers * MOE_RUN["steps"]
+        if launches != {"flash_fwd": 2 * want, "flash_bwd_dq": want,
+                        "flash_bwd_dkdv": want}:
+            fail(f"{label}: flash launches {launches}; wanted the forward "
+                 f"{2 * want} (remat) and each backward {want}")
+        if not all(math.isfinite(x) for x in res.losses) or \
+                not res.losses[-1] < res.losses[0]:
+            fail(f"{label}: losses {res.losses}")
+        times = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+        step_s = statistics.median(times[1:])
+        tok_step = MOE_RUN["batch"] * cfg.max_seq
+        log(f"[moe] {label}: {n_params / 1e9:.3f} B params, capacity "
+            f"{cfg.capacity(tok_step)} slots an expert, losses "
+            f"{res.losses}; step {1e3 * step_s:.1f} ms (median of steps "
+            f"2-{MOE_RUN['steps']}; first {1e3 * times[0]:.1f} ms), "
+            f"{tok_step / step_s:.0f} tokens/s; peak memory {peak_gb:.1f} "
+            f"GB; flash launches {launches} (informational but the counts); "
+            f"on {card}")
+        out[top_k] = {"launches": launches, "step_ms": 1e3 * step_s,
+                      "peak_gb": peak_gb, "losses": res.losses}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lifecycle_phase(card: str) -> dict:
+    """Phase 19 (a-d) in a temporary directory of its own, on the phase-8
+    corpus written again there."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-19-") as tmp:
+        tmp = Path(tmp)
+        data_path = write_tokens(tmp / "tokens.bin", TRAIN_MODEL["vocab"])
+        t0 = time.perf_counter()
+        resumed = resume_phase(tmp, data_path, card)
+        log(f"[time] phase 19a {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        served = checkpoint_serve_phase(tmp, data_path, card)
+        log(f"[time] phase 19b {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lora = lora_phase(served["checkpoint"], data_path, served["prompts"],
+                          card)
+        log(f"[time] phase 19c {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        moe = moe_phase(data_path, card)
+        log(f"[time] phase 19d {time.perf_counter() - t0:.1f} s")
+    moe_launches = {k: moe[1]["launches"][k] + moe[2]["launches"][k]
+                    for k in moe[1]["launches"]}
+    return {"resume": resumed, "moe": moe, "lora": lora,
+            "paged_launches": served["launches"] + lora["paged_launches"],
+            "flash_launches": {k: resumed["launches"][k] + moe_launches[k]
+                               for k in moe_launches},
+            "lora_launches": lora["launches"]}
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2905,6 +3494,12 @@ def main() -> int:
     # fp32 matmuls in full precision (the plain versions compare in fp32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        log(f"[time] phases {phases} done {time.perf_counter() - t_start:.1f}"
+            f" s after the start")
 
     t0 = time.perf_counter()
     built = build_all()
@@ -2926,6 +3521,7 @@ def main() -> int:
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi name, power "
         f"limit:")
     log(card)
+    lap("1")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2956,6 +3552,7 @@ def main() -> int:
     served = serve_phase(gen)
     log(f"[time] paged_attention launches per decoded token: "
         f"{served['launches'] / max(1, served['decode_steps']):.2f}")
+    lap("2-4")
 
     with torch.no_grad():
         flash_err = check_flash(gen)
@@ -2984,17 +3581,20 @@ def main() -> int:
     benched = bench_phase()
     log_matmul_summary(mm_t["matmul 4096^3"], benched, card)
     log_norm_summary(mm_t, card)
+    lap("5-7")
 
     ring_err = check_ring(gen)
     with torch.no_grad():
         ring_t = time_ring(gen)
     log_times(ring_t, card)
     log_ring_summary(ring_t, card)
+    lap("11-12")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         trained, fused, gqa_run = train_phase(gen, Path(tmp))
         sharded = sharded_phase(gen, str(Path(tmp) / "tokens.bin"))
         ringed = ring_phase(gen, str(Path(tmp) / "tokens.bin"))
+    lap("8-10, 13-14")
 
     quant_t = quant_phase(gen)
     log_quant_times(quant_t, card)
@@ -3007,16 +3607,21 @@ def main() -> int:
     log(f"[serve] int8 weights: slab {slab_tps:.1f} tokens/s, paged "
         f"{quant_served['paged']['tokens_per_s']:.1f} tokens/s for the 8 "
         f"requests (informational); on {card}")
+    lap("15-16")
     spec = spec_serve_phase(gen, card)
+    lap("17")
     prefixed = prefix_phase(spec.pop("models"), card)
     torch.cuda.empty_cache()
+    lap("18")
+    life = lifecycle_phase(card)
+    lap("19")
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "tpu_dra_torch/csrc/paged_attention.cu",
         "replaces": "tpu_dra/workloads/paged_kv.py:248",
         "launches": served["launches"] + spec["paged"]["spec"]["launches"]
-        + prefixed["launches"],
+        + prefixed["launches"] + life["paged_launches"],
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -3031,7 +3636,9 @@ def main() -> int:
         t = flash_t[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": trained["launches"][name],
+            "replaces": replaces, "launches": trained["launches"][name]
+            + life["flash_launches"][name]
+            + (life["lora_launches"][name] if name != "flash_fwd" else 0),
             "max_abs_err": flash_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -3041,7 +3648,8 @@ def main() -> int:
         "name": "flash_fwd_gqa", "route": "cuda",
         "source": "tpu_dra_torch/csrc/flash_fwd.cu",
         "replaces": "tpu_dra/workloads/pallas_kernels.py:221",
-        "launches": gqa_run["launches"]["flash_fwd"],
+        "launches": gqa_run["launches"]["flash_fwd"]
+        + life["lora_launches"]["flash_fwd"],
         "max_abs_err": flash_err["flash_fwd_gqa"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

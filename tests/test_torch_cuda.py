@@ -994,3 +994,96 @@ def test_slab_decode_on_the_card_follows_the_cpu():
             torch.device(where).type
     for got, want in zip(logits[str(dev)], logits["cpu"]):
         torch.testing.assert_close(got, want, rtol=2 ** -5, atol=2 ** -4)
+
+
+def _corpus(path, n=20000, vocab=256):
+    import numpy as np
+
+    from tpu_dra_torch.workloads.data import TokenDataset
+    r = np.random.default_rng(0)
+    toks = np.resize(r.integers(0, vocab, 17), n)
+    TokenDataset.write(str(path), toks)
+    return str(path)
+
+
+def test_resume_on_the_card_is_bit_exact(tmp_path):
+    """fit with flash on the card: 4 steps saving at 2 and 4; a resume
+    from step 2 (step 4's marker removed) gives the uninterrupted run's
+    losses and step-4 parameters and moments bit for bit."""
+    from tpu_dra_torch.workloads.checkpointing import (_COMMIT_MARKER,
+                                                       restore_train_state)
+    from tpu_dra_torch.workloads.fit import fit
+    from tpu_dra_torch.workloads.train import ModelConfig, tree_leaves
+    card()
+    cfg = ModelConfig(vocab=256, d_model=256, n_heads=2, n_layers=2,
+                      d_ff=512, max_seq=128)
+    path, ck = _corpus(tmp_path / "t.bin"), tmp_path / "ck"
+    kw = dict(batch=4, lr=1e-3, attn_impl="flash", log_every=1,
+              checkpoint_dir=str(ck), checkpoint_every=2,
+              log_fn=lambda s: None)
+    full = fit(cfg, path, steps=4, **kw)
+    want = restore_train_state(str(ck), device="cpu")
+    (ck / "4" / _COMMIT_MARKER).unlink()
+    res = fit(cfg, path, steps=2, resume=True, **kw)
+    got = restore_train_state(str(ck), device="cpu")
+    assert res.losses == full.losses[2:]
+
+    def leaves(st):
+        o = st["extra"]["opt_state"]
+        return tree_leaves(st["params"]) + tree_leaves(o["mu"]) + \
+            tree_leaves(o["nu"])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(want),
+                                                 leaves(got)))
+
+
+def test_moe_step_with_flash_matches_dense_on_the_card():
+    """One MoE training step's loss and gradients with the flash kernels
+    against dense attention, the flash pass's expert choices replayed
+    (chip_smoke.py's STEP tolerances), and the flash forward launched
+    twice a layer (the block's remat)."""
+    from tpu_dra_torch.workloads import flash as F
+    from tpu_dra_torch.workloads.moe import (MoEConfig, PinnedChoices,
+                                             init_moe_params, moe_loss_fn)
+    from tpu_dra_torch.workloads.train import tree_leaves, value_and_grad
+    dev = card()
+    cfg = MoEConfig(vocab=256, d_model=256, n_heads=2, n_layers=2, d_ff=512,
+                    max_seq=128, n_experts=4, router_top_k=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_moe_params(cfg, gen)
+    toks = torch.randint(0, 256, (4, 129), generator=gen, device=dev)
+    F.flash_attn_fwd.launches = 0
+    with PinnedChoices() as pin:
+        lf, gf = value_and_grad(
+            lambda p, t: moe_loss_fn(cfg, p, t, "flash"), params, toks)
+        assert F.flash_attn_fwd.launches == 2 * cfg.n_layers
+        pin.replay()
+        ld, gd = value_and_grad(lambda p, t: moe_loss_fn(cfg, p, t),
+                                params, toks)
+    assert abs(float(lf) - float(ld)) <= 5e-3
+    for a, b in zip(tree_leaves(gf), tree_leaves(gd)):
+        assert float((a - b).norm() / b.norm()) <= 3e-2
+
+
+def test_weights_cache_hit_serves_bit_identically_on_the_card(tmp_path):
+    """A serving tree quantized, saved to a weights cache and restored on
+    the card serves the same greedy tokens as the tree it was saved from
+    (``q8`` column-major again after the restore)."""
+    from tpu_dra_torch.workloads.checkpointing import (restore_serving_state,
+                                                       save_serving_state)
+    from tpu_dra_torch.workloads.decode import greedy_decode
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    dev = card()
+    cfg = ModelConfig(vocab=256, d_model=128, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=256, max_seq=64, pos_emb="rope")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    miss = quantize_params_int8(init_params(cfg, gen))
+    save_serving_state(str(tmp_path / "wc"), miss, meta={"form": "int8"})
+    hit = restore_serving_state(str(tmp_path / "wc"))
+    assert hit["blocks"]["wqkv"]["q8"].device.type == "cuda"
+    assert hit["blocks"]["wqkv"]["q8"].transpose(-1, -2).is_contiguous()
+    prompt = torch.randint(0, 256, (3, 9), generator=gen, device=dev)
+    assert torch.equal(greedy_decode(cfg, hit, prompt, steps=8),
+                       greedy_decode(cfg, miss, prompt, steps=8))

@@ -207,3 +207,141 @@ def test_cli_serves_an_int8_npz_on_the_cpu(tmp_path):
         rc = proc.wait(timeout=60)
     assert rc == 0
     oracle_agrees(quantize_params_int8(PARAMS), [3, 1, 4, 1, 5], 5, toks)
+
+
+# -------------------------------------------------------------------------
+# Serving from a checkpoint or a weights cache, and the draft cache
+# -------------------------------------------------------------------------
+
+MODEL_FLAGS = ["--vocab", "96", "--d-model", "64", "--n-heads", "4",
+               "--n-kv-heads", "2", "--n-layers", "2", "--d-ff", "128",
+               "--max-seq", "64"]
+ROWS = [[3, 1, 4, 1, 5], [9, 2, 6]]
+
+
+def run_cli(*flags, steps: int = 5):
+    """Start the server CLI on the CPU with ``flags``, POST ``ROWS`` as
+    one /generate, SIGTERM it; returns ``(answers, lines printed before
+    the ready line)``."""
+    cmd = [sys.executable, "-m", "tpu_dra_torch.workloads.serve",
+           "--continuous", "--device", "cpu", "--port", "0", "--host",
+           "127.0.0.1", "--slots", "2", "--chunk", "2", "--kv-layout",
+           "paged", "--page-size", "8", *MODEL_FLAGS, *flags]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        while not lines or "serving on" not in lines[-1]:
+            lines.append(proc.stdout.readline())
+            assert lines[-1], "the server exited before serving: " + \
+                "".join(lines)[-2000:]
+        port = int(re.search(r", (\d+)\)", lines[-1]).group(1))
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"tokens": ROWS, "steps": steps}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            answers = json.loads(resp.read())["tokens"]
+    finally:
+        proc.terminate()
+        rc = proc.wait(timeout=60)
+    assert rc == 0
+    return answers, lines[:-1]
+
+
+def refusal(capsys, *flags) -> str:
+    with pytest.raises(SystemExit) as exc:
+        main(["--continuous", "--device", "cpu", *MODEL_FLAGS, *flags])
+    assert exc.value.code == 2
+    return capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    from tpu_dra_torch.workloads.checkpointing import save_train_state
+    d = tmp_path_factory.mktemp("serve") / "ck"
+    save_train_state(str(d), 20, PARAMS)
+    return str(d)
+
+
+def test_cli_serves_a_checkpoint_through_the_weights_cache(
+        checkpoint, tmp_path, capsys):
+    """``--checkpoint-dir --weights int8 --weights-cache`` quantizes and
+    fills the cache (a miss); ``--weights-cache`` alone then restores the
+    int8 tree without quantizing, and answers bit-identically; each
+    answer follows the port's greedy decode of the quantized tree."""
+    cache = str(tmp_path / "wc")
+    miss, lines = run_cli("--checkpoint-dir", checkpoint, "--weights",
+                          "int8", "--weights-cache", cache)
+    assert any("int8 from --checkpoint-dir" in ln for ln in lines), lines
+    assert any("cached in" in ln for ln in lines), lines
+    from tpu_dra_torch.workloads.checkpointing import serving_meta
+    meta = serving_meta(cache)
+    assert meta["form"] == "int8" and meta["model"]["d_model"] == 64
+    hit, lines = run_cli("--weights-cache", cache)
+    assert any("restored from the cache" in ln and "form int8" in ln
+               for ln in lines), lines
+    assert not any("from --checkpoint-dir" in ln for ln in lines), lines
+    assert hit == miss
+    for r, toks in zip(ROWS, miss):
+        oracle_agrees(quantize_params_int8(PARAMS), r, 5, toks)
+    # the mismatches are errors, never a stale serve
+    err = refusal(capsys, "--weights-cache", cache, "--weights", "int4")
+    assert "holds form='int8' but --weights 'int4' was requested" in err
+    err = refusal(capsys, "--weights-cache", cache, "--d-model", "128")
+    assert "was saved for model" in err and "the flags describe" in err
+
+
+def test_cli_needs_a_weights_source(capsys, tmp_path):
+    assert "--checkpoint-dir required" in refusal(capsys)
+    # an empty cache is a miss, and there is nothing to fill it from
+    assert "--checkpoint-dir required" in refusal(
+        capsys, "--weights-cache", str(tmp_path / "empty"))
+    assert "no checkpoints under" in refusal(
+        capsys, "--checkpoint-dir", str(tmp_path / "nope"))
+    assert "pick one weights source" in refusal(
+        capsys, "--checkpoint-dir", str(tmp_path), "--init-seed", "0")
+
+
+def test_cli_auto_draft_cache_miss_then_hit(checkpoint, tmp_path, capsys):
+    """``--auto-draft --auto-draft-cache``: the first start distills and
+    saves the draft, the second restores it (0 s of distillation); both
+    serve the same greedy answers.  Without the fp32 tree a cache miss
+    cannot distill."""
+    dcache, wcache = str(tmp_path / "dc"), str(tmp_path / "wc")
+    flags = ("--checkpoint-dir", checkpoint, "--weights", "int8",
+             "--weights-cache", wcache, "--speculative-continuous",
+             "--auto-draft", "--auto-draft-cache", dcache,
+             "--auto-draft-steps", "2")
+
+    def draft_line(lines):
+        line = next(ln for ln in lines if ln.startswith("auto-draft: "))
+        return json.loads(line[len("auto-draft: "):])
+    first, lines = run_cli(*flags)
+    d1 = draft_line(lines)
+    assert d1["source"] == "distilled" and d1["layers"] == 1
+    second, lines = run_cli(*flags)
+    d2 = draft_line(lines)
+    assert d2["source"].startswith("cache") and d2["distill_s"] == 0.0
+    assert first == second
+    err = refusal(capsys, "--weights-cache", wcache,
+                  "--speculative-continuous", "--auto-draft-cache",
+                  str(tmp_path / "dc2"))
+    assert "--auto-draft needs --checkpoint-dir" in err
+    err = refusal(capsys, "--weights-cache", wcache, "--weights", "int8",
+                  "--speculative-continuous", "--auto-draft-cache", dcache,
+                  "--n-layers", "2", "--d-ff", "256")
+    assert "was saved for model" in err
+
+
+def test_cli_serves_a_draft_checkpoint(checkpoint, tmp_path):
+    """``--draft-checkpoint-dir`` serves a draft's training checkpoint as
+    it is, dimensions from ``--draft-*``; greedy answers equal the plain
+    engine's."""
+    plain, _ = run_cli("--checkpoint-dir", checkpoint)
+    spec, _ = run_cli("--checkpoint-dir", checkpoint,
+                      "--speculative-continuous", "--draft-checkpoint-dir",
+                      checkpoint, "--draft-d-model", "64", "--draft-n-heads",
+                      "4", "--draft-n-kv-heads", "2", "--draft-n-layers",
+                      "2", "--draft-d-ff", "128")
+    assert spec == plain

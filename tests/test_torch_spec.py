@@ -603,8 +603,11 @@ def test_serve_speculative_engine_over_http():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--auto-draft-cache", "/nonexistent"], "queue 1 item 5"),
-    (["--draft-checkpoint-dir", "/nonexistent"], "queue 1 item 5"),
+    (["--auto-draft-cache", "/nonexistent", "--draft-params-npz", "d.npz",
+      "--speculative-continuous"], "pick one draft source"),
+    (["--draft-checkpoint-dir", "/nonexistent", "--speculative-continuous",
+      "--vocab", "64", "--d-model", "32", "--n-heads", "2", "--n-layers",
+      "1", "--d-ff", "64"], "no checkpoints under /nonexistent"),
     (["--speculative-continuous"], "needs a draft"),
     (["--auto-draft"], "needs a draft"),
     (["--logit-bias", "1=2"], "id:val"),

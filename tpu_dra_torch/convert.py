@@ -10,7 +10,14 @@ Serving trees cross too (``quant.py``): int8 leaves ``{"q8", "s"}`` as
 they are (``q8`` laid out column-major on arrival, the layout the card's
 int8 product takes), int4 leaves ``{"q4", "s4"}`` with the reference's
 ml_dtypes ``int4`` values widened to int8 (``astype`` needs no ml_dtypes
-import), LoRA leaves ``{"base", "a", "b", "scale"}`` as nested dicts.
+import), LoRA leaves ``{"base", "a", "b", "scale"}`` as nested dicts.  So
+do the MoE model's trees (``moe.init_moe_params``: ``[L, E, D, F]``
+expert banks) and LoRA adapter trees (``lora.init_lora``: ``{"blocks":
+{name: {"a", "b"}}}``), leaf for leaf.
+
+This is how a JAX checkpoint reaches the port: the port's checkpoints
+(``workloads/checkpointing.py``) are its own format, and neither package
+reads the other's directories.
 
 ``save_npz``/``load_npz`` store such a tree in one ``.npz`` with
 ``/``-joined keys (``blocks/wqkv``, ``blocks/wqkv/q8``), bf16 leaves

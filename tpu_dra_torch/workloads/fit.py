@@ -1,19 +1,25 @@
 """End-to-end training loop of the port, ported from
 ``tpu_dra/workloads/fit.py``: token file → deterministic batches → train
-step (``train.make_train_step``, AdamW after global-norm clipping) on one
-device.
+step (AdamW after global-norm clipping) on one device → periodic
+checkpoints → exact resume.
 
     python -m tpu_dra_torch.workloads.fit --data tokens.bin --attn-impl flash
 
 Same flags and defaults as the reference's CLI.  It trains on the card
 (``resolve_device``); ``fit(..., device="cpu")`` runs the plain PyTorch
 path on the CPU.  Initial weights come from a ``torch.Generator`` seeded
-with 0, so they differ from the reference's ``jax.random`` ones.
+with 0, so they differ from the reference's ``jax.random`` ones.  A
+``moe.MoEConfig`` trains the MoE model (``moe.make_moe_optax_step``).
 
-Not ported yet (ROADMAP.md queue 1 item 10), and refused with
-``NotImplementedError``: checkpoints and resume, MoE configs and ZeRO-1;
-the reference's multi-device mesh and its opt-in goodput hooks have no
-counterpart here.
+Checkpoints (``checkpointing.py``, the port's own format) hold
+``{params, extra: {opt_state: {count, mu, nu}, step}}``; ``resume``
+restores the newest committed step and starts the data iterator there,
+so the resumed run sees the batches the uninterrupted one would have.
+
+Refused with ``NotImplementedError``: ZeRO-1 (it comes with the sharded
+optimizer step, ROADMAP.md queue 1 item 9); the reference's
+multi-device mesh has no counterpart here, and its opt-in goodput hooks
+come with the port of ``goodput.py`` (queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -26,16 +32,25 @@ import numpy as np
 import torch
 
 from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.workloads.checkpointing import (
+    latest_step,
+    restore_train_state,
+    save_train_state,
+)
 from tpu_dra_torch.workloads.data import TokenDataset, batches, device_prefetch
-from tpu_dra_torch.workloads.optim import AdamW, make_schedule
+from tpu_dra_torch.workloads.moe import (
+    MoEConfig,
+    init_moe_params,
+    make_moe_optax_step,
+    moe_eval_nll,
+)
+from tpu_dra_torch.workloads.optim import AdamW, AdamWState, make_schedule
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     init_params,
     loss_fn,
     make_train_step,
 )
-
-_LATER = "ROADMAP.md queue 1 item 10"
 
 
 @dataclass
@@ -56,41 +71,80 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
         resume: bool = False, log_every: int = 10,
         log_fn: Callable[[str], None] = print, device=None) -> FitResult:
     """Train ``cfg`` on a token file for ``steps`` optimizer steps on one
-    device (default: the card).  ``tokens_per_s`` counts from before the
-    first step, so it includes the first step's one-time costs, as the
-    reference's does."""
-    if not isinstance(cfg, ModelConfig):
-        raise NotImplementedError(
-            f"only the dense ModelConfig trains in the PyTorch port; "
-            f"{type(cfg).__name__} (MoE) comes with {_LATER}")
+    device (default: the card).
+
+    - ``checkpoint_every``: 0 disables; otherwise saves ``{params,
+      extra={opt_state, step}}`` to ``checkpoint_dir`` every N steps and
+      at the end.
+    - ``resume``: restore the newest committed checkpoint of
+      ``checkpoint_dir`` and continue from its step, on the batches and
+      the schedule an uninterrupted run would have used.
+
+    ``tokens_per_s`` counts from before the first step, so it includes
+    the first step's one-time costs, as the reference's does."""
+    is_moe = isinstance(cfg, MoEConfig)
     if zero1:
-        raise NotImplementedError(f"zero1 comes with {_LATER}")
-    if checkpoint_dir or checkpoint_every or resume:
         raise NotImplementedError(
-            f"checkpointing and resume come with {_LATER}")
+            "zero1 comes with the sharded optimizer step, ROADMAP.md queue "
+            "1 item 9")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if is_moe and (accum_steps != 1 or label_smoothing or z_loss):
+        raise ValueError(
+            "MoE fit supports accum_steps=1 without label smoothing / "
+            "z-loss (the MoE step has no microbatch scan)")
     if batch % accum_steps:
         raise ValueError(f"batch {batch} must be divisible by accum_steps "
                          f"{accum_steps}")
     dev = resolve_device(device)
     ds = TokenDataset(data_path)
-    optimizer = AdamW(make_schedule(lr, lr_schedule, warmup_steps, steps))
-    step_fn, init_opt = make_train_step(
-        cfg, optimizer, attn_impl=attn_impl, head_impl=head_impl,
-        accum_steps=accum_steps, label_smoothing=label_smoothing,
-        z_loss=z_loss)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = init_params(cfg, gen)
-    opt_state = init_opt(params)
+    # the schedule runs on the optimizer's ABSOLUTE update count, which a
+    # resume restores: size its horizon from the restored step, or a
+    # resumed cosine run would sit at the schedule's end value
+    restored = (latest_step(checkpoint_dir) if resume and checkpoint_dir
+                else None)
+    horizon = steps if restored is None else restored + steps
+    optimizer = AdamW(make_schedule(lr, lr_schedule, warmup_steps, horizon))
+    if is_moe:
+        step_fn, init_opt = make_moe_optax_step(
+            cfg, optimizer, attn_impl=attn_impl, head_impl=head_impl)
+    else:
+        step_fn, init_opt = make_train_step(
+            cfg, optimizer, attn_impl=attn_impl, head_impl=head_impl,
+            accum_steps=accum_steps, label_smoothing=label_smoothing,
+            z_loss=z_loss)
 
-    it = device_prefetch(batches(ds, batch=batch, seq=cfg.max_seq), dev)
+    start = 0
+    if restored is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = (init_moe_params if is_moe else init_params)(cfg, gen)
+        opt_state = init_opt(params)
+    else:
+        t0 = time.perf_counter()
+        state = restore_train_state(checkpoint_dir, step=restored,
+                                    device=dev)
+        params = state["params"]
+        opt_state = AdamWState.from_dict(state["extra"]["opt_state"])
+        start = int(state["extra"]["step"])
+        log_fn(f"resumed from step {start} (restored in "
+               f"{time.perf_counter() - t0:.2f} s)")
+
+    def save(step: int) -> None:
+        t0 = time.perf_counter()
+        save_train_state(checkpoint_dir, step, params,
+                         extra={"opt_state": opt_state.to_dict(),
+                                "step": step})
+        log_fn(f"checkpoint step {step}: saved in "
+               f"{time.perf_counter() - t0:.2f} s")
+
+    it = device_prefetch(batches(ds, batch=batch, seq=cfg.max_seq,
+                                 start_step=start), dev)
     losses: list[float] = []
     loss = None
     t0 = time.perf_counter()
     tokens_done = 0
-    for step in range(steps):
+    for step in range(start, start + steps):
         tokens = next(it)
         params, opt_state, loss = step_fn(params, opt_state, tokens)
         tokens_done += tokens.shape[0] * (tokens.shape[1] - 1)
@@ -98,9 +152,16 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
             lossf = float(loss)
             losses.append(lossf)
             log_fn(f"step {step + 1}: loss {lossf:.4f}")
+        if (checkpoint_every and checkpoint_dir
+                and (step + 1) % checkpoint_every == 0):
+            save(step + 1)
     lossf = float(loss)               # waits for the device's last step
     secs = time.perf_counter() - t0
-    return FitResult(step=steps, loss=lossf, losses=losses,
+    if (checkpoint_dir and checkpoint_every
+            and latest_step(checkpoint_dir) != start + steps):
+        # the final save, unless the periodic one covered the last step
+        save(start + steps)
+    return FitResult(step=start + steps, loss=lossf, losses=losses,
                      tokens_per_s=tokens_done / max(secs, 1e-9))
 
 
@@ -109,8 +170,10 @@ def evaluate(cfg: ModelConfig, params, data_path: str, *,
              head_impl: str = "dense") -> dict[str, float]:
     """Mean NLL and perplexity over ``batches_n`` deterministic batches at
     the TAIL of the window space (held out until a run wraps the
-    dataset), on the device that holds ``params``."""
+    dataset), on the device that holds ``params``.  A ``MoEConfig``
+    reports the pure NLL, without the load-balance loss."""
     dev = params["ln_f"].device
+    eval_fn = moe_eval_nll if isinstance(cfg, MoEConfig) else loss_fn
     ds = TokenDataset(data_path)
     n_windows = (len(ds) - 1) // cfg.max_seq
     tail_step = max(0, n_windows // batch - batches_n)
@@ -119,7 +182,7 @@ def evaluate(cfg: ModelConfig, params, data_path: str, *,
     total = 0.0
     with torch.no_grad():
         for _ in range(batches_n):
-            total += float(loss_fn(cfg, params, next(it), attn_impl,
+            total += float(eval_fn(cfg, params, next(it), attn_impl,
                                    head_impl))
     nll = total / batches_n
     return {"nll": nll, "perplexity": float(np.exp(nll))}

@@ -107,6 +107,14 @@ class AdamWState:
     mu: dict
     nu: dict
 
+    def to_dict(self) -> dict:
+        """``{"count", "mu", "nu"}``: the form a checkpoint stores."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AdamWState":
+        return cls(int(d["count"]), d["mu"], d["nu"])
+
 
 def _bias_correction(decay: float, count: int) -> float:
     """``1 − decay^count`` in fp32, as optax computes it."""
@@ -114,13 +122,17 @@ def _bias_correction(decay: float, count: int) -> float:
 
 
 class AdamW:
-    """Global-norm clipping at MAX_NORM, then AdamW (B1, B2, EPS,
-    WEIGHT_DECAY) at ``learning_rate``: a float or a schedule of the
-    0-based update count.  The chain ``fit`` trains with."""
+    """Global-norm clipping at MAX_NORM, then AdamW (B1, B2, EPS) with
+    decoupled ``weight_decay`` at ``learning_rate``: a float or a schedule
+    of the 0-based update count.  The default decay, WEIGHT_DECAY, is the
+    chain ``fit`` trains with; ``optax.adamw``'s own default is 1e-4 (the
+    LoRA step's, ``lora.LORA_WEIGHT_DECAY``)."""
 
-    def __init__(self, learning_rate: float | Schedule = 3e-4):
+    def __init__(self, learning_rate: float | Schedule = 3e-4,
+                 weight_decay: float = WEIGHT_DECAY):
         self.schedule = (learning_rate if callable(learning_rate)
                          else constant_schedule(learning_rate))
+        self.weight_decay = weight_decay
 
     def init(self, params) -> AdamWState:
         zeros = [torch.zeros_like(p) for p in tree_leaves(params)]
@@ -147,7 +159,7 @@ class AdamW:
             mu.mul_(B1).add_((1 - B1) * g)
             nu.mul_(B2).add_((1 - B2) * g.square())
             u = (mu / bc1) / ((nu / bc2).sqrt() + EPS)
-            p.add_((u + WEIGHT_DECAY * p) * step_size)
+            p.add_((u + self.weight_decay * p) * step_size)
         return AdamWState(count, state.mu, state.nu)
 
 

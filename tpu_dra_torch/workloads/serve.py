@@ -50,12 +50,19 @@ the draft from the serving weights (:func:`build_auto_draft`);
 ``--draft-params-npz`` loads one whose dimensions the ``--draft-*`` flags
 give.  ``--logit-bias 'id:val,...'`` biases the logits in every mode.
 
-Weights: ``--params-npz`` (a file written by
-``tpu_dra_torch.convert.save_npz``) or ``--init-seed`` (random weights
-drawn on the device from that seed), served in the form ``--weights``
-names (``quant.py``: fp32, bf16, int8 or int4).  An npz that already
-holds a quantized tree is served as it is, and ``--weights`` must name
-its form.
+Weights: ``--checkpoint-dir`` (a training checkpoint of the port's
+``fit``, ``checkpointing.py``), ``--params-npz`` (a file written by
+``tpu_dra_torch.convert.save_npz``: how a JAX checkpoint crosses) or
+``--init-seed`` (random weights drawn on the device from that seed),
+served in the form ``--weights`` names (``quant.py``: fp32, bf16, int8 or
+int4; default: the weights cache's recorded form, else fp32).
+``--weights-cache`` holds the serving tree: restored directly when
+populated (no quantization at start), populated from the source above
+otherwise; a cache of another form or model is an error.  An npz that
+already holds a quantized tree is served as it is, and ``--weights`` must
+name its form if given.  Drafts: ``--draft-checkpoint-dir`` serves a
+draft's training checkpoint as it is; ``--auto-draft-cache`` keeps the
+distilled draft (:func:`resolve_auto_draft`).
 """
 
 from __future__ import annotations
@@ -848,14 +855,15 @@ def serving_form(params: dict) -> str | None:
 
 
 def load_params(cfg: ModelConfig, *, params_npz: str = "",
-                init_seed: int | None = None, weights: str = "bf16",
+                init_seed: int | None = None, weights: str | None = None,
                 device=None) -> dict:
-    """Serving weights in the form ``weights`` (one of
-    :data:`WEIGHT_FORMS`) on ``device`` (default: the card): from an npz
+    """Serving weights on ``device`` (default: the card): from an npz
     written by ``tpu_dra_torch.convert.save_npz``, else random from
-    ``init_seed``.  A tree that is already quantized is returned as it
-    is, and ``weights`` must name its form."""
-    if weights not in WEIGHT_FORMS:
+    ``init_seed``, in the form ``weights`` (one of :data:`WEIGHT_FORMS`;
+    None: as stored, i.e. fp32 or the npz's quantized form).  A tree that
+    is already quantized is returned as it is, and ``weights``, if
+    given, must name its form."""
+    if weights is not None and weights not in WEIGHT_FORMS:
         raise ValueError(f"weights must be one of {WEIGHT_FORMS}, got "
                          f"{weights!r}")
     dev = resolve_device(device)
@@ -871,12 +879,12 @@ def load_params(cfg: ModelConfig, *, params_npz: str = "",
         raise ValueError("give --params-npz or --init-seed")
     held = serving_form(params)
     if held is not None:
-        if held != weights:
+        if weights not in (None, held):
             raise ValueError(f"--params-npz {params_npz} holds {held} "
                              f"weights but --weights {weights} was asked "
                              f"for")
         return params
-    return to_form(params, weights)
+    return to_form(params, weights or "fp32")
 
 
 def to_form(params: dict, form: str) -> dict:
@@ -900,24 +908,158 @@ def build_auto_draft(cfg: ModelConfig, fp32_params, *, form: str = "fp32",
     return dcfg, to_form(dparams, form)
 
 
-# the flags that need checkpointing.py, not ported yet
-_NEEDS_CHECKPOINTING = ("needs checkpointing.py, which comes with a later "
-                        "slice of the PyTorch port (ROADMAP queue 1 item 5)")
+def resolve_auto_draft(cfg: ModelConfig, fp32_params, model_dims: dict,
+                       *, form: str = "fp32", cache: str = "",
+                       n_layers: int | None = None, steps: int = 200,
+                       device=None, error=None) -> tuple:
+    """An auto-draft under the weights-cache discipline: restore the
+    distilled draft from ``cache`` when populated (a form or model that
+    differs from the meta sidecar's is an error, never a stale draft),
+    else distill from the fp32 tree and save it there, so distillation
+    runs once at deploy.  Prints one line, ``auto-draft: {json}``, with
+    the source, the layers and the distillation seconds."""
+    import dataclasses
+
+    from tpu_dra_torch.workloads.checkpointing import (
+        restore_serving_state, save_serving_state, serving_meta)
+
+    def fail(msg: str):
+        if error is not None:
+            error(msg)
+        raise ValueError(msg)
+
+    def report(source: str, layers: int, secs: float) -> None:
+        print("auto-draft: " + json.dumps(
+            {"source": source, "layers": layers, "distill_s": secs}),
+            flush=True)
+
+    if cache:
+        meta = serving_meta(cache)
+        try:
+            dparams = restore_serving_state(cache, device=device)
+        except FileNotFoundError:
+            dparams = None
+        if dparams is not None:
+            if meta is not None:
+                if meta.get("form") != form:
+                    fail(f"--auto-draft-cache holds form="
+                         f"{meta.get('form')!r} but the serving form is "
+                         f"{form!r}")
+                if meta.get("model") not in (None, model_dims):
+                    fail(f"--auto-draft-cache was distilled for "
+                         f"{meta.get('model')}, flags describe "
+                         f"{model_dims}")
+                dlayers = int(meta.get("draft_layers",
+                                       max(1, cfg.n_layers // 4)))
+            else:
+                dlayers = n_layers or max(1, cfg.n_layers // 4)
+            report(f"cache {cache}", dlayers, 0.0)
+            return dataclasses.replace(cfg, n_layers=dlayers), dparams
+    if fp32_params is None:
+        fail("--auto-draft needs --checkpoint-dir: distillation runs on "
+             "the fp32 tree (a quantized --weights-cache alone cannot be "
+             "distilled)")
+    t0 = time.perf_counter()
+    dcfg, dparams = build_auto_draft(cfg, fp32_params, form=form,
+                                     n_layers=n_layers, steps=steps)
+    report("distilled", dcfg.n_layers, time.perf_counter() - t0)
+    if cache:
+        save_serving_state(cache, dparams,
+                           meta={"form": form, "model": model_dims,
+                                 "draft_layers": dcfg.n_layers,
+                                 "distill_steps": steps})
+    return dcfg, dparams
+
+
+def _serving_weights(ap, args, cfg: ModelConfig, model_dims: dict):
+    """``(params, fp32_params, form)`` for ``main``: the serving tree
+    from a populated ``--weights-cache`` (``fp32_params`` None), else
+    from ``--checkpoint-dir``, ``--params-npz`` or ``--init-seed`` in the
+    ``--weights`` form, saved into the cache when one is named.  Prints
+    one ``serving weights: ...`` line saying which."""
+    from tpu_dra_torch.workloads import checkpointing as ck
+    dev = args.device
+    if args.weights_cache:
+        meta = ck.serving_meta(args.weights_cache)
+        try:
+            params = ck.restore_serving_state(args.weights_cache,
+                                              device=dev)
+        except FileNotFoundError:
+            params = None
+        if params is not None:
+            form = (meta or {}).get("form")
+            if meta is not None:
+                # a cache hit must be what the operator asked for: never a
+                # silent stale-weights serve
+                if args.weights is not None and form != args.weights:
+                    ap.error(f"--weights-cache {args.weights_cache} holds "
+                             f"form={form!r} but --weights "
+                             f"{args.weights!r} was requested; delete the "
+                             f"cache or drop --weights")
+                if meta.get("model") not in (None, model_dims):
+                    ap.error(f"--weights-cache {args.weights_cache} was "
+                             f"saved for model {meta.get('model')} but the "
+                             f"flags describe {model_dims}")
+            form = form or args.weights or serving_form(params) or "fp32"
+            print(f"serving weights: restored from the cache "
+                  f"{args.weights_cache}, form {form}", flush=True)
+            return params, None, form
+    sources = [f for f in ("checkpoint_dir", "params_npz") if getattr(
+        args, f)] + (["init_seed"] if args.init_seed is not None else [])
+    if not sources:
+        ap.error("--checkpoint-dir required (no populated --weights-cache "
+                 "to restore from; or give --params-npz or --init-seed)")
+    if len(sources) > 1:
+        ap.error(f"pick one weights source, got {sources}")
+    t0 = time.perf_counter()
+    if args.checkpoint_dir:
+        raw = ck.restore_train_state(args.checkpoint_dir,
+                                     device=dev)["params"]
+    else:
+        raw = load_params(cfg, params_npz=args.params_npz,
+                          init_seed=args.init_seed, device=dev)
+    held = serving_form(raw)
+    if held is not None:
+        if args.weights not in (None, held):
+            ap.error(f"--params-npz {args.params_npz} holds {held} weights "
+                     f"but --weights {args.weights} was asked for")
+        params, fp32_params, form = raw, None, held
+    else:
+        form = args.weights or "fp32"
+        params, fp32_params = to_form(raw, form), raw
+    print(f"serving weights: {form} from --{sources[0].replace('_', '-')} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    if args.weights_cache:
+        ck.save_serving_state(args.weights_cache, params,
+                              meta={"form": form, "model": model_dims})
+        print(f"serving weights: cached in {args.weights_cache}",
+              flush=True)
+    return params, fp32_params, form
 
 
 def main(argv=None) -> int:
     """Serve the model: ``python -m tpu_dra_torch.workloads.serve
-    --continuous --weights int8 --params-npz w.npz --vocab 32768 ...``
-    (the flags must describe the model the weights belong to)."""
+    --continuous --checkpoint-dir ck --weights int8 --weights-cache wc
+    --vocab 32768 ...`` (the flags must describe the model the weights
+    belong to)."""
     import argparse
     import signal
 
     ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="a training checkpoint of tpu_dra_torch's fit "
+                         "(optional when --weights-cache already holds a "
+                         "serving tree)")
+    ap.add_argument("--weights-cache", default="",
+                    help="serving-tree checkpoint directory: restored "
+                         "directly when populated (quantize once at "
+                         "deploy, not at every start); populated from "
+                         "the weights source and --weights otherwise")
     ap.add_argument("--params-npz", default="",
                     help="weights written by tpu_dra_torch.convert."
                          "save_npz (see README: from a JAX checkpoint)")
     ap.add_argument("--init-seed", type=int, default=None,
-                    help="random weights from this seed (no --params-npz)")
+                    help="random weights from this seed")
     ap.add_argument("--port", type=int, default=8477)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--vocab", type=int, default=32768)
@@ -928,15 +1070,14 @@ def main(argv=None) -> int:
     ap.add_argument("--d-ff", type=int, default=2048)
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--pos-emb", default="rope")
-    ap.add_argument("--weights", default="bf16", choices=WEIGHT_FORMS,
+    ap.add_argument("--weights", default=None, choices=WEIGHT_FORMS,
                     help="serving weight form (quant.py): fp32 serves the "
                          "weights as loaded; bf16 halves the fp32 weight "
                          "bytes, int8 quarters them, int4 (group-scaled, "
-                         "one value per byte) quarters them too.  Default "
-                         "bf16: the port has no --weights-cache to record "
-                         "a form in, so it takes the reference's serving "
-                         "baseline.  An npz that holds quantized weights "
-                         "is served as it is and must be named by its form")
+                         "one value per byte) quarters them too.  Default: "
+                         "the --weights-cache's recorded form, else fp32.  "
+                         "An explicit form that contradicts a populated "
+                         "cache, or a quantized npz, is an error")
     ap.add_argument("--cache-dtype", default="bf16",
                     choices=("bf16", "int8"))
     ap.add_argument("--continuous", action="store_true",
@@ -1015,11 +1156,13 @@ def main(argv=None) -> int:
                     help="distillation steps at startup (0 = truncation "
                          "only)")
     ap.add_argument("--auto-draft-cache", default="",
-                    help="directory caching the distilled draft "
-                         "(not ported yet: " + _NEEDS_CHECKPOINTING + ")")
+                    help="directory caching the distilled draft (the "
+                         "weights-cache pattern): restored when populated, "
+                         "so distillation runs once at deploy, else "
+                         "distilled from the fp32 weights and saved here")
     ap.add_argument("--draft-checkpoint-dir", default="",
-                    help="a draft model's training checkpoint (not ported "
-                         "yet: " + _NEEDS_CHECKPOINTING + ")")
+                    help="a draft model's training checkpoint, served as "
+                         "it is; its dimensions given by --draft-*")
     ap.add_argument("--draft-params-npz", default="",
                     help="a draft model's weights written by "
                          "tpu_dra_torch.convert.save_npz, its dimensions "
@@ -1032,18 +1175,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.continuous:
         ap.error("only --continuous is ported")
-    for flag in ("auto_draft_cache", "draft_checkpoint_dir"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} {_NEEDS_CHECKPOINTING}; "
-                     f"serve with --auto-draft or --draft-params-npz")
-    if args.auto_draft and args.draft_params_npz:
-        ap.error("--auto-draft conflicts with --draft-params-npz (pick one "
-                 "draft source)")
-    has_draft = args.auto_draft or bool(args.draft_params_npz)
-    if args.speculative_continuous != has_draft:
-        ap.error("--speculative-continuous needs a draft (--auto-draft or "
-                 "--draft-params-npz), and a draft serves only with "
-                 "--speculative-continuous")
+    draft_sources = [f for f in ("draft_params_npz", "draft_checkpoint_dir")
+                     if getattr(args, f)]
+    if args.auto_draft or args.auto_draft_cache:
+        draft_sources.append("auto_draft")
+    if len(draft_sources) > 1:
+        ap.error(f"pick one draft source, got {draft_sources}")
+    if args.speculative_continuous != bool(draft_sources):
+        ap.error("--speculative-continuous needs a draft (--auto-draft, "
+                 "--draft-params-npz or --draft-checkpoint-dir), and a "
+                 "draft serves only with --speculative-continuous")
     logit_bias = None
     if args.logit_bias:
         try:
@@ -1056,35 +1197,38 @@ def main(argv=None) -> int:
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
                       n_layers=args.n_layers, d_ff=args.d_ff,
                       max_seq=args.max_seq, pos_emb=args.pos_emb)
+    model_dims = {"vocab": args.vocab, "d_model": args.d_model,
+                  "n_heads": args.n_heads, "n_kv_heads": args.n_kv_heads,
+                  "n_layers": args.n_layers, "d_ff": args.d_ff,
+                  "pos_emb": args.pos_emb}
+    dcfg = ModelConfig(vocab=args.vocab, d_model=args.draft_d_model,
+                       n_heads=args.draft_n_heads,
+                       n_kv_heads=args.draft_n_kv_heads,
+                       n_layers=args.draft_n_layers, d_ff=args.draft_d_ff,
+                       max_seq=args.max_seq, pos_emb=args.pos_emb)
     draft = None
     try:
-        if args.auto_draft:
-            # distillation needs the fp32 tree: load it, then take the
-            # serving form of both models from it
-            fp32 = load_params(cfg, params_npz=args.params_npz,
-                               init_seed=args.init_seed, weights="fp32",
-                               device=args.device)
-            draft = build_auto_draft(cfg, fp32, form=args.weights,
-                                     n_layers=args.auto_draft_layers,
-                                     steps=args.auto_draft_steps)
-            params = to_form(fp32, args.weights)
-            del fp32
-        else:
-            params = load_params(cfg, params_npz=args.params_npz,
-                                 init_seed=args.init_seed,
-                                 weights=args.weights, device=args.device)
-        if args.draft_params_npz:
-            dcfg = ModelConfig(
-                vocab=args.vocab, d_model=args.draft_d_model,
-                n_heads=args.draft_n_heads,
-                n_kv_heads=args.draft_n_kv_heads,
-                n_layers=args.draft_n_layers, d_ff=args.draft_d_ff,
-                max_seq=args.max_seq, pos_emb=args.pos_emb)
+        params, fp32, form = _serving_weights(ap, args, cfg, model_dims)
+        if args.auto_draft or args.auto_draft_cache:
+            # distillation runs on the fp32 tree; the draft takes the
+            # serving form
+            draft = resolve_auto_draft(
+                cfg, fp32, model_dims, form=form,
+                cache=args.auto_draft_cache,
+                n_layers=args.auto_draft_layers,
+                steps=args.auto_draft_steps, device=args.device,
+                error=ap.error)
+        elif args.draft_params_npz:
             draft = (dcfg, load_params(dcfg,
                                        params_npz=args.draft_params_npz,
-                                       weights=args.weights,
-                                       device=args.device))
-    except ValueError as exc:
+                                       weights=form, device=args.device))
+        elif args.draft_checkpoint_dir:
+            from tpu_dra_torch.workloads.checkpointing import (
+                restore_train_state)
+            draft = (dcfg, restore_train_state(args.draft_checkpoint_dir,
+                                               device=args.device)["params"])
+        del fp32
+    except (ValueError, FileNotFoundError) as exc:
         ap.error(str(exc))
     srv = serve(cfg, params, host=args.host, port=args.port,
                 cache_dtype=args.cache_dtype, continuous=True,

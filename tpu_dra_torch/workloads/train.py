@@ -581,6 +581,16 @@ def tree_unflatten(like, leaves) -> dict:
     return build(like)
 
 
+def value_and_grad(fn: Callable, params, *args):
+    """``(fn(params, *args), d fn / d params)``: the loss detached and
+    the gradients as a dict shaped like ``params`` (``jax.value_and_grad``
+    over the first argument)."""
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = fn(tree_unflatten(params, live), *args)
+    return loss.detach(), tree_unflatten(
+        params, list(torch.autograd.grad(loss, live)))
+
+
 def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
              head_impl: str = "dense", accum_steps: int = 1,
              label_smoothing: float = 0.0, z_loss: float = 0.0,
@@ -597,25 +607,19 @@ def grads_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
     if B % accum_steps:
         raise ValueError(f"batch {B} must be divisible by accum_steps "
                          f"{accum_steps}")
-    leaves = [p.detach() for p in tree_leaves(params)]
-
-    def value_and_grad(batch):
-        live = [p.requires_grad_() for p in (t.detach() for t in leaves)]
-        loss = loss_fn(cfg, tree_unflatten(params, live), batch, attn_impl,
-                       head_impl, label_smoothing, z_loss, norm_impl,
-                       matmul_impl, mesh)
-        return loss.detach(), torch.autograd.grad(loss, live)
+    def loss_of(p, batch):
+        return loss_fn(cfg, p, batch, attn_impl, head_impl, label_smoothing,
+                       z_loss, norm_impl, matmul_impl, mesh)
 
     if accum_steps == 1:
-        loss, grads = value_and_grad(tokens)
-        return loss, tree_unflatten(params, grads)
+        return value_and_grad(loss_of, params, tokens)
     micro = tokens.reshape(accum_steps, B // accum_steps, tokens.shape[1])
     loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    g_sum = [torch.zeros_like(p) for p in leaves]
+    g_sum = [torch.zeros_like(p) for p in tree_leaves(params)]
     for batch in micro:
-        loss, grads = value_and_grad(batch)
+        loss, grads = value_and_grad(loss_of, params, batch)
         loss_sum = loss_sum + loss
-        g_sum = [a + g for a, g in zip(g_sum, grads)]
+        g_sum = [a + g for a, g in zip(g_sum, tree_leaves(grads))]
     inv = 1.0 / accum_steps
     return loss_sum * inv, tree_unflatten(params, [g * inv for g in g_sum])
 

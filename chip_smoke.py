@@ -10,9 +10,12 @@ drain; and from a checkpoint through a weights cache), runs
 the tiled matmul's bench section, trains the flagship model through
 ``fit`` and through the fused training step, and trains it sharded over
 a virtual mesh of 4 ranks on the card (DP×TP with the fused-collective
-ring kernels, DP×SP with ring flash attention); last it checkpoints,
-preempts and resumes the flagship, fine-tunes the serving model with
-LoRA and trains the MoE model.
+ring kernels, DP×SP with ring flash attention); then it checkpoints,
+preempts and resumes the flagship under goodput accounting, fine-tunes
+the serving model with LoRA and trains the MoE model; last it serves
+through the bucketed pool (/generate without --continuous, /beam,
+/speculative) and reads the server's spans, exemplars and a device
+trace.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -196,7 +199,31 @@ Phases (each prints as it goes; any failed check exits non-zero):
      replayed (the unpinned gap printed), then fit 5 steps at batch 8,
      losses finite and falling, the flash forward launched 2 x n_layers a
      step (the block's remat) and each backward kernel n_layers; peak
-     memory and step time (informational).
+     memory and step time (informational);
+ 20. the rest of the server, on phase 17's int8 model and draft: (a)
+     serve(continuous=False) with the draft armed, phase 4's 8 prompts
+     as one /generate of 64 steps, bit-equal to decode of the same
+     padded batch [8, 128] (tokens/s and the request time printed), each
+     row held to the slab decoder under argmax_tol; (b) /beam of 4 rows
+     of 32 tokens, W = 4, 32 steps, bit-equal to beam_decode called
+     directly, scores sorted, W = 1 equal to greedy_decode (a departure
+     only at a near-tie), each best score within 2^-5 a token of the
+     teacher-forced sum of its tokens' log-probabilities; (c)
+     /speculative with k = 4 over those rows, with the serving model as
+     its own draft and with the distilled draft: bit-equal to
+     speculative_decode with the same target passes, held to
+     greedy_decode under argmax_tol, the passes printed; (d) a
+     continuous paged server (phase 4's engine): one request with a
+     traceparent, its serve.request and serve.engine.decode spans on
+     /debug/traces, an exemplar trace id of an OpenMetrics scrape that
+     resolves there, and /debug/jax-trace?seconds=1 taken while 8
+     requests run, holding CUDA kernel events, kernel #1's among them
+     (its bytes and event counts printed); (e) phase 19a runs under
+     goodput accounting (TPU_GOODPUT_FILE given to start_from_env): each
+     segment's seconds and the ratio printed, the segments summing to
+     the wall time within 1%, checkpoint_save and restore within 1% (and
+     the printed values' rounding) of the save and restore times 19a
+     printed.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -2978,10 +3005,17 @@ def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
     for 3 steps must start at 3, sweep the unmarked step 6, and give
     losses 4-6 and step 6's parameters and moments bit-equal to the
     uninterrupted run's; each run launches each flash kernel n_layers x
-    steps times."""
+    steps times.  The whole of it runs under goodput accounting
+    (TPU_GOODPUT_FILE in the environment given to ``start_from_env``),
+    whose segments phase 20e holds to the times printed here."""
     import shutil
 
     import torch
+
+    from tpu_dra_torch.workloads import goodput
+    tracker = goodput.start_from_env(
+        {goodput.STATE_ENV: str(tmp / "goodput.json")})
+    wall0 = time.perf_counter()
 
     from tpu_dra_torch.workloads.checkpointing import (_COMMIT_MARKER,
                                                        latest_step,
@@ -3037,7 +3071,9 @@ def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
     if res.losses != full.losses[every:]:
         fail(f"resume: losses {res.losses} vs the uninterrupted run's "
              f"{full.losses[every:]}")
+    t0 = time.perf_counter()
     got = restore_train_state(str(ck), device="cpu")
+    check_restore_s = time.perf_counter() - t0
     if int(got["extra"]["opt_state"]["count"]) != steps:
         fail(f"resume: optimizer count {got['extra']['opt_state']['count']}")
     bad = sum(not torch.equal(a, b)
@@ -3056,6 +3092,13 @@ def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
         f"card {restores} s, restore to the host {restore_host_s:.2f} s; "
         f"on {card}")
     del want, got
+    tracker.stop()
+    wall = time.perf_counter() - wall0
+    goodput_report(tracker, wall, saves,
+                   sum(restores) + restore_host_s + check_restore_s, card)
+    # its state file goes with the temporary directory: nothing more is
+    # written to it (the tracker's exit hook included)
+    tracker.state_path = None
     shutil.rmtree(ck)
     return {"launches": {k: first[k] + second[k] for k in first},
             "bytes": nbytes, "save_s": saves, "restore_s": restores,
@@ -3475,6 +3518,329 @@ def lifecycle_phase(card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the bucketed pool (/generate without --continuous, /beam,
+# /speculative), spans, exemplars and a device trace; 19a's goodput
+# ---------------------------------------------------------------------------
+
+POOL_STEPS = 64
+BEAM_RUN = dict(rows=4, length=32, beams=4, steps=32)
+SPEC_K = 4
+# a beam score against the teacher-forced sum of its tokens'
+# log-probabilities: equal to 4 decimals on the CPU at three sizes
+# (tests/test_torch_beam.py), where the cached steps and the full forward
+# take the same arithmetic; on the card they take other GEMM shapes, so
+# each token's log-probability may move by the bf16 rounding of its
+# logits: held to 2^-5 a token
+BEAM_FORCED_TOL_PER_TOKEN = 2 ** -5
+TRACE_REQUESTS = 8
+# long enough that the decode outlasts the profiler's start on the
+# server's thread (1-2 s under load) and the 1 s window after it: with
+# 128 steps a run on the card saw the decode end before the window began
+TRACE_STEPS = 512
+PAGED_KERNEL = ("paged_span_kernel", "paged_combine_kernel")
+
+
+def padded_batch(rows: list):
+    """The pool's ``/generate`` batch: rows right-padded with 0 to the
+    prompt bucket, a batch of the batch bucket (dummy rows of length 1)."""
+    import torch
+
+    from tpu_dra_torch.workloads.serve import _bucket
+    B, S = _bucket(len(rows)), _bucket(max(len(r) for r in rows))
+    prompts = torch.zeros((B, S), dtype=torch.int32)
+    for i, r in enumerate(rows):
+        prompts[i, :len(r)] = torch.tensor(r)
+    lengths = [len(r) for r in rows] + [1] * (B - len(rows))
+    return prompts.cuda(), lengths
+
+
+def departures(label: str, cfg, params, rows: list, answers: list,
+               want: list) -> int:
+    """Rows of ``answers`` against ``want`` (the slab decoder's greedy
+    tokens of each row) under the near-tie rule; fails past it, returns
+    the count of rows that part at a near-tie."""
+    n = 0
+    for i, (got, w) in enumerate(zip(answers, want)):
+        diff = next((j for j, (a, b) in enumerate(zip(got, w)) if a != b),
+                    None)
+        if diff is None:
+            continue
+        lg = slab_oracle_logits_at(cfg, params, rows[i], w, diff)
+        top2 = lg.topk(2).values.tolist()
+        margin, tol = top2[0] - top2[1], argmax_tol(top2[0])
+        log(f"[{label}] row {i} parts from the slab decoder at step {diff}: "
+            f"margin {margin:.4f} (tolerance {tol:.4f})")
+        if margin > tol:
+            fail(f"{label}: row {i} parts at step {diff} where the margin "
+                 f"{margin:.4f} > {tol:.4f}")
+        n += 1
+    log(f"[{label}] {n} of {len(rows)} rows part from the slab decoder at a "
+        f"near-tie, the rest equal it")
+    return n
+
+
+def pool_generate_check(port: int, cfg, params, card: str) -> None:
+    """20a: phase 4's 8 prompts (16-128 tokens) as one /generate of 64
+    steps on the pool: bit-equal to ``decode`` of the same padded batch
+    [8, 128], and each row to the slab decoder under the near-tie rule."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import decode
+    prompts = request_prompts(cfg.vocab)
+    t0 = time.perf_counter()
+    code, out, _ = call(port, "/generate", {"tokens": prompts,
+                                            "steps": POOL_STEPS})
+    secs = time.perf_counter() - t0
+    if code != 200:
+        fail(f"pool /generate answered {code}: {out!r:.300}")
+    padded, lengths = padded_batch(prompts)
+    with torch.no_grad():
+        want = decode(cfg, params, padded, steps=POOL_STEPS,
+                      lengths=lengths)[:len(prompts)].tolist()
+    if out["tokens"] != want:
+        bad = sum(a != b for a, b in zip(out["tokens"], want))
+        fail(f"pool /generate: {bad} of {len(want)} rows differ from decode "
+             f"of the same padded batch")
+    n_tok = len(prompts) * POOL_STEPS
+    log(f"[pool] /generate of {len(prompts)} rows (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, batch "
+        f"bucket {padded.shape[0]}, prompt bucket {padded.shape[1]}), "
+        f"{POOL_STEPS} steps: bit-equal to decode of the padded batch; "
+        f"{n_tok} tokens in {secs:.3f} s, {n_tok / secs:.1f} tokens/s "
+        f"(informational); on {card}")
+    with torch.no_grad():
+        slab = [slab_oracle(cfg, params, p, POOL_STEPS) for p in prompts]
+        departures("pool /generate vs slab", cfg, params, prompts,
+                   out["tokens"], slab)
+
+
+def pool_beam_check(port: int, cfg, params, rows: list, card: str) -> list:
+    """20b: /beam of 4 rows of 32 tokens, W = 4, 32 steps: bit-equal to
+    ``beam_decode`` called directly; W = 1 equal to ``greedy_decode``
+    (a departure only at a near-tie); scores sorted; the best
+    hypothesis' score equal to the teacher-forced sum of its tokens'
+    log-probabilities within BEAM_FORCED_TOL_PER_TOKEN a token.  Returns
+    the greedy tokens of the rows."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import beam_decode, greedy_decode
+    from tpu_dra_torch.workloads.train import forward
+    W, steps = BEAM_RUN["beams"], BEAM_RUN["steps"]
+    t0 = time.perf_counter()
+    code, out, _ = call(port, "/beam", {"tokens": rows, "steps": steps,
+                                        "beams": W})
+    secs = time.perf_counter() - t0
+    if code != 200:
+        fail(f"/beam answered {code}: {out!r:.300}")
+    prompt = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        hist, scores = beam_decode(cfg, params, prompt, steps=steps, beams=W)
+        greedy = greedy_decode(cfg, params, prompt, steps=steps).tolist()
+    if out["tokens"] != hist.tolist() or out["scores"] != scores.tolist():
+        fail("/beam differs from beam_decode of the same rows")
+    for b, sc in enumerate(out["scores"]):
+        if any(x < y for x, y in zip(sc, sc[1:])):
+            fail(f"/beam row {b}: scores not sorted: {sc}")
+    code, one, _ = call(port, "/beam", {"tokens": rows, "steps": steps,
+                                        "beams": 1})
+    if code != 200:
+        fail(f"/beam W = 1 answered {code}")
+    departures("/beam W = 1 vs greedy_decode", cfg, params, rows,
+               [h[0] for h in one["tokens"]], greedy)
+    gaps = []
+    with torch.no_grad():
+        for b, row in enumerate(rows):
+            best = out["tokens"][b][0]
+            seq = torch.tensor([row + best], device="cuda")
+            lp = torch.log_softmax(forward(cfg, params, seq).float(), -1)
+            forced = sum(float(lp[0, len(row) - 1 + i, t])
+                         for i, t in enumerate(best))
+            gaps.append(abs(forced - out["scores"][b][0]))
+    tol = BEAM_FORCED_TOL_PER_TOKEN * steps
+    log(f"[pool] /beam {len(rows)} rows of {len(rows[0])} tokens, W = {W}, "
+        f"{steps} steps in {secs:.3f} s: bit-equal to beam_decode, scores "
+        f"sorted (best {[round(s[0], 3) for s in out['scores']]}); the best "
+        f"hypothesis against its teacher-forced sum: gaps "
+        f"{[round(g, 4) for g in gaps]} (tolerance {tol}); on {card}")
+    if max(gaps) > tol:
+        fail(f"/beam: a best score parts from its teacher-forced sum by "
+             f"{max(gaps):.4f} > {tol}")
+    return greedy
+
+
+def pool_spec_check(srv, port: int, cfg, params, rows: list, greedy: list,
+                    draft: tuple, card: str) -> None:
+    """20c: /speculative with k = 4 over the beam's rows, first with the
+    serving model as its own draft, then with phase 17's distilled draft:
+    bit-equal to ``speculative_decode`` of the same rows, target passes
+    equal, the tokens held to greedy_decode under the near-tie rule."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import speculative_decode
+    steps = BEAM_RUN["steps"]
+    prompt = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    for label, (dcfg, dparams) in (("draft == target", (cfg, params)),
+                                   ("distilled draft", draft)):
+        srv.pool.set_draft(dcfg, dparams)
+        t0 = time.perf_counter()
+        code, out, _ = call(port, "/speculative",
+                            {"tokens": rows, "steps": steps, "k": SPEC_K})
+        secs = time.perf_counter() - t0
+        if code != 200:
+            fail(f"/speculative ({label}) answered {code}: {out!r:.300}")
+        with torch.no_grad():
+            want, stats = speculative_decode(
+                cfg, params, dcfg, dparams, prompt, steps=steps, k=SPEC_K,
+                return_stats=True)
+        if out["tokens"] != want.tolist() or \
+                out["target_passes"] != stats["target_passes"]:
+            fail(f"/speculative ({label}) differs from speculative_decode "
+                 f"of the same rows")
+        log(f"[pool] /speculative ({label}, {dcfg.n_layers} layers), k = "
+            f"{SPEC_K}, {len(rows)} rows, {steps} steps in {secs:.3f} s: "
+            f"bit-equal to speculative_decode; {out['target_passes']} target "
+            f"passes (every proposal accepted would take ceil((steps - 1) / "
+            f"k) = {-(-(steps - 1) // SPEC_K)}; steps - 1 = {steps - 1} if "
+            f"none were); on {card}")
+        departures(f"/speculative ({label}) vs greedy_decode", cfg, params,
+                   rows, out["tokens"], greedy)
+
+
+def trace_check(cfg, params, card: str) -> dict:
+    """20d: a continuous paged server (phase 4's engine): one request with
+    a traceparent whose serve.request and serve.engine.decode spans
+    /debug/traces returns; an OpenMetrics scrape whose exemplar trace id
+    resolves there; /debug/jax-trace?seconds=1 taken while 8 requests
+    run, holding CUDA kernel events, kernel #1's among them.  Returns
+    the kernel's launches in this drive."""
+    import io
+    import tarfile
+
+    from tpu_dra_torch.workloads.paged_kv import paged_attention
+    from tpu_dra_torch.workloads.serve import serve
+    prompts = request_prompts(cfg.vocab)
+    srv = serve(cfg, params, port=0, **ENGINE)
+    paged_attention.launches = 0
+    try:
+        port = srv.server_address[1]
+        trace_id = "c0ffee" + "5e" * 13
+        code, _, _ = call(port, "/generate",
+                          {"tokens": [prompts[0]], "steps": 16},
+                          headers={"traceparent":
+                                   f"00-{trace_id}-{'ab' * 8}-01"})
+        if code != 200:
+            fail(f"trace: /generate answered {code}")
+        code, doc, _ = call(port, f"/debug/traces?trace_id={trace_id}")
+        names = {e["name"] for e in (doc.get("traceEvents", [])
+                                     if code == 200 else [])
+                 if e.get("ph") == "X"}
+        if not {"serve.request", "serve.engine.decode"} <= names:
+            fail(f"trace: /debug/traces gave {code}, spans {sorted(names)}")
+        code, text, hdrs = call(port, "/metrics", headers={
+            "Accept": "application/openmetrics-text"})
+        ids = {ln.split('trace_id="')[1].split('"')[0]
+               for ln in text.splitlines()
+               if ln.startswith("tpu_serve_request_seconds_bucket")
+               and "# {" in ln} if code == 200 else set()
+        resolved = [i for i in ids
+                    if call(port, f"/debug/traces?trace_id={i}")[0] == 200]
+        if not resolved or "openmetrics" not in hdrs.get("Content-Type", ""):
+            fail(f"trace: the OpenMetrics scrape's exemplar ids {ids} do not "
+                 f"resolve on /debug/traces")
+        results: dict = {}
+
+        def client(i):
+            results[i] = call(port, "/generate",
+                              {"tokens": [prompts[i]],
+                               "steps": TRACE_STEPS})[0]
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(TRACE_REQUESTS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/debug/jax-trace?seconds=1",
+                timeout=300) as resp:
+            body, hdrs = resp.read(), resp.headers
+        capture_s = time.perf_counter() - t0
+        for t in threads:
+            t.join(600)
+        if any(results.get(i) != 200 for i in range(TRACE_REQUESTS)):
+            fail(f"trace: the requests under the capture answered {results}")
+        with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
+            members = tar.getnames()
+            events = json.load(tar.extractfile("jax-trace/trace.json"))[
+                "traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        ours = [n for n in kernels if any(k in n for k in PAGED_KERNEL)]
+        stats = srv.engine.stats()
+    finally:
+        srv.shutdown()
+    launches = paged_attention.launches
+    log(f"[trace] a traceparent's serve.request and serve.engine.decode "
+        f"spans on /debug/traces; {len(resolved)} exemplar trace id(s) of "
+        f"the OpenMetrics scrape resolve there; /debug/jax-trace?seconds=1 "
+        f"under {TRACE_REQUESTS} requests: {len(body)} bytes ({members}), "
+        f"{len(events)} events, {len(kernels)} CUDA kernel events, "
+        f"{len(ours)} of kernel #1 ({hdrs['X-Trace-Kernel-Events']} by the "
+        f"server's count), answered in {capture_s:.2f} s; kernel #1 "
+        f"launched {launches} times over {stats['decode_steps']} decode "
+        f"steps; on {card}")
+    if not ours:
+        fail("trace: the device trace holds no event of kernel #1")
+    if launches < cfg.n_layers * stats["decode_steps"]:
+        fail(f"trace: kernel #1 launched {launches} times over "
+             f"{stats['decode_steps']} decode steps")
+    return {"launches": launches}
+
+
+def pool_phase(models: tuple, card: str) -> dict:
+    """Phase 20 (a-d) on phase 17's int8 model and distilled draft."""
+    import numpy as np
+
+    from tpu_dra_torch.workloads.serve import serve
+    cfg, params, dcfg, dparams = models
+    rng = np.random.default_rng(SEED + 20)
+    rows = rng.integers(0, cfg.vocab, (BEAM_RUN["rows"],
+                                       BEAM_RUN["length"])).tolist()
+    srv = serve(cfg, params, port=0, continuous=False, draft=(dcfg, dparams))
+    try:
+        port = srv.server_address[1]
+        call(port, "/generate", {"tokens": [[1, 2, 3]], "steps": 2})
+        pool_generate_check(port, cfg, params, card)
+        greedy = pool_beam_check(port, cfg, params, rows, card)
+        pool_spec_check(srv, port, cfg, params, rows, greedy,
+                        (dcfg, dparams), card)
+    finally:
+        srv.shutdown()
+    return trace_check(cfg, params, card)
+
+
+def goodput_report(tracker, wall: float, saves: list, restore_s: float,
+                   card: str) -> None:
+    """20e: the goodput segments of phase 19a: their sum against the wall
+    time (within 1%), checkpoint_save against the saves fit printed,
+    restore against the restores timed (each within 1%, plus the 0.01 s
+    rounding of every printed value)."""
+    rep = tracker.report()
+    totals = rep["totals"]
+    total = sum(totals.values())
+    log(f"[goodput] phase 19a under TPU_GOODPUT_FILE: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in totals.items())
+        + f"; sum {total:.3f} s against {wall:.3f} s of wall time; goodput "
+        f"ratio {rep['goodput_ratio']}; on {card}")
+    if abs(total - wall) > 0.01 * wall:
+        fail(f"goodput: segments sum to {total:.3f} s, wall {wall:.3f} s")
+    for seg, want, n in (("checkpoint_save", sum(saves), len(saves)),
+                         ("restore", restore_s, 3)):
+        got = totals.get(seg, 0.0)
+        log(f"[goodput] {seg} {got:.3f} s against {want:.3f} s timed")
+        if abs(got - want) > 0.01 * want + 0.01 * n:
+            fail(f"goodput: {seg} {got:.3f} s against {want:.3f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3610,18 +3976,23 @@ def main() -> int:
     lap("15-16")
     spec = spec_serve_phase(gen, card)
     lap("17")
-    prefixed = prefix_phase(spec.pop("models"), card)
+    models = spec.pop("models")
+    prefixed = prefix_phase(models, card)
     torch.cuda.empty_cache()
     lap("18")
     life = lifecycle_phase(card)
     lap("19")
+    pooled = pool_phase(models, card)
+    del models
+    lap("20")
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "tpu_dra_torch/csrc/paged_attention.cu",
         "replaces": "tpu_dra/workloads/paged_kv.py:248",
         "launches": served["launches"] + spec["paged"]["spec"]["launches"]
-        + prefixed["launches"] + life["paged_launches"],
+        + prefixed["launches"] + life["paged_launches"]
+        + pooled["launches"],
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

@@ -1087,3 +1087,112 @@ def test_weights_cache_hit_serves_bit_identically_on_the_card(tmp_path):
     prompt = torch.randint(0, 256, (3, 9), generator=gen, device=dev)
     assert torch.equal(greedy_decode(cfg, hit, prompt, steps=8),
                        greedy_decode(cfg, miss, prompt, steps=8))
+
+
+def _serving_model(dev, seed=0):
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(vocab=256, d_model=128, n_heads=4, n_kv_heads=2,
+                      n_layers=2, d_ff=256, max_seq=64, pos_emb="rope")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return cfg, quantize_params_int8(init_params(cfg, gen))
+
+
+def test_pool_generate_on_the_card_equals_decode_of_the_padded_batch():
+    """The bucketed pool behind /generate without --continuous: three
+    ragged rows padded to the batch bucket 4 and the prompt bucket 16,
+    bit-equal to ``decode`` of that padded batch on the card."""
+    import json
+    import urllib.request
+
+    from tpu_dra_torch.workloads.decode import decode
+    from tpu_dra_torch.workloads.serve import serve
+    dev = card()
+    cfg, params = _serving_model(dev)
+    rows = [[5, 17, 3], list(range(40, 53)), [200, 9]]
+    srv = serve(cfg, params, port=0, continuous=False)
+    try:
+        host, port = srv.server_address[:2]
+        req = urllib.request.Request(
+            f"http://{host}:{port}/generate",
+            data=json.dumps({"tokens": rows, "steps": 12}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())["tokens"]
+    finally:
+        srv.shutdown()
+    prompts = torch.zeros((4, 16), dtype=torch.int32)
+    for i, r in enumerate(rows):
+        prompts[i, :len(r)] = torch.tensor(r)
+    want = decode(cfg, params, prompts.to(dev), steps=12,
+                  lengths=[3, 13, 2, 1])
+    assert got == want[:3].tolist()
+
+
+def test_beam_decode_on_the_card_follows_the_cpu():
+    """beam_decode on the card against its CPU run (the plain paths), the
+    same int8 tree: the same hypotheses, scores within 0.05 (a sum of
+    bf16-path log-probabilities, tests/test_torch_beam.py's SCORE_TOL),
+    in the same order up to swaps of near-ties."""
+    from tpu_dra_torch.workloads.continuous import _to_device
+    from tpu_dra_torch.workloads.decode import beam_decode
+    dev = card()
+    cfg, params = _serving_model(dev, seed=2)
+    prompt = torch.randint(0, 256, (2, 7), generator=torch.Generator()
+                           .manual_seed(3))
+    runs = {}
+    for where in ("cpu", dev):
+        hist, scores = beam_decode(cfg, _to_device(params, where),
+                                   prompt.to(where), steps=8, beams=4)
+        runs[str(where)] = (hist.cpu(), scores.cpu())
+    (ch, cs), (gh, gs) = runs["cpu"], runs[str(dev)]
+    for b in range(2):
+        ref = {tuple(h.tolist()): float(s) for h, s in zip(ch[b], cs[b])}
+        for w, h in enumerate(gh[b].tolist()):
+            assert tuple(h) in ref, (h, list(ref))
+            assert abs(float(gs[b, w]) - ref[tuple(h)]) <= 0.05
+            if tuple(h) != tuple(ch[b, w].tolist()):
+                assert abs(ref[tuple(h)] - float(cs[b, w])) <= 0.1
+        assert bool((gs[b, 1:] <= gs[b, :-1]).all())
+
+
+def test_device_trace_capture_holds_cuda_kernel_events():
+    """/debug/jax-trace's capture on the card, taken while another thread
+    launches the paged attention kernel: CUDA kernel events in the Chrome
+    trace, among them the kernel's."""
+    import io
+    import json
+    import tarfile
+    import threading
+
+    from tpu_dra_torch.workloads.serve import capture_device_trace
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    lengths = torch.full((8,), 200, dtype=torch.int32, device=dev)
+    q = torch.randn((8, 8, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, 40, 64, 128), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    table = torch.arange(32, dtype=torch.int32, device=dev).reshape(8, 4)
+    stop = threading.Event()
+
+    def launch():
+        while not stop.is_set():
+            tpk.paged_attention(q, k, v, table, lengths)
+            torch.cuda.synchronize(dev)
+    t = threading.Thread(target=launch)
+    t.start()
+    try:
+        body, counts = capture_device_trace(0.5, dev)
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive()
+    assert counts["kernels"] > 0
+    with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
+        events = json.load(tar.extractfile("jax-trace/trace.json"))[
+            "traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert len(names) == counts["kernels"]
+    assert any("paged_span_kernel" in n for n in names), names[:10]

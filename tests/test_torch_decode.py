@@ -476,13 +476,14 @@ def test_learned_positions_refuse_a_window_and_positions_past_the_table():
 
 @pytest.mark.parametrize("name", ["speculative", "beam"])
 def test_speculative_and_beam_decode_name_their_later_slice(name):
-    """beam_decode names the ROADMAP item that holds it; speculative_decode,
-    ported since (tests/test_torch_spec.py), refuses what the reference
-    asserts against: fewer than 2 tokens a pass."""
+    """Both are ported now (tests/test_torch_spec.py,
+    tests/test_torch_beam.py), and each refuses what the reference
+    refuses before any work: speculative_decode fewer than 2 tokens a
+    pass, beam_decode a beam count outside [1, vocab]."""
     prompt = torch.zeros(1, 2, dtype=torch.long)
     if name == "beam":
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            td.beam_decode(TCFG, {}, prompt, steps=2)
+        with pytest.raises(ValueError, match="beams must be in"):
+            td.beam_decode(TCFG, {}, prompt, steps=2, beams=0)
     else:
         _, tp = serving("bf16")
         with pytest.raises(ValueError, match="k must be >= 2"):

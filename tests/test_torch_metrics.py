@@ -172,3 +172,73 @@ def test_counts_exact_across_threads_and_thread_death():
     assert h.snapshot()[()]["count"] == 4000
     assert c.value("x") == 4000.0            # the dead cells folded once
     assert len(c._cells._cells) == 0
+
+
+def exemplar_script(m, trace):
+    """Observations with explicit exemplars, inside sampled spans of the
+    package's own tracer (the ambient exemplar), inside an unsampled one
+    (none), and a counter family for the OpenMetrics ``_total`` rule."""
+    reg = m.Registry()
+    h = reg.histogram("t_lat_seconds", "labeled", buckets=(0.01, 0.1, 1),
+                      labels=("path", "tenant"))
+    h.observe(0.005, "/g", "a", exemplar={"trace_id": "11" * 16})
+    h.observe(0.05, "/g", "a", exemplar={"trace_id": "22" * 16,
+                                         "span_id": "33" * 8})
+    with trace.Tracer().start_span(
+            "r", parent="00-" + "44" * 16 + "-" + "55" * 8 + "-01"):
+        h.observe(0.5, "/g", "a")
+        h.observe(7.0, "/s", "b")
+    with trace.Tracer().start_span(
+            "r", parent="00-" + "66" * 16 + "-" + "55" * 8 + "-00"):
+        h.observe(0.07, "/s", "b")
+    h.observe(0.006, "/g", "a", exemplar={"trace_id": "77" * 16})
+    reg.histogram("t_plain_seconds", "no exemplars").observe(0.2)
+    reg.counter("t_requests_total", "requests", ("code",)).inc("200")
+    reg.gauge("t_up", "up").set(1)
+    return reg
+
+
+def test_exemplar_exposition_is_byte_equal(monkeypatch):
+    """The same observations under one clock: the OpenMetrics text with
+    its exemplars, and the plain text without them, byte-equal to the
+    reference's; negotiation answers alike."""
+    import time
+
+    import tpu_dra.trace as jtrace
+    import tpu_dra_torch.trace as ttrace
+    monkeypatch.setattr(time, "time", lambda: 1700000000.123456)
+    want = exemplar_script(jm, jtrace)
+    got = exemplar_script(tm, ttrace)
+    assert got.expose(openmetrics=True) == want.expose(openmetrics=True)
+    assert got.expose() == want.expose()
+    assert got.has_exemplars() and want.has_exemplars()
+    om = got.expose(openmetrics=True)
+    assert '# {trace_id="' + "44" * 16 + '"} 0.5 1700000000.123' in om
+    assert "66" * 16 not in om and om.endswith("# EOF\n")
+    assert "# TYPE t_requests counter" in om
+    for accept in ("", "application/openmetrics-text", "text/plain"):
+        assert tm.negotiate_exposition(accept, got) == \
+            jm.negotiate_exposition(accept, want)
+    with pytest.raises(ValueError, match="exemplar labels"):
+        got.histogram("t_lat_seconds", "labeled", buckets=(0.01, 0.1, 1),
+                      labels=("path", "tenant")).observe(
+            0.1, "/g", "a", exemplar={"user": "x"})
+
+
+def test_exemplars_survive_thread_death_newest_wins(monkeypatch):
+    """Exemplar cells fold like the counts: an exemplar written by a dead
+    thread stays, and the newest exemplar of a bucket wins."""
+    import time
+    reg = tm.Registry()
+    h = reg.histogram("t_seconds", "t", buckets=(1.0,))
+    clock = iter([10.0, 20.0, 30.0])
+    monkeypatch.setattr(time, "time", lambda: next(clock))
+    for tid in ("aa", "bb"):
+        t = threading.Thread(target=h.observe, args=(0.5,),
+                             kwargs={"exemplar": {"trace_id": tid * 16}})
+        t.start()
+        t.join(10)
+        assert not t.is_alive()
+    h.observe(0.5, exemplar={"trace_id": "cc" * 16})
+    om = reg.expose(openmetrics=True)
+    assert 'le="1.0"} 3 # {trace_id="' + "cc" * 16 + '"} 0.5 30.0' in om

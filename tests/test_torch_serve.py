@@ -99,8 +99,12 @@ def test_unknown_path_404(server):
 
 
 def test_only_the_paged_continuous_mode_is_served():
-    with pytest.raises(ValueError, match="later slices"):
-        serve(TCFG, PARAMS, port=0, continuous=False, device="cpu")
+    """Pages belong to the continuous engine: without it the paged layout
+    is refused, as the reference refuses it (the bucketed pool, which
+    serves without --continuous, has no paged mode)."""
+    with pytest.raises(ValueError, match="requires --continuous"):
+        serve(TCFG, PARAMS, port=0, continuous=False, kv_layout="paged",
+              device="cpu")
     with pytest.raises(SystemExit):
         main(["--kv-layout", "paged", "--init-seed", "0"])
 

@@ -609,7 +609,9 @@ def test_serve_speculative_engine_over_http():
       "--vocab", "64", "--d-model", "32", "--n-heads", "2", "--n-layers",
       "1", "--d-ff", "64"], "no checkpoints under /nonexistent"),
     (["--speculative-continuous"], "needs a draft"),
-    (["--auto-draft"], "needs a draft"),
+    # a draft without --speculative-continuous arms /speculative: the
+    # flags pass, and the missing file is what is refused
+    (["--draft-params-npz", "/nonexistent.npz"], "No such file"),
     (["--logit-bias", "1=2"], "id:val"),
 ], ids=["draft-cache", "draft-checkpoint", "no-draft", "no-spec",
         "bias"])

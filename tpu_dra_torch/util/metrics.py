@@ -1,28 +1,43 @@
 """Prometheus text exposition for the port's serving front end, copied
-from ``tpu_dra/util/metrics.py``: ``Counter``, ``Gauge``, ``Histogram``,
-``Registry``, ``bounded_label`` and the plain (0.0.4) text format.
+from ``tpu_dra/util/metrics.py``: ``Counter``, ``Gauge``, ``Histogram``
+(with OpenMetrics exemplars), ``Registry``, ``bounded_label``, the plain
+(0.0.4) text format and the OpenMetrics 1.0 format.
 
-The output is byte-for-byte the reference's plain exposition, so
-dashboards, the router and the parity tests read both servers alike.
-OpenMetrics and exemplars wait for the port's tracing:
-:func:`negotiate_exposition` answers the plain text until then.
+The output is byte-for-byte the reference's, so dashboards, the router
+and the parity tests read both servers alike.  A histogram observed
+inside a sampled span (``tpu_dra_torch.trace``) keeps that span's trace
+id as the bucket's exemplar; :func:`negotiate_exposition` answers
+OpenMetrics, exemplars included, to a client that asks for it once a
+histogram holds one, and the plain text otherwise.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
 
+# span.py is stdlib-only, so this import cannot cycle; an unsampled span
+# is the shared NOOP_SPAN, recognized by identity at no cost
+from tpu_dra_torch.trace.span import _CURRENT as _CURRENT_SPAN, NOOP_SPAN
+
+# the exemplar label keys the exposition accepts: the only link the
+# exemplars promise is metric -> trace
+EXEMPLAR_LABELS = ("trace_id", "span_id")
+
+OPENMETRICS_CONTENT_TYPE = \
+    "application/openmetrics-text; version=1.0.0; charset=utf-8"
 TEXT_CONTENT_TYPE = "text/plain; version=0.0.4"
 
 
 def negotiate_exposition(accept: str, registry: "Registry"
                          ) -> tuple[str, str]:
-    """(body, content-type) for a /metrics request: the plain 0.0.4
-    text, whatever ``accept`` asks for (the reference answers
-    OpenMetrics only when a histogram holds exemplars, which the port's
-    never do)."""
-    del accept
+    """(body, content-type) for a /metrics request: OpenMetrics when the
+    client asked for it and the registry holds exemplars; the plain
+    0.0.4 text every scraper parses otherwise."""
+    if "application/openmetrics-text" in (accept or "") and \
+            registry.has_exemplars():
+        return registry.expose(openmetrics=True), OPENMETRICS_CONTENT_TYPE
     return registry.expose(), TEXT_CONTENT_TYPE
 
 
@@ -65,6 +80,14 @@ def _admit_label(seen: set, value: str, cap: int, overflow: str) -> str:
     return overflow
 
 
+def _current_exemplar() -> Optional[dict]:
+    """``{"trace_id": ...}`` of the current sampled span, else None."""
+    span = _CURRENT_SPAN.get()
+    if span is None or span is NOOP_SPAN:
+        return None
+    return {"trace_id": span.context.trace_id}
+
+
 def _escape_label(value: object) -> str:
     """Escape a label value per the Prometheus text exposition format:
     backslash, double-quote and line-feed."""
@@ -79,11 +102,15 @@ def _escape_help(text: str) -> str:
 
 def _simple_exposition(name: str, help_: str, kind: str,
                        labels: tuple[str, ...],
-                       items: list[tuple[tuple[str, ...], float]]) -> str:
+                       items: list[tuple[tuple[str, ...], float]],
+                       family: Optional[str] = None) -> str:
     """Text exposition for single-sample-per-series metrics (counter,
-    gauge): the HELP/TYPE header and one escaped line per label set."""
-    out = [f"# HELP {name} {_escape_help(help_)}",
-           f"# TYPE {name} {kind}"]
+    gauge): the HELP/TYPE header and one escaped line per label set.
+    ``family`` overrides the HELP/TYPE name (OpenMetrics strips a
+    counter's ``_total`` there; the sample lines keep it)."""
+    fam = family or name
+    out = [f"# HELP {fam} {_escape_help(help_)}",
+           f"# TYPE {fam} {kind}"]
     for lv, val in sorted(items):
         lbl = ",".join(f'{k}="{_escape_label(v)}"'
                        for k, v in zip(labels, lv))
@@ -159,6 +186,19 @@ def _merge_lists(acc: dict, cell: dict) -> None:
                 dst[i] += v
 
 
+def _merge_newest(acc: dict, cell: dict) -> None:
+    """Exemplar cells (per label set, one ``(labels, value, ts)`` or None
+    per bucket): the newest exemplar of each bucket wins."""
+    for lv, exs in _cell_items(cell):
+        dst = acc.get(lv)
+        if dst is None:
+            acc[lv] = list(exs)
+            continue
+        for i, ex in enumerate(list(exs)):
+            if ex is not None and (dst[i] is None or ex[2] > dst[i][2]):
+                dst[i] = ex
+
+
 class Counter:
     """Monotonic counter with a lock-free ``inc()`` (per-thread cells)."""
 
@@ -180,9 +220,13 @@ class Counter:
         """All label sets with their totals (the SLO tracker's read)."""
         return self._cells.totals()
 
-    def collect(self) -> str:
+    def collect(self, openmetrics: bool = False) -> str:
+        family = None
+        if openmetrics and self.name.endswith("_total"):
+            family = self.name[: -len("_total")]
         return _simple_exposition(self.name, self.help, self.KIND,
-                                  self.labels, list(self.totals().items()))
+                                  self.labels, list(self.totals().items()),
+                                  family=family)
 
 
 class Gauge:
@@ -213,14 +257,23 @@ class Gauge:
         with self._mu:
             return dict(self._values)
 
-    def collect(self) -> str:
+    def collect(self, openmetrics: bool = False) -> str:
         return _simple_exposition(self.name, self.help, self.KIND,
                                   self.labels, list(self.values().items()))
 
 
 class Histogram:
     """Histogram with a lock-free ``observe()`` (per-thread cells of
-    ``label values -> [bucket counts..., overflow, sum]``)."""
+    ``label values -> [bucket counts..., overflow, sum]``) and OpenMetrics
+    exemplars.
+
+    An observation inside a sampled span remembers ``(trace_id, value,
+    timestamp)`` for the bucket it landed in (the newest per bucket wins
+    at collect time); the OpenMetrics exposition prints it as ``...
+    # {trace_id="..."} value ts``.  An unsampled observation pays two
+    pointer compares.  An explicit ``exemplar={"trace_id": ...}``
+    overrides the ambient span; its keys are restricted to
+    :data:`EXEMPLAR_LABELS`."""
 
     KIND = "histogram"
     DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10)
@@ -235,8 +288,17 @@ class Histogram:
         self.name, self.help, self.buckets = name, help_, tuple(buckets)
         self.labels = labels
         self._cells = _Cells(_merge_lists)
+        self._ex = _Cells(_merge_newest)
+        self._has_exemplars = False     # latched on the first exemplar
 
-    def observe(self, value: float, *label_values: str) -> None:
+    def observe(self, value: float, *label_values: str,
+                exemplar: Optional[dict] = None) -> None:
+        # validated before anything is recorded: a refused exemplar must
+        # not leave the observation half-written
+        if exemplar and any(k not in EXEMPLAR_LABELS for k in exemplar):
+            raise ValueError(
+                f"exemplar labels restricted to {EXEMPLAR_LABELS}, "
+                f"got {tuple(exemplar)}")
         cell = self._cells.mine()
         s = cell.get(label_values)
         if s is None:
@@ -248,6 +310,18 @@ class Histogram:
                 idx = i
                 break
         s[idx] += 1
+        if exemplar is None:
+            exemplar = _current_exemplar()
+        if exemplar:
+            ex = self._ex.mine()
+            slots = ex.get(label_values)
+            if slots is None:
+                slots = ex[label_values] = [None] * (len(self.buckets) + 1)
+            slots[idx] = (dict(exemplar), float(value), time.time())
+            self._has_exemplars = True          # a latch: benign race
+
+    def has_exemplars(self) -> bool:
+        return self._has_exemplars
 
     def snapshot(self) -> dict[tuple[str, ...], dict]:
         """Per label set: cumulative finite-bucket counts, total count,
@@ -264,19 +338,34 @@ class Histogram:
                        "sum": s[-1]}
         return out
 
-    def collect(self) -> str:
+    @staticmethod
+    def _format_exemplar(ex: tuple) -> str:
+        labels, value, ts = ex
+        lbl = ",".join(f'{k}="{_escape_label(v)}"'
+                       for k, v in sorted(labels.items()))
+        return f" # {{{lbl}}} {value} {round(ts, 3)}"
+
+    def collect(self, openmetrics: bool = False) -> str:
+        """Text exposition; exemplars appear only in the OpenMetrics
+        form (0.0.4 parsers reject the ``# {...}`` suffix), so the plain
+        text is the same with or without them."""
         out = [f"# HELP {self.name} {_escape_help(self.help)}",
                f"# TYPE {self.name} histogram"]
+        exemplars = self._ex.totals() if openmetrics else {}
         for lv, s in sorted(self._cells.totals().items()):
             lbl = ",".join(f'{k}="{_escape_label(v)}"'
                            for k, v in zip(self.labels, lv))
             pre = lbl + "," if lbl else ""
+            exs = exemplars.get(lv) or [None] * (len(self.buckets) + 1)
             cum = 0
-            for b, c in zip(self.buckets, s):
+            for b, c, ex in zip(self.buckets, s, exs):
                 cum += c
-                out.append(f'{self.name}_bucket{{{pre}le="{b}"}} {cum}')
+                line = f'{self.name}_bucket{{{pre}le="{b}"}} {cum}'
+                out.append(line + self._format_exemplar(ex) if ex else line)
             cum += s[len(self.buckets)]
-            out.append(f'{self.name}_bucket{{{pre}le="+Inf"}} {cum}')
+            line = f'{self.name}_bucket{{{pre}le="+Inf"}} {cum}'
+            ex = exs[len(self.buckets)]
+            out.append(line + self._format_exemplar(ex) if ex else line)
             suffix = f"{{{lbl}}}" if lbl else ""
             out.append(f"{self.name}_sum{suffix} {s[-1]}")
             out.append(f"{self.name}_count{suffix} {cum}")
@@ -319,8 +408,25 @@ class Registry:
                   labels: tuple[str, ...] = ()) -> Histogram:
         return self._get_or_register(Histogram, name, help_, buckets, labels)
 
-    def expose(self) -> str:
-        """The Prometheus 0.0.4 text exposition of every metric."""
+    def has_exemplars(self) -> bool:
+        """Whether any histogram holds an exemplar: the /metrics content
+        negotiation's predicate."""
         with self._mu:
             metrics = [m for m, _ in self._metrics.values()]
-        return "\n".join(m.collect() for m in metrics) + "\n"
+        return any(isinstance(m, Histogram) and m.has_exemplars()
+                   for m in metrics)
+
+    def expose(self, openmetrics: bool = False) -> str:
+        """The text exposition of every metric: Prometheus 0.0.4 by
+        default; ``openmetrics=True`` gives OpenMetrics 1.0 (counter
+        families without ``_total`` in HELP/TYPE, exemplars on histogram
+        buckets, ``# EOF`` last)."""
+        with self._mu:
+            metrics = [m for m, _ in self._metrics.values()]
+        body = "\n".join(m.collect(openmetrics=openmetrics)
+                         for m in metrics) + "\n"
+        return body + "# EOF\n" if openmetrics else body
+
+
+# the process-wide registry (the trace ring's eviction counter lands here)
+DEFAULT_REGISTRY = Registry()

@@ -27,10 +27,10 @@ The reference's rules, kept:
 - a missing directory raises ``FileNotFoundError``, and a read never
   creates it.
 
-Not ported: the reference's ``goodput.measure`` hooks around each save
-and restore (they come with the port of ``goodput.py``, ROADMAP.md queue
-1 item 7) and its restore ``template`` (there are no shardings to land
-on; ``device`` says where the tensors go).
+Goodput: each save accrues to ``checkpoint_save`` and each restore to
+``restore`` (``goodput.py``; no-ops unless the process opted in), as in
+the reference.  Not ported: the reference's restore ``template`` (there
+are no shardings to land on; ``device`` says where the tensors go).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from typing import Any
 import torch
 
 from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.workloads import goodput
 from tpu_dra_torch.workloads.quant import column_major
 
 # the commit marker, written last into a step directory (orbax's name: an
@@ -155,7 +156,9 @@ def save_train_state(directory: str, step: int, params: Any,
     state = {"params": params}
     if extra is not None:
         state["extra"] = extra
-    _write_step(directory, step, state, max_to_keep)
+    # durability time is badput every caller pays here
+    with goodput.measure(goodput.SEG_CHECKPOINT_SAVE):
+        _write_step(directory, step, state, max_to_keep)
 
 
 def latest_step(directory: str) -> int | None:
@@ -224,20 +227,22 @@ def restore_train_state(directory: str, *, step: int | None = None,
     if not os.path.isdir(directory):
         # read path: never create a mistyped directory as a side effect
         raise FileNotFoundError(f"no checkpoints under {directory}")
-    complete = _complete_steps(directory)
-    if step is None:
-        if not complete:
-            raise FileNotFoundError(f"no checkpoints under {directory}")
-        step = complete[-1]
-    elif step not in complete:
-        raise FileNotFoundError(f"no committed checkpoint step {step} "
-                                f"under {directory} (committed: "
-                                f"{complete})")
-    path = os.path.join(directory, str(step), STATE_FILE)
-    if not os.path.exists(path):
-        raise ValueError(f"checkpoint step {os.path.dirname(path)} "
-                         f"{_FOREIGN}")
-    state = torch.load(path, map_location=resolve_device(device),
-                       weights_only=True)
-    state["params"] = _placed(state["params"])
-    return state
+    # restore time is recovery badput
+    with goodput.measure(goodput.SEG_RESTORE):
+        complete = _complete_steps(directory)
+        if step is None:
+            if not complete:
+                raise FileNotFoundError(f"no checkpoints under {directory}")
+            step = complete[-1]
+        elif step not in complete:
+            raise FileNotFoundError(f"no committed checkpoint step {step} "
+                                    f"under {directory} (committed: "
+                                    f"{complete})")
+        path = os.path.join(directory, str(step), STATE_FILE)
+        if not os.path.exists(path):
+            raise ValueError(f"checkpoint step {os.path.dirname(path)} "
+                             f"{_FOREIGN}")
+        state = torch.load(path, map_location=resolve_device(device),
+                           weights_only=True)
+        state["params"] = _placed(state["params"])
+        return state

@@ -68,12 +68,13 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from tpu_dra_torch.device import resolve_device
 from tpu_dra_torch.resilience import failpoint
+from tpu_dra_torch.trace import current_context, get_tracer
 from tpu_dra_torch.workloads.decode import (
     _chunk_hidden,
     _chunk_logits,
@@ -132,6 +133,10 @@ class _Request:
     # fail without admitting, expired in-flight ones abort at the next
     # pass boundary and free their pages
     deadline: Optional[float] = None
+    # the submitter's sampled span context (None when unsampled): the
+    # request retires on the batcher thread, long after its span left
+    # the contextvar, and its serve.engine.decode span is a child of it
+    trace_ctx: Optional[Any] = None
     tokens: list[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
     submitted: float = field(default_factory=time.perf_counter)
@@ -426,6 +431,9 @@ class ContinuousEngine:
         req = _Request(prompt=list(prompt), steps=steps, eos_id=eos_id,
                        temperature=float(temperature), seed=seed,
                        prefix_id=prefix_id, stop=stop, deadline=deadline)
+        ctx = current_context()
+        if ctx is not None and ctx.sampled:
+            req.trace_ctx = ctx
         with self._cv:
             if self._stop:
                 raise RuntimeError("engine is shut down")
@@ -1068,6 +1076,7 @@ class ContinuousEngine:
         self.completed += 1
         self.tokens_out += len(req.tokens)
         self.latencies_s.append(req.latency_s)
+        self._export_decode_span(req, "ok")
         req.done.set()
 
     def _abort_slot(self, slot: int, req: _Request, error: str,
@@ -1083,9 +1092,25 @@ class ContinuousEngine:
             self.badput_slot_s[badput_reason] = (
                 self.badput_slot_s.get(badput_reason, 0.0)
                 + req.finished - req.admitted_at)
+        self._export_decode_span(req, "error")
         req.done.set()
         self._requests[slot] = None
         self._done[slot] = True
+
+    @staticmethod
+    def _export_decode_span(req: _Request, status: str) -> None:
+        """The slot residency (admission to retirement) as a
+        ``serve.engine.decode`` child of the submitter's span, the
+        engine-time leg that tells queueing from decoding.  Unsampled or
+        never-admitted requests cost one None check."""
+        if req.trace_ctx is None or not req.admitted_at:
+            return
+        dur = req.finished - req.admitted_at
+        get_tracer().record_span(
+            "serve.engine.decode", req.trace_ctx,
+            start=time.time() - dur, duration=dur,
+            attributes={"tokens": len(req.tokens), "steps": req.steps},
+            status=status)
 
     def _chunk_step(self):
         """Advance every slot ``chunk`` tokens.  Free and finished slots

@@ -23,8 +23,9 @@ Sampling draws its noise from an explicit ``torch.Generator`` (a
 Gumbel-max draw from the filtered, temperature-scaled logits), so a
 sampled stream is reproducible per generator seed but is not
 ``jax.random``'s.  ``speculative_decode`` verifies a draft model's
-proposals in one cached chunk forward of the target.  Not ported yet:
-``beam_decode`` (it raises).
+proposals in one cached chunk forward of the target.  ``beam_decode``
+folds its beams into the batch and reorders the cache in place each
+step.
 """
 
 from __future__ import annotations
@@ -48,10 +49,6 @@ from tpu_dra_torch.workloads.train import (
     layer_params,
     weak_scalar,
 )
-
-_LATER = ("not ported yet: it comes with the remaining serving modes of "
-          "the PyTorch port (ROADMAP queue 1 item 7)")
-
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   cache_dtype: str = "bf16", device=None) -> dict:
@@ -635,9 +632,106 @@ def speculative_decode(cfg: ModelConfig, params, draft_cfg: ModelConfig,
     return toks
 
 
-def beam_decode(*_args, **_kwargs):
-    """Beam search (reference ``decode.beam_decode``)."""
-    raise NotImplementedError(f"beam_decode is {_LATER}")
+def _top_w(x, w: int):
+    """The ``w`` largest entries of each row of ``x`` and their indices,
+    largest first, the lower index first among equal values (the order
+    of ``jax.lax.top_k``, which the reference's beams follow)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :w], idx[..., :w]
+
+
+@torch.no_grad()
+def beam_decode(cfg: ModelConfig, params, prompt, *, steps: int,
+                beams: int = 4, max_len: int | None = None,
+                attn_impl: str = "dense", cache_dtype: str = "bf16",
+                eos_id: int | None = None, length_penalty: float = 0.0):
+    """Beam search over equal-length ``[B, S]`` prompts: (``[B, beams,
+    steps]`` int32 tokens, ``[B, beams]`` fp32 scores), best first per
+    row.
+
+    The beams fold into the batch: the prompt is prefilled once, its
+    cache tiled across the beams, and every step is one cached forward
+    over all B·W hypotheses, after which the cache is reordered by
+    parent in place (an ``index_select`` along the batch axis of each
+    layer: the whole cache read and written a step, the price of exact
+    hypothesis tracking, as in the reference).  A score is the sum of
+    the hypothesis' token log-probabilities.  With ``eos_id`` a finished
+    beam continues only with eos at log-probability 0, so it keeps its
+    score and pads with eos; ``length_penalty`` α then divides finished
+    scores by the GNMT norm ``((5 + len) / 6)^α`` and re-sorts."""
+    B, S = prompt.shape
+    W = beams
+    dev = prompt.device
+    if not 1 <= W <= cfg.vocab:
+        raise ValueError(f"beams must be in [1, vocab={cfg.vocab}], "
+                         f"got {W}")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    max_len = max_len or cfg.max_seq
+    if S + steps > max_len:
+        raise ValueError(f"S + steps = {S + steps} exceeds max_len "
+                         f"{max_len}")
+    if cfg.pos_emb == "learned" and S + steps > cfg.max_seq:
+        raise ValueError(
+            f"S + steps = {S + steps} exceeds the learned-position table "
+            f"(max_seq={cfg.max_seq}); grow max_seq or use rope")
+    if eos_id is not None and not 0 <= eos_id < cfg.vocab:
+        raise ValueError(f"eos_id {eos_id} outside [0, {cfg.vocab})")
+    if length_penalty < 0:
+        raise ValueError(f"length_penalty must be >= 0, "
+                         f"got {length_penalty}")
+    if length_penalty > 0 and eos_id is None:
+        raise ValueError("length_penalty needs eos_id: without finished "
+                         "hypotheses there is no length to normalize")
+
+    cache = init_kv_cache(cfg, B, max_len, cache_dtype, device=dev)
+    cache, logits = prefill(cfg, params, cache, prompt, attn_impl)
+    cache = {k: v.repeat_interleave(W, dim=1) for k, v in cache.items()}
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    scores, tok = _top_w(logp, W)                          # [B, W]
+    token = tok.reshape(B * W).to(torch.int32)
+    done = (torch.zeros(B * W, dtype=torch.bool, device=dev)
+            if eos_id is None else token == eos_id)
+    hist = torch.zeros((B, W, steps), dtype=torch.int32, device=dev)
+    hist[:, :, 0] = tok
+    rows = torch.arange(B, device=dev)[:, None] * W        # [B, 1]
+    if eos_id is not None:
+        # a finished beam's one continuation: eos at log-probability 0
+        only_eos = torch.full((cfg.vocab,), -1e30, dtype=torch.float32,
+                              device=dev)
+        only_eos[eos_id] = 0.0
+    for i in range(steps - 1):
+        logits, cache = _token_logits(cfg, params, cache, S + i, token)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        if eos_id is not None:
+            logp = torch.where(done[:, None], only_eos, logp)
+        total = scores.reshape(B * W, 1) + logp            # [B·W, V]
+        scores, idx = _top_w(total.reshape(B, W * cfg.vocab), W)
+        parent = torch.div(idx, cfg.vocab, rounding_mode="floor")
+        tok = (idx % cfg.vocab).to(torch.int32)
+        src = (rows + parent).reshape(B * W)               # parent rows
+        for buf in cache.values():
+            for layer in buf:                 # one layer's copy at a time
+                layer.copy_(layer.index_select(0, src))
+        hist = hist.gather(1, parent[:, :, None].expand(B, W, steps))
+        hist[:, :, i + 1] = tok
+        token = tok.reshape(B * W)
+        done = done[src]
+        if eos_id is not None:
+            done = done | (token == eos_id)
+
+    if length_penalty > 0.0:
+        # the completed length: the first eos' index + 1, else steps
+        is_eos = hist == eos_id
+        first = torch.argmax(is_eos.to(torch.int32), dim=-1)
+        length = torch.where(is_eos.any(-1), first + 1,
+                             torch.full_like(first, steps))
+        norm = ((5.0 + length.float()) / 6.0) ** length_penalty
+        scores = torch.where(done.reshape(B, W), scores / norm, scores)
+        order = torch.argsort(-scores, dim=-1, stable=True)
+        scores = scores.gather(1, order)
+        hist = hist.gather(1, order[:, :, None].expand(B, W, steps))
+    return hist, scores
 
 
 def make_decoder(cfg: ModelConfig, *, steps: int, max_len: int | None = None,

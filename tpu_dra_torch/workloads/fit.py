@@ -16,10 +16,15 @@ Checkpoints (``checkpointing.py``, the port's own format) hold
 restores the newest committed step and starts the data iterator there,
 so the resumed run sees the batches the uninterrupted one would have.
 
+Goodput (``goodput.py``, opt-in through ``TPU_GOODPUT_FILE``): the first
+step of a run accrues to ``compile``, every later one to ``step``, and
+saves and restores to their segments inside ``checkpointing.py``; a run
+that opted in synchronizes the card after each step, so a step's time
+holds its device work.
+
 Refused with ``NotImplementedError``: ZeRO-1 (it comes with the sharded
 optimizer step, ROADMAP.md queue 1 item 9); the reference's
-multi-device mesh has no counterpart here, and its opt-in goodput hooks
-come with the port of ``goodput.py`` (queue 1 item 7).
+multi-device mesh has no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.workloads import goodput
 from tpu_dra_torch.workloads.checkpointing import (
     latest_step,
     restore_train_state,
@@ -146,7 +152,16 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
     tokens_done = 0
     for step in range(start, start + steps):
         tokens = next(it)
-        params, opt_state, loss = step_fn(params, opt_state, tokens)
+        # the first step carries the first-use costs and is badput; data
+        # stalls between steps fall into "blocked"
+        seg = goodput.SEG_COMPILE if step == start else goodput.SEG_STEP
+        with goodput.measure(seg):
+            params, opt_state, loss = step_fn(params, opt_state, tokens)
+            # a step's time must hold its device work, but only a run
+            # that opted in waits for it: a sync every step would stall
+            # the launch queue
+            if goodput.default_tracker().started and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         tokens_done += tokens.shape[0] * (tokens.shape[1] - 1)
         if log_every and (step + 1) % log_every == 0:
             lossf = float(loss)
@@ -190,8 +205,12 @@ def evaluate(cfg: ModelConfig, params, data_path: str, *,
 
 def main(argv=None):
     """CLI: train the flagship config on a token file on the card.
-    ``python -m tpu_dra_torch.workloads.fit --data t.bin``."""
+    ``python -m tpu_dra_torch.workloads.fit --data t.bin``.  Calls
+    ``launcher.init_tpu_workload()`` first (``TPU_TRACEPARENT``,
+    ``TPU_GOODPUT_FILE``)."""
     import argparse
+
+    from tpu_dra_torch.workloads.launcher import init_tpu_workload
 
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--data", required=True, help="flat token file")
@@ -221,6 +240,7 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
+    init_tpu_workload()
 
     cfg = ModelConfig(vocab=args.vocab, d_model=args.d_model,
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,

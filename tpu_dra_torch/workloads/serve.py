@@ -1,54 +1,89 @@
-"""HTTP inference server over the continuous engine, ported from
-``tpu_dra/workloads/serve.py`` (its ``--continuous`` mode, slab or paged
-KV layout).  stdlib HTTP server, one engine per process.
+"""HTTP inference server, ported from ``tpu_dra/workloads/serve.py``:
+stdlib HTTP server, the bucketed ``DecoderPool`` in every mode and, with
+``--continuous``, a continuous engine (slab or paged KV layout).
 
 POST /generate  {"tokens": [[...]], "steps": N, "temperature": 0.0,
-                 "seed": 0, "eos_id": null, "prefix_id": null,
-                 "stop": [[ids...], ...]}
-             → {"tokens": [[...]]}      (the generated ids per row; every
-                 row is its own engine request, fanned in concurrently;
-                 a completed stop sequence retires the row and is
-                 trimmed from its tokens)
-POST /prefix    {"tokens": [...]} → {"prefix_id": id}: registers a shared
-             prompt prefix (a system prompt) whose KV is computed once;
-             /generate and /stream requests naming it prefill only their
-             suffix (on pages the prefix's full pages are shared)
-POST /stream    (one row) chunked NDJSON: a {"token": id} line per
-             generated token as it lands, then {"done": true, "tokens":
-             [...]} (authoritative after a stop trim); a client that
-             disconnects cancels the request and frees its slot
+                 "top_k": 0, "top_p": 0.0, "seed": 0, "eos_id": null,
+                 "repetition_penalty": 1.0}
+             → {"tokens": [[...]]}      (the generated ids per row).
+             Without --continuous the rows run as one batch of the pool,
+             padded to a bucket of the batch and of the prompt length
+             (ragged rows decode from their own lengths).  With
+             --continuous every row is its own engine request, fanned in
+             concurrently; the engine also takes "prefix_id" and "stop":
+             [[ids...], ...] (a completed stop sequence retires the row
+             and is trimmed from its tokens) and refuses top_k, top_p and
+             repetition_penalty (engine-global)
+POST /beam      {"tokens": [[...]], "steps": N, "beams": W,
+                 "eos_id": null, "length_penalty": 0.0}
+             → {"tokens": [[[...]]], "scores": [[...]]}   (the W best
+                 hypotheses per row, best first; equal-length rows)
+POST /speculative {"tokens": [[...]], "steps": N, "k": 4,
+                   "temperature": 0.0, "top_k": 0, "top_p": 0.0,
+                   "seed": 0}
+             → {"tokens": [[...]], "target_passes": M}   (a draft model
+                 proposes, the serving model verifies k tokens a pass;
+                 greedy tokens are the serving model's greedy tokens.
+                 Needs a draft flag; equal-length rows)
+POST /prefix    (continuous) {"tokens": [...]} → {"prefix_id": id}:
+             registers a shared prompt prefix (a system prompt) whose KV
+             is computed once; /generate and /stream requests naming it
+             prefill only their suffix (on pages the prefix's full pages
+             are shared)
+POST /stream    (continuous, one row) chunked NDJSON: a {"token": id}
+             line per generated token as it lands, then {"done": true,
+             "tokens": [...]} (authoritative after a stop trim); a client
+             that disconnects cancels the request and frees its slot
 GET  /healthz → 200 "ok" while the engine's decode loop is live (ANDed
              with an optional external verdict); 503 + reason otherwise,
              and from the moment a drain begins
-GET  /stats   → the engine's ``stats()`` as JSON
+GET  /stats   → (continuous) the engine's ``stats()`` as JSON
 GET  /metrics → Prometheus text: request counts by path, code and
              tenant (the ``X-Tenant`` header), generated tokens, request
              latency, TTFT and inter-token histograms, shed counts by
-             reason, and the ``tpu_serve_engine_*`` gauges (the
-             reference's names, labels and buckets)
+             reason, and (continuous) the ``tpu_serve_engine_*`` gauges
+             (the reference's names, labels and buckets).  With ``Accept:
+             application/openmetrics-text`` (and exemplars present) the
+             exposition is OpenMetrics 1.0 with trace-id exemplars on the
+             histogram buckets
 GET  /debug/slo → multi-window error-budget burn rates (availability and
              latency objectives)
 GET  /debug/overload → drain state, admission backlog, shed counts and
-             the engine's saturation signals
+             (continuous) the engine's saturation signals
+GET  /debug/traces[?trace_id=&limit=] → Chrome trace JSON of this
+             process's span ring (``tpu_dra_torch.trace``), where the
+             exemplar trace ids of /metrics resolve
+GET  /debug/jax-trace[?seconds=1] → a device trace of the next
+             ``seconds`` (at most 30) while the server keeps answering:
+             ``torch.profiler`` over the CPU and, on the card, CUDA
+             activity, as a tar.gz of ``jax-trace/trace.json`` (Chrome
+             trace format; the reference's path and archive layout)
 
-Overload protection (``--admission-max-cost``): /generate and /stream
-pass an admission gate first; excess load sheds with an immediate typed
-503 + ``Retry-After``.  ``X-Deadline-Ms`` propagates into the engine, so
-an expired request aborts, frees its slot and pages and answers 504
-(``reason: deadline_expired``).  SIGTERM drains: new requests shed 503,
-/healthz goes not-ready, in-flight ones finish, then the process exits.
+Every request runs inside a ``serve.request`` span parented on its
+``traceparent`` header (head sampling: a ``-00`` parent is not
+recorded), and its latency, TTFT and inter-token observations happen
+inside it, so a sampled request's trace id rides the histograms as an
+exemplar.  The engine exports each request's slot residency as a
+``serve.engine.decode`` child span.
 
-Not ported yet, each answered 404 with its ROADMAP item: /beam and
-/speculative (the bucketed ``DecoderPool``, queue 1 item 7), /prefill
-and /decode_handoff (``kv_handoff.py``, item 8), /debug/traces and
-/debug/jax-trace (spans and a profiler capture, item 7); OpenMetrics
-exemplars wait for the spans.
+Overload protection (``--admission-max-cost``): /generate, /beam,
+/speculative and /stream pass an admission gate first; excess load sheds
+with an immediate typed 503 + ``Retry-After``.  ``X-Deadline-Ms``
+propagates into the engine, so an expired request aborts, frees its slot
+and pages and answers 504 (``reason: deadline_expired``).  SIGTERM
+drains: new requests shed 503, /healthz goes not-ready, in-flight ones
+finish, then the process exits.
 
-Speculative serving: ``--speculative-continuous`` with a draft makes every
-engine pass draft-and-verify (``continuous.py``).  ``--auto-draft`` builds
-the draft from the serving weights (:func:`build_auto_draft`);
-``--draft-params-npz`` loads one whose dimensions the ``--draft-*`` flags
-give.  ``--logit-bias 'id:val,...'`` biases the logits in every mode.
+Not ported yet, each answered 404 with its ROADMAP item: /prefill and
+/decode_handoff (``kv_handoff.py``, queue 1 item 8).
+
+Speculative serving: a draft (``--draft-checkpoint-dir``,
+``--draft-params-npz`` or ``--auto-draft``) arms /speculative in every
+mode; with ``--speculative-continuous`` every engine pass also drafts and
+verifies (``continuous.py``).  ``--auto-draft`` builds the draft from the
+serving weights (:func:`build_auto_draft`); the other two load one whose
+dimensions the ``--draft-*`` flags give.  ``--logit-bias 'id:val,...'``
+biases the engine's logits (continuous only).
 
 Weights: ``--checkpoint-dir`` (a training checkpoint of the port's
 ``fit``, ``checkpointing.py``), ``--params-npz`` (a file written by
@@ -68,13 +103,17 @@ distilled draft (:func:`resolve_auto_draft`).
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
 import torch
 
 from tpu_dra_torch.device import resolve_device
+from tpu_dra_torch.trace import get_tracer
+from tpu_dra_torch.trace.export import debug_traces_body
 from tpu_dra_torch.util.metrics import (
     Registry,
     bounded_label,
@@ -92,6 +131,11 @@ from tpu_dra_torch.workloads.admission import (
 from tpu_dra_torch.workloads.continuous import (
     DEADLINE_ERROR,
     ContinuousEngine,
+)
+from tpu_dra_torch.workloads.decode import (
+    beam_decode,
+    decode,
+    speculative_decode,
 )
 from tpu_dra_torch.workloads.slo import (
     Objective,
@@ -114,27 +158,231 @@ _SERVE_PATHS = frozenset((
 
 # endpoints of the reference not ported yet, and the ROADMAP item of each
 _NOT_PORTED = {
-    "/beam": "the bucketed DecoderPool's beam search (ROADMAP queue 1 "
-             "item 7)",
-    "/speculative": "the bucketed DecoderPool's speculative decode "
-                    "(ROADMAP queue 1 item 7; the engine speculates with "
-                    "--speculative-continuous)",
     "/prefill": "the KV handoff, kv_handoff.py (ROADMAP queue 1 item 8)",
     "/decode_handoff": "the KV handoff, kv_handoff.py (ROADMAP queue 1 "
                        "item 8)",
-    "/debug/traces": "spans and their Chrome trace (ROADMAP queue 1 "
-                     "item 7)",
-    "/debug/jax-trace": "a device trace capture (ROADMAP queue 1 item 7)",
 }
+
+# the longest device trace /debug/jax-trace takes, in seconds
+MAX_TRACE_S = 30
 
 
 def _count_leaf_tokens(tokens) -> int:
-    """Generated-token count of a /generate response's [rows][steps]."""
+    """Generated-token count across /generate ([rows][steps]) and /beam
+    ([rows][beams][steps]) responses."""
     if not isinstance(tokens, list):
         return 0
     if all(isinstance(t, int) for t in tokens):
         return len(tokens)
     return sum(_count_leaf_tokens(t) for t in tokens)
+
+
+def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds the largest bucket {buckets[-1]}")
+
+
+class DecoderPool:
+    """The bucketed decoder behind /generate (without an engine), /beam
+    and /speculative; thread-safe.
+
+    /generate pads the batch and the prompt length to buckets (dummy
+    rows decode too) and decodes ragged rows from their own lengths;
+    /beam and /speculative take equal-length rows, the batch padded to
+    its bucket with copies of the first row.  The reference caches one
+    jit-compiled decoder per bucket key; the port has nothing to compile
+    and calls ``decode``, ``beam_decode`` and ``speculative_decode``
+    directly, so there is no cache.  The buckets keep the shapes a
+    request runs at the reference's.  The lock guards the draft:
+    ``set_draft`` swaps its configuration and parameters together, and
+    ``speculative`` reads both under it.  Each request allocates its own
+    slab cache, ``[L, B_bucket, Hkv, max_seq, Dh]`` for each of k and v."""
+
+    def __init__(self, cfg: ModelConfig, params, cache_dtype: str = "bf16",
+                 device=None):
+        """``params`` may be an fp32, bf16 or int8/int4 tree (``quant.py``;
+        the decode paths dispatch per leaf), on ``device`` (default: the
+        card).  ``cache_dtype="int8"`` serves with a quantized KV
+        cache."""
+        self.cfg = cfg
+        self.params = params
+        self.cache_dtype = cache_dtype
+        self.device = resolve_device(device)
+        self.draft_cfg: ModelConfig | None = None     # guarded by _lock
+        self.draft_params = None                      # guarded by _lock
+        self._lock = threading.Lock()
+
+    def _generator(self, temperature: float, seed: int):
+        """A generator on the card seeded with ``seed`` for a sampled
+        request (its stream is not ``jax.random``'s), else None."""
+        if temperature <= 0:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
+
+    def generate(self, rows: list[list[int]], steps: int,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0,
+                 eos_id: int | None = None,
+                 repetition_penalty: float = 1.0) -> list[list[int]]:
+        cfg = self.cfg
+        if not rows or not all(rows):
+            raise ValueError("tokens must be a non-empty list of non-empty "
+                             "rows")
+        if any(t < 0 or t >= cfg.vocab for r in rows for t in r):
+            raise ValueError(f"token ids must be in [0, {cfg.vocab})")
+        if not 0.0 <= top_p <= 1.0:
+            raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        B = _bucket(len(rows))
+        S = _bucket(max(len(r) for r in rows))
+        if S + steps > cfg.max_seq:
+            raise ValueError(
+                f"prompt bucket {S} + steps {steps} exceeds max_seq "
+                f"{cfg.max_seq}")
+        if eos_id is not None and not 0 <= eos_id < cfg.vocab:
+            raise ValueError(f"eos_id must be in [0, {cfg.vocab})")
+        if repetition_penalty <= 0:
+            raise ValueError("repetition_penalty must be > 0")
+        prompts = torch.zeros((B, S), dtype=torch.int32)
+        for i, r in enumerate(rows):
+            prompts[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
+        lengths = [len(r) for r in rows] + [1] * (B - len(rows))
+        toks = decode(cfg, self.params, prompts.to(self.device),
+                      steps=steps, lengths=lengths,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      generator=self._generator(temperature, seed),
+                      cache_dtype=self.cache_dtype, eos_id=eos_id,
+                      repetition_penalty=repetition_penalty)
+        return toks[:len(rows)].tolist()
+
+    def _prep_equal_length(self, rows: list[list[int]], steps: int,
+                           extra: int = 0, what: str = "this endpoint"):
+        """The equal-length endpoints' request: validation, the batch
+        bucket and the padding with the first row.  Returns (B, S,
+        prompts on the device)."""
+        cfg = self.cfg
+        if not rows or not all(rows):
+            raise ValueError("tokens must be a non-empty list of "
+                             "non-empty rows")
+        if len({len(r) for r in rows}) != 1:
+            raise ValueError(f"{what} needs equal-length rows")
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        if any(t < 0 or t >= cfg.vocab for r in rows for t in r):
+            raise ValueError(f"token ids must be in [0, {cfg.vocab})")
+        B = _bucket(len(rows))
+        S = len(rows[0])
+        if S + steps + extra > cfg.max_seq:
+            raise ValueError(
+                f"prompt length {S} + steps {steps}"
+                + (f" + k {extra}" if extra else "")
+                + f" exceeds max_seq {cfg.max_seq}")
+        prompts = torch.tensor(rows + [rows[0]] * (B - len(rows)),
+                               dtype=torch.int32, device=self.device)
+        return B, S, prompts
+
+    def set_draft(self, draft_cfg: ModelConfig, draft_params) -> None:
+        """Arm /speculative: a small draft model proposes, the serving
+        model verifies in one cached chunk pass (``speculative_decode``;
+        greedy output equals the serving model's greedy output, the draft
+        changes only the speed)."""
+        if draft_cfg.vocab != self.cfg.vocab:
+            raise ValueError(
+                f"draft vocab {draft_cfg.vocab} != serving vocab "
+                f"{self.cfg.vocab}")
+        with self._lock:
+            self.draft_cfg = draft_cfg
+            self.draft_params = draft_params
+
+    def speculative(self, rows: list[list[int]], steps: int, k: int = 4,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 0.0, seed: int = 0):
+        """Speculative decode over equal-length rows → (tokens
+        [rows][steps], target verify passes).  At temperature 0 the
+        tokens are the serving model's greedy tokens; sampled requests
+        commit by the rejection scheme and stay distributed as serving-
+        model sampling.  ``target_passes`` counts the serving model's
+        passes (steps / passes ≈ tokens committed a pass, up to k)."""
+        with self._lock:      # a concurrent set_draft swaps both at once
+            draft_cfg, draft_params = self.draft_cfg, self.draft_params
+        if draft_params is None:
+            raise ValueError("no draft model armed: start the server with "
+                             "--draft-checkpoint-dir, --draft-params-npz "
+                             "or --auto-draft")
+        if not 2 <= k <= 16:
+            raise ValueError(f"k must be in [2, 16], got {k}")
+        _, _, prompts = self._prep_equal_length(
+            rows, steps, extra=k, what="speculative decoding")
+        toks, stats = speculative_decode(
+            self.cfg, self.params, draft_cfg, draft_params, prompts,
+            steps=steps, k=k, return_stats=True,
+            cache_dtype=self.cache_dtype, temperature=float(temperature),
+            top_k=int(top_k), top_p=float(top_p),
+            generator=self._generator(temperature, seed))
+        return toks[:len(rows)].tolist(), int(stats["target_passes"])
+
+    def beam(self, rows: list[list[int]], steps: int, beams: int = 4,
+             eos_id: int | None = None, length_penalty: float = 0.0):
+        """Beam search over equal-length rows → (hypotheses
+        [rows][beams][steps], scores [rows][beams]), best first.  Rows
+        must share one length: padding would enter the hypotheses'
+        context."""
+        cfg = self.cfg
+        if eos_id is not None and not 0 <= eos_id < cfg.vocab:
+            raise ValueError(f"eos_id must be in [0, {cfg.vocab})")
+        _, _, prompts = self._prep_equal_length(rows, steps,
+                                                what="beam search")
+        hist, scores = beam_decode(
+            cfg, self.params, prompts, steps=steps, beams=beams,
+            eos_id=eos_id, length_penalty=length_penalty,
+            cache_dtype=self.cache_dtype)
+        return hist[:len(rows)].tolist(), scores[:len(rows)].tolist()
+
+
+def capture_device_trace(seconds: float, device) -> tuple[bytes, dict]:
+    """``torch.profiler`` over the next ``seconds``, whatever the other
+    threads run: CPU activity and, on the card, CUDA activity (CUPTI
+    records every kernel on the card, whichever thread launched it; the
+    CPU-side ops of other threads may be missing).  Returns the tar.gz
+    of ``jax-trace/trace.json`` (Chrome trace format) and ``{"events",
+    "kernels"}`` counts.  On the card the capture launches one probe
+    kernel of its own and raises ``RuntimeError`` if it saw no kernel at
+    all: a trace of the card without device activity is a profiler that
+    did not trace it."""
+    import io
+    import tarfile
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with tempfile.TemporaryDirectory() as td:
+        with profile(activities=activities) as prof:
+            if cuda:
+                torch.ones(1, device=device).add_(1)
+                torch.cuda.synchronize(device)
+            time.sleep(seconds)
+        path = os.path.join(td, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        counts = {"events": len(events),
+                  "kernels": sum(e.get("cat") == "kernel" for e in events)}
+        if cuda and not counts["kernels"]:
+            raise RuntimeError("the capture saw no CUDA kernel event, not "
+                               "even its own probe's: the profiler did not "
+                               "trace the card")
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+            tar.add(td, arcname="jax-trace")
+    return buf.getvalue(), counts
 
 
 class ServeMetrics:
@@ -269,18 +517,21 @@ class ServeMetrics:
                 g.set(float(secs), reason)
 
 
-def make_handler(engine: ContinuousEngine, health=None,
-                 health_stale_after: float = 600.0, *, metrics=None,
-                 slo=None, admission=None,
+def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
+                 health=None, health_stale_after: float = 600.0, *,
+                 metrics=None, slo=None, admission=None,
                  default_deadline_s: float | None = None):
-    """Request handler class over ``engine``.  ``health``: optional
-    external /healthz verdict — a callable returning bool or
+    """Request handler class over ``pool`` and, when given, ``engine``
+    (then /generate, /prefix and /stream run on the engine).  ``health``:
+    optional external /healthz verdict — a callable returning bool or
     ``(bool, detail)`` — ANDed with the engine's decode-loop liveness.
     ``metrics`` (a :class:`ServeMetrics`) arms /metrics, ``slo`` (a
     ``SloTracker``) /debug/slo; ``admission`` (an
-    ``AdmissionController``) gates /generate and /stream;
+    ``AdmissionController``) gates the decode endpoints;
     ``default_deadline_s`` applies to requests without an
     ``X-Deadline-Ms`` header."""
+    # one device trace at a time: a second capture answers 503
+    capture_mu = threading.Lock()
 
     def _draining_shed(detail: str) -> ShedError:
         retry = int(admission.drain_grace_s) if admission is not None \
@@ -289,13 +540,15 @@ def make_handler(engine: ContinuousEngine, health=None,
 
     def draining() -> bool:
         return (admission is not None and admission.draining) or \
-            engine.draining
+            (engine is not None and engine.draining)
 
     def healthz_verdict() -> tuple[bool, str]:
         if draining():
             return False, "draining: shutting down after in-flight " \
                           "requests complete"
-        ok, detail = engine.healthy(stale_after=health_stale_after)
+        ok, detail = True, "ok"
+        if engine is not None:
+            ok, detail = engine.healthy(stale_after=health_stale_after)
         if ok and health is not None:
             verdict = health()
             if isinstance(verdict, tuple):
@@ -317,12 +570,15 @@ def make_handler(engine: ContinuousEngine, health=None,
         return None if stop is None else [[int(t) for t in seq]
                                           for seq in stop]
 
-    def submit(row, req: dict, deadline):
+    def eos_of(req: dict):
         eos = req.get("eos_id")
+        return None if eos is None else int(eos)
+
+    def submit(row, req: dict, deadline):
         try:
             return engine.submit_async(
                 [int(t) for t in row], int(req.get("steps", 16)),
-                eos_id=None if eos is None else int(eos),
+                eos_id=eos_of(req),
                 temperature=float(req.get("temperature", 0.0)),
                 seed=int(req.get("seed", 0)),
                 prefix_id=req.get("prefix_id"), stop=stop_of(req),
@@ -371,6 +627,30 @@ def make_handler(engine: ContinuousEngine, health=None,
 
     def register_prefix(req: dict, tenant: str, deadline) -> dict:
         return {"prefix_id": engine.register_prefix(req["tokens"])}
+
+    def pool_generate(req: dict, tenant: str, deadline) -> dict:
+        return {"tokens": pool.generate(
+            req["tokens"], int(req.get("steps", 16)),
+            float(req.get("temperature", 0.0)), int(req.get("top_k", 0)),
+            float(req.get("top_p", 0.0)), int(req.get("seed", 0)),
+            eos_id=eos_of(req),
+            repetition_penalty=float(req.get("repetition_penalty", 1.0)))}
+
+    def beam(req: dict, tenant: str, deadline) -> dict:
+        hyps, scores = pool.beam(
+            req["tokens"], int(req.get("steps", 16)),
+            int(req.get("beams", 4)), eos_id=eos_of(req),
+            length_penalty=float(req.get("length_penalty", 0.0)))
+        return {"tokens": hyps, "scores": scores}
+
+    def speculative(req: dict, tenant: str, deadline) -> dict:
+        toks, passes = pool.speculative(
+            req["tokens"], int(req.get("steps", 16)), int(req.get("k", 4)),
+            temperature=float(req.get("temperature", 0.0)),
+            top_k=int(req.get("top_k", 0)),
+            top_p=float(req.get("top_p", 0.0)),
+            seed=int(req.get("seed", 0)))
+        return {"tokens": toks, "target_passes": passes}
 
     class Handler(BaseHTTPRequestHandler):
         # chunked transfer (/stream) is an HTTP/1.1 construct
@@ -456,10 +736,11 @@ def make_handler(engine: ContinuousEngine, health=None,
                 ok, detail = healthz_verdict()
                 self._send(200 if ok else 503, (detail or "ok").encode(),
                            "text/plain")
-            elif path == "/stats":
+            elif path == "/stats" and engine is not None:
                 self._send(200, json.dumps(engine.stats()).encode())
             elif path == "/metrics" and metrics is not None:
-                metrics.scrape_engine(engine)
+                if engine is not None:
+                    metrics.scrape_engine(engine)
                 text, ctype = negotiate_exposition(
                     self.headers.get("Accept", ""), metrics.registry)
                 self._send(200, text.encode(), ctype)
@@ -467,6 +748,13 @@ def make_handler(engine: ContinuousEngine, health=None,
                 self._send(200, json.dumps(slo.burn_rates()).encode())
             elif path == "/debug/overload":
                 self._send(200, json.dumps(self._overload()).encode())
+            elif path == "/debug/traces":
+                # the trace package's body: the contract the exemplar
+                # trace ids of /metrics resolve against
+                status, body = debug_traces_body(self.path)
+                self._send(status, body)
+            elif path == "/debug/jax-trace":
+                self._device_trace()
             elif path in _NOT_PORTED:
                 self._send(404, f"{path} is not ported yet: it comes with "
                                 f"{_NOT_PORTED[path]}".encode(),
@@ -474,18 +762,59 @@ def make_handler(engine: ContinuousEngine, health=None,
             else:
                 self._send(404, b"not found", "text/plain")
 
+        def _device_trace(self) -> None:
+            """GET /debug/jax-trace[?seconds=]: the reference's path and
+            contract over :func:`capture_device_trace`; 400 for seconds
+            outside [0, 30], 503 when a capture already runs or the
+            profiler refuses."""
+            try:
+                secs = float(parse_qs(urlparse(self.path).query).get(
+                    "seconds", ["1"])[0])
+            except ValueError:
+                self._send(400, json.dumps(
+                    {"error": "seconds must be a number"}).encode())
+                return
+            if not 0 <= secs <= MAX_TRACE_S:
+                self._send(400, json.dumps(
+                    {"error": f"seconds must be in [0, {MAX_TRACE_S}]"}
+                ).encode())
+                return
+            if not capture_mu.acquire(blocking=False):
+                self._send(503, json.dumps(
+                    {"error": "a device trace capture is already running"}
+                ).encode())
+                return
+            try:
+                body, counts = capture_device_trace(secs, pool.device)
+            except Exception as exc:  # noqa: BLE001 — the profiler's refusal
+                self._send(503, json.dumps(
+                    {"error": str(exc)[:300]}).encode())
+                return
+            finally:
+                capture_mu.release()
+            # outside the try: a client gone mid-download must not get a
+            # second answer on the same socket
+            self._send(200, body, "application/gzip", headers={
+                "X-Trace-Events": str(counts["events"]),
+                "X-Trace-Kernel-Events": str(counts["kernels"])})
+
         @staticmethod
         def _overload() -> dict:
             """Drain state, admission backlog and sheds, and the engine's
             saturation signals (the reference's keys; the pool role is
             "any" until the KV handoff is ported)."""
-            stats = engine.stats()
-            slots = stats.get("slots") or 0
-            return {
+            out = {
                 "state": "draining" if draining() else "running",
                 "role": "any",
                 "admission": (admission.snapshot()
                               if admission is not None else None),
+            }
+            if engine is None:
+                return out
+            stats = engine.stats()
+            slots = stats.get("slots") or 0
+            return {
+                **out,
                 "engine": {
                     "queued": stats.get("queued"),
                     "active": stats.get("active"),
@@ -502,6 +831,14 @@ def make_handler(engine: ContinuousEngine, health=None,
                 },
             }
 
+        def _span(self, tenant: str):
+            """The request's ``serve.request`` span, joined to the
+            caller's trace (``traceparent``: a router forwards its own,
+            so one trace id spans client, router, replica and engine)."""
+            return get_tracer().start_span(
+                "serve.request", parent=self.headers.get("traceparent"),
+                attributes={"path": self.path, "tenant": tenant})
+
         def _json_post(self, handle, admit: bool = False):
             """Parse the JSON body, call ``handle(req, tenant, deadline)
             -> response dict``, and map failures to codes: a shed 503
@@ -509,44 +846,51 @@ def make_handler(engine: ContinuousEngine, health=None,
             an engine failure 500.  With ``admit`` the request passes the
             admission gate first.  Every request lands in /metrics
             before its answer is sent, so a client that has its reply
-            finds it on the next scrape."""
+            finds it on the next scrape.  The request runs inside its
+            ``serve.request`` span, the observations too, so a sampled
+            request's trace id rides the histograms as an exemplar."""
             t0 = time.perf_counter()
             code, toks, headers = 200, 0, None
             tenant = self._tenant()
             ticket = None
             try:
-                try:
-                    req = json.loads(self.rfile.read(self._content_length()))
-                    if not isinstance(req, dict):
-                        raise ValueError("the body must be a JSON object")
-                    deadline = self._deadline()
-                    if admit and admission is not None:
-                        ticket = admission.acquire(tenant, request_cost(
-                            req.get("tokens") or [], req.get("steps", 16)))
-                    if deadline is not None and \
-                            time.perf_counter() > deadline:
-                        raise DeadlineExceeded(
-                            "deadline expired before admission")
-                    result = handle(req, tenant, deadline)
-                    toks = _count_leaf_tokens(result.get("tokens"))
-                    body = json.dumps(result).encode()
-                except ShedError as exc:
-                    code = 503
-                    body, headers = self._shed_payload(exc)
-                    self._count_shed(exc.reason)
-                except DeadlineExceeded as exc:
-                    code = 504
-                    body = json.dumps({"error": str(exc)[:300],
-                                       "reason": REASON_DEADLINE}).encode()
-                    self._count_shed(REASON_DEADLINE)
-                except (KeyError, ValueError, TypeError,
-                        json.JSONDecodeError) as exc:
-                    code = 400
-                    body = json.dumps({"error": str(exc)[:300]}).encode()
-                except RuntimeError as exc:      # engine, not input
-                    code = 500
-                    body = json.dumps({"error": str(exc)[:300]}).encode()
-                self._observe(code, t0, toks, tenant)
+                with self._span(tenant):
+                    try:
+                        req = json.loads(self.rfile.read(
+                            self._content_length()))
+                        if not isinstance(req, dict):
+                            raise ValueError("the body must be a JSON "
+                                             "object")
+                        deadline = self._deadline()
+                        if admit and admission is not None:
+                            ticket = admission.acquire(
+                                tenant, request_cost(req.get("tokens") or [],
+                                                     req.get("steps", 16)))
+                        if deadline is not None and \
+                                time.perf_counter() > deadline:
+                            raise DeadlineExceeded(
+                                "deadline expired before admission")
+                        result = handle(req, tenant, deadline)
+                        toks = _count_leaf_tokens(result.get("tokens"))
+                        body = json.dumps(result).encode()
+                    except ShedError as exc:
+                        code = 503
+                        body, headers = self._shed_payload(exc)
+                        self._count_shed(exc.reason)
+                    except DeadlineExceeded as exc:
+                        code = 504
+                        body = json.dumps(
+                            {"error": str(exc)[:300],
+                             "reason": REASON_DEADLINE}).encode()
+                        self._count_shed(REASON_DEADLINE)
+                    except (KeyError, ValueError, TypeError,
+                            json.JSONDecodeError) as exc:
+                        code = 400
+                        body = json.dumps({"error": str(exc)[:300]}).encode()
+                    except RuntimeError as exc:      # engine, not input
+                        code = 500
+                        body = json.dumps({"error": str(exc)[:300]}).encode()
+                    self._observe(code, t0, toks, tenant)
                 self._send(code, body, headers=headers)
             finally:
                 # released after the response is written: the drain's
@@ -565,6 +909,8 @@ def make_handler(engine: ContinuousEngine, health=None,
             ticket = None
             try:
                 raw = self.rfile.read(self._content_length())
+                if engine is None:
+                    raise ValueError("streaming needs --continuous")
                 req = json.loads(raw)
                 rows = req.get("tokens") if isinstance(req, dict) else None
                 if not isinstance(rows, list) or len(rows) != 1 or \
@@ -706,11 +1052,26 @@ def make_handler(engine: ContinuousEngine, health=None,
         def do_POST(self):
             path = self.path
             if path == "/stream":
-                self._stream()
+                # the span out here: every observation of the stream
+                # (latency, TTFT, inter-token) rides its trace id
+                with self._span(self._tenant()):
+                    self._stream()
             elif path == "/prefix":
+                if engine is None:
+                    self._drain_body()
+                    self._send(400, json.dumps(
+                        {"error": "prefix caching needs --continuous (the "
+                                  "slot engine owns the shared KV)"}
+                    ).encode())
+                    return
                 self._json_post(register_prefix)
             elif path == "/generate":
-                self._json_post(generate, admit=True)
+                self._json_post(generate if engine is not None
+                                else pool_generate, admit=True)
+            elif path == "/beam":
+                self._json_post(beam, admit=True)
+            elif path == "/speculative":
+                self._json_post(speculative, admit=True)
             elif path in _NOT_PORTED:
                 self._drain_body()
                 self._send(404, json.dumps(
@@ -749,31 +1110,44 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
     """Start the server on a daemon thread and return it (``.shutdown()``
     stops the server, the SLO sampler and the engine; ``.drain()`` runs
     the graceful drain first).  ``port`` 0 picks a free port
-    (``server.server_address``).  ``/generate`` runs over a
-    ContinuousEngine with ``slots`` in-flight sequences and a ``kv_layout``
-    ("slab" or "paged") KV cache, on ``device`` (default: the card).
-    ``speculative_engine`` (needs ``draft=(draft_cfg, draft_params)``)
-    makes each engine pass one draft-and-verify iteration;
+    (``server.server_address``).  Everything runs on ``device`` (default:
+    the card).  The bucketed :class:`DecoderPool` serves /beam and
+    /speculative in every mode (``srv.pool``); ``continuous`` (the port's
+    default; the reference's is False) routes /generate, /prefix and
+    /stream through a ContinuousEngine (``srv.engine``) with ``slots``
+    in-flight sequences and a ``kv_layout`` ("slab" or "paged") KV
+    cache, and without it /generate runs on the pool.
+    ``draft=(draft_cfg, draft_params)`` arms /speculative;
+    ``speculative_engine`` (needs ``continuous`` and a draft) makes each
+    engine pass one draft-and-verify iteration as well.
     ``logit_bias`` is the engine-global bias.  ``admission_max_cost``
     arms overload protection (None: open admission): outstanding token
     cost (prompt + max new tokens) is bounded and excess sheds 503 with
     ``Retry-After``.  /debug/slo holds availability (non-5xx, 504 client
     deadlines excluded) to ``slo_availability_target`` and latency under
     ``slo_latency_threshold`` seconds to ``slo_latency_target``."""
-    if not continuous:
-        raise ValueError("only --continuous is ported; the bucketed "
-                         "DecoderPool comes with later slices of the "
-                         "PyTorch port")
-    if speculative_engine != (draft is not None):
-        raise ValueError("speculative_engine needs a draft model, and a "
-                         "draft serves only in the speculative engine (the "
-                         "bucketed /speculative path comes with later "
-                         "slices of the PyTorch port)")
-    engine = ContinuousEngine(cfg, params, slots=slots, chunk=chunk,
-                              cache_dtype=cache_dtype, kv_layout=kv_layout,
-                              page_size=page_size, total_pages=total_pages,
-                              draft=draft, logit_bias=logit_bias,
-                              device=device)
+    if kv_layout != "slab" and not continuous:
+        raise ValueError("--kv-layout paged requires --continuous (the "
+                         "bucketed pool has no paged mode); without it "
+                         "the flag would be silently ignored")
+    if speculative_engine and not (continuous and draft is not None):
+        raise ValueError("speculative_engine needs continuous=True and a "
+                         "draft model")
+    if logit_bias and not continuous:
+        raise ValueError("logit_bias needs continuous=True (an "
+                         "engine-global knob; the bucketed pool has no bias "
+                         "path)")
+    pool = DecoderPool(cfg, params, cache_dtype=cache_dtype, device=device)
+    if draft is not None:
+        pool.set_draft(*draft)                 # (draft_cfg, draft_params)
+    engine = None
+    if continuous:
+        engine = ContinuousEngine(
+            cfg, params, slots=slots, chunk=chunk, cache_dtype=cache_dtype,
+            kv_layout=kv_layout, page_size=page_size,
+            total_pages=total_pages,
+            draft=draft if speculative_engine else None,
+            logit_bias=logit_bias, device=device)
     metrics = ServeMetrics()
     # shed 503s burn the availability budget (the server refused work);
     # 504s do not (the client's deadline passed) and are attributed in
@@ -799,12 +1173,15 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
             drain_grace_s=drain_grace_s)
     try:
         srv = _Server((host, port), make_handler(
-            engine, health, health_stale_after, metrics=metrics, slo=slo,
-            admission=admission, default_deadline_s=default_deadline_s))
+            pool, engine, health, health_stale_after, metrics=metrics,
+            slo=slo, admission=admission,
+            default_deadline_s=default_deadline_s))
     except OSError:
         slo.stop()
-        engine.shutdown()
+        if engine is not None:
+            engine.shutdown()
         raise
+    srv.pool = pool
     srv.engine = engine
     srv.metrics = metrics
     srv.slo = slo
@@ -820,7 +1197,10 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
         deadline = time.perf_counter() + budget
         if admission is not None:
             admission.begin_drain()
-        ok = engine.drain(timeout=max(0.0, deadline - time.perf_counter()))
+        ok = True
+        if engine is not None:
+            ok = engine.drain(
+                timeout=max(0.0, deadline - time.perf_counter()))
         if admission is not None:
             # an empty engine is not an answered client: wait for the
             # handler threads to write every admitted response
@@ -834,7 +1214,8 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
         orig_shutdown()
         srv.server_close()
         slo.stop()
-        engine.shutdown()
+        if engine is not None:
+            engine.shutdown()
     srv.shutdown = shutdown
     threading.Thread(target=srv.serve_forever, daemon=True,
                      name="serve-http").start()
@@ -1041,9 +1422,13 @@ def main(argv=None) -> int:
     """Serve the model: ``python -m tpu_dra_torch.workloads.serve
     --continuous --checkpoint-dir ck --weights int8 --weights-cache wc
     --vocab 32768 ...`` (the flags must describe the model the weights
-    belong to)."""
+    belong to; without ``--continuous`` /generate runs on the bucketed
+    pool).  Calls ``launcher.init_tpu_workload()`` before it loads the
+    weights (``TPU_TRACEPARENT``, ``TPU_GOODPUT_FILE``)."""
     import argparse
     import signal
+
+    from tpu_dra_torch.workloads.launcher import init_tpu_workload
 
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--checkpoint-dir", default="",
@@ -1081,8 +1466,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cache-dtype", default="bf16",
                     choices=("bf16", "int8"))
     ap.add_argument("--continuous", action="store_true",
-                    help="continuously-batched /generate (required: the "
-                         "only mode ported)")
+                    help="continuously-batched /generate, /prefix and "
+                         "/stream over a slot engine; without it "
+                         "/generate runs on the bucketed pool")
     ap.add_argument("--kv-layout", default="slab",
                     choices=("slab", "paged"),
                     help="KV memory: 'slab' preallocates max_len per slot; "
@@ -1097,8 +1483,8 @@ def main(argv=None) -> int:
     ap.add_argument("--total-pages", type=int, default=None,
                     help="pool capacity (default slots*max_seq/page_size)")
     ap.add_argument("--warmup", action="store_true",
-                    help="run every prompt bucket once before accepting "
-                         "traffic")
+                    help="run every prompt bucket of the engine once "
+                         "before accepting traffic (--continuous)")
     ap.add_argument("--health-stale-after", type=float, default=600.0,
                     help="seconds without a decode-loop heartbeat before "
                          "/healthz reports 503; must exceed the first "
@@ -1138,13 +1524,16 @@ def main(argv=None) -> int:
                          "'cpu' runs the plain versions of the kernels)")
     ap.add_argument("--logit-bias", default="",
                     help="engine-global logit bias 'id:val,id:val': ban "
-                         "(-1e9) or nudge tokens in every mode (greedy, "
-                         "sampled, the speculative p and q)")
+                         "(-1e9) or nudge tokens in every engine mode "
+                         "(greedy, sampled, the speculative p and q); "
+                         "needs --continuous")
     ap.add_argument("--speculative-continuous", action="store_true",
-                    help="with a draft: the engine drafts and verifies "
-                         "each pass (per-slot accept counts; greedy "
-                         "requests keep the plain engine's tokens, sampled "
-                         "ones commit by the rejection scheme)")
+                    help="with --continuous and a draft: the engine "
+                         "drafts and verifies each pass as well (per-slot "
+                         "accept counts; greedy requests keep the plain "
+                         "engine's tokens, sampled ones commit by the "
+                         "rejection scheme).  A draft alone arms "
+                         "/speculative")
     ap.add_argument("--auto-draft", action="store_true",
                     help="build the draft from the serving weights: "
                          "quarter-depth truncation and distillation "
@@ -1173,18 +1562,22 @@ def main(argv=None) -> int:
     ap.add_argument("--draft-n-layers", type=int, default=2)
     ap.add_argument("--draft-d-ff", type=int, default=512)
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("only --continuous is ported")
+    if args.kv_layout != "slab" and not args.continuous:
+        ap.error("--kv-layout paged requires --continuous (the bucketed "
+                 "pool has no paged mode)")
+    if args.warmup and not args.continuous:
+        ap.error("--warmup needs --continuous")
     draft_sources = [f for f in ("draft_params_npz", "draft_checkpoint_dir")
                      if getattr(args, f)]
     if args.auto_draft or args.auto_draft_cache:
         draft_sources.append("auto_draft")
     if len(draft_sources) > 1:
         ap.error(f"pick one draft source, got {draft_sources}")
-    if args.speculative_continuous != bool(draft_sources):
+    if args.speculative_continuous and not (args.continuous
+                                            and draft_sources):
         ap.error("--speculative-continuous needs a draft (--auto-draft, "
-                 "--draft-params-npz or --draft-checkpoint-dir), and a "
-                 "draft serves only with --speculative-continuous")
+                 "--draft-params-npz or --draft-checkpoint-dir) and "
+                 "--continuous")
     logit_bias = None
     if args.logit_bias:
         try:
@@ -1193,6 +1586,10 @@ def main(argv=None) -> int:
         except (ValueError, IndexError):
             ap.error(f"--logit-bias must be 'id:val,id:val', got "
                      f"{args.logit_bias!r}")
+        if not args.continuous:
+            ap.error("--logit-bias needs --continuous (an engine-global "
+                     "knob; the bucketed pool has no bias path)")
+    init_tpu_workload()
     cfg = ModelConfig(vocab=args.vocab, d_model=args.d_model,
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
                       n_layers=args.n_layers, d_ff=args.d_ff,
@@ -1231,7 +1628,7 @@ def main(argv=None) -> int:
     except (ValueError, FileNotFoundError) as exc:
         ap.error(str(exc))
     srv = serve(cfg, params, host=args.host, port=args.port,
-                cache_dtype=args.cache_dtype, continuous=True,
+                cache_dtype=args.cache_dtype, continuous=args.continuous,
                 slots=args.slots, chunk=args.chunk,
                 kv_layout=args.kv_layout, page_size=args.page_size,
                 total_pages=args.total_pages, draft=draft,

@@ -6,7 +6,9 @@ port's paths at full width: it serves the headline model through the
 port's HTTP server (bf16 weights over pages; int8 weights over the slab
 and over pages, plainly and speculatively with a distilled draft, and
 behind the front end with a shared prefix, admission, deadlines and a
-drain; and from a checkpoint through a weights cache), runs
+drain; from a checkpoint through a weights cache; and disaggregated,
+through the KV handoff, beside tenants held to the launcher's
+contracts), runs
 the tiled matmul's bench section, trains the flagship model through
 ``fit`` and through the fused training step, and trains it sharded over
 a virtual mesh of 4 ranks on the card (DP×TP with the fused-collective
@@ -212,18 +214,46 @@ Phases (each prints as it goes; any failed check exits non-zero):
      /speculative with k = 4 over those rows, with the serving model as
      its own draft and with the distilled draft: bit-equal to
      speculative_decode with the same target passes, held to
-     greedy_decode under argmax_tol, the passes printed; (d) a
-     continuous paged server (phase 4's engine): one request with a
-     traceparent, its serve.request and serve.engine.decode spans on
-     /debug/traces, an exemplar trace id of an OpenMetrics scrape that
-     resolves there, and /debug/jax-trace?seconds=1 taken while 8
-     requests run, holding CUDA kernel events, kernel #1's among them
-     (its bytes and event counts printed); (e) phase 19a runs under
+     greedy_decode under argmax_tol, the passes printed; (d) the server
+     command line on phase 4's engine (int8 weights from seed 0; a
+     process of its own, whose only profiler is the server's: in this
+     process, after the earlier phases, most torch.profiler sessions
+     record no kernel at all, on a server thread and on the main thread
+     alike; ROADMAP.md §3): one request with a traceparent, its
+     serve.request and serve.engine.decode spans on /debug/traces, an
+     exemplar trace id of an OpenMetrics scrape that resolves there, and
+     one /debug/jax-trace?seconds=1 taken while 8 requests run, holding
+     CUDA kernel events, kernel #1's among them (its bytes and event
+     counts printed); (e) phase 19a runs under
      goodput accounting (TPU_GOODPUT_FILE given to start_from_env): each
      segment's seconds and the ratio printed, the segments summing to
      the wall time within 1%, checkpoint_save and restore within 1% (and
      the printed values' rounding) of the save and restore times 19a
-     printed.
+     printed;
+ 21. disaggregated serving and the launcher's contracts: (a) phase 4's
+     model (bf16 from the seed) on three servers of phase 4's engine, a
+     pool_role="prefill" one, a "decode" one and an "any" one as the
+     oracle; 8 prompts of 17-700 tokens, one after another, each through
+     /prefill then /decode_handoff with the blob, greedy and sampled at
+     temperature 0.8 with a fixed seed, 64 steps: every answer bit-equal
+     to the oracle's /generate (blob bytes, export and /decode_handoff
+     times and both TTFTs printed); then all 8 at once, held to the
+     oracle under argmax_tol; kernel #1 launched at least n_layers times
+     a decode step; the decode engine's pages back to its total; a blob
+     with a lying shape a 400 and the engine answering after it; (b) the
+     sequential part again on phase 17's int8 weights with int8 pages on
+     the decode and oracle servers, bit-equal; (c) one handoff's ks and
+     vs as [1, 2, ...] blocks of a two-rank ring through
+     kv_handoff.ici_shift one hop and back, bit-equal to ring_shift_ref,
+     4 ring-shift launches; (d) two server command lines as tenants of
+     one card (the environment tenancy.tenant_edits writes: a slot pool
+     of 2, an 8 GiB budget on chip 0, a priority, a heartbeat file)
+     answer 8 requests each at the same time, each tenant's
+     max_memory_reserved within its budget; a third tenant exits
+     non-zero with the slot error; the tenants' heartbeat files are
+     gone after their SIGTERM exit; a child under the same budget
+     allocates half of it, then past it, gets torch.cuda.OutOfMemoryError
+     and drops the oom sentinel, its heartbeat advancing.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -231,9 +261,11 @@ the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import gc
 import json
+import os
 import re
 import signal
 import statistics
@@ -3707,23 +3739,78 @@ def pool_spec_check(srv, port: int, cfg, params, rows: list, greedy: list,
                    rows, out["tokens"], greedy)
 
 
-def trace_check(cfg, params, card: str) -> dict:
-    """20d: a continuous paged server (phase 4's engine): one request with
-    a traceparent whose serve.request and serve.engine.decode spans
-    /debug/traces returns; an OpenMetrics scrape whose exemplar trace id
-    resolves there; /debug/jax-trace?seconds=1 taken while 8 requests
-    run, holding CUDA kernel events, kernel #1's among them.  Returns
-    the kernel's launches in this drive."""
+def serve_cli_cmd(cfg, weights: str) -> list:
+    """The server command line on phase 4's engine, the model drawn from
+    seed 0 in the ``weights`` form."""
+    return [sys.executable, "-m", "tpu_dra_torch.workloads.serve",
+            "--continuous", "--kv-layout", "paged", "--init-seed", "0",
+            "--weights", weights, "--port", "0", "--host", "127.0.0.1",
+            "--slots", str(ENGINE["slots"]), "--chunk", str(ENGINE["chunk"]),
+            "--page-size", str(ENGINE["page_size"]), "--total-pages",
+            str(ENGINE["total_pages"]), *model_flags(cfg)]
+
+
+def launch_server(cmd: list, env: dict | None = None) -> dict:
+    """Start a server command line; its output is read on a thread (so a
+    full pipe never blocks it) until it exits."""
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: list[str] = []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if "serving on" in line:
+                ready.set()
+        ready.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return {"proc": proc, "lines": lines, "ready": ready, "reader": reader}
+
+
+def server_port(label: str, server: dict) -> int:
+    """The port of a launched server once it serves (within 300 s)."""
+    server["ready"].wait(300)
+    ready = [ln for ln in server["lines"] if "serving on" in ln]
+    if not ready:
+        fail(f"{label} did not serve: {chr(10).join(server['lines'])[-2000:]}")
+    return int(re.search(r", (\d+)\)", ready[0]).group(1))
+
+
+def stop_server(label: str, server: dict) -> None:
+    """SIGTERM: the server must drain and exit 0 within 120 s."""
+    proc = server["proc"]
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+    server["reader"].join(30)
+    if proc.returncode != 0:
+        fail(f"{label} exited {proc.returncode} after SIGTERM: "
+             f"{chr(10).join(server['lines'])[-1500:]}")
+
+
+def trace_check(cfg, card: str) -> dict:
+    """20d: the server command line on phase 4's engine (int8 weights from
+    seed 0), a process whose only profiler is the server's own: one
+    request with a traceparent whose serve.request and
+    serve.engine.decode spans /debug/traces returns; an OpenMetrics
+    scrape whose exemplar trace id resolves there;
+    /debug/jax-trace?seconds=1 taken while 8 requests run, holding CUDA
+    kernel events, kernel #1's among them.  Returns the kernel's
+    launches in this drive (the server's /stats)."""
     import io
     import tarfile
 
-    from tpu_dra_torch.workloads.paged_kv import paged_attention
-    from tpu_dra_torch.workloads.serve import serve
     prompts = request_prompts(cfg.vocab)
-    srv = serve(cfg, params, port=0, **ENGINE)
-    paged_attention.launches = 0
+    server = launch_server(serve_cli_cmd(cfg, "int8"))
     try:
-        port = srv.server_address[1]
+        port = server_port("trace: the server command line", server)
+        before = call(port, "/stats")[1]
         trace_id = "c0ffee" + "5e" * 13
         code, _, _ = call(port, "/generate",
                           {"tokens": [prompts[0]], "steps": 16},
@@ -3775,10 +3862,12 @@ def trace_check(cfg, params, card: str) -> dict:
                 "traceEvents"]
         kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
         ours = [n for n in kernels if any(k in n for k in PAGED_KERNEL)]
-        stats = srv.engine.stats()
+        after = call(port, "/stats")[1]
     finally:
-        srv.shutdown()
-    launches = paged_attention.launches
+        stop_server("trace: the server command line", server)
+    launches = (after["paged_attention_launches"]
+                - before["paged_attention_launches"])
+    steps = after["decode_steps"] - before["decode_steps"]
     log(f"[trace] a traceparent's serve.request and serve.engine.decode "
         f"spans on /debug/traces; {len(resolved)} exemplar trace id(s) of "
         f"the OpenMetrics scrape resolve there; /debug/jax-trace?seconds=1 "
@@ -3786,13 +3875,12 @@ def trace_check(cfg, params, card: str) -> dict:
         f"{len(events)} events, {len(kernels)} CUDA kernel events, "
         f"{len(ours)} of kernel #1 ({hdrs['X-Trace-Kernel-Events']} by the "
         f"server's count), answered in {capture_s:.2f} s; kernel #1 "
-        f"launched {launches} times over {stats['decode_steps']} decode "
-        f"steps; on {card}")
+        f"launched {launches} times over {steps} decode steps; on {card}")
     if not ours:
         fail("trace: the device trace holds no event of kernel #1")
-    if launches < cfg.n_layers * stats["decode_steps"]:
-        fail(f"trace: kernel #1 launched {launches} times over "
-             f"{stats['decode_steps']} decode steps")
+    if launches < cfg.n_layers * steps:
+        fail(f"trace: kernel #1 launched {launches} times over {steps} "
+             f"decode steps")
     return {"launches": launches}
 
 
@@ -3815,7 +3903,7 @@ def pool_phase(models: tuple, card: str) -> dict:
                         (dcfg, dparams), card)
     finally:
         srv.shutdown()
-    return trace_check(cfg, params, card)
+    return trace_check(cfg, card)
 
 
 def goodput_report(tracker, wall: float, saves: list, restore_s: float,
@@ -3839,6 +3927,419 @@ def goodput_report(tracker, wall: float, saves: list, restore_s: float,
         log(f"[goodput] {seg} {got:.3f} s against {want:.3f} s timed")
         if abs(got - want) > 0.01 * want + 0.01 * n:
             fail(f"goodput: {seg} {got:.3f} s against {want:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: disaggregated serving and the launcher's one-card contracts
+# ---------------------------------------------------------------------------
+
+# 8 prompts from 17 tokens to one of 700 that spans 11 pages and the
+# clamped top bucket; each decodes HANDOFF_STEPS tokens
+HANDOFF_PROMPTS = (17, 33, 64, 100, 150, 257, 400, 700)
+HANDOFF_STEPS = 64
+HANDOFF_SAMPLED = dict(temperature=0.8, seed=21)
+# each tenant's memory budget on the card (TPU_HBM_LIMIT_BYTES_0)
+TENANT_BUDGET = 8 << 30
+
+
+def ttft_totals(srv) -> tuple:
+    """(count, sum) of a server's TTFT histogram."""
+    snap = srv.metrics.ttft.snapshot().get(("default",))
+    return (snap["count"], snap["sum"]) if snap else (0, 0.0)
+
+
+def handoff_rows(label: str, pre: int, dec, oracle_srv, prompts: list,
+                 card: str) -> dict:
+    """For each prompt, one after another: /prefill on the prefill server,
+    /decode_handoff with the blob on ``dec`` and /generate on the oracle
+    server, greedy and sampled; every decode answer bit-equal to the
+    oracle's.  Returns the blobs, the greedy answers, and kernel #1's
+    launches and the decode steps of the decode and oracle engines."""
+    from tpu_dra_torch.workloads.paged_kv import paged_attention
+    dport, oport = dec.server_address[1], oracle_srv.server_address[1]
+    blobs, greedy, launches = [], [], 0
+    def engine_steps():
+        return sum(srv.engine.stats()["decode_steps"]
+                   for srv in (dec, oracle_srv))
+    steps0 = engine_steps()
+    for prompt in prompts:
+        t0 = time.perf_counter()
+        code, out, _ = call(pre, "/prefill", {"tokens": prompt})
+        export_s = time.perf_counter() - t0
+        if code != 200 or out["length"] != len(prompt):
+            fail(f"{label}: /prefill of {len(prompt)} tokens answered {code}: "
+                 f"{out!r:.300}")
+        blobs.append(out["blob"])
+        nbytes = len(base64.b64decode(out["blob"]))
+        for kind, knobs in (("greedy", {}), ("sampled", HANDOFF_SAMPLED)):
+            body = {"steps": HANDOFF_STEPS, **knobs}
+            # one after the other: the engines are host-bound, and two
+            # at once in one process ran each ~3x slower on the card
+            before = paged_attention.launches
+            ttft0, o0 = ttft_totals(dec), ttft_totals(oracle_srv)
+            t0 = time.perf_counter()
+            code, got, _ = call(dport, "/decode_handoff",
+                                {"blob": out["blob"], **body})
+            import_s = time.perf_counter() - t0
+            code2, want, _ = call(oport, "/generate",
+                                  {"tokens": [prompt], **body})
+            launches += paged_attention.launches - before
+            ttft1, o1 = ttft_totals(dec), ttft_totals(oracle_srv)
+            if code != 200 or code2 != 200:
+                fail(f"{label}: prompt {len(prompt)} {kind}: /decode_handoff "
+                     f"{code} {got!r:.200}, /generate {code2} {want!r:.200}")
+            if got["tokens"] != want["tokens"] or \
+                    len(got["tokens"][0]) != HANDOFF_STEPS:
+                first = next((j for j, (a, b) in enumerate(zip(
+                    got["tokens"][0], want["tokens"][0])) if a != b), None)
+                fail(f"{label}: prompt {len(prompt)} {kind}: the handoff "
+                     f"departs from the oracle at step {first}")
+            if kind == "greedy":
+                greedy.append(want["tokens"][0])
+            log(f"[{label}] prompt {len(prompt)} {kind}: bit-equal to the "
+                f"oracle's /generate; blob {nbytes} B, export "
+                f"{export_s * 1e3:.1f} ms, /decode_handoff "
+                f"{import_s * 1e3:.1f} ms (host clock); "
+                f"TTFT decode replica {(ttft1[1] - ttft0[1]) * 1e3:.2f} ms, "
+                f"oracle {(o1[1] - o0[1]) * 1e3:.2f} ms; on {card}")
+    steps = engine_steps() - steps0
+    log(f"[{label}] {len(prompts)} prompts x (greedy, sampled), "
+        f"{HANDOFF_STEPS} steps: every answer bit-equal to the oracle; "
+        f"kernel #1 launched {launches} times over {steps} decode steps of "
+        f"the decode and oracle engines")
+    return {"blobs": blobs, "greedy": greedy, "launches": launches,
+            "steps": steps}
+
+
+def handoff_batched(label: str, pre: int, dport: int, cfg, params,
+                    prompts: list, greedy: list) -> int:
+    """All prompts at once, each through /prefill then /decode_handoff on
+    its own thread: greedy answers held to the sequential oracle answers
+    under the near-tie rule, departures printed."""
+    results: dict[int, object] = {}
+
+    def client(i):
+        try:
+            code, out, _ = call(pre, "/prefill", {"tokens": prompts[i]})
+            if code != 200:
+                raise RuntimeError(f"/prefill {code}: {out!r:.200}")
+            code, got, _ = call(dport, "/decode_handoff",
+                                {"blob": out["blob"],
+                                 "steps": HANDOFF_STEPS})
+            if code != 200:
+                raise RuntimeError(f"/decode_handoff {code}: {got!r:.200}")
+            results[i] = got["tokens"][0]
+        except Exception as exc:  # noqa: BLE001 — reported below
+            results[i] = exc
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    answers = []
+    for i in range(len(prompts)):
+        if not isinstance(results.get(i), list):
+            fail(f"{label}: request {i} failed: {results.get(i)!r}")
+        answers.append(results[i])
+    requests = [(len(p), HANDOFF_STEPS) for p in prompts]
+    compared = hold_answers(
+        label, answers, lambda i: greedy[i],
+        lambda i, want, step: oracle_logits_at(cfg, params, prompts[i], want,
+                                               step), requests)
+    log(f"[{label}] {len(prompts)} handoffs at once in {wall:.3f} s "
+        f"(informational)")
+    return compared
+
+
+def handoff_servers(cfg, params, cache_dtype: str = "bf16") -> tuple:
+    """Phase 4's engine three times: prefill, decode and oracle servers
+    (the prefill one always bf16 pages: the wire carries bf16)."""
+    from tpu_dra_torch.workloads.serve import serve
+    pre = serve(cfg, params, port=0, pool_role="prefill", **ENGINE)
+    dec = serve(cfg, params, port=0, pool_role="decode",
+                cache_dtype=cache_dtype, **ENGINE)
+    orc = serve(cfg, params, port=0, pool_role="any",
+                cache_dtype=cache_dtype, **ENGINE)
+    for srv, role in ((pre, "prefill"), (dec, "decode"), (orc, "any")):
+        over = call(srv.server_address[1], "/debug/overload")[1]
+        if over["role"] != role:
+            fail(f"/debug/overload of the {role} server says {over['role']}")
+        # first-use costs out of the measured requests
+        call(srv.server_address[1], "/generate", {"tokens": [[1, 2, 3]],
+                                                  "steps": 2})
+    return pre, dec, orc
+
+
+def lying_blob_check(port: int, blob: str) -> None:
+    """A blob whose header lies about the KV's shape is a 400, and the
+    engine answers the next request."""
+    from tpu_dra_torch.workloads.kv_handoff import (KVHandoff, decode_blob,
+                                                    encode)
+    h = decode_blob(base64.b64decode(blob))
+    lie = KVHandoff(prompt=h.prompt, length=h.length, page_size=h.page_size,
+                    model=h.model, ks=h.ks[:, :, :1], vs=h.vs[:, :, :1],
+                    last_logits=h.last_logits)
+    code, out, _ = call(port, "/decode_handoff", {
+        "blob": base64.b64encode(encode(lie)).decode(), "steps": 4})
+    if code != 400:
+        fail(f"a blob with a lying shape answered {code}: {out!r:.300}")
+    why = out["error"]
+    code, out, _ = call(port, "/decode_handoff", {"blob": blob, "steps": 4})
+    if code != 200 or len(out["tokens"][0]) != 4:
+        fail(f"after the lying blob the decode server answered {code}")
+    log(f"[handoff] a blob with a lying shape: 400 ({why[:120]}); the "
+        f"engine then answered the next handoff")
+
+
+def pages_back(srv) -> None:
+    deadline = time.monotonic() + 10
+    while True:
+        st = srv.engine.stats()
+        if st["kv_pages_free"] == st["kv_pages_total"]:
+            return
+        if time.monotonic() > deadline:
+            held = st["kv_pages_total"] - st["kv_pages_free"]
+            fail(f"the decode engine holds {held} pages after its last "
+                 f"handoff")
+        time.sleep(0.05)
+
+
+def ici_check(blob: str, card: str) -> int:
+    """21c: one handoff's ks and vs as [1, 2, ...] blocks of a two-rank
+    ring (rank 0 the prefill side, rank 1 the decode side's empty buffer)
+    shifted one hop and back through kv_handoff.ici_shift, bit-equal to
+    ring_shift_ref; returns the ring-shift kernel's launches."""
+    import torch
+
+    from tpu_dra_torch.workloads.collective_matmul import (ring_shift,
+                                                           ring_shift_ref)
+    from tpu_dra_torch.workloads.kv_handoff import decode_blob, ici_shift
+    h = decode_blob(base64.b64decode(blob))
+    tree = {n: torch.stack([t, torch.zeros_like(t)])[None].cuda()
+            for n, t in (("ks", h.ks), ("vs", h.vs))}
+    before = ring_shift.launches
+    there = ici_shift(tree)
+    back = ici_shift(there, reverse=True)
+    torch.cuda.synchronize()
+    launches = ring_shift.launches - before
+    for name, x in tree.items():
+        for got, want in ((there[name], ring_shift_ref(x)),
+                          (back[name], ring_shift_ref(there[name], True))):
+            if not torch.equal(got, want):
+                fail(f"ici_shift of {name} differs from ring_shift_ref")
+        if not (torch.equal(there[name][0, 1], x[0, 0])
+                and torch.equal(back[name], x)):
+            fail(f"ici_shift did not carry {name} to the decode rank and back")
+    if launches != 2 * len(tree):
+        fail(f"ici_shift launched the ring-shift kernel {launches} times for "
+             f"{len(tree)} leaves each way")
+    ms = cuda_time_ms(lambda: ici_shift(tree), 20)
+    nbytes = sum(x.numel() * x.element_size() for x in tree.values())
+    log(f"[handoff] ici_shift of one handoff's ks and vs ({nbytes} B on a "
+        f"two-rank ring) one hop and back: bit-equal to ring_shift_ref, "
+        f"{launches} ring-shift launches; {ms * 1e3:.1f} us a hop "
+        f"(informational); on {card}")
+    return launches
+
+
+def handoff_phase(int8_models: tuple, card: str) -> dict:
+    """21a-c on phase 4's model (bf16 from the seed) and, for 21b, phase
+    17's int8 weights with int8 pages on the decode and oracle servers."""
+    import numpy as np
+    import torch
+
+    from tpu_dra_torch.workloads.quant import cast_params_bf16
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    params = cast_params_bf16(init_params(cfg, gen))
+    rng = np.random.default_rng(SEED + 21)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in HANDOFF_PROMPTS]
+    pre, dec, orc = handoff_servers(cfg, params)
+    try:
+        rows = handoff_rows("handoff", pre.server_address[1], dec, orc,
+                            prompts, card)
+        launches = rows["launches"]
+        if launches < cfg.n_layers * rows["steps"]:
+            fail(f"kernel #1 launched {launches} times over {rows['steps']} "
+                 f"decode steps of {cfg.n_layers} layers")
+        from tpu_dra_torch.workloads.paged_kv import paged_attention
+        before = paged_attention.launches
+        handoff_batched("handoff batched", pre.server_address[1],
+                        dec.server_address[1], cfg, params, prompts,
+                        rows["greedy"])
+        launches += paged_attention.launches - before
+        pages_back(dec)
+        lying_blob_check(dec.server_address[1], rows["blobs"][0])
+        pages_back(dec)
+        log(f"[handoff] the decode engine's pages are back: "
+            f"{dec.engine.stats()['kv_pages_free']} free of "
+            f"{dec.engine.stats()['kv_pages_total']}")
+    finally:
+        for srv in (pre, dec, orc):
+            srv.shutdown()
+    ring_launches = ici_check(rows["blobs"][-1], card)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg8, params8 = int8_models[0], int8_models[1]
+    pre, dec, orc = handoff_servers(cfg8, params8, cache_dtype="int8")
+    try:
+        rows8 = handoff_rows("handoff int8", pre.server_address[1], dec, orc,
+                             prompts, card)
+        pages_back(dec)
+    finally:
+        for srv in (pre, dec, orc):
+            srv.shutdown()
+    return {"launches": launches + rows8["launches"],
+            "ring_launches": ring_launches}
+
+
+TENANT_CHILD = """
+import json, os, sys, time
+import torch
+from tpu_dra_torch.workloads import launcher
+# a fast beat first: the start-up then reports the running one
+launcher.start_health_heartbeat(interval=0.2)
+applied = launcher.init_tpu_workload()
+beat = applied["heartbeat"][0]
+m0 = os.stat(beat).st_mtime_ns
+time.sleep(1.0)
+m1 = os.stat(beat).st_mtime_ns
+budget = applied["hbm_limit_bytes"]
+under = torch.empty(budget // 2, dtype=torch.uint8, device="cuda")
+under.fill_(1)
+torch.cuda.synchronize()
+del under
+torch.cuda.empty_cache()
+out = {"slot": applied["slot"], "budget": budget, "beat_advanced": m1 > m0}
+try:
+    past = torch.empty(budget + (1 << 30), dtype=torch.uint8, device="cuda")
+    out["oom"] = False
+except torch.cuda.OutOfMemoryError as exc:
+    out["oom"] = True
+    out["sentinels"] = launcher.report_hbm_oom(detail=str(exc)[:300])
+print(json.dumps(out), flush=True)
+"""
+
+
+def tenant_env(tmp: Path, name: str, priority: str | None) -> dict:
+    """The environment tenancy.tenant_edits writes for a tenant of chip 0
+    with a slot pool of 2 (written out: the plugin is not imported), and
+    a heartbeat file of the tenant's own."""
+    env = dict(os.environ, TPU_ALLOW_MULTIPLE_LIBTPU_LOAD="1",
+               TPU_HBM_LIMIT_BYTES_0=str(TENANT_BUDGET),
+               TPU_SHARE_WEIGHT="5" if priority == "Low" else "10",
+               TPU_MULTIPROCESS_SLOT_DIR=str(tmp / "mp-slots"),
+               TPU_MULTIPROCESS_MAX="2", TPU_VISIBLE_CHIPS="0",
+               TPU_HEALTH_HEARTBEAT_FILE=str(tmp / "beats" / name / "beat"))
+    if priority:
+        env["TPU_PROCESS_PRIORITY"] = priority
+    return env
+
+
+def tenants_phase(card: str) -> None:
+    """21d: two server tenants on one card under one slot pool of 2, each
+    with an 8 GiB budget, answer 8 requests each at the same time; a
+    third is refused; a child under the budget allocates under it, then
+    past it, gets the OOM error and drops the sentinel; the heartbeat
+    advances."""
+    from tpu_dra_torch.workloads.train import ModelConfig
+    cfg = ModelConfig(**MODEL)
+    prompts = request_prompts(cfg.vocab)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-tenants-") as t:
+        tmp = Path(t)
+        pool = tmp / "mp-slots" / "tenant-pool"
+        pool.mkdir(parents=True)
+        (pool / "max").write_text("2")
+        envs = {"tenant-a": tenant_env(tmp, "tenant-a", "Low"),
+                "tenant-b": tenant_env(tmp, "tenant-b", None)}
+        t0 = time.perf_counter()
+        procs = {name: launch_server(serve_cli_cmd(cfg, "bf16"), env)
+                 for name, env in envs.items()}
+        try:
+            ports = {name: server_port(name, p) for name, p in procs.items()}
+            ready_s = time.perf_counter() - t0
+            for name in procs:
+                if not Path(envs[name]["TPU_HEALTH_HEARTBEAT_FILE"]).exists():
+                    fail(f"{name} beats no heartbeat")
+            results: dict = {}
+
+            def client(name, i):
+                try:
+                    results[name, i] = post(ports[name], {
+                        "tokens": [prompts[i]], "steps": REQUESTS[i][1]})
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    results[name, i] = exc
+            threads = [threading.Thread(target=client, args=(name, i))
+                       for name in procs for i in range(len(REQUESTS))]
+            t1 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t1
+            for (name, i), res in sorted(results.items()):
+                toks = res["tokens"][0] if isinstance(res, dict) else None
+                if toks is None or len(toks) != REQUESTS[i][1] or not all(
+                        0 <= x < cfg.vocab for x in toks):
+                    fail(f"{name} request {i}: {res!r:.300}")
+            if len(results) != 2 * len(REQUESTS):
+                fail(f"the tenants answered {len(results)} requests")
+            for name, port in ports.items():
+                peak = call(port, "/stats")[1]["max_memory_reserved"]
+                log(f"[tenants] {name}: max_memory_reserved {peak} B of its "
+                    f"{TENANT_BUDGET} B budget ({peak / TENANT_BUDGET:.3f})")
+                if peak > TENANT_BUDGET:
+                    fail(f"{name} reserved {peak} B past its budget")
+            log(f"[tenants] two tenants ready {ready_s:.1f} s after the "
+                f"start; {2 * len(REQUESTS)} requests at once answered in "
+                f"{wall:.2f} s (informational); on {card}")
+            third = subprocess.run(
+                serve_cli_cmd(cfg, "bf16"), cwd=HERE, env=dict(
+                    envs["tenant-b"], TPU_HEALTH_HEARTBEAT_FILE=str(
+                        tmp / "beats" / "tenant-c" / "beat")),
+                capture_output=True, text=True, timeout=300)
+            if third.returncode == 0 or \
+                    "refusing to oversubscribe" not in third.stderr:
+                fail(f"a third tenant exited {third.returncode}: "
+                     f"{third.stderr[-1500:]}")
+            log(f"[tenants] a third tenant exited {third.returncode}: "
+                f"{third.stderr.strip().splitlines()[-1]}")
+        finally:
+            for p in procs.values():
+                if p["proc"].poll() is None:
+                    p["proc"].send_signal(signal.SIGTERM)
+            for name, p in procs.items():
+                stop_server(name, p)
+        for name in procs:
+            if Path(envs[name]["TPU_HEALTH_HEARTBEAT_FILE"]).exists():
+                fail(f"{name} left its heartbeat file behind")
+        child = subprocess.run(
+            [sys.executable, "-c", TENANT_CHILD], cwd=HERE,
+            env=dict(envs["tenant-b"], PYTHONPATH=str(HERE),
+                     TPU_HEALTH_HEARTBEAT_FILE=str(tmp / "beats" / "child"
+                                                   / "beat")),
+            capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            fail(f"the budget child exited {child.returncode}: "
+                 f"{child.stderr[-1500:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        sentinel = tmp / "beats" / "child" / "oom"
+        if not (got["oom"] and got["beat_advanced"] and sentinel.exists()
+                and got["slot"] == {"tenant-pool": 0}):
+            fail(f"the budget child: {got}")
+        log(f"[tenants] a child under the {got['budget']} B budget allocated "
+            f"half of it, then past it: torch.cuda.OutOfMemoryError, the oom "
+            f"sentinel written ({sentinel.read_text()[:80]!r}...); its "
+            f"heartbeat advanced; it took slot {got['slot']} once the tenants "
+            f"had exited")
 
 
 def main() -> int:
@@ -3983,8 +4484,12 @@ def main() -> int:
     life = lifecycle_phase(card)
     lap("19")
     pooled = pool_phase(models, card)
-    del models
     lap("20")
+    handed = handoff_phase(models, card)
+    del models
+    torch.cuda.empty_cache()
+    tenants_phase(card)
+    lap("21")
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -3992,7 +4497,7 @@ def main() -> int:
         "replaces": "tpu_dra/workloads/paged_kv.py:248",
         "launches": served["launches"] + spec["paged"]["spec"]["launches"]
         + prefixed["launches"] + life["paged_launches"]
-        + pooled["launches"],
+        + pooled["launches"] + handed["launches"],
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -4052,7 +4557,8 @@ def main() -> int:
                                   ring_t["matmul_reduce_scatter w2"]),
         "ring_shift": ("tpu_dra_torch/csrc/ring.cu",
                        "tpu_dra/workloads/pallas_kernels.py:1313",
-                       ringed["launches"]["ring_shift"], ring_err["ring_shift"],
+                       ringed["launches"]["ring_shift"]
+                       + handed["ring_launches"], ring_err["ring_shift"],
                        ring_t["ring_shift k/v block"])})
     for name, (source, replaces, launches, err, t) in later.items():
         kernels.append({

@@ -365,14 +365,15 @@ def test_later_engine_features_raise(kw, match):
 
 def test_later_request_features_raise(engine):
     """Prefixes and stop sequences are served since the prefix slice
-    (tests/test_torch_prefix.py): an unknown prefix id and an invalid
-    stop raise the reference's errors; the KV handoff is still a later
-    slice's."""
+    (tests/test_torch_prefix.py) and the KV handoff since the handoff
+    slice (tests/test_torch_kv_handoff.py): an unknown prefix id, an
+    invalid stop and a handoff that is not a ``KVHandoff`` raise the
+    reference's errors."""
     with pytest.raises(ValueError, match="unknown prefix_id"):
         engine.submit_async([1, 2], 3, prefix_id="p")
     with pytest.raises(ValueError, match="stop must be 1..8"):
         engine.submit_async([1, 2], 3, stop=[[5]] * 9)
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="must be a KVHandoff"):
         engine.submit_handoff(object(), 3)
     with pytest.raises(ValueError, match="max_len"):
         engine.submit_async([1] * 30, 20)

@@ -206,11 +206,14 @@ def test_save_and_restore_accrue_when_started(tracker, tmp_path):
 def test_init_tpu_workload_starts_span_and_goodput(monkeypatch, tmp_path):
     fresh = tg.GoodputTracker(registry=Registry())
     monkeypatch.setattr(tg, "_DEFAULT", fresh)
-    assert init_tpu_workload({}) == {"goodput": False}
+    # no other contract in the environment: only goodput is reported on
+    none = {"slot": None, "hbm_limit_bytes": None, "nice": None,
+            "heartbeat": None}
+    assert init_tpu_workload({}) == {**none, "goodput": False}
     assert not fresh.started
     path = str(tmp_path / "g.json")
     env = {tg.STATE_ENV: path, "TPU_TRACEPARENT": TRACEPARENT}
-    assert init_tpu_workload(env) == {"goodput": True}
+    assert init_tpu_workload(env) == {**none, "goodput": True}
     assert fresh.started and fresh.state_path == path
     spans = [s for s in ttracer.DEFAULT_RING.spans(trace_id="ab" * 16)
              if s["name"] == "launcher.init_tpu_workload"]

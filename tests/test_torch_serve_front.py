@@ -296,9 +296,11 @@ def test_debug_slo_and_overload(server):
     ("GET", "/debug/traces", "item 7"), ("GET", "/debug/jax-trace",
                                          "item 7")])
 def test_unported_endpoints_name_their_item(server, method, path, item):
-    """The KV handoff's endpoints (item 8) answer 404 naming their item;
-    item 7's are served now, each with the reference's answer to this
-    request (tests/test_torch_serve_pool.py holds them in full)."""
+    """Every endpoint of the reference is served now, each with the
+    reference's answer to this request: item 7's
+    (tests/test_torch_serve_pool.py holds them in full) and item 8's,
+    the KV handoff (tests/test_torch_kv_handoff.py): /prefill exports
+    the one row, and /decode_handoff without a blob is a 400."""
     url = base(server)
     if method == "POST":
         code, body, _ = post(url, path, {"tokens": [[1]], "steps": 2})
@@ -312,8 +314,10 @@ def test_unported_endpoints_name_their_item(server, method, path, item):
             code = exc.code
     else:
         code, text = get(url, path)
-    if item == "item 8":
-        assert code == 404 and "not ported yet" in text and item in text
+    if path == "/prefill":
+        assert code == 200 and body["length"] == 1 and body["blob"]
+    elif path == "/decode_handoff":
+        assert code == 400 and "blob" in text
     elif path == "/beam":
         assert code == 200 and len(body["tokens"][0]) == 4
     elif path == "/speculative":
@@ -325,12 +329,13 @@ def test_unported_endpoints_name_their_item(server, method, path, item):
 
 
 def test_keepalive_survives_early_answers(server):
-    """:400: an early 404 drains its body, so the next request on the
-    same connection parses."""
+    """:400: an early 404 drains its body, and a 400 for a body that does
+    not parse has read it, so the next request on the same connection
+    parses."""
     host, port = server.server_address[:2]
     conn = http.client.HTTPConnection(host, port, timeout=WAIT)
     for path, body, status in (("/nope", b"x" * 512, 404),
-                               ("/prefill", b"y" * 64, 404),
+                               ("/prefill", b"y" * 64, 400),
                                ("/generate", json.dumps(
                                    {"tokens": [[3]], "steps": 2}).encode(),
                                 200)):
@@ -549,10 +554,22 @@ def test_main_sigterm_drains_and_exits():
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     try:
-        line = ""
-        while "serving on" not in line:
-            line = proc.stdout.readline()
-            assert line, "the server exited before serving"
+        # the ready line under a deadline: readline blocks, so it runs on
+        # a thread the deadline can give up on
+        lines: list[str] = []
+
+        def read_ready():
+            while True:
+                line = proc.stdout.readline()
+                lines.append(line)
+                if not line or "serving on" in line:
+                    return
+        reader = threading.Thread(target=read_ready, daemon=True)
+        reader.start()
+        reader.join(timeout=WAIT)
+        line = lines[-1] if lines else ""
+        assert "serving on" in line, \
+            f"the server did not serve within {WAIT}s: {''.join(lines)}"
         url = f"http://127.0.0.1:{re.search(r', (\d+)\)', line).group(1)}"
         post(url, "/generate", {"tokens": [[1, 2]], "steps": 2})
         result = {}
@@ -560,7 +577,13 @@ def test_main_sigterm_drains_and_exits():
             url, "/generate", {"tokens": [[1, 2, 3]], "steps": 50})),
             daemon=True)
         t.start()
-        time.sleep(0.3)
+        # SIGTERM only once the 50-step request is in flight (or already
+        # answered): before its admission a drain would shed it
+        deadline = time.monotonic() + WAIT
+        while t.is_alive() and \
+                json.loads(get(url, "/stats")[1])["active"] < 1:
+            assert time.monotonic() < deadline, "the request never ran"
+            time.sleep(0.01)
         proc.send_signal(signal.SIGTERM)
         t.join(timeout=60)
         out, _ = proc.communicate(timeout=60)

@@ -449,7 +449,9 @@ def test_cli_serves_the_pool_without_continuous(tmp_path):
         assert get(url, "/debug/traces")[0] == 200
         assert post(url, "/stream", {"tokens": [[1]]})[0] == 400
         code, out = post(url, "/prefill", {"tokens": [[1]]})
-        assert code == 404 and "item 8" in out["error"]
+        assert code == 400 and "--continuous" in out["error"]
+        code, out = post(url, "/decode_handoff", {"blob": "", "steps": 2})
+        assert code == 400 and "--continuous" in out["error"]
         proc.terminate()
         rest, _ = proc.communicate(timeout=60)
     finally:

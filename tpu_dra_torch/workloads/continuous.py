@@ -57,8 +57,12 @@ the draft's cache the same way (``_Prefix.dkv``; on pages under the same
 page ids).  Stop sequences are matched on the host after every emitted
 token, and the matched sequence is trimmed from the output.
 
-Left for a later slice: KV handoff (``submit_handoff`` raises
-``ValueError``; ROADMAP queue 1 item 8).
+KV handoff (``submit_handoff``, paged plain engines): a prompt's KV
+arrives from a prefill-pool engine (``kv_handoff.py``) instead of being
+prefilled here; admission scatters its columns into the slot's own pages
+(quantized at write on an int8 pool) and selects the first token from
+its last-position logits through the same path a local admission takes,
+so the request decodes the tokens a local admission would.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ import hashlib
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
 import torch
@@ -84,25 +88,51 @@ from tpu_dra_torch.workloads.decode import (
     gumbel_noise,
     init_kv_cache,
 )
+from tpu_dra_torch.workloads.kv_handoff import (
+    as_cpu_tensor,
+    validate_handoff,
+)
 from tpu_dra_torch.workloads.paged_kv import (
     PagePool,
     _paged_step,
     init_paged_cache,
     paged_attention,
+    last_position_logits,
     paged_chunk_logits,
     prefill_pages_hidden,
     scatter_pages_raw,
+    scatter_prefill,
 )
 from tpu_dra_torch.workloads.spec_sample import commit_greedy, commit_sampled
 from tpu_dra_torch.workloads.train import ModelConfig, head_logits
 
 _PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
+
+def prompt_bucket(n: int, max_len: int) -> int:
+    """The width a prompt of ``n`` tokens is prefilled at: the smallest
+    bucket that holds it, never past the cache (submit guarantees
+    ``n + steps <= max_len``, so the clamped bucket covers the prompt).
+    The engine's admissions and ``kv_handoff.PrefillExporter`` both take
+    it: a handoff's columns are the bits a local admission writes."""
+    for b in _PROMPT_BUCKETS:
+        if n <= b:
+            return min(b, max_len)
+    raise ValueError(f"prompt of {n} tokens exceeds the largest bucket "
+                     f"{_PROMPT_BUCKETS[-1]}")
+
+
+def padded_prompts(prompts: list[list[int]], width: int, device):
+    """Prompts right-padded with token 0 to ``width``: ``([k, width]``
+    int64 tokens, ``[k]`` int32 lengths``)``."""
+    tokens = torch.tensor([p + [0] * (width - len(p)) for p in prompts],
+                          dtype=torch.int64, device=device)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=device)
+    return tokens, lengths
+
 # the error string a deadline-expired request fails with
 DEADLINE_ERROR = "deadline exceeded"
-
-_LATER = ("not ported yet; it comes with a later slice of the PyTorch port "
-          "(ROADMAP queue 1 item 8)")
 
 failpoint.register("serve.engine.slow_decode",
                    "once per batcher pass with live slots: sleep() here "
@@ -137,6 +167,9 @@ class _Request:
     # request retires on the batcher thread, long after its span left
     # the contextvar, and its serve.engine.decode span is a child of it
     trace_ctx: Optional[Any] = None
+    # a KV handoff (kv_handoff.KVHandoff of CPU tensors): admission
+    # imports its pages and first-token logits instead of prefilling
+    handoff: Optional[Any] = None
     tokens: list[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
     submitted: float = field(default_factory=time.perf_counter)
@@ -417,20 +450,31 @@ class ContinuousEngine:
         if len(prompt) > _PROMPT_BUCKETS[-1]:
             raise ValueError(f"prompt exceeds the largest bucket "
                              f"{_PROMPT_BUCKETS[-1]}")
-        if stop is not None:
-            if not stop or len(stop) > 8:
-                raise ValueError("stop must be 1..8 token sequences")
-            for seq in stop:
-                if not seq or len(seq) > 16:
-                    raise ValueError(
-                        "each stop sequence must be 1..16 tokens")
-                if any(t < 0 or t >= cfg.vocab for t in seq):
-                    raise ValueError(
-                        f"stop token ids must be in [0, {cfg.vocab})")
-            stop = [list(seq) for seq in stop]
+        stop = self._checked_stop(stop)
         req = _Request(prompt=list(prompt), steps=steps, eos_id=eos_id,
                        temperature=float(temperature), seed=seed,
                        prefix_id=prefix_id, stop=stop, deadline=deadline)
+        self._enqueue(req)
+        return req
+
+    def _checked_stop(self, stop):
+        """``stop`` (1-8 sequences of 1-16 ids in the vocabulary) as a
+        list of lists; ``ValueError`` otherwise."""
+        if stop is None:
+            return None
+        if not stop or len(stop) > 8:
+            raise ValueError("stop must be 1..8 token sequences")
+        for seq in stop:
+            if not seq or len(seq) > 16:
+                raise ValueError("each stop sequence must be 1..16 tokens")
+            if any(t < 0 or t >= self.cfg.vocab for t in seq):
+                raise ValueError(
+                    f"stop token ids must be in [0, {self.cfg.vocab})")
+        return [list(seq) for seq in stop]
+
+    def _enqueue(self, req: _Request) -> None:
+        """Queue ``req`` under the submitter's sampled span context;
+        ``RuntimeError`` once the engine is shut down or draining."""
         ctx = current_context()
         if ctx is not None and ctx.sampled:
             req.trace_ctx = ctx
@@ -443,7 +487,6 @@ class ContinuousEngine:
                                    "instance")
             self._pending.append(req)
             self._cv.notify_all()
-        return req
 
     def register_prefix(self, tokens: list[int]) -> str:
         """Register a shared prompt prefix (a system prompt); returns its
@@ -466,9 +509,8 @@ class ContinuousEngine:
             if pid in self._prefixes:
                 self._prefixes[pid] = self._prefixes.pop(pid)   # LRU
                 return pid
-        Pb = self._bucket(len(tokens))
-        prompt = torch.tensor([list(tokens) + [0] * (Pb - len(tokens))],
-                              dtype=torch.int64, device=self.device)
+        Pb = prompt_bucket(len(tokens), self.max_len)
+        prompt, _ = padded_prompts([list(tokens)], Pb, self.device)
         # grad mode is per thread: the batcher's no_grad does not cover
         # the caller's thread
         with torch.no_grad():
@@ -518,8 +560,50 @@ class ContinuousEngine:
                 self.pool.free(pref.pages)
             pref.pages = None
 
-    def submit_handoff(self, *_args, **_kwargs):
-        raise ValueError(f"KV handoff is {_LATER}")
+    def submit_handoff(self, handoff, steps: int,
+                       eos_id: Optional[int] = None,
+                       temperature: float = 0.0, seed: int = 0,
+                       stop: Optional[list[list[int]]] = None,
+                       deadline: Optional[float] = None) -> _Request:
+        """Enqueue a prefill-pool handoff (``kv_handoff.KVHandoff``):
+        admission scatters its KV columns into this engine's pages and
+        selects the first token from its last-position logits through
+        the path a local admission takes, so the request decodes the
+        tokens one engine would.  Paged plain engines only: the page
+        table is what makes the KV addressable, and a draft's cache would
+        hold no context for the imported pages.
+
+        The blob is validated and its arrays converted here, on the
+        caller's thread: a malformed one fails this request with
+        ``ValueError``, never the batcher (which would fail every request
+        of the engine)."""
+        if self.kv_layout != "paged":
+            raise ValueError("KV handoff needs kv_layout='paged' (the "
+                             "page table is what makes a sequence's KV "
+                             "addressable for import)")
+        if self.draft is not None:
+            raise ValueError(
+                "speculative engines cannot import a handoff: the "
+                "draft model's cache has no context for the imported "
+                "pages; serve the decode pool without a draft")
+        validate_handoff(handoff, self.cfg, self.pool, self.max_len,
+                         steps, eos_id)
+        stop = self._checked_stop(stop)
+        try:
+            handoff = replace(
+                handoff, ks=as_cpu_tensor(handoff.ks, torch.bfloat16),
+                vs=as_cpu_tensor(handoff.vs, torch.bfloat16),
+                last_logits=as_cpu_tensor(handoff.last_logits,
+                                          torch.float32))
+        except (TypeError, RuntimeError) as exc:
+            raise ValueError(f"handoff arrays are not numeric: "
+                             f"{exc}") from None
+        req = _Request(prompt=list(handoff.prompt), steps=steps,
+                       eos_id=eos_id, temperature=float(temperature),
+                       seed=seed, stop=stop, deadline=deadline,
+                       handoff=handoff)
+        self._enqueue(req)
+        return req
 
     def warmup(self, buckets: Optional[list[int]] = None,
                burst: Optional[int] = None) -> int:
@@ -621,6 +705,11 @@ class ContinuousEngine:
             out["spec_accept_rate"] = round(
                 self.spec_drafted_accepted
                 / max(1, self.spec_drafted_proposed), 4)
+        if self.device.type == "cuda":
+            # the caching allocator's peak: what a memory budget
+            # (launcher.apply_hbm_limits) is held against
+            out["max_memory_reserved"] = torch.cuda.max_memory_reserved(
+                self.device)
         if self.pool is not None:
             out["kv_pages_total"] = self.pool.total_pages
             out["kv_pages_free"] = self.pool.free_pages
@@ -685,14 +774,6 @@ class ContinuousEngine:
 
     # -- scheduler -----------------------------------------------------------
 
-    def _bucket(self, n: int) -> int:
-        for b in _PROMPT_BUCKETS:
-            if n <= b:
-                # never pad past the cache (submit guarantees n + steps
-                # <= max_len, so the clamped bucket covers the prompt)
-                return min(b, self.max_len)
-        raise ValueError(n)
-
     def _admit(self) -> None:
         """Fill free slots from the FIFO queue (behind the page gate on
         pages); prefix joins are admitted one by one, the rest prefilled
@@ -716,9 +797,16 @@ class ContinuousEngine:
                     # FIFO-preserving page gate: if the head cannot get
                     # its worst-case own pages, stop admitting — later,
                     # smaller requests must not starve it
-                    shared, need, gate_pref = self._paged_requirements(
-                        len(req.prompt), req.steps, req.prefix_id,
-                        take_refs=True)
+                    if req.handoff is not None:
+                        # a handoff carries its KV: no prefix shares, own
+                        # pages for the imported context and the steps
+                        shared, gate_pref = [], None
+                        need = self.pool.pages_for(req.handoff.length
+                                                   + req.steps)
+                    else:
+                        shared, need, gate_pref = self._paged_requirements(
+                            len(req.prompt), req.steps, req.prefix_id,
+                            take_refs=True)
                     # pages resident for prefixes free only by eviction
                     # (the joined prefix's own shared pages among them):
                     # a head that needs more than the rest can never be
@@ -759,10 +847,13 @@ class ContinuousEngine:
         self._note_peaks()
         groups: dict[int, list[tuple[int, _Request]]] = {}
         for slot, req in assigned:
-            if req.prefix_id is not None:
+            if req.handoff is not None:
+                self._admit_handoff(slot, req)
+            elif req.prefix_id is not None:
                 self._admit_prefix(slot, req)
             else:
-                groups.setdefault(self._bucket(len(req.prompt)),
+                groups.setdefault(prompt_bucket(len(req.prompt),
+                                                self.max_len),
                                   []).append((slot, req))
         for Sb, group in groups.items():
             while group:
@@ -866,15 +957,11 @@ class ContinuousEngine:
         """One batched prefill for a same-bucket admission group, then
         each request's first token."""
         dev = self.device
-        prompts = torch.tensor(
-            [req.prompt + [0] * (Sb - len(req.prompt)) for _, req in group],
-            dtype=torch.int64, device=dev)                 # [k, Sb]
-        lengths = torch.tensor([len(req.prompt) for _, req in group],
-                               dtype=torch.int32, device=dev)
+        prompts, lengths = padded_prompts([req.prompt for _, req in group],
+                                          Sb, dev)         # [k, Sb]
         slots = torch.tensor([slot for slot, _ in group], device=dev)
         x = self._prefill(self.cfg, self.params, self._cache, prompts, slots)
-        last = x[torch.arange(len(group), device=dev), lengths.long() - 1]
-        logits = head_logits(self.params, last[:, None])[:, 0]
+        logits = last_position_logits(self.params, x, lengths)
         if self.draft is not None:
             self._prefill(*self.draft, self._dcache, prompts, slots)
         reqs = [req for _, req in group]
@@ -919,6 +1006,22 @@ class ContinuousEngine:
             buf[:, slots, :, :Sb] = small[name]
         return x
 
+    def _admit_handoff(self, slot: int, req: _Request) -> None:
+        """A handoff's admission: its KV columns scattered into the slot's
+        pages (quantized at write on an int8 pool; columns past the
+        slot's pages drop, as a local prefill's bucket padding does) and
+        its first token selected from the blob's logits by
+        ``_first_tokens``, as a local admission selects it."""
+        h = req.handoff
+        dev = self.device
+        width = self._mp * self.pool.page_size
+        scatter_prefill(self._cache, h.ks[:, :, :, :width].to(dev),
+                        h.vs[:, :, :, :width].to(dev),
+                        self._table[slot][None])
+        (first,), (gen,) = self._first_tokens(
+            h.last_logits.to(dev)[None], [req])
+        self._finish_admission(slot, req, first, gen, h.length)
+
     def _admit_prefix(self, slot: int, req: _Request) -> None:
         """A shared-prefix join: the prefix KV seeds a scratch, only the
         suffix runs (at positions ``[plen, plen + Sb)``), and the scratch
@@ -951,9 +1054,8 @@ class ContinuousEngine:
             req.done.set()
             return
         dev = self.device
-        Sb = self._bucket(len(req.prompt))
-        suffix = torch.tensor([req.prompt + [0] * (Sb - len(req.prompt))],
-                              dtype=torch.int64, device=dev)
+        suffix, _ = padded_prompts(
+            [req.prompt], prompt_bucket(len(req.prompt), self.max_len), dev)
         if self.pool is None:
             def write(cache, small, width):
                 for name, buf in cache.items():

@@ -206,7 +206,8 @@ def evaluate(cfg: ModelConfig, params, data_path: str, *,
 def main(argv=None):
     """CLI: train the flagship config on a token file on the card.
     ``python -m tpu_dra_torch.workloads.fit --data t.bin``.  Calls
-    ``launcher.init_tpu_workload()`` first (``TPU_TRACEPARENT``,
+    ``launcher.init_tpu_workload()`` first (the driver's process slot,
+    memory budget, priority and heartbeat, ``TPU_TRACEPARENT``,
     ``TPU_GOODPUT_FILE``)."""
     import argparse
 

@@ -1,32 +1,400 @@
-"""Workload start-up of the port, the part of ``tpu_dra/workloads/
-launcher.py``'s ``init_tpu_workload`` that one card needs: the
-``launcher.init_tpu_workload`` span, a child of the span that placed the
-container (``TPU_TRACEPARENT``), and goodput accounting when
-``TPU_GOODPUT_FILE`` asks for it.
+"""Workload start-up of the port: the one-card half of
+``tpu_dra/workloads/launcher.py``'s ``init_tpu_workload``.
 
-The reference's other contracts (the multiprocess slot, the HBM limit,
-the scheduling priority, the health heartbeat) and its rendezvous come
-with the port of the launcher for several cards (ROADMAP.md queue 1 item
-9).  The command lines of ``fit`` and ``serve`` call
-:func:`init_tpu_workload` first, as the reference's do.
+The driver's kubelet plugin gives every claimed container four resource
+contracts through its environment (MultiProcess sharing and shared
+tenancy, ``tpu_dra/plugins/tpu/sharing.py`` and ``tenancy.py``: several
+tenants packed onto one chip, the analog of MPS).  This module enforces
+them on the workload's side, under the reference's variable names and
+rules, since the driver that writes them is the same:
+
+- a process-slot pool (``TPU_MULTIPROCESS_SLOT_DIR``,
+  ``TPU_MULTIPROCESS_MAX``): one ``flock``'d slot file per process,
+  held for the process's life, and a process past ``maxProcesses`` is
+  refused (:func:`acquire_multiprocess_slot`);
+- a per-chip memory budget (``TPU_HBM_LIMIT_BYTES_<minor>``), installed
+  as the CUDA caching allocator's cap on the process's device
+  (:func:`apply_hbm_limits`);
+- a scheduling priority (``TPU_PROCESS_PRIORITY``) as OS niceness
+  (:func:`apply_scheduling_priority`);
+- a health heartbeat (``TPU_HEALTH_HEARTBEAT_DIR`` / ``_FILE``) touched
+  from a daemon thread (:func:`start_health_heartbeat`), and the ``oom``
+  sentinel beside it that asks the driver to evict this tenant alone
+  (:func:`report_hbm_oom`).
+
+:func:`init_tpu_workload` applies them in the reference's order, opens
+the ``launcher.init_tpu_workload`` span (a child of ``TPU_TRACEPARENT``)
+and starts goodput accounting when ``TPU_GOODPUT_FILE`` asks for it.  The
+command lines of ``fit`` and ``serve`` call it first, as the reference's
+do.  The rendezvous of several processes comes with the launcher for
+several cards (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import atexit
+import fcntl
+import os
+import re
+import threading
 from typing import Optional
 
+from tpu_dra_torch.resilience import failpoint
 from tpu_dra_torch.trace import get_tracer
 from tpu_dra_torch.trace.propagation import extract_env
 from tpu_dra_torch.workloads import goodput
 
+failpoint.register(
+    "launcher.init",
+    "top of init_tpu_workload, before any resource contract is applied")
 
-def init_tpu_workload(env: Optional[dict[str, str]] = None) -> dict:
-    """Open the ``launcher.init_tpu_workload`` span parented on
-    ``TPU_TRACEPARENT`` and start the default goodput tracker when
-    ``TPU_GOODPUT_FILE`` is set (``env``: default ``os.environ``).
-    Returns ``{"goodput": started}``."""
+_HBM_LIMIT = re.compile(r"^TPU_HBM_LIMIT_BYTES_(\d+)$")
+
+
+def apply_hbm_limits(env: Optional[dict[str, str]] = None,
+                     install: bool = True, device=None) -> Optional[int]:
+    """The driver's memory budget for the chips this process opens: the
+    tightest ``TPU_HBM_LIMIT_BYTES_<minor>`` among the minors of
+    ``TPU_VISIBLE_CHIPS`` (or ``TPU_VISIBLE_DEVICES``; every budget when
+    neither names a minor; path-form entries are not minors and are
+    skipped).  Returns the budget in bytes, or None when none applies;
+    ``RuntimeError`` on a malformed value.
+
+    With ``install``, the budget becomes the cap of the CUDA caching
+    allocator on ``device`` (default ``cuda:0``; a CPU device, or no
+    CUDA, installs nothing):
+    ``torch.cuda.set_per_process_memory_fraction(limit / total)``, after
+    which an allocation past it raises ``torch.cuda.OutOfMemoryError``.
+    The cap covers what the allocator reserves, not the CUDA context
+    itself.  Installing initializes CUDA, so ask for it only where the
+    process uses the card anyway."""
+    e = os.environ if env is None else env
+    limits: dict[int, int] = {}
+    for key, val in list(e.items()):
+        m = _HBM_LIMIT.match(key)
+        if m:
+            try:
+                limits[int(m.group(1))] = int(val)
+            except ValueError:
+                raise RuntimeError(f"malformed HBM limit {key}={val!r}")
+    if not limits:
+        return None
+    visible = e.get("TPU_VISIBLE_CHIPS") or e.get("TPU_VISIBLE_DEVICES")
+    scoped = list(limits.values())
+    if visible:
+        minors = [int(v) for v in visible.split(",")
+                  if v.strip().lstrip("-").isdigit()]
+        if minors:
+            scoped = [limits[mn] for mn in minors if mn in limits]
+    limit = min(scoped) if scoped else None
+    if limit is None or not install:
+        return limit
+    import torch
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        total = torch.cuda.get_device_properties(dev).total_memory
+        torch.cuda.set_per_process_memory_fraction(min(1.0, limit / total),
+                                                   dev)
+    return limit
+
+
+# ---------------------------------------------------------------------------
+# The process-slot gate
+# ---------------------------------------------------------------------------
+
+# the marker the driver-injected sitecustomize shim keeps of the slots this
+# process holds (tpu_dra/plugins/tpu/_shim_sitecustomize.py): read and
+# written here too, so a slot taken through the shim is not taken twice
+_MARKER_ENV = "TPU_DRA_SLOTS_HELD"
+
+# process-lifetime holds: the open slot fds (the lock lives with the fd)
+# and the pools this process holds a slot in (re-entry takes no second)
+_HELD_SLOTS: list[int] = []
+_ACQUIRED_POOLS: dict[str, int] = {}   # pool realpath -> slot index
+
+
+def _verify_held(pool_dir: str, slot: int) -> bool:
+    """Does this process hold ``slot-<slot>.lock``?  True when the lock
+    is held by someone (a fresh fd's flock conflicts) and the holder
+    wrote this process's pid into the file."""
+    path = os.path.join(pool_dir, f"slot-{slot}.lock")
+    try:
+        fd = os.open(path, os.O_RDWR)
+    except OSError:
+        return False
+    try:
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            pid = os.read(fd, 64).decode(errors="replace").strip()
+            return pid == str(os.getpid())
+        fcntl.flock(fd, fcntl.LOCK_UN)   # nobody holds it: marker stale
+        return False
+    finally:
+        os.close(fd)
+
+
+def _parse_marker(env) -> dict[str, int]:
+    """{pool realpath: slot} that this process verifiably holds, from the
+    marker; a pid mismatch or a failed lock check drops the entry."""
+    raw = env.get(_MARKER_ENV, "")
+    if not raw:
+        return {}
+    parts = raw.split(";")
+    if parts[0] != f"pid={os.getpid()}":
+        return {}
+    held = {}
+    for part in parts[1:]:
+        pool, _, slot = part.rpartition("=")
+        if pool and slot.isdigit() and _verify_held(pool, int(slot)):
+            held[pool] = int(slot)
+    return held
+
+
+def _write_marker(env, held: dict[str, int]) -> None:
+    env[_MARKER_ENV] = ";".join(
+        [f"pid={os.getpid()}"] + [f"{p}={s}" for p, s in sorted(held.items())])
+
+
+def _acquire_in_pool(pool_dir: str, fallback_max: int, env=None) -> int:
+    """One slot of ``pool_dir`` for this process: the first
+    ``slot-<i>.lock`` of ``max`` (its file, else ``fallback_max``) that
+    ``flock`` grants, stamped with the pid and kept open (inheritable, so
+    the hold survives ``exec``).  A pool this process already holds a
+    slot in, through this module or the shim, gives that slot back."""
+    e = os.environ if env is None else env
+    key = os.path.realpath(pool_dir)
+    if key in _ACQUIRED_POOLS:
+        return _ACQUIRED_POOLS[key]
+    marker = _parse_marker(e)
+    if key in marker:
+        _ACQUIRED_POOLS[key] = marker[key]
+        return marker[key]
+    try:
+        with open(os.path.join(pool_dir, "max")) as f:
+            max_procs = int(f.read().strip())
+    except (FileNotFoundError, ValueError):
+        max_procs = fallback_max
+    for slot in range(max_procs):
+        fd = os.open(os.path.join(pool_dir, f"slot-{slot}.lock"),
+                     os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            os.close(fd)
+            continue
+        try:
+            os.ftruncate(fd, 0)   # a crashed holder's longer pid
+            os.write(fd, f"{os.getpid()}\n".encode())
+            os.set_inheritable(fd, True)
+        except OSError:
+            os.close(fd)          # closing releases the lock too
+            raise
+        _HELD_SLOTS.append(fd)
+        _ACQUIRED_POOLS[key] = slot
+        marker = _parse_marker(e)
+        marker[key] = slot
+        _write_marker(e, marker)
+        return slot
+    raise RuntimeError(
+        f"all {max_procs} process slots of pool {pool_dir!r} are held "
+        f"(maxProcesses={max_procs}); refusing to oversubscribe the chip")
+
+
+def acquire_multiprocess_slot(env: Optional[dict[str, str]] = None
+                              ) -> Optional[dict[str, int]]:
+    """Hold one process slot in every pool of this container's claims:
+    ``TPU_MULTIPROCESS_SLOT_DIR`` itself when it holds a ``max`` file,
+    and each subdirectory that does.  The kernel releases the locks when
+    the process exits, crash included, so slots never leak.  Past
+    ``maxProcesses`` raises ``RuntimeError`` instead of oversubscribing
+    the chip.  Returns ``{pool name: slot}`` (name "" for the directory
+    itself), or None when the claim is not slot-managed."""
+    e = os.environ if env is None else env
+    base = e.get("TPU_MULTIPROCESS_SLOT_DIR", "")
+    if not base or not os.path.isdir(base):
+        return None
+    fallback_max = int(e.get("TPU_MULTIPROCESS_MAX", "1"))
+    acquired: dict[str, int] = {}
+    if os.path.exists(os.path.join(base, "max")):
+        acquired[""] = _acquire_in_pool(base, fallback_max, e)
+    for name in sorted(os.listdir(base)):
+        pool = os.path.join(base, name)
+        if os.path.isdir(pool) and os.path.exists(os.path.join(pool, "max")):
+            acquired[name] = _acquire_in_pool(pool, fallback_max, e)
+    return acquired or None
+
+
+# ---------------------------------------------------------------------------
+# Priority, heartbeat, OOM sentinel
+# ---------------------------------------------------------------------------
+
+_PRIORITY_NICE = {"Low": 10, "Normal": 0, "High": -5}
+_PRIORITY_APPLIED = False   # renice once per process
+
+
+def apply_scheduling_priority(env: Optional[dict[str, str]] = None
+                              ) -> Optional[int]:
+    """The driver's ``TPU_PROCESS_PRIORITY`` hint as OS niceness: tenants
+    of one card contend on the host's launch path, which the scheduler
+    can favour.  Raising priority needs CAP_SYS_NICE; without it the
+    hint is a no-op.  Returns the applied increment, or None (unset,
+    Normal, unknown, refused, or already applied)."""
+    global _PRIORITY_APPLIED
+    e = os.environ if env is None else env
+    delta = _PRIORITY_NICE.get(e.get("TPU_PROCESS_PRIORITY", ""))
+    if not delta or _PRIORITY_APPLIED:
+        return None
+    try:
+        os.nice(delta)
+    except OSError:
+        return None
+    _PRIORITY_APPLIED = True
+    return delta
+
+
+# one heartbeat thread a process (a second start is a no-op)
+_HEARTBEAT_THREAD: Optional[threading.Thread] = None
+_HEARTBEAT_STOP: Optional[threading.Event] = None
+_HEARTBEAT_PATHS: list[str] = []
+
+
+def _touch_heartbeat(path: str) -> bool:
+    try:
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        with open(path, "a"):
+            pass
+        os.utime(path, None)
+        return True
+    except OSError:
+        return False   # advisory: never kill the workload
+
+
+def _heartbeat_paths(e) -> list[str]:
+    """Beat files: ``TPU_HEALTH_HEARTBEAT_FILE`` when set, else a ``beat``
+    in every claim subdirectory of ``TPU_HEALTH_HEARTBEAT_DIR``."""
+    path = e.get("TPU_HEALTH_HEARTBEAT_FILE", "")
+    if path:
+        return [path]
+    base = e.get("TPU_HEALTH_HEARTBEAT_DIR", "")
+    if not base or not os.path.isdir(base):
+        return []
+    return [os.path.join(base, sub, "beat")
+            for sub in sorted(os.listdir(base))
+            if os.path.isdir(os.path.join(base, sub))]
+
+
+def start_health_heartbeat(env: Optional[dict[str, str]] = None,
+                           interval: float = 30.0) -> Optional[list[str]]:
+    """Touch every beat file now and then every ``interval`` seconds from
+    a daemon thread; the node's heartbeat probe flags a claim's chips
+    when its beat exists but goes stale.  The files are unlinked at
+    interpreter exit, so an exited workload reads as "no heartbeat", not
+    as a wedged one.  Opt-in and advisory.  Returns the beat paths, or
+    None."""
+    global _HEARTBEAT_THREAD, _HEARTBEAT_STOP, _HEARTBEAT_PATHS
+    e = os.environ if env is None else env
+    paths = _heartbeat_paths(e)
+    if not paths:
+        return None
+    if _HEARTBEAT_THREAD is not None and _HEARTBEAT_THREAD.is_alive():
+        return list(_HEARTBEAT_PATHS)
+    paths = [p for p in paths if _touch_heartbeat(p)]
+    if not paths:
+        return None
+    stop = threading.Event()
+
+    def beat() -> None:
+        while not stop.wait(interval):
+            for p in paths:
+                _touch_heartbeat(p)
+
+    _HEARTBEAT_STOP = stop
+    _HEARTBEAT_PATHS = list(paths)
+    _HEARTBEAT_THREAD = threading.Thread(target=beat, daemon=True,
+                                         name="health-heartbeat")
+    _HEARTBEAT_THREAD.start()
+    atexit.register(stop_health_heartbeat)
+    return list(paths)
+
+
+def stop_health_heartbeat() -> None:
+    """Stop the heartbeat thread and unlink its beat files."""
+    global _HEARTBEAT_THREAD, _HEARTBEAT_STOP, _HEARTBEAT_PATHS
+    if _HEARTBEAT_STOP is not None:
+        _HEARTBEAT_STOP.set()
+    if _HEARTBEAT_THREAD is not None:
+        _HEARTBEAT_THREAD.join(timeout=5)
+    for p in _HEARTBEAT_PATHS:
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
+    _HEARTBEAT_THREAD = None
+    _HEARTBEAT_STOP = None
+    _HEARTBEAT_PATHS = []
+
+
+def report_hbm_oom(env: Optional[dict[str, str]] = None,
+                   detail: str = "") -> list[str]:
+    """After catching its budget's ``torch.cuda.OutOfMemoryError``, a
+    tenant drops an ``oom`` sentinel beside each of its beat files; the
+    driver's tenant sweep then evicts this tenant alone while the card's
+    other tenants keep running.  Advisory: returns the sentinels
+    written, never raises."""
+    e = os.environ if env is None else env
+    written = []
+    for beat in _heartbeat_paths(e):
+        path = os.path.join(os.path.dirname(beat), "oom")
+        try:
+            parent = os.path.dirname(path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            with open(path, "w") as f:
+                f.write(detail or "workload reported HBM budget exceeded")
+            written.append(path)
+        except OSError:
+            continue
+    return written
+
+
+def init_tpu_workload(env: Optional[dict[str, str]] = None,
+                      dry_run: bool = False, *, device=None) -> dict:
+    """Apply every resource contract of the environment (``env``, default
+    ``os.environ``) in dependency order: the slot gate (fail fast, before
+    any device work), the memory budget (installed on ``device``, default
+    the card, unless it is the CPU), the priority, the heartbeat, then
+    goodput accounting; inside the
+    ``launcher.init_tpu_workload`` span parented on ``TPU_TRACEPARENT``.
+    Returns what was applied: ``{"slot", "hbm_limit_bytes", "nice",
+    "heartbeat", "goodput"}``.
+
+    ``dry_run=True`` computes without side effects: no slot is locked,
+    CUDA is not touched, the process is not reniced, no heartbeat starts
+    and no span or tracker either."""
+    failpoint.hit("launcher.init")
+    if dry_run:
+        e = dict(os.environ) if env is None else env
+        return {
+            "slot": None,
+            "hbm_limit_bytes": apply_hbm_limits(e, install=False),
+            "nice": _PRIORITY_NICE.get(
+                e.get("TPU_PROCESS_PRIORITY", ""), 0) or None,
+            "heartbeat": _heartbeat_paths(e) or None,
+        }
     with get_tracer().start_span("launcher.init_tpu_workload",
                                  parent=extract_env(env)) as span:
-        started = goodput.start_from_env(env) is not None
-        span.set_attribute("goodput", started)
-    return {"goodput": started}
+        applied = {
+            "slot": acquire_multiprocess_slot(env),
+            "hbm_limit_bytes": apply_hbm_limits(env, device=device),
+            "nice": apply_scheduling_priority(env),
+            "heartbeat": start_health_heartbeat(env),
+            "goodput": goodput.start_from_env(env) is not None,
+        }
+        span.set_attribute("slot", bool(applied["slot"]))
+        span.set_attribute("hbm_limited",
+                           applied["hbm_limit_bytes"] is not None)
+        span.set_attribute("goodput", applied["goodput"])
+    return applied

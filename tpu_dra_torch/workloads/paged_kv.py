@@ -552,23 +552,37 @@ def _pad_to(prompt, multiple: int):
     return torch.nn.functional.pad(prompt, (0, pad)) if pad else prompt
 
 
+def prefill_columns(cfg: ModelConfig, params, prompt, page_size: int):
+    """The trunk of a paged prefill: right-padded prompts ``[B, S]``
+    padded on to a page multiple (causally dead, masked by the lengths);
+    returns the KV columns ``[L, B, Hkv, S_pad, Dh]`` each of k and v,
+    and the trunk activations ``[B, S_pad, D]``."""
+    return _prefill_kv(cfg, params, _pad_to(prompt, page_size))
+
+
 def prefill_pages_hidden(cfg: ModelConfig, params, cache, prompt, table):
-    """Prefill right-padded prompts ``[B, S]`` into their pages (S padded
-    to a page multiple: causally dead, masked by the lengths), scattering
-    the KV in place; returns the trunk activations ``[B, S_pad, D]``."""
-    ks, vs, x = _prefill_kv(cfg, params,
-                            _pad_to(prompt, cache["k"].shape[3]))
+    """Prefill right-padded prompts ``[B, S]`` into their pages,
+    scattering the KV in place; returns the trunk activations
+    ``[B, S_pad, D]``."""
+    ks, vs, x = prefill_columns(cfg, params, prompt, cache["k"].shape[3])
     scatter_prefill(cache, ks, vs, table)
     return x
+
+
+def last_position_logits(params, x, lengths):
+    """The head on each row's last real position: activations
+    ``[B, S, D]`` and lengths ``[B]`` to logits ``[B, vocab]`` fp32."""
+    last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]
+    return head_logits(params, last[:, None])[:, 0]
 
 
 def prefill_pages(cfg: ModelConfig, params, cache, prompt, lengths,
                   table):
     """Prefill right-padded prompts ``[B, S]`` into their pages and
     return the last-real-position logits ``[B, vocab]``."""
-    x = prefill_pages_hidden(cfg, params, cache, prompt, table)
-    last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]
-    return head_logits(params, last[:, None])[:, 0]
+    return last_position_logits(
+        params, prefill_pages_hidden(cfg, params, cache, prompt, table),
+        lengths)
 
 
 def paged_chunked_prefill(cfg: ModelConfig, params, cache, prompt,

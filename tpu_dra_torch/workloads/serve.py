@@ -30,6 +30,16 @@ POST /prefix    (continuous) {"tokens": [...]} → {"prefix_id": id}:
              is computed once; /generate and /stream requests naming it
              prefill only their suffix (on pages the prefix's full pages
              are shared)
+POST /prefill   (continuous, paged) {"tokens": [...]} (one sequence)
+             → {"blob": base64, "length": n}: the prompt's KV pages and
+             last-position logits as a ``tpu-kv-handoff/v1`` blob
+             (``kv_handoff.py``), the prefill-pool half of disaggregated
+             serving
+POST /decode_handoff (continuous, paged) {"blob": ..., "steps": N,
+                 "temperature", "seed", "eos_id", "stop"}
+             → {"tokens": [[...]]}: imports the blob's pages and decodes,
+             the decode-pool half; the answer is /generate's for the same
+             prompt.  Admission prices it from the blob's own header
 POST /stream    (continuous, one row) chunked NDJSON: a {"token": id}
              line per generated token as it lands, then {"done": true,
              "tokens": [...]} (authoritative after a stop trim); a client
@@ -48,8 +58,9 @@ GET  /metrics → Prometheus text: request counts by path, code and
              histogram buckets
 GET  /debug/slo → multi-window error-budget burn rates (availability and
              latency objectives)
-GET  /debug/overload → drain state, admission backlog, shed counts and
-             (continuous) the engine's saturation signals
+GET  /debug/overload → the pool role (``--pool-role``), drain state,
+             admission backlog, shed counts and (continuous) the engine's
+             saturation signals
 GET  /debug/traces[?trace_id=&limit=] → Chrome trace JSON of this
              process's span ring (``tpu_dra_torch.trace``), where the
              exemplar trace ids of /metrics resolve
@@ -74,8 +85,10 @@ and pages and answers 504 (``reason: deadline_expired``).  SIGTERM
 drains: new requests shed 503, /healthz goes not-ready, in-flight ones
 finish, then the process exits.
 
-Not ported yet, each answered 404 with its ROADMAP item: /prefill and
-/decode_handoff (``kv_handoff.py``, queue 1 item 8).
+Disaggregated serving: ``--pool-role prefill|decode`` (default ``any``)
+is the role a router's probe reads on /debug/overload; every paged
+continuous server answers both /prefill and /decode_handoff whatever its
+role (an ``any`` replica serves both pools).
 
 Speculative serving: a draft (``--draft-checkpoint-dir``,
 ``--draft-params-npz`` or ``--auto-draft``) arms /speculative in every
@@ -102,6 +115,8 @@ distilled draft (:func:`resolve_auto_draft`).
 
 from __future__ import annotations
 
+import base64
+import binascii
 import json
 import os
 import threading
@@ -137,6 +152,12 @@ from tpu_dra_torch.workloads.decode import (
     decode,
     speculative_decode,
 )
+from tpu_dra_torch.workloads.kv_handoff import (
+    PrefillExporter,
+    decode_blob,
+    encode,
+    peek_prompt_len,
+)
 from tpu_dra_torch.workloads.slo import (
     Objective,
     SloTracker,
@@ -156,12 +177,8 @@ _SERVE_PATHS = frozenset((
     "/debug/traces", "/debug/jax-trace", "/stream", "/prefix", "/beam",
     "/speculative", "/prefill", "/decode_handoff", "/generate"))
 
-# endpoints of the reference not ported yet, and the ROADMAP item of each
-_NOT_PORTED = {
-    "/prefill": "the KV handoff, kv_handoff.py (ROADMAP queue 1 item 8)",
-    "/decode_handoff": "the KV handoff, kv_handoff.py (ROADMAP queue 1 "
-                       "item 8)",
-}
+# a replica's pool roles in disaggregated serving (the router's)
+POOL_ROLES = ("any", "prefill", "decode")
 
 # the longest device trace /debug/jax-trace takes, in seconds
 MAX_TRACE_S = 30
@@ -520,16 +537,20 @@ class ServeMetrics:
 def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
                  health=None, health_stale_after: float = 600.0, *,
                  metrics=None, slo=None, admission=None,
-                 default_deadline_s: float | None = None):
+                 default_deadline_s: float | None = None,
+                 prefill_exporter=None, role: str = "any"):
     """Request handler class over ``pool`` and, when given, ``engine``
-    (then /generate, /prefix and /stream run on the engine).  ``health``:
-    optional external /healthz verdict — a callable returning bool or
+    (then /generate, /prefix and /stream run on the engine, and on pages
+    /decode_handoff too).  ``health``: optional external /healthz
+    verdict — a callable returning bool or
     ``(bool, detail)`` — ANDed with the engine's decode-loop liveness.
     ``metrics`` (a :class:`ServeMetrics`) arms /metrics, ``slo`` (a
     ``SloTracker``) /debug/slo; ``admission`` (an
     ``AdmissionController``) gates the decode endpoints;
     ``default_deadline_s`` applies to requests without an
-    ``X-Deadline-Ms`` header."""
+    ``X-Deadline-Ms`` header.  ``prefill_exporter`` (a
+    ``kv_handoff.PrefillExporter``) arms /prefill; ``role`` is the pool
+    role /debug/overload advertises."""
     # one device trace at a time: a second capture answers 503
     capture_mu = threading.Lock()
 
@@ -605,6 +626,12 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
             for h in handles:     # don't strand already-submitted rows
                 engine.cancel(h)
             raise
+        return {"tokens": await_rows(handles, tenant)}
+
+    def await_rows(handles: list, tenant: str) -> list:
+        """Each engine handle's tokens, in order, once done; a timeout or
+        a failed row cancels them all and raises (DeadlineExceeded for the
+        client's deadline, a 504)."""
         out = []
         for h in handles:
             if not h.done.wait(ENGINE_REQUEST_TIMEOUT_S):
@@ -623,7 +650,7 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
             if metrics is not None:
                 metrics.observe_engine_timing(tenant, h)
             out.append(h.tokens)
-        return {"tokens": out}
+        return out
 
     def register_prefix(req: dict, tenant: str, deadline) -> dict:
         return {"prefix_id": engine.register_prefix(req["tokens"])}
@@ -642,6 +669,54 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
             int(req.get("beams", 4)), eos_id=eos_of(req),
             length_penalty=float(req.get("length_penalty", 0.0)))
         return {"tokens": hyps, "scores": scores}
+
+    def prefill(req: dict, tenant: str, deadline) -> dict:
+        toks = req["tokens"]
+        if toks and isinstance(toks[0], list):
+            if len(toks) != 1:
+                raise ValueError("/prefill takes exactly one sequence; the "
+                                 "router fans rows")
+            toks = toks[0]
+        h = prefill_exporter.export([int(t) for t in toks])
+        return {"blob": base64.b64encode(encode(h)).decode(),
+                "length": h.length}
+
+    def handoff_generate(req: dict, tenant: str, deadline) -> dict:
+        """POST /decode_handoff: import a /prefill blob and decode, the
+        decode pool's half.  The answer has /generate's shape for one
+        row, so a router splices the two hops into one /generate."""
+        try:
+            blob = base64.b64decode(req["blob"], validate=True)
+        except (binascii.Error, TypeError) as exc:
+            raise ValueError(f"blob must be base64: {exc}") from None
+        handoff = decode_blob(blob)
+        reject_engine_knobs(req)
+        try:
+            handle = engine.submit_handoff(
+                handoff, int(req.get("steps", 16)), eos_id=eos_of(req),
+                temperature=float(req.get("temperature", 0.0)),
+                seed=int(req.get("seed", 0)), stop=stop_of(req),
+                deadline=deadline)
+        except RuntimeError as exc:
+            if "draining" in str(exc):
+                raise _draining_shed(str(exc)) from None
+            raise
+        return {"tokens": await_rows([handle], tenant)}
+
+    def handoff_cost(req: dict) -> int:
+        """Admission cost of a /decode_handoff request, priced from the
+        blob's own header (``peek_prompt_len``, never the arrays) and not
+        from a field the client asserts, which could undercharge a large
+        import; ``prompt_len`` only when the blob does not parse (the
+        request then 400s).  Never raises."""
+        try:
+            steps = max(1, int(req.get("steps", 16)))
+            length = peek_prompt_len(req.get("blob") or "")
+            if length is None:
+                length = int(req.get("prompt_len", 0))
+            return max(1, length + steps)
+        except (TypeError, ValueError):
+            return 1
 
     def speculative(req: dict, tenant: str, deadline) -> dict:
         toks, passes = pool.speculative(
@@ -755,10 +830,6 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
                 self._send(status, body)
             elif path == "/debug/jax-trace":
                 self._device_trace()
-            elif path in _NOT_PORTED:
-                self._send(404, f"{path} is not ported yet: it comes with "
-                                f"{_NOT_PORTED[path]}".encode(),
-                           "text/plain")
             else:
                 self._send(404, b"not found", "text/plain")
 
@@ -800,12 +871,12 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
 
         @staticmethod
         def _overload() -> dict:
-            """Drain state, admission backlog and sheds, and the engine's
-            saturation signals (the reference's keys; the pool role is
-            "any" until the KV handoff is ported)."""
+            """The pool role (how a router's probe finds which pool this
+            replica serves), drain state, admission backlog and sheds, and
+            the engine's saturation signals (the reference's keys)."""
             out = {
                 "state": "draining" if draining() else "running",
-                "role": "any",
+                "role": role,
                 "admission": (admission.snapshot()
                               if admission is not None else None),
             }
@@ -839,16 +910,18 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
                 "serve.request", parent=self.headers.get("traceparent"),
                 attributes={"path": self.path, "tenant": tenant})
 
-        def _json_post(self, handle, admit: bool = False):
+        def _json_post(self, handle, admit: bool = False, cost_of=None):
             """Parse the JSON body, call ``handle(req, tenant, deadline)
             -> response dict``, and map failures to codes: a shed 503
             with ``Retry-After``, an expired deadline 504, bad input 400,
             an engine failure 500.  With ``admit`` the request passes the
-            admission gate first.  Every request lands in /metrics
-            before its answer is sent, so a client that has its reply
-            finds it on the next scrape.  The request runs inside its
-            ``serve.request`` span, the observations too, so a sampled
-            request's trace id rides the histograms as an exemplar."""
+            admission gate first, at ``cost_of(req)`` (default: the
+            /generate pricing of its tokens and steps).  Every request
+            lands in /metrics before its answer is sent, so a client that
+            has its reply finds it on the next scrape.  The request runs
+            inside its ``serve.request`` span, the observations too, so a
+            sampled request's trace id rides the histograms as an
+            exemplar."""
             t0 = time.perf_counter()
             code, toks, headers = 200, 0, None
             tenant = self._tenant()
@@ -863,9 +936,10 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
                                              "object")
                         deadline = self._deadline()
                         if admit and admission is not None:
-                            ticket = admission.acquire(
-                                tenant, request_cost(req.get("tokens") or [],
-                                                     req.get("steps", 16)))
+                            cost = cost_of(req) if cost_of is not None \
+                                else request_cost(req.get("tokens") or [],
+                                                  req.get("steps", 16))
+                            ticket = admission.acquire(tenant, cost)
                         if deadline is not None and \
                                 time.perf_counter() > deadline:
                             raise DeadlineExceeded(
@@ -1072,11 +1146,24 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
                 self._json_post(beam, admit=True)
             elif path == "/speculative":
                 self._json_post(speculative, admit=True)
-            elif path in _NOT_PORTED:
-                self._drain_body()
-                self._send(404, json.dumps(
-                    {"error": f"{path} is not ported yet: it comes with "
-                              f"{_NOT_PORTED[path]}"}).encode())
+            elif path == "/prefill":
+                if prefill_exporter is None:
+                    self._drain_body()
+                    self._send(400, json.dumps(
+                        {"error": "prefill export needs --continuous with "
+                                  "--kv-layout paged (the page table makes "
+                                  "the KV addressable)"}).encode())
+                    return
+                self._json_post(prefill, admit=True)
+            elif path == "/decode_handoff":
+                if engine is None or engine.kv_layout != "paged":
+                    self._drain_body()
+                    self._send(400, json.dumps(
+                        {"error": "KV-handoff decode needs --continuous "
+                                  "with --kv-layout paged"}).encode())
+                    return
+                self._json_post(handoff_generate, admit=True,
+                                cost_of=handoff_cost)
             else:
                 self._drain_body()
                 self._send(404, b"not found", "text/plain")
@@ -1105,7 +1192,7 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
           admission_max_cost: int | None = None,
           admission_burst_fraction: float = 0.7,
           default_deadline_s: float | None = None,
-          drain_grace_s: float = 25.0,
+          drain_grace_s: float = 25.0, pool_role: str = "any",
           device=None) -> ThreadingHTTPServer:
     """Start the server on a daemon thread and return it (``.shutdown()``
     stops the server, the SLO sampler and the engine; ``.drain()`` runs
@@ -1125,7 +1212,13 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
     cost (prompt + max new tokens) is bounded and excess sheds 503 with
     ``Retry-After``.  /debug/slo holds availability (non-5xx, 504 client
     deadlines excluded) to ``slo_availability_target`` and latency under
-    ``slo_latency_threshold`` seconds to ``slo_latency_target``."""
+    ``slo_latency_threshold`` seconds to ``slo_latency_target``.
+    ``pool_role`` (any, prefill or decode) is advertised on
+    /debug/overload; a paged engine arms /prefill and /decode_handoff
+    whatever the role."""
+    if pool_role not in POOL_ROLES:
+        raise ValueError(f"pool_role must be any|prefill|decode, got "
+                         f"{pool_role!r}")
     if kv_layout != "slab" and not continuous:
         raise ValueError("--kv-layout paged requires --continuous (the "
                          "bucketed pool has no paged mode); without it "
@@ -1148,6 +1241,13 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
             total_pages=total_pages,
             draft=draft if speculative_engine else None,
             logit_bias=logit_bias, device=device)
+    prefill_exporter = None
+    if engine is not None and engine.kv_layout == "paged":
+        # the engine's own weights on its device: the exported pages are
+        # what a local admission writes
+        prefill_exporter = PrefillExporter(
+            cfg, engine.params, page_size=engine.pool.page_size,
+            max_len=engine.max_len, device=engine.device)
     metrics = ServeMetrics()
     # shed 503s burn the availability budget (the server refused work);
     # 504s do not (the client's deadline passed) and are attributed in
@@ -1175,7 +1275,8 @@ def serve(cfg: ModelConfig, params, *, host: str = "127.0.0.1",
         srv = _Server((host, port), make_handler(
             pool, engine, health, health_stale_after, metrics=metrics,
             slo=slo, admission=admission,
-            default_deadline_s=default_deadline_s))
+            default_deadline_s=default_deadline_s,
+            prefill_exporter=prefill_exporter, role=pool_role))
     except OSError:
         slo.stop()
         if engine is not None:
@@ -1424,7 +1525,9 @@ def main(argv=None) -> int:
     --vocab 32768 ...`` (the flags must describe the model the weights
     belong to; without ``--continuous`` /generate runs on the bucketed
     pool).  Calls ``launcher.init_tpu_workload()`` before it loads the
-    weights (``TPU_TRACEPARENT``, ``TPU_GOODPUT_FILE``)."""
+    weights: the driver's process slot, memory budget (on the serving
+    device), priority and heartbeat, ``TPU_TRACEPARENT`` and
+    ``TPU_GOODPUT_FILE``; a process past its pool's slots exits there."""
     import argparse
     import signal
 
@@ -1513,6 +1616,11 @@ def main(argv=None) -> int:
                     help="deadline of requests without an X-Deadline-Ms "
                          "header; past it the engine aborts the request "
                          "and frees its slot (504).  Unset: none")
+    ap.add_argument("--pool-role", default="any", choices=POOL_ROLES,
+                    help="the disaggregated-serving pool role advertised on "
+                         "/debug/overload: a router sends whole requests to "
+                         "'any', prefill-only work to 'prefill' and "
+                         "KV-handoff decodes to 'decode'")
     ap.add_argument("--drain-grace", type=float, default=25.0,
                     help="SIGTERM drain budget in seconds: admission "
                          "closes and /healthz goes not-ready at once, "
@@ -1589,7 +1697,7 @@ def main(argv=None) -> int:
         if not args.continuous:
             ap.error("--logit-bias needs --continuous (an engine-global "
                      "knob; the bucketed pool has no bias path)")
-    init_tpu_workload()
+    init_tpu_workload(device=args.device)
     cfg = ModelConfig(vocab=args.vocab, d_model=args.d_model,
                       n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
                       n_layers=args.n_layers, d_ff=args.d_ff,
@@ -1642,7 +1750,8 @@ def main(argv=None) -> int:
                 admission_burst_fraction=args.admission_burst_fraction,
                 default_deadline_s=(None if args.default_deadline_ms is None
                                     else args.default_deadline_ms / 1e3),
-                drain_grace_s=args.drain_grace, device=args.device)
+                drain_grace_s=args.drain_grace, pool_role=args.pool_role,
+                device=args.device)
     if args.warmup:
         print(f"warmed {srv.engine.warmup()} prompt buckets", flush=True)
     stop = threading.Event()
@@ -1651,7 +1760,11 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     print(f"serving on {srv.server_address}", flush=True)
     try:
-        stop.wait()
+        # a timed wait: the kernel may deliver SIGTERM to any thread, and
+        # Python runs the handler only when the main thread wakes; an
+        # untimed wait can sleep through it
+        while not stop.wait(0.2):
+            pass
     except KeyboardInterrupt:
         pass
     # the rolling-restart drain: new requests shed 503 and /healthz goes

@@ -81,14 +81,17 @@ Phases (each prints as it goes; any failed check exits non-zero):
      fp32 parameters from a seed) on a synthetic token file: first one
      step's loss and gradients with the flash kernels against the same
      step with plain dense attention, then fit() for 10 steps at batch 16
-     with finite, falling losses and n_layers x steps launches of each
-     flash kernel; then (informational) the same fit with dense attention
-     and one step under torch.profiler;
+     with finite, falling losses, the flash forward launched 2 x
+     n_layers x steps times (the trunk's remat recomputes it in the
+     backward) and each backward kernel n_layers x steps times; then
+     (informational) the same fit with dense attention and one step
+     under torch.profiler;
   9. the fused training path (norm_impl="fused", and the fused flash
      backward selected through flash.TUNE_FILE): one step against the
      split/plain-pair step of phase 8, then 10 make_train_step steps on
      [16, 1025] windows with finite, falling losses, exactly 2 x n_layers
-     norm-matmul and n_layers fused-backward launches a step and no split
+     norm-matmul launches (never recomputed), 2 x n_layers flash forwards
+     and n_layers fused-backward launches a step and no split
      launch; two steps from the seed run again must give bit-equal losses;
      its step time beside phase 8's, and one profiled step;
  10. a short GQA training run (8 heads over 2 kv heads, d_head 128, rope,
@@ -110,12 +113,16 @@ Phases (each prints as it goes; any failed check exits non-zero):
  13. DP×TP on Mesh({"dp": 1, "tp": 4}): the flagship's
      make_sharded_train_step(attn_impl="flash",
      matmul_impl="fused_collective") step against the dense sharded step,
-     then 10 SGD steps with exact ring launch counts, its step time beside
+     then 10 SGD steps with exact ring launch counts (no ring runs again
+     in the backward) and 2 x n_layers flash forwards a step, its step
+     time beside
      the dense step's, and one profiled step (the ring kernels' device
      time and the step's idle share);
  14. DP×SP on Mesh({"dp": 1, "sp": 4}): make_ring_train_step(ring_impl=
      "flash", hop_impl="pallas") bit-equal to hop_impl="xla", held to the
-     one-device flash step, then 10 steps with an exact shift count;
+     one-device flash step, then 10 steps with an exact shift count
+     (6·(n−1)·L a step: each block recomputed whole in the backward, as
+     the reference's jax.checkpoint(block));
  15. the quantized weight forms (quant.py) at the serving model's matmul
      shapes (K x N of wqkv, wo, w1, w2 and unembed; 8, 32 and 256 rows):
      the int8 product through torch._int_mm bit-equal to its plain int32
@@ -177,7 +184,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
      removed as a preemption mid-save leaves it, then fit(resume=True)
      for 3 steps: it must start at step 3, sweep the unmarked step, and
      give losses 4-6 and step 6's parameters and AdamW moments bit-equal
-     to the uninterrupted run's, each flash kernel launched n_layers x
+     to the uninterrupted run's, the flash forward launched 2 x n_layers
+     x steps times and each backward kernel n_layers x
      steps times; save and restore seconds and bytes printed; (b) the
      fit command line trains phase 4's serving model 20 steps (flash,
      batch 8) and saves it; the server command line serves that
@@ -217,9 +225,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
      greedy_decode under argmax_tol, the passes printed; (d) the server
      command line on phase 4's engine (int8 weights from seed 0; a
      process of its own, whose only profiler is the server's: in this
-     process, after the earlier phases, most torch.profiler sessions
-     record no kernel at all, on a server thread and on the main thread
-     alike; ROADMAP.md §3): one request with a traceparent, its
+     process, after the earlier phases, loaded sessions have come back
+     with runtime records and no kernel record at all, a fault not yet
+     explained; ROADMAP.md §3): one request with a traceparent, its
      serve.request and serve.engine.decode spans on /debug/traces, an
      exemplar trace id of an OpenMetrics scrape that resolves there, and
      one /debug/jax-trace?seconds=1 taken while 8 requests run, holding
@@ -253,7 +261,21 @@ Phases (each prints as it goes; any failed check exits non-zero):
      non-zero with the slot error; the tenants' heartbeat files are
      gone after their SIGTERM exit; a child under the same budget
      allocates half of it, then past it, gets torch.cuda.OutOfMemoryError
-     and drops the oom sentinel, its heartbeat advancing.
+     and drops the oom sentinel, its heartbeat advancing;
+ 22. packed training at full width: the phase-8 flagship with dense
+     attention (the reference's packed path: the flash kernels have no
+     segment mask, so this path runs no hand-written kernel) on [16,
+     1025] rows that data.pack_documents packs from documents of 17-700
+     tokens: one packed_loss_fn loss and gradient, every leaf finite; the
+     packed loss equal to the token-weighted mean of the same documents'
+     losses taken alone within PACK_LOSS_ATOL; a packed row's trunk
+     activations at one document's positions equal to that document run
+     alone within STEP_LEAF_REL relative L2; the padding token's
+     embedding row without gradient (its positions see only padding and
+     predict nothing); its seconds and peak memory printed.  Two broken
+     variants show the checks catch them: without the segment mask the
+     document's activations depart past STEP_LEAF_REL, and without the
+     valid mask the padding row gets a gradient.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -1160,7 +1182,8 @@ def fit_phase(cfg, data_path: str, steps: int, batch: int, label: str,
     """fit() with attn_impl="flash"; the flash launch counts are zeroed
     just before and read just after.  Fails unless every logged loss is
     finite, the last is below the first, and each kernel launched
-    n_layers x steps times."""
+    2 x n_layers x steps times (forward, and its recompute in the
+    backward) and each backward kernel n_layers x steps times."""
     import math
 
     import torch
@@ -1190,10 +1213,11 @@ def fit_phase(cfg, data_path: str, steps: int, batch: int, label: str,
         fail(f"{label}: losses {res.losses}")
     if not res.losses[-1] < res.losses[0]:
         fail(f"{label}: loss did not fall: {res.losses}")
-    want = cfg.n_layers * steps
-    if any(n != want for n in launches.values()):
-        fail(f"{label}: flash launches {launches}, expected {want} each "
-             f"(n_layers {cfg.n_layers} x steps {steps})")
+    want = flash_want(cfg.n_layers * steps)
+    if launches != want:
+        fail(f"{label}: flash launches {launches}, expected {want} "
+             f"(n_layers {cfg.n_layers} x steps {steps}, the forward "
+             f"twice under remat)")
     times = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     step_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
     tok_step = batch * cfg.max_seq
@@ -1204,8 +1228,8 @@ def fit_phase(cfg, data_path: str, steps: int, batch: int, label: str,
         f"{res.tokens_per_s:.0f}, steady {tok_step / step_s:.0f}; "
         f"6·N·tokens/time/989e12 = "
         f"{6 * n_params * tok_step / step_s / BF16_FLOPS_PER_S:.3f}; "
-        f"peak memory {peak_gb:.1f} GB; flash launches {launches} "
-        f"(informational)")
+        f"peak memory (max_memory_allocated) {peak_gb:.2f} GB; flash "
+        f"launches {launches} (informational)")
     return {"launches": launches, "losses": res.losses, "step_ms":
             1e3 * step_s, "tokens_per_s": res.tokens_per_s, "peak_gb":
             peak_gb, "n_params": n_params}
@@ -1364,8 +1388,10 @@ def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
     for ``steps`` steps on ``data.batches`` windows [batch, S + 1]; the
     kernels' launch counts are zeroed just before and read just after.
     Fails unless every loss is finite, the last is below the first, each
-    layer ran the norm-matmul kernel twice and the fused backward once a
-    step, neither split backward kernel ran, and the first two steps, run
+    layer ran the norm-matmul kernel twice (its outputs kept by the
+    remat, never run again), the flash forward twice (once more in the
+    backward's recompute) and the fused backward once a step, neither
+    split backward kernel ran, and the first two steps, run
     again from the seed, give bit-equal losses."""
     import math
 
@@ -1428,7 +1454,7 @@ def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
         fail(f"fused path: loss did not fall: {losses}")
     want = {"rmsnorm_matmul": 2 * cfg.n_layers * steps,
             "flash_bwd_fused": cfg.n_layers * steps,
-            "flash_fwd": cfg.n_layers * steps, "flash_bwd_dq": 0,
+            "flash_fwd": 2 * cfg.n_layers * steps, "flash_bwd_dq": 0,
             "flash_bwd_dkdv": 0}
     if launches != want:
         fail(f"fused path: launches {launches}, expected {want}")
@@ -1442,8 +1468,8 @@ def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
         f"the split path's fit step in this run; steady "
         f"{tok_step / step_s:.0f} tokens/s; 6·N·tokens/time/989e12 = "
         f"{6 * n_params * tok_step / step_s / BF16_FLOPS_PER_S:.3f}; peak "
-        f"memory {peak_gb:.1f} GB; launches {launches} (informational "
-        f"times)")
+        f"memory (max_memory_allocated) {peak_gb:.2f} GB; launches "
+        f"{launches} (informational times)")
     del params, state
     torch.cuda.empty_cache()
     return {"launches": launches, "losses": losses, "step_ms": 1e3 * step_s,
@@ -1453,6 +1479,7 @@ def fused_train_phase(cfg, data_path: str, tune_path: Path, steps: int,
 def train_phase(gen, tmp: Path) -> tuple:
     from tpu_dra_torch.workloads.train import ModelConfig
     cfg = ModelConfig(**TRAIN_MODEL)
+    t0 = time.perf_counter()
     data_path = write_tokens(tmp / "tokens.bin", cfg.vocab)
     log(f"[train] synthetic corpus: {TOKENS} uint16 tokens (64-token motif, "
         f"5% noise, seed {SEED})")
@@ -1461,6 +1488,8 @@ def train_phase(gen, tmp: Path) -> tuple:
                     "flagship", n)
     dense_curve(cfg, data_path, run["losses"])
     profile_step(cfg, data_path, TRAIN_RUN["batch"])
+    log(f"[time] phase 8 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     tune_path = tmp / "flash_tune.json"
     tune_path.write_text(json.dumps(FUSED_TUNE))
     fused_compare_step(gen, cfg, data_path, TRAIN_RUN["batch"], tune_path)
@@ -1469,10 +1498,13 @@ def train_phase(gen, tmp: Path) -> tuple:
     with fused_backward(tune_path):
         profile_step(cfg, data_path, TRAIN_RUN["batch"], "fused-path",
                      norm_impl="fused")
+    log(f"[time] phase 9 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     gcfg = ModelConfig(**GQA_MODEL)
     n = compare_step(gen, gcfg, data_path, GQA_RUN["batch"], "GQA")
     gqa_run = fit_phase(gcfg, data_path, GQA_RUN["steps"], GQA_RUN["batch"],
                         "GQA", n)
+    log(f"[time] phase 10 {time.perf_counter() - t0:.1f} s")
     return run, fused, gqa_run
 
 
@@ -2008,8 +2040,9 @@ def sharded_phase(gen, data_path: str) -> dict:
     windows with finite, falling losses and exactly 4·L·n gather and
     4·L·n reduce-scatter launches a step (4·L calls of each: the forward's
     two, and each one's backward through the other; n = 4 launches a
-    call; no remat), then the dense sharded step's time beside it and one
-    profiled step."""
+    call; the remat keeps their outputs, so none runs again) and the flash
+    forward 2·L times a step (the remat recomputes it), then the dense
+    sharded step's time beside it and one profiled step."""
     import torch
 
     from tpu_dra_torch.workloads import collective_matmul as cm
@@ -2047,8 +2080,7 @@ def sharded_phase(gen, data_path: str) -> dict:
                      windows[1:], counters)
     want = {"all_gather_matmul": 4 * L * n * steps,
             "matmul_reduce_scatter": 4 * L * n * steps,
-            "flash_fwd": L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkdv": L * steps}
+            **flash_want(L * steps)}
     if run["launches"] != want:
         fail(f"DP×TP fused collective: launches {run['launches']}, "
              f"expected {want}")
@@ -2064,10 +2096,11 @@ def sharded_phase(gen, data_path: str) -> dict:
             f"{tok_step / r['step_ms'] * 1e3:.0f} tokens/s, "
             f"6·N·tokens/time/989e12 = "
             f"{6 * n_params * tok_step / r['step_ms'] * 1e3 / BF16_FLOPS_PER_S:.3f}"
-            f", peak memory {r['peak_gb']:.1f} GB (informational)")
+            f", peak memory (max_memory_allocated) {r['peak_gb']:.2f} GB "
+            f"(informational)")
     log(f"[train] DP×TP fused collective: launches over {steps} steps "
-        f"{run['launches']} (exact: 4·L·n per matmul kernel, L per flash "
-        f"kernel a step)")
+        f"{run['launches']} (exact: 4·L·n per matmul kernel, 2·L flash "
+        f"forwards and L of each flash backward kernel a step)")
     state = {"p": run["params"]}
 
     def one():
@@ -2094,8 +2127,10 @@ def ring_phase(gen, data_path: str) -> dict:
     (loss within STEP_LOSS_ATOL; gradients, the update over lr·n_ranks as
     the reference's summed replica gradients carry the rank count, within
     STEP_LEAF_REL); then SHARDED_RUN steps with finite, falling losses and
-    exactly 4·(n − 1)·L shift launches a step (2·(n − 1)·L forward, as
-    many backward, no remat), and one profiled step."""
+    exactly 6·(n − 1)·L shift launches a step (2·(n − 1)·L forward, as
+    many again when the backward recomputes each block, the reference's
+    full remat, and as many backward), 2·n·L flash forwards and n·L of
+    each backward kernel, and one profiled step."""
     import torch
 
     from tpu_dra_torch.workloads import collective_matmul as cm
@@ -2139,9 +2174,8 @@ def ring_phase(gen, data_path: str) -> dict:
     run = train_loop("DP×SP ring flash", lambda p, w: step(p, w[:, :-1],
                                                            w[:, 1:]),
                      params, windows[1:], counters)
-    want = {"ring_shift": 4 * (n - 1) * L * steps,
-            "flash_fwd": n * L * steps, "flash_bwd_dq": n * L * steps,
-            "flash_bwd_dkdv": n * L * steps}
+    want = {"ring_shift": 6 * (n - 1) * L * steps,
+            **flash_want(n * L * steps)}
     if run["launches"] != want:
         fail(f"DP×SP ring flash: launches {run['launches']}, expected {want}")
     tok_step = batch * cfg.max_seq
@@ -2149,9 +2183,9 @@ def ring_phase(gen, data_path: str) -> dict:
         f"{run['step_ms']:.1f} ms (median of steps 2-{steps}; first "
         f"{run['first_ms']:.1f} ms), steady "
         f"{tok_step / run['step_ms'] * 1e3:.0f} tokens/s, peak memory "
-        f"{run['peak_gb']:.1f} GB; launches {run['launches']} (exact: "
-        f"4·(n−1)·L shifts, n·L of each flash kernel a step; informational "
-        f"times)")
+        f"(max_memory_allocated) {run['peak_gb']:.2f} GB; launches "
+        f"{run['launches']} (exact: 6·(n−1)·L shifts, 2·n·L flash forwards, "
+        f"n·L of each backward kernel a step; informational times)")
     state = {"p": run["params"]}
 
     def one():
@@ -3012,6 +3046,15 @@ def read_counts(counters: dict) -> dict:
     return {name: fn.launches for name, fn in counters.items()}
 
 
+def flash_want(calls: int) -> dict:
+    """The flash launches of ``calls`` attention calls in training steps
+    under the trunk's remat (``train.remat``, the reference's policy):
+    the backward recomputes each call's forward, so the forward kernel
+    runs twice a call and each backward kernel once."""
+    return {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+            "flash_bwd_dkdv": calls}
+
+
 def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
@@ -3036,8 +3079,9 @@ def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
     commit marker is removed (a preemption mid-save); fit(resume=True)
     for 3 steps must start at 3, sweep the unmarked step 6, and give
     losses 4-6 and step 6's parameters and moments bit-equal to the
-    uninterrupted run's; each run launches each flash kernel n_layers x
-    steps times.  The whole of it runs under goodput accounting
+    uninterrupted run's; each run launches the flash forward 2 x n_layers
+    x steps times (the remat's recompute) and each backward kernel
+    n_layers x steps times.  The whole of it runs under goodput accounting
     (TPU_GOODPUT_FILE in the environment given to ``start_from_env``),
     whose segments phase 20e holds to the times printed here."""
     import shutil
@@ -3073,10 +3117,10 @@ def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
                   log_every=1, checkpoint_dir=str(ck),
                   checkpoint_every=every, resume=resume, log_fn=record)
         launches = read_counts(counters)
-        want = cfg.n_layers * n
-        if any(v != want for v in launches.values()):
+        want = flash_want(cfg.n_layers * n)
+        if launches != want:
             fail(f"resume: flash launches {launches} over {n} steps, "
-                 f"expected {want} each")
+                 f"expected {want}")
         return res, launches
 
     log(f"[resume] disk free under {tmp}: "
@@ -3378,9 +3422,9 @@ def lora_phase(ck: Path, data_path: str, prompts: list, card: str) -> dict:
         losses.append(float(loss))
     step_s = (time.perf_counter() - t0) / LORA_RUN["steps"]
     launches = read_counts(counters)
-    want = cfg.n_layers * LORA_RUN["steps"]
-    if any(v != want for v in launches.values()):
-        fail(f"lora: flash launches {launches}, expected {want} each")
+    want = flash_want(cfg.n_layers * LORA_RUN["steps"])
+    if launches != want:
+        fail(f"lora: flash launches {launches}, expected {want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"lora: losses {losses}")
     if not all(torch.equal(a, b) for a, b in zip(before, tree_leaves(base))):
@@ -3566,10 +3610,12 @@ SPEC_K = 4
 # logits: held to 2^-5 a token
 BEAM_FORCED_TOL_PER_TOKEN = 2 ** -5
 TRACE_REQUESTS = 8
-# long enough that the decode outlasts the profiler's start on the
-# server's thread (1-2 s under load) and the 1 s window after it: with
-# 128 steps a run on the card saw the decode end before the window began
-TRACE_STEPS = 512
+# each client sends requests of TRACE_STEPS steps one after another until
+# the capture has answered, so the decode outlasts the profiler's start on
+# the server's thread however long it takes (1-2 s under load once; one
+# run on the card had 8 single requests of 512 steps end before the
+# window began, the capture answering 28.3 s after it was asked)
+TRACE_STEPS = 128
 PAGED_KERNEL = ("paged_span_kernel", "paged_combine_kernel")
 
 
@@ -3778,11 +3824,21 @@ def server_port(label: str, server: dict) -> int:
     return int(re.search(r", (\d+)\)", ready[0]).group(1))
 
 
-def stop_server(label: str, server: dict) -> None:
-    """SIGTERM: the server must drain and exit 0 within 120 s."""
+def terminate(server: dict) -> None:
+    """One SIGTERM to a launched server that still runs, never a second:
+    a server that has drained and returned finalizes with the default
+    SIGTERM disposition, so a second signal then kills it (-15)."""
     proc = server["proc"]
-    if proc.poll() is None:
+    if proc.poll() is None and not server.get("terminated"):
         proc.send_signal(signal.SIGTERM)
+        server["terminated"] = True
+
+
+def stop_server(label: str, server: dict) -> None:
+    """SIGTERM (:func:`terminate`): the server must drain and exit 0
+    within 120 s."""
+    proc = server["proc"]
+    terminate(server)
     try:
         proc.wait(120)
     except subprocess.TimeoutExpired:
@@ -3800,9 +3856,10 @@ def trace_check(cfg, card: str) -> dict:
     request with a traceparent whose serve.request and
     serve.engine.decode spans /debug/traces returns; an OpenMetrics
     scrape whose exemplar trace id resolves there;
-    /debug/jax-trace?seconds=1 taken while 8 requests run, holding CUDA
-    kernel events, kernel #1's among them.  Returns the kernel's
-    launches in this drive (the server's /stats)."""
+    /debug/jax-trace?seconds=1 taken while 8 clients keep requests
+    running (each one after another until the capture has answered),
+    holding CUDA kernel events, kernel #1's among them.  Returns the
+    kernel's launches in this drive (the server's /stats)."""
     import io
     import tarfile
 
@@ -3835,26 +3892,32 @@ def trace_check(cfg, card: str) -> dict:
         if not resolved or "openmetrics" not in hdrs.get("Content-Type", ""):
             fail(f"trace: the OpenMetrics scrape's exemplar ids {ids} do not "
                  f"resolve on /debug/traces")
-        results: dict = {}
+        results: dict = {i: [] for i in range(TRACE_REQUESTS)}
+        captured = threading.Event()
 
         def client(i):
-            results[i] = call(port, "/generate",
-                              {"tokens": [prompts[i]],
-                               "steps": TRACE_STEPS})[0]
+            while not captured.is_set():
+                results[i].append(call(port, "/generate",
+                                       {"tokens": [prompts[i]],
+                                        "steps": TRACE_STEPS})[0])
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(TRACE_REQUESTS)]
         for t in threads:
             t.start()
         time.sleep(0.3)
         t0 = time.perf_counter()
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{port}/debug/jax-trace?seconds=1",
-                timeout=300) as resp:
-            body, hdrs = resp.read(), resp.headers
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/debug/jax-trace?seconds=1",
+                    timeout=300) as resp:
+                body, hdrs = resp.read(), resp.headers
+        finally:
+            captured.set()
         capture_s = time.perf_counter() - t0
         for t in threads:
             t.join(600)
-        if any(results.get(i) != 200 for i in range(TRACE_REQUESTS)):
+        codes = [c for i in range(TRACE_REQUESTS) for c in results[i]]
+        if not codes or any(c != 200 for c in codes):
             fail(f"trace: the requests under the capture answered {results}")
         with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
             members = tar.getnames()
@@ -3871,7 +3934,8 @@ def trace_check(cfg, card: str) -> dict:
     log(f"[trace] a traceparent's serve.request and serve.engine.decode "
         f"spans on /debug/traces; {len(resolved)} exemplar trace id(s) of "
         f"the OpenMetrics scrape resolve there; /debug/jax-trace?seconds=1 "
-        f"under {TRACE_REQUESTS} requests: {len(body)} bytes ({members}), "
+        f"under {TRACE_REQUESTS} clients ({len(codes)} requests of "
+        f"{TRACE_STEPS} steps): {len(body)} bytes ({members}), "
         f"{len(events)} events, {len(kernels)} CUDA kernel events, "
         f"{len(ours)} of kernel #1 ({hdrs['X-Trace-Kernel-Events']} by the "
         f"server's count), answered in {capture_s:.2f} s; kernel #1 "
@@ -4314,8 +4378,7 @@ def tenants_phase(card: str) -> None:
                 f"{third.stderr.strip().splitlines()[-1]}")
         finally:
             for p in procs.values():
-                if p["proc"].poll() is None:
-                    p["proc"].send_signal(signal.SIGTERM)
+                terminate(p)
             for name, p in procs.items():
                 stop_server(name, p)
         for name in procs:
@@ -4340,6 +4403,167 @@ def tenants_phase(card: str) -> None:
             f"sentinel written ({sentinel.read_text()[:80]!r}...); its "
             f"heartbeat advanced; it took slot {got['slot']} once the tenants "
             f"had exited")
+
+
+# ---------------------------------------------------------------------------
+# phase 22: packed training at full width
+# ---------------------------------------------------------------------------
+
+# documents' lengths (uniform, inclusive) and the packed batch [rows, seq]
+PACK_DOC_LENGTHS = (17, 700)
+PACK_RUN = dict(rows=16, seq=1025)
+# the packed loss against the isolated documents' token-weighted mean
+# (|d| 5.21e-06 at the flagship on an H100 80GB HBM3, 700 W: a twentieth
+# of the bound)
+PACK_LOSS_ATOL = 1e-4
+
+
+def packed_rows(vocab: int) -> tuple:
+    """``data.pack_documents`` over documents of PACK_DOC_LENGTHS tokens
+    (ids 1..vocab-1, seed SEED + 22), a little more than PACK_RUN's rows
+    hold; the first ``rows`` rows as numpy (tokens, segment ids,
+    positions)."""
+    import numpy as np
+
+    from tpu_dra_torch.workloads.data import pack_documents
+    rows, seq = PACK_RUN["rows"], PACK_RUN["seq"]
+    lo, hi = PACK_DOC_LENGTHS
+    rng = np.random.default_rng(SEED + 22)
+    docs, total = [], 0
+    while total < 1.1 * rows * seq:
+        n = int(rng.integers(lo, hi + 1))
+        docs.append(rng.integers(1, vocab, n))
+        total += n
+    toks, segs, pos = pack_documents(docs, seq)
+    return toks[:rows], segs[:rows], pos[:rows]
+
+
+def packed_variant(cfg, params, toks, segs, pos, *, segments: bool = True,
+                   valid: bool = True):
+    """``train.packed_loss_fn`` broken on purpose: the same mean NLL of
+    the packed rows, without the segment mask in the attention
+    (``segments=False``) or with every prediction counted
+    (``valid=False``)."""
+    from tpu_dra_torch.workloads.train import _trunk, head_nll
+    trunk = _trunk(cfg, params, toks[:, :-1],
+                   segment_ids=segs[:, :-1] if segments else None,
+                   positions=pos[:, :-1])
+    nll = head_nll(params, trunk, toks[:, 1:].long())[..., 0]
+    if not valid:
+        return nll.mean()
+    keep = ((segs[:, :-1] == segs[:, 1:]) & (segs[:, :-1] > 0)).float()
+    return (nll * keep).sum() / keep.sum()
+
+
+def packed_phase(card: str) -> dict:
+    """Phase 22: ``train.packed_loss_fn`` on the flagship (dense
+    attention, learned positions) over :func:`packed_rows`: one loss and
+    gradient with every leaf finite; the loss against the token-weighted
+    mean of ``loss_fn`` over each document alone (within
+    PACK_LOSS_ATOL); the trunk of row 0 at its second document's
+    positions against that document alone (relative L2 within
+    STEP_LEAF_REL); no gradient in the padding token's embedding row.
+    Then the same loss without the segment mask and without the valid
+    mask (:func:`packed_variant`): the first must fail the activation
+    check and the second the padding row's, else the checks could not
+    see those faults."""
+    import torch
+
+    from tpu_dra_torch.workloads.train import (ModelConfig, _trunk,
+                                               init_params, loss_fn,
+                                               packed_loss_fn, tree_leaves,
+                                               value_and_grad)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    params = init_params(cfg, gen)
+    toks, segs, pos = (torch.from_numpy(a).to("cuda")
+                       for a in packed_rows(cfg.vocab))
+    n_docs = int((segs.amax(dim=1)).sum())
+    fill = float((segs > 0).float().mean())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(
+        lambda p: packed_loss_fn(cfg, p, toks, segs, pos), params)
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pad_grad = float(grads["embed"][0].abs().max())
+    del grads
+    if not finite or not bool(torch.isfinite(loss)):
+        fail(f"packed: loss {float(loss)} or a gradient leaf not finite")
+    total, count = 0.0, 0
+    with torch.no_grad():
+        for r in range(toks.shape[0]):
+            for sid in range(1, int(segs[r].max()) + 1):
+                doc = toks[r][segs[r] == sid]
+                if len(doc) > 1:
+                    total += float(loss_fn(cfg, params, doc[None])) \
+                        * (len(doc) - 1)
+                    count += len(doc) - 1
+        want = total / count
+        dl = abs(float(loss) - want)
+        S = toks.shape[1] - 1
+        row = _trunk(cfg, params, toks[:1, :S], segment_ids=segs[:1, :S],
+                     positions=pos[:1, :S])
+        at = int(torch.nonzero(segs[0] == 2)[0])
+        n = min(int((segs[0] == 2).sum()), S - at)
+        alone = _trunk(cfg, params, toks[:1, at:at + n])
+        got = row[0, at:at + n].float()
+        ref = alone[0].float()
+        rel = float((got - ref).norm() / ref.norm())
+        max_abs = float((got - ref).abs().max())
+        unmasked = _trunk(cfg, params, toks[:1, :S], positions=pos[:1, :S])
+        got = unmasked[0, at:at + n].float()
+        rel_unmasked = float((got - ref).norm() / ref.norm())
+        dl_unmasked = abs(float(packed_variant(cfg, params, toks, segs, pos,
+                                               segments=False)) - want)
+    loss_all, grads = value_and_grad(
+        lambda p: packed_variant(cfg, p, toks, segs, pos, valid=False),
+        params)
+    pad_grad_all = float(grads["embed"][0].abs().max())
+    dl_all = abs(float(loss_all) - want)
+    del grads
+    log(f"[packed] flagship, dense attention, {n_docs} documents of "
+        f"{PACK_DOC_LENGTHS[0]}-{PACK_DOC_LENGTHS[1]} tokens packed into "
+        f"{list(toks.shape)} rows ({fill:.3f} of the positions filled): "
+        f"packed loss {float(loss):.5f}, every gradient leaf finite: "
+        f"{finite}; loss and gradient {1e3 * step_s:.1f} ms (first call), "
+        f"peak memory (max_memory_allocated) {peak_gb:.2f} GB; on {card}")
+    log(f"[packed] token-weighted mean of the {n_docs} documents' own "
+        f"losses {want:.5f} over {count} predictions: |d| {dl:.2e} "
+        f"(tolerance {PACK_LOSS_ATOL}); row 0's second document ({n} "
+        f"tokens at {at}) against it alone: relative L2 {rel:.3e} "
+        f"(tolerance {STEP_LEAF_REL}), max |d| {max_abs:.3e}; the padding "
+        f"token's embedding row's largest gradient {pad_grad:.3e} (must be "
+        f"0)")
+    log(f"[packed] broken on purpose: without the segment mask the "
+        f"document departs by relative L2 {rel_unmasked:.3e} (must pass "
+        f"{STEP_LEAF_REL}) and the loss by |d| {dl_unmasked:.2e}; without "
+        f"the valid mask the padding row's largest gradient is "
+        f"{pad_grad_all:.3e} (must not be 0) and the loss departs by |d| "
+        f"{dl_all:.2e} (tolerance {PACK_LOSS_ATOL})")
+    if dl > PACK_LOSS_ATOL:
+        fail(f"packed: loss {float(loss)} against the isolated documents' "
+             f"{want}")
+    if rel > STEP_LEAF_REL:
+        fail(f"packed: the packed row's activations depart from the "
+             f"document alone by {rel}")
+    if pad_grad:
+        fail(f"packed: the padding token's embedding row has gradient "
+             f"{pad_grad}")
+    if rel_unmasked <= STEP_LEAF_REL or not pad_grad_all:
+        fail(f"packed: a check misses a broken mask (without segments "
+             f"relative L2 {rel_unmasked}, without the valid mask the "
+             f"padding row's gradient {pad_grad_all})")
+    del params
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "isolated": want, "rel": rel,
+            "rel_unmasked": rel_unmasked, "pad_grad_all": pad_grad_all,
+            "step_ms": 1e3 * step_s, "peak_gb": peak_gb}
 
 
 def main() -> int:
@@ -4459,8 +4683,12 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         trained, fused, gqa_run = train_phase(gen, Path(tmp))
+        t0 = time.perf_counter()
         sharded = sharded_phase(gen, str(Path(tmp) / "tokens.bin"))
+        log(f"[time] phase 13 {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         ringed = ring_phase(gen, str(Path(tmp) / "tokens.bin"))
+        log(f"[time] phase 14 {time.perf_counter() - t0:.1f} s")
     lap("8-10, 13-14")
 
     quant_t = quant_phase(gen)
@@ -4490,6 +4718,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tenants_phase(card)
     lap("21")
+    t0 = time.perf_counter()
+    packed_phase(card)
+    log(f"[time] phase 22 {time.perf_counter() - t0:.1f} s")
+    lap("22")
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

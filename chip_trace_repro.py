@@ -1,18 +1,32 @@
 """Reproduce the device-trace fault of ROADMAP.md section 3 on the card.
 
-Runs chip_smoke.py's phases 1-20c in this process, then, with a paged
-server of phase 4's engine in the same process and 8 requests of
-TRACE_STEPS steps in flight, eight 1 s torch.profiler sessions: three
+    python3 chip_trace_repro.py           # about 15 minutes
+    python3 chip_trace_repro.py graphs    # about a minute
+    python3 chip_trace_repro.py server    # about five minutes
+
+With no argument it runs chip_smoke.py's phases 1-20c in this process
+with a 1 s torch.profiler probe session after each phase function (and
+after each of its sub-phases), printing the kernel events each session
+holds, so the first phase after which sessions go empty shows; then, on
+the idle card, QUIET_PAIRS pairs of 1 s sessions, one with its kernel at
+the start (as ``serve.capture_device_trace`` probes) and one with it
+halfway through the window, each pair's kernel events printed; then,
+with a paged server of phase 4's engine in the same process and 8
+requests of LOAD_STEPS steps in flight, eight 1 s sessions: three
 /debug/jax-trace captures on the server's threads, four on the main
 thread (CPU and CUDA activity, CUDA alone, without the load, and with a
-device synchronize before the profiler stops) and one on a fresh thread.
-Each prints the kernel events its trace holds.  Run on a machine with
-one NVIDIA GPU, from the root of the repository (about 15 minutes):
+device synchronize before the profiler stops) and one on a fresh
+thread.
 
-    KINETO_LOG_LEVEL=1 python3 chip_trace_repro.py
+``graphs`` runs probe sessions in a fresh process around one CUDA graph's
+capture, replay and release (what phase 3's timing does), no other phase.
+``server`` runs chip_smoke.py's 20d (``trace_check``: a server process of
+its own, one capture under load) SERVER_RUNS times and prints how each
+ended, no other phase.
 
-(KINETO_LOG_LEVEL=1 makes kineto print each session's record counts.)
-It exits 0 after the sessions, whatever they held.
+Run on a machine with one NVIDIA GPU, from the root of the repository;
+KINETO_LOG_LEVEL=1 in the environment makes kineto print each session's
+record counts.  It exits 0 after the sessions, whatever they held.
 """
 import json
 import os
@@ -36,6 +50,131 @@ def pool_phase(models, card):
     return orig_pool_phase(models, card)
 
 
+PROBES = []
+# the diagnostic load's steps a request, and the runs of ``server``
+LOAD_STEPS = 512
+SERVER_RUNS = 3
+# the quiet pairs after phases 1-20c: the kernel at a session's start,
+# then halfway through
+QUIET_PAIRS = 8
+# chip_smoke.py's phase functions (and sub-phases) of phases 1-20c
+PHASES = ("check_kernel", "time_kernel", "serve_phase", "check_flash",
+          "time_flash", "check_matmul", "time_matmul", "bench_phase",
+          "check_ring", "time_ring", "compare_step", "fit_phase",
+          "dense_curve", "profile_step", "fused_compare_step",
+          "fused_train_phase", "sharded_phase", "ring_phase", "quant_phase",
+          "quant_serve_phase", "spec_serve_phase", "prefix_phase",
+          "resume_phase", "checkpoint_serve_phase", "lora_phase",
+          "moe_phase", "pool_generate_check", "pool_beam_check",
+          "pool_spec_check")
+
+
+def probe(tag, cuda_only=False, seconds=1.0, middle=False):
+    """A torch.profiler session of ``seconds`` (CPU and CUDA activity, or
+    CUDA alone) that launches one kernel of its own at its start (or
+    halfway through, ``middle``); logs and returns the CUDA kernel events
+    it holds.  The first session that holds none is followed by
+    :func:`resets`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([] if cuda_only
+                                      else [ProfilerActivity.CPU])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        if middle:
+            time.sleep(seconds / 2)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(seconds / 2 if middle else seconds)
+    events = prof.events()
+    kernels = sum(e.device_type == DeviceType.CUDA for e in events)
+    PROBES.append((tag, kernels))
+    cs.log(f"[probe] after {tag}: {kernels} kernel events of "
+           f"{len(events)} in a {seconds:g} s session")
+    if not kernels and not RESETS:
+        RESETS.append(tag)
+        resets()
+    return kernels
+
+
+def resets():
+    """At the first empty session: the threads alive, then sessions after
+    candidate resets, one after another."""
+    import gc
+    import threading
+
+    import torch
+    cs.log(f"[probe] threads alive: "
+           f"{sorted(t.name for t in threading.enumerate())}")
+    probe("nothing more (the same state again)")
+    probe("nothing more, CUDA activity alone", cuda_only=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    probe("gc.collect, synchronize and empty_cache")
+    probe("nothing more, a 5 s session", seconds=5.0)
+    probe("the 5 s session")
+
+
+RESETS = []
+
+
+def probed(name, fn):
+    def run(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        probe(name)
+        return out
+    return run
+
+
+def graph_sessions():
+    """Probe sessions around one CUDA graph, in this fresh process."""
+    import gc
+
+    import torch
+    probe("nothing yet")
+    x = torch.randn(1 << 20, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2 + 1
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x * 2 + 1
+    probe("a CUDA graph capture")
+    graph.replay()
+    torch.cuda.synchronize()
+    probe("a replay")
+    graph.replay()
+    probe("a second replay")
+    del graph, y
+    gc.collect()
+    probe("the graph's release")
+    for i in range(3):
+        probe(f"session {i + 1} after it")
+    cs.log(f"[probe] kernel events by session: {PROBES}")
+
+
+def server_runs():
+    """20d alone, SERVER_RUNS times: each run's end (its ``[trace]`` line
+    is logged by chip_smoke.py) and seconds."""
+    from tpu_dra_torch.kernels.build import build_all
+    from tpu_dra_torch.workloads.train import ModelConfig
+    build_all()
+    cfg = ModelConfig(**cs.MODEL)
+    ends = []
+    for i in range(SERVER_RUNS):
+        t0 = time.perf_counter()
+        try:
+            cs.trace_check(cfg, "this card")
+            ends.append(("passed", round(time.perf_counter() - t0, 1)))
+        except SystemExit as exc:
+            ends.append((f"failed: {exc}", round(time.perf_counter() - t0, 1)))
+    cs.log(f"[server] 20d runs: {ends}")
+
+
 def count_trace(path):
     """(events, kernel events, kernel #1's events) of a Chrome trace."""
     with open(path) as f:
@@ -45,10 +184,19 @@ def count_trace(path):
 
 
 def diag(cfg, card):
-    """In place of 20d: the eight sessions, then exit 0."""
+    """In place of 20d: the quiet pairs, the eight sessions, then exit
+    0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tpu_dra_torch.workloads.serve import serve
+    pairs = []
+    for i in range(QUIET_PAIRS):
+        start = probe(f"quiet pair {i + 1}, the kernel at the start")
+        mid = probe(f"quiet pair {i + 1}, the kernel halfway", middle=True)
+        pairs.append((start, mid))
+    cs.log(f"[diag] quiet pairs (kernel at the start, halfway): {pairs}; "
+           f"short of their 2 kernels {sum(a < 2 for a, _ in pairs)} and "
+           f"{sum(b < 2 for _, b in pairs)} of {len(pairs)}")
     params = STORE["models"][1]
     prompts = cs.request_prompts(cfg.vocab)
     srv = serve(cfg, params, port=0, **cs.ENGINE)
@@ -56,7 +204,7 @@ def diag(cfg, card):
 
     def load():
         ts = [threading.Thread(target=cs.call, args=(
-            port, "/generate", {"tokens": [prompts[i]], "steps": cs.TRACE_STEPS}))
+            port, "/generate", {"tokens": [prompts[i]], "steps": LOAD_STEPS}))
             for i in range(8)]
         for t in ts:
             t.start()
@@ -131,11 +279,22 @@ def diag(cfg, card):
         main_capture("B4 main cpu+cuda sync", both, sync=True)
     finally:
         srv.shutdown()
+    cs.log(f"[probe] kernel events by session: {PROBES}")
     cs.log("[diag] done")
     raise SystemExit(0)
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["graphs"]:
+        graph_sessions()
+        sys.exit(0)
+    if sys.argv[1:] == ["server"]:
+        server_runs()
+        sys.exit(0)
+    import tpu_dra_torch.bench as bench
+    bench.section_decode = probed("section_decode", bench.section_decode)
+    for name in PHASES:
+        setattr(cs, name, probed(name, getattr(cs, name)))
     cs.pool_phase = pool_phase
     cs.trace_check = diag
     sys.exit(cs.main())

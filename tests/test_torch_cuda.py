@@ -1196,3 +1196,80 @@ def test_device_trace_capture_holds_cuda_kernel_events():
     names = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert len(names) == counts["kernels"]
     assert any("paged_span_kernel" in n for n in names), names[:10]
+
+
+# the trunk's remat at a width the flash and matmul kernels take: head dim
+# 128, [4, 129] windows (m = 512 trunk rows, admitted by the RMSNorm-
+# matmul's rule; the sequence splits over a 2-way tp ring)
+REMAT_CFG = dict(vocab=512, d_model=256, n_heads=2, n_layers=2, d_ff=1024,
+                 max_seq=128)
+REMAT_IMPLS = ("flash", "fused-norm", "fused-collective")
+
+
+def _remat_step(impl: str, dev):
+    """One training step of ``impl``'s trunk on the card: ``(loss,
+    grads)`` (``grads_fn``; for the fused-collective trunk the SGD update
+    at lr 1 of the DP×TP step, p − p'), and the kernels' counters."""
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads import flash as tf
+    from tpu_dra_torch.workloads import matmul as tm
+    from tpu_dra_torch.workloads import train as tt
+    from tpu_dra_torch.workloads.mesh import Mesh
+    cfg = tt.ModelConfig(**REMAT_CFG)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    params = tt.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab, (4, cfg.max_seq + 1), generator=gen,
+                         device=dev)
+    counters = (tf.flash_attn_fwd, tf.flash_bwd_dq, tf.flash_bwd_dkdv,
+                tm.fused_rmsnorm_matmul, cm.all_gather_matmul,
+                cm.matmul_reduce_scatter)
+    before = [c.launches for c in counters]
+    if impl == "fused-collective":
+        step, _, _ = tt.make_sharded_train_step(
+            cfg, Mesh({"dp": 1, "tp": 2}, device=dev), lr=1.0,
+            attn_impl="flash", matmul_impl="fused_collective")
+        new, loss = step(params, toks)
+        grads = [p - q for p, q in zip(tt.tree_leaves(params),
+                                       tt.tree_leaves(new))]
+    else:
+        loss, g = tt.grads_fn(cfg, params, toks, attn_impl="flash",
+                              norm_impl="fused" if impl == "fused-norm"
+                              else "dense")
+        grads = tt.tree_leaves(g)
+    torch.cuda.synchronize(dev)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv",
+             "rmsnorm_matmul", "all_gather_matmul", "matmul_reduce_scatter")
+    return loss, grads, {n: c.launches - b
+                         for n, c, b in zip(names, counters, before)}
+
+
+@pytest.mark.parametrize("impl", REMAT_IMPLS)
+def test_remat_step_is_bit_equal_to_the_step_without_it(impl, monkeypatch):
+    """The trunk's remat changes no bit of a step on the card: its loss
+    and every gradient leaf equal the same step's with ``train.remat``
+    monkeypatched to a plain call."""
+    from tpu_dra_torch.workloads import train as tt
+    dev = card()
+    loss, grads, _ = _remat_step(impl, dev)
+    monkeypatch.setattr(tt, "remat", lambda fn, *args: fn(*args))
+    loss0, grads0, _ = _remat_step(impl, dev)
+    assert torch.equal(loss, loss0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
+
+
+@pytest.mark.parametrize("impl", REMAT_IMPLS)
+def test_remat_step_launch_counts(impl):
+    """Under the remat a step launches the flash forward 2·L times (the
+    backward recomputes it), each flash backward kernel L times, the
+    RMSNorm-matmul 2·L times (its outputs kept: once a sublayer) and each
+    ring matmul 4·L·n times (4·L calls over n = 2 ranks: none again)."""
+    dev = card()
+    L = REMAT_CFG["n_layers"]
+    _, _, got = _remat_step(impl, dev)
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkdv": L,
+            "rmsnorm_matmul": 2 * L if impl == "fused-norm" else 0,
+            "all_gather_matmul": 8 * L if impl == "fused-collective" else 0,
+            "matmul_reduce_scatter": 8 * L if impl == "fused-collective"
+            else 0}
+    assert got == want

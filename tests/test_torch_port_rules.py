@@ -21,7 +21,8 @@ from tpu_dra_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_dra_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_trace_repro.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_trace_repro.py",
+    ROOT / "chip_train_step.py"]
 FORBIDDEN = ("jax", "jaxlib", "optax", "tpu_dra")
 
 

@@ -124,8 +124,8 @@ def pack_documents(docs, seq: int):
     Returns ``(tokens, segment_ids, positions)`` int32 arrays of equal
     shape: segment ids number the documents within a row from 1 (0 =
     padding), positions restart at 0 per document.  Documents longer than
-    ``seq`` are truncated.  Padding token id is 0.  (The packed loss that
-    reads them is not ported yet.)
+    ``seq`` are truncated.  Padding token id is 0.  ``train.packed_loss_fn``
+    trains on them.
     """
     if seq < 1:
         raise ValueError(f"seq must be >= 1, got {seq}")

@@ -8,8 +8,8 @@ dispatch and combine are dense one-hots and the layer is three einsums;
 the router runs in fp32, the expert matmuls in bf16; tokens over their
 expert's capacity are dropped (the residual carries them); the Switch
 load-balance loss keeps routing trainable.  Each block is rematerialized
-in the backward (``torch.utils.checkpoint``, where the reference wraps
-it in ``jax.checkpoint``), so a training step runs each block's forward,
+in the backward (``train.remat``, where the reference wraps it in
+``jax.checkpoint``), so a training step runs each block's forward,
 flash kernel included, twice.
 
 Cost of the dense dispatch: the ``[K, N, E, C]`` one-hot is fp32, with
@@ -30,7 +30,6 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
@@ -41,6 +40,7 @@ from tpu_dra_torch.workloads.train import (
     head_logits,
     head_nll,
     layer_params,
+    remat,
     value_and_grad,
 )
 
@@ -234,9 +234,8 @@ def _moe_trunk(cfg: MoEConfig, params, tokens, capacity: int | None,
     x = embed_tokens(cfg, params, tokens)
     aux = x.new_zeros((), dtype=torch.float32)
     for i in range(cfg.n_layers):
-        x, a = checkpoint(_moe_block, cfg, x,
-                          layer_params(params["blocks"], i), capacity,
-                          attn_fn, use_reentrant=False)
+        x, a = remat(_moe_block, cfg, x, layer_params(params["blocks"], i),
+                     capacity, attn_fn)
         aux = aux + a
     return x, aux
 

@@ -220,11 +220,13 @@ def _sp_trunk(cfg, params, tokens, ring_impl: str = "xla",
     reference's ``dynamic_slice``, which clamps the start into the table);
     rope rotates by the global positions.
 
-    No remat: the reference wraps each block in ``jax.checkpoint`` (442),
-    which recomputes the forward (and its kv hops) in the backward; the
-    port keeps the activations, as its one-device trunk does, so a step
-    runs 2·(n−1) kv shifts per layer forward and as many in the backward."""
-    from tpu_dra_torch.workloads.train import _block, embed_rows, layer_params
+    Each block is rematerialized whole in the backward, as the
+    reference's ``jax.checkpoint(block)`` (442) is: nothing of it is kept,
+    so a step runs 2·(n−1) kv shifts per layer forward, as many again
+    when the backward recomputes the forward, and as many in the
+    backward itself."""
+    from tpu_dra_torch.workloads.train import (_block, embed_rows,
+                                               layer_params, remat)
     if ring_impl not in RING_IMPLS:
         raise ValueError(f"unknown ring_impl {ring_impl!r}; expected 'xla' "
                          f"or 'flash'")
@@ -245,8 +247,8 @@ def _sp_trunk(cfg, params, tokens, ring_impl: str = "xla",
     attn = _ring_attn_fn(engine, G, n, hop_impl)
     x = x.reshape(G * n * B, S, -1)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(params["blocks"], i), attn_fn=attn,
-                   positions=positions)
+        x = remat(_block, cfg, x, layer_params(params["blocks"], i), attn,
+                  positions)
     return x.reshape(G, n, B, S, -1)
 
 

@@ -16,9 +16,13 @@ reference would.  The sharded half: ``param_shardings``,
 ``batch_sharding`` and ``make_sharded_train_step`` over a virtual mesh
 (``mesh.py``), with ``matmul_impl="fused_collective"`` running each
 sublayer's entry and exit matmul through the ring kernels
-(``collective_matmul.py``).  Not ported: selective remat (it changes
-memory, not results), packed sequences (``packed_loss_fn``), ZeRO-1 and
-the optax-optimizer sharded step (``make_optax_train_step`` on a mesh).
+(``collective_matmul.py``).  ``packed_loss_fn`` trains on rows packed
+by ``data.pack_documents`` (dense attention only: the flash kernels have
+no segment mask).  The trunk rematerializes in the backward what lies
+between its weight products, whose outputs it keeps: the reference's
+selective policy (:func:`remat`, :func:`_block`'s ``seg``).  Not
+ported: ZeRO-1 and the optax-optimizer sharded step
+(``make_optax_train_step`` on a mesh).
 
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
@@ -31,10 +35,12 @@ gradient sums in fp32 where the reference's adds into a bf16 table
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_dra_torch.workloads.quant import matmul_any
 
@@ -154,16 +160,24 @@ def apply_rope(x, positions, base: float = 10000.0):
                      dim=-1).to(x.dtype)
 
 
-def _causal_dense_attention(q, k, v):
+def _causal_dense_attention(q, k, v, segment_ids=None):
     """Dense causal softmax over ``[B, H, S, D]`` q against
     ``[B, Hkv, S, D]`` k/v; each kv head serves its group of H/Hkv query
-    heads through a reshape (no repeat of k/v)."""
+    heads through a reshape (no repeat of k/v).
+
+    ``segment_ids`` ``[B, S]`` (packing) also masks every pair of
+    positions in different segments: the block-diagonal mask that keeps
+    packed documents apart.  Id 0 is padding, whose positions attend
+    earlier padding and whose outputs the packed loss masks out."""
     B, H, S, D = q.shape
     hkv = k.shape[1]
     qg = q.reshape(B, hkv, H // hkv, S, D)
     scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k) \
         * weak_scalar(D ** -0.5, q.dtype)
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        mask = (mask & same)[:, None, None]                # [B, 1, 1, S, S]
     scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", attn, v)
@@ -208,7 +222,13 @@ def _fc_active(x, w, mesh, matmul_impl: str, contract_sharded: bool) -> bool:
     return shard_dim % tp == 0
 
 
-def _fc_ag_norm_matmul(x, gamma, w, mesh, dtype):
+def _direct(fn, *args):
+    """``fn(*args)``: the ``seg`` of a block that keeps everything
+    (:func:`_block`)."""
+    return fn(*args)
+
+
+def _fc_ag_norm_matmul(x, gamma, w, mesh, dtype, seg=_direct):
     """The sublayer entry of the Megatron-SP layout
     (``train._fc_ag_norm_matmul``, 204-230): x ``[B, S, D]`` cut
     ``(batch, "tp", None)`` (sequence-sharded), rmsnorm on each rank's
@@ -216,14 +236,14 @@ def _fc_ag_norm_matmul(x, gamma, w, mesh, dtype):
     column shard of w; the result ``[B, S, N]`` comes back whole from
     the ``(batch, None, "tp")`` column shards.  Rows fold sequence-major
     (``[B, S/tp, D] → [S/tp·B, D]``), so the gathered row blocks are the
-    sequence blocks."""
+    sequence blocks.  ``seg`` runs the rmsnorm (:func:`_block`)."""
     from tpu_dra_torch.workloads.collective_matmul import AllGatherMatmul
     G, tp = mesh.ring_groups("tp")
     batch = mesh.batch_axes()
     D = x.shape[-1]
     xs = mesh.shard(x, (batch, "tp", None))          # [*mesh, bl, sl, D]
     bl, sl = xs.shape[-3], xs.shape[-2]
-    normed = _rmsnorm(xs, gamma)
+    normed = seg(_rmsnorm, xs, gamma)
     xf = normed.transpose(-3, -2).reshape(G, tp, sl * bl, D)
     wl = mesh.shard(w.to(x.dtype), (None, "tp"))
     y = AllGatherMatmul.apply(xf, wl.reshape(G, tp, *wl.shape[-2:]))
@@ -260,7 +280,7 @@ def _out_matmul(x, w, dtype, matmul_impl: str = "dense", mesh=None):
 
 
 def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense",
-                 matmul_impl: str = "dense", mesh=None):
+                 matmul_impl: str = "dense", mesh=None, seg=_direct):
     """The rmsnorm→matmul pair each sublayer opens with
     (``train._norm_matmul``).  ``matmul_impl="fused_collective"`` on a
     mesh with a > 1-way "tp" axis sends it through the all-gather-matmul
@@ -271,9 +291,10 @@ def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense",
     m) == 0`` and ``n % min(256, n) == 0`` with ``m = B·S``); the weight is
     cast to x's dtype outside it, so its gradient reaches the fp32 master
     rounded to bf16.  Anything else (dict leaves, shapes the rules
-    refuse, the default) takes the plain pair."""
+    refuse, the default) takes the plain pair.  ``seg`` runs the rmsnorm
+    (:func:`_block`)."""
     if _fc_active(x, w, mesh, matmul_impl, contract_sharded=False):
-        return _fc_ag_norm_matmul(x, gamma, w, mesh, dtype)
+        return _fc_ag_norm_matmul(x, gamma, w, mesh, dtype, seg)
     if norm_impl == "fused" and torch.is_tensor(w):
         B, S, D = x.shape
         m, n = B * S, w.shape[1]
@@ -281,50 +302,64 @@ def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense",
             from tpu_dra_torch.workloads.matmul import RmsnormMatmul
             out = RmsnormMatmul.apply(x.reshape(m, D), gamma, w.to(x.dtype))
             return out.reshape(B, S, n).to(dtype)
-    return matmul_any(_rmsnorm(x, gamma), w, dtype)
+    return matmul_any(seg(_rmsnorm, x, gamma), w, dtype)
 
 
-def _attn_sublayer(cfg: ModelConfig, x, layer,
-                   attn_fn=_causal_dense_attention, positions=None,
-                   norm_impl: str = "dense", matmul_impl: str = "dense",
-                   mesh=None):
-    """Pre-norm attention residual sublayer, GQA-aware.  With
-    ``pos_emb="rope"`` q/k rotate by ``positions`` (default 0..S-1;
-    ``[S]`` or per-row ``[B, S]``)."""
-    B, S, D = x.shape
-    qkv = _norm_matmul(x, layer["ln1"], layer["wqkv"], x.dtype, norm_impl,
-                       matmul_impl, mesh)
+def _attn_core(cfg: ModelConfig, qkv, attn_fn, positions):
+    """What lies between the attention sublayer's two products: the
+    fused projection ``[B, S, ·]`` split into heads, q/k rotated by
+    ``positions`` (default 0..S-1; ``[S]`` or per-row ``[B, S]``) under
+    ``pos_emb="rope"``, the attention, and the heads merged back to
+    ``[B, S, d_model]``."""
+    B, S = qkv.shape[:2]
     q, k, v = _split_qkv(cfg, qkv)
     q = _split_heads(cfg, q)
     k = _split_heads(cfg, k, cfg.kv_heads)
     v = _split_heads(cfg, v, cfg.kv_heads)
     if cfg.pos_emb == "rope":
         if positions is None:
-            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+            positions = torch.arange(S, dtype=torch.int32, device=qkv.device)
         q = apply_rope(q, positions, cfg.rope_base)
         k = apply_rope(k, positions, cfg.rope_base)
     out = attn_fn(q, k, v)
-    out = out.transpose(1, 2).reshape(B, S, D)
+    return out.transpose(1, 2).reshape(B, S, cfg.d_model)
+
+
+def _attn_sublayer(cfg: ModelConfig, x, layer,
+                   attn_fn=_causal_dense_attention, positions=None,
+                   norm_impl: str = "dense", matmul_impl: str = "dense",
+                   mesh=None, seg=_direct):
+    """Pre-norm attention residual sublayer, GQA-aware
+    (:func:`_attn_core`; ``seg`` as in :func:`_block`)."""
+    qkv = _norm_matmul(x, layer["ln1"], layer["wqkv"], x.dtype, norm_impl,
+                       matmul_impl, mesh, seg)
+    out = seg(_attn_core, cfg, qkv, attn_fn, positions)
     return x + _out_matmul(out, layer["wo"], x.dtype, matmul_impl, mesh)
 
 
 def _mlp(x, layer, norm_impl: str = "dense", matmul_impl: str = "dense",
-         mesh=None):
+         mesh=None, seg=_direct):
     """Pre-norm gelu MLP residual.  ``jax.nn.gelu`` defaults to the tanh
-    approximation, so the port asks for it explicitly."""
+    approximation, so the port asks for it explicitly.  The gelu runs
+    outside ``seg``: it keeps its input for the backward and the second
+    product keeps its output, so its remat would keep the same two
+    tensors and run it again."""
     h = _norm_matmul(x, layer["ln2"], layer["w1"], x.dtype, norm_impl,
-                     matmul_impl, mesh)
+                     matmul_impl, mesh, seg)
     h = F.gelu(h, approximate="tanh")
     return x + _out_matmul(h, layer["w2"], x.dtype, matmul_impl, mesh)
 
 
 def _block(cfg: ModelConfig, x, layer, attn_fn=_causal_dense_attention,
            positions=None, norm_impl: str = "dense",
-           matmul_impl: str = "dense", mesh=None):
-    """One decoder block (attention then MLP sublayer)."""
+           matmul_impl: str = "dense", mesh=None, seg=_direct):
+    """One decoder block (attention then MLP sublayer).  ``seg(fn,
+    *args)`` runs each stretch that lies between two weight products: the
+    two rmsnorms (where no fused kernel takes them) and
+    :func:`_attn_core`; :func:`_trunk` passes :func:`remat`."""
     x = _attn_sublayer(cfg, x, layer, attn_fn, positions, norm_impl,
-                       matmul_impl, mesh)
-    return _mlp(x, layer, norm_impl, matmul_impl, mesh)
+                       matmul_impl, mesh, seg)
+    return _mlp(x, layer, norm_impl, matmul_impl, mesh, seg)
 
 
 def _flash_attention_fn(q, k, v):
@@ -367,30 +402,75 @@ def embed_rows(embed, tokens):
 def embed_tokens(cfg: ModelConfig, params, tokens, positions=None):
     """bf16 token embeddings (stored in the parameter dtype, cast on
     use, :func:`embed_rows`), plus the learned position rows at
-    ``positions`` (default 0..S-1) for ``pos_emb="learned"``."""
+    ``positions`` (default 0..S-1) for ``pos_emb="learned"``.  Given
+    positions (a packed row's restart at each document), a row longer
+    than the learned table raises ``ValueError``, as the reference's
+    ``_trunk`` does (409-416), although every document may fit it."""
     x = embed_rows(params["embed"], tokens)
     if cfg.pos_emb == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=x.device)
+        elif tokens.shape[-1] > cfg.max_seq:
+            raise ValueError(
+                f"packed seq {tokens.shape[-1]} exceeds the learned-"
+                f"position table (max_seq={cfg.max_seq})")
         x = x + params["pos"].to(torch.bfloat16)[positions]
     return x
 
 
+def remat(fn, *args):
+    """``fn(*args)`` with its activations rematerialized in the backward
+    (``torch.utils.checkpoint``, non-reentrant; the reference's
+    ``jax.checkpoint``): only the arguments are kept, and the backward
+    runs ``fn`` again.  Where autograd is off (serving) ``fn`` just runs.
+    Recomputation changes memory and launch counts, never a value: every
+    recomputed op is deterministic."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _trunk(cfg: ModelConfig, params, tokens,
-           attn_fn=_causal_dense_attention, norm_impl: str = "dense",
-           matmul_impl: str = "dense", mesh=None):
+           attn_fn=_causal_dense_attention, segment_ids=None, positions=None,
+           norm_impl: str = "dense", matmul_impl: str = "dense", mesh=None):
     """Embed + decoder stack; returns pre-final-norm activations.
 
+    The reference's selective remat (429-450,
+    ``checkpoint_dots_with_no_batch_dims`` with the names
+    ``fused_norm_mm`` and ``fc_collective_mm``) keeps the weight
+    products' outputs and recomputes the rest.  The port keeps the same
+    products by leaving them, the RMSNorm-matmul and the ring kernels
+    included, outside :func:`remat`, which takes each stretch between
+    them instead (``seg`` of :func:`_block`): the rmsnorms and the
+    attention between the two projections, the flash forward included,
+    run again in the backward; no product does.  Unlike the reference it
+    also keeps each product's input (the normed rows, the merged heads,
+    the gelu output) and the bf16 weight copies, which autograd saves for
+    the weight gradients.
+
+    Packing (``segment_ids`` and per-token ``positions``, ``[B, S]``):
+    the dense attention takes the block-diagonal segment mask, and rope
+    and the learned table read the per-document positions.  Any other
+    attention raises ``NotImplementedError`` (the flash kernels have no
+    segment mask), as in the reference (381-386).
+
     ``matmul_impl="fused_collective"`` with a mesh whose "tp" axis is > 1
-    (``train._trunk``, 388-409): every sublayer's entry and exit matmul
-    rides the ring kernels, sequence-sharded over tp between them.  The
-    sequence must split over tp, so the token tail is zero-padded up to a
-    multiple of tp (causal attention keeps the padded columns out of every
-    real row, norms and residuals are row-local, and the padded rows are
-    sliced off); where that padding would run past a learned-position
-    table the shape keeps the plain path, as in the reference."""
+    (``train._trunk``, 388-409), and no segments or positions: every
+    sublayer's entry and exit matmul rides the ring kernels,
+    sequence-sharded over tp between them.  The sequence must split over
+    tp, so the token tail is zero-padded up to a multiple of tp (causal
+    attention keeps the padded columns out of every real row, norms and
+    residuals are row-local, and the padded rows are sliced off); where
+    that padding would run past a learned-position table the shape keeps
+    the plain path, as in the reference."""
+    if segment_ids is not None:
+        if attn_fn is not _causal_dense_attention:
+            raise NotImplementedError(
+                "packed segment masks need the dense attention path")
+        attn_fn = partial(_causal_dense_attention, segment_ids=segment_ids)
     fc = (matmul_impl == "fused_collective" and mesh is not None
-          and mesh.axis_size("tp") > 1)
+          and mesh.axis_size("tp") > 1 and segment_ids is None
+          and positions is None)
     S = tokens.shape[1]
     pad = 0
     if fc:
@@ -399,10 +479,10 @@ def _trunk(cfg: ModelConfig, params, tokens,
             pad = 0
         if pad:
             tokens = F.pad(tokens, (0, pad))
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, positions)
     for i in range(cfg.n_layers):
         x = _block(cfg, x, layer_params(params["blocks"], i), attn_fn,
-                   norm_impl=norm_impl, matmul_impl=matmul_impl, mesh=mesh)
+                   positions, norm_impl, matmul_impl, mesh, seg=remat)
     return x[:, :S] if pad else x
 
 
@@ -425,8 +505,9 @@ def forward(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
             mesh=None):
     """Logits ``[B, S, vocab]`` for a ``[B, S]`` integer token batch."""
     return head_logits(params, _trunk(cfg, params, tokens,
-                                      attn_impl_fn(attn_impl), norm_impl,
-                                      matmul_impl, mesh))
+                                      attn_impl_fn(attn_impl),
+                                      norm_impl=norm_impl,
+                                      matmul_impl=matmul_impl, mesh=mesh))
 
 
 # --------------------------------------------------------------------------
@@ -557,9 +638,29 @@ def loss_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
     """Mean next-token NLL of a ``[B, S+1]`` window batch: the trunk reads
     ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``."""
     trunk = _trunk(cfg, params, tokens[:, :-1], attn_impl_fn(attn_impl),
-                   norm_impl, matmul_impl, mesh)
+                   norm_impl=norm_impl, matmul_impl=matmul_impl, mesh=mesh)
     return head_nll(params, trunk, tokens[:, 1:].long(), head_impl,
                     label_smoothing=label_smoothing, z_loss=z_loss).mean()
+
+
+def packed_loss_fn(cfg: ModelConfig, params, tokens, segment_ids,
+                   positions, head_impl: str = "dense",
+                   label_smoothing: float = 0.0, z_loss: float = 0.0):
+    """Mean next-token NLL over a packed ``[B, S+1]`` batch
+    (``data.pack_documents``: tokens, segment ids, per-document
+    positions): block-diagonal attention over the segments, positions
+    restarting at each document, and the loss only where the next token
+    continues the same document (a prediction across a boundary or from
+    padding counts for nothing).  Dense attention; the reference's
+    ``packed_loss_fn`` (621-636)."""
+    trunk = _trunk(cfg, params, tokens[:, :-1],
+                   segment_ids=segment_ids[:, :-1],
+                   positions=positions[:, :-1])
+    nll = head_nll(params, trunk, tokens[:, 1:].long(), head_impl,
+                   label_smoothing=label_smoothing, z_loss=z_loss)
+    valid = ((segment_ids[:, :-1] == segment_ids[:, 1:])
+             & (segment_ids[:, :-1] > 0)).float()
+    return (nll[..., 0] * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 def tree_leaves(tree) -> list:

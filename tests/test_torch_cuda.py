@@ -1273,3 +1273,81 @@ def test_remat_step_launch_counts(impl):
             "matmul_reduce_scatter": 8 * L if impl == "fused-collective"
             else 0}
     assert got == want
+
+
+@pytest.mark.parametrize("hkv", [4, 1], ids=["mha", "gqa"])
+@pytest.mark.parametrize("axes", [{"sp": 4}, {"dp": 2, "sp": 2}],
+                         ids=["sp4", "dp2xsp2"])
+def test_zigzag_flash_engine_matches_its_fp32_engine_on_the_card(axes, hkv):
+    """The zigzag flash engine (the flash kernels per chunk, lse merges)
+    against the fp32 engine on the same zigzag-ordered bf16 inputs: the
+    outputs within flash.ELEM_TOL elementwise, the gradients of q, k and
+    v within 3% relative L2 (the ring step's tolerance, which
+    chip_smoke.py phase 23a holds them to: elementwise, a GQA group's
+    dk/dv sums four heads' bf16 partials, and 3 of 262144 elements
+    reached 1.75 ELEM_TOL on an H100), and the forward kernel launched
+    3n times a call."""
+    from tpu_dra_torch.workloads import flash as tf
+    from tpu_dra_torch.workloads import ring_attention as tra
+    from tpu_dra_torch.workloads.mesh import Mesh
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    B, H, S, D = 2, 4, 1024, 128
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, hkv, S, D), generator=gen, device=dev)
+            for _ in range(2))
+    cot = torch.randn((B, H, S, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mesh = Mesh(axes, device=dev)
+    outs = {}
+    for impl in ("xla", "flash"):
+        ins = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+        before = tf.flash_attn_fwd.launches
+        out = tra.make_zigzag_ring_attention(mesh, impl=impl)(*ins)
+        grads = torch.autograd.grad(out, ins, cot)
+        outs[impl] = (out, *grads)
+        if impl == "flash":
+            assert (tf.flash_attn_fwd.launches - before
+                    == 3 * axes["sp"])
+    tol = tf.ELEM_TOL
+    torch.testing.assert_close(outs["flash"][0].float(),
+                               outs["xla"][0].float(), rtol=tol, atol=tol)
+    for got, want in zip(outs["flash"][1:], outs["xla"][1:]):
+        rel = (got.float() - want.float()).norm() / want.float().norm()
+        assert torch.isfinite(got.float()).all() and float(rel) <= 3e-2
+
+
+def test_zero1_is_bit_equal_to_replicated_moments_on_the_card():
+    """make_optax_train_step on Mesh({"dp": 2, "tp": 2}), flash attention,
+    3 steps with ZeRO-1 and 3 without: losses, parameters and moments
+    bit-equal on the card."""
+    from tpu_dra_torch.workloads import train as tt
+    from tpu_dra_torch.workloads.mesh import Mesh
+    dev = card()
+    cfg = tt.ModelConfig(vocab=512, d_model=256, n_heads=2, n_layers=2,
+                         d_ff=512, max_seq=256)
+    mesh = Mesh({"dp": 2, "tp": 2}, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, 512, (4, 257), generator=gen, device=dev,
+                           dtype=torch.int32)
+    runs = []
+    for zero1 in (False, True):
+        gen.manual_seed(0)
+        params = tt.init_params(cfg, gen)
+        step, init_opt, _, _ = tt.make_optax_train_step(
+            cfg, mesh, attn_impl="flash", zero1=zero1)
+        opt = init_opt(params)
+        losses = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(float(loss))
+        runs.append((losses, params, opt.to_dict()))
+    (la, pa, oa), (lb, pb, ob) = runs
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(tt.tree_leaves(pa),
+                                                 tt.tree_leaves(pb)))
+    for key in ("mu", "nu"):
+        assert all(torch.equal(a, b) for a, b in zip(
+            tt.tree_leaves(oa[key]), tt.tree_leaves(ob[key])))

@@ -4,8 +4,8 @@ batches equal the reference's exactly, from step 0 and from a later
 start step; ``fit`` on the CPU descends on a small learnable corpus;
 checkpoints and a bit-exact resume, the resumed schedule against optax's
 at the restored horizon; the MoE model through ``fit``; the CLI's
-argument errors; and what the port still refuses (ZeRO-1, ROADMAP.md
-queue 1 item 9).
+argument errors; and what ``fit`` refuses, as the reference's does
+(ZeRO-1 on a mesh: tests/test_torch_zero1.py).
 """
 
 from __future__ import annotations
@@ -120,17 +120,29 @@ def test_fit_with_flash_attention_and_cosine_on_the_cpu(tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported_yet(tmp_path):
-    """ZeRO-1 stays refused, naming its ROADMAP item; the MoE model
-    refuses what its step cannot do, as the reference's fit does."""
+    """What ``fit`` refuses, as the reference's does: the MoE model what
+    its step cannot do, a MoE mesh without "dp" and "ep", a batch that
+    does not split over dp x accum_steps.  ZeRO-1, once refused here, now
+    runs: without a mesh the one device is dp 1, where it changes nothing,
+    so the run equals the replicated one."""
+    from tpu_dra_torch.workloads.mesh import Mesh
     from tpu_dra_torch.workloads.moe import MoEConfig
     path = motif_corpus(tmp_path / "t.bin", n=2000)
     cfg = ModelConfig(**TINY)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tfit.fit(cfg, path, steps=1, zero1=True, device="cpu")
+    kw = dict(steps=2, batch=2, log_every=1, device="cpu",
+              log_fn=lambda s: None)
+    assert (tfit.fit(cfg, path, zero1=True, **kw).losses
+            == tfit.fit(cfg, path, **kw).losses)
     for kw in (dict(accum_steps=2), dict(label_smoothing=0.1),
                dict(z_loss=1e-4)):
         with pytest.raises(ValueError, match="MoE fit supports"):
             tfit.fit(MoEConfig(**TINY), path, steps=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="'dp' and 'ep'"):
+        tfit.fit(MoEConfig(**TINY), path, steps=1,
+                 mesh=Mesh({"ep": 2}, device="cpu"))
+    with pytest.raises(ValueError, match="dp x accum_steps"):
+        tfit.fit(cfg, path, steps=1, batch=6,
+                 mesh=Mesh({"dp": 4, "tp": 1}, device="cpu"))
     with pytest.raises(ValueError, match="accum_steps"):
         tfit.fit(cfg, path, steps=1, accum_steps=0, device="cpu")
     with pytest.raises(ValueError, match="divisible"):

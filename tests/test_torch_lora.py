@@ -1,8 +1,9 @@
 """LoRA of the port (tpu_dra_torch/workloads/lora.py) against the JAX
 reference (tpu_dra/workloads/lora.py) on the CPU: exact at init, the
 merge, the one-device step's loss and adapter gradients against the
-reference's, only the adapters moving, merge then quantize serving, and
-training through an int8 base."""
+reference's, only the adapters moving, merge then quantize serving,
+training through an int8 base, and the step over a dp x tp mesh against
+the reference's on a 2 x 2 mesh (``lora_shardings`` replicated)."""
 
 from __future__ import annotations
 
@@ -107,7 +108,7 @@ def test_step_loss_and_adapter_grads_match_the_reference(pair):
                              ("dp", "tp"))
     jstep, jinit, _, _ = jlora.make_lora_train_step(jcfg, mesh)
     _, _, jl0 = jstep(jp, jl, jinit(jl), jnp.asarray(tok))
-    step, init_opt, _ = tlora.make_lora_train_step(tcfg)
+    step, init_opt, _, _ = tlora.make_lora_train_step(tcfg)
     _, _, l0 = step(tp, tl, init_opt(tl), torch.from_numpy(tok))
     assert abs(float(l0) - float(jl0)) <= LOSS_ATOL
 
@@ -130,7 +131,7 @@ def test_default_optimizer_decays_as_optax_adamw():
 
 def test_lora_train_step_updates_only_adapters():
     params = to_torch(jax_params(JCFG))
-    step, init_opt, lcfg = tlora.make_lora_train_step(TCFG)
+    step, init_opt, lcfg, _ = tlora.make_lora_train_step(TCFG)
     lora = tlora.init_lora(params, lcfg, gen(4))
     opt = init_opt(lora)
     t = torch.from_numpy(tokens(5, (2, 16)))
@@ -145,8 +146,21 @@ def test_lora_train_step_updates_only_adapters():
     assert all(not p.requires_grad for p in tree_leaves(params))
     assert losses[-1] < losses[0], losses
     assert opt.count == 8 and set(opt.mu) == {"blocks"}
-    with pytest.raises(NotImplementedError, match="9.5"):
-        tlora.make_lora_train_step(TCFG, mesh=object())
+    # the step over a mesh, once refused here, runs: the same steps on a
+    # dp x tp mesh give the same adapters bit for bit, and it refuses
+    # inputs off the mesh's device
+    from tpu_dra_torch.workloads.mesh import Mesh
+    mstep, minit, _, shardings = tlora.make_lora_train_step(
+        TCFG, Mesh({"dp": 2, "tp": 2}, device="cpu"))
+    lora2 = tlora.init_lora(params, lcfg, gen(4))
+    opt2 = minit(lora2)
+    for _ in range(8):
+        lora2, opt2, _ = mstep(params, lora2, opt2, t)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(lora),
+                                                 tree_leaves(lora2)))
+    assert shardings["lora"](lora2)["blocks"]["wo"] == {"a": (), "b": ()}
+    with pytest.raises(ValueError, match="the mesh runs on"):
+        mstep(params, lora2, opt2, t.to("meta"))
 
 
 def test_merge_then_quantize_serves():
@@ -175,7 +189,7 @@ def test_qlora_int8_base_training_gets_gradients():
     the adapters gradients and the loss falls; B = 0 adapters over the
     int8 base equal the int8 base alone."""
     params = to_torch(jax_params(JCFG))
-    step, init_opt, lcfg = tlora.make_lora_train_step(TCFG)
+    step, init_opt, lcfg, _ = tlora.make_lora_train_step(TCFG)
     qbase = quantize_params_int8(params)
     lora = tlora.init_lora(params, lcfg, gen(15))
     t = torch.from_numpy(tokens(16, (2, 16)))
@@ -218,3 +232,40 @@ def test_lora_trees_cross_through_convert(tmp_path):
     got = f32(forward(TCFG, back, torch.from_numpy(tok)))
     want = np.asarray(want)
     assert np.all(np.abs(got - want) <= logit_tol(want))
+
+
+def test_lora_step_over_a_mesh_matches_the_reference():
+    """``make_lora_train_step`` on a dp x tp = 2 x 2 mesh, 3 steps from the
+    same base, adapters and tokens, against the reference's on the same
+    mesh shape: the losses within LOSS_ATOL and the adapters within
+    LEAF_REL relative L2; the shardings are the reference's (base by
+    ``param_shardings``, batch over "dp", adapters replicated)."""
+    from jax.sharding import Mesh as JMesh
+    from tpu_dra_torch.workloads.mesh import Mesh
+    jp = jax_params(JCFG)
+    lcfg_j, lcfg_t = jlora.LoRAConfig(), tlora.LoRAConfig()
+    jl = jax_lora_with_b(jp, lcfg_j, 6)
+    tok = tokens(7, (4, 17))
+    jm = JMesh(np.array(jax.devices()[:4]).reshape(2, 2), ("dp", "tp"))
+    jstep, jinit, _, jsh = jlora.make_lora_train_step(JCFG, jm)
+    jbase = jax.device_put(jp, jsh["params"])
+    jlo = jax.device_put(jl, jsh["lora"](jl))
+    jopt = jinit(jlo)
+    mesh = Mesh({"dp": 2, "tp": 2}, device="cpu")
+    step, init_opt, _, sh = tlora.make_lora_train_step(TCFG, mesh)
+    tp, tl = to_torch(jp), params_from_numpy(to_numpy_tree(jl), "cpu")
+    opt = init_opt(tl)
+    for _ in range(3):
+        jlo, jopt, jloss = jstep(jbase, jlo, jopt, jnp.asarray(tok))
+        tl, opt, loss = step(tp, tl, opt, torch.from_numpy(tok))
+        assert abs(float(loss) - float(jloss)) <= LOSS_ATOL
+    for name in lcfg_t.targets:
+        for ab in ("a", "b"):
+            want = np.asarray(jlo["blocks"][name][ab])
+            got = f32(tl["blocks"][name][ab])
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= LEAF_REL, (name, ab, rel)
+    assert sh["batch"] == ("dp", None)
+    assert sh["params"]["blocks"]["wqkv"] == tuple(
+        jsh["params"]["blocks"]["wqkv"].spec)
+    assert all(spec == () for spec in tree_leaves(sh["lora"](tl)))

@@ -22,6 +22,7 @@ from tpu_dra.workloads import moe as jmoe
 from tpu_dra_torch.convert import params_from_numpy
 from tpu_dra_torch.workloads import flash as tflash
 from tpu_dra_torch.workloads import moe as tmoe
+from tpu_dra_torch.workloads.mesh import Mesh
 from tpu_dra_torch.workloads.train import tree_leaves
 
 SMALL = dict(vocab=32, d_model=32, n_heads=2, n_layers=2, d_ff=64,
@@ -207,7 +208,8 @@ def test_each_block_runs_its_forward_again_in_the_backward(monkeypatch):
         return wrapped
     monkeypatch.setattr(tflash, "flash_attn_fwd", count("fwd", fwd))
     monkeypatch.setattr(tflash, "flash_attn_bwd", count("bwd", bwd))
-    step, init_opt = tmoe.make_moe_optax_step(tcfg, attn_impl="flash")
+    step, init_opt, _, _ = tmoe.make_moe_optax_step(tcfg,
+                                                    attn_impl="flash")
     step(tp, init_opt(tp), torch.from_numpy(tokens))
     assert calls == {"fwd": 2 * tcfg.n_layers, "bwd": tcfg.n_layers}
 
@@ -219,8 +221,17 @@ def test_moe_refusals():
         tmoe.MoEConfig(d_model=16, d_ff=32, n_experts=2, router_top_k=0)
     with pytest.raises(NotImplementedError, match="tied_embeddings"):
         tmoe.MoEConfig(**dict(SMALL, tied_embeddings=True))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmoe.make_moe_optax_step(tmoe.MoEConfig(**SMALL), zero1=True)
+    # the expert axis must split the experts, in both mesh steps
+    cfg = tmoe.MoEConfig(**dict(SMALL, n_experts=3))
+    for make in (tmoe.make_moe_train_step, tmoe.make_moe_optax_step):
+        with pytest.raises(ValueError, match="not divisible by ep=2"):
+            make(cfg, Mesh({"dp": 2, "ep": 2}, device="cpu"))
+    # ZeRO-1, once refused here, runs on a dp x ep mesh
+    _, tcfg, _, tp, tokens = moe_trees(1)
+    step, init_opt, _, _ = tmoe.make_moe_optax_step(
+        tcfg, Mesh({"dp": 2, "ep": 2}, device="cpu"), zero1=True)
+    _, opt, loss = step(tp, init_opt(tp), torch.from_numpy(tokens))
+    assert torch.isfinite(loss) and opt.layout is not None
 
 
 def test_moe_init_shapes_match_the_reference():
@@ -240,7 +251,7 @@ def test_moe_optax_step_trains(top_k):
     """AdamW after clipping on one device: the loss descends on a fixed
     batch, as the reference's ep-mesh step does."""
     _, tcfg, _, tp, tokens = moe_trees(top_k, vocab=64)
-    step, init_opt = tmoe.make_moe_optax_step(tcfg)
+    step, init_opt, _, _ = tmoe.make_moe_optax_step(tcfg)
     opt = init_opt(tp)
     t = torch.from_numpy(tokens)
     tp, opt, loss0 = step(tp, opt, t)
@@ -289,3 +300,100 @@ def test_pinned_choices_make_flash_and_dense_steps_comparable():
     for a, b in zip(tree_leaves(gf), tree_leaves(gd)):
         assert float((a - b).norm() / b.norm()) <= LEAF_REL
     assert tmoe._top_k.__name__ == "_top_k"        # restored on exit
+
+
+def jmesh(axes: dict):
+    from jax.sharding import Mesh as JMesh
+    devs = np.array(jax.devices()[:int(np.prod(list(axes.values())))])
+    return JMesh(devs.reshape(tuple(axes.values())), tuple(axes))
+
+
+def _spec(entry) -> tuple:
+    return tuple(entry)
+
+
+def test_moe_param_shardings_equal_the_reference():
+    """The banks over "ep" on the expert axis, the rest replicated: the
+    reference's PartitionSpecs, entry for entry, for both position
+    forms."""
+    for pos in ("learned", "rope"):
+        jcfg, tcfg = cfg_pair(**dict(SMALL, pos_emb=pos))
+        want = jmoe.moe_param_shardings(jcfg, jmesh({"dp": 2, "ep": 2}))
+        got = tmoe.moe_param_shardings(tcfg, Mesh({"dp": 2, "ep": 2},
+                                                  device="cpu"))
+        assert sorted(_paths(got)) == sorted(
+            _paths(jax.tree.map(lambda s: 0, want,
+                                is_leaf=lambda x: hasattr(x, "spec"))))
+        for path in _paths(got):
+            assert _get(got, path) == tuple(_get(want, path).spec), path
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+@pytest.mark.parametrize("axes", [{"dp": 2, "ep": 2}, {"dp": 1, "ep": 4}],
+                         ids=["dp2xep2", "ep4"])
+def test_moe_ep_step_matches_the_reference(axes, top_k):
+    """The SGD step on a dp x ep mesh at lr 1 (its update is the
+    gradient) against the reference's ``make_moe_train_step`` on the same
+    mesh shape: the loss within LOSS_ATOL, every leaf within LEAF_REL;
+    and against the port's one-device gradients with the one-device
+    pass's routing replayed (``PinnedChoices``), within LEAF_REL: the
+    experts' partial outputs are summed over the ranks in another
+    order."""
+    from tpu_dra_torch.workloads.train import value_and_grad
+    jcfg, tcfg, jp, tp, tokens = moe_trees(top_k)
+    jstep, jps, jts = jmoe.make_moe_train_step(jcfg, jmesh(axes), lr=1.0)
+    jnew, jloss = jstep(jax.device_put(jp, jps),
+                        jax.device_put(jnp.asarray(tokens), jts))
+    step, p_shard, t_shard = tmoe.make_moe_train_step(
+        tcfg, Mesh(axes, device="cpu"), lr=1.0)
+    t = torch.from_numpy(tokens)
+    with tmoe.PinnedChoices() as pin:
+        loss1, g1 = value_and_grad(
+            lambda p, x: tmoe.moe_loss_fn(tcfg, p, x), tp, t)
+        pin.replay()
+        new, loss = step(tp, t)
+    assert pin.replayed == len(pin.recorded)
+    assert t_shard == ("dp", None)
+    assert abs(float(loss) - float(jloss)) <= LOSS_ATOL
+    assert abs(float(loss) - float(loss1)) <= LOSS_ATOL
+    jold, jnew = to_numpy_tree(jp), to_numpy_tree(jnew)
+    for path in _paths(tp):
+        got = f32(_get(tp, path)) - f32(_get(new, path))
+        want = np.asarray(_get(jold, path)) - np.asarray(_get(jnew, path))
+        one = f32(_get(g1, path))
+        for ref in (want, one):
+            rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+            assert rel <= LEAF_REL, (path, rel)
+
+
+def test_moe_zero1_is_bit_equal_to_replicated_moments():
+    """AdamW on a dp x ep mesh, 3 steps: ZeRO-1's per-rank moment shards
+    give the replicated run's losses, parameters and moments bit for
+    bit; the expert banks' moments carry "ep", and ZeRO-1 adds "dp"."""
+    _, tcfg, _, tp0, tokens = moe_trees(2, vocab=64)
+    mesh = Mesh({"dp": 2, "ep": 2}, device="cpu")
+    t = torch.from_numpy(tokens)
+
+    def run(zero1):
+        tp = {k: (v.clone() if torch.is_tensor(v) else
+                  {kk: vv.clone() for kk, vv in v.items()})
+              for k, v in tp0.items()}
+        step, init_opt, _, _ = tmoe.make_moe_optax_step(tcfg, mesh,
+                                                        zero1=zero1)
+        opt = init_opt(tp)
+        losses = []
+        for _ in range(3):
+            tp, opt, loss = step(tp, opt, t)
+            losses.append(float(loss))
+        return losses, tp, opt
+
+    a, b = run(False), run(True)
+    assert a[0] == b[0]
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[1]),
+                                                 tree_leaves(b[1])))
+    da, db = a[2].to_dict(), b[2].to_dict()
+    for key in ("mu", "nu"):
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(da[key]),
+                                                     tree_leaves(db[key])))
+    assert b[2].layout.moment_specs["blocks"]["w1"] == ("dp", "ep", None,
+                                                        None)

@@ -307,3 +307,69 @@ def test_serving_tree_crosses_through_npz_unchanged(form, tmp_path):
     save_npz(tmp_path / "j.npz", jtree)
     direct = dict(flat(load_npz(tmp_path / "j.npz", "cpu")))
     assert all(torch.equal(direct[k], got[k]) for k in got)
+
+
+def _spec_paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _spec_paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+# (form, int4 group): int4 at group 16 over K 64 gives 4 groups, which
+# split over tp 2 and tp 4; at group 64, 1 group, which splits over
+# neither, so the scales replicate K
+SHARDING_FORMS = [("plain", None), ("bf16", None), ("int8", None),
+                  ("int4", 16), ("int4", 64)]
+
+
+@pytest.mark.parametrize("axes", [{"dp": 2, "tp": 2}, {"dp": 1, "tp": 4}],
+                         ids=["dp2xtp2", "tp4"])
+@pytest.mark.parametrize("form,group", SHARDING_FORMS,
+                         ids=["plain", "bf16", "int8", "int4-g16",
+                              "int4-g64"])
+def test_serving_param_shardings_equal_the_reference(form, group, axes):
+    """``serving_param_shardings``' spec tree equals the reference's
+    PartitionSpecs leaf for leaf, for plain, bf16, int8 and int4 trees,
+    with the group count dividing the tp axis and not."""
+    from jax.sharding import Mesh as JMesh
+    from tpu_dra_torch.workloads.mesh import Mesh
+    jcfg, tcfg = cfg_pair(vocab=64, d_model=64, n_heads=4, n_layers=2,
+                          d_ff=128, max_seq=16)
+    jp = jax_params(jcfg)
+    jtree = {"plain": lambda p: p, "bf16": jq.cast_params_bf16,
+             "int8": jq.quantize_params_int8,
+             "int4": lambda p: jq.quantize_params_int4(p, group)}[form](jp)
+    ttree = {"plain": lambda p: p, "bf16": tq.cast_params_bf16,
+             "int8": tq.quantize_params_int8,
+             "int4": lambda p: tq.quantize_params_int4(p, group)}[form](
+        to_torch(jp))
+    jm = JMesh(np.array(jax.devices()[:int(np.prod(list(axes.values())))])
+               .reshape(tuple(axes.values())), tuple(axes))
+    want = dict(_spec_paths(jax.tree.map(
+        lambda s: tuple(s.spec), jq.serving_param_shardings(jcfg, jm, jtree),
+        is_leaf=lambda x: hasattr(x, "spec"))))
+    got = dict(_spec_paths(tq.serving_param_shardings(
+        tcfg, Mesh(axes, device="cpu"), ttree)))
+    assert sorted(got) == sorted(want)
+    for key, spec in got.items():
+        assert tuple(spec) == want[key], key
+    if form == "int4":
+        s4 = got["blocks/wo/s4"]
+        assert s4[1] == ("tp" if 4 % axes["tp"] == 0 and group == 16
+                         else None)
+
+
+def test_serving_param_shardings_refuse_an_unknown_leaf():
+    from tpu_dra_torch.workloads.mesh import Mesh
+    _, tcfg = cfg_pair(vocab=64, d_model=64, n_heads=4, n_layers=2,
+                       d_ff=128, max_seq=16)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    from tpu_dra_torch.workloads.train import init_params
+    tree = init_params(tcfg, gen)
+    tree["blocks"]["wo"] = {"odd": tree["blocks"]["wo"]}
+    with pytest.raises(ValueError, match="unrecognized serving leaf"):
+        tq.serving_param_shardings(tcfg, Mesh({"dp": 1, "tp": 2},
+                                              device="cpu"), tree)

@@ -1,7 +1,7 @@
 """End-to-end training loop of the port, ported from
 ``tpu_dra/workloads/fit.py``: token file → deterministic batches → train
-step (AdamW after global-norm clipping) on one device → periodic
-checkpoints → exact resume.
+step (AdamW after global-norm clipping) on one device or a virtual mesh
+→ periodic checkpoints → exact resume.
 
     python -m tpu_dra_torch.workloads.fit --data tokens.bin --attn-impl flash
 
@@ -11,20 +11,26 @@ path on the CPU.  Initial weights come from a ``torch.Generator`` seeded
 with 0, so they differ from the reference's ``jax.random`` ones.  A
 ``moe.MoEConfig`` trains the MoE model (``moe.make_moe_optax_step``).
 
+``mesh`` (a ``mesh.Mesh``) trains on a dp×tp mesh through
+``train.make_optax_train_step``, or a MoE model on a dp×ep mesh through
+``moe.make_moe_optax_step``; ``zero1=True`` shards the AdamW moments over
+"dp" there.  Without a mesh the run is the one-device one (the
+reference's default mesh puts every local device on "dp"; one card is
+dp 1, where ZeRO-1 changes nothing).
+
 Checkpoints (``checkpointing.py``, the port's own format) hold
-``{params, extra: {opt_state: {count, mu, nu}, step}}``; ``resume``
-restores the newest committed step and starts the data iterator there,
-so the resumed run sees the batches the uninterrupted one would have.
+``{params, extra: {opt_state: {count, mu, nu}, step}}`` with the global
+moment tensors, whatever the layout (``optim.AdamWState.to_dict``), as
+the reference's orbax saves global arrays: a ZeRO-1 run and a replicated
+run resume each other's steps.  ``resume`` restores the newest committed
+step and starts the data iterator there, so the resumed run sees the
+batches the uninterrupted one would have.
 
 Goodput (``goodput.py``, opt-in through ``TPU_GOODPUT_FILE``): the first
 step of a run accrues to ``compile``, every later one to ``step``, and
 saves and restores to their segments inside ``checkpointing.py``; a run
 that opted in synchronizes the card after each step, so a step's time
 holds its device work.
-
-Refused with ``NotImplementedError``: ZeRO-1 (it comes with the sharded
-optimizer step, ROADMAP.md queue 1 item 9); the reference's
-multi-device mesh has no counterpart here.
 """
 
 from __future__ import annotations
@@ -50,11 +56,12 @@ from tpu_dra_torch.workloads.moe import (
     make_moe_optax_step,
     moe_eval_nll,
 )
-from tpu_dra_torch.workloads.optim import AdamW, AdamWState, make_schedule
+from tpu_dra_torch.workloads.optim import AdamW, make_schedule
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     init_params,
     loss_fn,
+    make_optax_train_step,
     make_train_step,
 )
 
@@ -67,7 +74,7 @@ class FitResult:
     tokens_per_s: float
 
 
-def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
+def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
         batch: int = 8, lr: float = 3e-4,
         lr_schedule: str = "constant", warmup_steps: int = 0,
         attn_impl: str = "dense", head_impl: str = "dense",
@@ -77,8 +84,11 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
         resume: bool = False, log_every: int = 10,
         log_fn: Callable[[str], None] = print, device=None) -> FitResult:
     """Train ``cfg`` on a token file for ``steps`` optimizer steps on one
-    device (default: the card).
+    device (default: the card), or on ``mesh`` (on its device).
 
+    - ``mesh``: a dp×tp ``mesh.Mesh`` (dp×ep for a ``MoEConfig``; one
+      without "dp" and "ep" raises ``ValueError``); the batch must divide
+      by dp × ``accum_steps``.  ``zero1`` shards the moments over "dp".
     - ``checkpoint_every``: 0 disables; otherwise saves ``{params,
       extra={opt_state, step}}`` to ``checkpoint_dir`` every N steps and
       at the end.
@@ -89,20 +99,19 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
     ``tokens_per_s`` counts from before the first step, so it includes
     the first step's one-time costs, as the reference's does."""
     is_moe = isinstance(cfg, MoEConfig)
-    if zero1:
-        raise NotImplementedError(
-            "zero1 comes with the sharded optimizer step, ROADMAP.md queue "
-            "1 item 9")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if is_moe and (accum_steps != 1 or label_smoothing or z_loss):
         raise ValueError(
             "MoE fit supports accum_steps=1 without label smoothing / "
             "z-loss (the MoE step has no microbatch scan)")
-    if batch % accum_steps:
-        raise ValueError(f"batch {batch} must be divisible by accum_steps "
-                         f"{accum_steps}")
-    dev = resolve_device(device)
+    if is_moe and mesh is not None and not {"dp", "ep"} <= set(mesh.axes):
+        raise ValueError("MoE fit needs a mesh with 'dp' and 'ep' axes")
+    dp = mesh.axis_size("dp") if mesh is not None else 1
+    if batch % (dp * accum_steps):
+        raise ValueError(f"batch {batch} must be divisible by dp x "
+                         f"accum_steps ({dp} x {accum_steps})")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     ds = TokenDataset(data_path)
     # the schedule runs on the optimizer's ABSOLUTE update count, which a
     # resume restores: size its horizon from the restored step, or a
@@ -112,8 +121,14 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
     horizon = steps if restored is None else restored + steps
     optimizer = AdamW(make_schedule(lr, lr_schedule, warmup_steps, horizon))
     if is_moe:
-        step_fn, init_opt = make_moe_optax_step(
-            cfg, optimizer, attn_impl=attn_impl, head_impl=head_impl)
+        step_fn, init_opt, _, _ = make_moe_optax_step(
+            cfg, mesh, optimizer, attn_impl=attn_impl, head_impl=head_impl,
+            zero1=zero1)
+    elif mesh is not None:
+        step_fn, init_opt, _, _ = make_optax_train_step(
+            cfg, mesh, optimizer, attn_impl=attn_impl, head_impl=head_impl,
+            accum_steps=accum_steps, label_smoothing=label_smoothing,
+            z_loss=z_loss, zero1=zero1)
     else:
         step_fn, init_opt = make_train_step(
             cfg, optimizer, attn_impl=attn_impl, head_impl=head_impl,
@@ -131,7 +146,7 @@ def fit(cfg: ModelConfig, data_path: str, *, steps: int = 100,
         state = restore_train_state(checkpoint_dir, step=restored,
                                     device=dev)
         params = state["params"]
-        opt_state = AdamWState.from_dict(state["extra"]["opt_state"])
+        opt_state = init_opt.restore(state["extra"]["opt_state"])
         start = int(state["extra"]["step"])
         log_fn(f"resumed from step {start} (restored in "
                f"{time.perf_counter() - t0:.2f} s)")

@@ -9,8 +9,11 @@ the base may be plain or int8 (QLoRA).  Only the adapters are
 differentiated: the step takes gradients of the LoRA tree alone, and the
 optimizer keeps moments for it alone.
 
-Not ported: ``lora_shardings`` and the step over a dp×tp mesh (ROADMAP.md
-queue 1 item 9.5).
+Over a dp×tp mesh (``mesh.Mesh``) the base keeps its
+``train.param_shardings`` layout and the adapters replicate
+(:func:`lora_shardings`); as in the dense sharded step, GSPMD's
+collectives are plain there, so the mesh step computes what the
+one-device step computes.
 """
 
 from __future__ import annotations
@@ -20,7 +23,13 @@ from dataclasses import dataclass
 import torch
 
 from tpu_dra_torch.workloads.optim import AdamW
-from tpu_dra_torch.workloads.train import ModelConfig, loss_fn, value_and_grad
+from tpu_dra_torch.workloads.train import (
+    ModelConfig,
+    loss_fn,
+    tree_leaves,
+    tree_unflatten,
+    value_and_grad,
+)
 
 # optax.adamw's own default decay, which the reference's default LoRA
 # optimizer (``optax.adamw(1e-3)``) takes; ``fit`` decays at 0.01
@@ -102,27 +111,43 @@ def lora_value_and_grad(cfg: ModelConfig, base: dict, lora: dict,
                               head_impl), lora, tokens)
 
 
+def lora_shardings(lora: dict, mesh) -> dict:
+    """Every adapter replicated (``lora.lora_shardings``, 110-114): at
+    r = 8 the whole tree is a few MB, and every shard of a tp-split base
+    needs the whole rank-r factors.  One spec (``()``) a leaf."""
+    return tree_unflatten(lora, [() for _ in tree_leaves(lora)])
+
+
 def make_lora_train_step(cfg: ModelConfig, mesh=None,
                          lcfg: LoRAConfig | None = None, optimizer=None,
                          attn_impl: str = "dense", head_impl: str = "dense"):
-    """The LoRA fine-tuning step on one device: ``(step, init_opt_state,
-    lcfg)`` where ``step(base, lora, opt_state, tokens) -> (lora,
-    opt_state, loss)``.  The base is frozen: no gradients, no moments.
-    The default optimizer is the reference's ``optax.chain(
-    clip_by_global_norm(1.0), optax.adamw(1e-3))``, whose decay is
-    :data:`LORA_WEIGHT_DECAY`; it updates ``lora`` in place."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the LoRA step over a mesh comes with ROADMAP.md queue 1 item "
-            "9.5; pass mesh=None")
+    """The LoRA fine-tuning step (``lora.make_lora_train_step``,
+    117-160): ``(step, init_opt_state, lcfg, shardings)`` where
+    ``step(base, lora, opt_state, tokens) -> (lora, opt_state, loss)``.
+    The base is frozen: no gradients, no moments.  The default optimizer
+    is the reference's ``optax.chain(clip_by_global_norm(1.0),
+    optax.adamw(1e-3))``, whose decay is :data:`LORA_WEIGHT_DECAY`; it
+    updates ``lora`` in place.  On a dp×tp ``mesh`` the inputs must lie
+    on its device (else ``ValueError``) and ``shardings`` is
+    ``{"params": train.param_shardings, "batch": train.batch_sharding,
+    "lora": lora_shardings over the mesh}``; ``mesh=None`` is the one
+    device, where ``shardings`` is None."""
+    from tpu_dra_torch.workloads.train import batch_sharding, param_shardings
     lcfg = lcfg or LoRAConfig()
     if optimizer is None:
         optimizer = AdamW(1e-3, weight_decay=LORA_WEIGHT_DECAY)
 
     def step(base, lora, opt_state, tokens):
+        if mesh is not None:
+            mesh.check_device(tokens, *tree_leaves(base), *tree_leaves(lora))
         loss, grads = lora_value_and_grad(cfg, base, lora, lcfg, tokens,
                                           attn_impl, head_impl)
         opt_state = optimizer.update(lora, grads, opt_state)
         return lora, opt_state, loss
 
-    return step, optimizer.init, lcfg
+    shardings = None
+    if mesh is not None:
+        shardings = {"params": param_shardings(cfg, mesh),
+                     "batch": batch_sharding(mesh),
+                     "lora": lambda lora: lora_shardings(lora, mesh)}
+    return step, optimizer.init, lcfg, shardings

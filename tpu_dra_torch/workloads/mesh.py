@@ -114,6 +114,13 @@ class Mesh:
             raise ValueError(f"spec {spec} names an axis twice")
         return spec
 
+    def shard_shape(self, shape, spec) -> tuple:
+        """The shape of one rank's shard of a global ``shape`` cut by
+        ``spec`` (``NamedSharding.shard_shape``)."""
+        spec = self._spec(spec, len(shape))
+        return tuple(size // math.prod(self.axes[a] for a in axes_of(e))
+                     for size, e in zip(shape, spec))
+
     def shard(self, x, spec):
         """Global ``x`` → stacked ``[*mesh.shape, *shard]``: dimension d
         is cut over the axes ``spec[d]`` names (each of size dividing it);
@@ -137,6 +144,29 @@ class Mesh:
         t = t.contiguous()          # each rank's shard in one block
         for i, a in enumerate(self.axes):
             if a not in pos:
+                t = t.unsqueeze(i)
+        return t.expand(*self.shape, *t.shape[len(self.axes):])
+
+    def local(self, t, spec):
+        """Stacked ``t`` → its distinct shards: the mesh axes ``spec`` does
+        not name (expanded views) are dropped, leaving ``[*named axes, in
+        the mesh's order, *shard]``, a view of the memory every rank reads.
+        Written in place, it changes what every rank holds."""
+        named = {a for e in self._spec(spec, t.dim() - len(self.axes))
+                 for a in axes_of(e)}
+        for i in reversed(range(len(self.axes))):
+            if self.axis_names[i] not in named:
+                t = t.select(i, 0)
+        return t
+
+    def from_local(self, t, spec):
+        """The inverse of :meth:`local`: the dropped axes come back as
+        expanded views."""
+        n_named = len({a for e in spec for a in axes_of(e)})
+        named = {a for e in self._spec(spec, t.dim() - n_named)
+                 for a in axes_of(e)}
+        for i, a in enumerate(self.axes):
+            if a not in named:
                 t = t.unsqueeze(i)
         return t.expand(*self.shape, *t.shape[len(self.axes):])
 

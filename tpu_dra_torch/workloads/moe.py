@@ -19,8 +19,16 @@ dispatch and combine einsums each cost N/d_ff of an expert matmul (one
 at the flagship's N = d_ff = 8192).  An index-based dispatch would
 gather and scatter K·N rows of D instead.
 
-Not ported: ``moe_param_shardings``, ``make_moe_train_step`` and the
-expert-parallel mesh (ROADMAP.md queue 1 item 9.4).
+Expert parallelism (``moe_param_shardings``, ``make_moe_train_step``,
+``make_moe_optax_step`` on a ``{"dp", "ep"}`` virtual mesh, ``mesh.py``):
+the expert banks are stacked over "ep", ``[ep, E/ep, D, F]`` a layer, and
+each rank computes its experts' rows of the dispatch; the ranks' partial
+outputs are summed (``mesh.psum``), where the reference's
+``_ep_constraint`` (162-168) lets GSPMD place the all-to-all.  The router
+stays the one-device :func:`route` over the whole batch, so the mesh step
+routes every token as the one-device step does, up to near-ties
+(:class:`PinnedChoices` replays them); the rest of the block, whose
+parameters replicate, is the one-device computation.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from tpu_dra_torch.workloads.mesh import psum
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _attn_sublayer,
@@ -71,13 +80,13 @@ class MoEConfig(ModelConfig):
                           n_tokens / self.n_experts))
 
 
-def init_moe_params(cfg: MoEConfig,
-                    generator: torch.Generator) -> dict[str, Any]:
+def init_moe_params(cfg: MoEConfig, generator: torch.Generator,
+                    device=None) -> dict[str, Any]:
     """``train.init_params`` with every block's FFN an expert bank
     (``wg [L, D, E]``, ``w1 [L, E, D, F]``, ``w2 [L, E, F, D]``): the
     reference's shapes and scale, drawn from ``generator`` on its own
-    device (the numbers differ from ``jax.random``'s)."""
-    dev = generator.device
+    device or on ``device`` (the numbers differ from ``jax.random``'s)."""
+    dev = generator.device if device is None else torch.device(device)
     scale = cfg.d_model ** -0.5
     L, E, D = cfg.n_layers, cfg.n_experts, cfg.d_model
 
@@ -187,12 +196,39 @@ def route(cfg: MoEConfig, flat, wg, capacity: int):
     return probs, gates, onehot_k, disp_k
 
 
-def moe_ffn(cfg: MoEConfig, x, wg, w1, w2, capacity: int | None = None):
+def _ep_experts(mesh, dispatch, combine, flat, w1, w2):
+    """The expert FFN on banks stacked over "ep": ``w1 [E, D, F]`` and
+    ``w2 [E, F, D]`` are cut by :func:`moe_param_shardings`' spec into
+    ``[ep, E/ep, ...]``, rank r takes the dispatch rows of its E/ep
+    experts, and the ranks' bf16 partial outputs (each rank's combine
+    over its experts' slots, as GSPMD partitions the reference's einsum)
+    are summed over the ranks in fp32 and rounded to bf16 once."""
+    spec = ("ep", None, None)     # a layer of moe_param_shardings' banks
+    ep = mesh.axis_size("ep")
+    N, E, C = dispatch.shape
+
+    def bank(w):                                  # [ep, E/ep, ...]
+        return mesh.local(mesh.shard(w.to(torch.bfloat16), spec), spec)
+
+    def ranks(t):                                 # [N, ep, E/ep, C]
+        return t.reshape(N, ep, E // ep, C)
+    expert_in = torch.einsum("nrec,nd->recd", ranks(dispatch),
+                             flat.to(torch.bfloat16))
+    h = F.gelu(torch.einsum("recd,redf->recf", expert_in, bank(w1)),
+               approximate="tanh")
+    expert_out = torch.einsum("recf,refd->recd", h, bank(w2))
+    part = torch.einsum("nrec,recd->rnd", ranks(combine), expert_out)
+    return psum(part.float(), 0)[0].to(torch.bfloat16)
+
+
+def moe_ffn(cfg: MoEConfig, x, wg, w1, w2, capacity: int | None = None,
+            mesh=None):
     """Top-k expert FFN.  ``x``: [B, S, D]; ``wg``: [D, E]; ``w1``:
     [E, D, F]; ``w2``: [E, F, D].  Returns ``(out [B, S, D], aux_loss
     scalar)``.  Tokens over their expert's capacity contribute zero.  The
     aux loss is E·Σ_e (fraction of tokens whose FIRST choice, before the
-    capacity, is e) × (mean router probability of e)."""
+    capacity, is e) × (mean router probability of e).  A ``mesh`` with
+    an "ep" axis runs the experts on its ranks (:func:`_ep_experts`)."""
     B, S, D = x.shape
     E = wg.shape[-1]
     N = B * S
@@ -202,13 +238,17 @@ def moe_ffn(cfg: MoEConfig, x, wg, w1, w2, capacity: int | None = None):
     dispatch = disp_k.sum(0)                                   # [N, E, C]
 
     d16 = dispatch.to(torch.bfloat16)
-    expert_in = torch.einsum("nec,nd->ecd", d16, flat.to(torch.bfloat16))
-    h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in,
-                            w1.to(torch.bfloat16)), approximate="tanh")
-    expert_out = torch.einsum("ecf,efd->ecd", h, w2.to(torch.bfloat16))
     combine = torch.einsum("knec,nk->nec", disp_k,
                            gates).to(torch.bfloat16)           # [N, E, C]
-    out = torch.einsum("nec,ecd->nd", combine, expert_out)
+    if mesh is not None and "ep" in mesh.axes:
+        out = _ep_experts(mesh, d16, combine, flat, w1, w2)
+    else:
+        expert_in = torch.einsum("nec,nd->ecd", d16,
+                                 flat.to(torch.bfloat16))
+        h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in,
+                                w1.to(torch.bfloat16)), approximate="tanh")
+        expert_out = torch.einsum("ecf,efd->ecd", h, w2.to(torch.bfloat16))
+        out = torch.einsum("nec,ecd->nd", combine, expert_out)
 
     first = onehot_k[:, 0]                                     # [N, E]
     frac = first.sum(0) / torch.clamp(first.sum(), min=1.0)    # [E]
@@ -216,16 +256,17 @@ def moe_ffn(cfg: MoEConfig, x, wg, w1, w2, capacity: int | None = None):
     return out.reshape(B, S, D).to(x.dtype), aux
 
 
-def _moe_block(cfg: MoEConfig, x, layer, capacity: int | None, attn_fn):
+def _moe_block(cfg: MoEConfig, x, layer, capacity: int | None, attn_fn,
+               mesh=None):
     x = _attn_sublayer(cfg, x, layer, attn_fn)
     h = _rmsnorm(x, layer["ln2"])
     ff, aux = moe_ffn(cfg, h, layer["wg"], layer["w1"], layer["w2"],
-                      capacity)
+                      capacity, mesh)
     return x + ff, aux
 
 
 def _moe_trunk(cfg: MoEConfig, params, tokens, capacity: int | None,
-               attn_impl: str = "dense"):
+               attn_impl: str = "dense", mesh=None):
     """Embed + the MoE decoder stack → (pre-final-norm activations,
     Σ aux).  Each block is rematerialized in the backward.  The embedding
     rows come from ``train.embed_tokens`` (fp32 gradient sums, the port's
@@ -235,54 +276,117 @@ def _moe_trunk(cfg: MoEConfig, params, tokens, capacity: int | None,
     aux = x.new_zeros((), dtype=torch.float32)
     for i in range(cfg.n_layers):
         x, a = remat(_moe_block, cfg, x, layer_params(params["blocks"], i),
-                     capacity, attn_fn)
+                     capacity, attn_fn, mesh)
         aux = aux + a
     return x, aux
 
 
 def moe_forward(cfg: MoEConfig, params, tokens,
-                capacity: int | None = None):
+                capacity: int | None = None, mesh=None):
     """Logits + summed aux loss for a [B, S] integer batch."""
-    x, aux = _moe_trunk(cfg, params, tokens, capacity)
+    x, aux = _moe_trunk(cfg, params, tokens, capacity, mesh=mesh)
     return head_logits(params, x), aux
 
 
 def moe_loss_fn(cfg: MoEConfig, params, tokens, attn_impl: str = "dense",
-                head_impl: str = "dense"):
+                head_impl: str = "dense", mesh=None):
     """Next-token NLL of a ``[B, S+1]`` batch plus the weighted aux
     loss: the training objective."""
-    x, aux = _moe_trunk(cfg, params, tokens[:, :-1], None, attn_impl)
+    x, aux = _moe_trunk(cfg, params, tokens[:, :-1], None, attn_impl, mesh)
     nll = head_nll(params, x, tokens[:, 1:].long(), head_impl).mean()
     return nll + cfg.aux_loss_weight * aux
 
 
 def moe_eval_nll(cfg: MoEConfig, params, tokens, attn_impl: str = "dense",
-                 head_impl: str = "dense"):
+                 head_impl: str = "dense", mesh=None):
     """Pure next-token NLL (NO aux loss): the eval metric."""
-    x, _ = _moe_trunk(cfg, params, tokens[:, :-1], None, attn_impl)
+    x, _ = _moe_trunk(cfg, params, tokens[:, :-1], None, attn_impl, mesh)
     return head_nll(params, x, tokens[:, 1:].long(), head_impl).mean()
 
 
-def make_moe_optax_step(cfg: MoEConfig, optimizer=None,
+def moe_param_shardings(cfg: MoEConfig, mesh) -> dict[str, Any]:
+    """Expert banks over "ep" on their expert axis, everything else
+    replicated (``moe.moe_param_shardings``, 220-239), one spec a leaf."""
+    out: dict[str, Any] = {
+        "embed": (),
+        "blocks": {
+            "wqkv": (), "wo": (), "wg": (),
+            "w1": (None, "ep", None, None),
+            "w2": (None, "ep", None, None),
+            "ln1": (), "ln2": (),
+        },
+        "ln_f": (),
+        "unembed": (),
+    }
+    if cfg.pos_emb == "learned":
+        out["pos"] = ()
+    return out
+
+
+def _ep_mesh(cfg: MoEConfig, mesh) -> tuple:
+    """``(p_shard, t_shard)`` of a step on ``mesh``, after the reference's
+    check that "ep" splits the experts."""
+    ep = mesh.axis_size("ep")
+    if cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} not divisible by "
+                         f"ep={ep}")
+    return moe_param_shardings(cfg, mesh), ("dp", None)
+
+
+def make_moe_optax_step(cfg: MoEConfig, mesh=None, optimizer=None,
                         attn_impl: str = "dense", head_impl: str = "dense",
                         zero1: bool = False):
-    """MoE training on one device with the default optimizer of the
-    dense model (AdamW after global-norm clipping): ``(step,
-    init_opt_state)`` with ``step(params, opt_state, tokens) -> (params,
-    opt_state, loss)``; the optimizer updates ``params`` in place."""
-    from tpu_dra_torch.workloads.optim import default_optimizer
-    if zero1:
-        raise NotImplementedError(
-            "zero1 comes with the sharded optimizer step, ROADMAP.md "
-            "queue 1 item 9")
+    """MoE training with the default optimizer of the dense model (AdamW
+    after global-norm clipping), the expert-parallel sibling of
+    ``train.make_optax_train_step`` (``moe.make_moe_optax_step``,
+    242-282): ``(step, init_opt_state, p_shard, t_shard)`` with
+    ``step(params, opt_state, tokens) -> (params, opt_state, loss)``; the
+    optimizer updates ``params`` in place.  On a ``{"dp", "ep"}`` mesh
+    the experts run on its ranks and the moments take their parameters'
+    specs (``train.opt_state_shardings``; ``zero1`` shards them over "dp"
+    too, bit-equal to the replicated update).  ``mesh=None`` is the one
+    device (no specs; ``zero1`` has no "dp" to use)."""
+    from tpu_dra_torch.workloads.optim import OptStateInit, default_optimizer
+    from tpu_dra_torch.workloads.train import (opt_state_shardings,
+                                               param_shapes, tree_leaves)
     if optimizer is None:
         optimizer = default_optimizer()
+    p_shard = t_shard = None
+    init_opt_state = OptStateInit(optimizer, None)
+    if mesh is not None:
+        p_shard, t_shard = _ep_mesh(cfg, mesh)
+        _, init_opt_state = opt_state_shardings(
+            optimizer, param_shapes(cfg, init_moe_params), p_shard, mesh,
+            zero1=zero1)
 
     def step(params, opt_state, tokens):
+        if mesh is not None:
+            mesh.check_device(tokens, *tree_leaves(params))
         loss, grads = value_and_grad(
-            lambda p, t: moe_loss_fn(cfg, p, t, attn_impl, head_impl),
+            lambda p, t: moe_loss_fn(cfg, p, t, attn_impl, head_impl, mesh),
             params, tokens)
         opt_state = optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 
-    return step, optimizer.init
+    return step, init_opt_state, p_shard, t_shard
+
+
+def make_moe_train_step(cfg: MoEConfig, mesh, lr: float = 1e-2,
+                        attn_impl: str = "dense", head_impl: str = "dense"):
+    """The MoE SGD step over ``mesh`` (axes "dp", "ep";
+    ``moe.make_moe_train_step``, 285-307): ``(step, p_shard, t_shard)``
+    with ``step(params, tokens) -> (params, loss)`` on the mesh's device.
+    ``ValueError`` unless ``cfg.n_experts % ep == 0``."""
+    from tpu_dra_torch.workloads.train import tree_leaves, tree_unflatten
+    p_shard, t_shard = _ep_mesh(cfg, mesh)
+
+    def step(params, tokens):
+        mesh.check_device(tokens, *tree_leaves(params))
+        loss, grads = value_and_grad(
+            lambda p, t: moe_loss_fn(cfg, p, t, attn_impl, head_impl, mesh),
+            params, tokens)
+        new = [p.detach() - lr * g for p, g in zip(tree_leaves(params),
+                                                   tree_leaves(grads))]
+        return tree_unflatten(params, new), loss
+
+    return step, p_shard, t_shard

@@ -23,6 +23,15 @@ optimizer ``spec_draft.distill_draft`` trains a draft with.
 
 Where optax returns new arrays, ``update`` writes the parameters and
 moments in place, so a step holds one copy of them.
+
+ZeRO-1 (``train.opt_state_shardings(..., zero1=True)``): a
+:class:`MomentLayout` keeps each moment stacked on a virtual mesh
+(``mesh.py``), cut over "dp" as well as by its parameter's spec.
+``AdamW.update`` then updates each rank's moment shard against the same
+slice of the clipped gradient and gathers the ranks' parameter updates
+(``mesh.all_gather``) into the replicated parameters.  Each element goes
+through the same operations in the same order as without the layout, so
+the two are bit-equal.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpu_dra_torch.workloads.train import tree_leaves, tree_unflatten
+from tpu_dra_torch.workloads.mesh import all_gather, axes_of
+from tpu_dra_torch.workloads.train import (tree_leaves, tree_like,
+                                           tree_unflatten)
 
 Schedule = Callable[[int], float]
 
@@ -99,21 +110,106 @@ def make_schedule(lr: float, lr_schedule: str, warmup_steps: int,
     raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
 
 
+class MomentLayout:
+    """Where ZeRO-1 keeps the moments: each parameter's spec and its
+    moment's spec on ``mesh`` (two trees shaped like the parameters, read
+    by key).  A moment is stored stacked by its spec (``Mesh.shard``), so
+    rank r holds a contiguous 1/dp block of it; the parameters stay
+    whole."""
+
+    def __init__(self, mesh, param_specs: dict, moment_specs: dict):
+        self.mesh = mesh
+        self.param_specs = param_specs
+        self.moment_specs = moment_specs
+
+    def specs(self, like) -> list:
+        """``(param spec, moment spec)`` of each leaf of ``like``, in its
+        ``tree_leaves`` order."""
+        return list(zip(tree_leaves(tree_like(like, self.param_specs)),
+                        tree_leaves(tree_like(like, self.moment_specs))))
+
+    def shard(self, tree: dict) -> dict:
+        """Global moment tensors → stacked ones (after a restore)."""
+        return tree_unflatten(tree, [
+            self.mesh.shard(t, m)
+            for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
+
+    def unshard(self, tree: dict) -> dict:
+        """Stacked moment tensors → global ones (before a save)."""
+        return tree_unflatten(tree, [
+            self.mesh.unshard(t, m)
+            for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
+
+    def rank_update(self, specs: tuple, p, g, mu, nu, moment_fn):
+        """A leaf's parameter update: each rank runs ``moment_fn`` on its
+        shards of ``p`` and ``g`` and its moment shards (in place), then
+        the ranks' updates are gathered over "dp" and put together by the
+        parameter's spec.  ``specs`` is the leaf's entry of
+        :meth:`specs`."""
+        mesh, (p_spec, spec) = self.mesh, specs
+
+        def local(t):
+            return mesh.local(t, spec)
+        upd = moment_fn(local(mesh.shard(p, spec)),
+                        local(mesh.shard(g, spec)), local(mu), local(nu))
+        upd = mesh.from_local(upd, spec)
+        dims = [d for d, e in enumerate(spec) if "dp" in axes_of(e)]
+        if dims:
+            n = len(mesh.axes)
+            upd = all_gather(upd, mesh.axis_names.index("dp"), n + dims[0])
+            spec = p_spec
+        return mesh.unshard(upd, spec)
+
+
 @dataclass
 class AdamWState:
     """Update count (optax's ``count``, 0 before the first update) and
-    the two moment trees, shaped like the parameters."""
+    the two moment trees, shaped like the parameters, or stacked on a
+    mesh by ``layout`` (ZeRO-1)."""
     count: int
     mu: dict
     nu: dict
+    layout: MomentLayout | None = None
 
     def to_dict(self) -> dict:
-        """``{"count", "mu", "nu"}``: the form a checkpoint stores."""
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        """``{"count", "mu", "nu"}``: the form a checkpoint stores, with
+        the global moment tensors whatever the layout (the reference's
+        orbax saves global arrays), so a ZeRO-1 run and a replicated one
+        read each other's steps."""
+        if self.layout is None:
+            return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, "mu": self.layout.unshard(self.mu),
+                "nu": self.layout.unshard(self.nu)}
 
     @classmethod
-    def from_dict(cls, d: dict) -> "AdamWState":
-        return cls(int(d["count"]), d["mu"], d["nu"])
+    def from_dict(cls, d: dict,
+                  layout: MomentLayout | None = None) -> "AdamWState":
+        """The inverse of :meth:`to_dict`: global moments, stacked by
+        ``layout`` where one is given."""
+        if layout is None:
+            return cls(int(d["count"]), d["mu"], d["nu"])
+        return cls(int(d["count"]), layout.shard(d["mu"]),
+                   layout.shard(d["nu"]), layout)
+
+
+class OptStateInit:
+    """``init_opt_state`` of a step on a mesh: ``init(params)`` is the
+    optimizer's fresh state, its moments stacked by ``layout`` under
+    ZeRO-1; ``init.restore(d)`` is the state of a checkpoint's
+    ``{"count", "mu", "nu"}`` (global moments) in the same layout."""
+
+    def __init__(self, optimizer, layout: MomentLayout | None):
+        self.optimizer = optimizer
+        self.layout = layout
+
+    def __call__(self, params) -> AdamWState:
+        state = self.optimizer.init(params)
+        if self.layout is None:
+            return state
+        return AdamWState.from_dict(state.to_dict(), self.layout)
+
+    def restore(self, d: dict) -> AdamWState:
+        return AdamWState.from_dict(d, self.layout)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -148,19 +244,30 @@ class AdamW:
 
     def update(self, params, grads, state: AdamWState) -> AdamWState:
         """One update of ``params`` (in place) from ``grads``; returns the
-        next state (its moment tensors updated in place too)."""
+        next state (its moment tensors updated in place too).  Under a
+        ZeRO-1 ``state.layout`` each rank updates its moment shards and
+        the parameter updates are gathered (:meth:`MomentLayout.
+        rank_update`)."""
         count = state.count + 1
         bc1 = _bias_correction(B1, count)
         bc2 = _bias_correction(B2, count)
         step_size = -self.schedule(state.count)
-        for p, g, mu, nu in zip(tree_leaves(params),
-                                self.clip(tree_leaves(grads)),
-                                tree_leaves(state.mu), tree_leaves(state.nu)):
+
+        def moment_fn(p, g, mu, nu):
             mu.mul_(B1).add_((1 - B1) * g)
             nu.mul_(B2).add_((1 - B2) * g.square())
             u = (mu / bc1) / ((nu / bc2).sqrt() + EPS)
-            p.add_((u + self.weight_decay * p) * step_size)
-        return AdamWState(count, state.mu, state.nu)
+            return (u + self.weight_decay * p) * step_size
+
+        layout = state.layout
+        specs = layout.specs(params) if layout is not None else None
+        for i, (p, g, mu, nu) in enumerate(zip(
+                tree_leaves(params), self.clip(tree_leaves(grads)),
+                tree_leaves(state.mu), tree_leaves(state.nu))):
+            p.add_(moment_fn(p, g, mu, nu) if layout is None
+                   else layout.rank_update(specs[i], p, g, mu, nu,
+                                           moment_fn))
+        return AdamWState(count, state.mu, state.nu, layout)
 
 
 class Adam:

@@ -26,7 +26,8 @@ weight bytes set its pace: bf16 halves fp32's, int8 quarters them.
 Rounding follows the reference step for step: ``x / s``, round half to
 even, clip, all in fp32; ``amax`` floored at 1e-8.
 
-Not ported: ``serving_param_shardings`` (it comes with mesh serving).
+:func:`serving_param_shardings` gives a serving tree's specs on a virtual
+mesh (``mesh.py``), as the reference's gives its ``NamedSharding``s.
 """
 
 from __future__ import annotations
@@ -258,6 +259,50 @@ def quantize_params_int8(params: dict) -> dict:
     """fp32/bf16 params → int8 serving params (``{"q8", "s"}`` leaves;
     see :func:`_quantize_params`)."""
     return _quantize_params(params, quantize_int8)
+
+
+def serving_param_shardings(cfg, mesh, params: dict) -> dict:
+    """The specs of a serving tree (plain, bf16, int8 or int4) on a TP
+    mesh (``quant.serving_param_shardings``, 277-332), one
+    ``Mesh.shard`` spec a leaf, shaped like ``params``: a weight keeps
+    its ``train.param_shardings`` spec; an int8 scale ``s [..., N]``
+    takes it without the K axis; an int4 scale ``s4 [..., K/G, N]``
+    keeps K split only where the group count divides over K's mesh axes,
+    and replicates it otherwise.  The port stores int4 one value a byte,
+    but its leaf shapes are the reference's logical ones, and so are the
+    specs.  An unknown dict leaf raises ``ValueError``."""
+    import math
+
+    from tpu_dra_torch.workloads.mesh import axes_of
+    from tpu_dra_torch.workloads.train import param_shardings
+
+    base = param_shardings(cfg, mesh)
+
+    def leaf(spec, w: Leaf):
+        if not isinstance(w, dict):
+            return spec
+        if not (is_quantized(w) or is_quantized4(w)):
+            raise ValueError(f"unrecognized serving leaf {sorted(w)}")
+        q = w["q8"] if is_quantized(w) else w["q4"]
+        parts = tuple(spec) + (None,) * (q.dim() - len(spec))
+        *lead, pk, pn = parts
+        if is_quantized(w):
+            return {"q8": spec, "s": (*lead, pn)}
+        ngroups = w["s4"].shape[-2]
+        split = math.prod(mesh.axis_size(a) for a in axes_of(pk))
+        pk_s = pk if pk is not None and ngroups % split == 0 else None
+        return {"q4": spec, "s4": (*lead, pk_s, pn)}
+
+    out = dict(base)
+    blocks = dict(base["blocks"])
+    for name in _QUANT_BLOCK_LEAVES:
+        if name in params["blocks"] and name in blocks:
+            blocks[name] = leaf(blocks[name], params["blocks"][name])
+    out["blocks"] = blocks
+    for name in _QUANT_TOP_LEAVES:
+        if name in params and name in base:
+            out[name] = leaf(base[name], params[name])
+    return out
 
 
 def quantize_params_int4(params: dict, group: int = 128) -> dict:

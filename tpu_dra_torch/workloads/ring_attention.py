@@ -15,6 +15,10 @@ What maps to what:
   logsumexp merges;
 - ``make_ring_attention`` (240) and ``make_ring_attention_flash`` (161):
   the ``shard_map``-wrapped forms over ``[B, H, S, D]``;
+- ``zigzag_indices`` (258), ``_zigzag_schedule`` (282),
+  ``zigzag_ring_attention`` (339), ``zigzag_ring_attention_flash`` (375)
+  and ``make_zigzag_ring_attention`` (391): the load-balanced causal ring,
+  whose kv hop is the plain ``ppermute``;
 - ``_sp_trunk`` (409) and ``make_ring_train_step`` (446): the DP×SP SGD
   step.
 
@@ -23,8 +27,8 @@ ring's n ranks on dimension 1 and the data-parallel groups on dimension 0.
 Where the reference branches per device (``lax.cond`` on ``src < idx``),
 the port computes the ranks that fold at a step together: at ring step t
 those are ranks t..n−1, one flash launch for all of them, and the other
-ranks' partials pass through.  The zigzag engines (256-403) are not ported
-here: they call ``ppermute`` directly and run no kernel.
+ranks' partials pass through.  The zigzag schedule folds its rank subsets
+the same way (:func:`_zigzag_schedule`).
 """
 
 from __future__ import annotations
@@ -159,8 +163,11 @@ def ring_attention_flash(q, k, v, causal: bool = True,
     return out.to(q.dtype)
 
 
-def _make(engine, mesh, axis_name: str, causal: bool, hop_impl: str):
-    _check_hop_impl(hop_impl)
+def _make(engine, mesh, axis_name: str, **kw):
+    """``engine`` over global ``[B, H, S, D]`` q/k/v on the mesh's device,
+    S cut over ``axis_name`` and the batch over :meth:`Mesh.batch_axes`:
+    the reference's ``shard_map`` with ``in_specs`` = ``out_specs`` =
+    ``P(batch, None, axis_name, None)``."""
     G, n = mesh.ring_groups(axis_name)
     spec = (mesh.batch_axes(), None, axis_name, None)
 
@@ -170,8 +177,7 @@ def _make(engine, mesh, axis_name: str, causal: bool, hop_impl: str):
         def ring(t):
             s = mesh.shard(t, spec)
             return s.reshape(G, n, *s.shape[len(mesh.axes):])
-        out = engine(ring(q), ring(k), ring(v), causal=causal,
-                     hop_impl=hop_impl)
+        out = engine(ring(q), ring(k), ring(v), **kw)
         return mesh.unshard(out.reshape(*mesh.shape, *out.shape[2:]), spec)
     return attend
 
@@ -184,14 +190,159 @@ def make_ring_attention(mesh, *, axis_name: str = "sp", causal: bool = True,
     ``shard_map`` wrapper.  The reference cuts the batch over "dp" alone;
     on a mesh with a "dcn" axis too that changes which ranks compute
     which rows, not the result."""
-    return _make(ring_attention, mesh, axis_name, causal, hop_impl)
+    _check_hop_impl(hop_impl)
+    return _make(ring_attention, mesh, axis_name, causal=causal,
+                 hop_impl=hop_impl)
 
 
 def make_ring_attention_flash(mesh, *, axis_name: str = "sp",
                               causal: bool = True, hop_impl: str = "xla"):
     """:func:`ring_attention_flash` over global ``[B, H, S, D]`` arrays
     (see :func:`make_ring_attention`)."""
-    return _make(ring_attention_flash, mesh, axis_name, causal, hop_impl)
+    _check_hop_impl(hop_impl)
+    return _make(ring_attention_flash, mesh, axis_name, causal=causal,
+                 hop_impl=hop_impl)
+
+
+# --------------------------------------------------------------------------
+# Zigzag (load-balanced) causal ring attention
+# --------------------------------------------------------------------------
+
+
+def zigzag_indices(seq_len: int, n: int, device=None):
+    """Natural → zigzag gather order: the sequence is cut into 2n chunks
+    and rank i holds chunks (i, 2n−1−i), one early and one late, so the
+    causal work is the same on every rank.  ``x[..., order, :]`` laid out
+    contiguously is the ranks' pairs in rank order.  ``ValueError`` unless
+    2n divides ``seq_len`` (the reference asserts it)."""
+    if seq_len % (2 * n):
+        raise ValueError(f"sequence length {seq_len} does not split into "
+                         f"2 x {n} zigzag chunks")
+    c = seq_len // (2 * n)
+    order: list[int] = []
+    for i in range(n):
+        order.extend(range(i * c, (i + 1) * c))
+        order.extend(range((2 * n - 1 - i) * c, (2 * n - i) * c))
+    return torch.tensor(order, dtype=torch.long, device=device)
+
+
+def inverse_permutation(order):
+    return torch.argsort(order)
+
+
+def _on_ranks(carry, lo: int, hi: int, fn):
+    """``carry`` (a tuple of ``[G, n, ...]`` tensors) with ranks lo..hi−1
+    replaced by ``fn`` of their slice; the other ranks pass through."""
+    part = fn(tuple(c[:, lo:hi] for c in carry))
+    return tuple(torch.cat([c[:, :lo], p, c[:, hi:]], dim=1)
+                 for c, p in zip(carry, part))
+
+
+def _zigzag_schedule(q, k, v, attend, finalize):
+    """The balanced causal chunk schedule of both zigzag engines, on
+    ``[G, n, B, H, 2C, D]`` ring shards whose two C-chunks are global
+    chunks (idx, 2n−1−idx) of rank idx (k/v may carry fewer heads).
+
+    At step 0 each rank attends both diagonal chunks causally and q_hi
+    over its own kv_lo.  At step t ≥ 1 the stacked ``[2, ...]`` kv hops
+    one rank on (``mesh.ppermute``) and holds the chunks of source
+    s = (idx − t) mod n; q_hi is later than every lo chunk, so q_hi ×
+    kv_lo runs unmasked on every rank, and exactly one more pair is
+    unmasked: q_lo × kv_lo where s < idx, which is ranks t..n−1, and
+    q_hi × kv_hi on the others, ranks 0..t−1 (s > idx puts chunk
+    2n−1−s before q_hi's).  The reference branches per device
+    (``lax.cond``); the port runs each rank subset in one call, so a
+    step makes three attends, and a call 3n: with the flash engine, 3n
+    forward kernel launches and 3n backward ones.
+
+    ``attend(carry_or_None, qc, kc, vc, causal)`` folds one chunk-attend
+    into the carry (a tuple of ``[G, n', ...]`` tensors; None = first
+    touch) and ``finalize(carry) -> [G, n, B, H, C, D]``."""
+    G, n, B, H, S2, D = q.shape
+    Hkv = k.shape[3]
+    C = S2 // 2
+    qz = q.reshape(G, n, B, H, 2, C, D)
+    q_lo, q_hi = qz[..., 0, :, :], qz[..., 1, :, :]
+    kv = torch.stack([k, v])               # [2, G, n, B, Hkv, 2C, D]
+
+    def chunks(kv):
+        z = kv.reshape(2, G, n, B, Hkv, 2, C, D)
+        return (z[0, ..., 0, :, :], z[1, ..., 0, :, :],
+                z[0, ..., 1, :, :], z[1, ..., 1, :, :])
+
+    k_lo, v_lo, k_hi, v_hi = chunks(kv)
+    lo = attend(None, q_lo, k_lo, v_lo, True)
+    hi = attend(None, q_hi, k_hi, v_hi, True)
+    hi = attend(hi, q_hi, k_lo, v_lo, False)
+    for t in range(1, n):
+        kv = ppermute(kv, 2, 1)
+        k_lo, v_lo, k_hi, v_hi = chunks(kv)
+        hi = attend(hi, q_hi, k_lo, v_lo, False)
+        lo = _on_ranks(lo, t, n, lambda c: attend(
+            c, q_lo[:, t:], k_lo[:, t:], v_lo[:, t:], False))
+        hi = _on_ranks(hi, 0, t, lambda c: attend(
+            c, q_hi[:, :t], k_hi[:, :t], v_hi[:, :t], False))
+    out = torch.stack([finalize(lo), finalize(hi)], dim=4)
+    return out.reshape(G, n, B, H, S2, D).to(q.dtype)
+
+
+def zigzag_ring_attention(q, k, v):
+    """Causal ring attention over zigzag shards ``[G, n, B, H, 2C, D]``,
+    the fp32 engine (a running (m, l, acc) online softmax) under
+    :func:`_zigzag_schedule`.  GQA circulates the Hkv shared heads and
+    repeats them at attend time only."""
+    grp = q.shape[3] // k.shape[3]
+    C, D = q.shape[-2] // 2, q.shape[-1]
+    scale = D ** -0.5
+    tril = torch.ones((C, C), dtype=torch.bool, device=q.device).tril()
+    ones = torch.ones((C, C), dtype=torch.bool, device=q.device)
+
+    def rep(t):
+        return (t.repeat_interleave(grp, dim=3) if grp > 1 else t).float()
+
+    def attend(carry, qc, kc, vc, causal):
+        if carry is None:
+            rows = qc.shape[:-1]
+            carry = (torch.full(rows, _NEG, device=qc.device),
+                     torch.zeros(rows, device=qc.device),
+                     torch.zeros(qc.shape, device=qc.device))
+        return _block_attn(qc.float(), rep(kc), rep(vc), *carry,
+                           tril if causal else ones, scale)
+
+    def finalize(carry):
+        _, l, acc = carry
+        return acc / l.clamp_min(1e-30)[..., None]
+
+    return _zigzag_schedule(q, k, v, attend, finalize)
+
+
+def zigzag_ring_attention_flash(q, k, v):
+    """:func:`zigzag_ring_attention` with the flash kernels per chunk
+    (``flash_attention_with_lse``, forward and backward; GQA in the
+    kernel) and base-2 logsumexp merges (:func:`_merge_partials`)."""
+    def attend(carry, qc, kc, vc, causal):
+        part = _flash_partial(qc, kc, vc, causal)
+        return part if carry is None else _merge_partials(*carry, *part)
+
+    return _zigzag_schedule(q, k, v, attend, lambda carry: carry[0])
+
+
+ZIGZAG_IMPLS = {"xla": zigzag_ring_attention,
+                "flash": zigzag_ring_attention_flash}
+
+
+def make_zigzag_ring_attention(mesh, *, axis_name: str = "sp",
+                               impl: str = "xla"):
+    """Zigzag ring attention over global ``[B, H, S, D]`` q/k/v whose S
+    axis is in zigzag order (gather with :func:`zigzag_indices` before,
+    with :func:`inverse_permutation` after) and cut over ``axis_name``
+    (see :func:`make_ring_attention`).  ``impl``: "xla" (the fp32
+    engine) or "flash" (the flash kernels); anything else raises
+    ``ValueError``.  The kv hop is the plain ``mesh.ppermute``, as the
+    reference's is."""
+    if impl not in ZIGZAG_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected 'xla' or 'flash'")
+    return _make(ZIGZAG_IMPLS[impl], mesh, axis_name)
 
 
 # --------------------------------------------------------------------------

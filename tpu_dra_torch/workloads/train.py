@@ -16,13 +16,13 @@ reference would.  The sharded half: ``param_shardings``,
 ``batch_sharding`` and ``make_sharded_train_step`` over a virtual mesh
 (``mesh.py``), with ``matmul_impl="fused_collective"`` running each
 sublayer's entry and exit matmul through the ring kernels
-(``collective_matmul.py``).  ``packed_loss_fn`` trains on rows packed
-by ``data.pack_documents`` (dense attention only: the flash kernels have
-no segment mask).  The trunk rematerializes in the backward what lies
+(``collective_matmul.py``), and ``make_optax_train_step`` with its
+optimizer state laid out by ``opt_state_shardings`` (ZeRO-1 over "dp":
+``optim.MomentLayout``).  ``packed_loss_fn`` trains on rows packed by
+``data.pack_documents`` (dense attention only: the flash kernels have no
+segment mask).  The trunk rematerializes in the backward what lies
 between its weight products, whose outputs it keeps: the reference's
-selective policy (:func:`remat`, :func:`_block`'s ``seg``).  Not
-ported: ZeRO-1 and the optax-optimizer sharded step
-(``make_optax_train_step`` on a mesh).
+selective policy (:func:`remat`, :func:`_block`'s ``seg``).
 
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
@@ -34,6 +34,7 @@ gradient sums in fp32 where the reference's adds into a bf16 table
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable
@@ -94,13 +95,15 @@ def weak_scalar(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def init_params(cfg: ModelConfig,
-                generator: torch.Generator) -> dict[str, Any]:
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict[str, Any]:
     """Stacked-by-layer fp32 params with the reference's shapes and scale
     (normal · d_model^-0.5, norm gains at 1), drawn from ``generator`` on
-    its own device.  The numbers differ from ``jax.random``'s; tests carry
-    JAX weights across with :mod:`tpu_dra_torch.convert` instead."""
-    dev = generator.device
+    its own device (or on ``device``: "meta" gives the shapes alone,
+    :func:`param_shapes`).  The numbers differ from ``jax.random``'s;
+    tests carry JAX weights across with :mod:`tpu_dra_torch.convert`
+    instead."""
+    dev = generator.device if device is None else torch.device(device)
     scale = cfg.d_model ** -0.5
     L = cfg.n_layers
 
@@ -682,6 +685,14 @@ def tree_unflatten(like, leaves) -> dict:
     return build(like)
 
 
+def tree_like(like, tree) -> dict:
+    """``tree``'s leaves, matched by key, in a dict shaped and ordered like
+    ``like`` (two trees of one model may hold their keys in other
+    orders: a reference tree crosses with jax's sorted keys)."""
+    return {k: tree_like(v, tree[k]) if isinstance(v, dict) else tree[k]
+            for k, v in like.items()}
+
+
 def value_and_grad(fn: Callable, params, *args):
     """``(fn(params, *args), d fn / d params)``: the loss detached and
     the gradients as a dict shaped like ``params`` (``jax.value_and_grad``
@@ -742,13 +753,16 @@ def sgd_train_step(cfg: ModelConfig, lr: float, params, tokens,
 def make_train_step(cfg: ModelConfig, optimizer=None,
                     attn_impl: str = "dense", head_impl: str = "dense",
                     accum_steps: int = 1, label_smoothing: float = 0.0,
-                    z_loss: float = 0.0, norm_impl: str = "dense"):
+                    z_loss: float = 0.0, norm_impl: str = "dense",
+                    matmul_impl: str = "dense", mesh=None):
     """The counterpart of the reference's ``make_optax_train_step`` on one
     device: ``(step, init_opt_state)`` where ``step(params, opt_state,
     tokens) -> (params, opt_state, loss)``.  The optimizer (default:
     :func:`optim.default_optimizer`, AdamW after global-norm clipping)
-    updates ``params`` in place and returns the same dict."""
-    from tpu_dra_torch.workloads.optim import default_optimizer
+    updates ``params`` in place and returns the same dict;
+    ``init_opt_state.restore`` takes a checkpoint's state.
+    :func:`make_optax_train_step` runs it on a mesh."""
+    from tpu_dra_torch.workloads.optim import OptStateInit, default_optimizer
     if optimizer is None:
         optimizer = default_optimizer()
 
@@ -757,11 +771,12 @@ def make_train_step(cfg: ModelConfig, optimizer=None,
                                head_impl=head_impl,
                                accum_steps=accum_steps,
                                label_smoothing=label_smoothing,
-                               z_loss=z_loss, norm_impl=norm_impl)
+                               z_loss=z_loss, norm_impl=norm_impl,
+                               matmul_impl=matmul_impl, mesh=mesh)
         opt_state = optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 
-    return step, optimizer.init
+    return step, OptStateInit(optimizer, None)
 
 
 # --------------------------------------------------------------------------
@@ -831,3 +846,101 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
                               mesh=mesh)
 
     return step, p_shard, b_shard
+
+
+def param_shapes(cfg: ModelConfig, init_fn=None) -> dict:
+    """The leaf shapes ``init_fn(cfg, generator)`` gives (default
+    :func:`init_params`), as tuples in a tree like its own, made on the
+    meta device without drawing a number (``jax.eval_shape``)."""
+    tree = (init_fn or init_params)(cfg, torch.Generator(), device="meta")
+    return tree_unflatten(tree, [tuple(t.shape) for t in tree_leaves(tree)])
+
+
+def opt_state_shardings(optimizer, param_shapes, p_shard, mesh,
+                        zero1: bool = False):
+    """``(opt_sh, init_opt_state)`` for the optimizer of a step on
+    ``mesh`` (``train.opt_state_shardings``, 812-857): ``opt_sh`` is
+    ``{"count": (), "mu": specs, "nu": specs}``, the count replicated and
+    every moment leaf taking its parameter's spec.  With ``zero1`` and
+    dp > 1 a moment leaf also takes "dp" on its first replicated
+    dimension whose size dp divides (and keeps its parameter's spec where
+    there is none); ``init_opt_state(params)`` then stores each moment
+    stacked by its spec (``optim.MomentLayout``: each rank a contiguous
+    1/dp block) and ``init_opt_state.restore(d)`` stacks the global
+    moments of a checkpoint.  Without ZeRO-1 the specs are annotations:
+    the moments stay global, as the one-device step keeps them.
+    ``param_shapes`` and ``p_shard`` are trees of shapes and specs
+    (:func:`param_shapes`, :func:`param_shardings`)."""
+    from tpu_dra_torch.workloads.optim import MomentLayout, OptStateInit
+    dp = mesh.axis_size("dp")
+
+    def moment_spec(shape, spec):
+        if not zero1 or dp <= 1:
+            return spec
+        full = list(spec) + [None] * (len(shape) - len(spec))
+        for dim, (size, entry) in enumerate(zip(shape, full)):
+            if entry is None and size % dp == 0:
+                full[dim] = "dp"
+                return tuple(full)
+        return spec                        # nothing dp-divisible: keep
+
+    shapes = tree_leaves(tree_like(p_shard, param_shapes))
+    m_specs = tree_unflatten(p_shard, [
+        moment_spec(tuple(sh), sp)
+        for sh, sp in zip(shapes, tree_leaves(p_shard))])
+    opt_sh = {"count": (), "mu": m_specs, "nu": m_specs}
+    layout = (MomentLayout(mesh, p_shard, m_specs) if zero1 and dp > 1
+              else None)
+    return opt_sh, OptStateInit(optimizer, layout)
+
+
+def opt_state_bytes_per_rank(opt_sh, param_shapes, mesh) -> int:
+    """The moment bytes one rank holds under ``opt_sh`` (fp32 mu and nu,
+    each leaf cut by its spec), the figure ZeRO-1 divides by dp."""
+    total = 0
+    for key in ("mu", "nu"):
+        for shape, spec in zip(tree_leaves(tree_like(opt_sh[key],
+                                                     param_shapes)),
+                               tree_leaves(opt_sh[key])):
+            total += 4 * math.prod(mesh.shard_shape(shape, spec))
+    return total
+
+
+def make_optax_train_step(cfg: ModelConfig, mesh, optimizer=None,
+                          attn_impl: str = "dense",
+                          head_impl: str = "dense", accum_steps: int = 1,
+                          label_smoothing: float = 0.0, z_loss: float = 0.0,
+                          zero1: bool = False, norm_impl: str = "dense",
+                          matmul_impl: str = "dense"):
+    """:func:`make_sharded_train_step` with the optimizer (default:
+    AdamW after global-norm clipping) in place of SGD
+    (``train.make_optax_train_step``, 756-803): ``(step, init_opt_state,
+    p_shard, b_shard)`` with ``step(params, opt_state, tokens) ->
+    (params, opt_state, loss)`` on the mesh's device (inputs anywhere
+    else raise ``ValueError``).  The forward and backward are
+    :func:`make_train_step`'s on the whole tree, as GSPMD's plain
+    collectives make them; the optimizer state follows
+    :func:`opt_state_shardings`, and ``zero1=True`` partitions the
+    update over "dp" (bit-equal to ``zero1=False``: the global-norm clip
+    still reduces over the whole gradient tree)."""
+    from tpu_dra_torch.workloads.optim import default_optimizer
+    if matmul_impl not in MATMUL_IMPLS:
+        raise ValueError(f"unknown matmul_impl {matmul_impl!r}; expected "
+                         f"'dense' or 'fused_collective'")
+    if optimizer is None:
+        optimizer = default_optimizer()
+    p_shard = param_shardings(cfg, mesh)
+    b_shard = batch_sharding(mesh)
+    _, init_opt_state = opt_state_shardings(optimizer, param_shapes(cfg),
+                                            p_shard, mesh, zero1=zero1)
+    one_device, _ = make_train_step(
+        cfg, optimizer, attn_impl=attn_impl, head_impl=head_impl,
+        accum_steps=accum_steps, label_smoothing=label_smoothing,
+        z_loss=z_loss, norm_impl=norm_impl, matmul_impl=matmul_impl,
+        mesh=mesh)
+
+    def step(params, opt_state, tokens):
+        mesh.check_device(tokens, *tree_leaves(params))
+        return one_device(params, opt_state, tokens)
+
+    return step, init_opt_state, p_shard, b_shard

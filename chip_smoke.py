@@ -19,7 +19,10 @@ through the bucketed pool (/generate without --continuous, /beam,
 /speculative) and reads the server's spans, exemplars and a device
 trace; last it runs the rest of the virtual mesh (zigzag ring
 attention, ZeRO-1, GPipe, expert parallelism, LoRA and quantized serving
-shardings over a mesh) and the port's dryrun_multichip.
+shardings over a mesh) and the port's dryrun_multichip; then it holds the
+engine's captured passes to the eager ones under the retrace guard, and
+runs the multi-process host side (rendezvous, collectives, elastic
+respawn) as processes on the one card.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -232,7 +235,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
      explained; ROADMAP.md §3): one request with a traceparent, its
      serve.request and serve.engine.decode spans on /debug/traces, an
      exemplar trace id of an OpenMetrics scrape that resolves there, and
-     one /debug/jax-trace?seconds=1 taken while 8 requests run, holding
+     one /debug/jax-trace?seconds=1 taken while waves of 8 requests run
+     (half a second apart: a first profiler session starts only while
+     the captured chunk pauses), holding
      CUDA kernel events, kernel #1's among them (its bytes and event
      counts printed); (e) phase 19a runs under
      goodput accounting (TPU_GOODPUT_FILE given to start_from_env): each
@@ -306,6 +311,35 @@ Phases (each prints as it goes; any failed check exits non-zero):
      tpu_dra_torch.entry.dryrun_multichip(4), whose MULTICHIP_REPORT line
      it prints.  Every kernel launched in these paths is added to its
      row of the kernels line.
+ 24. the captured passes: phase 16's model (int8 weights from a seed)
+     and engines at 32 slots, chunk 8, on the slab and on pages, each
+     stopped and driven from this thread over 32 admitted requests of
+     16-128 tokens: one decode step captured in a CUDA graph against the
+     same step run eagerly (the largest logit gap printed, any differing
+     argmax row a near-tie), then GRAPH_CHUNKS chunks replayed from the
+     engine's captured program against the eager chunk on the same state
+     (tokens equal, or a departed row at an eager near-tie; the caches
+     written equal), and GRAPH_CHUNKS speculative passes with a
+     2-layer truncated draft (tokens and counts equal); each kind timed
+     eager and graphed (host clock, GRAPH_TRACE_CHUNKS passes with the
+     readback) and traced once each (device busy, idle share); then an
+     engine with the retrace guard on (TPU_DRA_RETRACE_GUARD=1): warmup
+     over every prompt bucket, the 32 requests at once, and
+     recompiles_since_mark must read 0 with one program tracked, #1
+     launched exactly n_layers times a decode step on pages; a parameter
+     leaf replaced instead of copied in place, then one request, must
+     read 1; then tpu_dra_torch.bench's section_continuous and
+     section_paged (tokens/s, p50 and p95; informational);
+ 25. the multi-process host side on one card: psum_job as two processes
+     of one domain, 127.0.0.1 and 127.0.0.2 in a settings dir's
+     nodes_config.json, --backend gloo (NCCL refuses two ranks on one
+     card): both resolve, join one group, print n_devices 2, the same
+     all_reduce sum (on a tensor on the card) and the four bandwidths
+     (host buffers over loopback: no card-to-card figure); run_elastic
+     over a worker that exits for reconfiguration while the domain grows
+     from 1 member to 2: the respawned worker carries generation 2 and
+     resolves a world of 2; section_collectives in this process (no
+     group) answers the reference's single-device skip.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces);
 the last line is {"ok": true, "device": {...}}.
@@ -3654,12 +3688,21 @@ SPEC_K = 4
 # logits: held to 2^-5 a token
 BEAM_FORCED_TOL_PER_TOKEN = 2 ** -5
 TRACE_REQUESTS = 8
-# each client sends requests of TRACE_STEPS steps one after another until
-# the capture has answered, so the decode outlasts the profiler's start on
-# the server's thread however long it takes (1-2 s under load once; one
-# run on the card had 8 single requests of 512 steps end before the
-# window began, the capture answering 28.3 s after it was asked)
+# the load under the capture: waves of TRACE_REQUESTS requests of
+# TRACE_STEPS steps at once, each wave TRACE_GAP_S after the last one
+# ended, until the capture has answered (at most TRACE_LOAD_S).  The first
+# profiler session of a server whose engine replays its captured chunk
+# started only once the card idled: under requests sent back to back its
+# capture hung in 2 of 4 server processes, and with a load that ended it
+# began after the load (2 kernel events in 3 of 3; H100 80GB HBM3,
+# 700 W); the server now starts and stops its profiler with the engine
+# held between passes (ContinuousEngine.paused), and 6 of 6 captures held
+# kernel #1.  A wave keeps the card busy about half of each second, so a
+# 1 s window holds decode steps wherever it starts
 TRACE_STEPS = 128
+TRACE_GAP_S = 0.5
+TRACE_LOAD_S = 240.0
+TRACE_SECONDS = 1.0
 PAGED_KERNEL = ("paged_span_kernel", "paged_combine_kernel")
 
 
@@ -3900,9 +3943,10 @@ def trace_check(cfg, card: str) -> dict:
     request with a traceparent whose serve.request and
     serve.engine.decode spans /debug/traces returns; an OpenMetrics
     scrape whose exemplar trace id resolves there;
-    /debug/jax-trace?seconds=1 taken while 8 clients keep requests
-    running (each one after another until the capture has answered),
-    holding CUDA kernel events, kernel #1's among them.  Returns the
+    /debug/jax-trace?seconds=TRACE_SECONDS taken while waves of 8
+    requests run (TRACE_GAP_S apart, until the capture has answered),
+    holding CUDA kernel events, kernel #1's among them (the engine
+    launches it from its captured chunk).  Returns the
     kernel's launches in this drive (the server's /stats)."""
     import io
     import tarfile
@@ -3938,28 +3982,37 @@ def trace_check(cfg, card: str) -> dict:
                  f"resolve on /debug/traces")
         results: dict = {i: [] for i in range(TRACE_REQUESTS)}
         captured = threading.Event()
+        load_until = time.perf_counter() + TRACE_LOAD_S
 
-        def client(i):
-            while not captured.is_set():
-                results[i].append(call(port, "/generate",
-                                       {"tokens": [prompts[i]],
-                                        "steps": TRACE_STEPS})[0])
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(TRACE_REQUESTS)]
-        for t in threads:
-            t.start()
+        def one(i):
+            results[i].append(call(port, "/generate",
+                                   {"tokens": [prompts[i]],
+                                    "steps": TRACE_STEPS})[0])
+
+        def waves():
+            while not captured.is_set() and \
+                    time.perf_counter() < load_until:
+                wave = [threading.Thread(target=one, args=(i,))
+                        for i in range(TRACE_REQUESTS)]
+                for t in wave:
+                    t.start()
+                for t in wave:
+                    t.join(600)
+                captured.wait(TRACE_GAP_S)
+        driver = threading.Thread(target=waves)
+        driver.start()
         time.sleep(0.3)
         t0 = time.perf_counter()
         try:
             with urllib.request.urlopen(
-                    f"http://127.0.0.1:{port}/debug/jax-trace?seconds=1",
+                    f"http://127.0.0.1:{port}/debug/jax-trace?seconds="
+                    f"{TRACE_SECONDS}",
                     timeout=300) as resp:
                 body, hdrs = resp.read(), resp.headers
         finally:
             captured.set()
         capture_s = time.perf_counter() - t0
-        for t in threads:
-            t.join(600)
+        driver.join(900)
         codes = [c for i in range(TRACE_REQUESTS) for c in results[i]]
         if not codes or any(c != 200 for c in codes):
             fail(f"trace: the requests under the capture answered {results}")
@@ -3977,8 +4030,9 @@ def trace_check(cfg, card: str) -> dict:
     steps = after["decode_steps"] - before["decode_steps"]
     log(f"[trace] a traceparent's serve.request and serve.engine.decode "
         f"spans on /debug/traces; {len(resolved)} exemplar trace id(s) of "
-        f"the OpenMetrics scrape resolve there; /debug/jax-trace?seconds=1 "
-        f"under {TRACE_REQUESTS} clients ({len(codes)} requests of "
+        f"the OpenMetrics scrape resolve there; /debug/jax-trace?seconds="
+        f"{TRACE_SECONDS} under waves of {TRACE_REQUESTS} requests "
+        f"({len(codes)} requests of "
         f"{TRACE_STEPS} steps): {len(body)} bytes ({members}), "
         f"{len(events)} events, {len(kernels)} CUDA kernel events, "
         f"{len(ours)} of kernel #1 ({hdrs['X-Trace-Kernel-Events']} by the "
@@ -5178,6 +5232,472 @@ def mesh_phase(data_path: str, card: str) -> dict:
             "pipeline": piped, "ep": ep, "dryrun": report}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the captured chunk and speculative pass, and the retrace guard
+# ---------------------------------------------------------------------------
+
+GRAPH_CHUNKS = 4             # passes compared graphed against eager
+GRAPH_TRACE_CHUNKS = 10      # passes timed by the host clock, each kind
+GRAPH_DRAFT_LAYERS = 2       # the truncated draft of the speculative pass
+
+
+def idle_engine(cfg, params, kw: dict):
+    """A ContinuousEngine whose batcher has been stopped, so the phase
+    drives its admission and passes from this thread alone."""
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    eng = ContinuousEngine(cfg, params, **kw)
+    eng.shutdown()
+    return eng
+
+
+def admit_all(eng, prompts: list, steps: list) -> None:
+    """Admit greedy requests straight into the stopped engine's slots."""
+    from tpu_dra_torch.workloads.continuous import _Request
+    for prompt, st in zip(prompts, steps):
+        eng._pending.append(_Request(prompt=list(prompt), steps=st,
+                                     eos_id=None, temperature=0.0, seed=0))
+    eng._admit()
+    live = sum(r is not None for r in eng._requests)
+    if live != len(prompts):
+        fail(f"graph phase: {live} of {len(prompts)} requests admitted")
+
+
+def engine_state_refs(eng) -> list:
+    """Every tensor a pass writes: the slot state and the caches."""
+    trees = [eng._token, eng._pos, eng._done, eng._cache]
+    if eng.draft is not None:
+        trees.append(eng._dcache)
+    out = []
+    for tree in trees:
+        out += list(tree.values()) if isinstance(tree, dict) else [tree]
+    return out
+
+
+def engine_state(eng) -> list:
+    return [t.clone() for t in engine_state_refs(eng)]
+
+
+def restore_state(eng, saved: list) -> None:
+    for t, v in zip(engine_state_refs(eng), saved):
+        t.copy_(v)
+
+
+def step_logits(eng, token, pos):
+    """One decode step of ``eng``'s model in its layout (the chunk's)."""
+    from tpu_dra_torch.workloads.decode import _token_logits
+    from tpu_dra_torch.workloads.paged_kv import _paged_step
+    if eng.pool is not None:
+        return _paged_step(eng.cfg, eng.params, eng._cache, token, pos,
+                           eng._table)[1]
+    return _token_logits(eng.cfg, eng.params, eng._cache, pos, token)[0]
+
+
+def eager_logits_at(eng, step: int):
+    """The eager chunk's logits at ``step`` from the engine's state (the
+    state and caches are written; the caller restores them)."""
+    import torch
+    token, pos, done = eng._token.clone(), eng._pos.clone(), \
+        eng._done.clone()
+    for _ in range(step + 1):
+        logits = step_logits(eng, token, pos)
+        nxt = torch.argmax(eng._biased(logits), dim=-1).to(torch.int32)
+        nxt = torch.where(done, token, nxt)
+        pos = pos + (~done).to(torch.int32)
+        done = done | (nxt == eng._eos)
+        token = nxt
+    return logits.float()
+
+
+def step_graph_gap(eng) -> tuple:
+    """One decode step captured in a CUDA graph against the same step
+    run eagerly on the same state: (largest logit gap, rows whose argmax
+    differs, and each such row's eager top-2 margin and tolerance)."""
+    import torch
+    saved = engine_state(eng)
+    eager = step_logits(eng, eng._token, eng._pos).float().clone()
+    restore_state(eng, saved)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step_logits(eng, eng._token, eng._pos)
+    torch.cuda.current_stream().wait_stream(side)
+    restore_state(eng, saved)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = step_logits(eng, eng._token, eng._pos)
+    graph.replay()
+    got = out.float().clone()
+    restore_state(eng, saved)
+    del graph
+    gap = float((got - eager).abs().max())
+    rows = (got.argmax(-1) != eager.argmax(-1)).nonzero()[:, 0].tolist()
+    ties = []
+    for r in rows:
+        top2 = torch.topk(eager[r], 2).values.tolist()
+        ties.append((r, top2[0] - top2[1], argmax_tol(top2[0])))
+    return gap, rows, ties
+
+
+def compare_passes(label: str, eng, kind: str) -> dict:
+    """GRAPH_CHUNKS passes of ``kind`` ("chunk" or "spec"), each run
+    eagerly and then, from the same state, as the replay of its captured
+    program: the tokens (and counts) must be equal and the caches the
+    passes wrote identical, or a differing chunk row must depart at an
+    eager near-tie (the phase-20 rule).  Returns the largest cache gap
+    and the rows that departed."""
+    import torch
+    body = eng._chunk_body if kind == "chunk" else eng._spec_body
+    departed, cache_gap = 0, 0.0
+    for c in range(GRAPH_CHUNKS):
+        saved = engine_state(eng)
+        want = body().clone()
+        want_state = engine_state(eng)
+        restore_state(eng, saved)
+        got = eng._graphed(kind, body).clone()
+        got_state = engine_state(eng)
+        torch.cuda.synchronize()
+        if torch.equal(got, want):
+            for a, b in zip(got_state, want_state):
+                cache_gap = max(cache_gap, float(
+                    (a.float() - b.float()).abs().max()))
+            continue
+        if kind != "chunk":
+            rows = (got != want).any(1).nonzero()[:, 0].tolist()
+            fail(f"{label}: the captured {kind} pass {c} differs from the "
+                 f"eager one in rows {rows[:8]}")
+        for r in (got != want).any(1).nonzero()[:, 0].tolist():
+            j = int((got[r] != want[r]).nonzero()[0, 0])
+            restore_state(eng, saved)
+            lg = eager_logits_at(eng, j)[r]
+            top2 = torch.topk(lg, 2).values.tolist()
+            margin, tol = top2[0] - top2[1], argmax_tol(top2[0])
+            log(f"[{label}] pass {c}, row {r}: the captured chunk departs "
+                f"at step {j}, eager top-2 margin {margin:.4f} (tolerance "
+                f"{tol:.4f})")
+            if margin > tol:
+                fail(f"{label}: the captured chunk departs from the eager "
+                     f"one at pass {c}, row {r}, step {j}, margin "
+                     f"{margin:.4f} > {tol:.4f}")
+            departed += 1
+        # go on from the eager pass's state
+        restore_state(eng, want_state)
+    return {"cache_gap": cache_gap, "departed": departed}
+
+
+def time_passes(label: str, eng, kind: str, card: str) -> dict:
+    """GRAPH_TRACE_CHUNKS passes of ``kind`` eager and then graphed from
+    the same state (host clock, synchronized, with the readback), and
+    one traced pass of each under torch.profiler."""
+    import torch
+    body = eng._chunk_body if kind == "chunk" else eng._spec_body
+    runs = {"eager": lambda: body().cpu(),
+            "graphed": lambda: eng._graphed(kind, body).cpu()}
+    saved = engine_state(eng)
+    out = {}
+    for name, run in runs.items():
+        restore_state(eng, saved)
+        run()                                    # warm (the capture)
+        restore_state(eng, saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TRACE_CHUNKS):
+            run()
+        ms = (time.perf_counter() - t0) * 1e3 / GRAPH_TRACE_CHUNKS
+        restore_state(eng, saved)
+        prof = profile_call(f"{label} {name} {kind} pass", run)
+        out[name] = {"ms": ms, **prof}
+    restore_state(eng, saved)
+    e, g = out["eager"], out["graphed"]
+    log(f"[{label}] a {kind} pass: eager {e['ms']:.2f} ms, graphed "
+        f"{g['ms']:.2f} ms a pass (host clock with the readback, "
+        f"{GRAPH_TRACE_CHUNKS} passes); traced: eager busy "
+        f"{e.get('busy', 0) / 1e3:.2f} of {e.get('wall', 0) / 1e3:.2f} ms, "
+        f"graphed busy {g.get('busy', 0) / 1e3:.2f} of "
+        f"{g.get('wall', 0) / 1e3:.2f} ms; on {card}")
+    return out
+
+
+def guard_check(label: str, cfg, params, kw: dict, prompts: list,
+                steps: list) -> dict:
+    """An engine with the retrace guard on: warmup over every prompt
+    bucket, then the mixed-length requests at once must capture nothing
+    (recompiles_since_mark 0); a parameter leaf replaced instead of
+    copied in place is a recapture the guard counts (1).  Returns the
+    paged-attention launches of the mixed load."""
+    import torch
+
+    from tpu_dra_torch.workloads.continuous import ContinuousEngine
+    from tpu_dra_torch.workloads.paged_kv import paged_attention
+    from tpu_dra_torch.workloads.retrace_guard import ENV_FLAG
+    os.environ[ENV_FLAG] = "1"
+    try:
+        eng = ContinuousEngine(cfg, params, **kw)
+    finally:
+        del os.environ[ENV_FLAG]
+    try:
+        t0 = time.perf_counter()
+        warmed = eng.warmup()
+        warm_s = time.perf_counter() - t0
+        before = paged_attention.launches
+        reqs = [eng.submit_async(p, st) for p, st in zip(prompts, steps)]
+        for r in reqs:
+            if not r.done.wait(600) or r.error:
+                fail(f"{label}: a request failed: {r.error}")
+        launches = paged_attention.launches - before
+        st = eng.stats()
+        log(f"[{label}] warmup of {warmed} buckets in {warm_s:.1f} s, then "
+            f"{len(reqs)} requests of {min(map(len, prompts))}-"
+            f"{max(map(len, prompts))} tokens: recompiles_since_mark "
+            f"{st['recompiles_since_mark']}, compile_cache_entries "
+            f"{st['compile_cache_entries']}, jit_callables_tracked "
+            f"{st['jit_callables_tracked']}, {st['decode_steps']} decode "
+            f"steps, {launches} paged-attention launches")
+        if st["recompiles_since_mark"] != 0 or \
+                st["jit_callables_tracked"] != 1:
+            fail(f"{label}: steady state captured again: {st}")
+        want = cfg.n_layers * st["decode_steps"] if eng.pool else 0
+        if launches != want:
+            fail(f"{label}: paged attention launched {launches} times, "
+                 f"{want} wanted")
+        with torch.no_grad():
+            eng.params["ln_f"] = eng.params["ln_f"].clone()
+        eng.submit(prompts[0], 4, timeout=600)
+        control = eng.stats()["recompiles_since_mark"]
+        log(f"[{label}] control: a parameter leaf replaced instead of "
+            f"copied in place, then one request: recompiles_since_mark "
+            f"{control}")
+        if control != 1:
+            fail(f"{label}: the control recapture counted {control}, not 1")
+        return {"launches": launches, "stats": st}
+    finally:
+        eng.shutdown()
+
+
+def graph_phase(card: str) -> dict:
+    """Phase 24: the int8 headline engine (phase 16's model and engines,
+    32 slots) in both layouts: the captured greedy chunk and speculative
+    pass (a truncated 2-layer draft) held to the eager ones on the same
+    state, one step's logits captured against eager, the retrace guard
+    through warmup and a mixed load and its control, one traced pass of
+    each kind eager and graphed, then section_continuous and
+    section_paged."""
+    import numpy as np
+    import torch
+
+    from tpu_dra_torch.bench import LOAD, section_continuous, section_paged
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.spec_draft import truncate_draft
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 24)
+    fparams = init_params(cfg, gen)
+    dcfg, dfloat = truncate_draft(cfg, fparams, GRAPH_DRAFT_LAYERS)
+    params = quantize_params_int8(fparams)
+    dparams = quantize_params_int8(dfloat)
+    del fparams, dfloat
+    slots = ENGINE["slots"]
+    n = len(LOAD["lengths"])
+    rng = np.random.default_rng(SEED + 24)
+    prompts = [rng.integers(0, cfg.vocab, LOAD["lengths"][i % n]).tolist()
+               for i in range(slots)]
+    steps = [LOAD["steps"][i % n] for i in range(slots)]
+    out: dict = {"launches": 0}
+    layouts = {"slab": dict(slots=slots, chunk=8, kv_layout="slab"),
+               "paged": dict(ENGINE)}
+    with torch.no_grad():
+        for layout, kw in layouts.items():
+            label = f"graph {layout}"
+            eng = idle_engine(cfg, params, kw)
+            admit_all(eng, prompts, steps)
+            gap, rows, ties = step_graph_gap(eng)
+            log(f"[{label}] one decode step at {slots} slots captured "
+                f"against eager: largest logit gap {gap:.3e}, argmax rows "
+                f"differing {rows}")
+            for r, margin, tol in ties:
+                if margin > tol:
+                    fail(f"{label}: captured step row {r} departs at margin "
+                         f"{margin:.4f} > {tol:.4f}")
+            cmp = compare_passes(label, eng, "chunk")
+            log(f"[{label}] {GRAPH_CHUNKS} chunks of 8 at {slots} slots: the "
+                f"captured chunk's tokens equal the eager chunk's "
+                f"({cmp['departed']} rows departed at near-ties), largest "
+                f"state and cache gap {cmp['cache_gap']:.3e}")
+            timed = time_passes(label, eng, "chunk", card)
+            out[layout] = {"step_gap": gap, "compare": cmp, "timed": timed}
+            del eng
+            spec_kw = dict(kw, draft=(dcfg, dparams))
+            if layout == "paged":
+                spec_kw["total_pages"] = 2 * ENGINE["total_pages"]
+            eng = idle_engine(cfg, params, spec_kw)
+            admit_all(eng, prompts, steps)
+            scmp = compare_passes(f"{label} spec", eng, "spec")
+            log(f"[{label} spec] {GRAPH_CHUNKS} speculative passes (draft "
+                f"{GRAPH_DRAFT_LAYERS} layers, chunk 8) at {slots} slots: "
+                f"the captured pass's tokens and counts equal the eager "
+                f"pass's, largest state and cache gap "
+                f"{scmp['cache_gap']:.3e}")
+            out[layout]["spec_timed"] = time_passes(f"{label} spec", eng,
+                                                    "spec", card)
+            del eng
+            torch.cuda.empty_cache()
+            guard = guard_check(f"graph {layout} guard", cfg, params, kw,
+                                prompts, steps)
+            out["launches"] += guard["launches"]
+            out[layout]["guard"] = guard["stats"]
+    for name, section in (("continuous", section_continuous),
+                          ("paged", section_paged)):
+        got = section()
+        keys = ("tokens_per_s", "req_p50_ms", "req_p95_ms",
+                "spec_ceiling_tokens_per_s")
+        log(f"[bench] section_{name}: " + ", ".join(
+            f"{k} {got.get(f'{name}_{k}')}" for k in keys)
+            + f"; on {card}")
+        out[f"section_{name}"] = got
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the multi-process host side on one card
+# ---------------------------------------------------------------------------
+
+PSUM_MIB = 2                 # psum_job's buffers a process (gloo, host)
+MP_WAIT = 300                # seconds a child process may take
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env(**extra) -> dict:
+    """This environment without rendezvous or device variables of its
+    own, the checkout on PYTHONPATH, and ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "JAX_", "SLICE_", "MEGASCALE_"))}
+    env["PYTHONPATH"] = str(HERE)
+    env.update(extra)
+    return env
+
+
+def write_nodes(path: Path, members: list, generation: int = 0) -> None:
+    """A slice daemon's nodes_config.json: ``members`` (name, ip) in rank
+    order, written whole (readers never see half a file)."""
+    data = {"nodes": [{"name": n, "ipAddress": ip, "workerID": i, "rank": i}
+                      for i, (n, ip) in enumerate(members)]}
+    if generation:
+        data["generation"] = generation
+    tmp = path / "nodes_config.json.tmp"
+    tmp.write_text(json.dumps(data))
+    os.replace(tmp, path / "nodes_config.json")
+
+
+def psum_pair(tmp: Path, card: str) -> list:
+    """``psum_job --backend gloo`` as two processes of one domain, their
+    triple resolved from a settings dir (127.0.0.1 and 127.0.0.2): both
+    must print n_devices 2, the same all_reduce sum (3, on the card) and
+    the four bandwidths."""
+    write_nodes(tmp, [("n0", "127.0.0.1"), ("n1", "127.0.0.2")])
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpu_dra_torch.workloads.psum_job",
+         "--mib", str(PSUM_MIB), "--backend", "gloo"],
+        env=child_env(SLICE_DOMAIN_UUID="chip-smoke",
+                      SLICE_SETTINGS_DIR=str(tmp), POD_IP=ip,
+                      JAX_COORDINATOR_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE) for ip in ("127.0.0.1", "127.0.0.2")]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MP_WAIT)
+            if p.returncode != 0:
+                fail(f"psum_job exited {p.returncode}: {out[-1500:]}")
+            lines = out.strip().splitlines()
+            said = [ln for ln in lines
+                    if ln.startswith(("rendezvous", "devices"))]
+            log(f"[mp] psum_job: {' | '.join(said)}")
+            outs.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    keys = {"psum_gbps", "ppermute_gbps", "all_gather_gbps",
+            "reduce_scatter_gbps"}
+    for o in outs:
+        if o.get("n_devices") != 2 or o.get("allreduce_sum") != 3.0 or \
+                not keys <= set(o):
+            fail(f"psum_job printed {o}")
+    log(f"[mp] psum_job, two processes through a settings dir, gloo: "
+        f"{outs[0]} and {outs[1]} (buffers of {PSUM_MIB} MiB in host "
+        f"memory over loopback TCP: no card-to-card figure; the all_reduce "
+        f"check on a tensor on the card); on {card}")
+    return outs
+
+
+ELASTIC_CHILD = """
+import json, os, sys
+from tpu_dra_torch.workloads.launcher import resolve
+info = resolve()
+with open(sys.argv[1], "a") as f:
+    f.write(json.dumps({"generation": os.environ["TPU_ELASTIC_GENERATION"],
+                        "world": info.num_processes,
+                        "rank": info.process_id}) + "\\n")
+sys.exit(75 if info.num_processes == 1 else 0)
+"""
+
+
+def elastic_respawn(tmp: Path) -> list:
+    """run_elastic over a worker that resolves its membership and exits
+    for reconfiguration while it is alone: the domain grows from 1 to 2
+    members while the first worker runs, and the respawned worker must
+    carry generation 2 and see a world of 2."""
+    from tpu_dra_torch.workloads.elastic import run_elastic
+    runs = tmp / "runs.jsonl"
+    write_nodes(tmp, [("n0", "127.0.0.1")], generation=1)
+
+    def on_spawn(proc, epoch):
+        if epoch.generation == 1:
+            proc.wait(timeout=MP_WAIT)
+            write_nodes(tmp, [("n0", "127.0.0.1"), ("n1", "127.0.0.2")],
+                        generation=2)
+
+    t0 = time.perf_counter()
+    rc = run_elastic([sys.executable, "-c", ELASTIC_CHILD, str(runs)],
+                     env=child_env(SLICE_DOMAIN_UUID="chip-smoke",
+                                   SLICE_SETTINGS_DIR=str(tmp),
+                                   POD_IP="127.0.0.1"),
+                     poll=0.1, member_timeout=MP_WAIT,
+                     reconfigure_grace=30.0, on_spawn=on_spawn)
+    lines = [json.loads(ln) for ln in runs.read_text().splitlines()]
+    log(f"[mp] run_elastic: rc {rc} after {time.perf_counter() - t0:.1f} "
+        f"s, workers {lines}")
+    if rc != 0 or [(r["generation"], r["world"]) for r in lines] != \
+            [("1", 1), ("2", 2)]:
+        fail(f"run_elastic: rc {rc}, workers {lines}")
+    return lines
+
+
+def multiprocess_phase(card: str) -> dict:
+    """Phase 25: psum_job as two gloo processes through a settings dir,
+    run_elastic across a 1 -> 2 membership change, and
+    section_collectives in this process (no group: skipped)."""
+    from tpu_dra_torch.bench import section_collectives
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-25-") as tmp:
+        psum = psum_pair(Path(tmp), card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-25-") as tmp:
+        elastic = elastic_respawn(Path(tmp))
+    skipped = section_collectives()
+    log(f"[mp] section_collectives on one card: {skipped}")
+    if skipped != {"collectives_skipped": "single device"}:
+        fail(f"section_collectives on one card gave {skipped}")
+    return {"psum": psum, "elastic": elastic}
+
+
 def main() -> int:
     try:
         import torch
@@ -5340,6 +5860,14 @@ def main() -> int:
                                          TRAIN_MODEL["vocab"]), card)
     log(f"[time] phase 23 {time.perf_counter() - t0:.1f} s")
     lap("23")
+    t0 = time.perf_counter()
+    graphed = graph_phase(card)
+    log(f"[time] phase 24 {time.perf_counter() - t0:.1f} s")
+    lap("24")
+    t0 = time.perf_counter()
+    multiprocess_phase(card)
+    log(f"[time] phase 25 {time.perf_counter() - t0:.1f} s")
+    lap("25")
     more = meshed["launches"]
 
     kernels = [{
@@ -5349,7 +5877,7 @@ def main() -> int:
         "launches": served["launches"] + spec["paged"]["spec"]["launches"]
         + prefixed["launches"] + life["paged_launches"]
         + pooled["launches"] + handed["launches"]
-        + more.get("paged_attention", 0),
+        + more.get("paged_attention", 0) + graphed["launches"],
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

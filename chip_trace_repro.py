@@ -3,6 +3,7 @@
     python3 chip_trace_repro.py           # about 15 minutes
     python3 chip_trace_repro.py graphs    # about a minute
     python3 chip_trace_repro.py server    # about five minutes
+    python3 chip_trace_repro.py graphed   # about two minutes
 
 With no argument it runs chip_smoke.py's phases 1-20c in this process
 with a 1 s torch.profiler probe session after each phase function (and
@@ -16,18 +17,28 @@ requests of LOAD_STEPS steps in flight, eight 1 s sessions: three
 /debug/jax-trace captures on the server's threads, four on the main
 thread (CPU and CUDA activity, CUDA alone, without the load, and with a
 device synchronize before the profiler stops) and one on a fresh
-thread.
+thread, each session starting and stopping its profiler with the
+engine held between passes (``ContinuousEngine.paused``), as the
+server's own captures do.
 
 ``graphs`` runs probe sessions in a fresh process around one CUDA graph's
 capture, replay and release (what phase 3's timing does), no other phase.
 ``server`` runs chip_smoke.py's 20d (``trace_check``: a server process of
 its own, one capture under load) SERVER_RUNS times and prints how each
-ended, no other phase.
+ended, no other phase.  ``graphed`` starts one fresh process for each of
+GRAPHED_VARIANTS: a server of phase 4's engine (int8 weights from seed
+0) in that process, one request (on the card the engine captures its
+greedy chunk then), and two /debug/jax-trace?seconds=1 captures under 8
+requests of LOAD_STEPS steps; "eager" turns the engine's capture off
+first, "profiler first" runs a short profiler session on the main
+thread before the server starts; each child's end and kernel counts are
+printed.
 
 Run on a machine with one NVIDIA GPU, from the root of the repository;
 KINETO_LOG_LEVEL=1 in the environment makes kineto print each session's
 record counts.  It exits 0 after the sessions, whatever they held.
 """
+import contextlib
 import json
 import os
 import sys
@@ -175,6 +186,90 @@ def server_runs():
     cs.log(f"[server] 20d runs: {ends}")
 
 
+# the variants of ``graphed``, each a process of its own
+GRAPHED_VARIANTS = ("eager", "graphed", "profiler first")
+GRAPHED_WAIT = 300
+
+
+def graphed_runs():
+    """``graphed``: one child process a variant, each bounded."""
+    import subprocess
+    from tpu_dra_torch.kernels.build import build_all
+    build_all()
+    ends = []
+    for variant in GRAPHED_VARIANTS:
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "graphed-child",
+                 variant], capture_output=True, text=True,
+                timeout=GRAPHED_WAIT)
+            rc, text = out.returncode, out.stdout + out.stderr
+        except subprocess.TimeoutExpired as exc:
+            rc = "timeout"
+            text = (exc.stdout or b"").decode(errors="replace") + \
+                (exc.stderr or b"").decode(errors="replace")
+        said = [ln for ln in text.splitlines()
+                if ln.startswith("[graphed]") or "ERROR" in ln
+                or "Error" in ln]
+        for ln in said[-12:]:
+            cs.log(f"  {variant}: {ln[:300]}")
+        ends.append((variant, rc, round(time.perf_counter() - t0, 1)))
+    cs.log(f"[graphed] runs (variant, exit code, seconds): {ends}")
+
+
+def graphed_child(variant):
+    """One server in this process, traced twice under load."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.serve import serve
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**cs.MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = quantize_params_int8(init_params(cfg, gen))
+    if variant == "profiler first":
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+    srv = serve(cfg, params, port=0, **cs.ENGINE)
+    if variant == "eager":
+        srv.engine._capture = False
+    port = srv.server_address[1]
+    prompts = cs.request_prompts(cfg.vocab)
+    try:
+        cs.call(port, "/generate", {"tokens": [prompts[0]], "steps": 16})
+        cs.log(f"[graphed] {variant}: captured programs "
+               f"{len(srv.engine._graphs)}")
+        for i in range(2):
+            ts = [threading.Thread(target=cs.call, args=(
+                port, "/generate", {"tokens": [prompts[j]],
+                                    "steps": LOAD_STEPS}))
+                for j in range(8)]
+            for t in ts:
+                t.start()
+            time.sleep(0.3)
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/debug/jax-trace?seconds=1",
+                        timeout=120) as r:
+                    code = r.status
+                    kernels = r.headers.get("X-Trace-Kernel-Events")
+            except urllib.error.HTTPError as e:
+                code, kernels = e.code, e.read()[:200]
+            dt = time.perf_counter() - t0
+            for t in ts:
+                t.join(120)
+            cs.log(f"[graphed] {variant}: capture {i + 1} answered {code}, "
+                   f"kernels={kernels} in {dt:.2f} s")
+    finally:
+        srv.shutdown()
+    cs.log(f"[graphed] {variant}: done")
+
+
 def count_trace(path):
     """(events, kernel events, kernel #1's events) of a Chrome trace."""
     with open(path) as f:
@@ -227,10 +322,26 @@ def diag(cfg, card):
             t.join(600)
         cs.log(f"[diag] {tag}: server-thread capture {code} kernels={out} in {dt:.2f} s")
 
+    def session(acts):
+        """A profiler whose start and stop hold the engine between passes,
+        as serve.capture_device_trace's do."""
+        prof = profile(activities=acts)
+
+        @contextlib.contextmanager
+        def around():
+            with srv.engine.paused():
+                prof.start()
+            try:
+                yield prof
+            finally:
+                with srv.engine.paused():
+                    prof.stop()
+        return around()
+
     def main_capture(tag, acts, probe=True, loaded=True, sync=False):
         ts = load() if loaded else []
         t0 = time.perf_counter()
-        with profile(activities=acts) as prof:
+        with session(acts) as prof:
             if probe:
                 torch.ones(1, device="cuda").add_(1)
                 torch.cuda.synchronize()
@@ -251,7 +362,8 @@ def diag(cfg, card):
         res = {}
 
         def run():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with session([ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as prof:
                 torch.ones(1, device="cuda").add_(1)
                 torch.cuda.synchronize()
                 time.sleep(1)
@@ -290,6 +402,12 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["server"]:
         server_runs()
+        sys.exit(0)
+    if sys.argv[1:] == ["graphed"]:
+        graphed_runs()
+        sys.exit(0)
+    if sys.argv[1:2] == ["graphed-child"]:
+        graphed_child(sys.argv[2])
         sys.exit(0)
     import tpu_dra_torch.bench as bench
     bench.section_decode = probed("section_decode", bench.section_decode)

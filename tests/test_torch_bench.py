@@ -186,4 +186,5 @@ def test_sections_run_in_the_reference_order():
     names = list(bench.SECTIONS)
     assert names[:5] == ["probe", "matmul", "pallas_matmul", "flash",
                          "train"]
-    assert names[-2:] == ["visibility", "multiprocess"]
+    # the reference appends collectives last (with more than one device)
+    assert names[-3:] == ["visibility", "multiprocess", "collectives"]

@@ -268,6 +268,87 @@ def test_retired_row_never_writes_last_page(cache_dtype):
     assert not cache["k"][:, :, P - 1].any()
 
 
+def nonzero_append(cache, k_new, v_new, table, lengths, m):
+    """The port's append before it dropped on the device: the kept
+    entries selected with ``torch.nonzero`` (a host sync), written, the
+    rest left alone.  The oracle of the sync-free append."""
+    ps, P = cache["k"].shape[3], cache["k"].shape[2]
+    MP = table.shape[1]
+    posn = lengths.long().reshape(-1, 1) + torch.arange(m)[None, :]
+    pidx = posn // ps
+    ids = table.long().gather(1, pidx.clamp(0, MP - 1))
+    ok = (posn >= 0) & (pidx < MP) & (ids >= 0) & (ids < P)
+    rows, cols = torch.nonzero(ok, as_tuple=True)
+    ids, off = ids[rows, cols], (posn % ps)[rows, cols]
+    for name, col in tpk._kv_cols(cache, k_new, v_new).items():
+        buf = cache[name]
+        buf[:, :, ids, off] = col[:, rows, :, cols].permute(1, 2, 0, 3).to(
+            buf.dtype)
+
+
+def append_case(seed: int, m: int, cache_dtype: str):
+    """A filled pool, a random table (a -1 row, -1 tails, pages in no
+    row, the last page in none) and start positions that cross pages,
+    fall past a row's pages or its width, or below 0."""
+    _, tcfg = cfg_pair(**CFG_KW)
+    L, hkv, d = tcfg.n_layers, tcfg.kv_heads, tcfg.d_head
+    ps, P, B, MP = 4, 12, 5, 3
+    r = np.random.default_rng(seed)
+    cache = tpk.init_paged_cache(tcfg, P, ps, cache_dtype, device="cpu")
+    for name, buf in cache.items():
+        buf.copy_(torch.from_numpy(
+            r.integers(-100, 100, buf.shape)).to(buf.dtype))
+    pages = r.permutation(P - 1)                  # the last page: in no row
+    table = np.full((B, MP), -1, np.int32)
+    used = 0
+    for b in range(1, B):                         # row 0 stays all -1
+        n = int(r.integers(1, MP + 1))
+        table[b, :n] = pages[used:used + n]
+        used += n
+    lengths = r.integers(-m - 1, MP * ps + 2, B).astype(np.int32)
+    lengths[1] = ps - 1                           # crosses a page when m > 1
+    k_new = torch.from_numpy(r.standard_normal((L, B, hkv, m, d))).to(
+        torch.bfloat16)
+    v_new = torch.from_numpy(r.standard_normal((L, B, hkv, m, d))).to(
+        torch.bfloat16)
+    return cache, k_new, v_new, torch.from_numpy(table), \
+        torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_sync_free_append_equals_the_nonzero_append(cache_dtype, m, seed):
+    """The device-side drop writes the bits the nonzero selection wrote,
+    over -1 rows, page crossings and positions past a row's pages or
+    below 0, and never writes the pool's last page (no row names it)."""
+    cache, k_new, v_new, table, lengths = append_case(seed, m, cache_dtype)
+    want = {name: buf.clone() for name, buf in cache.items()}
+    last = {name: buf[:, :, -1].clone() for name, buf in cache.items()}
+    nonzero_append(want, k_new, v_new, table, lengths, m)
+    out = tpk.append_chunk(cache, k_new, v_new, table, lengths, m)
+    assert out is cache
+    for name in cache:
+        torch.testing.assert_close(cache[name], want[name], rtol=0, atol=0)
+        torch.testing.assert_close(cache[name][:, :, -1], last[name],
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_all_dropped_append_leaves_every_page_alone(cache_dtype):
+    """With no entry kept (every row -1, or every position past its
+    row), the sync-free append rewrites page 0's old values and changes
+    nothing."""
+    cache, k_new, v_new, table, lengths = append_case(9, 2, cache_dtype)
+    before = {name: buf.clone() for name, buf in cache.items()}
+    tpk.append_chunk(cache, k_new, v_new, torch.full_like(table, -1),
+                     lengths, 2)
+    tpk.append_chunk(cache, k_new, v_new, table,
+                     torch.full_like(lengths, 1 << 20), 2)
+    for name in cache:
+        torch.testing.assert_close(cache[name], before[name], rtol=0, atol=0)
+
+
 # -------------------------------------------------------------------------
 # Paged greedy decode against the reference
 # -------------------------------------------------------------------------

@@ -24,12 +24,17 @@
 - :func:`section_visibility`: a child process given one card through
   ``CUDA_VISIBLE_DEVICES`` sees exactly that one;
 - :func:`section_multiprocess`: two processes on one card at once, each
-  under half its memory through ``launcher.apply_hbm_limits``.
+  under half its memory through ``launcher.apply_hbm_limits``;
+- :func:`section_collectives`: the collective bandwidths over the
+  process's ``torch.distributed`` group, skipped in a group of one (the
+  reference's "single device").
 
 They run in the reference's order (``bench.py:1428-1433``), the probe
-first.  A section measures the card: it raises where CUDA is absent
-instead of timing the CPU, and records the card's name and power limit (as
-``nvidia-smi`` prints them) beside its numbers.
+first, collectives last.  A section measures the card: it raises where
+CUDA is absent instead of timing the CPU, and records the card's name and
+power limit (as ``nvidia-smi`` prints them) beside its numbers (the
+collectives section measures its group's buffers where they live, and
+says where: a gloo group's are in host memory).
 
     python -m tpu_dra_torch.bench [SECTION ...]   # prints one JSON line
 """
@@ -755,6 +760,40 @@ def section_multiprocess() -> dict:
     return out
 
 
+def section_collectives() -> dict:
+    """The four collective bandwidths over this process's
+    ``torch.distributed`` group (``workloads/collectives.py``): the
+    reference runs the section only with more than one device and
+    answers ``{"collectives_skipped": "single device"}`` on one, as this
+    does in a group of one or without a group.  Over a larger group:
+    ``psum_gbps``, ``ppermute_gbps``, ``all_gather_gbps`` and
+    ``reduce_scatter_gbps``, with the backend and the buffers' device
+    (under gloo the host's memory: no card-to-card figure).  The
+    reference's fused collective-matmul comparison needs the ring
+    kernels across cards, which the port runs on one card only."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads.collectives import (
+        all_gather_bandwidth, group_device, ppermute_bandwidth,
+        psum_bandwidth, reduce_scatter_bandwidth)
+    resolve_device()                 # a section measures the card
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() <= 1:
+        return {"collectives_skipped": "single device"}
+    suite = {"psum": psum_bandwidth, "ppermute": ppermute_bandwidth,
+             "all_gather": all_gather_bandwidth,
+             "reduce_scatter": reduce_scatter_bandwidth}
+    out = {f"{name}_gbps": round(bench().algo_bytes_per_s / 1e9, 2)
+           for name, bench in suite.items()}
+    dev = group_device()
+    out["collectives_backend"] = dist.get_backend()
+    out["collectives_devices"] = dist.get_world_size()
+    out["collectives_buffer_device"] = str(dev)
+    if dev.type == "cuda":
+        out.update(card_info(dev))
+    return out
+
+
 SECTIONS = {"probe": section_probe, "matmul": section_matmul,
             "pallas_matmul": section_pallas_matmul, "flash": section_flash,
             "train": section_train,
@@ -762,7 +801,8 @@ SECTIONS = {"probe": section_probe, "matmul": section_matmul,
             "continuous": section_continuous, "paged": section_paged,
             "spec_real": section_spec_real,
             "visibility": section_visibility,
-            "multiprocess": section_multiprocess}
+            "multiprocess": section_multiprocess,
+            "collectives": section_collectives}
 
 
 def main(argv=None) -> None:

@@ -63,10 +63,25 @@ prefilled here; admission scatters its columns into the slot's own pages
 (quantized at write on an int8 pool) and selects the first token from
 its last-position logits through the same path a local admission takes,
 so the request decodes the tokens a local admission would.
+
+Captured programs: where the reference advances a chunk (and a
+speculative pass) as one jitted program, the port on the card captures
+the greedy chunk and the greedy speculative pass, in both layouts, as a
+CUDA graph each (``_GraphedProgram``, in the ``_graphs`` dict keyed on
+the kind, layout, slots, chunk and weight form) over the engine's static
+tensors: ``_token``, ``_pos``, ``_done``, ``_eos``, ``_table``, the caches,
+the bias and the parameters.  A pass is one replay and one readback.
+Everything that changes them between passes writes in place; a tensor
+that moved (weights replaced instead of copied into) is a recapture,
+which the ``retrace_guard`` counts after ``warmup``.  A capture that
+fails raises; the card never falls back to the eager loop.  Passes with
+a sampled request draw their noise slot by slot from per-request
+generators and stay eager, as does everything on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import threading
 import time
@@ -103,6 +118,13 @@ from tpu_dra_torch.workloads.paged_kv import (
     scatter_pages_raw,
     scatter_prefill,
 )
+from tpu_dra_torch.workloads.quant import (
+    int8_product,
+    is_lora,
+    is_quantized,
+    is_quantized4,
+)
+from tpu_dra_torch.workloads.retrace_guard import RetraceGuard
 from tpu_dra_torch.workloads.spec_sample import commit_greedy, commit_sampled
 from tpu_dra_torch.workloads.train import ModelConfig, head_logits
 
@@ -203,6 +225,100 @@ class _Prefix:
     # speculative engines: the draft's prefix KV (same bucket), so a
     # join seeds the draft's cache too
     dkv: Optional[dict] = None
+
+
+# the call counters of the wrappers a captured pass runs: a capture's
+# calls are moved from the capture to every replay, so each counter still
+# reads the launches (and products) the engine's passes made
+_COUNTED = ((paged_attention, "launches"), (int8_product, "calls"))
+
+
+class _GraphedProgram:
+    """One captured program of an engine: a CUDA graph of ``body()``,
+    which reads the engine's static tensors, writes its state back into
+    them in place and returns the pass's readback tensor (static too).
+
+    :meth:`run` captures on first use and again when the static tensors
+    moved (``ptrs`` changed), then replays.  Before a capture ``body``
+    runs once eagerly on the capture stream (lazy library and cuBLAS
+    set-up must not happen under capture), with ``state`` restored after
+    it: the eager pass's cache writes sit at the positions the replay
+    writes again before it reads them.  ``_cache_size()`` counts the
+    captures, the probe ``retrace_guard`` discovers; ``replays`` counts
+    the passes it ran."""
+
+    def __init__(self, device, pool) -> None:
+        self._device = device
+        self._pool = pool
+        self._graph = None
+        self._ptrs = None
+        self._out = None
+        self._stream = None
+        self._per_replay = [0] * len(_COUNTED)
+        self.captures = 0
+        self.replays = 0
+
+    def _cache_size(self) -> int:
+        return self.captures
+
+    def run(self, body, ptrs: tuple, state: tuple):
+        if self._graph is None or ptrs != self._ptrs:
+            self._capture(body, state)
+            self._ptrs = ptrs
+        self._graph.replay()
+        self.replays += 1
+        for (fn, attr), n in zip(_COUNTED, self._per_replay):
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return self._out
+
+    def _capture(self, body, state: tuple) -> None:
+        counts = [getattr(fn, attr) for fn, attr in _COUNTED]
+        saved = [t.clone() for t in state]
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self._device)
+        stream, current = self._stream, torch.cuda.current_stream(
+            self._device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            body()
+        current.wait_stream(stream)
+        for t, v in zip(state, saved):
+            t.copy_(v)
+        before = [getattr(fn, attr) for fn, attr in _COUNTED]
+        self._graph = self._out = None
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = body()
+        self._per_replay = [getattr(fn, attr) - b for (fn, attr), b
+                            in zip(_COUNTED, before)]
+        for (fn, attr), n in zip(_COUNTED, counts):
+            setattr(fn, attr, n)
+        self._graph, self._out = graph, out
+        self.captures += 1
+
+
+def weight_form(params) -> str:
+    """The form of a parameter tree's block weights: ``int8``, ``int4``,
+    ``lora`` or the dtype of a plain tensor."""
+    w = params["blocks"]["wqkv"]
+    if is_lora(w):
+        return "lora"
+    if is_quantized(w):
+        return "int8"
+    if is_quantized4(w):
+        return "int4"
+    return str(w.dtype).removeprefix("torch.")
+
+
+def _tensors(tree):
+    """Every tensor leaf of a nested dict (or a tensor), in a fixed
+    order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _tensors(tree[key])
+    elif torch.is_tensor(tree):
+        yield tree
 
 
 def select_tokens(logits, temps, noise, top_k: int = 0,
@@ -341,6 +457,9 @@ class ContinuousEngine:
         self._emitted: list[int] = [0] * slots
         self._pending: deque[_Request] = deque()
         self._cv = threading.Condition()
+        # held by the batcher over each pass's device work (admission and
+        # the chunk, through its readback); paused() takes it
+        self._pass_mu = threading.Lock()
         self._stop = False
         self._draining = False
         # decode-loop heartbeat for /healthz; _failed records a batcher
@@ -375,6 +494,17 @@ class ContinuousEngine:
         # the shared-prefix registry (LRU, content-addressed)
         self.max_prefixes = max_prefixes
         self._prefixes: dict[str, _Prefix] = {}
+        # the card's captured passes, by (kind, layout, slots, chunk,
+        # weight form), sharing one memory pool
+        self._graphs: dict[tuple, _GraphedProgram] = {}
+        self._graph_pool = None
+        self._capture = self.device.type == "cuda"
+        # runtime recapture ratchet (off unless TPU_DRA_RETRACE_GUARD):
+        # discovery-based, so the lazily captured programs that land in
+        # _graphs are picked up as they appear; warmup() marks, stats()
+        # reports the delta
+        self.retrace_guard = RetraceGuard()
+        self.retrace_guard.attach("engine", self)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="continuous-batcher")
         self._thread.start()
@@ -609,8 +739,9 @@ class ContinuousEngine:
                burst: Optional[int] = None) -> int:
         """Run every prompt bucket once before real traffic — a 1-token
         admission, then a ``burst``-wide concurrent one (default
-        ``min(slots, 4)``) — so the kernel build and first-use costs
-        never land on a client.  Stats reset afterwards.  Returns the
+        ``min(slots, 4)``) — so the kernel build, first-use costs and, on
+        the card, the capture of the greedy pass never land on a client.
+        Stats reset afterwards and the retrace guard marks.  Returns the
         number of buckets warmed."""
         want = buckets or [b for b in _PROMPT_BUCKETS if b < self.max_len]
         if not buckets and self.max_len > (want[-1] if want else 0):
@@ -640,6 +771,9 @@ class ContinuousEngine:
                         raise RuntimeError(req.error)
             warmed += 1
         self.reset_stats()
+        # warmup captures are the point of warmup: snapshot the capture
+        # counts so any capture AFTER this is a steady-state finding
+        self.retrace_guard.mark()
         return warmed
 
     def cancel(self, req: _Request) -> None:
@@ -705,6 +839,10 @@ class ContinuousEngine:
             out["spec_accept_rate"] = round(
                 self.spec_drafted_accepted
                 / max(1, self.spec_drafted_proposed), 4)
+        if self.retrace_guard.enabled:
+            # the runtime recapture ratchet: nonzero recompiles_since_mark
+            # after warmup means a pass was captured again in steady state
+            out.update(self.retrace_guard.stats())
         if self.device.type == "cuda":
             # the caching allocator's peak: what a memory budget
             # (launcher.apply_hbm_limits) is held against
@@ -736,6 +874,17 @@ class ContinuousEngine:
             return False, (f"decode loop wedged: no heartbeat for "
                            f"{age:.0f}s (limit {stale_after:.0f}s)")
         return True, "ok"
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Hold the batcher between two passes: while held no admission
+        and no pass runs on the card (the last pass has read back, so
+        the engine's work on the card is done).  A device trace starts
+        and stops its profiler under it: CUPTI enabling or flushing
+        while another thread replays the captured chunk without a pause
+        hung the trace's process on the card."""
+        with self._pass_mu:
+            yield
 
     @property
     def draining(self) -> bool:
@@ -771,6 +920,8 @@ class ContinuousEngine:
             if req is not None and not req.done.is_set():
                 req.error = "engine shut down"
                 req.done.set()
+        if not self._thread.is_alive():
+            self._graphs.clear()          # their memory pool goes with them
 
     # -- scheduler -----------------------------------------------------------
 
@@ -1218,11 +1369,23 @@ class ContinuousEngine:
         """Advance every slot ``chunk`` tokens.  Free and finished slots
         compute too (their writes drop on -1 table rows or past the slab's
         end, their tokens are never emitted); a frozen slot holds its
-        token and position.
+        token and position.  On the card an all-greedy chunk is one
+        replay of its captured program.
         Returns the ``[slots, chunk]`` tokens on the host — the loop's one
         designed readback per chunk."""
-        cfg = self.cfg
         gens = self._sampling_gens()
+        if gens is None and self._capture:
+            toks = self._graphed("chunk", self._chunk_body)
+        else:
+            toks = self._chunk_body(gens)
+        self.decode_steps += self.chunk
+        return toks.cpu()
+
+    def _chunk_body(self, gens: Optional[list] = None):
+        """The chunk's device work: ``chunk`` decode steps from the
+        engine's state, which it writes back in place; returns the
+        ``[slots, chunk]`` int32 tokens.  ``gens``: some slot samples."""
+        cfg = self.cfg
         toks = []
         token, pos, done = self._token, self._pos, self._done
         for _ in range(self.chunk):
@@ -1232,7 +1395,6 @@ class ContinuousEngine:
             else:
                 logits, _ = _token_logits(cfg, self.params, self._cache, pos,
                                           token)
-            self.decode_steps += 1
             if gens is not None:
                 noise = self._noise(gens, cfg.vocab)
                 nxt = select_tokens(self._biased(logits), self._temp, noise,
@@ -1245,8 +1407,37 @@ class ContinuousEngine:
             done = done | (nxt == self._eos)
             token = nxt
             toks.append(nxt)
-        self._token, self._pos, self._done = token, pos, done
-        return torch.stack(toks, dim=1).cpu()
+        self._token.copy_(token)
+        self._pos.copy_(pos)
+        self._done.copy_(done)
+        return torch.stack(toks, dim=1)
+
+    def _graphed(self, kind: str, body):
+        """Replay the captured ``kind`` pass (capturing it first when it
+        is new or its static tensors moved); returns its readback
+        tensor."""
+        key = (kind, self.kv_layout, self.slots, self.chunk,
+               weight_form(self.params))
+        prog = self._graphs.get(key)
+        if prog is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = self._graphs[key] = _GraphedProgram(self.device,
+                                                       self._graph_pool)
+        return prog.run(body, self._static_ptrs(),
+                        (self._token, self._pos, self._done))
+
+    def _static_ptrs(self) -> tuple:
+        """The addresses of every tensor a captured pass reads."""
+        trees = [self.params, self._cache, self._token, self._pos,
+                 self._done, self._eos]
+        if self.pool is not None:
+            trees.append(self._table)
+        if self._bias is not None:
+            trees.append(self._bias)
+        if self.draft is not None:
+            trees += [self.draft[1], self._dcache]
+        return tuple(t.data_ptr() for tree in trees for t in _tensors(tree))
 
     def _sampling_gens(self) -> Optional[list]:
         """The live requests' generators by slot when any of them samples
@@ -1339,12 +1530,35 @@ class ContinuousEngine:
         """One speculative pass for every slot: the draft proposes, the
         target verifies ``[token, d1 .. d_{chunk-1}]`` in one chunk
         forward (free and frozen slots compute too; their writes drop or
-        stay masked), and each slot commits its count (0 when frozen).
+        stay masked), and each slot commits its count (0 when frozen).  On
+        the card an all-greedy pass is one replay of its captured program.
         Returns the ``[slots, chunk]`` emitted tokens and the ``[slots]``
         counts on the host: the pass's one designed readback."""
         k = self.chunk
-        token, pos, done = self._token, self._pos, self._done
         gens = self._sampling_gens()
+        if gens is None and self._capture:
+            packed = self._graphed("spec", self._spec_body)
+        else:
+            packed = self._spec_body(gens)
+        host = packed.cpu().tolist()
+        toks, counts = [r[:k] for r in host], [r[k] for r in host]
+        self.target_passes += 1
+        live = [c for c, r in zip(counts, self._requests) if r is not None]
+        self.spec_committed += sum(live)
+        self.spec_slot_passes += len(live)
+        # each live slot-pass proposes chunk-1 tokens and accepts count-1
+        # of them (the +1 is the target's own token)
+        active = [c for c in live if c > 0]
+        self.spec_drafted_proposed += (k - 1) * len(active)
+        self.spec_drafted_accepted += sum(c - 1 for c in active)
+        return toks, counts
+
+    def _spec_body(self, gens: Optional[list] = None):
+        """The pass's device work from the engine's state, which it
+        writes back in place; returns ``[slots, chunk + 1]`` int32: the
+        emitted tokens, then each slot's count.  ``gens``: some slot
+        samples."""
+        token, pos, done = self._token, self._pos, self._done
         drafts, q_filt = self._draft_propose(token, pos, done, gens)
         chunk = torch.cat([token[:, None], drafts], dim=1)     # [slots, k]
         if self.pool is not None:
@@ -1358,19 +1572,11 @@ class ContinuousEngine:
         else:
             out = self._spec_commit_mixed(token, pos, done, drafts, t_lg,
                                           q_filt, gens)
-        self._token, self._pos, self._done, emit, counts = out
-        host = torch.cat([emit, counts[:, None]], dim=1).cpu().tolist()
-        toks, counts = [r[:k] for r in host], [r[k] for r in host]
-        self.target_passes += 1
-        live = [c for c, r in zip(counts, self._requests) if r is not None]
-        self.spec_committed += sum(live)
-        self.spec_slot_passes += len(live)
-        # each live slot-pass proposes chunk-1 tokens and accepts count-1
-        # of them (the +1 is the target's own token)
-        active = [c for c in live if c > 0]
-        self.spec_drafted_proposed += (k - 1) * len(active)
-        self.spec_drafted_accepted += sum(c - 1 for c in active)
-        return toks, counts
+        token2, pos2, done2, emit, counts = out
+        self._token.copy_(token2)
+        self._pos.copy_(pos2)
+        self._done.copy_(done2)
+        return torch.cat([emit, counts[:, None]], dim=1)
 
     def _fail_all(self, exc: BaseException) -> None:
         """A dead batcher must never strand a waiter: every in-flight and
@@ -1404,16 +1610,19 @@ class ContinuousEngine:
                 if self._stop:
                     return
             self.last_beat = time.perf_counter()
-            self._admit()
-            if all(r is None for r in self._requests):
+            with self._pass_mu:
+                self._admit()
+                idle = all(r is None for r in self._requests)
+                if not idle:
+                    if self.draft is not None:
+                        toks, counts = self._spec_chunk()
+                    else:
+                        toks = self._chunk_step().tolist()
+                        counts = [self.chunk] * self.slots
+            if idle:
                 with self._cv:
                     self._cv.notify_all()     # wake drain() waiters
                 continue
-            if self.draft is not None:
-                toks, counts = self._spec_chunk()
-            else:
-                toks = self._chunk_step().tolist()
-                counts = [self.chunk] * self.slots
             failpoint.hit("serve.engine.slow_decode")
             now = time.perf_counter()
             for slot, req in enumerate(self._requests):

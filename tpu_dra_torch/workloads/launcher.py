@@ -26,27 +26,46 @@ rules, since the driver that writes them is the same:
 the ``launcher.init_tpu_workload`` span (a child of ``TPU_TRACEPARENT``)
 and starts goodput accounting when ``TPU_GOODPUT_FILE`` asks for it.  The
 command lines of ``fit`` and ``serve`` call it first, as the reference's
-do.  The rendezvous of several processes comes with the launcher for
-several cards (ROADMAP.md queue 1 item 9).
+do.
+
+The rendezvous half (the reference's :34-103, :467-610): :func:`resolve`
+turns the slice-domain claim's environment (``SLICE_DOMAIN_UUID``, the
+``SLICE_SETTINGS_DIR`` mount's ``nodes_config.json``, the node's
+coordination service on ``SLICE_COORDINATOR_PORT``, or explicit
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+overrides; ``POD_IP`` names this process) into a :class:`RendezvousInfo`
+under the reference's names, since the driver that writes them is the
+same; :meth:`RendezvousInfo.initialize` applies the contracts above and
+calls ``torch.distributed.init_process_group`` where the reference calls
+``jax.distributed.initialize``.
 """
 
 from __future__ import annotations
 
 import atexit
 import fcntl
+import http.client
+import json
 import os
 import re
 import threading
+import urllib.request
+from dataclasses import dataclass
 from typing import Optional
 
 from tpu_dra_torch.resilience import failpoint
 from tpu_dra_torch.trace import get_tracer
 from tpu_dra_torch.trace.propagation import extract_env
+from tpu_dra_torch.util.rank import rank_sorted
 from tpu_dra_torch.workloads import goodput
 
 failpoint.register(
     "launcher.init",
     "top of init_tpu_workload, before any resource contract is applied")
+failpoint.register(
+    "launcher.resolve",
+    "top of rendezvous resolution (error/sleep here simulates a slow or "
+    "failed settings-mount/coordservice)")
 
 _HBM_LIMIT = re.compile(r"^TPU_HBM_LIMIT_BYTES_(\d+)$")
 
@@ -398,3 +417,227 @@ def init_tpu_workload(env: Optional[dict[str, str]] = None,
                            applied["hbm_limit_bytes"] is not None)
         span.set_attribute("goodput", applied["goodput"])
     return applied
+
+
+# ---------------------------------------------------------------------------
+# Rendezvous: the driver's environment to torch.distributed
+# ---------------------------------------------------------------------------
+
+JAX_COORDINATOR_PORT = 8476
+MEGASCALE_COORDINATOR_PORT = 8080   # the reference's libtpu megascale default
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclass
+class RendezvousInfo:
+    coordinator_address: str     # "ip:port" of rank 0's TCP store
+    num_processes: int
+    process_id: int
+    domain_uid: str = ""
+    # membership generation the coordination config was derived from
+    # (elastic domains): 0 for legacy configs; the elastic supervisor
+    # (workloads/elastic.py) fences re-initialization on it
+    generation: int = 0
+    # multislice rendezvous: set when the domain spans more than one
+    # partition; slice_id/num_slices mirror MEGASCALE_SLICE_ID /
+    # MEGASCALE_NUM_SLICES, megascale_coordinator is the slice-0 rank-0
+    # host
+    num_slices: int = 1
+    slice_id: int = 0
+    megascale_coordinator: str = ""
+
+    def megascale_env(self, env: Optional[dict[str, str]] = None
+                      ) -> dict[str, str]:
+        """The MEGASCALE_* env for this process, as the reference emits
+        it on multislice domains; empty for single-slice domains.  The
+        port's collectives do not read it: it is exported for whatever
+        else in the container does (the reference's contract)."""
+        if self.num_slices <= 1:
+            return {}
+        e = os.environ if env is None else env
+        out = {
+            "MEGASCALE_NUM_SLICES": str(self.num_slices),
+            "MEGASCALE_SLICE_ID": str(self.slice_id),
+        }
+        if self.megascale_coordinator:
+            # an explicit host:port is kept verbatim; a bare host gets the
+            # default (overridable) megascale port appended
+            addr = self.megascale_coordinator
+            if ":" not in addr:
+                port = e.get("MEGASCALE_COORDINATOR_PORT",
+                             str(MEGASCALE_COORDINATOR_PORT))
+                addr = f"{addr}:{port}"
+            out["MEGASCALE_COORDINATOR_ADDRESS"] = addr
+        return out
+
+    def initialize(self, backend: str = "nccl") -> None:
+        """Join the process group of the resolved triple.  Every
+        driver-injected contract is applied first, in the reference's
+        order: the slot gate (fail fast, before any device work), the
+        memory budget, the priority, the heartbeat and, on multislice
+        domains, the MEGASCALE_* env (an explicit user value wins).
+        Then ``torch.distributed.init_process_group(backend,
+        init_method="tcp://<coordinator_address>", world_size,
+        rank)``; with ``"nccl"`` the process's device is the first card
+        it can see.  ``backend`` is explicit: ``"gloo"`` is for the CPU
+        and for several processes on one card, which NCCL refuses.  The
+        whole init is one ``launcher.initialize`` span, a child of the
+        prepare that placed the container (``TPU_TRACEPARENT``)."""
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r}")
+        with get_tracer().start_span(
+                "launcher.initialize", parent=extract_env(),
+                attributes={"coordinator": self.coordinator_address,
+                            "num_processes": self.num_processes,
+                            "process_id": self.process_id,
+                            "backend": backend}):
+            acquire_multiprocess_slot()
+            apply_hbm_limits()
+            apply_scheduling_priority()
+            start_health_heartbeat()
+            for key, val in self.megascale_env().items():
+                os.environ.setdefault(key, val)   # explicit user env wins
+            import torch
+            import torch.distributed as dist
+            if backend == "nccl":
+                torch.cuda.set_device(0)
+            with get_tracer().start_span("launcher.torch_distributed_init"):
+                dist.init_process_group(
+                    backend,
+                    init_method=f"tcp://{self.coordinator_address}",
+                    world_size=self.num_processes, rank=self.process_id)
+
+
+def _coordinator_port(env: Optional[dict] = None) -> int:
+    """Coordinator port, overridable via ``JAX_COORDINATOR_PORT`` (the
+    slice plugin may inject it; tests use it to stay parallel-safe)."""
+    e = os.environ if env is None else env
+    return int(e.get("JAX_COORDINATOR_PORT", JAX_COORDINATOR_PORT))
+
+
+def _info_from_config(data: dict, my_ip: str,
+                      env: Optional[dict] = None
+                      ) -> Optional[RendezvousInfo]:
+    """This process's triple from a nodes config: rank 0's address on
+    the coordinator port, the node count, and this node's rank (None
+    when ``my_ip`` is not a member)."""
+    nodes = data.get("nodes", [])
+    if not nodes:
+        return None
+    nodes = rank_sorted(nodes)
+    coordinator = f"{nodes[0]['ipAddress']}:{_coordinator_port(env)}"
+    pid = next((i for i, n in enumerate(nodes)
+                if n.get("ipAddress") == my_ip), -1)
+    if pid < 0:
+        return None
+    info = RendezvousInfo(coordinator, len(nodes), pid)
+    try:
+        info.generation = int(data.get("generation", 0))
+    except (TypeError, ValueError):
+        info.generation = 0
+    ms = data.get("multislice")
+    if ms:
+        info.num_slices = int(ms.get("numSlices", 1))
+        # this PROCESS's slice is its own node's, not the config writer's
+        info.slice_id = int(nodes[pid].get("sliceID",
+                                           ms.get("sliceID", 0)))
+        info.megascale_coordinator = ms.get("megascaleCoordinator", "")
+    return info
+
+
+def _read_config_file(path: str) -> Optional[dict]:
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        return None
+    return data if data.get("nodes") else None
+
+
+def _fetch_config_http(port: int) -> Optional[dict]:
+    """The node-local coordination service's ``/nodes`` (the full nodes
+    config: rank order, generation and the multislice block, so this
+    path and the settings dir resolve alike), or None."""
+    try:
+        data = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/nodes", timeout=5).read())
+    # HTTPException (e.g. IncompleteRead mid-body) is not an OSError
+    except (OSError, ValueError, http.client.HTTPException):
+        return None
+    return data if isinstance(data, dict) and data.get("nodes") else None
+
+
+def load_nodes_config(env: Optional[dict] = None) -> Optional[dict]:
+    """The raw coordination config from the driver-injected env: the
+    mounted settings dir first, then the node-local coordination
+    service.  :func:`resolve` and the elastic supervisor
+    (``workloads/elastic.py``) both read it through here."""
+    e = os.environ if env is None else env
+    settings = e.get("SLICE_SETTINGS_DIR", "/etc/tpu-slice")
+    data = _read_config_file(os.path.join(settings, "nodes_config.json"))
+    if data is None:
+        data = _fetch_config_http(
+            int(e.get("SLICE_COORDINATOR_PORT", "51000")))
+    return data
+
+
+def _from_settings_dir(settings_dir: str, my_ip: str,
+                       env: Optional[dict] = None
+                       ) -> Optional[RendezvousInfo]:
+    data = _read_config_file(
+        os.path.join(settings_dir, "nodes_config.json"))
+    return None if data is None else _info_from_config(data, my_ip, env)
+
+
+def _from_coordservice(port: int, my_ip: str,
+                       env: Optional[dict] = None
+                       ) -> Optional[RendezvousInfo]:
+    data = _fetch_config_http(port)
+    return None if data is None else _info_from_config(data, my_ip, env)
+
+
+def resolve(env: Optional[dict[str, str]] = None) -> RendezvousInfo:
+    """Resolve the rendezvous from the driver-injected environment.
+
+    Order: explicit JAX_* overrides, then the mounted settings dir, then
+    the local coordination service.  ``RuntimeError`` when the claim env
+    is absent (the pod was not given a slice-domain channel claim) or
+    nothing resolves."""
+    env = dict(os.environ) if env is None else env
+    with get_tracer().start_span("launcher.resolve_rendezvous",
+                                 parent=extract_env(env)):
+        return _resolve(env)
+
+
+def _resolve(env: dict[str, str]) -> RendezvousInfo:
+    failpoint.hit("launcher.resolve")
+    if env.get("JAX_COORDINATOR_ADDRESS"):
+        return RendezvousInfo(
+            coordinator_address=env["JAX_COORDINATOR_ADDRESS"],
+            num_processes=int(env.get("JAX_NUM_PROCESSES", "1")),
+            process_id=int(env.get("JAX_PROCESS_ID", "0")),
+            domain_uid=env.get("SLICE_DOMAIN_UUID", ""),
+            num_slices=int(env.get("MEGASCALE_NUM_SLICES", "1")),
+            slice_id=int(env.get("MEGASCALE_SLICE_ID", "0")),
+            megascale_coordinator=env.get(
+                "MEGASCALE_COORDINATOR_ADDRESS", ""))
+    domain_uid = env.get("SLICE_DOMAIN_UUID", "")
+    if not domain_uid:
+        raise RuntimeError(
+            "no slice-domain claim env present "
+            "(SLICE_DOMAIN_UUID unset): give the pod a channel claim from "
+            "the domain's ResourceClaimTemplate")
+    my_ip = env.get("POD_IP", "")
+    settings = env.get("SLICE_SETTINGS_DIR", "/etc/tpu-slice")
+    info = _from_settings_dir(settings, my_ip, env)
+    if info is None:
+        port = int(env.get("SLICE_COORDINATOR_PORT", "51000"))
+        info = _from_coordservice(port, my_ip, env)
+    if info is None:
+        raise RuntimeError(
+            f"slice domain {domain_uid}: could not resolve rendezvous "
+            f"(settings dir {settings!r} empty and coordination service "
+            f"unreachable)")
+    info.domain_uid = domain_uid
+    return info

@@ -16,9 +16,13 @@ the ``cache`` dict and return the same dict.
 
 -1 entries: torch indexing wraps -1 to the LAST page (as numpy does), and
 ``index_put_`` has no drop mode — an index past the end raises instead of
-dropping.  So every page write selects its valid rows with an explicit
-mask first (one device→host sync a write set, shared by every layer of
-a step or chunk); a retired slot's all-(-1) table row writes nothing.
+dropping.  So every page write decides which of its entries land before
+it indexes: a prefill's scatter (``scatter_pages_raw``, at admission)
+selects them with a mask and one device→host sync; the appends of a
+decode step or a chunk (``append_chunk``, ``_paged_chunk_hidden``) drop
+theirs on the device, at a fixed shape and without a sync, so a CUDA
+graph can capture them (``_append_targets``).  A retired slot's
+all-(-1) table row writes nothing.
 
 ``paged_attention`` is the one kernel of the serving path: a CUDA kernel
 (``csrc/paged_attention.cu``) for tensors on the card, its plain version
@@ -213,31 +217,42 @@ def scatter_prefill(cache: dict, ks, vs, table) -> dict:
 
 def _append_targets(table, lengths, page_size: int, total_pages: int,
                     m: int = 1):
-    """Where tokens ``lengths .. lengths+m-1`` of each sequence land:
-    ``(rows, chunk columns, page ids, offsets)`` for the ``[B, m]``
-    entries whose position falls in a real page of their table row —
-    before 0, past the row's width or on a -1 entry, the write drops (the
-    reference's ``mode="drop"``).  Selecting the entries costs one
-    device→host sync; a decode step or a chunk pass computes it once and
-    reuses it for every layer."""
-    MP = table.shape[1]
+    """Where tokens ``lengths .. lengths+m-1`` of each sequence land, as
+    ``(rows, chunk columns, page ids, offsets, any_kept)``: one entry per
+    ``[B, m]`` token, ``[B·m]`` each, computed on the device without a
+    host sync (a CUDA graph captures it).  An entry whose position falls
+    before 0, past the row's width or on a -1 (or past-the-end) entry
+    drops, the reference's ``mode="drop"``: it is sent to the first kept
+    entry's place with that entry's value, so no place receives two
+    different values and no live page is touched; when no entry is kept
+    (``any_kept`` false) every entry rewrites page 0's first column with
+    its own old value.  A -1 never wraps to the pool's last page.  A
+    decode step or a chunk pass computes it once for every layer."""
+    B, MP = table.shape
+    dev = table.device
     posn = lengths.long().reshape(-1, 1) + torch.arange(
-        m, device=table.device)[None, :]                  # [B, m]
+        m, device=dev)[None, :]                           # [B, m]
     pidx = posn // page_size
     ids = table.long().gather(1, pidx.clamp(0, MP - 1))
-    ok = (posn >= 0) & (pidx < MP) & (ids >= 0) & (ids < total_pages)
-    rows, cols = torch.nonzero(ok, as_tuple=True)
-    return rows, cols, ids[rows, cols], (posn % page_size)[rows, cols]
+    ok = ((posn >= 0) & (pidx < MP) & (ids >= 0)
+          & (ids < total_pages)).reshape(-1)
+    n = torch.arange(B * m, device=dev)
+    src = torch.where(ok, n, torch.argmax(ok.to(torch.int32)))
+    any_kept = ok.any()
+    rows, cols = src // m, src % m
+    ids = torch.where(any_kept, ids.reshape(-1)[src], 0)
+    off = torch.where(any_kept, (posn % page_size).reshape(-1)[src], 0)
+    return rows, cols, ids, off, any_kept
 
 
 def _append_at(cache: dict, cols: dict, targets) -> None:
     """Write ``cols[name]`` ``[L, B, Hkv, m, last]`` at ``targets`` in
-    place."""
-    rows, js, ids, off = targets
+    place (an all-dropped write set rewrites the old values)."""
+    rows, js, ids, off, any_kept = targets
     for name, buf in cache.items():
         # [N, L, Hkv, last] → [L, Hkv, N, last]
-        buf[:, :, ids, off] = cols[name][:, rows, :, js].permute(
-            1, 2, 0, 3).to(buf.dtype)
+        new = cols[name][:, rows, :, js].permute(1, 2, 0, 3).to(buf.dtype)
+        buf[:, :, ids, off] = torch.where(any_kept, new, buf[:, :, ids, off])
 
 
 def append_chunk(cache: dict, k_new, v_new, table, lengths, m: int) -> dict:

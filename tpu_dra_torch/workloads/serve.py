@@ -117,6 +117,7 @@ from __future__ import annotations
 
 import base64
 import binascii
+import contextlib
 import json
 import os
 import threading
@@ -361,7 +362,9 @@ class DecoderPool:
         return hist[:len(rows)].tolist(), scores[:len(rows)].tolist()
 
 
-def capture_device_trace(seconds: float, device) -> tuple[bytes, dict]:
+def capture_device_trace(seconds: float, device,
+                         pause=contextlib.nullcontext
+                         ) -> tuple[bytes, dict]:
     """``torch.profiler`` over the next ``seconds``, whatever the other
     threads run: CPU activity and, on the card, CUDA activity (CUPTI
     records every kernel on the card, whichever thread launched it; the
@@ -370,7 +373,9 @@ def capture_device_trace(seconds: float, device) -> tuple[bytes, dict]:
     "kernels"}`` counts.  On the card the capture launches one probe
     kernel of its own and raises ``RuntimeError`` if it saw no kernel at
     all: a trace of the card without device activity is a profiler that
-    did not trace it."""
+    did not trace it.  ``pause()`` (a context manager; the engine's
+    ``paused``) is held while the profiler starts and while it stops, so
+    no other thread drives the card across CUPTI's enabling and flush."""
     import io
     import tarfile
     import tempfile
@@ -381,11 +386,17 @@ def capture_device_trace(seconds: float, device) -> tuple[bytes, dict]:
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if cuda else [])
     with tempfile.TemporaryDirectory() as td:
-        with profile(activities=activities) as prof:
+        prof = profile(activities=activities)
+        with pause():
+            prof.start()
+        try:
             if cuda:
                 torch.ones(1, device=device).add_(1)
                 torch.cuda.synchronize(device)
             time.sleep(seconds)
+        finally:
+            with pause():
+                prof.stop()
         path = os.path.join(td, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
@@ -856,7 +867,9 @@ def make_handler(pool: DecoderPool, engine: ContinuousEngine | None,
                 ).encode())
                 return
             try:
-                body, counts = capture_device_trace(secs, pool.device)
+                body, counts = capture_device_trace(
+                    secs, pool.device, pause=contextlib.nullcontext
+                    if engine is None else engine.paused)
             except Exception as exc:  # noqa: BLE001 — the profiler's refusal
                 self._send(503, json.dumps(
                     {"error": str(exc)[:300]}).encode())

@@ -22,7 +22,9 @@ attention, ZeRO-1, GPipe, expert parallelism, LoRA and quantized serving
 shardings over a mesh) and the port's dryrun_multichip; then it holds the
 engine's captured passes to the eager ones under the retrace guard, and
 runs the multi-process host side (rendezvous, collectives, elastic
-respawn) as processes on the one card.
+respawn) as processes on the one card; last it runs the ring kernels and
+the DP×SP ring-flash step with one process a rank on the card, each
+process's kernels writing into its neighbours' buffers through CUDA IPC.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -340,9 +342,38 @@ Phases (each prints as it goes; any failed check exits non-zero):
      from 1 member to 2: the respawned worker carries generation 2 and
      resolves a world of 2; section_collectives in this process (no
      group) answers the reference's single-device skip.
+ 26. the ring kernels and the DP×SP step across processes: 4 processes
+     on the one card, started through the port's rendezvous
+     (launcher.run_local_group: each resolves its triple and joins one
+     gloo group; NCCL refuses two ranks on one card), one rank each;
+     a rank that fails fails the phase.  (a) collective_matmul.
+     ProcessRing over the 4 and over the pairs {0, 1} and {2, 3} at
+     once: all_gather_matmul at x [4096, 2048] (m even: bidirectional at
+     n = 4) and [4095, 2048] (m odd) against the wqkv shard [2048, 1536],
+     matmul_reduce_scatter at x [16384, 2048] @ w2 [2048, 2048], the
+     shift of a k/v block [16, 16, 256, 128] both ways, each forward and
+     VJP (ProcessAllGatherMatmul, ProcessMatmulReduceScatter,
+     ProcessRingShift): every rank's y, a, reduce-scatter y, shift and
+     dx / dw byte-equal to its rank's slice of the virtual ring's
+     kernels on the same global inputs, y within ELEM_TOL / ROW_TOL of
+     the group plain version (copies byte-equal), launches exact per
+     process (n a gather or reduce-scatter call, 1 a shift), a call's
+     time by CUDA events (barriers included; informational); (b) the
+     flagship on ProcessMesh({"dp": 1, "sp": 4}) at batch 16 on [16,
+     1025] windows: one make_ring_train_step(ring_impl="flash") step at
+     lr 1 with hop_impl="pallas" bit-equal to "xla" in every process,
+     rank 0's held to the virtual mesh's step that this process took
+     first (STEP_LOSS_ATOL, STEP_LEAF_REL), then 3 SGD steps with finite,
+     falling losses and exact launches in each process: 6·(n−1)·L
+     shifts, 2·(idx+1)·L flash forwards and (idx+1)·L of each backward
+     kernel (the reference's per-device lax.cond folds step t's block
+     only where t <= idx; summed over the ranks, the virtual step's
+     rank-launches); the step's time and a gloo psum of the gradients'
+     size (host memory; informational).
 The second-to-last line is a JSON object describing every kernel (eleven
-entries: the flash forward once for each TPU kernel it replaces);
-the last line is {"ok": true, "device": {...}}.
+entries: the flash forward once for each TPU kernel it replaces; phase
+26's launches summed over its processes added to rows #3, #6, #7 and
+#9-#11); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5698,6 +5729,361 @@ def multiprocess_phase(card: str) -> dict:
     return {"psum": psum, "elastic": elastic}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the ring kernels and the DP×SP step across processes on one card
+# ---------------------------------------------------------------------------
+
+PROCESSES = 4                # 26's group: one process a rank, all on cuda:0
+PROCESS_WAIT = 600           # seconds the group may take
+# 26a: (label, m, K, N) of the gathers a rank: the wqkv shard at tp 4 (m
+# even: bidirectional at n = 4) and one row short (m odd: unidirectional);
+# the reduce-scatter at w2 (x [16384, 2048] a rank); the k/v block
+PROCESS_AG = [("wqkv, m even", 4096, 2048, 1536),
+              ("wqkv, m odd", 4095, 2048, 1536)]
+PROCESS_RS = ("w2", 16384, 2048, 2048)
+PROCESS_KV = (16, 16, 256, 128)
+PROCESS_TIMED = 3            # calls timed a case (CUDA events, median)
+# 26b: SGD steps after the one-step comparisons
+PROCESS_STEPS = 3
+PROCESS_CHILD = ("import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.process_rank(sys.argv[1]))")
+
+
+def same_bytes(label: str, got, want) -> None:
+    """Fail unless ``got`` and ``want`` hold the same bits."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max()) \
+            if got.shape == want.shape else float("nan")
+        fail(f"{label}: not byte-equal (shapes {tuple(got.shape)} and "
+             f"{tuple(want.shape)}, max abs difference {err})")
+
+
+def call_ms(fn) -> float:
+    """One call's time by CUDA events, median of PROCESS_TIMED (each
+    process ring call synchronizes its stream and meets its group, so
+    the events span the barriers too)."""
+    import torch
+    times = []
+    for _ in range(PROCESS_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def process_kernels(ring) -> dict:
+    """26a in one process: each ring kernel through ``ring`` (this rank's
+    shard of the global inputs drawn from one seed by every process)
+    against rank r's slice of the virtual ring's kernel on the global
+    inputs (byte-equal: y, a, the reduce-scatter's y, the shift, and
+    each VJP's dx, dw) and against the group plain version (ELEM_TOL,
+    ROW_TOL; copies byte-equal), with exact launch counts; then each
+    call timed (informational)."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    n, r = ring.n, ring.rank
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 26 + n)
+    counters = {"all_gather_matmul": cm.all_gather_matmul,
+                "matmul_reduce_scatter": cm.matmul_reduce_scatter,
+                "ring_shift": cm.ring_shift}
+    total = dict.fromkeys(counters, 0)
+    out = {"ms": {}, "err": {}}
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def counted(want: dict, fn):
+        zero_counts(counters)
+        got = fn()
+        torch.cuda.synchronize()
+        seen = read_counts(counters)
+        if seen != {k: want.get(k, 0) for k in counters}:
+            fail(f"process ring n {n} rank {r}: launches {seen}, expected "
+                 f"{want}")
+        for k, v in seen.items():
+            total[k] += v
+        return got
+
+    def vjp(fn, args, cot):
+        args = [a.detach().clone().requires_grad_() for a in args]
+        y = fn(*args)
+        return (y, *torch.autograd.grad(y, args, cot))
+
+    for label, m, K, N in PROCESS_AG:
+        x, w = ring_inputs(gen, 1, n, m, K, N)
+        cot = draw(1, n, n * m, N)
+        vy, va = cm.all_gather_matmul(x, w)
+        _, vdx, vdw = vjp(cm.AllGatherMatmul.apply, (x, w.contiguous()), cot)
+        xr, wr = x[0, r].contiguous(), w[0, r].contiguous()
+        tag = f"all_gather_matmul {label}, n {n}, rank {r}"
+        y, a = counted({"all_gather_matmul": n},
+                       lambda: ring.all_gather_matmul(xr, wr))
+        yf, dx, dw = counted(
+            {"all_gather_matmul": n, "matmul_reduce_scatter": n},
+            lambda: vjp(lambda u, v: cm.ProcessAllGatherMatmul.apply(
+                ring, u, v), (xr, wr), cot[0, r]))
+        for name, got, want in (("y", y, vy[0, r]), ("a", a, va[0, r]),
+                                ("VJP y", yf, vy[0, r]),
+                                ("dx", dx, vdx[0, r]), ("dw", dw, vdw[0, r])):
+            same_bytes(f"{tag}: {name} against the virtual ring", got, want)
+        py, pa = ring.all_gather_matmul_ref(xr, wr)
+        out["err"][f"ag {label}"] = hold_ring(f"{tag} vs the group plain "
+                                              f"version", y, py)[0]
+        same_bytes(f"{tag}: a against the group plain version", a, pa)
+        out["ms"][f"all_gather_matmul {label}"] = call_ms(
+            lambda: ring.all_gather_matmul(xr, wr))
+        del x, w, cot, vy, va, vdx, vdw, y, a, yf, dx, dw, py, pa
+    label, rows, K, N = PROCESS_RS
+    x, w = ring_inputs(gen, 1, n, rows, K, N)
+    cot = draw(1, n, rows // n, N)
+    vy = cm.matmul_reduce_scatter(x, w)
+    _, vdx, vdw = vjp(cm.MatmulReduceScatter.apply, (x, w.contiguous()), cot)
+    xr, wr = x[0, r].contiguous(), w[0, r].contiguous()
+    tag = f"matmul_reduce_scatter {label}, n {n}, rank {r}"
+    y = counted({"matmul_reduce_scatter": n},
+                lambda: ring.matmul_reduce_scatter(xr, wr))
+    yf, dx, dw = counted(
+        {"matmul_reduce_scatter": n, "all_gather_matmul": n},
+        lambda: vjp(lambda u, v: cm.ProcessMatmulReduceScatter.apply(
+            ring, u, v), (xr, wr), cot[0, r]))
+    for name, got, want in (("y", y, vy[0, r]), ("VJP y", yf, vy[0, r]),
+                            ("dx", dx, vdx[0, r]), ("dw", dw, vdw[0, r])):
+        same_bytes(f"{tag}: {name} against the virtual ring", got, want)
+    out["err"][f"rs {label}"] = hold_ring(
+        f"{tag} vs the group plain version", y,
+        ring.matmul_reduce_scatter_ref(xr, wr))[0]
+    out["ms"][f"matmul_reduce_scatter {label}"] = call_ms(
+        lambda: ring.matmul_reduce_scatter(xr, wr))
+    del x, w, cot, vy, vdx, vdw, y, yf, dx, dw
+    kv = draw(1, n, *PROCESS_KV)
+    cot = draw(1, n, *PROCESS_KV)
+    for reverse in (False, True):
+        way = "left" if reverse else "right"
+        tag = f"ring_shift {way}, n {n}, rank {r}"
+        vs = cm.ring_shift(kv, reverse)
+        kvv = kv.clone().requires_grad_()
+        (vdx,) = torch.autograd.grad(cm.RingShift.apply(kvv, reverse), kvv,
+                                     cot)
+        mine = kv[0, r].contiguous()
+        got = counted({"ring_shift": 1},
+                      lambda: ring.ring_shift(mine, reverse))
+        sf, dx = counted({"ring_shift": 2}, lambda: vjp(
+            lambda u: cm.ProcessRingShift.apply(ring, reverse, False, u)[0],
+            (mine,), cot[0, r]))
+        for name, g, want in (("out", got, vs[0, r]), ("VJP out", sf, vs[0, r]),
+                              ("dx", dx, vdx[0, r])):
+            same_bytes(f"{tag}: {name} against the virtual ring", g, want)
+        same_bytes(f"{tag}: against the group plain version", got,
+                   ring.ring_shift_ref(mine, reverse))
+        out["ms"][f"ring_shift {way}"] = call_ms(
+            lambda: ring.ring_shift(mine, reverse))
+    out["launches"] = total
+    return out
+
+
+def process_step(tmp: Path, mesh) -> dict:
+    """26b in one process: the flagship's DP×SP ring-flash step on the
+    process mesh dp 1 × sp 4, hop_impl="pallas" against "xla" (bit-equal)
+    at lr 1; rank 0 holds it to the virtual mesh's step that the parent
+    saved (loss within STEP_LOSS_ATOL, each leaf's update within
+    STEP_LEAF_REL); then PROCESS_STEPS steps at SGD_LR with finite,
+    falling losses and exact launch counts for this rank: 6·(n − 1)·L
+    shifts, 2·(idx + 1)·L flash forwards and (idx + 1)·L of each backward
+    kernel a step (the reference's per-device ``lax.cond`` folds the block
+    of step t only where t ≤ idx); one gloo psum of the gradients' size
+    timed (informational)."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
+    from tpu_dra_torch.workloads.train import (ModelConfig, init_params,
+                                               tree_leaves)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    n, L = mesh.axis_size("sp"), cfg.n_layers
+    idx = mesh.axis_index("sp")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2600)
+    params = init_params(cfg, gen)
+    wins = [w.to(mesh.device) for w in torch.load(tmp / "windows.pt")]
+    win = wins[0]
+    res = {}
+    for hop in ("pallas", "xla"):
+        step, _ = make_ring_train_step(cfg, mesh, lr=1.0, ring_impl="flash",
+                                       hop_impl=hop)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[hop] = step(params, win[:, :-1], win[:, 1:])
+        torch.cuda.synchronize()
+        res[hop + "_s"] = time.perf_counter() - t0
+    (pp, lp), (px, lx) = res["pallas"], res["xla"]
+    same = float(lp) == float(lx) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(pp), tree_leaves(px)))
+    log(f"[mp26] rank {idx}: DP×SP across processes, hop_impl=\"pallas\" "
+        f"vs \"xla\": loss {float(lp)!r} vs {float(lx)!r}; bit-equal: "
+        f"{same}; one step {res['pallas_s']:.2f} s (the shift kernel) and "
+        f"{res['xla_s']:.2f} s (send and receive through host memory)")
+    if not same:
+        fail(f"rank {idx}: the shift kernel's step across processes is not "
+             f"bit-equal to the send and receive's")
+    del px, res
+    if idx == 0:
+        want = torch.load(tmp / "virtual.pt", map_location=mesh.device)
+        hold_step(f"DP×SP across {n} processes", "rank 0's step (update at "
+                  "lr 1) vs the virtual mesh's", lp,
+                  leaf_updates(params, pp, 1.0), want["loss"], want["upd"])
+        del want
+    del pp
+    gc.collect()
+    torch.cuda.empty_cache()
+    step, _ = make_ring_train_step(cfg, mesh, lr=SGD_LR, ring_impl="flash",
+                                   hop_impl="pallas")
+    counters = {"ring_shift": cm.ring_shift, **flash_counters()}
+    run = train_loop(f"DP×SP across processes, rank {idx}",
+                     lambda p, w: step(p, w[:, :-1], w[:, 1:]), params,
+                     wins[1:], counters)
+    want = {"ring_shift": 6 * (n - 1) * L * PROCESS_STEPS,
+            **flash_want((idx + 1) * L * PROCESS_STEPS)}
+    if run["launches"] != want:
+        fail(f"DP×SP across processes, rank {idx}: launches "
+             f"{run['launches']}, expected {want}")
+    flat = torch.zeros(sum(t.numel() for t in tree_leaves(params)),
+                       device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh.psum(flat)
+    psum_s = time.perf_counter() - t0
+    del run["params"], params, flat
+    return {"launches": run["launches"], "losses": run["losses"],
+            "step_ms": run["step_ms"], "first_ms": run["first_ms"],
+            "peak_gb": run["peak_gb"], "psum_ms": 1e3 * psum_s}
+
+
+def process_rank(tmp: str) -> int:
+    """One rank of phase 26's group, started by ``process_phase`` through
+    ``launcher.run_local_group``: it resolves its triple and joins the
+    group over gloo (NCCL refuses several ranks on one card), runs 26a on
+    the whole group (n = 4) and on its pair (n = 2, ranks {0, 1} and {2,
+    3} at once), then 26b on ``ProcessMesh({"dp": 1, "sp": 4})``, and
+    writes its results to ``tmp/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+    from tpu_dra_torch.workloads.launcher import resolve
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    resolve().initialize("gloo")
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    t0 = time.perf_counter()
+    kernels = {}
+    for n, ring in ((4, ProcessRing()), (2, ProcessRing(pairs[rank // 2]))):
+        kernels[n] = process_kernels(ring)
+        ring.close()
+    t1 = time.perf_counter()
+    mesh = ProcessMesh({"dp": 1, "sp": PROCESSES})
+    step = process_step(Path(tmp), mesh)
+    mesh.close()
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps({
+        "kernels": kernels, "step": step, "kernels_s": t1 - t0,
+        "step_s": time.perf_counter() - t1}))
+    dist.destroy_process_group()
+    return 0
+
+
+def virtual_step(tmp: Path) -> None:
+    """26b's yardstick, in this process before the group starts: the
+    same step on the virtual mesh dp 1 × sp 4 (lr 1, the same seed's
+    parameters, the first window), saved as its loss and each leaf's
+    update, with the windows the group trains on."""
+    import torch
+
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**TRAIN_MODEL)
+    wins = window_batches(write_tokens(tmp / "tokens.bin", cfg.vocab),
+                          SHARDED_RUN["batch"], cfg.max_seq,
+                          PROCESS_STEPS + 1)
+    torch.save([w.cpu() for w in wins], tmp / "windows.pt")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2600)
+    params = init_params(cfg, gen)
+    step, _ = make_ring_train_step(cfg, Mesh({"dp": 1, "sp": PROCESSES}),
+                                   lr=1.0, ring_impl="flash",
+                                   hop_impl="pallas")
+    new, loss = step(params, wins[0][:, :-1], wins[0][:, 1:])
+    upd = leaf_updates(params, new, 1.0)
+    del new, params
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    torch.save({"loss": float(loss), "upd": cpu(upd)}, tmp / "virtual.pt")
+    del upd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def process_phase(card: str) -> dict:
+    """Phase 26: the ring kernels (#9-#11) and the DP×SP ring-flash step
+    across PROCESSES processes on the one card, started through the
+    port's rendezvous (``launcher.run_local_group``: each rank resolves
+    its triple and joins a gloo group); a rank that fails fails the
+    phase.  Returns each rank's launches, summed."""
+    from tpu_dra_torch.workloads.launcher import run_local_group
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-26-") as tmp:
+        t0 = time.perf_counter()
+        virtual_step(Path(tmp))
+        t1 = time.perf_counter()
+        outs = run_local_group([sys.executable, "-c", PROCESS_CHILD, tmp],
+                               PROCESSES, timeout=PROCESS_WAIT, cwd=str(HERE),
+                               env=child_env())
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(PROCESSES)]
+    for r, out in enumerate(outs):
+        for ln in out.splitlines():
+            if ln.startswith(("[mp26]", "[train]")):
+                log(f"[mp26] rank {r}: {ln}")
+    total: dict = {}
+    for r, res in enumerate(ranks):
+        for n, k in res["kernels"].items():
+            log(f"[mp26] 26a rank {r}, n {n}: byte-equal to the virtual "
+                f"ring's rank {r % int(n)} and within the group plain "
+                f"versions (max abs err {k['err']}); launches "
+                f"{k['launches']} (exact); per call by CUDA events "
+                f"(barriers included; informational): "
+                + ", ".join(f"{name} {ms:.3f} ms"
+                            for name, ms in k["ms"].items())
+                + f"; on {card}")
+            add_counts(total, k["launches"])
+        st = res["step"]
+        log(f"[mp26] 26b rank {r}: {PROCESS_STEPS} steps, losses "
+            f"{st['losses']}, launches {st['launches']} (exact), step "
+            f"{st['step_ms']:.1f} ms (median of steps 2-{PROCESS_STEPS}; "
+            f"first {st['first_ms']:.1f}), a gloo psum of the "
+            f"{TRAIN_MODEL['d_model']}-wide flagship's fp32 gradients "
+            f"{st['psum_ms']:.1f} ms ({st['psum_ms'] / st['step_ms']:.3f} of "
+            f"the step), peak memory {st['peak_gb']:.2f} GB; 26a "
+            f"{res['kernels_s']:.1f} s, 26b {res['step_s']:.1f} s; on {card}")
+        add_counts(total, st["launches"])
+    log(f"[mp26] phase 26: the virtual yardstick {t1 - t0:.1f} s, the group "
+        f"of {PROCESSES} {time.perf_counter() - t1:.1f} s; launches summed "
+        f"over the ranks {total}")
+    return {"launches": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -5868,7 +6254,11 @@ def main() -> int:
     multiprocess_phase(card)
     log(f"[time] phase 25 {time.perf_counter() - t0:.1f} s")
     lap("25")
-    more = meshed["launches"]
+    t0 = time.perf_counter()
+    processed = process_phase(card)
+    log(f"[time] phase 26 {time.perf_counter() - t0:.1f} s")
+    lap("26")
+    more = add_counts(dict(meshed["launches"]), processed["launches"])
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

@@ -1351,3 +1351,65 @@ def test_zero1_is_bit_equal_to_replicated_moments_on_the_card():
     for key in ("mu", "nu"):
         assert all(torch.equal(a, b) for a, b in zip(
             tt.tree_leaves(oa[key]), tt.tree_leaves(ob[key])))
+
+
+def test_process_ring_on_the_card_is_the_virtual_ring_byte_for_byte(
+        tmp_path):
+    """Two processes on the card (one gloo group; NCCL refuses two ranks
+    on one card) run the ring kernels across processes through each
+    other's IPC-mapped buffers (tests/torch_process_child.py, started by
+    ``launcher.run_local_group``): every rank's gather (odd and even m),
+    gathered operand, reduce-scatter, shift both ways and each VJP is
+    byte-equal to its rank's slice of the virtual ring's kernels on the
+    same global inputs, with n launches a gather or reduce-scatter call
+    and one a shift, counted per process."""
+    import os
+    import sys
+    from pathlib import Path
+
+    from torch_process_child import AG_CASES, ring_inputs
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.launcher import run_local_group
+    from tpu_dra_torch.kernels.build import library
+    dev = card()
+    library("ring")                 # built once, before the ranks load it
+    child = Path(__file__).resolve().parent / "torch_process_child.py"
+    repo = str(child.parent.parent)
+    n = 2
+    run_local_group([sys.executable, str(child), "ring", str(tmp_path),
+                     "cuda"], n, timeout=300, cwd=repo,
+                    env=dict(os.environ, PYTHONPATH=repo))
+    g = {k: v[None].to(dev) for k, v in ring_inputs(n).items()}
+
+    def vjp(fn, args, cot):
+        args = [a.clone().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*args), args, cot)
+    want = {}
+    for name in AG_CASES:
+        x, w = g[f"ag_{name}_x"], g[f"ag_{name}_w"]
+        want[f"ag_{name}_y"], want[f"ag_{name}_a"] = cm.all_gather_matmul(
+            x, w)
+        want[f"ag_{name}_y_fn"] = want[f"ag_{name}_y"]
+        want[f"ag_{name}_dx"], want[f"ag_{name}_dw"] = vjp(
+            cm.AllGatherMatmul.apply, (x, w), g[f"ag_{name}_cot"])
+    want["rs_y"] = cm.matmul_reduce_scatter(g["rs_x"], g["rs_w"])
+    want["rs_dx"], want["rs_dw"] = vjp(cm.MatmulReduceScatter.apply,
+                                       (g["rs_x"], g["rs_w"]), g["rs_cot"])
+    for reverse, tag in ((False, "right"), (True, "left")):
+        want[f"shift_{tag}"] = cm.ring_shift(g["shift_x"], reverse)
+        want[f"shift_{tag}_plain"] = want[f"shift_{tag}"]
+        (want[f"shift_{tag}_dx"],) = vjp(
+            lambda t: cm.RingShift.apply(t, reverse), (g["shift_x"].float(),),
+            g["shift_cot"].float())
+    torch.cuda.synchronize()
+    import numpy as np
+    for r in range(n):
+        with np.load(tmp_path / f"rank{r}.npz") as data:
+            got = {k: data[k] for k in data.files}
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v[0, r].float().cpu().numpy(),
+                                          err_msg=k)
+        # 5n gathers (2 calls a case, and the reduce-scatter's VJP), 4n
+        # reduce-scatters, 6 shifts
+        assert got["launches"].tolist() == [5 * n, 4 * n, 6]

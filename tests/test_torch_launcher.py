@@ -324,3 +324,26 @@ def test_priority_applies_once(monkeypatch):
     assert tl.apply_scheduling_priority(
         {"TPU_PROCESS_PRIORITY": "High"}) is None
     assert calls == [10]
+
+
+@pytest.mark.parametrize("case", ["exit", "timeout"])
+def test_run_local_group_fails_with_every_rank_s_output(case):
+    """A rank that exits non-zero, or a group that outlives its timeout,
+    ends the other ranks and raises with each rank's output tail; a
+    clean group returns each rank's output in rank order, each rank
+    seeing its own triple."""
+    from tpu_dra_torch.workloads.launcher import run_local_group
+    ok = run_local_group([sys.executable, "-c", "import os; print("
+                          "os.environ['JAX_PROCESS_ID'], "
+                          "os.environ['JAX_NUM_PROCESSES'])"], 2, timeout=60)
+    assert [o.split() for o in ok] == [["0", "2"], ["1", "2"]]
+    body = ("import os, sys, time; r = int(os.environ['JAX_PROCESS_ID']); "
+            "print('rank', r, flush=True); ")
+    body += ("sys.exit(3 if r else 0)" if case == "exit" else
+             "time.sleep(0 if r else 300)")
+    with pytest.raises(RuntimeError) as err:
+        run_local_group([sys.executable, "-c", body], 2,
+                        timeout=60 if case == "exit" else 5)
+    said = str(err.value)
+    assert ("rank 1 exited 3" if case == "exit" else "outlived 5") in said
+    assert "rank 0" in said and "rank 1" in said

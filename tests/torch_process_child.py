@@ -1,0 +1,240 @@
+"""One rank of the process-group tests, started n times by
+``launcher.run_local_group``: it resolves its triple, joins a gloo group
+(``RendezvousInfo.initialize``) and writes what it computed to
+``OUT/rank<r>.npz``, which the test reads back.
+
+    python tests/torch_process_child.py ring OUT DEVICE
+    python tests/torch_process_child.py mesh OUT AXES_JSON
+
+``ring``: the group ring's forward and VJP cases (:func:`ring_inputs`,
+the same global inputs on every rank) on DEVICE ("cpu": the group plain
+versions; "cuda": the kernels across processes).  ``mesh``: on a
+``ProcessMesh`` of AXES over the CPU, shard and unshard round trips,
+the refusals, and the DP×SP step of ``OUT/params.npz`` on
+``OUT/tokens.npz`` for each (ring_impl, hop_impl) of :data:`STEPS`.
+
+It imports torch and the port only (no JAX), so the cuda case runs it
+on a card machine as it is.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# (m, K, N) of the gather cases: odd m (the unidirectional ring) and even
+# m (bidirectional where n > 2); the reduce-scatter's m
+AG_CASES = {"odd": (3, 16, 8), "even": (4, 16, 8)}
+RS_CASE = (4, 16, 8)
+SHIFT_SHAPE = (2, 3, 8)
+STEPS = [("flash", "pallas"), ("flash", "xla"), ("xla", "xla")]
+LR = 1.0
+# the ring attention engines' cases: (engine, hop_impl, kv heads)
+ATTN_CASES = [(e, h, kv) for e in ("xla", "flash") for h in ("xla", "pallas")
+              for kv in (2, 1)]
+
+
+def bf16(seed: int, shape) -> torch.Tensor:
+    x = np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def ring_inputs(n: int) -> dict:
+    """The global inputs, ``[n, ...]`` with rank r's own at ``[r]``."""
+    out = {}
+    for name, (m, K, N) in AG_CASES.items():
+        out[f"ag_{name}_x"] = bf16(10 + m, (n, m, K))
+        out[f"ag_{name}_w"] = bf16(20 + m, (n, K, N))
+        out[f"ag_{name}_cot"] = bf16(30 + m, (n, n * m, N))
+    m, K, N = RS_CASE
+    out["rs_x"] = bf16(40, (n, n * m, K))
+    out["rs_w"] = bf16(41, (n, K, N))
+    out["rs_cot"] = bf16(42, (n, m, N))
+    out["shift_x"] = bf16(50, (n, *SHIFT_SHAPE))
+    out["shift_cot"] = bf16(51, (n, *SHIFT_SHAPE))
+    return out
+
+
+def attn_inputs(kv_heads: int) -> list:
+    """Global bf16 q [4, 2, 16, 8] and k, v [4, kv_heads, 16, 8]."""
+    return [bf16(60 + i, (4, 2 if i == 0 else kv_heads, 16, 8))
+            for i in range(3)]
+
+
+def _join():
+    from tpu_dra_torch.workloads.launcher import resolve
+    torch.set_num_threads(1)
+    resolve().initialize("gloo")
+
+
+def _save(out: Path, rank: int, results: dict) -> None:
+    np.savez(out / f"rank{rank}.npz", **{
+        k: v.detach().float().cpu().numpy() if torch.is_tensor(v)
+        else np.asarray(v) for k, v in results.items()})
+
+
+def ring_main(out: Path, device: str) -> None:
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    _join()
+    ring = cm.ProcessRing()
+    n, r = ring.n, ring.rank
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g = {k: v[r].to(dev) for k, v in ring_inputs(n).items()}
+    counters = (cm.all_gather_matmul, cm.matmul_reduce_scatter,
+                cm.ring_shift)
+    for fn in counters:
+        fn.launches = 0
+    res = {}
+    for name in AG_CASES:
+        y, a = ring.all_gather_matmul(g[f"ag_{name}_x"], g[f"ag_{name}_w"])
+        x = g[f"ag_{name}_x"].clone().requires_grad_()
+        w = g[f"ag_{name}_w"].clone().requires_grad_()
+        yy = cm.ProcessAllGatherMatmul.apply(ring, x, w)
+        dx, dw = torch.autograd.grad(yy, (x, w), g[f"ag_{name}_cot"])
+        res.update({f"ag_{name}_y": y, f"ag_{name}_a": a,
+                    f"ag_{name}_dx": dx, f"ag_{name}_dw": dw,
+                    f"ag_{name}_y_fn": yy})
+    res["rs_y"] = ring.matmul_reduce_scatter(g["rs_x"], g["rs_w"])
+    x = g["rs_x"].clone().requires_grad_()
+    w = g["rs_w"].clone().requires_grad_()
+    yy = cm.ProcessMatmulReduceScatter.apply(ring, x, w)
+    res["rs_dx"], res["rs_dw"] = torch.autograd.grad(yy, (x, w),
+                                                     g["rs_cot"])
+    for reverse in (False, True):
+        tag = "left" if reverse else "right"
+        res[f"shift_{tag}"] = ring.ring_shift(g["shift_x"], reverse)
+        x = g["shift_x"].clone().float().requires_grad_()
+        (yy,) = cm.ProcessRingShift.apply(ring, reverse, False, x)
+        (res[f"shift_{tag}_dx"],) = torch.autograd.grad(
+            yy, (x,), g["shift_cot"].float())
+        res[f"shift_{tag}_plain"] = ring.ring_shift_ref(g["shift_x"],
+                                                        reverse)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        res["plain_ag_even_y"], _ = ring.all_gather_matmul_ref(
+            g["ag_even_x"], g["ag_even_w"])
+        res["plain_rs_y"] = ring.matmul_reduce_scatter_ref(g["rs_x"],
+                                                           g["rs_w"])
+    res["launches"] = np.array([fn.launches for fn in counters])
+    ring.close()
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+def _refusals(mesh, cfg) -> dict:
+    """Each strategy the process mesh does not run yet, and what it
+    raised."""
+    from tpu_dra_torch.workloads import (lora, moe, pipeline, quant,
+                                         ring_attention, train)
+    calls = {
+        "make_sharded_train_step": lambda: train.make_sharded_train_step(
+            cfg, mesh),
+        "make_optax_train_step": lambda: train.make_optax_train_step(
+            cfg, mesh, zero1=True),
+        "make_zigzag_ring_attention":
+            lambda: ring_attention.make_zigzag_ring_attention(mesh),
+        "make_ring_attention":
+            lambda: ring_attention.make_ring_attention(mesh),
+        "make_ring_attention_flash":
+            lambda: ring_attention.make_ring_attention_flash(mesh),
+        "make_pipeline_train_step":
+            lambda: pipeline.make_pipeline_train_step(cfg, mesh),
+        "make_moe_train_step": lambda: moe.make_moe_train_step(cfg, mesh),
+        "make_moe_optax_step": lambda: moe.make_moe_optax_step(
+            cfg, mesh, zero1=True),
+        "make_lora_train_step": lambda: lora.make_lora_train_step(cfg, mesh),
+        "serving_param_shardings": lambda: quant.serving_param_shardings(
+            cfg, mesh, {}),
+    }
+    said = {}
+    for name, call in calls.items():
+        try:
+            call()
+            said[name] = "ran"
+        except NotImplementedError as e:
+            said[name] = str(e)
+    return said
+
+
+def mesh_main(out: Path, axes: dict) -> None:
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads import flash, ring_attention
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
+    from tpu_dra_torch.workloads.train import ModelConfig, tree_leaves
+    _join()
+    r = dist.get_rank()
+    cuda_seen = torch.cuda.is_available
+    torch.cuda.is_available = lambda: False
+    try:
+        ProcessMesh(axes)
+        no_cuda = "built"
+    except RuntimeError as e:
+        no_cuda = str(e)
+    torch.cuda.is_available = cuda_seen
+    mesh = ProcessMesh(axes, device="cpu")
+    info = {"no_cuda": no_cuda, "coords": mesh.coords}
+    x = torch.arange(4 * 8 * 12, dtype=torch.float32).reshape(4, 8, 12)
+    specs = [(mesh.batch_axes(), "sp"), (None, "sp"),
+             (None, None, tuple(mesh.axes)), ()]
+    info["round_trips"] = [bool(torch.equal(
+        mesh.unshard(mesh.shard(x, spec), spec), x)) for spec in specs]
+    info["shard_shapes"] = [list(mesh.shard(x, spec).shape)
+                            for spec in specs]
+    cfg = ModelConfig(**json.loads((out / "cfg.json").read_text()))
+    info["refusals"] = _refusals(mesh, cfg)
+    params = convert.load_npz(out / "params.npz", "cpu")
+    with np.load(out / "tokens.npz") as data:
+        tokens = torch.from_numpy(data["tokens"])
+        targets = torch.from_numpy(data["targets"])
+    res = {}
+    ring = mesh.ring("sp")
+    spec = (mesh.batch_axes(), None, "sp", None)
+    for engine, hop_impl, kv in ATTN_CASES:
+        fn = ring_attention.ring_attention_flash_group if engine == "flash" \
+            else ring_attention.ring_attention_group
+        local = [mesh.shard(t, spec).requires_grad_()
+                 for t in attn_inputs(kv)]
+        y = fn(*local, ring, causal=True, hop_impl=hop_impl)
+        tag = f"attn_{engine}_{hop_impl}_kv{kv}"
+        res[tag] = y
+        grads = torch.autograd.grad(y.float().sum(), local)
+        for name, g in zip("qkv", grads):
+            res[f"{tag}_d{name}"] = g
+    counters = (cm.ring_shift, flash.flash_attn_fwd)
+    for ring_impl, hop_impl in STEPS:
+        step, spec = make_ring_train_step(cfg, mesh, lr=LR,
+                                          ring_impl=ring_impl,
+                                          hop_impl=hop_impl)
+        info["spec"] = list(spec)
+        new, loss = step(params, tokens, targets)
+        tag = f"{ring_impl}_{hop_impl}"
+        res[f"{tag}_loss"] = loss
+        for i, leaf in enumerate(tree_leaves(new)):
+            res[f"{tag}_leaf{i}"] = leaf
+    info["launches"] = [fn.launches for fn in counters]
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    what, out = sys.argv[1], Path(sys.argv[2])
+    if what == "ring":
+        ring_main(out, sys.argv[3])
+    else:
+        mesh_main(out, json.loads(sys.argv[3]))

@@ -1,6 +1,7 @@
 // The ring kernels for Hopper (sm_90a): all-gather-matmul,
 // matmul-reduce-scatter and the ring shift, over a ring of n ranks that
-// live on one card (a virtual mesh).
+// live on one card (a virtual mesh), or one rank a process with its
+// neighbours' buffers mapped in (a process ring).
 //
 // Replaces three TPU kernels of tpu_dra/workloads/pallas_kernels.py:
 //   * _ag_matmul_kernel (:1058), called at :1152 by _ag_matmul_call (:1137)
@@ -26,6 +27,18 @@
 // semaphores, its neighbour barrier (:1041-1047) and the RS credit
 // handshake (:1191-1210): a launch starts after the previous step's copies
 // have landed, so nothing spins on a flag.
+//
+// A process ring (the *_peer C entries, kLocal): each process launches the
+// same per-rank device code for its own rank r0 alone (G = 1, one rank in
+// the launch).  Its x, w, y, a and comm hold that rank only (rank and
+// group coordinates 0), and the copies to rank r0 +- 1 go through maps on
+// the neighbour's a or comm, which the caller allocated with
+// tpu_dra_ipc_alloc in that process and opened here with tpu_dra_ipc_open
+// (CUDA IPC).  The step order across processes is the caller's: it
+// synchronizes its stream after each step launch and meets its group at a
+// barrier, before the next step and before a call's first step.  The
+// items, the K walk and the rounding points are the virtual ring's, so
+// rank r0's outputs are byte-equal to rank r0's slice of a virtual launch.
 //
 // all-gather-matmul, per rank (reference contract, :1245): x [m, K] is the
 // rank's row shard, w [K, N] its own weight; y [n*m, N] = gather(x) . w
@@ -110,7 +123,11 @@
 //     encoded once per call.  The AG's maps are bounded to the segment's
 //     rows (a base at its first row), so TMA zero-fills and drops exactly
 //     there.  Maps go to the kernel as __grid_constant__ parameters (at
-//     most 5 maps, 640 B of the 4 KB).
+//     most 7 maps, 896 B of the 4 KB: the AG's two peer maps, the RS's one,
+//     are encoded for process rings only).
+//   * a process ring's copies: TMA stores through maps on the neighbour's
+//     IPC-mapped a or comm, the same instruction as into the virtual
+//     ring's own buffers.  The map cache's key holds the peer pointers.
 //   * host time per launch: the maps of one call are encoded at its first
 //     step and reused for the other n − 1 (the C entries keep the last
 //     call's key and maps); the shared-memory attribute and the SM count
@@ -156,8 +173,15 @@ __device__ __forceinline__ AgSegment segment(const AgStep& st, int s) {
   return s == 0 ? st.seg[0] : st.seg[1];
 }
 
-// Outer axes a map has (the rest are of size 1, read at coordinate 0)
-constexpr int kXRank = 1, kXGroup = 2, kWRank = 4, kWGroup = 8;
+// Outer axes a map has (the rest are of size 1, read at coordinate 0);
+// kLocal: a process ring's launch, one rank whose own buffers hold it alone
+// and whose copies go through the peer maps
+constexpr int kXRank = 1, kXGroup = 2, kWRank = 4, kWGroup = 8, kLocal = 16;
+
+// the rank or group coordinate c of a launch's own buffers (a, comm, y)
+__device__ __forceinline__ int own(int axes, int c) {
+  return axes & kLocal ? 0 : c;
+}
 
 // Threads that copy the AG's x tiles into a, one ring slot each in turn
 constexpr int kCopiers = 2;
@@ -193,6 +217,7 @@ struct AgParams {
   CUtensorMap src[2];   // per segment: the slot's rows in x (step 0) or a
   CUtensorMap dst[2];   // per segment: the same rows of a, for the copies
   CUtensorMap w;
+  CUtensorMap peer[2];  // kLocal: the same rows of the a the segment goes to
 };
 
 struct RsParams {
@@ -201,6 +226,7 @@ struct RsParams {
   CUtensorMap comm;     // fp32 [G, n, 2, m, N], boxes of 128 rows (loads)
   CUtensorMap out;      // the same, boxes of 64 rows (a consumer's stores)
   CUtensorMap y;        // bf16 [G, n, m, N], unswizzled 64 x 32 boxes
+  CUtensorMap peer;     // kLocal: rank r0 + 1's comm, as `out`
 };
 
 __device__ __forceinline__ Operand w_operand(const CUtensorMap* w, int axes,
@@ -211,17 +237,19 @@ __device__ __forceinline__ Operand w_operand(const CUtensorMap* w, int axes,
 __global__ void __cluster_dims__(C::kCluster, 1, 1)
 __launch_bounds__(kThreads, 1)
 ring_ag_matmul_kernel(const __grid_constant__ AgParams p,
-                      __nv_bfloat16* __restrict__ y, int G, int n, int m,
-                      int K, int N, int axes, AgStep st) {
+                      __nv_bfloat16* __restrict__ y, int r0, int ranks,
+                      int n, int m, int K, int N, int axes, AgStep st) {
   extern __shared__ __align__(16) uint8_t raw[];
   const Ring<C> ring = ring_at<C>(raw);
   init_ring(ring, releases<C>(1));              // + the stage's copier
   const int rt = row_groups(st.rows), ct = (N + C::kBN - 1) / C::kBN;
-  const int items = G * n * st.nseg * rt * ct;
+  const int items = ranks * st.nseg * rt * ct;
   const int nk = (K + kBK - 1) / kBK;
   int it = 0;                                   // stages walked
-  auto item = [&](int w) {
-    return item_at(w, G * n, n, st.nseg, rt, ct, ring.crank);
+  auto item = [&](int w) {   // a process ring's launch: rank r0 alone
+    Item t = item_at(w, ranks, n, st.nseg, rt, ct, ring.crank);
+    t.r += r0;
+    return t;
   };
 
   if (threadIdx.x < kWarpgroup) {
@@ -233,8 +261,9 @@ ring_ag_matmul_kernel(const __grid_constant__ AgParams p,
         const Item t = item(w);
         const int slot = wrap(t.r + segment(st, t.s).slot_off, n);
         const Operand a{&p.src[t.s], st.first ? 0 : slot,
-                        st.first && !(axes & kXRank) ? 0 : t.r,
-                        st.first && !(axes & kXGroup) ? 0 : t.g};
+                        st.first ? (axes & kXRank ? t.r : 0) : own(axes, t.r),
+                        st.first ? (axes & kXGroup ? t.g : 0)
+                                 : own(axes, t.g)};
         produce_tile(ring, it, nk, a, w_operand(&p.w, axes, t.r, t.g), t.m0,
                      t.n0);
       });
@@ -255,18 +284,21 @@ ring_ag_matmul_kernel(const __grid_constant__ AgParams p,
         const AgSegment sg = segment(st, t.s);
         const int slot = wrap(t.r + sg.slot_off, n);
         const bool copy = t.n0 == 0;
-        const bool own = copy && st.first, peer = copy && sg.dst != 0;
+        const bool mine = copy && st.first, peer = copy && sg.dst != 0;
         for (int kt = 0; kt < nk; ++kt, ++it) {
           if (it % kCopiers != me) continue;
           wait_full(ring, it);
           const int stg = it % C::kStages;
-          if (own)
+          if (mine)
             tma_store_5d(&p.dst[t.s], ring.a_tile(stg), kt * kBK, t.m0, slot,
-                         t.r, t.g);
-          if (peer)
+                         own(axes, t.r), own(axes, t.g));
+          if (peer && (axes & kLocal))
+            tma_store_5d(&p.peer[t.s], ring.a_tile(stg), kt * kBK, t.m0,
+                         slot, 0, 0);
+          else if (peer)
             tma_store_5d(&p.dst[t.s], ring.a_tile(stg), kt * kBK, t.m0, slot,
                          wrap(t.r + sg.dst, n), t.g);
-          if (own || peer) {
+          if (mine || peer) {
             tma_store_commit();
             tma_store_wait_read();
           }
@@ -284,7 +316,7 @@ ring_ag_matmul_kernel(const __grid_constant__ AgParams p,
       consume_tile(ring, acc, it, nk, f.c, f.lane);
       const int slot = wrap(t.r + sg.slot_off, n);
       __nv_bfloat16* yr =
-          y + (static_cast<size_t>(t.g * n + t.r) * n * m +
+          y + (static_cast<size_t>(own(axes, t.g * n + t.r)) * n * m +
                static_cast<size_t>(slot) * m + sg.row0) * N;
 #pragma unroll
       for (int j = 0; j < C::kBN / 8; ++j) {
@@ -330,17 +362,19 @@ __launch_bounds__(kThreads, 1)
 ring_matmul_rs_kernel(const __grid_constant__ RsParams p,
                       float* __restrict__ comm,    // what p.comm maps
                       __nv_bfloat16* __restrict__ y,  // what p.y maps
-                      int G, int n, int m,
+                      int r0, int ranks, int n, int m,
                       int K, int N, int axes, int t) {
   extern __shared__ __align__(16) uint8_t raw[];
   const Ring<C> ring = ring_at<C>(raw);
   init_ring(ring, releases<C>(0));
   const int rt = row_groups(m), ct = (N + C::kBN - 1) / C::kBN;
-  const int items = G * n * rt * ct;
+  const int items = ranks * rt * ct;
   const int nk = (K + kBK - 1) / kBK;
   int it = 0;
   auto item = [&](int w) {
-    return item_at(w, G * n, n, 1, rt, ct, ring.crank);
+    Item t = item_at(w, ranks, n, 1, rt, ct, ring.crank);
+    t.r += r0;
+    return t;
   };
 
   if (threadIdx.x < kWarpgroup) {
@@ -360,7 +394,8 @@ ring_matmul_rs_kernel(const __grid_constant__ RsParams p,
                      u.n0);
         for (int q = 0; q < kPieces; q += kPacked) {
           if (t > 0)                         // the partial from the left
-            produce_boxes(ring, it, Operand{&p.comm, t % 2, u.r, u.g},
+            produce_boxes(ring, it, Operand{&p.comm, t % 2, own(axes, u.r),
+                                            own(axes, u.g)},
                           u.n0 + q * kPieceCols, kPieceCols,
                           min(kPacked, kPieces - q), u.m0);
           else                               // room for the output
@@ -428,11 +463,14 @@ ring_matmul_rs_kernel(const __grid_constant__ RsParams p,
           for (int b = 0; b < kPacked && q0 + b < kPieces; ++b) {
             uint8_t* half = stage + b * C::kABytes + f.c * 64 * kRowBytes;
             const int c0 = u.n0 + (q0 + b) * kPieceCols, c1 = u.m0 + 64 * f.c;
-            if (t < n - 1)
+            if (t < n - 1 && (axes & kLocal))
+              tma_store_5d(&p.peer, half, c0, c1, (t + 1) % 2, 0, 0);
+            else if (t < n - 1)
               tma_store_5d(&p.out, half, c0, c1, (t + 1) % 2, (u.r + 1) % n,
                            u.g);
             else
-              tma_store_5d(&p.y, half, c0, c1, 0, u.r, u.g);
+              tma_store_5d(&p.y, half, c0, c1, 0, own(axes, u.r),
+                           own(axes, u.g));
           }
           tma_store_commit();
           tma_store_wait_read();
@@ -518,13 +556,18 @@ struct AgMaps {
   int axes;
 };
 
+// x, w, a as in tpu_dra_ring_ag_matmul; local: a holds one rank and
+// peer[0] / peer[1] are the a of the ranks the high (or only) and the low
+// segments go to, right and left
 cudaError_t ag_maps(AgMaps* out, const void* x, const void* w, void* a,
-                    int G, int n, int m, int K, int N, long long x_rs,
-                    long long x_gs, long long w_rs, long long w_gs,
-                    const AgStep& st) {
-  int axes = (x_rs ? kXRank : 0) | (x_gs ? kXGroup : 0);
+                    void* const* peer, int G, int n, int m, int K, int N,
+                    long long x_rs, long long x_gs, long long w_rs,
+                    long long w_gs, const AgStep& st, bool local) {
+  int axes = (x_rs ? kXRank : 0) | (x_gs ? kXGroup : 0) |
+             (local ? kLocal : 0);
   cudaError_t err = map_w(&out->first.w, &axes, w, G, n, K, N, w_rs, w_gs);
   const long long slab = static_cast<long long>(m) * K;
+  const long long nr = local ? 1 : n;           // ranks each a holds
   for (int s = 0; s < st.nseg && err == cudaSuccess; ++s) {
     const long long row0 = st.seg[s].row0;
     err = map_bf16_5d(&out->first.src[s],
@@ -534,10 +577,16 @@ cudaError_t ag_maps(AgMaps* out, const void* x, const void* w, void* a,
     if (err == cudaSuccess)
       err = map_bf16_5d(&out->first.dst[s],
                         static_cast<const __nv_bfloat16*>(a) + row0 * K,
-                        {K, st.rows, n, n, G},
-                        {K, slab, n * slab, n * n * slab}, kBM);
+                        {K, st.rows, n, nr, G},
+                        {K, slab, n * slab, n * nr * slab}, kBM);
+    if (err == cudaSuccess && local)
+      err = map_bf16_5d(&out->first.peer[s],
+                        static_cast<const __nv_bfloat16*>(peer[s]) + row0 * K,
+                        {K, st.rows, n, 1, 1}, {K, slab, n * slab, n * slab},
+                        kBM);
     out->later.src[s] = out->first.dst[s];
     out->later.dst[s] = out->first.dst[s];
+    out->later.peer[s] = out->first.peer[s];
   }
   out->later.w = out->first.w;
   out->axes = axes;
@@ -549,27 +598,33 @@ struct RsMaps {
   int axes;
 };
 
+// local: comm and y hold one rank and peer is rank r0 + 1's comm
 cudaError_t rs_maps(RsMaps* out, const void* x, const void* w,
-                    const void* comm, const void* y, int G, int n, int m,
-                    int K, int N,
-                    long long x_rs, long long x_gs, long long w_rs,
-                    long long w_gs) {
-  int axes = (x_rs ? kXRank : 0) | (x_gs ? kXGroup : 0);
+                    const void* comm, const void* peer, const void* y, int G,
+                    int n, int m, int K, int N, long long x_rs,
+                    long long x_gs, long long w_rs, long long w_gs,
+                    bool local) {
+  int axes = (x_rs ? kXRank : 0) | (x_gs ? kXGroup : 0) |
+             (local ? kLocal : 0);
   cudaError_t err = map_w(&out->params.w, &axes, w, G, n, K, N, w_rs, w_gs);
   const long long chunk = static_cast<long long>(m) * N;
+  const long long nr = local ? 1 : n;
   if (err == cudaSuccess)
     err = map_bf16_5d(&out->params.x, x,
                       {K, m, n, x_rs ? n : 1, x_gs ? G : 1},
                       {K, static_cast<long long>(m) * K, x_rs, x_gs}, kBM);
   if (err == cudaSuccess)
-    err = map_f32_5d(&out->params.comm, comm, {N, m, 2, n, G},
-                     {N, chunk, 2 * chunk, 2 * n * chunk}, kBM);
+    err = map_f32_5d(&out->params.comm, comm, {N, m, 2, nr, G},
+                     {N, chunk, 2 * chunk, 2 * nr * chunk}, kBM);
   if (err == cudaSuccess)
-    err = map_f32_5d(&out->params.out, comm, {N, m, 2, n, G},
-                     {N, chunk, 2 * chunk, 2 * n * chunk}, kBM / 2);
+    err = map_f32_5d(&out->params.out, comm, {N, m, 2, nr, G},
+                     {N, chunk, 2 * chunk, 2 * nr * chunk}, kBM / 2);
+  if (err == cudaSuccess && local)
+    err = map_f32_5d(&out->params.peer, peer, {N, m, 2, 1, 1},
+                     {N, chunk, 2 * chunk, 2 * chunk}, kBM / 2);
   if (err == cudaSuccess)
     err = map_5d(&out->params.y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y,
-                 {N, m, 1, n, G}, {N, 0, chunk, n * chunk}, kBM / 2,
+                 {N, m, 1, nr, G}, {N, 0, chunk, nr * chunk}, kBM / 2,
                  kPieceCols, CU_TENSOR_MAP_SWIZZLE_NONE);
   out->axes = axes;
   return err;
@@ -586,6 +641,95 @@ cudaError_t setup(Kernel kernel, long long items, int* blocks) {
   return err;
 }
 
+// One AG step over ranks r0 .. r0 + ranks - 1 (every rank of the virtual
+// ring, or a process ring's own rank: local)
+int ag_launch(const void* x, const void* w, void* y, void* a,
+              void* const* peer, int G, int n, int r0, int ranks, int m,
+              int K, int N, long long x_rs, long long x_gs, long long w_rs,
+              long long w_gs, int step, int bidir, bool local,
+              void* stream) {
+  if (bad_gemm(G, n, m, N, K) || step < 0 || step >= n ||
+      (bidir && (m % 2 || n <= 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AgStep st = ag_step(n, m, step, bidir != 0);
+  static MapCache<20, AgMaps> cache;
+  const long long key[20] = {
+      reinterpret_cast<long long>(x), reinterpret_cast<long long>(w),
+      reinterpret_cast<long long>(a),
+      local ? reinterpret_cast<long long>(peer[0]) : 0,
+      local ? reinterpret_cast<long long>(peer[1]) : 0,
+      G, n, m, K, N, x_rs, x_gs, w_rs, w_gs, bidir, local, 0, 0, 0, 0};
+  AgParams params;
+  int axes;
+  {
+    std::lock_guard<std::mutex> lock(cache.mu);
+    if (!cache.valid || std::memcmp(cache.key, key, sizeof key) != 0) {
+      cache.valid = false;
+      const cudaError_t err = ag_maps(&cache.maps, x, w, a, peer, G, n, m,
+                                      K, N, x_rs, x_gs, w_rs, w_gs, st,
+                                      local);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      std::memcpy(cache.key, key, sizeof key);
+      cache.valid = true;
+    }
+    params = st.first ? cache.maps.first : cache.maps.later;
+    axes = cache.maps.axes;
+  }
+  const long long items = static_cast<long long>(ranks) * st.nseg *
+                          row_groups(st.rows) * ((N + C::kBN - 1) / C::kBN);
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks;
+  cudaError_t err = setup(ring_ag_matmul_kernel, items, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_ag_matmul_kernel<<<blocks, kThreads, C::kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      params, static_cast<__nv_bfloat16*>(y), r0, ranks, n, m, K, N, axes,
+      st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One RS step over ranks r0 .. r0 + ranks - 1, as ag_launch
+int rs_launch(const void* x, const void* w, void* comm, const void* peer,
+              void* y, int G, int n, int r0, int ranks, int m, int K, int N,
+              long long x_rs, long long x_gs, long long w_rs, long long w_gs,
+              int step, bool local, void* stream) {
+  if (bad_gemm(G, n, m, N, K) || step < 0 || step >= n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static MapCache<16, RsMaps> cache;
+  const long long key[16] = {
+      reinterpret_cast<long long>(x), reinterpret_cast<long long>(w),
+      reinterpret_cast<long long>(comm), reinterpret_cast<long long>(y),
+      local ? reinterpret_cast<long long>(peer) : 0, G, n, m, K, N, x_rs,
+      x_gs, w_rs, w_gs, local, 0};
+  RsParams params;
+  int axes;
+  {
+    std::lock_guard<std::mutex> lock(cache.mu);
+    if (!cache.valid || std::memcmp(cache.key, key, sizeof key) != 0) {
+      cache.valid = false;
+      const cudaError_t err = rs_maps(&cache.maps, x, w, comm, peer, y, G, n,
+                                      m, K, N, x_rs, x_gs, w_rs, w_gs,
+                                      local);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      std::memcpy(cache.key, key, sizeof key);
+      cache.valid = true;
+    }
+    params = cache.maps.params;
+    axes = cache.maps.axes;
+  }
+  const long long items = static_cast<long long>(ranks) * row_groups(m) *
+                          ((N + C::kBN - 1) / C::kBN);
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks;
+  cudaError_t err = setup(ring_matmul_rs_kernel, items, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_matmul_rs_kernel<<<blocks, kThreads, C::kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      params, static_cast<float*>(comm), static_cast<__nv_bfloat16*>(y), r0,
+      ranks, n, m, K, N, axes, step);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches one kernel on
@@ -598,40 +742,25 @@ extern "C" int tpu_dra_ring_ag_matmul(const void* x, const void* w, void* y,
                                       int N, long long x_rs, long long x_gs,
                                       long long w_rs, long long w_gs,
                                       int step, int bidir, void* stream) {
-  if (bad_gemm(G, n, m, N, K) || step < 0 || step >= n ||
-      (bidir && (m % 2 || n <= 2)))
+  void* const none[2] = {nullptr, nullptr};
+  return ag_launch(x, w, y, a, none, G, n, 0, G * n, m, K, N, x_rs, x_gs,
+                   w_rs, w_gs, step, bidir, false, stream);
+}
+
+// Step `step` of a process ring's all-gather-matmul for its rank r of n:
+// x [m, K] and w [K, N] this rank's, y [n*m, N], a [n, m, K] this
+// process's gathered operand, a_right and a_left the a of ranks r + 1 and
+// r - 1 (IPC-mapped; a_left is written only by the bidirectional ring)
+extern "C" int tpu_dra_ring_ag_matmul_peer(const void* x, const void* w,
+                                           void* y, void* a, void* a_right,
+                                           void* a_left, int r, int n, int m,
+                                           int K, int N, int step, int bidir,
+                                           void* stream) {
+  if (r < 0 || r >= n || a_right == nullptr || (bidir && a_left == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const AgStep st = ag_step(n, m, step, bidir != 0);
-  static MapCache<16, AgMaps> cache;
-  const long long key[16] = {
-      reinterpret_cast<long long>(x), reinterpret_cast<long long>(w),
-      reinterpret_cast<long long>(a), G, n, m, K, N, x_rs, x_gs, w_rs, w_gs,
-      bidir, 0, 0, 0};
-  AgParams params;
-  int axes;
-  {
-    std::lock_guard<std::mutex> lock(cache.mu);
-    if (!cache.valid || std::memcmp(cache.key, key, sizeof key) != 0) {
-      cache.valid = false;
-      const cudaError_t err = ag_maps(&cache.maps, x, w, a, G, n, m, K, N,
-                                      x_rs, x_gs, w_rs, w_gs, st);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      std::memcpy(cache.key, key, sizeof key);
-      cache.valid = true;
-    }
-    params = st.first ? cache.maps.first : cache.maps.later;
-    axes = cache.maps.axes;
-  }
-  const long long items = static_cast<long long>(G) * n * st.nseg *
-                          row_groups(st.rows) * ((N + C::kBN - 1) / C::kBN);
-  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  int blocks;
-  cudaError_t err = setup(ring_ag_matmul_kernel, items, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ring_ag_matmul_kernel<<<blocks, kThreads, C::kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      params, static_cast<__nv_bfloat16*>(y), G, n, m, K, N, axes, st);
-  return static_cast<int>(cudaGetLastError());
+  void* const peer[2] = {a_right, bidir ? a_left : a_right};
+  return ag_launch(x, w, y, a, peer, 1, n, r, 1, m, K, N, 0, 0, 0, 0, step,
+                   bidir, true, stream);
 }
 
 // Step `step` of the matmul-reduce-scatter; comm is fp32 scratch
@@ -642,43 +771,74 @@ extern "C" int tpu_dra_ring_matmul_rs(const void* x, const void* w,
                                       long long x_gs, long long w_rs,
                                       long long w_gs, int step,
                                       void* stream) {
-  if (bad_gemm(G, n, m, N, K) || step < 0 || step >= n)
+  return rs_launch(x, w, comm, nullptr, y, G, n, 0, G * n, m, K, N, x_rs,
+                   x_gs, w_rs, w_gs, step, false, stream);
+}
+
+// Step `step` of a process ring's matmul-reduce-scatter for its rank r of
+// n: x [n*m, K], w [K, N], y [m, N], comm this process's fp32 [2, m, N]
+// and comm_right rank r + 1's (IPC-mapped)
+extern "C" int tpu_dra_ring_matmul_rs_peer(const void* x, const void* w,
+                                           void* comm, void* comm_right,
+                                           void* y, int r, int n, int m,
+                                           int K, int N, int step,
+                                           void* stream) {
+  if (r < 0 || r >= n || comm_right == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  static MapCache<13, RsMaps> cache;
-  const long long key[13] = {
-      reinterpret_cast<long long>(x), reinterpret_cast<long long>(w),
-      reinterpret_cast<long long>(comm), reinterpret_cast<long long>(y), G,
-      n, m, K, N, x_rs, x_gs, w_rs, w_gs};
-  RsParams params;
-  int axes;
-  {
-    std::lock_guard<std::mutex> lock(cache.mu);
-    if (!cache.valid || std::memcmp(cache.key, key, sizeof key) != 0) {
-      cache.valid = false;
-      const cudaError_t err = rs_maps(&cache.maps, x, w, comm, y, G, n, m,
-                                      K, N, x_rs, x_gs, w_rs, w_gs);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      std::memcpy(cache.key, key, sizeof key);
-      cache.valid = true;
-    }
-    params = cache.maps.params;
-    axes = cache.maps.axes;
-  }
-  const long long items = static_cast<long long>(G) * n * row_groups(m) *
-                          ((N + C::kBN - 1) / C::kBN);
-  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  int blocks;
-  cudaError_t err = setup(ring_matmul_rs_kernel, items, &blocks);
+  return rs_launch(x, w, comm, comm_right, y, 1, n, r, 1, m, K, N, 0, 0, 0,
+                   0, step, true, stream);
+}
+
+// A process ring's buffer that its neighbours write into: `bytes` of
+// device memory from cudaMalloc (the base of its own allocation, as
+// cudaIpcGetMemHandle wants) and its 64-byte IPC handle
+extern "C" int tpu_dra_ipc_alloc(long long bytes, void** ptr,
+                                 char* handle) {
+  if (bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMalloc(ptr, static_cast<size_t>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ring_matmul_rs_kernel<<<blocks, kThreads, C::kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      params, static_cast<float*>(comm), static_cast<__nv_bfloat16*>(y), G,
-      n, m, K, N, axes, step);
-  return static_cast<int>(cudaGetLastError());
+  cudaIpcMemHandle_t h;
+  err = cudaIpcGetMemHandle(&h, *ptr);
+  if (err != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+    return static_cast<int>(err);
+  }
+  static_assert(sizeof h == 64, "a CUDA IPC handle is 64 bytes");
+  std::memcpy(handle, &h, sizeof h);
+  return 0;
+}
+
+// Map another process's buffer from its handle (not this process's own:
+// CUDA refuses that); peer access across cards is enabled lazily
+extern "C" int tpu_dra_ipc_open(const char* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof h);
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int tpu_dra_ipc_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+extern "C" int tpu_dra_ipc_free(void* ptr) {
+  return static_cast<int>(cudaFree(ptr));
+}
+
+// `bytes` from src to dst on `stream` (a process ring's results out of its
+// buffer into tensors the caller owns)
+extern "C" int tpu_dra_ipc_copy(void* dst, const void* src, long long bytes,
+                                void* stream) {
+  return static_cast<int>(cudaMemcpyAsync(
+      dst, src, static_cast<size_t>(bytes), cudaMemcpyDeviceToDevice,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // out[g, (r + dir) mod n] = x[g, r] for blocks of `bytes` bytes, x and out
-// contiguous [G, n, bytes]; dir is +1 or -1
+// contiguous [G, n, bytes]; dir is +1 or -1.  A process ring's shift is
+// G = n = 1 with out the neighbour's IPC-mapped buffer: one rank's block
+// copied there
 extern "C" int tpu_dra_ring_shift(const void* x, void* out, int G, int n,
                                   long long bytes, int dir, void* stream) {
   if (G <= 0 || n <= 0 || bytes <= 0 || (dir != 1 && dir != -1) ||

@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _ERR = (ctypes.c_char_p, [_I])
 # name → {C function: (restype, argtypes)}
 SIGNATURES = {
@@ -93,6 +94,19 @@ SIGNATURES = {
         "tpu_dra_ring_shift": (
             _I, [_P, _P, _I, _I, _L, _I,           # x out G n bytes dir
                  _P]),                             # stream
+        "tpu_dra_ring_ag_matmul_peer": (
+            _I, [_P, _P, _P, _P, _P, _P,           # x w y a a_right a_left
+                 _I, _I, _I, _I, _I,               # r n m K N
+                 _I, _I, _P]),                     # step bidir stream
+        "tpu_dra_ring_matmul_rs_peer": (
+            _I, [_P, _P, _P, _P, _P,               # x w comm comm_right y
+                 _I, _I, _I, _I, _I,               # r n m K N
+                 _I, _P]),                         # step stream
+        "tpu_dra_ipc_alloc": (_I, [_L, _PP, ctypes.c_char_p]),
+        "tpu_dra_ipc_open": (_I, [ctypes.c_char_p, _PP]),
+        "tpu_dra_ipc_close": (_I, [_P]),
+        "tpu_dra_ipc_free": (_I, [_P]),
+        "tpu_dra_ipc_copy": (_I, [_P, _P, _L, _P]),   # dst src bytes stream
         "tpu_dra_cuda_error_string": _ERR,
     },
 }

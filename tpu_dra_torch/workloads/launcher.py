@@ -37,7 +37,10 @@ overrides; ``POD_IP`` names this process) into a :class:`RendezvousInfo`
 under the reference's names, since the driver that writes them is the
 same; :meth:`RendezvousInfo.initialize` applies the contracts above and
 calls ``torch.distributed.init_process_group`` where the reference calls
-``jax.distributed.initialize``.
+``jax.distributed.initialize``.  :func:`run_local_group` starts a command
+as the n ranks of one group on this host through that rendezvous (the
+port's own: one process a rank on one machine, several of them sharing
+one card over gloo).
 """
 
 from __future__ import annotations
@@ -641,3 +644,75 @@ def _resolve(env: dict[str, str]) -> RendezvousInfo:
             f"unreachable)")
     info.domain_uid = domain_uid
     return info
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_local_group(argv: list, n: int, *, timeout: float,
+                    env: Optional[dict[str, str]] = None,
+                    cwd: Optional[str] = None) -> list[str]:
+    """Start ``argv`` as the ``n`` ranks of one process group on this
+    host and wait for all of them; return each rank's output (stdout and
+    stderr together), in rank order.
+
+    Each rank finds its triple through :func:`resolve`: the explicit
+    ``JAX_COORDINATOR_ADDRESS`` (127.0.0.1 on a free port),
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``, which it then joins
+    with ``RendezvousInfo.initialize(backend)``; the rest of the
+    environment is ``env`` (default: this process's) without the
+    ``TPU_``, ``JAX_``, ``SLICE_`` and ``MEGASCALE_`` variables.  A rank
+    that exits non-zero, or a group that outlives ``timeout`` seconds,
+    ends every other rank and raises ``RuntimeError`` with each rank's
+    output tail: no rank's failure goes unnoticed."""
+    import subprocess
+    import tempfile
+    import time
+    base = {k: v for k, v in (os.environ if env is None else env).items()
+            if not k.startswith(("TPU_", "JAX_", "SLICE_", "MEGASCALE_"))}
+    address = f"127.0.0.1:{_free_port()}"
+    with tempfile.TemporaryDirectory(prefix="local-group-") as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(n)]
+        procs = [subprocess.Popen(
+            argv, cwd=cwd, stdout=logs[r], stderr=subprocess.STDOUT,
+            env=dict(base, JAX_COORDINATOR_ADDRESS=address,
+                     JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(r)))
+            for r in range(n)]
+        deadline = time.monotonic() + timeout
+        failed = ""
+        try:
+            while any(p.poll() is None for p in procs):
+                bad = [r for r, p in enumerate(procs)
+                       if p.returncode not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                    break
+                if time.monotonic() > deadline:
+                    failed = f"the group outlived {timeout} s"
+                    break
+                time.sleep(0.05)
+            bad = [r for r, p in enumerate(procs) if p.returncode not in
+                   (None, 0)]
+            if not failed and bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    if failed:
+        tails = "\n".join(f"--- rank {r} (exit {p.returncode}):\n"
+                          f"{out[-3000:]}"
+                          for r, (p, out) in enumerate(zip(procs, outs)))
+        raise RuntimeError(f"local group of {n}: {failed}\n{tails}")
+    return outs

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from tpu_dra_torch.workloads.mesh import refuse_process_mesh
 from tpu_dra_torch.workloads.optim import AdamW
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
@@ -132,6 +133,7 @@ def make_lora_train_step(cfg: ModelConfig, mesh=None,
     ``{"params": train.param_shardings, "batch": train.batch_sharding,
     "lora": lora_shardings over the mesh}``; ``mesh=None`` is the one
     device, where ``shardings`` is None."""
+    refuse_process_mesh(mesh, "make_lora_train_step")
     from tpu_dra_torch.workloads.train import batch_sharding, param_shardings
     lcfg = lcfg or LoRAConfig()
     if optimizer is None:

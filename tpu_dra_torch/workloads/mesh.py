@@ -24,6 +24,16 @@ One process and a rank axis mirror JAX's single-controller ``shard_map``:
 the same code runs on the CPU in the tests and on the card, where one
 kernel launch serves every rank.  It does not show that ring traffic
 overlaps the compute; only several cards can.
+
+:class:`ProcessMesh` is the other form: one process a rank, over a
+``torch.distributed`` group (``launcher.RendezvousInfo.initialize``), the
+reference's per-device ``shard_map`` bodies run as they are, each
+process holding its own shard unstacked.  Its collectives are the group's
+(:func:`group_all_reduce`, :func:`group_all_gather`,
+:func:`group_sendrecv`), staged through host memory where the group is
+gloo, which takes host tensors: gloo serves the CPU and several
+processes that share one card, where NCCL refuses two ranks.  The ring
+kernels across processes are ``collective_matmul.ProcessRing``'s.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from tpu_dra_torch.device import resolve_device
 
@@ -42,19 +53,14 @@ def axes_of(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-class Mesh:
-    """Named axes of ranks on one device: ``Mesh({"dp": 1, "tp": 4})``.
+class _Axes:
+    """What both meshes share: named axes of ranks, their specs and the
+    device the mesh runs on."""
 
-    ``device`` defaults to the card (``resolve_device``: ``cuda:0``, or
-    ``RuntimeError`` without CUDA); the tests pass ``device="cpu"``.  The
-    steps and attention functions built on a mesh run on its device, and
-    :meth:`check_device` refuses inputs that lie anywhere else."""
-
-    def __init__(self, axes: dict, device=None):
+    def _set_axes(self, axes: dict) -> None:
         self.axes = {str(k): int(v) for k, v in dict(axes).items()}
         if not self.axes or any(v < 1 for v in self.axes.values()):
             raise ValueError(f"a mesh needs axes of size >= 1, got {axes}")
-        self.device = resolve_device(device)
 
     @property
     def axis_names(self) -> tuple:
@@ -89,17 +95,6 @@ class Mesh:
                 raise ValueError(f"the mesh runs on {self.device}; got an "
                                  f"input on {t.device}")
 
-    def ring_groups(self, axis: str) -> tuple:
-        """``(G, n)`` of a ring over ``axis``, which must be the mesh's
-        last axis: a stacked tensor then reshapes to ``[G, n, ...]``, the
-        other axes' ranks as G groups of one ring each (the layout of the
-        ring kernels)."""
-        if self.axis_names[-1] != axis:
-            raise ValueError(f"a ring runs over the mesh's last axis; mesh "
-                             f"{self.axes} does not end with {axis!r}")
-        n = self.axes[axis]
-        return self.size // n, n
-
     def _spec(self, spec, ndim: int) -> tuple:
         spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
         if len(spec) != ndim:
@@ -120,6 +115,52 @@ class Mesh:
         spec = self._spec(spec, len(shape))
         return tuple(size // math.prod(self.axes[a] for a in axes_of(e))
                      for size, e in zip(shape, spec))
+
+    def _unstack(self, t, spec):
+        """Stacked ``t`` ``[*mesh.shape, *shard]`` → the global tensor:
+        over an axis the spec does not name, every rank holds the same
+        shard and rank 0's is taken."""
+        n_mesh = len(self.axes)
+        if tuple(t.shape[:n_mesh]) != self.shape:
+            raise ValueError(f"stacked tensor {tuple(t.shape)} does not "
+                             f"lead with the mesh shape {self.shape}")
+        spec = self._spec(spec, t.dim() - n_mesh)
+        named = {a for e in spec for a in axes_of(e)}
+        for i in reversed(range(n_mesh)):
+            if self.axis_names[i] not in named:
+                t = t.select(i, 0)
+        kept = [a for a in self.axes if a in named]
+        perm, shape = [], []
+        for d, entry in enumerate(spec):
+            axes = axes_of(entry)
+            perm += [kept.index(a) for a in axes] + [len(kept) + d]
+            shape.append(t.shape[len(kept) + d]
+                         * math.prod(self.axes[a] for a in axes))
+        return t.permute(perm).reshape(shape)
+
+
+class Mesh(_Axes):
+    """Named axes of ranks on one device: ``Mesh({"dp": 1, "tp": 4})``.
+
+    ``device`` defaults to the card (``resolve_device``: ``cuda:0``, or
+    ``RuntimeError`` without CUDA); the tests pass ``device="cpu"``.  The
+    steps and attention functions built on a mesh run on its device, and
+    :meth:`check_device` refuses inputs that lie anywhere else."""
+
+    def __init__(self, axes: dict, device=None):
+        self._set_axes(axes)
+        self.device = resolve_device(device)
+
+    def ring_groups(self, axis: str) -> tuple:
+        """``(G, n)`` of a ring over ``axis``, which must be the mesh's
+        last axis: a stacked tensor then reshapes to ``[G, n, ...]``, the
+        other axes' ranks as G groups of one ring each (the layout of the
+        ring kernels)."""
+        if self.axis_names[-1] != axis:
+            raise ValueError(f"a ring runs over the mesh's last axis; mesh "
+                             f"{self.axes} does not end with {axis!r}")
+        n = self.axes[axis]
+        return self.size // n, n
 
     def shard(self, x, spec):
         """Global ``x`` → stacked ``[*mesh.shape, *shard]``: dimension d
@@ -174,23 +215,7 @@ class Mesh:
         """Stacked ``t`` → the global tensor: the inverse of :meth:`shard`.
         Over an axis the spec does not name, every rank holds the same
         shard and rank 0's is taken."""
-        n_mesh = len(self.axes)
-        if tuple(t.shape[:n_mesh]) != self.shape:
-            raise ValueError(f"stacked tensor {tuple(t.shape)} does not "
-                             f"lead with the mesh shape {self.shape}")
-        spec = self._spec(spec, t.dim() - n_mesh)
-        named = {a for e in spec for a in axes_of(e)}
-        for i in reversed(range(n_mesh)):
-            if self.axis_names[i] not in named:
-                t = t.select(i, 0)
-        kept = [a for a in self.axes if a in named]
-        perm, shape = [], []
-        for d, entry in enumerate(spec):
-            axes = axes_of(entry)
-            perm += [kept.index(a) for a in axes] + [len(kept) + d]
-            shape.append(t.shape[len(kept) + d]
-                         * math.prod(self.axes[a] for a in axes))
-        return t.permute(perm).reshape(shape)
+        return self._unstack(t, spec)
 
 
 # --------------------------------------------------------------------------
@@ -239,3 +264,201 @@ def ppermute(x, dim: int, shift: int):
     """Rank r's shard moves to rank r + shift (mod n): ``lax.ppermute``
     with ``perm=[(i, (i + shift) % n)]``."""
     return torch.roll(x, shifts=shift, dims=dim)
+
+
+# --------------------------------------------------------------------------
+# A mesh whose ranks are processes
+# --------------------------------------------------------------------------
+
+
+def _global(group, r: int) -> int:
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def _host(x, group) -> bool:
+    """Whether a collective of ``group`` needs ``x`` staged through host
+    memory: gloo takes host tensors."""
+    return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+
+def group_all_reduce(x, group=None):
+    """The sum of ``x`` over the group's processes, a new tensor on x's
+    device (every process gets the same bits)."""
+    buf = x.detach().to("cpu", copy=True) if _host(x, group) \
+        else x.detach().clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(x.device)
+
+
+def group_all_gather(x, group=None) -> list:
+    """Every process's ``x``, in group rank order, on x's device."""
+    src = x.detach().to("cpu") if _host(x, group) else x.detach()
+    src = src.contiguous()
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, src, group=group)
+    return [t.to(x.device) for t in out]
+
+
+def group_sendrecv(x, to: int, frm: int, group=None):
+    """Send ``x`` to group rank ``to`` and return the tensor like it that
+    group rank ``frm`` sends (``lax.ppermute``'s one pair per process)."""
+    src = x.detach().to("cpu") if _host(x, group) else x.detach()
+    src = src.contiguous()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, _global(group, to), group),
+           dist.P2POp(dist.irecv, out, _global(group, frm), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out.to(x.device)
+
+
+class GroupSum(torch.autograd.Function):
+    """:func:`group_all_reduce`, differentiable: its cotangent is summed
+    over the group too (the reference's psum under ``shard_map``, whose
+    transpose is a psum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_all_reduce(g, ctx.group), None
+
+
+def process_device(device, rank: int) -> torch.device:
+    """The device of a process mesh's rank: ``None`` means its card,
+    ``cuda:{rank % device_count}`` (on one card every rank shares
+    ``cuda:0``), or ``RuntimeError`` without CUDA; the CPU only when
+    asked (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run a process "
+                "mesh's plain PyTorch path on the CPU")
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return resolve_device(device)
+
+
+class ProcessMesh(_Axes):
+    """Named axes of ranks that are processes: ``ProcessMesh({"dp": 2,
+    "sp": 2})`` over the ``torch.distributed`` group ``group`` (default:
+    the whole default group), whose size must be the mesh's.  Group rank
+    r sits at the row-major coordinates of r over the axes, the
+    reference's device order.  Every process of the default group makes
+    the mesh together: it builds one sub-group per line of each axis (a
+    ring, or a batch group), as ``dist.new_group`` asks.
+
+    Each process holds its own shard: :meth:`shard` cuts a global tensor
+    (the same on every process, built from one seed) down to it,
+    :meth:`unshard` gathers the shards back, :meth:`psum` sums over named
+    axes, :meth:`ring` is the ring kernels over an axis
+    (``collective_matmul.ProcessRing``).  ``device``: see
+    :func:`process_device`.  :meth:`close` releases the rings' peer
+    buffers; every process calls it together."""
+
+    def __init__(self, axes: dict, group=None, device=None):
+        self._set_axes(axes)
+        if not dist.is_initialized():
+            raise RuntimeError("a ProcessMesh needs torch.distributed "
+                               "initialized (launcher.RendezvousInfo."
+                               "initialize)")
+        self.group = group
+        if dist.get_world_size(group) != self.size:
+            raise ValueError(f"mesh {self.axes} has {self.size} ranks, its "
+                             f"group {dist.get_world_size(group)} processes")
+        self.rank = dist.get_rank(group)
+        self.coords, rest = {}, self.rank
+        for name in reversed(self.axis_names):
+            rest, self.coords[name] = divmod(rest, self.axes[name])
+        self.device = process_device(device, _global(group, self.rank))
+        self._lines, self._rings = {}, {}
+        for name in self.axis_names:
+            self._lines[name] = self._new_lines(name)
+
+    def _new_lines(self, name: str):
+        """The sub-group of this process's line along axis ``name`` (the
+        ranks whose other coordinates are this one's), made with every
+        other line so that each process calls ``dist.new_group`` for
+        each, in the same order."""
+        if self.axes[name] == self.size:
+            return self.group
+        strides = {}
+        step = 1
+        for a in reversed(self.axis_names):
+            strides[a] = step
+            step *= self.axes[a]
+        mine = None
+        for base in range(self.size):
+            if (base // strides[name]) % self.axes[name]:
+                continue          # not the first rank of its line
+            ranks = [base + i * strides[name]
+                     for i in range(self.axes[name])]
+            g = dist.new_group([_global(self.group, r) for r in ranks])
+            if self.rank in ranks:
+                mine = g
+        return mine
+
+    def axis_index(self, name: str) -> int:
+        """This process's coordinate on axis ``name``
+        (``lax.axis_index``)."""
+        return self.coords[name]
+
+    def shard(self, x, spec):
+        """Global ``x`` → this process's shard, a contiguous copy:
+        dimension d is cut over the axes ``spec[d]`` names (the first
+        outermost), as :meth:`Mesh.shard` cuts rank ``coords``'s."""
+        spec = self._spec(spec, x.dim())
+        for d, entry in enumerate(spec):
+            axes = axes_of(entry)
+            parts = math.prod(self.axes[a] for a in axes)
+            if x.shape[d] % parts:
+                raise ValueError(f"dimension of size {x.shape[d]} does not "
+                                 f"split evenly over {axes} ({parts} ranks)")
+            idx = 0
+            for a in axes:
+                idx = idx * self.axes[a] + self.coords[a]
+            size = x.shape[d] // parts
+            x = x.narrow(d, idx * size, size)
+        return x.contiguous()
+
+    def unshard(self, t, spec):
+        """This process's shard ``t`` → the global tensor, gathered from
+        every process (the inverse of :meth:`shard`)."""
+        parts = group_all_gather(t, self.group)
+        return self._unstack(torch.stack(parts).reshape(*self.shape,
+                                                        *t.shape), spec)
+
+    def psum(self, x, axes=None):
+        """The sum of ``x`` over the processes of the named ``axes``
+        (default: all), on every one of them; differentiable, its
+        cotangent summed the same way (:class:`GroupSum`)."""
+        names = self.axis_names if axes is None else tuple(axes_of(axes))
+        groups = [self.group] if set(names) == set(self.axes) else \
+            [self._lines[a] for a in names]
+        for g in groups:
+            x = GroupSum.apply(x, g)
+        return x
+
+    def ring(self, axis: str):
+        """The ring kernels over this process's line along ``axis``
+        (``collective_matmul.ProcessRing``; one per axis, kept)."""
+        if axis not in self._rings:
+            from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+            self._rings[axis] = ProcessRing(self._lines[axis])
+        return self._rings[axis]
+
+    def close(self) -> None:
+        """Release every ring's peer buffers (collective)."""
+        for ring in self._rings.values():
+            ring.close()
+
+
+def refuse_process_mesh(mesh, what: str) -> None:
+    """``NotImplementedError`` for ``what`` given a :class:`ProcessMesh`:
+    it runs on the virtual :class:`Mesh` only so far."""
+    if isinstance(mesh, ProcessMesh):
+        raise NotImplementedError(
+            f"{what} runs on a virtual Mesh only: on a ProcessMesh (one "
+            f"process a rank) it is not ported yet (ROADMAP.md §2, item 1)")

@@ -39,7 +39,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from tpu_dra_torch.workloads.mesh import psum
+from tpu_dra_torch.workloads.mesh import psum, refuse_process_mesh
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _attn_sublayer,
@@ -346,6 +346,7 @@ def make_moe_optax_step(cfg: MoEConfig, mesh=None, optimizer=None,
     specs (``train.opt_state_shardings``; ``zero1`` shards them over "dp"
     too, bit-equal to the replicated update).  ``mesh=None`` is the one
     device (no specs; ``zero1`` has no "dp" to use)."""
+    refuse_process_mesh(mesh, "make_moe_optax_step")
     from tpu_dra_torch.workloads.optim import OptStateInit, default_optimizer
     from tpu_dra_torch.workloads.train import (opt_state_shardings,
                                                param_shapes, tree_leaves)
@@ -377,6 +378,7 @@ def make_moe_train_step(cfg: MoEConfig, mesh, lr: float = 1e-2,
     ``moe.make_moe_train_step``, 285-307): ``(step, p_shard, t_shard)``
     with ``step(params, tokens) -> (params, loss)`` on the mesh's device.
     ``ValueError`` unless ``cfg.n_experts % ep == 0``."""
+    refuse_process_mesh(mesh, "make_moe_train_step")
     from tpu_dra_torch.workloads.train import tree_leaves, tree_unflatten
     p_shard, t_shard = _ep_mesh(cfg, mesh)
 

@@ -30,7 +30,7 @@ from typing import Any
 
 import torch
 
-from tpu_dra_torch.workloads.mesh import ppermute
+from tpu_dra_torch.workloads.mesh import ppermute, refuse_process_mesh
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _block,
@@ -127,6 +127,7 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, n_micro: int = 4,
     ``cfg.n_layers % pp == 0`` and a batch divisible by ``dp * n_micro``
     (``ValueError`` otherwise).  ``head_impl="chunked"`` streams the
     vocab in the last stage's NLL."""
+    refuse_process_mesh(mesh, "make_pipeline_train_step")
     n_stages = mesh.axis_size("pp")
     if cfg.n_layers % n_stages:
         raise ValueError(

@@ -273,7 +273,8 @@ def serving_param_shardings(cfg, mesh, params: dict) -> dict:
     specs.  An unknown dict leaf raises ``ValueError``."""
     import math
 
-    from tpu_dra_torch.workloads.mesh import axes_of
+    from tpu_dra_torch.workloads.mesh import axes_of, refuse_process_mesh
+    refuse_process_mesh(mesh, "serving_param_shardings")
     from tpu_dra_torch.workloads.train import param_shardings
 
     base = param_shardings(cfg, mesh)

@@ -22,6 +22,14 @@ What maps to what:
 - ``_sp_trunk`` (409) and ``make_ring_train_step`` (446): the DP×SP SGD
   step.
 
+On a ``mesh.ProcessMesh`` (one process a rank) the reference's
+per-device bodies run as they are: :func:`ring_attention_group` and
+:func:`ring_attention_flash_group` on this process's ``[B, H, S/n, D]``
+block, hopping through ``collective_matmul.ProcessRing`` (the shift
+kernel across processes, or the plain send and receive), and
+``make_ring_train_step`` builds the per-process step
+(:func:`_sp_trunk_group`).
+
 The engines take q, k, v in the ring layout ``[G, n, B, H, S/n, D]``: the
 ring's n ranks on dimension 1 and the data-parallel groups on dimension 0.
 Where the reference branches per device (``lax.cond`` on ``src < idx``),
@@ -35,7 +43,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_dra_torch.workloads.mesh import axes_of, ppermute, psum
+from tpu_dra_torch.workloads.mesh import (ProcessMesh, axes_of, ppermute,
+                                          psum, refuse_process_mesh)
 
 HOP_IMPLS = ("xla", "pallas")
 RING_IMPLS = ("xla", "flash")
@@ -163,11 +172,100 @@ def ring_attention_flash(q, k, v, causal: bool = True,
     return out.to(q.dtype)
 
 
+# --------------------------------------------------------------------------
+# The engines on a process ring: this process's [B, H, S, D] block
+# --------------------------------------------------------------------------
+
+
+def _group_hop(ring, hop_impl: str, *blocks):
+    """One kv hop of this process's blocks to rank r + 1 of ``ring``:
+    the shift kernel across processes (``"pallas"``) or the plain send
+    and receive (``"xla"``), k and v in one autograd node."""
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRingShift
+    return ProcessRingShift.apply(ring, False, hop_impl == "xla", *blocks)
+
+
+class _Keep(torch.autograd.Function):
+    """``out`` (a copy) that also takes blocks it does not read, whose
+    cotangent is zero: a process that folds no block at the last ring step
+    still runs the backward of every hop, as its peers do, so that the
+    group's shifts meet in the same order."""
+
+    @staticmethod
+    def forward(ctx, out, *blocks):
+        ctx.like = [(b.shape, b.dtype, b.device) for b in blocks]
+        return out.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(shape, dtype=dtype, device=dev)
+                     for shape, dtype, dev in ctx.like))
+
+
+def ring_attention_group(q, k, v, ring, causal: bool = True,
+                         hop_impl: str = "xla"):
+    """:func:`ring_attention`, the fp32 engine, as the reference's
+    per-device body (173-237) on this process's ``[B, H, S, D]`` block,
+    ``ring`` a ``collective_matmul.ProcessRing`` whose rank is the
+    block's position in the sequence.  Every step attends (future blocks
+    fully masked), so every hop's block is read."""
+    _check_hop_impl(hop_impl)
+    B, H, S, D = q.shape
+    grp = H // k.shape[1]
+    n, idx = ring.n, ring.rank
+
+    def rep(t):
+        return (t.repeat_interleave(grp, dim=1) if grp > 1 else t).float()
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+
+    def block_mask(src):
+        if not causal or src < idx:
+            return torch.ones((S, S), dtype=torch.bool, device=q.device)
+        return rows >= cols if src == idx else \
+            torch.zeros((S, S), dtype=torch.bool, device=q.device)
+    qf = q.float()
+    m = torch.full((B, H, S), _NEG, device=q.device)
+    l = torch.zeros((B, H, S), device=q.device)
+    acc = torch.zeros((B, H, S, D), device=q.device)
+    m, l, acc = _block_attn(qf, rep(k), rep(v), m, l, acc, block_mask(idx),
+                            D ** -0.5)
+    for t in range(1, n):
+        k, v = _group_hop(ring, hop_impl, k, v)
+        m, l, acc = _block_attn(qf, rep(k), rep(v), m, l, acc,
+                                block_mask((idx - t) % n), D ** -0.5)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def ring_attention_flash_group(q, k, v, ring, causal: bool = True,
+                               hop_impl: str = "xla"):
+    """:func:`ring_attention_flash` as the reference's per-device body
+    (109-160) on this process's ``[B, H, S, D]`` block: the local block
+    causal, then at step t the block from rank ``(idx − t) mod n``, folded
+    only where it precedes (t ≤ idx, the reference's ``lax.cond``) under
+    causal attention.  So rank idx launches the flash forward 1 + idx
+    times a call (n without causality); every rank hops n − 1 times."""
+    from tpu_dra_torch.workloads.flash import flash_attention_with_lse
+    _check_hop_impl(hop_impl)
+    n, idx = ring.n, ring.rank
+    out, l2 = flash_attention_with_lse(q, k, v, causal=causal)
+    for t in range(1, n):
+        k, v = _group_hop(ring, hop_impl, k, v)
+        if not causal or t <= idx:
+            ob, lb = flash_attention_with_lse(q, k, v, causal=False)
+            out, l2 = _merge_partials(out, l2, ob, lb)
+    if n > 1:
+        out = _Keep.apply(out, k, v)
+    return out.to(q.dtype)
+
+
 def _make(engine, mesh, axis_name: str, **kw):
     """``engine`` over global ``[B, H, S, D]`` q/k/v on the mesh's device,
     S cut over ``axis_name`` and the batch over :meth:`Mesh.batch_axes`:
     the reference's ``shard_map`` with ``in_specs`` = ``out_specs`` =
     ``P(batch, None, axis_name, None)``."""
+    refuse_process_mesh(mesh, "make_ring_attention and "
+                              "make_ring_attention_flash")
     G, n = mesh.ring_groups(axis_name)
     spec = (mesh.batch_axes(), None, axis_name, None)
 
@@ -340,6 +438,7 @@ def make_zigzag_ring_attention(mesh, *, axis_name: str = "sp",
     engine) or "flash" (the flash kernels); anything else raises
     ``ValueError``.  The kv hop is the plain ``mesh.ppermute``, as the
     reference's is."""
+    refuse_process_mesh(mesh, "make_zigzag_ring_attention")
     if impl not in ZIGZAG_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected 'xla' or 'flash'")
     return _make(ZIGZAG_IMPLS[impl], mesh, axis_name)
@@ -403,6 +502,73 @@ def _sp_trunk(cfg, params, tokens, ring_impl: str = "xla",
     return x.reshape(G, n, B, S, -1)
 
 
+def _sp_trunk_group(cfg, params, tokens, ring, ring_impl: str = "xla",
+                    hop_impl: str = "xla"):
+    """:func:`_sp_trunk` as the reference's per-device body (409-443) on
+    this process's ``[B, S/n]`` tokens, ``ring.rank`` its sequence
+    shard's index: ``[B, S/n, D]`` pre-final-norm activations, each block
+    rematerialized whole in the backward."""
+    from tpu_dra_torch.workloads.train import (_block, embed_rows,
+                                               layer_params, remat)
+    if ring_impl not in RING_IMPLS:
+        raise ValueError(f"unknown ring_impl {ring_impl!r}; expected 'xla' "
+                         f"or 'flash'")
+    _check_hop_impl(hop_impl)
+    B, S = tokens.shape
+    dev = tokens.device
+    x = embed_rows(params["embed"], tokens)              # [B, S, D]
+    start = ring.rank * S
+    positions = None
+    if cfg.pos_emb == "learned":
+        start = min(start, max(cfg.max_seq - S, 0))
+        rows = start + torch.arange(S, device=dev)
+        x = x + params["pos"].to(torch.bfloat16)[rows][None]
+    else:
+        positions = (start + torch.arange(S, device=dev))[None].expand(B, S)
+    engine = ring_attention_flash_group if ring_impl == "flash" else \
+        ring_attention_group
+
+    def attn(q, k, v):
+        return engine(q, k, v, ring, causal=True, hop_impl=hop_impl)
+    for i in range(cfg.n_layers):
+        x = remat(_block, cfg, x, layer_params(params["blocks"], i), attn,
+                  positions)
+    return x
+
+
+def _group_ring_train_step(cfg, mesh, lr: float, axis_name: str,
+                           ring_impl: str, hop_impl: str):
+    """The DP×SP step on a ``ProcessMesh``: the reference's
+    ``sharded_step`` (473-497) in each process."""
+    from tpu_dra_torch.workloads.train import (head_nll, tree_leaves,
+                                               tree_unflatten)
+    ring = mesh.ring(axis_name)
+    tok_spec = (mesh.batch_axes(), axis_name)
+
+    def step(params, tokens, targets):
+        mesh.check_device(tokens, targets, *tree_leaves(params))
+        tok, tgt = mesh.shard(tokens, tok_spec), mesh.shard(targets,
+                                                            tok_spec)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        live = tree_unflatten(params, leaves)
+        x = _sp_trunk_group(cfg, live, tok, ring, ring_impl, hop_impl)
+        nll = head_nll(live, x, tgt.long())
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+        loss = mesh.psum(nll.sum()) / mesh.psum(count)
+        grads = torch.autograd.grad(loss, leaves)
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        del grads
+        flat = mesh.psum(flat)
+        new, at = [], 0
+        for p in leaves:
+            g = flat[at:at + p.numel()].reshape(p.shape).to(p.dtype)
+            new.append(p.detach() - lr * g)
+            at += p.numel()
+        return tree_unflatten(params, new), loss.detach()
+
+    return step, tok_spec
+
+
 def make_ring_train_step(cfg, mesh, lr: float = 1e-2, axis_name: str = "sp",
                          ring_impl: str = "xla", hop_impl: str = "xla"):
     """The DP×SP SGD step (``ring_attention.make_ring_train_step``,
@@ -419,7 +585,18 @@ def make_ring_train_step(cfg, mesh, lr: float = 1e-2, axis_name: str = "sp",
     (486-497); the reference's psum transposes to a psum there, so its
     update carries a factor of the mesh's rank count over the gradient of
     the mean loss (4.0 on a dp × sp = 2 × 2 mesh with jax 0.9.0), and so
-    does the port's, which holds to it in the tests."""
+    does the port's, which holds to it in the tests.
+
+    On a ``mesh.ProcessMesh`` each process runs the reference's
+    per-device step: every process passes the same global tokens and
+    targets and its replica of the parameters, takes its ``(batch,
+    axis_name)`` shard, differentiates its own replica of the loss (the
+    psum of the local NLL sums, whose backward is a psum, over the psum
+    of the counts) and sums the gradients over the whole mesh (one flat
+    fp32 all-reduce), so the update carries the same factor and every
+    process ends with the same parameters.  The hops ride
+    ``ProcessRing`` (the shift kernel across processes, or the plain
+    send and receive)."""
     from tpu_dra_torch.workloads.train import (head_nll, tree_leaves,
                                                tree_unflatten)
     batch = mesh.batch_axes()
@@ -431,6 +608,9 @@ def make_ring_train_step(cfg, mesh, lr: float = 1e-2, axis_name: str = "sp",
         raise ValueError(f"unknown ring_impl {ring_impl!r}; expected 'xla' "
                          f"or 'flash'")
     _check_hop_impl(hop_impl)
+    if isinstance(mesh, ProcessMesh):
+        return _group_ring_train_step(cfg, mesh, lr, axis_name, ring_impl,
+                                      hop_impl)
     G, n = mesh.ring_groups(axis_name)
     tok_spec = (batch, axis_name)
 

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpu_dra_torch.workloads.mesh import refuse_process_mesh
 from tpu_dra_torch.workloads.quant import matmul_any
 
 
@@ -832,6 +833,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
     runs each sublayer's entry and exit matmul through the ring kernels on
     the mesh (see :func:`_trunk`; no-op on a 1-way "tp" axis).  Anything
     else raises ``ValueError``."""
+    refuse_process_mesh(mesh, "make_sharded_train_step")
     if matmul_impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown matmul_impl {matmul_impl!r}; expected "
                          f"'dense' or 'fused_collective'")
@@ -923,6 +925,7 @@ def make_optax_train_step(cfg: ModelConfig, mesh, optimizer=None,
     :func:`opt_state_shardings`, and ``zero1=True`` partitions the
     update over "dp" (bit-equal to ``zero1=False``: the global-norm clip
     still reduces over the whole gradient tree)."""
+    refuse_process_mesh(mesh, "make_optax_train_step")
     from tpu_dra_torch.workloads.optim import default_optimizer
     if matmul_impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown matmul_impl {matmul_impl!r}; expected "

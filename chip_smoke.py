@@ -24,7 +24,8 @@ engine's captured passes to the eager ones under the retrace guard, and
 runs the multi-process host side (rendezvous, collectives, elastic
 respawn) as processes on the one card; last it runs the ring kernels and
 the DP×SP ring-flash step with one process a rank on the card, each
-process's kernels writing into its neighbours' buffers through CUDA IPC.
+process's kernels writing into its neighbours' buffers through CUDA IPC,
+and the DP×TP step (fused-collective and dense) one process a rank.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -146,8 +147,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
      product on every matmul (counts), the paged run launching the paged
      attention kernel n_layers times a decode step and the slab run never;
      one decode step of each layout at 32 slots under torch.profiler, and
-     tpu_dra_torch.bench.section_decode (bf16, int8 and int4 decode
-     tokens/s; both informational);
+     tpu_dra_torch.bench.section_decode at DECODE_STEPS steps (the
+     bench's own run takes 256; bf16, int8 and int4 decode tokens/s;
+     both informational);
  17. speculative serving at full width: phase 16's model, int8, with a
      draft made by spec_draft.make_draft (2 layers distilled 150 steps at
      batch 16, seq 256 from the fp32 tree, then int8), served through
@@ -341,7 +343,13 @@ Phases (each prints as it goes; any failed check exits non-zero):
      over a worker that exits for reconfiguration while the domain grows
      from 1 member to 2: the respawned worker carries generation 2 and
      resolves a world of 2; section_collectives in this process (no
-     group) answers the reference's single-device skip.
+     group) answers the reference's single-device skip, and in two gloo
+     processes on the card (buffers of PSUM_MIB, 8 iterations) gives the
+     four bandwidths and the fused collective-matmul comparison
+     (ProcessRing's kernels against a group all-gather then a matmul and
+     a matmul then a group reduce-scatter, (m, K, N) = (1024, 2048,
+     2048) a rank, host clock, synced): the figures printed with the
+     card's name, and a collective_matmul_error fails the phase.
  26. the ring kernels and the DP×SP step across processes: 4 processes
      on the one card, started through the port's rendezvous
      (launcher.run_local_group: each resolves its triple and joins one
@@ -363,17 +371,35 @@ Phases (each prints as it goes; any failed check exits non-zero):
      1025] windows: one make_ring_train_step(ring_impl="flash") step at
      lr 1 with hop_impl="pallas" bit-equal to "xla" in every process,
      rank 0's held to the virtual mesh's step that this process took
-     first (STEP_LOSS_ATOL, STEP_LEAF_REL), then 3 SGD steps with finite,
-     falling losses and exact launches in each process: 6·(n−1)·L
+     first (STEP_LOSS_ATOL, STEP_LEAF_REL), then PROCESS_STEPS (2) SGD
+     steps with finite, falling losses and exact launches in each
+     process: 6·(n−1)·L
      shifts, 2·(idx+1)·L flash forwards and (idx+1)·L of each backward
      kernel (the reference's per-device lax.cond folds step t's block
      only where t <= idx; summed over the ranks, the virtual step's
      rank-launches); the step's time and a gloo psum of the gradients'
      size (host memory; informational).
+ 27. the DP×TP step across processes, in phase 26's group after 26b:
+     the flagship (full width and depth) on ProcessMesh({"dp": 1, "tp":
+     4}) at batch 16 on [16, 1025] windows with attn_impl="flash", each
+     process holding its shards (ProcessMesh.shard_tree).  (a) one
+     make_sharded_train_step(matmul_impl="fused_collective") step at lr
+     1 against the virtual mesh's fused step that this process took
+     first: the loss within STEP_LOSS_ATOL and each leaf's update within
+     STEP_LEAF_REL, the norms assembled from each rank's squared sums
+     psummed over the group; (b) PROCESS_STEPS SGD steps with finite,
+     falling losses and exact launches in each process: 4·L·n of each
+     ring kernel, 2·L flash forwards and L of each backward kernel a
+     step; the step time (host clock, synced), the shares spent in ring
+     calls and in the gloo collectives, and peak memory (informational);
+     (c) the dense step (matmul_impl="dense", Megatron TP with gloo
+     all-reduces) at TP_DENSE_LAYERS layers, one step at lr 1 against
+     the virtual mesh's dense step, with the same tolerances.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces; phase
 26's launches summed over its processes added to rows #3, #6, #7 and
-#9-#11); the last line is {"ok": true, "device": {...}}.
+#9-#11, and 27b's to rows #3, #6, #7, #9 and #10); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2136,8 +2162,8 @@ def train_loop(label: str, step, params, windows, counters: dict,
     times = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     step_s = statistics.median(times[1:])
     return {"launches": launches, "losses": losses, "step_ms": 1e3 * step_s,
-            "first_ms": 1e3 * times[0], "peak_gb": peak_gb,
-            "params": params}
+            "first_ms": 1e3 * times[0], "total_ms": 1e3 * sum(times),
+            "peak_gb": peak_gb, "params": params}
 
 
 def sharded_phase(gen, data_path: str) -> dict:
@@ -2408,6 +2434,22 @@ def quant_phase(gen) -> dict:
         f"rows {QUANT_ROWS}); int4 within {INT4_CARD_REL} of each output; "
         f"STE backward max error {err:.3g}, LoRA over int8 {err_lora:.3g}")
     return times
+
+
+# section_decode's steps in phase 16: its host-bound decodes (seven runs,
+# best of 3) took most of phases 15-16 at the bench's 256
+DECODE_STEPS = 64
+
+
+def short_section_decode() -> dict:
+    """``bench.section_decode`` with its runs cut to DECODE_STEPS steps."""
+    from tpu_dra_torch import bench
+    saved = bench.DECODE_RUN
+    bench.DECODE_RUN = dict(saved, steps=DECODE_STEPS)
+    try:
+        return bench.section_decode()
+    finally:
+        bench.DECODE_RUN = saved
 
 
 def log_quant_times(times: dict, card: str) -> None:
@@ -5713,10 +5755,73 @@ def elastic_respawn(tmp: Path) -> list:
     return lines
 
 
+SECTION_CHILD = """
+import functools, json, sys
+import torch
+import torch.distributed as dist
+from tpu_dra_torch import bench
+from tpu_dra_torch.workloads import collectives as c
+rank, port, mib = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+torch.cuda.set_device(0)
+for name in ("psum_bandwidth", "ppermute_bandwidth", "all_gather_bandwidth",
+             "reduce_scatter_bandwidth"):
+    setattr(c, name, functools.partial(getattr(c, name), mib_per_device=mib,
+                                       iters=8))
+print(json.dumps(bench.section_collectives()), flush=True)
+dist.destroy_process_group()
+"""
+COLLECTIVE_MATMUL_KEYS = [
+    f"{name}_{key}" for name in ("ag_matmul", "matmul_rs")
+    for key in ("fused_tflops", "xla_tflops", "overlap_win_pct")]
+
+
+def collectives_pair(card: str) -> list:
+    """``bench.section_collectives`` in two gloo processes on the card
+    (bandwidth buffers of PSUM_MIB, 8 iterations: psum_job measures them
+    already): each must print the four bandwidths
+    and the fused collective-matmul keys, and no
+    ``collective_matmul_error``."""
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SECTION_CHILD, str(r), port, str(PSUM_MIB)],
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=HERE) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MP_WAIT)
+            if p.returncode != 0:
+                fail(f"section_collectives child exited {p.returncode}: "
+                     f"{out[-1500:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, o in enumerate(outs):
+        if "collective_matmul_error" in o or not set(
+                COLLECTIVE_MATMUL_KEYS) <= set(o):
+            fail(f"section_collectives rank {r}: {o}")
+        log(f"[mp] section_collectives rank {r} of two gloo processes on "
+            f"the card: " + ", ".join(f"{k} {o[k]}" for k in (
+                "psum_gbps", "ppermute_gbps", "all_gather_gbps",
+                "reduce_scatter_gbps", *COLLECTIVE_MATMUL_KEYS,
+                "collective_matmul_shape"))
+            + f" (fused: ProcessRing's kernels; xla: a group all-gather "
+            f"then a matmul, a matmul then a group reduce-scatter, through "
+            f"host memory; host clock, synced; informational); on {card}")
+    return outs
+
+
 def multiprocess_phase(card: str) -> dict:
     """Phase 25: psum_job as two gloo processes through a settings dir,
     run_elastic across a 1 -> 2 membership change, and
-    section_collectives in this process (no group: skipped)."""
+    section_collectives in this process (no group: skipped) and in two
+    gloo processes (the fused collective-matmul comparison)."""
     from tpu_dra_torch.bench import section_collectives
     with tempfile.TemporaryDirectory(prefix="chip_smoke-25-") as tmp:
         psum = psum_pair(Path(tmp), card)
@@ -5726,7 +5831,8 @@ def multiprocess_phase(card: str) -> dict:
     log(f"[mp] section_collectives on one card: {skipped}")
     if skipped != {"collectives_skipped": "single device"}:
         fail(f"section_collectives on one card gave {skipped}")
-    return {"psum": psum, "elastic": elastic}
+    pair = collectives_pair(card)
+    return {"psum": psum, "elastic": elastic, "collectives": pair}
 
 
 # ---------------------------------------------------------------------------
@@ -5743,8 +5849,9 @@ PROCESS_AG = [("wqkv, m even", 4096, 2048, 1536),
 PROCESS_RS = ("w2", 16384, 2048, 2048)
 PROCESS_KV = (16, 16, 256, 128)
 PROCESS_TIMED = 3            # calls timed a case (CUDA events, median)
-# 26b: SGD steps after the one-step comparisons
-PROCESS_STEPS = 3
+# 26b and 27b: SGD steps after the one-step comparisons (2, not 3, keeps
+# the script inside its time limit with phase 27)
+PROCESS_STEPS = 2
 PROCESS_CHILD = ("import sys, chip_smoke; "
                  "sys.exit(chip_smoke.process_rank(sys.argv[1]))")
 
@@ -5967,13 +6074,194 @@ def process_step(tmp: Path, mesh) -> dict:
             "peak_gb": run["peak_gb"], "psum_ms": 1e3 * psum_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the DP×TP step across processes (tp 4) on one card, in 26's group
+# ---------------------------------------------------------------------------
+
+TP_DENSE_LAYERS = 2          # 27c: the dense step's depth (its gloo psums)
+TP_SEED = SEED + 2700
+
+
+def tp_cfgs() -> dict:
+    """27's configurations: the flagship for the fused step, and the
+    flagship cut to TP_DENSE_LAYERS layers for the dense one."""
+    from tpu_dra_torch.workloads.train import ModelConfig
+    return {"fused_collective": ModelConfig(**TRAIN_MODEL),
+            "dense": ModelConfig(**dict(TRAIN_MODEL,
+                                        n_layers=TP_DENSE_LAYERS))}
+
+
+def tp_params(cfg):
+    import torch
+
+    from tpu_dra_torch.workloads.train import init_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_SEED)
+    return init_params(cfg, gen)
+
+
+def virtual_tp_steps(tmp: Path) -> None:
+    """27's yardsticks, in this process before the group starts: the
+    fused and the dense step on the virtual mesh dp 1 × tp 4 (lr 1,
+    flash attention, the first of 26's windows), each saved as its loss
+    and each leaf's update."""
+    import torch
+
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.train import make_sharded_train_step
+    win = torch.load(tmp / "windows.pt")[0].to("cuda")
+    for impl, cfg in tp_cfgs().items():
+        params = tp_params(cfg)
+        step, _, _ = make_sharded_train_step(
+            cfg, Mesh({"dp": 1, "tp": PROCESSES}), lr=1.0,
+            attn_impl="flash", matmul_impl=impl)
+        new, loss = step(params, win)
+        upd = leaf_updates(params, new, 1.0)
+        del new, params
+        torch.save({"loss": float(loss), "upd": tree_to(upd, "cpu")},
+                   tmp / f"tp_{impl}.pt")
+        del upd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def hold_sharded_step(label: str, mesh, loss, upd: dict, want_loss,
+                      want: dict) -> None:
+    """``hold_step`` over shards: each leaf's relative L2 from this rank's
+    squared error and squared norm summed over the group (a leaf whole on
+    every rank counts the same number of times in both), so no rank
+    gathers the tree."""
+    import torch
+
+    from tpu_dra_torch.workloads.train import tree_leaves
+    names = list(leaf_errors(upd, upd))          # the leaves' names
+    got, ref = tree_leaves(upd), tree_leaves(want)
+    sums = torch.stack([torch.stack([(g.float() - w.float()).square().sum(),
+                                     w.float().square().sum()])
+                        for g, w in zip(got, ref)])
+    sums = mesh.psum(sums)
+    errs = {n: (e / r) ** 0.5 for n, (e, r) in zip(names, sums.tolist())}
+    worst = max(errs, key=errs.get)
+    dl = abs(float(loss) - float(want_loss))
+    log(f"[train] {label}: one step at lr 1 vs the virtual mesh's: loss "
+        f"{float(loss):.5f} vs {float(want_loss):.5f} (|d| {dl:.2e}, "
+        f"tolerance {STEP_LOSS_ATOL}); worst leaf {worst} relative L2 "
+        f"{errs[worst]:.3e} (tolerance {STEP_LEAF_REL}); median leaf "
+        f"{statistics.median(errs.values()):.3e}")
+    if not (dl <= STEP_LOSS_ATOL and errs[worst] <= STEP_LEAF_REL):
+        fail(f"{label}: the step departs from the virtual mesh's (loss |d| "
+             f"{dl}, leaf {worst} {errs[worst]})")
+
+
+@contextlib.contextmanager
+def tp_timers():
+    """Seconds spent in the process ring's kernel calls and in the mesh's
+    gloo collectives while the block runs, each call synchronized before
+    and after (the wrappers add those syncs; informational)."""
+    import torch
+
+    from tpu_dra_torch.workloads import mesh as M
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+    spent = {"ring": 0.0, "gloo": 0.0}
+    saved = []
+
+    def timed(owner, name, kind):
+        real = getattr(owner, name)
+        saved.append((owner, name, real))
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                spent[kind] += time.perf_counter() - t0
+        setattr(owner, name, call)
+    for name in ("all_gather_matmul", "matmul_reduce_scatter"):
+        timed(ProcessRing, name, "ring")
+    for name in ("group_all_reduce", "group_all_gather",
+                 "group_reduce_scatter", "group_all_to_all"):
+        timed(M, name, "gloo")
+    try:
+        yield spent
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def process_tp(tmp: Path, mesh) -> dict:
+    """27 in one process (see the module's docstring): the fused step
+    against the virtual mesh's, PROCESS_STEPS fused steps with exact
+    launches, the step time, its ring and gloo shares and peak memory,
+    then the dense step against the virtual mesh's."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.train import make_sharded_train_step
+    n, r = mesh.axis_size("tp"), mesh.axis_index("tp")
+    wins = [w.to(mesh.device) for w in torch.load(tmp / "windows.pt")]
+    out = {}
+    for impl, cfg in tp_cfgs().items():
+        step, p_shard, _ = make_sharded_train_step(
+            cfg, mesh, lr=1.0, attn_impl="flash", matmul_impl=impl)
+        local = mesh.shard_tree(tp_params(cfg), p_shard)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, loss = step(local, wins[0])
+        torch.cuda.synchronize()
+        out[f"{impl}_one_s"] = time.perf_counter() - t0
+        upd = leaf_updates(local, new, 1.0)
+        del new
+        want = torch.load(tmp / f"tp_{impl}.pt", mmap=True)
+        want_upd = tree_to(mesh.shard_tree(want["upd"], p_shard),
+                           mesh.device)
+        label = "27a DP×TP fused collective" if impl != "dense" else \
+            f"27c DP×TP dense, {cfg.n_layers} layers"
+        hold_sharded_step(f"{label} across {n} processes, rank {r}", mesh,
+                          loss, upd, want["loss"], want_upd)
+        del upd, want, want_upd
+        if impl == "dense":
+            break
+        step, _, _ = make_sharded_train_step(
+            cfg, mesh, lr=SGD_LR, attn_impl="flash", matmul_impl=impl)
+        counters = {"all_gather_matmul": cm.all_gather_matmul,
+                    "matmul_reduce_scatter": cm.matmul_reduce_scatter,
+                    **flash_counters()}
+        with tp_timers() as spent:
+            run = train_loop(f"27b DP×TP fused collective across processes, "
+                             f"rank {r}", step, local, wins[1:], counters)
+        L = cfg.n_layers
+        want_n = {"all_gather_matmul": 4 * L * n * PROCESS_STEPS,
+                  "matmul_reduce_scatter": 4 * L * n * PROCESS_STEPS,
+                  **flash_want(L * PROCESS_STEPS)}
+        if run["launches"] != want_n:
+            fail(f"27b rank {r}: launches {run['launches']}, expected "
+                 f"{want_n}")
+        out.update({k: run[k] for k in ("launches", "losses", "step_ms",
+                                         "first_ms", "total_ms", "peak_gb")})
+        out["ring_s"], out["gloo_s"] = spent["ring"], spent["gloo"]
+        del run, local, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def process_rank(tmp: str) -> int:
     """One rank of phase 26's group, started by ``process_phase`` through
     ``launcher.run_local_group``: it resolves its triple and joins the
     group over gloo (NCCL refuses several ranks on one card), runs 26a on
     the whole group (n = 4) and on its pair (n = 2, ranks {0, 1} and {2,
-    3} at once), then 26b on ``ProcessMesh({"dp": 1, "sp": 4})``, and
-    writes its results to ``tmp/rank<r>.json``."""
+    3} at once), then 26b on ``ProcessMesh({"dp": 1, "sp": 4})`` and 27
+    on ``ProcessMesh({"dp": 1, "tp": 4})``, and writes its results to
+    ``tmp/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -5995,9 +6283,13 @@ def process_rank(tmp: str) -> int:
     mesh = ProcessMesh({"dp": 1, "sp": PROCESSES})
     step = process_step(Path(tmp), mesh)
     mesh.close()
+    t2 = time.perf_counter()
+    mesh = ProcessMesh({"dp": 1, "tp": PROCESSES})
+    tp = process_tp(Path(tmp), mesh)
+    mesh.close()
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps({
-        "kernels": kernels, "step": step, "kernels_s": t1 - t0,
-        "step_s": time.perf_counter() - t1}))
+        "kernels": kernels, "step": step, "tp": tp, "kernels_s": t1 - t0,
+        "step_s": t2 - t1, "tp_s": time.perf_counter() - t2}))
     dist.destroy_process_group()
     return 0
 
@@ -6026,26 +6318,25 @@ def virtual_step(tmp: Path) -> None:
     new, loss = step(params, wins[0][:, :-1], wins[0][:, 1:])
     upd = leaf_updates(params, new, 1.0)
     del new, params
-
-    def cpu(tree):
-        return {k: cpu(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
-    torch.save({"loss": float(loss), "upd": cpu(upd)}, tmp / "virtual.pt")
+    torch.save({"loss": float(loss), "upd": tree_to(upd, "cpu")},
+               tmp / "virtual.pt")
     del upd
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def process_phase(card: str) -> dict:
-    """Phase 26: the ring kernels (#9-#11) and the DP×SP ring-flash step
-    across PROCESSES processes on the one card, started through the
-    port's rendezvous (``launcher.run_local_group``: each rank resolves
-    its triple and joins a gloo group); a rank that fails fails the
-    phase.  Returns each rank's launches, summed."""
+    """Phases 26 and 27: the ring kernels (#9-#11), the DP×SP ring-flash
+    step and the DP×TP step across PROCESSES processes on the one card,
+    started through the port's rendezvous (``launcher.run_local_group``:
+    each rank resolves its triple and joins a gloo group); a rank that
+    fails fails the phase.  Returns each rank's launches, summed, 26's
+    and 27b's apart."""
     from tpu_dra_torch.workloads.launcher import run_local_group
     with tempfile.TemporaryDirectory(prefix="chip_smoke-26-") as tmp:
         t0 = time.perf_counter()
         virtual_step(Path(tmp))
+        virtual_tp_steps(Path(tmp))
         t1 = time.perf_counter()
         outs = run_local_group([sys.executable, "-c", PROCESS_CHILD, tmp],
                                PROCESSES, timeout=PROCESS_WAIT, cwd=str(HERE),
@@ -6071,17 +6362,34 @@ def process_phase(card: str) -> dict:
         st = res["step"]
         log(f"[mp26] 26b rank {r}: {PROCESS_STEPS} steps, losses "
             f"{st['losses']}, launches {st['launches']} (exact), step "
-            f"{st['step_ms']:.1f} ms (median of steps 2-{PROCESS_STEPS}; "
+            f"{st['step_ms']:.1f} ms (median of the steps after the first; "
             f"first {st['first_ms']:.1f}), a gloo psum of the "
             f"{TRAIN_MODEL['d_model']}-wide flagship's fp32 gradients "
             f"{st['psum_ms']:.1f} ms ({st['psum_ms'] / st['step_ms']:.3f} of "
             f"the step), peak memory {st['peak_gb']:.2f} GB; 26a "
             f"{res['kernels_s']:.1f} s, 26b {res['step_s']:.1f} s; on {card}")
         add_counts(total, st["launches"])
-    log(f"[mp26] phase 26: the virtual yardstick {t1 - t0:.1f} s, the group "
-        f"of {PROCESSES} {time.perf_counter() - t1:.1f} s; launches summed "
-        f"over the ranks {total}")
-    return {"launches": total}
+    tp_total: dict = {}
+    for r, res in enumerate(ranks):
+        tp = res["tp"]
+        log(f"[mp27] 27b rank {r}: {PROCESS_STEPS} fused-collective steps on "
+            f"dp 1 × tp {PROCESSES}, losses {tp['losses']}, launches "
+            f"{tp['launches']} (exact), step {tp['step_ms']:.1f} ms (median "
+            f"of the steps after the first; first {tp['first_ms']:.1f}), of "
+            f"the {tp['total_ms']:.1f} ms of the steps: ring calls "
+            f"{tp['ring_s'] * 1e3:.1f} ms "
+            f"({tp['ring_s'] * 1e3 / tp['total_ms']:.3f}), gloo collectives "
+            f"{tp['gloo_s'] * 1e3:.1f} ms "
+            f"({tp['gloo_s'] * 1e3 / tp['total_ms']:.3f}) (host clock, each "
+            f"call synchronized), peak memory {tp['peak_gb']:.2f} GB; 27a "
+            f"step {tp['fused_collective_one_s']:.1f} s, 27c dense "
+            f"{TP_DENSE_LAYERS}-layer step {tp['dense_one_s']:.1f} s, phase "
+            f"27 in this rank {res['tp_s']:.1f} s (informational); on {card}")
+        add_counts(tp_total, tp["launches"])
+    log(f"[mp26] phases 26-27: the virtual yardsticks {t1 - t0:.1f} s, the "
+        f"group of {PROCESSES} {time.perf_counter() - t1:.1f} s; launches "
+        f"summed over the ranks: 26 {total}, 27b {tp_total}")
+    return {"launches": total, "tp_launches": tp_total}
 
 
 def main() -> int:
@@ -6212,10 +6520,9 @@ def main() -> int:
     quant_t = quant_phase(gen)
     log_quant_times(quant_t, card)
     quant_served = quant_serve_phase(gen)
-    from tpu_dra_torch.bench import section_decode
-    decoded = section_decode()
+    decoded = short_section_decode()
     log(f"[bench] section_decode (greedy slab decode, batch 8, prompt 128, "
-        f"256 steps; informational): {json.dumps(decoded)}")
+        f"{DECODE_STEPS} steps; informational): {json.dumps(decoded)}")
     slab_tps = quant_served["slab"]["tokens_per_s"]
     log(f"[serve] int8 weights: slab {slab_tps:.1f} tokens/s, paged "
         f"{quant_served['paged']['tokens_per_s']:.1f} tokens/s for the 8 "
@@ -6256,9 +6563,11 @@ def main() -> int:
     lap("25")
     t0 = time.perf_counter()
     processed = process_phase(card)
-    log(f"[time] phase 26 {time.perf_counter() - t0:.1f} s")
-    lap("26")
-    more = add_counts(dict(meshed["launches"]), processed["launches"])
+    log(f"[time] phases 26-27 {time.perf_counter() - t0:.1f} s")
+    lap("26-27")
+    more = add_counts(add_counts(dict(meshed["launches"]),
+                                 processed["launches"]),
+                      processed["tp_launches"])
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

@@ -5,7 +5,8 @@ bandwidth functions (each collective's values checked in the same
 processes), ``psum_job`` as two processes through a settings dir and
 alone with ``--local-only``, the reference's timing method of
 ``_time_op`` and its ``CollectiveResult``, ``matmul_throughput`` and
-``section_collectives`` in a group of one."""
+``section_collectives`` in a group of one and in two processes (the
+fused collective-matmul comparison on the CPU's plain versions)."""
 
 from __future__ import annotations
 
@@ -120,6 +121,47 @@ def test_two_gloo_processes_run_the_four_bandwidths(tmp_path):
             n, nbytes, secs, algo = res[name]
             assert algo == pytest.approx(factor * nbytes / secs)
         assert o["auto"][0] == 2 and o["auto"][1] > 0
+
+
+SECTION_WORKER = """
+import functools, json, sys
+import torch
+import torch.distributed as dist
+from tpu_dra_torch import bench
+from tpu_dra_torch.workloads import collectives as c
+rank, port = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+bench.resolve_device = lambda device=None: torch.device("cpu")
+for name in ("psum_bandwidth", "ppermute_bandwidth", "all_gather_bandwidth",
+             "reduce_scatter_bandwidth"):
+    setattr(c, name, functools.partial(getattr(c, name), mib_per_device=1,
+                                       iters=2))
+print(json.dumps(bench.section_collectives()), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_section_collectives_compares_the_fused_ring_in_two_processes(
+        tmp_path):
+    """Two gloo processes: the four bandwidths, then the ring kernels'
+    group plain versions against the unfused pair on the CPU's (64, 128,
+    128) a rank, under the reference's keys and with no
+    ``collective_matmul_error``."""
+    script = tmp_path / "section.py"
+    script.write_text(SECTION_WORKER)
+    p = str(free_port())
+    outs = run_pair([[sys.executable, str(script), str(r), p]
+                     for r in (0, 1)], [clean_env(), clean_env()])
+    for o in outs:
+        assert "collective_matmul_error" not in o, o
+        for name in ("ag_matmul", "matmul_rs"):
+            for key in ("fused_tflops", "xla_tflops"):
+                assert o[f"{name}_{key}"] > 0, (name, key)
+            assert isinstance(o[f"{name}_overlap_win_pct"], float)
+        assert o["collective_matmul_shape"] == [64, 128, 128]
+        assert o["collective_matmul_device"] == "cpu"
+        assert o["collectives_devices"] == 2 and o["psum_gbps"] > 0
 
 
 def psum_job(extra: list) -> list:

@@ -5,6 +5,7 @@
 
     python tests/torch_process_child.py ring OUT DEVICE
     python tests/torch_process_child.py mesh OUT AXES_JSON
+    python tests/torch_process_child.py tp OUT AXES_JSON DEVICE
 
 ``ring``: the group ring's forward and VJP cases (:func:`ring_inputs`,
 the same global inputs on every rank) on DEVICE ("cpu": the group plain
@@ -12,6 +13,9 @@ versions; "cuda": the kernels across processes).  ``mesh``: on a
 ``ProcessMesh`` of AXES over the CPU, shard and unshard round trips,
 the refusals, and the DP×SP step of ``OUT/params.npz`` on
 ``OUT/tokens.npz`` for each (ring_impl, hop_impl) of :data:`STEPS`.
+``tp``: on a ``ProcessMesh`` of AXES (dp × tp) over DEVICE, the DP×TP
+step (``make_sharded_train_step``) of each case in ``OUT/cases.json``
+(:func:`tp_main`).
 
 It imports torch and the port only (no JAX), so the cuda case runs it
 on a card machine as it is.
@@ -137,8 +141,6 @@ def _refusals(mesh, cfg) -> dict:
     from tpu_dra_torch.workloads import (lora, moe, pipeline, quant,
                                          ring_attention, train)
     calls = {
-        "make_sharded_train_step": lambda: train.make_sharded_train_step(
-            cfg, mesh),
         "make_optax_train_step": lambda: train.make_optax_train_step(
             cfg, mesh, zero1=True),
         "make_zigzag_ring_attention":
@@ -232,9 +234,108 @@ def mesh_main(out: Path, axes: dict) -> None:
     dist.destroy_process_group()
 
 
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves under ``/``-joined keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def tp_main(out: Path, axes: dict, device: str) -> None:
+    """Each case of ``OUT/cases.json`` (``name``, ``cfg``, ``params``: an
+    npz in OUT, ``tokens``: an npz in OUT, ``impl``, ``attn``, ``accum``,
+    optionally ``norm``):
+    the global parameters cut by ``p_shard`` (``shard_tree``), one step at
+    lr 1, and ``{name}_loss``, ``{name}/<leaf>`` (the new tree gathered
+    back with ``unshard_tree``) and ``{name}_local/<leaf>`` (this rank's
+    new shard) saved; ``rank<r>.json`` holds the mesh coordinates, the
+    specs, whether every tree's cut gathers back to itself, the ring
+    calls each case made and the ring kernels' launches (each ``[gather,
+    reduce-scatter]``) and what the chunked head raised."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.train import (ModelConfig,
+                                               make_sharded_train_step)
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    calls = {"ag": 0, "rs": 0}
+
+    def counted(name, key):
+        real = getattr(ProcessRing, name)
+
+        def call(self, *a, **k):
+            calls[key] += 1
+            return real(self, *a, **k)
+        setattr(ProcessRing, name, call)
+    counted("all_gather_matmul", "ag")
+    counted("matmul_reduce_scatter", "rs")
+    # on the card the mesh's own device (cuda:{rank % device_count})
+    mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+    dev = mesh.device
+    info = {"coords": mesh.coords, "calls": {}, "launches": {},
+            "round_trips": {}, "specs": {}}
+    kernels = (cm.all_gather_matmul, cm.matmul_reduce_scatter)
+    res = {}
+    for case in json.loads((out / "cases.json").read_text()):
+        name, cfg = case["name"], ModelConfig(**case["cfg"])
+        params = convert.load_npz(out / case["params"], "cpu")
+        with np.load(out / case["tokens"]) as data:
+            tokens = torch.from_numpy(data["tokens"]).to(dev)
+        step, p_shard, b_shard = make_sharded_train_step(
+            cfg, mesh, lr=1.0, attn_impl=case["attn"],
+            accum_steps=case["accum"], norm_impl=case.get("norm", "dense"),
+            matmul_impl=case["impl"])
+        info["specs"][name] = flat_tree(p_shard)
+        info["b_shard"] = list(b_shard)
+        local = mesh.shard_tree(params, p_shard)
+        back = mesh.unshard_tree(local, p_shard)
+        info["round_trips"][name] = all(
+            torch.equal(a, flat_tree(params)[k])
+            for k, a in flat_tree(back).items())
+        local = _to(local, dev)
+        calls.update(ag=0, rs=0)
+        for fn in kernels:
+            fn.launches = 0
+        new, loss = step(local, tokens)
+        info["calls"][name] = [calls["ag"], calls["rs"]]
+        info["launches"][name] = [fn.launches for fn in kernels]
+        res[f"{name}_loss"] = loss
+        for k, v in flat_tree(mesh.unshard_tree(new, p_shard)).items():
+            res[f"{name}/{k}"] = v
+        for k, v in flat_tree(new).items():
+            res[f"{name}_local/{k}"] = v
+    try:
+        make_sharded_train_step(cfg, mesh, head_impl="chunked")
+        info["chunked"] = "ran"
+    except NotImplementedError as e:
+        info["chunked"] = str(e)
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+def _to(tree: dict, dev) -> dict:
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
 if __name__ == "__main__":
     what, out = sys.argv[1], Path(sys.argv[2])
     if what == "ring":
         ring_main(out, sys.argv[3])
+    elif what == "tp":
+        tp_main(out, json.loads(sys.argv[3]), sys.argv[4])
     else:
         mesh_main(out, json.loads(sys.argv[3]))

@@ -760,6 +760,84 @@ def section_multiprocess() -> dict:
     return out
 
 
+# (m, K, N) a rank of the fused collective-matmul comparison
+# (reference bench.py 1055-1110): on the card, and on the CPU
+COLLECTIVE_MATMUL_SHAPE = {"cuda": (1024, 2048, 2048), "cpu": (64, 128, 128)}
+COLLECTIVE_MATMUL_ITERS = {"cuda": 5, "cpu": 2}
+
+
+def _synced_seconds(fn, dev, iters: int, group) -> float:
+    """Seconds of one ``fn()`` by the host clock: warmed once, then the
+    group met and ``iters`` calls timed to a synchronized stream, median
+    of three runs.  The process ring synchronizes and meets its group
+    at every step, which a CUDA graph cannot capture."""
+    import torch.distributed as dist
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fn()
+    runs = []
+    for _ in range(3):
+        sync()
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        runs.append((time.perf_counter() - t0) / iters)
+    return sorted(runs)[1]
+
+
+def collective_matmul_numbers(dev, group=None) -> dict:
+    """The fused ring kernels across this group's processes
+    (``collective_matmul.ProcessRing``) against the unfused pair on the
+    same shapes: the all-gather-matmul against a group all-gather then a
+    matmul, the matmul-reduce-scatter against a matmul then a group
+    reduce-scatter (each rank's ``[n·m, K]`` operand its ``[m, K]`` shard
+    tiled, as the reference tiles it).  ``*_fused_tflops`` and
+    ``*_xla_tflops`` count ``2·n·m·K·N`` a rank, as the reference does;
+    ``*_overlap_win_pct`` is the unfused time over the fused one, less 1.
+    Under gloo the unfused collectives stage through host memory."""
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+    from tpu_dra_torch.workloads.mesh import (group_all_gather,
+                                              group_reduce_scatter)
+    from tpu_dra_torch.workloads.train import dot_f32
+    ring = ProcessRing(group)
+    n = ring.n
+    m, K, N = COLLECTIVE_MATMUL_SHAPE[dev.type]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1 + ring.rank)
+    w = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((m, K), generator=gen, device=dev).to(torch.bfloat16)
+    xs = x.repeat(n, 1)
+    pairs = {
+        "ag_matmul": (
+            lambda: ring.all_gather_matmul(x, w)[0],
+            lambda: dot_f32(torch.cat(group_all_gather(x, group)),
+                            w).to(x.dtype)),
+        "matmul_rs": (
+            lambda: ring.matmul_reduce_scatter(xs, w),
+            lambda: group_reduce_scatter(dot_f32(xs, w), group).to(x.dtype)),
+    }
+    flops = 2 * n * m * K * N
+    iters = COLLECTIVE_MATMUL_ITERS[dev.type]
+    out = {}
+    try:
+        for name, (fused, unfused) in pairs.items():
+            secs_f = _synced_seconds(fused, dev, iters, group)
+            secs_u = _synced_seconds(unfused, dev, iters, group)
+            out[f"{name}_fused_tflops"] = round(flops / secs_f / 1e12, 4)
+            out[f"{name}_xla_tflops"] = round(flops / secs_u / 1e12, 4)
+            out[f"{name}_overlap_win_pct"] = round(
+                100.0 * (secs_u / secs_f - 1.0), 1)
+    finally:
+        ring.close()
+    out["collective_matmul_shape"] = [m, K, N]
+    out["collective_matmul_device"] = str(dev)
+    return out
+
+
 def section_collectives() -> dict:
     """The four collective bandwidths over this process's
     ``torch.distributed`` group (``workloads/collectives.py``): the
@@ -768,15 +846,17 @@ def section_collectives() -> dict:
     does in a group of one or without a group.  Over a larger group:
     ``psum_gbps``, ``ppermute_gbps``, ``all_gather_gbps`` and
     ``reduce_scatter_gbps``, with the backend and the buffers' device
-    (under gloo the host's memory: no card-to-card figure).  The
-    reference's fused collective-matmul comparison needs the ring
-    kernels across cards, which the port runs on one card only."""
+    (under gloo the host's memory: no card-to-card figure), then the
+    fused collective-matmul comparison on the card
+    (:func:`collective_matmul_numbers`); a failure there is kept as
+    ``collective_matmul_error``, as the reference keeps it, so the
+    bandwidths survive it."""
     import torch.distributed as dist
 
     from tpu_dra_torch.workloads.collectives import (
         all_gather_bandwidth, group_device, ppermute_bandwidth,
         psum_bandwidth, reduce_scatter_bandwidth)
-    resolve_device()                 # a section measures the card
+    card = resolve_device()          # a section measures the card
     if not (dist.is_available() and dist.is_initialized()) or \
             dist.get_world_size() <= 1:
         return {"collectives_skipped": "single device"}
@@ -789,8 +869,12 @@ def section_collectives() -> dict:
     out["collectives_backend"] = dist.get_backend()
     out["collectives_devices"] = dist.get_world_size()
     out["collectives_buffer_device"] = str(dev)
-    if dev.type == "cuda":
-        out.update(card_info(dev))
+    try:
+        out.update(collective_matmul_numbers(card))
+    except Exception as exc:  # noqa: BLE001 — keep the bandwidth numbers
+        out["collective_matmul_error"] = repr(exc)[:200]
+    if card.type == "cuda":
+        out.update(card_info(card))
     return out
 
 

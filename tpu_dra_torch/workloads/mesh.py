@@ -281,13 +281,36 @@ def _host(x, group) -> bool:
     return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
-def group_all_reduce(x, group=None):
-    """The sum of ``x`` over the group's processes, a new tensor on x's
-    device (every process gets the same bits)."""
+def group_all_reduce(x, group=None, op=dist.ReduceOp.SUM):
+    """The sum (or ``op``) of ``x`` over the group's processes, a new
+    tensor on x's device (every process gets the same bits)."""
     buf = x.detach().to("cpu", copy=True) if _host(x, group) \
         else x.detach().clone()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
+
+
+def group_reduce_scatter(x, group=None):
+    """Chunk r (of n along dimension 0) of the sum of ``x`` over the
+    group's processes, for group rank r."""
+    src = x.detach().to("cpu") if _host(x, group) else x.detach()
+    src = src.contiguous()
+    n = dist.get_world_size(group)
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(x.device)
+
+
+def group_all_to_all(x, out_splits: list, in_splits: list, group=None):
+    """Rows ``in_splits[d]`` of ``x`` (dimension 0, in order) go to group
+    rank d; the rows from each rank s (``out_splits[s]`` of them) come
+    back concatenated in rank order."""
+    src = x.detach().to("cpu") if _host(x, group) else x.detach()
+    src = src.contiguous()
+    out = src.new_empty((sum(out_splits), *src.shape[1:]))
+    dist.all_to_all_single(out, src, list(out_splits), list(in_splits),
+                           group=group)
+    return out.to(x.device)
 
 
 def group_all_gather(x, group=None) -> list:
@@ -325,6 +348,144 @@ class GroupSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return group_all_reduce(g, ctx.group), None
+
+
+class GroupCopy(torch.autograd.Function):
+    """Identity forward, psum of the cotangent backward (Megatron's entry
+    into a tensor-parallel region): where a tensor every rank holds whole
+    feeds each rank's share of a product, each rank's cotangent is a part
+    and their sum the whole.  ``apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_all_reduce(g, ctx.group), None
+
+
+class GroupReduce(torch.autograd.Function):
+    """Psum forward, identity backward (Megatron's exit from a
+    tensor-parallel region): each rank holds a partial sum of a tensor
+    that every rank then holds whole, and the whole one's cotangent is
+    each part's.  ``apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GroupAllGather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``dim`` in group rank order
+    (``all_gather(..., tiled=True)``).  Its transpose reduce-scatters the
+    cotangent along ``dim``; where the cotangent is the same on every
+    rank (``replicated_grad``, the gathered tensor feeding replicated
+    work) it is this rank's slice.  ``apply(x, group, dim,
+    replicated_grad)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, replicated_grad):
+        ctx.group, ctx.dim, ctx.replicated = group, dim, replicated_grad
+        return torch.cat(group_all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        if ctx.replicated:
+            n, r = dist.get_world_size(group), dist.get_rank(group)
+            return g.chunk(n, dim)[r].contiguous(), None, None, None
+        part = group_reduce_scatter(g.movedim(dim, 0), group)
+        return part.movedim(0, dim).contiguous(), None, None, None
+
+
+def _all_to_all(x, group, split_dim: int, concat_dim: int):
+    n = dist.get_world_size(group)
+    chunks = torch.stack(x.chunk(n, split_dim))          # chunk d for rank d
+    got = group_all_to_all(chunks.reshape(n, -1), [1] * n, [1] * n, group)
+    return torch.cat(got.reshape(chunks.shape).unbind(0), dim=concat_dim)
+
+
+class GroupAllToAll(torch.autograd.Function):
+    """``x`` cut into n chunks along ``split_dim``, chunk d sent to group
+    rank d, and the chunks received concatenated along ``concat_dim`` in
+    rank order (``lax.all_to_all(..., tiled=True)``): a column cut becomes
+    a row cut.  Its transpose is the inverse all-to-all.
+    ``apply(x, group, split_dim, concat_dim)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, ctx.group, concat_dim, split_dim), None, None,
+                None)
+
+
+class ColumnPlan:
+    """Who sends which columns where to move a last dimension cut one way
+    (rank s holds global columns ``src[s]``, in order) to another (rank d
+    wants ``dst[d]``, in order, a column possibly on several ranks), from
+    group rank ``rank``'s side: each wanted column comes from the first
+    rank that holds it.  ``send[d]``: the positions in this rank's
+    columns that go to rank d, in d's order; ``recv[s]``: the positions in
+    this rank's output that come from rank s."""
+
+    def __init__(self, src, dst, rank: int):
+        owner = {}
+        for s, cols in enumerate(src):
+            for i, c in enumerate(cols):
+                owner.setdefault(c, (s, i))
+        missing = {c for cols in dst for c in cols} - set(owner)
+        if missing:
+            raise ValueError(f"no rank holds columns {sorted(missing)[:8]}")
+        self.width = len(dst[rank])
+        self.send = [[owner[c][1] for c in cols if owner[c][0] == rank]
+                     for cols in dst]
+        self.recv = [[k for k, c in enumerate(dst[rank]) if owner[c][0] == s]
+                     for s in range(len(src))]
+
+    def index(self, which: list, device):
+        return torch.tensor([i for part in which for i in part],
+                            dtype=torch.long, device=device)
+
+
+class GroupColumns(torch.autograd.Function):
+    """The columns (last dimension) of ``x`` recut by a :class:`ColumnPlan`
+    in one all-to-all.  Its transpose sends each cotangent column back to
+    the rank that held the column and sums the columns that went to
+    several ranks (in fp32, rounded once).  ``apply(x, group, plan)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, plan):
+        ctx.group, ctx.plan, ctx.shape = group, plan, x.shape
+        cols = x.movedim(-1, 0)
+        out = group_all_to_all(cols[plan.index(plan.send, x.device)],
+                               [len(r) for r in plan.recv],
+                               [len(s) for s in plan.send], group)
+        y = out.new_empty((plan.width, *cols.shape[1:]))
+        y[plan.index(plan.recv, x.device)] = out
+        return y.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        cols = g.movedim(-1, 0)
+        back = group_all_to_all(cols[plan.index(plan.recv, g.device)],
+                                [len(s) for s in plan.send],
+                                [len(r) for r in plan.recv], ctx.group)
+        gx = torch.zeros((ctx.shape[-1], *cols.shape[1:]),
+                         dtype=torch.float32, device=g.device)
+        gx.index_add_(0, plan.index(plan.send, g.device), back.float())
+        return gx.to(g.dtype).movedim(0, -1), None, None
 
 
 def process_device(device, rank: int) -> torch.device:
@@ -430,16 +591,74 @@ class ProcessMesh(_Axes):
         return self._unstack(torch.stack(parts).reshape(*self.shape,
                                                         *t.shape), spec)
 
+    def shard_tree(self, tree: dict, specs: dict) -> dict:
+        """:meth:`shard` of every leaf of a nested dict by the spec at the
+        same key (``param_shardings``' form)."""
+        return {k: self.shard_tree(v, specs[k]) if isinstance(v, dict)
+                else self.shard(v, specs[k]) for k, v in tree.items()}
+
+    def unshard_tree(self, tree: dict, specs: dict) -> dict:
+        """:meth:`unshard` of every leaf: the global tree back on every
+        process (collective)."""
+        return {k: self.unshard_tree(v, specs[k]) if isinstance(v, dict)
+                else self.unshard(v, specs[k]) for k, v in tree.items()}
+
     def psum(self, x, axes=None):
         """The sum of ``x`` over the processes of the named ``axes``
         (default: all), on every one of them; differentiable, its
         cotangent summed the same way (:class:`GroupSum`)."""
         names = self.axis_names if axes is None else tuple(axes_of(axes))
         groups = [self.group] if set(names) == set(self.axes) else \
-            [self._lines[a] for a in names]
+            [self._lines[a] for a in names if self.axes[a] > 1]
         for g in groups:
             x = GroupSum.apply(x, g)
         return x
+
+    # -- differentiable collectives along one axis's line, each the
+    # identity (or a copy) where the axis has one rank ---------------------
+
+    def all_gather(self, x, axis: str, dim: int,
+                   replicated_grad: bool = False):
+        """:class:`GroupAllGather` along ``axis``."""
+        if self.axes[axis] == 1:
+            return x
+        return GroupAllGather.apply(x, self._lines[axis], dim,
+                                    replicated_grad)
+
+    def all_to_all(self, x, axis: str, split_dim: int, concat_dim: int):
+        """:class:`GroupAllToAll` along ``axis``."""
+        if self.axes[axis] == 1:
+            return x
+        return GroupAllToAll.apply(x, self._lines[axis], split_dim,
+                                   concat_dim)
+
+    def copy(self, x, axis: str):
+        """:class:`GroupCopy` along ``axis``: identity forward, psum
+        backward."""
+        return x if self.axes[axis] == 1 else \
+            GroupCopy.apply(x, self._lines[axis])
+
+    def reduce(self, x, axis: str):
+        """:class:`GroupReduce` along ``axis``: psum forward, identity
+        backward."""
+        return x if self.axes[axis] == 1 else \
+            GroupReduce.apply(x, self._lines[axis])
+
+    def pmax(self, x, axis: str):
+        """The elementwise max of ``x`` over ``axis``, with no gradient."""
+        x = x.detach()
+        return x if self.axes[axis] == 1 else \
+            group_all_reduce(x, self._lines[axis], dist.ReduceOp.MAX)
+
+    def column_plan(self, axis: str, src, dst) -> ColumnPlan:
+        """The :class:`ColumnPlan` of this process's rank along ``axis``."""
+        return ColumnPlan(src, dst, self.coords[axis])
+
+    def columns(self, x, axis: str, plan: ColumnPlan):
+        """:class:`GroupColumns` along ``axis``."""
+        if self.axes[axis] == 1:
+            return x[..., plan.index(plan.send, x.device)]
+        return GroupColumns.apply(x, self._lines[axis], plan)
 
     def ring(self, axis: str):
         """The ring kernels over this process's line along ``axis``

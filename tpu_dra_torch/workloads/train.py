@@ -14,15 +14,16 @@ kernels (``flash.py``); ``norm_impl="fused"`` runs each sublayer's
 rmsnorm→matmul pair through the fused kernel (``matmul.py``) where the
 reference would.  The sharded half: ``param_shardings``,
 ``batch_sharding`` and ``make_sharded_train_step`` over a virtual mesh
-(``mesh.py``), with ``matmul_impl="fused_collective"`` running each
-sublayer's entry and exit matmul through the ring kernels
-(``collective_matmul.py``), and ``make_optax_train_step`` with its
-optimizer state laid out by ``opt_state_shardings`` (ZeRO-1 over "dp":
-``optim.MomentLayout``).  ``packed_loss_fn`` trains on rows packed by
-``data.pack_documents`` (dense attention only: the flash kernels have no
-segment mask).  The trunk rematerializes in the backward what lies
-between its weight products, whose outputs it keeps: the reference's
-selective policy (:func:`remat`, :func:`_block`'s ``seg``).
+(``mesh.py``) or a process mesh (``process_train.py``), with
+``matmul_impl="fused_collective"`` running each sublayer's entry and
+exit matmul through the ring kernels (``collective_matmul.py``), and
+``make_optax_train_step`` with its optimizer state laid out by
+``opt_state_shardings`` (ZeRO-1 over "dp": ``optim.MomentLayout``).
+``packed_loss_fn`` trains on rows packed by ``data.pack_documents``
+(dense attention only: the flash kernels have no segment mask).  The
+trunk rematerializes in the backward what lies between its weight
+products, whose outputs it keeps: the reference's selective policy
+(:func:`remat`, :func:`_block`'s ``seg``).
 
 Rounding follows the reference op by op: a Python scalar that multiplies
 a bf16 tensor is first rounded to bf16 (JAX's weak typing does that),
@@ -43,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from tpu_dra_torch.workloads.mesh import refuse_process_mesh
+from tpu_dra_torch.workloads.mesh import ProcessMesh, refuse_process_mesh
 from tpu_dra_torch.workloads.quant import matmul_any
 
 
@@ -219,10 +220,17 @@ def _fc_active(x, w, mesh, matmul_impl: str, contract_sharded: bool) -> bool:
         return False
     if not torch.is_tensor(w) or x.dim() != 3:
         return False
-    tp = mesh.axis_size("tp")
-    if tp <= 1 or x.shape[1] % tp:
+    return fc_splits(x.shape[1], w.shape, mesh.axis_size("tp"),
+                     contract_sharded)
+
+
+def fc_splits(seq: int, w_shape, tp: int, contract_sharded: bool) -> bool:
+    """The shape half of :func:`_fc_active`: a > 1-way tp, a sequence of
+    ``seq`` rows and a ``w_shape`` weight's sharded axis that split over
+    it."""
+    if tp <= 1 or seq % tp:
         return False
-    shard_dim = w.shape[0] if contract_sharded else w.shape[1]
+    shard_dim = w_shape[0] if contract_sharded else w_shape[1]
     return shard_dim % tp == 0
 
 
@@ -309,24 +317,28 @@ def _norm_matmul(x, gamma, w, dtype, norm_impl: str = "dense",
     return matmul_any(seg(_rmsnorm, x, gamma), w, dtype)
 
 
-def _attn_core(cfg: ModelConfig, qkv, attn_fn, positions):
+def _attn_core(cfg: ModelConfig, qkv, attn_fn, positions, heads=None):
     """What lies between the attention sublayer's two products: the
     fused projection ``[B, S, ·]`` split into heads, q/k rotated by
     ``positions`` (default 0..S-1; ``[S]`` or per-row ``[B, S]``) under
     ``pos_emb="rope"``, the attention, and the heads merged back to
-    ``[B, S, d_model]``."""
+    ``[B, S, q heads · d_head]``.  ``heads``: ``(q heads, k/v heads)`` the
+    projection holds (default: the model's; a tensor-parallel rank holds
+    its share)."""
     B, S = qkv.shape[:2]
-    q, k, v = _split_qkv(cfg, qkv)
-    q = _split_heads(cfg, q)
-    k = _split_heads(cfg, k, cfg.kv_heads)
-    v = _split_heads(cfg, v, cfg.kv_heads)
+    hq, hkv = heads or (cfg.n_heads, cfg.kv_heads)
+    q, k, v = torch.split(qkv, [hq * cfg.d_head, hkv * cfg.d_head,
+                                hkv * cfg.d_head], dim=-1)
+    q = _split_heads(cfg, q, hq)
+    k = _split_heads(cfg, k, hkv)
+    v = _split_heads(cfg, v, hkv)
     if cfg.pos_emb == "rope":
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=qkv.device)
         q = apply_rope(q, positions, cfg.rope_base)
         k = apply_rope(k, positions, cfg.rope_base)
     out = attn_fn(q, k, v)
-    return out.transpose(1, 2).reshape(B, S, cfg.d_model)
+    return out.transpose(1, 2).reshape(B, S, hq * cfg.d_head)
 
 
 def _attn_sublayer(cfg: ModelConfig, x, layer,
@@ -781,7 +793,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None,
 
 
 # --------------------------------------------------------------------------
-# Sharding over a virtual mesh (mesh.Mesh)
+# Sharding over a mesh (mesh.Mesh, or mesh.ProcessMesh: process_train.py)
 # --------------------------------------------------------------------------
 
 
@@ -789,7 +801,8 @@ def param_shardings(cfg: ModelConfig, mesh) -> dict[str, Any]:
     """How each parameter leaf splits over the mesh (``train.
     param_shardings``, 692-714), as one spec per leaf (``Mesh.shard``'s
     form): the big matmuls' feature axes over "tp", norms, embeddings'
-    rows and the rest replicated.  The sharded steps take the whole tree;
+    rows and the rest replicated.  The sharded steps on a virtual mesh
+    take the whole tree, and on a process mesh each process's shards;
     this says how it is cut into per-rank shards."""
     out: dict[str, Any] = {
         "embed": (None, "tp"),
@@ -832,11 +845,22 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, lr: float = 1e-2,
     :func:`sgd_train_step` over the whole tree.  ``"fused_collective"``
     runs each sublayer's entry and exit matmul through the ring kernels on
     the mesh (see :func:`_trunk`; no-op on a 1-way "tp" axis).  Anything
-    else raises ``ValueError``."""
-    refuse_process_mesh(mesh, "make_sharded_train_step")
+    else raises ``ValueError``.
+
+    On a ``mesh.ProcessMesh`` (one process a rank) each process runs its
+    share: ``step`` takes and returns this process's shards, cut by
+    ``p_shard`` (``ProcessMesh.shard_tree``), and the global window
+    batch, the same on every process
+    (``process_train.make_process_sharded_train_step``)."""
     if matmul_impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown matmul_impl {matmul_impl!r}; expected "
                          f"'dense' or 'fused_collective'")
+    if isinstance(mesh, ProcessMesh):
+        from tpu_dra_torch.workloads.process_train import \
+            make_process_sharded_train_step
+        return make_process_sharded_train_step(
+            cfg, mesh, lr, attn_impl, head_impl, accum_steps, norm_impl,
+            matmul_impl)
     p_shard = param_shardings(cfg, mesh)
     b_shard = batch_sharding(mesh)
 

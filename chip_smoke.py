@@ -395,11 +395,37 @@ Phases (each prints as it goes; any failed check exits non-zero):
      (c) the dense step (matmul_impl="dense", Megatron TP with gloo
      all-reduces) at TP_DENSE_LAYERS layers, one step at lr 1 against
      the virtual mesh's dense step, with the same tolerances.
+ 28. the AdamW step and fit across processes, in phase 26's group after
+     27 (27's trees freed): the flagship on ProcessMesh({"dp": 2, "tp":
+     2}) at batch 16 on 26's [16, 1025] windows, attn_impl="flash", the
+     default optimizer (clip 1.0, AdamW 3e-4, decay 0.01).  (a)
+     PROCESS_STEPS make_optax_train_step(matmul_impl=
+     "fused_collective") steps, the first held to the same step on the
+     virtual mesh dp 2 × tp 2 that this process took first: the loss
+     within STEP_LOSS_ATOL and each leaf's first moment within
+     STEP_LEAF_REL (norms from each rank's squared sums psummed over the
+     group), the share of elements whose update's sign differs from the
+     virtual step's printed (informational); (b) the same steps with
+     zero1=True, run in turn with (a): after every step the parameters
+     and moments bit-equal to (a)'s in every process (shard against
+     shard), a process's moment bytes those of opt_state_bytes_per_rank
+     and half of (a)'s; each step's time (host clock, synced), its
+     shares in the gloo collectives, the gradient psum and the
+     optimizer, and peak memory (informational); launches of (a) and (b)
+     exact in each process: 4·L·n of each ring kernel, 2·L flash
+     forwards and L of each backward kernel a step; (c) fit(mesh=the
+     same mesh, zero1=True, head_impl="chunked", attn_impl="flash") at
+     TP_DENSE_LAYERS layers on phase 8's corpus at batch 16: 4 steps
+     uninterrupted, 2 saving at 2, then 2 resumed saving at 4, the
+     resumed losses and the step-4 shards bit-equal to the uninterrupted
+     run's, launches exact (no ring kernel), the save and restore
+     seconds printed; this process then reads the checkpoint back and
+     holds its tree, shapes and dtypes to a one-process run's.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces; phase
 26's launches summed over its processes added to rows #3, #6, #7 and
-#9-#11, and 27b's to rows #3, #6, #7, #9 and #10); the last line is
-{"ok": true, "device": {...}}.
+#9-#11, and 27b's and 28's to rows #3, #6, #7, #9 and #10); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -6131,7 +6157,7 @@ def tree_to(tree: dict, device) -> dict:
 
 
 def hold_sharded_step(label: str, mesh, loss, upd: dict, want_loss,
-                      want: dict) -> None:
+                      want: dict, what: str = "one step at lr 1") -> None:
     """``hold_step`` over shards: each leaf's relative L2 from this rank's
     squared error and squared norm summed over the group (a leaf whole on
     every rank counts the same number of times in both), so no rank
@@ -6148,7 +6174,7 @@ def hold_sharded_step(label: str, mesh, loss, upd: dict, want_loss,
     errs = {n: (e / r) ** 0.5 for n, (e, r) in zip(names, sums.tolist())}
     worst = max(errs, key=errs.get)
     dl = abs(float(loss) - float(want_loss))
-    log(f"[train] {label}: one step at lr 1 vs the virtual mesh's: loss "
+    log(f"[train] {label}: {what} vs the virtual mesh's: loss "
         f"{float(loss):.5f} vs {float(want_loss):.5f} (|d| {dl:.2e}, "
         f"tolerance {STEP_LOSS_ATOL}); worst leaf {worst} relative L2 "
         f"{errs[worst]:.3e} (tolerance {STEP_LEAF_REL}); median leaf "
@@ -6159,15 +6185,16 @@ def hold_sharded_step(label: str, mesh, loss, upd: dict, want_loss,
 
 
 @contextlib.contextmanager
-def tp_timers():
+def tp_timers(more: dict | None = None):
     """Seconds spent in the process ring's kernel calls and in the mesh's
-    gloo collectives while the block runs, each call synchronized before
-    and after (the wrappers add those syncs; informational)."""
+    gloo collectives while the block runs, and in each kind of ``more``
+    (kind → ``[(owner, attribute name), ...]``), each call synchronized
+    before and after (the wrappers add those syncs; informational)."""
     import torch
 
     from tpu_dra_torch.workloads import mesh as M
     from tpu_dra_torch.workloads.collective_matmul import ProcessRing
-    spent = {"ring": 0.0, "gloo": 0.0}
+    spent = {"ring": 0.0, "gloo": 0.0, **dict.fromkeys(more or {}, 0.0)}
     saved = []
 
     def timed(owner, name, kind):
@@ -6188,6 +6215,9 @@ def tp_timers():
     for name in ("group_all_reduce", "group_all_gather",
                  "group_reduce_scatter", "group_all_to_all"):
         timed(M, name, "gloo")
+    for kind, targets in (more or {}).items():
+        for owner, name in targets:
+            timed(owner, name, kind)
     try:
         yield spent
     finally:
@@ -6254,14 +6284,309 @@ def process_tp(tmp: Path, mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the AdamW step and fit across processes (dp 2 × tp 2), in 26's
+# group
+# ---------------------------------------------------------------------------
+
+OPTAX_AXES = {"dp": 2, "tp": 2}
+OPTAX_SEED = SEED + 2800
+# 28c: fit's steps uninterrupted, and where the interrupted run saves
+FIT_PROCESS_RUN = dict(steps=4, save=2, batch=16)
+
+
+def optax_params(cfg):
+    import torch
+
+    from tpu_dra_torch.workloads.train import init_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(OPTAX_SEED)
+    return init_params(cfg, gen)
+
+
+def virtual_optax_step(tmp: Path) -> None:
+    """28a's yardstick, in this process before the group starts: one
+    fused-collective ``make_optax_train_step`` step (the default
+    optimizer, flash attention) of the flagship on the virtual mesh dp 2
+    × tp 2 on the first of 26's windows, saved as its loss, each leaf's
+    first moment and the sign of each element's update (int8)."""
+    import torch
+
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.train import (ModelConfig,
+                                               make_optax_train_step,
+                                               tree_leaves, tree_unflatten)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    win = torch.load(tmp / "windows.pt")[0].to("cuda")
+    step, init, _, _ = make_optax_train_step(
+        cfg, Mesh(OPTAX_AXES), attn_impl="flash",
+        matmul_impl="fused_collective")
+    params = optax_params(cfg)
+    p0 = [t.clone() for t in tree_leaves(params)]
+    params, opt, loss = step(params, init(params), win)
+    sign = tree_unflatten(params, [
+        torch.sign(p - q).to(torch.int8).cpu()
+        for p, q in zip(tree_leaves(params), p0)])
+    del p0, params
+    torch.save({"loss": float(loss), "mu": tree_to(opt.mu, "cpu"),
+                "sign": sign}, tmp / "optax_virtual.pt")
+    del opt, sign
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def kept_state():
+    """The parameters and optimizer state that the last step of a ``fit``
+    inside the block returned (``fit``'s ``make_optax_train_step``
+    wrapped): ``{"params", "opt"}``."""
+    from tpu_dra_torch.workloads import fit as F
+    real, last = F.make_optax_train_step, {}
+
+    def make(*a, **k):
+        step, *rest = real(*a, **k)
+
+        def kept(params, opt, tokens):
+            out = step(params, opt, tokens)
+            last["params"], last["opt"] = out[0], out[1]
+            return out
+        return (kept, *rest)
+    F.make_optax_train_step = make
+    try:
+        yield last
+    finally:
+        F.make_optax_train_step = real
+
+
+def optax_lockstep(tmp: Path, mesh) -> dict:
+    """28a and 28b in one process: the replicated and the ZeRO-1 step in
+    turn from the same shards, held to each other bit for bit after every
+    step and 28a's first step to the yardstick; returns the launches, the
+    losses, the moment bytes and each run's step times and shares."""
+    import math
+
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.optim import AdamW
+    from tpu_dra_torch.workloads.train import (ModelConfig,
+                                               make_optax_train_step,
+                                               opt_state_bytes_per_rank,
+                                               opt_state_shardings,
+                                               param_shapes, tree_leaves)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    r, n, L = mesh.rank, mesh.axis_size("tp"), cfg.n_layers
+    wins = [w.to(mesh.device)
+            for w in torch.load(tmp / "windows.pt")[:PROCESS_STEPS]]
+    runs = {}
+    for zero1 in (False, True):
+        step, init, p_shard, _ = make_optax_train_step(
+            cfg, mesh, attn_impl="flash", zero1=zero1,
+            matmul_impl="fused_collective")
+        local = mesh.shard_tree(optax_params(cfg), p_shard)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sh, _ = opt_state_shardings(None, param_shapes(cfg), p_shard, mesh,
+                                    zero1)
+        opt = init(local)
+        runs[zero1] = {"step": step, "init": init, "params": local,
+                       "opt": opt, "losses": [], "ms": [], "spent": [],
+                       "bytes": [8 * sum(t.numel()
+                                         for t in tree_leaves(opt.mu)),
+                                 opt_state_bytes_per_rank(
+                                     sh, param_shapes(cfg), mesh)]}
+        del opt
+    a, b = runs[False], runs[True]
+    for run in (a, b):
+        if run["bytes"][0] != run["bytes"][1]:
+            fail(f"28 rank {r}: a process holds {run['bytes'][0]} moment "
+                 f"bytes, opt_state_bytes_per_rank says {run['bytes'][1]}")
+    if 2 * b["bytes"][0] != a["bytes"][0]:
+        fail(f"28b rank {r}: ZeRO-1 holds {b['bytes'][0]} moment bytes, "
+             f"not half of the replicated {a['bytes'][0]}")
+    p0 = [t.clone() for t in tree_leaves(a["params"])]
+    counters = {"all_gather_matmul": cm.all_gather_matmul,
+                "matmul_reduce_scatter": cm.matmul_reduce_scatter,
+                **flash_counters()}
+    timed = {"psum": [(ProcessMesh, "psum")], "optimizer": [(AdamW,
+                                                             "update")]}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    for i, win in enumerate(wins):
+        for run in (a, b):
+            with tp_timers(timed) as spent:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run["params"], run["opt"], loss = run["step"](
+                    run["params"], run["opt"], win)
+                torch.cuda.synchronize()
+                run["ms"].append(1e3 * (time.perf_counter() - t0))
+            run["spent"].append(dict(spent))
+            run["losses"].append(float(loss))
+        if i == 0:
+            optax_yardstick(tmp, mesh, a, p0)
+            del p0
+        same = (a["losses"][i] == b["losses"][i]
+                and same_trees(a["params"], b["params"])
+                and all(same_trees(b["init"].layout.cut(getattr(
+                    a["opt"], key)), getattr(b["opt"], key))
+                    for key in ("mu", "nu")))
+        if not same:
+            fail(f"28b rank {r}: ZeRO-1 after step {i + 1} is not bit-equal "
+                 f"to the replicated run")
+    launches = read_counts(counters)
+    steps = 2 * len(wins)                    # 28a's and 28b's
+    want = {"all_gather_matmul": 4 * L * n * steps,
+            "matmul_reduce_scatter": 4 * L * n * steps,
+            **flash_want(L * steps)}
+    if launches != want:
+        fail(f"28a-b rank {r}: launches {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in a["losses"]):
+        fail(f"28a rank {r}: losses {a['losses']}")
+    out = {"launches": launches, "losses": a["losses"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bytes": [a["bytes"][0], b["bytes"][0]]}
+    for name, run in (("a", a), ("b", b)):
+        out[name] = {"ms": run["ms"], "spent": run["spent"]}
+    del runs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def optax_yardstick(tmp: Path, mesh, run: dict, p0: list) -> None:
+    """28a's first step against the virtual mesh's: the loss within
+    STEP_LOSS_ATOL and each leaf's first moment within STEP_LEAF_REL
+    (:func:`hold_sharded_step`), and the share of elements whose
+    update's sign differs (informational)."""
+    import torch
+
+    from tpu_dra_torch.workloads.train import tree_leaves
+    want = torch.load(tmp / "optax_virtual.pt", mmap=True)
+    p_shard = run["init"].layout.param_specs
+    hold_sharded_step(f"28a AdamW across {mesh.size} processes, rank "
+                      f"{mesh.rank}", mesh, run["losses"][0], run["opt"].mu,
+                      want["loss"], tree_to(mesh.shard_tree(want["mu"],
+                                                            p_shard),
+                                            mesh.device),
+                      what="the first moment after one AdamW step")
+    signs = mesh.shard_tree(want["sign"], p_shard)
+    differ = total = 0
+    for new, old, s in zip(tree_leaves(run["params"]), p0,
+                           tree_leaves(signs)):
+        differ += int((torch.sign(new - old).to(torch.int8)
+                       != s.to(mesh.device)).sum())
+        total += s.numel()
+    counts = mesh.psum(torch.tensor([float(differ), float(total)],
+                                    device=mesh.device)).tolist()
+    log(f"[mp28] rank {mesh.rank}: 28a's first update's sign differs from "
+        f"the virtual step's in {counts[0] / counts[1]:.4f} of the "
+        f"elements (informational)")
+    del want, signs
+
+
+def fit_resume_check(tmp: Path, mesh) -> dict:
+    """28c in one process: ``fit`` on the process mesh, uninterrupted and
+    saved then resumed (see the module's docstring); returns the
+    launches, the losses and the save and restore seconds."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.fit import fit
+    cfg, run = tp_cfgs()["dense"], FIT_PROCESS_RUN
+    lines: list = []
+    kw = dict(mesh=mesh, batch=run["batch"], attn_impl="flash",
+              head_impl="chunked", zero1=True, log_every=1,
+              log_fn=lines.append)
+    data, ck = str(tmp / "tokens.bin"), str(tmp / "ck28")
+    counters = {"all_gather_matmul": cm.all_gather_matmul,
+                "matmul_reduce_scatter": cm.matmul_reduce_scatter,
+                **flash_counters()}
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with kept_state() as last:
+        full = fit(cfg, data, steps=run["steps"], **kw)
+        want = dict(last)
+        fit(cfg, data, steps=run["save"], checkpoint_dir=ck,
+            checkpoint_every=run["save"], **kw)
+        resumed = fit(cfg, data, steps=run["steps"] - run["save"],
+                      checkpoint_dir=ck, checkpoint_every=run["save"],
+                      resume=True, **kw)
+        got = dict(last)
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    expect = {"all_gather_matmul": 0, "matmul_reduce_scatter": 0,
+              **flash_want(cfg.n_layers * 2 * run["steps"])}
+    if launches != expect:
+        fail(f"28c rank {mesh.rank}: launches {launches}, expected {expect}")
+    same = (resumed.losses == full.losses[run["save"]:]
+            and resumed.step == run["steps"]
+            and same_trees(want["params"], got["params"])
+            and all(same_trees(getattr(want["opt"], k), getattr(got["opt"],
+                                                                 k))
+                    for k in ("mu", "nu")))
+    if not same:
+        fail(f"28c rank {mesh.rank}: the resumed run is not bit-equal to "
+             f"the uninterrupted one: losses {resumed.losses} against "
+             f"{full.losses}")
+    del want, got, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": full.losses, "seconds": secs,
+            "save_s": timed_lines(lines, r"saved in ([0-9.]+) s"),
+            "restore_s": timed_lines(lines, r"restored in ([0-9.]+) s")}
+
+
+def check_process_checkpoint(ck: Path) -> None:
+    """28c's checkpoint, read back in this process: the tree, shapes and
+    dtypes of a one-process run's (the global parameters; the count, the
+    global fp32 moments and the step)."""
+    import torch
+
+    from tpu_dra_torch.workloads.checkpointing import (latest_step,
+                                                       restore_train_state)
+    from tpu_dra_torch.workloads.train import init_params
+    cfg, run = tp_cfgs()["dense"], FIT_PROCESS_RUN
+    state = restore_train_state(str(ck), device="cpu")
+    meta = init_params(cfg, torch.Generator(), device="meta")
+    want = {"params": meta, "extra": {"opt_state": {
+        "count": run["steps"], "mu": meta, "nu": meta},
+        "step": run["steps"]}}
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {prefix + k: v})
+        return out
+    got, expect = flat(state), flat(want)
+    bad = sorted(set(got) ^ set(expect))
+    for k, v in expect.items():
+        g = got.get(k)
+        if torch.is_tensor(v):
+            if not (torch.is_tensor(g) and g.shape == v.shape
+                    and g.dtype == v.dtype):
+                bad.append(k)
+        elif g != v:
+            bad.append(k)
+    if bad or latest_step(str(ck)) != run["steps"]:
+        fail(f"28c: the process run's checkpoint departs from a "
+             f"one-process run's at {bad[:8]}")
+    log(f"[mp28] 28c: the checkpoint at step {run['steps']} holds a "
+        f"one-process run's tree ({len(expect)} leaves: the global "
+        f"parameters and fp32 moments, the count and the step; shapes and "
+        f"dtypes equal)")
+
+
 def process_rank(tmp: str) -> int:
     """One rank of phase 26's group, started by ``process_phase`` through
     ``launcher.run_local_group``: it resolves its triple and joins the
     group over gloo (NCCL refuses several ranks on one card), runs 26a on
     the whole group (n = 4) and on its pair (n = 2, ranks {0, 1} and {2,
     3} at once), then 26b on ``ProcessMesh({"dp": 1, "sp": 4})`` and 27
-    on ``ProcessMesh({"dp": 1, "tp": 4})``, and writes its results to
-    ``tmp/rank<r>.json``."""
+    on ``ProcessMesh({"dp": 1, "tp": 4})`` and 28 on ``ProcessMesh({"dp":
+    2, "tp": 2})``, and writes its results to ``tmp/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -6287,9 +6612,16 @@ def process_rank(tmp: str) -> int:
     mesh = ProcessMesh({"dp": 1, "tp": PROCESSES})
     tp = process_tp(Path(tmp), mesh)
     mesh.close()
+    t3 = time.perf_counter()
+    mesh = ProcessMesh(OPTAX_AXES)
+    optax = optax_lockstep(Path(tmp), mesh)
+    t4 = time.perf_counter()
+    optax["fit"] = fit_resume_check(Path(tmp), mesh)
+    mesh.close()
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps({
-        "kernels": kernels, "step": step, "tp": tp, "kernels_s": t1 - t0,
-        "step_s": t2 - t1, "tp_s": time.perf_counter() - t2}))
+        "kernels": kernels, "step": step, "tp": tp, "optax": optax,
+        "kernels_s": t1 - t0, "step_s": t2 - t1, "tp_s": t3 - t2,
+        "optax_s": t4 - t3, "fit_s": time.perf_counter() - t4}))
     dist.destroy_process_group()
     return 0
 
@@ -6326,26 +6658,31 @@ def virtual_step(tmp: Path) -> None:
 
 
 def process_phase(card: str) -> dict:
-    """Phases 26 and 27: the ring kernels (#9-#11), the DP×SP ring-flash
-    step and the DP×TP step across PROCESSES processes on the one card,
-    started through the port's rendezvous (``launcher.run_local_group``:
-    each rank resolves its triple and joins a gloo group); a rank that
-    fails fails the phase.  Returns each rank's launches, summed, 26's
-    and 27b's apart."""
+    """Phases 26-28: the ring kernels (#9-#11), the DP×SP ring-flash
+    step, the DP×TP step and the AdamW step and fit across PROCESSES
+    processes on the one card, started through the port's rendezvous
+    (``launcher.run_local_group``: each rank resolves its triple and
+    joins a gloo group); a rank that fails fails the phase.  Returns each
+    rank's launches, summed, 26's, 27b's and 28's apart."""
     from tpu_dra_torch.workloads.launcher import run_local_group
     with tempfile.TemporaryDirectory(prefix="chip_smoke-26-") as tmp:
         t0 = time.perf_counter()
         virtual_step(Path(tmp))
         virtual_tp_steps(Path(tmp))
         t1 = time.perf_counter()
+        virtual_optax_step(Path(tmp))
+        t2 = time.perf_counter()
         outs = run_local_group([sys.executable, "-c", PROCESS_CHILD, tmp],
                                PROCESSES, timeout=PROCESS_WAIT, cwd=str(HERE),
                                env=child_env())
+        t3 = time.perf_counter()
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(PROCESSES)]
+        check_process_checkpoint(Path(tmp) / "ck28")
+        t4 = time.perf_counter()
     for r, out in enumerate(outs):
         for ln in out.splitlines():
-            if ln.startswith(("[mp26]", "[train]")):
+            if ln.startswith(("[mp26]", "[mp28]", "[train]")):
                 log(f"[mp26] rank {r}: {ln}")
     total: dict = {}
     for r, res in enumerate(ranks):
@@ -6386,10 +6723,52 @@ def process_phase(card: str) -> dict:
             f"{TP_DENSE_LAYERS}-layer step {tp['dense_one_s']:.1f} s, phase "
             f"27 in this rank {res['tp_s']:.1f} s (informational); on {card}")
         add_counts(tp_total, tp["launches"])
-    log(f"[mp26] phases 26-27: the virtual yardsticks {t1 - t0:.1f} s, the "
-        f"group of {PROCESSES} {time.perf_counter() - t1:.1f} s; launches "
-        f"summed over the ranks: 26 {total}, 27b {tp_total}")
-    return {"launches": total, "tp_launches": tp_total}
+    optax_total = log_optax(ranks, card)
+    log(f"[mp26] phases 26-28: the virtual yardsticks {t1 - t0:.1f} s (26-27)"
+        f" and {t2 - t1:.1f} s (28), the group of {PROCESSES} "
+        f"{t3 - t2:.1f} s, 28c's checkpoint read back {t4 - t3:.1f} s; "
+        f"launches summed over the ranks: 26 {total}, 27b {tp_total}, 28 "
+        f"{optax_total}")
+    return {"launches": total, "tp_launches": tp_total,
+            "optax_launches": optax_total}
+
+
+def log_optax(ranks: list, card: str) -> dict:
+    """Phase 28's figures from each rank's results; returns its launches
+    summed over the ranks."""
+    optax_total: dict = {}
+    for r, res in enumerate(ranks):
+        op = res["optax"]
+        for name, run in (("28a replicated", op["a"]), ("28b ZeRO-1",
+                                                        op["b"])):
+            log(f"[mp28] {name} rank {r}: {PROCESS_STEPS} AdamW steps on dp 2 "
+                f"× tp 2, fused collective; "
+                + "; ".join(
+                    f"step {i + 1} {ms:.1f} ms: gloo collectives "
+                    f"{sp['gloo'] * 1e3 / ms:.3f} of it, the gradient psum "
+                    f"{sp['psum'] * 1e3 / ms:.3f}, the optimizer (its clip's "
+                    f"gather and ZeRO-1's update gathers inside) "
+                    f"{sp['optimizer'] * 1e3 / ms:.3f}, ring calls "
+                    f"{sp['ring'] * 1e3 / ms:.3f}"
+                    for i, (ms, sp) in enumerate(zip(run["ms"],
+                                                     run["spent"])))
+                + " (host clock, synced, each timed call synchronized; "
+                f"informational); on {card}")
+        log(f"[mp28] 28a-b rank {r}: losses {op['losses']}, ZeRO-1 bit-equal "
+            f"to replicated after every step, moment bytes a process "
+            f"{op['bytes'][1]} against {op['bytes'][0]} "
+            f"(opt_state_bytes_per_rank), peak memory {op['peak_gb']:.2f} GB, "
+            f"launches {op['launches']} (exact); 28a-b {res['optax_s']:.1f} "
+            f"s; on {card}")
+        add_counts(optax_total, op["launches"])
+        ft = op["fit"]
+        log(f"[mp28] 28c rank {r}: fit on dp 2 × tp 2 at {TP_DENSE_LAYERS} "
+            f"layers, zero1, the chunked head: losses {ft['losses']}, the "
+            f"resumed run bit-equal; saves {ft['save_s']} s, restore "
+            f"{ft['restore_s']} s; launches {ft['launches']} (exact); 28c "
+            f"{res['fit_s']:.1f} s; on {card}")
+        add_counts(optax_total, ft["launches"])
+    return optax_total
 
 
 def main() -> int:
@@ -6563,11 +6942,11 @@ def main() -> int:
     lap("25")
     t0 = time.perf_counter()
     processed = process_phase(card)
-    log(f"[time] phases 26-27 {time.perf_counter() - t0:.1f} s")
-    lap("26-27")
-    more = add_counts(add_counts(dict(meshed["launches"]),
-                                 processed["launches"]),
-                      processed["tp_launches"])
+    log(f"[time] phases 26-28 {time.perf_counter() - t0:.1f} s")
+    lap("26-28")
+    more = dict(meshed["launches"])
+    for key in ("launches", "tp_launches", "optax_launches"):
+        add_counts(more, processed[key])
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

@@ -48,8 +48,7 @@ WAIT = 300
 RING_CFG = dict(vocab=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
                 max_seq=32)
 MESHES = {"dp1xsp2": {"dp": 1, "sp": 2}, "dp2xsp2": {"dp": 2, "sp": 2}}
-REFUSED = ("make_optax_train_step",
-           "make_zigzag_ring_attention", "make_ring_attention",
+REFUSED = ("make_zigzag_ring_attention", "make_ring_attention",
            "make_ring_attention_flash", "make_pipeline_train_step",
            "make_moe_train_step", "make_moe_optax_step",
            "make_lora_train_step", "serving_param_shardings")

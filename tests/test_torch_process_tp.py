@@ -195,7 +195,8 @@ def test_replicated_leaves_are_the_same_bits_on_every_process(runs, mesh):
 def test_process_tree_cut_gathers_back_and_specs(runs, mesh):
     """``shard_tree`` then ``unshard_tree`` gives each case's tree back;
     the specs are the reference's ``param_shardings``; each rank sits at
-    its row-major coordinates; the chunked head raises naming ROADMAP.md."""
+    its row-major coordinates; the chunked head with label smoothing
+    raises, as on one device."""
     axes = MESHES[mesh]
     for r, (info, _) in enumerate(runs[mesh]):
         assert info["round_trips"] == dict.fromkeys(CASES, True)
@@ -205,7 +206,7 @@ def test_process_tree_cut_gathers_back_and_specs(runs, mesh):
             assert specs == {k: list(v) for k, v in flat_tree(
                 tt.param_shardings(tcfg, None)).items()}
         assert info["b_shard"] == ["dp", None]
-        assert "chunked" in info["chunked"] and "ROADMAP.md" in \
+        assert "label_smoothing" in info["chunked"] and "dense head" in \
             info["chunked"]
 
 

@@ -6,6 +6,7 @@
     python tests/torch_process_child.py ring OUT DEVICE
     python tests/torch_process_child.py mesh OUT AXES_JSON
     python tests/torch_process_child.py tp OUT AXES_JSON DEVICE
+    python tests/torch_process_child.py optax OUT AXES_JSON DEVICE
 
 ``ring``: the group ring's forward and VJP cases (:func:`ring_inputs`,
 the same global inputs on every rank) on DEVICE ("cpu": the group plain
@@ -15,7 +16,10 @@ the refusals, and the DP×SP step of ``OUT/params.npz`` on
 ``OUT/tokens.npz`` for each (ring_impl, hop_impl) of :data:`STEPS`.
 ``tp``: on a ``ProcessMesh`` of AXES (dp × tp) over DEVICE, the DP×TP
 step (``make_sharded_train_step``) of each case in ``OUT/cases.json``
-(:func:`tp_main`).
+(:func:`tp_main`).  ``optax``: on a ``ProcessMesh`` of AXES over DEVICE,
+the AdamW step (``make_optax_train_step``, replicated and ZeRO-1) and
+the chunked head's SGD step of each case in ``OUT/optax_cases.json``,
+then ``fit`` on the mesh (:func:`optax_main`).
 
 It imports torch and the port only (no JAX), so the cuda case runs it
 on a card machine as it is.
@@ -139,10 +143,8 @@ def _refusals(mesh, cfg) -> dict:
     """Each strategy the process mesh does not run yet, and what it
     raised."""
     from tpu_dra_torch.workloads import (lora, moe, pipeline, quant,
-                                         ring_attention, train)
+                                         ring_attention)
     calls = {
-        "make_optax_train_step": lambda: train.make_optax_train_step(
-            cfg, mesh, zero1=True),
         "make_zigzag_ring_attention":
             lambda: ring_attention.make_zigzag_ring_attention(mesh),
         "make_ring_attention":
@@ -245,30 +247,10 @@ def flat_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def tp_main(out: Path, axes: dict, device: str) -> None:
-    """Each case of ``OUT/cases.json`` (``name``, ``cfg``, ``params``: an
-    npz in OUT, ``tokens``: an npz in OUT, ``impl``, ``attn``, ``accum``,
-    optionally ``norm``):
-    the global parameters cut by ``p_shard`` (``shard_tree``), one step at
-    lr 1, and ``{name}_loss``, ``{name}/<leaf>`` (the new tree gathered
-    back with ``unshard_tree``) and ``{name}_local/<leaf>`` (this rank's
-    new shard) saved; ``rank<r>.json`` holds the mesh coordinates, the
-    specs, whether every tree's cut gathers back to itself, the ring
-    calls each case made and the ring kernels' launches (each ``[gather,
-    reduce-scatter]``) and what the chunked head raised."""
-    import torch.distributed as dist
-
-    from tpu_dra_torch import convert
-    from tpu_dra_torch.workloads import collective_matmul as cm
+def _count_ring_calls() -> dict:
+    """``{"ag": 0, "rs": 0}``, which every later call of the process
+    ring's gather and reduce-scatter adds one to."""
     from tpu_dra_torch.workloads.collective_matmul import ProcessRing
-    from tpu_dra_torch.workloads.mesh import ProcessMesh
-    from tpu_dra_torch.workloads.train import (ModelConfig,
-                                               make_sharded_train_step)
-    _join()
-    r = dist.get_rank()
-    if device == "cuda":
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
     calls = {"ag": 0, "rs": 0}
 
     def counted(name, key):
@@ -280,6 +262,35 @@ def tp_main(out: Path, axes: dict, device: str) -> None:
         setattr(ProcessRing, name, call)
     counted("all_gather_matmul", "ag")
     counted("matmul_reduce_scatter", "rs")
+    return calls
+
+
+def tp_main(out: Path, axes: dict, device: str) -> None:
+    """Each case of ``OUT/cases.json`` (``name``, ``cfg``, ``params``: an
+    npz in OUT, ``tokens``: an npz in OUT, ``impl``, ``attn``, ``accum``,
+    optionally ``norm``):
+    the global parameters cut by ``p_shard`` (``shard_tree``), one step at
+    lr 1, and ``{name}_loss``, ``{name}/<leaf>`` (the new tree gathered
+    back with ``unshard_tree``) and ``{name}_local/<leaf>`` (this rank's
+    new shard) saved; ``rank<r>.json`` holds the mesh coordinates, the
+    specs, whether every tree's cut gathers back to itself, the ring
+    calls each case made and the ring kernels' launches (each ``[gather,
+    reduce-scatter]``) and what the chunked head with label smoothing
+    raised."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.train import (ModelConfig,
+                                               make_optax_train_step,
+                                               make_sharded_train_step)
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    calls = _count_ring_calls()
     # on the card the mesh's own device (cuda:{rank % device_count})
     mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
     dev = mesh.device
@@ -316,10 +327,158 @@ def tp_main(out: Path, axes: dict, device: str) -> None:
         for k, v in flat_tree(new).items():
             res[f"{name}_local/{k}"] = v
     try:
-        make_sharded_train_step(cfg, mesh, head_impl="chunked")
+        make_optax_train_step(cfg, mesh, head_impl="chunked",
+                              label_smoothing=0.1)
         info["chunked"] = "ran"
     except NotImplementedError as e:
         info["chunked"] = str(e)
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+def _optax_case(case: dict, out: Path, mesh, calls: dict) -> tuple:
+    """One case of ``OUT/optax_cases.json`` on ``mesh``: ``kind`` "optax"
+    (``make_optax_train_step`` with the case's ``zero1``, ``ls``, ``z``
+    and ``head``, ``steps`` steps, one window of ``tokens`` each) or
+    "sgd" (one ``make_sharded_train_step`` step at lr 1).  Returns the
+    arrays to save (``{name}_loss`` each step; ``{name}/<leaf>`` the
+    final tree gathered, and for "optax" ``{name}_mu1/<leaf>`` after
+    step 1 and ``{name}_mu/``, ``{name}_nu/`` after the last, global)
+    and the case's info (ring calls, launches, moment bytes held and
+    ``opt_state_bytes_per_rank``, and the clip's squared norm from the
+    shards against the gathered gradients')."""
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads import train
+    from tpu_dra_torch.workloads.process_train import make_process_grads
+    name, cfg = case["name"], train.ModelConfig(**case["cfg"])
+    dev = mesh.device
+    params = convert.load_npz(out / case["params"], "cpu")
+    with np.load(out / case["tokens"]) as data:
+        windows = torch.from_numpy(data["tokens"]).to(dev)
+    kernels = (cm.all_gather_matmul, cm.matmul_reduce_scatter)
+    calls.update(ag=0, rs=0)
+    for fn in kernels:
+        fn.launches = 0
+    res, info = {}, {}
+    head = case.get("head", "dense")
+    if case["kind"] == "sgd":
+        step, p_shard, _ = train.make_sharded_train_step(
+            cfg, mesh, lr=1.0, attn_impl=case["attn"], head_impl=head,
+            matmul_impl=case["impl"])
+        local = _to(mesh.shard_tree(params, p_shard), dev)
+        local, loss = step(local, windows[0])
+        res[f"{name}_loss"] = torch.stack([loss])
+    else:
+        step, init, p_shard, _ = train.make_optax_train_step(
+            cfg, mesh, attn_impl=case["attn"], head_impl=head,
+            label_smoothing=case.get("ls", 0.0), z_loss=case.get("z", 0.0),
+            zero1=case["zero1"], matmul_impl=case["impl"])
+        local = _to(mesh.shard_tree(params, p_shard), dev)
+        if case.get("norm"):
+            grads, _, _ = make_process_grads(
+                cfg, mesh, case["attn"], head, 1, "dense", case["impl"])
+            _, g = grads(local, windows[0])
+            whole = mesh.unshard_tree(g, p_shard)
+            info["norm"] = [float(init.layout.sum_squares(g)), float(sum(
+                t.double().square().sum()
+                for t in train.tree_leaves(whole)))]
+            calls.update(ag=0, rs=0)
+            for fn in kernels:
+                fn.launches = 0
+        opt = init(local)
+        losses = []
+        for i in range(case["steps"]):
+            local, opt, loss = step(local, opt, windows[i])
+            losses.append(loss)
+            if i == 0:
+                for k, v in flat_tree(opt.to_dict()["mu"]).items():
+                    res[f"{name}_mu1/{k}"] = v.clone()
+        res[f"{name}_loss"] = torch.stack(losses)
+        state = opt.to_dict()
+        for key in ("mu", "nu"):
+            for k, v in flat_tree(state[key]).items():
+                res[f"{name}_{key}/{k}"] = v
+        sh, _ = train.opt_state_shardings(None, train.param_shapes(cfg),
+                                          p_shard, mesh, case["zero1"])
+        info["bytes"] = [
+            sum(4 * t.numel() for key in ("mu", "nu")
+                for t in train.tree_leaves(getattr(opt, key))),
+            train.opt_state_bytes_per_rank(sh, train.param_shapes(cfg),
+                                           mesh)]
+    info["calls"] = [calls["ag"], calls["rs"]]
+    info["launches"] = [fn.launches for fn in kernels]
+    for k, v in flat_tree(mesh.unshard_tree(local, p_shard)).items():
+        res[f"{name}/{k}"] = v
+    return res, info
+
+
+def _fit_runs(out: Path, mesh) -> tuple:
+    """``fit`` on the process mesh with ``OUT/fit.json``'s config and
+    corpus (batch 2): replicated and ZeRO-1 runs of 6 steps (the second
+    saving at 6 in ``ck-full``), a ZeRO-1 run of 3 saving at 3 in ``ck``
+    (copied to ``ck3`` before a second run resumes it for 3), a run
+    resuming the virtual mesh's step-3 checkpoint in ``vck`` for 3, and
+    what a ``MoEConfig`` raises."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import fit as tfit
+    from tpu_dra_torch.workloads.moe import MoEConfig
+    from tpu_dra_torch.workloads.train import ModelConfig
+    spec = json.loads((out / "fit.json").read_text())
+    cfg, data = ModelConfig(**spec["cfg"]), spec["data"]
+    kw = dict(batch=2, log_every=1, mesh=mesh, log_fn=lambda s: None)
+    losses = {"plain": tfit.fit(cfg, data, steps=6, **kw).losses,
+              "zero1": tfit.fit(cfg, data, steps=6, zero1=True,
+                                checkpoint_dir=str(out / "ck-full"),
+                                checkpoint_every=6, **kw).losses}
+    ck = str(out / "ck")
+    tfit.fit(cfg, data, steps=3, zero1=True, checkpoint_dir=ck,
+             checkpoint_every=3, **kw)
+    if mesh.rank == 0:
+        shutil.copytree(ck, out / "ck3")
+    dist.barrier()
+    resumed = tfit.fit(cfg, data, steps=3, zero1=True, checkpoint_dir=ck,
+                       checkpoint_every=3, resume=True, **kw)
+    losses["resumed"], info = resumed.losses, {"resumed_step": resumed.step}
+    losses["crossed"] = tfit.fit(cfg, data, steps=3, zero1=True,
+                                 checkpoint_dir=str(out / "vck"),
+                                 resume=True, **kw).losses
+    try:
+        tfit.fit(MoEConfig(**spec["cfg"], n_experts=2), data, steps=1, **kw)
+        info["moe"] = "ran"
+    except NotImplementedError as e:
+        info["moe"] = str(e)
+    return {f"fit_{k}": torch.tensor(v) for k, v in losses.items()}, info
+
+
+def optax_main(out: Path, axes: dict, device: str) -> None:
+    """Each case of ``OUT/optax_cases.json`` (:func:`_optax_case`) on a
+    ``ProcessMesh`` of AXES over DEVICE, then, where ``OUT/fit.json``
+    exists, :func:`_fit_runs`; ``rank<r>.json`` holds each case's info
+    and the fit runs'."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    calls = _count_ring_calls()
+    mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+    res, info = {}, {"cases": {}}
+    for case in json.loads((out / "optax_cases.json").read_text()):
+        got, info["cases"][case["name"]] = _optax_case(case, out, mesh,
+                                                        calls)
+        res.update(got)
+    if (out / "fit.json").exists():
+        got, info["fit"] = _fit_runs(out, mesh)
+        res.update(got)
     mesh.close()
     (out / f"rank{r}.json").write_text(json.dumps(info))
     _save(out, r, res)
@@ -337,5 +496,7 @@ if __name__ == "__main__":
         ring_main(out, sys.argv[3])
     elif what == "tp":
         tp_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "optax":
+        optax_main(out, json.loads(sys.argv[3]), sys.argv[4])
     else:
         mesh_main(out, json.loads(sys.argv[3]))

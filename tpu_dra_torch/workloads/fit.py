@@ -16,7 +16,12 @@ with 0, so they differ from the reference's ``jax.random`` ones.  A
 ``moe.make_moe_optax_step``; ``zero1=True`` shards the AdamW moments over
 "dp" there.  Without a mesh the run is the one-device one (the
 reference's default mesh puts every local device on "dp"; one card is
-dp 1, where ZeRO-1 changes nothing).
+dp 1, where ZeRO-1 changes nothing).  A ``mesh.ProcessMesh`` (one
+process a rank, every process calling ``fit`` alike) trains the dense
+model on its dp×tp axes: each process builds the global init from the
+one seed, keeps its shards, reads the same global batches and steps on
+its shards; a save gathers the global tree and moments and rank 0 writes
+the files of a replicated run, which every process reads back to resume.
 
 Checkpoints (``checkpointing.py``, the port's own format) hold
 ``{params, extra: {opt_state: {count, mu, nu}, step}}`` with the global
@@ -41,6 +46,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_dra_torch.device import resolve_device
 from tpu_dra_torch.workloads import goodput
@@ -50,6 +56,7 @@ from tpu_dra_torch.workloads.checkpointing import (
     save_train_state,
 )
 from tpu_dra_torch.workloads.data import TokenDataset, batches, device_prefetch
+from tpu_dra_torch.workloads.mesh import ProcessMesh, refuse_process_mesh
 from tpu_dra_torch.workloads.moe import (
     MoEConfig,
     init_moe_params,
@@ -87,11 +94,16 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
     device (default: the card), or on ``mesh`` (on its device).
 
     - ``mesh``: a dp×tp ``mesh.Mesh`` (dp×ep for a ``MoEConfig``; one
-      without "dp" and "ep" raises ``ValueError``); the batch must divide
-      by dp × ``accum_steps``.  ``zero1`` shards the moments over "dp".
+      without "dp" and "ep" raises ``ValueError``) or ``mesh.
+      ProcessMesh`` (dense models only: a ``MoEConfig`` raises
+      ``NotImplementedError``); the batch must divide by dp ×
+      ``accum_steps``.  ``zero1`` shards the moments over "dp".
     - ``checkpoint_every``: 0 disables; otherwise saves ``{params,
       extra={opt_state, step}}`` to ``checkpoint_dir`` every N steps and
-      at the end.
+      at the end.  On a ``ProcessMesh`` ``checkpoint_dir`` must be one
+      directory that every process sees: rank 0 writes the gathered
+      state and every process waits at a group barrier until the step is
+      committed.
     - ``resume``: restore the newest committed checkpoint of
       ``checkpoint_dir`` and continue from its step, on the batches and
       the schedule an uninterrupted run would have used.
@@ -99,6 +111,9 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
     ``tokens_per_s`` counts from before the first step, so it includes
     the first step's one-time costs, as the reference's does."""
     is_moe = isinstance(cfg, MoEConfig)
+    procs = isinstance(mesh, ProcessMesh)
+    if is_moe:
+        refuse_process_mesh(mesh, "fit of a MoEConfig")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if is_moe and (accum_steps != 1 or label_smoothing or z_loss):
@@ -125,7 +140,7 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
             cfg, mesh, optimizer, attn_impl=attn_impl, head_impl=head_impl,
             zero1=zero1)
     elif mesh is not None:
-        step_fn, init_opt, _, _ = make_optax_train_step(
+        step_fn, init_opt, p_shard, _ = make_optax_train_step(
             cfg, mesh, optimizer, attn_impl=attn_impl, head_impl=head_impl,
             accum_steps=accum_steps, label_smoothing=label_smoothing,
             z_loss=z_loss, zero1=zero1)
@@ -140,22 +155,33 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = (init_moe_params if is_moe else init_params)(cfg, gen)
+        if procs:                      # this process's shards only
+            params = mesh.shard_tree(params, p_shard)
         opt_state = init_opt(params)
     else:
         t0 = time.perf_counter()
         state = restore_train_state(checkpoint_dir, step=restored,
                                     device=dev)
         params = state["params"]
+        if procs:
+            params = mesh.shard_tree(params, p_shard)
         opt_state = init_opt.restore(state["extra"]["opt_state"])
         start = int(state["extra"]["step"])
+        del state
         log_fn(f"resumed from step {start} (restored in "
                f"{time.perf_counter() - t0:.2f} s)")
 
     def save(step: int) -> None:
         t0 = time.perf_counter()
-        save_train_state(checkpoint_dir, step, params,
-                         extra={"opt_state": opt_state.to_dict(),
-                                "step": step})
+        # on a process mesh every process gathers (collectives), rank 0
+        # writes, and the barrier holds the others until it is committed
+        tree = mesh.unshard_tree(params, p_shard) if procs else params
+        extra = {"opt_state": opt_state.to_dict(), "step": step}
+        if not procs or mesh.rank == 0:
+            save_train_state(checkpoint_dir, step, tree, extra=extra)
+        del tree, extra
+        if procs:
+            dist.barrier(group=mesh.group)
         log_fn(f"checkpoint step {step}: saved in "
                f"{time.perf_counter() - t0:.2f} s")
 

@@ -32,6 +32,14 @@ slice of the clipped gradient and gathers the ranks' parameter updates
 (``mesh.all_gather``) into the replicated parameters.  Each element goes
 through the same operations in the same order as without the layout, so
 the two are bit-equal.
+
+On a ``mesh.ProcessMesh`` (one process a rank) a
+:class:`ProcessMomentLayout` holds this process's shard of each moment,
+ZeRO-1 or not: the clip's norm is the psum over "tp" of the shards'
+sums of squares (the leaves whole over "tp" counted once), and under
+ZeRO-1 a moment cut over "dp" updates its block of the parameter's shard
+and the blocks' updates are gathered over the "dp" line
+(``ProcessMesh.all_gather``).
 """
 
 from __future__ import annotations
@@ -128,8 +136,18 @@ class MomentLayout:
         return list(zip(tree_leaves(tree_like(like, self.param_specs)),
                         tree_leaves(tree_like(like, self.moment_specs))))
 
+    def cut(self, tree: dict) -> dict:
+        """Moments shaped like the step's parameters (fresh zeros) → the
+        layout's."""
+        return self.shard(tree)
+
+    def sum_squares(self, grads: dict):
+        """The clip's squared global norm of a gradient tree: fp32 sums
+        of squares, summed leaf by leaf."""
+        return sum(g.float().square().sum() for g in tree_leaves(grads))
+
     def shard(self, tree: dict) -> dict:
-        """Global moment tensors → stacked ones (after a restore)."""
+        """Global moment tensors → the layout's (after a restore)."""
         return tree_unflatten(tree, [
             self.mesh.shard(t, m)
             for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
@@ -159,6 +177,62 @@ class MomentLayout:
             upd = all_gather(upd, mesh.axis_names.index("dp"), n + dims[0])
             spec = p_spec
         return mesh.unshard(upd, spec)
+
+
+def _dp_dim(spec):
+    """The dimension a moment spec cuts over "dp", or None."""
+    return next((d for d, e in enumerate(spec) if "dp" in axes_of(e)), None)
+
+
+class ProcessMomentLayout(MomentLayout):
+    """The moments on a ``mesh.ProcessMesh``: each process holds its own
+    shard of each moment, cut by the moment's spec.  Without ZeRO-1 that
+    is its parameter's spec, so a moment is shaped like the process's
+    parameter shard; with it a moment whose spec carries "dp" is the
+    process's 1/dp block of that shard along the dimension the spec cuts.
+    ``shard`` cuts a checkpoint's global moments (``ProcessMesh.shard``),
+    ``unshard`` gathers them on every process (a collective)."""
+
+    def cut(self, tree: dict) -> dict:
+        """Moments shaped like this process's parameter shards → its
+        moment shards (each cut over "dp" to its block)."""
+        out = []
+        for t, (_, spec) in zip(tree_leaves(tree), self.specs(tree)):
+            d = _dp_dim(spec)
+            if d is not None:
+                n = t.shape[d] // self.mesh.axis_size("dp")
+                t = t.narrow(d, self.mesh.axis_index("dp") * n,
+                             n).contiguous()
+            out.append(t)
+        return tree_unflatten(tree, out)
+
+    def sum_squares(self, grads: dict):
+        """The squared global norm from this process's gradient shards:
+        the fp32 sum of squares of the leaves cut over "tp", gathered
+        over the "tp" line and summed in rank order, plus that of the
+        leaves whole over "tp", counted once.  Each batch rank holds the
+        same summed gradient, so nothing is summed over the batch axes;
+        every process gets the same bits."""
+        cut, whole = [], []
+        for g, (p_spec, _) in zip(tree_leaves(grads), self.specs(grads)):
+            tp = any("tp" in axes_of(e) for e in p_spec)
+            (cut if tp else whole).append(g.float().square().sum())
+        mine = sum(cut).reshape(1) if cut else \
+            torch.zeros(1, device=self.mesh.device)
+        return self.mesh.all_gather(mine, "tp", 0).sum() + sum(whole)
+
+    def rank_update(self, specs: tuple, p, g, mu, nu, moment_fn):
+        """A leaf's update of this process's parameter shard: where the
+        moment is cut over "dp", ``moment_fn`` runs on the moment's block
+        of ``p`` and ``g`` and the blocks' fp32 updates are gathered over
+        the "dp" line (``ProcessMesh.all_gather``, through host memory
+        under gloo); elsewhere it runs on the whole shard."""
+        d = _dp_dim(specs[1])
+        if d is None:
+            return moment_fn(p, g, mu, nu)
+        n, start = mu.shape[d], self.mesh.axis_index("dp") * mu.shape[d]
+        upd = moment_fn(p.narrow(d, start, n), g.narrow(d, start, n), mu, nu)
+        return self.mesh.all_gather(upd, "dp", d)
 
 
 @dataclass
@@ -206,7 +280,8 @@ class OptStateInit:
         state = self.optimizer.init(params)
         if self.layout is None:
             return state
-        return AdamWState.from_dict(state.to_dict(), self.layout)
+        return AdamWState(state.count, self.layout.cut(state.mu),
+                          self.layout.cut(state.nu), self.layout)
 
     def restore(self, d: dict) -> AdamWState:
         return AdamWState.from_dict(d, self.layout)
@@ -235,10 +310,14 @@ class AdamW:
         return AdamWState(0, tree_unflatten(params, zeros),
                           tree_unflatten(params, [z.clone() for z in zeros]))
 
-    def clip(self, grads: list) -> list:
+    def clip(self, grads: list, sq=None) -> list:
         """``optax.clip_by_global_norm``: unchanged below ``max_norm``,
-        else ``(g / g_norm) * max_norm``; decided on the device."""
-        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        else ``(g / g_norm) * max_norm``; decided on the device.  ``sq``
+        is the squared global norm where the leaves are shards
+        (:meth:`MomentLayout.sum_squares`)."""
+        if sq is None:
+            sq = sum(g.float().square().sum() for g in grads)
+        g_norm = torch.sqrt(sq)
         keep = g_norm < MAX_NORM
         return [torch.where(keep, g, (g / g_norm) * MAX_NORM) for g in grads]
 
@@ -247,7 +326,8 @@ class AdamW:
         next state (its moment tensors updated in place too).  Under a
         ZeRO-1 ``state.layout`` each rank updates its moment shards and
         the parameter updates are gathered (:meth:`MomentLayout.
-        rank_update`)."""
+        rank_update`); on a process mesh ``params``, ``grads`` and the
+        moments are this process's shards (:class:`ProcessMomentLayout`)."""
         count = state.count + 1
         bc1 = _bias_correction(B1, count)
         bc2 = _bias_correction(B2, count)
@@ -261,8 +341,9 @@ class AdamW:
 
         layout = state.layout
         specs = layout.specs(params) if layout is not None else None
+        sq = layout.sum_squares(grads) if layout is not None else None
         for i, (p, g, mu, nu) in enumerate(zip(
-                tree_leaves(params), self.clip(tree_leaves(grads)),
+                tree_leaves(params), self.clip(tree_leaves(grads), sq),
                 tree_leaves(state.mu), tree_leaves(state.nu))):
             p.add_(moment_fn(p, g, mu, nu) if layout is None
                    else layout.rank_update(specs[i], p, g, mu, nu,

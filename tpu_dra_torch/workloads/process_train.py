@@ -1,7 +1,12 @@
-"""The DP×TP train step on a ``mesh.ProcessMesh``, one process a rank:
-what ``train.make_sharded_train_step`` builds when its mesh is a process
-mesh (the reference's ``make_sharded_train_step``, 726-753, on a mesh
-whose devices belong to many processes).
+"""The DP×TP train steps on a ``mesh.ProcessMesh``, one process a rank:
+what ``train.make_sharded_train_step`` and ``train.make_optax_train_step``
+build when their mesh is a process mesh (the reference's
+``make_sharded_train_step``, 726-753, and ``make_optax_train_step``,
+756-803, on a mesh whose devices belong to many processes).  Both run
+:func:`make_process_grads`; the SGD step takes ``p − lr·g`` from its
+gradient shards, the AdamW step hands them to the optimizer, whose
+``optim.ProcessMomentLayout`` holds this process's moment shards (cut
+over "dp" too under ZeRO-1).
 
 Each process holds its own shards, cut by ``train.param_shardings``
 (``ProcessMesh.shard_tree``), and every collective that GSPMD inserts in
@@ -46,7 +51,11 @@ the sequence shards, whose transpose reduce-scatters), then the untied
 head's vocab-parallel log-softmax against ``unembed``'s vocab shard (a
 max all-reduce, a psum of the exp sums, the target logit from the rank
 that owns it), or the tied head's partial logits against ``embed``'s
-column shard, psummed.  The loss is the psum over the batch axes of the
+column shard, psummed; label smoothing and z-loss on either
+(``train.regularized``).  ``head_impl="chunked"`` streams the same
+products in vocab chunks (``train._ChunkedNLL``): each rank its own
+vocab shard, the stats combined across tp, or the tied head's chunk
+partials psummed.  The loss is the psum over the batch axes of the
 NLL sums over the psum of the token counts (each row counted once, not
 once a tp rank).  Each rank differentiates its own share of that
 global mean, so the gradients summed over the batch axes (and over tp
@@ -65,13 +74,20 @@ from tpu_dra_torch.workloads.collective_matmul import (
     ProcessAllGatherMatmul, ProcessMatmulReduceScatter)
 from tpu_dra_torch.workloads.mesh import axes_of
 from tpu_dra_torch.workloads.quant import matmul_any
-from tpu_dra_torch.workloads.train import (_attn_core, _norm_matmul,
+from tpu_dra_torch.workloads.train import (CHUNKED_REFUSES, _attn_core,
+                                           _ChunkedNLL, _norm_matmul,
                                            _rmsnorm, attn_impl_fn,
                                            batch_sharding, dot_f32,
                                            embed_tokens, fc_splits,
-                                           layer_params, param_shardings,
-                                           remat, tree_leaves, tree_like,
-                                           tree_unflatten)
+                                           layer_params, opt_state_shardings,
+                                           param_shapes, param_shardings,
+                                           regularized, remat, smoothed_nll,
+                                           tree_leaves, tree_like,
+                                           tree_unflatten, vocab_chunks)
+
+# the chunked head's chunk count over the whole vocab (train.head_nll's
+# n_chunks); an untied rank streams its 1/tp share in CHUNKS/tp of them
+CHUNKS = 16
 
 
 def head_columns(cfg, tp: int) -> tuple:
@@ -187,12 +203,14 @@ def _dense_trunk(cfg, params, tokens, mesh, attn_fn, plan, heads,
     return x
 
 
-def vocab_parallel_nll(logits, targets, mesh):
+def vocab_parallel_nll(logits, targets, mesh, label_smoothing: float = 0.0,
+                       z_loss: float = 0.0):
     """Per-token NLL ``[bl, S, 1]`` from this rank's vocab shard of the
     fp32 logits ``[bl, S, V/tp]`` (rank r holds columns ``r·V/tp`` on):
-    ``max + log(Σ exp(logits − max)) − target logit``, the max
-    all-reduced without a gradient, the exp sums and the target logit
-    (from the rank that holds it) psummed."""
+    ``lse − target logit`` with ``lse = max + log(Σ exp(logits − max))``,
+    the max all-reduced without a gradient, the exp sums and the target
+    logit (from the rank that holds it) psummed; label smoothing's mean
+    logit is the psum of the shards' sums over V (``train.regularized``)."""
     vl = logits.shape[-1]
     m = mesh.pmax(logits.amax(dim=-1, keepdim=True), "tp")
     total = mesh.reduce(torch.exp(logits - m).sum(dim=-1, keepdim=True),
@@ -202,46 +220,98 @@ def vocab_parallel_nll(logits, targets, mesh):
     picked = logits.gather(-1, off.clamp(0, vl - 1)[..., None])
     target = mesh.reduce(torch.where(hit, picked, torch.zeros_like(picked)),
                          "tp")
-    return m + torch.log(total) - target
+    lse = m + torch.log(total)
+    return regularized(
+        lse - target, lse,
+        lambda: mesh.reduce(logits.sum(dim=-1, keepdim=True), "tp")
+        / (vl * mesh.axis_size("tp")), label_smoothing, z_loss)
 
 
-def _head_nll(params, x, targets, mesh, fc: bool):
+def _lse_combine(mesh):
+    """The chunked head's cross-rank combine of each rank's stats over its
+    vocab shard: ``lse = m + log(Σ_r exp(lse_r − m))`` with m the max of
+    the ``lse_r`` (no gradient), and the target logit from its owner."""
+    def combine(lse, t):
+        m = mesh.pmax(lse, "tp")
+        return (m + torch.log(mesh.reduce(torch.exp(lse - m), "tp")),
+                mesh.reduce(t, "tp"))
+    return combine
+
+
+def _chunked_head(h, params, targets, mesh):
+    """The chunked head (``train._ChunkedNLL``) on the normed rows ``h``
+    ``[bl, S, D]``: untied, each rank streams its own vocab shard of
+    ``unembed`` ``[D, V/tp]`` in chunks and the stats combine across tp
+    (:func:`_lse_combine`); tied, each chunk's partial logits against
+    ``embed``'s column shard are psummed over tp before the stream takes
+    them.  The backward recomputes each chunk's logits from the global
+    lse; the rows' gradient is this rank's part, which the trunk's
+    transposes sum over tp."""
+    bl, s, d = h.shape
+    tp, r = mesh.axis_size("tp"), mesh.axis_index("tp")
+    if "unembed" in params:
+        w = params["unembed"].to(torch.bfloat16)
+        vl = w.shape[1]
+        n = vocab_chunks(vl, max(1, CHUNKS // tp))
+        nll = _ChunkedNLL.apply(h.reshape(bl * s, d).to(torch.bfloat16), w,
+                                targets.reshape(-1) - r * vl, n, dot_f32,
+                                _lse_combine(mesh))
+        return nll.reshape(bl, s, 1)
+    e = params["embed"]                            # [V, D/tp]
+    dl = e.shape[1]
+    hl = h[..., r * dl:(r + 1) * dl].reshape(bl * s, dl)
+    nll = _ChunkedNLL.apply(
+        hl.to(torch.bfloat16), e.to(torch.bfloat16).T, targets.reshape(-1),
+        vocab_chunks(e.shape[0], CHUNKS),
+        lambda a, b: mesh.reduce(dot_f32(a, b), "tp"))
+    return nll.reshape(bl, s, 1)
+
+
+def _head_nll(params, x, targets, mesh, fc: bool, head_impl: str,
+              label_smoothing: float, z_loss: float):
     """ln_f on every row of x ``[bl, S, D]`` and the NLL through the
-    untied head's vocab shard or the tied head's partial logits."""
+    untied head's vocab shard or the tied head's partial logits, dense or
+    chunked."""
     gain = params["ln_f"]
     if not fc:
         x, gain = mesh.copy(x, "tp"), mesh.copy(gain, "tp")
     h = _rmsnorm(x, gain)
+    if head_impl == "chunked":
+        return _chunked_head(h, params, targets, mesh)
     if "unembed" in params:
         logits = matmul_any(h, params["unembed"], torch.bfloat16).float()
-        return vocab_parallel_nll(logits, targets, mesh)
+        return vocab_parallel_nll(logits, targets, mesh, label_smoothing,
+                                  z_loss)
     e = params["embed"]                            # [V, D/tp]
     dl, r = e.shape[1], mesh.axis_index("tp")
     hl = h[..., r * dl:(r + 1) * dl].to(torch.bfloat16)
     part = dot_f32(hl.reshape(-1, dl), e.to(torch.bfloat16).T)
     logits = mesh.reduce(part, "tp").to(torch.bfloat16).float()
-    logp = torch.log_softmax(logits.reshape(*h.shape[:-1], -1), dim=-1)
+    logits = logits.reshape(*h.shape[:-1], -1)
+    if label_smoothing or z_loss:
+        return smoothed_nll(logits, targets, label_smoothing, z_loss)
+    logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets[..., None])
 
 
-def make_process_sharded_train_step(cfg, mesh, lr: float, attn_impl: str,
-                                    head_impl: str, accum_steps: int,
-                                    norm_impl: str, matmul_impl: str):
-    """``(step, p_shard, b_shard)`` of ``train.make_sharded_train_step`` on
-    a ``ProcessMesh`` with a "tp" axis and batch axes ("dcn", "dp"):
-    ``step(params, tokens) -> (params, loss)`` takes and returns this
-    process's shards of the parameters (cut by ``p_shard``) and the
-    global ``[B, S+1]`` window batch, the same on every process, which it
-    cuts by ``b_shard``; ``accum_steps`` equal microbatches of B /
-    accum_steps global rows run one after another, as in
-    ``train.grads_fn``.  ``head_impl="chunked"`` raises
-    ``NotImplementedError``."""
-    if head_impl == "chunked":
-        raise NotImplementedError(
-            "head_impl='chunked' on a ProcessMesh is not ported yet "
-            "(ROADMAP.md §2, item 1)")
-    if head_impl != "dense":
+def make_process_grads(cfg, mesh, attn_impl: str, head_impl: str,
+                       accum_steps: int, norm_impl: str, matmul_impl: str,
+                       label_smoothing: float = 0.0, z_loss: float = 0.0):
+    """``(grads, p_shard, b_shard)`` on a ``ProcessMesh`` with a "tp" axis
+    and batch axes ("dcn", "dp"): ``grads(params, tokens) -> (loss,
+    grads)`` takes this process's shards of the parameters (cut by
+    ``p_shard``) and the global ``[B, S+1]`` window batch, the same on
+    every process, which it cuts by ``b_shard``; ``accum_steps`` equal
+    microbatches of B / accum_steps global rows run one after another, as
+    in ``train.grads_fn``.  ``grads`` is a tree like ``params`` of this
+    process's shards of the gradient of the global mean loss, summed
+    over the batch axes (one flat fp32 psum a set of leaves), the same
+    bits on every process that holds a shard.  ``label_smoothing`` and
+    ``z_loss`` need the dense head, as on one device."""
+    if head_impl not in ("dense", "chunked"):
         raise ValueError(f"unknown head_impl {head_impl!r}")
+    if head_impl == "chunked" and (label_smoothing or z_loss):
+        raise NotImplementedError(CHUNKED_REFUSES)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     batch = axes_of(mesh.batch_axes())
@@ -256,20 +326,21 @@ def make_process_sharded_train_step(cfg, mesh, lr: float, attn_impl: str,
     heads = (cfg.n_heads // tp, len(kv[mesh.axis_index("tp")]))
     everywhere = tuple(mesh.axis_names)
 
-    def grads(live, leaves, tokens, fc):
+    def micro_grads(live, leaves, tokens, fc):
         tok = mesh.shard(tokens, b_shard)
         if fc:
             x = _fc_trunk(cfg, live, tok[:, :-1], mesh, attn_fn, plan, heads)
         else:
             x = _dense_trunk(cfg, live, tok[:, :-1], mesh, attn_fn, plan,
                              heads, norm_impl)
-        nll = _head_nll(live, x, tok[:, 1:].long(), mesh, fc).sum()
+        nll = _head_nll(live, x, tok[:, 1:].long(), mesh, fc, head_impl,
+                        label_smoothing, z_loss).sum()
         count = mesh.psum(torch.tensor(float(x.shape[0] * x.shape[1]),
                                        device=x.device), batch)
         g = torch.autograd.grad(nll / count, leaves)
         return mesh.psum(nll.detach(), batch) / count, g
 
-    def step(params, tokens):
+    def grads(params, tokens):
         mesh.check_device(tokens, *tree_leaves(params))
         b, s1 = tokens.shape
         if b % accum_steps:
@@ -281,7 +352,7 @@ def make_process_sharded_train_step(cfg, mesh, lr: float, attn_impl: str,
         live = tree_unflatten(params, leaves)
         loss, g_sum = 0.0, None
         for micro in tokens.reshape(accum_steps, b // accum_steps, s1):
-            part, g = grads(live, leaves, micro, fc)
+            part, g = micro_grads(live, leaves, micro, fc)
             loss = loss + part
             g_sum = g if g_sum is None else [a + c for a, c in zip(g_sum, g)]
         # one flat fp32 psum for each set of leaves summed over the same
@@ -291,7 +362,7 @@ def make_process_sharded_train_step(cfg, mesh, lr: float, attn_impl: str,
         over = [everywhere if fc and "tp" not in
                 {a for e in spec for a in axes_of(e)} else batch
                 for spec in specs]
-        new = [None] * len(leaves)
+        out = [None] * len(leaves)
         for axes in dict.fromkeys(over):
             idx = [i for i, a in enumerate(over) if a == axes]
             flat = torch.cat([g_sum[i].reshape(-1).float() for i in idx])
@@ -299,9 +370,53 @@ def make_process_sharded_train_step(cfg, mesh, lr: float, attn_impl: str,
             at = 0
             for i in idx:
                 p = leaves[i]
-                g = flat[at:at + p.numel()].reshape(p.shape).to(p.dtype)
-                new[i] = p.detach() - lr * g
+                out[i] = flat[at:at + p.numel()].reshape(p.shape).to(p.dtype)
                 at += p.numel()
-        return tree_unflatten(params, new), loss / accum_steps
+        return loss / accum_steps, tree_unflatten(params, out)
+
+    return grads, p_shard, b_shard
+
+
+def make_process_sharded_train_step(cfg, mesh, lr: float, attn_impl: str,
+                                    head_impl: str, accum_steps: int,
+                                    norm_impl: str, matmul_impl: str):
+    """``(step, p_shard, b_shard)`` of ``train.make_sharded_train_step`` on
+    a ``ProcessMesh``: ``step(params, tokens) -> (params, loss)`` takes
+    and returns this process's shards (:func:`make_process_grads`), each
+    ``p − lr·g``."""
+    grads, p_shard, b_shard = make_process_grads(
+        cfg, mesh, attn_impl, head_impl, accum_steps, norm_impl, matmul_impl)
+
+    def step(params, tokens):
+        loss, g = grads(params, tokens)
+        return tree_unflatten(params, [
+            p.detach() - lr * gi
+            for p, gi in zip(tree_leaves(params), tree_leaves(g))]), loss
 
     return step, p_shard, b_shard
+
+
+def make_process_optax_train_step(cfg, mesh, optimizer, attn_impl: str,
+                                  head_impl: str, accum_steps: int,
+                                  label_smoothing: float, z_loss: float,
+                                  zero1: bool, norm_impl: str,
+                                  matmul_impl: str):
+    """``(step, init_opt_state, p_shard, b_shard)`` of ``train.
+    make_optax_train_step`` on a ``ProcessMesh``: the gradient shards of
+    :func:`make_process_grads`, then ``optimizer.update`` on this
+    process's shards (``optim.ProcessMomentLayout``: the clip's norm over
+    the global tree, and under ZeRO-1 the moments cut over "dp" with the
+    updates gathered over the "dp" line).  ``step(params, opt_state,
+    tokens) -> (params, opt_state, loss)`` updates ``params`` in place, as
+    the one-device step does."""
+    grads, p_shard, b_shard = make_process_grads(
+        cfg, mesh, attn_impl, head_impl, accum_steps, norm_impl, matmul_impl,
+        label_smoothing, z_loss)
+    _, init_opt_state = opt_state_shardings(optimizer, param_shapes(cfg),
+                                            p_shard, mesh, zero1=zero1)
+
+    def step(params, opt_state, tokens):
+        loss, g = grads(params, tokens)
+        return params, optimizer.update(params, g, opt_state), loss
+
+    return step, init_opt_state, p_shard, b_shard

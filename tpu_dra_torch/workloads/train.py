@@ -13,12 +13,13 @@ smoothing, z-loss), ``grads_fn`` with gradient accumulation,
 kernels (``flash.py``); ``norm_impl="fused"`` runs each sublayer's
 rmsnorm→matmul pair through the fused kernel (``matmul.py``) where the
 reference would.  The sharded half: ``param_shardings``,
-``batch_sharding`` and ``make_sharded_train_step`` over a virtual mesh
-(``mesh.py``) or a process mesh (``process_train.py``), with
+``batch_sharding``, ``make_sharded_train_step`` and
+``make_optax_train_step`` over a virtual mesh (``mesh.py``) or a
+process mesh (``process_train.py``), with
 ``matmul_impl="fused_collective"`` running each sublayer's entry and
 exit matmul through the ring kernels (``collective_matmul.py``), and
-``make_optax_train_step`` with its optimizer state laid out by
-``opt_state_shardings`` (ZeRO-1 over "dp": ``optim.MomentLayout``).
+the optimizer state laid out by ``opt_state_shardings`` (ZeRO-1 over
+"dp": ``optim.MomentLayout``, ``optim.ProcessMomentLayout``).
 ``packed_loss_fn`` trains on rows packed by ``data.pack_documents``
 (dense attention only: the flash kernels have no segment mask).  The
 trunk rematerializes in the backward what lies between its weight
@@ -44,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from tpu_dra_torch.workloads.mesh import ProcessMesh, refuse_process_mesh
+from tpu_dra_torch.workloads.mesh import ProcessMesh
 from tpu_dra_torch.workloads.quant import matmul_any
 
 
@@ -550,27 +551,14 @@ def head_nll(params, x, targets, head_impl: str = "dense",
                          f"of {_HEAD_IMPLS}")
     if label_smoothing or z_loss:
         if head_impl == "chunked":
-            raise NotImplementedError(
-                "label_smoothing/z_loss need the dense head (the chunked "
-                "backward doesn't carry mean-logit/lse stats)")
-        logits = head_logits(params, x)
-        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-        nll = lse - logits.gather(-1, targets[..., None])
-        if label_smoothing:
-            uniform_nll = lse - logits.mean(dim=-1, keepdim=True)
-            nll = (1.0 - label_smoothing) * nll \
-                + label_smoothing * uniform_nll
-        if z_loss:
-            nll = nll + z_loss * lse.square()
-        return nll
+            raise NotImplementedError(CHUNKED_REFUSES)
+        return smoothed_nll(head_logits(params, x), targets,
+                            label_smoothing, z_loss)
     if head_impl == "chunked":
         B, S, D = x.shape
         w_full = (params["embed"].T if "unembed" not in params
                   else params["unembed"])
-        V = w_full.shape[1]
-        n = min(n_chunks, V)
-        while V % n:
-            n -= 1
+        n = vocab_chunks(w_full.shape[1], n_chunks)
         h = _rmsnorm(x, params["ln_f"]).reshape(B * S, D)
         nll = _ChunkedNLL.apply(h.to(torch.bfloat16),
                                 w_full.to(torch.bfloat16),
@@ -578,6 +566,41 @@ def head_nll(params, x, targets, head_impl: str = "dense",
         return nll.reshape(B, S, 1)
     logp = torch.log_softmax(head_logits(params, x), dim=-1)
     return -logp.gather(-1, targets[..., None])
+
+
+CHUNKED_REFUSES = ("label_smoothing/z_loss need the dense head (the "
+                   "chunked backward doesn't carry mean-logit/lse stats)")
+
+
+def smoothed_nll(logits, targets, label_smoothing: float, z_loss: float):
+    """Per-token NLL ``[B, S, 1]`` of fp32 ``logits`` ``[B, S, V]`` with
+    :func:`head_nll`'s label smoothing and z-loss (:func:`regularized`)."""
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    nll = lse - logits.gather(-1, targets[..., None])
+    return regularized(nll, lse, lambda: logits.mean(dim=-1, keepdim=True),
+                       label_smoothing, z_loss)
+
+
+def regularized(nll, lse, mean_logit: Callable, label_smoothing: float,
+                z_loss: float):
+    """``(1−ε)·nll + ε·(lse − mean(logits))`` where ``label_smoothing`` ε
+    is set (``mean_logit()`` gives the mean), plus ``z_loss·lse²`` where
+    ``z_loss`` is."""
+    if label_smoothing:
+        uniform_nll = lse - mean_logit()
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * uniform_nll
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return nll
+
+
+def vocab_chunks(vocab: int, n_chunks: int) -> int:
+    """The chunked head's chunk count: the largest divisor of ``vocab``
+    not above ``n_chunks``."""
+    n = min(n_chunks, vocab)
+    while vocab % n:
+        n -= 1
+    return n
 
 
 def dot_f32(a, b):
@@ -590,10 +613,11 @@ def dot_f32(a, b):
     return a.float() @ b.float()
 
 
-def _chunked_logits_stats(x, w, targets, n_chunks: int):
+def _chunked_logits_stats(x, w, targets, n_chunks: int, logits_of=dot_f32):
     """Online logsumexp and target logit over vocab chunks: x ``[N, D]``
     bf16, w ``[D, V]`` bf16, targets ``[N]``; returns ``(lse, t_logit)``
-    fp32 ``[N]``."""
+    fp32 ``[N]``.  ``logits_of(x, w chunk)`` gives a chunk's fp32
+    logits."""
     N, V = x.shape[0], w.shape[1]
     C = V // n_chunks
     m = torch.full((N,), torch.finfo(torch.float32).min,
@@ -601,7 +625,7 @@ def _chunked_logits_stats(x, w, targets, n_chunks: int):
     l = torch.zeros(N, dtype=torch.float32, device=x.device)
     t = torch.zeros(N, dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
-        logits = dot_f32(x, w[:, c * C:(c + 1) * C])
+        logits = logits_of(x, w[:, c * C:(c + 1) * C])
         m_new = torch.maximum(m, logits.amax(dim=-1))
         l = l * torch.exp(m - m_new) + torch.exp(
             logits - m_new[:, None]).sum(dim=-1)
@@ -617,13 +641,22 @@ class _ChunkedNLL(torch.autograd.Function):
     """Streamed-vocab NLL ``lse − target_logit`` ``[N]``; the counterpart
     of the reference's ``_chunked_nll`` custom VJP (``train.py:556-597``).
     Forward keeps only the lse; backward recomputes each chunk's logits,
-    ``d nll/d logits = softmax − onehot(target)``."""
+    ``d nll/d logits = softmax − onehot(target)``.
+
+    ``apply(x, w, targets, n_chunks, logits_of=dot_f32, combine=None)``:
+    ``logits_of(x, w chunk)`` gives a chunk's fp32 logits, and
+    ``combine(lse, t)`` turns the stream's stats into the ones the NLL
+    takes (the process mesh's vocab-parallel head, ``process_train.py``,
+    streams each rank's vocab shard and combines across ranks)."""
 
     @staticmethod
-    def forward(ctx, x, w, targets, n_chunks: int):
-        lse, t = _chunked_logits_stats(x, w, targets, n_chunks)
+    def forward(ctx, x, w, targets, n_chunks: int, logits_of=dot_f32,
+                combine=None):
+        lse, t = _chunked_logits_stats(x, w, targets, n_chunks, logits_of)
+        if combine is not None:
+            lse, t = combine(lse, t)
         ctx.save_for_backward(x, w, targets, lse)
-        ctx.n_chunks = n_chunks
+        ctx.n_chunks, ctx.logits_of = n_chunks, logits_of
         return lse - t
 
     @staticmethod
@@ -639,12 +672,12 @@ class _ChunkedNLL(torch.autograd.Function):
                          device=x.device)
         for c in range(n_chunks):
             wc = w[:, c * C:(c + 1) * C]
-            p = torch.exp(dot_f32(x, wc) - lse[:, None])
+            p = torch.exp(ctx.logits_of(x, wc) - lse[:, None])
             onehot = ((targets - c * C)[:, None] == cols[None, :]).float()
             ds = ((p - onehot) * gf[:, None]).to(torch.bfloat16)   # [N, C]
             dx = dx + dot_f32(ds, wc.T)
             dw[:, c * C:(c + 1) * C] = dot_f32(x.T, ds)
-        return dx.to(x.dtype), dw.to(w.dtype), None, None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None
 
 
 def loss_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
@@ -896,8 +929,13 @@ def opt_state_shardings(optimizer, param_shapes, p_shard, mesh,
     moments of a checkpoint.  Without ZeRO-1 the specs are annotations:
     the moments stay global, as the one-device step keeps them.
     ``param_shapes`` and ``p_shard`` are trees of shapes and specs
-    (:func:`param_shapes`, :func:`param_shardings`)."""
-    from tpu_dra_torch.workloads.optim import MomentLayout, OptStateInit
+    (:func:`param_shapes`, :func:`param_shardings`).
+
+    On a ``mesh.ProcessMesh`` each process holds its own shard of every
+    moment, cut by its spec, ZeRO-1 or not
+    (``optim.ProcessMomentLayout``)."""
+    from tpu_dra_torch.workloads.optim import (MomentLayout, OptStateInit,
+                                               ProcessMomentLayout)
     dp = mesh.axis_size("dp")
 
     def moment_spec(shape, spec):
@@ -915,8 +953,11 @@ def opt_state_shardings(optimizer, param_shapes, p_shard, mesh,
         moment_spec(tuple(sh), sp)
         for sh, sp in zip(shapes, tree_leaves(p_shard))])
     opt_sh = {"count": (), "mu": m_specs, "nu": m_specs}
-    layout = (MomentLayout(mesh, p_shard, m_specs) if zero1 and dp > 1
-              else None)
+    if isinstance(mesh, ProcessMesh):
+        layout = ProcessMomentLayout(mesh, p_shard, m_specs)
+    else:
+        layout = (MomentLayout(mesh, p_shard, m_specs) if zero1 and dp > 1
+                  else None)
     return opt_sh, OptStateInit(optimizer, layout)
 
 
@@ -948,14 +989,26 @@ def make_optax_train_step(cfg: ModelConfig, mesh, optimizer=None,
     collectives make them; the optimizer state follows
     :func:`opt_state_shardings`, and ``zero1=True`` partitions the
     update over "dp" (bit-equal to ``zero1=False``: the global-norm clip
-    still reduces over the whole gradient tree)."""
-    refuse_process_mesh(mesh, "make_optax_train_step")
+    still reduces over the whole gradient tree).
+
+    On a ``mesh.ProcessMesh`` (one process a rank) ``step`` takes and
+    returns this process's shards of the parameters (cut by ``p_shard``,
+    ``ProcessMesh.shard_tree``) and of the moments, and the global window
+    batch, the same on every process; ``opt_state.to_dict()`` gathers the
+    global moments on every process (a collective)
+    (``process_train.make_process_optax_train_step``)."""
     from tpu_dra_torch.workloads.optim import default_optimizer
     if matmul_impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown matmul_impl {matmul_impl!r}; expected "
                          f"'dense' or 'fused_collective'")
     if optimizer is None:
         optimizer = default_optimizer()
+    if isinstance(mesh, ProcessMesh):
+        from tpu_dra_torch.workloads.process_train import \
+            make_process_optax_train_step
+        return make_process_optax_train_step(
+            cfg, mesh, optimizer, attn_impl, head_impl, accum_steps,
+            label_smoothing, z_loss, zero1, norm_impl, matmul_impl)
     p_shard = param_shardings(cfg, mesh)
     b_shard = batch_sharding(mesh)
     _, init_opt_state = opt_state_shardings(optimizer, param_shapes(cfg),

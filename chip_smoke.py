@@ -421,11 +421,45 @@ Phases (each prints as it goes; any failed check exits non-zero):
      run's, launches exact (no ring kernel), the save and restore
      seconds printed; this process then reads the checkpoint back and
      holds its tree, shapes and dtypes to a one-process run's.
+ 29. ring attention, zigzag, GPipe and ici_shift across processes, in
+     phase 26's group after 28, each held to a yardstick the parent
+     computed on the virtual mesh before the group started.  (a) on
+     ProcessMesh({"sp": 4}), make_zigzag_ring_attention with both
+     engines at ZIGZAG_CASES' two shapes (flagship heads and GQA 8 over
+     2): every process passes the same global q, k, v and gets the
+     global output and the q, k, v gradients of a fixed cotangent, each
+     within flash.ELEM_TOL elementwise and STEP_LEAF_REL relative L2 of
+     the virtual mesh's; the flash engine launches exactly 2n + 1 = 9
+     forwards (#3, or #4 under GQA) and 9 of each backward kernel (#6,
+     #7) a process a call, the per-process schedule running its own
+     branch of the reference's lax.cond; a call's forward and forward
+     plus backward timed (CUDA events, informational); (b) the same for
+     make_ring_attention_flash and make_ring_attention with
+     hop_impl="pallas" at the flagship-heads shape: #3 and each backward
+     kernel 1 + idx times in rank idx, #11 2(n − 1) times forward and as
+     many backward; (c) on ProcessMesh({"dp": 1, "pp": 4}) GPipe of the
+     flagship at batch 16, n_micro 4, on 26's windows: each process
+     builds the tree from the seed, keeps its stage's shards and frees
+     the rest; one step at lr 1 held to the virtual mesh's pipeline step
+     (the loss within STEP_LOSS_ATOL, every leaf's update within
+     STEP_LEAF_REL, norms from each rank's squared sums; whether it is
+     bit-equal printed), the replicated leaves the same bits in all 4
+     processes, then PROCESS_STEPS steps with finite losses and no
+     kernel launched (the stages run dense attention); the step time
+     (host clock, synced), its shares in the activation hops and the
+     gradient psum (gloo), peak memory and the bubble (pp − 1) /
+     (n_micro + pp − 1); (d) kv_handoff.ici_shift with the ring of the
+     4 on a seeded handoff of the serving model's shape (8 layers, 2 kv
+     heads, head dim 128, a 1024-token prompt) as a bf16 cache and an
+     int8 cache with fp32 scales, one dict of six leaves: one hop on is
+     byte-equal to the neighbour's block, and back to the start, with
+     exactly one #11 launch a leaf a direction.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces; phase
 26's launches summed over its processes added to rows #3, #6, #7 and
-#9-#11, and 27b's and 28's to rows #3, #6, #7, #9 and #10); the last
-line is {"ok": true, "device": {...}}.
+#9-#11, 27b's and 28's to rows #3, #6, #7, #9 and #10, and 29's to rows
+#3, #4, #6, #7 and #11); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -6586,7 +6620,9 @@ def process_rank(tmp: str) -> int:
     the whole group (n = 4) and on its pair (n = 2, ranks {0, 1} and {2,
     3} at once), then 26b on ``ProcessMesh({"dp": 1, "sp": 4})`` and 27
     on ``ProcessMesh({"dp": 1, "tp": 4})`` and 28 on ``ProcessMesh({"dp":
-    2, "tp": 2})``, and writes its results to ``tmp/rank<r>.json``."""
+    2, "tp": 2})``, 29a, b and d on ``ProcessMesh({"sp": 4})`` and 29c on
+    ``ProcessMesh({"dp": 1, "pp": 4})``, and writes its results to
+    ``tmp/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -6618,10 +6654,20 @@ def process_rank(tmp: str) -> int:
     t4 = time.perf_counter()
     optax["fit"] = fit_resume_check(Path(tmp), mesh)
     mesh.close()
+    t5 = time.perf_counter()
+    mesh = ProcessMesh(ATTN_AXES)
+    attn = process_attention(Path(tmp), mesh)
+    mesh.close()
+    t6 = time.perf_counter()
+    mesh = ProcessMesh(PIPE_AXES)
+    pipe = process_pipe(Path(tmp), mesh)
+    mesh.close()
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps({
         "kernels": kernels, "step": step, "tp": tp, "optax": optax,
+        "attn": attn, "pipe": pipe,
         "kernels_s": t1 - t0, "step_s": t2 - t1, "tp_s": t3 - t2,
-        "optax_s": t4 - t3, "fit_s": time.perf_counter() - t4}))
+        "optax_s": t4 - t3, "fit_s": t5 - t4, "attn_s": t6 - t5,
+        "pipe_s": time.perf_counter() - t6}))
     dist.destroy_process_group()
     return 0
 
@@ -6658,12 +6704,13 @@ def virtual_step(tmp: Path) -> None:
 
 
 def process_phase(card: str) -> dict:
-    """Phases 26-28: the ring kernels (#9-#11), the DP×SP ring-flash
-    step, the DP×TP step and the AdamW step and fit across PROCESSES
-    processes on the one card, started through the port's rendezvous
+    """Phases 26-29: the ring kernels (#9-#11), the DP×SP ring-flash
+    step, the DP×TP step, the AdamW step and fit, and the ring attention
+    makers, zigzag, GPipe and ici_shift across PROCESSES processes on the
+    one card, started through the port's rendezvous
     (``launcher.run_local_group``: each rank resolves its triple and
     joins a gloo group); a rank that fails fails the phase.  Returns each
-    rank's launches, summed, 26's, 27b's and 28's apart."""
+    rank's launches, summed, 26's, 27b's, 28's and 29's apart."""
     from tpu_dra_torch.workloads.launcher import run_local_group
     with tempfile.TemporaryDirectory(prefix="chip_smoke-26-") as tmp:
         t0 = time.perf_counter()
@@ -6671,6 +6718,10 @@ def process_phase(card: str) -> dict:
         virtual_tp_steps(Path(tmp))
         t1 = time.perf_counter()
         virtual_optax_step(Path(tmp))
+        t2 = time.perf_counter()
+        virtual_attention(Path(tmp))
+        virtual_pipe_step(Path(tmp))
+        t29 = time.perf_counter() - t2
         t2 = time.perf_counter()
         outs = run_local_group([sys.executable, "-c", PROCESS_CHILD, tmp],
                                PROCESSES, timeout=PROCESS_WAIT, cwd=str(HERE),
@@ -6682,7 +6733,7 @@ def process_phase(card: str) -> dict:
         t4 = time.perf_counter()
     for r, out in enumerate(outs):
         for ln in out.splitlines():
-            if ln.startswith(("[mp26]", "[mp28]", "[train]")):
+            if ln.startswith(("[mp26]", "[mp28]", "[mp29]", "[train]")):
                 log(f"[mp26] rank {r}: {ln}")
     total: dict = {}
     for r, res in enumerate(ranks):
@@ -6724,13 +6775,14 @@ def process_phase(card: str) -> dict:
             f"27 in this rank {res['tp_s']:.1f} s (informational); on {card}")
         add_counts(tp_total, tp["launches"])
     optax_total = log_optax(ranks, card)
-    log(f"[mp26] phases 26-28: the virtual yardsticks {t1 - t0:.1f} s (26-27)"
-        f" and {t2 - t1:.1f} s (28), the group of {PROCESSES} "
-        f"{t3 - t2:.1f} s, 28c's checkpoint read back {t4 - t3:.1f} s; "
-        f"launches summed over the ranks: 26 {total}, 27b {tp_total}, 28 "
-        f"{optax_total}")
+    attn_total = log_attention(ranks, card)
+    log(f"[mp26] phases 26-29: the virtual yardsticks {t1 - t0:.1f} s (26-27)"
+        f", {t2 - t1 - t29:.1f} s (28) and {t29:.1f} s (29), the group of "
+        f"{PROCESSES} {t3 - t2:.1f} s, 28c's checkpoint read back "
+        f"{t4 - t3:.1f} s; launches summed over the ranks: 26 {total}, 27b "
+        f"{tp_total}, 28 {optax_total}, 29 {attn_total}")
     return {"launches": total, "tp_launches": tp_total,
-            "optax_launches": optax_total}
+            "optax_launches": optax_total, "attn_launches": attn_total}
 
 
 def log_optax(ranks: list, card: str) -> dict:
@@ -6769,6 +6821,326 @@ def log_optax(ranks: list, card: str) -> dict:
             f"{res['fit_s']:.1f} s; on {card}")
         add_counts(optax_total, ft["launches"])
     return optax_total
+
+
+# ---------------------------------------------------------------------------
+# phase 29: ring attention, zigzag, GPipe and ici_shift across processes, in
+# 26's group
+# ---------------------------------------------------------------------------
+
+ATTN_AXES = {"sp": PROCESSES}          # 29a, 29b and 29d
+PIPE_AXES = {"dp": 1, "pp": PROCESSES}  # 29c
+ATTN_SEED = SEED + 2900
+PIPE_SEED = SEED + 2950
+# 29d: a handoff of the serving model's shape (MODEL's layers and kv heads,
+# head dim 128) for a prompt of this many tokens
+HANDOFF_TOKENS = 1024
+
+
+def attn_inputs(i: int) -> list:
+    """The global bf16 q, k, v and output cotangent at ZIGZAG_CASES[i],
+    drawn from one seed alike by the parent and by every rank."""
+    import torch
+    _, B, H, Hkv, S, D = ZIGZAG_CASES[i]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(ATTN_SEED + i)
+    return [torch.randn((B, h, S, D), generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (H, Hkv, Hkv, H)]
+
+
+def attn_makers(mesh) -> dict:
+    """label → (attention over global q, k, v on ``mesh``, case index):
+    29a's zigzag engines at both ZIGZAG_CASES shapes and 29b's ring
+    makers (hop_impl="pallas") at the flagship-heads shape."""
+    from tpu_dra_torch.workloads.ring_attention import (
+        make_ring_attention, make_ring_attention_flash,
+        make_zigzag_ring_attention)
+    out = {}
+    for i in range(len(ZIGZAG_CASES)):
+        for impl, name in (("flash", "flash"), ("xla", "fp32")):
+            out[f"29a zigzag {name} engine, {ZIGZAG_CASES[i][0]}"] = (
+                make_zigzag_ring_attention(mesh, impl=impl), i)
+    out[f"29b make_ring_attention_flash, {ZIGZAG_CASES[0][0]}"] = (
+        make_ring_attention_flash(mesh, hop_impl="pallas"), 0)
+    out[f"29b make_ring_attention, {ZIGZAG_CASES[0][0]}"] = (
+        make_ring_attention(mesh, hop_impl="pallas"), 0)
+    return out
+
+
+def attn_want(label: str, gqa: bool, n: int, idx: int) -> dict:
+    """A 29a-b call's exact launches (forward and backward) in rank idx
+    of n: the zigzag flash engine 2n + 1 chunk-attends, the plain ring's
+    flash engine 1 + idx blocks, #11 2(n − 1) shifts each way."""
+    fwd = "flash_fwd_gqa" if gqa else "flash_fwd"
+    if "zigzag flash" in label:
+        k = 2 * n + 1
+        return {fwd: k, "flash_bwd_dq": k, "flash_bwd_dkdv": k}
+    if "zigzag" in label:
+        return {}
+    out = {"ring_shift": 4 * (n - 1)}
+    if "flash" in label:
+        out.update({fwd: 1 + idx, "flash_bwd_dq": 1 + idx,
+                    "flash_bwd_dkdv": 1 + idx})
+    return out
+
+
+def virtual_attention(tmp: Path) -> None:
+    """29a-b's yardsticks, in this process before the group starts: each
+    maker of :func:`attn_makers` on the virtual mesh ATTN_AXES at its
+    inputs, the output and the q, k, v gradients of the cotangent,
+    saved."""
+    import torch
+
+    from tpu_dra_torch.workloads.mesh import Mesh
+    want = {}
+    for label, (fn, i) in attn_makers(Mesh(ATTN_AXES)).items():
+        q, k, v, cot = attn_inputs(i)
+        ins = [t.requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        grads = torch.autograd.grad(out, ins, cot)
+        want[label] = [t.detach().cpu() for t in (out, *grads)]
+        del ins, out, grads
+    torch.save(want, tmp / "attn29.pt")
+    torch.cuda.empty_cache()
+
+
+def handoff_payload(n: int) -> dict:
+    """29d's global leaves ``[n, ...]`` (rank r's own at ``[r]``), drawn
+    from one seed: a bf16 cache's k and v, an int8 cache's k and v and
+    their fp32 scales, each ``[layers, kv heads, tokens, head dim]``
+    (scales without the head dim)."""
+    import torch
+    shape = (n, MODEL["n_layers"], MODEL["n_kv_heads"], HANDOFF_TOKENS,
+             MODEL["d_model"] // MODEL["n_heads"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(ATTN_SEED + 99)
+
+    def q8():
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return {"ks": torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16),
+            "vs": torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16),
+            "ks_q8": q8(), "vs_q8": q8(),
+            "ks_scale": torch.rand(shape[:-1], generator=gen, device="cuda"),
+            "vs_scale": torch.rand(shape[:-1], generator=gen, device="cuda")}
+
+
+def process_attention(tmp: Path, mesh) -> dict:
+    """29a, 29b and 29d in one process on ``ProcessMesh(ATTN_AXES)``: each
+    maker on the global inputs with exact launches (zeroed just before
+    the call, read just after), its output and gradients held to the
+    virtual mesh's (ELEM_TOL elementwise and STEP_LEAF_REL relative L2),
+    then its calls timed; then ``ici_shift`` of this rank's handoff
+    leaves one hop on and back, byte-equal, one #11 launch a leaf a
+    direction."""
+    import torch
+
+    from tpu_dra_torch.workloads.flash import ELEM_TOL
+    from tpu_dra_torch.workloads.kv_handoff import ici_shift
+    n, idx = mesh.axis_size("sp"), mesh.axis_index("sp")
+    want_all = torch.load(tmp / "attn29.pt", mmap=True)
+    total: dict = {}
+    out = {"err": {}, "ms": {}, "launches": {}}
+    for label, (fn, i) in attn_makers(mesh).items():
+        _, _, H, Hkv, _, _ = ZIGZAG_CASES[i]
+        q, k, v, cot = attn_inputs(i)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def call():
+            y = fn(*ins)
+            return (y.detach(), *torch.autograd.grad(y, ins, cot))
+        got, launches = counted(call, gqa=Hkv < H)
+        torch.cuda.synchronize()
+        want = attn_want(label, Hkv < H, n, idx)
+        if launches != want:
+            fail(f"{label}, rank {idx}: launches {launches}, expected {want}")
+        add_counts(total, launches)
+        out["launches"][label] = launches
+        errs = []
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got,
+                              want_all[label]):
+            g, w = g.float(), w.to(g.device).float()
+            ratio = float(((g - w).abs() / (ELEM_TOL + ELEM_TOL * w.abs()))
+                          .max())
+            rel = float((g - w).norm() / w.norm())
+            errs.append([name, float((g - w).abs().max()), ratio, rel])
+            if not (torch.isfinite(g).all() and ratio <= 1.0
+                    and rel <= STEP_LEAF_REL):
+                fail(f"{label}, rank {idx}: {name} departs from the virtual "
+                     f"mesh's ({ratio:.3f} of ELEM_TOL elementwise, "
+                     f"relative L2 {rel:.3e})")
+        out["err"][label] = errs
+        del got, ins
+        with torch.no_grad():
+            fwd_ms = call_ms(lambda: fn(q, k, v))
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out["ms"][label] = [fwd_ms, call_ms(call)]
+        del ins, q, k, v, cot
+        torch.cuda.empty_cache()
+    del want_all
+    ring = mesh.ring("sp")
+    payload = handoff_payload(n)
+    mine = {name: t[idx].contiguous() for name, t in payload.items()}
+    there, launches_on = counted(lambda: ici_shift(mine, ring=ring))
+    back, launches_back = counted(
+        lambda: ici_shift(there, reverse=True, ring=ring))
+    for name, t in mine.items():
+        same_bytes(f"29d ici_shift of {name}, rank {idx}: one hop on vs "
+                   f"rank {(idx - 1) % n}'s block", there[name],
+                   payload[name][(idx - 1) % n])
+        same_bytes(f"29d ici_shift of {name}, rank {idx}: on and back",
+                   back[name], t)
+    for way, seen in (("on", launches_on), ("back", launches_back)):
+        if seen != {"ring_shift": len(mine)}:
+            fail(f"29d ici_shift {way}, rank {idx}: launches {seen}, "
+                 f"expected one #11 launch for each of {len(mine)} leaves")
+        add_counts(total, seen)
+    out["ici_ms"] = call_ms(lambda: ici_shift(mine, ring=ring))
+    out["ici_bytes"] = sum(t.numel() * t.element_size()
+                           for t in mine.values())
+    out["total"] = total
+    return out
+
+
+def virtual_pipe_step(tmp: Path) -> None:
+    """29c's yardstick, in this process before the group starts: GPipe of
+    the flagship on the virtual mesh PIPE_AXES at lr 1 (n_micro
+    PIPE_RUN's, the PIPE_SEED tree, 26's first window), saved as its
+    loss and each leaf's update."""
+    import torch
+
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.pipeline import make_pipeline_train_step
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**TRAIN_MODEL)
+    win = torch.load(tmp / "windows.pt")[0].to("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PIPE_SEED)
+    params = init_params(cfg, gen)
+    step, _, _ = make_pipeline_train_step(cfg, Mesh(PIPE_AXES),
+                                          n_micro=PIPE_RUN["n_micro"], lr=1.0)
+    new, loss = step(params, win)
+    upd = leaf_updates(params, new, 1.0)
+    del new, params
+    torch.save({"loss": float(loss), "upd": tree_to(upd, "cpu")},
+               tmp / "pipe29.pt")
+    del upd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def process_pipe(tmp: Path, mesh) -> dict:
+    """29c in one process on ``ProcessMesh(PIPE_AXES)``: stage
+    ``coords["pp"]`` of the flagship's GPipe (see the module's
+    docstring)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+    from tpu_dra_torch.workloads.pipeline import make_pipeline_train_step
+    from tpu_dra_torch.workloads.train import (ModelConfig, init_params,
+                                               tree_leaves)
+    cfg = ModelConfig(**TRAIN_MODEL)
+    pp, n_micro = mesh.axis_size("pp"), PIPE_RUN["n_micro"]
+    stage = mesh.axis_index("pp")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PIPE_SEED)
+    whole = init_params(cfg, gen)
+    step, p_shard, _ = make_pipeline_train_step(cfg, mesh, n_micro=n_micro,
+                                                lr=1.0)
+    params = mesh.shard_tree(whole, p_shard)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    wins = [w.to(mesh.device) for w in torch.load(tmp / "windows.pt")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, loss = step(params, wins[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    saved = torch.load(tmp / "pipe29.pt", mmap=True)
+    want = tree_to(mesh.shard_tree(saved["upd"], p_shard), mesh.device)
+    upd = leaf_updates(params, new, 1.0)
+    hold_sharded_step(f"29c GPipe across {pp} processes, rank {stage}", mesh,
+                      loss, upd, saved["loss"], want)
+    mine = float(loss) == saved["loss"] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(upd),
+                                          tree_leaves(want)))
+    bit_equal = bool(mesh.psum(torch.tensor(float(mine))) == mesh.size)
+    del upd, want, saved
+    digest = hashlib.sha256()
+    for key, spec in p_shard.items():
+        if spec == ():
+            digest.update(new[key].detach().cpu().numpy().tobytes())
+    digests = [None] * mesh.size
+    dist.all_gather_object(digests, digest.hexdigest(), group=mesh.group)
+    if len(set(digests)) != 1:
+        fail(f"29c GPipe, rank {stage}: the replicated leaves differ between "
+             f"the processes")
+    del new
+    step, _, _ = make_pipeline_train_step(cfg, mesh, n_micro=n_micro,
+                                          lr=SGD_LR)
+    with tp_timers({"hops": [(ProcessRing, "ring_shift_ref")]}) as spent:
+        run = train_loop(f"29c GPipe across processes, rank {stage}", step,
+                         params, wins[1:], kernel_counters(),
+                         must_fall=False)
+    if any(run["launches"].values()):
+        fail(f"29c GPipe, rank {stage}: launched {run['launches']} (its "
+             f"stages run dense attention)")
+    del run["params"], params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": run["losses"], "step_ms": run["step_ms"],
+            "first_ms": run["first_ms"], "total_ms": run["total_ms"],
+            "one_s": first_s, "bit_equal": bit_equal,
+            "hops_s": spent["hops"], "gloo_s": spent["gloo"],
+            "peak_gb": run["peak_gb"],
+            "bubble": (pp - 1) / (n_micro + pp - 1)}
+
+
+def log_attention(ranks: list, card: str) -> dict:
+    """Phase 29's figures from each rank's results; returns its launches
+    summed over the ranks."""
+    total: dict = {}
+    for r, res in enumerate(ranks):
+        at = res["attn"]
+        for label, errs in at["err"].items():
+            fwd_ms, both_ms = at["ms"][label]
+            log(f"[mp29] {label}, rank {r}: against the virtual mesh's "
+                + ", ".join(f"{name} max abs err {e:.4g} ({ratio:.3f} of "
+                            f"ELEM_TOL, relative L2 {rel:.3e})"
+                            for name, e, ratio, rel in errs)
+                + f"; launches {at['launches'][label]} (exact); a call's "
+                f"forward {fwd_ms:.2f} ms, forward and backward "
+                f"{both_ms:.2f} ms (CUDA events, median of {PROCESS_TIMED},"
+                f" hops through gloo included; informational); on {card}")
+        log(f"[mp29] 29d rank {r}: ici_shift of {at['ici_bytes']} B in six "
+            f"leaves (bf16 k and v, int8 k and v, fp32 scales) one hop on "
+            f"and back byte-equal, one #11 launch a leaf a direction; one "
+            f"hop {at['ici_ms']:.3f} ms with its six barriers (CUDA events; "
+            f"informational); on {card}")
+        add_counts(total, at["total"])
+        pp = res["pipe"]
+        log(f"[mp29] 29c rank {r}: GPipe dp 1 × pp {PROCESSES}, n_micro "
+            f"{PIPE_RUN['n_micro']}, batch {SHARDED_RUN['batch']}: the lr-1 "
+            f"step bit-equal to the virtual mesh's: {pp['bit_equal']}; "
+            f"{PROCESS_STEPS} steps, losses {pp['losses']}, step "
+            f"{pp['step_ms']:.1f} ms (median of the steps after the first; "
+            f"first {pp['first_ms']:.1f}; the lr-1 step {pp['one_s']:.2f} "
+            f"s), of the {pp['total_ms']:.1f} ms of the steps: activation "
+            f"hops {pp['hops_s'] * 1e3:.1f} ms "
+            f"({pp['hops_s'] * 1e3 / pp['total_ms']:.3f}), gloo psums "
+            f"{pp['gloo_s'] * 1e3:.1f} ms "
+            f"({pp['gloo_s'] * 1e3 / pp['total_ms']:.3f}) (host clock, each "
+            f"call synchronized); peak memory {pp['peak_gb']:.2f} GB; the "
+            f"bubble {pp['bubble']:.3f} of the stage passes; no kernel "
+            f"launched; 29a-b, d {res['attn_s']:.1f} s, 29c "
+            f"{res['pipe_s']:.1f} s; on {card}")
+    return total
 
 
 def main() -> int:
@@ -6942,10 +7314,11 @@ def main() -> int:
     lap("25")
     t0 = time.perf_counter()
     processed = process_phase(card)
-    log(f"[time] phases 26-28 {time.perf_counter() - t0:.1f} s")
-    lap("26-28")
+    log(f"[time] phases 26-29 {time.perf_counter() - t0:.1f} s")
+    lap("26-29")
     more = dict(meshed["launches"])
-    for key in ("launches", "tp_launches", "optax_launches"):
+    for key in ("launches", "tp_launches", "optax_launches",
+                "attn_launches"):
         add_counts(more, processed[key])
 
     kernels = [{

@@ -1538,3 +1538,60 @@ def test_process_zero1_optax_step_on_the_card_matches_the_cpu(tmp_path):
                 assert rel < 3e-2, (k, rel)
         held, said = info["cases"]["z1"]["bytes"]
         assert held == said and 2 * held == replicated
+
+
+def test_process_zigzag_and_ici_shift_on_the_card_match_the_cpu(tmp_path):
+    """Two processes on the card (one gloo group) run
+    ``make_zigzag_ring_attention(impl="flash")`` on ``ProcessMesh({"sp":
+    2})`` at [1, 2, 256, 64], MHA and GQA, and ``kv_handoff.ici_shift``
+    of a bf16, int8 and fp32 tree one hop each way over its ring
+    (tests/torch_process_child.py's ``attn`` mode): the global output and
+    the q, k, v gradients within ``flash.ELEM_TOL`` of the same run in two
+    processes on the CPU (the group plain versions), the shifts
+    byte-equal, with 2n + 1 = 5 flash forwards and 5 of each backward
+    kernel a call and one shift-kernel launch a leaf a direction in every
+    process."""
+    import json
+    import os
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpu_dra_torch.kernels.build import build_all
+    from tpu_dra_torch.workloads import flash as tf
+    from tpu_dra_torch.workloads.launcher import run_local_group
+    card()
+    build_all()                      # built once, before the ranks load them
+    child = Path(__file__).resolve().parent / "torch_process_child.py"
+    repo = str(child.parent.parent)
+    (tmp_path / "attn.json").write_text(json.dumps({
+        "shape": [1, 2, 256, 64], "zigzag": [["flash", 2], ["flash", 1]],
+        "makers": []}))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        d.mkdir()
+        (d / "attn.json").symlink_to(tmp_path / "attn.json")
+        run_local_group([sys.executable, str(child), "attn", str(d),
+                         json.dumps({"sp": 2}), device], 2, timeout=300,
+                        cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+        runs[device] = []
+        for r in range(2):
+            with np.load(d / f"rank{r}.npz") as data:
+                runs[device].append(({k: data[k] for k in data.files},
+                                     json.loads((d / f"rank{r}.json")
+                                                .read_text())))
+    tol = tf.ELEM_TOL
+    for (got, info), (want, _) in zip(runs["cuda"], runs["cpu"]):
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            if k.startswith("shift_"):
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
+            else:
+                assert np.all(np.abs(got[k] - w) <= tol + tol * np.abs(w)), k
+        for tag in ("zz_flash_kv2", "zz_flash_kv1"):
+            assert info["calls"][tag] == [5, 5]
+            assert info["launches"][tag] == [0, 5, 5, 5]
+        assert info["launches"]["shift_right"] == 3
+        assert info["launches"]["shift_left"] == 3

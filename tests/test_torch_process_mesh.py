@@ -30,7 +30,8 @@ import torch
 from jax.sharding import Mesh as JMesh
 
 from torch_parity import CPU, cfg_pair, f32, jax_params, to_torch
-from torch_process_child import ATTN_CASES, LR, STEPS, attn_inputs
+from torch_process_child import (ATTN_CASES, LR, STEPS, STILL_REFUSED,
+                                 attn_inputs)
 
 from tpu_dra.workloads import ring_attention as jra
 from tpu_dra_torch.convert import save_npz
@@ -48,10 +49,10 @@ WAIT = 300
 RING_CFG = dict(vocab=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
                 max_seq=32)
 MESHES = {"dp1xsp2": {"dp": 1, "sp": 2}, "dp2xsp2": {"dp": 2, "sp": 2}}
-REFUSED = ("make_zigzag_ring_attention", "make_ring_attention",
-           "make_ring_attention_flash", "make_pipeline_train_step",
-           "make_moe_train_step", "make_moe_optax_step",
-           "make_lora_train_step", "serving_param_shardings")
+# the strategies that still run on the virtual mesh only (the ring
+# attention makers, zigzag and GPipe run on a process mesh:
+# tests/test_torch_process_attention.py, test_torch_process_pipeline.py)
+REFUSED = STILL_REFUSED
 
 
 def window():

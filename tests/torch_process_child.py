@@ -7,6 +7,8 @@
     python tests/torch_process_child.py mesh OUT AXES_JSON
     python tests/torch_process_child.py tp OUT AXES_JSON DEVICE
     python tests/torch_process_child.py optax OUT AXES_JSON DEVICE
+    python tests/torch_process_child.py attn OUT AXES_JSON DEVICE
+    python tests/torch_process_child.py pipe OUT AXES_JSON DEVICE
 
 ``ring``: the group ring's forward and VJP cases (:func:`ring_inputs`,
 the same global inputs on every rank) on DEVICE ("cpu": the group plain
@@ -19,7 +21,13 @@ step (``make_sharded_train_step``) of each case in ``OUT/cases.json``
 (:func:`tp_main`).  ``optax``: on a ``ProcessMesh`` of AXES over DEVICE,
 the AdamW step (``make_optax_train_step``, replicated and ZeRO-1) and
 the chunked head's SGD step of each case in ``OUT/optax_cases.json``,
-then ``fit`` on the mesh (:func:`optax_main`).
+then ``fit`` on the mesh (:func:`optax_main`).  ``attn``: on a
+``ProcessMesh`` of AXES over DEVICE, the zigzag and ring attention makers
+of :data:`ZIGZAG_CASES` and :data:`MAKER_CASES` and ``kv_handoff.
+ici_shift`` on the ring over "sp" (:func:`attn_main`).  ``pipe``: on a
+``ProcessMesh`` of AXES (dp × pp) over DEVICE, the GPipe step of each
+case in ``OUT/pipe_cases.json`` and the strategies that still refuse a
+process mesh (:func:`pipe_main`).
 
 It imports torch and the port only (no JAX), so the cuda case runs it
 on a card machine as it is.
@@ -44,6 +52,16 @@ LR = 1.0
 # the ring attention engines' cases: (engine, hop_impl, kv heads)
 ATTN_CASES = [(e, h, kv) for e in ("xla", "flash") for h in ("xla", "pallas")
               for kv in (2, 1)]
+# the makers on a process mesh, global [B, H, S, D] q and cotangent (k, v
+# with kv heads): zigzag (impl, kv heads) and the plain ring (engine,
+# hop_impl, kv heads)
+ZIGZAG_CASES = [(impl, kv) for impl in ("xla", "flash") for kv in (2, 1)]
+MAKER_CASES = ATTN_CASES
+MAKER_SHAPE = (2, 2, 32, 16)
+# the strategies a process mesh still refuses (ROADMAP.md §2, item 1)
+STILL_REFUSED = ("make_moe_train_step", "make_moe_optax_step",
+                 "make_lora_train_step", "serving_param_shardings",
+                 "fit of a MoEConfig")
 
 
 def bf16(seed: int, shape) -> torch.Tensor:
@@ -72,6 +90,26 @@ def attn_inputs(kv_heads: int) -> list:
     """Global bf16 q [4, 2, 16, 8] and k, v [4, kv_heads, 16, 8]."""
     return [bf16(60 + i, (4, 2 if i == 0 else kv_heads, 16, 8))
             for i in range(3)]
+
+
+def maker_inputs(kv_heads: int, shape=MAKER_SHAPE) -> list:
+    """Global bf16 q, k, v and the output's cotangent of the makers'
+    cases, ``[B, H, S, D]`` = ``shape``."""
+    B, H, S, D = shape
+    return [bf16(70 + i, (B, kv_heads if i in (1, 2) else H, S, D))
+            for i in range(4)]
+
+
+def handoff_tree(n: int) -> dict:
+    """A handoff's leaves as the int8 cache carries them, ``[n, ...]``
+    with rank r's own at ``[r]``: bf16 pages, int8 pages and their fp32
+    scales."""
+    rng = np.random.default_rng(80)
+    return {"ks": bf16(81, (n, 2, 2, 8, 16)),
+            "vs_q8": torch.from_numpy(rng.integers(
+                -128, 128, (n, 2, 2, 8, 16), dtype=np.int8)),
+            "vs_scale": torch.from_numpy(rng.standard_normal(
+                (n, 2, 2, 8)).astype(np.float32))}
 
 
 def _join():
@@ -140,25 +178,21 @@ def ring_main(out: Path, device: str) -> None:
 
 
 def _refusals(mesh, cfg) -> dict:
-    """Each strategy the process mesh does not run yet, and what it
-    raised."""
-    from tpu_dra_torch.workloads import (lora, moe, pipeline, quant,
-                                         ring_attention)
+    """Each strategy the process mesh does not run yet
+    (:data:`STILL_REFUSED`), and what it raised."""
+    import dataclasses
+
+    from tpu_dra_torch.workloads import fit, lora, moe, quant
     calls = {
-        "make_zigzag_ring_attention":
-            lambda: ring_attention.make_zigzag_ring_attention(mesh),
-        "make_ring_attention":
-            lambda: ring_attention.make_ring_attention(mesh),
-        "make_ring_attention_flash":
-            lambda: ring_attention.make_ring_attention_flash(mesh),
-        "make_pipeline_train_step":
-            lambda: pipeline.make_pipeline_train_step(cfg, mesh),
         "make_moe_train_step": lambda: moe.make_moe_train_step(cfg, mesh),
         "make_moe_optax_step": lambda: moe.make_moe_optax_step(
             cfg, mesh, zero1=True),
         "make_lora_train_step": lambda: lora.make_lora_train_step(cfg, mesh),
         "serving_param_shardings": lambda: quant.serving_param_shardings(
             cfg, mesh, {}),
+        "fit of a MoEConfig": lambda: fit.fit(
+            moe.MoEConfig(**dataclasses.asdict(cfg), n_experts=2),
+            "no-such-corpus.bin", steps=1, batch=2, mesh=mesh),
     }
     said = {}
     for name, call in calls.items():
@@ -247,22 +281,35 @@ def flat_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def _count_ring_calls() -> dict:
-    """``{"ag": 0, "rs": 0}``, which every later call of the process
-    ring's gather and reduce-scatter adds one to."""
-    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
-    calls = {"ag": 0, "rs": 0}
+def _count_calls(owner, names: list) -> dict:
+    """``{name: 0}``, which every later call of ``owner.name`` adds one
+    to (the function keeps running as before; a kernel wrapper's
+    ``launches``, which it adds to through its module's name, moves to
+    the counting function in its place)."""
+    calls = dict.fromkeys(names, 0)
 
-    def counted(name, key):
-        real = getattr(ProcessRing, name)
+    def counted(name):
+        real = getattr(owner, name)
 
-        def call(self, *a, **k):
-            calls[key] += 1
-            return real(self, *a, **k)
-        setattr(ProcessRing, name, call)
-    counted("all_gather_matmul", "ag")
-    counted("matmul_reduce_scatter", "rs")
+        def call(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        if hasattr(real, "launches"):
+            call.launches = real.launches
+        setattr(owner, name, call)
+    for name in names:
+        counted(name)
     return calls
+
+
+RING_CALLS = ["all_gather_matmul", "matmul_reduce_scatter"]
+
+
+def _count_ring_calls() -> dict:
+    """:func:`_count_calls` of the process ring's gather and
+    reduce-scatter."""
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRing
+    return _count_calls(ProcessRing, RING_CALLS)
 
 
 def tp_main(out: Path, axes: dict, device: str) -> None:
@@ -315,11 +362,11 @@ def tp_main(out: Path, axes: dict, device: str) -> None:
             torch.equal(a, flat_tree(params)[k])
             for k, a in flat_tree(back).items())
         local = _to(local, dev)
-        calls.update(ag=0, rs=0)
+        calls.update(dict.fromkeys(calls, 0))
         for fn in kernels:
             fn.launches = 0
         new, loss = step(local, tokens)
-        info["calls"][name] = [calls["ag"], calls["rs"]]
+        info["calls"][name] = [calls[k] for k in RING_CALLS]
         info["launches"][name] = [fn.launches for fn in kernels]
         res[f"{name}_loss"] = loss
         for k, v in flat_tree(mesh.unshard_tree(new, p_shard)).items():
@@ -359,7 +406,7 @@ def _optax_case(case: dict, out: Path, mesh, calls: dict) -> tuple:
     with np.load(out / case["tokens"]) as data:
         windows = torch.from_numpy(data["tokens"]).to(dev)
     kernels = (cm.all_gather_matmul, cm.matmul_reduce_scatter)
-    calls.update(ag=0, rs=0)
+    calls.update(dict.fromkeys(calls, 0))
     for fn in kernels:
         fn.launches = 0
     res, info = {}, {}
@@ -385,7 +432,7 @@ def _optax_case(case: dict, out: Path, mesh, calls: dict) -> tuple:
             info["norm"] = [float(init.layout.sum_squares(g)), float(sum(
                 t.double().square().sum()
                 for t in train.tree_leaves(whole)))]
-            calls.update(ag=0, rs=0)
+            calls.update(dict.fromkeys(calls, 0))
             for fn in kernels:
                 fn.launches = 0
         opt = init(local)
@@ -408,7 +455,7 @@ def _optax_case(case: dict, out: Path, mesh, calls: dict) -> tuple:
                 for t in train.tree_leaves(getattr(opt, key))),
             train.opt_state_bytes_per_rank(sh, train.param_shapes(cfg),
                                            mesh)]
-    info["calls"] = [calls["ag"], calls["rs"]]
+    info["calls"] = [calls[k] for k in RING_CALLS]
     info["launches"] = [fn.launches for fn in kernels]
     for k, v in flat_tree(mesh.unshard_tree(local, p_shard)).items():
         res[f"{name}/{k}"] = v
@@ -485,6 +532,133 @@ def optax_main(out: Path, axes: dict, device: str) -> None:
     dist.destroy_process_group()
 
 
+def attn_main(out: Path, axes: dict, device: str) -> None:
+    """On a ``ProcessMesh`` of AXES over DEVICE: each zigzag case
+    (``zz_{impl}_kv{kv}``) and maker case (``ring_{engine}_{hop}_kv{kv}``)
+    on the global inputs of :func:`maker_inputs` (``OUT/attn.json``, where
+    it exists, names the ``shape``, the ``zigzag`` and the ``makers``
+    cases instead of the defaults), its global output and
+    the q, k, v gradients of a fixed cotangent (``_dq``, ``_dk``,
+    ``_dv``); ``kv_handoff.ici_shift`` of this rank's block of
+    :func:`handoff_tree` one hop right and left over the ring of "sp"
+    (``shift_right/<leaf>``, ``shift_left/<leaf>``, the leaf's bytes
+    kept: int8 and fp32 as they are, bf16 as its int16 view).
+    ``rank<r>.json`` holds each case's flash forward and backward calls,
+    its shift calls (``[ring_shift, ring_shift_ref]``), and the kernels'
+    launch counts."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    from tpu_dra_torch.workloads import flash
+    from tpu_dra_torch.workloads import ring_attention as tra
+    from tpu_dra_torch.workloads.kv_handoff import ici_shift
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+    dev = mesh.device
+    fl = _count_calls(flash, ["flash_attn_fwd", "flash_attn_bwd"])
+    hops = _count_calls(cm.ProcessRing, ["ring_shift", "ring_shift_ref"])
+    kernels = (cm.ring_shift, flash.flash_attn_fwd, flash.flash_bwd_dq,
+               flash.flash_bwd_dkdv)
+    info = {"coords": mesh.coords, "calls": {}, "hops": {},
+            "launches": {}}
+    res = {}
+    spec = json.loads((out / "attn.json").read_text()) \
+        if (out / "attn.json").exists() else {}
+    shape = tuple(spec.get("shape", MAKER_SHAPE))
+
+    def run(tag, fn, kv):
+        q, k, v, cot = (t.to(dev) for t in maker_inputs(kv, shape))
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        for c in (fl, hops):
+            c.update(dict.fromkeys(c, 0))
+        for fn_ in kernels:
+            fn_.launches = 0
+        y = fn(*ins)
+        grads = torch.autograd.grad(y, ins, cot)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        info["calls"][tag] = [fl["flash_attn_fwd"], fl["flash_attn_bwd"]]
+        info["hops"][tag] = [hops["ring_shift"], hops["ring_shift_ref"]]
+        info["launches"][tag] = [getattr(f, "launches", 0) for f in kernels]
+        res[tag] = y
+        for name, g in zip("qkv", grads):
+            res[f"{tag}_d{name}"] = g
+
+    for impl, kv in spec.get("zigzag", ZIGZAG_CASES):
+        run(f"zz_{impl}_kv{kv}",
+            tra.make_zigzag_ring_attention(mesh, impl=impl), kv)
+    for engine, hop, kv in spec.get("makers", MAKER_CASES):
+        make = tra.make_ring_attention_flash if engine == "flash" else \
+            tra.make_ring_attention
+        run(f"ring_{engine}_{hop}_kv{kv}", make(mesh, hop_impl=hop), kv)
+    ring = mesh.ring("sp")
+    mine = {k: v[ring.rank].to(dev)
+            for k, v in handoff_tree(ring.n).items()}
+    for reverse in (False, True):
+        cm.ring_shift.launches = 0
+        got = ici_shift(mine, reverse=reverse, ring=ring)
+        way = "left" if reverse else "right"
+        info["launches"][f"shift_{way}"] = cm.ring_shift.launches
+        for k, t in got.items():
+            res[f"shift_{way}/{k}"] = t.view(torch.int16) \
+                if t.dtype == torch.bfloat16 else t
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    np.savez(out / f"rank{r}.npz", **{
+        k: v.detach().cpu().numpy() if v.dtype in (
+            torch.int8, torch.int16) else v.detach().float().cpu().numpy()
+        for k, v in res.items()})
+    dist.destroy_process_group()
+
+
+def pipe_main(out: Path, axes: dict, device: str) -> None:
+    """Each case of ``OUT/pipe_cases.json`` (``name``, ``cfg``, ``params``
+    and ``tokens`` npz files in OUT, ``head``, ``n_micro``) on a
+    ``ProcessMesh`` of AXES (dp × pp) over DEVICE: the global parameters
+    cut by ``p_shard``, one GPipe step at lr 1, ``{name}_loss``,
+    ``{name}/<leaf>`` (the new tree gathered) and ``{name}_local/<leaf>``
+    (this process's shards) saved; ``rank<r>.json`` holds the mesh
+    coordinates, the specs and :func:`_refusals`."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.pipeline import make_pipeline_train_step
+    from tpu_dra_torch.workloads.train import ModelConfig
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+    dev = mesh.device
+    info = {"coords": mesh.coords, "specs": {}}
+    res = {}
+    for case in json.loads((out / "pipe_cases.json").read_text()):
+        name, cfg = case["name"], ModelConfig(**case["cfg"])
+        params = convert.load_npz(out / case["params"], "cpu")
+        with np.load(out / case["tokens"]) as data:
+            tokens = torch.from_numpy(data["tokens"]).to(dev)
+        step, p_shard, t_shard = make_pipeline_train_step(
+            cfg, mesh, n_micro=case["n_micro"], lr=1.0,
+            head_impl=case["head"])
+        info["specs"][name] = [flat_tree(p_shard), list(t_shard)]
+        new, loss = step(_to(mesh.shard_tree(params, p_shard), dev), tokens)
+        res[f"{name}_loss"] = loss
+        for k, v in flat_tree(mesh.unshard_tree(new, p_shard)).items():
+            res[f"{name}/{k}"] = v
+        for k, v in flat_tree(new).items():
+            res[f"{name}_local/{k}"] = v
+    info["refusals"] = _refusals(mesh, cfg)
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
 def _to(tree: dict, dev) -> dict:
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -498,5 +672,9 @@ if __name__ == "__main__":
         tp_main(out, json.loads(sys.argv[3]), sys.argv[4])
     elif what == "optax":
         optax_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "attn":
+        attn_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "pipe":
+        pipe_main(out, json.loads(sys.argv[3]), sys.argv[4])
     else:
         mesh_main(out, json.loads(sys.argv[3]))

@@ -25,10 +25,11 @@ The reference's in-mesh fast path moves the page buffers one ICI hop
 with its ``ring_shift``; here :func:`ici_shift` maps
 ``collective_matmul.ring_shift`` (the ring-shift kernel of
 ``csrc/ring.cu`` on the card, ``ring_shift_ref`` on the CPU) over
-``[G, n, ...]`` blocks of the port's virtual ring.  Between engines
-the handoff always crosses as its wire blob (:func:`encode`): engines in
-two processes share no device memory, and the port has no path with
-more than one card that could choose the in-mesh hop.
+``[G, n, ...]`` blocks of the port's virtual ring, or, given a
+``collective_matmul.ProcessRing``, over each process's own blocks (the
+reference's per-device body, one process a rank).  Between engines
+the handoff always crosses as its wire blob (:func:`encode`), as the
+reference's ``transfer`` does: no serving path chooses the in-mesh hop.
 """
 
 from __future__ import annotations
@@ -340,16 +341,21 @@ class PrefillExporter:
 # --------------------------------------------------------------------------
 
 
-def ici_shift(tree, reverse: bool = False):
-    """Move KV buffers one hop of the virtual ring: every tensor leaf of
-    ``tree`` (a tensor, or a dict, list or tuple of them), a
-    ``[G, n, ...]`` block, lands at rank r + 1 of its ring (``reverse``:
-    r − 1) through ``collective_matmul.ring_shift``: the ring-shift
-    kernel on the card (one launch a leaf), its plain version on the
-    CPU."""
+def ici_shift(tree, reverse: bool = False, ring=None):
+    """Move KV buffers one ring hop: every tensor leaf of ``tree`` (a
+    tensor, or a dict, list or tuple of them) lands at rank r + 1 of its
+    ring (``reverse``: r − 1).  Without ``ring`` a leaf is a ``[G, n,
+    ...]`` block of the virtual ring and goes through
+    ``collective_matmul.ring_shift``; with ``ring`` (a
+    ``collective_matmul.ProcessRing``) a leaf is this process's block, as
+    in the reference's per-device body (353-368), and goes through
+    ``ring.ring_shift``.  Either way: the ring-shift kernel on the card
+    (one launch a leaf), its plain version on the CPU; any dtype, the
+    bytes moved as they are."""
     if isinstance(tree, dict):
-        return {k: ici_shift(v, reverse) for k, v in tree.items()}
+        return {k: ici_shift(v, reverse, ring) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(ici_shift(v, reverse) for v in tree)
-    return ring_shift(tree, reverse)
+        return type(tree)(ici_shift(v, reverse, ring) for v in tree)
+    return ring_shift(tree, reverse) if ring is None else \
+        ring.ring_shift(tree, reverse)
 

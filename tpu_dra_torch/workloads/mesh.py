@@ -404,6 +404,41 @@ class GroupAllGather(torch.autograd.Function):
         return part.movedim(0, dim).contiguous(), None, None, None
 
 
+class GroupShard(torch.autograd.Function):
+    """``shard_map``'s entry on a :class:`ProcessMesh`: a global tensor
+    that every process holds alike → this process's shard
+    (:meth:`ProcessMesh.shard`).  Its transpose gathers every process's
+    cotangent shard into the global cotangent (:meth:`ProcessMesh.
+    unshard`), so each process's global input gets the whole gradient,
+    as the reference's replicated input does.  ``apply(x, mesh, spec)``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return mesh.shard(x, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.unshard(g.contiguous(), ctx.spec), None, None
+
+
+class GroupUnshard(torch.autograd.Function):
+    """``shard_map``'s exit on a :class:`ProcessMesh`: this process's
+    shard → the global tensor gathered from every process.  Every process
+    differentiates the same global function, so the global cotangent is
+    the same on each, and its transpose is this process's shard of it.
+    ``apply(t, mesh, spec)``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return mesh.unshard(t, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.shard(g, ctx.spec), None, None
+
+
 def _all_to_all(x, group, split_dim: int, concat_dim: int):
     n = dist.get_world_size(group)
     chunks = torch.stack(x.chunk(n, split_dim))          # chunk d for rank d
@@ -590,6 +625,17 @@ class ProcessMesh(_Axes):
         parts = group_all_gather(t, self.group)
         return self._unstack(torch.stack(parts).reshape(*self.shape,
                                                         *t.shape), spec)
+
+    def shard_in(self, x, spec):
+        """:meth:`shard`, differentiable (:class:`GroupShard`): the
+        gradient of the global ``x`` is gathered from every process."""
+        return GroupShard.apply(x, self, spec)
+
+    def unshard_out(self, t, spec):
+        """:meth:`unshard`, differentiable (:class:`GroupUnshard`): the
+        global cotangent, the same on every process, comes back as this
+        process's shard of it."""
+        return GroupUnshard.apply(t, self, spec)
 
     def shard_tree(self, tree: dict, specs: dict) -> dict:
         """:meth:`shard` of every leaf of a nested dict by the spec at the

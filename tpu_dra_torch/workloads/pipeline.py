@@ -22,6 +22,14 @@ ported from ``tpu_dra/workloads/pipeline.py`` onto the virtual mesh
 - The backward is autograd through the ticks: the transpose of the
   forward ``torch.roll`` is the reverse roll, as the reference's
   ``ppermute`` transposes to the reverse ``ppermute``.
+
+On a ``mesh.ProcessMesh`` (one process a rank) each process is stage
+``coords["pp"]`` of dp group ``coords["dp"]`` and runs the reference's
+per-device body (:func:`_group_pipeline_step`): its ``[L/pp, ...]`` slice
+of the blocks, its dp group's rows cut into microbatches, the same tick
+loop with the activation hopping one stage on through
+``collective_matmul.ProcessRingShift`` (the plain send and receive, the
+reference's ``ppermute``), and the head on the last stage only.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from typing import Any
 
 import torch
 
-from tpu_dra_torch.workloads.mesh import ppermute, refuse_process_mesh
+from tpu_dra_torch.workloads.mesh import ProcessMesh, ppermute
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _block,
@@ -39,6 +47,7 @@ from tpu_dra_torch.workloads.train import (
     layer_params,
     remat,
     tree_leaves,
+    tree_like,
     tree_unflatten,
     value_and_grad,
 )
@@ -118,6 +127,92 @@ def _pipeline_loss(cfg: ModelConfig, mesh, n_micro: int, head_impl: str,
     return head_nll(params, x, tgt.long(), head_impl).mean()
 
 
+def _group_pipeline_loss(cfg: ModelConfig, mesh, n_micro: int,
+                         head_impl: str, params, tokens):
+    """This process's share of the mean next-token NLL, the reference's
+    ``_pipeline_loss`` (76-98) in one process: ``tokens`` are its dp
+    group's ``[B/dp, S+1]`` rows, ``params`` its shards.  Stage 0 embeds
+    and feeds microbatch t at tick t; every stage runs its layers on what
+    it takes at each of the ``n_micro + pp − 1`` ticks (the bubble's
+    passes too) and hands the result on; the last stage's head takes the
+    microbatches it finished.  Returns the last stage's NLL mean over
+    dp (the reference's ``psum(nll·last) / psum(last)`` is the sum of
+    these over the processes), zero on the other stages.
+
+    Every process runs the backward of every hop, in the same order: the
+    blocks a stage does not read (stage 0's ``recv``; the last tick's
+    output on every stage but the last, which no hop carries) join the
+    graph with a zero cotangent (``ring_attention._Keep``), as the
+    reference's ``jnp.where(stage == 0, feed, recv)`` keeps ``recv``."""
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRingShift
+    from tpu_dra_torch.workloads.ring_attention import _Keep
+    pp, stage = mesh.axis_size("pp"), mesh.axis_index("pp")
+    ring = mesh.ring("pp")
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    bl, s = inp.shape
+    mb = bl // n_micro
+    micro = embed_tokens(cfg, params, inp).reshape(n_micro, mb, s, -1) \
+        if stage == 0 else None
+    recv = torch.zeros((mb, s, cfg.d_model), dtype=torch.bfloat16,
+                       device=tokens.device)
+    ticks = n_micro + pp - 1
+    done = []
+    for t in range(ticks):
+        x = recv
+        if stage == 0:
+            x = micro[min(t, n_micro - 1)]
+            if t:
+                x = _Keep.apply(x, recv)
+        out = _local_stack(cfg, params["blocks"], x)
+        if stage == pp - 1 and t >= pp - 1:   # microbatch t - pp + 1 is done
+            done.append(out)
+        if t < ticks - 1:                     # the last tick's hop is unread
+            (recv,) = ProcessRingShift.apply(ring, False, True, out)
+    if stage != pp - 1:
+        return _Keep.apply(torch.zeros((), device=tokens.device), out)
+    x = torch.stack(done).reshape(bl, s, -1)
+    return head_nll(params, x, tgt.long(), head_impl).mean() \
+        / mesh.axis_size("dp")
+
+
+def _group_pipeline_step(cfg: ModelConfig, mesh, n_micro: int, lr: float,
+                         head_impl: str):
+    """:func:`make_pipeline_train_step` on a ``ProcessMesh``: ``step(params,
+    tokens)`` takes this process's shards (cut by ``pipeline_param_specs``
+    through ``ProcessMesh.shard_tree``) and the global ``[B, S+1]`` batch,
+    the same on every process, and returns its new shards and the global
+    mean loss.  Each process differentiates its share of the loss
+    (:func:`_group_pipeline_loss`); the gradients follow the transpose of
+    the reference's ``shard_map``: a block leaf's summed over "dp", a
+    replicated leaf's over ("dp", "pp") (``process_train.psum_grads``), so
+    every process ends with the same bits in each replicated leaf."""
+    from tpu_dra_torch.workloads.process_train import psum_grads
+    dp = mesh.axis_size("dp")
+    p_shard, t_shard = pipeline_param_specs(cfg), ("dp", None)
+    everywhere = tuple(mesh.axis_names)
+
+    def step(params, tokens):
+        if tokens.shape[0] % (dp * n_micro):
+            raise ValueError(
+                f"batch {tokens.shape[0]} not divisible by "
+                f"dp*n_micro={dp * n_micro}")
+        mesh.check_device(tokens, *tree_leaves(params))
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        share = _group_pipeline_loss(cfg, mesh, n_micro, head_impl,
+                                     tree_unflatten(params, leaves),
+                                     mesh.shard(tokens, t_shard))
+        grads = torch.autograd.grad(share, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        over = [("dp",) if spec else everywhere
+                for spec in tree_leaves(tree_like(params, p_shard))]
+        grads = psum_grads(mesh, grads, leaves, over)
+        new = [p.detach() - lr * g for p, g in zip(leaves, grads)]
+        return tree_unflatten(params, new), mesh.psum(share.detach())
+
+    return step, p_shard, t_shard
+
+
 def make_pipeline_train_step(cfg: ModelConfig, mesh, n_micro: int = 4,
                              lr: float = 1e-2, head_impl: str = "dense"):
     """The pipeline-parallel SGD step over ``mesh`` (axes "dp", "pp";
@@ -126,12 +221,15 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, n_micro: int = 4,
     mesh's device (inputs anywhere else raise ``ValueError``).  Needs
     ``cfg.n_layers % pp == 0`` and a batch divisible by ``dp * n_micro``
     (``ValueError`` otherwise).  ``head_impl="chunked"`` streams the
-    vocab in the last stage's NLL."""
-    refuse_process_mesh(mesh, "make_pipeline_train_step")
+    vocab in the last stage's NLL.  On a ``mesh.ProcessMesh`` the step
+    takes and returns this process's shards (:func:`_group_pipeline_step`).
+    """
     n_stages = mesh.axis_size("pp")
     if cfg.n_layers % n_stages:
         raise ValueError(
             f"n_layers={cfg.n_layers} not divisible by pp={n_stages}")
+    if isinstance(mesh, ProcessMesh):
+        return _group_pipeline_step(cfg, mesh, n_micro, lr, head_impl)
     dp = mesh.axis_size("dp")
 
     def step(params, tokens):

@@ -294,6 +294,25 @@ def _head_nll(params, x, targets, mesh, fc: bool, head_impl: str,
     return -logp.gather(-1, targets[..., None])
 
 
+def psum_grads(mesh, grads: list, leaves: list, over: list,
+               scale: float = 1) -> list:
+    """Each gradient of ``grads`` summed over the mesh axes ``over[i]``
+    names and divided by ``scale``, in ``leaves[i]``'s shape and dtype:
+    one flat fp32 psum for each set of leaves summed over the same axes
+    (the same bits on every process of the set)."""
+    out = [None] * len(leaves)
+    for axes in dict.fromkeys(over):
+        idx = [i for i, a in enumerate(over) if a == axes]
+        flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
+        flat = mesh.psum(flat, axes) / scale
+        at = 0
+        for i in idx:
+            p = leaves[i]
+            out[i] = flat[at:at + p.numel()].reshape(p.shape).to(p.dtype)
+            at += p.numel()
+    return out
+
+
 def make_process_grads(cfg, mesh, attn_impl: str, head_impl: str,
                        accum_steps: int, norm_impl: str, matmul_impl: str,
                        label_smoothing: float = 0.0, z_loss: float = 0.0):
@@ -355,23 +374,13 @@ def make_process_grads(cfg, mesh, attn_impl: str, head_impl: str,
             part, g = micro_grads(live, leaves, micro, fc)
             loss = loss + part
             g_sum = g if g_sum is None else [a + c for a, c in zip(g_sum, g)]
-        # one flat fp32 psum for each set of leaves summed over the same
-        # axes: the batch axes, and tp too for the leaves the fused path
-        # holds whole but differentiates over its own rows only
+        # summed over the batch axes, and over tp too for the leaves the
+        # fused path holds whole but differentiates over its own rows only
         specs = tree_leaves(tree_like(params, p_shard))
         over = [everywhere if fc and "tp" not in
                 {a for e in spec for a in axes_of(e)} else batch
                 for spec in specs]
-        out = [None] * len(leaves)
-        for axes in dict.fromkeys(over):
-            idx = [i for i, a in enumerate(over) if a == axes]
-            flat = torch.cat([g_sum[i].reshape(-1).float() for i in idx])
-            flat = mesh.psum(flat, axes) / accum_steps
-            at = 0
-            for i in idx:
-                p = leaves[i]
-                out[i] = flat[at:at + p.numel()].reshape(p.shape).to(p.dtype)
-                at += p.numel()
+        out = psum_grads(mesh, g_sum, leaves, over, accum_steps)
         return loss / accum_steps, tree_unflatten(params, out)
 
     return grads, p_shard, b_shard

@@ -26,9 +26,13 @@ On a ``mesh.ProcessMesh`` (one process a rank) the reference's
 per-device bodies run as they are: :func:`ring_attention_group` and
 :func:`ring_attention_flash_group` on this process's ``[B, H, S/n, D]``
 block, hopping through ``collective_matmul.ProcessRing`` (the shift
-kernel across processes, or the plain send and receive), and
-``make_ring_train_step`` builds the per-process step
-(:func:`_sp_trunk_group`).
+kernel across processes, or the plain send and receive);
+:func:`_zigzag_schedule_group` with its two engines on this process's
+``[B, H, 2C, D]`` zigzag block, its own branch of the reference's
+``lax.cond`` at each step; the three makers cut the global q/k/v to this
+process's block and gather the output back (``ProcessMesh.shard_in``,
+``unshard_out``, differentiable); and ``make_ring_train_step`` builds
+the per-process step (:func:`_sp_trunk_group`).
 
 The engines take q, k, v in the ring layout ``[G, n, B, H, S/n, D]``: the
 ring's n ranks on dimension 1 and the data-parallel groups on dimension 0.
@@ -43,8 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_dra_torch.workloads.mesh import (ProcessMesh, axes_of, ppermute,
-                                          psum, refuse_process_mesh)
+from tpu_dra_torch.workloads.mesh import ProcessMesh, axes_of, ppermute, psum
 
 HOP_IMPLS = ("xla", "pallas")
 RING_IMPLS = ("xla", "flash")
@@ -259,13 +262,31 @@ def ring_attention_flash_group(q, k, v, ring, causal: bool = True,
     return out.to(q.dtype)
 
 
-def _make(engine, mesh, axis_name: str, **kw):
+def _make_group(engine, mesh, axis_name: str, **kw):
+    """:func:`_make` on a ``ProcessMesh``: every process passes the same
+    global q/k/v, runs ``engine`` (a per-process body) on its own block
+    over the ring of ``axis_name``, and gets the global output back.
+    Every process differentiates the same function, so each gets the
+    whole gradient of the global inputs."""
+    ring = mesh.ring(axis_name)
+    spec = (mesh.batch_axes(), None, axis_name, None)
+
+    def attend(q, k, v):
+        mesh.check_device(q, k, v)
+        out = engine(*(mesh.shard_in(t, spec) for t in (q, k, v)), ring,
+                     **kw)
+        return mesh.unshard_out(out, spec)
+    return attend
+
+
+def _make(engine, mesh, axis_name: str, group_engine, **kw):
     """``engine`` over global ``[B, H, S, D]`` q/k/v on the mesh's device,
     S cut over ``axis_name`` and the batch over :meth:`Mesh.batch_axes`:
     the reference's ``shard_map`` with ``in_specs`` = ``out_specs`` =
-    ``P(batch, None, axis_name, None)``."""
-    refuse_process_mesh(mesh, "make_ring_attention and "
-                              "make_ring_attention_flash")
+    ``P(batch, None, axis_name, None)``.  On a ``ProcessMesh``,
+    ``group_engine`` on this process's block (:func:`_make_group`)."""
+    if isinstance(mesh, ProcessMesh):
+        return _make_group(group_engine, mesh, axis_name, **kw)
     G, n = mesh.ring_groups(axis_name)
     spec = (mesh.batch_axes(), None, axis_name, None)
 
@@ -287,10 +308,12 @@ def make_ring_attention(mesh, *, axis_name: str = "sp", causal: bool = True,
     axis; the batch over :meth:`Mesh.batch_axes`), as the reference's
     ``shard_map`` wrapper.  The reference cuts the batch over "dp" alone;
     on a mesh with a "dcn" axis too that changes which ranks compute
-    which rows, not the result."""
+    which rows, not the result.  On a ``mesh.ProcessMesh`` each process
+    runs :func:`ring_attention_group` on its block; every process passes
+    the same global arrays and gets the global output."""
     _check_hop_impl(hop_impl)
-    return _make(ring_attention, mesh, axis_name, causal=causal,
-                 hop_impl=hop_impl)
+    return _make(ring_attention, mesh, axis_name, ring_attention_group,
+                 causal=causal, hop_impl=hop_impl)
 
 
 def make_ring_attention_flash(mesh, *, axis_name: str = "sp",
@@ -298,7 +321,8 @@ def make_ring_attention_flash(mesh, *, axis_name: str = "sp",
     """:func:`ring_attention_flash` over global ``[B, H, S, D]`` arrays
     (see :func:`make_ring_attention`)."""
     _check_hop_impl(hop_impl)
-    return _make(ring_attention_flash, mesh, axis_name, causal=causal,
+    return _make(ring_attention_flash, mesh, axis_name,
+                 ring_attention_flash_group, causal=causal,
                  hop_impl=hop_impl)
 
 
@@ -384,19 +408,17 @@ def _zigzag_schedule(q, k, v, attend, finalize):
     return out.reshape(G, n, B, H, S2, D).to(q.dtype)
 
 
-def zigzag_ring_attention(q, k, v):
-    """Causal ring attention over zigzag shards ``[G, n, B, H, 2C, D]``,
-    the fp32 engine (a running (m, l, acc) online softmax) under
-    :func:`_zigzag_schedule`.  GQA circulates the Hkv shared heads and
-    repeats them at attend time only."""
-    grp = q.shape[3] // k.shape[3]
+def _fp32_chunks(q, k):
+    """The fp32 engine's ``(attend, finalize)`` for zigzag chunks of
+    ``q``'s shape (heads at dimension −3): a running (m, l, acc) online
+    softmax; GQA repeats the Hkv circulating heads at attend time only."""
+    grp = q.shape[-3] // k.shape[-3]
     C, D = q.shape[-2] // 2, q.shape[-1]
-    scale = D ** -0.5
     tril = torch.ones((C, C), dtype=torch.bool, device=q.device).tril()
     ones = torch.ones((C, C), dtype=torch.bool, device=q.device)
 
     def rep(t):
-        return (t.repeat_interleave(grp, dim=3) if grp > 1 else t).float()
+        return (t.repeat_interleave(grp, dim=-3) if grp > 1 else t).float()
 
     def attend(carry, qc, kc, vc, causal):
         if carry is None:
@@ -405,28 +427,101 @@ def zigzag_ring_attention(q, k, v):
                      torch.zeros(rows, device=qc.device),
                      torch.zeros(qc.shape, device=qc.device))
         return _block_attn(qc.float(), rep(kc), rep(vc), *carry,
-                           tril if causal else ones, scale)
+                           tril if causal else ones, D ** -0.5)
 
     def finalize(carry):
         _, l, acc = carry
         return acc / l.clamp_min(1e-30)[..., None]
+    return attend, finalize
 
-    return _zigzag_schedule(q, k, v, attend, finalize)
+
+def _flash_chunks(partial):
+    """The flash engine's ``(attend, finalize)``: ``partial(q, k, v,
+    causal)`` gives a chunk-attend's normalized output and base-2
+    logsumexp, merged into the carry by :func:`_merge_partials`."""
+    def attend(carry, qc, kc, vc, causal):
+        part = partial(qc, kc, vc, causal)
+        return part if carry is None else _merge_partials(*carry, *part)
+    return attend, lambda carry: carry[0]
+
+
+def zigzag_ring_attention(q, k, v):
+    """Causal ring attention over zigzag shards ``[G, n, B, H, 2C, D]``,
+    the fp32 engine (:func:`_fp32_chunks`) under
+    :func:`_zigzag_schedule`."""
+    return _zigzag_schedule(q, k, v, *_fp32_chunks(q, k))
 
 
 def zigzag_ring_attention_flash(q, k, v):
     """:func:`zigzag_ring_attention` with the flash kernels per chunk
     (``flash_attention_with_lse``, forward and backward; GQA in the
-    kernel) and base-2 logsumexp merges (:func:`_merge_partials`)."""
-    def attend(carry, qc, kc, vc, causal):
-        part = _flash_partial(qc, kc, vc, causal)
-        return part if carry is None else _merge_partials(*carry, *part)
+    kernel) and base-2 logsumexp merges (:func:`_flash_chunks`)."""
+    return _zigzag_schedule(q, k, v, *_flash_chunks(_flash_partial))
 
-    return _zigzag_schedule(q, k, v, attend, lambda carry: carry[0])
+
+def _zigzag_schedule_group(q, k, v, ring, attend, finalize):
+    """:func:`_zigzag_schedule` as the reference's per-device body
+    (277-333) on this process's ``[B, H, 2C, D]`` block, whose two
+    C-chunks are global chunks (idx, 2n−1−idx), ``idx = ring.rank``.
+
+    Step 0 attends both diagonal chunks causally and q_hi over its own
+    kv_lo.  At step t ≥ 1 the stacked ``[2, B, Hkv, 2C, D]`` kv hops one
+    rank on (``collective_matmul.ProcessRingShift`` with ``plain``: the
+    reference's ``ppermute``, one autograd node), then this rank attends
+    q_hi × kv_lo and its own branch of the reference's ``lax.cond``:
+    q_lo × kv_lo where the source s = (idx − t) mod n precedes it, else
+    q_hi × kv_hi.  So a call makes 2n + 1 chunk-attends (the flash engine:
+    2n + 1 forward launches and as many of each backward kernel); every
+    hop's kv is read by q_hi × kv_lo, so every process runs each hop's
+    backward, in the same order."""
+    from tpu_dra_torch.workloads.collective_matmul import ProcessRingShift
+    B, H, S2, D = q.shape
+    Hkv = k.shape[1]
+    C = S2 // 2
+    n, idx = ring.n, ring.rank
+    qz = q.reshape(B, H, 2, C, D)
+    q_lo, q_hi = qz[:, :, 0], qz[:, :, 1]
+    kv = torch.stack([k, v])               # [2, B, Hkv, 2C, D]
+
+    def chunks(kv):
+        z = kv.reshape(2, B, Hkv, 2, C, D)
+        return z[0, :, :, 0], z[1, :, :, 0], z[0, :, :, 1], z[1, :, :, 1]
+
+    k_lo, v_lo, k_hi, v_hi = chunks(kv)
+    lo = attend(None, q_lo, k_lo, v_lo, True)
+    hi = attend(None, q_hi, k_hi, v_hi, True)
+    hi = attend(hi, q_hi, k_lo, v_lo, False)
+    for t in range(1, n):
+        (kv,) = ProcessRingShift.apply(ring, False, True, kv)
+        k_lo, v_lo, k_hi, v_hi = chunks(kv)
+        hi = attend(hi, q_hi, k_lo, v_lo, False)
+        if (idx - t) % n < idx:
+            lo = attend(lo, q_lo, k_lo, v_lo, False)
+        else:
+            hi = attend(hi, q_hi, k_hi, v_hi, False)
+    out = torch.stack([finalize(lo), finalize(hi)], dim=2)
+    return out.reshape(B, H, S2, D).to(q.dtype)
+
+
+def zigzag_ring_attention_group(q, k, v, ring):
+    """:func:`zigzag_ring_attention`, the fp32 engine, on this process's
+    zigzag block under :func:`_zigzag_schedule_group`."""
+    return _zigzag_schedule_group(q, k, v, ring, *_fp32_chunks(q, k))
+
+
+def zigzag_ring_attention_flash_group(q, k, v, ring):
+    """:func:`zigzag_ring_attention_flash` on this process's zigzag block:
+    one ``flash_attention_with_lse`` a chunk-attend (GQA in the
+    kernel)."""
+    from tpu_dra_torch.workloads.flash import flash_attention_with_lse
+    return _zigzag_schedule_group(q, k, v, ring,
+                                  *_flash_chunks(flash_attention_with_lse))
 
 
 ZIGZAG_IMPLS = {"xla": zigzag_ring_attention,
                 "flash": zigzag_ring_attention_flash}
+ZIGZAG_GROUP_IMPLS = {"xla": zigzag_ring_attention_group,
+                      "flash": zigzag_ring_attention_flash_group}
 
 
 def make_zigzag_ring_attention(mesh, *, axis_name: str = "sp",
@@ -437,11 +532,13 @@ def make_zigzag_ring_attention(mesh, *, axis_name: str = "sp",
     (see :func:`make_ring_attention`).  ``impl``: "xla" (the fp32
     engine) or "flash" (the flash kernels); anything else raises
     ``ValueError``.  The kv hop is the plain ``mesh.ppermute``, as the
-    reference's is."""
-    refuse_process_mesh(mesh, "make_zigzag_ring_attention")
+    reference's is.  On a ``mesh.ProcessMesh`` each process runs
+    :func:`_zigzag_schedule_group` on its block, its hop the plain send
+    and receive."""
     if impl not in ZIGZAG_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected 'xla' or 'flash'")
-    return _make(ZIGZAG_IMPLS[impl], mesh, axis_name)
+    return _make(ZIGZAG_IMPLS[impl], mesh, axis_name,
+                 ZIGZAG_GROUP_IMPLS[impl])
 
 
 # --------------------------------------------------------------------------

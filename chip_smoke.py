@@ -25,7 +25,9 @@ runs the multi-process host side (rendezvous, collectives, elastic
 respawn) as processes on the one card; last it runs the ring kernels and
 the DP×SP ring-flash step with one process a rank on the card, each
 process's kernels writing into its neighbours' buffers through CUDA IPC,
-and the DP×TP step (fused-collective and dense) one process a rank.
+and the DP×TP step (fused-collective and dense), the AdamW step and
+fit, ring attention, zigzag, GPipe, expert parallelism, the MoE AdamW
+step and fit, LoRA and the serving shardings, one process a rank.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
 
@@ -188,19 +190,20 @@ Phases (each prints as it goes; any failed check exits non-zero):
      keys in /debug/slo and /debug/overload; drain() finishing the
      in-flight request and answering new ones 503; TTFT p50/p95 and
      tokens/s with the prefix against full prompts (informational);
- 19. the lifecycle: (a) the flagship through fit, 6 steps at batch 16
-     saving at steps 3 and 6 (checkpointing.py), step 6's commit marker
+ 19. the lifecycle: (a) the flagship's widths cut to RESUME_LAYERS
+     layers through fit, 6 steps at batch 16 saving at steps 3 and 6 (checkpointing.py), step 6's commit marker
      removed as a preemption mid-save leaves it, then fit(resume=True)
      for 3 steps: it must start at step 3, sweep the unmarked step, and
      give losses 4-6 and step 6's parameters and AdamW moments bit-equal
      to the uninterrupted run's, the flash forward launched 2 x n_layers
      x steps times and each backward kernel n_layers x
      steps times; save and restore seconds and bytes printed; (b) the
-     fit command line trains phase 4's serving model 20 steps (flash,
-     batch 8) and saves it; the server command line serves that
+     fit command line, started before (a) and run beside it, trains
+     phase 4's serving model 20 steps (flash, batch 8) and saves it; the server command line serves that
      checkpoint as int8 through --weights-cache (a miss: quantized and
      saved), then from the cache alone (a hit: restored, no
-     quantization), 8 greedy requests one after another each time: every
+     quantization; this start, the int4 refusal below and the first
+     auto-draft start run at once), 8 greedy requests one after another each time: every
      answer held to paged_greedy_decode of the restored-then-quantized
      tree under argmax_tol, the hit's answers bit-identical to the
      miss's, #1 launched exactly n_layers times a decode step (from
@@ -221,7 +224,7 @@ Phases (each prints as it goes; any failed check exits non-zero):
      memory and step time (informational);
  20. the rest of the server, on phase 17's int8 model and draft: (a)
      serve(continuous=False) with the draft armed, phase 4's 8 prompts
-     as one /generate of 64 steps, bit-equal to decode of the same
+     as one /generate of POOL_STEPS steps, bit-equal to decode of the same
      padded batch [8, 128] (tokens/s and the request time printed), each
      row held to the slab decoder under argmax_tol; (b) /beam of 4 rows
      of 32 tokens, W = 4, 32 steps, bit-equal to beam_decode called
@@ -232,8 +235,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
      its own draft and with the distilled draft: bit-equal to
      speculative_decode with the same target passes, held to
      greedy_decode under argmax_tol, the passes printed; (d) the server
-     command line on phase 4's engine (int8 weights from seed 0; a
-     process of its own, whose only profiler is the server's: in this
+     command line on phase 4's engine (int8 weights from seed 0; started
+     while (a)-(c) run; a process of its own, whose only profiler is the server's: in this
      process, after the earlier phases, loaded sessions have come back
      with runtime records and no kernel record at all, a fault not yet
      explained; ROADMAP.md §3): one request with a traceparent, its
@@ -252,11 +255,13 @@ Phases (each prints as it goes; any failed check exits non-zero):
  21. disaggregated serving and the launcher's contracts: (a) phase 4's
      model (bf16 from the seed) on three servers of phase 4's engine, a
      pool_role="prefill" one, a "decode" one and an "any" one as the
-     oracle; 8 prompts of 17-700 tokens, one after another, each through
+     oracle; HANDOFF_PROMPTS' 4 prompts of 17-700 tokens, one after
+     another, each through
      /prefill then /decode_handoff with the blob, greedy and sampled at
-     temperature 0.8 with a fixed seed, 64 steps: every answer bit-equal
+     temperature 0.8 with a fixed seed, HANDOFF_STEPS steps: every
+     answer bit-equal
      to the oracle's /generate (blob bytes, export and /decode_handoff
-     times and both TTFTs printed); then all 8 at once, held to the
+     times and both TTFTs printed); then all 4 at once, held to the
      oracle under argmax_tol; kernel #1 launched at least n_layers times
      a decode step; the decode engine's pages back to its total; a blob
      with a lying shape a 400 and the engine answering after it; (b) the
@@ -264,7 +269,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
      the decode and oracle servers, bit-equal; (c) one handoff's ks and
      vs as [1, 2, ...] blocks of a two-rank ring through
      kv_handoff.ici_shift one hop and back, bit-equal to ring_shift_ref,
-     4 ring-shift launches; (d) two server command lines as tenants of
+     4 ring-shift launches; (d), beside (a)-(c) and phase 22 (their
+     processes share the card), two server command lines as tenants of
      one card (the environment tenancy.tenant_edits writes: a slot pool
      of 2, an 8 GiB budget on chip 0, a priority, a heartbeat file)
      answer 8 requests each at the same time, each tenant's
@@ -367,7 +373,7 @@ Phases (each prints as it goes; any failed check exits non-zero):
      the group plain version (copies byte-equal), launches exact per
      process (n a gather or reduce-scatter call, 1 a shift), a call's
      time by CUDA events (barriers included; informational); (b) the
-     flagship on ProcessMesh({"dp": 1, "sp": 4}) at batch 16 on [16,
+     flagship's widths at PROCESS_LAYERS layers on ProcessMesh({"dp": 1, "sp": 4}) at batch 16 on [16,
      1025] windows: one make_ring_train_step(ring_impl="flash") step at
      lr 1 with hop_impl="pallas" bit-equal to "xla" in every process,
      rank 0's held to the virtual mesh's step that this process took
@@ -380,8 +386,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
      rank-launches); the step's time and a gloo psum of the gradients'
      size (host memory; informational).
  27. the DP×TP step across processes, in phase 26's group after 26b:
-     the flagship (full width and depth) on ProcessMesh({"dp": 1, "tp":
-     4}) at batch 16 on [16, 1025] windows with attn_impl="flash", each
+     the flagship's widths at PROCESS_LAYERS layers on
+     ProcessMesh({"dp": 1, "tp": 4}) at batch 16 on [16, 1025] windows with attn_impl="flash", each
      process holding its shards (ProcessMesh.shard_tree).  (a) one
      make_sharded_train_step(matmul_impl="fused_collective") step at lr
      1 against the virtual mesh's fused step that this process took
@@ -396,8 +402,8 @@ Phases (each prints as it goes; any failed check exits non-zero):
      all-reduces) at TP_DENSE_LAYERS layers, one step at lr 1 against
      the virtual mesh's dense step, with the same tolerances.
  28. the AdamW step and fit across processes, in phase 26's group after
-     27 (27's trees freed): the flagship on ProcessMesh({"dp": 2, "tp":
-     2}) at batch 16 on 26's [16, 1025] windows, attn_impl="flash", the
+     27 (27's trees freed): the flagship's widths at PROCESS_LAYERS
+     layers on ProcessMesh({"dp": 2, "tp": 2}) at batch 16 on 26's [16, 1025] windows, attn_impl="flash", the
      default optimizer (clip 1.0, AdamW 3e-4, decay 0.01).  (a)
      PROCESS_STEPS make_optax_train_step(matmul_impl=
      "fused_collective") steps, the first held to the same step on the
@@ -415,9 +421,9 @@ Phases (each prints as it goes; any failed check exits non-zero):
      exact in each process: 4·L·n of each ring kernel, 2·L flash
      forwards and L of each backward kernel a step; (c) fit(mesh=the
      same mesh, zero1=True, head_impl="chunked", attn_impl="flash") at
-     TP_DENSE_LAYERS layers on phase 8's corpus at batch 16: 4 steps
-     uninterrupted, 2 saving at 2, then 2 resumed saving at 4, the
-     resumed losses and the step-4 shards bit-equal to the uninterrupted
+     TP_DENSE_LAYERS layers on phase 8's corpus at batch 16: 2 steps
+     uninterrupted, 1 saving at 1, then 1 resumed saving at 2, the
+     resumed losses and the step-2 shards bit-equal to the uninterrupted
      run's, launches exact (no ring kernel), the save and restore
      seconds printed; this process then reads the checkpoint back and
      holds its tree, shapes and dtypes to a one-process run's.
@@ -454,17 +460,60 @@ Phases (each prints as it goes; any failed check exits non-zero):
      int8 cache with fp32 scales, one dict of six leaves: one hop on is
      byte-equal to the neighbour's block, and back to the start, with
      exactly one #11 launch a leaf a direction.
+ 30. expert parallelism, the MoE AdamW step and fit, LoRA and the serving
+     shardings across processes, in phase 26's group after 29, each held
+     to a yardstick the parent computed on the virtual mesh before the
+     group started; every process builds its trees from the seed (one
+     process at a time where the tree is the MoE's), keeps its shards and
+     frees the rest.  (a) on ProcessMesh({"dp": 1, "ep": 4}) the
+     flagship MoE (MOE_MODEL: 8 experts, two a process; top-2, capacity
+     factor 1.25) at batch 8 on the first rows of 26's windows, flash
+     attention: one make_moe_train_step step at lr 1 held to the virtual
+     mesh's (the loss within STEP_LOSS_ATOL, every leaf's update within
+     STEP_LEAF_REL, norms from each rank's squared sums; whether it is
+     bit-equal printed; where any route differs from the virtual step's,
+     the number printed and the step taken again on the virtual step's
+     choices, moe.PinnedChoices), then PROCESS_STEPS steps at SGD_LR with
+     finite, falling losses; exactly 2·L #3 launches and L of #6 and #7
+     a step in every process; the step time, its gloo share and peak
+     memory (informational); (b) on ProcessMesh({"dp": 2, "ep": 2}) the
+     same model at 1 layer: PROCESS_STEPS make_moe_optax_step steps,
+     replicated, then zero1=True, from the same shards (one run on the
+     card at a time), bit-equal after every step (losses, and digests of
+     the parameters and moments), the first held to the virtual mesh's
+     by its loss and first moments; a process's moment bytes half of replicated;
+     the routes that differ from the virtual step's and the token-layers
+     whose kept choices routing the rows alone would change, printed;
+     launches exact; (c) fit of that model on the same mesh (zero1,
+     flash) on phase 8's corpus at batch 8: 2 steps uninterrupted, 1
+     saving at 1 (rank 0 gathers the state on its host and writes it),
+     then 1 resumed, the resumed loss and the step-2 shards and moments
+     bit-equal, launches exact, the save and restore seconds printed;
+     this process then reads the checkpoint back and holds its tree,
+     shapes and dtypes to a one-process run's;
+     (d) on ProcessMesh({"dp": 2, "tp": 2}) LoRA (r 8, B drawn non-zero)
+     on the serving model (8 heads over 2 kv heads) at batch 8, flash:
+     PROCESS_STEPS make_lora_train_step steps, each loss within
+     STEP_LOSS_ATOL of the virtual mesh's and each adapter leaf's first
+     moment after step 1 within STEP_LEAF_REL, the base's bits kept, the
+     adapters the same in all 4, 2·L #4 launches and L of #6 and #7 a
+     step; then one step over the int8 base cut by
+     serving_param_shardings, held alike to the virtual mesh's QLoRA
+     step; (e) on ProcessMesh({"dp": 1, "tp": 4}) the serving model's
+     int8 and int4 trees cut by serving_param_shardings and gathered
+     back byte-equal in every process, the specs the virtual mesh's.
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces; phase
 26's launches summed over its processes added to rows #3, #6, #7 and
-#9-#11, 27b's and 28's to rows #3, #6, #7, #9 and #10, and 29's to rows
-#3, #4, #6, #7 and #11); the last line is {"ok": true, "device":
-{...}}.
+#9-#11, 27b's and 28's to rows #3, #6, #7, #9 and #10, 29's to rows
+#3, #4, #6, #7 and #11, and 30's to rows #3, #4, #6 and #7); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -582,6 +631,14 @@ REQUESTS = [(16, 32), (24, 128), (37, 45), (50, 96), (64, 60), (77, 110),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, its seconds logged under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {label} {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -2497,8 +2554,9 @@ def quant_phase(gen) -> dict:
 
 
 # section_decode's steps in phase 16: its host-bound decodes (seven runs,
-# best of 3) took most of phases 15-16 at the bench's 256
-DECODE_STEPS = 64
+# best of 3) took most of phases 15-16 at the bench's 256, about 50 s at
+# 64 and 15.8 s at 16 (H100 80GB HBM3, 700 W)
+DECODE_STEPS = 8
 
 
 def short_section_decode() -> dict:
@@ -3231,10 +3289,13 @@ def drain_check(srv, port: int, prompt: list) -> None:
 # 19a: the flagship through fit, saving every 3 steps; the resume runs the
 # last 3 again from step 3
 RESUME_RUN = dict(steps=6, every=3, batch=16)
+# its depth: at the flagship's 8 layers its three saves of 6.5 GB took
+# 43 s of the script's time limit (H100 80GB HBM3, 700 W)
+RESUME_LAYERS = 2
 # 19b: the headline serving model trained by the fit CLI, then served from
 # its checkpoint by the server CLI; the auto-draft's distillation steps
 SERVE_TRAIN = dict(steps=20, batch=8)
-AUTO_DRAFT_STEPS = 50
+AUTO_DRAFT_STEPS = 20
 # 19c: LoRA on 19b's checkpoint
 LORA_RUN = dict(steps=10, rank=8, batch=8)
 # 19d: the MoE model at the flagship's widths
@@ -3286,7 +3347,8 @@ def timed_lines(lines: list, pattern: str) -> list:
 
 
 def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
-    """19a: fit runs the flagship 6 steps saving at 3 and 6; step 6's
+    """19a: fit runs the flagship's widths at RESUME_LAYERS layers 6 steps
+    saving at 3 and 6; step 6's
     commit marker is removed (a preemption mid-save); fit(resume=True)
     for 3 steps must start at 3, sweep the unmarked step 6, and give
     losses 4-6 and step 6's parameters and moments bit-equal to the
@@ -3309,7 +3371,7 @@ def resume_phase(tmp: Path, data_path: str, card: str) -> dict:
                                                        restore_train_state)
     from tpu_dra_torch.workloads.fit import fit
     from tpu_dra_torch.workloads.train import ModelConfig
-    cfg = ModelConfig(**TRAIN_MODEL)
+    cfg = ModelConfig(**dict(TRAIN_MODEL, n_layers=RESUME_LAYERS))
     ck = tmp / "resume"
     steps, every, batch = (RESUME_RUN[k] for k in ("steps", "every",
                                                    "batch"))
@@ -3400,30 +3462,45 @@ def model_flags(cfg) -> list:
             "--pos-emb", cfg.pos_emb]
 
 
-def fit_cli(cfg, data_path: str, ck: Path) -> None:
-    """The fit command line in its own process: the serving model, flash
-    attention, a checkpoint at the last step."""
+def fit_cli_start(cfg, data_path: str, ck: Path) -> dict:
+    """Start the fit command line in its own process: the serving model,
+    flash attention, a checkpoint at the last step; its output goes to
+    files beside ``ck``."""
     cmd = [sys.executable, "-m", "tpu_dra_torch.workloads.fit", "--data",
            data_path, "--steps", str(SERVE_TRAIN["steps"]), "--batch",
            str(SERVE_TRAIN["batch"]), "--attn-impl", "flash",
            "--checkpoint-dir", str(ck), "--checkpoint-every",
            str(SERVE_TRAIN["steps"]), *model_flags(cfg)]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=900)
-    for ln in out.stdout.splitlines():
+    out, err = ck.parent / "fit-cli.out", ck.parent / "fit-cli.err"
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=fo, stderr=fe,
+                                text=True)
+    return {"proc": proc, "out": out, "err": err, "t0": time.perf_counter()}
+
+
+def fit_cli_finish(run: dict) -> None:
+    """Wait for the fit command line: exit 0 and falling losses."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    stdout = run["out"].read_text()
+    for ln in stdout.splitlines():
         log(f"[ckpt-serve]   fit: {ln}")
-    if out.returncode != 0:
-        fail(f"the fit command line exited {out.returncode}: "
-             f"{out.stderr[-2000:]}")
+    if proc.returncode != 0:
+        fail(f"the fit command line exited {proc.returncode}: "
+             f"{run['err'].read_text()[-2000:]}")
     losses = [float(x) for x in re.findall(r"step \d+: loss ([\d.]+)",
-                                           out.stdout)]
+                                           stdout)]
     if len(losses) < 2 or not losses[-1] < losses[0]:
         fail(f"the fit command line's losses {losses}")
     log(f"[ckpt-serve] the fit command line trained {SERVE_TRAIN['steps']} "
         f"steps at batch {SERVE_TRAIN['batch']} (losses {losses}) and saved "
-        f"step {SERVE_TRAIN['steps']} in {time.perf_counter() - t0:.1f} s "
-        f"(process included)")
+        f"step {SERVE_TRAIN['steps']} in {time.perf_counter() - run['t0']:.1f}"
+        f" s (process included; it ran beside 19a)")
 
 
 def serve_cli(label: str, cfg, flags: list, prompts: list) -> dict:
@@ -3506,9 +3583,9 @@ def draft_report(label: str, lines: list) -> dict:
     return json.loads(line[len("auto-draft: "):])
 
 
-def checkpoint_serve_phase(tmp: Path, data_path: str, card: str) -> dict:
-    """19b: the fit command line trains the headline serving model and
-    saves it; the server command line serves that checkpoint as int8
+def checkpoint_serve_phase(tmp: Path, fit_run: dict, card: str) -> dict:
+    """19b: the fit command line (``fit_run``, started before 19a) trains
+    the headline serving model and saves it; the server command line serves that checkpoint as int8
     through a weights cache (a miss: quantized, saved), then from the
     cache alone (a hit: restored, no quantization) with bit-identical
     answers; int4 against the int8 cache is refused; an auto-draft
@@ -3524,11 +3601,17 @@ def checkpoint_serve_phase(tmp: Path, data_path: str, card: str) -> dict:
     from tpu_dra_torch.workloads.train import ModelConfig
     cfg = ModelConfig(**MODEL)
     ck, wc, dc = tmp / "serve-ck", tmp / "weights-cache", tmp / "draft-cache"
-    fit_cli(cfg, data_path, ck)
-    params = quantize_params_int8(restore_train_state(str(ck))["params"])
+    fit_cli_finish(fit_run)
     prompts = request_prompts(cfg.vocab)
-    rows = ragged_oracle(cfg, params, prompts, max(s for _, s in REQUESTS),
-                         "paged")
+    # the first server start runs while this process takes the oracle
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        miss_f = pool.submit(serve_cli, "ckpt-serve miss", cfg, [
+            "--checkpoint-dir", str(ck), "--weights", "int8",
+            "--weights-cache", str(wc)], prompts)
+        params = quantize_params_int8(restore_train_state(str(ck))["params"])
+        rows = ragged_oracle(cfg, params, prompts,
+                             max(s for _, s in REQUESTS), "paged")
+        miss = miss_f.result()
 
     def hold_run(label: str, run: dict, spec_layers: int = 0) -> int:
         d = run["delta"]
@@ -3546,17 +3629,29 @@ def checkpoint_serve_phase(tmp: Path, data_path: str, card: str) -> dict:
         return d["paged_attention_launches"]
 
     launches = 0
-    miss = serve_cli("ckpt-serve miss", cfg, [
-        "--checkpoint-dir", str(ck), "--weights", "int8", "--weights-cache",
-        str(wc)], prompts)
     if not any("int8 from --checkpoint-dir" in ln for ln in miss["lines"]) \
             or not any("cached in" in ln for ln in miss["lines"]):
         fail(f"ckpt-serve miss: {miss['lines']}")
     if (serving_meta(str(wc)) or {}).get("form") != "int8":
         fail(f"ckpt-serve: the cache's meta {serving_meta(str(wc))}")
     launches += hold_run("ckpt-serve miss", miss)
-    hit = serve_cli("ckpt-serve hit", cfg, ["--weights-cache", str(wc)],
-                    prompts)
+    spec_flags = ["--checkpoint-dir", str(ck), "--weights", "int8",
+                  "--speculative-continuous", "--auto-draft",
+                  "--auto-draft-cache", str(dc), "--auto-draft-steps",
+                  str(AUTO_DRAFT_STEPS)]
+    # the cache hit, the int4 refusal and the first auto-draft start read
+    # only what the miss and the fit command line wrote: they run at once
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        hit_f = pool.submit(serve_cli, "ckpt-serve hit", cfg,
+                            ["--weights-cache", str(wc)], prompts)
+        int4_f = pool.submit(
+            serve_cli_refused, "ckpt-serve int4", cfg,
+            ["--weights-cache", str(wc), "--weights", "int4"],
+            "holds form='int8' but --weights 'int4' was requested")
+        drafted_f = pool.submit(serve_cli, "auto-draft miss", cfg,
+                                spec_flags, prompts)
+        hit, drafted = hit_f.result(), drafted_f.result()
+        int4_f.result()
     if not any("restored from the cache" in ln for ln in hit["lines"]) or \
             any("from --checkpoint-dir" in ln for ln in hit["lines"]):
         fail(f"ckpt-serve hit: quantized again or not restored: "
@@ -3566,15 +3661,6 @@ def checkpoint_serve_phase(tmp: Path, data_path: str, card: str) -> dict:
     launches += hold_run("ckpt-serve hit", hit)
     log(f"[ckpt-serve] the cache hit's {sum(map(len, hit['answers']))} "
         f"tokens are bit-identical to the miss's")
-    serve_cli_refused("ckpt-serve int4", cfg, [
-        "--weights-cache", str(wc), "--weights", "int4"],
-        "holds form='int8' but --weights 'int4' was requested")
-
-    spec_flags = ["--checkpoint-dir", str(ck), "--weights", "int8",
-                  "--speculative-continuous", "--auto-draft",
-                  "--auto-draft-cache", str(dc), "--auto-draft-steps",
-                  str(AUTO_DRAFT_STEPS)]
-    drafted = serve_cli("auto-draft miss", cfg, spec_flags, prompts)
     d1 = draft_report("auto-draft miss", drafted["lines"])
     cached = serve_cli("auto-draft hit", cfg, spec_flags, prompts)
     d2 = draft_report("auto-draft hit", cached["lines"])
@@ -3782,11 +3868,20 @@ def lifecycle_phase(card: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-19-") as tmp:
         tmp = Path(tmp)
         data_path = write_tokens(tmp / "tokens.bin", TRAIN_MODEL["vocab"])
+        from tpu_dra_torch.workloads.train import ModelConfig
+        # 19b's fit command line trains while 19a runs
+        fit_run = fit_cli_start(ModelConfig(**MODEL), data_path,
+                                tmp / "serve-ck")
         t0 = time.perf_counter()
-        resumed = resume_phase(tmp, data_path, card)
+        try:
+            resumed = resume_phase(tmp, data_path, card)
+        except BaseException:
+            fit_run["proc"].kill()
+            fit_run["proc"].wait(30)
+            raise
         log(f"[time] phase 19a {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        served = checkpoint_serve_phase(tmp, data_path, card)
+        served = checkpoint_serve_phase(tmp, fit_run, card)
         log(f"[time] phase 19b {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         lora = lora_phase(served["checkpoint"], data_path, served["prompts"],
@@ -3810,7 +3905,7 @@ def lifecycle_phase(card: str) -> dict:
 # /speculative), spans, exemplars and a device trace; 19a's goodput
 # ---------------------------------------------------------------------------
 
-POOL_STEPS = 64
+POOL_STEPS = 32               # 20a's /generate, beside 8 slab oracles
 BEAM_RUN = dict(rows=4, length=32, beams=4, steps=32)
 SPEC_K = 4
 # a beam score against the teacher-forced sum of its tokens'
@@ -4070,7 +4165,7 @@ def stop_server(label: str, server: dict) -> None:
              f"{chr(10).join(server['lines'])[-1500:]}")
 
 
-def trace_check(cfg, card: str) -> dict:
+def trace_check(cfg, card: str, server: dict) -> dict:
     """20d: the server command line on phase 4's engine (int8 weights from
     seed 0), a process whose only profiler is the server's own: one
     request with a traceparent whose serve.request and
@@ -4079,13 +4174,13 @@ def trace_check(cfg, card: str) -> dict:
     /debug/jax-trace?seconds=TRACE_SECONDS taken while waves of 8
     requests run (TRACE_GAP_S apart, until the capture has answered),
     holding CUDA kernel events, kernel #1's among them (the engine
-    launches it from its captured chunk).  Returns the
+    launches it from its captured chunk).  ``server`` is the launched
+    command line (``launch_server``), stopped here.  Returns the
     kernel's launches in this drive (the server's /stats)."""
     import io
     import tarfile
 
     prompts = request_prompts(cfg.vocab)
-    server = launch_server(serve_cli_cmd(cfg, "int8"))
     try:
         port = server_port("trace: the server command line", server)
         before = call(port, "/stats")[1]
@@ -4184,21 +4279,34 @@ def pool_phase(models: tuple, card: str) -> dict:
     import numpy as np
 
     from tpu_dra_torch.workloads.serve import serve
+    t0 = time.perf_counter()
     cfg, params, dcfg, dparams = models
     rng = np.random.default_rng(SEED + 20)
     rows = rng.integers(0, cfg.vocab, (BEAM_RUN["rows"],
                                        BEAM_RUN["length"])).tolist()
-    srv = serve(cfg, params, port=0, continuous=False, draft=(dcfg, dparams))
+    # 20d's server command line starts while 20a-c run
+    server = launch_server(serve_cli_cmd(cfg, "int8"))
     try:
-        port = srv.server_address[1]
-        call(port, "/generate", {"tokens": [[1, 2, 3]], "steps": 2})
-        pool_generate_check(port, cfg, params, card)
-        greedy = pool_beam_check(port, cfg, params, rows, card)
-        pool_spec_check(srv, port, cfg, params, rows, greedy,
-                        (dcfg, dparams), card)
-    finally:
-        srv.shutdown()
-    return trace_check(cfg, card)
+        srv = serve(cfg, params, port=0, continuous=False,
+                    draft=(dcfg, dparams))
+        try:
+            port = srv.server_address[1]
+            call(port, "/generate", {"tokens": [[1, 2, 3]], "steps": 2})
+            pool_generate_check(port, cfg, params, card)
+            greedy = pool_beam_check(port, cfg, params, rows, card)
+            pool_spec_check(srv, port, cfg, params, rows, greedy,
+                            (dcfg, dparams), card)
+        finally:
+            srv.shutdown()
+    except BaseException:
+        server["proc"].kill()
+        server["proc"].wait(30)
+        raise
+    log(f"[time] phase 20a-c {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    traced = trace_check(cfg, card, server)
+    log(f"[time] phase 20d {time.perf_counter() - t0:.1f} s")
+    return traced
 
 
 def goodput_report(tracker, wall: float, saves: list, restore_s: float,
@@ -4228,10 +4336,11 @@ def goodput_report(tracker, wall: float, saves: list, restore_s: float,
 # phase 21: disaggregated serving and the launcher's one-card contracts
 # ---------------------------------------------------------------------------
 
-# 8 prompts from 17 tokens to one of 700 that spans 11 pages and the
-# clamped top bucket; each decodes HANDOFF_STEPS tokens
-HANDOFF_PROMPTS = (17, 33, 64, 100, 150, 257, 400, 700)
-HANDOFF_STEPS = 64
+# 4 prompts from 17 tokens to one of 700 that spans 11 pages and the
+# clamped top bucket, 257 one past a page boundary; each decodes
+# HANDOFF_STEPS tokens (8 prompts took the script past its time limit)
+HANDOFF_PROMPTS = (17, 100, 257, 700)
+HANDOFF_STEPS = 32
 HANDOFF_SAMPLED = dict(temperature=0.8, seed=21)
 # each tenant's memory budget on the card (TPU_HBM_LIMIT_BYTES_0)
 TENANT_BUDGET = 8 << 30
@@ -5370,7 +5479,7 @@ def mesh_phase(data_path: str, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 GRAPH_CHUNKS = 4             # passes compared graphed against eager
-GRAPH_TRACE_CHUNKS = 10      # passes timed by the host clock, each kind
+GRAPH_TRACE_CHUNKS = 4       # passes timed by the host clock, each kind
 GRAPH_DRAFT_LAYERS = 2       # the truncated draft of the speculative pass
 
 
@@ -5912,6 +6021,12 @@ PROCESS_TIMED = 3            # calls timed a case (CUDA events, median)
 # 26b and 27b: SGD steps after the one-step comparisons (2, not 3, keeps
 # the script inside its time limit with phase 27)
 PROCESS_STEPS = 2
+# 26b, 27a-b and 28a-b: the flagship's widths at this depth.  At its 8
+# layers a gloo psum of the fp32 gradients took about 6 s a step and the
+# group 322 s, past the script's time limit with phases 1-25 (H100 80GB
+# HBM3, 700 W)
+PROCESS_LAYERS = 2
+PROCESS_MODEL = dict(TRAIN_MODEL, n_layers=PROCESS_LAYERS)
 PROCESS_CHILD = ("import sys, chip_smoke; "
                  "sys.exit(chip_smoke.process_rank(sys.argv[1]))")
 
@@ -6074,7 +6189,7 @@ def process_step(tmp: Path, mesh) -> dict:
     from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
     from tpu_dra_torch.workloads.train import (ModelConfig, init_params,
                                                tree_leaves)
-    cfg = ModelConfig(**TRAIN_MODEL)
+    cfg = ModelConfig(**PROCESS_MODEL)
     n, L = mesh.axis_size("sp"), cfg.n_layers
     idx = mesh.axis_index("sp")
     gen = torch.Generator(device="cuda")
@@ -6146,7 +6261,7 @@ def tp_cfgs() -> dict:
     """27's configurations: the flagship for the fused step, and the
     flagship cut to TP_DENSE_LAYERS layers for the dense one."""
     from tpu_dra_torch.workloads.train import ModelConfig
-    return {"fused_collective": ModelConfig(**TRAIN_MODEL),
+    return {"fused_collective": ModelConfig(**PROCESS_MODEL),
             "dense": ModelConfig(**dict(TRAIN_MODEL,
                                         n_layers=TP_DENSE_LAYERS))}
 
@@ -6326,7 +6441,7 @@ def process_tp(tmp: Path, mesh) -> dict:
 OPTAX_AXES = {"dp": 2, "tp": 2}
 OPTAX_SEED = SEED + 2800
 # 28c: fit's steps uninterrupted, and where the interrupted run saves
-FIT_PROCESS_RUN = dict(steps=4, save=2, batch=16)
+FIT_PROCESS_RUN = dict(steps=2, save=1, batch=16)
 
 
 def optax_params(cfg):
@@ -6350,7 +6465,7 @@ def virtual_optax_step(tmp: Path) -> None:
     from tpu_dra_torch.workloads.train import (ModelConfig,
                                                make_optax_train_step,
                                                tree_leaves, tree_unflatten)
-    cfg = ModelConfig(**TRAIN_MODEL)
+    cfg = ModelConfig(**PROCESS_MODEL)
     win = torch.load(tmp / "windows.pt")[0].to("cuda")
     step, init, _, _ = make_optax_train_step(
         cfg, Mesh(OPTAX_AXES), attn_impl="flash",
@@ -6370,12 +6485,12 @@ def virtual_optax_step(tmp: Path) -> None:
 
 
 @contextlib.contextmanager
-def kept_state():
+def kept_state(maker: str = "make_optax_train_step"):
     """The parameters and optimizer state that the last step of a ``fit``
-    inside the block returned (``fit``'s ``make_optax_train_step``
-    wrapped): ``{"params", "opt"}``."""
+    inside the block returned (``fit``'s step maker ``maker`` wrapped):
+    ``{"params", "opt"}``."""
     from tpu_dra_torch.workloads import fit as F
-    real, last = F.make_optax_train_step, {}
+    real, last = getattr(F, maker), {}
 
     def make(*a, **k):
         step, *rest = real(*a, **k)
@@ -6385,11 +6500,11 @@ def kept_state():
             last["params"], last["opt"] = out[0], out[1]
             return out
         return (kept, *rest)
-    F.make_optax_train_step = make
+    setattr(F, maker, make)
     try:
         yield last
     finally:
-        F.make_optax_train_step = real
+        setattr(F, maker, real)
 
 
 def optax_lockstep(tmp: Path, mesh) -> dict:
@@ -6409,7 +6524,7 @@ def optax_lockstep(tmp: Path, mesh) -> dict:
                                                opt_state_bytes_per_rank,
                                                opt_state_shardings,
                                                param_shapes, tree_leaves)
-    cfg = ModelConfig(**TRAIN_MODEL)
+    cfg = ModelConfig(**PROCESS_MODEL)
     r, n, L = mesh.rank, mesh.axis_size("tp"), cfg.n_layers
     wins = [w.to(mesh.device)
             for w in torch.load(tmp / "windows.pt")[:PROCESS_STEPS]]
@@ -6572,29 +6687,26 @@ def fit_resume_check(tmp: Path, mesh) -> dict:
             "restore_s": timed_lines(lines, r"restored in ([0-9.]+) s")}
 
 
-def check_process_checkpoint(ck: Path) -> None:
-    """28c's checkpoint, read back in this process: the tree, shapes and
-    dtypes of a one-process run's (the global parameters; the count, the
-    global fp32 moments and the step)."""
+def check_process_checkpoint(ck: Path, cfg=None, init_fn=None,
+                             steps: int = FIT_PROCESS_RUN["steps"],
+                             label: str = "28c") -> None:
+    """A process run's checkpoint (28c's by default: ``cfg`` the dense
+    2-layer flagship, ``init_fn`` ``train.init_params``), read back in
+    this process: the tree, shapes and dtypes of a one-process run's
+    (the global parameters; the count, the global fp32 moments and the
+    step)."""
     import torch
 
     from tpu_dra_torch.workloads.checkpointing import (latest_step,
                                                        restore_train_state)
     from tpu_dra_torch.workloads.train import init_params
-    cfg, run = tp_cfgs()["dense"], FIT_PROCESS_RUN
+    cfg = cfg or tp_cfgs()["dense"]
     state = restore_train_state(str(ck), device="cpu")
-    meta = init_params(cfg, torch.Generator(), device="meta")
+    meta = (init_fn or init_params)(cfg, torch.Generator(), device="meta")
     want = {"params": meta, "extra": {"opt_state": {
-        "count": run["steps"], "mu": meta, "nu": meta},
-        "step": run["steps"]}}
+        "count": steps, "mu": meta, "nu": meta}, "step": steps}}
 
-    def flat(tree, prefix=""):
-        out = {}
-        for k, v in tree.items():
-            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
-                       else {prefix + k: v})
-        return out
-    got, expect = flat(state), flat(want)
+    got, expect = flat_leaves(state), flat_leaves(want)
     bad = sorted(set(got) ^ set(expect))
     for k, v in expect.items():
         g = got.get(k)
@@ -6604,10 +6716,10 @@ def check_process_checkpoint(ck: Path) -> None:
                 bad.append(k)
         elif g != v:
             bad.append(k)
-    if bad or latest_step(str(ck)) != run["steps"]:
-        fail(f"28c: the process run's checkpoint departs from a "
+    if bad or latest_step(str(ck)) != steps:
+        fail(f"{label}: the process run's checkpoint departs from a "
              f"one-process run's at {bad[:8]}")
-    log(f"[mp28] 28c: the checkpoint at step {run['steps']} holds a "
+    log(f"[mp{label[:2]}] {label}: the checkpoint at step {steps} holds a "
         f"one-process run's tree ({len(expect)} leaves: the global "
         f"parameters and fp32 moments, the count and the step; shapes and "
         f"dtypes equal)")
@@ -6621,8 +6733,10 @@ def process_rank(tmp: str) -> int:
     3} at once), then 26b on ``ProcessMesh({"dp": 1, "sp": 4})`` and 27
     on ``ProcessMesh({"dp": 1, "tp": 4})`` and 28 on ``ProcessMesh({"dp":
     2, "tp": 2})``, 29a, b and d on ``ProcessMesh({"sp": 4})`` and 29c on
-    ``ProcessMesh({"dp": 1, "pp": 4})``, and writes its results to
-    ``tmp/rank<r>.json``."""
+    ``ProcessMesh({"dp": 1, "pp": 4})``, 30a on ``ProcessMesh(EP_AXES)``,
+    30b-c on ``ProcessMesh(EP_OPTAX_AXES)``, 30d on
+    ``ProcessMesh(LORA_AXES)`` and 30e on ``ProcessMesh(SERVE_AXES)``, and
+    writes its results to ``tmp/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -6662,12 +6776,34 @@ def process_rank(tmp: str) -> int:
     mesh = ProcessMesh(PIPE_AXES)
     pipe = process_pipe(Path(tmp), mesh)
     mesh.close()
+    t7 = time.perf_counter()
+    moe, stamps = {}, [t7]
+    mesh = ProcessMesh(EP_AXES)
+    moe["a"] = process_moe(Path(tmp), mesh)
+    mesh.close()
+    stamps.append(time.perf_counter())
+    mesh = ProcessMesh(EP_OPTAX_AXES)
+    moe["b"] = process_moe_optax(Path(tmp), mesh)
+    stamps.append(time.perf_counter())
+    moe["c"] = moe_fit_check(Path(tmp), mesh)
+    mesh.close()
+    stamps.append(time.perf_counter())
+    mesh = ProcessMesh(LORA_AXES)
+    moe["d"] = process_lora(Path(tmp), mesh)
+    mesh.close()
+    stamps.append(time.perf_counter())
+    mesh = ProcessMesh(SERVE_AXES)
+    moe["e"] = process_serving(mesh)
+    mesh.close()
+    stamps.append(time.perf_counter())
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps({
         "kernels": kernels, "step": step, "tp": tp, "optax": optax,
-        "attn": attn, "pipe": pipe,
+        "attn": attn, "pipe": pipe, "moe": moe,
         "kernels_s": t1 - t0, "step_s": t2 - t1, "tp_s": t3 - t2,
         "optax_s": t4 - t3, "fit_s": t5 - t4, "attn_s": t6 - t5,
-        "pipe_s": time.perf_counter() - t6}))
+        "pipe_s": t7 - t6,
+        **{f"moe_{k}_s": b - a for k, a, b in zip("abcde", stamps,
+                                                   stamps[1:])}}))
     dist.destroy_process_group()
     return 0
 
@@ -6682,7 +6818,7 @@ def virtual_step(tmp: Path) -> None:
     from tpu_dra_torch.workloads.mesh import Mesh
     from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
     from tpu_dra_torch.workloads.train import ModelConfig, init_params
-    cfg = ModelConfig(**TRAIN_MODEL)
+    cfg = ModelConfig(**PROCESS_MODEL)
     wins = window_batches(write_tokens(tmp / "tokens.bin", cfg.vocab),
                           SHARDED_RUN["batch"], cfg.max_seq,
                           PROCESS_STEPS + 1)
@@ -6704,13 +6840,14 @@ def virtual_step(tmp: Path) -> None:
 
 
 def process_phase(card: str) -> dict:
-    """Phases 26-29: the ring kernels (#9-#11), the DP×SP ring-flash
-    step, the DP×TP step, the AdamW step and fit, and the ring attention
-    makers, zigzag, GPipe and ici_shift across PROCESSES processes on the
+    """Phases 26-30: the ring kernels (#9-#11), the DP×SP ring-flash
+    step, the DP×TP step, the AdamW step and fit, the ring attention
+    makers, zigzag, GPipe and ici_shift, and EP, the MoE AdamW step and
+    fit, LoRA and the serving shardings across PROCESSES processes on the
     one card, started through the port's rendezvous
     (``launcher.run_local_group``: each rank resolves its triple and
     joins a gloo group); a rank that fails fails the phase.  Returns each
-    rank's launches, summed, 26's, 27b's, 28's and 29's apart."""
+    rank's launches, summed, 26's, 27b's, 28's, 29's and 30's apart."""
     from tpu_dra_torch.workloads.launcher import run_local_group
     with tempfile.TemporaryDirectory(prefix="chip_smoke-26-") as tmp:
         t0 = time.perf_counter()
@@ -6722,6 +6859,9 @@ def process_phase(card: str) -> dict:
         virtual_attention(Path(tmp))
         virtual_pipe_step(Path(tmp))
         t29 = time.perf_counter() - t2
+        t30 = time.perf_counter()
+        virtual_moe(Path(tmp))
+        t30 = time.perf_counter() - t30
         t2 = time.perf_counter()
         outs = run_local_group([sys.executable, "-c", PROCESS_CHILD, tmp],
                                PROCESSES, timeout=PROCESS_WAIT, cwd=str(HERE),
@@ -6730,10 +6870,14 @@ def process_phase(card: str) -> dict:
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(PROCESSES)]
         check_process_checkpoint(Path(tmp) / "ck28")
+        check_process_checkpoint(
+            Path(tmp) / "ck30", moe_cfg(MOE_PROCESS_RUN["optax_layers"]),
+            moe_init(), MOE_PROCESS_RUN["fit_save"], "30c")
         t4 = time.perf_counter()
     for r, out in enumerate(outs):
         for ln in out.splitlines():
-            if ln.startswith(("[mp26]", "[mp28]", "[mp29]", "[train]")):
+            if ln.startswith(("[mp26]", "[mp28]", "[mp29]", "[mp30]",
+                              "[train]")):
                 log(f"[mp26] rank {r}: {ln}")
     total: dict = {}
     for r, res in enumerate(ranks):
@@ -6752,7 +6896,8 @@ def process_phase(card: str) -> dict:
             f"{st['losses']}, launches {st['launches']} (exact), step "
             f"{st['step_ms']:.1f} ms (median of the steps after the first; "
             f"first {st['first_ms']:.1f}), a gloo psum of the "
-            f"{TRAIN_MODEL['d_model']}-wide flagship's fp32 gradients "
+            f"{TRAIN_MODEL['d_model']}-wide flagship's fp32 gradients at "
+            f"{PROCESS_LAYERS} layers "
             f"{st['psum_ms']:.1f} ms ({st['psum_ms'] / st['step_ms']:.3f} of "
             f"the step), peak memory {st['peak_gb']:.2f} GB; 26a "
             f"{res['kernels_s']:.1f} s, 26b {res['step_s']:.1f} s; on {card}")
@@ -6776,13 +6921,16 @@ def process_phase(card: str) -> dict:
         add_counts(tp_total, tp["launches"])
     optax_total = log_optax(ranks, card)
     attn_total = log_attention(ranks, card)
-    log(f"[mp26] phases 26-29: the virtual yardsticks {t1 - t0:.1f} s (26-27)"
-        f", {t2 - t1 - t29:.1f} s (28) and {t29:.1f} s (29), the group of "
-        f"{PROCESSES} {t3 - t2:.1f} s, 28c's checkpoint read back "
-        f"{t4 - t3:.1f} s; launches summed over the ranks: 26 {total}, 27b "
-        f"{tp_total}, 28 {optax_total}, 29 {attn_total}")
+    moe_total = log_moe(ranks, card)
+    log(f"[mp26] phases 26-30: the virtual yardsticks {t1 - t0:.1f} s (26-27)"
+        f", {t2 - t1 - t29 - t30:.1f} s (28), {t29:.1f} s (29) and "
+        f"{t30:.1f} s (30), the group of {PROCESSES} {t3 - t2:.1f} s, 28c's "
+        f"and 30c's checkpoints read back {t4 - t3:.1f} s; launches summed "
+        f"over the ranks: 26 {total}, 27b {tp_total}, 28 {optax_total}, 29 "
+        f"{attn_total}, 30 {moe_total}")
     return {"launches": total, "tp_launches": tp_total,
-            "optax_launches": optax_total, "attn_launches": attn_total}
+            "optax_launches": optax_total, "attn_launches": attn_total,
+            "moe_launches": moe_total}
 
 
 def log_optax(ranks: list, card: str) -> dict:
@@ -7035,10 +7183,7 @@ def process_pipe(tmp: Path, mesh) -> dict:
     """29c in one process on ``ProcessMesh(PIPE_AXES)``: stage
     ``coords["pp"]`` of the flagship's GPipe (see the module's
     docstring)."""
-    import hashlib
-
     import torch
-    import torch.distributed as dist
 
     from tpu_dra_torch.workloads.collective_matmul import ProcessRing
     from tpu_dra_torch.workloads.pipeline import make_pipeline_train_step
@@ -7072,13 +7217,8 @@ def process_pipe(tmp: Path, mesh) -> dict:
                                           tree_leaves(want)))
     bit_equal = bool(mesh.psum(torch.tensor(float(mine))) == mesh.size)
     del upd, want, saved
-    digest = hashlib.sha256()
-    for key, spec in p_shard.items():
-        if spec == ():
-            digest.update(new[key].detach().cpu().numpy().tobytes())
-    digests = [None] * mesh.size
-    dist.all_gather_object(digests, digest.hexdigest(), group=mesh.group)
-    if len(set(digests)) != 1:
+    if not same_everywhere(mesh, {key: new[key] for key, spec in
+                                  p_shard.items() if spec == ()}):
         fail(f"29c GPipe, rank {stage}: the replicated leaves differ between "
              f"the processes")
     del new
@@ -7140,6 +7280,702 @@ def log_attention(ranks: list, card: str) -> dict:
             f"bubble {pp['bubble']:.3f} of the stage passes; no kernel "
             f"launched; 29a-b, d {res['attn_s']:.1f} s, 29c "
             f"{res['pipe_s']:.1f} s; on {card}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 30: expert parallelism, the MoE AdamW step and fit, LoRA and the
+# serving shardings across processes, in 26's group
+# ---------------------------------------------------------------------------
+
+EP_AXES = {"dp": 1, "ep": PROCESSES}        # 30a
+EP_OPTAX_AXES = {"dp": 2, "ep": 2}          # 30b-c
+LORA_AXES = {"dp": 2, "tp": 2}              # 30d
+SERVE_AXES = {"dp": 1, "tp": PROCESSES}     # 30e
+EP_SEED = SEED + 3000
+LORA_SEED = SEED + 3050
+# 30a-d: batch 8 on the first rows of 26's [16, 1025] windows; 30b-c's
+# depth: one layer of the flagship's widths (phase 23's AdamW pair has
+# two; here every step's 1.15 GB dp psum and 30c's gathered state go
+# through gloo: at two layers a step took 5.4-10.1 s and a save 35-53 s
+# on an H100 80GB HBM3 at 700 W, and the script 1390.9 s on a slow
+# host); 30c's fit steps and its one save
+MOE_PROCESS_RUN = dict(batch=8, top_k=2, optax_layers=1, fit_steps=2,
+                       fit_save=1, rank=8)
+
+
+def moe_cfg(layers: int | None = None):
+    import dataclasses
+
+    from tpu_dra_torch.workloads.moe import MoEConfig
+    cfg = MoEConfig(**MOE_MODEL, router_top_k=MOE_PROCESS_RUN["top_k"])
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def moe_init():
+    from tpu_dra_torch.workloads.moe import init_moe_params
+    return init_moe_params
+
+
+def moe_params(cfg):
+    import torch
+
+    from tpu_dra_torch.workloads.moe import init_moe_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(EP_SEED)
+    return init_moe_params(cfg, gen)
+
+
+def lora_trees(cfg):
+    """30d's base (the serving model's fp32 tree) and rank-r adapters,
+    each from its seed.  B is drawn non-zero (0.02·N(0, 1), where
+    ``init_lora`` starts it at 0), so that the adapters after a step are
+    not the first AdamW updates alone: those move each element by about
+    ±lr, with the sign of a gradient that may be near zero."""
+    import torch
+
+    from tpu_dra_torch.workloads.lora import LoRAConfig, init_lora
+    from tpu_dra_torch.workloads.train import init_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LORA_SEED)
+    base = init_params(cfg, gen)
+    lg = torch.Generator(device="cuda")
+    lg.manual_seed(LORA_SEED + 1)
+    lora = init_lora(base, LoRAConfig(rank=MOE_PROCESS_RUN["rank"]), lg)
+    for ab in lora["blocks"].values():
+        ab["b"] = 0.02 * torch.randn(ab["b"].shape, generator=lg,
+                                     device="cuda")
+    return base, lora
+
+
+def moe_windows(tmp: Path, device) -> list:
+    """30a-d's windows: the first MOE_PROCESS_RUN["batch"] rows of each of
+    26's."""
+    import torch
+    return [w[:MOE_PROCESS_RUN["batch"]].to(device)
+            for w in torch.load(tmp / "windows.pt")]
+
+
+def virtual_moe(tmp: Path) -> None:
+    """30a, 30b and 30d's yardsticks, in this process before the group
+    starts, each saved: (a) one make_moe_train_step step at lr 1 of the
+    flagship MoE on the virtual mesh EP_AXES (its loss, each leaf's
+    update and the router's choices of every call); (b) the first
+    make_moe_optax_step step at 30b's depth on EP_OPTAX_AXES (its loss,
+    the first moments and the choices); (d) PROCESS_STEPS
+    make_lora_train_step steps of the serving model on LORA_AXES (the
+    losses, the adapters' first moments after step 1 and the adapters),
+    then one from fresh adapters over the int8 base (alike)."""
+    import torch
+
+    from tpu_dra_torch.workloads.lora import LoRAConfig, make_lora_train_step
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.moe import (PinnedChoices,
+                                             make_moe_optax_step,
+                                             make_moe_train_step)
+    from tpu_dra_torch.workloads.quant import quantize_params_int8
+    from tpu_dra_torch.workloads.train import ModelConfig
+    wins = moe_windows(tmp, "cuda")
+    cfg = moe_cfg()
+    params = moe_params(cfg)
+    step, _, _ = make_moe_train_step(cfg, Mesh(EP_AXES), lr=1.0,
+                                     attn_impl="flash")
+    with PinnedChoices() as pin:
+        new, loss = step(params, wins[0])
+    upd = leaf_updates(params, new, 1.0)
+    del new, params
+    torch.save({"loss": float(loss), "upd": tree_to(upd, "cpu"),
+                "routes": [t.cpu() for t in pin.recorded]}, tmp / "moe30.pt")
+    del upd, pin
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = moe_cfg(MOE_PROCESS_RUN["optax_layers"])
+    step, init, _, _ = make_moe_optax_step(small, Mesh(EP_OPTAX_AXES),
+                                           attn_impl="flash")
+    params = moe_params(small)
+    with PinnedChoices() as pin:
+        params, opt, loss = step(params, init(params), wins[0])
+    torch.save({"loss": float(loss), "mu": tree_to(opt.mu, "cpu"),
+                "routes": [t.cpu() for t in pin.recorded]},
+               tmp / "moe30b.pt")
+    del params, opt, pin
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig(**MODEL)
+    base, lora = lora_trees(cfg)
+    fresh = tree_to(lora, "cpu")
+    step, init, _, _ = make_lora_train_step(
+        cfg, Mesh(LORA_AXES), LoRAConfig(rank=MOE_PROCESS_RUN["rank"]),
+        attn_impl="flash")
+    opt, losses = init(lora), []
+    for i, win in enumerate(wins[:PROCESS_STEPS]):
+        lora, opt, loss = step(base, lora, opt, win)
+        losses.append(float(loss))
+        if i == 0:
+            mu1 = tree_to(opt.mu, "cpu")
+    qbase = quantize_params_int8(base)
+    q_lora = tree_to(fresh, "cuda")
+    q_lora, q_opt, q_loss = step(qbase, q_lora, init(q_lora), wins[0])
+    torch.save({"losses": losses, "lora": tree_to(lora, "cpu"), "mu1": mu1,
+                "q_loss": float(q_loss), "q_lora": tree_to(q_lora, "cpu"),
+                "q_mu1": tree_to(q_opt.mu, "cpu")}, tmp / "lora30.pt")
+    del base, qbase, lora, q_lora, opt, q_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def staggered_shards(mesh, make, specs) -> dict:
+    """``mesh.shard_tree(make(), specs)`` with the processes building the
+    global tree one after another (a barrier between), so that one global
+    tree at a time lives on the card beside the shards."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            whole = make()
+            out = mesh.shard_tree(whole, specs)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group)
+    return out
+
+
+def rows_of(mesh, n_tokens: int) -> slice:
+    """The token rows ``[N/dp]`` of this process's dp shard of a batch of
+    ``n_tokens`` tokens, in the router's order."""
+    per = n_tokens // mesh.axis_size("dp")
+    return slice(mesh.axis_index("dp") * per,
+                 (mesh.axis_index("dp") + 1) * per)
+
+
+def routes_differing(recorded: list, want: list, rows: slice) -> int:
+    """Token-layer routes (router calls of one pass) whose choices differ
+    from ``want``'s rows."""
+    return sum(int((a.cpu() != b[rows]).any(-1).sum())
+               for a, b in zip(recorded, want))
+
+
+def process_moe(tmp: Path, mesh) -> dict:
+    """30a in one process on ``ProcessMesh(EP_AXES)``: the flagship MoE
+    (top-2, its 8 experts two a process), its shards from the seed's
+    tree; one make_moe_train_step step at lr 1 held to the virtual
+    mesh's (replayed on the virtual step's routes where any differ
+    unpinned), then PROCESS_STEPS steps at SGD_LR with finite, falling
+    losses; launches exact."""
+    import torch
+
+    from tpu_dra_torch.workloads.moe import PinnedChoices, make_moe_train_step
+    from tpu_dra_torch.workloads.train import tree_leaves
+    cfg, r = moe_cfg(), mesh.rank
+    L = cfg.n_layers
+    wins = moe_windows(tmp, mesh.device)
+    step, p_shard, _ = make_moe_train_step(cfg, mesh, lr=1.0,
+                                           attn_impl="flash")
+    params = staggered_shards(mesh, lambda: moe_params(cfg), p_shard)
+    saved = torch.load(tmp / "moe30.pt", mmap=True)
+    rows = rows_of(mesh, wins[0].shape[0] * (wins[0].shape[1] - 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PinnedChoices() as pin:
+        (new, loss), launches = counted(lambda: step(params, wins[0]))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    differ = routes_differing(pin.recorded, saved["routes"], rows)
+    pinned = False
+    if differ:
+        del new
+        replay = [t[rows].to(mesh.device) for t in saved["routes"]]
+        with PinnedChoices.replaying(replay) as pin:
+            (new, loss), more = counted(lambda: step(params, wins[0]))
+        add_counts(launches, more)
+        pinned = True
+    steps = 2 if pinned else 1
+    if launches != flash_want(L * steps):
+        fail(f"30a rank {r}: launches {launches}, expected "
+             f"{flash_want(L * steps)}")
+    upd = leaf_updates(params, new, 1.0)
+    del new
+    want = tree_to(mesh.shard_tree(saved["upd"], p_shard), mesh.device)
+    hold_sharded_step(f"30a EP SGD across {mesh.size} processes, rank {r}"
+                      + (" (routes replayed)" if pinned else ""), mesh, loss,
+                      upd, saved["loss"], want)
+    mine = float(loss) == saved["loss"] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(upd),
+                                          tree_leaves(want)))
+    bit_equal = bool(mesh.psum(torch.tensor(float(mine),
+                                            device=mesh.device))
+                     == mesh.size)
+    del upd, want, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    step, _, _ = make_moe_train_step(cfg, mesh, lr=SGD_LR, attn_impl="flash")
+    with tp_timers() as spent:
+        run = train_loop(f"30a EP SGD across processes, rank {r}", step,
+                         params, wins[1:], flash_counters())
+    if run["launches"] != flash_want(L * PROCESS_STEPS):
+        fail(f"30a rank {r}: launches {run['launches']}, expected "
+             f"{flash_want(L * PROCESS_STEPS)}")
+    add_counts(launches, run["launches"])
+    del run["params"], params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "differ": differ, "pinned": pinned,
+            "bit_equal": bit_equal, "one_s": one_s,
+            "routes": len(pin.recorded) * (rows.stop - rows.start),
+            "losses": run["losses"], "step_ms": run["step_ms"],
+            "first_ms": run["first_ms"], "total_ms": run["total_ms"],
+            "gloo_s": spent["gloo"], "peak_gb": run["peak_gb"]}
+
+
+@contextlib.contextmanager
+def local_drops(cfg):
+    """Count, while the block runs, the tokens whose kept choices the
+    router would change if it routed this process's rows alone (its own
+    capacity, no other rank's counts) instead of claiming the global
+    slots (``moe.process_route`` wrapped, forward calls only)."""
+    import torch
+
+    from tpu_dra_torch.workloads import moe as M
+    real, seen = M.process_route, {"tokens": 0, "calls": 0}
+
+    def plain_top_k(probs, k):
+        return torch.topk(probs, k, dim=-1)
+
+    def call(cfg_, flat, wg, capacity, mesh):
+        out = real(cfg_, flat, wg, capacity, mesh)
+        if torch.is_grad_enabled() and seen["calls"] < cfg.n_layers:
+            pinned, M._top_k = M._top_k, plain_top_k   # out of any record
+            try:
+                with torch.no_grad():
+                    alone = M.route(cfg_, flat, wg,
+                                    cfg_.capacity(flat.shape[0]))
+            finally:
+                M._top_k = pinned
+                kept = out[3].sum(-1) > 0                 # [K, N, E]
+                kept_alone = alone[3].sum(-1) > 0
+                seen["tokens"] += int((kept != kept_alone).any(0).any(-1)
+                                      .sum())
+            seen["calls"] += 1
+        return out
+    M.process_route = call
+    try:
+        yield seen
+    finally:
+        M.process_route = real
+
+
+def digests(tree: dict) -> list:
+    """A sha256 of each leaf's bytes (held on the host, so that a run's
+    bits can be compared with a later run's after the first is freed)."""
+    import hashlib
+    return [hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+            for v in flat_leaves(tree).values()]
+
+
+def process_moe_optax(tmp: Path, mesh) -> dict:
+    """30b in one process on ``ProcessMesh(EP_OPTAX_AXES)``: the MoE at
+    MOE_PROCESS_RUN["optax_layers"] layers, make_moe_optax_step
+    replicated, then ZeRO-1, each for PROCESS_STEPS steps from the same
+    shards (one run on the card at a time: four processes share it),
+    bit-equal after every step (the losses, and digests of the
+    parameters and of the replicated moments cut as ZeRO-1 cuts them);
+    the first held to the virtual mesh's (loss and first moments); the
+    moment bytes; launches exact."""
+    import math
+
+    import torch
+
+    from tpu_dra_torch.workloads.moe import (PinnedChoices,
+                                             init_moe_params,
+                                             make_moe_optax_step)
+    from tpu_dra_torch.workloads.optim import AdamW
+    from tpu_dra_torch.workloads.train import (opt_state_bytes_per_rank,
+                                               opt_state_shardings,
+                                               param_shapes, tree_leaves)
+    cfg, r = moe_cfg(MOE_PROCESS_RUN["optax_layers"]), mesh.rank
+    L = cfg.n_layers
+    wins = moe_windows(tmp, mesh.device)[:PROCESS_STEPS]
+    shapes = param_shapes(cfg, init_moe_params)
+    made = {zero1: make_moe_optax_step(cfg, mesh, attn_impl="flash",
+                                       zero1=zero1)
+            for zero1 in (False, True)}
+    cut = made[True][1].layout.cut
+    saved = torch.load(tmp / "moe30b.pt", mmap=True)
+    rows = rows_of(mesh, wins[0].shape[0] * (wins[0].shape[1] - 1))
+    counters = flash_counters()
+    timed = {"psum": [(type(mesh), "psum")], "optimizer": [(AdamW,
+                                                            "update")]}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    runs, differ, drops = {}, 0, 0
+    for zero1, (step, init, p_shard, _) in made.items():
+        params = staggered_shards(mesh, lambda: moe_params(cfg), p_shard)
+        sh, _ = opt_state_shardings(None, shapes, p_shard, mesh, zero1)
+        opt = init(params)
+        run = {"losses": [], "ms": [], "spent": [], "bits": [],
+               "bytes": [8 * sum(t.numel() for t in tree_leaves(opt.mu)),
+                         opt_state_bytes_per_rank(sh, shapes, mesh)]}
+        for i, win in enumerate(wins):
+            with tp_timers(timed) as spent, PinnedChoices() as pin, \
+                    local_drops(cfg) as dropped:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, loss = step(params, opt, win)
+                torch.cuda.synchronize()
+                run["ms"].append(1e3 * (time.perf_counter() - t0))
+            run["spent"].append(dict(spent))
+            run["losses"].append(float(loss))
+            moments = [opt.mu, opt.nu] if zero1 else [cut(opt.mu),
+                                                      cut(opt.nu)]
+            run["bits"].append([digests(t) for t in (params, *moments)])
+            del moments
+            if i == 0 and not zero1:
+                differ = routes_differing(pin.recorded, saved["routes"],
+                                          rows)
+                drops = dropped["tokens"]
+                hold_sharded_step(
+                    f"30b MoE AdamW across {mesh.size} processes, rank {r}",
+                    mesh, loss, opt.mu, saved["loss"],
+                    tree_to(mesh.shard_tree(saved["mu"], p_shard),
+                            mesh.device),
+                    what="the first moment after one AdamW step")
+        runs[zero1] = run
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del saved
+    a, b = runs[False], runs[True]
+    for run in (a, b):
+        if run["bytes"][0] != run["bytes"][1]:
+            fail(f"30b rank {r}: a process holds {run['bytes'][0]} moment "
+                 f"bytes, opt_state_bytes_per_rank says {run['bytes'][1]}")
+    if 2 * b["bytes"][0] != a["bytes"][0]:
+        fail(f"30b rank {r}: ZeRO-1 holds {b['bytes'][0]} moment bytes, "
+             f"not half of the replicated {a['bytes'][0]}")
+    for i in range(len(wins)):
+        if a["losses"][i] != b["losses"][i] or a["bits"][i] != b["bits"][i]:
+            fail(f"30b rank {r}: ZeRO-1 after step {i + 1} is not bit-equal "
+                 f"to the replicated run")
+    launches = read_counts(counters)
+    if launches != flash_want(L * 2 * len(wins)):
+        fail(f"30b rank {r}: launches {launches}, expected "
+             f"{flash_want(L * 2 * len(wins))}")
+    if not all(math.isfinite(x) for x in a["losses"]):
+        fail(f"30b rank {r}: losses {a['losses']}")
+    out = {"launches": launches, "losses": a["losses"], "differ": differ,
+           "drops": drops, "tokens": rows.stop - rows.start,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bytes": [a["bytes"][0], b["bytes"][0]]}
+    for name, run in (("a", a), ("b", b)):
+        out[name] = {"ms": run["ms"], "spent": run["spent"]}
+    return out
+
+
+def moe_fit_check(tmp: Path, mesh) -> dict:
+    """30c in one process: ``fit`` of the MoE at 30b's depth on the process
+    mesh (zero1, flash) on 26's corpus at MOE_PROCESS_RUN's batch:
+    uninterrupted, then saved at fit_save in ``tmp/ck30`` and resumed to
+    fit_steps (no second save); the resumed losses and the last step's
+    shards and moments bit-equal to the uninterrupted run's; launches
+    exact."""
+    import torch
+
+    from tpu_dra_torch.workloads.fit import fit
+    cfg, run = moe_cfg(MOE_PROCESS_RUN["optax_layers"]), MOE_PROCESS_RUN
+    lines: list = []
+    kw = dict(mesh=mesh, batch=run["batch"], attn_impl="flash", zero1=True,
+              log_every=1, log_fn=lines.append)
+    data, ck = str(tmp / "tokens.bin"), str(tmp / "ck30")
+    counters = flash_counters()
+    zero_counts(counters)
+
+    def kept_on_host(last: dict) -> dict:
+        """The last step's shards and moments, copied to the host, and
+        the card's copies let go (four processes share the card)."""
+        out = {"params": tree_to(last["params"], "cpu"),
+               "mu": tree_to(last["opt"].mu, "cpu"),
+               "nu": tree_to(last["opt"].nu, "cpu")}
+        last.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    t0 = time.perf_counter()
+    with kept_state("make_moe_optax_step") as last:
+        full = fit(cfg, data, steps=run["fit_steps"], **kw)
+        want = kept_on_host(last)
+        fit(cfg, data, steps=run["fit_save"], checkpoint_dir=ck,
+            checkpoint_every=run["fit_save"], **kw)
+        kept_on_host(last)
+        resumed = fit(cfg, data, steps=run["fit_steps"] - run["fit_save"],
+                      checkpoint_dir=ck, resume=True, **kw)
+        got = kept_on_host(last)
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    expect = flash_want(cfg.n_layers * 2 * run["fit_steps"])
+    if launches != expect:
+        fail(f"30c rank {mesh.rank}: launches {launches}, expected {expect}")
+    same = (resumed.losses == full.losses[run["fit_save"]:]
+            and resumed.step == run["fit_steps"]
+            and all(same_trees(want[k], got[k])
+                    for k in ("params", "mu", "nu")))
+    if not same:
+        fail(f"30c rank {mesh.rank}: the resumed run is not bit-equal to "
+             f"the uninterrupted one: losses {resumed.losses} against "
+             f"{full.losses}")
+    del want, got, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": full.losses, "seconds": secs,
+            "save_s": timed_lines(lines, r"saved in ([0-9.]+) s"),
+            "restore_s": timed_lines(lines, r"restored in ([0-9.]+) s")}
+
+
+def adapter_errors(got: dict, want: dict) -> dict:
+    """Relative L2 of each adapter leaf of ``got`` against ``want``."""
+    return {k: float((g.float() - want[k].to(g.device).float()).norm()
+                     / want[k].float().norm())
+            for k, g in flat_leaves(got).items()}
+
+
+def flat_leaves(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {prefix + k: v})
+    return out
+
+
+def same_everywhere(mesh, tree: dict) -> bool:
+    """Whether every process holds ``tree``'s bits (a digest of them
+    gathered over the group)."""
+    import hashlib
+
+    import torch.distributed as dist
+    digest = hashlib.sha256()
+    for v in flat_leaves(tree).values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    digests = [None] * mesh.size
+    dist.all_gather_object(digests, digest.hexdigest(), group=mesh.group)
+    return len(set(digests)) == 1
+
+
+def process_lora(tmp: Path, mesh) -> dict:
+    """30d in one process on ``ProcessMesh(LORA_AXES)``: the serving
+    model's base cut by ``param_shardings`` and its rank-r adapters,
+    PROCESS_STEPS make_lora_train_step steps (flash) held to the virtual
+    mesh's: each loss within STEP_LOSS_ATOL and each adapter leaf's
+    first moment after step 1 within STEP_LEAF_REL (as 28a holds the
+    AdamW step: an update moves each element by about ±lr whatever a
+    near-zero gradient's sign, so the adapters after the steps are
+    printed, not held); the base's bits kept, the adapters' the same in
+    every process, launches exact (#4: the model's 8 heads over 2 kv
+    heads, 4 over 1 a tp rank); then one step from fresh adapters over
+    the int8 base cut by ``serving_param_shardings``, held to the
+    virtual mesh's QLoRA step alike."""
+    import torch
+
+    from tpu_dra_torch.workloads.lora import LoRAConfig, make_lora_train_step
+    from tpu_dra_torch.workloads.quant import (quantize_params_int8,
+                                               serving_param_shardings)
+    from tpu_dra_torch.workloads.train import ModelConfig
+    cfg, r = ModelConfig(**MODEL), mesh.rank
+    L = cfg.n_layers
+    wins = moe_windows(tmp, mesh.device)[:PROCESS_STEPS]
+    saved = torch.load(tmp / "lora30.pt", mmap=True)
+    base, lora = lora_trees(cfg)
+    fresh = tree_to(lora, "cpu")
+    step, init, _, sh = make_lora_train_step(
+        cfg, mesh, LoRAConfig(rank=MOE_PROCESS_RUN["rank"]),
+        attn_impl="flash")
+    local = mesh.shard_tree(base, sh["params"])
+    before = tree_to(local, "cpu")
+    opt, losses, ms, mu1 = init(lora), [], [], {}
+
+    def loop():
+        nonlocal lora, opt
+        for win in wins:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lora, opt, loss = step(local, lora, opt, win)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if not mu1:
+                mu1.update(tree_to(opt.mu, "cpu"))
+    with tp_timers() as spent:
+        _, launches = counted(loop, gqa=True)
+    want = {"flash_fwd_gqa": 2 * L * len(wins),
+            "flash_bwd_dq": L * len(wins), "flash_bwd_dkdv": L * len(wins)}
+    if launches != want:
+        fail(f"30d rank {r}: launches {launches}, expected {want}")
+    errs = adapter_errors(mu1, flat_leaves(saved["mu1"]))
+    after = adapter_errors(lora, flat_leaves(saved["lora"]))
+    dl = max(abs(a - b) for a, b in zip(losses, saved["losses"]))
+    worst = max(errs, key=errs.get)
+    kept = same_trees(tree_to(local, "cpu"), before)
+    agree = same_everywhere(mesh, lora)
+    if not (dl <= STEP_LOSS_ATOL and errs[worst] <= STEP_LEAF_REL and kept
+            and agree):
+        fail(f"30d rank {r}: losses |d| {dl}, adapter {worst}'s first "
+             f"moment {errs[worst]}, base kept {kept}, adapters the same in "
+             f"every process {agree}")
+    del local, before
+    qbase = quantize_params_int8(base)
+    specs = serving_param_shardings(cfg, mesh, qbase)
+    qlocal = mesh.shard_tree(qbase, specs)
+    q_lora = tree_to(fresh, mesh.device)
+    (q_lora, q_opt, q_loss), q_launches = counted(
+        lambda: step(qlocal, q_lora, init(q_lora), wins[0],
+                     base_specs=specs), gqa=True)
+    add_counts(launches, q_launches)
+    q_errs = adapter_errors(q_opt.mu, flat_leaves(saved["q_mu1"]))
+    q_after = adapter_errors(q_lora, flat_leaves(saved["q_lora"]))
+    q_dl = abs(float(q_loss) - saved["q_loss"])
+    q_worst = max(q_errs, key=q_errs.get)
+    q_agree = same_everywhere(mesh, q_lora)
+    if not (q_dl <= STEP_LOSS_ATOL and q_errs[q_worst] <= STEP_LEAF_REL
+            and q_agree):
+        fail(f"30d QLoRA rank {r}: loss |d| {q_dl}, adapter {q_worst}'s "
+             f"first moment {q_errs[q_worst]}, adapters the same in every "
+             f"process {q_agree}")
+    del qbase, qlocal, q_lora, q_opt, lora, opt, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "ms": ms,
+            "gloo_s": spent["gloo"], "loss_d": dl,
+            "worst": [worst, errs[worst]], "after": max(after.values()),
+            "q_loss_d": q_dl, "q_worst": [q_worst, q_errs[q_worst]],
+            "q_after": max(q_after.values())}
+
+
+def process_serving(mesh) -> dict:
+    """30e in one process on ``ProcessMesh(SERVE_AXES)``: the serving
+    model's int8 and int4 trees (from the seed's fp32 tree) cut by
+    ``serving_param_shardings`` and gathered back, every leaf's dtype,
+    shape and bytes equal; the spec tree the virtual mesh's of the same
+    axes."""
+    import torch
+
+    from tpu_dra_torch.workloads.mesh import Mesh
+    from tpu_dra_torch.workloads.quant import (quantize_params_int4,
+                                               quantize_params_int8,
+                                               serving_param_shardings)
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen)
+    out = {}
+    for form, quant in (("int8", quantize_params_int8),
+                        ("int4", quantize_params_int4)):
+        tree = quant(params)
+        specs = serving_param_shardings(cfg, mesh, tree)
+        if specs != serving_param_shardings(cfg, Mesh(SERVE_AXES), tree):
+            fail(f"30e {form}, rank {mesh.rank}: the process mesh's specs "
+                 f"differ from the virtual mesh's")
+        t0 = time.perf_counter()
+        local = mesh.shard_tree(tree, specs)
+        back = mesh.unshard_tree(local, specs)
+        secs = time.perf_counter() - t0
+        leaves = 0
+        for k, a in flat_leaves(tree).items():
+            b = flat_leaves(back)[k]
+            leaves += 1
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(a, b):
+                fail(f"30e {form}, rank {mesh.rank}: {k} changed through "
+                     f"the process shards")
+        out[form] = {"leaves": leaves, "s": secs,
+                     "local_bytes": sum(t.numel() * t.element_size() for t in
+                                        flat_leaves(local).values()),
+                     "bytes": sum(t.numel() * t.element_size() for t in
+                                  flat_leaves(tree).values()),
+                     "wo": specs["blocks"]["wo"]}
+        del tree, local, back
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_moe(ranks: list, card: str) -> dict:
+    """Phase 30's figures from each rank's results; returns its launches
+    summed over the ranks."""
+    total: dict = {}
+    for r, res in enumerate(ranks):
+        m = res["moe"]
+        ep = m["a"]
+        log(f"[mp30] 30a rank {r}: the flagship MoE (8 experts, top-2) on "
+            f"dp 1 × ep {PROCESSES}: routes differing from the virtual "
+            f"step's unpinned {ep['differ']} of {ep['routes']} "
+            f"(replayed: {ep['pinned']}); the lr-1 step bit-equal to the "
+            f"virtual mesh's: {ep['bit_equal']} ({ep['one_s']:.2f} s); "
+            f"{PROCESS_STEPS} steps, losses {ep['losses']}, step "
+            f"{ep['step_ms']:.1f} ms (median of the steps after the first; "
+            f"first {ep['first_ms']:.1f}), gloo collectives "
+            f"{ep['gloo_s'] * 1e3:.1f} ms "
+            f"({ep['gloo_s'] * 1e3 / ep['total_ms']:.3f} of the steps; host "
+            f"clock, each call synchronized), peak memory "
+            f"{ep['peak_gb']:.2f} GB; launches {ep['launches']} (exact); "
+            f"on {card}")
+        add_counts(total, ep["launches"])
+        op = m["b"]
+        for name, run in (("30b replicated", op["a"]), ("30b ZeRO-1",
+                                                        op["b"])):
+            log(f"[mp30] {name} rank {r}: {PROCESS_STEPS} MoE AdamW steps "
+                f"on dp 2 × ep 2 at depth {MOE_PROCESS_RUN['optax_layers']}; "
+                + "; ".join(
+                    f"step {i + 1} {ms:.1f} ms: gloo collectives "
+                    f"{sp['gloo'] * 1e3 / ms:.3f} of it, the gradient psum "
+                    f"{sp['psum'] * 1e3 / ms:.3f}, the optimizer "
+                    f"{sp['optimizer'] * 1e3 / ms:.3f}"
+                    for i, (ms, sp) in enumerate(zip(run["ms"],
+                                                     run["spent"])))
+                + f" (host clock, synced; informational); on {card}")
+        log(f"[mp30] 30b rank {r}: losses {op['losses']}, ZeRO-1 bit-equal "
+            f"to replicated after every step, moment bytes a process "
+            f"{op['bytes'][1]} against {op['bytes'][0]}; routes differing "
+            f"from the virtual step's {op['differ']}; token-layers whose "
+            f"kept choices the rows' routing alone (their own capacity, no "
+            f"other rank's counts) would change in the first step's "
+            f"forward: {op['drops']} of {op['tokens']} tokens x depth "
+            f"{MOE_PROCESS_RUN['optax_layers']}; peak memory "
+            f"{op['peak_gb']:.2f} GB; launches {op['launches']} (exact); "
+            f"on {card}")
+        add_counts(total, op["launches"])
+        ft = m["c"]
+        log(f"[mp30] 30c rank {r}: MoE fit on dp 2 × ep 2 at depth "
+            f"{MOE_PROCESS_RUN['optax_layers']}, zero1: losses "
+            f"{ft['losses']}, the resumed run bit-equal; saves "
+            f"{ft['save_s']} s, restore {ft['restore_s']} s; launches "
+            f"{ft['launches']} (exact); 30c {ft['seconds']:.1f} s; on {card}")
+        add_counts(total, ft["launches"])
+        lo = m["d"]
+        log(f"[mp30] 30d rank {r}: LoRA r {MOE_PROCESS_RUN['rank']} on dp 2 "
+            f"× tp 2, the serving model: losses {lo['losses']} (|d| "
+            f"{lo['loss_d']:.2e} against the virtual mesh's), worst first "
+            f"moment after step 1 {lo['worst'][0]} relative L2 "
+            f"{lo['worst'][1]:.3e} (the adapters after the steps: worst "
+            f"{lo['after']:.3e}, informational); the int8 base's step |d| "
+            f"{lo['q_loss_d']:.2e}, worst first moment {lo['q_worst'][0]} "
+            f"{lo['q_worst'][1]:.3e} (adapters {lo['q_after']:.3e}); base "
+            f"kept, adapters the same in all {PROCESSES}; steps "
+            + ", ".join(f"{x:.1f}" for x in lo["ms"])
+            + f" ms, gloo {lo['gloo_s'] * 1e3:.1f} ms of them (host clock, "
+            f"synced); launches {lo['launches']} (exact); on {card}")
+        add_counts(total, lo["launches"])
+        for form, sv in m["e"].items():
+            log(f"[mp30] 30e rank {r}: the {form} serving tree "
+                f"({sv['leaves']} leaves, {sv['bytes']} B; this process's "
+                f"shards {sv['local_bytes']} B) cut on dp 1 × tp "
+                f"{PROCESSES} and gathered back byte-equal in "
+                f"{sv['s']:.2f} s, specs the virtual mesh's (wo's "
+                f"{sv['wo']}); on {card}")
+        log(f"[mp30] rank {r}: 30a {res['moe_a_s']:.1f} s, 30b "
+            f"{res['moe_b_s']:.1f} s, 30c {res['moe_c_s']:.1f} s, 30d "
+            f"{res['moe_d_s']:.1f} s, 30e {res['moe_e_s']:.1f} s")
     return total
 
 
@@ -7268,10 +8104,16 @@ def main() -> int:
         log(f"[time] phase 14 {time.perf_counter() - t0:.1f} s")
     lap("8-10, 13-14")
 
+    t0 = time.perf_counter()
     quant_t = quant_phase(gen)
     log_quant_times(quant_t, card)
+    log(f"[time] phase 15 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     quant_served = quant_serve_phase(gen)
+    log(f"[time] phase 16's serving {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     decoded = short_section_decode()
+    log(f"[time] phase 16's section_decode {time.perf_counter() - t0:.1f} s")
     log(f"[bench] section_decode (greedy slab decode, batch 8, prompt 128, "
         f"{DECODE_STEPS} steps; informational): {json.dumps(decoded)}")
     slab_tps = quant_served["slab"]["tokens_per_s"]
@@ -7289,15 +8131,20 @@ def main() -> int:
     lap("19")
     pooled = pool_phase(models, card)
     lap("20")
-    handed = handoff_phase(models, card)
-    del models
-    torch.cuda.empty_cache()
-    tenants_phase(card)
-    lap("21")
-    t0 = time.perf_counter()
-    packed_phase(card)
-    log(f"[time] phase 22 {time.perf_counter() - t0:.1f} s")
-    lap("22")
+    # 21d's tenants are processes of their own: they run beside 21a-c and
+    # 22 (the card holds both; their times are informational)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        tenants = pool.submit(timed, "phase 21d", tenants_phase, card)
+        t0 = time.perf_counter()
+        handed = handoff_phase(models, card)
+        log(f"[time] phase 21a-c {time.perf_counter() - t0:.1f} s")
+        del models
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        packed_phase(card)
+        log(f"[time] phase 22 {time.perf_counter() - t0:.1f} s")
+        tenants.result()
+    lap("21-22")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-23-") as tmp:
         meshed = mesh_phase(write_tokens(Path(tmp) / "tokens.bin",
@@ -7314,11 +8161,11 @@ def main() -> int:
     lap("25")
     t0 = time.perf_counter()
     processed = process_phase(card)
-    log(f"[time] phases 26-29 {time.perf_counter() - t0:.1f} s")
-    lap("26-29")
+    log(f"[time] phases 26-30 {time.perf_counter() - t0:.1f} s")
+    lap("26-30")
     more = dict(meshed["launches"])
     for key in ("launches", "tp_launches", "optax_launches",
-                "attn_launches"):
+                "attn_launches", "moe_launches"):
         add_counts(more, processed[key])
 
     kernels = [{

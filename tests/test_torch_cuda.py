@@ -1595,3 +1595,157 @@ def test_process_zigzag_and_ici_shift_on_the_card_match_the_cpu(tmp_path):
             assert info["launches"][tag] == [0, 5, 5, 5]
         assert info["launches"]["shift_right"] == 3
         assert info["launches"]["shift_left"] == 3
+
+
+def _process_runs(tmp_path, mode: str, axes: dict, files: list) -> dict:
+    """``mode`` of tests/torch_process_child.py in two processes on the CPU
+    and then on the card, each in its own directory holding ``files``
+    (linked from ``tmp_path``): per device, each rank's (arrays, info)."""
+    import json
+    import os
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpu_dra_torch.kernels.build import build_all
+    from tpu_dra_torch.workloads.launcher import run_local_group
+    card()
+    build_all()                      # built once, before the ranks load them
+    child = Path(__file__).resolve().parent / "torch_process_child.py"
+    repo = str(child.parent.parent)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        d.mkdir()
+        for f in files:
+            (d / f).symlink_to(tmp_path / f)
+        run_local_group([sys.executable, str(child), mode, str(d),
+                         json.dumps(axes), device], 2, timeout=300,
+                        cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+        runs[device] = []
+        for r in range(2):
+            with np.load(d / f"rank{r}.npz") as data:
+                runs[device].append(({k: data[k] for k in data.files},
+                                     json.loads((d / f"rank{r}.json")
+                                                .read_text())))
+    return runs
+
+
+def test_process_moe_steps_on_the_card_match_the_cpu(tmp_path):
+    """Two processes on the card (one gloo group) take the MoE SGD step
+    at lr 1 and an AdamW step (``make_moe_train_step``,
+    ``make_moe_optax_step``, flash attention) on ``ProcessMesh({"dp": 1,
+    "ep": 2})`` (tests/torch_process_child.py's ``moe`` mode), a 2-layer
+    top-2 model of head dim 128 with 4 experts, two a process, each
+    replaying the routes of the same step on the CPU's virtual mesh
+    (``moe.PinnedChoices``: the card's flash scores break near-ties
+    otherwise, and after an AdamW step's ±lr moves a route flips and the
+    next loss moves by 1e-2): the losses within 5e-3, each leaf's update
+    and each first moment within 3% relative L2 of the same steps in two
+    processes on the CPU, with 2·L flash forwards and L backwards a step
+    in every process."""
+    import json
+
+    import numpy as np
+
+    from tpu_dra_torch.convert import save_npz
+    from tpu_dra_torch.workloads import moe as tm
+    from tpu_dra_torch.workloads.mesh import Mesh
+    cfg = dict(vocab=256, d_model=256, n_heads=2, n_layers=2, d_ff=512,
+               max_seq=64, n_experts=4, router_top_k=2)
+    mcfg = tm.MoEConfig(**cfg)
+    params = tm.init_moe_params(mcfg, torch.Generator().manual_seed(0))
+    save_npz(tmp_path / "p.npz", params)
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 4, 65)).astype(
+        np.int32)
+    np.savez(tmp_path / "t.npz", tokens=tokens)
+    step, _, _ = tm.make_moe_train_step(mcfg, Mesh({"dp": 1, "ep": 2},
+                                                   device="cpu"),
+                                        lr=1.0, attn_impl="flash")
+    with tm.PinnedChoices() as pin:
+        step(params, torch.from_numpy(tokens[0]))
+    np.savez(tmp_path / "pins.npz", **{f"pin{i}": t.numpy()
+                                       for i, t in enumerate(pin.recorded)})
+    (tmp_path / "moe_cases.json").write_text(json.dumps([
+        {"name": "sgd", "cfg": cfg, "kind": "sgd", "params": "p.npz",
+         "tokens": "t.npz", "attn": "flash", "pins": "pins.npz"},
+        {"name": "adamw", "cfg": cfg, "kind": "optax", "params": "p.npz",
+         "tokens": "t.npz", "attn": "flash", "zero1": False, "steps": 1,
+         "pins": "pins.npz"}]))
+    runs = _process_runs(tmp_path, "moe", {"dp": 1, "ep": 2},
+                         ["p.npz", "t.npz", "pins.npz", "moe_cases.json"])
+    want, _ = runs["cpu"][0]
+    p0 = {k: v.float().numpy() for k, v in _flat(params).items()}
+    L = cfg["n_layers"]
+    for got, info in runs["cuda"]:
+        assert abs(float(got["sgd_pin_loss"][0])
+                   - float(want["sgd_pin_loss"][0])) < 5e-3
+        assert np.max(np.abs(got["adamw_loss"] - want["adamw_loss"])) < 5e-3
+        for leaf, w0 in p0.items():
+            gw = w0 - want[f"sgd_pin/{leaf}"]
+            gg = w0 - got[f"sgd_pin/{leaf}"]
+            assert np.linalg.norm(gg - gw) / np.linalg.norm(gw) < 3e-2, leaf
+            w = want[f"adamw_mu1/{leaf}"]
+            rel = np.linalg.norm(got[f"adamw_mu1/{leaf}"] - w) / \
+                np.linalg.norm(w)
+            assert rel < 3e-2, (leaf, rel)
+        for case in ("sgd", "adamw"):
+            assert info["cases"][case]["pins"] == [2 * L, 2 * L]
+        assert info["cases"]["sgd"]["flash"] == [2 * L, L]
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {prefix + k: v})
+    return out
+
+
+def test_process_lora_steps_on_the_card_match_the_cpu(tmp_path):
+    """Two processes on the card (one gloo group) take 2 LoRA steps
+    (``make_lora_train_step``, flash attention) on ``ProcessMesh({"dp":
+    1, "tp": 2})`` (tests/torch_process_child.py's ``lora`` mode), over
+    a plain and an int8 base cut by ``serving_param_shardings``, a
+    2-layer model of 4 heads over 2 kv heads of dim 128: the losses
+    within 5e-3 and each adapter leaf's first moment after step 1 within
+    3% relative L2 of the same steps in two processes on the CPU, the
+    base untouched, with 2·L flash forwards and L backwards a step."""
+    import json
+
+    import numpy as np
+
+    from tpu_dra_torch.convert import save_npz
+    from tpu_dra_torch.workloads import lora as tl
+    from tpu_dra_torch.workloads import train as tt
+    cfg = dict(vocab=256, d_model=512, n_heads=4, n_kv_heads=2, n_layers=2,
+               d_ff=1024, max_seq=64, pos_emb="rope")
+    gen = torch.Generator().manual_seed(0)
+    params = tt.init_params(tt.ModelConfig(**cfg), gen)
+    lora = tl.init_lora(params, tl.LoRAConfig(rank=8), gen)
+    for ab in lora["blocks"].values():
+        ab["b"] = 0.02 * torch.randn(ab["b"].shape, generator=gen)
+    save_npz(tmp_path / "p.npz", params)
+    save_npz(tmp_path / "l.npz", lora)
+    np.savez(tmp_path / "t.npz", tokens=np.random.default_rng(0).integers(
+        0, 256, (2, 4, 65)).astype(np.int32))
+    (tmp_path / "lora_cases.json").write_text(json.dumps([
+        {"name": form, "cfg": cfg, "params": "p.npz", "lora": "l.npz",
+         "tokens": "t.npz", "form": form, "group": 128, "attn": "flash",
+         "steps": 2, "rank": 8} for form in ("plain", "int8")]))
+    runs = _process_runs(tmp_path, "lora", {"dp": 1, "tp": 2},
+                         ["p.npz", "l.npz", "t.npz", "lora_cases.json"])
+    want, _ = runs["cpu"][0]
+    L = cfg["n_layers"]
+    for got, info in runs["cuda"]:
+        for form in ("plain", "int8"):
+            assert np.max(np.abs(got[f"{form}_loss"]
+                                 - want[f"{form}_loss"])) < 5e-3
+            for k, w in want.items():
+                if k.startswith(f"{form}_mu1/"):
+                    rel = np.linalg.norm(got[k] - w) / np.linalg.norm(w)
+                    assert rel < 3e-2, (k, rel)
+            case = info["cases"][form]
+            assert case["base_same"] and case["gathered"]
+            assert case["flash"] == [2 * L * 2, L * 2]

@@ -510,6 +510,33 @@ def test_blobs_cross_between_the_packages_bit_equal():
     assert jkv.encode(back) == mine
 
 
+@pytest.mark.parametrize("via", ["wire", "ici", "auto"])
+def test_transfer_gives_the_reference_bytes_on_every_via(via):
+    """``transfer`` serializes on every ``via``, as the reference's does:
+    a reference handoff crossed into the port transfers to the bytes the
+    reference's ``transfer`` gives it."""
+    ref = _jax_export(list(range(1, 12)))
+    want = jkv.transfer(ref, via=via)
+    assert kv_handoff.transfer(decode_blob(jkv.encode(ref)), via=via) == want
+    assert want == jkv.encode(ref)
+
+
+@pytest.mark.parametrize("via", ["dma", "", "WIRE"])
+def test_transfer_refuses_an_unknown_via(via):
+    h = _exporter().export([1, 2, 3])
+    with pytest.raises(ValueError, match="via"):
+        kv_handoff.transfer(h, via=via)
+    with pytest.raises(ValueError, match="via"):
+        jkv.transfer(h, via=via)
+
+
+def test_ici_is_not_supported_without_several_cards():
+    """Here (no CUDA, as the reference's gate sees no TPU) the in-mesh
+    hop is closed in both packages."""
+    assert kv_handoff.ici_supported() is False
+    assert jkv.ici_supported() is False
+
+
 @pytest.mark.parametrize("prompt", [[3, 5, 7], list(range(1, 12)),
                                     list(range(5, 40))])
 def test_exporters_agree_within_bf16(prompt):

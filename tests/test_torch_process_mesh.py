@@ -1,8 +1,8 @@
 """A mesh whose ranks are processes (``mesh.ProcessMesh``) and the DP×SP
 ring step on it, one process a rank: 2 and 4 gloo processes on the CPU
 (tests/torch_process_child.py, started by ``launcher.run_local_group``)
-cut and gather tensors, refuse what the process mesh does not run yet,
-and take one ``make_ring_train_step`` step at lr 1 on dp 1 × sp 2 and
+cut and gather tensors, run the strategies that once refused a process
+mesh (EP, LoRA, the serving shardings, MoE ``fit``), and take one ``make_ring_train_step`` step at lr 1 on dp 1 × sp 2 and
 dp 2 × sp 2, held to the virtual mesh's step and to the reference's
 ``make_ring_train_step`` on host devices on the same parameters and
 window.
@@ -30,8 +30,8 @@ import torch
 from jax.sharding import Mesh as JMesh
 
 from torch_parity import CPU, cfg_pair, f32, jax_params, to_torch
-from torch_process_child import (ATTN_CASES, LR, STEPS, STILL_REFUSED,
-                                 attn_inputs)
+from torch_process_child import ATTN_CASES, LR, PORTED_LAST, STEPS, \
+    attn_inputs
 
 from tpu_dra.workloads import ring_attention as jra
 from tpu_dra_torch.convert import save_npz
@@ -49,10 +49,6 @@ WAIT = 300
 RING_CFG = dict(vocab=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
                 max_seq=32)
 MESHES = {"dp1xsp2": {"dp": 1, "sp": 2}, "dp2xsp2": {"dp": 2, "sp": 2}}
-# the strategies that still run on the virtual mesh only (the ring
-# attention makers, zigzag and GPipe run on a process mesh:
-# tests/test_torch_process_attention.py, test_torch_process_pipeline.py)
-REFUSED = STILL_REFUSED
 
 
 def window():
@@ -118,12 +114,13 @@ def test_process_mesh_shard_and_unshard_round_trip(runs, name):
 
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_process_mesh_refuses_what_it_does_not_run_yet(runs, name):
-    """Every other strategy raises NotImplementedError naming ROADMAP.md,
-    and without CUDA a process mesh refuses unless given the CPU."""
+    """Nothing is left that the process mesh does not run: the strategies
+    that once refused it (EP, the MoE AdamW step, LoRA, the serving
+    shardings, MoE ``fit``) each ran a step on
+    every process of this group.  What it still refuses is a mesh
+    without CUDA, unless given the CPU."""
     for info, _ in runs[name]:
-        assert sorted(info["refusals"]) == sorted(REFUSED)
-        for what, said in info["refusals"].items():
-            assert what in said and "ROADMAP.md" in said, said
+        assert info["strategies"] == dict.fromkeys(PORTED_LAST, "ran")
         assert "CUDA" in info["no_cuda"] and "device='cpu'" in \
             info["no_cuda"]
 

@@ -5,8 +5,8 @@ take one ``make_pipeline_train_step`` step at lr 1, with the dense and
 the chunked head, from this process's shards of the same parameters;
 the gathered new tree is held to the reference's step on host devices
 and to the port's virtual mesh, and the replicated leaves hold the same
-bits on every process.  The same children show that the strategies the
-process mesh does not run yet still raise ``NotImplementedError``.
+bits on every process.  The same children run, one step each, the
+strategies that once refused a process mesh.
 
 Tolerances, those of tests/test_torch_pipeline.py: the loss within 5e-3
 and every leaf's update within 3% relative L2.
@@ -28,7 +28,7 @@ import torch
 from jax.sharding import Mesh as JMesh
 
 from torch_parity import CPU, cfg_pair, f32, jax_params, to_torch
-from torch_process_child import STILL_REFUSED, flat_tree
+from torch_process_child import PORTED_LAST, flat_tree
 
 from tpu_dra.workloads import pipeline as jpipe
 from tpu_dra_torch.convert import save_npz
@@ -183,12 +183,14 @@ def test_process_pipeline_holds_its_stage_slice(runs, mesh):
                 np.testing.assert_array_equal(arrays[k], whole)
 
 
-@pytest.mark.parametrize("what", STILL_REFUSED)
+@pytest.mark.parametrize("what", PORTED_LAST)
 def test_remaining_strategies_still_refuse_a_process_mesh(runs, what):
-    """EP, LoRA, ``serving_param_shardings``, the MoE AdamW step and
-    ``fit`` of a ``MoEConfig`` raise ``NotImplementedError`` naming
-    ROADMAP.md on every process of both meshes."""
+    """None of the strategies that once refused a process mesh refuses it
+    now: EP, LoRA, ``serving_param_shardings``, the MoE
+    AdamW step and ``fit`` of a ``MoEConfig`` each ran (a finite loss, or
+    the serving tree gathered back byte-equal) on every process of both
+    meshes, on a mesh of the same dp whose other axis is "ep" or "tp"."""
     for name in MESHES:
         for info, _ in runs[name]:
-            said = info["refusals"][what]
-            assert what in said and "ROADMAP.md" in said, said
+            assert info["strategies"][what] == "ran", \
+                info["strategies"][what]

@@ -9,12 +9,15 @@
     python tests/torch_process_child.py optax OUT AXES_JSON DEVICE
     python tests/torch_process_child.py attn OUT AXES_JSON DEVICE
     python tests/torch_process_child.py pipe OUT AXES_JSON DEVICE
+    python tests/torch_process_child.py moe OUT AXES_JSON DEVICE
+    python tests/torch_process_child.py lora OUT AXES_JSON DEVICE
 
 ``ring``: the group ring's forward and VJP cases (:func:`ring_inputs`,
 the same global inputs on every rank) on DEVICE ("cpu": the group plain
 versions; "cuda": the kernels across processes).  ``mesh``: on a
 ``ProcessMesh`` of AXES over the CPU, shard and unshard round trips,
-the refusals, and the DP×SP step of ``OUT/params.npz`` on
+the strategies that once refused a process mesh (:func:`_strategies`),
+and the DP×SP step of ``OUT/params.npz`` on
 ``OUT/tokens.npz`` for each (ring_impl, hop_impl) of :data:`STEPS`.
 ``tp``: on a ``ProcessMesh`` of AXES (dp × tp) over DEVICE, the DP×TP
 step (``make_sharded_train_step``) of each case in ``OUT/cases.json``
@@ -26,8 +29,14 @@ then ``fit`` on the mesh (:func:`optax_main`).  ``attn``: on a
 of :data:`ZIGZAG_CASES` and :data:`MAKER_CASES` and ``kv_handoff.
 ici_shift`` on the ring over "sp" (:func:`attn_main`).  ``pipe``: on a
 ``ProcessMesh`` of AXES (dp × pp) over DEVICE, the GPipe step of each
-case in ``OUT/pipe_cases.json`` and the strategies that still refuse a
-process mesh (:func:`pipe_main`).
+case in ``OUT/pipe_cases.json`` and :func:`_strategies`
+(:func:`pipe_main`).  ``moe``: on a ``ProcessMesh`` of AXES (dp × ep)
+over DEVICE, the MoE SGD and AdamW steps of each case in
+``OUT/moe_cases.json``, the router on its rows, and MoE ``fit``
+(:func:`moe_main`).  ``lora``: on a ``ProcessMesh`` of AXES (dp × tp)
+over DEVICE, the LoRA step over each case's plain, int8 or int4 base
+cut by ``serving_param_shardings``, and the straddling int4 tree
+(:func:`lora_main`).
 
 It imports torch and the port only (no JAX), so the cuda case runs it
 on a card machine as it is.
@@ -58,10 +67,14 @@ ATTN_CASES = [(e, h, kv) for e in ("xla", "flash") for h in ("xla", "pallas")
 ZIGZAG_CASES = [(impl, kv) for impl in ("xla", "flash") for kv in (2, 1)]
 MAKER_CASES = ATTN_CASES
 MAKER_SHAPE = (2, 2, 32, 16)
-# the strategies a process mesh still refuses (ROADMAP.md §2, item 1)
-STILL_REFUSED = ("make_moe_train_step", "make_moe_optax_step",
-                 "make_lora_train_step", "serving_param_shardings",
-                 "fit of a MoEConfig")
+# the strategies the process mesh runs since it took the last of them:
+# each runs on every process of the mesh and pipeline tests' groups, on a
+# config whose heads and experts split over 4 ranks
+PORTED_LAST = ("make_moe_train_step", "make_moe_optax_step",
+               "make_lora_train_step", "serving_param_shardings",
+               "fit of a MoEConfig")
+STRATEGY_CFG = dict(vocab=32, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                    max_seq=16)
 
 
 def bf16(seed: int, shape) -> torch.Tensor:
@@ -177,30 +190,89 @@ def ring_main(out: Path, device: str) -> None:
     dist.destroy_process_group()
 
 
-def _refusals(mesh, cfg) -> dict:
-    """Each strategy the process mesh does not run yet
-    (:data:`STILL_REFUSED`), and what it raised."""
-    import dataclasses
+def _seeded(seed: int) -> torch.Generator:
+    g = torch.Generator()
+    g.manual_seed(seed)
+    return g
 
-    from tpu_dra_torch.workloads import fit, lora, moe, quant
-    calls = {
-        "make_moe_train_step": lambda: moe.make_moe_train_step(cfg, mesh),
-        "make_moe_optax_step": lambda: moe.make_moe_optax_step(
-            cfg, mesh, zero1=True),
-        "make_lora_train_step": lambda: lora.make_lora_train_step(cfg, mesh),
-        "serving_param_shardings": lambda: quant.serving_param_shardings(
-            cfg, mesh, {}),
-        "fit of a MoEConfig": lambda: fit.fit(
-            moe.MoEConfig(**dataclasses.asdict(cfg), n_experts=2),
-            "no-such-corpus.bin", steps=1, batch=2, mesh=mesh),
-    }
+
+def _strategies(mesh, out: Path) -> dict:
+    """Each strategy that once refused a process mesh
+    (:data:`PORTED_LAST`), run on every process of ``mesh``'s group: on
+    a process mesh of the same dp and of its other axis renamed "ep" (the
+    MoE steps and ``fit``) or "tp" (LoRA and the serving shardings), one
+    step of :data:`STRATEGY_CFG` from seeded parameters (a ``fit`` of one
+    step on a corpus rank 0 writes), or the int8 serving tree cut and
+    gathered back.  What each gave: ``"ran"`` with a finite loss or a
+    byte-equal round trip, else what it raised or saw."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import fit, lora, moe, quant, train
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    dp = mesh.axis_size("dp")
+    other = mesh.size // dp
+    dev = mesh.device
+    cfg = train.ModelConfig(**STRATEGY_CFG)
+    mcfg = moe.MoEConfig(**STRATEGY_CFG, n_experts=4, router_top_k=2)
+    ep = ProcessMesh({"dp": dp, "ep": other}, device=dev)
+    tp = ProcessMesh({"dp": dp, "tp": other}, device=dev)
+    windows = torch.randint(0, cfg.vocab, (2 * dp, cfg.max_seq + 1),
+                            generator=_seeded(9)).to(dev)
+    corpus = out / "strategy-corpus.bin"
+    if mesh.rank == 0:
+        np.random.default_rng(9).integers(
+            0, cfg.vocab, 4000, dtype=np.uint16).tofile(corpus)
+    dist.barrier()
+
+    def moe_step():
+        step, p_shard, _ = moe.make_moe_train_step(mcfg, ep, lr=1.0)
+        params = ep.shard_tree(moe.init_moe_params(mcfg, _seeded(1)),
+                               p_shard)
+        return step(_to(params, dev), windows)[1]
+
+    def moe_optax():
+        step, init, p_shard, _ = moe.make_moe_optax_step(mcfg, ep,
+                                                         zero1=True)
+        params = _to(ep.shard_tree(moe.init_moe_params(mcfg, _seeded(1)),
+                                   p_shard), dev)
+        return step(params, init(params), windows)[2]
+
+    def lora_step():
+        step, init, lcfg, sh = lora.make_lora_train_step(cfg, tp)
+        base = train.init_params(cfg, _seeded(2))
+        adapters = _to(lora.init_lora(base, lcfg, _seeded(3)), dev)
+        base = _to(tp.shard_tree(base, sh["params"]), dev)
+        return step(base, adapters, init(adapters), windows)[2]
+
+    def serving():
+        tree = quant.quantize_params_int8(train.init_params(cfg,
+                                                            _seeded(4)))
+        specs = quant.serving_param_shardings(cfg, tp, tree)
+        back = tp.unshard_tree(tp.shard_tree(tree, specs), specs)
+        same = all(torch.equal(a, b) for a, b in zip(
+            train.tree_leaves(back), train.tree_leaves(tree)))
+        return torch.tensor(0.0 if same else float("nan"))
+
+    def moe_fit():
+        return torch.tensor(fit.fit(
+            mcfg, str(corpus), steps=1, batch=2 * dp,
+            mesh=ep, log_fn=lambda s: None).loss)
+
+    calls = {"make_moe_train_step": moe_step,
+             "make_moe_optax_step": moe_optax,
+             "make_lora_train_step": lora_step,
+             "serving_param_shardings": serving,
+             "fit of a MoEConfig": moe_fit}
     said = {}
     for name, call in calls.items():
         try:
-            call()
-            said[name] = "ran"
-        except NotImplementedError as e:
+            got = call()
+            said[name] = "ran" if bool(torch.isfinite(got)) else \
+                f"{name} gave {float(got)}"
+        except (NotImplementedError, ValueError) as e:
             said[name] = str(e)
+    ep.close()
+    tp.close()
     return said
 
 
@@ -233,7 +305,7 @@ def mesh_main(out: Path, axes: dict) -> None:
     info["shard_shapes"] = [list(mesh.shard(x, spec).shape)
                             for spec in specs]
     cfg = ModelConfig(**json.loads((out / "cfg.json").read_text()))
-    info["refusals"] = _refusals(mesh, cfg)
+    info["strategies"] = _strategies(mesh, out)
     params = convert.load_npz(out / "params.npz", "cpu")
     with np.load(out / "tokens.npz") as data:
         tokens = torch.from_numpy(data["tokens"])
@@ -468,7 +540,8 @@ def _fit_runs(out: Path, mesh) -> tuple:
     saving at 6 in ``ck-full``), a ZeRO-1 run of 3 saving at 3 in ``ck``
     (copied to ``ck3`` before a second run resumes it for 3), a run
     resuming the virtual mesh's step-3 checkpoint in ``vck`` for 3, and
-    what a ``MoEConfig`` raises."""
+    one step of a ``MoEConfig`` on a process mesh of the same dp whose
+    other axis is "ep" (its loss and step)."""
     import shutil
 
     import torch.distributed as dist
@@ -495,11 +568,13 @@ def _fit_runs(out: Path, mesh) -> tuple:
     losses["crossed"] = tfit.fit(cfg, data, steps=3, zero1=True,
                                  checkpoint_dir=str(out / "vck"),
                                  resume=True, **kw).losses
-    try:
-        tfit.fit(MoEConfig(**spec["cfg"], n_experts=2), data, steps=1, **kw)
-        info["moe"] = "ran"
-    except NotImplementedError as e:
-        info["moe"] = str(e)
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    dp = mesh.axis_size("dp")
+    ep = ProcessMesh({"dp": dp, "ep": mesh.size // dp}, device=mesh.device)
+    moe = tfit.fit(MoEConfig(**spec["cfg"], n_experts=4), data, steps=1,
+                   **dict(kw, mesh=ep))
+    info["moe"] = ["ran", moe.loss, moe.step]
+    ep.close()
     return {f"fit_{k}": torch.tensor(v) for k, v in losses.items()}, info
 
 
@@ -622,7 +697,7 @@ def pipe_main(out: Path, axes: dict, device: str) -> None:
     cut by ``p_shard``, one GPipe step at lr 1, ``{name}_loss``,
     ``{name}/<leaf>`` (the new tree gathered) and ``{name}_local/<leaf>``
     (this process's shards) saved; ``rank<r>.json`` holds the mesh
-    coordinates, the specs and :func:`_refusals`."""
+    coordinates, the specs and :func:`_strategies`."""
     import torch.distributed as dist
 
     from tpu_dra_torch import convert
@@ -652,11 +727,309 @@ def pipe_main(out: Path, axes: dict, device: str) -> None:
             res[f"{name}/{k}"] = v
         for k, v in flat_tree(new).items():
             res[f"{name}_local/{k}"] = v
-    info["refusals"] = _refusals(mesh, cfg)
+    info["strategies"] = _strategies(mesh, out)
     mesh.close()
     (out / f"rank{r}.json").write_text(json.dumps(info))
     _save(out, r, res)
     dist.destroy_process_group()
+
+
+def _moe_case(case: dict, out: Path, mesh, fl: dict) -> tuple:
+    """One case of ``OUT/moe_cases.json`` on a ``{"dp", "ep"}`` mesh:
+    ``kind`` "sgd" (one ``make_moe_train_step`` step at lr 1 from the
+    case's parameters on window 0, and, where the case names ``pins``,
+    the same step again with the virtual step's router choices replayed
+    on this process's rows: ``{name}_pin...``) or "optax"
+    (``make_moe_optax_step`` with the case's ``zero1`` for ``steps``
+    steps, one window each, the first replaying ``pins`` where named).  Returns the arrays to save (as
+    :func:`_optax_case` names them, plus ``{name}_local/<leaf>``, this
+    process's new shards) and the case's info (the flash calls
+    ``[forward, backward]`` of the first step, the clip's squared norm
+    from the shards against the gathered gradients', the moment bytes,
+    the pins replayed)."""
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import moe, train
+    name, cfg = case["name"], moe.MoEConfig(**case["cfg"])
+    dev = mesh.device
+    params = convert.load_npz(out / case["params"], "cpu")
+    with np.load(out / case["tokens"]) as data:
+        windows = torch.from_numpy(data["tokens"]).to(dev)
+    res, info = {}, {}
+    fl.update(dict.fromkeys(fl, 0))
+    if case["kind"] == "sgd":
+        step, p_shard, t_shard = moe.make_moe_train_step(
+            cfg, mesh, lr=1.0, attn_impl=case["attn"])
+        info["t_shard"] = list(t_shard)
+        local = _to(mesh.shard_tree(params, p_shard), dev)
+        new, loss = step(local, windows[0])
+        info["flash"] = [fl["flash_attn_fwd"], fl["flash_attn_bwd"]]
+        res[f"{name}_loss"] = torch.stack([loss])
+        if case.get("pins"):
+            recorded = _pins(out / case["pins"], mesh, windows[0])
+            with moe.PinnedChoices.replaying(recorded) as pin:
+                pinned, ploss = step(local, windows[0])
+            info["pins"] = [pin.replayed, len(recorded)]
+            res[f"{name}_pin_loss"] = torch.stack([ploss])
+            for k, v in flat_tree(mesh.unshard_tree(pinned,
+                                                    p_shard)).items():
+                res[f"{name}_pin/{k}"] = v
+    else:
+        step, init, p_shard, _ = moe.make_moe_optax_step(
+            cfg, mesh, attn_impl=case["attn"], zero1=case["zero1"])
+        new = _to(mesh.shard_tree(params, p_shard), dev)
+        if case.get("norm"):
+            grads, _, _ = moe._process_grads(cfg, mesh, case["attn"],
+                                             "dense")
+            _, g = grads(new, windows[0])
+            whole = mesh.unshard_tree(g, p_shard)
+            info["norm"] = [float(init.layout.sum_squares(g)), float(sum(
+                t.double().square().sum()
+                for t in train.tree_leaves(whole)))]
+        opt = init(new)
+        losses = []
+        for i in range(case["steps"]):
+            if i == 0 and case.get("pins"):
+                recorded = _pins(out / case["pins"], mesh, windows[0])
+                with moe.PinnedChoices.replaying(recorded) as pin:
+                    new, opt, loss = step(new, opt, windows[0])
+                info["pins"] = [pin.replayed, len(recorded)]
+            else:
+                new, opt, loss = step(new, opt, windows[i])
+            losses.append(loss)
+            if i == 0:
+                for k, v in flat_tree(opt.to_dict()["mu"]).items():
+                    res[f"{name}_mu1/{k}"] = v.clone()
+        res[f"{name}_loss"] = torch.stack(losses)
+        state = opt.to_dict()
+        for key in ("mu", "nu"):
+            for k, v in flat_tree(state[key]).items():
+                res[f"{name}_{key}/{k}"] = v
+        shapes = train.param_shapes(cfg, moe.init_moe_params)
+        sh, _ = train.opt_state_shardings(None, shapes, p_shard, mesh,
+                                          case["zero1"])
+        info["bytes"] = [
+            sum(4 * t.numel() for key in ("mu", "nu")
+                for t in train.tree_leaves(getattr(opt, key))),
+            train.opt_state_bytes_per_rank(sh, shapes, mesh)]
+    for k, v in flat_tree(mesh.unshard_tree(new, p_shard)).items():
+        res[f"{name}/{k}"] = v
+    for k, v in flat_tree(new).items():
+        res[f"{name}_local/{k}"] = v
+    return res, info
+
+
+def _pins(path: Path, mesh, window) -> list:
+    """The router choices of a virtual-mesh step on the global ``window``
+    (``pin<i>`` in the npz at ``path``, one a router call), cut to this
+    process's dp rows."""
+    n = window.shape[0] // mesh.axis_size("dp") * (window.shape[1] - 1)
+    lo = mesh.axis_index("dp") * n
+    with np.load(path) as data:
+        return [torch.from_numpy(data[f"pin{i}"][lo:lo + n]).to(
+            mesh.device) for i in range(len(data.files))]
+
+
+def _moe_route(out: Path, mesh) -> dict:
+    """``moe.moe_ffn`` on this process's rows of ``OUT/route.npz``'s
+    global ``x [B, S, D]`` (with its ``wg``, and its banks cut over
+    "ep"), the config of ``OUT/route.json``: the output rows, the aux
+    share and the dispatch ``[K, N_local, E, C]`` its router claimed."""
+    from tpu_dra_torch.workloads import moe
+    cfg = moe.MoEConfig(**json.loads((out / "route.json").read_text()))
+    dev = mesh.device
+    with np.load(out / "route.npz") as data:
+        x, wg, w1, w2 = (torch.from_numpy(data[k]).to(dev)
+                         for k in ("x", "wg", "w1", "w2"))
+    seen = {}
+    real = moe.process_route
+
+    def record(*a, **k):
+        got = real(*a, **k)
+        seen["disp"] = got[3]
+        return got
+    moe.process_route = record
+    try:
+        y, aux = moe.moe_ffn(cfg, mesh.shard(x, ("dp", None, None)), wg,
+                             mesh.shard(w1, ("ep", None, None)),
+                             mesh.shard(w2, ("ep", None, None)), mesh=mesh)
+    finally:
+        moe.process_route = real
+    return {"route_out": y, "route_aux": aux, "route_disp": seen["disp"]}
+
+
+def _moe_fit_runs(out: Path, mesh) -> tuple:
+    """``fit`` of ``OUT/moe_fit.json``'s MoE config and corpus on the
+    process mesh (ZeRO-1, batch 4, flash attention): 4 steps saving at 4
+    in ``ck-full``, 2 saving at 2 in ``ck`` (copied to ``ck2``), 2 more
+    resumed from it saving at 4, and 1 resumed from the virtual mesh's
+    step-2 checkpoint in ``vck``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import fit as tfit
+    from tpu_dra_torch.workloads.moe import MoEConfig
+    spec = json.loads((out / "moe_fit.json").read_text())
+    cfg, data = MoEConfig(**spec["cfg"]), spec["data"]
+    kw = dict(batch=4, log_every=1, mesh=mesh, zero1=True,
+              attn_impl=spec["attn"], log_fn=lambda s: None)
+    losses = {"full": tfit.fit(cfg, data, steps=4,
+                               checkpoint_dir=str(out / "ck-full"),
+                               checkpoint_every=4, **kw).losses}
+    ck = str(out / "ck")
+    tfit.fit(cfg, data, steps=2, checkpoint_dir=ck, checkpoint_every=2,
+             **kw)
+    if mesh.rank == 0:
+        shutil.copytree(ck, out / "ck2")
+    dist.barrier()
+    resumed = tfit.fit(cfg, data, steps=2, checkpoint_dir=ck,
+                       checkpoint_every=2, resume=True, **kw)
+    losses["resumed"], info = resumed.losses, {"resumed_step": resumed.step}
+    losses["crossed"] = tfit.fit(cfg, data, steps=1,
+                                 checkpoint_dir=str(out / "vck"),
+                                 resume=True, **kw).losses
+    return {f"fit_{k}": torch.tensor(v) for k, v in losses.items()}, info
+
+
+def moe_main(out: Path, axes: dict, device: str) -> None:
+    """On a ``ProcessMesh`` of AXES (dp × ep) over DEVICE: each case of
+    ``OUT/moe_cases.json`` (:func:`_moe_case`), then :func:`_moe_route`
+    and :func:`_moe_fit_runs` where their files exist.
+    ``rank<r>.json`` holds the coordinates, each case's info and the fit
+    runs'."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import flash
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    fl = _count_calls(flash, ["flash_attn_fwd", "flash_attn_bwd"])
+    mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+    res, info = {}, {"coords": mesh.coords, "cases": {}}
+    for case in json.loads((out / "moe_cases.json").read_text()):
+        got, info["cases"][case["name"]] = _moe_case(case, out, mesh, fl)
+        res.update(got)
+    if (out / "route.json").exists():
+        res.update(_moe_route(out, mesh))
+    if (out / "moe_fit.json").exists():
+        got, info["fit"] = _moe_fit_runs(out, mesh)
+        res.update(got)
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+def _serving_tree(params: dict, form: str, group: int) -> dict:
+    from tpu_dra_torch.workloads import quant
+    if form == "int8":
+        return quant.quantize_params_int8(params)
+    if form == "int4":
+        return quant.quantize_params_int4(params, group)
+    return params
+
+
+def lora_main(out: Path, axes: dict, device: str) -> None:
+    """On a ``ProcessMesh`` of AXES (dp × tp) over DEVICE, each case of
+    ``OUT/lora_cases.json`` (``name``, ``cfg``, the global ``params``
+    and ``lora`` npz files and ``tokens`` ``[steps, B, S+1]`` in OUT,
+    ``form`` "plain", "int8" or "int4" with its ``group``, ``attn``,
+    ``steps``): the base in its serving form cut by
+    ``serving_param_shardings`` (whose specs, gathered back tree and
+    local view are checked here), then ``steps`` LoRA steps; saved
+    ``{name}_loss`` and ``{name}/<leaf>`` (the adapters).  Then
+    ``OUT/straddle.json``'s int4 tree (a group count that divides
+    neither tp nor the rows a process holds), cut and gathered, and what
+    ``quant.local_serving_tree`` raised on it.  ``rank<r>.json`` holds,
+    each case, the specs, whether the gathered tree was byte-equal and
+    the base shards unchanged by the steps, and the flash calls."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import flash, lora, quant, train
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    _join()
+    r = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    fl = _count_calls(flash, ["flash_attn_fwd", "flash_attn_bwd"])
+    mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+    dev = mesh.device
+    res, info = {}, {"coords": mesh.coords, "cases": {}}
+
+    def byte_equal(a: dict, b: dict) -> bool:
+        fa, fb = flat_tree(a), flat_tree(b)
+        return fa.keys() == fb.keys() and all(
+            fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k])
+            for k in fa)
+
+    for case in json.loads((out / "lora_cases.json").read_text()):
+        name, cfg = case["name"], train.ModelConfig(**case["cfg"])
+        base = _serving_tree(convert.load_npz(out / case["params"], "cpu"),
+                             case["form"], case.get("group", 128))
+        adapters = _to(convert.load_npz(out / case["lora"], "cpu"), dev)
+        with np.load(out / case["tokens"]) as data:
+            windows = torch.from_numpy(data["tokens"]).to(dev)
+        specs = quant.serving_param_shardings(cfg, mesh, base)
+        local = mesh.shard_tree(base, specs)
+        got = {"specs": {k: list(v) for k, v in flat_tree(specs).items()},
+               "gathered": byte_equal(mesh.unshard_tree(local, specs),
+                                      base)}
+        local = _to(local, dev)
+        before = {k: v.clone() for k, v in flat_tree(local).items()}
+        step, init, lcfg, _ = lora.make_lora_train_step(
+            cfg, mesh, lora.LoRAConfig(rank=case["rank"]),
+            attn_impl=case["attn"])
+        opt = init(adapters)
+        fl.update(dict.fromkeys(fl, 0))
+        losses = []
+        for i in range(case["steps"]):
+            adapters, opt, loss = step(local, adapters, opt, windows[i],
+                                       base_specs=specs)
+            losses.append(loss)
+            if i == 0:
+                for k, v in flat_tree(opt.mu).items():
+                    res[f"{name}_mu1/{k}"] = v.clone()
+        got["flash"] = [fl["flash_attn_fwd"], fl["flash_attn_bwd"]]
+        got["base_same"] = byte_equal(local, _unflat(before))
+        info["cases"][name] = got
+        res[f"{name}_loss"] = torch.stack(losses)
+        for k, v in flat_tree(adapters).items():
+            res[f"{name}/{k}"] = v
+    if (out / "straddle.json").exists():
+        spec = json.loads((out / "straddle.json").read_text())
+        cfg = train.ModelConfig(**spec["cfg"])
+        tree = _serving_tree(convert.load_npz(out / spec["params"], "cpu"),
+                             "int4", spec["group"])
+        specs = quant.serving_param_shardings(cfg, mesh, tree)
+        local = mesh.shard_tree(tree, specs)
+        info["straddle"] = {"gathered": byte_equal(
+            mesh.unshard_tree(local, specs), tree)}
+        try:
+            quant.local_serving_tree(mesh, local, specs)
+            info["straddle"]["said"] = "ran"
+        except ValueError as e:
+            info["straddle"]["said"] = str(e)
+    mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+def _unflat(flat: dict) -> dict:
+    """:func:`flat_tree`'s inverse."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
 
 
 def _to(tree: dict, dev) -> dict:
@@ -676,5 +1049,9 @@ if __name__ == "__main__":
         attn_main(out, json.loads(sys.argv[3]), sys.argv[4])
     elif what == "pipe":
         pipe_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "moe":
+        moe_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "lora":
+        lora_main(out, json.loads(sys.argv[3]), sys.argv[4])
     else:
         mesh_main(out, json.loads(sys.argv[3]))

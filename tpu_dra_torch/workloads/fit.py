@@ -18,10 +18,12 @@ with 0, so they differ from the reference's ``jax.random`` ones.  A
 reference's default mesh puts every local device on "dp"; one card is
 dp 1, where ZeRO-1 changes nothing).  A ``mesh.ProcessMesh`` (one
 process a rank, every process calling ``fit`` alike) trains the dense
-model on its dp×tp axes: each process builds the global init from the
+model on its dp×tp axes, or a MoE model on its dp×ep axes (the expert
+banks cut over "ep"): each process builds the global init from the
 one seed, keeps its shards, reads the same global batches and steps on
-its shards; a save gathers the global tree and moments and rank 0 writes
-the files of a replicated run, which every process reads back to resume.
+its shards; a save gathers the global tree and moments onto rank 0's
+host, which writes the files of a replicated run, and every process
+reads them back to resume.
 
 Checkpoints (``checkpointing.py``, the port's own format) hold
 ``{params, extra: {opt_state: {count, mu, nu}, step}}`` with the global
@@ -56,7 +58,7 @@ from tpu_dra_torch.workloads.checkpointing import (
     save_train_state,
 )
 from tpu_dra_torch.workloads.data import TokenDataset, batches, device_prefetch
-from tpu_dra_torch.workloads.mesh import ProcessMesh, refuse_process_mesh
+from tpu_dra_torch.workloads.mesh import ProcessMesh
 from tpu_dra_torch.workloads.moe import (
     MoEConfig,
     init_moe_params,
@@ -70,6 +72,8 @@ from tpu_dra_torch.workloads.train import (
     loss_fn,
     make_optax_train_step,
     make_train_step,
+    tree_leaves,
+    tree_unflatten,
 )
 
 
@@ -93,11 +97,10 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
     """Train ``cfg`` on a token file for ``steps`` optimizer steps on one
     device (default: the card), or on ``mesh`` (on its device).
 
-    - ``mesh``: a dp×tp ``mesh.Mesh`` (dp×ep for a ``MoEConfig``; one
-      without "dp" and "ep" raises ``ValueError``) or ``mesh.
-      ProcessMesh`` (dense models only: a ``MoEConfig`` raises
-      ``NotImplementedError``); the batch must divide by dp ×
-      ``accum_steps``.  ``zero1`` shards the moments over "dp".
+    - ``mesh``: a dp×tp ``mesh.Mesh`` or ``mesh.ProcessMesh`` (dp×ep
+      for a ``MoEConfig``; one without "dp" and "ep" raises
+      ``ValueError``); the batch must divide by dp × ``accum_steps``.
+      ``zero1`` shards the moments over "dp".
     - ``checkpoint_every``: 0 disables; otherwise saves ``{params,
       extra={opt_state, step}}`` to ``checkpoint_dir`` every N steps and
       at the end.  On a ``ProcessMesh`` ``checkpoint_dir`` must be one
@@ -112,8 +115,6 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
     the first step's one-time costs, as the reference's does."""
     is_moe = isinstance(cfg, MoEConfig)
     procs = isinstance(mesh, ProcessMesh)
-    if is_moe:
-        refuse_process_mesh(mesh, "fit of a MoEConfig")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if is_moe and (accum_steps != 1 or label_smoothing or z_loss):
@@ -136,7 +137,7 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
     horizon = steps if restored is None else restored + steps
     optimizer = AdamW(make_schedule(lr, lr_schedule, warmup_steps, horizon))
     if is_moe:
-        step_fn, init_opt, _, _ = make_moe_optax_step(
+        step_fn, init_opt, p_shard, _ = make_moe_optax_step(
             cfg, mesh, optimizer, attn_impl=attn_impl, head_impl=head_impl,
             zero1=zero1)
     elif mesh is not None:
@@ -160,11 +161,15 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
         opt_state = init_opt(params)
     else:
         t0 = time.perf_counter()
+        # a process reads the global state on the host and keeps its
+        # shards on the card
         state = restore_train_state(checkpoint_dir, step=restored,
-                                    device=dev)
+                                    device="cpu" if procs else dev)
         params = state["params"]
         if procs:
             params = mesh.shard_tree(params, p_shard)
+            params = tree_unflatten(params, [t.to(dev) for t in
+                                             tree_leaves(params)])
         opt_state = init_opt.restore(state["extra"]["opt_state"])
         start = int(state["extra"]["step"])
         del state
@@ -173,13 +178,18 @@ def fit(cfg: ModelConfig, data_path: str, *, mesh=None, steps: int = 100,
 
     def save(step: int) -> None:
         t0 = time.perf_counter()
-        # on a process mesh every process gathers (collectives), rank 0
-        # writes, and the barrier holds the others until it is committed
-        tree = mesh.unshard_tree(params, p_shard) if procs else params
-        extra = {"opt_state": opt_state.to_dict(), "step": step}
+        # on a process mesh every process sends its shards to rank 0's
+        # host (collectives), rank 0 writes, and the barrier holds the
+        # others until it is committed
+        if procs:
+            tree = mesh.unshard_tree(params, p_shard, "cpu", dst=0)
+            state = opt_state.to_dict("cpu", dst=0)
+        else:
+            tree, state = params, opt_state.to_dict()
+        extra = {"opt_state": state, "step": step}
         if not procs or mesh.rank == 0:
             save_train_state(checkpoint_dir, step, tree, extra=extra)
-        del tree, extra
+        del tree, state, extra
         if procs:
             dist.barrier(group=mesh.group)
         log_fn(f"checkpoint step {step}: saved in "

@@ -28,8 +28,9 @@ with its ``ring_shift``; here :func:`ici_shift` maps
 ``[G, n, ...]`` blocks of the port's virtual ring, or, given a
 ``collective_matmul.ProcessRing``, over each process's own blocks (the
 reference's per-device body, one process a rank).  Between engines
-the handoff always crosses as its wire blob (:func:`encode`), as the
-reference's ``transfer`` does: no serving path chooses the in-mesh hop.
+the handoff always crosses as its wire blob (:func:`transfer`, which
+serializes on every ``via``, as the reference's does): no serving path
+chooses the in-mesh hop.
 """
 
 from __future__ import annotations
@@ -359,3 +360,23 @@ def ici_shift(tree, reverse: bool = False, ring=None):
     return ring_shift(tree, reverse) if ring is None else \
         ring.ring_shift(tree, reverse)
 
+
+
+def ici_supported() -> bool:
+    """True when the in-mesh page hop can run between engines: CUDA with
+    more than one card (the reference's gate, 342-351, asks for a TPU
+    backend with more than one device).  On one card, or without CUDA,
+    everything takes the wire path."""
+    return torch.cuda.is_available() and torch.cuda.device_count() > 1
+
+
+def transfer(h: KVHandoff, *, via: str = "auto") -> bytes:
+    """The one entry point of the router and serve layers (the
+    reference's ``transfer``, 371-385): ``via="wire"`` serializes;
+    ``"ici"`` is reserved for engines that share a mesh, and ``"auto"``
+    picks it where :func:`ici_supported`; until engines in different
+    processes share the ring, every ``via`` serializes (:func:`encode`),
+    as the reference does.  Any other ``via`` raises ``ValueError``."""
+    if via not in ("wire", "ici", "auto"):
+        raise ValueError(f"via must be wire|ici|auto, got {via!r}")
+    return encode(h)

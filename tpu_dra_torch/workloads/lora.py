@@ -13,7 +13,11 @@ Over a dp×tp mesh (``mesh.Mesh``) the base keeps its
 ``train.param_shardings`` layout and the adapters replicate
 (:func:`lora_shardings`); as in the dense sharded step, GSPMD's
 collectives are plain there, so the mesh step computes what the
-one-device step computes.
+one-device step computes.  On a ``mesh.ProcessMesh`` (one process a
+rank) each process holds its base shards and the whole adapters, which
+it cuts to its shards' counterparts inside the step; the adapter
+gradients are summed over every axis
+(``process_train.make_process_lora_train_step``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from tpu_dra_torch.workloads.mesh import refuse_process_mesh
+from tpu_dra_torch.workloads.mesh import ProcessMesh
 from tpu_dra_torch.workloads.optim import AdamW
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
@@ -132,12 +136,18 @@ def make_lora_train_step(cfg: ModelConfig, mesh=None,
     on its device (else ``ValueError``) and ``shardings`` is
     ``{"params": train.param_shardings, "batch": train.batch_sharding,
     "lora": lora_shardings over the mesh}``; ``mesh=None`` is the one
-    device, where ``shardings`` is None."""
-    refuse_process_mesh(mesh, "make_lora_train_step")
+    device, where ``shardings`` is None.  On a dp×tp ``ProcessMesh``
+    ``step`` takes this process's shards of the base and the replicated
+    adapters (``process_train.make_process_lora_train_step``)."""
     from tpu_dra_torch.workloads.train import batch_sharding, param_shardings
     lcfg = lcfg or LoRAConfig()
     if optimizer is None:
         optimizer = AdamW(1e-3, weight_decay=LORA_WEIGHT_DECAY)
+    if isinstance(mesh, ProcessMesh):
+        from tpu_dra_torch.workloads.process_train import \
+            make_process_lora_train_step
+        return make_process_lora_train_step(cfg, mesh, lcfg, optimizer,
+                                            attn_impl, head_impl)
 
     def step(base, lora, opt_state, tokens):
         if mesh is not None:

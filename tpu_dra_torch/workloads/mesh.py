@@ -313,13 +313,28 @@ def group_all_to_all(x, out_splits: list, in_splits: list, group=None):
     return out.to(x.device)
 
 
-def group_all_gather(x, group=None) -> list:
-    """Every process's ``x``, in group rank order, on x's device."""
+def group_all_gather(x, group=None, device=None) -> list:
+    """Every process's ``x``, in group rank order, on x's device (or on
+    ``device``: the host keeps what gloo gathered there)."""
     src = x.detach().to("cpu") if _host(x, group) else x.detach()
     src = src.contiguous()
     out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, src, group=group)
-    return [t.to(x.device) for t in out]
+    return [t.to(x.device if device is None else device) for t in out]
+
+
+def group_gather(x, dst: int, group=None, device=None):
+    """Every process's ``x``, in group rank order, at group rank ``dst``
+    only (``None`` elsewhere), on x's device or on ``device``."""
+    src = x.detach().to("cpu") if _host(x, group) else x.detach()
+    src = src.contiguous()
+    mine = dist.get_rank(group) == dst
+    out = [torch.empty_like(src) for _ in range(
+        dist.get_world_size(group))] if mine else None
+    dist.gather(src, out, dst=_global(group, dst), group=group)
+    if not mine:
+        return None
+    return [t.to(x.device if device is None else device) for t in out]
 
 
 def group_sendrecv(x, to: int, frm: int, group=None):
@@ -619,10 +634,18 @@ class ProcessMesh(_Axes):
             x = x.narrow(d, idx * size, size)
         return x.contiguous()
 
-    def unshard(self, t, spec):
+    def unshard(self, t, spec, device=None, dst=None):
         """This process's shard ``t`` → the global tensor, gathered from
-        every process (the inverse of :meth:`shard`)."""
-        parts = group_all_gather(t, self.group)
+        every process (the inverse of :meth:`shard`), on t's device or on
+        ``device`` (``"cpu"``: a save's gather, which then takes no card
+        memory under gloo); with ``dst`` at that group rank only, and
+        ``None`` on the others."""
+        if dst is None:
+            parts = group_all_gather(t, self.group, device)
+        else:
+            parts = group_gather(t, dst, self.group, device)
+            if parts is None:
+                return None
         return self._unstack(torch.stack(parts).reshape(*self.shape,
                                                         *t.shape), spec)
 
@@ -643,11 +666,15 @@ class ProcessMesh(_Axes):
         return {k: self.shard_tree(v, specs[k]) if isinstance(v, dict)
                 else self.shard(v, specs[k]) for k, v in tree.items()}
 
-    def unshard_tree(self, tree: dict, specs: dict) -> dict:
+    def unshard_tree(self, tree: dict, specs: dict, device=None,
+                     dst=None) -> dict:
         """:meth:`unshard` of every leaf: the global tree back on every
-        process (collective)."""
-        return {k: self.unshard_tree(v, specs[k]) if isinstance(v, dict)
-                else self.unshard(v, specs[k]) for k, v in tree.items()}
+        process (collective), or at group rank ``dst`` only (its leaves
+        ``None`` elsewhere), on ``device`` where one is given."""
+        return {k: self.unshard_tree(v, specs[k], device, dst)
+                if isinstance(v, dict)
+                else self.unshard(v, specs[k], device, dst)
+                for k, v in tree.items()}
 
     def psum(self, x, axes=None):
         """The sum of ``x`` over the processes of the named ``axes``
@@ -719,11 +746,3 @@ class ProcessMesh(_Axes):
         for ring in self._rings.values():
             ring.close()
 
-
-def refuse_process_mesh(mesh, what: str) -> None:
-    """``NotImplementedError`` for ``what`` given a :class:`ProcessMesh`:
-    it runs on the virtual :class:`Mesh` only so far."""
-    if isinstance(mesh, ProcessMesh):
-        raise NotImplementedError(
-            f"{what} runs on a virtual Mesh only: on a ProcessMesh (one "
-            f"process a rank) it is not ported yet (ROADMAP.md §2, item 1)")

@@ -29,6 +29,21 @@ stays the one-device :func:`route` over the whole batch, so the mesh step
 routes every token as the one-device step does, up to near-ties
 (:class:`PinnedChoices` replays them); the rest of the block, whose
 parameters replicate, is the one-device computation.
+
+On a ``{"dp", "ep"}`` ``mesh.ProcessMesh`` (one process a rank) a
+process holds its dp rows of the batch and its E/ep experts of each bank
+(``ProcessMesh.shard_tree`` by :func:`moe_param_shardings`).  The router
+runs on its rows but claims slots as the global router does
+(:func:`process_route`: the capacity of the global token count, each
+slot offset by the counts of the rows before it, one all-gather of the
+``[K, E]`` counts over the "dp" line a call), and the Switch loss is
+this dp rank's share of the global one.  The expert FFN is Megatron's
+pair over the "ep" line (:func:`_process_experts`): the rows and the
+gates enter behind ``mesh.GroupCopy``, and the fp32 partial outputs of
+the rank's experts leave through ``mesh.GroupReduce``.
+Every leaf whole over "ep" then gets the same gradient bits on every ep
+rank, and the gradients are summed over "dp" only
+(:func:`_process_grads`).
 """
 
 from __future__ import annotations
@@ -39,7 +54,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from tpu_dra_torch.workloads.mesh import psum, refuse_process_mesh
+from tpu_dra_torch.workloads.mesh import ProcessMesh, psum
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
     _attn_sublayer,
@@ -158,6 +173,17 @@ class PinnedChoices:
     def replay(self) -> None:
         self.replayed = 0
 
+    @classmethod
+    def replaying(cls, recorded: list) -> "PinnedChoices":
+        """A harness that replays ``recorded`` (one ``[N, K]`` tensor of
+        expert indices a router call, in call order) from its first
+        call: another pass's choices, such as a virtual-mesh step's cut
+        to one process's rows."""
+        pin = cls()
+        pin.recorded = list(recorded)
+        pin.replay()
+        return pin
+
     def __enter__(self):
         global _top_k
         self._saved, _top_k = _top_k, self._choose
@@ -168,14 +194,10 @@ class PinnedChoices:
         _top_k = self._saved
 
 
-def route(cfg: MoEConfig, flat, wg, capacity: int):
-    """The router of :func:`moe_ffn` for ``flat [N, D]``: ``(probs [N, E]
-    fp32, gates [N, K], onehot_k [N, K, E], disp_k [K, N, E, C])``.
-    ``disp_k[k, n, e, c]`` is 1 where token n's k-th choice e holds slot
-    c; slots are claimed choice-major (every first choice before any
-    second), and a choice past the capacity holds none."""
-    E = wg.shape[-1]
-    N, K = flat.shape[0], cfg.router_top_k
+def _choose(cfg: MoEConfig, flat, wg):
+    """The router's choices for ``flat [N, D]``: ``(probs [N, E] fp32,
+    gates [N, K], onehot_k [N, K, E])``."""
+    E, K = wg.shape[-1], cfg.router_top_k
     probs = torch.softmax(flat.float() @ wg.float(), dim=-1)
     topk_probs, topk_idx = _top_k(probs, K)                    # [N, K]
     if K == 1:
@@ -184,16 +206,82 @@ def route(cfg: MoEConfig, flat, wg, capacity: int):
     else:
         gates = topk_probs / torch.clamp(
             topk_probs.sum(-1, keepdim=True), min=1e-9)        # GShard pair
-    onehot_k = F.one_hot(topk_idx, E).float()                  # [N, K, E]
+    return probs, gates, F.one_hot(topk_idx, E).float()
+
+
+def _slots(flat_oh, pos, capacity: int, K: int):
+    """``disp_k [K, N, E, C]`` from the choice-major one-hot ``flat_oh
+    [K·N, E]`` and each choice's slot ``pos``: a choice past the capacity
+    one-hots to no slot (``jax.nn.one_hot``)."""
+    KN, E = flat_oh.shape
+    keep = flat_oh * (pos < capacity)
+    slot = (pos.sum(-1).long()[:, None] == torch.arange(
+        capacity, device=flat_oh.device)).float()              # [KN, C]
+    return (keep[:, :, None] * slot[:, None, :]).reshape(K, KN // K, E,
+                                                         capacity)
+
+
+def route(cfg: MoEConfig, flat, wg, capacity: int):
+    """The router of :func:`moe_ffn` for ``flat [N, D]``: ``(probs [N, E]
+    fp32, gates [N, K], onehot_k [N, K, E], disp_k [K, N, E, C])``.
+    ``disp_k[k, n, e, c]`` is 1 where token n's k-th choice e holds slot
+    c; slots are claimed choice-major (every first choice before any
+    second), and a choice past the capacity holds none."""
+    N, K, E = flat.shape[0], cfg.router_top_k, wg.shape[-1]
+    probs, gates, onehot_k = _choose(cfg, flat, wg)
     flat_oh = onehot_k.transpose(0, 1).reshape(K * N, E)
     pos = (torch.cumsum(flat_oh, dim=0) - 1.0) * flat_oh       # [KN, E]
-    keep = flat_oh * (pos < capacity)
-    # a position past the capacity one-hots to no slot (jax.nn.one_hot)
-    slot = (pos.sum(-1).long()[:, None] == torch.arange(
-        capacity, device=flat.device)).float()                 # [KN, C]
-    disp_k = (keep[:, :, None] * slot[:, None, :]).reshape(K, N, E,
-                                                           capacity)
-    return probs, gates, onehot_k, disp_k
+    return probs, gates, onehot_k, _slots(flat_oh, pos, capacity, K)
+
+
+def process_route(cfg: MoEConfig, flat, wg, capacity: int, mesh):
+    """:func:`route` of this process's rows ``flat [N, D]`` of a batch
+    cut over the "dp" line of ``mesh`` (a ``ProcessMesh``), claiming the
+    slots the global router claims: ``(probs, gates, onehot_k, disp_k,
+    first)`` with ``first [E]`` the global count of first choices an
+    expert.  Choice k of a row at local position n takes expert e's slot
+    ``(count of choices before k over the whole batch) + (count of
+    choice k in lower dp ranks) + (its rank among this process's choice
+    k)``, from one all-gather of the ``[K, E]`` counts over "dp"
+    (integers in fp32, so exact); ``capacity`` is the global one."""
+    N, K, E = flat.shape[0], cfg.router_top_k, wg.shape[-1]
+    probs, gates, onehot_k = _choose(cfg, flat, wg)
+    by_k = onehot_k.transpose(0, 1)                            # [K, N, E]
+    counts = mesh.all_gather(by_k.sum(1)[None].detach(), "dp", 0)
+    total = counts.sum(0)                                      # [K, E]
+    before = total.cumsum(0) - total + counts[:mesh.axis_index("dp")].sum(0)
+    pos = (torch.cumsum(by_k, dim=1) - 1.0 + before[:, None]) * by_k
+    disp_k = _slots(by_k.reshape(K * N, E), pos.reshape(K * N, E),
+                    capacity, K)
+    return probs, gates, onehot_k, disp_k, total[0]
+
+
+def _process_experts(mesh, disp_k, gates, flat, w1, w2):
+    """The expert FFN of this process's banks ``w1 [E/ep, D, F]`` and
+    ``w2 [E/ep, F, D]`` (rank r of the "ep" line holds experts r·E/ep
+    on), from the router's ``disp_k [K, N, E, C]`` and ``gates [N, K]``:
+    ``flat`` and ``gates`` enter behind ``mesh.GroupCopy`` (each rank's
+    cotangent covers its experts; their fp32 sum over "ep" is the
+    whole), the rank's experts take their slots of the dispatch and of
+    the combine weights (the combine of the whole bank, cut: a token's
+    choices go to distinct experts, so each weight is one gate), and the
+    fp32 partial outputs are summed over "ep" (``mesh.GroupReduce``) and
+    rounded to bf16 once, as :func:`_ep_experts` sums its ranks'.  The
+    gates, not the ``[N, E, C]`` combine, cross the "ep" line in the
+    backward: K values a token."""
+    el = w1.shape[0]
+    mine = disp_k[:, :, mesh.axis_index("ep") * el:
+                  (mesh.axis_index("ep") + 1) * el]        # [K, N, E/ep, C]
+    flat = mesh.copy(flat.float(), "ep").to(torch.bfloat16)
+    combine = torch.einsum("knec,nk->nec", mine, mesh.copy(
+        gates.float(), "ep")).to(torch.bfloat16)
+    expert_in = torch.einsum("nec,nd->ecd", mine.sum(0).to(torch.bfloat16),
+                             flat)
+    h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in,
+                            w1.to(torch.bfloat16)), approximate="tanh")
+    expert_out = torch.einsum("ecf,efd->ecd", h, w2.to(torch.bfloat16))
+    part = torch.einsum("nec,ecd->nd", combine, expert_out)
+    return mesh.reduce(part.float(), "ep").to(torch.bfloat16)
 
 
 def _ep_experts(mesh, dispatch, combine, flat, w1, w2):
@@ -228,12 +316,28 @@ def moe_ffn(cfg: MoEConfig, x, wg, w1, w2, capacity: int | None = None,
     scalar)``.  Tokens over their expert's capacity contribute zero.  The
     aux loss is E·Σ_e (fraction of tokens whose FIRST choice, before the
     capacity, is e) × (mean router probability of e).  A ``mesh`` with
-    an "ep" axis runs the experts on its ranks (:func:`_ep_experts`)."""
+    an "ep" axis runs the experts on its ranks (:func:`_ep_experts`); on
+    a ``ProcessMesh`` x is this process's dp rows, the capacity the
+    global batch's, the experts this process's (:func:`process_route`,
+    :func:`_process_experts`), and the aux loss this dp rank's share,
+    which sums over "dp" to the global one."""
     B, S, D = x.shape
     E = wg.shape[-1]
     N = B * S
-    C = capacity if capacity is not None else cfg.capacity(N)
+    procs = isinstance(mesh, ProcessMesh)
+    n_all = N * mesh.axis_size("dp") if procs else N
+    C = capacity if capacity is not None else cfg.capacity(n_all)
     flat = x.reshape(N, D)
+    if procs:
+        probs, gates, _, disp_k, first = process_route(cfg, flat, wg, C,
+                                                       mesh)
+        out = _process_experts(mesh, disp_k, gates, flat, w1, w2)
+        # this dp rank's share of the global Switch loss: the global
+        # first-choice fraction times this rank's part of the mean
+        # router probability
+        n = first.new_tensor(float(max(n_all, 1)))
+        aux = E * torch.sum((first / n) * (probs.sum(0) / n))
+        return out.reshape(B, S, D).to(x.dtype), aux
     probs, gates, onehot_k, disp_k = route(cfg, flat, wg, C)
     dispatch = disp_k.sum(0)                                   # [N, E, C]
 
@@ -325,12 +429,51 @@ def moe_param_shardings(cfg: MoEConfig, mesh) -> dict[str, Any]:
 
 def _ep_mesh(cfg: MoEConfig, mesh) -> tuple:
     """``(p_shard, t_shard)`` of a step on ``mesh``, after the reference's
-    check that "ep" splits the experts."""
+    check that "ep" splits the experts (and, on a ``ProcessMesh``, that
+    its axes are "dp" and "ep" only)."""
     ep = mesh.axis_size("ep")
     if cfg.n_experts % ep:
         raise ValueError(f"n_experts={cfg.n_experts} not divisible by "
                          f"ep={ep}")
+    if isinstance(mesh, ProcessMesh) and set(mesh.axes) != {"dp", "ep"}:
+        raise ValueError(f"the MoE step's process mesh holds 'dp' and 'ep' "
+                         f"only, got {mesh.axes}")
     return moe_param_shardings(cfg, mesh), ("dp", None)
+
+
+def _process_grads(cfg: MoEConfig, mesh, attn_impl: str, head_impl: str):
+    """``(grads, p_shard, t_shard)`` on a ``{"dp", "ep"}`` ``ProcessMesh``:
+    ``grads(params, tokens) -> (loss, grads)`` takes this process's
+    shards of the parameters (the banks cut over "ep") and the global
+    ``[B, S+1]`` window batch, the same on every process, which it cuts
+    to this process's dp rows.  Each process differentiates its share of
+    the global objective, its rows' NLL sum over the global token count
+    plus its dp rank's share of the Switch loss; the shares sum over
+    "dp" to :func:`moe_loss_fn` of the whole batch.  Every process of a
+    dp group computes the same share, and the leaves whole over "ep" get
+    the same bits on each of its ep ranks (the expert region's
+    transposes), so every gradient is summed over "dp" only (one flat
+    fp32 psum, ``process_train.psum_grads``).  ``loss`` is the psum of
+    the shares."""
+    from tpu_dra_torch.workloads.process_train import psum_grads
+    from tpu_dra_torch.workloads.train import tree_leaves, tree_unflatten
+    p_shard, t_shard = _ep_mesh(cfg, mesh)
+
+    def grads(params, tokens):
+        mesh.check_device(tokens, *tree_leaves(params))
+        tok = mesh.shard(tokens, t_shard)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        live = tree_unflatten(params, leaves)
+        x, aux = _moe_trunk(cfg, live, tok[:, :-1], None, attn_impl, mesh)
+        nll = head_nll(live, x, tok[:, 1:].long(), head_impl).sum()
+        count = nll.new_tensor(float(tokens.shape[0] *
+                                     (tokens.shape[1] - 1)))
+        share = nll / count + cfg.aux_loss_weight * aux
+        g = list(torch.autograd.grad(share, leaves))
+        out = psum_grads(mesh, g, leaves, ["dp"] * len(leaves))
+        return mesh.psum(share.detach(), "dp"), tree_unflatten(params, out)
+
+    return grads, p_shard, t_shard
 
 
 def make_moe_optax_step(cfg: MoEConfig, mesh=None, optimizer=None,
@@ -345,8 +488,11 @@ def make_moe_optax_step(cfg: MoEConfig, mesh=None, optimizer=None,
     the experts run on its ranks and the moments take their parameters'
     specs (``train.opt_state_shardings``; ``zero1`` shards them over "dp"
     too, bit-equal to the replicated update).  ``mesh=None`` is the one
-    device (no specs; ``zero1`` has no "dp" to use)."""
-    refuse_process_mesh(mesh, "make_moe_optax_step")
+    device (no specs; ``zero1`` has no "dp" to use).  On a
+    ``{"dp", "ep"}`` ``ProcessMesh`` ``step`` takes and returns this
+    process's shards of the parameters (cut by ``p_shard``) and of the
+    moments (``optim.ProcessMomentLayout``), and the global window
+    batch, the same on every process (:func:`_process_grads`)."""
     from tpu_dra_torch.workloads.optim import OptStateInit, default_optimizer
     from tpu_dra_torch.workloads.train import (opt_state_shardings,
                                                param_shapes, tree_leaves)
@@ -359,6 +505,14 @@ def make_moe_optax_step(cfg: MoEConfig, mesh=None, optimizer=None,
         _, init_opt_state = opt_state_shardings(
             optimizer, param_shapes(cfg, init_moe_params), p_shard, mesh,
             zero1=zero1)
+    if isinstance(mesh, ProcessMesh):
+        grads, _, _ = _process_grads(cfg, mesh, attn_impl, head_impl)
+
+        def process_step(params, opt_state, tokens):
+            loss, g = grads(params, tokens)
+            return params, optimizer.update(params, g, opt_state), loss
+
+        return process_step, init_opt_state, p_shard, t_shard
 
     def step(params, opt_state, tokens):
         if mesh is not None:
@@ -377,16 +531,22 @@ def make_moe_train_step(cfg: MoEConfig, mesh, lr: float = 1e-2,
     """The MoE SGD step over ``mesh`` (axes "dp", "ep";
     ``moe.make_moe_train_step``, 285-307): ``(step, p_shard, t_shard)``
     with ``step(params, tokens) -> (params, loss)`` on the mesh's device.
-    ``ValueError`` unless ``cfg.n_experts % ep == 0``."""
-    refuse_process_mesh(mesh, "make_moe_train_step")
+    ``ValueError`` unless ``cfg.n_experts % ep == 0``.  On a
+    ``{"dp", "ep"}`` ``ProcessMesh`` ``step`` takes and returns this
+    process's shards (:func:`_process_grads`)."""
     from tpu_dra_torch.workloads.train import tree_leaves, tree_unflatten
     p_shard, t_shard = _ep_mesh(cfg, mesh)
+    if isinstance(mesh, ProcessMesh):
+        process_grads, _, _ = _process_grads(cfg, mesh, attn_impl, head_impl)
 
     def step(params, tokens):
         mesh.check_device(tokens, *tree_leaves(params))
-        loss, grads = value_and_grad(
-            lambda p, t: moe_loss_fn(cfg, p, t, attn_impl, head_impl, mesh),
-            params, tokens)
+        if isinstance(mesh, ProcessMesh):
+            loss, grads = process_grads(params, tokens)
+        else:
+            loss, grads = value_and_grad(
+                lambda p, t: moe_loss_fn(cfg, p, t, attn_impl, head_impl,
+                                         mesh), params, tokens)
         new = [p.detach() - lr * g for p, g in zip(tree_leaves(params),
                                                    tree_leaves(grads))]
         return tree_unflatten(params, new), loss

@@ -35,8 +35,9 @@ the two are bit-equal.
 
 On a ``mesh.ProcessMesh`` (one process a rank) a
 :class:`ProcessMomentLayout` holds this process's shard of each moment,
-ZeRO-1 or not: the clip's norm is the psum over "tp" of the shards'
-sums of squares (the leaves whole over "tp" counted once), and under
+ZeRO-1 or not: the clip's norm is the sum over each cut axis ("tp", or
+"ep" for the expert banks) of the shards' sums of squares (the leaves
+whole over those axes counted once), and under
 ZeRO-1 a moment cut over "dp" updates its block of the parameter's shard
 and the blocks' updates are gathered over the "dp" line
 (``ProcessMesh.all_gather``).
@@ -152,10 +153,12 @@ class MomentLayout:
             self.mesh.shard(t, m)
             for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
 
-    def unshard(self, tree: dict) -> dict:
-        """Stacked moment tensors → global ones (before a save)."""
+    def unshard(self, tree: dict, device=None, dst=None) -> dict:
+        """Stacked moment tensors → global ones (before a save), on
+        ``device`` where one is given (``dst``: the rank a process
+        layout gathers to; every rank of the virtual mesh is here)."""
         return tree_unflatten(tree, [
-            self.mesh.unshard(t, m)
+            self.mesh.unshard(t, m).to(device or t.device)
             for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
 
     def rank_update(self, specs: tuple, p, g, mu, nu, moment_fn):
@@ -190,8 +193,20 @@ class ProcessMomentLayout(MomentLayout):
     is its parameter's spec, so a moment is shaped like the process's
     parameter shard; with it a moment whose spec carries "dp" is the
     process's 1/dp block of that shard along the dimension the spec cuts.
-    ``shard`` cuts a checkpoint's global moments (``ProcessMesh.shard``),
-    ``unshard`` gathers them on every process (a collective)."""
+    ``shard`` cuts a checkpoint's global moments (``ProcessMesh.shard``,
+    wherever they lie) onto the mesh's device, ``unshard`` gathers them
+    on every process or at group rank ``dst`` (a collective; onto the
+    host where ``device="cpu"``)."""
+
+    def shard(self, tree: dict) -> dict:
+        return tree_unflatten(tree, [
+            self.mesh.shard(t, m).to(self.mesh.device)
+            for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
+
+    def unshard(self, tree: dict, device=None, dst=None) -> dict:
+        return tree_unflatten(tree, [
+            self.mesh.unshard(t, m, device, dst)
+            for t, (_, m) in zip(tree_leaves(tree), self.specs(tree))])
 
     def cut(self, tree: dict) -> dict:
         """Moments shaped like this process's parameter shards → its
@@ -207,19 +222,28 @@ class ProcessMomentLayout(MomentLayout):
         return tree_unflatten(tree, out)
 
     def sum_squares(self, grads: dict):
-        """The squared global norm from this process's gradient shards:
-        the fp32 sum of squares of the leaves cut over "tp", gathered
-        over the "tp" line and summed in rank order, plus that of the
-        leaves whole over "tp", counted once.  Each batch rank holds the
-        same summed gradient, so nothing is summed over the batch axes;
-        every process gets the same bits."""
-        cut, whole = [], []
+        """The squared global norm from this process's gradient shards.
+        The leaves whose parameter spec cuts them over the same non-batch
+        axes ("tp", or "ep" for the expert banks) form a set: its fp32
+        sum of squares is gathered over each of those axes' lines in
+        turn and summed in rank order.  The leaves whole over every
+        non-batch axis are counted once, added last.  Each batch rank
+        holds the same summed gradient, so nothing is summed over the
+        batch axes; every process gets the same bits."""
+        batch = set(axes_of(self.mesh.batch_axes()))
+        cut, whole = {}, []
         for g, (p_spec, _) in zip(tree_leaves(grads), self.specs(grads)):
-            tp = any("tp" in axes_of(e) for e in p_spec)
-            (cut if tp else whole).append(g.float().square().sum())
-        mine = sum(cut).reshape(1) if cut else \
-            torch.zeros(1, device=self.mesh.device)
-        return self.mesh.all_gather(mine, "tp", 0).sum() + sum(whole)
+            axes = tuple(a for e in p_spec for a in axes_of(e)
+                         if a not in batch)
+            (cut.setdefault(axes, []) if axes else whole).append(
+                g.float().square().sum())
+        total = 0
+        for axes, sums in cut.items():
+            part = sum(sums).reshape(1)
+            for a in axes:
+                part = self.mesh.all_gather(part, a, 0).sum().reshape(1)
+            total = total + part[0]
+        return total + sum(whole)
 
     def rank_update(self, specs: tuple, p, g, mu, nu, moment_fn):
         """A leaf's update of this process's parameter shard: where the
@@ -245,15 +269,18 @@ class AdamWState:
     nu: dict
     layout: MomentLayout | None = None
 
-    def to_dict(self) -> dict:
+    def to_dict(self, device=None, dst=None) -> dict:
         """``{"count", "mu", "nu"}``: the form a checkpoint stores, with
         the global moment tensors whatever the layout (the reference's
         orbax saves global arrays), so a ZeRO-1 run and a replicated one
-        read each other's steps."""
+        read each other's steps.  ``device``: where a layout gathers
+        them (default: where they are); ``dst``: the one process a
+        process layout gathers them to (the others get ``None``s)."""
         if self.layout is None:
             return {"count": self.count, "mu": self.mu, "nu": self.nu}
-        return {"count": self.count, "mu": self.layout.unshard(self.mu),
-                "nu": self.layout.unshard(self.nu)}
+        return {"count": self.count,
+                "mu": self.layout.unshard(self.mu, device, dst),
+                "nu": self.layout.unshard(self.nu, device, dst)}
 
     @classmethod
     def from_dict(cls, d: dict,

@@ -299,12 +299,24 @@ def psum_grads(mesh, grads: list, leaves: list, over: list,
     """Each gradient of ``grads`` summed over the mesh axes ``over[i]``
     names and divided by ``scale``, in ``leaves[i]``'s shape and dtype:
     one flat fp32 psum for each set of leaves summed over the same axes
-    (the same bits on every process of the set)."""
+    (the same bits on every process of the set).  Each entry of
+    ``grads`` is set to ``None`` once it is in its set's flat buffer, so
+    a step holds its gradients in one copy at a time (a caller that
+    keeps no other reference lets them go)."""
     out = [None] * len(leaves)
     for axes in dict.fromkeys(over):
         idx = [i for i, a in enumerate(over) if a == axes]
+        if scale == 1 and all(mesh.axis_size(a) == 1
+                              for a in axes_of(axes)):
+            for i in idx:          # one rank on each axis: nothing to sum
+                out[i] = grads[i].float().to(leaves[i].dtype)
+            continue
         flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
-        flat = mesh.psum(flat, axes) / scale
+        for i in idx:
+            grads[i] = None
+        flat = mesh.psum(flat, axes)
+        if scale != 1:
+            flat = flat / scale
         at = 0
         for i in idx:
             p = leaves[i]
@@ -356,7 +368,7 @@ def make_process_grads(cfg, mesh, attn_impl: str, head_impl: str,
                         label_smoothing, z_loss).sum()
         count = mesh.psum(torch.tensor(float(x.shape[0] * x.shape[1]),
                                        device=x.device), batch)
-        g = torch.autograd.grad(nll / count, leaves)
+        g = list(torch.autograd.grad(nll / count, leaves))
         return mesh.psum(nll.detach(), batch) / count, g
 
     def grads(params, tokens):
@@ -429,3 +441,82 @@ def make_process_optax_train_step(cfg, mesh, optimizer, attn_impl: str,
         return params, optimizer.update(params, g, opt_state), loss
 
     return step, init_opt_state, p_shard, b_shard
+
+
+def cut_adapters(lora: dict, mesh, p_shard: dict) -> dict:
+    """The replicated LoRA adapters cut, inside autograd, to this
+    process's counterpart of its base shards (``p_shard``,
+    ``train.param_shardings``): where the base ``[L, K, N]`` is cut over
+    its columns N (``wqkv``, ``w1``) ``b [L, r, N]`` takes the same
+    columns and ``a`` stays whole; where it is cut over its rows K
+    (``wo``, ``w2``) ``a [L, K, r]`` takes the same rows and ``b`` stays
+    whole.  Each process's adapter gradient is then a slice or a partial
+    sum of the whole one."""
+    out = {}
+    for name, ab in lora["blocks"].items():
+        lead, pk, pn = (tuple(p_shard["blocks"][name]) + (None,) * 3)[:3]
+        out[name] = {"a": mesh.shard(ab["a"], (lead, pk, None)),
+                     "b": mesh.shard(ab["b"], (lead, None, pn))}
+    return {"blocks": out}
+
+
+def make_process_lora_train_step(cfg, mesh, lcfg, optimizer, attn_impl: str,
+                                 head_impl: str):
+    """``(step, init_opt_state, lcfg, shardings)`` of
+    ``lora.make_lora_train_step`` on a dp×tp ``ProcessMesh``:
+    ``step(base, lora, opt_state, tokens, base_specs=None) -> (lora,
+    opt_state, loss)`` takes this process's shards of the frozen base,
+    cut by ``base_specs`` (default ``shardings["params"]``,
+    ``train.param_shardings``; an int8 or int4 base cut by
+    ``quant.serving_param_shardings`` passes that tree), the replicated
+    adapters and the global ``[B, S+1]`` window batch, the same on every
+    process.  The trunk is the Megatron dense trunk (the GSPMD layout of
+    the reference's step) over ``lora.wrap_lora`` of the base shards, read
+    through ``quant.local_serving_tree``, and of the adapters cut by
+    :func:`cut_adapters`.  Each process differentiates its share of the
+    global mean loss with respect to the whole adapters; its gradient is
+    a slice (the cut factor) or a partial sum (the whole factor, and
+    every factor over its dp rows), so the adapter gradients are summed
+    over every mesh axis, dp and tp, in one flat fp32 psum
+    (:func:`psum_grads`), the same bits on every process.  The optimizer
+    then updates the replicated adapters alike everywhere; the base gets
+    no gradient and no moments."""
+    from tpu_dra_torch.workloads.lora import lora_shardings, wrap_lora
+    from tpu_dra_torch.workloads.quant import local_serving_tree
+    batch = axes_of(mesh.batch_axes())
+    if "tp" not in mesh.axes or set(mesh.axes) - set(batch) - {"tp"}:
+        raise ValueError(f"the LoRA step's mesh holds batch axes and 'tp' "
+                         f"only, got {mesh.axes}")
+    if head_impl not in ("dense", "chunked"):
+        raise ValueError(f"unknown head_impl {head_impl!r}")
+    attn_fn = attn_impl_fn(attn_impl)
+    p_shard, b_shard = param_shardings(cfg, mesh), batch_sharding(mesh)
+    tp = mesh.axis_size("tp")
+    src, dst, kv = head_columns(cfg, tp)
+    plan = mesh.column_plan("tp", src, dst)
+    heads = (cfg.n_heads // tp, len(kv[mesh.axis_index("tp")]))
+    everywhere = tuple(mesh.axis_names)
+
+    def step(base, lora, opt_state, tokens, base_specs=None):
+        mesh.check_device(tokens, *tree_leaves(base), *tree_leaves(lora))
+        tok = mesh.shard(tokens, b_shard)
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(lora)]
+        live = wrap_lora(local_serving_tree(mesh, base,
+                                            base_specs or p_shard),
+                         cut_adapters(tree_unflatten(lora, leaves), mesh,
+                                      p_shard), lcfg)
+        x = _dense_trunk(cfg, live, tok[:, :-1], mesh, attn_fn, plan, heads,
+                         "dense")
+        nll = _head_nll(live, x, tok[:, 1:].long(), mesh, False, head_impl,
+                        0.0, 0.0).sum()
+        count = mesh.psum(torch.tensor(float(x.shape[0] * x.shape[1]),
+                                       device=x.device), batch)
+        g = list(torch.autograd.grad(nll / count, leaves))
+        grads = psum_grads(mesh, g, leaves, [everywhere] * len(leaves))
+        opt_state = optimizer.update(lora, tree_unflatten(lora, grads),
+                                     opt_state)
+        return lora, opt_state, mesh.psum(nll.detach(), batch) / count
+
+    shardings = {"params": p_shard, "batch": b_shard,
+                 "lora": lambda lora: lora_shardings(lora, mesh)}
+    return step, optimizer.init, lcfg, shardings

@@ -27,7 +27,9 @@ Rounding follows the reference step for step: ``x / s``, round half to
 even, clip, all in fp32; ``amax`` floored at 1e-8.
 
 :func:`serving_param_shardings` gives a serving tree's specs on a virtual
-mesh (``mesh.py``), as the reference's gives its ``NamedSharding``s.
+or a process mesh (``mesh.py``), as the reference's gives its
+``NamedSharding``s; :func:`local_serving_tree` is a process's shards as
+its products read them.
 """
 
 from __future__ import annotations
@@ -48,13 +50,17 @@ _QUANT_TOP_LEAVES = ("unembed",)
 _INT_MM_MIN_ROWS = 17
 
 
-def _quantize(tf, dim: int, qmax: float):
+def _quantize(tf, dim: int, qmax: float, row_max=None):
     """Symmetric quantization of fp32 ``tf`` over ``dim``: the rounded,
     clipped values (still fp32) and the scales (``dim`` kept, size 1).
     ``qmax`` divides as a tensor on ``tf``'s device: PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which can
-    land one ulp from the reference's division."""
+    land one ulp from the reference's division.  ``row_max`` maps the
+    local amax to the one the scale takes (a max across the processes
+    that each hold a slice of ``dim``)."""
     amax = tf.abs().amax(dim=dim, keepdim=True)
+    if row_max is not None:
+        amax = row_max(amax)
     s = torch.clamp(amax, min=1e-8) / tf.new_full((), qmax)
     return torch.clamp(torch.round(tf / s), -qmax, qmax), s
 
@@ -119,9 +125,9 @@ def int8_product(xq, wq):
 int8_product.calls = 0
 
 
-def _int8_matmul(x, wq, s_w):
+def _int8_matmul(x, wq, s_w, row_max=None):
     K, N = wq.shape
-    xq, s_x = _quantize(x.float(), -1, 127.0)
+    xq, s_x = _quantize(x.float(), -1, 127.0, row_max)
     y = int8_product(xq.to(torch.int8).reshape(-1, K), wq)
     return y.reshape(*x.shape[:-1], N).float() * s_x * s_w
 
@@ -130,24 +136,26 @@ class Int8Matmul(torch.autograd.Function):
     """``x [..., K] @ wq [K, N]`` (int8) → fp32 ``[..., N]``, each row
     of x quantized on the fly.  The backward is the reference's
     straight-through estimator: ``dx = (g·s_w) @ wqᵀ`` in fp32, cast to
-    x's dtype; ``wq`` and ``s_w`` get no gradient."""
+    x's dtype; ``wq`` and ``s_w`` get no gradient.  ``row_max``: see
+    :func:`_quantize` (a row whose K is cut over processes takes the
+    scale of its whole row, as the reference's GSPMD product does)."""
 
     @staticmethod
-    def forward(ctx, x, wq, s_w):
+    def forward(ctx, x, wq, s_w, row_max=None):
         ctx.save_for_backward(wq, s_w)
         ctx.x_dtype = x.dtype
-        return _int8_matmul(x, wq, s_w)
+        return _int8_matmul(x, wq, s_w, row_max)
 
     @staticmethod
     def backward(ctx, g):
         wq, s_w = ctx.saved_tensors
         dx = (g * s_w).float() @ wq.float().T
-        return dx.to(ctx.x_dtype), None, None
+        return dx.to(ctx.x_dtype), None, None, None
 
 
-def int8_matmul(x, wq, s_w):
+def int8_matmul(x, wq, s_w, row_max=None):
     """See :class:`Int8Matmul`."""
-    return Int8Matmul.apply(x, wq, s_w)
+    return Int8Matmul.apply(x, wq, s_w, row_max)
 
 
 def quantize_int4(w, group: int = 128) -> dict:
@@ -202,7 +210,9 @@ def matmul_any(x, w: Leaf, dtype=None):
 
     - a tensor: ``x @ w`` with w cast to ``dtype`` (default: x's dtype);
       the result takes the promoted dtype of the two, as ``jnp`` does;
-    - ``{"q8", "s"}``: the int8 product, cast to ``dtype``;
+    - ``{"q8", "s"}``: the int8 product, cast to ``dtype`` (with a
+      ``"row_max"``, :func:`local_serving_tree`'s, the rows' scales
+      span the processes that hold their K);
     - ``{"q4", "s4"}``: the group-scaled int4 product, cast to ``dtype``;
     - ``{"base", "a", "b", "scale"}``: the base product (any form) plus
       ``scale · (x·A)·B``.
@@ -213,7 +223,8 @@ def matmul_any(x, w: Leaf, dtype=None):
         xa = x.to(out_dtype) @ w["a"].to(out_dtype)
         return base + (xa @ w["b"].to(out_dtype)) * w["scale"].to(out_dtype)
     if is_quantized(w):
-        return int8_matmul(x, w["q8"], w["s"]).to(out_dtype)
+        return int8_matmul(x, w["q8"], w["s"],
+                           w.get("row_max")).to(out_dtype)
     if is_quantized4(w):
         return int4_matmul(x, w["q4"], w["s4"]).to(out_dtype)
     if isinstance(w, dict):
@@ -270,11 +281,13 @@ def serving_param_shardings(cfg, mesh, params: dict) -> dict:
     keeps K split only where the group count divides over K's mesh axes,
     and replicates it otherwise.  The port stores int4 one value a byte,
     but its leaf shapes are the reference's logical ones, and so are the
-    specs.  An unknown dict leaf raises ``ValueError``."""
+    specs.  An unknown dict leaf raises ``ValueError``.  On a
+    ``mesh.ProcessMesh`` the specs are the same, and
+    ``ProcessMesh.shard_tree`` cuts a serving tree by them; a process's
+    products read its shards through :func:`local_serving_tree`."""
     import math
 
-    from tpu_dra_torch.workloads.mesh import axes_of, refuse_process_mesh
-    refuse_process_mesh(mesh, "serving_param_shardings")
+    from tpu_dra_torch.workloads.mesh import axes_of
     from tpu_dra_torch.workloads.train import param_shardings
 
     base = param_shardings(cfg, mesh)
@@ -303,6 +316,99 @@ def serving_param_shardings(cfg, mesh, params: dict) -> dict:
     for name in _QUANT_TOP_LEAVES:
         if name in params and name in base:
             out[name] = leaf(base[name], params[name])
+    return out
+
+
+def _k_block(mesh, entry) -> tuple:
+    """``(index, parts)`` of this process's block of a dimension that
+    ``entry`` cuts over the process mesh (the first axis outermost, as
+    ``ProcessMesh.shard`` cuts it)."""
+    from tpu_dra_torch.workloads.mesh import axes_of
+    idx, parts = 0, 1
+    for a in axes_of(entry):
+        idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+        parts *= mesh.axis_size(a)
+    return idx, parts
+
+
+class RowMax:
+    """The ``row_max`` of an int8 leaf whose K a process holds a slice of
+    (:func:`local_serving_tree`): the elementwise max of the rows' amax
+    over the process mesh's ``axes`` that cut K (``ProcessMesh.pmax``).
+    A layer's slice of the stacked leaf (``train.layer_params``) keeps
+    the same reducer."""
+
+    def __init__(self, mesh, axes: tuple):
+        self.mesh, self.axes = mesh, axes
+
+    def __call__(self, amax):
+        for a in self.axes:
+            amax = self.mesh.pmax(amax, a)
+        return amax
+
+    def __getitem__(self, i):
+        return self
+
+
+def _local_leaf(mesh, w: Leaf, spec):
+    """One serving leaf of this process as its product reads it (see
+    :func:`local_serving_tree`)."""
+    from tpu_dra_torch.workloads.mesh import axes_of
+    if not isinstance(w, dict):
+        return w
+    q = w["q8"] if is_quantized(w) else w["q4"]
+    qspec = spec if not isinstance(spec, dict) else \
+        spec["q8" if is_quantized(w) else "q4"]
+    pk = (tuple(qspec) + (None,) * q.dim())[q.dim() - 2]
+    if pk is None:
+        return w
+    if is_quantized(w):
+        return dict(w, row_max=RowMax(mesh, axes_of(pk)))
+    if not isinstance(spec, dict):
+        raise ValueError("an int4 leaf cut by rows needs its "
+                         "serving_param_shardings spec (s4's is not "
+                         "its weight's)")
+    sspec = tuple(spec["s4"]) + (None,) * w["s4"].dim()
+    if sspec[w["s4"].dim() - 2] is not None:
+        return w                              # s4 cut with q4's rows
+    idx, parts = _k_block(mesh, pk)
+    k_local, ngroups = q.shape[-2], w["s4"].shape[-2]
+    group = k_local * parts // ngroups
+    if group % k_local:
+        raise ValueError(
+            f"an int4 leaf q4 {tuple(q.shape)} (this process's rows of K "
+            f"{k_local * parts}, cut over {parts} ranks) with s4 "
+            f"{tuple(w['s4'].shape)} (groups of {group} rows, replicated) "
+            f"cannot be cut by rows: a process's {k_local} rows straddle "
+            f"its groups")
+    g = idx * k_local // group
+    return {"q4": w["q4"], "s4": w["s4"].narrow(-2, g, 1)}
+
+
+def local_serving_tree(mesh, params: dict, specs: dict) -> dict:
+    """This process's shards of a serving tree (``ProcessMesh.shard_tree``
+    by ``specs``, :func:`serving_param_shardings`' tree; a tree without
+    int4 leaves may take ``train.param_shardings``') as its products read
+    them, where a leaf's K (its rows) is cut over the process mesh:
+
+    - an int8 leaf gets a ``"row_max"``: each activation row's amax is
+      the max over the processes that hold the row's K slices, so a row
+      is quantized with its whole row's scale, as the reference's
+      product does;
+    - an int4 leaf whose ``s4`` is replicated (its group count does not
+      divide the axes that cut K) keeps the scale row of the one group
+      its K rows lie in; where a process's rows straddle two groups the
+      reference's layout cannot be cut by rows, and this raises
+      ``ValueError`` naming the shapes.
+
+    Every other leaf is the shard itself."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict) and not (is_quantized(v)
+                                        or is_quantized4(v)):
+            out[k] = local_serving_tree(mesh, v, specs[k])
+        else:
+            out[k] = _local_leaf(mesh, v, specs[k])
     return out
 
 

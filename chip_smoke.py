@@ -502,12 +502,41 @@ Phases (each prints as it goes; any failed check exits non-zero):
      step; (e) on ProcessMesh({"dp": 1, "tp": 4}) the serving model's
      int8 and int4 trees cut by serving_param_shardings and gathered
      back byte-equal in every process, the specs the virtual mesh's.
+ 31. tensor-parallel decoding and the dry run one process a rank, in a
+     thread beside 19b (whose command lines it waits on), its times
+     informational.  (a)
+     the serving model (MODEL) in int8 from its own seed, decoded
+     tensor-parallel by two processes on ProcessMesh({"dp": 1, "tp": 2}),
+     each holding its serving shards (process_decode.local_tree: 4 q
+     heads over 1 kv head a process): 8 prompts of 128 tokens, 32 greedy
+     steps, decode.greedy_decode on the slab and
+     paged_kv.paged_greedy_decode on pages of 64 with mesh=; the tokens
+     held to the one-device decoders on the same tree in this process by
+     the near-tie rule (departures), the first step's logits within
+     argmax_tol of the one-device logits, both processes' tokens equal;
+     #1 launched exactly n_layers times a decode step in each process on
+     [8, 4, 128], its first step's launches held to the plain version
+     (SLOT_REL_TOL); each process's resident weight bytes against half
+     the one-device tree's, and the per-token time (host clock, synced)
+     with its gloo share (informational); and an account of the logit
+     gap (tp_residual_gaps, informational): the tensor-parallel
+     prefill's activations after each layer, of the int8 tree and of its
+     bf16 cast, against one device's, the gap each layer adds itself,
+     and how far each layer's gap carries to the logits; (b)
+     entry.dryrun_multichip(4, processes=True, backend="gloo"): every
+     lane of the reference's dry run one process a rank on the card; its
+     MULTICHIP_REPORT line logged, and each of #1, #3, #6, #7 and #9-#11
+     launched at least once, summed over the ranks.
+The script also prints, before phase 1, the seconds of a fixed CPU
+workload (host_speed: the host's own speed, beside which host-clock
+times from different machines compare).
 The second-to-last line is a JSON object describing every kernel (eleven
 entries: the flash forward once for each TPU kernel it replaces; phase
 26's launches summed over its processes added to rows #3, #6, #7 and
 #9-#11, 27b's and 28's to rows #3, #6, #7, #9 and #10, 29's to rows
-#3, #4, #6, #7 and #11, and 30's to rows #3, #4, #6 and #7); the last
-line is {"ok": true, "device": {...}}.
+#3, #4, #6, #7 and #11, 30's to rows #3, #4, #6 and #7, and 31's to
+rows #1, #3, #6, #7 and #9-#11); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -517,6 +546,7 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import signal
@@ -3862,9 +3892,10 @@ def moe_phase(data_path: str, card: str) -> dict:
     return out
 
 
-def lifecycle_phase(card: str) -> dict:
+def lifecycle_phase(card: str, beside=None) -> dict:
     """Phase 19 (a-d) in a temporary directory of its own, on the phase-8
-    corpus written again there."""
+    corpus written again there; ``beside()`` (phase 31) runs in a thread
+    while 19b's command lines run, its result under ``"beside"``."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke-19-") as tmp:
         tmp = Path(tmp)
         data_path = write_tokens(tmp / "tokens.bin", TRAIN_MODEL["vocab"])
@@ -3881,8 +3912,11 @@ def lifecycle_phase(card: str) -> dict:
             raise
         log(f"[time] phase 19a {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        served = checkpoint_serve_phase(tmp, fit_run, card)
-        log(f"[time] phase 19b {time.perf_counter() - t0:.1f} s")
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            aside = pool.submit(beside) if beside else None
+            served = checkpoint_serve_phase(tmp, fit_run, card)
+            log(f"[time] phase 19b {time.perf_counter() - t0:.1f} s")
+            aside = aside.result() if aside else None
         t0 = time.perf_counter()
         lora = lora_phase(served["checkpoint"], data_path, served["prompts"],
                           card)
@@ -3892,7 +3926,7 @@ def lifecycle_phase(card: str) -> dict:
         log(f"[time] phase 19d {time.perf_counter() - t0:.1f} s")
     moe_launches = {k: moe[1]["launches"][k] + moe[2]["launches"][k]
                     for k in moe[1]["launches"]}
-    return {"resume": resumed, "moe": moe, "lora": lora,
+    return {"resume": resumed, "moe": moe, "lora": lora, "beside": aside,
             "paged_launches": served["launches"] + lora["paged_launches"],
             "flash_launches": {k: resumed["launches"][k] + moe_launches[k]
                                for k in moe_launches},
@@ -7979,6 +8013,372 @@ def log_moe(ranks: list, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 31: tensor-parallel decoding and the dry run one process a rank
+# ---------------------------------------------------------------------------
+
+TP_DECODE_AXES = {"dp": 1, "tp": 2}          # 31a
+TP_DECODE_RUN = dict(prompts=8, length=128, steps=32, page_size=64)
+TP_DECODE_SEED = SEED + 3100
+TP_DECODE_CHILD = ("import sys, chip_smoke; "
+                   "sys.exit(chip_smoke.tp_decode_rank(sys.argv[1]))")
+# the fixed CPU workload of host_speed: a pure-Python loop of this many
+# integer additions and a float64 sort of this many numbers
+HOST_ADDS = 20_000_000
+HOST_SORT = 1 << 22
+
+
+def host_speed() -> float:
+    """Seconds of a fixed single-threaded CPU workload (HOST_ADDS Python
+    additions, then numpy's sort of HOST_SORT seeded float64s): the
+    host's speed, printed beside the script's host-clock times."""
+    import numpy as np
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(HOST_ADDS):
+        acc += i
+    np.sort(np.random.default_rng(0).standard_normal(HOST_SORT))
+    return time.perf_counter() - t0
+
+
+def tp_decode_tree(form: str = "int8"):
+    """31a's (config, serving tree) from TP_DECODE_SEED, int8 or its bf16
+    cast, on the card (every process draws the same tree)."""
+    import torch
+
+    from tpu_dra_torch.workloads.quant import (cast_params_bf16,
+                                               quantize_params_int8)
+    from tpu_dra_torch.workloads.train import ModelConfig, init_params
+    cfg = ModelConfig(**MODEL)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_DECODE_SEED)
+    params = init_params(cfg, gen)
+    return cfg, (quantize_params_int8(params) if form == "int8"
+                 else cast_params_bf16(params))
+
+
+def logit_gap(got, want) -> dict:
+    """Where ``got`` ``[B, V]`` fp32 logits part most from ``want``: the
+    largest gap over every entry, the ``|logit|`` there and the gap in
+    bf16 ulps at it; and the largest over each row's entries within
+    ``argmax_tol`` of its top (those an argmax reads)."""
+    import torch
+    d = (got - want).abs()
+    at = int(torch.argmax(d))
+    top = want.max(dim=-1, keepdim=True).values
+    tol = torch.tensor([[argmax_tol(float(t))] for t in top[:, 0]])
+    near = want >= top - tol
+    mag = abs(float(want.flatten()[at]))
+    ulp = 2.0 ** (math.floor(math.log2(max(mag, 2.0 ** -100))) - 7)
+    return {"max": float(d.max()), "at": mag,
+            "ulps": float(d.flatten()[at]) / ulp,
+            "near_top": float(d[near].max())}
+
+
+def tp_residual_gaps(cfg, prompts, traces: dict, logits: dict) -> dict:
+    """31a's account of its first-step logit gap, for the int8 tree and
+    its bf16 cast (``traces``: the tensor-parallel prefill's activations
+    after the embedding and each layer, ``[L + 1, B, S, D]``; ``logits``
+    its first-step logits).  Per layer l: the gap to one device's
+    activations; the gap this layer adds itself (the tensor-parallel
+    output against one device's block on the same tensor-parallel input);
+    and the first-step logits from the tensor-parallel activations of
+    layer l through one device's layers above and head, against one
+    device's logits (how far layer l's gap carries).  Logged; returns the
+    logit gaps by form (:func:`logit_gap`)."""
+    import torch
+
+    from tpu_dra_torch.workloads.train import (_block, attn_impl_fn,
+                                               embed_tokens, head_logits,
+                                               layer_params)
+    attn_fn = attn_impl_fn("dense")
+    out = {}
+    for form, tp in traces.items():
+        _, tree = tp_decode_tree(form)
+        layers = [layer_params(tree["blocks"], i)
+                  for i in range(cfg.n_layers)]
+        tp = tp.cuda()
+
+        def above(x, start):
+            for layer in layers[start:]:
+                x = _block(cfg, x, layer, attn_fn)
+            return head_logits(tree, x[:, -1:])[:, 0].float().cpu()
+        with torch.no_grad():
+            one = [embed_tokens(cfg, tree, prompts)]
+            for layer in layers:
+                one.append(_block(cfg, one[-1], layer, attn_fn))
+            want = head_logits(tree, one[-1][:, -1:])[:, 0].float().cpu()
+            for i in range(cfg.n_layers + 1):
+                d = (tp[i].float() - one[i].float()).abs()
+                line = (f"[mp31] 31a {form} layer {i}: |x_tp - x_one| max "
+                        f"{float(d.max()):.4f} of |x| up to "
+                        f"{float(one[i].abs().max()):.2f} (in "
+                        f"{float((d > 0).float().mean()):.2e} of the "
+                        f"elements)")
+                if i:
+                    own = (tp[i].float() - _block(
+                        cfg, tp[i - 1], layers[i - 1], attn_fn).float()).abs()
+                    line += (f"; added by this layer {float(own.max()):.4f} "
+                             f"({float((own > 0).float().mean()):.2e} of "
+                             f"the elements)")
+                carried = float((above(tp[i], i) - want).abs().max())
+                log(f"{line}; the logits from here through one device's "
+                    f"layers above {carried:.4f} from its own")
+        out[form] = logit_gap(logits[form].float(), want)
+        g = out[form]
+        log(f"[mp31] 31a {form}: first-step logits {g['max']:.4f} from one "
+            f"device's at a logit of magnitude {g['at']:.3f} ("
+            f"{g['ulps']:.1f} bf16 ulps there); {g['near_top']:.4f} over "
+            f"the entries within argmax_tol of each row's top")
+        del tree, layers, one, tp
+    return out
+
+
+def tree_bytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in flat_leaves(tree).values() if hasattr(t, "numel"))
+
+
+def tp_decode_rank(tmp: str) -> int:
+    """One of 31a's two processes (started by ``tp_decode_phase``): it
+    joins the gloo group, keeps its serving shards of the int8 tree on
+    ProcessMesh(TP_DECODE_AXES), decodes ``tmp``'s prompts
+    tensor-parallel on the slab and on pages, and writes its tokens,
+    first-step logits, launches, bytes and times to ``tmp``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_dra_torch.workloads import paged_kv
+    from tpu_dra_torch.workloads.decode import greedy_decode
+    from tpu_dra_torch.workloads.launcher import resolve
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.process_decode import (TPModel,
+                                                        first_logits,
+                                                        local_tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    resolve().initialize("gloo")
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    mesh = ProcessMesh(TP_DECODE_AXES)
+    cfg, tree = tp_decode_tree()
+    local = local_tree(cfg, mesh, tree)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = torch.load(Path(tmp) / "inputs.pt")
+    prompts = inputs["prompts"].cuda()
+    table = inputs["table"].cuda()
+    run = TP_DECODE_RUN
+    max_len = run["length"] + run["steps"]
+    out = {"bytes": tree_bytes(local)}
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    logits, out["prefill_s"] = synced(lambda: first_logits(
+        cfg, local, prompts, mesh, max_len=max_len))
+    torch.save(logits.cpu(), Path(tmp) / f"logits{rank}.pt")
+    # the first decode step's launches held to the plain version; the
+    # kernel's wrapper counts its launches on the module's name, which
+    # is this one's while it stands in
+    kernel, seen = paged_kv.paged_attention, {"n": 0, "err": 0.0}
+
+    def checked(*a, **k):
+        got = kernel(*a, **k)
+        if seen["n"] < cfg.n_layers:
+            want = paged_kv.paged_attention_ref(*a, **k)
+            seen["err"] = max(seen["err"], float(
+                paged_kv.slot_rel_err(got, want).max()))
+            seen["n"] += 1
+            seen["shape"] = list(a[0].shape)
+        return got
+    for layout in ("slab", "paged"):
+        checked.launches = 0
+        paged_kv.paged_attention = checked
+        with tp_timers() as spent:
+            if layout == "slab":
+                toks, secs = synced(lambda: greedy_decode(
+                    cfg, local, prompts, steps=run["steps"],
+                    max_len=max_len, mesh=mesh))
+            else:
+                toks, secs = synced(lambda: paged_kv.paged_greedy_decode(
+                    cfg, local, prompts, table, steps=run["steps"],
+                    total_pages=inputs["total_pages"],
+                    page_size=run["page_size"], mesh=mesh))
+        paged_kv.paged_attention = kernel
+        out[layout] = {"tokens": toks.tolist(), "s": secs,
+                       "gloo_s": spent["gloo"],
+                       "launches": checked.launches}
+    out["check"] = seen
+    # the prefill's activations layer by layer, of the int8 tree and of
+    # its bf16 cast, for the parent's account of the logit gap
+    for form in ("int8", "bf16"):
+        tree = local if form == "int8" else local_tree(
+            cfg, mesh, tp_decode_tree(form)[1])
+        trace = []
+        with torch.no_grad():
+            TPModel(cfg, tree, mesh).prefill_kv(prompts, trace=trace)
+            lg = first_logits(cfg, tree, prompts, mesh, max_len=max_len)
+        if rank == 0:
+            torch.save({"trace": torch.stack(trace).cpu(), "logits": lg.cpu()},
+                       Path(tmp) / f"trace_{form}.pt")
+        del tree, trace
+    mesh.close()
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_decode_phase(card: str) -> dict:
+    """31a (see the module's docstring): the one-device decoders in this
+    process, then the two processes; returns #1's launches summed over
+    them."""
+    import torch
+
+    from tpu_dra_torch.workloads.decode import (greedy_decode,
+                                                init_kv_cache, prefill)
+    from tpu_dra_torch.workloads.launcher import run_local_group
+    from tpu_dra_torch.workloads.paged_kv import (PagePool,
+                                                  paged_greedy_decode)
+    run = TP_DECODE_RUN
+    cfg, tree = tp_decode_tree()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_DECODE_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (run["prompts"], run["length"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    max_len = run["length"] + run["steps"]
+    need = -(-max_len // run["page_size"])
+    pool = PagePool(run["prompts"] * need, run["page_size"])
+    import numpy as np
+    table = torch.as_tensor(np.stack([pool.table_row(pool.alloc(need), need)
+                                      for _ in range(run["prompts"])]),
+                            dtype=torch.int32)
+    with torch.no_grad():
+        _, want_logits = prefill(cfg, tree, init_kv_cache(
+            cfg, run["prompts"], max_len), prompts)
+        want = {"slab": greedy_decode(cfg, tree, prompts, steps=run["steps"],
+                                      max_len=max_len).tolist(),
+                "paged": paged_greedy_decode(
+                    cfg, tree, prompts, table.cuda(), steps=run["steps"],
+                    total_pages=pool.total_pages,
+                    page_size=run["page_size"]).tolist()}
+    whole = tree_bytes(tree)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-31-") as tmp:
+        torch.save({"prompts": prompts.cpu(), "table": table,
+                    "total_pages": pool.total_pages}, Path(tmp) / "inputs.pt")
+        t0 = time.perf_counter()
+        run_local_group([sys.executable, "-c", TP_DECODE_CHILD, tmp], 2,
+                        timeout=PROCESS_WAIT, cwd=str(HERE),
+                        env=child_env())
+        group_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        logits = [torch.load(Path(tmp) / f"logits{r}.pt") for r in range(2)]
+        traced = {form: torch.load(Path(tmp) / f"trace_{form}.pt")
+                  for form in ("int8", "bf16")}
+    rows = [p.tolist() for p in prompts]
+    n_layers, decode_steps = cfg.n_layers, run["steps"] - 1
+    launches = 0
+    for layout in ("slab", "paged"):
+        answers = ranks[0][layout]["tokens"]
+        if ranks[1][layout]["tokens"] != answers:
+            fail(f"31a {layout}: the two processes' tokens differ")
+        departures(f"31a tp-2 {layout}", cfg, tree, rows, answers,
+                   want[layout])
+    want_logits = want_logits.float().cpu()
+    top = want_logits.max(dim=-1).values
+    tol = torch.tensor([argmax_tol(float(t)) for t in top])
+    logit_err = 0.0
+    for r, lg in enumerate(logits):
+        err = (lg.float() - want_logits).abs().max(dim=-1).values
+        logit_err = max(logit_err, float(err.max()))
+        if bool((err > tol).any()):
+            fail(f"31a rank {r}: first-step logits {float(err.max()):.4f} "
+                 f"from the one-device logits (tolerance per row "
+                 f"{tol.tolist()})")
+    tp_residual_gaps(cfg, prompts,
+                     {f: t["trace"] for f, t in traced.items()},
+                     {f: t["logits"] for f, t in traced.items()})
+    for r, res in enumerate(ranks):
+        for layout in ("slab", "paged"):
+            got = res[layout]["launches"]
+            if got != (n_layers * decode_steps if layout == "paged" else 0):
+                fail(f"31a rank {r} {layout}: #1 launched {got} times over "
+                     f"{decode_steps} decode steps of {n_layers} layers")
+        chk = res["check"]
+        if chk["n"] != n_layers or chk["err"] > 0.02:
+            fail(f"31a rank {r}: the first step's #1 launches against the "
+                 f"plain version {chk}")
+        launches += res["paged"]["launches"]
+        per_tok = {layout: (res[layout]["s"] - res["prefill_s"])
+                   / decode_steps * 1e3 for layout in ("slab", "paged")}
+        log(f"[mp31] 31a rank {r}: #1 {res['paged']['launches']} launches "
+            f"over {decode_steps} decode steps ({n_layers} a step, exact) "
+            f"on q {chk['shape']}, its first step within "
+            f"{chk['err']:.2e} of the plain version; resident weights "
+            f"{res['bytes'] / 1e6:.1f} MB against half the one-device "
+            f"tree's {whole / 2e6:.1f} MB ({res['bytes'] / whole:.4f} of "
+            f"it); per token (host clock, synced, prefill "
+            f"{res['prefill_s'] * 1e3:.1f} ms taken off): slab "
+            f"{per_tok['slab']:.2f} ms, paged {per_tok['paged']:.2f} ms, "
+            f"gloo {res['slab']['gloo_s'] / res['slab']['s']:.3f} and "
+            f"{res['paged']['gloo_s'] / res['paged']['s']:.3f} of the "
+            f"decode calls (informational); on {card}")
+        if res["bytes"] > 0.51 * whole:
+            fail(f"31a rank {r}: {res['bytes']} resident weight bytes, more "
+                 f"than half the one-device tree's {whole}")
+    log(f"[mp31] 31a: {run['prompts']} prompts of {run['length']} tokens, "
+        f"{run['steps']} greedy steps tensor-parallel on tp 2 (int8), slab "
+        f"and pages of {run['page_size']}, held to the one-device decoders; "
+        f"the first-step logits within {logit_err:.4f} of the one-device "
+        f"logits (tolerance {float(tol.min()):.4f}-{float(tol.max()):.4f}); "
+        f"the group {group_s:.1f} s")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_attention": launches}
+
+
+def dryrun_phase(card: str) -> dict:
+    """31b: ``entry.dryrun_multichip(4, processes=True, backend="gloo")``
+    on the card (its ranks' ``DRYRUN_LAUNCHES`` lines and its
+    MULTICHIP_REPORT line print on earlier lines); returns the launches
+    summed over its ranks, each of #1, #3, #6, #7 and #9-#11 at least
+    once."""
+    from tpu_dra_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    report, total = dryrun_multichip(PROCESSES, processes=True,
+                                     backend="gloo", return_launches=True)
+    secs = time.perf_counter() - t0
+    missing = [k for k in ("paged_attention", "flash_fwd", "flash_bwd_dq",
+                           "flash_bwd_dkdv", "all_gather_matmul",
+                           "matmul_reduce_scatter", "ring_shift")
+               if not total.get(k)]
+    if missing or len(report["strategies"]) != 7:
+        fail(f"31b: the dry run launched no {missing} (launches {total}), "
+             f"strategies {sorted(report['strategies'])}")
+    log(f"[mp31] 31b: dryrun_multichip({PROCESSES}, processes=True) on "
+        f"mesh {report['mesh']}, {secs:.1f} s; launches summed over the "
+        f"ranks {total}; on {card}")
+    return total
+
+
+def tp_phase(card: str) -> dict:
+    """Phase 31 (31a, then 31b); returns their launches summed."""
+    t0 = time.perf_counter()
+    launches = tp_decode_phase(card)
+    log(f"[time] phase 31a {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, dryrun_phase(card))
+    log(f"[time] phase 31b {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7999,6 +8399,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    log(f"[host] a fixed CPU workload ({HOST_ADDS} Python additions, a "
+        f"sort of {HOST_SORT} float64s): {host_speed():.2f} s (the host's "
+        f"speed, beside which the [time] lines compare)")
     t_start = time.perf_counter()
 
     def lap(phases: str) -> None:
@@ -8127,8 +8530,10 @@ def main() -> int:
     prefixed = prefix_phase(models, card)
     torch.cuda.empty_cache()
     lap("18")
-    life = lifecycle_phase(card)
-    lap("19")
+    # phase 31's process groups run while 19b's command lines start and
+    # serve (its times are informational, taken beside them)
+    life = lifecycle_phase(card, beside=lambda: tp_phase(card))
+    lap("19, 31")
     pooled = pool_phase(models, card)
     lap("20")
     # 21d's tenants are processes of their own: they run beside 21a-c and
@@ -8167,6 +8572,7 @@ def main() -> int:
     for key in ("launches", "tp_launches", "optax_launches",
                 "attn_launches", "moe_launches"):
         add_counts(more, processed[key])
+    add_counts(more, life["beside"])
 
     kernels = [{
         "name": "paged_attention", "route": "cuda",

@@ -1749,3 +1749,81 @@ def test_process_lora_steps_on_the_card_match_the_cpu(tmp_path):
             case = info["cases"][form]
             assert case["base_same"] and case["gathered"]
             assert case["flash"] == [2 * L * 2, L * 2]
+
+
+def test_process_tp_paged_decode_on_the_card_matches_one_device(tmp_path):
+    """Two processes on the card (one gloo group) decode tensor-parallel
+    on ``ProcessMesh({"dp": 1, "tp": 2})`` from their int8 serving shards
+    (tests/torch_process_child.py's ``decode`` mode): a 2-layer rope
+    model of 8 heads over 2 kv heads of dim 64, 4 q heads over 1 kv head
+    a process, 4 prompts of 24 tokens, 16 greedy steps on pages of 8.
+    Every paged-attention launch (#1, on ``[B, 4, 64]`` a process) is
+    held to its plain version on the same inputs (``SLOT_REL_TOL``), n
+    layers a decode step in each process; the tokens equal the
+    one-device paged decoder's on the card, except for a row that parts
+    at a near-tie of the one-device logits (``argmax_tol``)."""
+    import json
+
+    import numpy as np
+
+    from tpu_dra_torch.convert import save_npz
+    from tpu_dra_torch.workloads import decode as td
+    from tpu_dra_torch.workloads import quant as tq
+    from tpu_dra_torch.workloads import train as tt
+    from tpu_dra_torch.workloads.paged_kv import PagePool
+    dev = card()
+    cfg = dict(vocab=256, d_model=512, n_heads=8, n_kv_heads=2, n_layers=2,
+               d_ff=1024, max_seq=64, pos_emb="rope")
+    run = dict(steps=16, max_len=48, beams=2, beam_steps=2, k=2,
+               page_size=8, total_pages=24)
+    params = tt.init_params(tt.ModelConfig(**cfg),
+                            torch.Generator().manual_seed(0))
+    save_npz(tmp_path / "p.npz", params)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, 256, (4, 24)).astype(np.int32)
+    pool = PagePool(run["total_pages"], run["page_size"])
+    need = pool.pages_for(24 + run["steps"])
+    table = np.stack([pool.table_row(pool.alloc(need), need)
+                      for _ in range(4)])
+    np.savez(tmp_path / "decode_inputs.npz", prompt=prompt,
+             beam_prompt=prompt, table=table)
+    (tmp_path / "decode_cases.json").write_text(json.dumps({
+        "run": run, "cases": [{"name": "int8", "cfg": cfg,
+                               "params": "p.npz", "form": "int8",
+                               "group": 128, "cache": "bf16",
+                               "beam": False, "paged_only": True}]}))
+    runs = _process_runs(tmp_path, "decode", [{"dp": 1, "tp": 2}],
+                         ["p.npz", "decode_inputs.npz",
+                          "decode_cases.json"])
+    tcfg = tt.ModelConfig(**cfg)
+    tree = _to_card(tq.quantize_params_int8(params), dev)
+    tp = torch.from_numpy(prompt).to(dev)
+    from tpu_dra_torch.workloads.paged_kv import paged_greedy_decode
+    want = paged_greedy_decode(
+        tcfg, tree, tp, torch.from_numpy(table).to(dev),
+        steps=run["steps"], total_pages=run["total_pages"],
+        page_size=run["page_size"]).cpu().numpy()
+    for got, info in runs["cuda"]:
+        seen = info["paged_check"]
+        assert seen["calls"] == cfg["n_layers"] * (run["steps"] - 1)
+        assert seen["max_slot_rel"] <= tpk.SLOT_REL_TOL, seen
+        toks = got["dp1xtp2/int8/paged"].astype(np.int32)
+        for b in range(4):
+            diff = np.flatnonzero(toks[b] != want[b])
+            if diff.size:
+                i = int(diff[0])
+                cache = td.init_kv_cache(tcfg, 1, run["max_len"],
+                                         device=dev)
+                row = torch.cat([tp[b:b + 1], torch.from_numpy(
+                    want[b:b + 1, :i]).to(dev)], dim=1)
+                _, lg = td.prefill(tcfg, tree, cache, row)
+                top2 = lg[0].float().topk(2).values.tolist()
+                tol = 2 * max(2 ** -4, 2 ** -6 * abs(top2[0]))
+                assert top2[0] - top2[1] <= tol, (b, i, top2, tol)
+    np.testing.assert_array_equal(runs["cuda"][0][0]["dp1xtp2/int8/paged"],
+                                  runs["cuda"][1][0]["dp1xtp2/int8/paged"])
+
+
+def _to_card(tree: dict, dev) -> dict:
+    return {k: _to_card(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

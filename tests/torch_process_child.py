@@ -11,6 +11,8 @@
     python tests/torch_process_child.py pipe OUT AXES_JSON DEVICE
     python tests/torch_process_child.py moe OUT AXES_JSON DEVICE
     python tests/torch_process_child.py lora OUT AXES_JSON DEVICE
+    python tests/torch_process_child.py decode OUT MESHES_JSON DEVICE
+    python tests/torch_process_child.py slices OUT DEVICE
 
 ``ring``: the group ring's forward and VJP cases (:func:`ring_inputs`,
 the same global inputs on every rank) on DEVICE ("cpu": the group plain
@@ -36,7 +38,11 @@ over DEVICE, the MoE SGD and AdamW steps of each case in
 (:func:`moe_main`).  ``lora``: on a ``ProcessMesh`` of AXES (dp × tp)
 over DEVICE, the LoRA step over each case's plain, int8 or int4 base
 cut by ``serving_param_shardings``, and the straddling int4 tree
-(:func:`lora_main`).
+(:func:`lora_main`).  ``decode``: on each process mesh of
+MESHES_JSON (a list of axes) over DEVICE, the tensor-parallel decoders
+of ``OUT/decode_cases.json``'s cases (:func:`decode_main`).
+``slices``: the packed loss on dp 2 × tp 2 and the DP×TP and ring-SP
+steps on three-axis meshes over DEVICE (:func:`slices_main`).
 
 It imports torch and the port only (no JAX), so the cuda case runs it
 on a card machine as it is.
@@ -929,6 +935,8 @@ def _serving_tree(params: dict, form: str, group: int) -> dict:
         return quant.quantize_params_int8(params)
     if form == "int4":
         return quant.quantize_params_int4(params, group)
+    if form == "bf16":
+        return quant.cast_params_bf16(params)
     return params
 
 
@@ -1020,6 +1028,192 @@ def lora_main(out: Path, axes: dict, device: str) -> None:
     dist.destroy_process_group()
 
 
+def _checked_paged_attention(paged_kv, seen: dict):
+    """``paged_kv.paged_attention`` replaced by a call of it that also
+    holds each output to the plain version on the same inputs: ``seen``
+    gets the calls and the worst slot's relative L2 error
+    (``paged_kv.slot_rel_err``).  The kernel's wrapper counts its
+    launches on the module's name, so the stand-in carries
+    ``launches``."""
+    kernel = paged_kv.paged_attention
+
+    def checked(*args, **kw):
+        got = kernel(*args, **kw)
+        want = paged_kv.paged_attention_ref(*args, **kw)
+        seen["calls"] += 1
+        seen["max_slot_rel"] = max(seen["max_slot_rel"], float(
+            paged_kv.slot_rel_err(got, want).max()))
+        return got
+    checked.launches = 0
+    paged_kv.paged_attention = checked
+
+
+def decode_main(out: Path, meshes: list, device: str) -> None:
+    """On each ``ProcessMesh`` of MESHES (dp × tp) over DEVICE, each case (``name``, ``cfg``, the global
+    ``params`` npz in OUT, ``form`` "bf16", "int8" or "int4" with its
+    ``group``, ``cache`` its cache dtype): the serving tree cut by
+    ``process_decode.local_tree``, then beam search on
+    ``OUT/decode_inputs.npz``'s ``beam_prompt`` (a ``beam`` case, with
+    its ``beam_kw``), or on
+    its ``prompt`` the tensor-parallel greedy decode, the paged one over
+    its ``table``,
+    speculative decoding with a one-layer ``truncate_draft`` and the
+    first step's logits (the paged decode alone for a ``paged_only``
+    case).
+    Saved ``{mesh}/{name}/<what>``, and ``{mesh}/argmax`` and
+    ``{mesh}/top_*`` of ``ProcessMesh.argmax`` and ``top_w`` over the
+    vocab cut of ``OUT/decode_inputs.npz``'s ``ties`` where it has them;
+    ``rank<r>.json`` holds each tree's
+    local and global bytes a leaf, the target passes, and on the card
+    each paged-attention launch held to its plain version
+    (``paged_check``)."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads import decode, paged_kv, process_decode
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.spec_draft import truncate_draft
+    from tpu_dra_torch.workloads.train import ModelConfig
+    _join()
+    r = dist.get_rank()
+    seen = {"calls": 0, "max_slot_rel": 0.0}
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        _checked_paged_attention(paged_kv, seen)
+    spec = json.loads((out / "decode_cases.json").read_text())
+    with np.load(out / "decode_inputs.npz") as data:
+        inputs = {k: torch.from_numpy(data[k]) for k in data.files}
+    run = spec["run"]
+    res, info = {}, {"paged_check": seen}
+    for axes in meshes:
+        mesh = ProcessMesh(axes, device=None if device == "cuda" else device)
+        dev = mesh.device
+        prompt, table = inputs["prompt"].to(dev), inputs["table"].to(dev)
+        tag = "x".join(f"{k}{v}" for k, v in axes.items())
+        if "ties" in inputs:
+            cut = mesh.shard(inputs["ties"].to(dev), (None, "tp"))
+            vl = cut.shape[-1]
+            cols = torch.arange(vl, device=dev) + mesh.axis_index("tp") * vl
+            res[f"{tag}/argmax"] = mesh.argmax(cut, "tp")
+            res[f"{tag}/top_vals"], res[f"{tag}/top_idx"] = mesh.top_w(
+                cut, cols, run["ties_w"], "tp")
+        for case in spec["cases"]:
+            name, cfg = case["name"], ModelConfig(**case["cfg"])
+            tree = _serving_tree(convert.load_npz(out / case["params"],
+                                                  "cpu"), case["form"],
+                                 case.get("group", 128))
+            local = _to(process_decode.local_tree(cfg, mesh, tree), dev)
+            key = f"{tag}/{name}"
+            kw = dict(max_len=run["max_len"], cache_dtype=case["cache"])
+            whole = flat_tree(tree)
+            info[key] = {"bytes": {
+                k: [v.numel() * v.element_size(),
+                    whole[k].numel() * whole[k].element_size()]
+                for k, v in flat_tree(local).items() if torch.is_tensor(v)}}
+            if case["beam"]:
+                hist, scores = decode.beam_decode(
+                    cfg, local, inputs["beam_prompt"].to(dev),
+                    steps=run["beam_steps"],
+                    beams=run["beams"], mesh=mesh, **kw, **case["beam_kw"])
+                res[f"{key}/beam"], res[f"{key}/beam_scores"] = hist, scores
+                continue
+            res[f"{key}/paged"] = paged_kv.paged_greedy_decode(
+                cfg, local, prompt, table, steps=run["steps"],
+                total_pages=run["total_pages"], page_size=run["page_size"],
+                cache_dtype=case["cache"], mesh=mesh)
+            if case.get("paged_only"):
+                continue
+            res[f"{key}/greedy"] = decode.greedy_decode(
+                cfg, local, prompt, steps=run["steps"], mesh=mesh, **kw)
+            dcfg, dparams = truncate_draft(cfg, local, 1)
+            res[f"{key}/spec"], stats = decode.speculative_decode(
+                cfg, local, dcfg, dparams, prompt, steps=run["steps"],
+                k=run["k"], return_stats=True, mesh=mesh, **kw)
+            res[f"{key}/logits"] = process_decode.first_logits(
+                cfg, local, prompt, mesh, **kw)
+            info[key]["passes"] = stats["target_passes"]
+        mesh.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
+def slices_main(out: Path, device: str) -> None:
+    """On ``ProcessMesh``es over DEVICE of the four processes:
+    ``OUT/slices.json``'s ``packed`` cases (``train.packed_loss_fn`` on
+    dp 2 × tp 2 of this process's shards of ``params``, each set of
+    packed rows ``<set>/tokens``, ``<set>/segments`` and
+    ``<set>/positions`` of ``OUT/packed.npz``, the case's ``head``), then
+    on the multislice
+    mesh ``("dcn", "dp", "tp")`` of ``collectives.make_multislice_mesh(2,
+    4, tp=2, processes=True)`` one lr-1 DP×TP step (each ``matmul_impl``
+    of ``ms_impls``) of ``ms_params`` on ``OUT/window.npz``'s ``tokens``,
+    and on ``ProcessMesh({"dcn": 2, "dp": 1, "sp": 2})`` one lr-1 ring
+    step (each engine of ``ring_impls``) of ``ring_params`` on its
+    ``ring_tokens`` and ``ring_targets``.  Saved the losses and the
+    gathered trees; ``rank<r>.json`` holds each three-axis mesh's coords
+    and each axis's psum of the group rank."""
+    import torch.distributed as dist
+
+    from tpu_dra_torch import convert
+    from tpu_dra_torch.workloads.collectives import make_multislice_mesh
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    from tpu_dra_torch.workloads.ring_attention import make_ring_train_step
+    from tpu_dra_torch.workloads.train import (ModelConfig,
+                                               make_sharded_train_step,
+                                               packed_loss_fn,
+                                               param_shardings)
+    _join()
+    r = dist.get_rank()
+    where = None if device == "cuda" else device
+    spec = json.loads((out / "slices.json").read_text())
+    res, info = {}, {}
+    mesh = ProcessMesh({"dp": 2, "tp": 2}, device=where)
+    dev = mesh.device
+    with np.load(out / "packed.npz") as data:
+        packed = {s: [torch.from_numpy(data[f"{s}/{k}"]).to(dev)
+                      for k in ("tokens", "segments", "positions")]
+                  for s in sorted({k.split("/")[0] for k in data.files})}
+    for case in spec["packed"]:
+        cfg = ModelConfig(**case["cfg"])
+        params = convert.load_npz(out / case["params"], dev)
+        local = mesh.shard_tree(params, param_shardings(cfg, mesh))
+        for rows, batch in packed.items():
+            res[f"packed/{case['name']}/{rows}"] = packed_loss_fn(
+                cfg, local, *batch, head_impl=case["head"], mesh=mesh)
+    mesh.close()
+    with np.load(out / "window.npz") as data:
+        win = {k: torch.from_numpy(data[k]).to(dev) for k in data.files}
+    ms = make_multislice_mesh(2, 4, tp=2, device=where, processes=True)
+    msp = ProcessMesh({"dcn": 2, "dp": 1, "sp": 2}, device=where)
+    for name, m in (("ms", ms), ("msp", msp)):
+        info[name] = {"coords": m.coords, "psums": {
+            a: float(m.psum(torch.tensor(float(r), device=dev), [a]))
+            for a in m.axis_names}}
+    cfg = ModelConfig(**spec["ms_cfg"])
+    params = convert.load_npz(out / spec["ms_params"], dev)
+    for impl in spec["ms_impls"]:
+        step, p_shard, _ = make_sharded_train_step(cfg, ms, lr=1.0,
+                                                   matmul_impl=impl)
+        new, loss = step(ms.shard_tree(params, p_shard), win["tokens"])
+        res[f"ms-{impl}_loss"] = loss
+        for k, v in flat_tree(ms.unshard_tree(new, p_shard)).items():
+            res[f"ms-{impl}/{k}"] = v
+    cfg = ModelConfig(**spec["ring_cfg"])
+    params = convert.load_npz(out / spec["ring_params"], dev)
+    for engine in spec["ring_impls"]:
+        step, _ = make_ring_train_step(cfg, msp, lr=1.0, ring_impl=engine)
+        new, loss = step(params, win["ring_tokens"], win["ring_targets"])
+        res[f"msp-{engine}_loss"] = loss
+        for k, v in flat_tree(new).items():
+            res[f"msp-{engine}/{k}"] = v
+    ms.close()
+    msp.close()
+    (out / f"rank{r}.json").write_text(json.dumps(info))
+    _save(out, r, res)
+    dist.destroy_process_group()
+
+
 def _unflat(flat: dict) -> dict:
     """:func:`flat_tree`'s inverse."""
     out: dict = {}
@@ -1033,7 +1227,10 @@ def _unflat(flat: dict) -> dict:
 
 
 def _to(tree: dict, dev) -> dict:
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+    """Every tensor of ``tree`` on ``dev`` (an int8 leaf's ``row_max``
+    kept as it is)."""
+    return {k: _to(v, dev) if isinstance(v, dict)
+            else v.to(dev) if torch.is_tensor(v) else v
             for k, v in tree.items()}
 
 
@@ -1053,5 +1250,9 @@ if __name__ == "__main__":
         moe_main(out, json.loads(sys.argv[3]), sys.argv[4])
     elif what == "lora":
         lora_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "decode":
+        decode_main(out, json.loads(sys.argv[3]), sys.argv[4])
+    elif what == "slices":
+        slices_main(out, sys.argv[3])
     else:
         mesh_main(out, json.loads(sys.argv[3]))

@@ -237,18 +237,24 @@ def make_mesh(n_ranks: int, axis: str = "x", device=None) -> Mesh:
 
 
 def make_multislice_mesh(num_slices: int, n_ranks: int, tp: int = 1,
-                         device=None) -> Mesh:
+                         device=None, processes: bool = False):
     """A ``("dcn", "dp", "tp")`` mesh of ``num_slices`` slices of
     ``n_ranks / num_slices`` ranks each, ``tp`` of them a tensor-parallel
     group: the layout of the reference's multislice mesh, whose outer
     "dcn" axis crosses slice boundaries.  Raises ``ValueError`` where the
     ranks do not split into equal slices or ``tp`` does not divide a
-    slice, as the reference does."""
+    slice, as the reference does.  ``processes=True``: a
+    ``mesh.ProcessMesh`` of the same axes over the default process group
+    of ``n_ranks`` processes (every one of them calls this together),
+    else a virtual ``Mesh``."""
     if n_ranks % num_slices:
         raise ValueError(f"{n_ranks} devices do not split into {num_slices} "
                          f"equal slices")
     per_slice = n_ranks // num_slices
     if per_slice % tp:
         raise ValueError(f"tp={tp} does not divide slice size {per_slice}")
-    return Mesh({"dcn": num_slices, "dp": per_slice // tp, "tp": tp},
-                device=device)
+    axes = {"dcn": num_slices, "dp": per_slice // tp, "tp": tp}
+    if processes:
+        from tpu_dra_torch.workloads.mesh import ProcessMesh
+        return ProcessMesh(axes, device=device)
+    return Mesh(axes, device=device)

@@ -131,9 +131,21 @@ def _decode_block(cfg: ModelConfig, x, layer, k_cache, v_cache, pos,
     """One decoder block for an m-token ``[B, m, D]`` chunk against a
     ``[B, Hkv, S_max, Dh]`` cache: the chunk's k/v are written at
     positions ``pos .. pos+m-1`` (``pos`` ``[1]`` or ``[B]``) in place,
-    and the new activations returned.  Chunk token j attends cache
+    and the new activations returned (:func:`_decode_attn`, then wo and
+    the MLP)."""
+    out = _decode_attn(cfg, x, layer, k_cache, v_cache, pos, k_s_cache,
+                       v_s_cache, window)
+    x = x + matmul_any(out, layer["wo"], x.dtype)
+    return _mlp(x, layer)
+
+
+def _decode_attn(cfg: ModelConfig, x, layer, k_cache, v_cache, pos,
+                 k_s_cache=None, v_s_cache=None, window: int | None = None):
+    """The attention of :func:`_decode_block` up to its merged heads
+    ``[B, m, n_heads·d_head]`` (before wo).  Chunk token j attends cache
     columns ≤ its own position, so causality within the chunk falls out
-    of the mask.
+    of the mask.  ``cfg``'s heads are the projection's: a
+    tensor-parallel rank passes its share (``process_decode``).
 
     With an int8 cache (``k_s_cache``/``v_s_cache`` given) the chunk's k/v
     quantize at write time, and the per-position scales stay outside the
@@ -193,9 +205,7 @@ def _decode_block(cfg: ModelConfig, x, layer, k_cache, v_cache, pos,
         attn = attn * v_s_cache[..., 0][:, :, None, None, :]
     attn = attn.to(q.dtype)
     out = torch.einsum("bkgms,bksd->bkgmd", attn, v_read)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, m, cfg.n_heads * cfg.d_head)
-    x = x + matmul_any(out, layer["wo"], x.dtype)
-    return _mlp(x, layer)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, m, cfg.n_heads * cfg.d_head)
 
 
 def _chunk_hidden(cfg: ModelConfig, params, cache, pos, tokens,
@@ -352,11 +362,19 @@ def decode(cfg: ModelConfig, params, prompt, *, steps: int,
            attn_impl: str = "dense", temperature: float = 0.0,
            top_k: int = 0, top_p: float = 0.0, generator=None,
            cache_dtype: str = "bf16", window: int | None = None,
-           eos_id: int | None = None, repetition_penalty: float = 1.0):
+           eos_id: int | None = None, repetition_penalty: float = 1.0,
+           mesh=None):
     """Decode ``steps`` tokens after a ``[B, S]`` prompt on the prompt's
     device — greedy by default, temperature/top-k/top-p sampling with
     noise from ``generator`` (default: one seeded 0) when ``temperature >
     0``.  Returns ``[B, steps]`` int32 tokens.
+
+    ``mesh``: a ``mesh.ProcessMesh`` with a "tp" axis decodes
+    tensor-parallel from ``params``, this process's serving shards
+    (``process_decode.local_tree``), with the global prompt, and returns
+    the global tokens on every process (greedy, equal-length prompts, no
+    window, eos or penalty; anything else raises
+    ``NotImplementedError``); any other mesh raises ``TypeError``.
 
     ``lengths`` (``[B]``) makes the batch ragged: ``prompt`` is
     right-padded and every sequence advances from its own length.
@@ -403,6 +421,16 @@ def decode(cfg: ModelConfig, params, prompt, *, steps: int,
         if bool((lengths < 1).any()) or bool((lengths > S).any()):
             raise ValueError(f"lengths must lie in [1, {S}], got "
                              f"{lengths.tolist()}")
+    if _on_processes(mesh):
+        if (lengths is not None or temperature > 0.0 or window is not None
+                or eos_id is not None or repetition_penalty != 1.0):
+            raise NotImplementedError(
+                "decoding on a process mesh is greedy over equal-length "
+                "prompts, with no window, eos or repetition penalty")
+        from tpu_dra_torch.workloads import process_decode
+        return process_decode.greedy_decode(
+            cfg, params, prompt, mesh, steps=steps, max_len=max_len,
+            attn_impl=attn_impl, cache_dtype=cache_dtype)
     if temperature > 0.0 and generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
@@ -457,11 +485,26 @@ def decode(cfg: ModelConfig, params, prompt, *, steps: int,
 
 def greedy_decode(cfg: ModelConfig, params, prompt, *, steps: int,
                   max_len: int | None = None, attn_impl: str = "dense",
-                  cache_dtype: str = "bf16", window: int | None = None):
-    """Greedy-decode ``steps`` tokens after a ``[B, S]`` prompt."""
+                  cache_dtype: str = "bf16", window: int | None = None,
+                  mesh=None):
+    """Greedy-decode ``steps`` tokens after a ``[B, S]`` prompt (``mesh``:
+    see :func:`decode`)."""
     return decode(cfg, params, prompt, steps=steps, max_len=max_len,
                   attn_impl=attn_impl, cache_dtype=cache_dtype,
-                  window=window)
+                  window=window, mesh=mesh)
+
+
+def _on_processes(mesh) -> bool:
+    """Whether the decoders' ``mesh=`` asks for tensor-parallel decoding:
+    ``None`` decodes on one device, a ``mesh.ProcessMesh`` across its
+    processes; anything else raises ``TypeError``."""
+    if mesh is None:
+        return False
+    from tpu_dra_torch.workloads.mesh import ProcessMesh
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"the decoders' mesh= takes a ProcessMesh or None, "
+                        f"got {type(mesh).__name__}")
+    return True
 
 
 def decode_ragged(cfg: ModelConfig, params, prompts, lengths, *, steps: int,
@@ -501,7 +544,7 @@ def speculative_decode(cfg: ModelConfig, params, draft_cfg: ModelConfig,
                        return_stats: bool = False,
                        cache_dtype: str = "bf16",
                        temperature: float = 0.0, top_k: int = 0,
-                       top_p: float = 0.0, generator=None):
+                       top_p: float = 0.0, generator=None, mesh=None):
     """Speculative decoding: the draft model proposes ``k-1`` tokens one
     step at a time, the target verifies them in ONE cached ``k``-token
     chunk forward, and up to ``k`` tokens commit per target pass.
@@ -519,7 +562,13 @@ def speculative_decode(cfg: ModelConfig, params, draft_cfg: ModelConfig,
     masked until overwritten.
 
     Both models must share the vocab.  Returns ``[B, steps]`` int32
-    tokens, and ``{"target_passes": n}`` too with ``return_stats``."""
+    tokens, and ``{"target_passes": n}`` too with ``return_stats``.
+
+    ``mesh``: a ``mesh.ProcessMesh`` runs the greedy acceptance
+    tensor-parallel, ``params`` and ``draft_params`` this process's shards
+    (the draft ``spec_draft.truncate_draft`` of them), and returns the
+    global tokens on every process; sampling raises
+    ``NotImplementedError`` there (see :func:`decode`)."""
     if k < 2:
         raise ValueError(f"k must be >= 2 (k-1 drafted tokens and one "
                          f"bonus per pass), got {k}")
@@ -541,6 +590,16 @@ def speculative_decode(cfg: ModelConfig, params, draft_cfg: ModelConfig,
         raise ValueError(
             f"S + steps + k = {S + steps + k} exceeds the learned-position "
             f"table (max_seq={cfg.max_seq}); grow max_seq or use rope")
+    if _on_processes(mesh):
+        if sampling:
+            raise NotImplementedError("speculative decoding on a process "
+                                      "mesh takes the greedy acceptance")
+        from tpu_dra_torch.workloads import process_decode
+        toks, passes = process_decode.speculative_decode(
+            cfg, params, draft_cfg, draft_params, prompt, mesh, steps=steps,
+            k=k, max_len=max_len, attn_impl=attn_impl,
+            cache_dtype=cache_dtype)
+        return (toks, {"target_passes": passes}) if return_stats else toks
     t_cache = init_kv_cache(cfg, B, max_len, cache_dtype, device=dev)
     t_cache, t_logits = prefill(cfg, params, t_cache, prompt, attn_impl)
     d_cache = init_kv_cache(draft_cfg, B, max_len, cache_dtype, device=dev)
@@ -644,7 +703,8 @@ def _top_w(x, w: int):
 def beam_decode(cfg: ModelConfig, params, prompt, *, steps: int,
                 beams: int = 4, max_len: int | None = None,
                 attn_impl: str = "dense", cache_dtype: str = "bf16",
-                eos_id: int | None = None, length_penalty: float = 0.0):
+                eos_id: int | None = None, length_penalty: float = 0.0,
+                mesh=None):
     """Beam search over equal-length ``[B, S]`` prompts: (``[B, beams,
     steps]`` int32 tokens, ``[B, beams]`` fp32 scores), best first per
     row.
@@ -658,7 +718,11 @@ def beam_decode(cfg: ModelConfig, params, prompt, *, steps: int,
     the hypothesis' token log-probabilities.  With ``eos_id`` a finished
     beam continues only with eos at log-probability 0, so it keeps its
     score and pads with eos; ``length_penalty`` α then divides finished
-    scores by the GNMT norm ``((5 + len) / 6)^α`` and re-sorts."""
+    scores by the GNMT norm ``((5 + len) / 6)^α`` and re-sorts.
+
+    ``mesh``: a ``mesh.ProcessMesh`` searches tensor-parallel from this
+    process's shards (``process_decode.beam_decode``) and returns the
+    global tokens and scores on every process (see :func:`decode`)."""
     B, S = prompt.shape
     W = beams
     dev = prompt.device
@@ -684,6 +748,12 @@ def beam_decode(cfg: ModelConfig, params, prompt, *, steps: int,
         raise ValueError("length_penalty needs eos_id: without finished "
                          "hypotheses there is no length to normalize")
 
+    if _on_processes(mesh):
+        from tpu_dra_torch.workloads import process_decode
+        return process_decode.beam_decode(
+            cfg, params, prompt, mesh, steps=steps, beams=W, max_len=max_len,
+            attn_impl=attn_impl, cache_dtype=cache_dtype, eos_id=eos_id,
+            length_penalty=length_penalty)
     cache = init_kv_cache(cfg, B, max_len, cache_dtype, device=dev)
     cache, logits = prefill(cfg, params, cache, prompt, attn_impl)
     cache = {k: v.repeat_interleave(W, dim=1) for k, v in cache.items()}
@@ -721,17 +791,28 @@ def beam_decode(cfg: ModelConfig, params, prompt, *, steps: int,
             done = done | (token == eos_id)
 
     if length_penalty > 0.0:
-        # the completed length: the first eos' index + 1, else steps
-        is_eos = hist == eos_id
-        first = torch.argmax(is_eos.to(torch.int32), dim=-1)
-        length = torch.where(is_eos.any(-1), first + 1,
-                             torch.full_like(first, steps))
-        norm = ((5.0 + length.float()) / 6.0) ** length_penalty
-        scores = torch.where(done.reshape(B, W), scores / norm, scores)
-        order = torch.argsort(-scores, dim=-1, stable=True)
-        scores = scores.gather(1, order)
-        hist = hist.gather(1, order[:, :, None].expand(B, W, steps))
+        hist, scores = length_normalized(hist, scores, done, eos_id,
+                                         length_penalty)
     return hist, scores
+
+
+def length_normalized(hist, scores, done, eos_id: int,
+                      length_penalty: float):
+    """Beam search's finish: each finished hypothesis' score (``done``
+    ``[B·W]``) divided by the GNMT norm ``((5 + len) / 6)^α`` of its
+    completed length (the first eos' index + 1, else the steps), and the
+    beams of each row re-sorted, best first: ``(hist [B, W, steps],
+    scores [B, W])``."""
+    B, W, steps = hist.shape
+    is_eos = hist == eos_id
+    first = torch.argmax(is_eos.to(torch.int32), dim=-1)
+    length = torch.where(is_eos.any(-1), first + 1,
+                         torch.full_like(first, steps))
+    norm = ((5.0 + length.float()) / 6.0) ** length_penalty
+    scores = torch.where(done.reshape(B, W), scores / norm, scores)
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    return (hist.gather(1, order[:, :, None].expand(B, W, steps)),
+            scores.gather(1, order))
 
 
 def make_decoder(cfg: ModelConfig, *, steps: int, max_len: int | None = None,

@@ -723,6 +723,50 @@ class ProcessMesh(_Axes):
         return x if self.axes[axis] == 1 else \
             group_all_reduce(x, self._lines[axis], dist.ReduceOp.MAX)
 
+    def argmax(self, x, axis: str):
+        """The global index of each row's largest entry, where ``x``
+        ``[..., N]`` is this process's shard of a last dimension cut into
+        contiguous blocks over ``axis`` (rank i holds columns ``i·N`` on):
+        the lowest global index among the ranks that hold the max,
+        ``jnp.argmax``'s first-max rule.  One all-gather of each rank's
+        ``(max, index)``; no gradient.  int64 ``[...]``."""
+        x = x.detach()
+        idx = torch.argmax(x, dim=-1)
+        if self.axes[axis] == 1:
+            return idx
+        val = x.gather(-1, idx[..., None])[..., 0].double()
+        glob = (idx + self.coords[axis] * x.shape[-1]).double()
+        got = torch.stack(group_all_gather(torch.stack([val, glob]),
+                                           self._lines[axis]))
+        vals, globs = got[:, 0], got[:, 1]        # [n, ...] in rank order
+        best = vals.amax(dim=0)
+        return torch.where(vals == best, globs, torch.inf).amin(
+            dim=0).long()
+
+    def top_w(self, x, index, w: int, axis: str):
+        """The ``w`` largest entries of each row over every process of
+        ``axis``, and their global indices, largest first, the lower
+        global index first among equal values (``jax.lax.top_k``'s order,
+        :func:`decode._top_w`'s): ``x`` ``[..., M]`` is this process's
+        part of the rows and ``index`` (``[M]``, int) the global index of
+        each of its entries.  Each process sorts its own part, the
+        ``w`` best of each are gathered and merged.  No gradient."""
+        x = x.detach()
+        vals, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+        vals, glob = vals[..., :w], index[pos[..., :w]]
+        if self.axes[axis] > 1:
+            parts = group_all_gather(torch.stack([vals.double(),
+                                                  glob.double()]),
+                                     self._lines[axis])
+            vals = torch.cat([p[0] for p in parts], dim=-1).to(x.dtype)
+            glob = torch.cat([p[1] for p in parts], dim=-1).long()
+            order = torch.argsort(glob, dim=-1, stable=True)
+            vals, glob = vals.gather(-1, order), glob.gather(-1, order)
+            order = torch.argsort(vals, dim=-1, descending=True, stable=True)
+            vals = vals.gather(-1, order)[..., :w]
+            glob = glob.gather(-1, order)[..., :w]
+        return vals, glob
+
     def column_plan(self, axis: str, src, dst) -> ColumnPlan:
         """The :class:`ColumnPlan` of this process's rank along ``axis``."""
         return ColumnPlan(src, dst, self.coords[axis])

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from tpu_dra_torch.device import resolve_device
-from tpu_dra_torch.workloads.decode import _chunk_positions, _layer_kv
+from tpu_dra_torch.workloads.decode import (_chunk_positions, _layer_kv,
+                                            _on_processes)
 from tpu_dra_torch.workloads.quant import matmul_any, quantize_kv
 from tpu_dra_torch.workloads.train import (
     ModelConfig,
@@ -506,40 +507,50 @@ def _paged_chunk_hidden(cfg: ModelConfig, params, cache, tokens, pos,
     prefill) through :func:`paged_attention_chunk_ref`, plain PyTorch in
     the reference too.  The append targets are computed once for all
     layers."""
-    B, m = tokens.shape
+    m = tokens.shape[1]
     pos = pos.to(torch.int32)
     positions = _chunk_positions(pos, m)                   # [B, m]
     x = embed_tokens(cfg, params, tokens, positions)
-    quantized = "k_s" in cache
     targets = _append_targets(table, pos, cache["k"].shape[3],
                               cache["k"].shape[2], m)
     for i in range(cfg.n_layers):
         layer = layer_params(params["blocks"], i)
-        lc = {name: buf[i:i + 1] for name, buf in cache.items()}
-        qkv = matmul_any(_rmsnorm(x, layer["ln1"]), layer["wqkv"], x.dtype)
-        q, k, v = _split_qkv(cfg, qkv)
-        q = _split_heads(cfg, q)                           # [B, H, m, Dh]
-        k = _split_heads(cfg, k, cfg.kv_heads)
-        v = _split_heads(cfg, v, cfg.kv_heads)
-        if cfg.pos_emb == "rope":
-            q = apply_rope(q, positions, cfg.rope_base)
-            k = apply_rope(k, positions, cfg.rope_base)
-        _append_at(lc, _kv_cols(lc, k[None], v[None]), targets)
-        scales = ({"k_s": lc["k_s"][0], "v_s": lc["v_s"][0]}
-                  if quantized else {})
-        if m == 1:
-            out = paged_attention(q[:, :, 0].to(torch.bfloat16).contiguous(),
-                                  lc["k"][0], lc["v"][0], table, pos + 1,
-                                  **scales)[:, :, None]
-        else:
-            out = paged_attention_chunk_ref(q.to(torch.bfloat16), lc["k"][0],
-                                            lc["v"][0], table, pos, m,
-                                            **scales)
-        out = out.transpose(1, 2).reshape(
-            B, m, cfg.n_heads * cfg.d_head).to(x.dtype)
+        out = _paged_attn(cfg, x, layer, cache, i, table, pos, positions,
+                          targets)
         x = x + matmul_any(out, layer["wo"], x.dtype)
         x = _mlp(x, layer)
     return x, cache
+
+
+def _paged_attn(cfg: ModelConfig, x, layer, cache, i: int, table, pos,
+                positions, targets):
+    """Layer ``i``'s attention of :func:`_paged_chunk_hidden` up to its
+    merged heads ``[B, m, n_heads·d_head]`` (before wo): project, append
+    the chunk's KV to the layer's pages, attend.  ``cfg``'s heads are the
+    projection's and the pool's: a tensor-parallel rank passes its share
+    (``process_decode``)."""
+    B, m = x.shape[:2]
+    lc = {name: buf[i:i + 1] for name, buf in cache.items()}
+    qkv = matmul_any(_rmsnorm(x, layer["ln1"]), layer["wqkv"], x.dtype)
+    q, k, v = _split_qkv(cfg, qkv)
+    q = _split_heads(cfg, q)                               # [B, H, m, Dh]
+    k = _split_heads(cfg, k, cfg.kv_heads)
+    v = _split_heads(cfg, v, cfg.kv_heads)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_base)
+        k = apply_rope(k, positions, cfg.rope_base)
+    _append_at(lc, _kv_cols(lc, k[None], v[None]), targets)
+    scales = ({"k_s": lc["k_s"][0], "v_s": lc["v_s"][0]}
+              if "k_s" in cache else {})
+    if m == 1:
+        out = paged_attention(q[:, :, 0].to(torch.bfloat16).contiguous(),
+                              lc["k"][0], lc["v"][0], table, pos + 1,
+                              **scales)[:, :, None]
+    else:
+        out = paged_attention_chunk_ref(q.to(torch.bfloat16), lc["k"][0],
+                                        lc["v"][0], table, pos, m, **scales)
+    return out.transpose(1, 2).reshape(
+        B, m, cfg.n_heads * cfg.d_head).to(x.dtype)
 
 
 def paged_chunk_logits(cfg: ModelConfig, params, cache, tokens, pos,
@@ -633,7 +644,7 @@ def paged_chunked_prefill(cfg: ModelConfig, params, cache, prompt,
 def paged_greedy_decode(cfg: ModelConfig, params, prompt, table, *,
                         steps: int, total_pages: int, page_size: int,
                         lengths=None, cache_dtype: str = "bf16",
-                        prefill_chunk: int | None = None):
+                        prefill_chunk: int | None = None, mesh=None):
     """Greedy decode ``steps`` tokens with all KV in pages, on the device
     of ``prompt``.
 
@@ -643,13 +654,29 @@ def paged_greedy_decode(cfg: ModelConfig, params, prompt, table, *,
     :func:`paged_chunked_prefill` in pieces of that many tokens (the
     prompt padded to a page, then a chunk multiple) instead of the dense
     prefill trunk.  Returns [B, steps] int32 — the per-request oracle of
-    the continuous engine."""
+    the continuous engine.
+
+    ``mesh``: a ``mesh.ProcessMesh`` decodes tensor-parallel from this
+    process's serving shards (``process_decode.paged_greedy_decode``):
+    the pool and the global table the same on every process, its pages
+    its own kv heads, the global tokens returned on every process
+    (``prefill_chunk`` raises ``NotImplementedError`` there); any other
+    mesh raises ``TypeError``."""
     dev = prompt.device
     B, S = prompt.shape
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
     lengths = lengths.to(device=dev, dtype=torch.int32)
     table = table.to(device=dev, dtype=torch.int32)
+    if _on_processes(mesh):
+        if prefill_chunk:
+            raise NotImplementedError("paged decoding on a process mesh "
+                                      "prefills whole prompts")
+        from tpu_dra_torch.workloads import process_decode
+        return process_decode.paged_greedy_decode(
+            cfg, params, prompt, table, mesh, steps=steps,
+            total_pages=total_pages, page_size=page_size, lengths=lengths,
+            cache_dtype=cache_dtype)
     cache = init_paged_cache(cfg, total_pages, page_size, cache_dtype,
                              device=dev)
     if prefill_chunk:

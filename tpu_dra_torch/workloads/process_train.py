@@ -67,6 +67,8 @@ replicated leaf.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 
@@ -75,6 +77,7 @@ from tpu_dra_torch.workloads.collective_matmul import (
 from tpu_dra_torch.workloads.mesh import axes_of
 from tpu_dra_torch.workloads.quant import matmul_any
 from tpu_dra_torch.workloads.train import (CHUNKED_REFUSES, _attn_core,
+                                           _causal_dense_attention,
                                            _ChunkedNLL, _norm_matmul,
                                            _rmsnorm, attn_impl_fn,
                                            batch_sharding, dot_f32,
@@ -187,15 +190,17 @@ def _tp_norm_matmul(x, gamma, w, mesh, norm_impl: str):
 
 
 def _dense_trunk(cfg, params, tokens, mesh, attn_fn, plan, heads,
-                 norm_impl: str):
-    """The Megatron-TP trunk: ``[bl, S, D]``, whole on every tp rank."""
-    x = mesh.all_gather(embed_tokens(cfg, params, tokens), "tp", 2,
-                        replicated_grad=True)
+                 norm_impl: str, positions=None):
+    """The Megatron-TP trunk: ``[bl, S, D]``, whole on every tp rank;
+    ``positions`` ``[bl, S]`` (a packed row's per-document positions) for
+    rope and the learned table."""
+    x = mesh.all_gather(embed_tokens(cfg, params, tokens, positions), "tp",
+                        2, replicated_grad=True)
     for i in range(cfg.n_layers):
         layer = layer_params(params["blocks"], i)
         qkv = mesh.columns(_tp_norm_matmul(x, layer["ln1"], layer["wqkv"],
                                            mesh, norm_impl), "tp", plan)
-        out = remat(_attn_core, cfg, qkv, attn_fn, None, heads)
+        out = remat(_attn_core, cfg, qkv, attn_fn, positions, heads)
         x = x + mesh.reduce(matmul_any(out, layer["wo"], x.dtype), "tp")
         h = F.gelu(_tp_norm_matmul(x, layer["ln2"], layer["w1"], mesh,
                                    norm_impl), approximate="tanh")
@@ -325,6 +330,51 @@ def psum_grads(mesh, grads: list, leaves: list, over: list,
     return out
 
 
+def _tp_layout(cfg, mesh, what: str) -> tuple:
+    """``(batch axes, plan, heads)`` of a DP×TP process mesh: the batch
+    axes' names, the fused projection's :func:`head_columns` recut as
+    this rank's :class:`mesh.ColumnPlan`, and ``(q heads, k/v heads)``
+    this rank holds.  ``ValueError`` unless the mesh holds batch axes and
+    "tp" only."""
+    batch = axes_of(mesh.batch_axes())
+    if "tp" not in mesh.axes or set(mesh.axes) - set(batch) - {"tp"}:
+        raise ValueError(f"the {what}'s mesh holds batch axes and 'tp' "
+                         f"only, got {mesh.axes}")
+    tp = mesh.axis_size("tp")
+    src, dst, kv = head_columns(cfg, tp)
+    return (batch, mesh.column_plan("tp", src, dst),
+            (cfg.n_heads // tp, len(kv[mesh.axis_index("tp")])))
+
+
+def process_packed_loss(cfg, params, tokens, segment_ids, positions, mesh,
+                        head_impl: str = "dense",
+                        label_smoothing: float = 0.0, z_loss: float = 0.0):
+    """``train.packed_loss_fn`` on a DP×TP ``ProcessMesh``: ``params`` this
+    process's shards (``train.param_shardings``), the packed ``[B, S+1]``
+    tokens, segment ids and positions global, the same on every process
+    (``data.pack_documents``), their rows cut over the batch axes.  The
+    dense TP trunk takes the segment mask on this rank's heads and rope
+    (or the learned table) at the per-document positions; the NLL is
+    vocab-parallel, masked where the next token leaves its document, its
+    sum psummed over the batch axes and divided by the global count of
+    valid tokens: the same scalar on every process (differentiable, as
+    :func:`make_process_grads`' loss)."""
+    batch, plan, heads = _tp_layout(cfg, mesh, "packed loss")
+    if head_impl not in ("dense", "chunked"):
+        raise ValueError(f"unknown head_impl {head_impl!r}")
+    b_shard = batch_sharding(mesh)
+    tok, seg, pos = (mesh.shard(t, b_shard)
+                     for t in (tokens, segment_ids, positions))
+    attn_fn = partial(_causal_dense_attention, segment_ids=seg[:, :-1])
+    x = _dense_trunk(cfg, params, tok[:, :-1], mesh, attn_fn, plan, heads,
+                     "dense", positions=pos[:, :-1])
+    nll = _head_nll(params, x, tok[:, 1:].long(), mesh, False, head_impl,
+                    label_smoothing, z_loss)
+    valid = ((seg[:, :-1] == seg[:, 1:]) & (seg[:, :-1] > 0)).float()
+    total = mesh.psum((nll[..., 0] * valid).sum(), batch)
+    return total / mesh.psum(valid.sum(), batch).clamp(min=1.0)
+
+
 def make_process_grads(cfg, mesh, attn_impl: str, head_impl: str,
                        accum_steps: int, norm_impl: str, matmul_impl: str,
                        label_smoothing: float = 0.0, z_loss: float = 0.0):
@@ -345,16 +395,10 @@ def make_process_grads(cfg, mesh, attn_impl: str, head_impl: str,
         raise NotImplementedError(CHUNKED_REFUSES)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    batch = axes_of(mesh.batch_axes())
-    if "tp" not in mesh.axes or set(mesh.axes) - set(batch) - {"tp"}:
-        raise ValueError(f"the DP×TP step's mesh holds batch axes and 'tp' "
-                         f"only, got {mesh.axes}")
+    batch, plan, heads = _tp_layout(cfg, mesh, "DP×TP step")
     attn_fn = attn_impl_fn(attn_impl)
     p_shard, b_shard = param_shardings(cfg, mesh), batch_sharding(mesh)
     tp = mesh.axis_size("tp")
-    src, dst, kv = head_columns(cfg, tp)
-    plan = mesh.column_plan("tp", src, dst)
-    heads = (cfg.n_heads // tp, len(kv[mesh.axis_index("tp")]))
     everywhere = tuple(mesh.axis_names)
 
     def micro_grads(live, leaves, tokens, fc):
@@ -483,18 +527,11 @@ def make_process_lora_train_step(cfg, mesh, lcfg, optimizer, attn_impl: str,
     no gradient and no moments."""
     from tpu_dra_torch.workloads.lora import lora_shardings, wrap_lora
     from tpu_dra_torch.workloads.quant import local_serving_tree
-    batch = axes_of(mesh.batch_axes())
-    if "tp" not in mesh.axes or set(mesh.axes) - set(batch) - {"tp"}:
-        raise ValueError(f"the LoRA step's mesh holds batch axes and 'tp' "
-                         f"only, got {mesh.axes}")
+    batch, plan, heads = _tp_layout(cfg, mesh, "LoRA step")
     if head_impl not in ("dense", "chunked"):
         raise ValueError(f"unknown head_impl {head_impl!r}")
     attn_fn = attn_impl_fn(attn_impl)
     p_shard, b_shard = param_shardings(cfg, mesh), batch_sharding(mesh)
-    tp = mesh.axis_size("tp")
-    src, dst, kv = head_columns(cfg, tp)
-    plan = mesh.column_plan("tp", src, dst)
-    heads = (cfg.n_heads // tp, len(kv[mesh.axis_index("tp")]))
     everywhere = tuple(mesh.axis_names)
 
     def step(base, lora, opt_state, tokens, base_specs=None):

@@ -694,14 +694,27 @@ def loss_fn(cfg: ModelConfig, params, tokens, attn_impl: str = "dense",
 
 def packed_loss_fn(cfg: ModelConfig, params, tokens, segment_ids,
                    positions, head_impl: str = "dense",
-                   label_smoothing: float = 0.0, z_loss: float = 0.0):
+                   label_smoothing: float = 0.0, z_loss: float = 0.0,
+                   mesh=None):
     """Mean next-token NLL over a packed ``[B, S+1]`` batch
     (``data.pack_documents``: tokens, segment ids, per-document
     positions): block-diagonal attention over the segments, positions
     restarting at each document, and the loss only where the next token
     continues the same document (a prediction across a boundary or from
     padding counts for nothing).  Dense attention; the reference's
-    ``packed_loss_fn`` (621-636)."""
+    ``packed_loss_fn`` (621-636).
+
+    ``mesh``: on a DP×TP ``mesh.ProcessMesh`` ``params`` is this
+    process's shards (:func:`param_shardings`) and the loss the global
+    one, on every process (``process_train.process_packed_loss``); the
+    reference runs it under the dp×tp shardings.  A virtual mesh takes
+    the whole tree, as on one device."""
+    if isinstance(mesh, ProcessMesh):
+        from tpu_dra_torch.workloads.process_train import \
+            process_packed_loss
+        return process_packed_loss(cfg, params, tokens, segment_ids,
+                                   positions, mesh, head_impl,
+                                   label_smoothing, z_loss)
     trunk = _trunk(cfg, params, tokens[:, :-1],
                    segment_ids=segment_ids[:, :-1],
                    positions=positions[:, :-1])

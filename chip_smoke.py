@@ -116,15 +116,22 @@ Phases (each prints as it goes; any failed check exits non-zero):
      a ragged K and two groups: y elementwise and per row
      (collective_matmul.ELEM_TOL, ROW_TOL), the gathered operand and the
      shift byte-equal, the VJPs against autograd through the plain
-     versions;
+     versions; then RING_BACK_TO_BACK (50) calls of each ring matmul
+     enqueued with no host synchronize between them, on fresh inputs
+     each, every output held to its plain version afterwards (each call
+     is one launch that synchronizes its ring steps in the kernel on
+     flags that carry the call's epoch: a flag or slot taken from the
+     call before shows here);
  12. their times beside bound, plain version and library yardstick; each
-     ring matmul's share of its bound, its ratio to the library call and
-     its time before the wgmma redesign;
+     ring matmul's share of its bound, its ratio to the library call, its
+     time before the wgmma redesign and its time as one launch a ring
+     step (the earlier design);
  13. DP×TP on Mesh({"dp": 1, "tp": 4}): the flagship's
      make_sharded_train_step(attn_impl="flash",
      matmul_impl="fused_collective") step against the dense sharded step,
-     then 10 SGD steps with exact ring launch counts (no ring runs again
-     in the backward) and 2 x n_layers flash forwards a step, its step
+     then 10 SGD steps with exact ring launch counts (4·L of each ring
+     kernel a step, one launch a call; no ring runs again in the
+     backward) and 2 x n_layers flash forwards a step, its step
      time beside
      the dense step's, and one profiled step (the ring kernels' device
      time and the step's idle share);
@@ -371,8 +378,11 @@ Phases (each prints as it goes; any failed check exits non-zero):
      dx / dw byte-equal to its rank's slice of the virtual ring's
      kernels on the same global inputs, y within ELEM_TOL / ROW_TOL of
      the group plain version (copies byte-equal), launches exact per
-     process (n a gather or reduce-scatter call, 1 a shift), a call's
-     time by CUDA events (barriers included; informational); (b) the
+     process (one a call), then PROCESS_BACK_TO_BACK (10) gathers and
+     reduce-scatters a process with no host synchronize and no group
+     barrier between them, every output byte-equal to the virtual ring's
+     afterwards, and a call's time by CUDA events (no host barrier in a
+     call; informational, beside the earlier design's); (b) the
      flagship's widths at PROCESS_LAYERS layers on ProcessMesh({"dp": 1, "sp": 4}) at batch 16 on [16,
      1025] windows: one make_ring_train_step(ring_impl="flash") step at
      lr 1 with hop_impl="pallas" bit-equal to "xla" in every process,
@@ -394,7 +404,7 @@ Phases (each prints as it goes; any failed check exits non-zero):
      first: the loss within STEP_LOSS_ATOL and each leaf's update within
      STEP_LEAF_REL, the norms assembled from each rank's squared sums
      psummed over the group; (b) PROCESS_STEPS SGD steps with finite,
-     falling losses and exact launches in each process: 4·L·n of each
+     falling losses and exact launches in each process: 4·L of each
      ring kernel, 2·L flash forwards and L of each backward kernel a
      step; the step time (host clock, synced), the shares spent in ring
      calls and in the gloo collectives, and peak memory (informational);
@@ -418,7 +428,7 @@ Phases (each prints as it goes; any failed check exits non-zero):
      and half of (a)'s; each step's time (host clock, synced), its
      shares in the gloo collectives, the gradient psum and the
      optimizer, and peak memory (informational); launches of (a) and (b)
-     exact in each process: 4·L·n of each ring kernel, 2·L flash
+     exact in each process: 4·L of each ring kernel, 2·L flash
      forwards and L of each backward kernel a step; (c) fit(mesh=the
      same mesh, zero1=True, head_impl="chunked", attn_impl="flash") at
      TP_DENSE_LAYERS layers on phase 8's corpus at batch 16: 2 steps
@@ -638,6 +648,24 @@ RING_BEFORE_US = {"all_gather_matmul wqkv": "1707.9-1717.1",
                   "all_gather_matmul w1": "2243.7-2414.7",
                   "matmul_reduce_scatter w2": "2435.4-2546.7",
                   "matmul_reduce_scatter wo": "975.8-1015.6"}
+# the same, one launch a ring step with the stream order between the
+# launches (the earlier design, whose C entries took a step argument),
+# phase 12 on an H100 80GB HBM3 at 700 W (PERF.md §6)
+RING_STEPS_US = {"all_gather_matmul wqkv": "770.0",
+                 "all_gather_matmul w1": "923.5",
+                 "matmul_reduce_scatter w2": "926.3",
+                 "matmul_reduce_scatter wo": "436.6"}
+# the process ring's calls across 4 processes on one card with a stream
+# synchronize and a group barrier after each ring step (the earlier
+# design), phase 26a on an H100 80GB HBM3 at 700 W (PERF.md §6)
+PROCESS_STEPS_MS = {"all_gather_matmul wqkv, m even": "8.44-12.73",
+                    "matmul_reduce_scatter w2": "9.14-14.71",
+                    "ring_shift right": "3.04-8.12",
+                    "ring_shift left": "3.04-8.12"}
+# ring matmul calls enqueued back to back with no host synchronize: on
+# the virtual ring (phase 11, each kernel) and a process (phase 26a)
+RING_BACK_TO_BACK = 50
+PROCESS_BACK_TO_BACK = 10
 # the RMSNorm-matmul's card time before its wgmma redesign (the first
 # version: the same mma.sync mainloop, 128 x 128 tiles, x normalised on its
 # way through registers into shared memory), phase 7 on an H100 80GB HBM3
@@ -2025,7 +2053,9 @@ def log_ring_summary(times: dict, card: str) -> None:
             f"{t['bound_ms'] / t['ms']:.3f} of its {t['bound_ms'] * 1e3:.1f} "
             f"us bound ({t['bound_by']}), {t['ms'] / t['library_ms']:.2f}x "
             f"the library call's {t['library_ms'] * 1e3:.1f} us; before the "
-            f"wgmma redesign {before} us; on {card}")
+            f"wgmma redesign {before} us; one launch a ring step (the "
+            f"earlier design) "
+            f"{RING_STEPS_US[name]} us; on {card}")
 
 
 def log_flash_times(shape: str, times: dict, card: str) -> None:
@@ -2162,15 +2192,72 @@ def check_ring(gen) -> dict:
         fail("RingShift: the cotangent did not shift back")
     log("[ring] RingShift: the cotangent shifts the other way, byte-equal "
         "-> ok")
+    ring_back_to_back()
     log(f"[ring] tolerances: y elementwise rtol = atol = {cm.ELEM_TOL}, per "
         f"row {cm.ROW_TOL}; gathered operand and shift byte-equal; VJPs "
         f"{VJP_REL} relative L2")
     return errs
 
 
+def ring_back_to_back() -> None:
+    """Phase 11's last check: RING_BACK_TO_BACK gathers (m even and odd
+    in turn: both schedules) and as many reduce-scatters on one virtual
+    ring of two groups of 4, enqueued with no host synchronize between
+    them, each call on inputs of its own; then every output held to its
+    plain version (the gathered operand byte-equal).  Each call is one
+    launch on the ring's one flag buffer, its waits met only by flags
+    that carry its own epoch.  The inputs come from a generator of their
+    own, so that every later phase's inputs come from `gen` as before."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    G, n, m, k, n_out = 2, 4, 1024, 1024, 768
+    calls = []
+    before = (cm.all_gather_matmul.launches,
+              cm.matmul_reduce_scatter.launches)
+    t0 = time.perf_counter()
+    for i in range(RING_BACK_TO_BACK):
+        x, w = ring_inputs(gen, G, n, m - i % 2, k, n_out)
+        calls.append((x, w, cm.all_gather_matmul(x, w)))
+        xr, wr = ring_inputs(gen, G, n, n * m, k, n_out)
+        calls.append((xr, wr, cm.matmul_reduce_scatter(xr, wr)))
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = (cm.all_gather_matmul.launches - before[0],
+                cm.matmul_reduce_scatter.launches - before[1])
+    if launched != (RING_BACK_TO_BACK, RING_BACK_TO_BACK):
+        fail(f"ring back to back: launches {launched}, expected one a call")
+    worst = [0.0, 0.0]
+    for i, (x, w, got) in enumerate(calls):
+        if isinstance(got, tuple):
+            want_y, want_a = cm.all_gather_matmul_ref(x, w)
+            if not torch.equal(got[1], want_a):
+                fail(f"all_gather_matmul back to back, call {i // 2}: "
+                     f"gathered operand not byte-equal")
+            err = hold_ring(f"all_gather_matmul back to back, call {i // 2}",
+                            got[0], want_y)[1]
+        else:
+            err = hold_ring(f"matmul_reduce_scatter back to back, call "
+                            f"{i // 2}", got, cm.matmul_reduce_scatter_ref(
+                                x, w))[1]
+        worst[i % 2] = max(worst[i % 2], err)
+    log(f"[ring] back to back: {RING_BACK_TO_BACK} all_gather_matmul and "
+        f"{RING_BACK_TO_BACK} matmul_reduce_scatter calls [G {G}, n {n}, m "
+        f"{m - 1}-{m}, K {k}, N {n_out}] enqueued in {enqueued:.2f} s with "
+        f"no host synchronize, one launch each; every output held to its "
+        f"plain version afterwards (worst elementwise {worst[0]:.3f} and "
+        f"{worst[1]:.3f} of the tolerance; gathered operands byte-equal) "
+        f"-> ok")
+    del calls
+    torch.cuda.empty_cache()
+
+
 def time_ring(gen) -> dict:
     """Phase 12: each ring kernel alone (its C entries with prepared
-    arguments, n launches for a matmul), through its wrapper, its plain
+    arguments, one launch a call on the ring's zeroed flag words, each
+    call its own epoch), through its wrapper, its plain
     version and a library yardstick, with CUDA events, at the path's
     shapes.  Bounds: operands read once; outputs written once; the n − 1
     ring copies read once more (the gathered slots at the next step, the
@@ -2187,6 +2274,13 @@ def time_ring(gen) -> dict:
     def checked(rc):
         if rc:
             fail(f"ring kernel launch failed with CUDA error {rc}")
+    flags = torch.zeros(4 * lib.tpu_dra_ring_flag_words(4), dtype=torch.int32,
+                        device="cuda")
+    epoch = [0]
+
+    def next_epoch():
+        epoch[0] += 1
+        return epoch[0]
     times = {}
     for label, m, k, n_out in (("wqkv", 4096, 2048, 1536),
                                ("w1", 4096, 2048, 2048)):
@@ -2197,10 +2291,9 @@ def time_ring(gen) -> dict:
         a = torch.empty((1, n, n, m, k), dtype=torch.bfloat16, device=x.device)
 
         def kernel():
-            for step in range(n):
-                checked(lib.tpu_dra_ring_ag_matmul(
-                    P(x), P(w), P(y), P(a), 1, n, m, k, n_out, m * k,
-                    n * m * k, w.stride(1), 0, step, 1, stream))
+            checked(lib.tpu_dra_ring_ag_matmul(
+                P(x), P(w), P(y), P(a), P(flags), 1, n, m, k, n_out, m * k,
+                n * m * k, w.stride(1), 0, 1, next_epoch(), stream))
         gathered = x.reshape(1, n * m, k)
         wl = w[0]
         times[f"all_gather_matmul {label}"] = {
@@ -2222,14 +2315,14 @@ def time_ring(gen) -> dict:
         x, w = ring_inputs(gen, 1, n, n * m, k, n_out)
         y = torch.empty((1, n, m, n_out), dtype=torch.bfloat16,
                         device=x.device)
-        comm = torch.empty((1, n, 2, m, n_out), dtype=torch.float32,
+        comm = torch.empty((1, n, n - 1, m, n_out), dtype=torch.float32,
                            device=x.device)
 
         def kernel():
-            for step in range(n):
-                checked(lib.tpu_dra_ring_matmul_rs(
-                    P(x), P(w), P(comm), P(y), 1, n, m, k, n_out, n * m * k,
-                    n * n * m * k, w.stride(1), 0, step, stream))
+            checked(lib.tpu_dra_ring_matmul_rs(
+                P(x), P(w), P(comm), P(y), P(flags), 1, n, m, k, n_out,
+                n * m * k, n * n * m * k, w.stride(1), 0, next_epoch(),
+                stream))
         xl, wl = x[0], w[0]
         times[f"matmul_reduce_scatter {label}"] = {
             "ms": cuda_time_ms(kernel, 20),
@@ -2319,10 +2412,10 @@ def sharded_phase(gen, data_path: str) -> dict:
     against the same mesh's dense step (loss within STEP_LOSS_ATOL, every
     gradient leaf, read off an SGD step at lr 1 as p − p', within
     STEP_LEAF_REL), then SHARDED_RUN steps at SGD_LR on [16, 1025]
-    windows with finite, falling losses and exactly 4·L·n gather and
-    4·L·n reduce-scatter launches a step (4·L calls of each: the forward's
-    two, and each one's backward through the other; n = 4 launches a
-    call; the remat keeps their outputs, so none runs again) and the flash
+    windows with finite, falling losses and exactly 4·L gather and 4·L
+    reduce-scatter launches a step (4·L calls of each: the forward's two,
+    and each one's backward through the other; one launch a call; the
+    remat keeps their outputs, so none runs again) and the flash
     forward 2·L times a step (the remat recomputes it), then the dense
     sharded step's time beside it and one profiled step."""
     import torch
@@ -2360,8 +2453,8 @@ def sharded_phase(gen, data_path: str) -> dict:
     steps = SHARDED_RUN["steps"]
     run = train_loop("DP×TP fused collective", step, params,
                      windows[1:], counters)
-    want = {"all_gather_matmul": 4 * L * n * steps,
-            "matmul_reduce_scatter": 4 * L * n * steps,
+    want = {"all_gather_matmul": 4 * L * steps,
+            "matmul_reduce_scatter": 4 * L * steps,
             **flash_want(L * steps)}
     if run["launches"] != want:
         fail(f"DP×TP fused collective: launches {run['launches']}, "
@@ -2381,7 +2474,7 @@ def sharded_phase(gen, data_path: str) -> dict:
             f", peak memory (max_memory_allocated) {r['peak_gb']:.2f} GB "
             f"(informational)")
     log(f"[train] DP×TP fused collective: launches over {steps} steps "
-        f"{run['launches']} (exact: 4·L·n per matmul kernel, 2·L flash "
+        f"{run['launches']} (exact: 4·L per matmul kernel, 2·L flash "
         f"forwards and L of each flash backward kernel a step)")
     state = {"p": run["params"]}
 
@@ -6077,9 +6170,10 @@ def same_bytes(label: str, got, want) -> None:
 
 
 def call_ms(fn) -> float:
-    """One call's time by CUDA events, median of PROCESS_TIMED (each
-    process ring call synchronizes its stream and meets its group, so
-    the events span the barriers too)."""
+    """One call's time by CUDA events, median of PROCESS_TIMED (a
+    process ring call neither synchronizes its stream nor meets its
+    group: its kernel waits for the neighbours' kernels on flags, so the
+    events span that wait)."""
     import torch
     times = []
     for _ in range(PROCESS_TIMED):
@@ -6141,10 +6235,10 @@ def process_kernels(ring) -> dict:
         _, vdx, vdw = vjp(cm.AllGatherMatmul.apply, (x, w.contiguous()), cot)
         xr, wr = x[0, r].contiguous(), w[0, r].contiguous()
         tag = f"all_gather_matmul {label}, n {n}, rank {r}"
-        y, a = counted({"all_gather_matmul": n},
+        y, a = counted({"all_gather_matmul": 1},
                        lambda: ring.all_gather_matmul(xr, wr))
         yf, dx, dw = counted(
-            {"all_gather_matmul": n, "matmul_reduce_scatter": n},
+            {"all_gather_matmul": 1, "matmul_reduce_scatter": 1},
             lambda: vjp(lambda u, v: cm.ProcessAllGatherMatmul.apply(
                 ring, u, v), (xr, wr), cot[0, r]))
         for name, got, want in (("y", y, vy[0, r]), ("a", a, va[0, r]),
@@ -6165,10 +6259,10 @@ def process_kernels(ring) -> dict:
     _, vdx, vdw = vjp(cm.MatmulReduceScatter.apply, (x, w.contiguous()), cot)
     xr, wr = x[0, r].contiguous(), w[0, r].contiguous()
     tag = f"matmul_reduce_scatter {label}, n {n}, rank {r}"
-    y = counted({"matmul_reduce_scatter": n},
+    y = counted({"matmul_reduce_scatter": 1},
                 lambda: ring.matmul_reduce_scatter(xr, wr))
     yf, dx, dw = counted(
-        {"matmul_reduce_scatter": n, "all_gather_matmul": n},
+        {"matmul_reduce_scatter": 1, "all_gather_matmul": 1},
         lambda: vjp(lambda u, v: cm.ProcessMatmulReduceScatter.apply(
             ring, u, v), (xr, wr), cot[0, r]))
     for name, got, want in (("y", y, vy[0, r]), ("VJP y", yf, vy[0, r]),
@@ -6202,8 +6296,47 @@ def process_kernels(ring) -> dict:
                    ring.ring_shift_ref(mine, reverse))
         out["ms"][f"ring_shift {way}"] = call_ms(
             lambda: ring.ring_shift(mine, reverse))
+    out["back_to_back"] = process_back_to_back(ring, gen)
     out["launches"] = total
+    gc.collect()
+    torch.cuda.empty_cache()          # the card is shared by the processes
     return out
+
+
+def process_back_to_back(ring, gen) -> float:
+    """26a's last check: PROCESS_BACK_TO_BACK gathers (m even and odd in
+    turn) and as many reduce-scatters through ``ring``, enqueued with no
+    host synchronize and no group barrier between them, each on global
+    inputs of its own (drawn alike by every process); then every output
+    byte-equal to this rank's slice of the virtual ring's kernels on the
+    same inputs.  Returns the seconds the calls took to enqueue."""
+    import torch
+
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    n, r = ring.n, ring.rank
+    m, k, n_out = 512, 1024, 768
+    calls = []
+    t0 = time.perf_counter()
+    for i in range(PROCESS_BACK_TO_BACK):
+        x, w = ring_inputs(gen, 1, n, m - i % 2, k, n_out)
+        calls.append((x, w, ring.all_gather_matmul(x[0, r].contiguous(),
+                                                   w[0, r].contiguous())))
+        xr, wr = ring_inputs(gen, 1, n, n * m, k, n_out)
+        calls.append((xr, wr, ring.matmul_reduce_scatter(
+            xr[0, r].contiguous(), wr[0, r].contiguous())))
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for i, (x, w, got) in enumerate(calls):
+        tag = f"back to back call {i // 2}, n {n}, rank {r}"
+        if isinstance(got, tuple):
+            vy, va = cm.all_gather_matmul(x, w)
+            same_bytes(f"all_gather_matmul {tag}: y", got[0], vy[0, r])
+            same_bytes(f"all_gather_matmul {tag}: a", got[1], va[0, r])
+        else:
+            same_bytes(f"matmul_reduce_scatter {tag}: y", got,
+                       cm.matmul_reduce_scatter(x, w)[0, r])
+    del calls
+    return enqueued
 
 
 def process_step(tmp: Path, mesh) -> dict:
@@ -6452,8 +6585,8 @@ def process_tp(tmp: Path, mesh) -> dict:
             run = train_loop(f"27b DP×TP fused collective across processes, "
                              f"rank {r}", step, local, wins[1:], counters)
         L = cfg.n_layers
-        want_n = {"all_gather_matmul": 4 * L * n * PROCESS_STEPS,
-                  "matmul_reduce_scatter": 4 * L * n * PROCESS_STEPS,
+        want_n = {"all_gather_matmul": 4 * L * PROCESS_STEPS,
+                  "matmul_reduce_scatter": 4 * L * PROCESS_STEPS,
                   **flash_want(L * PROCESS_STEPS)}
         if run["launches"] != want_n:
             fail(f"27b rank {r}: launches {run['launches']}, expected "
@@ -6620,8 +6753,8 @@ def optax_lockstep(tmp: Path, mesh) -> dict:
                  f"to the replicated run")
     launches = read_counts(counters)
     steps = 2 * len(wins)                    # 28a's and 28b's
-    want = {"all_gather_matmul": 4 * L * n * steps,
-            "matmul_reduce_scatter": 4 * L * n * steps,
+    want = {"all_gather_matmul": 4 * L * steps,
+            "matmul_reduce_scatter": 4 * L * steps,
             **flash_want(L * steps)}
     if launches != want:
         fail(f"28a-b rank {r}: launches {launches}, expected {want}")
@@ -6783,52 +6916,74 @@ def process_rank(tmp: str) -> int:
     torch.cuda.set_device(0)
     rank = dist.get_rank()
     pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+
+    def release(done: str):
+        """Give back this process's cached blocks between phases (the
+        card is shared by the group's processes and the parent), and
+        log what this process still holds (informational)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        print(f"[mp26] rank {rank}: after {done}: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the "
+              f"card's free memory {free / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
     kernels = {}
     for n, ring in ((4, ProcessRing()), (2, ProcessRing(pairs[rank // 2]))):
         kernels[n] = process_kernels(ring)
         ring.close()
+    release("26a")
     t1 = time.perf_counter()
     mesh = ProcessMesh({"dp": 1, "sp": PROCESSES})
     step = process_step(Path(tmp), mesh)
     mesh.close()
+    release("26b")
     t2 = time.perf_counter()
     mesh = ProcessMesh({"dp": 1, "tp": PROCESSES})
     tp = process_tp(Path(tmp), mesh)
     mesh.close()
+    release("27")
     t3 = time.perf_counter()
     mesh = ProcessMesh(OPTAX_AXES)
     optax = optax_lockstep(Path(tmp), mesh)
     t4 = time.perf_counter()
     optax["fit"] = fit_resume_check(Path(tmp), mesh)
     mesh.close()
+    release("28")
     t5 = time.perf_counter()
     mesh = ProcessMesh(ATTN_AXES)
     attn = process_attention(Path(tmp), mesh)
     mesh.close()
+    release("29a-b")
     t6 = time.perf_counter()
     mesh = ProcessMesh(PIPE_AXES)
     pipe = process_pipe(Path(tmp), mesh)
     mesh.close()
+    release("29c")
     t7 = time.perf_counter()
     moe, stamps = {}, [t7]
     mesh = ProcessMesh(EP_AXES)
     moe["a"] = process_moe(Path(tmp), mesh)
     mesh.close()
+    release("30a")
     stamps.append(time.perf_counter())
     mesh = ProcessMesh(EP_OPTAX_AXES)
     moe["b"] = process_moe_optax(Path(tmp), mesh)
     stamps.append(time.perf_counter())
     moe["c"] = moe_fit_check(Path(tmp), mesh)
     mesh.close()
+    release("30b-c")
     stamps.append(time.perf_counter())
     mesh = ProcessMesh(LORA_AXES)
     moe["d"] = process_lora(Path(tmp), mesh)
     mesh.close()
+    release("30d")
     stamps.append(time.perf_counter())
     mesh = ProcessMesh(SERVE_AXES)
     moe["e"] = process_serving(mesh)
     mesh.close()
+    release("30e")
     stamps.append(time.perf_counter())
     (Path(tmp) / f"rank{rank}.json").write_text(json.dumps({
         "kernels": kernels, "step": step, "tp": tp, "optax": optax,
@@ -6882,6 +7037,8 @@ def process_phase(card: str) -> dict:
     (``launcher.run_local_group``: each rank resolves its triple and
     joins a gloo group); a rank that fails fails the phase.  Returns each
     rank's launches, summed, 26's, 27b's, 28's, 29's and 30's apart."""
+    import torch
+
     from tpu_dra_torch.workloads.launcher import run_local_group
     with tempfile.TemporaryDirectory(prefix="chip_smoke-26-") as tmp:
         t0 = time.perf_counter()
@@ -6896,10 +7053,28 @@ def process_phase(card: str) -> dict:
         t30 = time.perf_counter()
         virtual_moe(Path(tmp))
         t30 = time.perf_counter() - t30
+        # the group's processes share the card with this one: give back
+        # what the virtual yardsticks left cached
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().replace("\n", "; ")
+        log(f"[mp26] the card before the group: {free / 1e9:.2f} of "
+            f"{total / 1e9:.2f} GB free; this process "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; "
+            f"processes on the card: {apps or 'none listed'}")
         t2 = time.perf_counter()
+        # expandable segments: 30a's ranks, each at about 16 GB by its
+        # first-step check, ran out of memory with 0.6 GB free on the card
+        # and 1.0 GB fragmented in each rank's cache (H100 80GB HBM3)
         outs = run_local_group([sys.executable, "-c", PROCESS_CHILD, tmp],
                                PROCESSES, timeout=PROCESS_WAIT, cwd=str(HERE),
-                               env=child_env())
+                               env=child_env(PYTORCH_CUDA_ALLOC_CONF=(
+                                   "expandable_segments:True")))
         t3 = time.perf_counter()
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(PROCESSES)]
@@ -6919,10 +7094,19 @@ def process_phase(card: str) -> dict:
             log(f"[mp26] 26a rank {r}, n {n}: byte-equal to the virtual "
                 f"ring's rank {r % int(n)} and within the group plain "
                 f"versions (max abs err {k['err']}); launches "
-                f"{k['launches']} (exact); per call by CUDA events "
-                f"(barriers included; informational): "
-                + ", ".join(f"{name} {ms:.3f} ms"
-                            for name, ms in k["ms"].items())
+                f"{k['launches']} (exact, one a call); "
+                f"{PROCESS_BACK_TO_BACK} gathers and {PROCESS_BACK_TO_BACK} "
+                f"reduce-scatters back to back (enqueued in "
+                f"{k['back_to_back']:.2f} s, no host synchronize or group "
+                f"barrier) byte-equal to the virtual ring's; per call by "
+                f"CUDA events (one launch, no host barrier; "
+                f"informational): "
+                + ", ".join(f"{name} {ms:.3f} ms" + (
+                    f" (one launch and a barrier a ring step, the earlier "
+                    f"design: "
+                    f"{PROCESS_STEPS_MS[name]} ms at n 4)"
+                    if name in PROCESS_STEPS_MS and n == "4" else "")
+                    for name, ms in k["ms"].items())
                 + f"; on {card}")
             add_counts(total, k["launches"])
         st = res["step"]

@@ -34,11 +34,22 @@ first, "profiler first" runs a short profiler session on the main
 thread before the server starts; each child's end and kernel counts are
 printed.
 
+Every probe also logs the two leads' readings: the offset of CUPTI's
+clock (``cuptiGetTimestamp``, the clock of kineto's GPU records) from the
+host's system and monotonic clocks (kineto's capture window is on the
+system clock: a drift of the offset over the process's life would move
+the kernels out of the window), and, at the first empty session and in
+FLUSHED_PAIRS more quiet pairs, sessions whose CUPTI buffers are flushed
+with ``cuptiActivityFlushAll(CUPTI_ACTIVITY_FLAG_FLUSH_FORCED)`` before
+the profiler stops (records left in a buffer CUPTI has not handed over
+would then arrive).
+
 Run on a machine with one NVIDIA GPU, from the root of the repository;
 KINETO_LOG_LEVEL=1 in the environment makes kineto print each session's
 record counts.  It exits 0 after the sessions, whatever they held.
 """
 import contextlib
+import ctypes
 import json
 import os
 import sys
@@ -68,6 +79,44 @@ SERVER_RUNS = 3
 # the quiet pairs after phases 1-20c: the kernel at a session's start,
 # then halfway through
 QUIET_PAIRS = 8
+# then pairs whose CUPTI buffers are flushed (forced) before the stop
+FLUSHED_PAIRS = 4
+CUPTI = {}
+
+
+def cupti():
+    """The libcupti this process loaded (kineto's), or None."""
+    if "lib" not in CUPTI:
+        CUPTI["lib"] = None
+        try:
+            with open("/proc/self/maps") as f:
+                paths = sorted({ln.split()[-1] for ln in f
+                                if "libcupti" in ln})
+            for path in paths:
+                lib = ctypes.CDLL(path)
+                lib.cuptiGetTimestamp.argtypes = [
+                    ctypes.POINTER(ctypes.c_uint64)]
+                lib.cuptiActivityFlushAll.argtypes = [ctypes.c_uint32]
+                CUPTI["lib"] = lib
+                CUPTI["path"] = path
+                break
+        except (OSError, AttributeError) as exc:
+            cs.log(f"[probe] libcupti not reachable: {exc}")
+    return CUPTI["lib"]
+
+
+def clock_offsets():
+    """(CUPTI's timestamp minus the host's system clock, minus its
+    monotonic clock), in ms, or NaNs without libcupti."""
+    lib = cupti()
+    if lib is None:
+        return float("nan"), float("nan")
+    ts = ctypes.c_uint64()
+    t0, m0 = time.time_ns(), time.monotonic_ns()
+    lib.cuptiGetTimestamp(ctypes.byref(ts))
+    t1, m1 = time.time_ns(), time.monotonic_ns()
+    return ((ts.value - (t0 + t1) / 2) / 1e6,
+            (ts.value - (m0 + m1) / 2) / 1e6)
 # chip_smoke.py's phase functions (and sub-phases) of phases 1-20c
 PHASES = ("check_kernel", "time_kernel", "serve_phase", "check_flash",
           "time_flash", "check_matmul", "time_matmul", "bench_phase",
@@ -80,12 +129,13 @@ PHASES = ("check_kernel", "time_kernel", "serve_phase", "check_flash",
           "pool_spec_check")
 
 
-def probe(tag, cuda_only=False, seconds=1.0, middle=False):
+def probe(tag, cuda_only=False, seconds=1.0, middle=False, flush=False):
     """A torch.profiler session of ``seconds`` (CPU and CUDA activity, or
     CUDA alone) that launches one kernel of its own at its start (or
-    halfway through, ``middle``); logs and returns the CUDA kernel events
-    it holds.  The first session that holds none is followed by
-    :func:`resets`."""
+    halfway through, ``middle``); ``flush``: CUPTI's buffers flushed,
+    forced, before the profiler stops.  Logs and returns the CUDA kernel
+    events it holds, with CUPTI's clock offsets.  The first session that
+    holds none is followed by :func:`resets`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -98,11 +148,17 @@ def probe(tag, cuda_only=False, seconds=1.0, middle=False):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         time.sleep(seconds / 2 if middle else seconds)
+        if flush and cupti() is not None:
+            cupti().cuptiActivityFlushAll(1)
     events = prof.events()
     kernels = sum(e.device_type == DeviceType.CUDA for e in events)
-    PROBES.append((tag, kernels))
+    wall, mono = clock_offsets()
+    PROBES.append((tag, kernels, round(wall, 3), round(mono, 3)))
     cs.log(f"[probe] after {tag}: {kernels} kernel events of "
-           f"{len(events)} in a {seconds:g} s session")
+           f"{len(events)} in a {seconds:g} s session"
+           f"{' (CUPTI flushed, forced)' if flush else ''}; CUPTI clock "
+           f"minus the system clock {wall:.3f} ms, minus the monotonic "
+           f"clock {mono:.3f} ms")
     if not kernels and not RESETS:
         RESETS.append(tag)
         resets()
@@ -126,6 +182,10 @@ def resets():
     probe("gc.collect, synchronize and empty_cache")
     probe("nothing more, a 5 s session", seconds=5.0)
     probe("the 5 s session")
+    probe("CUPTI flushed before the stop", flush=True)
+    probe("CUPTI flushed before the stop, the kernel halfway", flush=True,
+          middle=True)
+    cs.log(f"[probe] libcupti: {CUPTI.get('path')}")
 
 
 RESETS = []
@@ -278,9 +338,12 @@ def count_trace(path):
     return len(ev), len(k), sum(any(p in n for p in cs.PAGED_KERNEL) for n in k)
 
 
-def diag(cfg, card):
-    """In place of 20d: the quiet pairs, the eight sessions, then exit
-    0."""
+def diag(cfg, card, server=None):
+    """In place of 20d (``trace_check(cfg, card, server)``; the server
+    process it would trace is left to ``pool_phase``): the quiet pairs,
+    the flushed pairs, the eight sessions, then exit 0."""
+    if server is not None:
+        cs.stop_server("20d's server (not traced here)", server)
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tpu_dra_torch.workloads.serve import serve
@@ -292,6 +355,16 @@ def diag(cfg, card):
     cs.log(f"[diag] quiet pairs (kernel at the start, halfway): {pairs}; "
            f"short of their 2 kernels {sum(a < 2 for a, _ in pairs)} and "
            f"{sum(b < 2 for _, b in pairs)} of {len(pairs)}")
+    flushed = []
+    for i in range(FLUSHED_PAIRS):
+        flushed.append((probe(f"flushed pair {i + 1}, the kernel at the "
+                              f"start", flush=True),
+                        probe(f"flushed pair {i + 1}, the kernel halfway",
+                              middle=True, flush=True)))
+    cs.log(f"[diag] flushed pairs (CUPTI flushed, forced, before each "
+           f"stop): {flushed}; short of their 2 kernels "
+           f"{sum(a < 2 for a, _ in flushed)} and "
+           f"{sum(b < 2 for _, b in flushed)} of {len(flushed)}")
     params = STORE["models"][1]
     prompts = cs.request_prompts(cfg.vocab)
     srv = serve(cfg, params, port=0, **cs.ENGINE)

@@ -753,7 +753,7 @@ def test_all_gather_matmul_kernel_matches_plain(case):
     before = cm.all_gather_matmul.launches
     y, a = cm.all_gather_matmul(x, w)
     torch.cuda.synchronize()
-    assert cm.all_gather_matmul.launches == before + n
+    assert cm.all_gather_matmul.launches == before + 1
     want_y, want_a = cm.all_gather_matmul_ref(x, w)
     assert torch.equal(a, want_a)
     _ring_close(y, want_y)
@@ -762,7 +762,8 @@ def test_all_gather_matmul_kernel_matches_plain(case):
 @pytest.mark.parametrize("n,m", [(3, 64), (4, 130), (8, 32)])
 def test_bidirectional_and_unidirectional_rings_agree_bit_for_bit(n, m):
     """The same even-m inputs through both schedules (the C entry takes
-    the direction as a flag): every row's product is the same sum."""
+    the direction as a flag), one launch each on zeroed flag words: every
+    row's product is the same sum."""
     from tpu_dra_torch.kernels.build import library
     dev = card()
     gen = torch.Generator(device=dev)
@@ -770,15 +771,16 @@ def test_bidirectional_and_unidirectional_rings_agree_bit_for_bit(n, m):
     x, w = _ring_operands(gen, 1, n, m, 64, 96)
     lib = library("ring")
     stream = torch.cuda.current_stream().cuda_stream
+    flags = torch.zeros(n * lib.tpu_dra_ring_flag_words(n), dtype=torch.int32,
+                        device=dev)
     outs = []
-    for bidir in (1, 0):
+    for epoch, bidir in enumerate((1, 0), 1):
         y = torch.empty((1, n, n * m, 96), dtype=torch.bfloat16, device=dev)
         a = torch.empty((1, n, n, m, 64), dtype=torch.bfloat16, device=dev)
-        for step in range(n):
-            assert lib.tpu_dra_ring_ag_matmul(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(), 1, n,
-                m, 64, 96, m * 64, n * m * 64, w.stride(1), 0, step, bidir,
-                stream) == 0
+        assert lib.tpu_dra_ring_ag_matmul(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(),
+            flags.data_ptr(), 1, n, m, 64, 96, m * 64, n * m * 64,
+            w.stride(1), 0, bidir, epoch, stream) == 0
         outs.append((y, a))
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0])
@@ -796,7 +798,7 @@ def test_matmul_reduce_scatter_kernel_matches_plain(case):
     before = cm.matmul_reduce_scatter.launches
     y = cm.matmul_reduce_scatter(x, w)
     torch.cuda.synchronize()
-    assert cm.matmul_reduce_scatter.launches == before + n
+    assert cm.matmul_reduce_scatter.launches == before + 1
     _ring_close(y, cm.matmul_reduce_scatter_ref(x, w))
 
 
@@ -804,7 +806,8 @@ def test_matmul_reduce_scatter_kernel_matches_plain(case):
 def test_ring_matmul_kernels_at_one_rank(m, K, N):
     """The C entries at n 1 (the wrappers take the plain product there
     and launch nothing): the gather's one step is x·w with a = x, the
-    reduce-scatter's one step rounds x·w into y."""
+    reduce-scatter's one step rounds x·w into y (its comm one unused
+    slot); nothing waits on the flags."""
     from tpu_dra_torch.kernels.build import library
     from tpu_dra_torch.workloads import collective_matmul as cm
     dev = card()
@@ -815,20 +818,123 @@ def test_ring_matmul_kernels_at_one_rank(m, K, N):
     stream = torch.cuda.current_stream().cuda_stream
     y = torch.empty((1, 1, m, N), dtype=torch.bfloat16, device=dev)
     a = torch.empty((1, 1, 1, m, K), dtype=torch.bfloat16, device=dev)
+    flags = torch.zeros(lib.tpu_dra_ring_flag_words(1), dtype=torch.int32,
+                        device=dev)
     assert lib.tpu_dra_ring_ag_matmul(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(), 1, 1, m, K,
-        N, m * K, m * K, K * N, 0, 0, 0, stream) == 0
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(),
+        flags.data_ptr(), 1, 1, m, K, N, m * K, m * K, K * N, 0, 0, 1,
+        stream) == 0
     torch.cuda.synchronize()
     want_y, want_a = cm.all_gather_matmul_ref(x, w)
     assert torch.equal(a, want_a)
     _ring_close(y, want_y)
-    comm = torch.empty((1, 1, 2, m, N), dtype=torch.float32, device=dev)
+    comm = torch.empty((1, 1, 1, m, N), dtype=torch.float32, device=dev)
     y2 = torch.empty_like(y)
     assert lib.tpu_dra_ring_matmul_rs(
-        x.data_ptr(), w.data_ptr(), comm.data_ptr(), y2.data_ptr(), 1, 1, m,
-        K, N, m * K, m * K, K * N, 0, 0, stream) == 0
+        x.data_ptr(), w.data_ptr(), comm.data_ptr(), y2.data_ptr(),
+        flags.data_ptr(), 1, 1, m, K, N, m * K, m * K, K * N, 0, 2,
+        stream) == 0
     torch.cuda.synchronize()
     _ring_close(y2, cm.matmul_reduce_scatter_ref(x, w))
+
+
+def test_ring_calls_back_to_back_each_match_plain():
+    """30 gathers and 30 reduce-scatters on the virtual ring, enqueued
+    with no host synchronize between them, each on fresh inputs and on
+    the ring's one flag buffer (a call's epoch its own): every output is
+    held to its plain version afterwards, so a flag or a slot that a call
+    took from the one before it shows."""
+    from tpu_dra_torch.workloads import collective_matmul as cm
+    dev = card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    G, n, m, K, N = 2, 4, 130, 136, 264
+    runs = []
+    for i in range(30):
+        x, w = _ring_operands(gen, G, n, m - (i % 2), K, N, shared_w=True)
+        runs.append((x, w, cm.all_gather_matmul(x, w)))
+        xr, wr = _ring_operands(gen, G, n, n * m, K, N, shared_w=True)
+        runs.append((xr, wr, cm.matmul_reduce_scatter(xr, wr)))
+    torch.cuda.synchronize()
+    for x, w, got in runs:
+        if isinstance(got, tuple):
+            want_y, want_a = cm.all_gather_matmul_ref(x, w)
+            assert torch.equal(got[1], want_a)
+            _ring_close(got[0], want_y)
+        else:
+            _ring_close(got, cm.matmul_reduce_scatter_ref(x, w))
+
+
+SPIN_CHILD = """
+import os, sys, time
+import torch
+import torch.distributed as dist
+from tpu_dra_torch.workloads import collective_matmul as cm
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + sys.argv[2],
+                        world_size=2, rank=rank)
+torch.cuda.set_device(0)
+cm.SPIN_TIMEOUT_S = 2.0
+ring = cm.ProcessRing()
+x = torch.ones((4, 64), dtype=torch.bfloat16, device="cuda")
+w = torch.ones((64, 64), dtype=torch.bfloat16, device="cuda")
+ring._buffers(x.device, 2 * 4 * 64 * 2)     # both grow the buffers together
+if rank == 0:
+    ring.all_gather_matmul(x, w)            # rank 1 never calls
+    t0 = time.monotonic()
+    try:
+        cm.ring_synchronize()
+    except cm.RingTimeout as err:
+        print("RAISED", round(time.monotonic() - t0, 1), err, flush=True)
+    else:
+        print("NO ERROR", flush=True)
+    os._exit(0)
+time.sleep(60)
+os._exit(0)
+"""
+
+
+def test_a_neighbour_that_never_calls_raises_rather_than_hangs(tmp_path):
+    """Two processes on a process ring, the second of which never calls:
+    the first's gather kernel waits for it (at the neighbour barrier, or
+    for the first slot it would forward), runs past the spin bound (2 s
+    here), traps, and ``ring_synchronize`` raises ``RingTimeout`` naming
+    the kernel, the ring, the rank, the step and the call, within
+    seconds.  The processes are children, so the trapped context does not
+    poison this one."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpu_dra_torch.kernels.build import library
+    card()
+    library("ring")                 # built once, before the children load it
+    repo = str(Path(__file__).resolve().parent.parent)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    script = tmp_path / "spin_child.py"
+    script.write_text(SPIN_CHILD)
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=repo, env=env)
+             for r in range(2)]
+    try:
+        out, err = procs[0].communicate(timeout=120)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    line = next((ln for ln in out.splitlines() if ln.startswith(("RAISED",
+                                                                 "NO "))),
+                f"no line: {err[-2000:]}")
+    assert line.startswith("RAISED"), line
+    assert float(line.split()[1]) < 30, line
+    assert "all_gather_matmul: rank 0 of the process ring" in line, line
+    assert "ring step" in line and "(call 2 on the ring)" in line, line
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -1361,8 +1467,7 @@ def test_process_ring_on_the_card_is_the_virtual_ring_byte_for_byte(
     ``launcher.run_local_group``): every rank's gather (odd and even m),
     gathered operand, reduce-scatter, shift both ways and each VJP is
     byte-equal to its rank's slice of the virtual ring's kernels on the
-    same global inputs, with n launches a gather or reduce-scatter call
-    and one a shift, counted per process."""
+    same global inputs, with one launch a call, counted per process."""
     import os
     import sys
     from pathlib import Path
@@ -1410,9 +1515,9 @@ def test_process_ring_on_the_card_is_the_virtual_ring_byte_for_byte(
         for k, v in want.items():
             np.testing.assert_array_equal(got[k], v[0, r].float().cpu().numpy(),
                                           err_msg=k)
-        # 5n gathers (2 calls a case, and the reduce-scatter's VJP), 4n
-        # reduce-scatters, 6 shifts
-        assert got["launches"].tolist() == [5 * n, 4 * n, 6]
+        # 5 gathers (2 calls a case, and the reduce-scatter's VJP), 4
+        # reduce-scatters, 6 shifts: one launch a call
+        assert got["launches"].tolist() == [5, 4, 6]
 
 
 def test_process_dp_tp_step_on_the_card_matches_the_cpu(tmp_path):
@@ -1421,8 +1526,8 @@ def test_process_dp_tp_step_on_the_card_matches_the_cpu(tmp_path):
     attn_impl="flash")`` step at lr 1 on ``ProcessMesh({"dp": 1, "tp":
     2})`` (tests/torch_process_child.py's ``tp`` mode), a 2-layer model
     of head dim 128: the loss within 5e-3 and each leaf's update within
-    3% relative L2 of the same step in two processes on the CPU, with 2
-    launches of each ring kernel a call (4·L calls of each) in every
+    3% relative L2 of the same step in two processes on the CPU, with one
+    launch of each ring kernel a call (4·L calls of each) in every
     process."""
     import json
     import os
@@ -1475,7 +1580,7 @@ def test_process_dp_tp_step_on_the_card_matches_the_cpu(tmp_path):
             rel = np.linalg.norm(gg - gw) / np.linalg.norm(gw)
             assert rel < 3e-2, (leaf, rel)
         assert info["calls"]["fc"] == [4 * L, 4 * L]
-        assert info["launches"]["fc"] == [2 * 4 * L, 2 * 4 * L]
+        assert info["launches"]["fc"] == [4 * L, 4 * L]
 
 
 def test_process_zero1_optax_step_on_the_card_matches_the_cpu(tmp_path):

@@ -87,12 +87,14 @@ def test_the_replay_reads_the_sources_it_models():
             "n0 + bx * 64, kt * kBK, b.c2, b.c3, b.c4);"):
         assert line in HEADER, line
     for line in ("const bool copy = t.n0 == 0;",
+                 "  const int step = w / (ranks * nseg * rt * ct);\n"
+                 "  w %= ranks * nseg * rt * ct;\n"
                  "  const int rank = w / (nseg * rt * ct);\n"
                  "  w %= nseg * rt * ct;\n"
                  "  const int s = w / (rt * ct);\n"
                  "  w %= rt * ct;\n"
-                 "  return {rank / n, rank % n, s, (w / ct * C::kCluster + "
-                 "crank) * kBM,\n          w % ct * C::kBN};",
+                 "  return {step, rank / n, rank % n, s, (w / ct * C::kCluster"
+                 " + crank) * kBM,\n          w % ct * C::kBN};",
                  "      piece + row * kRowBytes + ((((col * 4) >> 4) ^ "
                  "(row & 7)) << 4) +\n      ((col * 4) & 15));"):
         assert line in RING, line
@@ -223,29 +225,33 @@ def test_planted_addressing_fault_fails(fault):
 # the persistent walk
 # --------------------------------------------------------------------------
 
-def item_at(w: int, n: int, nseg: int, rt: int, ct: int, crank: int):
-    """``item_at`` of ring.cu: (g, r, s, m0, n0) of block ``crank`` of the
-    cluster that takes item w (rt groups of CLUSTER row tiles)."""
+def item_at(w: int, ranks: int, n: int, nseg: int, rt: int, ct: int,
+            crank: int):
+    """``item_at`` of ring.cu: (step, g, r, s, m0, n0) of block ``crank``
+    of the cluster that takes item w (rt groups of CLUSTER row tiles), the
+    ring step outermost."""
+    step, w = divmod(w, ranks * nseg * rt * ct)
     rank, w = divmod(w, nseg * rt * ct)
     s, w = divmod(w, rt * ct)
-    return rank // n, rank % n, s, (w // ct * CLUSTER + crank) * BM, \
-        w % ct * BN
+    return step, rank // n, rank % n, s, \
+        (w // ct * CLUSTER + crank) * BM, w % ct * BN
 
 
 def walk(G: int, n: int, nseg: int, rows: int, N: int, fault=None):
-    """Every block's tiles, in order, on the persistent grid: one block a
-    SM in clusters of CLUSTER (132 SMs), or one cluster per item where
+    """Every block's tiles, in order, on the persistent grid of one
+    launch over all n ring steps: the clusters that fit on the card at
+    once (132 SMs in clusters of CLUSTER), or one cluster per item where
     there are fewer; every block of a cluster walks the cluster's items."""
     rt = -(-(-(-rows // BM)) // CLUSTER)
     ct = -(-N // BN)
-    items = G * n * nseg * rt * ct
+    items = n * G * n * nseg * rt * ct
     clusters = min(items, SMS // CLUSTER)
     taken = []
     for c in range(clusters):
         w = c
         while w < items:
             if not (fault == "skipped-item" and w == items // 2):
-                taken.extend(item_at(w, n, nseg, rt, ct, crank)
+                taken.extend(item_at(w, G * n, n, nseg, rt, ct, crank)
                              for crank in range(CLUSTER))
             w += clusters
     return taken, rt * CLUSTER, ct
@@ -259,18 +265,19 @@ WALKS = [(1, 4, 2, 2048, 2048, 1536), (1, 4, 1, 4096, 2048, 2048),
 
 def check_walk(G, n, nseg, rows, K, N, fault=None):
     taken, rt, ct = walk(G, n, nseg, rows, N, fault)   # rt: row tiles
-    want = {(g, r, s, i * BM, j * BN) for g in range(G) for r in range(n)
-            for s in range(nseg) for i in range(rt) for j in range(ct)}
+    want = {(t, g, r, s, i * BM, j * BN) for t in range(n) for g in range(G)
+            for r in range(n) for s in range(nseg) for i in range(rt)
+            for j in range(ct)}
     assert len(taken) == len(set(taken)) == len(want)
     assert set(taken) == want
     # the gathered operand: only column tile 0 copies, and its boxes (128
     # rows x 64 columns, bounded to the segment and K) cover each element
-    # of each segment once
-    written = torch.zeros((G, n, nseg, rows, K), dtype=torch.int64)
-    for g, r, s, m0, n0 in taken:
+    # of each segment once a ring step
+    written = torch.zeros((n, G, n, nseg, rows, K), dtype=torch.int64)
+    for t, g, r, s, m0, n0 in taken:
         if n0 == 0:                       # `const bool copy = t.n0 == 0;`
             for k0 in range(0, K, BK):
-                written[g, r, s, m0:m0 + BM, k0:k0 + BK] += 1
+                written[t, g, r, s, m0:m0 + BM, k0:k0 + BK] += 1
     assert bool((written == 1).all())
 
 

@@ -242,6 +242,43 @@ __device__ __forceinline__ void st_release_gpu(int* p, int v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
+// the same at system scope, for flags that a kernel in another process, or
+// on another card, reads or writes through a peer mapping; and the
+// read-modify-write that counts arrivals, at either scope (it returns the
+// old count)
+__device__ __forceinline__ int ld_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(int* p, int v) {
+  asm volatile("st.release.sys.global.b32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int atom_add_acq_rel_gpu(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ int atom_add_acq_rel_sys(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.sys.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// the global nanosecond timer (the same on every SM)
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));

@@ -81,27 +81,36 @@ SIGNATURES = {
         "tpu_dra_cuda_error_string": _ERR,
     },
     "ring": {
+        "tpu_dra_ring_flag_words": (_I, [_I]),        # n
         "tpu_dra_ring_ag_matmul": (
-            _I, [_P, _P, _P, _P,                   # x w y a
+            _I, [_P, _P, _P, _P, _P,               # x w y a flags
                  _I, _I, _I, _I, _I,               # G n m K N
                  _L, _L, _L, _L,                   # x/w rank, group strides
-                 _I, _I, _P]),                     # step bidir stream
+                 _I, _I, _P]),                     # bidir epoch stream
         "tpu_dra_ring_matmul_rs": (
-            _I, [_P, _P, _P, _P,                   # x w comm y
+            _I, [_P, _P, _P, _P, _P,               # x w comm y flags
                  _I, _I, _I, _I, _I,               # G n m K N
                  _L, _L, _L, _L,                   # x/w rank, group strides
-                 _I, _P]),                         # step stream
+                 _I, _P]),                         # epoch stream
         "tpu_dra_ring_shift": (
             _I, [_P, _P, _I, _I, _L, _I,           # x out G n bytes dir
                  _P]),                             # stream
         "tpu_dra_ring_ag_matmul_peer": (
             _I, [_P, _P, _P, _P, _P, _P,           # x w y a a_right a_left
+                 _P, _P, _P,                       # flags, right's, left's
                  _I, _I, _I, _I, _I,               # r n m K N
-                 _I, _I, _P]),                     # step bidir stream
+                 _I, _I, _P]),                     # bidir epoch stream
         "tpu_dra_ring_matmul_rs_peer": (
             _I, [_P, _P, _P, _P, _P,               # x w comm comm_right y
+                 _P, _P, _P,                       # flags, right's, left's
                  _I, _I, _I, _I, _I,               # r n m K N
-                 _I, _P]),                         # step stream
+                 _I, _P]),                         # epoch stream
+        "tpu_dra_ring_shift_peer": (
+            _I, [_P, _P, _L,                       # x out bytes
+                 _P, _P, _P,                       # flags, right's, left's
+                 _I, _I, _I, _I, _P]),             # r n dir epoch stream
+        "tpu_dra_ring_set_timeout": (_I, [ctypes.c_double]),
+        "tpu_dra_ring_fault": (_I, [ctypes.POINTER(ctypes.c_int)]),
         "tpu_dra_ipc_alloc": (_I, [_L, _PP, ctypes.c_char_p]),
         "tpu_dra_ipc_open": (_I, [ctypes.c_char_p, _PP]),
         "tpu_dra_ipc_close": (_I, [_P]),

@@ -165,45 +165,38 @@ VARIANTS = {
         "3 stages (three copy threads)": [
             (_RING_CONFIG, "using RingConfig = Config<256, 3, 2>;"),
             ("constexpr int kCopiers = 2;", "constexpr int kCopiers = 3;")],
-        "plain grid (one cluster per work item)": [
-            ("  cudaError_t err = grid_blocks<C>(items, blocks);",
-             "  *blocks = static_cast<int>(items) * C::kCluster;\n"
-             "  cudaError_t err = cudaSuccess;")],
-        "ranks interleaved in the walk (rank innermost)": [
+        "ranks interleaved in the walk (rank innermost within a step)": [
             ("  const int rank = w / (nseg * rt * ct);\n"
              "  w %= nseg * rt * ct;",
              "  const int rank = w % ranks;\n  w /= ranks;")],
         "one copy thread (not two taking the stages in turn)": [
             ("constexpr int kCopiers = 2;", "constexpr int kCopiers = 1;")],
-        "no copy of the gathered operand (y only; a is left unwritten)": [
-            ("const bool copy = t.n0 == 0;", "const bool copy = false;")],
+        "flags at system scope on the virtual ring too": [
+            ("  return local ? ld_acquire_sys(flag) : ld_acquire_gpu(flag);",
+             "  return ld_acquire_sys(flag);"),
+            ("""  const int old = local ? atom_add_acq_rel_sys(count, 1)
+                        : atom_add_acq_rel_gpu(count, 1);""",
+             "  const int old = atom_add_acq_rel_sys(count, 1);"),
+            ("""    if (local)
+      st_release_sys(flag, epoch);
+    else
+      st_release_gpu(flag, epoch);""", "    st_release_sys(flag, epoch);")],
+        "arrivals without acquire or release (timing only; races)": [
+            ("""  const int old = local ? atom_add_acq_rel_sys(count, 1)
+                        : atom_add_acq_rel_gpu(count, 1);""",
+             "  const int old = atomicAdd(count, 1);"),
+            ("""    if (local)
+      st_release_sys(flag, epoch);
+    else
+      st_release_gpu(flag, epoch);""",
+             "    *reinterpret_cast<volatile int*>(flag) = epoch;")],
         "RS without its fp32 partials' traffic (timing only; y is wrong)": [
             ("          if (t > 0)                         // the partial "
              "from the left", "          if (false)"),
-            ("""            if (t < n - 1)
-              tma_store_5d(&p.out, half, c0, c1, (t + 1) % 2, (u.r + 1) % n,
-                           u.g);
-            else
-              tma_store_5d""", """            if (t == n - 1)
-              tma_store_5d""")],
-        "RS outgoing partial by the consumers' own stores (not TMA)": [
-            ("""              if (t < n - 1)             // the outgoing partial, in place
-                *piece_at(stage + b * C::kABytes, f.row0 + 8 * h,
-                          f.col0 + 8 * j) = v;""", """              if (t < n - 1) {
-                const int row = u.m0 + f.row0 + 8 * h;
-                const int col = u.n0 + f.col0 + 8 * jj;
-                if (row < m && col < N)
-                  *reinterpret_cast<float2*>(
-                      comm + ((static_cast<size_t>(u.g) * n + (u.r + 1) % n)
-                              * 2 + (t + 1) % 2) * m * N +
-                      static_cast<size_t>(row) * N + col) = v;
-              }"""),
-            ("""            if (t < n - 1)
-              tma_store_5d(&p.out, half, c0, c1, (t + 1) % 2, (u.r + 1) % n,
-                           u.g);
-            else
-              tma_store_5d""", """            if (t == n - 1)
-              tma_store_5d""")],
+            ("""            else if (t < n - 1)
+              tma_store_5d(&p.out, half, c0, c1, t, (u.r + 1) % n, u.g);""",
+             """            else if (t < n - 1)
+              ;""")],
     },
     "paged": {
         "as built": [],
@@ -593,9 +586,10 @@ def time_paged(lib: Path, before: bool = False) -> str:
 
 
 def time_ring(lib: Path) -> str:
-    """One line: each ring matmul shape's time for its n = 4 step
-    launches, TF/s, and max abs error of y against the plain version
-    (and whether the gathered operand is byte-equal)."""
+    """One line: each ring matmul shape's time for its one launch over
+    the n = 4 ring steps (each call its own epoch on zeroed flag words),
+    TF/s, and max abs error of y against the plain version (and whether
+    the gathered operand is byte-equal)."""
     import torch
 
     from tpu_dra_torch.workloads import collective_matmul as cm
@@ -605,6 +599,13 @@ def time_ring(lib: Path) -> str:
     stream = torch.cuda.current_stream().cuda_stream
     P = lambda t: t.data_ptr()      # noqa: E731
     n, parts = 4, []
+    flags = torch.zeros(n * cdll.tpu_dra_ring_flag_words(n),
+                        dtype=torch.int32, device="cuda")
+    epoch = [0]
+
+    def next_epoch():
+        epoch[0] += 1
+        return epoch[0]
     for kind, label, m, k, n_out in RING_SHAPES:
         rows = m if kind == "ag" else n * m
         x = torch.randn((1, n, rows, k), generator=gen, device="cuda").to(
@@ -618,10 +619,9 @@ def time_ring(lib: Path) -> str:
                             device="cuda")
 
             def call():
-                for step in range(n):
-                    _checked(cdll.tpu_dra_ring_ag_matmul(
-                        P(x), P(w), P(y), P(a), 1, n, m, k, n_out, m * k,
-                        n * m * k, k * n_out, 0, step, 1, stream))
+                _checked(cdll.tpu_dra_ring_ag_matmul(
+                    P(x), P(w), P(y), P(a), P(flags), 1, n, m, k, n_out,
+                    m * k, n * m * k, k * n_out, 0, 1, next_epoch(), stream))
             call()
             torch.cuda.synchronize()
             want_y, want_a = cm.all_gather_matmul_ref(x, w)
@@ -629,15 +629,14 @@ def time_ring(lib: Path) -> str:
         else:
             y = torch.empty((1, n, m, n_out), dtype=torch.bfloat16,
                             device="cuda")
-            comm = torch.empty((1, n, 2, m, n_out), dtype=torch.float32,
+            comm = torch.empty((1, n, n - 1, m, n_out), dtype=torch.float32,
                                device="cuda")
 
             def call():
-                for step in range(n):
-                    _checked(cdll.tpu_dra_ring_matmul_rs(
-                        P(x), P(w), P(comm), P(y), 1, n, m, k, n_out,
-                        n * m * k, n * n * m * k, k * n_out, 0, step,
-                        stream))
+                _checked(cdll.tpu_dra_ring_matmul_rs(
+                    P(x), P(w), P(comm), P(y), P(flags), 1, n, m, k, n_out,
+                    n * m * k, n * n * m * k, k * n_out, 0, next_epoch(),
+                    stream))
             call()
             torch.cuda.synchronize()
             want_y, extra = cm.matmul_reduce_scatter_ref(x, w), ""

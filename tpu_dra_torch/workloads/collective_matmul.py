@@ -27,11 +27,20 @@ x ``[G, n, n·m, K]`` for the reduce-scatter.
 
 CPU tensors take the plain versions (the mesh collectives of
 ``mesh.py`` plus fp32-accumulated products).  CUDA tensors launch the
-hand-written kernels of ``csrc/ring.cu`` or raise: one launch per ring
-step, so a gather or reduce-scatter over n > 1 ranks adds n to its
-wrapper's ``launches`` and a shift adds one.  At n = 1 the matmuls are the
-plain product (the reference's ``n == 1`` branches, 1144-1146 and
-1221-1223) and the shift the identity: no kernel runs.
+hand-written kernels of ``csrc/ring.cu`` or raise: one launch a call,
+which runs every ring step and synchronizes them inside the kernel on
+flags in global memory (the reference's DMA semaphores), so each call
+over n > 1 ranks adds one to its wrapper's ``launches``.  At n = 1 the
+matmuls are the plain product (the reference's ``n == 1`` branches,
+1144-1146 and 1221-1223) and the shift the identity: no kernel runs.
+
+The flags carry each call's number on its ring (the epoch), so they are
+never reset; the virtual ring keeps one zeroed buffer a (device,
+stream, groups, ranks) (:func:`_virtual_flags`).  A wait in the kernel
+is bounded (:data:`SPIN_TIMEOUT_S`): past the bound the kernel traps,
+and the next ring call, or :func:`ring_synchronize`, raises
+:class:`RingTimeout` naming the ring, the rank and the step.  A call
+cannot be captured into a CUDA graph: a replay would reuse its epoch.
 
 Across processes (:class:`ProcessRing`, one rank a process of a
 ``torch.distributed`` group, as the reference's kernels run one rank a
@@ -66,6 +75,79 @@ from tpu_dra_torch.workloads.train import dot_f32
 # gathered operand and the shift are copies and must be byte-equal.
 ELEM_TOL = matmul.ELEM_TOL
 ROW_TOL = matmul.ROW_TOL
+
+# The bound of a ring kernel's waits on its flags, in seconds, read at
+# every launch: a neighbour that never comes faults the kernel instead
+# of hanging the card
+SPIN_TIMEOUT_S = 30.0
+
+_KERNELS = {1: "all_gather_matmul", 2: "matmul_reduce_scatter",
+            3: "ring_shift"}
+_WAITS = {0: "the neighbour barrier (its neighbour's start of the call)",
+          1: "a gathered slot", 2: "a partial sum",
+          3: "the block shifted into it"}
+
+
+class RingTimeout(RuntimeError):
+    """A ring kernel waited past :data:`SPIN_TIMEOUT_S` for a flag."""
+
+
+def ring_fault() -> str | None:
+    """What the fault record of ``csrc/ring.cu`` says, or None: the
+    kernel, ring, rank and step of a wait that ran past the bound."""
+    rec = (ctypes.c_int * 8)()
+    if library("ring").tpu_dra_ring_fault(rec) != 1:
+        return None
+    _, kernel, g, r, step, epoch, what, local = rec
+    ring = "the process ring" if local else f"group {g} of the virtual ring"
+    return (f"{_KERNELS.get(kernel, kernel)}: rank {r} of {ring} waited "
+            f"past the spin bound ({SPIN_TIMEOUT_S} s) for "
+            f"{_WAITS.get(what, what)} at ring step {step} (call {epoch} "
+            f"on the ring)")
+
+
+def ring_synchronize(device=None) -> None:
+    """Synchronize the current stream of ``device``; where a ring kernel
+    faulted on its spin bound, raise :class:`RingTimeout` naming its ring,
+    rank and step instead of the bare CUDA error."""
+    try:
+        torch.cuda.current_stream(device).synchronize()
+    except RuntimeError as err:
+        msg = ring_fault()
+        if msg is None:
+            raise
+        raise RingTimeout(msg) from err
+
+
+def _ring_library(what: str):
+    """The ring library, once no earlier ring kernel has faulted and the
+    spin bound is set; refuses a CUDA graph capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} cannot be captured in a CUDA graph: "
+                           f"each call carries its own epoch")
+    lib = library("ring")
+    msg = ring_fault()
+    if msg is not None:
+        raise RingTimeout(msg)
+    check_launch(lib, lib.tpu_dra_ring_set_timeout(SPIN_TIMEOUT_S), what)
+    return lib
+
+
+# (device index, stream, groups, ranks) → [flag words, the last epoch]
+_FLAGS: dict = {}
+
+
+def _virtual_flags(lib, device, stream: int, G: int, n: int) -> tuple:
+    """The virtual ring's zeroed flag words ``[G, n, words]`` for calls on
+    ``stream`` and the next call's epoch (the calls numbered from 1)."""
+    key = (device.index, stream, G, n)
+    rec = _FLAGS.get(key)
+    if rec is None:
+        words = lib.tpu_dra_ring_flag_words(n)
+        rec = _FLAGS[key] = [torch.zeros(G * n * words, dtype=torch.int32,
+                                         device=device), 0]
+    rec[1] += 1
+    return rec[0].data_ptr(), rec[1]
 
 
 def _ring_dims(x, w, what: str):
@@ -149,8 +231,8 @@ def all_gather_matmul(x, w):
 
     CPU tensors take :func:`all_gather_matmul_ref`.  CUDA tensors launch
     the all-gather-matmul kernel of ``csrc/ring.cu`` (row #9 of the kernel
-    table) once per ring step, bidirectional where m is even and n > 2 as
-    the reference chooses, or raise; each launch adds one to
+    table) once for all n ring steps, bidirectional where m is even and
+    n > 2 as the reference chooses, or raise; each launch adds one to
     ``all_gather_matmul.launches``."""
     G, n, m, K, N = _ring_dims(x, w, "all_gather_matmul")
     if x.device.type == "cpu":
@@ -159,17 +241,17 @@ def all_gather_matmul(x, w):
     if n == 1:
         return _plain_rank_product(x, w), x[:, :, None]
     w_rs, w_gs = _check_matmul_args(x, w, K, N, "all_gather_matmul")
-    lib = library("ring")
+    lib = _ring_library("all_gather_matmul")
     y = torch.empty((G, n, n * m, N), dtype=x.dtype, device=x.device)
     a = torch.empty((G, n, n, m, K), dtype=x.dtype, device=x.device)
     bidir = int(m % 2 == 0 and n > 2)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    for step in range(n):
-        rc = lib.tpu_dra_ring_ag_matmul(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(), G, n, m,
-            K, N, m * K, n * m * K, w_rs, w_gs, step, bidir, stream)
-        check_launch(lib, rc, "all_gather_matmul")
-        all_gather_matmul.launches += 1
+    flags, epoch = _virtual_flags(lib, x.device, stream, G, n)
+    rc = lib.tpu_dra_ring_ag_matmul(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), a.data_ptr(), flags, G, n,
+        m, K, N, m * K, n * m * K, w_rs, w_gs, bidir, epoch, stream)
+    check_launch(lib, rc, "all_gather_matmul")
+    all_gather_matmul.launches += 1
     return y, a
 
 
@@ -183,9 +265,9 @@ def matmul_reduce_scatter(x, w):
 
     CPU tensors take :func:`matmul_reduce_scatter_ref`.  CUDA tensors
     launch the matmul-reduce-scatter kernel of ``csrc/ring.cu`` (row #10)
-    once per ring step, its fp32 partial chunks passed rank to rank
-    through a double-buffered scratch, or raise; each launch adds one to
-    ``matmul_reduce_scatter.launches``."""
+    once for all n ring steps, its fp32 partial chunks passed rank to rank
+    through a scratch of n − 1 slots a rank (one a step, none reused), or
+    raise; each launch adds one to ``matmul_reduce_scatter.launches``."""
     G, n, mk, K, N = _ring_dims(x, w, "matmul_reduce_scatter")
     if mk % n:
         raise ValueError(f"matmul_reduce_scatter: rows {mk} do not split "
@@ -197,17 +279,17 @@ def matmul_reduce_scatter(x, w):
         return _plain_rank_product(x, w)
     m = mk // n
     w_rs, w_gs = _check_matmul_args(x, w, K, N, "matmul_reduce_scatter")
-    lib = library("ring")
+    lib = _ring_library("matmul_reduce_scatter")
     y = torch.empty((G, n, m, N), dtype=x.dtype, device=x.device)
-    comm = torch.empty((G, n, 2, m, N), dtype=torch.float32,
+    comm = torch.empty((G, n, n - 1, m, N), dtype=torch.float32,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    for step in range(n):
-        rc = lib.tpu_dra_ring_matmul_rs(
-            x.data_ptr(), w.data_ptr(), comm.data_ptr(), y.data_ptr(), G, n,
-            m, K, N, mk * K, n * mk * K, w_rs, w_gs, step, stream)
-        check_launch(lib, rc, "matmul_reduce_scatter")
-        matmul_reduce_scatter.launches += 1
+    flags, epoch = _virtual_flags(lib, x.device, stream, G, n)
+    rc = lib.tpu_dra_ring_matmul_rs(
+        x.data_ptr(), w.data_ptr(), comm.data_ptr(), y.data_ptr(), flags, G,
+        n, m, K, N, mk * K, n * mk * K, w_rs, w_gs, epoch, stream)
+    check_launch(lib, rc, "matmul_reduce_scatter")
+    matmul_reduce_scatter.launches += 1
     return y
 
 
@@ -235,7 +317,7 @@ def ring_shift(x, reverse: bool = False):
     per_rank = x[0, 0].numel() * x.element_size()
     if per_rank == 0:
         return out
-    lib = library("ring")
+    lib = _ring_library("ring_shift")
     rc = lib.tpu_dra_ring_shift(
         x.data_ptr(), out.data_ptr(), G, n, per_rank, -1 if reverse else 1,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -359,27 +441,29 @@ class ProcessRing:
     the reduce-scatter's fp32 partial chunks passed rank to rank and
     added in the kernel's ring order, the shift by a send and a receive.
     CUDA tensors launch the kernels of ``csrc/ring.cu`` for this rank
-    alone (the ``_peer`` C entries) or raise, one launch a ring step,
-    each counted on the module's wrapper (``all_gather_matmul.launches``
-    and the others) as on the virtual ring.
+    alone (the ``_peer`` C entries) or raise, one launch a call, each
+    counted on the module's wrapper (``all_gather_matmul.launches`` and
+    the others) as on the virtual ring.
 
     Peer buffers.  The gathered ``a``, the reduce-scatter's fp32 ``comm
-    [2, m, N]`` and the shift's output are written by the neighbours: they
-    live in one buffer of this process, ``cudaMalloc``'d in the C side
-    (the base of an allocation, as ``cudaIpcGetMemHandle`` wants), sized
-    for the largest call so far.  Its IPC handle goes to every process
-    once, and each opens its two neighbours'; a larger call grows every
-    buffer and exchanges the handles again.  Results are copied out of
-    the buffer, which the next call reuses.
+    [n − 1, m, N]`` and the shift's output are written by the neighbours:
+    they live in one buffer of this process, ``cudaMalloc``'d in the C
+    side (the base of an allocation, as ``cudaIpcGetMemHandle`` wants),
+    sized for the largest call so far.  Its IPC handle goes to every
+    process once, and each opens its two neighbours'; a larger call grows
+    every buffer and exchanges the handles again.  Every rank's call has
+    the same shapes (a ring's slots are one size), so every process
+    grows at the same call.  Results are copied out of the buffer, which
+    the next call reuses.
 
-    Step order.  A call starts with every process's stream synchronized
-    and the group met (an all-reduce that also agrees on the buffer size):
-    nothing writes into a buffer a peer still reads.  After each step's
-    launch the process synchronizes its stream and meets the group at a
-    barrier, in place of the virtual ring's stream order and of the
-    reference's DMA semaphores and credit handshake; nothing spins on
-    the device.  :meth:`close` (every process together) unmaps the
-    neighbours' buffers and frees this one."""
+    Order.  The kernels synchronize among themselves: each call's
+    number on the ring (the epoch) goes to the kernel, which raises it in
+    its neighbours' flag words (allocated and opened once, beside the
+    buffers) and waits for theirs before it writes into them (the
+    reference's neighbour barrier), then waits on flags for every slot or
+    partial a neighbour delivers.  So a call neither synchronizes the
+    stream nor meets the group; only growing the buffers and
+    :meth:`close` (every process together) do."""
 
     def __init__(self, group=None):
         self.group = group
@@ -390,6 +474,9 @@ class ProcessRing:
         self._buf = None        # this process's buffer (a device pointer)
         self._bytes = 0
         self._peers = {}        # neighbour's group rank → its mapped buffer
+        self._flags = None      # this process's flag words
+        self._flag_peers = {}   # neighbour's group rank → its flag words
+        self._epoch = 0         # the calls launched on the ring
 
     # -- plain versions ---------------------------------------------------
 
@@ -432,52 +519,66 @@ class ProcessRing:
 
     # -- the kernels across processes -------------------------------------
 
-    def _step_done(self, device) -> None:
-        torch.cuda.current_stream(device).synchronize()
-        dist.barrier(group=self.group)
-
     def _buffers(self, device, nbytes: int) -> tuple:
-        """``(own, right, left)`` pointers, each buffer at least ``nbytes``
-        on every process, once the group has met with every stream
-        synchronized."""
-        torch.cuda.current_stream(device).synchronize()
-        need = torch.tensor([nbytes], dtype=torch.int64)
-        if dist.get_backend(self.group) != "gloo":
-            need = need.to(device)
-        dist.all_reduce(need, op=dist.ReduceOp.MAX, group=self.group)
-        need = int(need.item())
-        if need > self._bytes:
-            self._grow(device, need)
-        return self._buf, self._peers[self.right], self._peers[self.left]
+        """``(own, right, left)`` pointers, this buffer at least ``nbytes``
+        (every process's, as every rank's call asks the same), then the
+        flag words and the call's epoch.  The group meets only to grow."""
+        if nbytes > self._bytes:
+            self._grow(device, nbytes)
+        self._epoch += 1
+        return (self._buf, self._peers[self.right], self._peers[self.left],
+                self._flags, self._flag_peers[self.right],
+                self._flag_peers[self.left], self._epoch)
 
-    def _grow(self, device, nbytes: int) -> None:
-        lib = library("ring")
-        self._release(lib)
-        torch.cuda.set_device(device)
+    def _open(self, lib, nbytes: int, what: str) -> tuple:
+        """A zeroed buffer of ``nbytes`` in this process and its two
+        neighbours' mapped, the handles exchanged across the group."""
         ptr = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(64)
         _cuda_ok(lib, lib.tpu_dra_ipc_alloc(nbytes, ctypes.byref(ptr),
-                                            handle), "ProcessRing buffer")
-        self._buf, self._bytes = ptr.value, nbytes
+                                            handle), f"ProcessRing {what}")
         handles = [None] * self.n
         dist.all_gather_object(handles, handle.raw, group=self.group)
+        peers = {}
         for peer in sorted({self.right, self.left}):
             mapped = ctypes.c_void_p()
             _cuda_ok(lib, lib.tpu_dra_ipc_open(handles[peer],
                                                ctypes.byref(mapped)),
-                     f"ProcessRing: opening rank {peer}'s buffer")
-            self._peers[peer] = mapped.value
+                     f"ProcessRing: opening rank {peer}'s {what}")
+            peers[peer] = mapped.value
+        return ptr.value, peers
 
-    def _release(self, lib) -> None:
-        if self._buf is None:
+    def _grow(self, device, nbytes: int) -> None:
+        """Every process together, once no kernel of the ring runs."""
+        lib = library("ring")
+        torch.cuda.set_device(device)
+        torch.cuda.current_stream(device).synchronize()
+        dist.barrier(group=self.group)
+        self._release(lib)
+        if self._flags is None:
+            self._flags, self._flag_peers = self._open(
+                lib, 4 * lib.tpu_dra_ring_flag_words(self.n), "flag words")
+        self._buf, self._peers = self._open(lib, nbytes, "buffer")
+        self._bytes = nbytes
+
+    def _release(self, lib, flags: bool = False) -> None:
+        """Unmap the neighbours' buffers (and flag words) and free this
+        process's, every process together."""
+        own = [self._buf] + ([self._flags] if flags else [])
+        peers = [self._peers] + ([self._flag_peers] if flags else [])
+        if all(p is None for p in own):
             return
-        for ptr in self._peers.values():
-            _cuda_ok(lib, lib.tpu_dra_ipc_close(ptr),
-                     "ProcessRing: closing a neighbour's buffer")
-        self._peers = {}
-        dist.barrier(group=self.group)   # no peer holds this buffer open
-        _cuda_ok(lib, lib.tpu_dra_ipc_free(self._buf), "ProcessRing buffer")
-        self._buf, self._bytes = None, 0
+        for mapped in peers:
+            for ptr in mapped.values():
+                _cuda_ok(lib, lib.tpu_dra_ipc_close(ptr),
+                         "ProcessRing: closing a neighbour's buffer")
+        dist.barrier(group=self.group)   # no peer holds them open
+        for ptr in own:
+            if ptr is not None:
+                _cuda_ok(lib, lib.tpu_dra_ipc_free(ptr), "ProcessRing buffer")
+        self._buf, self._bytes, self._peers = None, 0, {}
+        if flags:
+            self._flags, self._flag_peers = None, {}
 
     def _copy_out(self, lib, shape, like):
         out = torch.empty(shape, dtype=like.dtype, device=like.device)
@@ -488,18 +589,18 @@ class ProcessRing:
         return out
 
     def close(self) -> None:
-        """Unmap the neighbours' buffers and free this one; every
-        process of the group calls it together."""
-        if self._buf is not None:
+        """Unmap the neighbours' buffers and flag words and free this
+        process's; every process of the group calls it together."""
+        if self._buf is not None or self._flags is not None:
             torch.cuda.synchronize()
             dist.barrier(group=self.group)
-            self._release(library("ring"))
+            self._release(library("ring"), flags=True)
 
     def all_gather_matmul(self, x, w):
         """``(y [n·m, N], a [n, m, K])`` for this rank's x ``[m, K]`` and
-        w ``[K, N]`` (row #9 of the kernel table): n launches,
-        bidirectional where m is even and n > 2, as the reference
-        chooses."""
+        w ``[K, N]`` (row #9 of the kernel table): one launch for the n
+        ring steps, bidirectional where m is even and n > 2, as the
+        reference chooses."""
         m, K, N = _local_dims(x, w, "all_gather_matmul")
         if x.device.type == "cpu":
             return self.all_gather_matmul_ref(x, w)
@@ -509,24 +610,23 @@ class ProcessRing:
             return dot_f32(x, w).to(x.dtype), x[None]
         _check_matmul_args(x[None, None], w[None, None], K, N,
                            "all_gather_matmul")
-        lib = library("ring")
-        own, right, left = self._buffers(x.device, n * m * K * 2)
+        lib = _ring_library("all_gather_matmul")
+        own, right, left, *flags, epoch = self._buffers(x.device,
+                                                        n * m * K * 2)
         y = torch.empty((n * m, N), dtype=x.dtype, device=x.device)
         bidir = int(m % 2 == 0 and n > 2)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        for step in range(n):
-            rc = lib.tpu_dra_ring_ag_matmul_peer(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(), own, right, left,
-                self.rank, n, m, K, N, step, bidir, stream)
-            check_launch(lib, rc, "all_gather_matmul")
-            all_gather_matmul.launches += 1
-            self._step_done(x.device)
+        rc = lib.tpu_dra_ring_ag_matmul_peer(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), own, right, left,
+            *flags, self.rank, n, m, K, N, bidir, epoch,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(lib, rc, "all_gather_matmul")
+        all_gather_matmul.launches += 1
         return y, self._copy_out(lib, (n, m, K), x)
 
     def matmul_reduce_scatter(self, x, w):
         """``y [m, N]``, chunk r of the ranks' summed ``x @ w`` for this
-        rank's x ``[n·m, K]`` (row #10): n launches, the fp32 partials
-        passed into rank r + 1's ``comm``."""
+        rank's x ``[n·m, K]`` (row #10): one launch for the n ring steps,
+        the fp32 partials passed into rank r + 1's ``comm``."""
         mk, K, N = _local_dims(x, w, "matmul_reduce_scatter")
         n = self.n
         if mk % n:
@@ -540,22 +640,22 @@ class ProcessRing:
         m = mk // n
         _check_matmul_args(x[None, None], w[None, None], K, N,
                            "matmul_reduce_scatter")
-        lib = library("ring")
-        own, right, _ = self._buffers(x.device, 2 * m * N * 4)
+        lib = _ring_library("matmul_reduce_scatter")
+        own, right, _, *flags, epoch = self._buffers(x.device,
+                                                     (n - 1) * m * N * 4)
         y = torch.empty((m, N), dtype=x.dtype, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        for step in range(n):
-            rc = lib.tpu_dra_ring_matmul_rs_peer(
-                x.data_ptr(), w.data_ptr(), own, right, y.data_ptr(),
-                self.rank, n, m, K, N, step, stream)
-            check_launch(lib, rc, "matmul_reduce_scatter")
-            matmul_reduce_scatter.launches += 1
-            self._step_done(x.device)
+        rc = lib.tpu_dra_ring_matmul_rs_peer(
+            x.data_ptr(), w.data_ptr(), own, right, y.data_ptr(), *flags,
+            self.rank, n, m, K, N, epoch,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(lib, rc, "matmul_reduce_scatter")
+        matmul_reduce_scatter.launches += 1
         return y
 
     def ring_shift(self, x, reverse: bool = False):
         """This rank's ``x`` into rank r + 1's buffer (``reverse``: r − 1)
-        and the block that landed here back (row #11): one launch."""
+        and the block that landed here back (row #11): one launch, which
+        ends once that block has landed."""
         if x.device.type == "cpu":
             return self.ring_shift_ref(x, reverse)
         require_cuda(x, "ring_shift")
@@ -565,14 +665,14 @@ class ProcessRing:
         nbytes = x.numel() * x.element_size()
         if nbytes == 0:
             return torch.empty_like(x)
-        lib = library("ring")
-        _, right, left = self._buffers(x.device, nbytes)
-        rc = lib.tpu_dra_ring_shift(
-            x.data_ptr(), left if reverse else right, 1, 1, nbytes, 1,
+        lib = _ring_library("ring_shift")
+        _, right, left, *flags, epoch = self._buffers(x.device, nbytes)
+        rc = lib.tpu_dra_ring_shift_peer(
+            x.data_ptr(), left if reverse else right, nbytes, *flags,
+            self.rank, self.n, -1 if reverse else 1, epoch,
             torch.cuda.current_stream(x.device).cuda_stream)
         check_launch(lib, rc, "ring_shift")
         ring_shift.launches += 1
-        self._step_done(x.device)
         return self._copy_out(lib, x.shape, x)
 
 
